@@ -6,17 +6,27 @@
 Phases (any failure exits non-zero):
 1. build the CUDA kernels from ``procedurevrl_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time;
-2. K1 (spatial attention forward) and 3. K2 (temporal attention forward)
-   against their plain PyTorch versions at the main-path shapes of
+2. K1f (spatial attention forward) and 3. K2f (temporal attention forward)
+   against their plain PyTorch versions at the eval shapes of
    TimeSformer-B with 16 views (bf16), plus a small float32 case each;
    time the kernel, the plain version and one PyTorch library call that
    computes the same function (the yardstick; the port never calls it);
    compute the bound from the shapes;
-4. the slice: ``procedurevrl_torch.tools.test_net.test`` on
+4. K1sp (forward that saves the probabilities) and K1b (its backward), and
+   5. K2b (temporal backward), the same way at the training shapes
+   (18 clips x 8 frames, bf16) plus small float32 cases;
+6. slice 1: ``procedurevrl_torch.tools.test_net.test`` on
    ``configs/COIN/step_classification.yaml`` with synthetic data, full
    TimeSformer-B in bf16, 192 clips in batches of 16; launch counts of
-   both kernels must be 12 per batch; one batch is held against the same
-   model run through the plain versions.
+   both forward kernels must be 12 per batch; one batch is held against
+   the same model run through the plain versions;
+7. slice 2: ``procedurevrl_torch.tools.train_net.train`` on
+   ``configs/HowTo100M/procedurevrl_adamw.yaml`` with synthetic data, full
+   TimeSformer-B + CLIP text tower + order transformer, AdamW, bf16,
+   2 samples x 9 clips per step, ``TPU.REMAT`` as the config sets it:
+   2 warm-up + 10 timed steps with finite losses and asserted launch
+   counts, then 3 timed steps without remat; one step is held against the
+   same step through the plain versions; one step is profiled.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -41,7 +51,20 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 # post-softmax predictions of 12 bf16 blocks, kernels vs plain versions
 PRED_ATOL = 1e-2
+# one bf16 train step, kernels vs plain versions: relative loss and global
+# gradient-norm difference, and the least cosine similarity of any trained
+# tensor's gradient (bf16 rounding of activations and gradients differs
+# between the two paths, so the step agrees only to bf16 precision)
+STEP_LOSS_RTOL = 1e-2
+STEP_NORM_RTOL = 5e-2
+STEP_MIN_COS = 0.99
 DEPTH = 12
+TRAIN_STEPS = 12           # 2 warm-up + 10 timed
+NO_REMAT_STEPS = 5         # 2 warm-up + 3 timed
+CLIPS_PER_SAMPLE = 9
+# analytic count (utils/misc.py:39 flops_count_timesformer + temporal_fc):
+# ~391 GFLOP per clip forward; a train step is ~3x that (forward + backward)
+FWD_GFLOP_PER_CLIP = 391.0
 
 
 def fail(msg: str) -> None:
@@ -69,29 +92,59 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 21) -> float:
     return statistics.median(times)
 
 
-def profile_step(torch, step, batch, top: int = 12) -> None:
-    """Device time by kernel for one eval step (torch.profiler), and the
-    device busy share of the step's wall time."""
+def profile_step(torch, label: str, fn, top: int = 12) -> None:
+    """Device time by kernel for one call of ``fn`` (torch.profiler), and
+    the device busy share of its wall time (the rest is the host gap)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels that
+    # are counted on their own
     kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile of one eval step (16 clips): wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
+    print(f"profile of {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), host gap "
+          f"{wall_ms - busy_ms:.3f} ms, "
           f"{sum(e.count for e in kernels)} kernel launches")
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(kernel_group(e.key), [0.0, 0])
+        g[0] += e.self_device_time_total / 1e3
+        g[1] += e.count
+    for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  group {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of "
+              f"busy), {n} launches")
     for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
               f"{e.key[:100]}")
+
+
+# profile groups: the first pattern found in a kernel's name decides
+KERNEL_GROUPS = (("port kernels", ("spatial_", "temporal_")),
+                 ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                 ("LayerNorm", ("layer_norm",)),
+                 ("optimizer", ("multi_tensor", "adam", "foreach")),
+                 ("copies and casts", ("copy", "cat", "index")),
+                 ("reductions", ("reduce",)),
+                 ("elementwise", ("elementwise",)))
+
+
+def kernel_group(key: str) -> str:
+    low = key.lower()
+    for name, patterns in KERNEL_GROUPS:
+        if any(p in low for p in patterns):
+            return name
+    return "other"
 
 
 def compare(torch, name, got, ref, tol) -> float:
@@ -113,6 +166,23 @@ def bound_ms(nbytes: float, flops: float, peak: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
+
+
+def grad_tol(tol: dict, ref) -> dict:
+    """``tol`` with the atol scaled by the reference's largest magnitude: a
+    ds value that rounds to the neighbouring bf16 value moves every product
+    it feeds by one ulp of that product's scale."""
+    return dict(tol, atol=tol["atol"] * max(ref.float().abs().max().item(), 1.0))
+
+
+def sdpa_ms(torch, F, q, k, v, g):
+    """The library yardstick for a backward: SDPA forward, and SDPA forward
+    + backward less the forward, on inputs that require grad."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    both = time_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q, k, v), (q, k, v), g))
+    return fwd, both - fwd
 
 
 def phase_k1(torch, F, k1) -> dict:
@@ -190,14 +260,135 @@ def phase_k2(torch, F, k2) -> dict:
 
 @contextlib.contextmanager
 def plain_attention(k1, k2):
-    """Route the model through the plain versions (reference run only)."""
-    saved = k1.spatial_attention, k2.temporal_attention
-    k1.spatial_attention = k1.spatial_attention_plain
-    k2.temporal_attention = k2.temporal_attention_plain
+    """Route the model through the plain versions (reference runs only):
+    the model's attention entries become the plain forwards, which autograd
+    differentiates under grad."""
+    saved = k1.spatial_attention_autograd, k2.temporal_attention_autograd
+    k1.spatial_attention_autograd = k1.spatial_attention_plain
+    k2.temporal_attention_autograd = k2.temporal_attention_plain
     try:
         yield
     finally:
-        k1.spatial_attention, k2.temporal_attention = saved
+        k1.spatial_attention_autograd, k2.temporal_attention_autograd = saved
+
+
+def phase_k1_train(torch, F, k1) -> list:
+    """K1sp and K1b at the training shape (2 samples x 9 clips x 8 frames)."""
+    bt, n, heads, d = 2 * CLIPS_PER_SAMPLE * 8, 196, 12, 64
+    c, L = heads * d, n + 1
+    ls = k1.probs_stride(L)
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    qkv, qkv_c, g, gc = r(bt, n, 3 * c), r(bt, 1, 3 * c), r(bt, n, c), r(bt, 1, c)
+    out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale)
+    ref, ref_c, ref_p = k1.spatial_attention_fwd_probs_plain(qkv, qkv_c, heads,
+                                                             scale)
+    err_sp = max(compare(torch, "K1sp bf16 frames", out, ref, BF16_TOL),
+                 compare(torch, "K1sp bf16 cls", out_c, ref_c, BF16_TOL),
+                 compare(torch, "K1sp bf16 probs", probs, ref_p, BF16_TOL))
+    if probs[..., L:].any():
+        fail("K1sp wrote non-zero padding columns")
+    dx, dx_c = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, heads, scale)
+    rdx, rdx_c = k1.spatial_attention_bwd_plain(qkv, qkv_c, probs, g, gc,
+                                                heads, scale)
+    err_b = max(compare(torch, "K1b bf16 dqkv", dx, rdx, grad_tol(BF16_TOL, rdx)),
+                compare(torch, "K1b bf16 dqkv_c", dx_c, rdx_c,
+                        grad_tol(BF16_TOL, rdx_c)))
+    # float32 (scalar kernels) at a smaller batch
+    q32, qc32, g32, gc32 = (t[:4].float() for t in (qkv, qkv_c, g, gc))
+    o32, oc32, p32 = k1.spatial_attention_fwd_probs(q32, qc32, heads, scale)
+    r32, rc32, rp32 = k1.spatial_attention_fwd_probs_plain(q32, qc32, heads,
+                                                           scale)
+    compare(torch, "K1sp fp32 frames", o32, r32, FP32_TOL)
+    compare(torch, "K1sp fp32 cls", oc32, rc32, FP32_TOL)
+    compare(torch, "K1sp fp32 probs", p32, rp32, FP32_TOL)
+    d32, dc32 = k1.spatial_attention_bwd(q32, qc32, p32, g32, gc32, heads, scale)
+    rd32, rdc32 = k1.spatial_attention_bwd_plain(q32, qc32, p32, g32, gc32,
+                                                 heads, scale)
+    compare(torch, "K1b fp32 dqkv", d32, rd32, grad_tol(FP32_TOL, rd32))
+    compare(torch, "K1b fp32 dqkv_c", dc32, rdc32, grad_tol(FP32_TOL, rdc32))
+
+    ms_sp = time_ms(torch, lambda: k1.spatial_attention_fwd_probs(
+        qkv, qkv_c, heads, scale))
+    plain_sp = time_ms(torch, lambda: k1.spatial_attention_fwd_probs_plain(
+        qkv, qkv_c, heads, scale), iters=10)
+    ms_b = time_ms(torch, lambda: k1.spatial_attention_bwd(
+        qkv, qkv_c, probs, g, gc, heads, scale))
+    plain_b = time_ms(torch, lambda: k1.spatial_attention_bwd_plain(
+        qkv, qkv_c, probs, g, gc, heads, scale), iters=5)
+    # yardstick: SDPA on [BT, H, L, d] with the CLS concatenated
+    x = torch.cat([qkv, qkv_c], dim=1).view(bt, L, 3, heads, d)
+    q, k, v = (x[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    gy = torch.cat([g, gc], dim=1).view(bt, L, heads, d).transpose(1, 2)
+    lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, gy.contiguous())
+
+    e = 2  # bf16 bytes
+    nb_sp = bt * L * (3 * c + c) * e + bt * heads * L * ls * e
+    fl_sp = 2 * 2 * bt * heads * L * L * d
+    nb_b = bt * L * (3 * c + c + 3 * c) * e + bt * heads * L * ls * e
+    fl_b = 4 * 2 * bt * heads * L * L * d
+    b_sp, by_sp = bound_ms(nb_sp, fl_sp, BF16_FLOPS)
+    b_b, by_b = bound_ms(nb_b, fl_b, BF16_FLOPS)
+    print(f"K1sp [{bt},{n},{3 * c}] bf16: kernel {ms_sp:.4f} ms, plain "
+          f"{plain_sp:.4f} ms, SDPA fwd {lib_fwd:.4f} ms, bound {b_sp:.4f} ms "
+          f"({by_sp}: {nb_sp / 1e6:.1f} MB, {fl_sp / 1e9:.2f} GFLOP)")
+    print(f"K1b [{bt},{n},{3 * c}] bf16: kernel {ms_b:.4f} ms, plain "
+          f"{plain_b:.4f} ms, SDPA bwd {lib_bwd:.4f} ms, bound {b_b:.4f} ms "
+          f"({by_b}: {nb_b / 1e6:.1f} MB, {fl_b / 1e9:.2f} GFLOP)")
+    src = "procedurevrl_torch/csrc/spatial_attention.cu"
+    return [{"name": k1.KERNEL_PROBS, "route": "cuda", "source": src,
+             "replaces": "procedurevrl_tpu/ops/pallas_attention.py:917",
+             "max_abs_err": err_sp, "ms": ms_sp, "plain_ms": plain_sp,
+             "bound_ms": b_sp, "bound_by": by_sp, "library_ms": lib_fwd},
+            {"name": k1.KERNEL_BWD, "route": "cuda", "source": src,
+             "replaces": "procedurevrl_tpu/ops/pallas_attention.py:941",
+             "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+             "bound_ms": b_b, "bound_by": by_b, "library_ms": lib_bwd}]
+
+
+def phase_k2_train(torch, F, k2) -> dict:
+    """K2b at the training shape (18 clips x 8 frames)."""
+    b, t, n, heads, d = 2 * CLIPS_PER_SAMPLE, 8, 196, 12, 64
+    c = heads * d
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn(b, t, n, 3 * c, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(b, t, n, c, generator=gen, device="cuda").bfloat16()
+    dx = k2.temporal_attention_bwd(qkv, g, heads, scale)
+    ref = k2.temporal_attention_bwd_plain(qkv, g, heads, scale)
+    err = compare(torch, "K2b bf16", dx, ref, grad_tol(BF16_TOL, ref))
+    for tt in (8, 3):
+        q32 = qkv[:2, :tt].float().contiguous()
+        g32 = g[:2, :tt].float().contiguous()
+        r32 = k2.temporal_attention_bwd_plain(q32, g32, heads, scale)
+        compare(torch, f"K2b fp32 T={tt}",
+                k2.temporal_attention_bwd(q32, g32, heads, scale), r32,
+                grad_tol(FP32_TOL, r32))
+
+    ms = time_ms(torch, lambda: k2.temporal_attention_bwd(qkv, g, heads, scale))
+    plain_ms = time_ms(torch, lambda: k2.temporal_attention_bwd_plain(
+        qkv, g, heads, scale), iters=5)
+    # yardstick: SDPA on [B*N, H, T, d]
+    x = qkv.view(b, t, n, 3, heads, d).permute(3, 0, 2, 4, 1, 5)
+    q, k, v = (x[i].reshape(b * n, heads, t, d).contiguous() for i in range(3))
+    gy = g.view(b, t, n, heads, d).permute(0, 2, 3, 1, 4).reshape(
+        b * n, heads, t, d).contiguous()
+    _, lib_bwd = sdpa_ms(torch, F, q, k, v, gy)
+    nbytes = b * t * n * (3 * c + c + 3 * c) * 2
+    flops = 5 * 2 * b * n * heads * t * t * d
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    print(f"K2b [{b},{t},{n},{3 * c}] bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA bwd {lib_bwd:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"name": k2.KERNEL_BWD, "route": "cuda",
+            "source": "procedurevrl_torch/csrc/temporal_attention.cu",
+            "replaces": "procedurevrl_tpu/ops/pallas_attention.py:1512",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd}
 
 
 def phase_slice(torch, k1, k2, _build) -> dict:
@@ -233,6 +424,9 @@ def phase_slice(torch, k1, k2, _build) -> dict:
         if launches.get(key, 0) != DEPTH * n_batches:
             fail(f"{key} launched {launches.get(key, 0)} times, expected "
                  f"{DEPTH} x {n_batches}")
+    for key in (k1.KERNEL_PROBS, k1.KERNEL_BWD, k2.KERNEL_BWD):
+        if launches.get(key, 0):
+            fail(f"the eval path launched the training kernel {key}")
     for key in ("top1_acc", "top5_acc"):
         if not math.isfinite(float(stats[key])):
             fail(f"{key} is not finite")
@@ -256,7 +450,127 @@ def phase_slice(torch, k1, k2, _build) -> dict:
           f"max pred {preds.max().item():.4f}")
     if diff > PRED_ATOL:
         fail("predictions through the kernels disagree with the plain path")
-    profile_step(torch, step, batch)
+    profile_step(torch, "one eval step (16 clips)",
+                 lambda: step(batch))
+    return launches
+
+
+def train_cfg(remat: bool):
+    from procedurevrl_torch.config import load_config
+
+    return load_config(
+        os.path.join(ROOT, "configs/HowTo100M/procedurevrl_adamw.yaml"),
+        ["DEV.LOAD_DUMMY_DATA", "True", "TRAIN.BATCH_SIZE", "2",
+         "GLOBAL_BATCH_SIZE", "2", "TPU.REMAT", str(remat)])
+
+
+def run_train(torch, _build, remat: bool, steps: int):
+    """``train_net.train`` for ``steps`` steps from zeroed launch counts and
+    peak memory; returns (stats, launches, peak bytes)."""
+    from procedurevrl_torch.tools.train_net import train
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    stats = train(train_cfg(remat), device="cuda", max_steps=steps)
+    torch.cuda.synchronize()
+    return stats, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def step_vs_plain(torch, k1, k2):
+    """One train step through the kernels and the same step (params, batch,
+    generator seeds) through the plain versions; returns the kernel path's
+    step function and batch for the profile."""
+    from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.solver.lr_policy import lr_schedule
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+
+    cfg = train_cfg(True)
+    batch = SyntheticPretrain(cfg).batch(2, 0, torch.Generator(device="cuda"))
+
+    def one_step():
+        model, bank = build_model(cfg, "cuda")
+        step = make_train_step(model, construct_optimizer(model, cfg), cfg,
+                               bank, lr_schedule(cfg, 1))
+        m = step(batch)
+        grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}
+        return step, {k: float(v) for k, v in m.items()}, grads
+
+    step, mk, gk = one_step()
+    with plain_attention(k1, k2):
+        _, mp, gp = one_step()
+    worst_cos, worst = 1.0, ""
+    for name, g in gk.items():
+        a, b = g.flatten(), gp[name].flatten()
+        na, nb = a.norm().item(), b.norm().item()
+        cos = 1.0 if na == nb == 0.0 else (a @ b).item() / max(na * nb, 1e-30)
+        if cos < worst_cos:
+            worst_cos, worst = cos, name
+    d_loss = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    d_norm = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    print(f"train step vs plain versions: loss {mk['loss']:.6f} / "
+          f"{mp['loss']:.6f} (rel {d_loss:.2e}, tol {STEP_LOSS_RTOL}), "
+          f"kl {mk['kl']:.6f} / {mp['kl']:.6f}, mse {mk['mse']:.6f} / "
+          f"{mp['mse']:.6f}, grad norm {mk['grad_norm']:.6f} / "
+          f"{mp['grad_norm']:.6f} (rel {d_norm:.2e}, tol {STEP_NORM_RTOL}), "
+          f"least gradient cosine {worst_cos:.6f} ({worst}; min "
+          f"{STEP_MIN_COS}) over {len(gk)} trained tensors")
+    if not all(math.isfinite(v) for v in mk.values()):
+        fail("train step metrics are not finite")
+    if d_loss > STEP_LOSS_RTOL or d_norm > STEP_NORM_RTOL:
+        fail("the train step through the kernels disagrees with the plain path")
+    if worst_cos < STEP_MIN_COS:
+        fail(f"gradient of {worst} disagrees with the plain path "
+             f"(cosine {worst_cos:.4f})")
+    return step, batch
+
+
+def phase_train(torch, k1, k2, _build) -> dict:
+    """Drive slice 2; return the launch counts of its main run."""
+    from procedurevrl_torch.tools.train_net import WARMUP_STEPS
+
+    stats, launches, peak = run_train(torch, _build, True, TRAIN_STEPS)
+    clips = stats["clips_per_step"]
+    for i, h in enumerate(stats["history"]):
+        print(f"train step {i + 1}: loss {h['loss']:.6f} kl {h['kl']:.6f} "
+              f"mse {h['mse']:.6f} grad_norm {h['grad_norm']:.4f} "
+              f"lr {h['lr']:.3e}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse")):
+            fail(f"train step {i + 1} has a non-finite loss")
+    if len(stats["history"]) != TRAIN_STEPS:
+        fail(f"{len(stats['history'])} train steps, expected {TRAIN_STEPS}")
+    rate = stats["clips_per_sec"]
+    print(f"train slice (remat): {clips} clips/step, {rate:.2f} clips/s over "
+          f"steps {WARMUP_STEPS + 1}..{TRAIN_STEPS} (~"
+          f"{3 * FWD_GFLOP_PER_CLIP * rate / 1e3:.1f} model TFLOP/s), peak "
+          f"memory {peak / 2 ** 30:.3f} GiB, launches {launches}")
+    # under remat every block's forward runs twice (the forward, and its
+    # recomputation for the backward), each backward kernel once
+    expected = {k1.KERNEL_PROBS: 2 * DEPTH * TRAIN_STEPS,
+                k2.KERNEL: 2 * DEPTH * TRAIN_STEPS,
+                k1.KERNEL_BWD: DEPTH * TRAIN_STEPS,
+                k2.KERNEL_BWD: DEPTH * TRAIN_STEPS, k1.KERNEL: 0}
+    for key, n in expected.items():
+        if launches.get(key, 0) != n:
+            fail(f"{key} launched {launches.get(key, 0)} times in "
+                 f"{TRAIN_STEPS} steps, expected {n}")
+
+    stats2, launches2, peak2 = run_train(torch, _build, False, NO_REMAT_STEPS)
+    rate2 = stats2["clips_per_sec"]
+    print(f"train slice (no remat): {rate2:.2f} clips/s over steps "
+          f"{WARMUP_STEPS + 1}..{NO_REMAT_STEPS}, peak memory "
+          f"{peak2 / 2 ** 30:.3f} GiB, launches {launches2}, losses "
+          f"{[round(h['loss'], 6) for h in stats2['history']]}")
+    for key in (k1.KERNEL_PROBS, k2.KERNEL, k1.KERNEL_BWD, k2.KERNEL_BWD):
+        if launches2.get(key, 0) != DEPTH * NO_REMAT_STEPS:
+            fail(f"{key} launched {launches2.get(key, 0)} times without "
+                 f"remat, expected {DEPTH * NO_REMAT_STEPS}")
+
+    step, batch = step_vs_plain(torch, k1, k2)
+    profile_step(torch, f"one train step ({clips} clips, remat)",
+                 lambda: float(step(batch)["loss"]))
     return launches
 
 
@@ -290,10 +604,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [phase_k1(torch, F, k1), phase_k2(torch, F, k2)]
+    eval_kernels = [phase_k1(torch, F, k1), phase_k2(torch, F, k2)]
+    train_kernels = phase_k1_train(torch, F, k1) + [phase_k2_train(torch, F, k2)]
     launches = phase_slice(torch, k1, k2, _build)
-    for rec in kernels:
+    for rec in eval_kernels:
         rec["launches"] = launches.get(rec["name"], 0)
+    launches = phase_train(torch, k1, k2, _build)
+    for rec in train_kernels:
+        rec["launches"] = launches.get(rec["name"], 0)
+    kernels = eval_kernels + train_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)

@@ -4,7 +4,12 @@
 ``build_model(cfg, device)`` returns ``(model, label_emb)``: the model with
 float32 parameters drawn from ``cfg.RNG_SEED`` (on the CPU, then moved),
 in eval mode on ``device``, and the L2-normalised step bank as a float32
-tensor on the same device (or None when the config matches no bank).
+tensor on the same device (or None when the config matches no bank).  A
+pretraining config (``TRAIN.LABEL_EMB`` set) builds the order transformer
+and, with ``MODEL.TEXT_MODEL clip_vit_b_16``, the CLIP text tower
+(JAX ``build.py:_common_kwargs``).  Under ``DEV.LOAD_DUMMY_DATA`` a missing
+bank file is replaced by a seeded ``NUM_CLASSES x 512`` random bank, as the
+JAX builder does.
 """
 
 from __future__ import annotations
@@ -65,7 +70,13 @@ def build_model(cfg, device: Union[str, torch.device, None] = None
         attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
         drop_path_rate=cfg.MODEL.DROP_PATH, temp=cfg.DEV.TEMP,
         match_lang_emb=match_lang, order_pretrain=cfg.DEV.ORDER_PRETRAIN_ENABLED,
-        num_seg=cfg.MODEL.NUM_SEG, compute_dtype=compute_dtype(cfg),
+        order_max_len=cfg.DEV.ORDER_PRETRAIN_MAX_LEN,
+        order_tfm_layers=cfg.DEV.ORDER_TFM_LAYERS,
+        order_recog_batch=cfg.DEV.ORDER_RECOG_BATCH,
+        num_seg=cfg.MODEL.NUM_SEG,
+        with_text_model=cfg.MODEL.TEXT_MODEL == "clip_vit_b_16",
+        text_layers=cfg.DEV.TEXT_LAYERS, compute_dtype=compute_dtype(cfg),
+        remat=cfg.TPU.REMAT,
     )
     model.reset_parameters(torch.Generator().manual_seed(cfg.RNG_SEED))
     model = model.to(device).eval()

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from procedurevrl_torch.models.layers import (
     Attention, DropPath, LayerNormFp32, Linear, Mlp, init_linear,
@@ -23,6 +24,9 @@ from procedurevrl_torch.models.layers import (
 from procedurevrl_torch.ops.common import (
     interpolate_nearest_1d, interpolate_nearest_2d, trunc_normal_init,
 )
+
+# stochastic-depth keep masks of a block: temporal [B], spatial [B*T], MLP [B]
+Keep = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class PatchEmbed(nn.Module):
@@ -72,46 +76,73 @@ class DividedSTBlock(nn.Module):
         self.temporal_attn.reset_parameters(generator)
         init_linear(self.temporal_fc, generator)
 
-    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], T: int
+    def draw_masks(self, B: int, T: int, device: torch.device,
+                   generator: Optional[torch.Generator]) -> Optional[Keep]:
+        """Stochastic-depth keep masks of one forward (None when the block
+        drops nothing): per sample for the temporal residual and the MLP,
+        per (sample, frame) for the spatial residual, whose CLS and frame
+        streams share it (JAX ``timesformer.py:153-161``)."""
+        dp = self.drop_path
+        masks = (dp.draw(B, device, generator), dp.draw(B * T, device, generator),
+                 dp.draw(B, device, generator))
+        return None if masks[0] is None else masks
+
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor], T: int,
+                keep: Optional[Keep] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         dp = self.drop_path
+        keep_t, keep_s, keep_m = keep if keep is not None else (None,) * 3
         cls, xt = x
         B = cls.shape[0]
         BT, N, D = xt.shape
 
         # temporal attention over T per patch location
         xt4 = xt.view(B, T, N, D)
-        res = dp(self.temporal_attn(self.temporal_norm1(xt4), time_axis=True))
+        res = dp(self.temporal_attn(self.temporal_norm1(xt4), time_axis=True),
+                 keep_t)
         xt = xt + self.temporal_fc(res).view(BT, N, D)
 
         # spatial attention over [cls] + N per frame, the CLS replicated
         # per frame and its outputs averaged over T
         cls_rep = self.norm1(cls)[:, None].expand(B, T, 1, D).reshape(BT, 1, D)
-        res_frames, res_cls = dp(self.attn(self.norm1(xt), cls_stream=cls_rep))
+        res_frames, res_cls = dp(self.attn(self.norm1(xt), cls_stream=cls_rep),
+                                 keep_s)
         cls = cls + res_cls.view(B, T, D).mean(dim=1, keepdim=True)
         xt = xt + res_frames
 
         mlp_cls, mlp_xt = dp((self.mlp(self.norm2(cls)),
-                              self.mlp(self.norm2(xt))))
+                              self.mlp(self.norm2(xt))), keep_m)
         return cls + mlp_cls, xt + mlp_xt
 
 
 class TimeSformer(nn.Module):
     """TimeSformer-B encoder (reference ``lib/models/vit.py:183-423``):
-    ``[B, T, H, W, 3]`` video -> CLS feature ``[B, D]``."""
+    ``[B, T, H, W, 3]`` video -> CLS feature ``[B, D]``.
+
+    In train mode each block draws its stochastic-depth masks from the
+    ``generator`` given to ``forward`` (on the input's device).  With
+    ``remat`` (``TPU.REMAT``) each block runs under
+    ``torch.utils.checkpoint`` when gradients are recorded: its activations
+    are dropped after the forward and the whole block is recomputed for the
+    backward, attention kernels included (the JAX package keeps the
+    attention outputs and probabilities across its remat; a selective
+    policy is later work).  The masks are drawn before the block, so the
+    recomputation reapplies them."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  num_frames: int = 8,
                  attention_type: str = "divided_space_time",
-                 drop_path_rate: float = 0.1, norm_eps: float = 1e-6):
+                 drop_path_rate: float = 0.1, norm_eps: float = 1e-6,
+                 remat: bool = False):
         super().__init__()
         if attention_type != "divided_space_time":
             raise NotImplementedError(
                 f"{attention_type} attention is not ported yet")
         self.patch_size = patch_size
         self.embed_dim = embed_dim
+        self.remat = remat
         num_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -151,7 +182,8 @@ class TimeSformer(nn.Module):
         other = interpolate_nearest_2d(other, (n_tok // gw, gw), dims=(1, 2))
         return torch.cat([pe[:, :1], other.reshape(1, n_tok, d)], dim=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, H, W, C = x.shape
         D = self.embed_dim
         gw = W // self.patch_size
@@ -166,6 +198,11 @@ class TimeSformer(nn.Module):
         spatial = tokens[:, 1:].reshape(B, T, n_tok, D) + te.to(dt)[:, :, None]
         state: Tuple[torch.Tensor, torch.Tensor] = (
             cls, spatial.reshape(B * T, n_tok, D))
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            state = blk(state, T)
+            keep = blk.draw_masks(B, T, x.device, generator)
+            if remat:
+                state = checkpoint(blk, state, T, keep, use_reentrant=False)
+            else:
+                state = blk(state, T, keep)
         return self.norm(state[0])[:, 0]

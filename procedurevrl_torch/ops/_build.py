@@ -38,9 +38,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "spatial_attention": {
         "spatial_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "spatial_attention_fwd_probs": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _F, _P],
+        "spatial_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _P],
     },
     "temporal_attention": {
         "temporal_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "temporal_attention_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 

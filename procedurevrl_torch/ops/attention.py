@@ -8,10 +8,15 @@ are cast to the activation dtype at each product, as the JAX package casts
 
 - ``attention_core`` / ``mhsa_xla``: plain attention with a row-max
   softmax, as the JAX package's XLA paths.
+- ``mhsa``: the dispatcher of the JAX package's ``mhsa``.  The JAX package
+  sends unmasked, non-causal sequences of 128..1024 tokens to its kernel K4
+  when asked for Pallas; no default model path does (the CLIP tower is
+  causal, the order transformer does not ask), so the port's ``mhsa`` is
+  the plain path until K4 is ported.
 - ``mhsa_cls``: the spatial pass with the CLS as a separate stream, through
-  kernel K1 (``ops/spatial_attention.py``).
+  kernel K1 (``ops/spatial_attention.py``: K1f, or K1sp + K1b under grad).
 - ``mhsa_temporal``: the temporal pass on the ``[B, T, N, C]`` view,
-  through kernel K2 (``ops/temporal_attention.py``).
+  through kernel K2 (``ops/temporal_attention.py``: K2f, + K2b under grad).
 Both kernels use the clamp shift ``exp(min(s, 80))`` of the JAX package's
 Pallas kernels, which equals the row-max softmax while logits stay below 80.
 """
@@ -66,6 +71,16 @@ def mhsa_xla(x: torch.Tensor, qkv_w: torch.Tensor,
     return _linear(o.transpose(1, 2).reshape(b, n, c), proj_w, proj_b)
 
 
+def mhsa(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: Optional[torch.Tensor],
+         proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
+         key_padding_mask: Optional[torch.Tensor] = None,
+         causal: bool = False) -> torch.Tensor:
+    """Self-attention on x [B, N, C] with an optional key padding mask
+    ([B, N], True = masked out) and causal mask (plain path)."""
+    return mhsa_xla(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                    key_padding_mask, causal)
+
+
 def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
              qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
              proj_b: torch.Tensor, num_heads: int
@@ -77,7 +92,8 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
     d = x.shape[-1] // num_heads
     qkv = _linear(x, qkv_w, qkv_b)
     qkv_c = _linear(cls_x, qkv_w, qkv_b)
-    out, out_c = k1.spatial_attention(qkv, qkv_c, num_heads, d ** -0.5)
+    out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, num_heads,
+                                               d ** -0.5)
     return _linear(out, proj_w, proj_b), _linear(out_c, proj_w, proj_b)
 
 
@@ -87,5 +103,5 @@ def mhsa_temporal(x: torch.Tensor, qkv_w: torch.Tensor,
     """Self-attention over axis 1 of the time-major stream x [B, T, N, C]."""
     d = x.shape[-1] // num_heads
     qkv = _linear(x, qkv_w, qkv_b)  # [B, T, N, 3C], read in place by K2
-    out = k2.temporal_attention(qkv, num_heads, d ** -0.5)
+    out = k2.temporal_attention_autograd(qkv, num_heads, d ** -0.5)
     return _linear(out, proj_w, proj_b)

@@ -4,7 +4,11 @@
 - ``layer_norm_fp32``: LayerNorm computed in float32 whatever the compute
   dtype, cast back to the input dtype.  The JAX package's MXU ones-dot
   reductions are a TPU device; here it is the plain LayerNorm.
-- ``gelu_exact``: the erf form of GELU (torch ``nn.GELU()`` default).
+- ``gelu_exact``: the erf form of GELU (torch ``nn.GELU()`` default), with
+  autograd's own backward.  The JAX package's stored-derivative variant is
+  a TPU memory device and has no counterpart.
+- ``quick_gelu``: CLIP's ``x * sigmoid(1.702 x)``.
+- ``sinusoidal_time_embedding``: the diffusion time embedding.
 - ``interpolate_nearest_1d/2d``: torch ``F.interpolate(mode='nearest')``
   index rule ``src = floor(dst * in / out)``, used to resize the position
   and time embeddings.
@@ -14,6 +18,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -29,6 +34,21 @@ def layer_norm_fp32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's ``x * sigmoid(1.702 x)``, in the input dtype."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Diffusion time embedding: t [B] levels -> [B, dim] float32,
+    cat(sin, cos) over ``dim // 2`` geometric frequencies."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
+                      * -(math.log(10000.0) / (half - 1)))
+    args = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 def interpolate_nearest_1d(x: torch.Tensor, out_len: int,

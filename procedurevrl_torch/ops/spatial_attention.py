@@ -1,14 +1,23 @@
-"""K1 forward: spatial attention of the divided space-time block, with the
-CLS token as a separate stream (``csrc/spatial_attention.cu``).
+"""K1: spatial attention of the divided space-time block, with the CLS token
+as a separate stream (``csrc/spatial_attention.cu``).
 
-Replaces the TPU kernel ``procedurevrl_tpu/ops/pallas_attention.py:
-_fwd_cls_qkv_kernel``, the forward of ``flash_attention_cls_qkv``.  The
-JAX kernel takes its qkv columns in a per-head-group window order that
-exists only for the TPU's 128-lane tiles; the port keeps the standard
-``[q | k | v]`` column order of the projection.
+Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_attention.py``:
+``_fwd_cls_qkv_kernel`` (K1f, the forward), ``_fwd_cls_qkv_kernel_sp``
+(K1sp, the forward under grad that also saves the probabilities) and
+``_bwd_cls_qkv_kernel_sp`` (K1b, the backward from them), the pieces of
+``flash_attention_cls_qkv`` on one device.  The JAX kernels take their qkv
+columns in a per-head-group window order that exists only for the TPU's
+128-lane tiles; the port keeps the standard ``[q | k | v]`` column order of
+the projection.
 
-:func:`spatial_attention` launches the CUDA kernel for a CUDA tensor and
-takes :func:`spatial_attention_plain` only for a CPU tensor.  Bound, design
+The saved probabilities are ``[BT, H, L, LS]`` in the value dtype: L = N + 1
+rows and columns in the order [patches; CLS], LS = L rounded up to 8 (rows
+16-byte aligned), columns L..LS-1 zero.
+
+Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
+version only for a CPU tensor.  :func:`spatial_attention_autograd` is what
+the model calls: under grad it goes through :class:`SpatialAttention`
+(K1sp forward, K1b backward), otherwise straight to K1f.  Bounds, design
 and the H100 numbers: see the source note and ``PERF.md``.
 """
 
@@ -21,32 +30,93 @@ import torch
 from procedurevrl_torch.ops import _build
 
 KERNEL = "spatial_attention_fwd"
+KERNEL_PROBS = "spatial_attention_fwd_probs"
+KERNEL_BWD = "spatial_attention_bwd"
 HEAD_DIM = 64
-MAX_LEN = 256  # n + 1 tokens per frame
+MAX_LEN = 256  # n + 1 tokens per frame, forward
+MAX_BWD_LEN = 208  # n + 1 tokens per frame, backward (shared-memory tile)
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def probs_stride(seq_len: int) -> int:
+    """Row stride of the saved probabilities: ``seq_len`` rounded up to 8."""
+    return (seq_len + 7) // 8 * 8
+
+
+def _split_heads(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int):
+    """q, k, v [BT, L, H, d] of the [patches; CLS] sequence."""
+    bt, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    x = torch.cat([qkv, qkv_c], dim=1).view(bt, n + 1, 3, num_heads, d)
+    return x.unbind(dim=2)
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """fp32 logits and clamp-shift softmax, cast to ``dtype``: [BT, H, L, L]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(torch.clamp(s, max=CLAMP_HI))
+    return (p / p.sum(dim=-1, keepdim=True)).to(dtype)
+
+
+def spatial_attention_fwd_probs_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                      num_heads: int, scale: float
+                                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """Plain PyTorch version of K1sp (same arithmetic as K1f).
+
+    qkv [BT, N, 3C], qkv_c [BT, 1, 3C] -> (out [BT, N, C], out_c [BT, 1, C],
+    probs [BT, H, N + 1, LS]).  Every query of [patches; CLS] attends over
+    the same N+1 keys; logits and softmax in fp32 with the clamp shift,
+    probabilities cast to the value dtype before the fp32-accumulated PV
+    product."""
+    bt, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = _split_heads(qkv, qkv_c, num_heads)
+    p = _probs(q, k, scale, v.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
+    o = o.to(qkv.dtype).reshape(bt, n + 1, c)
+    pad = probs_stride(n + 1) - (n + 1)
+    probs = torch.nn.functional.pad(p, (0, pad))
+    return o[:, :n].contiguous(), o[:, n:].contiguous(), probs
 
 
 def spatial_attention_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
                             num_heads: int, scale: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel (same arithmetic).
+    """Plain PyTorch version of K1f: the outputs of
+    :func:`spatial_attention_fwd_probs_plain`."""
+    out, out_c, _ = spatial_attention_fwd_probs_plain(qkv, qkv_c, num_heads,
+                                                      scale)
+    return out, out_c
 
-    qkv [BT, N, 3C], qkv_c [BT, 1, 3C] -> (out [BT, N, C], out_c [BT, 1, C]).
-    Every query of [patches; CLS] attends over the same N+1 keys; logits
-    and softmax in fp32 with the clamp shift, probabilities cast to the
-    value dtype before the fp32-accumulated PV product."""
+
+def spatial_attention_bwd_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                probs: torch.Tensor, g: torch.Tensor,
+                                gc: torch.Tensor, num_heads: int, scale: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1b, the backward written out.
+
+    From the saved probabilities p (value dtype) and the output gradients
+    g [BT, N, C], gc [BT, 1, C]: dv = p^T g; dp = g v^T in fp32;
+    ds = p (dp - rowsum(dp p)) in fp32, cast to the value dtype;
+    dq = scale ds k, dk = scale ds^T q; returns (dqkv [BT, N, 3C],
+    dqkv_c [BT, 1, 3C]) in ``[q | k | v]`` columns.  Like the kernel it is
+    the softmax jacobian, ignoring the clamp."""
     bt, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    x = torch.cat([qkv, qkv_c], dim=1).view(bt, n + 1, 3, num_heads, d)
-    q, k, v = x.unbind(dim=2)  # [BT, L, H, d]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    p = torch.exp(torch.clamp(s, max=CLAMP_HI))
-    p = p / p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    o = o.to(qkv.dtype).reshape(bt, n + 1, c)
-    return o[:, :n].contiguous(), o[:, n:].contiguous()
+    L = n + 1
+    dt = qkv.dtype
+    q, k, v = (t.float() for t in _split_heads(qkv, qkv_c, num_heads))
+    gf = torch.cat([g, gc], dim=1).view(bt, L, num_heads, -1).float()
+    p = probs[..., :L].float()  # [BT, H, L, L]
+    dv = torch.einsum("bhij,bihd->bjhd", p, gf)
+    dp = torch.einsum("bihd,bjhd->bhij", gf, v)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bhij,bjhd->bihd", ds, k) * scale
+    dk = torch.einsum("bhij,bihd->bjhd", ds, q) * scale
+    dx = torch.stack([dq, dk, dv], dim=2).to(dt).reshape(bt, L, c3)
+    return dx[:, :n].contiguous(), dx[:, n:].contiguous()
 
 
 def _check(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int) -> None:
@@ -62,9 +132,48 @@ def _check(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int) -> None:
                          "or device")
 
 
+def _check_kernel(tensors, num_heads: int, max_len: int) -> None:
+    """What every K1 kernel needs of its CUDA inputs."""
+    qkv = tensors[0]
+    if qkv.device.type != "cuda":
+        raise ValueError(f"spatial_attention: no kernel for device "
+                         f"{qkv.device}")
+    bt, n, c3 = qkv.shape
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(f"spatial_attention: dtype {qkv.dtype} not supported")
+    if c3 // 3 // num_heads != HEAD_DIM or n + 1 > max_len:
+        raise ValueError(f"spatial_attention: kernel needs head dim "
+                         f"{HEAD_DIM} and N + 1 <= {max_len}")
+    for t in tensors:
+        if t.device != qkv.device or t.dtype != qkv.dtype:
+            raise ValueError("spatial_attention: inputs differ in dtype or "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError("spatial_attention: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("spatial_attention: inputs must be 16-byte "
+                             "aligned")
+
+
+def _launch(fn: str, kernel: str, qkv: torch.Tensor, *args) -> None:
+    lib = _build.load("spatial_attention")
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    _build.check(rc, kernel)
+    _build.count_launch(kernel)
+
+
+def _outputs(qkv: torch.Tensor):
+    bt, n, c3 = qkv.shape
+    c = c3 // 3
+    return (torch.empty((bt, n, c), dtype=qkv.dtype, device=qkv.device),
+            torch.empty((bt, 1, c), dtype=qkv.dtype, device=qkv.device))
+
+
 def spatial_attention(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CLS-split spatial attention on the fused qkv projection.
+    """K1f: CLS-split spatial attention on the fused qkv projection.
 
     qkv [BT, N, 3C], qkv_c [BT, 1, 3C] (float32 or bfloat16, contiguous,
     head dim 64, N + 1 <= 256) -> (frame_out [BT, N, C], cls_out [BT, 1, C]).
@@ -72,28 +181,94 @@ def spatial_attention(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
     _check(qkv, qkv_c, num_heads)
     if qkv.device.type == "cpu":
         return spatial_attention_plain(qkv, qkv_c, num_heads, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"spatial_attention: no kernel for device "
-                         f"{qkv.device}")
-    bt, n, c3 = qkv.shape
-    c = c3 // 3
-    if qkv.dtype not in _DTYPES:
-        raise ValueError(f"spatial_attention: dtype {qkv.dtype} not supported")
-    if c // num_heads != HEAD_DIM or n + 1 > MAX_LEN:
-        raise ValueError(f"spatial_attention: kernel needs head dim "
-                         f"{HEAD_DIM} and N + 1 <= {MAX_LEN}")
-    if not (qkv.is_contiguous() and qkv_c.is_contiguous()):
-        raise ValueError("spatial_attention: inputs must be contiguous")
-    if qkv.data_ptr() % 16 or qkv_c.data_ptr() % 16:
-        raise ValueError("spatial_attention: inputs must be 16-byte aligned")
-    out = torch.empty((bt, n, c), dtype=qkv.dtype, device=qkv.device)
-    out_c = torch.empty((bt, 1, c), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.load("spatial_attention")
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.spatial_attention_fwd(
-            qkv.data_ptr(), qkv_c.data_ptr(), out.data_ptr(), out_c.data_ptr(),
-            bt, n, num_heads, _DTYPES[qkv.dtype], float(scale), stream)
-    _build.check(rc, KERNEL)
-    _build.count_launch(KERNEL)
+    _check_kernel((qkv, qkv_c), num_heads, MAX_LEN)
+    bt, n, _ = qkv.shape
+    out, out_c = _outputs(qkv)
+    _launch(KERNEL, KERNEL, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
+            out.data_ptr(), out_c.data_ptr(), bt, n, num_heads,
+            _DTYPES[qkv.dtype], float(scale))
     return out, out_c
+
+
+def spatial_attention_fwd_probs(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                num_heads: int, scale: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """K1sp: K1f that also returns the probabilities [BT, H, N + 1, LS]."""
+    _check(qkv, qkv_c, num_heads)
+    if qkv.device.type == "cpu":
+        return spatial_attention_fwd_probs_plain(qkv, qkv_c, num_heads, scale)
+    _check_kernel((qkv, qkv_c), num_heads, MAX_LEN)
+    bt, n, _ = qkv.shape
+    out, out_c = _outputs(qkv)
+    probs = torch.empty((bt, num_heads, n + 1, probs_stride(n + 1)),
+                        dtype=qkv.dtype, device=qkv.device)
+    _launch(KERNEL_PROBS, KERNEL_PROBS, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
+            out.data_ptr(), out_c.data_ptr(), probs.data_ptr(), bt, n,
+            num_heads, _DTYPES[qkv.dtype], float(scale))
+    return out, out_c, probs
+
+
+def spatial_attention_bwd(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                          probs: torch.Tensor, g: torch.Tensor,
+                          gc: torch.Tensor, num_heads: int, scale: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b: (dqkv [BT, N, 3C], dqkv_c [BT, 1, 3C]) from the K1sp
+    probabilities and the output gradients g [BT, N, C], gc [BT, 1, C]
+    (N + 1 <= 208 on the card)."""
+    _check(qkv, qkv_c, num_heads)
+    bt, n, c3 = qkv.shape
+    L = n + 1
+    if probs.shape != (bt, num_heads, L, probs_stride(L)):
+        raise ValueError(f"spatial_attention_bwd: probs {tuple(probs.shape)} "
+                         f"is not [{bt}, {num_heads}, {L}, {probs_stride(L)}]")
+    if g.shape != (bt, n, c3 // 3) or gc.shape != (bt, 1, c3 // 3):
+        raise ValueError(f"spatial_attention_bwd: gradients {tuple(g.shape)} "
+                         f"/ {tuple(gc.shape)} do not fit qkv "
+                         f"{tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return spatial_attention_bwd_plain(qkv, qkv_c, probs, g, gc,
+                                           num_heads, scale)
+    _check_kernel((qkv, qkv_c, probs, g, gc), num_heads, MAX_BWD_LEN)
+    dqkv = torch.empty_like(qkv)
+    dqkv_c = torch.empty_like(qkv_c)
+    _launch(KERNEL_BWD, KERNEL_BWD, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
+            probs.data_ptr(), g.data_ptr(), gc.data_ptr(), dqkv.data_ptr(),
+            dqkv_c.data_ptr(), bt, n, num_heads, _DTYPES[qkv.dtype],
+            float(scale))
+    return dqkv, dqkv_c
+
+
+class SpatialAttention(torch.autograd.Function):
+    """K1 under autograd: K1sp forward (saves qkv, qkv_c and the
+    probabilities), K1b backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float):
+        out, out_c, probs = spatial_attention_fwd_probs(qkv, qkv_c, num_heads,
+                                                        scale)
+        ctx.save_for_backward(qkv, qkv_c, probs)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out, out_c
+
+    @staticmethod
+    def backward(ctx, g, gc):
+        qkv, qkv_c, probs = ctx.saved_tensors
+        g = torch.zeros_like(qkv[..., :qkv.shape[-1] // 3]) if g is None else g
+        gc = (torch.zeros_like(qkv_c[..., :qkv_c.shape[-1] // 3]) if gc is None
+              else gc)
+        dqkv, dqkv_c = spatial_attention_bwd(
+            qkv, qkv_c, probs, g.contiguous(), gc.contiguous(), ctx.num_heads,
+            ctx.scale)
+        return dqkv, dqkv_c, None, None
+
+
+def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                               num_heads: int, scale: float
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's entry: :class:`SpatialAttention` (K1sp + K1b) when grad
+    is enabled and an input requires it, else :func:`spatial_attention`
+    (K1f), so evaluation runs the forward-only kernel."""
+    if torch.is_grad_enabled() and (qkv.requires_grad or qkv_c.requires_grad):
+        return SpatialAttention.apply(qkv, qkv_c, num_heads, scale)
+    return spatial_attention(qkv, qkv_c, num_heads, scale)

@@ -1,14 +1,20 @@
-"""K2 forward: temporal attention of the divided space-time block, read in
-place from the time-major stream (``csrc/temporal_attention.cu``).
+"""K2: temporal attention of the divided space-time block, read in place
+from the time-major stream (``csrc/temporal_attention.cu``).
 
-Replaces the TPU kernel ``procedurevrl_tpu/ops/pallas_attention.py:
-_temporal_fwd_kernel``, the forward of ``flash_attention_temporal``.  The
-JAX kernel also writes "compact" probabilities laid out for the TPU's
-matrix unit, which only its backward reads; this forward writes none.
+Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_attention.py``:
+``_temporal_fwd_kernel`` (K2f, the forward of ``flash_attention_temporal``)
+and ``_temporal_bwd_kernel`` (K2b, its backward).  The JAX forward also
+writes "compact" probabilities laid out for the TPU's matrix unit, which
+only its backward reads.  Here the forward writes none: the backward
+recomputes them from q and k with the forward's own device function (they
+are 8 x 8 per position and head), so K2f is the same kernel in evaluation
+and training.
 
-:func:`temporal_attention` launches the CUDA kernel for a CUDA tensor and
-takes :func:`temporal_attention_plain` only for a CPU tensor.  Bound, design
-and the H100 numbers: see the source note and ``PERF.md``.
+Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
+version only for a CPU tensor.  :func:`temporal_attention_autograd` is what
+the model calls: under grad it goes through :class:`TemporalAttention` (K2f
+forward, K2b backward).  Bounds, design and the H100 numbers: see the
+source note and ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -18,61 +24,154 @@ import torch
 from procedurevrl_torch.ops import _build
 
 KERNEL = "temporal_attention_fwd"
+KERNEL_BWD = "temporal_attention_bwd"
 HEAD_DIM = 64
 MAX_T = 16
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _split(qkv: torch.Tensor, num_heads: int):
+    """q, k, v [B, T, N, H, d] of the fused stream."""
+    b, t, n, c3 = qkv.shape
+    return qkv.view(b, t, n, 3, num_heads, c3 // 3 // num_heads).unbind(dim=3)
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """fp32 logits and clamp-shift softmax over T, cast to ``dtype``:
+    [B, N, H, T, T]."""
+    s = torch.einsum("btnhd,bsnhd->bnhts", q.float(), k.float()) * scale
+    p = torch.exp(torch.clamp(s, max=CLAMP_HI))
+    return (p / p.sum(dim=-1, keepdim=True)).to(dtype)
+
+
 def temporal_attention_plain(qkv: torch.Tensor, num_heads: int,
                              scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same arithmetic).
+    """Plain PyTorch version of K2f (same arithmetic).
 
     qkv [B, T, N, 3C] -> [B, T, N, C]: for every (b, n, head) the T queries
     attend over the T keys; logits and softmax in fp32 with the clamp
     shift, probabilities cast to the value dtype before the
     fp32-accumulated PV product."""
     b, t, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    q, k, v = qkv.view(b, t, n, 3, num_heads, d).unbind(dim=3)
-    s = torch.einsum("btnhd,bsnhd->bnhts", q.float(), k.float()) * scale
-    p = torch.exp(torch.clamp(s, max=CLAMP_HI))
-    p = p / p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bnhts,bsnhd->btnhd", p.to(v.dtype).float(), v.float())
-    return o.to(qkv.dtype).reshape(b, t, n, c)
+    q, k, v = _split(qkv, num_heads)
+    p = _probs(q, k, scale, v.dtype)
+    o = torch.einsum("bnhts,bsnhd->btnhd", p.float(), v.float())
+    return o.to(qkv.dtype).reshape(b, t, n, c3 // 3)
+
+
+def temporal_attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
+                                 num_heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K2b, the backward written out.
+
+    qkv [B, T, N, 3C], g [B, T, N, C] -> dqkv [B, T, N, 3C]: p recomputed as
+    the forward computes it; dp = g v^T in fp32; ds = p (dp - rowsum(dp p))
+    cast to the value dtype; dq = scale ds k, dk = scale ds^T q, dv = p^T g.
+    Like the kernel it is the softmax jacobian, ignoring the clamp."""
+    b, t, n, c3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _split(qkv, num_heads)
+    p = _probs(q, k, scale, dt).float()  # [B, N, H, T(query), T(key)]
+    gf = g.view(b, t, n, num_heads, -1).float()
+    dp = torch.einsum("btnhd,bsnhd->bnhts", gf, v.float())
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bnhts,bsnhd->btnhd", ds, k.float()) * scale
+    dk = torch.einsum("bnhts,btnhd->bsnhd", ds, q.float()) * scale
+    dv = torch.einsum("bnhts,btnhd->bsnhd", p, gf)
+    return torch.stack([dq, dk, dv], dim=3).to(dt).reshape(b, t, n, c3)
+
+
+def _check(qkv: torch.Tensor, num_heads: int) -> None:
+    if qkv.dim() != 4 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"temporal_attention: qkv {tuple(qkv.shape)} is not "
+                         f"[B, T, N, 3C] for {num_heads} heads")
+
+
+def _check_kernel(tensors, num_heads: int) -> None:
+    """What both K2 kernels need of their CUDA inputs."""
+    qkv = tensors[0]
+    if qkv.device.type != "cuda":
+        raise ValueError(f"temporal_attention: no kernel for device "
+                         f"{qkv.device}")
+    t, c3 = qkv.shape[1], qkv.shape[3]
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(f"temporal_attention: dtype {qkv.dtype} not "
+                         "supported")
+    if c3 // 3 // num_heads != HEAD_DIM or not 1 <= t <= MAX_T:
+        raise ValueError(f"temporal_attention: kernel needs head dim "
+                         f"{HEAD_DIM} and 1 <= T <= {MAX_T}")
+    for x in tensors:
+        if x.device != qkv.device or x.dtype != qkv.dtype:
+            raise ValueError("temporal_attention: inputs differ in dtype or "
+                             "device")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("temporal_attention: inputs must be contiguous "
+                             "and 16-byte aligned")
+
+
+def _launch(fn: str, qkv: torch.Tensor, *args) -> None:
+    lib = _build.load("temporal_attention")
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    _build.check(rc, fn)
+    _build.count_launch(fn)
 
 
 def temporal_attention(qkv: torch.Tensor, num_heads: int,
                        scale: float) -> torch.Tensor:
-    """Attention over axis 1 of qkv [B, T, N, 3C] (float32 or bfloat16,
-    contiguous, head dim 64, T <= 16) -> [B, T, N, C]."""
-    if qkv.dim() != 4 or qkv.shape[-1] % (3 * num_heads):
-        raise ValueError(f"temporal_attention: qkv {tuple(qkv.shape)} is not "
-                         f"[B, T, N, 3C] for {num_heads} heads")
+    """K2f: attention over axis 1 of qkv [B, T, N, 3C] (float32 or
+    bfloat16, contiguous, head dim 64, T <= 16) -> [B, T, N, C]."""
+    _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         return temporal_attention_plain(qkv, num_heads, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"temporal_attention: no kernel for device "
-                         f"{qkv.device}")
+    _check_kernel((qkv,), num_heads)
     b, t, n, c3 = qkv.shape
-    c = c3 // 3
-    if qkv.dtype not in _DTYPES:
-        raise ValueError(f"temporal_attention: dtype {qkv.dtype} not "
-                         "supported")
-    if c // num_heads != HEAD_DIM or not 1 <= t <= MAX_T:
-        raise ValueError(f"temporal_attention: kernel needs head dim "
-                         f"{HEAD_DIM} and 1 <= T <= {MAX_T}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("temporal_attention: qkv must be contiguous and "
-                         "16-byte aligned")
-    out = torch.empty((b, t, n, c), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.load("temporal_attention")
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.temporal_attention_fwd(
-            qkv.data_ptr(), out.data_ptr(), b, t, n, num_heads,
-            _DTYPES[qkv.dtype], float(scale), stream)
-    _build.check(rc, KERNEL)
-    _build.count_launch(KERNEL)
+    out = torch.empty((b, t, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _launch(KERNEL, qkv, qkv.data_ptr(), out.data_ptr(), b, t, n, num_heads,
+            _DTYPES[qkv.dtype], float(scale))
     return out
+
+
+def temporal_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                           num_heads: int, scale: float) -> torch.Tensor:
+    """K2b: dqkv [B, T, N, 3C] from qkv and the output gradient
+    g [B, T, N, C]."""
+    _check(qkv, num_heads)
+    b, t, n, c3 = qkv.shape
+    if g.shape != (b, t, n, c3 // 3):
+        raise ValueError(f"temporal_attention_bwd: gradient {tuple(g.shape)} "
+                         f"does not fit qkv {tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return temporal_attention_bwd_plain(qkv, g, num_heads, scale)
+    _check_kernel((qkv, g), num_heads)
+    dqkv = torch.empty_like(qkv)
+    _launch(KERNEL_BWD, qkv, qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b,
+            t, n, num_heads, _DTYPES[qkv.dtype], float(scale))
+    return dqkv
+
+
+class TemporalAttention(torch.autograd.Function):
+    """K2 under autograd: K2f forward (saves qkv), K2b backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return temporal_attention(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return (temporal_attention_bwd(qkv, g.contiguous(), ctx.num_heads,
+                                       ctx.scale), None, None)
+
+
+def temporal_attention_autograd(qkv: torch.Tensor, num_heads: int,
+                                scale: float) -> torch.Tensor:
+    """The model's entry: :class:`TemporalAttention` when grad is enabled
+    and qkv requires it, else :func:`temporal_attention`."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return TemporalAttention.apply(qkv, num_heads, scale)
+    return temporal_attention(qkv, num_heads, scale)

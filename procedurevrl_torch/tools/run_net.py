@@ -1,11 +1,17 @@
 """Command-line entry of the port (counterpart of ``tools/run_net.py``).
 
-    python -m procedurevrl_torch.tools.run_net --cfg configs/COIN/step_classification.yaml \\
+    python -m procedurevrl_torch.tools.run_net \\
+        --cfg configs/HowTo100M/procedurevrl_adamw.yaml \\
+        DEV.LOAD_DUMMY_DATA True TRAIN.BATCH_SIZE 2 GLOBAL_BATCH_SIZE 2
+
+runs order pretraining on the card (``TRAIN.ENABLE``), and
+
+    python -m procedurevrl_torch.tools.run_net \\
+        --cfg configs/COIN/step_classification.yaml \\
         TRAIN.ENABLE False DEV.MATCH_LANG_EMB True DEV.LOAD_DUMMY_DATA True
 
-runs the multi-view test on the card and prints the final top-1/top-5 as
-one JSON line.  ``--device cpu`` runs the plain PyTorch path instead.
-Training comes with slice 2.
+runs the multi-view test (``TEST.ENABLE``).  Each prints its final stats
+as one JSON line.  ``--device cpu`` runs the plain PyTorch path instead.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from procedurevrl_torch.config import load_config
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="ProcedureVRL (PyTorch port) testing pipeline.")
+        description="ProcedureVRL (PyTorch port) training and testing "
+                    "pipeline.")
     parser.add_argument("--cfg", dest="cfg_file", default=None,
                         help="Path to the config file.")
     parser.add_argument("--device", default=None,
@@ -37,13 +44,16 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="[%(asctime)s][%(levelname)s] %(message)s")
     if cfg.TRAIN.ENABLE:
-        raise SystemExit("training is not ported yet: pass TRAIN.ENABLE False")
-    if not cfg.TEST.ENABLE:
-        return 0
-    from procedurevrl_torch.tools.test_net import test
+        from procedurevrl_torch.tools.train_net import train
 
-    stats = test(cfg, device=args.device)
-    print(json.dumps(stats))
+        stats = train(cfg, device=args.device)
+        last = stats["history"][-1] if stats["history"] else {}
+        print(json.dumps({"split": "train", "steps": stats["steps"],
+                          "clips_per_sec": stats["clips_per_sec"], **last}))
+    if cfg.TEST.ENABLE:
+        from procedurevrl_torch.tools.test_net import test
+
+        print(json.dumps(test(cfg, device=args.device)))
     return 0
 
 

@@ -1,5 +1,5 @@
 """Accuracy metrics (counterpart of ``procedurevrl_tpu/utils/metrics.py``;
-reference ``lib/utils/metrics.py:10-43``)."""
+reference ``lib/utils/metrics.py:10-52``)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,9 @@ def topks_correct(preds: torch.Tensor, labels: torch.Tensor,
     correct = top_inds == labels.reshape(-1, 1)
     return [correct[:, :k].sum().float() for k in ks]
 
+
+def topk_errors(preds: torch.Tensor, labels: torch.Tensor,
+                ks: Sequence[int]) -> List[torch.Tensor]:
+    """Top-k error rates in percent (reference ``lib/utils/metrics.py``)."""
+    return [(1.0 - x / preds.shape[0]) * 100.0
+            for x in topks_correct(preds, labels, ks)]

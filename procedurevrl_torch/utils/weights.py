@@ -62,16 +62,62 @@ def _encoder(enc: Mapping, out: Dict[str, torch.Tensor], in_chans: int = 3
     out["norm.bias"] = _t(enc["norm"]["bias"])
 
 
+def _resblocks(tree: Mapping, dst: str, out: Dict[str, torch.Tensor]) -> None:
+    """CLIP-style blocks ``resblocks_{i}`` -> ``{dst}{i}.*`` with
+    ``nn.MultiheadAttention`` / ``c_fc`` / ``c_proj`` names."""
+    depth = sum(1 for k in tree if k.startswith("resblocks_"))
+    for i in range(depth):
+        blk, pre = tree[f"resblocks_{i}"], f"{dst}{i}."
+        for ln in ("ln_1", "ln_2"):
+            out[pre + ln + ".weight"] = _t(blk[ln]["scale"])
+            out[pre + ln + ".bias"] = _t(blk[ln]["bias"])
+        a = blk["attn"]
+        out[pre + "attn.in_proj_weight"] = _t(np.asarray(a["qkv_kernel"]).T)
+        out[pre + "attn.in_proj_bias"] = _t(a["qkv_bias"])
+        out[pre + "attn.out_proj.weight"] = _t(np.asarray(a["proj_kernel"]).T)
+        out[pre + "attn.out_proj.bias"] = _t(a["proj_bias"])
+        _linear(blk["mlp"]["fc1"], pre + "mlp.c_fc", out)
+        _linear(blk["mlp"]["fc2"], pre + "mlp.c_proj", out)
+
+
+def _order_tfm(tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    """Inverse of ``convert_order_transformer``."""
+    pre = "order_tfm."
+    out[pre + "pad_embedding.weight"] = _t(tree["pad_embedding"])
+    out[pre + "type_embedding.weight"] = _t(tree["type_embedding"])
+    out[pre + "temporalEmbedding.weight"] = _t(tree["temporal_embedding"])
+    _linear(tree["time_mlp_fc1"], pre + "time_mlp.1", out)
+    _linear(tree["time_mlp_fc2"], pre + "time_mlp.3", out)
+    _resblocks(tree, pre + "temporalModelling.resblocks.", out)
+
+
+def _text_model(tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    """Inverse of ``convert_clip_text``."""
+    pre = "text_model."
+    out[pre + "token_embedding.weight"] = _t(tree["token_embedding"])
+    out[pre + "positional_embedding"] = _t(tree["positional_embedding"])
+    out[pre + "text_projection"] = _t(tree["text_projection"])
+    out[pre + "ln_final.weight"] = _t(tree["ln_final"]["scale"])
+    out[pre + "ln_final.bias"] = _t(tree["ln_final"]["bias"])
+    _resblocks(tree, pre + "transformer.resblocks.", out)
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter tree -> the port's state dict.
 
     Takes the tree of a JAX ``ProcedureVRL`` (``{"encoder": ..., "head":
-    ...}``) or of a bare ``TimeSformer``.  Inverse of ``convert_timesformer``
-    and ``convert_linear`` in ``procedurevrl_tpu/utils/converter.py``."""
+    ..., "order_tfm": ..., "text_model": ...}``) or of a bare
+    ``TimeSformer``.  Inverse of ``convert_timesformer``, ``convert_linear``,
+    ``convert_order_transformer`` and ``convert_clip_text`` in
+    ``procedurevrl_tpu/utils/converter.py``."""
     out: Dict[str, torch.Tensor] = {}
     _encoder(tree["encoder"] if "encoder" in tree else tree, out)
     if "head" in tree:
         _linear(tree["head"], "head", out)
+    if "order_tfm" in tree:
+        _order_tfm(tree["order_tfm"], out)
+    if "text_model" in tree:
+        _text_model(tree["text_model"], out)
     return out
 
 

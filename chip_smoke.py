@@ -26,7 +26,18 @@ Phases (any failure exits non-zero):
    2 samples x 9 clips per step, ``TPU.REMAT`` as the config sets it:
    2 warm-up + 10 timed steps with finite losses and asserted launch
    counts, then 3 timed steps without remat; one step is held against the
-   same step through the plain versions; one step is profiled.
+   same step through the plain versions; one step is profiled;
+8. K5f/K5b (MViT pooled attention, head-last) at blocks 0 and 4 and
+   K6f/K6b (head-split) at block 1 of MViT-v2-S with 18 clips (bf16), plus
+   small float32 and bf16 cases with logits above 80, against their plain
+   versions; timed beside SDPA with the bias as a float mask;
+9. slice 3: ``train_net.train`` on
+   ``configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml`` with synthetic
+   data, full MViT-v2-S (16 frames at 224^2) + CLIP text tower + order
+   transformer, AdamW, bf16, remat, 2 samples x 9 clips: 2 warm-up + 10
+   timed steps with finite losses and asserted launch counts (per step 26
+   K5f, 6 K6f, 13 K5b, 3 K6b); one step against the plain path; one step
+   profiled with its peak memory.
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -37,6 +48,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +61,15 @@ BF16_FLOPS = 989e12         # dense tensor-core peak
 # run in another order, so outputs may differ by a bf16 ulp or two
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+# K5f/K6f bf16 outputs: kernel and plain version round the same fp32 sums,
+# which differ only in summation order, so an element may sit one bf16 ulp
+# (<= 2^-7 of its magnitude) apart; the atol covers the fp32 order noise
+# of outputs near zero.  A typical |output| is 0.014-0.027 here, so one
+# missing key column (the cls, or the last key of a ragged tile) fails.
+MVIT_FWD_TOL = dict(atol=1e-3, rtol=1e-2)
+# the fp32 row sums l of K5f/K6f: sums of the same exponentials in another
+# order (relative differences ~1e-6; one missing column moves l by ~1/kN)
+ROWSUM_TOL = dict(atol=0.0, rtol=1e-4)
 # post-softmax predictions of 12 bf16 blocks, kernels vs plain versions
 PRED_ATOL = 1e-2
 # one bf16 train step, kernels vs plain versions: relative loss and global
@@ -58,10 +79,23 @@ PRED_ATOL = 1e-2
 STEP_LOSS_RTOL = 1e-2
 STEP_NORM_RTOL = 5e-2
 STEP_MIN_COS = 0.99
+# A gradient that is zero in exact arithmetic (MViT's key-norm bias adds
+# one vector to every key of a softmax, which leaves it unchanged; the last
+# block's q pool and rel-pos tables feed only body queries, which the CLS
+# readout never sees) comes back as nought or rounding noise, which has no
+# direction to compare.  A tensor
+# whose plain-path gradient norm is at most ROUNDING_RTOL x the global norm
+# counts as such, and the kernel path's norm of it must stay at most
+# ZERO_GRAD_RTOL x the global norm.
+ROUNDING_RTOL = 1e-5
+ZERO_GRAD_RTOL = 1e-4
 DEPTH = 12
 TRAIN_STEPS = 12           # 2 warm-up + 10 timed
 NO_REMAT_STEPS = 5         # 2 warm-up + 3 timed
 CLIPS_PER_SAMPLE = 9
+MVIT_CFG = "configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml"
+MVIT_HL_BLOCKS, MVIT_HS_BLOCKS = 13, 3  # MViT-v2-S blocks routed to K5 / K6
+MVIT_STEPS = 12                         # 2 warm-up + 10 timed
 # analytic count (utils/misc.py:39 flops_count_timesformer + temporal_fc):
 # ~391 GFLOP per clip forward; a train step is ~3x that (forward + backward)
 FWD_GFLOP_PER_CLIP = 391.0
@@ -130,7 +164,8 @@ def profile_step(torch, label: str, fn, top: int = 12) -> None:
 
 
 # profile groups: the first pattern found in a kernel's name decides
-KERNEL_GROUPS = (("port kernels", ("spatial_", "temporal_")),
+KERNEL_GROUPS = (("port kernels", ("spatial_", "temporal_", "mvit_")),
+                 ("convolutions", ("conv", "depthwise")),
                  ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
                  ("LayerNorm", ("layer_norm",)),
                  ("optimizer", ("multi_tensor", "adam", "foreach")),
@@ -259,17 +294,22 @@ def phase_k2(torch, F, k2) -> dict:
 
 
 @contextlib.contextmanager
-def plain_attention(k1, k2):
-    """Route the model through the plain versions (reference runs only):
-    the model's attention entries become the plain forwards, which autograd
+def plain_attention(k1, k2, k5):
+    """Route the models through the plain versions (reference runs only):
+    the models' attention entries become the plain forwards, which autograd
     differentiates under grad."""
-    saved = k1.spatial_attention_autograd, k2.temporal_attention_autograd
-    k1.spatial_attention_autograd = k1.spatial_attention_plain
-    k2.temporal_attention_autograd = k2.temporal_attention_plain
+    swaps = [(k1, "spatial_attention_autograd", k1.spatial_attention_plain),
+             (k2, "temporal_attention_autograd", k2.temporal_attention_plain),
+             (k5, "mvit_attention_hl", k5.mvit_attention_hl_plain),
+             (k5, "mvit_attention", k5.mvit_attention_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        k1.spatial_attention_autograd, k2.temporal_attention_autograd = saved
+        for (mod, name, _), entry in zip(swaps, saved):
+            setattr(mod, name, entry)
 
 
 def phase_k1_train(torch, F, k1) -> list:
@@ -391,7 +431,139 @@ def phase_k2_train(torch, F, k2) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd}
 
 
-def phase_slice(torch, k1, k2, _build) -> dict:
+def mvit_inputs(torch, gen, b, heads, qn, k_shape, dtype, hot=False):
+    """q, k, v, kc, vc, rel, g of one K5 call ([B, L, H*96]; a K6 call is
+    the same with B*H and one head); ``hot`` puts one query row's logits
+    above 80."""
+    kn, kcat, c = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape), heads * 96
+
+    def r(*shape):
+        return (0.5 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    x = [r(b, qn, c), r(b, kn, c), r(b, kn, c), r(b, 1, c), r(b, 1, c),
+         r(b, qn, heads * kcat), r(b, qn, c)]
+    if hot:
+        x[0][0, 5] = x[1][0, 3] * 40
+    return x
+
+
+def mvit_sdpa_ms(torch, F, k5, x, heads, k_shape, scale):
+    """The library yardstick: SDPA on [B, H, qN, 96] against the kN + 1 keys
+    [body; cls], with the decomposed bias expanded into a float mask (zero
+    on the cls column); forward, and forward + backward less the forward.
+    It is the same function while every logit stays below 80, and it
+    returns no gradient of rel."""
+    q, k, v, kc, vc, rel, g = x
+    b, qn, c = q.shape
+    split = lambda t: t.reshape(b, t.shape[1], heads, 96).transpose(1, 2)
+    kk, vv = split(torch.cat([k, kc], 1)), split(torch.cat([v, vc], 1))
+    it, ih, iw = k5._axis_index(k_shape, q.device)
+    r = rel.reshape(b, qn, heads, -1).transpose(1, 2).float()
+    bias = (r[..., it] + r[..., ih]) + r[..., iw]
+    mask = torch.cat([bias, bias.new_zeros(b, heads, qn, 1)], -1).to(q.dtype)
+    qs = split(q).detach().requires_grad_(True)
+    kk, vv = (t.detach().requires_grad_(True) for t in (kk, vv))
+    sdpa = lambda: F.scaled_dot_product_attention(qs, kk, vv, attn_mask=mask,
+                                                  scale=scale)
+    fwd = time_ms(torch, sdpa, iters=5, reps=5)
+    gy = split(g)
+    both = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, kk, vv), gy),
+                   iters=5, reps=5)
+    return fwd, both - fwd
+
+
+def phase_mvit_kernels(torch, F, k5) -> list:
+    """K5f/K5b at blocks 0 and 4 and K6f/K6b at block 1 of MViT-v2-S (18
+    clips, bf16), plus small float32 and bf16 cases with logits above 80;
+    returns the records of K5 at block 0 and K6 at block 1."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scale = 96 ** -0.5
+    records = []
+    cases = [("block 0", True, 18, 1, 25088, (8, 7, 7)),
+             ("block 4", True, 18, 4, 1568, (8, 7, 7)),
+             ("block 1", False, 36, 1, 6272, (8, 14, 14))]
+    for label, head_last, b, heads, qn, k_shape in cases:
+        if head_last:
+            fwd, fwd_plain = k5.mvit_attention_hl_fwd, k5.mvit_attention_hl_fwd_plain
+            bwd, bwd_plain = k5.mvit_attention_hl_bwd, k5.mvit_attention_hl_bwd_plain
+            hs = (heads,)
+        else:
+            fwd, fwd_plain = k5.mvit_attention_fwd, k5.mvit_attention_fwd_plain
+            bwd, bwd_plain = k5.mvit_attention_bwd, k5.mvit_attention_bwd_plain
+            hs = ()
+        tag = f"K{5 if head_last else 6}"
+        # small cases: float32 (scalar kernels) and bf16, one hot row each
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            sb, sh = (2, 2) if head_last else (4, 1)
+            xs = mvit_inputs(torch, gen, sb, sh, 70, (2, 3, 4), dtype, hot=True)
+            shs = (sh,) if head_last else ()
+            o, rs = fwd(*xs[:6], (2, 3, 4), *shs, scale)
+            ro, rrs = fwd_plain(*xs[:6], (2, 3, 4), *shs, scale)
+            name = f"{tag} small {str(dtype)[6:]} logits > 80"
+            compare(torch, f"{name} out", o, ro,
+                    tol if dtype == torch.float32 else MVIT_FWD_TOL)
+            compare(torch, f"{name} rowsum", rs, rrs, ROWSUM_TOL)
+            got = bwd(*xs[:6], rrs, xs[6], (2, 3, 4), *shs, scale)
+            want = bwd_plain(*xs[:6], rrs, xs[6], (2, 3, 4), *shs, scale)
+            for gname, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                                   got, want):
+                compare(torch, f"{name} {gname}", a, r, grad_tol(tol, r))
+        # the slice shape
+        x = mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16)
+        args = (*x[:6], k_shape, *hs, scale)
+        out, rowsum = fwd(*args)
+        ref, ref_rs = fwd_plain(*args)
+        err_f = compare(torch, f"{tag}f {label} bf16 out", out, ref,
+                        MVIT_FWD_TOL)
+        compare(torch, f"{tag}f {label} rowsum", rowsum, ref_rs, ROWSUM_TOL)
+        bargs = (*x[:6], ref_rs, x[6], k_shape, *hs, scale)
+        got, want = bwd(*bargs), bwd_plain(*bargs)
+        err_b = max(compare(torch, f"{tag}b {label} bf16 {n}", a, r,
+                            grad_tol(BF16_TOL, r))
+                    for n, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                                       got, want))
+        del out, ref, got, want
+        ms_f = time_ms(torch, lambda: fwd(*args))
+        ms_b = time_ms(torch, lambda: bwd(*bargs))
+        plain_f = time_ms(torch, lambda: fwd_plain(*args), iters=2, reps=5)
+        plain_b = time_ms(torch, lambda: bwd_plain(*bargs), iters=2, reps=5)
+        lib_f, lib_b = mvit_sdpa_ms(torch, F, k5, x, heads, k_shape, scale)
+        kn, kcat, c, e = x[1].shape[1], sum(k_shape), heads * 96, 2
+        ins = e * (b * qn * c + 2 * b * kn * c + 2 * b * c + b * qn * heads * kcat)
+        nb_f = ins + e * b * qn * c + 4 * b * heads * qn
+        nb_b = (ins + 4 * b * heads * qn + e * b * qn * c
+                + e * (b * qn * c + 2 * b * kn * c + 2 * b * c
+                       + b * qn * heads * kcat))
+        pairs = b * heads * qn * (kn + 1) * 96
+        bf_ms, bf_by = bound_ms(nb_f, 4 * pairs, BF16_FLOPS)
+        bb_ms, bb_by = bound_ms(nb_b, 10 * pairs, BF16_FLOPS)
+        shape = f"[{b},{qn},{c}] x kN {kn}"
+        print(f"{tag}f {label} {shape} bf16: kernel {ms_f:.4f} ms, plain "
+              f"{plain_f:.4f} ms, SDPA+mask fwd {lib_f:.4f} ms, bound "
+              f"{bf_ms:.4f} ms ({bf_by}: {nb_f / 1e6:.1f} MB, "
+              f"{4 * pairs / 1e9:.2f} GFLOP)")
+        print(f"{tag}b {label} {shape} bf16: kernel {ms_b:.4f} ms, plain "
+              f"{plain_b:.4f} ms, SDPA+mask bwd {lib_b:.4f} ms (no d(rel)), "
+              f"bound {bb_ms:.4f} ms ({bb_by}: {nb_b / 1e6:.1f} MB, "
+              f"{10 * pairs / 1e9:.2f} GFLOP)")
+        if label == "block 4":
+            continue
+        src = "procedurevrl_torch/csrc/mvit_attention.cu"
+        where = "procedurevrl_tpu/ops/pallas_mvit_attention.py:"
+        lines = (694, 715) if head_last else (197, 221)
+        names = ((k5.KERNEL_HL, k5.KERNEL_HL_BWD) if head_last
+                 else (k5.KERNEL, k5.KERNEL_BWD))
+        for name, line, err, ms, plain, lib, bms, bby in (
+                (names[0], lines[0], err_f, ms_f, plain_f, lib_f, bf_ms, bf_by),
+                (names[1], lines[1], err_b, ms_b, plain_b, lib_b, bb_ms, bb_by)):
+            records.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": f"{where}{line}", "max_abs_err": err,
+                            "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                            "bound_by": bby, "library_ms": lib})
+    return records
+
+
+def phase_slice(torch, k1, k2, k5, _build) -> dict:
     """Drive the slice; return the launch counts of its run."""
     from procedurevrl_torch.config import load_config
     from procedurevrl_torch.datasets.synthetic import SyntheticClips
@@ -436,7 +608,7 @@ def phase_slice(torch, k1, k2, _build) -> dict:
     step = make_eval_step(model, cfg, bank)
     batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
     preds = step(batch)
-    with plain_attention(k1, k2):
+    with plain_attention(k1, k2, k5):
         ref = step(batch)
     torch.cuda.synchronize()
     if preds.shape != (cfg.TEST.BATCH_SIZE, cfg.MODEL.NUM_CLASSES):
@@ -464,29 +636,36 @@ def train_cfg(remat: bool):
          "GLOBAL_BATCH_SIZE", "2", "TPU.REMAT", str(remat)])
 
 
-def run_train(torch, _build, remat: bool, steps: int):
+def mvit_cfg():
+    from procedurevrl_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, MVIT_CFG),
+                       ["DEV.LOAD_DUMMY_DATA", "True", "TRAIN.BATCH_SIZE", "2",
+                        "GLOBAL_BATCH_SIZE", "2"])
+
+
+def run_train(torch, _build, cfg, steps: int):
     """``train_net.train`` for ``steps`` steps from zeroed launch counts and
     peak memory; returns (stats, launches, peak bytes)."""
     from procedurevrl_torch.tools.train_net import train
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    stats = train(train_cfg(remat), device="cuda", max_steps=steps)
+    stats = train(cfg, device="cuda", max_steps=steps)
     torch.cuda.synchronize()
     return stats, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated()
 
 
-def step_vs_plain(torch, k1, k2):
-    """One train step through the kernels and the same step (params, batch,
-    generator seeds) through the plain versions; returns the kernel path's
-    step function and batch for the profile."""
+def step_vs_plain(torch, cfg, k1, k2, k5):
+    """One train step of ``cfg`` through the kernels and the same step
+    (params, batch, generator seeds) through the plain versions; returns
+    the kernel path's step function and batch for the profile."""
     from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
     from procedurevrl_torch.engine.steps import make_train_step
     from procedurevrl_torch.models.build import build_model
     from procedurevrl_torch.solver.lr_policy import lr_schedule
     from procedurevrl_torch.solver.optimizer import construct_optimizer
 
-    cfg = train_cfg(True)
     batch = SyntheticPretrain(cfg).batch(2, 0, torch.Generator(device="cuda"))
 
     def one_step():
@@ -499,15 +678,23 @@ def step_vs_plain(torch, k1, k2):
         return step, {k: float(v) for k, v in m.items()}, grads
 
     step, mk, gk = one_step()
-    with plain_attention(k1, k2):
+    with plain_attention(k1, k2, k5):
         _, mp, gp = one_step()
-    worst_cos, worst = 1.0, ""
+    worst_cos, worst, least = 1.0, "", math.inf
+    zero = {}  # name -> (kernel-path, plain-path norm) / global norm
     for name, g in gk.items():
         a, b = g.flatten(), gp[name].flatten()
-        na, nb = a.norm().item(), b.norm().item()
-        cos = 1.0 if na == nb == 0.0 else (a @ b).item() / max(na * nb, 1e-30)
+        na, nb = (x.norm().item() / mp["grad_norm"] for x in (a, b))
+        if nb <= ROUNDING_RTOL:
+            zero[name] = (na, nb)
+            continue
+        least = min(least, nb)
+        cos = (a @ b).item() / max(a.norm().item() * b.norm().item(), 1e-30)
         if cos < worst_cos:
             worst_cos, worst = cos, name
+    zero_k = max((z[0] for z in zero.values()), default=0.0)
+    zero_p = max((z[1] for z in zero.values()), default=0.0)
+    kinds = sorted({re.sub(r"\.\d+\.", ".*.", n) for n in zero})
     d_loss = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
     d_norm = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
     print(f"train step vs plain versions: loss {mk['loss']:.6f} / "
@@ -516,7 +703,12 @@ def step_vs_plain(torch, k1, k2):
           f"{mp['mse']:.6f}, grad norm {mk['grad_norm']:.6f} / "
           f"{mp['grad_norm']:.6f} (rel {d_norm:.2e}, tol {STEP_NORM_RTOL}), "
           f"least gradient cosine {worst_cos:.6f} ({worst}; min "
-          f"{STEP_MIN_COS}) over {len(gk)} trained tensors")
+          f"{STEP_MIN_COS}) over {len(gk) - len(zero)} trained tensors, "
+          f"whose least plain-path norm is {least:.2e} of the global norm; "
+          f"{len(zero)} gradients nought to rounding on the plain path "
+          f"(norm <= {ROUNDING_RTOL} of the global) {kinds}: largest norm "
+          f"{zero_k:.2e} through the kernels (max {ZERO_GRAD_RTOL}), "
+          f"{zero_p:.2e} through the plain versions")
     if not all(math.isfinite(v) for v in mk.values()):
         fail("train step metrics are not finite")
     if d_loss > STEP_LOSS_RTOL or d_norm > STEP_NORM_RTOL:
@@ -524,14 +716,18 @@ def step_vs_plain(torch, k1, k2):
     if worst_cos < STEP_MIN_COS:
         fail(f"gradient of {worst} disagrees with the plain path "
              f"(cosine {worst_cos:.4f})")
+    if zero_k > ZERO_GRAD_RTOL:
+        fail("a gradient that is nought on the plain path is not small "
+             "through the kernels")
     return step, batch
 
 
-def phase_train(torch, k1, k2, _build) -> dict:
+def phase_train(torch, k1, k2, k5, _build) -> dict:
     """Drive slice 2; return the launch counts of its main run."""
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
-    stats, launches, peak = run_train(torch, _build, True, TRAIN_STEPS)
+    stats, launches, peak = run_train(torch, _build, train_cfg(True),
+                                      TRAIN_STEPS)
     clips = stats["clips_per_step"]
     for i, h in enumerate(stats["history"]):
         print(f"train step {i + 1}: loss {h['loss']:.6f} kl {h['kl']:.6f} "
@@ -557,7 +753,8 @@ def phase_train(torch, k1, k2, _build) -> dict:
             fail(f"{key} launched {launches.get(key, 0)} times in "
                  f"{TRAIN_STEPS} steps, expected {n}")
 
-    stats2, launches2, peak2 = run_train(torch, _build, False, NO_REMAT_STEPS)
+    stats2, launches2, peak2 = run_train(torch, _build, train_cfg(False),
+                                         NO_REMAT_STEPS)
     rate2 = stats2["clips_per_sec"]
     print(f"train slice (no remat): {rate2:.2f} clips/s over steps "
           f"{WARMUP_STEPS + 1}..{NO_REMAT_STEPS}, peak memory "
@@ -568,9 +765,53 @@ def phase_train(torch, k1, k2, _build) -> dict:
             fail(f"{key} launched {launches2.get(key, 0)} times without "
                  f"remat, expected {DEPTH * NO_REMAT_STEPS}")
 
-    step, batch = step_vs_plain(torch, k1, k2)
+    step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5)
     profile_step(torch, f"one train step ({clips} clips, remat)",
                  lambda: float(step(batch)["loss"]))
+    return launches
+
+
+def phase_mvit_train(torch, k1, k2, k5, _build) -> dict:
+    """Drive slice 3, the MViT-v2-S order-pretraining step; return the
+    launch counts of its main run."""
+    from procedurevrl_torch.tools.train_net import WARMUP_STEPS
+
+    cfg = mvit_cfg()
+    stats, launches, peak = run_train(torch, _build, cfg, MVIT_STEPS)
+    clips = stats["clips_per_step"]
+    for i, h in enumerate(stats["history"]):
+        print(f"MViT train step {i + 1}: loss {h['loss']:.6f} kl "
+              f"{h['kl']:.6f} mse {h['mse']:.6f} grad_norm "
+              f"{h['grad_norm']:.4f} lr {h['lr']:.3e}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
+                                                 "grad_norm")):
+            fail(f"MViT train step {i + 1} is not finite")
+    if len(stats["history"]) != MVIT_STEPS:
+        fail(f"{len(stats['history'])} MViT train steps, expected {MVIT_STEPS}")
+    print(f"MViT train slice (remat): {clips} clips/step, "
+          f"{stats['clips_per_sec']:.2f} clips/s over steps "
+          f"{WARMUP_STEPS + 1}..{MVIT_STEPS}, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
+    # remat recomputes every block's forward for its backward: each forward
+    # kernel runs twice per block and step, each backward kernel once
+    expected = {k5.KERNEL_HL: 2 * MVIT_HL_BLOCKS * MVIT_STEPS,
+                k5.KERNEL: 2 * MVIT_HS_BLOCKS * MVIT_STEPS,
+                k5.KERNEL_HL_BWD: MVIT_HL_BLOCKS * MVIT_STEPS,
+                k5.KERNEL_BWD: MVIT_HS_BLOCKS * MVIT_STEPS}
+    for key in (k1.KERNEL, k1.KERNEL_PROBS, k1.KERNEL_BWD, k2.KERNEL,
+                k2.KERNEL_BWD):
+        expected[key] = 0
+    for key, n in expected.items():
+        if launches.get(key, 0) != n:
+            fail(f"{key} launched {launches.get(key, 0)} times in "
+                 f"{MVIT_STEPS} MViT steps, expected {n}")
+    step, batch = step_vs_plain(torch, cfg, k1, k2, k5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profile_step(torch, f"one MViT train step ({clips} clips, remat)",
+                 lambda: float(step(batch)["loss"]))
+    print(f"MViT profiled step peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     return launches
 
 
@@ -580,10 +821,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(ROOT, "procedurevrl_torch")):
+        print("chip_smoke: the procedurevrl_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
     from procedurevrl_torch.ops import _build
+    from procedurevrl_torch.ops import mvit_attention as k5
     from procedurevrl_torch.ops import spatial_attention as k1
     from procedurevrl_torch.ops import temporal_attention as k2
 
@@ -606,13 +852,17 @@ def main() -> int:
 
     eval_kernels = [phase_k1(torch, F, k1), phase_k2(torch, F, k2)]
     train_kernels = phase_k1_train(torch, F, k1) + [phase_k2_train(torch, F, k2)]
-    launches = phase_slice(torch, k1, k2, _build)
+    mvit_kernels = phase_mvit_kernels(torch, F, k5)
+    launches = phase_slice(torch, k1, k2, k5, _build)
     for rec in eval_kernels:
         rec["launches"] = launches.get(rec["name"], 0)
-    launches = phase_train(torch, k1, k2, _build)
+    launches = phase_train(torch, k1, k2, k5, _build)
     for rec in train_kernels:
         rec["launches"] = launches.get(rec["name"], 0)
-    kernels = eval_kernels + train_kernels
+    launches = phase_mvit_train(torch, k1, k2, k5, _build)
+    for rec in mvit_kernels:
+        rec["launches"] = launches.get(rec["name"], 0)
+    kernels = eval_kernels + train_kernels + mvit_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)

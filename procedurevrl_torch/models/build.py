@@ -1,5 +1,6 @@
-"""Model builder and step-bank loading (counterpart of
-``procedurevrl_tpu/models/build.py``; reference ``lib/models/build.py``).
+"""Model builder (TimeSformer-B and MViT-v2) and step-bank loading
+(counterpart of ``procedurevrl_tpu/models/build.py``; reference
+``lib/models/build.py``).
 
 ``build_model(cfg, device)`` returns ``(model, label_emb)``: the model with
 float32 parameters drawn from ``cfg.RNG_SEED`` (on the CPU, then moved),
@@ -52,32 +53,57 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.TPU.COMPUTE_DTYPE]
 
 
-def build_model(cfg, device: Union[str, torch.device, None] = None
-                ) -> Tuple[torch.nn.Module, Optional[torch.Tensor]]:
-    """TimeSformer-B ProcedureVRL for ``cfg`` (reference
-    ``lib/models/vit.py:473-506``).  ``device`` defaults to the card."""
-    from procedurevrl_torch.models.procedurevrl import ProcedureVRL
-
-    device = resolve_device(device)
-    if cfg.MODEL.MODEL_NAME != "vit_base_patch16_224_develop":
-        raise NotImplementedError(
-            f"model {cfg.MODEL.MODEL_NAME} is not ported yet")
-    match_lang = bool(cfg.DEV.MATCH_LANG_EMB or cfg.TRAIN.LABEL_EMB != "")
-    model = ProcedureVRL(
-        img_size=cfg.DATA.TRAIN_CROP_SIZE, patch_size=16, embed_dim=768,
-        depth=cfg.TIMESFORMER.DEPTH, num_heads=12,
-        num_frames=cfg.DATA.NUM_FRAMES,
-        attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
-        drop_path_rate=cfg.MODEL.DROP_PATH, temp=cfg.DEV.TEMP,
-        match_lang_emb=match_lang, order_pretrain=cfg.DEV.ORDER_PRETRAIN_ENABLED,
+def _head_kwargs(cfg) -> dict:
+    """The head, order-transformer and text-tower arguments both encoders
+    share (JAX ``build.py:_common_kwargs``)."""
+    return dict(
+        temp=cfg.DEV.TEMP,
+        match_lang_emb=bool(cfg.DEV.MATCH_LANG_EMB or cfg.TRAIN.LABEL_EMB != ""),
+        order_pretrain=cfg.DEV.ORDER_PRETRAIN_ENABLED,
         order_max_len=cfg.DEV.ORDER_PRETRAIN_MAX_LEN,
         order_tfm_layers=cfg.DEV.ORDER_TFM_LAYERS,
         order_recog_batch=cfg.DEV.ORDER_RECOG_BATCH,
         num_seg=cfg.MODEL.NUM_SEG,
         with_text_model=cfg.MODEL.TEXT_MODEL == "clip_vit_b_16",
-        text_layers=cfg.DEV.TEXT_LAYERS, compute_dtype=compute_dtype(cfg),
-        remat=cfg.TPU.REMAT,
-    )
+        text_layers=cfg.DEV.TEXT_LAYERS, compute_dtype=compute_dtype(cfg))
+
+
+def _build_timesformer(cfg) -> torch.nn.Module:
+    """TimeSformer-B (reference ``lib/models/vit.py:473-506``)."""
+    from procedurevrl_torch.models.procedurevrl import ProcedureVRL
+
+    return ProcedureVRL(
+        img_size=cfg.DATA.TRAIN_CROP_SIZE, patch_size=16, embed_dim=768,
+        depth=cfg.TIMESFORMER.DEPTH, num_heads=12,
+        num_frames=cfg.DATA.NUM_FRAMES,
+        attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
+        drop_path_rate=cfg.MODEL.DROP_PATH, remat=cfg.TPU.REMAT,
+        **_head_kwargs(cfg))
+
+
+def _build_mvit(cfg) -> torch.nn.Module:
+    """MViT-v2 (reference ``lib/models/mvit.py:231-264``)."""
+    from procedurevrl_torch.models.mvit import MViTConfig
+    from procedurevrl_torch.models.procedurevrl import ProcedureVRLMViT
+
+    return ProcedureVRLMViT(MViTConfig.from_cfg(cfg), remat=cfg.TPU.REMAT,
+                            **_head_kwargs(cfg))
+
+
+# MODEL.MODEL_NAME -> builder; the ResNet family is not ported yet
+MODELS = {"vit_base_patch16_224_develop": _build_timesformer,
+          "MViT": _build_mvit}
+
+
+def build_model(cfg, device: Union[str, torch.device, None] = None
+                ) -> Tuple[torch.nn.Module, Optional[torch.Tensor]]:
+    """The ProcedureVRL model of ``cfg.MODEL.MODEL_NAME`` (TimeSformer-B or
+    MViT-v2).  ``device`` defaults to the card."""
+    device = resolve_device(device)
+    if cfg.MODEL.MODEL_NAME not in MODELS:
+        raise NotImplementedError(
+            f"model {cfg.MODEL.MODEL_NAME} is not ported yet")
+    model = MODELS[cfg.MODEL.MODEL_NAME](cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.RNG_SEED))
     model = model.to(device).eval()
 

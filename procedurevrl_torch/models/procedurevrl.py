@@ -1,7 +1,7 @@
-"""ProcedureVRL: the video encoder with its 512-d projection head, the
-diffusion order transformer and the frozen CLIP text tower (counterpart of
-``procedurevrl_tpu/models/procedurevrl.py``; reference
-``lib/models/vit.py:183-358``).
+"""ProcedureVRL: a video encoder (TimeSformer or MViT-v2) with its 512-d
+projection head, the diffusion order transformer and the frozen CLIP text
+tower (counterpart of ``procedurevrl_tpu/models/procedurevrl.py``;
+reference ``lib/models/vit.py:183-358``, ``lib/models/mvit.py``).
 
 Ported branches of the forward dispatch:
 
@@ -14,10 +14,11 @@ Ported branches of the forward dispatch:
   head embedding @ step bank / temp, softmax.
 
 Forecasting (``num_seg > 0``) and the finetuning heads (``match_lang_emb``
-False) raise: they come with later slices.  The encoder is the base class,
-so the state dict carries the reference ``.pyth`` keys (``patch_embed.*``,
-``blocks.*``, ``norm.*``, ``cls_token``, ``pos_embed``, ``time_embed``,
-``head.*``, ``order_tfm.*``, ``text_model.*``).
+False) raise: they come with later slices.  The state dict carries the
+reference ``.pyth`` keys: for TimeSformer the encoder is the base class
+(``patch_embed.*``, ``blocks.*``, ``norm.*``, ``cls_token``, ``pos_embed``,
+``time_embed`` at the root), for MViT it sits under ``video_encoder.``;
+both add ``head.*``, ``order_tfm.*`` and ``text_model.*``.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional
 
 import torch
+import torch.nn as nn
 
 from procedurevrl_torch.models.clip_text import CLIPTextEncoder
 from procedurevrl_torch.models.layers import Linear, init_linear
+from procedurevrl_torch.models.mvit import MViTConfig, MViTEncoder
 from procedurevrl_torch.models.order_transformer import OrderTransformer
 from procedurevrl_torch.models.timesformer import TimeSformer
 
@@ -46,9 +49,11 @@ def _match(emb: torch.Tensor, bank: torch.Tensor, temp: float) -> torch.Tensor:
     return emb.float() @ bank.to(emb.dtype).float().t() / temp
 
 
-class ProcedureVRL(TimeSformer):
-    """TimeSformer encoder + ``head`` projection (+ ``order_tfm`` and
-    ``text_model`` for order pretraining).
+class _Heads:
+    """What the encoders share: the ``head`` projection, the order
+    transformer, the text tower, the teacher and the forward dispatch.  A
+    model class mixes it into an ``nn.Module`` and provides ``_encode``
+    (video -> [N, D] feature) and ``_reset_encoder``.
 
     ``forward(x, text, label_emb, train, generators, draws)``:
 
@@ -62,30 +67,20 @@ class ProcedureVRL(TimeSformer):
     ``torch.Generator``s on x's device; ``draws`` may fix "mask_inds",
     "pad_start", "level_noise" and "perm" (the recognition subset)."""
 
-    def __init__(self, img_size: int = 224, patch_size: int = 16,
-                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 num_frames: int = 8,
-                 attention_type: str = "divided_space_time",
-                 drop_path_rate: float = 0.1, label_dim: int = 512,
-                 temp: float = 0.02, match_lang_emb: bool = True,
-                 order_pretrain: bool = False, order_max_len: int = 9,
-                 order_tfm_layers: int = 4, order_recog_batch: int = 9,
-                 num_seg: int = 0, with_text_model: bool = False,
-                 text_vocab: int = 49408, text_width: int = 512,
-                 text_heads: int = 8, text_layers: int = 12,
-                 compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+    def _init_heads(self, feat_dim: int, label_dim: int, temp: float,
+                    match_lang_emb: bool, order_pretrain: bool,
+                    order_max_len: int, order_tfm_layers: int,
+                    order_recog_batch: int, num_seg: int,
+                    with_text_model: bool, text_vocab: int, text_width: int,
+                    text_heads: int, text_layers: int,
+                    compute_dtype: torch.dtype) -> None:
         if not match_lang_emb or num_seg > 0:
             raise NotImplementedError(_LATER)
-        super().__init__(img_size=img_size, patch_size=patch_size,
-                         embed_dim=embed_dim, depth=depth, num_heads=num_heads,
-                         num_frames=num_frames, attention_type=attention_type,
-                         drop_path_rate=drop_path_rate, remat=remat)
         self.temp = temp
         self.compute_dtype = compute_dtype
         self.order_max_len = order_max_len
         self.order_recog_batch = order_recog_batch
-        self.head = Linear(embed_dim, label_dim)
+        self.head = Linear(feat_dim, label_dim)
         self.order_tfm = (OrderTransformer(
             num_seg=order_max_len - 1, tfm_layers=order_tfm_layers,
             hidden_size=label_dim, max_len=order_max_len,
@@ -95,8 +90,15 @@ class ProcedureVRL(TimeSformer):
             layers=text_layers, embed_dim=label_dim,
             compute_dtype=compute_dtype) if with_text_model else None)
 
+    def _encode(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _reset_encoder(self, generator: Optional[torch.Generator]) -> None:
+        raise NotImplementedError
+
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
-        super().reset_parameters(generator)
+        self._reset_encoder(generator)
         init_linear(self.head, generator)
         for sub in (self.order_tfm, self.text_model):
             if sub is not None:
@@ -128,8 +130,8 @@ class ProcedureVRL(TimeSformer):
         pretrain = self.order_tfm is not None and train
         if pretrain:
             x = x.reshape((-1,) + x.shape[2:])  # [B*M, T, H, W, 3]
-        feat = super().forward(x.to(self.compute_dtype),
-                               generator=gens.get("droppath"))  # [N, D]
+        feat = self._encode(x.to(self.compute_dtype),
+                            gens.get("droppath"))  # [N, D]
         emb = _l2norm(self.head(feat))
         logits = _match(emb, label_emb, self.temp)
         if not train:
@@ -166,3 +168,55 @@ class ProcedureVRL(TimeSformer):
         student = torch.cat([logits[perm], inter_pred], dim=0)
         teacher_out = torch.cat([teacher[perm], inter_teacher], dim=0)
         return student, teacher_out, mse_pair
+
+
+_HEAD_DEFAULTS = dict(
+    label_dim=512, temp=0.02, match_lang_emb=True, order_pretrain=False,
+    order_max_len=9, order_tfm_layers=4, order_recog_batch=9, num_seg=0,
+    with_text_model=False, text_vocab=49408, text_width=512, text_heads=8,
+    text_layers=12, compute_dtype=torch.float32)
+
+
+class ProcedureVRL(_Heads, TimeSformer):
+    """TimeSformer encoder + ``head`` projection (+ ``order_tfm`` and
+    ``text_model`` for order pretraining); the encoder is the base class,
+    so its parameters sit at the root of the state dict, as in the
+    reference's ViT checkpoints.  Head keyword arguments: see
+    ``_HEAD_DEFAULTS``; forward: see :class:`_Heads`."""
+
+    def __init__(self, img_size: int = 224, patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 num_frames: int = 8,
+                 attention_type: str = "divided_space_time",
+                 drop_path_rate: float = 0.1, remat: bool = False,
+                 **heads):
+        TimeSformer.__init__(self, img_size=img_size, patch_size=patch_size,
+                             embed_dim=embed_dim, depth=depth,
+                             num_heads=num_heads, num_frames=num_frames,
+                             attention_type=attention_type,
+                             drop_path_rate=drop_path_rate, remat=remat)
+        self._init_heads(embed_dim, **{**_HEAD_DEFAULTS, **heads})
+
+    def _encode(self, x, generator):
+        return TimeSformer.forward(self, x, generator=generator)
+
+    def _reset_encoder(self, generator):
+        TimeSformer.reset_parameters(self, generator)
+
+
+class ProcedureVRLMViT(_Heads, nn.Module):
+    """MViT-v2 encoder under ``video_encoder`` (reference
+    ``lib/models/mvit.py:67``, the prefix ``convert_procedurevrl`` reads) +
+    the same heads."""
+
+    def __init__(self, mvit_cfg: MViTConfig, remat: bool = False, **heads):
+        nn.Module.__init__(self)
+        self.video_encoder = MViTEncoder(mvit_cfg, remat=remat)
+        feat_dim = mvit_cfg.block_schedule()[2]
+        self._init_heads(feat_dim, **{**_HEAD_DEFAULTS, **heads})
+
+    def _encode(self, x, generator):
+        return self.video_encoder(x, generator=generator)
+
+    def _reset_encoder(self, generator):
+        self.video_encoder.reset_parameters(generator)

@@ -47,6 +47,10 @@ ENTRY_POINTS = {
         "temporal_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
         "temporal_attention_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
+    "mvit_attention": {
+        "mvit_attention_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "mvit_attention_bwd": [_P] * 15 + [_I] * 8 + [_F, _P],
+    },
 }
 
 # kernel name -> launches since the last reset_launches()

@@ -4,6 +4,8 @@
 - ``layer_norm_fp32``: LayerNorm computed in float32 whatever the compute
   dtype, cast back to the input dtype.  The JAX package's MXU ones-dot
   reductions are a TPU device; here it is the plain LayerNorm.
+- ``grouped_layer_norm_fp32``: the same per head of a head-last layout,
+  with parameters shared across heads (MViT's pooled q/k/v norms).
 - ``gelu_exact``: the erf form of GELU (torch ``nn.GELU()`` default), with
   autograd's own backward.  The JAX package's stored-derivative variant is
   a TPU memory device and has no counterpart.
@@ -30,6 +32,20 @@ def layer_norm_fp32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
                      eps)
     return y.to(x.dtype)
+
+
+def grouped_layer_norm_fp32(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor, heads: int,
+                            eps: float) -> torch.Tensor:
+    """Per-head LayerNorm of the head-last ``x [.., heads*d]`` with the
+    shared ``[d]`` parameters, in float32, cast back to the input dtype
+    (JAX ``ops/common.py:283``; its custom VJP is a TPU device, autograd
+    differentiates this one)."""
+    shape = x.shape
+    d = shape[-1] // heads
+    y = F.layer_norm(x.float().reshape(*shape[:-1], heads, d), (d,),
+                     weight.float(), bias.float(), eps)
+    return y.reshape(shape).to(x.dtype)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

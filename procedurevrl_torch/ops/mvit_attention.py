@@ -1,0 +1,394 @@
+"""K5 / K6: MViT pooled attention with the decomposed relative-position
+bias (``csrc/mvit_attention.cu``).
+
+Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_mvit_attention.py``
+on the default single-device path: ``_fwd_hl_kernel`` (K5f) and
+``_bwd_hl_kernel`` (K5b), the head-last ``flash_attention_mvit_hl``, and
+``_fwd_kernel`` (K6f) and ``_bwd_kernel`` (K6b), the head-split
+``flash_attention_mvit`` that the model takes for wide key sets.  Both
+compute the same function on different layouts, so one CUDA kernel serves
+both: the head-last call passes the token-row stride H*96, the head-split
+call 96.
+
+Contract (head-split; the head-last layout holds the same per (b, h)):
+q [BH, qN, 96] body queries; k, v [BH, kN, 96] body keys and values,
+row-major over the pooled key grid ``k_shape = (kt, kh, kw)``; kc, vc
+[BH, 1, 96] the cls key and value, key column kN, which takes no bias;
+rel [BH, qN, kt + kh + kw] the per-axis bias tables in the order
+[t | h | w].  ``s = (q.k) scale + (rel_t + rel_h) + rel_w`` in fp32, the
+clamp-shift softmax ``p = exp(min(s, 80)) / l`` over the kN + 1 columns,
+``o = bf16(p) v`` accumulated in fp32.  The forward also returns the fp32
+row sums ``l`` ([B, H, qN]), the backward's residual; the backward is the
+TPU kernel's (``ds = p (dp - rowsum(dp p))``, cast to the input dtype
+before the dq, dk and d(rel) products; dk, dv summed over every query in
+fp32).  The CLS query row is not part of it: the model computes it.
+
+Each wrapper launches the kernel for a CUDA tensor and takes the plain
+version only for a CPU tensor.  :func:`mvit_attention_hl` and
+:func:`mvit_attention` are the model's entries: under grad they go through
+:class:`MViTAttention` (forward kernel, then backward kernel), otherwise
+straight to the forward.  K5b and K6b each run two CUDA kernels (a
+query-major and a key-major pass); a wrapper call counts as one launch.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from procedurevrl_torch.ops import _build
+
+KERNEL_HL = "mvit_attention_hl_fwd"      # K5f
+KERNEL_HL_BWD = "mvit_attention_hl_bwd"  # K5b
+KERNEL = "mvit_attention_fwd"            # K6f
+KERNEL_BWD = "mvit_attention_bwd"        # K6b
+HEAD_DIM = 96
+MAX_KCAT = 48
+CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The reference's routing, copied so that the port takes the same kernel
+# for each block as the JAX model (``pallas_mvit_attention.py:72-80,
+# 667-691``): a block runs fused when qN >= MIN_FUSED_QN and kN <=
+# MAX_FUSED_KN, head-last when ``hl_supported``, else head-split.  The
+# thresholds model the TPU's VMEM budget and mean nothing of their own on
+# the card; a later PR may route by what suits the card instead.
+MIN_FUSED_QN = 64
+MAX_FUSED_KN = 2048
+
+Grads = Tuple[torch.Tensor, ...]
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _hl_geometry(kp: int, C: int, H: int, d: int):
+    """(head group, width, query tile) of the TPU head-last kernel, or None
+    when none fits its VMEM (copy of the reference's budget model)."""
+    hgs = [H] + [h for h in (8, 4, 2) if h < H and H % h == 0
+                 and (h * d) % 128 == 0]
+    for tq in (512, 256, 128):
+        for hg in hgs:
+            w = hg * d
+            acc = 2 * kp * w * 4
+            kv = 2 * kp * w * 2
+            qg = 2 * 3 * tq * w * 2
+            rel = 2 * 3 * tq * hg * 32 * 4
+            stack = (14 * tq * kp + 4 * kp * w) * 4
+            if acc + kv + qg + rel + stack <= 15 * 2 ** 20:
+                return hg, w, tq
+    return None
+
+
+def hl_supported(kn: int, C: int, H: int) -> bool:
+    """Whether the reference routes a block with kN keys, width C and H
+    heads to the head-last kernel (K5) rather than the head-split one (K6)."""
+    return _hl_geometry(_round_up(kn + 1, 128), C, H, C // H) is not None
+
+
+# ----------------------------------------------------------- plain versions
+
+
+def _axis_index(k_shape: Sequence[int], device) -> Tuple[torch.Tensor, ...]:
+    """Columns of rel [t | h | w] that each body key (t', h', w') reads."""
+    kt, kh, kw = k_shape
+    j = torch.arange(kt * kh * kw, device=device)
+    return j // (kh * kw), kt + (j // kw) % kh, kt + kh + j % kw
+
+
+def _logits(q, k, kc, rel, k_shape, scale: float) -> torch.Tensor:
+    """fp32 logits [G, qN, kN + 1] of the head-split layout, cls last."""
+    kk = torch.cat([k, kc], dim=1)
+    s = torch.einsum("gid,gjd->gij", q.float(), kk.float()) * scale
+    it, ih, iw = _axis_index(k_shape, q.device)
+    r = rel.float()
+    bias = (r[..., it] + r[..., ih]) + r[..., iw]
+    kn = k.shape[1]
+    return torch.cat([s[..., :kn] + bias, s[..., kn:]], dim=-1)
+
+
+def _fwd_core(q, k, v, kc, vc, rel, k_shape, scale):
+    e = torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
+                              max=CLAMP_HI))
+    l = e.sum(dim=-1)
+    p = (e / l[..., None]).to(v.dtype)
+    vv = torch.cat([v, vc], dim=1)
+    o = torch.einsum("gij,gjd->gid", p.float(), vv.float()).to(q.dtype)
+    return o, l
+
+
+def _bwd_core(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale):
+    dt = q.dtype
+    kn = k.shape[1]
+    kt, kh, kw = k_shape
+    pf = torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
+                               max=CLAMP_HI)) / rowsum[..., None]
+    kk = torch.cat([k, kc], dim=1).float()
+    vv = torch.cat([v, vc], dim=1).float()
+    gf = g.float()
+    dv = torch.einsum("gij,gid->gjd", pf.to(dt).float(), gf)
+    dp = torch.einsum("gid,gjd->gij", gf, vv)
+    ds = pf * (dp - (dp * pf).sum(dim=-1, keepdim=True))
+    ds_c = ds.to(dt).float()
+    dq = (torch.einsum("gij,gjd->gid", ds_c, kk) * scale).to(dt)
+    dk = torch.einsum("gij,gid->gjd", ds_c, q.float()) * scale
+    body = ds_c[..., :kn].reshape(*ds_c.shape[:2], kt, kh, kw)
+    drel = torch.cat([body.sum(dim=(3, 4)), body.sum(dim=(2, 4)),
+                      body.sum(dim=(2, 3))], dim=-1).to(rel.dtype)
+    return (dq, dk[:, :kn].to(dt), dv[:, :kn].to(dt), dk[:, kn:].to(dt),
+            dv[:, kn:].to(dt), drel)
+
+
+def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, L, H*c] -> [B*H, L, c]."""
+    b, n, c = x.shape
+    return x.reshape(b, n, heads, c // heads).transpose(1, 2).reshape(
+        b * heads, n, c // heads)
+
+
+def _merge(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B*H, L, c] -> [B, L, H*c]."""
+    bh, n, c = x.shape
+    return x.reshape(bh // heads, heads, n, c).transpose(1, 2).reshape(
+        bh // heads, n, heads * c)
+
+
+def mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6f: (out [BH, qN, d], rowsum [BH, 1, qN])."""
+    o, l = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)
+    return o, l[:, None]
+
+
+def mvit_attention_plain(q, k, v, kc, vc, rel, k_shape, scale) -> torch.Tensor:
+    """The output of :func:`mvit_attention_fwd_plain` (the function of JAX
+    ``flash_attention_mvit``)."""
+    return _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)[0]
+
+
+def mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
+                             scale) -> Grads:
+    """Plain PyTorch version of K6b, the backward written out: (dq, dk, dv,
+    dkc, dvc, drel) from the forward's row sums and the output gradient."""
+    return _bwd_core(q, k, v, kc, vc, rel, rowsum[:, 0], g, k_shape, scale)
+
+
+def mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
+                                scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5f on the head-last layout: q [B, qN, C],
+    k, v [B, kN, C], kc, vc [B, 1, C], rel [B, qN, H*kcat] -> (out
+    [B, qN, C], rowsum [B, H, qN])."""
+    h = num_heads
+    o, l = _fwd_core(_split(q, h), _split(k, h), _split(v, h), _split(kc, h),
+                     _split(vc, h), _split(rel, h), k_shape, scale)
+    return _merge(o, h), l.reshape(q.shape[0], h, -1)
+
+
+def mvit_attention_hl_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
+                            scale) -> torch.Tensor:
+    """The output of :func:`mvit_attention_hl_fwd_plain` (the function of
+    JAX ``flash_attention_mvit_hl``)."""
+    return mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape,
+                                       num_heads, scale)[0]
+
+
+def mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
+                                num_heads, scale) -> Grads:
+    """Plain PyTorch version of K5b on the head-last layout."""
+    h = num_heads
+    grads = _bwd_core(_split(q, h), _split(k, h), _split(v, h), _split(kc, h),
+                      _split(vc, h), _split(rel, h),
+                      rowsum.reshape(-1, rowsum.shape[-1]), _split(g, h),
+                      k_shape, scale)
+    return tuple(_merge(x, h) for x in grads)
+
+
+# ------------------------------------------------------------ the kernels
+
+
+def _check(q, k, v, kc, vc, rel, k_shape, heads: int) -> None:
+    if q.dim() != 3 or k.shape != v.shape or kc.shape != vc.shape:
+        raise ValueError("mvit_attention: q [B, qN, C], k and v [B, kN, C], "
+                         "kc and vc [B, 1, C]")
+    b, qn, c = q.shape
+    kcat = sum(k_shape)
+    if (k.shape[0] != b or k.shape[2] != c or kc.shape != (b, 1, c)
+            or k.shape[1] != k_shape[0] * k_shape[1] * k_shape[2]
+            or rel.shape != (b, qn, heads * kcat) or c % heads):
+        raise ValueError(
+            f"mvit_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"kc {tuple(kc.shape)}, rel {tuple(rel.shape)} do not fit "
+            f"k_shape {tuple(k_shape)} and {heads} heads")
+    for t in (k, v, kc, vc, rel):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("mvit_attention: inputs differ in dtype or device")
+
+
+def _check_kernel(tensors, heads: int, k_shape) -> None:
+    q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"mvit_attention: no kernel for device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"mvit_attention: dtype {q.dtype} not supported")
+    if q.shape[2] // heads != HEAD_DIM or sum(k_shape) > MAX_KCAT:
+        raise ValueError(f"mvit_attention: kernel needs head dim {HEAD_DIM} "
+                         f"and kt + kh + kw <= {MAX_KCAT}")
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError("mvit_attention: inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError("mvit_attention: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("mvit_attention: inputs must be 16-byte aligned")
+
+
+def _launch(fn: str, kernel: str, q: torch.Tensor, *args) -> None:
+    lib = _build.load("mvit_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    _build.check(rc, kernel)
+    _build.count_launch(kernel)
+
+
+def _fwd_kernel(kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale):
+    _check_kernel((q, k, v, kc, vc, rel), heads, k_shape)
+    out = torch.empty_like(q)
+    rowsum = torch.empty((b, heads, q.shape[1]), dtype=torch.float32,
+                         device=q.device)
+    _launch("mvit_attention_fwd", kernel, q, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
+            out.data_ptr(), rowsum.data_ptr(), b, heads, q.shape[1],
+            k.shape[1], *k_shape, _DTYPES[q.dtype], float(scale))
+    return out, rowsum
+
+
+def _bwd_kernel(kernel, q, k, v, kc, vc, rel, rowsum, g, k_shape, b, heads,
+                scale) -> Grads:
+    _check_kernel((q, k, v, kc, vc, rel, g), heads, k_shape)
+    if rowsum.dtype != torch.float32 or not rowsum.is_contiguous():
+        raise ValueError("mvit_attention: rowsum must be contiguous float32")
+    delta = torch.empty_like(rowsum)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dkc, dvc, drel = (torch.empty_like(kc), torch.empty_like(vc),
+                      torch.empty_like(rel))
+    _launch("mvit_attention_bwd", kernel, q, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
+            rowsum.data_ptr(), g.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dkc.data_ptr(), dvc.data_ptr(),
+            drel.data_ptr(), b, heads, q.shape[1], k.shape[1], *k_shape,
+            _DTYPES[q.dtype], float(scale))
+    return dq, dk, dv, dkc, dvc, drel
+
+
+def _check_bwd(q, rowsum, g, heads: int) -> None:
+    if rowsum.shape != (q.shape[0], heads, q.shape[1]) or g.shape != q.shape:
+        raise ValueError(f"mvit_attention_bwd: rowsum {tuple(rowsum.shape)} / "
+                         f"g {tuple(g.shape)} do not fit q {tuple(q.shape)}")
+
+
+def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5f: head-last pooled attention, q [B, qN, H*96] (float32 or
+    bfloat16, contiguous) -> (out [B, qN, H*96], rowsum [B, H, qN] fp32)."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, num_heads)
+    if q.device.type == "cpu":
+        return mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape,
+                                           num_heads, scale)
+    return _fwd_kernel(KERNEL_HL, q, k, v, kc, vc, rel, k_shape, q.shape[0],
+                       num_heads, scale)
+
+
+def mvit_attention_hl_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape,
+                          num_heads, scale) -> Grads:
+    """K5b: (dq, dk, dv, dkc, dvc, drel) of the head-last layout from the
+    K5f row sums and the output gradient g [B, qN, H*96]."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, num_heads)
+    _check_bwd(q, rowsum, g, num_heads)
+    if q.device.type == "cpu":
+        return mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
+                                           k_shape, num_heads, scale)
+    return _bwd_kernel(KERNEL_HL_BWD, q, k, v, kc, vc, rel, rowsum, g,
+                       k_shape, q.shape[0], num_heads, scale)
+
+
+def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6f: head-split pooled attention, q [BH, qN, 96] -> (out
+    [BH, qN, 96], rowsum [BH, 1, qN] fp32)."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, 1)
+    if q.device.type == "cpu":
+        return mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale)
+    return _fwd_kernel(KERNEL, q, k, v, kc, vc, rel, k_shape, q.shape[0], 1,
+                       scale)
+
+
+def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale
+                       ) -> Grads:
+    """K6b: the backward of :func:`mvit_attention_fwd`."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, 1)
+    _check_bwd(q, rowsum, g, 1)
+    if q.device.type == "cpu":
+        return mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
+                                        k_shape, scale)
+    return _bwd_kernel(KERNEL_BWD, q, k, v, kc, vc, rel, rowsum, g, k_shape,
+                       q.shape[0], 1, scale)
+
+
+class MViTAttention(torch.autograd.Function):
+    """K5 (``num_heads`` > 0, head-last) or K6 (``num_heads`` None,
+    head-split) under autograd: the forward kernel (saves its inputs and
+    the row sums), the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
+        if num_heads is None:
+            out, rowsum = mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape,
+                                             scale)
+        else:
+            out, rowsum = mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape,
+                                                num_heads, scale)
+        ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum)
+        ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, rowsum = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.num_heads is None:
+            grads = mvit_attention_bwd(*inputs, rowsum, g, ctx.k_shape,
+                                       ctx.scale)
+        else:
+            grads = mvit_attention_hl_bwd(*inputs, rowsum, g, ctx.k_shape,
+                                          ctx.num_heads, ctx.scale)
+        return (*grads, None, None, None)
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def mvit_attention_hl(q, k, v, kc, vc, rel, k_shape, num_heads, scale
+                      ) -> torch.Tensor:
+    """The model's head-last entry (K5): :class:`MViTAttention` under grad,
+    else the forward kernel alone."""
+    if _needs_grad((q, k, v, kc, vc, rel)):
+        return MViTAttention.apply(q, k, v, kc, vc, rel, tuple(k_shape),
+                                   num_heads, scale)
+    return mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads,
+                                 scale)[0]
+
+
+def mvit_attention(q, k, v, kc, vc, rel, k_shape, scale) -> torch.Tensor:
+    """The model's head-split entry (K6), as :func:`mvit_attention_hl`."""
+    if _needs_grad((q, k, v, kc, vc, rel)):
+        return MViTAttention.apply(q, k, v, kc, vc, rel, tuple(k_shape), None,
+                                   scale)
+    return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale)[0]

@@ -4,7 +4,8 @@
         --cfg configs/HowTo100M/procedurevrl_adamw.yaml \\
         DEV.LOAD_DUMMY_DATA True TRAIN.BATCH_SIZE 2 GLOBAL_BATCH_SIZE 2
 
-runs order pretraining on the card (``TRAIN.ENABLE``), and
+runs order pretraining on the card (``TRAIN.ENABLE``; the same with
+``configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml`` trains MViT-v2-S), and
 
     python -m procedurevrl_torch.tools.run_net \\
         --cfg configs/COIN/step_classification.yaml \\

@@ -25,7 +25,8 @@ def _t(a) -> torch.Tensor:
 
 def _linear(node: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     out[prefix + ".weight"] = _t(np.asarray(node["kernel"]).T)
-    out[prefix + ".bias"] = _t(node["bias"])
+    if "bias" in node:
+        out[prefix + ".bias"] = _t(node["bias"])
 
 
 def _encoder(enc: Mapping, out: Dict[str, torch.Tensor], in_chans: int = 3
@@ -60,6 +61,58 @@ def _encoder(enc: Mapping, out: Dict[str, torch.Tensor], in_chans: int = 3
         _linear(blk["mlp"]["fc2"], dst + "mlp.fc2", out)
     out["norm.weight"] = _t(enc["norm"]["scale"])
     out["norm.bias"] = _t(enc["norm"]["bias"])
+
+
+def _conv(a) -> torch.Tensor:
+    """A JAX conv kernel [kt, kh, kw, in, out] in torch's [out, in, kt, kh,
+    kw] layout."""
+    return _t(np.asarray(a).transpose(4, 3, 0, 1, 2))
+
+
+def _mvit_attention(a: Mapping, pre: str, out: Dict[str, torch.Tensor]
+                    ) -> None:
+    """One ``MultiScaleAttention``: qkv, proj, the pool kernels
+    [kt, kh, kw, 1, d] -> [d, 1, kt, kh, kw] with their norms, the rel-pos
+    tables."""
+    _linear(a["qkv"], pre + "qkv", out)
+    _linear(a["proj"], pre + "proj", out)
+    for p in ("q", "k", "v"):
+        if f"pool_{p}" in a:
+            out[pre + f"pool_{p}.weight"] = _conv(a[f"pool_{p}"]["kernel"])
+            out[pre + f"norm_{p}.weight"] = _t(a[f"norm_{p}"]["scale"])
+            out[pre + f"norm_{p}.bias"] = _t(a[f"norm_{p}"]["bias"])
+    for rp in ("rel_pos_h", "rel_pos_w", "rel_pos_t"):
+        if rp in a:
+            out[pre + rp] = _t(a[rp])
+
+
+def _mvit_block(blk: Mapping, pre: str, out: Dict[str, torch.Tensor]
+                ) -> None:
+    for ln in ("norm1", "norm2"):
+        out[pre + ln + ".weight"] = _t(blk[ln]["scale"])
+        out[pre + ln + ".bias"] = _t(blk[ln]["bias"])
+    _mvit_attention(blk["attn"], pre + "attn.", out)
+    if "proj" in blk:
+        _linear(blk["proj"], pre + "proj", out)
+    _linear(blk["mlp"]["fc1"], pre + "mlp.fc1", out)
+    _linear(blk["mlp"]["fc2"], pre + "mlp.fc2", out)
+
+
+def _mvit_encoder(enc: Mapping, out: Dict[str, torch.Tensor],
+                  pre: str = "video_encoder.") -> None:
+    """Inverse of ``convert_mvit``: the stem kernel [kt, kh, kw, C, D] ->
+    [D, C, kt, kh, kw], the Dense kernels transposed."""
+    out[pre + "patch_embed.proj.weight"] = _conv(enc["patch_embed_kernel"])
+    out[pre + "patch_embed.proj.bias"] = _t(enc["patch_embed_bias"])
+    for key in ("cls_token", "pos_embed", "pos_embed_spatial",
+                "pos_embed_temporal", "pos_embed_class"):
+        if key in enc:
+            out[pre + key] = _t(enc[key])
+    out[pre + "norm.weight"] = _t(enc["norm"]["scale"])
+    out[pre + "norm.bias"] = _t(enc["norm"]["bias"])
+    depth = sum(1 for k in enc if k.startswith("blocks_"))
+    for i in range(depth):
+        _mvit_block(enc[f"blocks_{i}"], f"{pre}blocks.{i}.", out)
 
 
 def _resblocks(tree: Mapping, dst: str, out: Dict[str, torch.Tensor]) -> None:
@@ -107,11 +160,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     Takes the tree of a JAX ``ProcedureVRL`` (``{"encoder": ..., "head":
     ..., "order_tfm": ..., "text_model": ...}``) or of a bare
-    ``TimeSformer``.  Inverse of ``convert_timesformer``, ``convert_linear``,
-    ``convert_order_transformer`` and ``convert_clip_text`` in
-    ``procedurevrl_tpu/utils/converter.py``."""
+    ``TimeSformer``; an MViT encoder (the tree has ``patch_embed_kernel``)
+    lands under ``video_encoder.``.  Inverse of ``convert_timesformer``,
+    ``convert_mvit``, ``convert_linear``, ``convert_order_transformer`` and
+    ``convert_clip_text`` in ``procedurevrl_tpu/utils/converter.py``."""
     out: Dict[str, torch.Tensor] = {}
-    _encoder(tree["encoder"] if "encoder" in tree else tree, out)
+    enc = tree["encoder"] if "encoder" in tree else tree
+    if "patch_embed_kernel" in enc:
+        _mvit_encoder(enc, out)
+    else:
+        _encoder(enc, out)
     if "head" in tree:
         _linear(tree["head"], "head", out)
     if "order_tfm" in tree:

@@ -7,19 +7,25 @@ Tolerances: bf16 outputs atol = rtol = 2e-2 (a bf16 ulp or two, the sums
 run in another order); fp32 atol = rtol = 1e-4.  Gradients are compared
 with the atol scaled by the reference's largest magnitude: a ds value that
 rounds to the neighbouring bf16 value moves every product it feeds by one
-bf16 ulp of that product's scale.
+bf16 ulp of that product's scale.  The MViT forwards are held tighter
+(the same limits as ``chip_smoke.py``): bf16 outputs atol 1e-3, rtol 1e-2
+(one bf16 ulp is at most 2^-7 of a value), row sums rtol 1e-4.
 """
 
 import pytest
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops import mvit_attention as k5
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
 
 pytestmark = pytest.mark.cuda
 TOLS = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
         torch.float32: dict(atol=1e-4, rtol=1e-4)}
+MVIT_FWD_TOLS = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+                 torch.float32: TOLS[torch.float32]}
+ROWSUM_TOL = dict(atol=0.0, rtol=1e-4)
 
 
 @pytest.fixture
@@ -155,6 +161,108 @@ def test_temporal_autograd_runs_both_kernels(card):
     _close(qkv.grad, ref, torch.float32, scaled=True)
 
 
+# (B, H, qN, k_shape): ragged query tails and key counts (kN + 1 = 25, 393,
+# 1569 are no multiples of 8 or 64)
+MVIT_GEOMS = {"small": (2, 2, 70, (2, 3, 4)), "block4": (2, 4, 1568, (8, 7, 7)),
+              "wide": (1, 2, 392, (8, 14, 14))}
+
+
+def _mvit_inputs(card, dtype, geom, head_last, seed=0, hot=True):
+    """q, k, v, kc, vc, rel, g of a head-last call [B, L, H*96] or of its
+    head-split fold [B*H, L, 96]; with ``hot`` one query row has logits
+    above 80."""
+    b, h, qn, k_shape = MVIT_GEOMS[geom]
+    kn, kcat = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape)
+    if not head_last:
+        b, h = b * h, 1
+    gen = torch.Generator(device=card).manual_seed(seed + qn)
+
+    def r(*shape):
+        return (0.5 * torch.randn(*shape, generator=gen, device=card)).to(dtype)
+
+    c = h * 96
+    x = [r(b, qn, c), r(b, kn, c), r(b, kn, c), r(b, 1, c), r(b, 1, c),
+         r(b, qn, h * kcat), r(b, qn, c)]
+    if hot:
+        x[0][0, 5] = x[1][0, 3] * 40
+    return x, k_shape, h
+
+
+def _mvit_fwd(head_last):
+    return ((k5.mvit_attention_hl_fwd, k5.mvit_attention_hl_fwd_plain,
+             k5.KERNEL_HL) if head_last else
+            (k5.mvit_attention_fwd, k5.mvit_attention_fwd_plain, k5.KERNEL))
+
+
+def _mvit_bwd(head_last):
+    return ((k5.mvit_attention_hl_bwd, k5.mvit_attention_hl_bwd_plain,
+             k5.KERNEL_HL_BWD) if head_last else
+            (k5.mvit_attention_bwd, k5.mvit_attention_bwd_plain,
+             k5.KERNEL_BWD))
+
+
+def _heads(fn_args, head_last, h):
+    return fn_args + ((h,) if head_last else ())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_last", [True, False])
+@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+def test_mvit_fwd_kernel_matches_plain(card, dtype, head_last, geom):
+    x, k_shape, h = _mvit_inputs(card, dtype, geom, head_last)
+    kernel, plain, name = _mvit_fwd(head_last)
+    args = _heads((*x[:6], k_shape), head_last, h) + (96 ** -0.5,)
+    before = _build.LAUNCHES.get(name, 0)
+    out, rowsum = kernel(*args)
+    assert _build.LAUNCHES[name] == before + 1
+    ref, ref_rs = plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(rowsum, ref_rs, **ROWSUM_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_last", [True, False])
+@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+def test_mvit_bwd_kernel_matches_plain(card, dtype, head_last, geom):
+    x, k_shape, h = _mvit_inputs(card, dtype, geom, head_last, seed=1)
+    _, plain_fwd, _ = _mvit_fwd(head_last)
+    kernel, plain, name = _mvit_bwd(head_last)
+    scale = 96 ** -0.5
+    rowsum = plain_fwd(*_heads((*x[:6], k_shape), head_last, h), scale)[1]
+    args = _heads((*x[:6], rowsum, x[6], k_shape), head_last, h) + (scale,)
+    before = _build.LAUNCHES.get(name, 0)
+    grads = kernel(*args)
+    assert _build.LAUNCHES[name] == before + 1
+    for got, ref in zip(grads, plain(*args)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        _close(got, ref, dtype, scaled=True)
+
+
+@pytest.mark.parametrize("head_last", [True, False])
+def test_mvit_autograd_runs_both_kernels(card, head_last):
+    x, k_shape, h = _mvit_inputs(card, torch.float32, "small", head_last,
+                                 seed=2)
+    inputs = [t.requires_grad_(True) for t in x[:6]]
+    fwd_name, bwd_name = _mvit_fwd(head_last)[2], _mvit_bwd(head_last)[2]
+    counts = {k: _build.LAUNCHES.get(k, 0) for k in (fwd_name, bwd_name)}
+    scale = 96 ** -0.5
+    if head_last:
+        out = k5.mvit_attention_hl(*inputs, k_shape, h, scale)
+    else:
+        out = k5.mvit_attention(*inputs, k_shape, scale)
+    out.backward(x[6])
+    assert _build.LAUNCHES[fwd_name] == counts[fwd_name] + 1
+    assert _build.LAUNCHES[bwd_name] == counts[bwd_name] + 1
+    plain_fwd, plain_bwd = _mvit_fwd(head_last)[1], _mvit_bwd(head_last)[1]
+    detached = [t.detach() for t in inputs]
+    rowsum = plain_fwd(*_heads((*detached, k_shape), head_last, h), scale)[1]
+    refs = plain_bwd(*_heads((*detached, rowsum, x[6], k_shape), head_last, h),
+                     scale)
+    for t, ref in zip(inputs, refs):
+        _close(t.grad, ref, torch.float32, scaled=True)
+
+
 def _poison(card):
     """Fill freed device memory with NaN: the next outputs that
     ``torch.empty`` hands out then start as NaN, so a kernel that leaves an
@@ -164,7 +272,8 @@ def _poison(card):
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "fwd_probs", "bwd", "temporal_fwd",
-                                    "temporal_bwd"])
+                                    "temporal_bwd", "mvit_hl_fwd",
+                                    "mvit_hl_bwd", "mvit_fwd", "mvit_bwd"])
 def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     """Ten launches, each into NaN-filled memory, give bit-identical, finite
     outputs (a substitute for compute-sanitizer's initcheck and racecheck,
@@ -174,6 +283,13 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, 12, 0.125)[2]
     t_qkv = qkv.reshape(2, 9, 196, -1)
     t_g = g.reshape(2, 9, 196, -1)
+    scale = 96 ** -0.5
+    m_hl, ks_hl, h_hl = _mvit_inputs(card, torch.bfloat16, "block4", True,
+                                     seed=7, hot=False)
+    m_hs, ks_hs, _ = _mvit_inputs(card, torch.bfloat16, "wide", False,
+                                  seed=7, hot=False)
+    rs_hl = k5.mvit_attention_hl_fwd(*m_hl[:6], ks_hl, h_hl, scale)[1]
+    rs_hs = k5.mvit_attention_fwd(*m_hs[:6], ks_hs, scale)[1]
     run = {
         "fwd": lambda: k1.spatial_attention(qkv, qkv_c, 12, 0.125),
         "fwd_probs": lambda: k1.spatial_attention_fwd_probs(qkv, qkv_c, 12,
@@ -183,6 +299,13 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
         "temporal_fwd": lambda: (k2.temporal_attention(t_qkv, 12, 0.125),),
         "temporal_bwd": lambda: (k2.temporal_attention_bwd(t_qkv, t_g, 12,
                                                            0.125),),
+        "mvit_hl_fwd": lambda: k5.mvit_attention_hl_fwd(*m_hl[:6], ks_hl, h_hl,
+                                                        scale),
+        "mvit_hl_bwd": lambda: k5.mvit_attention_hl_bwd(
+            *m_hl[:6], rs_hl, m_hl[6], ks_hl, h_hl, scale),
+        "mvit_fwd": lambda: k5.mvit_attention_fwd(*m_hs[:6], ks_hs, scale),
+        "mvit_bwd": lambda: k5.mvit_attention_bwd(*m_hs[:6], rs_hs, m_hs[6],
+                                                  ks_hs, scale),
     }[kernel]
     first = None
     for _ in range(10):

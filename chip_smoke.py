@@ -36,10 +36,21 @@ Phases (any failure exits non-zero):
    data, full MViT-v2-S (16 frames at 224^2) + CLIP text tower + order
    transformer, AdamW, bf16, remat, 2 samples x 9 clips: 2 warm-up + 10
    timed steps with finite losses and asserted launch counts (per step 26
-   K5f, 6 K6f, 13 K5b, 3 K6b); one step against the plain path; one step
-   profiled with its peak memory.
-The last two lines are the ``{"kernels": [...]}`` record and
-``{"ok": true, "device": {...}}``.
+   K5f, 6 K6f, 13 K5b, 3 K6b, and no K7 or K8); one step against the plain
+   path; one step profiled with its peak memory;
+10. K8f (MViT's depthwise 3x3x3 pool, stride 1 and 2, and its stride-1 dx
+   with reversed taps) and K8dw at MViT-v2-S blocks 0 and 4, and K7f/K7b
+   (key-tiled pooled attention, row-max softmax) at blocks 1 and 3 (18
+   clips, bf16), plus small float32 cases and a bf16 case with logits above
+   80, against their plain versions; timed beside ``conv3d(groups=C)``
+   and SDPA with the bias as a float mask;
+11. slice 4: the same MViT-v2-S training as phase 9 with ``MVIT_POOL=kernel``
+   and ``MVIT_KT=1`` set while the model is built (and restored after):
+   2 warm-up + 10 timed steps with finite losses and asserted launch counts
+   (per step 34 K8f, 17 K8f dx, 17 K8dw, 4 K7f, 2 K7b, 26 K5f, 2 K6f, 13
+   K5b, 1 K6b); one step against the plain path; one step profiled.
+Each phase prints its wall time.  The last two lines are the
+``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -96,6 +107,20 @@ CLIPS_PER_SAMPLE = 9
 MVIT_CFG = "configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml"
 MVIT_HL_BLOCKS, MVIT_HS_BLOCKS = 13, 3  # MViT-v2-S blocks routed to K5 / K6
 MVIT_STEPS = 12                         # 2 warm-up + 10 timed
+# slice 4, MViT-v2-S under MVIT_POOL=kernel MVIT_KT=1: blocks routed to K7
+# (1 and 3) and K6 (14), and stride-1 pools on K8 (17)
+KNOBS = {"MVIT_POOL": "kernel", "MVIT_KT": "1"}
+KT_BLOCKS, KNOB_HS_BLOCKS, K8_POOLS = 2, 1, 17
+KNOB_STEPS = 12                         # 2 warm-up + 10 timed
+# K8f bf16 output: kernel and plain version round the same fp32 sums of 27
+# exact products (fused multiply-adds against products then adds) to bf16,
+# so an element may sit one bf16 ulp (<= 2^-8 of it) apart; the atol covers
+# the fp32 order noise of outputs near zero.  Outputs are ~0.5 here, so a
+# skipped tap plane moves an element by ~0.3.
+POOL_TOL = dict(atol=1e-3, rtol=1e-2)
+# K7f's fp32 log-sum-exp: the same exponentials summed in another order,
+# per key tile; one missing key column of kN + 1 ~ 1569 moves it by ~6e-4
+LSE_TOL = dict(atol=1e-4, rtol=0.0)
 # analytic count (utils/misc.py:39 flops_count_timesformer + temporal_fc):
 # ~391 GFLOP per clip forward; a train step is ~3x that (forward + backward)
 FWD_GFLOP_PER_CLIP = 391.0
@@ -164,7 +189,8 @@ def profile_step(torch, label: str, fn, top: int = 12) -> None:
 
 
 # profile groups: the first pattern found in a kernel's name decides
-KERNEL_GROUPS = (("port kernels", ("spatial_", "temporal_", "mvit_")),
+KERNEL_GROUPS = (("port pool kernels (K8)", ("dwpool_",)),
+                 ("port kernels", ("spatial_", "temporal_", "mvit_")),
                  ("convolutions", ("conv", "depthwise")),
                  ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
                  ("LayerNorm", ("layer_norm",)),
@@ -180,6 +206,14 @@ def kernel_group(key: str) -> str:
         if any(p in low for p in patterns):
             return name
     return "other"
+
+
+def timed(label: str, phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def compare(torch, name, got, ref, tol) -> float:
@@ -294,14 +328,19 @@ def phase_k2(torch, F, k2) -> dict:
 
 
 @contextlib.contextmanager
-def plain_attention(k1, k2, k5):
+def plain_attention(k1, k2, k5, k8):
     """Route the models through the plain versions (reference runs only):
     the models' attention entries become the plain forwards, which autograd
-    differentiates under grad."""
+    differentiates under grad, and the pool entry takes its plain versions
+    (the tap forward, and the tap formulas for its backward)."""
+    pool = k8.depthwise_pool3d
     swaps = [(k1, "spatial_attention_autograd", k1.spatial_attention_plain),
              (k2, "temporal_attention_autograd", k2.temporal_attention_plain),
              (k5, "mvit_attention_hl", k5.mvit_attention_hl_plain),
-             (k5, "mvit_attention", k5.mvit_attention_plain)]
+             (k5, "mvit_attention", k5.mvit_attention_plain),
+             (k5, "mvit_attention_kt", k5.mvit_attention_kt_plain),
+             (k8, "depthwise_pool3d",
+              lambda x5, w27, s, use_kernel=True: pool(x5, w27, s, False))]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -563,7 +602,187 @@ def phase_mvit_kernels(torch, F, k5) -> list:
     return records
 
 
-def phase_slice(torch, k1, k2, k5, _build) -> dict:
+def pool_inputs(torch, gen, b, thw, c, dtype):
+    """x as the model hands it to K8 (the k slot of a fused qkv product
+    [B, 1 + T*H*W, 3C] past its CLS token: token-row stride 3C), w27
+    [27, C] and g [B, T, H, W, C]."""
+    n = thw[0] * thw[1] * thw[2]
+
+    def r(*shape, sd=1.0):
+        return (sd * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    x = r(b, 1 + n, 3 * c)[:, 1:, c:2 * c].reshape(b, *thw, c)
+    return x, r(27, c, sd=0.1), r(b, *thw, c)
+
+
+def conv_ms(torch, F, x, w, g):
+    """The library yardstick of K8: ``conv3d(groups=C)`` on contiguous
+    [B, C, T, H, W] copies, stride 1; forward, and the autograd backward
+    for the input alone and for the weight alone, each less the forward."""
+    c = x.shape[-1]
+    xc = x.permute(0, 4, 1, 2, 3).contiguous()
+    gc = g.permute(0, 4, 1, 2, 3).contiguous()
+    wc = w.t().reshape(c, 1, 3, 3, 3).contiguous()
+    xg, wg = xc.detach().requires_grad_(True), wc.detach().requires_grad_(True)
+    conv = lambda a, b: F.conv3d(a, b, None, 1, 1, groups=c)
+    fwd = time_ms(torch, lambda: conv(xc, wc))
+    dx = time_ms(torch, lambda: torch.autograd.grad(conv(xg, wc), xg, gc))
+    dw = time_ms(torch, lambda: torch.autograd.grad(conv(xc, wg), wg, gc))
+    return fwd, dx - fwd, dw - fwd
+
+
+def phase_pool_kernels(torch, F, k8) -> list:
+    """K8f (stride 1 and 2), its stride-1 dx and K8dw at MViT-v2-S blocks 0
+    and 4 (18 clips, bf16) and small float32 cases against their plain
+    versions; returns the records of block 0."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    taps = k8.depthwise_pool3d_taps
+    for s in (1, 2, 4):
+        x, w, g = pool_inputs(torch, gen, 2, (3, 7, 9), 64, torch.float32)
+        compare(torch, f"K8f small fp32 s={s}", k8.depthwise_pool3d_fwd(x, w, s),
+                taps(x, w, (1, s, s)), FP32_TOL)
+    rdx = taps(g, w.flip(0), (1, 1, 1))
+    compare(torch, "K8f dx small fp32", k8.depthwise_pool3d_dx(g, w), rdx,
+            grad_tol(FP32_TOL, rdx))
+    rdw = k8.taps_dw(x, g, (1, 1, 1))
+    compare(torch, "K8dw small fp32", k8.depthwise_pool3d_dw(x, g), rdw,
+            grad_tol(FP32_TOL, rdw))
+    records = []
+    for label, thw, c in (("block 0", (8, 56, 56), 96),
+                          ("block 4", (8, 14, 14), 384)):
+        b = 2 * CLIPS_PER_SAMPLE
+        x, w, g = pool_inputs(torch, gen, b, thw, c, torch.bfloat16)
+        err_f = compare(torch, f"K8f {label} bf16", k8.depthwise_pool3d_fwd(
+            x, w, 1), taps(x, w, (1, 1, 1)), POOL_TOL)
+        if label == "block 0":
+            compare(torch, f"K8f {label} bf16 s=2",
+                    k8.depthwise_pool3d_fwd(x, w, 2), taps(x, w, (1, 2, 2)),
+                    POOL_TOL)
+        rdx = taps(g, w.flip(0), (1, 1, 1))
+        err_x = compare(torch, f"K8f dx {label} bf16",
+                        k8.depthwise_pool3d_dx(g, w), rdx,
+                        grad_tol(POOL_TOL, rdx))
+        rdw = k8.taps_dw(x, g, (1, 1, 1))
+        err_w = compare(torch, f"K8dw {label} bf16 (fp32 out)",
+                        k8.depthwise_pool3d_dw(x, g), rdw,
+                        grad_tol(FP32_TOL, rdw))
+        del rdx, rdw
+        ms = {"f": time_ms(torch, lambda: k8.depthwise_pool3d_fwd(x, w, 1)),
+              "x": time_ms(torch, lambda: k8.depthwise_pool3d_dx(g, w)),
+              "w": time_ms(torch, lambda: k8.depthwise_pool3d_dw(x, g))}
+        plain = {"f": time_ms(torch, lambda: taps(x, w, (1, 1, 1)), iters=2,
+                              reps=5),
+                 "x": time_ms(torch, lambda: taps(g, w.flip(0), (1, 1, 1)),
+                              iters=2, reps=5),
+                 "w": time_ms(torch, lambda: k8.taps_dw(x, g, (1, 1, 1)),
+                              iters=2, reps=5)}
+        lib = dict(zip("fxw", conv_ms(torch, F, x, w, g)))
+        n = b * thw[0] * thw[1] * thw[2] * c
+        # the products the zero padding leaves: (3d - 2) taps per axis of d
+        taps_done = b * c * math.prod(3 * d - 2 for d in thw)
+        nb_f, nb_w = 2 * (2 * n + 27 * c), 2 * 2 * n + 4 * 27 * c
+        bound = {"f": bound_ms(nb_f, 2 * taps_done, BF16_FLOPS),
+                 "w": bound_ms(nb_w, 2 * taps_done, BF16_FLOPS)}
+        bound["x"] = bound["f"]
+        shape = f"[{b},{thw[0]},{thw[1]},{thw[2]},{c}]"
+        for key, what, nb in (("f", "K8f", nb_f), ("x", "K8f dx", nb_f),
+                              ("w", "K8dw", nb_w)):
+            print(f"{what} {label} {shape} bf16: kernel {ms[key]:.4f} ms, "
+                  f"plain {plain[key]:.4f} ms, conv3d {lib[key]:.4f} ms, "
+                  f"bound {bound[key][0]:.4f} ms ({bound[key][1]}: "
+                  f"{nb / 1e6:.1f} MB, {2 * taps_done / 1e9:.2f} GFLOP)")
+        if label != "block 0":
+            continue
+        src = "procedurevrl_torch/csrc/depthwise_pool.cu"
+        where = "procedurevrl_tpu/ops/pallas_pool.py:"
+        for name, key, line, err in ((k8.KERNEL, "f", 149, err_f),
+                                     (k8.KERNEL_DX, "x", 149, err_x),
+                                     (k8.KERNEL_DW, "w", 186, err_w)):
+            records.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": f"{where}{line}", "max_abs_err": err,
+                            "ms": ms[key], "plain_ms": plain[key],
+                            "bound_ms": bound[key][0],
+                            "bound_by": bound[key][1],
+                            "library_ms": lib[key]})
+    return records
+
+
+def phase_kt_kernels(torch, F, k5) -> list:
+    """K7f/K7b at MViT-v2-S blocks 1 and 3 (18 clips, bf16), plus small
+    float32 and bf16 cases with two logits of a row above 80, against their
+    plain versions; returns the records of block 1."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    scale = 96 ** -0.5
+    fwd, fwd_plain = k5.mvit_attention_kt_fwd, k5.mvit_attention_kt_fwd_plain
+    bwd, bwd_plain = k5.mvit_attention_kt_bwd, k5.mvit_attention_kt_bwd_plain
+    names = ("dq", "dk", "dv", "dkc", "dvc", "drel")
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        xs = mvit_inputs(torch, gen, 2, 2, 70, (2, 3, 4), dtype, hot=True)
+        xs[0][0, 5] += xs[1][0, 4] * 30  # a second key above 80
+        args = (*xs[:6], (2, 3, 4), 2, scale)
+        o, lse = fwd(*args)
+        ro, rlse = fwd_plain(*args)
+        name = f"K7 small {str(dtype)[6:]} logits > 80"
+        compare(torch, f"{name} out", o, ro,
+                tol if dtype == torch.float32 else MVIT_FWD_TOL)
+        compare(torch, f"{name} lse", lse, rlse, LSE_TOL)
+        bargs = (*xs[:6], ro, rlse, xs[6], (2, 3, 4), 2, scale)
+        for gname, a, r in zip(names, bwd(*bargs), bwd_plain(*bargs)):
+            compare(torch, f"{name} {gname}", a, r, grad_tol(tol, r))
+    records = []
+    for label, heads, qn in (("block 1", 2, 6272), ("block 3", 4, 1568)):
+        b, k_shape = 2 * CLIPS_PER_SAMPLE, (8, 14, 14)
+        x = mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16)
+        args = (*x[:6], k_shape, heads, scale)
+        out, lse = fwd(*args)
+        ref, ref_lse = fwd_plain(*args)
+        err_f = compare(torch, f"K7f {label} bf16 out", out, ref, MVIT_FWD_TOL)
+        compare(torch, f"K7f {label} lse", lse, ref_lse, LSE_TOL)
+        bargs = (*x[:6], ref, ref_lse, x[6], k_shape, heads, scale)
+        got, want = bwd(*bargs), bwd_plain(*bargs)
+        err_b = max(compare(torch, f"K7b {label} bf16 {n}", a, r,
+                            grad_tol(BF16_TOL, r))
+                    for n, a, r in zip(names, got, want))
+        del out, lse, got, want
+        ms_f = time_ms(torch, lambda: fwd(*args))
+        ms_b = time_ms(torch, lambda: bwd(*bargs))
+        plain_f = time_ms(torch, lambda: fwd_plain(*args), iters=2, reps=5)
+        plain_b = time_ms(torch, lambda: bwd_plain(*bargs), iters=2, reps=5)
+        lib_f, lib_b = mvit_sdpa_ms(torch, F, k5, x, heads, k_shape, scale)
+        kn, kcat, c, e = x[1].shape[1], sum(k_shape), heads * 96, 2
+        ins = e * (b * qn * c + 2 * b * kn * c + 2 * b * c + b * qn * heads * kcat)
+        nb_f = ins + e * b * qn * c + 4 * b * heads * qn
+        nb_b = (ins + 4 * b * heads * qn + 2 * e * b * qn * c
+                + e * (b * qn * c + 2 * b * kn * c + 2 * b * c
+                       + b * qn * heads * kcat))
+        pairs = b * heads * qn * (kn + 1) * 96
+        bf_ms, bf_by = bound_ms(nb_f, 4 * pairs, BF16_FLOPS)
+        bb_ms, bb_by = bound_ms(nb_b, 10 * pairs, BF16_FLOPS)
+        shape = f"[{b},{qn},{c}] x kN {kn}"
+        print(f"K7f {label} {shape} bf16: kernel {ms_f:.4f} ms, plain "
+              f"{plain_f:.4f} ms, SDPA+mask fwd {lib_f:.4f} ms, bound "
+              f"{bf_ms:.4f} ms ({bf_by}: {nb_f / 1e6:.1f} MB, "
+              f"{4 * pairs / 1e9:.2f} GFLOP)")
+        print(f"K7b {label} {shape} bf16: kernel {ms_b:.4f} ms, plain "
+              f"{plain_b:.4f} ms, SDPA+mask bwd {lib_b:.4f} ms (no d(rel)), "
+              f"bound {bb_ms:.4f} ms ({bb_by}: {nb_b / 1e6:.1f} MB, "
+              f"{10 * pairs / 1e9:.2f} GFLOP)")
+        if label != "block 1":
+            continue
+        src = "procedurevrl_torch/csrc/mvit_attention.cu"
+        where = "procedurevrl_tpu/ops/pallas_mvit_attention.py:"
+        for name, line, err, ms, plain, lib, bms, bby in (
+                (k5.KERNEL_KT, 1036, err_f, ms_f, plain_f, lib_f, bf_ms, bf_by),
+                (k5.KERNEL_KT_BWD, 1078, err_b, ms_b, plain_b, lib_b, bb_ms,
+                 bb_by)):
+            records.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": f"{where}{line}", "max_abs_err": err,
+                            "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                            "bound_by": bby, "library_ms": lib})
+    return records
+
+
+def phase_slice(torch, k1, k2, k5, k8, _build) -> dict:
     """Drive the slice; return the launch counts of its run."""
     from procedurevrl_torch.config import load_config
     from procedurevrl_torch.datasets.synthetic import SyntheticClips
@@ -608,7 +827,7 @@ def phase_slice(torch, k1, k2, k5, _build) -> dict:
     step = make_eval_step(model, cfg, bank)
     batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
     preds = step(batch)
-    with plain_attention(k1, k2, k5):
+    with plain_attention(k1, k2, k5, k8):
         ref = step(batch)
     torch.cuda.synchronize()
     if preds.shape != (cfg.TEST.BATCH_SIZE, cfg.MODEL.NUM_CLASSES):
@@ -656,7 +875,7 @@ def run_train(torch, _build, cfg, steps: int):
     return stats, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated()
 
 
-def step_vs_plain(torch, cfg, k1, k2, k5):
+def step_vs_plain(torch, cfg, k1, k2, k5, k8):
     """One train step of ``cfg`` through the kernels and the same step
     (params, batch, generator seeds) through the plain versions; returns
     the kernel path's step function and batch for the profile."""
@@ -678,7 +897,7 @@ def step_vs_plain(torch, cfg, k1, k2, k5):
         return step, {k: float(v) for k, v in m.items()}, grads
 
     step, mk, gk = one_step()
-    with plain_attention(k1, k2, k5):
+    with plain_attention(k1, k2, k5, k8):
         _, mp, gp = one_step()
     worst_cos, worst, least = 1.0, "", math.inf
     zero = {}  # name -> (kernel-path, plain-path norm) / global norm
@@ -722,7 +941,7 @@ def step_vs_plain(torch, cfg, k1, k2, k5):
     return step, batch
 
 
-def phase_train(torch, k1, k2, k5, _build) -> dict:
+def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
     """Drive slice 2; return the launch counts of its main run."""
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
@@ -765,54 +984,101 @@ def phase_train(torch, k1, k2, k5, _build) -> dict:
             fail(f"{key} launched {launches2.get(key, 0)} times without "
                  f"remat, expected {DEPTH * NO_REMAT_STEPS}")
 
-    step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5)
+    step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5, k8)
     profile_step(torch, f"one train step ({clips} clips, remat)",
                  lambda: float(step(batch)["loss"]))
     return launches
 
 
-def phase_mvit_train(torch, k1, k2, k5, _build) -> dict:
-    """Drive slice 3, the MViT-v2-S order-pretraining step; return the
-    launch counts of its main run."""
+def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
+               expected: dict) -> dict:
+    """MViT-v2-S order pretraining through ``train_net.train`` for ``steps``
+    steps with asserted launch counts, one step against the plain path, and
+    a profiled step; returns the launch counts of the main run."""
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
     cfg = mvit_cfg()
-    stats, launches, peak = run_train(torch, _build, cfg, MVIT_STEPS)
+    stats, launches, peak = run_train(torch, _build, cfg, steps)
     clips = stats["clips_per_step"]
     for i, h in enumerate(stats["history"]):
-        print(f"MViT train step {i + 1}: loss {h['loss']:.6f} kl "
+        print(f"{label} step {i + 1}: loss {h['loss']:.6f} kl "
               f"{h['kl']:.6f} mse {h['mse']:.6f} grad_norm "
               f"{h['grad_norm']:.4f} lr {h['lr']:.3e}")
         if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
                                                  "grad_norm")):
-            fail(f"MViT train step {i + 1} is not finite")
-    if len(stats["history"]) != MVIT_STEPS:
-        fail(f"{len(stats['history'])} MViT train steps, expected {MVIT_STEPS}")
-    print(f"MViT train slice (remat): {clips} clips/step, "
+            fail(f"{label} step {i + 1} is not finite")
+    if len(stats["history"]) != steps:
+        fail(f"{len(stats['history'])} {label} steps, expected {steps}")
+    print(f"{label} (remat): {clips} clips/step, "
           f"{stats['clips_per_sec']:.2f} clips/s over steps "
-          f"{WARMUP_STEPS + 1}..{MVIT_STEPS}, peak memory "
+          f"{WARMUP_STEPS + 1}..{steps}, peak memory "
           f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
-    # remat recomputes every block's forward for its backward: each forward
-    # kernel runs twice per block and step, each backward kernel once
-    expected = {k5.KERNEL_HL: 2 * MVIT_HL_BLOCKS * MVIT_STEPS,
-                k5.KERNEL: 2 * MVIT_HS_BLOCKS * MVIT_STEPS,
-                k5.KERNEL_HL_BWD: MVIT_HL_BLOCKS * MVIT_STEPS,
-                k5.KERNEL_BWD: MVIT_HS_BLOCKS * MVIT_STEPS}
     for key in (k1.KERNEL, k1.KERNEL_PROBS, k1.KERNEL_BWD, k2.KERNEL,
                 k2.KERNEL_BWD):
         expected[key] = 0
     for key, n in expected.items():
         if launches.get(key, 0) != n:
             fail(f"{key} launched {launches.get(key, 0)} times in "
-                 f"{MVIT_STEPS} MViT steps, expected {n}")
-    step, batch = step_vs_plain(torch, cfg, k1, k2, k5)
+                 f"{steps} {label} steps, expected {n}")
+    step, batch = step_vs_plain(torch, cfg, k1, k2, k5, k8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    profile_step(torch, f"one MViT train step ({clips} clips, remat)",
+    profile_step(torch, f"one {label} step ({clips} clips, remat)",
                  lambda: float(step(batch)["loss"]))
-    print(f"MViT profiled step peak memory "
+    print(f"{label} profiled step peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     return launches
+
+
+def phase_mvit_train(torch, k1, k2, k5, k8, _build) -> dict:
+    """Drive slice 3, the MViT-v2-S order-pretraining step on the default
+    route; return the launch counts of its main run."""
+    if any(os.environ.get(k) for k in KNOBS):
+        fail(f"phase 9 runs the default route: unset {sorted(KNOBS)}")
+    # remat recomputes every block's forward for its backward: each forward
+    # kernel runs twice per block and step, each backward kernel once
+    n = MVIT_STEPS
+    expected = {k5.KERNEL_HL: 2 * MVIT_HL_BLOCKS * n,
+                k5.KERNEL: 2 * MVIT_HS_BLOCKS * n,
+                k5.KERNEL_HL_BWD: MVIT_HL_BLOCKS * n,
+                k5.KERNEL_BWD: MVIT_HS_BLOCKS * n,
+                k5.KERNEL_KT: 0, k5.KERNEL_KT_BWD: 0, k8.KERNEL: 0,
+                k8.KERNEL_DX: 0, k8.KERNEL_DW: 0}
+    return mvit_train(torch, k1, k2, k5, k8, _build, "MViT train", n,
+                      expected)
+
+
+@contextlib.contextmanager
+def knobs_set():
+    """``MVIT_POOL=kernel MVIT_KT=1`` for the models built inside, the
+    environment as it was afterwards."""
+    saved = {k: os.environ.get(k) for k in KNOBS}
+    os.environ.update(KNOBS)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_knob_train(torch, k1, k2, k5, k8, _build) -> dict:
+    """Drive slice 4, the MViT-v2-S step on the JAX package's
+    ``MVIT_POOL=kernel`` / ``MVIT_KT=1`` route; return the launch counts of
+    its main run."""
+    n = KNOB_STEPS
+    hl = MVIT_HL_BLOCKS  # blocks 1 and 3 leave K6 for K7; K5's are as before
+    expected = {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL_HL_BWD: hl * n,
+                k5.KERNEL_KT: 2 * KT_BLOCKS * n, k5.KERNEL_KT_BWD: KT_BLOCKS * n,
+                k5.KERNEL: 2 * KNOB_HS_BLOCKS * n,
+                k5.KERNEL_BWD: KNOB_HS_BLOCKS * n,
+                k8.KERNEL: 2 * K8_POOLS * n, k8.KERNEL_DX: K8_POOLS * n,
+                k8.KERNEL_DW: K8_POOLS * n}
+    with knobs_set():
+        return mvit_train(torch, k1, k2, k5, k8, _build, "MViT knob train",
+                          n, expected)
 
 
 def main() -> int:
@@ -829,6 +1095,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from procedurevrl_torch.ops import _build
+    from procedurevrl_torch.ops import depthwise_pool as k8
     from procedurevrl_torch.ops import mvit_attention as k5
     from procedurevrl_torch.ops import spatial_attention as k1
     from procedurevrl_torch.ops import temporal_attention as k2
@@ -843,26 +1110,37 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s for "
+    print(f"phase 1 build: {time.perf_counter() - t0:.1f} s for "
           f"{', '.join(report)} (parallel nvcc)")
     for name, rep in report.items():
         for line in rep["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    eval_kernels = [phase_k1(torch, F, k1), phase_k2(torch, F, k2)]
-    train_kernels = phase_k1_train(torch, F, k1) + [phase_k2_train(torch, F, k2)]
-    mvit_kernels = phase_mvit_kernels(torch, F, k5)
-    launches = phase_slice(torch, k1, k2, k5, _build)
+    eval_kernels = [timed("2 K1f", phase_k1, torch, F, k1),
+                    timed("3 K2f", phase_k2, torch, F, k2)]
+    train_kernels = (timed("4 K1sp/K1b", phase_k1_train, torch, F, k1)
+                     + [timed("5 K2b", phase_k2_train, torch, F, k2)])
+    mvit_kernels = timed("8 K5/K6", phase_mvit_kernels, torch, F, k5)
+    knob_kernels = (timed("10 K8", phase_pool_kernels, torch, F, k8)
+                    + timed("10 K7", phase_kt_kernels, torch, F, k5))
+    launches = timed("6 slice 1", phase_slice, torch, k1, k2, k5, k8, _build)
     for rec in eval_kernels:
         rec["launches"] = launches.get(rec["name"], 0)
-    launches = phase_train(torch, k1, k2, k5, _build)
+    launches = timed("7 slice 2", phase_train, torch, k1, k2, k5, k8, _build)
     for rec in train_kernels:
         rec["launches"] = launches.get(rec["name"], 0)
-    launches = phase_mvit_train(torch, k1, k2, k5, _build)
+    launches = timed("9 slice 3", phase_mvit_train, torch, k1, k2, k5, k8,
+                     _build)
     for rec in mvit_kernels:
         rec["launches"] = launches.get(rec["name"], 0)
-    kernels = eval_kernels + train_kernels + mvit_kernels
+    launches = timed("11 slice 4", phase_knob_train, torch, k1, k2, k5, k8,
+                     _build)
+    for rec in knob_kernels:
+        rec["launches"] = launches.get(rec["name"], 0)
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the slice 4 path")
+    kernels = eval_kernels + train_kernels + mvit_kernels + knob_kernels
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)

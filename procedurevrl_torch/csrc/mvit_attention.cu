@@ -1,11 +1,14 @@
 // MViT pooled attention with the decomposed relative-position bias: the
-// forward (K5f / K6f) and its recompute backward (K5b / K6b).
+// forward (K5f / K6f) and its recompute backward (K5b / K6b), and the
+// key-tiled row-max forward (K7f) with its backward (K7b).
 //
 // Replaces the TPU kernels of procedurevrl_tpu/ops/pallas_mvit_attention.py:
-//   K5f  _fwd_hl_kernel  (via _fwd_hl,  head-last  [B, qN, H*d]);
-//   K5b  _bwd_hl_kernel  (via _bwd_hl);
-//   K6f  _fwd_kernel     (via _fwd,     head-split [B*H, qN, d]);
-//   K6b  _bwd_kernel     (via _bwd).
+//   K5f  _fwd_hl_kernel     (via _fwd_hl,  head-last  [B, qN, H*d]);
+//   K5b  _bwd_hl_kernel     (via _bwd_hl);
+//   K6f  _fwd_kernel        (via _fwd,     head-split [B*H, qN, d]);
+//   K6b  _bwd_kernel        (via _bwd);
+//   K7f  _fwd_hl_kt_kernel  (via _fwd_hl_kt, head-last, MVIT_KT=1);
+//   K7b  _bwd_hl_kt_kernel  (via _bwd_hl_kt).
 // One kernel serves both layouts: every tensor is addressed per (batch,
 // head) slice with a token-row stride, so the head-last call passes
 // (B, H) and row stride H*96, the head-split call (B*H, 1) and row stride
@@ -57,6 +60,14 @@
 //     dk and dv in registers, so no sum crosses CTAs.
 //   * fp32: scalar paths (the tensor cores have no exact fp32 mode), one
 //     warp per query or key row, for small shapes.
+// K7 has the same contract and layout except its softmax: the row max, not
+// the clamp.  K7f keeps a running max m over key tiles, p = exp(s - m)
+// (padding columns masked to -1e30 as on the TPU), rounds the unnormalised
+// p to bf16 before P V, divides by l at the end and writes lse = m + log l
+// (fp32 [B, H, qN]) in place of l.  K7b rebuilds p = exp(s - lse) and takes
+// D_i = rowsum(g_i o_i) from the saved output o; the rest is K5b's kernel
+// pair (a compile-time switch), so its products run on bf16 operands (ds,
+// p, g, k, q) where the TPU kernel multiplies fp32 ones (:1128-1143).
 // Not done yet: double-buffered staging, wgmma and TMA, and fewer
 // recomputations of s (the backward computes s three times and g v^T
 // twice: ~18 d operations per (query, key) pair against 10 d needed).
@@ -76,6 +87,7 @@ constexpr int SE = KCAT + 8;  // smem row of a rel / expander tile: 112 B
 constexpr int WARPS = 4;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BF16_ONE = 0x3F80u;
+constexpr float MASKED = -1e30f;  // K7's logit of a padding key column
 
 struct Geo {
   int heads, qn, kn, kt, kh, kw, kcat;
@@ -265,9 +277,39 @@ __device__ __forceinline__ void exp_logits8(float (&s)[4],
   }
 }
 
+// K7: the logits s = (q.k) * scale + bias for the warp's 16 query rows and
+// tile keys [n0, n0 + 8), MASKED for keys past the cls (j > kn), as the
+// TPU kernel masks its padding columns
+__device__ __forceinline__ void logits8(float (&s)[4],
+                                        const uint32_t (&qa)[6][4],
+                                        const uint32_t (&ra)[3][4],
+                                        const uint16_t* k_s,
+                                        const uint16_t* e_s, int n0, int j0,
+                                        int kn, float scale) {
+  float qk[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_rows<6>(qk, qa, k_s, SD, n0);
+  mma_rows<3>(b, ra, e_s, SE, n0);
+  const int col = j0 + n0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;
+}
+
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
 }
 
 constexpr size_t FWD_SMEM = (size_t)(3 * 64 * SD + 2 * 64 * SE) * 2;
@@ -357,15 +399,123 @@ mvit_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
+// K7f: one sweep over the key tiles with an online softmax (the
+// FlashAttention-2 form of the TPU kernel): per query row a running max m
+// and partial sums l and acc; a tile whose max exceeds m rescales them by
+// exp(m_old - m_new); p = exp(s - m) is rounded to bf16 unnormalised as the
+// A operand of P V; o = acc / l and lse = m + log l at the end.
+__global__ void __launch_bounds__(WARPS * 32)
+mvit_fwd_kt_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                const uint16_t* __restrict__ v,
+                const uint16_t* __restrict__ kc,
+                const uint16_t* __restrict__ vc,
+                const uint16_t* __restrict__ rel, uint16_t* __restrict__ out,
+                float* __restrict__ lse, Geo g, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* k_s = q_s + BM * SD;
+  uint16_t* v_s = k_s + BN * SD;
+  uint16_t* e_s = v_s + BN * SD;
+  uint16_t* r_s = e_s + BN * SE;
+  const int bh = blockIdx.y, i0 = blockIdx.x * BM;
+  const uint16_t* kp = k_of(k, g, bh);
+  const uint16_t* vp = k_of(v, g, bh);
+  const uint16_t* kcp = c_of(kc, g, bh);
+  const uint16_t* vcp = c_of(vc, g, bh);
+
+  stage_rows(q_s, q_of(q, g, bh), g.row, i0, g.qn);
+  stage_rel(r_s, rel_of(rel, g, bh), g, i0);
+  cp_async_wait_all();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  uint32_t qa[6][4], ra[3][4];
+  load_a<6>(qa, q_s, SD, warp * 16);
+  load_a<3>(ra, r_s, SE, warp * 16);
+
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+  float o[12][4];
+#pragma unroll
+  for (int dt = 0; dt < 12; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  const int kcols = g.kn + 1;  // the body keys and the cls key
+  for (int j0 = 0; j0 < kcols; j0 += BN) {
+    __syncthreads();  // the previous key tile is consumed
+    stage_keys(k_s, kp, kcp, g.row, j0, g.kn);
+    stage_keys(v_s, vp, vcp, g.row, j0, g.kn);
+    build_expander(e_s, j0, g);
+    cp_async_wait_all();
+    __syncthreads();
+    float s[8][4];
+    float t0 = MASKED, t1 = MASKED;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      logits8(s[nb], qa, ra, k_s, e_s, nb * 8, j0, g.kn, scale);
+      t0 = fmaxf(t0, fmaxf(s[nb][0], s[nb][1]));
+      t1 = fmaxf(t1, fmaxf(s[nb][2], s[nb][3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+    const float a0 = exp2f((m0 - n0) * LOG2E), a1 = exp2f((m1 - n1) * LOG2E);
+    m0 = n0;
+    m1 = n1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int dt = 0; dt < 12; ++dt) {
+      o[dt][0] *= a0;
+      o[dt][1] *= a0;
+      o[dt][2] *= a1;
+      o[dt][3] *= a1;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      s[nb][0] = exp2f((s[nb][0] - n0) * LOG2E);
+      s[nb][1] = exp2f((s[nb][1] - n0) * LOG2E);
+      s[nb][2] = exp2f((s[nb][2] - n1) * LOG2E);
+      s[nb][3] = exp2f((s[nb][3] - n1) * LOG2E);
+      l0 += s[nb][0] + s[nb][1];
+      l1 += s[nb][2] + s[nb][3];
+    }
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks) {
+      const uint32_t pa[4] = {pack_bf16x2(s[2 * ks][0], s[2 * ks][1]),
+                              pack_bf16x2(s[2 * ks][2], s[2 * ks][3]),
+                              pack_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                              pack_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+      mma_cols<12>(o, pa, v_s, SD, ks * 16);
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  uint16_t* op = q_of(out, g, bh);
+  float* ls = lse + (size_t)bh * g.qn;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = i0 + warp * 16 + gid + 8 * half;
+    if (r >= g.qn) continue;
+    const float l = half ? l1 : l0;
+    uint16_t* dst = op + (size_t)r * g.row + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < 12; ++dt)
+      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+          pack_bf16x2(o[dt][2 * half] / l, o[dt][2 * half + 1] / l);
+    if (tig == 0) ls[r] = (half ? m1 : m0) + logf(l);
+  }
+}
+
 constexpr size_t BWD_Q_SMEM = (size_t)(4 * 64 * SD + 2 * 64 * SE) * 2;
 
 // Query-major backward: D (stored for the key-major pass), dq and d(rel).
+// KT = false (K5b / K6b): rowsum holds l, p = exp(min(s, 80)) / l, D =
+// sum_j dp p.  KT = true (K7b): rowsum holds lse, p = exp(s - lse), D =
+// rowsum(g o) from the saved output o.
+template <bool KT>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
                const uint16_t* __restrict__ vc,
                const uint16_t* __restrict__ rel,
                const float* __restrict__ rowsum,
+               const uint16_t* __restrict__ o,
                const uint16_t* __restrict__ gr, float* __restrict__ delta,
                uint16_t* __restrict__ dq, uint16_t* __restrict__ drel, Geo g,
                float scale) {
@@ -395,29 +545,51 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   load_a<3>(ra, r_s, SE, warp * 16);
   const int r0 = i0 + warp * 16 + gid, r1 = r0 + 8;
   const float* rs = rowsum + (size_t)bh * g.qn;
-  const float inv0 = r0 < g.qn ? 1.f / rs[r0] : 1.f;
-  const float inv1 = r1 < g.qn ? 1.f / rs[r1] : 1.f;
+  // K5: 1 / l; K7: lse (pad rows: p = 1 either way, and their g is 0)
+  const float c0 = r0 < g.qn ? (KT ? rs[r0] : 1.f / rs[r0]) : (KT ? 0.f : 1.f);
+  const float c1 = r1 < g.qn ? (KT ? rs[r1] : 1.f / rs[r1]) : (KT ? 0.f : 1.f);
 
-  // sweep A: D_i = sum_j dp_ij p_ij
   float d0 = 0.f, d1 = 0.f;
-  for (int j0 = 0; j0 <= g.kn; j0 += BN) {
-    __syncthreads();
-    stage_keys(k_s, kp, kcp, g.row, j0, g.kn);
-    stage_keys(v_s, vp, vcp, g.row, j0, g.kn);
-    build_expander(e_s, j0, g);
+  if constexpr (KT) {
+    // D_i = sum_e g_ie o_ie, the o tile staged in k_s, D in v_s
+    float* d_s = reinterpret_cast<float*>(v_s);
+    stage_rows(k_s, q_of(o, g, bh), g.row, i0, g.qn);
     cp_async_wait_all();
     __syncthreads();
-#pragma unroll 2
-    for (int n0 = 0; n0 < BN; n0 += 8) {
-      float p[4], dp[4] = {0.f, 0.f, 0.f, 0.f};
-      exp_logits8(p, qa, ra, k_s, e_s, n0, j0, g.kn, scale);
-      mma_rows<6>(dp, ga, v_s, SD, n0);
-      d0 += dp[0] * (p[0] * inv0) + dp[1] * (p[1] * inv0);
-      d1 += dp[2] * (p[2] * inv1) + dp[3] * (p[3] * inv1);
+    if (threadIdx.x < BM) {
+      float acc = 0.f;
+      for (int e = 0; e < D; e += 2) {
+        const float2 a = load_bf16x2(g_s + threadIdx.x * SD + e);
+        const float2 b = load_bf16x2(k_s + threadIdx.x * SD + e);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+      }
+      d_s[threadIdx.x] = acc;
     }
+    __syncthreads();
+    d0 = d_s[warp * 16 + gid];
+    d1 = d_s[warp * 16 + gid + 8];
+  } else {
+    // sweep A: D_i = sum_j dp_ij p_ij
+    for (int j0 = 0; j0 <= g.kn; j0 += BN) {
+      __syncthreads();
+      stage_keys(k_s, kp, kcp, g.row, j0, g.kn);
+      stage_keys(v_s, vp, vcp, g.row, j0, g.kn);
+      build_expander(e_s, j0, g);
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll 2
+      for (int n0 = 0; n0 < BN; n0 += 8) {
+        float p[4], dp[4] = {0.f, 0.f, 0.f, 0.f};
+        exp_logits8(p, qa, ra, k_s, e_s, n0, j0, g.kn, scale);
+        mma_rows<6>(dp, ga, v_s, SD, n0);
+        d0 += dp[0] * (p[0] * c0) + dp[1] * (p[1] * c0);
+        d1 += dp[2] * (p[2] * c1) + dp[3] * (p[3] * c1);
+      }
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
   }
-  d0 = quad_sum(d0);
-  d1 = quad_sum(d1);
   float* dl = delta + (size_t)bh * g.qn;
   if (tig == 0) {
     if (r0 < g.qn) dl[r0] = d0;
@@ -443,12 +615,21 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         float p[4], dp[4] = {0.f, 0.f, 0.f, 0.f};
-        exp_logits8(p, qa, ra, k_s, e_s, ks * 16 + u * 8, j0, g.kn, scale);
+        if constexpr (KT) {
+          logits8(p, qa, ra, k_s, e_s, ks * 16 + u * 8, j0, g.kn, scale);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[e] = exp2f((p[e] - (e < 2 ? c0 : c1)) * LOG2E);
+        } else {
+          exp_logits8(p, qa, ra, k_s, e_s, ks * 16 + u * 8, j0, g.kn, scale);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] *= e < 2 ? c0 : c1;
+        }
         mma_rows<6>(dp, ga, v_s, SD, ks * 16 + u * 8);
-        ds[u][0] = (p[0] * inv0) * (dp[0] - d0);
-        ds[u][1] = (p[1] * inv0) * (dp[1] - d0);
-        ds[u][2] = (p[2] * inv1) * (dp[2] - d1);
-        ds[u][3] = (p[3] * inv1) * (dp[3] - d1);
+        ds[u][0] = p[0] * (dp[0] - d0);
+        ds[u][1] = p[1] * (dp[1] - d0);
+        ds[u][2] = p[2] * (dp[2] - d1);
+        ds[u][3] = p[3] * (dp[3] - d1);
       }
       const uint32_t da[4] = {pack_bf16x2(ds[0][0], ds[0][1]),
                               pack_bf16x2(ds[0][2], ds[0][3]),
@@ -487,7 +668,9 @@ constexpr size_t BWD_K_SMEM =
     (size_t)(4 * 64 * SD + 2 * 64 * SE) * 2 + 2 * BM * sizeof(float);
 
 // Key-major backward: each CTA owns 64 keys of [body; cls] and walks every
-// query tile, so dk and dv are summed in registers in a fixed order.
+// query tile, so dk and dv are summed in registers in a fixed order (KT as
+// in mvit_bwd_q_mma).
+template <bool KT>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
@@ -505,7 +688,7 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   uint16_t* g_s = q_s + BM * SD;
   uint16_t* e_s = g_s + BM * SD;
   uint16_t* r_s = e_s + BN * SE;
-  float* li_s = reinterpret_cast<float*>(r_s + BM * SE);  // 1 / l_i
+  float* li_s = reinterpret_cast<float*>(r_s + BM * SE);  // 1 / l_i or lse_i
   float* d_s = li_s + BM;                                 // D_i
   const int bh = blockIdx.y, j0 = blockIdx.x * BN;
   const uint16_t* qp = q_of(q, g, bh);
@@ -530,9 +713,11 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     stage_rows(q_s, qp, g.row, i0, g.qn);
     stage_rows(g_s, gp, g.row, i0, g.qn);
     stage_rel(r_s, relp, g, i0);
-    // padding rows: q = g = rel = 0, l = 1, D = 0, so p = 1 and ds = 0
+    // padding rows: q = g = rel = 0, l = 1 (lse = 0), D = 0, so p = 1 and
+    // ds = 0
     for (int t = threadIdx.x; t < BM; t += blockDim.x) {
-      li_s[t] = i0 + t < g.qn ? 1.f / rs[i0 + t] : 1.f;
+      li_s[t] = i0 + t < g.qn ? (KT ? rs[i0 + t] : 1.f / rs[i0 + t])
+                              : (KT ? 0.f : 1.f);
       d_s[t] = i0 + t < g.qn ? dl[i0 + t] : 0.f;
     }
     cp_async_wait_all();
@@ -552,8 +737,12 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = kk * 16 + u * 8 + 2 * tig + (e & 1);
-            p[u][e] = exp2f(fminf(fmaf(qk[e], scale, b[e]), CLAMP_HI) * LOG2E) *
-                      li_s[i];
+            const float x = fmaf(qk[e], scale, b[e]);
+            if constexpr (KT) {
+              p[u][e] = exp2f((x - li_s[i]) * LOG2E);
+            } else {
+              p[u][e] = exp2f(fminf(x, CLAMP_HI) * LOG2E) * li_s[i];
+            }
           }
         }
       }
@@ -667,15 +856,63 @@ mvit_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
   if (lane == 0) rowsum[(size_t)bh * g.qn + i] = l;
 }
 
+// K7f: one warp per query row; shared memory holds the warp's logits, then
+// p = exp(s - m) with m the row max; o = (sum_j p_j v_j) / l.
+__global__ void __launch_bounds__(WARPS * 32)
+mvit_fwd_kt_scalar(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ kc,
+                   const float* __restrict__ vc, const float* __restrict__ rel,
+                   float* __restrict__ out, float* __restrict__ lse, Geo g,
+                   float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
+  if (i >= g.qn) return;  // warp-uniform; no block barrier below
+  float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * (g.kn + 1);
+  const float* qi = q_of(q, g, bh) + (size_t)i * g.row;
+  const float* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
+  const float* kp = k_of(k, g, bh);
+  const float* kcp = c_of(kc, g, bh);
+  float mx = MASKED;
+  for (int j = lane; j <= g.kn; j += 32) {
+    const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
+    e_w[j] = s;
+    mx = fmaxf(mx, s);
+  }
+  const float m = warp_max(mx);
+  float part = 0.f;
+  for (int j = lane; j <= g.kn; j += 32) {
+    const float e = expf(e_w[j] - m);
+    e_w[j] = e;
+    part += e;
+  }
+  const float l = warp_sum(part);
+  __syncwarp();
+  const float* vp = k_of(v, g, bh);
+  const float* vcp = c_of(vc, g, bh);
+  float o[3] = {0.f, 0.f, 0.f};
+  for (int j = 0; j <= g.kn; ++j) {
+    const float* vj = key_row(vp, vcp, j, g);
+#pragma unroll
+    for (int u = 0; u < 3; ++u) o[u] = fmaf(e_w[j], vj[lane + 32 * u], o[u]);
+  }
+  float* oi = q_of(out, g, bh) + (size_t)i * g.row;
+#pragma unroll
+  for (int u = 0; u < 3; ++u) oi[lane + 32 * u] = o[u] / l;
+  if (lane == 0) lse[(size_t)bh * g.qn + i] = m + logf(l);
+}
+
 // Query-major backward: one warp per query row; per warp two rows [kn + 1]
-// of shared memory (p, then ds; and dp).
+// of shared memory (p, then ds; and dp).  KT as in mvit_bwd_q_mma.
+template <bool KT>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ kc,
                   const float* __restrict__ vc, const float* __restrict__ rel,
-                  const float* __restrict__ rowsum, const float* __restrict__ gr,
-                  float* __restrict__ delta, float* __restrict__ dq,
-                  float* __restrict__ drel, Geo g, float scale) {
+                  const float* __restrict__ rowsum, const float* __restrict__ o,
+                  const float* __restrict__ gr, float* __restrict__ delta,
+                  float* __restrict__ dq, float* __restrict__ drel, Geo g,
+                  float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
@@ -689,17 +926,18 @@ mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
   const float* kcp = c_of(kc, g, bh);
   const float* vp = k_of(v, g, bh);
   const float* vcp = c_of(vc, g, bh);
-  const float l = rowsum[(size_t)bh * g.qn + i];
+  const float l = rowsum[(size_t)bh * g.qn + i];  // K7: lse
   float part = 0.f;
   for (int j = lane; j <= g.kn; j += 32) {
-    const float p =
-        expf(fminf(logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale), CLAMP_HI)) / l;
+    const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
+    const float p = KT ? expf(s - l) : expf(fminf(s, CLAMP_HI)) / l;
     const float dp = dot96(gi, key_row(vp, vcp, j, g));
     p_w[j] = p;
     dp_w[j] = dp;
     part = fmaf(dp, p, part);
   }
-  const float Dl = warp_sum(part);
+  const float Dl =
+      KT ? dot96(gi, q_of(o, g, bh) + (size_t)i * g.row) : warp_sum(part);
   if (lane == 0) delta[(size_t)bh * g.qn + i] = Dl;
   for (int j = lane; j <= g.kn; j += 32) p_w[j] = p_w[j] * (dp_w[j] - Dl);
   __syncwarp();
@@ -729,7 +967,9 @@ mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Key-major backward: one warp per key row of [body; cls]; lanes take 32
-// queries at a time, then sum their products over them.
+// queries at a time, then sum their products over them.  KT as in
+// mvit_bwd_q_mma.
+template <bool KT>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ kc,
@@ -755,8 +995,8 @@ mvit_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
     float p = 0.f, ds = 0.f;
     if (i < g.qn) {
       const float* qi = qp + (size_t)i * g.row;
-      p = expf(fminf(logit(qi, relp + (size_t)i * g.rrow, kj, j, g, scale),
-                     CLAMP_HI)) / rs[i];
+      const float s = logit(qi, relp + (size_t)i * g.rrow, kj, j, g, scale);
+      p = KT ? expf(s - rs[i]) : expf(fminf(s, CLAMP_HI)) / rs[i];
       ds = p * (dot96(gp + (size_t)i * g.row, vj) - dl[i]);
     }
     p_s[warp][lane] = p;
@@ -794,6 +1034,108 @@ bool valid(int b, int heads, int qn, int kn, int kt, int kh, int kw) {
          kw > 0 && kt * kh * kw == kn && kt + kh + kw <= KCAT && b * heads <= 65535;
 }
 
+// The forward of K5/K6 (KT = false: out and the row sums l) or of K7 (KT =
+// true: out and lse).
+template <bool KT>
+int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
+               const void* vc, const void* rel, void* out, void* stats, int b,
+               int heads, int qn, int kn, int kt, int kh, int kw, int dtype,
+               float scale, void* stream) {
+  if (!valid(b, heads, qn, kn, kt, kh, kw)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo g = make_geo(heads, qn, kn, kt, kh, kw);
+  if (dtype == 1) {
+    auto kernel = KT ? mvit_fwd_kt_mma : mvit_fwd_mma;
+    cudaError_t err = set_smem(kernel, FWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((qn + BM - 1) / BM, b * heads);
+    kernel<<<grid, WARPS * 32, FWD_SMEM, st>>>(
+        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(kc),
+        static_cast<const uint16_t*>(vc), static_cast<const uint16_t*>(rel),
+        static_cast<uint16_t*>(out), static_cast<float*>(stats), g, scale);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  auto kernel = KT ? mvit_fwd_kt_scalar : mvit_fwd_scalar;
+  const size_t smem = (size_t)WARPS * (kn + 1) * sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((qn + WARPS - 1) / WARPS, b * heads);
+  kernel<<<grid, WARPS * 32, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<const float*>(rel),
+      static_cast<float*>(out), static_cast<float*>(stats), g, scale);
+  return (int)cudaGetLastError();
+}
+
+// The backward of K5/K6 (KT = false; stats = l, o unused) or of K7 (KT =
+// true; stats = lse, o the saved output): a query-major kernel writes
+// delta, dq and drel, then a key-major kernel dk, dv, dkc and dvc.
+template <bool KT>
+int launch_bwd(const void* q, const void* k, const void* v, const void* kc,
+               const void* vc, const void* rel, const void* o,
+               const void* stats, const void* g, void* delta, void* dq,
+               void* dk, void* dv, void* dkc, void* dvc, void* drel, int b,
+               int heads, int qn, int kn, int kt, int kh, int kw, int dtype,
+               float scale, void* stream) {
+  if (!valid(b, heads, qn, kn, kt, kh, kw)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geo geo = make_geo(heads, qn, kn, kt, kh, kw);
+  if (dtype == 1) {
+    using u16 = uint16_t;
+    cudaError_t err = set_smem(mvit_bwd_q_mma<KT>, BWD_Q_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    err = set_smem(mvit_bwd_k_mma<KT>, BWD_K_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    mvit_bwd_q_mma<KT><<<dim3((qn + BM - 1) / BM, b * heads), WARPS * 32,
+                         BWD_Q_SMEM, st>>>(
+        static_cast<const u16*>(q), static_cast<const u16*>(k),
+        static_cast<const u16*>(v), static_cast<const u16*>(kc),
+        static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+        static_cast<const float*>(stats), static_cast<const u16*>(o),
+        static_cast<const u16*>(g), static_cast<float*>(delta),
+        static_cast<u16*>(dq), static_cast<u16*>(drel), geo, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    mvit_bwd_k_mma<KT><<<dim3((kn + 1 + BN - 1) / BN, b * heads), WARPS * 32,
+                         BWD_K_SMEM, st>>>(
+        static_cast<const u16*>(q), static_cast<const u16*>(k),
+        static_cast<const u16*>(v), static_cast<const u16*>(kc),
+        static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+        static_cast<const float*>(stats), static_cast<const u16*>(g),
+        static_cast<const float*>(delta), static_cast<u16*>(dk),
+        static_cast<u16*>(dv), static_cast<u16*>(dkc), static_cast<u16*>(dvc),
+        geo, scale);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)WARPS * 2 * (kn + 1) * sizeof(float);
+  cudaError_t err = set_smem(mvit_bwd_q_scalar<KT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mvit_bwd_q_scalar<KT><<<dim3((qn + WARPS - 1) / WARPS, b * heads),
+                          WARPS * 32, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<const float*>(rel),
+      static_cast<const float*>(stats), static_cast<const float*>(o),
+      static_cast<const float*>(g), static_cast<float*>(delta),
+      static_cast<float*>(dq), static_cast<float*>(drel), geo, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mvit_bwd_k_scalar<KT><<<dim3((kn + 1 + WARPS - 1) / WARPS, b * heads),
+                          WARPS * 32, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<const float*>(rel),
+      static_cast<const float*>(stats), static_cast<const float*>(g),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(dkc),
+      static_cast<float*>(dvc), geo, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  b, heads: the head-last call passes
@@ -808,31 +1150,8 @@ extern "C" int mvit_attention_fwd(const void* q, const void* k, const void* v,
                                   int b, int heads, int qn, int kn, int kt,
                                   int kh, int kw, int dtype, float scale,
                                   void* stream) {
-  if (!valid(b, heads, qn, kn, kt, kh, kw)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo g = make_geo(heads, qn, kn, kt, kh, kw);
-  if (dtype == 1) {
-    cudaError_t err = set_smem(mvit_fwd_mma, FWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((qn + BM - 1) / BM, b * heads);
-    mvit_fwd_mma<<<grid, WARPS * 32, FWD_SMEM, st>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(kc),
-        static_cast<const uint16_t*>(vc), static_cast<const uint16_t*>(rel),
-        static_cast<uint16_t*>(out), static_cast<float*>(rowsum), g, scale);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * (kn + 1) * sizeof(float);
-  cudaError_t err = set_smem(mvit_fwd_scalar, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((qn + WARPS - 1) / WARPS, b * heads);
-  mvit_fwd_scalar<<<grid, WARPS * 32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<const float*>(rel),
-      static_cast<float*>(out), static_cast<float*>(rowsum), g, scale);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(q, k, v, kc, vc, rel, out, rowsum, b, heads, qn,
+                           kn, kt, kh, kw, dtype, scale, stream);
 }
 
 // K5b / K6b: dq (like q), dk, dv (like k), dkc, dvc (like kc), drel (like
@@ -847,58 +1166,35 @@ extern "C" int mvit_attention_bwd(const void* q, const void* k, const void* v,
                                   void* drel, int b, int heads, int qn, int kn,
                                   int kt, int kh, int kw, int dtype,
                                   float scale, void* stream) {
-  if (!valid(b, heads, qn, kn, kt, kh, kw)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Geo geo = make_geo(heads, qn, kn, kt, kh, kw);
-  if (dtype == 1) {
-    using u16 = uint16_t;
-    cudaError_t err = set_smem(mvit_bwd_q_mma, BWD_Q_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    err = set_smem(mvit_bwd_k_mma, BWD_K_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    mvit_bwd_q_mma<<<dim3((qn + BM - 1) / BM, b * heads), WARPS * 32,
-                     BWD_Q_SMEM, st>>>(
-        static_cast<const u16*>(q), static_cast<const u16*>(k),
-        static_cast<const u16*>(v), static_cast<const u16*>(kc),
-        static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-        static_cast<const float*>(rowsum), static_cast<const u16*>(g),
-        static_cast<float*>(delta), static_cast<u16*>(dq),
-        static_cast<u16*>(drel), geo, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    mvit_bwd_k_mma<<<dim3((kn + 1 + BN - 1) / BN, b * heads), WARPS * 32,
-                     BWD_K_SMEM, st>>>(
-        static_cast<const u16*>(q), static_cast<const u16*>(k),
-        static_cast<const u16*>(v), static_cast<const u16*>(kc),
-        static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-        static_cast<const float*>(rowsum), static_cast<const u16*>(g),
-        static_cast<const float*>(delta), static_cast<u16*>(dk),
-        static_cast<u16*>(dv), static_cast<u16*>(dkc), static_cast<u16*>(dvc),
-        geo, scale);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * 2 * (kn + 1) * sizeof(float);
-  cudaError_t err = set_smem(mvit_bwd_q_scalar, smem);
-  if (err != cudaSuccess) return (int)err;
-  mvit_bwd_q_scalar<<<dim3((qn + WARPS - 1) / WARPS, b * heads), WARPS * 32,
-                      smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<const float*>(rel),
-      static_cast<const float*>(rowsum), static_cast<const float*>(g),
-      static_cast<float*>(delta), static_cast<float*>(dq),
-      static_cast<float*>(drel), geo, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mvit_bwd_k_scalar<<<dim3((kn + 1 + WARPS - 1) / WARPS, b * heads),
-                      WARPS * 32, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<const float*>(rel),
-      static_cast<const float*>(rowsum), static_cast<const float*>(g),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(dkc),
-      static_cast<float*>(dvc), geo, scale);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(q, k, v, kc, vc, rel, nullptr, rowsum, g, delta,
+                           dq, dk, dv, dkc, dvc, drel, b, heads, qn, kn, kt,
+                           kh, kw, dtype, scale, stream);
+}
+
+// K7f (head-last, b = B): out (like q) and lse [b, heads, qn] fp32.
+extern "C" int mvit_attention_kt_fwd(const void* q, const void* k,
+                                     const void* v, const void* kc,
+                                     const void* vc, const void* rel,
+                                     void* out, void* lse, int b, int heads,
+                                     int qn, int kn, int kt, int kh, int kw,
+                                     int dtype, float scale, void* stream) {
+  return launch_fwd<true>(q, k, v, kc, vc, rel, out, lse, b, heads, qn, kn,
+                          kt, kh, kw, dtype, scale, stream);
+}
+
+// K7b: the gradients as for K5b, from the forward's output `out` and lse;
+// delta [b, heads, qn] fp32 is scratch (rowsum(g out), written by the first
+// kernel and read by the second).
+extern "C" int mvit_attention_kt_bwd(const void* q, const void* k,
+                                     const void* v, const void* kc,
+                                     const void* vc, const void* rel,
+                                     const void* out, const void* lse,
+                                     const void* g, void* delta, void* dq,
+                                     void* dk, void* dv, void* dkc, void* dvc,
+                                     void* drel, int b, int heads, int qn,
+                                     int kn, int kt, int kh, int kw, int dtype,
+                                     float scale, void* stream) {
+  return launch_bwd<true>(q, k, v, kc, vc, rel, out, lse, g, delta, dq, dk,
+                          dv, dkc, dvc, drel, b, heads, qn, kn, kt, kh, kw,
+                          dtype, scale, stream);
 }

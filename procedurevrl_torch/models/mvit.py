@@ -14,12 +14,27 @@ PyTorch.  Parameters carry the reference ``.pyth`` names
 ``blocks.{i}.attn.rel_pos_h`` ...), which ``convert_mvit`` of the JAX
 package reads.
 
-The TPU layout knobs ``MVIT_POOL``, ``MVIT_MAXPOOL``, ``MVIT_RELV2``,
-``MVIT_SAVE_REL``, ``MVIT_KT`` and ``MVIT_HL`` are not copied.
+Two of the JAX package's environment knobs are copied, because they are
+its only routes to two of its kernels; :meth:`MViTConfig.from_cfg` reads
+them once, so a built model's route is fixed:
+
+- ``MVIT_POOL`` = ``conv`` (default), ``kernel`` or ``taps``: with
+  ``kernel`` the stride-1 3x3x3 pools go through the port's K8
+  (``ops/depthwise_pool.py``), with ``taps`` through its plain tap
+  formulas (the JAX ablation); strided pools, and any pool while the
+  process is one of a distributed group of more than one, stay on
+  ``conv3d`` (JAX ``mvit.py:285-292``, which also needs one device).
+- ``MVIT_KT`` (boolean, default off): wide-key blocks that ``hl_supported``
+  rejects go to K7 where ``kt_supported`` holds, else to K6 (JAX
+  ``mvit.py:656-693``).
+
+The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
+``MVIT_SAVE_REL``, ``MVIT_HL``) are not copied.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -32,12 +47,24 @@ from torch.utils.checkpoint import checkpoint
 from procedurevrl_torch.models.layers import (
     DropPath, LayerNormFp32, Linear, Mlp, init_linear,
 )
+from procedurevrl_torch.ops import depthwise_pool as dpool
 from procedurevrl_torch.ops import mvit_attention as mattn
 from procedurevrl_torch.ops.common import (
     grouped_layer_norm_fp32, layer_norm_fp32, trunc_normal_init,
 )
+from procedurevrl_torch.utils.env import env_flag
 
 Thw = Tuple[int, int, int]
+POOL_ROUTES = ("conv", "kernel", "taps")
+
+
+def pool_route_from_env() -> str:
+    """``MVIT_POOL`` (JAX ``mvit.py:285``): unset or empty is ``conv``;
+    a value outside :data:`POOL_ROUTES` raises."""
+    route = os.environ.get("MVIT_POOL", "") or "conv"
+    if route not in POOL_ROUTES:
+        raise ValueError(f"MVIT_POOL={route!r} is not one of {POOL_ROUTES}")
+    return route
 
 
 def round_width(width, multiplier, min_width=1, divisor=1) -> int:
@@ -85,6 +112,8 @@ class MViTConfig:
     pool_kv_stride_adaptive: Optional[Tuple] = None
     pool_kvq_kernel: Optional[Tuple] = None
     norm_stem: bool = False
+    pool_route: str = "conv"   # MVIT_POOL
+    kt: bool = False           # MVIT_KT
 
     @classmethod
     def from_cfg(cls, cfg) -> "MViTConfig":
@@ -113,6 +142,8 @@ class MViTConfig:
             pool_kv_stride_adaptive=opt(m.POOL_KV_STRIDE_ADAPTIVE),
             pool_kvq_kernel=opt(m.POOL_KVQ_KERNEL),
             norm_stem=m.NORM_STEM,
+            pool_route=pool_route_from_env(),
+            kt=env_flag("MVIT_KT", False),
         )
 
     def block_schedule(self):
@@ -218,6 +249,14 @@ def _pooled_thw(thw, kernel, stride) -> Thw:
                  for d, k, s in zip(thw, kernel, stride))
 
 
+def _one_process() -> bool:
+    """Not one of a distributed group of more than one process (the port's
+    reading of JAX's ``jax.device_count() == 1``)."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1)
+
+
 class DepthwisePool3D(nn.Module):
     """The 'conv' pooling mode: a depthwise 3-D conv over the head
     channels, one kernel shared by the heads (reference
@@ -225,15 +264,36 @@ class DepthwisePool3D(nn.Module):
     ``weight [d, 1, kt, kh, kw]``; the forward repeats it once per head
     along the output channels of ``conv3d(groups=C)`` on the head-last
     channel axis, and autograd sums the per-head gradients into it, as the
-    JAX package's tile does."""
+    JAX package's tile does.  With ``route`` ``kernel`` or ``taps``
+    (``MVIT_POOL``), a stride-1 3x3x3 pool goes through
+    :func:`~procedurevrl_torch.ops.depthwise_pool.depthwise_pool3d` with
+    the same weight as the tap table ``w27[dt*9 + dh*3 + dw, h*d + c] =
+    weight[c, 0, dt, dh, dw]``."""
 
-    def __init__(self, head_dim: int, kernel, stride, heads: int):
+    def __init__(self, head_dim: int, kernel, stride, heads: int,
+                 route: str = "conv"):
         super().__init__()
+        if route not in POOL_ROUTES:
+            raise ValueError(f"pool route {route!r} is not one of "
+                             f"{POOL_ROUTES}")
         self.kernel, self.stride, self.heads = tuple(kernel), tuple(stride), heads
+        self.route = route
         self.weight = nn.Parameter(torch.zeros(head_dim, 1, *self.kernel))
+
+    def takes_pool_op(self) -> bool:
+        """Whether this pool goes through ``depthwise_pool3d`` (JAX
+        ``mvit.py:285-292``)."""
+        return (self.route in ("kernel", "taps") and self.stride[1] == 1
+                and _one_process()
+                and dpool.supported(self.kernel, self.stride))
 
     def forward(self, grid: torch.Tensor) -> torch.Tensor:
         """[B, T, H, W, heads*d] -> pooled [B, T', H', W', heads*d]."""
+        if self.takes_pool_op():
+            w27 = self.weight.to(grid.dtype).permute(2, 3, 4, 1, 0).reshape(
+                dpool.KTAPS, -1).repeat(1, self.heads)
+            return dpool.depthwise_pool3d(grid, w27, self.stride[1],
+                                          self.route == "kernel")
         w = self.weight.to(grid.dtype).repeat(self.heads, 1, 1, 1, 1)
         return _to_ndhwc(F.conv3d(_to_ncdhw(grid), w, None, self.stride,
                                   tuple(k // 2 for k in self.kernel),
@@ -367,7 +427,8 @@ class MultiScaleAttention(nn.Module):
 
     Blocks with rel-pos on both axes, a CLS token, qN >= ``MIN_FUSED_QN``
     and kN <= ``MAX_FUSED_KN`` take the kernels, as the reference routes
-    them; the rest run the plain logits path."""
+    them; the rest run the plain logits path.  ``pool_route`` is
+    ``MVIT_POOL`` for the conv pools, ``kt`` is ``MVIT_KT``."""
 
     def __init__(self, dim: int, dim_out: int, input_size: Thw,
                  num_heads: int = 8, qkv_bias: bool = False,
@@ -375,7 +436,8 @@ class MultiScaleAttention(nn.Module):
                  mode: str = "conv", has_cls_embed: bool = True,
                  rel_pos_spatial: bool = False,
                  rel_pos_temporal: bool = False,
-                 residual_pooling: bool = False):
+                 residual_pooling: bool = False, pool_route: str = "conv",
+                 kt: bool = False):
         super().__init__()
         if mode not in ("conv", "max", "avg"):
             raise NotImplementedError(f"MViT pooling mode {mode!r}")
@@ -384,6 +446,7 @@ class MultiScaleAttention(nn.Module):
         self.mode = mode
         self.has_cls_embed = has_cls_embed
         self.residual_pooling = residual_pooling
+        self.kt = kt
         self.pool_geometry = {"q": (tuple(kernel_q), tuple(stride_q)),
                               "k": (tuple(kernel_kv), tuple(stride_kv)),
                               "v": (tuple(kernel_kv), tuple(stride_kv))}
@@ -393,7 +456,8 @@ class MultiScaleAttention(nn.Module):
         for name, (kernel, stride) in self.pool_geometry.items():
             if mode == "conv" and _pools(kernel, stride):
                 setattr(self, f"pool_{name}",
-                        DepthwisePool3D(head_dim, kernel, stride, num_heads))
+                        DepthwisePool3D(head_dim, kernel, stride, num_heads,
+                                        pool_route))
                 setattr(self, f"norm_{name}",
                         GroupedLayerNorm(head_dim, num_heads))
         self.rel_pos_h = self.rel_pos_w = self.rel_pos_t = None
@@ -448,8 +512,9 @@ class MultiScaleAttention(nn.Module):
 
     def _fused_attention(self, q, k, v, q_shape: Thw, k_shape: Thw,
                          scale: float) -> torch.Tensor:
-        """Body queries through K5 (head-last) or K6 (head-split, where the
-        reference's ``hl_supported`` fails), the CLS query row in plain
+        """Body queries through K5 (head-last), or where the reference's
+        ``hl_supported`` fails through K7 (with ``kt`` and
+        ``kt_supported``) or K6 (head-split); the CLS query row in plain
         PyTorch; returns [B, 1 + qN, C]."""
         B, _, C = q.shape
         H = self.num_heads
@@ -470,6 +535,8 @@ class MultiScaleAttention(nn.Module):
         body = [t.contiguous() for t in (qb, kb, vb, kc, vc, rel)]
         if mattn.hl_supported(kb.shape[1], C, H):
             out_body = mattn.mvit_attention_hl(*body, k_shape, H, scale)
+        elif self.kt and mattn.kt_supported(C, H):
+            out_body = mattn.mvit_attention_kt(*body, k_shape, H, scale)
         else:
             fold = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(
                 1, 2).reshape(B * H, t.shape[1], -1).contiguous()
@@ -541,7 +608,8 @@ class MultiScaleBlock(nn.Module):
                  rel_pos_spatial: bool = False,
                  rel_pos_temporal: bool = False,
                  residual_pooling: bool = False,
-                 dim_mul_in_att: bool = False):
+                 dim_mul_in_att: bool = False, pool_route: str = "conv",
+                 kt: bool = False):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
         self.dim_mul_in_att = dim_mul_in_att
@@ -552,7 +620,8 @@ class MultiScaleBlock(nn.Module):
         self.attn = MultiScaleAttention(
             dim, att_dim, input_size, num_heads, qkv_bias, kernel_q,
             kernel_kv, stride_q, stride_kv, mode, has_cls_embed,
-            rel_pos_spatial, rel_pos_temporal, residual_pooling)
+            rel_pos_spatial, rel_pos_temporal, residual_pooling, pool_route,
+            kt)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = LayerNormFp32(att_dim, eps=1e-6)
         self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out)
@@ -659,7 +728,8 @@ class MViTEncoder(nn.Module):
                 rel_pos_spatial=cfg.rel_pos_spatial,
                 rel_pos_temporal=cfg.rel_pos_temporal,
                 residual_pooling=cfg.residual_pooling,
-                dim_mul_in_att=cfg.dim_mul_in_att)
+                dim_mul_in_att=cfg.dim_mul_in_att,
+                pool_route=cfg.pool_route, kt=cfg.kt)
             for i, spec in enumerate(plan)])
         self.norm = LayerNormFp32(final_dim, eps=1e-6)
 

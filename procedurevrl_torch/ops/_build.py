@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of each source: name -> argtypes (all return the CUDA
 # error code of the launch as an int)
 ENTRY_POINTS = {
@@ -50,6 +51,12 @@ ENTRY_POINTS = {
     "mvit_attention": {
         "mvit_attention_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
         "mvit_attention_bwd": [_P] * 15 + [_I] * 8 + [_F, _P],
+        "mvit_attention_kt_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
+        "mvit_attention_kt_bwd": [_P] * 16 + [_I] * 8 + [_F, _P],
+    },
+    "depthwise_pool": {
+        "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 6 + [_L, _L, _I, _P],
+        "depthwise_pool3d_dw": [_P] * 4 + [_I] * 5 + [_L, _L, _I, _I, _P],
     },
 }
 

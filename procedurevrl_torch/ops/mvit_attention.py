@@ -1,5 +1,5 @@
-"""K5 / K6: MViT pooled attention with the decomposed relative-position
-bias (``csrc/mvit_attention.cu``).
+"""K5 / K6 / K7: MViT pooled attention with the decomposed
+relative-position bias (``csrc/mvit_attention.cu``).
 
 Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_mvit_attention.py``
 on the default single-device path: ``_fwd_hl_kernel`` (K5f) and
@@ -29,6 +29,18 @@ version only for a CPU tensor.  :func:`mvit_attention_hl` and
 :class:`MViTAttention` (forward kernel, then backward kernel), otherwise
 straight to the forward.  K5b and K6b each run two CUDA kernels (a
 query-major and a key-major pass); a wrapper call counts as one launch.
+
+K7 (``_fwd_hl_kt_kernel`` / ``_bwd_hl_kt_kernel``, the JAX model's route
+for wide-key blocks under ``MVIT_KT=1`` where ``kt_supported`` holds) has
+K5's head-last contract with another softmax: the row max, not the clamp.
+``p = exp(s - m)`` with m the row max over the kN + 1 columns, ``o =
+bf16(p) v / l`` (the unnormalised p rounded), and the forward returns the
+fp32 log-sum-exp ``lse = m + log l`` ([B, H, qN]) instead of l.  The
+backward rebuilds ``p = exp(s - lse)`` and takes ``D = rowsum(g o)`` from
+the saved output; the TPU kernel's products there are fp32 (dv from the
+fp32 p), which the plain version follows.  The two softmaxes agree unless
+a row's largest logit reaches 80.  :func:`mvit_attention_kt` is the
+model's entry, through :class:`MViTAttentionKT` under grad.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ KERNEL_HL = "mvit_attention_hl_fwd"      # K5f
 KERNEL_HL_BWD = "mvit_attention_hl_bwd"  # K5b
 KERNEL = "mvit_attention_fwd"            # K6f
 KERNEL_BWD = "mvit_attention_bwd"        # K6b
+KERNEL_KT = "mvit_attention_kt_fwd"      # K7f
+KERNEL_KT_BWD = "mvit_attention_kt_bwd"  # K7b
 HEAD_DIM = 96
 MAX_KCAT = 48
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
@@ -86,6 +100,25 @@ def hl_supported(kn: int, C: int, H: int) -> bool:
     """Whether the reference routes a block with kN keys, width C and H
     heads to the head-last kernel (K5) rather than the head-split one (K6)."""
     return _hl_geometry(_round_up(kn + 1, 128), C, H, C // H) is not None
+
+
+def _hl_kt_geometry(C: int, H: int, d: int):
+    """(head group, width, (query tile, key chunk) forward, the same
+    backward) of the TPU key-tiled kernel, or None (copy of the
+    reference's calibrated table; the tiles model the TPU's VMEM and serve
+    the routing only)."""
+    w = H * d
+    if w % 128 and w != C:
+        return None
+    if w <= 384:
+        return H, w, (256, 512), (128, 128)
+    return None
+
+
+def kt_supported(C: int, H: int) -> bool:
+    """Whether the reference routes a wide-key block of width C and H heads
+    to K7 under ``MVIT_KT=1`` (else to K6)."""
+    return _hl_kt_geometry(C, H, C // H) is not None
 
 
 # ----------------------------------------------------------- plain versions
@@ -205,6 +238,68 @@ def mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
     return tuple(_merge(x, h) for x in grads)
 
 
+def _kt_fwd_core(q, k, v, kc, vc, rel, k_shape, scale):
+    s = _logits(q, k, kc, rel, k_shape, scale)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1)
+    vv = torch.cat([v, vc], dim=1)
+    o = torch.einsum("gij,gjd->gid", e.to(v.dtype).float(), vv.float())
+    return (o / l[..., None]).to(q.dtype), m[..., 0] + torch.log(l)
+
+
+def _kt_bwd_core(q, k, v, kc, vc, rel, out, lse, g, k_shape, scale):
+    dt = q.dtype
+    kn = k.shape[1]
+    kt, kh, kw = k_shape
+    p = torch.exp(_logits(q, k, kc, rel, k_shape, scale) - lse[..., None])
+    kk = torch.cat([k, kc], dim=1).float()
+    vv = torch.cat([v, vc], dim=1).float()
+    gf = g.float()
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("gij,gid->gjd", p, gf)
+    ds = p * (torch.einsum("gid,gjd->gij", gf, vv) - delta)
+    dq = (torch.einsum("gij,gjd->gid", ds, kk) * scale).to(dt)
+    dk = torch.einsum("gij,gid->gjd", ds, q.float()) * scale
+    body = ds[..., :kn].reshape(*ds.shape[:2], kt, kh, kw)
+    drel = torch.cat([body.sum(dim=(3, 4)), body.sum(dim=(2, 4)),
+                      body.sum(dim=(2, 3))], dim=-1).to(rel.dtype)
+    return (dq, dk[:, :kn].to(dt), dv[:, :kn].to(dt), dk[:, kn:].to(dt),
+            dv[:, kn:].to(dt), drel)
+
+
+def mvit_attention_kt_fwd_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
+                                scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7f on the head-last layout (the shapes of
+    K5f) -> (out [B, qN, C], lse [B, H, qN] fp32)."""
+    h = num_heads
+    o, lse = _kt_fwd_core(_split(q, h), _split(k, h), _split(v, h),
+                          _split(kc, h), _split(vc, h), _split(rel, h),
+                          k_shape, scale)
+    return _merge(o, h), lse.reshape(q.shape[0], h, -1)
+
+
+def mvit_attention_kt_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
+                            scale) -> torch.Tensor:
+    """The output of :func:`mvit_attention_kt_fwd_plain` (the function of
+    JAX ``flash_attention_mvit_hl_kt``); autograd differentiates it."""
+    return mvit_attention_kt_fwd_plain(q, k, v, kc, vc, rel, k_shape,
+                                       num_heads, scale)[0]
+
+
+def mvit_attention_kt_bwd_plain(q, k, v, kc, vc, rel, out, lse, g, k_shape,
+                                num_heads, scale) -> Grads:
+    """Plain PyTorch version of K7b, the TPU kernel's backward written out
+    in fp32 (``pallas_mvit_attention.py:1083-1150``): (dq, dk, dv, dkc,
+    dvc, drel) from the forward's output and lse and the output gradient."""
+    h = num_heads
+    grads = _kt_bwd_core(_split(q, h), _split(k, h), _split(v, h),
+                         _split(kc, h), _split(vc, h), _split(rel, h),
+                         _split(out, h), lse.reshape(-1, lse.shape[-1]),
+                         _split(g, h), k_shape, scale)
+    return tuple(_merge(x, h) for x in grads)
+
+
 # ------------------------------------------------------------ the kernels
 
 
@@ -253,33 +348,39 @@ def _launch(fn: str, kernel: str, q: torch.Tensor, *args) -> None:
     _build.count_launch(kernel)
 
 
-def _fwd_kernel(kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale):
+def _fwd_kernel(fn, kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale):
+    """Launch entry point ``fn``: (out, the fp32 row statistic [b, heads,
+    qN]: l for K5/K6, lse for K7)."""
     _check_kernel((q, k, v, kc, vc, rel), heads, k_shape)
     out = torch.empty_like(q)
-    rowsum = torch.empty((b, heads, q.shape[1]), dtype=torch.float32,
-                         device=q.device)
-    _launch("mvit_attention_fwd", kernel, q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
-            out.data_ptr(), rowsum.data_ptr(), b, heads, q.shape[1],
-            k.shape[1], *k_shape, _DTYPES[q.dtype], float(scale))
-    return out, rowsum
+    stats = torch.empty((b, heads, q.shape[1]), dtype=torch.float32,
+                        device=q.device)
+    _launch(fn, kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kc.data_ptr(), vc.data_ptr(), rel.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), b, heads, q.shape[1], k.shape[1], *k_shape,
+            _DTYPES[q.dtype], float(scale))
+    return out, stats
 
 
-def _bwd_kernel(kernel, q, k, v, kc, vc, rel, rowsum, g, k_shape, b, heads,
-                scale) -> Grads:
-    _check_kernel((q, k, v, kc, vc, rel, g), heads, k_shape)
-    if rowsum.dtype != torch.float32 or not rowsum.is_contiguous():
-        raise ValueError("mvit_attention: rowsum must be contiguous float32")
-    delta = torch.empty_like(rowsum)
+def _bwd_kernel(fn, kernel, q, k, v, kc, vc, rel, stats, g, k_shape, b,
+                heads, scale, out=None) -> Grads:
+    """Launch entry point ``fn`` from the forward's row statistic (and, for
+    K7, its output ``out``)."""
+    saved = () if out is None else (out,)
+    _check_kernel((q, k, v, kc, vc, rel, g, *saved), heads, k_shape)
+    if stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError("mvit_attention: rowsum / lse must be contiguous "
+                         "float32")
+    delta = torch.empty_like(stats)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dkc, dvc, drel = (torch.empty_like(kc), torch.empty_like(vc),
                       torch.empty_like(rel))
-    _launch("mvit_attention_bwd", kernel, q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
-            rowsum.data_ptr(), g.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), dkc.data_ptr(), dvc.data_ptr(),
-            drel.data_ptr(), b, heads, q.shape[1], k.shape[1], *k_shape,
-            _DTYPES[q.dtype], float(scale))
+    _launch(fn, kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
+            *(t.data_ptr() for t in saved), stats.data_ptr(), g.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dkc.data_ptr(), dvc.data_ptr(), drel.data_ptr(), b, heads,
+            q.shape[1], k.shape[1], *k_shape, _DTYPES[q.dtype], float(scale))
     return dq, dk, dv, dkc, dvc, drel
 
 
@@ -298,8 +399,8 @@ def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
     if q.device.type == "cpu":
         return mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape,
                                            num_heads, scale)
-    return _fwd_kernel(KERNEL_HL, q, k, v, kc, vc, rel, k_shape, q.shape[0],
-                       num_heads, scale)
+    return _fwd_kernel("mvit_attention_fwd", KERNEL_HL, q, k, v, kc, vc, rel,
+                       k_shape, q.shape[0], num_heads, scale)
 
 
 def mvit_attention_hl_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape,
@@ -312,8 +413,8 @@ def mvit_attention_hl_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape,
     if q.device.type == "cpu":
         return mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
                                            k_shape, num_heads, scale)
-    return _bwd_kernel(KERNEL_HL_BWD, q, k, v, kc, vc, rel, rowsum, g,
-                       k_shape, q.shape[0], num_heads, scale)
+    return _bwd_kernel("mvit_attention_bwd", KERNEL_HL_BWD, q, k, v, kc, vc,
+                       rel, rowsum, g, k_shape, q.shape[0], num_heads, scale)
 
 
 def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale
@@ -324,8 +425,8 @@ def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale
     _check(q, k, v, kc, vc, rel, k_shape, 1)
     if q.device.type == "cpu":
         return mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale)
-    return _fwd_kernel(KERNEL, q, k, v, kc, vc, rel, k_shape, q.shape[0], 1,
-                       scale)
+    return _fwd_kernel("mvit_attention_fwd", KERNEL, q, k, v, kc, vc, rel,
+                       k_shape, q.shape[0], 1, scale)
 
 
 def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale
@@ -337,8 +438,40 @@ def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale
     if q.device.type == "cpu":
         return mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
                                         k_shape, scale)
-    return _bwd_kernel(KERNEL_BWD, q, k, v, kc, vc, rel, rowsum, g, k_shape,
-                       q.shape[0], 1, scale)
+    return _bwd_kernel("mvit_attention_bwd", KERNEL_BWD, q, k, v, kc, vc, rel,
+                       rowsum, g, k_shape, q.shape[0], 1, scale)
+
+
+def mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7f: key-tiled head-last pooled attention with the row-max softmax,
+    q [B, qN, H*96] (float32 or bfloat16, contiguous) -> (out
+    [B, qN, H*96], lse [B, H, qN] fp32)."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, num_heads)
+    if q.device.type == "cpu":
+        return mvit_attention_kt_fwd_plain(q, k, v, kc, vc, rel, k_shape,
+                                           num_heads, scale)
+    return _fwd_kernel("mvit_attention_kt_fwd", KERNEL_KT, q, k, v, kc, vc,
+                       rel, k_shape, q.shape[0], num_heads, scale)
+
+
+def mvit_attention_kt_bwd(q, k, v, kc, vc, rel, out, lse, g, k_shape,
+                          num_heads, scale) -> Grads:
+    """K7b: (dq, dk, dv, dkc, dvc, drel) of the head-last layout from the
+    K7f output and lse and the output gradient g [B, qN, H*96]."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, num_heads)
+    _check_bwd(q, lse, g, num_heads)
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"mvit_attention_kt_bwd: out {tuple(out.shape)} "
+                         f"does not fit q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return mvit_attention_kt_bwd_plain(q, k, v, kc, vc, rel, out, lse, g,
+                                           k_shape, num_heads, scale)
+    return _bwd_kernel("mvit_attention_kt_bwd", KERNEL_KT_BWD, q, k, v, kc,
+                       vc, rel, lse, g, k_shape, q.shape[0], num_heads, scale,
+                       out=out)
 
 
 class MViTAttention(torch.autograd.Function):
@@ -392,3 +525,33 @@ def mvit_attention(q, k, v, kc, vc, rel, k_shape, scale) -> torch.Tensor:
         return MViTAttention.apply(q, k, v, kc, vc, rel, tuple(k_shape), None,
                                    scale)
     return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale)[0]
+
+
+class MViTAttentionKT(torch.autograd.Function):
+    """K7 under autograd: the forward kernel (saves its inputs, the output
+    and lse, as JAX ``_vjp_hl_kt_fwd``), the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
+        out, lse = mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape,
+                                         num_heads, scale)
+        ctx.save_for_backward(q, k, v, kc, vc, rel, out, lse)
+        ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, out, lse = ctx.saved_tensors
+        grads = mvit_attention_kt_bwd(*inputs, out, lse, g.contiguous(),
+                                      ctx.k_shape, ctx.num_heads, ctx.scale)
+        return (*grads, None, None, None)
+
+
+def mvit_attention_kt(q, k, v, kc, vc, rel, k_shape, num_heads, scale
+                      ) -> torch.Tensor:
+    """The model's key-tiled entry (K7), as :func:`mvit_attention_hl`."""
+    if _needs_grad((q, k, v, kc, vc, rel)):
+        return MViTAttentionKT.apply(q, k, v, kc, vc, rel, tuple(k_shape),
+                                     num_heads, scale)
+    return mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape, num_heads,
+                                 scale)[0]

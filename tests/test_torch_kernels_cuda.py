@@ -9,13 +9,18 @@ with the atol scaled by the reference's largest magnitude: a ds value that
 rounds to the neighbouring bf16 value moves every product it feeds by one
 bf16 ulp of that product's scale.  The MViT forwards are held tighter
 (the same limits as ``chip_smoke.py``): bf16 outputs atol 1e-3, rtol 1e-2
-(one bf16 ulp is at most 2^-7 of a value), row sums rtol 1e-4.
+(one bf16 ulp is at most 2^-7 of a value), row sums rtol 1e-4, K7's
+log-sum-exp atol 1e-4.  K8's bf16 outputs (the pool and its dx) are held
+to atol 1e-3, rtol 1e-2 as well (kernel and plain version round the same
+fp32 sums; the dx limit scaled like a gradient's), its fp32 dw to the fp32
+limit scaled by the largest gradient.
 """
 
 import pytest
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops import depthwise_pool as k8
 from procedurevrl_torch.ops import mvit_attention as k5
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
@@ -26,6 +31,9 @@ TOLS = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
 MVIT_FWD_TOLS = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
                  torch.float32: TOLS[torch.float32]}
 ROWSUM_TOL = dict(atol=0.0, rtol=1e-4)
+LSE_TOL = dict(atol=1e-4, rtol=0.0)
+POOL_TOLS = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
+             torch.float32: TOLS[torch.float32]}
 
 
 @pytest.fixture
@@ -263,6 +271,134 @@ def test_mvit_autograd_runs_both_kernels(card, head_last):
         _close(t.grad, ref, torch.float32, scaled=True)
 
 
+def _kt_inputs(card, dtype, geom, seed=0, hot=True):
+    """K7's head-last inputs; with ``hot`` one query row has two logits
+    above 80, where the row max and the clamp part."""
+    x, k_shape, h = _mvit_inputs(card, dtype, geom, True, seed, hot)
+    if hot:
+        x[0][0, 5] += x[1][0, 4] * 30
+    return x, k_shape, h
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+def test_mvit_kt_fwd_kernel_matches_plain(card, dtype, geom):
+    x, k_shape, h = _kt_inputs(card, dtype, geom)
+    args = (*x[:6], k_shape, h, 96 ** -0.5)
+    before = _build.LAUNCHES.get(k5.KERNEL_KT, 0)
+    out, lse = k5.mvit_attention_kt_fwd(*args)
+    assert _build.LAUNCHES[k5.KERNEL_KT] == before + 1
+    ref, ref_lse = k5.mvit_attention_kt_fwd_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+def test_mvit_kt_bwd_kernel_matches_plain(card, dtype, geom):
+    x, k_shape, h = _kt_inputs(card, dtype, geom, seed=1)
+    scale = 96 ** -0.5
+    out, lse = k5.mvit_attention_kt_fwd_plain(*x[:6], k_shape, h, scale)
+    args = (*x[:6], out, lse, x[6], k_shape, h, scale)
+    before = _build.LAUNCHES.get(k5.KERNEL_KT_BWD, 0)
+    grads = k5.mvit_attention_kt_bwd(*args)
+    assert _build.LAUNCHES[k5.KERNEL_KT_BWD] == before + 1
+    for got, ref in zip(grads, k5.mvit_attention_kt_bwd_plain(*args)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        _close(got, ref, dtype, scaled=True)
+
+
+def test_mvit_kt_autograd_runs_both_kernels(card):
+    x, k_shape, h = _kt_inputs(card, torch.float32, "small", seed=2)
+    inputs = [t.requires_grad_(True) for t in x[:6]]
+    counts = {k: _build.LAUNCHES.get(k, 0)
+              for k in (k5.KERNEL_KT, k5.KERNEL_KT_BWD)}
+    scale = 96 ** -0.5
+    k5.mvit_attention_kt(*inputs, k_shape, h, scale).backward(x[6])
+    for k, n in counts.items():
+        assert _build.LAUNCHES[k] == n + 1
+    detached = [t.detach() for t in inputs]
+    out, lse = k5.mvit_attention_kt_fwd_plain(*detached, k_shape, h, scale)
+    refs = k5.mvit_attention_kt_bwd_plain(*detached, out, lse, x[6], k_shape,
+                                          h, scale)
+    for t, ref in zip(inputs, refs):
+        _close(t.grad, ref, torch.float32, scaled=True)
+
+
+# (B, T, H, W, C): MViT-v2-S block 4's grid, an odd grid, and a channel
+# count that is no multiple of the kernel's 32-channel CTA slice
+POOL_GEOMS = {"block4": (2, 8, 14, 14, 384), "odd": (2, 3, 7, 9, 64),
+              "c160": (1, 4, 10, 10, 160)}
+
+
+def _pool_inputs(card, dtype, geom, seed=0):
+    """x as the model hands it (a view of a fused qkv product, token-row
+    stride 3C), w27 and g (the shape of x)."""
+    b, t, hh, ww, c = POOL_GEOMS[geom]
+    gen = torch.Generator(device=card).manual_seed(seed + c)
+
+    def r(*shape, sd=1.0):
+        return (sd * torch.randn(*shape, generator=gen, device=card)).to(dtype)
+
+    x = r(b, 1 + t * hh * ww, 3 * c)[:, 1:, c:2 * c].reshape(b, t, hh, ww, c)
+    return x, r(27, c, sd=0.1), r(b, t, hh, ww, c)
+
+
+def _pool_close(got, ref, dtype, scaled=False):
+    torch.cuda.synchronize()
+    tol = dict(POOL_TOLS[dtype])
+    if scaled:
+        tol["atol"] *= max(ref.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("geom", sorted(POOL_GEOMS))
+def test_pool_fwd_kernel_matches_plain(card, dtype, s, geom):
+    x, w, _ = _pool_inputs(card, dtype, geom)
+    assert not x.is_contiguous()
+    before = _build.LAUNCHES.get(k8.KERNEL, 0)
+    out = k8.depthwise_pool3d_fwd(x, w, s)
+    assert _build.LAUNCHES[k8.KERNEL] == before + 1
+    _pool_close(out, k8.depthwise_pool3d_taps(x, w, (1, s, s)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", sorted(POOL_GEOMS))
+def test_pool_dx_and_dw_kernels_match_plain(card, dtype, geom):
+    x, w, g = _pool_inputs(card, dtype, geom, seed=1)
+    counts = {k: _build.LAUNCHES.get(k, 0) for k in (k8.KERNEL_DX,
+                                                     k8.KERNEL_DW)}
+    dx, dw = k8.depthwise_pool3d_dx(g, w), k8.depthwise_pool3d_dw(x, g)
+    for k, n in counts.items():
+        assert _build.LAUNCHES[k] == n + 1
+    _pool_close(dx, k8.depthwise_pool3d_taps(g, w.flip(0), (1, 1, 1)), dtype,
+                scaled=True)
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    ref = k8.taps_dw(x, g, (1, 1, 1))
+    _pool_close(dw, ref, torch.float32, scaled=True)
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_pool_autograd_runs_the_kernels(card, s):
+    """Stride 1: K8f forward, K8f on g with reversed taps for dx, K8dw; a
+    strided pool: K8f forward and the tap formulas."""
+    x, w, g = _pool_inputs(card, torch.float32, "odd", seed=2)
+    g = g[:, :, ::s, ::s].contiguous()
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    names = (k8.KERNEL, k8.KERNEL_DX, k8.KERNEL_DW)
+    counts = {k: _build.LAUNCHES.get(k, 0) for k in names}
+    k8.depthwise_pool3d(xl, wl, s).backward(g)
+    assert [_build.LAUNCHES.get(k, 0) - counts[k] for k in names] == (
+        [1, 1, 1] if s == 1 else [1, 0, 0])
+    _pool_close(xl.grad, k8.taps_dx(g, w, (1, s, s), x.shape[1:4]),
+                torch.float32, scaled=True)
+    _pool_close(wl.grad, k8.taps_dw(x, g, (1, s, s)), torch.float32,
+                scaled=True)
+
+
 def _poison(card):
     """Fill freed device memory with NaN: the next outputs that
     ``torch.empty`` hands out then start as NaN, so a kernel that leaves an
@@ -273,7 +409,9 @@ def _poison(card):
 
 @pytest.mark.parametrize("kernel", ["fwd", "fwd_probs", "bwd", "temporal_fwd",
                                     "temporal_bwd", "mvit_hl_fwd",
-                                    "mvit_hl_bwd", "mvit_fwd", "mvit_bwd"])
+                                    "mvit_hl_bwd", "mvit_fwd", "mvit_bwd",
+                                    "mvit_kt_fwd", "mvit_kt_bwd", "pool_fwd",
+                                    "pool_dx", "pool_dw"])
 def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     """Ten launches, each into NaN-filled memory, give bit-identical, finite
     outputs (a substitute for compute-sanitizer's initcheck and racecheck,
@@ -290,6 +428,10 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
                                   seed=7, hot=False)
     rs_hl = k5.mvit_attention_hl_fwd(*m_hl[:6], ks_hl, h_hl, scale)[1]
     rs_hs = k5.mvit_attention_fwd(*m_hs[:6], ks_hs, scale)[1]
+    m_kt, ks_kt, h_kt = _kt_inputs(card, torch.bfloat16, "wide", seed=7,
+                                   hot=False)
+    o_kt, lse_kt = k5.mvit_attention_kt_fwd(*m_kt[:6], ks_kt, h_kt, scale)
+    px, pw, pg = _pool_inputs(card, torch.bfloat16, "block4", seed=7)
     run = {
         "fwd": lambda: k1.spatial_attention(qkv, qkv_c, 12, 0.125),
         "fwd_probs": lambda: k1.spatial_attention_fwd_probs(qkv, qkv_c, 12,
@@ -306,6 +448,13 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
         "mvit_fwd": lambda: k5.mvit_attention_fwd(*m_hs[:6], ks_hs, scale),
         "mvit_bwd": lambda: k5.mvit_attention_bwd(*m_hs[:6], rs_hs, m_hs[6],
                                                   ks_hs, scale),
+        "mvit_kt_fwd": lambda: k5.mvit_attention_kt_fwd(*m_kt[:6], ks_kt,
+                                                        h_kt, scale),
+        "mvit_kt_bwd": lambda: k5.mvit_attention_kt_bwd(
+            *m_kt[:6], o_kt, lse_kt, m_kt[6], ks_kt, h_kt, scale),
+        "pool_fwd": lambda: (k8.depthwise_pool3d_fwd(px, pw, 1),),
+        "pool_dx": lambda: (k8.depthwise_pool3d_dx(pg, pw),),
+        "pool_dw": lambda: (k8.depthwise_pool3d_dw(px, pg),),
     }[kernel]
     first = None
     for _ in range(10):

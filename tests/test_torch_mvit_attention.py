@@ -165,12 +165,17 @@ def test_wrappers_check_shapes():
 
 
 def test_mutation_check_plants_each_fault():
-    """``tools/mutation_check.py`` finds the line it mutates exactly once in
-    the kernel source, and each mutant changes it."""
+    """``tools/mutation_check.py`` finds the text it mutates exactly once in
+    each kernel source, and each mutant changes it."""
     from procedurevrl_torch.ops import _build
     from procedurevrl_torch.tools import mutation_check as mc
 
     src = (_build.CSRC / "mvit_attention.cu").read_text()
     assert src.count(mc._MASK) == 1
-    for line in mc.MUTANTS.values():
-        assert line != mc._MASK and line not in src
+    for m in mc.MUTANTS.values():
+        text = (_build.CSRC / m.source).read_text()
+        assert text.count(m.anchor) == 1, m
+        assert m.line != m.anchor and m.line not in text, m
+        assert m.check in mc.CHECKS
+    assert {m.source for m in mc.MUTANTS.values()} == {
+        "mvit_attention.cu", "depthwise_pool.cu"}

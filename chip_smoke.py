@@ -48,7 +48,27 @@ Phases (any failure exits non-zero):
    and ``MVIT_KT=1`` set while the model is built (and restored after):
    2 warm-up + 10 timed steps with finite losses and asserted launch counts
    (per step 34 K8f, 17 K8f dx, 17 K8dw, 4 K7f, 2 K7b, 26 K5f, 2 K6f, 13
-   K5b, 1 K6b); one step against the plain path; one step profiled.
+   K5b, 1 K6b); one step against the plain path; one step profiled;
+12. K1br (recompute backward), K1bd (delta backward) and K1p (pipelined
+   forward) at the training shape (K1p also at the eval shape), plus small
+   float32 cases and a bf16 case with a logit above 80, against their plain
+   versions; K1br must equal K1b on K1sp's probabilities and K1p must equal
+   K1f bit for bit (one softmax device function); timed beside K1b / K1f
+   and SDPA;
+13. K2v3f / K2v3b (the saved-probability temporal pair) at the training
+   shape, plus float32 cases at T = 8 and 3 and a bf16 case with a logit
+   above 80, against their plain versions; timed beside K2f / K2b and SDPA;
+14. slice 5, eval: phase 6's zero-shot test with ``SPATIAL_PIPE=1
+   TEMPORAL_BATCHED=1`` set while the model is built (12 K1p and 12 K2v3f
+   per batch, no K1f or K2f); one batch against the plain path;
+15. slice 5, route A: phase 7's training (12 steps, remat) with
+   ``SPATIAL_SAVE_PROBS=0 SPATIAL_PIPE=1 TEMPORAL_BATCHED=1`` (per step 24
+   K1p, 12 K1br, 24 K2v3f, 12 K2v3b, and none of K1f, K1sp, K1b, K1bd, K2f
+   or K2b); one step against the plain path; one step profiled;
+16. slice 5, route B: the same with ``SPATIAL_DELTA=1`` (per step 24 K1sp,
+   12 K1bd, 24 K2f, 12 K2b, no K1b); one step against the plain path.
+Phases 6 and 7 assert that none of slice 5's kernels runs without the
+knobs.
 Each phase prints its wall time.  The last two lines are the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 """
@@ -71,6 +91,17 @@ BF16_FLOPS = 989e12         # dense tensor-core peak
 # bf16 kernel vs plain version: both round p and the output to bf16; sums
 # run in another order, so outputs may differ by a bf16 ulp or two
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+# K1p outputs (inputs 0.5 N(0, 1), logits of std 0.25) and K2v3f's
+# outputs against P V of its own probabilities, and those probabilities, in
+# bf16: one bf16 ulp (<= 2^-7 of the value) apart at most, the atol for the
+# fp32 order noise of values near zero.  (The kernels' exp2f and reciprocal
+# may round a probability to the neighbouring bf16 value where the plain
+# version's expf and division do not; against the plain output that moves
+# an element by ulp(p) |v|, up to ~8e-3 for K2 at N(0, 1) inputs, so K2v3f's
+# output is also held to BF16_TOL against the plain output.)  A typical K1
+# output is ~0.035 here, so one missing key (~p v ~ 0.0025) fails, which
+# BF16_TOL lets through (procedurevrl_torch/tools/mutation_check.py).
+K1K2_FWD_TOL = dict(atol=1e-3, rtol=1e-2)
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 # K5f/K6f bf16 outputs: kernel and plain version round the same fp32 sums,
 # which differ only in summation order, so an element may sit one bf16 ulp
@@ -110,6 +141,13 @@ MVIT_STEPS = 12                         # 2 warm-up + 10 timed
 # slice 4, MViT-v2-S under MVIT_POOL=kernel MVIT_KT=1: blocks routed to K7
 # (1 and 3) and K6 (14), and stride-1 pools on K8 (17)
 KNOBS = {"MVIT_POOL": "kernel", "MVIT_KT": "1"}
+# slice 5, TimeSformer on the JAX package's attention knobs
+TS_EVAL_KNOBS = {"SPATIAL_PIPE": "1", "TEMPORAL_BATCHED": "1"}
+ROUTE_A = {"SPATIAL_SAVE_PROBS": "0", "SPATIAL_PIPE": "1",
+           "TEMPORAL_BATCHED": "1"}
+ROUTE_B = {"SPATIAL_DELTA": "1"}
+TS_KNOBS = ("SPATIAL_SAVE_PROBS", "SPATIAL_DELTA", "SPATIAL_PIPE",
+            "SPATIAL_PIPE_NBUF", "TEMPORAL_BATCHED")
 KT_BLOCKS, KNOB_HS_BLOCKS, K8_POOLS = 2, 1, 17
 KNOB_STEPS = 12                         # 2 warm-up + 10 timed
 # K8f bf16 output: kernel and plain version round the same fp32 sums of 27
@@ -331,11 +369,16 @@ def phase_k2(torch, F, k2) -> dict:
 def plain_attention(k1, k2, k5, k8):
     """Route the models through the plain versions (reference runs only):
     the models' attention entries become the plain forwards, which autograd
-    differentiates under grad, and the pool entry takes its plain versions
-    (the tap forward, and the tap formulas for its backward)."""
+    differentiates under grad, on every knob route (the TimeSformer entries
+    ignore the route they are given), and the pool entry takes its plain
+    versions (the tap forward, and the tap formulas for its backward)."""
     pool = k8.depthwise_pool3d
-    swaps = [(k1, "spatial_attention_autograd", k1.spatial_attention_plain),
-             (k2, "temporal_attention_autograd", k2.temporal_attention_plain),
+    swaps = [(k1, "spatial_attention_autograd",
+              lambda qkv, qkv_c, h, s, route=None:
+              k1.spatial_attention_plain(qkv, qkv_c, h, s)),
+             (k2, "temporal_attention_autograd",
+              lambda qkv, h, s, route=None: k2.temporal_attention_plain(
+                  qkv, h, s)),
              (k5, "mvit_attention_hl", k5.mvit_attention_hl_plain),
              (k5, "mvit_attention", k5.mvit_attention_plain),
              (k5, "mvit_attention_kt", k5.mvit_attention_kt_plain),
@@ -468,6 +511,268 @@ def phase_k2_train(torch, F, k2) -> dict:
             "replaces": "procedurevrl_tpu/ops/pallas_attention.py:1512",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd}
+
+
+def k1_inputs(torch, gen, bt, n, heads, dtype, hot=False, sd=1.0):
+    """qkv, qkv_c, g, gc of one K1 call, sd N(0, 1); ``hot`` puts one
+    query's logit against one key above 80 (frame 0, patch query 5, key 3,
+    head 0)."""
+    c = heads * 64
+
+    def r(*shape):
+        return (sd * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    x = [r(bt, n, 3 * c), r(bt, 1, 3 * c), r(bt, n, c), r(bt, 1, c)]
+    if hot:
+        x[0][0, 5, :64] = 3.0
+        x[0][0, 3, c:c + 64] = 4.0  # logit 3 * 4 * 64 / 8 = 96
+    return x
+
+
+def phase_k1_knobs(torch, F, k1) -> list:
+    """K1br, K1bd and K1p (slice 5) against their plain versions, K1br
+    against K1b on K1sp's probabilities and K1p against K1f bit for bit;
+    timed beside their default-route twins and SDPA.  Returns the records
+    of K1br, K1bd (training shape) and K1p (eval shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    heads, d = 12, 64
+    c, scale = heads * d, d ** -0.5
+    # small cases: float32 (scalar kernels) at 2 frames, and bf16 with a
+    # logit above 80, at N = 196 and at N = 48 (the 64-row tile)
+    for dtype, n, tol in ((torch.float32, 196, FP32_TOL),
+                          (torch.float32, 48, FP32_TOL),
+                          (torch.bfloat16, 196, K1K2_FWD_TOL),
+                          (torch.bfloat16, 48, K1K2_FWD_TOL)):
+        x = k1_inputs(torch, gen, 2, n, heads, dtype, hot=True, sd=0.5)
+        name = f"K1 knobs small {str(dtype)[6:]} N={n} logit > 80"
+        out, out_c, probs = k1.spatial_attention_fwd_probs(*x[:2], heads, scale)
+        for nbuf in (1, 3):
+            o, oc = k1.spatial_attention_pipe(*x[:2], heads, scale, nbuf)
+            ro, roc = k1.spatial_attention_pipe_plain(*x[:2], heads, scale)
+            compare(torch, f"{name} K1p nbuf={nbuf} frames", o, ro, tol)
+            compare(torch, f"{name} K1p nbuf={nbuf} cls", oc, roc, tol)
+            if not (torch.equal(o, out) and torch.equal(oc, out_c)):
+                fail(f"{name}: K1p differs from K1sp's outputs")
+        gtol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        got = k1.spatial_attention_bwd_recompute(*x, heads, scale)
+        want = k1.spatial_attention_bwd_recompute_plain(*x, heads, scale)
+        for part, a, r in zip(("dqkv", "dqkv_c"), got, want):
+            compare(torch, f"{name} K1br {part}", a, r, grad_tol(gtol, r))
+        got = k1.spatial_attention_bwd_delta(*x[:2], probs, out, out_c,
+                                             *x[2:], heads, scale)
+        want = k1.spatial_attention_bwd_delta_plain(*x[:2], probs, out, out_c,
+                                                    *x[2:], heads, scale)
+        for part, a, r in zip(("dqkv", "dqkv_c"), got, want):
+            compare(torch, f"{name} K1bd {part}", a, r, grad_tol(gtol, r))
+
+    # the training shape (2 samples x 9 clips x 8 frames)
+    bt, n = 2 * CLIPS_PER_SAMPLE * 8, 196
+    L = n + 1
+    qkv, qkv_c, g, gc = k1_inputs(torch, gen, bt, n, heads, torch.bfloat16)
+    out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale)
+    dx_b = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, heads, scale)
+    dx_r = k1.spatial_attention_bwd_recompute(qkv, qkv_c, g, gc, heads, scale)
+    same = all(torch.equal(a, b) for a, b in zip(dx_r, dx_b))
+    print(f"K1br == K1b(K1sp probs) bit for bit: {same}")
+    if not same:
+        fail("K1br differs from K1b on K1sp's probabilities")
+    want = k1.spatial_attention_bwd_recompute_plain(qkv, qkv_c, g, gc, heads,
+                                                    scale)
+    err_r = max(compare(torch, f"K1br bf16 {part}", a, r,
+                        grad_tol(BF16_TOL, r))
+                for part, a, r in zip(("dqkv", "dqkv_c"), dx_r, want))
+    dx_d = k1.spatial_attention_bwd_delta(qkv, qkv_c, probs, out, out_c, g, gc,
+                                          heads, scale)
+    want = k1.spatial_attention_bwd_delta_plain(qkv, qkv_c, probs, out, out_c,
+                                                g, gc, heads, scale)
+    err_d = max(compare(torch, f"K1bd bf16 {part}", a, r,
+                        grad_tol(BF16_TOL, r))
+                for part, a, r in zip(("dqkv", "dqkv_c"), dx_d, want))
+    del dx_b, dx_r, dx_d, want
+    # K1p at 0.5 N(0, 1) inputs (see K1K2_FWD_TOL)
+    xp = [0.5 * t for t in (qkv, qkv_c)]
+    o, oc = k1.spatial_attention_pipe(*xp, heads, scale)
+    ro, roc = k1.spatial_attention_pipe_plain(*xp, heads, scale)
+    compare(torch, "K1p train bf16 frames", o, ro, K1K2_FWD_TOL)
+    compare(torch, "K1p train bf16 cls", oc, roc, K1K2_FWD_TOL)
+    fo, foc = k1.spatial_attention(*xp, heads, scale)
+    if not (torch.equal(o, fo) and torch.equal(oc, foc)):
+        fail("K1p differs from K1f at the training shape")
+    del xp, fo, foc
+    depth = k1.pipe_depth(n, torch.bfloat16, 3)
+    print(f"K1p ring depth at N = {n}: {depth} of the 3 asked for")
+
+    ms = {"br": time_ms(torch, lambda: k1.spatial_attention_bwd_recompute(
+              qkv, qkv_c, g, gc, heads, scale)),
+          "b": time_ms(torch, lambda: k1.spatial_attention_bwd(
+              qkv, qkv_c, probs, g, gc, heads, scale)),
+          "bd": time_ms(torch, lambda: k1.spatial_attention_bwd_delta(
+              qkv, qkv_c, probs, out, out_c, g, gc, heads, scale)),
+          "p": time_ms(torch, lambda: k1.spatial_attention_pipe(
+              qkv, qkv_c, heads, scale)),
+          "f": time_ms(torch, lambda: k1.spatial_attention(
+              qkv, qkv_c, heads, scale))}
+    plain = {"br": time_ms(torch, lambda: k1.spatial_attention_bwd_recompute_plain(
+                 qkv, qkv_c, g, gc, heads, scale), iters=5),
+             "bd": time_ms(torch, lambda: k1.spatial_attention_bwd_delta_plain(
+                 qkv, qkv_c, probs, out, out_c, g, gc, heads, scale), iters=5)}
+    x = torch.cat([qkv, qkv_c], dim=1).view(bt, L, 3, heads, d)
+    q, k, v = (x[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    gy = torch.cat([g, gc], dim=1).view(bt, L, heads, d).transpose(1, 2)
+    _, lib_bwd = sdpa_ms(torch, F, q, k, v, gy.contiguous())
+    e, ls = 2, k1.probs_stride(L)
+    rows = bt * L * e
+    nb = {"br": rows * (3 * c + c + 3 * c),
+          "bd": rows * (3 * c + c + c + 3 * c) + bt * heads * L * ls * e}
+    fl = {"br": 5 * 2 * bt * heads * L * L * d, "bd": 4 * 2 * bt * heads * L * L * d}
+    bound = {key: bound_ms(nb[key], fl[key], BF16_FLOPS) for key in nb}
+    for key, what in (("br", "K1br"), ("bd", "K1bd")):
+        print(f"{what} [{bt},{n},{3 * c}] bf16: kernel {ms[key]:.4f} ms, "
+              f"K1b {ms['b']:.4f} ms, plain {plain[key]:.4f} ms, SDPA bwd "
+              f"{lib_bwd:.4f} ms, bound {bound[key][0]:.4f} ms "
+              f"({bound[key][1]}: {nb[key] / 1e6:.1f} MB, "
+              f"{fl[key] / 1e9:.2f} GFLOP)")
+    print(f"K1p [{bt},{n},{3 * c}] bf16 (training shape): kernel "
+          f"{ms['p']:.4f} ms, K1f {ms['f']:.4f} ms")
+    del q, k, v, gy, x
+
+    # K1p at the eval shape (16 views x 8 frames), the record's
+    bt = 8 * 16
+    qkv, qkv_c, _, _ = k1_inputs(torch, gen, bt, n, heads, torch.bfloat16,
+                                 sd=0.5)
+    o, oc = k1.spatial_attention_pipe(qkv, qkv_c, heads, scale)
+    ro, roc = k1.spatial_attention_pipe_plain(qkv, qkv_c, heads, scale)
+    err_p = max(compare(torch, "K1p eval bf16 frames", o, ro, K1K2_FWD_TOL),
+                compare(torch, "K1p eval bf16 cls", oc, roc, K1K2_FWD_TOL))
+    fo, foc = k1.spatial_attention(qkv, qkv_c, heads, scale)
+    if not (torch.equal(o, fo) and torch.equal(oc, foc)):
+        fail("K1p differs from K1f at the eval shape")
+    ms_p = time_ms(torch, lambda: k1.spatial_attention_pipe(qkv, qkv_c, heads,
+                                                            scale))
+    ms_f = time_ms(torch, lambda: k1.spatial_attention(qkv, qkv_c, heads,
+                                                       scale))
+    plain_p = time_ms(torch, lambda: k1.spatial_attention_pipe_plain(
+        qkv, qkv_c, heads, scale), iters=10)
+    x = torch.cat([qkv, qkv_c], dim=1).view(bt, L, 3, heads, d)
+    q, k, v = (x[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    lib_p = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    nb_p = bt * L * (3 * c + c) * e
+    fl_p = 2 * 2 * bt * heads * L * L * d
+    b_p, by_p = bound_ms(nb_p, fl_p, BF16_FLOPS)
+    print(f"K1p [{bt},{n},{3 * c}] bf16 (eval shape): kernel {ms_p:.4f} ms, "
+          f"K1f {ms_f:.4f} ms, plain {plain_p:.4f} ms, SDPA {lib_p:.4f} ms, "
+          f"bound {b_p:.4f} ms ({by_p}: {nb_p / 1e6:.1f} MB, "
+          f"{fl_p / 1e9:.2f} GFLOP)")
+    src = "procedurevrl_torch/csrc/spatial_attention.cu"
+    where = "procedurevrl_tpu/ops/pallas_attention.py:"
+    return [{"name": k1.KERNEL_BWD_RECOMPUTE, "route": "cuda", "source": src,
+             "replaces": f"{where}586", "max_abs_err": err_r, "ms": ms["br"],
+             "plain_ms": plain["br"], "bound_ms": bound["br"][0],
+             "bound_by": bound["br"][1], "library_ms": lib_bwd},
+            {"name": k1.KERNEL_BWD_DELTA, "route": "cuda", "source": src,
+             "replaces": f"{where}1065", "max_abs_err": err_d, "ms": ms["bd"],
+             "plain_ms": plain["bd"], "bound_ms": bound["bd"][0],
+             "bound_by": bound["bd"][1], "library_ms": lib_bwd},
+            {"name": k1.KERNEL_PIPE, "route": "cuda", "source": src,
+             "replaces": f"{where}699", "max_abs_err": err_p, "ms": ms_p,
+             "plain_ms": plain_p, "bound_ms": b_p, "bound_by": by_p,
+             "library_ms": lib_p}]
+
+
+def v3_pv(torch, qkv, probs, heads):
+    """P V of K2v3f's probabilities [B, N, H, T, T], accumulated in fp32
+    and rounded to the value dtype: its output up to summation order."""
+    b, t, n, c3 = qkv.shape
+    v = qkv.view(b, t, n, 3, heads, -1)[:, :, :, 2].float()
+    o = torch.einsum("bnhts,bsnhd->btnhd", probs.float(), v)
+    return o.to(qkv.dtype).reshape(b, t, n, c3 // 3)
+
+
+def phase_k2_v3(torch, F, k2) -> list:
+    """K2v3f / K2v3b (slice 5) against their plain versions, timed beside
+    K2f / K2b and SDPA at the training shape; returns their records."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    heads, d = 12, 64
+    c, scale = heads * d, d ** -0.5
+    # small cases: float32 at T = 8 and 3, bf16 at T = 8 and 3 with a
+    # logit above 80 (b 0, frame 1, patch 4, head 0 against frame 2)
+    for dtype, tt in ((torch.float32, 8), (torch.float32, 3),
+                      (torch.bfloat16, 8), (torch.bfloat16, 3)):
+        qkv = torch.randn(2, tt, 21, 3 * c, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(2, tt, 21, c, generator=gen, device="cuda").to(dtype)
+        qkv[0, 1, 4, :64] = 3.0
+        qkv[0, 2, 4, c:c + 64] = 4.0
+        name = f"K2v3 small {str(dtype)[6:]} T={tt} logit > 80"
+        ftol = FP32_TOL if dtype == torch.float32 else K1K2_FWD_TOL
+        gtol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        out, probs = k2.temporal_attention_v3(qkv, heads, scale)
+        ro, rp = k2.temporal_attention_v3_fwd_plain(qkv, heads, scale)
+        compare(torch, f"{name} out", out, ro,
+                FP32_TOL if dtype == torch.float32 else BF16_TOL)
+        compare(torch, f"{name} probs", probs, rp, ftol)
+        compare(torch, f"{name} out vs P V of its probs", out,
+                v3_pv(torch, qkv, probs, heads), ftol)
+        o2, none = k2.temporal_attention_v3(qkv, heads, scale, save_probs=False)
+        if none is not None or not torch.equal(o2, out):
+            fail(f"{name}: the forward without the store differs")
+        r = k2.temporal_attention_v3_bwd_plain(qkv, rp, g, heads, scale)
+        compare(torch, f"{name} dqkv", k2.temporal_attention_v3_bwd(
+            qkv, rp, g, heads, scale), r, grad_tol(gtol, r))
+
+    b, t, n = 2 * CLIPS_PER_SAMPLE, 8, 196
+    qkv = torch.randn(b, t, n, 3 * c, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(b, t, n, c, generator=gen, device="cuda").bfloat16()
+    out, probs = k2.temporal_attention_v3(qkv, heads, scale)
+    ro, rp = k2.temporal_attention_v3_fwd_plain(qkv, heads, scale)
+    err_f = max(compare(torch, "K2v3f bf16 out", out, ro, BF16_TOL),
+                compare(torch, "K2v3f bf16 probs", probs, rp, K1K2_FWD_TOL),
+                compare(torch, "K2v3f bf16 out vs P V of its probs", out,
+                        v3_pv(torch, qkv, probs, heads), K1K2_FWD_TOL))
+    dx = k2.temporal_attention_v3_bwd(qkv, probs, g, heads, scale)
+    r = k2.temporal_attention_v3_bwd_plain(qkv, probs, g, heads, scale)
+    err_b = compare(torch, "K2v3b bf16 dqkv", dx, r, grad_tol(BF16_TOL, r))
+    del ro, rp, dx, r
+    ms = {"v3f": time_ms(torch, lambda: k2.temporal_attention_v3(qkv, heads, scale)),
+          "v3b": time_ms(torch, lambda: k2.temporal_attention_v3_bwd(
+              qkv, probs, g, heads, scale)),
+          "f": time_ms(torch, lambda: k2.temporal_attention(qkv, heads, scale)),
+          "b": time_ms(torch, lambda: k2.temporal_attention_bwd(
+              qkv, g, heads, scale))}
+    plain = {"v3f": time_ms(torch, lambda: k2.temporal_attention_v3_fwd_plain(
+                 qkv, heads, scale), iters=10),
+             "v3b": time_ms(torch, lambda: k2.temporal_attention_v3_bwd_plain(
+                 qkv, probs, g, heads, scale), iters=5)}
+    x = qkv.view(b, t, n, 3, heads, d).permute(3, 0, 2, 4, 1, 5)
+    q, k, v = (x[i].reshape(b * n, heads, t, d).contiguous() for i in range(3))
+    gy = g.view(b, t, n, heads, d).permute(0, 2, 3, 1, 4).reshape(
+        b * n, heads, t, d).contiguous()
+    lib_f, lib_b = sdpa_ms(torch, F, q, k, v, gy)
+    e = 2
+    nb_p = b * n * heads * t * t * e
+    nb = {"v3f": b * t * n * (3 * c + c) * e + nb_p,
+          "v3b": b * t * n * (3 * c + c + 3 * c) * e + nb_p}
+    fl = {"v3f": 2 * 2 * b * n * heads * t * t * d,
+          "v3b": 4 * 2 * b * n * heads * t * t * d}
+    bound = {key: bound_ms(nb[key], fl[key], BF16_FLOPS) for key in nb}
+    for key, what, twin, lib in (("v3f", "K2v3f", "f", lib_f),
+                                 ("v3b", "K2v3b", "b", lib_b)):
+        print(f"{what} [{b},{t},{n},{3 * c}] bf16: kernel {ms[key]:.4f} ms, "
+              f"K2{twin} {ms[twin]:.4f} ms, plain {plain[key]:.4f} ms, SDPA "
+              f"{'fwd' if twin == 'f' else 'bwd'} {lib:.4f} ms, bound "
+              f"{bound[key][0]:.4f} ms ({bound[key][1]}: {nb[key] / 1e6:.1f} "
+              f"MB, {fl[key] / 1e9:.3f} GFLOP)")
+    src = "procedurevrl_torch/csrc/temporal_attention.cu"
+    where = "procedurevrl_tpu/ops/pallas_attention.py:"
+    return [{"name": k2.KERNEL_V3, "route": "cuda", "source": src,
+             "replaces": f"{where}1377", "max_abs_err": err_f,
+             "ms": ms["v3f"], "plain_ms": plain["v3f"],
+             "bound_ms": bound["v3f"][0], "bound_by": bound["v3f"][1],
+             "library_ms": lib_f},
+            {"name": k2.KERNEL_V3_BWD, "route": "cuda", "source": src,
+             "replaces": f"{where}1421", "max_abs_err": err_b,
+             "ms": ms["v3b"], "plain_ms": plain["v3b"],
+             "bound_ms": bound["v3b"][0], "bound_by": bound["v3b"][1],
+             "library_ms": lib_b}]
 
 
 def mvit_inputs(torch, gen, b, heads, qn, k_shape, dtype, hot=False):
@@ -782,8 +1087,23 @@ def phase_kt_kernels(torch, F, k5) -> list:
     return records
 
 
-def phase_slice(torch, k1, k2, k5, k8, _build) -> dict:
-    """Drive the slice; return the launch counts of its run."""
+def k1k2_kernels(k1, k2) -> tuple:
+    """Every K1 and K2 kernel's launch-count name."""
+    return (k1.KERNEL, k1.KERNEL_PROBS, k1.KERNEL_BWD, k1.KERNEL_PIPE,
+            k1.KERNEL_BWD_RECOMPUTE, k1.KERNEL_BWD_DELTA, k2.KERNEL,
+            k2.KERNEL_BWD, k2.KERNEL_V3, k2.KERNEL_V3_BWD)
+
+
+def check_launches(launches: dict, expected: dict, what: str) -> None:
+    for key, n in expected.items():
+        if launches.get(key, 0) != n:
+            fail(f"{key} launched {launches.get(key, 0)} times in {what}, "
+                 f"expected {n}")
+
+
+def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None) -> dict:
+    """Drive the zero-shot test (slice 1; slice 5's eval with ``knobs``, set
+    while the models are built); return the launch counts of its run."""
     from procedurevrl_torch.config import load_config
     from procedurevrl_torch.datasets.synthetic import SyntheticClips
     from procedurevrl_torch.engine.steps import make_eval_step
@@ -798,32 +1118,37 @@ def phase_slice(torch, k1, k2, k5, k8, _build) -> dict:
     dataset = SyntheticClips(cfg, "test")
     n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
 
+    if not knobs and any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 6 runs the default route: unset {list(TS_KNOBS)}")
+    label = f"slice ({' '.join(f'{k}={v}' for k, v in knobs.items())})" \
+        if knobs else "slice"
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    stats = test(cfg, device="cuda")
+    with knobs_set(knobs or {}):
+        stats = test(cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"slice: {len(dataset)} clips in {n_batches} batches, top1 "
+    print(f"{label}: {len(dataset)} clips in {n_batches} batches, top1 "
           f"{stats['top1_acc']} top5 {stats['top5_acc']}, "
           f"{stats['clips_per_sec']:.2f} clips/s over batches 2..{n_batches}, "
           f"wall {wall:.1f} s (model build included), peak memory "
           f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
-    for key in (k1.KERNEL, k2.KERNEL):
-        if launches.get(key, 0) != DEPTH * n_batches:
-            fail(f"{key} launched {launches.get(key, 0)} times, expected "
-                 f"{DEPTH} x {n_batches}")
-    for key in (k1.KERNEL_PROBS, k1.KERNEL_BWD, k2.KERNEL_BWD):
-        if launches.get(key, 0):
-            fail(f"the eval path launched the training kernel {key}")
+    # the forward kernels of the route, once per block and batch; no other
+    # K1 or K2 kernel (no training kernel, no kernel of the other route)
+    fwd = (k1.KERNEL_PIPE, k2.KERNEL_V3) if knobs else (k1.KERNEL, k2.KERNEL)
+    check_launches(launches, {key: DEPTH * n_batches if key in fwd else 0
+                              for key in k1k2_kernels(k1, k2)},
+                   f"the {label} test")
     for key in ("top1_acc", "top5_acc"):
         if not math.isfinite(float(stats[key])):
             fail(f"{key} is not finite")
 
     # one batch: kernels vs the same model through the plain versions
-    model, bank = build_model(cfg, "cuda")
+    with knobs_set(knobs or {}):
+        model, bank = build_model(cfg, "cuda")
     step = make_eval_step(model, cfg, bank)
     batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
     preds = step(batch)
@@ -836,12 +1161,12 @@ def phase_slice(torch, k1, k2, k5, k8, _build) -> dict:
         fail("predictions are not finite")
     diff = (preds - ref).abs().max().item()
     agree = (preds.argmax(1) == ref.argmax(1)).float().mean().item()
-    print(f"slice batch vs plain versions: max |dpred| {diff:.3e} "
+    print(f"{label} batch vs plain versions: max |dpred| {diff:.3e} "
           f"(atol {PRED_ATOL}), top-1 agreement {agree:.3f}, "
           f"max pred {preds.max().item():.4f}")
     if diff > PRED_ATOL:
         fail("predictions through the kernels disagree with the plain path")
-    profile_step(torch, "one eval step (16 clips)",
+    profile_step(torch, f"one eval step (16 clips, {label})",
                  lambda: step(batch))
     return launches
 
@@ -945,6 +1270,8 @@ def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
     """Drive slice 2; return the launch counts of its main run."""
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
+    if any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 7 runs the default route: unset {list(TS_KNOBS)}")
     stats, launches, peak = run_train(torch, _build, train_cfg(True),
                                       TRAIN_STEPS)
     clips = stats["clips_per_step"]
@@ -963,14 +1290,12 @@ def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
           f"memory {peak / 2 ** 30:.3f} GiB, launches {launches}")
     # under remat every block's forward runs twice (the forward, and its
     # recomputation for the backward), each backward kernel once
-    expected = {k1.KERNEL_PROBS: 2 * DEPTH * TRAIN_STEPS,
-                k2.KERNEL: 2 * DEPTH * TRAIN_STEPS,
-                k1.KERNEL_BWD: DEPTH * TRAIN_STEPS,
-                k2.KERNEL_BWD: DEPTH * TRAIN_STEPS, k1.KERNEL: 0}
-    for key, n in expected.items():
-        if launches.get(key, 0) != n:
-            fail(f"{key} launched {launches.get(key, 0)} times in "
-                 f"{TRAIN_STEPS} steps, expected {n}")
+    expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
+    expected.update({k1.KERNEL_PROBS: 2 * DEPTH * TRAIN_STEPS,
+                     k2.KERNEL: 2 * DEPTH * TRAIN_STEPS,
+                     k1.KERNEL_BWD: DEPTH * TRAIN_STEPS,
+                     k2.KERNEL_BWD: DEPTH * TRAIN_STEPS})
+    check_launches(launches, expected, f"{TRAIN_STEPS} steps")
 
     stats2, launches2, peak2 = run_train(torch, _build, train_cfg(False),
                                          NO_REMAT_STEPS)
@@ -1013,13 +1338,9 @@ def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
           f"{stats['clips_per_sec']:.2f} clips/s over steps "
           f"{WARMUP_STEPS + 1}..{steps}, peak memory "
           f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
-    for key in (k1.KERNEL, k1.KERNEL_PROBS, k1.KERNEL_BWD, k2.KERNEL,
-                k2.KERNEL_BWD):
+    for key in k1k2_kernels(k1, k2):
         expected[key] = 0
-    for key, n in expected.items():
-        if launches.get(key, 0) != n:
-            fail(f"{key} launched {launches.get(key, 0)} times in "
-                 f"{steps} {label} steps, expected {n}")
+    check_launches(launches, expected, f"{steps} {label} steps")
     step, batch = step_vs_plain(torch, cfg, k1, k2, k5, k8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1049,11 +1370,11 @@ def phase_mvit_train(torch, k1, k2, k5, k8, _build) -> dict:
 
 
 @contextlib.contextmanager
-def knobs_set():
-    """``MVIT_POOL=kernel MVIT_KT=1`` for the models built inside, the
+def knobs_set(knobs: dict):
+    """The environment knobs ``knobs`` for the models built inside, the
     environment as it was afterwards."""
-    saved = {k: os.environ.get(k) for k in KNOBS}
-    os.environ.update(KNOBS)
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
     try:
         yield
     finally:
@@ -1076,9 +1397,45 @@ def phase_knob_train(torch, k1, k2, k5, k8, _build) -> dict:
                 k5.KERNEL_BWD: KNOB_HS_BLOCKS * n,
                 k8.KERNEL: 2 * K8_POOLS * n, k8.KERNEL_DX: K8_POOLS * n,
                 k8.KERNEL_DW: K8_POOLS * n}
-    with knobs_set():
+    with knobs_set(KNOBS):
         return mvit_train(torch, k1, k2, k5, k8, _build, "MViT knob train",
                           n, expected)
+
+
+def phase_ts_knob_train(torch, k1, k2, k5, k8, _build, label: str,
+                        knobs: dict, expected: dict, profile: bool) -> dict:
+    """Slice 5: phase 7's TimeSformer training (remat) with ``knobs`` set
+    while the models are built: 12 steps with finite losses and the launch
+    counts ``expected`` (every other K1/K2 kernel 0), one step against the
+    plain path, and optionally a profiled step; returns the launch counts."""
+    from procedurevrl_torch.tools.train_net import WARMUP_STEPS
+
+    full = dict.fromkeys(k1k2_kernels(k1, k2), 0)
+    full.update(expected)
+    with knobs_set(knobs):
+        stats, launches, peak = run_train(torch, _build, train_cfg(True),
+                                          TRAIN_STEPS)
+        for i, h in enumerate(stats["history"]):
+            print(f"{label} step {i + 1}: loss {h['loss']:.6f} kl "
+                  f"{h['kl']:.6f} mse {h['mse']:.6f} grad_norm "
+                  f"{h['grad_norm']:.4f}")
+            if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
+                                                     "grad_norm")):
+                fail(f"{label} step {i + 1} is not finite")
+        if len(stats["history"]) != TRAIN_STEPS:
+            fail(f"{len(stats['history'])} {label} steps, expected "
+                 f"{TRAIN_STEPS}")
+        print(f"{label} (remat): {stats['clips_per_step']} clips/step, "
+              f"{stats['clips_per_sec']:.2f} clips/s over steps "
+              f"{WARMUP_STEPS + 1}..{TRAIN_STEPS}, peak memory "
+              f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
+        check_launches(launches, full, f"{TRAIN_STEPS} {label} steps")
+        step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5, k8)
+        if profile:
+            profile_step(torch, f"one {label} step "
+                         f"({stats['clips_per_step']} clips, remat)",
+                         lambda: float(step(batch)["loss"]))
+    return launches
 
 
 def main() -> int:
@@ -1140,7 +1497,30 @@ def main() -> int:
         rec["launches"] = launches.get(rec["name"], 0)
         if not rec["launches"]:
             fail(f"{rec['name']} was not launched on the slice 4 path")
-    kernels = eval_kernels + train_kernels + mvit_kernels + knob_kernels
+    ts_knob_kernels = (timed("12 K1br/K1bd/K1p", phase_k1_knobs, torch, F, k1)
+                       + timed("13 K2v3", phase_k2_v3, torch, F, k2))
+    by_name = {rec["name"]: rec for rec in ts_knob_kernels}
+    launches = timed("14 slice 5 eval", phase_slice, torch, k1, k2, k5, k8,
+                     _build, TS_EVAL_KNOBS)
+    by_name[k1.KERNEL_PIPE]["launches"] = launches.get(k1.KERNEL_PIPE, 0)
+    n = DEPTH * TRAIN_STEPS
+    launches = timed("15 slice 5 route A", phase_ts_knob_train, torch, k1, k2,
+                     k5, k8, _build, "route A", ROUTE_A,
+                     {k1.KERNEL_PIPE: 2 * n, k1.KERNEL_BWD_RECOMPUTE: n,
+                      k2.KERNEL_V3: 2 * n, k2.KERNEL_V3_BWD: n}, True)
+    for key in (k1.KERNEL_BWD_RECOMPUTE, k2.KERNEL_V3, k2.KERNEL_V3_BWD):
+        by_name[key]["launches"] = launches.get(key, 0)
+    launches = timed("16 slice 5 route B", phase_ts_knob_train, torch, k1, k2,
+                     k5, k8, _build, "route B", ROUTE_B,
+                     {k1.KERNEL_PROBS: 2 * n, k1.KERNEL_BWD_DELTA: n,
+                      k2.KERNEL: 2 * n, k2.KERNEL_BWD: n}, False)
+    by_name[k1.KERNEL_BWD_DELTA]["launches"] = launches.get(
+        k1.KERNEL_BWD_DELTA, 0)
+    for rec in ts_knob_kernels:
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the slice 5 path")
+    kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
+               + ts_knob_kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)

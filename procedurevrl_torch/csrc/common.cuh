@@ -32,7 +32,11 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// one element from a float
+// one element as a float / from a float
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -82,6 +86,24 @@ __device__ __forceinline__ void cp_async_pair(T* dst, const T* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// Ring pipelines: close this thread's copies issued since the last commit
+// into one group, and wait until at most `pending` (0..7, uniform across
+// the block) of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
 
 // Tensor-core building blocks (bf16 operands, fp32 accumulators).
 // D += A B for one m16n8k16 tile: A row-major 16 x 16, B column-major
@@ -121,6 +143,11 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
 }
 __device__ __forceinline__ float2 load_bf16x2(const uint16_t* p) {
   return unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p));
+}
+// sum over the 4 threads of an mma quad (lanes that share lane >> 2)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace pvrl

@@ -295,11 +295,6 @@ __device__ __forceinline__ void logits8(float (&s)[4],
     s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

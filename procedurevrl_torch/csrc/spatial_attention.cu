@@ -1,6 +1,9 @@
 // Spatial (per-frame) attention of the divided space-time block, with the
 // CLS token as a separate stream: forward (K1f), forward that also writes
-// the probabilities (K1sp), and the backward from those probabilities (K1b).
+// the probabilities (K1sp), the pipelined forward (K1p), the backward from
+// the saved probabilities (K1b), the backward that recomputes them (K1br)
+// and the backward from the saved probabilities with delta_i = g_i . o_i in
+// place of the jacobian row sums (K1bd).
 //
 // Replaces the TPU kernels procedurevrl_tpu/ops/pallas_attention.py:
 //   K1f  _fwd_cls_qkv_kernel     (via _flash_cls_qkv_fwd, the primal forward
@@ -8,7 +11,13 @@
 //   K1sp _fwd_cls_qkv_kernel_sp  (via _flash_cls_qkv_fwd_sp, the forward
 //        under grad on one device, SPATIAL_SAVE_PROBS=1);
 //   K1b  _bwd_cls_qkv_kernel_sp  (via _flash_cls_qkv_bwd_sp, its backward,
-//        rowsum form of the softmax jacobian).
+//        rowsum form of the softmax jacobian);
+//   K1p  _pipe_kernel            (via _flash_cls_qkv_fwd_pipe, SPATIAL_PIPE=1:
+//        the manually pipelined forward);
+//   K1br _bwd_cls_qkv_kernel     (via _flash_cls_qkv_bwd, the recompute
+//        backward: SPATIAL_SAVE_PROBS=0, or more than one device);
+//   K1bd _bwd_cls_qkv_kernel_sp_delta (via _flash_cls_qkv_bwd_sp_delta,
+//        SPATIAL_DELTA=1).
 //
 // Contract (one call per TimeSformer block):
 //   qkv   [BT, N, 3C]  fused projection output, columns [q | k | v], heads
@@ -16,21 +25,28 @@
 //                      h*64 .. h*64+63 of its third);
 //   qkv_c [BT, 1, 3C]  the CLS row of every frame, same columns;
 //   out   [BT, N, C], out_c [BT, 1, C];
-//   probs [BT, H, L, LS] (K1sp output, K1b input), L = N + 1 rows in the
-//                      order [patches; CLS], LS = L rounded up to 8 so rows
-//                      are 16-byte aligned; p[i, j] is the probability of
-//                      query i on key j after the cast to the value dtype,
-//                      exactly the p that multiplies V; columns L..LS-1 are
-//                      written as zeros;
+//   probs [BT, H, L, LS] (K1sp output, K1b/K1bd input), L = N + 1 rows in
+//                      the order [patches; CLS], LS = L rounded up to 8 so
+//                      rows are 16-byte aligned; p[i, j] is the probability
+//                      of query i on key j after the cast to the value
+//                      dtype, exactly the p that multiplies V; columns
+//                      L..LS-1 are written as zeros;
 //   g [BT, N, C], gc [BT, 1, C] -> dqkv [BT, N, 3C], dqkv_c [BT, 1, 3C].
 // Forward: each of the L queries attends over the L keys [patches; CLS]:
 // s = (q.k) * scale in fp32, p = exp(min(s, 80)) / sum, p cast to the value
 // dtype, o = sum p*v accumulated in fp32.  The CLS row sits at row N of the
-// staged tile, as the TPU kernel splices it into its padding row.
+// staged tile, as the TPU kernel splices it into its padding row (K1p copies
+// it there straight from qkv_c, as the TPU's _pipe_kernel DMAs it; the
+// 8-row gap of its _softmax_probs_gap is a Mosaic alignment rule the card
+// does not have).
 // Backward (per frame and head): dv = p^T g with p in the value dtype;
-// dp = g v^T in fp32; ds = p * (dp - sum_j dp*p) in fp32, cast to the value
-// dtype; dq = scale * ds k, dk = scale * ds^T q, accumulated in fp32.  Like
-// the TPU kernel it is the softmax jacobian: it ignores the clamp.
+// dp = g v^T in fp32; ds = p * (dp - D_i) in fp32, cast to the value dtype,
+// with D_i = sum_j dp*p (K1b, K1br) or delta_i = sum_d g_id o_id from the
+// saved output rows (K1bd); dq = scale * ds k, dk = scale * ds^T q,
+// accumulated in fp32.  Like the TPU kernels it is the softmax jacobian: it
+// ignores the clamp.  K1br's p is the forward's own: the bf16 tile comes
+// from softmax_tile, the device function K1f, K1sp and K1p use, so K1br
+// equals K1b on K1sp's probabilities bit for bit.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) at the training shape
 // (BT = 144, N = 196, C = 768, 12 heads, bf16):
@@ -38,9 +54,11 @@
 //   K1sp the same plus 136.2 MB of probs (LS = 200):     ~93 us (bytes),
 //        17.2 GFLOP, ~17 us at the tensor-core peak;
 //   K1b  reads qkv, g (43.6 MB) and probs, writes 130.7 MB of dqkv:
-//        441 MB, ~132 us (bytes); 34.3 GFLOP, ~35 us.
-// All three are memory-bound.  Design: one CTA per (frame, head) stages
-// that head's rows in shared memory with cp.async (all of a CTA's copies in
+//        441 MB, ~132 us (bytes); 34.3 GFLOP, ~35 us;
+//   K1br K1b's bytes less the probs, 305 MB, ~91 us; 42.9 GFLOP, ~43 us;
+//   K1bd K1b's bytes plus 43.6 MB of o, 485 MB, ~145 us.
+// All are memory-bound.  Design: one CTA per (frame, head) stages that
+// head's rows in shared memory with cp.async (all of a CTA's copies in
 // flight at once), so every input byte is read from device memory once and
 // the L x L logits never reach device memory.
 //   * bf16 forward: four warps, each owns 16-query tiles; QK^T and PV run on
@@ -48,24 +66,36 @@
 //     logits tile stays in registers; its accumulator layout is reused
 //     directly as the A operand of the PV product; the Q, K and V fragments
 //     come from shared memory by ldmatrix.  The exponential is exp2f of a
-//     log2(e)-scaled argument and each row is normalised by one reciprocal.
-//     K1sp is the same template with the probabilities stored from those A
-//     fragments (4-byte stores, zeros past L), so the forward math has one
-//     copy.
-//   * bf16 backward: q, k, v, g (208 x 64 each) and the saved probability
-//     tile (208 x 216) fill 210 KB of shared memory.  Pass 1, each warp over
-//     16 query rows: dp = g v^T, the row sums D_i = sum_j dp*p (kept in
-//     shared memory), ds, and dq = ds k with ds packed in registers as the A
-//     operand.  Pass 2, each warp over 16 key rows: ldmatrix.trans of the
-//     probability tile gives p^T directly as the A operand of dv = p^T g and,
-//     unpacked, in the accumulator layout of dp^T = v g^T (recomputed, cheap
-//     next to the bytes), which with D_i gives ds^T for dk = ds^T q.
+//     log2(e)-scaled argument and each row is normalised by one reciprocal
+//     (softmax_tile).  K1sp is the same template with the probabilities
+//     stored from those A fragments (4-byte stores, zeros past L), so the
+//     forward math has one copy (mma_item).
+//   * K1p, the TPU's manually pipelined forward: persistent CTAs of eight
+//     warps walk the (frame, head) items with stride gridDim.x; a ring of
+//     `depth` stages, filled by cp.async groups, keeps the next items' q, k
+//     and v rows in flight while the current item computes (mma_item).  One
+//     stage of q, k and v at L = 197 is 208 x 72 x 3 bf16 = 88 KB, so the
+//     requested depth (SPATIAL_PIPE_NBUF, default 3) is clamped to what fits
+//     in 227 KB: 2 at the TimeSformer shape, up to 8 for short sequences.
+//   * bf16 backward: q, k, v, g (208 x 64 each) and the probability tile
+//     (208 x 216) fill 210 KB of shared memory.  K1b copies the saved tile;
+//     K1br computes it instead (softmax_tile on the staged q and k, cast to
+//     bf16, rows >= L zero); K1bd copies it and takes delta_i from g and the
+//     saved o rows, read straight from device memory (the tile budget is
+//     full).  Pass 1, each warp over 16 query rows: dp = g v^T, the row sums
+//     D_i = sum_j dp*p or delta_i (kept in shared memory), ds, and dq = ds k
+//     with ds packed in registers as the A operand.  Pass 2, each warp over
+//     16 key rows: ldmatrix.trans of the probability tile gives p^T directly
+//     as the A operand of dv = p^T g and, unpacked, in the accumulator
+//     layout of dp^T = v g^T (recomputed, cheap next to the bytes), which
+//     with D_i gives ds^T for dk = ds^T q.
 //   * fp32: scalar FMA paths (the tensor cores have no exact fp32 mode); one
 //     warp per query row (forward, backward pass 1) or key row (backward
 //     pass 2), lanes over keys for the logits and over the head dimension
-//     for the products with V, K, Q and G; expf and a true division.
-// Not done yet: overlapping one head's staging with another's compute
-// (TMA and a persistent CTA), wgmma.
+//     for the products with V, K, Q and G; expf and a true division.  K1br's
+//     fp32 path writes its recomputed p rows to a scratch buffer the wrapper
+//     allocates (they do not fit in shared memory beside q, k, v and g).
+// Not done yet: TMA, wgmma, warp specialisation.
 
 #include "common.cuh"
 
@@ -74,7 +104,14 @@ namespace {
 using namespace pvrl;
 
 constexpr int WARPS = 4;
+constexpr int PIPE_WARPS = 8;
+constexpr int MAX_DEPTH = 8;
+constexpr size_t MAX_SMEM = 232448;  // a CTA's shared memory on Hopper
 constexpr float LOG2E = 1.4426950408889634f;
+
+// backward variants: p copied from the saved probabilities (K1b),
+// recomputed (K1br), or copied with delta_i = g_i . o_i (K1bd)
+enum BwdMode { BWD_SAVED = 0, BWD_RECOMPUTE = 1, BWD_DELTA = 2 };
 
 // Row r (0 <= r <= n) of the [patches; CLS] sequence of frame bt: the
 // start of its `width` columns.
@@ -89,42 +126,48 @@ __host__ __device__ __forceinline__ int probs_stride(int L) {
   return (L + 7) & ~7;
 }
 
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 // ------------------------------------------------- fp32 (scalar) kernels
 
 // Shared-memory row stride in elements: 66 keeps the per-lane row reads of
 // the logits loop on distinct banks (2-word float2 accesses).
 constexpr int SC_STRIDE = HEAD_DIM + 2;
 
-template <typename T, bool SAVE_P>
-__global__ void __launch_bounds__(WARPS * 32)
-spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
-                      T* __restrict__ out, T* __restrict__ out_c,
-                      T* __restrict__ probs, int n, int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int L = n + 1;
-  const int c = heads * HEAD_DIM, c3 = 3 * c;
-  const int bt = blockIdx.x / heads, h = blockIdx.x % heads;
-  T* q_s = reinterpret_cast<T*>(smem_raw);
-  T* k_s = q_s + (size_t)L * SC_STRIDE;
-  T* v_s = k_s + (size_t)L * SC_STRIDE;
-  float* p_all = reinterpret_cast<float*>(v_s + (size_t)L * SC_STRIDE);
-  const int lp = (L + 31) & ~31;  // per-warp probability row, padded
-
-  // stage q, k, v of this head as element pairs
+// Stage q, k, v of head h of frame bt as element pairs into three
+// [L x SC_STRIDE] tiles at dst (cp.async, not waited for).
+template <typename T>
+__device__ __forceinline__ void stage_scalar(T* dst, const T* qkv,
+                                             const T* qkv_c, int bt, int h,
+                                             int n, int heads) {
+  const int L = n + 1, c = heads * HEAD_DIM, c3 = 3 * c;
   for (int idx = threadIdx.x; idx < L * (HEAD_DIM / 2); idx += blockDim.x) {
     const int r = idx / (HEAD_DIM / 2), e = 2 * (idx % (HEAD_DIM / 2));
     const T* src = seq_row(qkv, qkv_c, bt, r, n, c3) + h * HEAD_DIM + e;
 #pragma unroll
     for (int part = 0; part < 3; ++part)
-      cp_async_pair(q_s + (size_t)part * L * SC_STRIDE + (size_t)r * SC_STRIDE + e,
+      cp_async_pair(dst + (size_t)part * L * SC_STRIDE + (size_t)r * SC_STRIDE + e,
                     src + part * c);
   }
-  cp_async_wait_all();
-  __syncthreads();
+}
 
+// One (frame, head) item of the scalar forward from the staged q, k, v;
+// p_all holds a padded probability row per warp.
+template <typename T, bool SAVE_P>
+__device__ __forceinline__ void scalar_item(const T* q_s, const T* k_s,
+                                            const T* v_s, float* p_all,
+                                            T* out, T* out_c, T* p_dst, int bt,
+                                            int h, int n, int heads,
+                                            float scale, int nwarps) {
+  const int L = n + 1, c = heads * HEAD_DIM;
+  const int lp = (L + 31) & ~31;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* p_s = p_all + warp * lp;
-  for (int i = warp; i < L; i += WARPS) {
+  for (int i = warp; i < L; i += nwarps) {
     float qf[HEAD_DIM];
 #pragma unroll
     for (int m = 0; m < HEAD_DIM / 2; ++m) {
@@ -152,7 +195,7 @@ spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
     if constexpr (SAVE_P) {
       // this lane wrote p_s[j] itself just above: no sync needed
       const int ls = probs_stride(L);
-      T* prow = probs + ((size_t)blockIdx.x * L + i) * ls;
+      T* prow = p_dst + (size_t)i * ls;
       for (int j = lane; j < ls; j += 32) store1(prow + j, j < L ? p_s[j] : 0.f);
     }
     __syncwarp();
@@ -170,12 +213,38 @@ spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
   }
 }
 
+template <typename T, bool SAVE_P>
+__global__ void __launch_bounds__(WARPS * 32)
+spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
+                      T* __restrict__ out, T* __restrict__ out_c,
+                      T* __restrict__ probs, int n, int heads, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = n + 1;
+  const int bt = blockIdx.x / heads, h = blockIdx.x % heads;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + (size_t)L * SC_STRIDE;
+  T* v_s = k_s + (size_t)L * SC_STRIDE;
+  float* p_all = reinterpret_cast<float*>(v_s + (size_t)L * SC_STRIDE);
+  stage_scalar(q_s, qkv, qkv_c, bt, h, n, heads);
+  cp_async_wait_all();
+  __syncthreads();
+  T* p_dst = SAVE_P ? probs + (size_t)blockIdx.x * L * probs_stride(L) : nullptr;
+  scalar_item<T, SAVE_P>(q_s, k_s, v_s, p_all, out, out_c, p_dst, bt, h, n,
+                         heads, scale, WARPS);
+}
+
 // fp32 backward.  Shared memory: q, k, v, g rows [L x 66], the row sums D_i
-// [lp], and per warp two rows [lp] (ds and p of the row in hand).
+// [lp], and per warp two rows [lp] (ds and p of the row in hand).  p comes
+// from `probs` (K1b, K1bd) or, for K1br, from `scratch`, which pass 0 fills
+// with the forward's probabilities (not __restrict__: written and read back
+// by the same block, ordered by __syncthreads).
+template <int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_bwd_scalar_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ qkv_c,
-                          const float* __restrict__ probs,
+                          const float* probs, float* scratch,
+                          const float* __restrict__ o,
+                          const float* __restrict__ oc,
                           const float* __restrict__ g,
                           const float* __restrict__ gc,
                           float* __restrict__ dqkv, float* __restrict__ dqkv_c,
@@ -204,9 +273,36 @@ spatial_bwd_scalar_kernel(const float* __restrict__ qkv,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* pb = probs + (size_t)blockIdx.x * L * ls;
+  const float* pb = (MODE == BWD_RECOMPUTE ? scratch : probs) +
+                    (size_t)blockIdx.x * L * ls;
   float* ds_w = d_s + lp + warp * 2 * lp;
   float* p_w = ds_w + lp;
+
+  if constexpr (MODE == BWD_RECOMPUTE) {
+    // pass 0: the forward's probabilities (scalar_item's arithmetic) into
+    // this item's scratch rows
+    float* pr = scratch + (size_t)blockIdx.x * L * ls;
+    for (int i = warp; i < L; i += WARPS) {
+      float part_sum = 0.f;
+      for (int j = lane; j < L; j += 32) {
+        float s = 0.f;
+#pragma unroll
+        for (int m = 0; m < HEAD_DIM / 2; ++m) {
+          const float2 qq = load2(q_s + (size_t)i * SC_STRIDE + 2 * m);
+          const float2 kk = load2(k_s + (size_t)j * SC_STRIDE + 2 * m);
+          s = fmaf(qq.x, kk.x, s);
+          s = fmaf(qq.y, kk.y, s);
+        }
+        const float e = expf(fminf(s * scale, CLAMP_HI));
+        pr[(size_t)i * ls + j] = e;
+        part_sum += e;
+      }
+      const float denom = warp_sum(part_sum);
+      for (int j = lane; j < L; j += 32)
+        pr[(size_t)i * ls + j] = pr[(size_t)i * ls + j] / denom;
+    }
+    __syncthreads();
+  }
 
   // pass 1: query rows i
   for (int i = warp; i < L; i += WARPS) {
@@ -231,6 +327,12 @@ spatial_bwd_scalar_kernel(const float* __restrict__ qkv,
       ds_w[j] = dp;
       p_w[j] = p;
       part = fmaf(dp, p, part);
+    }
+    if constexpr (MODE == BWD_DELTA) {
+      // delta_i = g_i . o_i: lane over head-dim pairs
+      const float2 gg = load2(g_s + (size_t)i * SC_STRIDE + 2 * lane);
+      const float2 oo = load2(seq_row(o, oc, bt, i, n, c) + h * HEAD_DIM + 2 * lane);
+      part = fmaf(gg.x, oo.x, gg.y * oo.y);
     }
     const float D = warp_sum(part);
     if (lane == 0) d_s[i] = D;
@@ -310,90 +412,97 @@ __device__ __forceinline__ void stage_rows(uint16_t* dst, const uint16_t* x,
   }
 }
 
-// LP: padded sequence length (multiple of 16); NT = LP / 8 key tiles.
-// SAVE_P: also write the probabilities (K1sp).
-template <int LP, bool SAVE_P>
-__global__ void __launch_bounds__(WARPS * 32)
-spatial_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   const __nv_bfloat16* __restrict__ qkv_c,
-                   __nv_bfloat16* __restrict__ out,
-                   __nv_bfloat16* __restrict__ out_c,
-                   __nv_bfloat16* __restrict__ probs, int n, int heads,
-                   float scale) {
-  constexpr int NT = LP / 8;   // 8-wide key tiles of the logits row
-  constexpr int KT = LP / 16;  // 16-deep key steps of the PV product
-  constexpr int MT = LP / 16;  // 16-row query tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* k_s = q_s + LP * MMA_STRIDE;
-  uint16_t* v_s = k_s + LP * MMA_STRIDE;
-  const int L = n + 1;
-  const int c = heads * HEAD_DIM, c3 = 3 * c;
-  const int bt = blockIdx.x / heads, h = blockIdx.x % heads;
-  const uint16_t* g = reinterpret_cast<const uint16_t*>(qkv);
-  const uint16_t* gc = reinterpret_cast<const uint16_t*>(qkv_c);
-
-  // stage q, k, v rows; rows >= L are zero so padded keys contribute exact
-  // zeros to PV
+// q, k and v of head h of frame bt into three consecutive tiles at dst
+__device__ __forceinline__ void stage_qkv(uint16_t* dst, const uint16_t* x,
+                                          const uint16_t* x_c, int bt, int h,
+                                          int n, int heads, int LP) {
+  const int c = heads * HEAD_DIM;
 #pragma unroll
   for (int part = 0; part < 3; ++part)
-    stage_rows(q_s + part * LP * MMA_STRIDE, g, gc, bt, n, c3,
+    stage_rows(dst + part * LP * MMA_STRIDE, x, x_c, bt, n, 3 * c,
                part * c + h * HEAD_DIM, LP);
-  cp_async_wait_all();
-  __syncthreads();
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
+// The forward's logits and clamp softmax for query tile mt (rows mt*16 ..
+// mt*16+15) against the LP staged keys, in the calling warp:
+// s[nt][e] = exp(min(q.k * scale, 80)) for key columns < L and 0 past them,
+// in the m16n8 accumulator layout (rows r0 = mt*16 + lane/4 and r1 = r0 + 8,
+// columns nt*8 + 2*(lane%4) + (e & 1)), and the reciprocals of the two rows'
+// sums.  p = s * inv rounded to bf16 is the one probability of K1f, K1sp,
+// K1p and K1br.
+template <int LP>
+__device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
+                                             const uint16_t* k_s, int mt,
+                                             int L, float scale,
+                                             float (&s)[LP / 8][4],
+                                             float& inv0, float& inv1) {
+  constexpr int NT = LP / 8;
+  const int lane = threadIdx.x % 32, tig = lane & 3;
   // ldmatrix: this lane addresses row (lane % 8) of tile (lane / 8)
   const int lrow = lane & 7, ltile = lane >> 3;
   const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  // A fragments of the 16 x 64 query tile: tiles (rows 0-7 | 8-15) x
+  // (cols 0-7 | 8-15) of each 16-column step
+  uint32_t qa[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    ldsm_x4(qa[ks], q_s + (mt * 16 + (ltile & 1) * 8 + lrow) * MMA_STRIDE +
+                        ks * 16 + (ltile >> 1) * 8);
+  // S = Q K^T over all LP keys, fp32 accumulators; one ldmatrix gives the
+  // B fragments of two 16-deep steps (K rows are the n index)
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const uint16_t* kr = k_s + (nt * 8 + lrow) * MMA_STRIDE + ltile * 8;
+#pragma unroll
+    for (int ks = 0; ks < 4; ks += 2) {
+      uint32_t kb[4];
+      ldsm_x4(kb, kr + ks * 16);
+      mma_16816(s[nt], qa[ks], kb[0], kb[1]);
+      mma_16816(s[nt], qa[ks + 1], kb[2], kb[3]);
+    }
+  }
+  // clamp softmax over the valid keys (columns < L):
+  // exp(min(s*scale, 80)) = 2^(min(s*scale*log2e, 80*log2e)); each row's
+  // sum is spread over the 4 threads of a quad
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = nt * 8 + 2 * tig + (e & 1);
+      const float x = col < L ? exp2f(fminf(s[nt][e] * scale2, hi2)) : 0.f;
+      s[nt][e] = x;
+      if (e < 2) sum0 += x; else sum1 += x;
+    }
+  }
+  inv0 = 1.f / quad_sum(sum0);
+  inv1 = 1.f / quad_sum(sum1);
+}
+
+// One (frame, head) item of the bf16 forward from staged q, k, v tiles
+// [LP x MMA_STRIDE]: warps `warp`, `warp + nwarps`, ... take the 16-query
+// tiles.  SAVE_P: also write the probabilities to p_dst (K1sp).
+template <int LP, bool SAVE_P>
+__device__ __forceinline__ void mma_item(const uint16_t* q_s,
+                                         const uint16_t* k_s,
+                                         const uint16_t* v_s, uint16_t* out,
+                                         uint16_t* out_c, uint16_t* p_dst,
+                                         int bt, int h, int n, int heads,
+                                         float scale, int nwarps) {
+  constexpr int NT = LP / 8;   // 8-wide key tiles of the logits row
+  constexpr int KT = LP / 16;  // 16-deep key steps of the PV product
+  constexpr int MT = LP / 16;  // 16-row query tiles
+  const int L = n + 1, c = heads * HEAD_DIM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lrow = lane & 7, ltile = lane >> 3;
   const int ls = probs_stride(L);
-  uint16_t* p_dst = SAVE_P ? reinterpret_cast<uint16_t*>(probs) +
-                                 (size_t)blockIdx.x * L * ls
-                           : nullptr;
-  for (int mt = warp; mt < MT; mt += WARPS) {
+  for (int mt = warp; mt < MT; mt += nwarps) {
     const int r0 = mt * 16 + gid, r1 = r0 + 8;
-    // A fragments of the 16 x 64 query tile: tiles (rows 0-7 | 8-15) x
-    // (cols 0-7 | 8-15) of each 16-column step
-    uint32_t qa[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      ldsm_x4(qa[ks], q_s + (mt * 16 + (ltile & 1) * 8 + lrow) * MMA_STRIDE +
-                          ks * 16 + (ltile >> 1) * 8);
-    // S = Q K^T over all LP keys, fp32 accumulators; one ldmatrix gives the
-    // B fragments of two 16-deep steps (K rows are the n index)
     float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const uint16_t* kr = k_s + (nt * 8 + lrow) * MMA_STRIDE + ltile * 8;
-#pragma unroll
-      for (int ks = 0; ks < 4; ks += 2) {
-        uint32_t kb[4];
-        ldsm_x4(kb, kr + ks * 16);
-        mma_16816(s[nt], qa[ks], kb[0], kb[1]);
-        mma_16816(s[nt], qa[ks + 1], kb[2], kb[3]);
-      }
-    }
-    // clamp softmax over the valid keys (columns < L):
-    // exp(min(s*scale, 80)) = 2^(min(s*scale*log2e, 80*log2e)); each row's
-    // sum is spread over the 4 threads of a quad
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const float x = col < L ? exp2f(fminf(s[nt][e] * scale2, hi2)) : 0.f;
-        s[nt][e] = x;
-        if (e < 2) sum0 += x; else sum1 += x;
-      }
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    float inv0, inv1;
+    softmax_tile<LP>(q_s, k_s, mt, L, scale, s, inv0, inv1);
     // O = P V: the accumulator layout of two adjacent key tiles is the A
     // fragment of one 16-deep step; p is rounded to bf16 there
     float o[8][4];
@@ -439,9 +548,7 @@ spatial_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int half = 0; half < 2; ++half) {
       const int r = half ? r1 : r0;
       if (r > n) continue;
-      uint16_t* dst = seq_row(reinterpret_cast<uint16_t*>(out),
-                              reinterpret_cast<uint16_t*>(out_c), bt, r, n, c) +
-                      h * HEAD_DIM + 2 * tig;
+      uint16_t* dst = seq_row(out, out_c, bt, r, n, c) + h * HEAD_DIM + 2 * tig;
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt)
         *reinterpret_cast<uint32_t*>(dst + dt * 8) =
@@ -450,14 +557,102 @@ spatial_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
+// LP: padded sequence length (multiple of 16).  One CTA per (frame, head).
+// SAVE_P: also write the probabilities (K1sp).
+template <int LP, bool SAVE_P>
+__global__ void __launch_bounds__(WARPS * 32)
+spatial_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                   const __nv_bfloat16* __restrict__ qkv_c,
+                   __nv_bfloat16* __restrict__ out,
+                   __nv_bfloat16* __restrict__ out_c,
+                   __nv_bfloat16* __restrict__ probs, int n, int heads,
+                   float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
+  const int bt = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int L = n + 1;
+  // rows >= L are zero so padded keys contribute exact zeros to PV
+  stage_qkv(q_s, reinterpret_cast<const uint16_t*>(qkv),
+            reinterpret_cast<const uint16_t*>(qkv_c), bt, h, n, heads, LP);
+  cp_async_wait_all();
+  __syncthreads();
+  uint16_t* p_dst = SAVE_P ? reinterpret_cast<uint16_t*>(probs) +
+                                 (size_t)blockIdx.x * L * probs_stride(L)
+                           : nullptr;
+  mma_item<LP, SAVE_P>(q_s, q_s + LP * MMA_STRIDE, q_s + 2 * LP * MMA_STRIDE,
+                       reinterpret_cast<uint16_t*>(out),
+                       reinterpret_cast<uint16_t*>(out_c), p_dst, bt, h, n,
+                       heads, scale, WARPS);
+}
+
+// K1p: persistent CTAs walk the items (frame, head) = blockIdx.x,
+// blockIdx.x + gridDim.x, ...; the k-th item of a CTA is staged into ring
+// slot k % depth by one cp.async group, issued depth - 1 items ahead.
+// T = float (scalar compute, per-warp probability rows after the ring) or
+// bf16 (tensor cores).
+template <typename T, int LP>
+__global__ void __launch_bounds__(PIPE_WARPS * 32)
+spatial_pipe_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
+                    T* __restrict__ out, T* __restrict__ out_c, int n,
+                    int heads, int items, int depth, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool MMA = sizeof(T) == 2;
+  const int L = n + 1;
+  const size_t stage = MMA ? (size_t)3 * LP * MMA_STRIDE
+                           : (size_t)3 * L * SC_STRIDE;  // elements
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* p_all = reinterpret_cast<float*>(ring + depth * stage);
+
+  auto issue = [&](int k) {
+    const int item = blockIdx.x + k * gridDim.x;
+    if (item < items) {
+      T* slot = ring + (k % depth) * stage;
+      if constexpr (MMA) {
+        stage_qkv(reinterpret_cast<uint16_t*>(slot),
+                  reinterpret_cast<const uint16_t*>(qkv),
+                  reinterpret_cast<const uint16_t*>(qkv_c), item / heads,
+                  item % heads, n, heads, LP);
+      } else {
+        stage_scalar(slot, qkv, qkv_c, item / heads, item % heads, n, heads);
+      }
+    }
+    cp_async_commit();  // an empty group past the last item keeps the count
+  };
+  for (int k = 0; k < depth - 1; ++k) issue(k);
+  for (int k = 0; blockIdx.x + k * gridDim.x < items; ++k) {
+    issue(k + depth - 1);  // into the slot item k - 1 freed
+    cp_async_wait_pending(depth - 1);
+    __syncthreads();  // item k's rows are in its slot for every thread
+    const int item = blockIdx.x + k * gridDim.x;
+    const int bt = item / heads, h = item % heads;
+    const T* slot = ring + (k % depth) * stage;
+    if constexpr (MMA) {
+      const uint16_t* q_s = reinterpret_cast<const uint16_t*>(slot);
+      mma_item<LP, false>(q_s, q_s + LP * MMA_STRIDE, q_s + 2 * LP * MMA_STRIDE,
+                          reinterpret_cast<uint16_t*>(out),
+                          reinterpret_cast<uint16_t*>(out_c), nullptr, bt, h,
+                          n, heads, scale, PIPE_WARPS);
+    } else {
+      scalar_item<T, false>(slot, slot + (size_t)L * SC_STRIDE,
+                            slot + (size_t)2 * L * SC_STRIDE, p_all, out, out_c,
+                            nullptr, bt, h, n, heads, scale, PIPE_WARPS);
+    }
+    __syncthreads();  // every warp is done with the slot before its refill
+  }
+  cp_async_wait_all();
+}
+
 // Backward.  LP: padded sequence length (64 or 208); the probability tile
 // has PSTR = LP + 8 columns (432-byte rows: conflict-free ldmatrix and
-// 4-byte row reads).
-template <int LP>
+// 4-byte row reads).  MODE: BWD_SAVED (K1b), BWD_RECOMPUTE (K1br: probs,
+// o and oc unused), BWD_DELTA (K1bd).
+template <int LP, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                        const __nv_bfloat16* __restrict__ qkv_c,
                        const __nv_bfloat16* __restrict__ probs,
+                       const __nv_bfloat16* __restrict__ o,
+                       const __nv_bfloat16* __restrict__ oc,
                        const __nv_bfloat16* __restrict__ g,
                        const __nv_bfloat16* __restrict__ gc,
                        __nv_bfloat16* __restrict__ dqkv,
@@ -477,32 +672,50 @@ spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int bt = blockIdx.x / heads, h = blockIdx.x % heads;
   const uint16_t* x = reinterpret_cast<const uint16_t*>(qkv);
   const uint16_t* x_c = reinterpret_cast<const uint16_t*>(qkv_c);
-  const uint16_t* pg = reinterpret_cast<const uint16_t*>(probs) +
-                       (size_t)blockIdx.x * L * ls;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lrow = lane & 7, ltile = lane >> 3;
 
-#pragma unroll
-  for (int part = 0; part < 3; ++part)
-    stage_rows(q_s + part * LP * MMA_STRIDE, x, x_c, bt, n, c3,
-               part * c + h * HEAD_DIM, LP);
+  stage_qkv(q_s, x, x_c, bt, h, n, heads, LP);
   stage_rows(g_s, reinterpret_cast<const uint16_t*>(g),
              reinterpret_cast<const uint16_t*>(gc), bt, n, c, h * HEAD_DIM, LP);
-  // the saved L x LS block; zero past it (columns LS.., rows L..)
-  constexpr int PV = PSTR / 8;  // 16-byte pieces per tile row
-  for (int idx = threadIdx.x; idx < LP * PV; idx += blockDim.x) {
-    const int r = idx / PV, e = 8 * (idx % PV);
-    uint16_t* d = p_s + r * PSTR + e;
-    if (r < L && e < ls) {
-      cp_async16(d, pg + (size_t)r * ls + e);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (MODE != BWD_RECOMPUTE) {
+    // the saved L x LS block; zero past it (columns LS.., rows L..)
+    const uint16_t* pg = reinterpret_cast<const uint16_t*>(probs) +
+                         (size_t)blockIdx.x * L * ls;
+    constexpr int PV = PSTR / 8;  // 16-byte pieces per tile row
+    for (int idx = threadIdx.x; idx < LP * PV; idx += blockDim.x) {
+      const int r = idx / PV, e = 8 * (idx % PV);
+      uint16_t* d = p_s + r * PSTR + e;
+      if (r < L && e < ls) {
+        cp_async16(d, pg + (size_t)r * ls + e);
+      } else {
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
   cp_async_wait_all();
   __syncthreads();
+  if constexpr (MODE == BWD_RECOMPUTE) {
+    // the forward's probabilities, as K1sp stores them: columns >= L and
+    // rows >= L zero (columns LP.. of the tile are never read)
+    for (int mt = warp; mt < MT; mt += WARPS) {
+      const int r0 = mt * 16 + gid, r1 = r0 + 8;
+      float e[NT][4];
+      float i0, i1;
+      softmax_tile<LP>(q_s, k_s, mt, L, scale, e, i0, i1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + 2 * tig;
+        *reinterpret_cast<uint32_t*>(p_s + r0 * PSTR + col) =
+            r0 < L ? pack_bf16x2(e[nt][0] * i0, e[nt][1] * i0) : 0u;
+        *reinterpret_cast<uint32_t*>(p_s + r1 * PSTR + col) =
+            r1 < L ? pack_bf16x2(e[nt][2] * i1, e[nt][3] * i1) : 0u;
+      }
+    }
+    __syncthreads();
+  }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int lrow = lane & 7, ltile = lane >> 3;
   uint16_t* dx = reinterpret_cast<uint16_t*>(dqkv);
   uint16_t* dx_c = reinterpret_cast<uint16_t*>(dqkv_c);
 
@@ -527,20 +740,47 @@ spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
         mma_16816(dp[nt], ga[ks + 1], vb[2], vb[3]);
       }
     }
-    // D_i = sum_j dp_ij p_ij: p read in the accumulator layout
     float d0 = 0.f, d1 = 0.f;
+    if constexpr (MODE == BWD_DELTA) {
+      // delta_i = g_i . o_i in fp32: the quad's threads take 16 columns each
+      // of rows r0 and r1, o straight from device memory; rows >= L give 0
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = nt * 8 + 2 * tig;
-      const float2 p0 = load_bf16x2(p_s + r0 * PSTR + col);
-      const float2 p1 = load_bf16x2(p_s + r1 * PSTR + col);
-      d0 = fmaf(dp[nt][0], p0.x, fmaf(dp[nt][1], p0.y, d0));
-      d1 = fmaf(dp[nt][2], p1.x, fmaf(dp[nt][3], p1.y, d1));
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= L) continue;
+        const uint16_t* orow =
+            seq_row(reinterpret_cast<const uint16_t*>(o),
+                    reinterpret_cast<const uint16_t*>(oc), bt, r, n, c) +
+            h * HEAD_DIM + tig * 16;
+        const uint16_t* grow = g_s + r * MMA_STRIDE + tig * 16;
+        float acc = 0.f;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * v);
+          const uint4 gv = *reinterpret_cast<const uint4*>(grow + 8 * v);
+          const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+          const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const float2 a = unpack_bf16x2(gw[w]), b = unpack_bf16x2(ow[w]);
+            acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+          }
+        }
+        if (half) d1 = acc; else d0 = acc;
+      }
+    } else {
+      // D_i = sum_j dp_ij p_ij: p read in the accumulator layout
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + 2 * tig;
+        const float2 p0 = load_bf16x2(p_s + r0 * PSTR + col);
+        const float2 p1 = load_bf16x2(p_s + r1 * PSTR + col);
+        d0 = fmaf(dp[nt][0], p0.x, fmaf(dp[nt][1], p0.y, d0));
+        d1 = fmaf(dp[nt][2], p1.x, fmaf(dp[nt][3], p1.y, d1));
+      }
     }
-    d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
-    d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
-    d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
-    d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
     if (tig == 0) {
       d_s[r0] = d0;
       d_s[r1] = d1;
@@ -662,12 +902,6 @@ spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <int LP, bool SAVE_P>
 cudaError_t launch_mma(const void* qkv, const void* qkv_c, void* out,
                        void* out_c, void* probs, int bt, int n, int heads,
@@ -721,23 +955,109 @@ int forward(const void* qkv, const void* qkv_c, void* out, void* out_c,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int LP>
+// K1p geometry: the bytes of one ring stage and of the per-warp rows
+// beside the ring, and the padded length LP (0 = the scalar path).
+struct PipeShape {
+  size_t stage, extra;
+  int lp;
+};
+
+PipeShape pipe_shape(int n, int dtype) {
+  const int L = n + 1;
+  if (dtype == 0)
+    return {(size_t)3 * L * SC_STRIDE * sizeof(float),
+            (size_t)PIPE_WARPS * ((L + 31) & ~31) * sizeof(float), 0};
+  const int lp = L <= 64 ? 64 : L <= 208 ? 208 : 256;
+  return {(size_t)3 * lp * MMA_STRIDE * sizeof(uint16_t), 0, lp};
+}
+
+// ring depth: the requested one, at least 1, clamped to what fits
+int pipe_depth(int n, int dtype, int nbuf) {
+  const PipeShape s = pipe_shape(n, dtype);
+  if (s.stage + s.extra > MAX_SMEM) return 0;
+  const int fits = (int)((MAX_SMEM - s.extra) / s.stage);
+  int d = nbuf < 1 ? 1 : nbuf;
+  d = d > fits ? fits : d;
+  return d > MAX_DEPTH ? MAX_DEPTH : d;
+}
+
+template <typename T, int LP>
+cudaError_t launch_pipe(const void* qkv, const void* qkv_c, void* out,
+                        void* out_c, int bt, int n, int heads, int depth,
+                        float scale, cudaStream_t stream) {
+  const PipeShape s = pipe_shape(n, sizeof(T) == 2 ? 1 : 0);
+  const size_t smem = depth * s.stage + s.extra;
+  cudaError_t err = set_smem(spatial_pipe_kernel<T, LP>, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, spatial_pipe_kernel<T, LP>, PIPE_WARPS * 32, smem)) !=
+      cudaSuccess)
+    return err;
+  const int items = bt * heads;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int ctas = sms * per_sm < items ? sms * per_sm : items;
+  spatial_pipe_kernel<T, LP><<<ctas, PIPE_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(qkv_c),
+      static_cast<T*>(out), static_cast<T*>(out_c), n, heads, items, depth,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int LP, int MODE>
 cudaError_t launch_bwd_mma(const void* qkv, const void* qkv_c,
-                           const void* probs, const void* g, const void* gc,
-                           void* dqkv, void* dqkv_c, int bt, int n, int heads,
-                           float scale, cudaStream_t stream) {
+                           const void* probs, const void* o, const void* oc,
+                           const void* g, const void* gc, void* dqkv,
+                           void* dqkv_c, int bt, int n, int heads, float scale,
+                           cudaStream_t stream) {
   const size_t smem = (size_t)4 * LP * MMA_STRIDE * sizeof(uint16_t) +
                       (size_t)LP * (LP + 8) * sizeof(uint16_t) +
                       (size_t)LP * sizeof(float);
-  cudaError_t err = set_smem(spatial_bwd_mma_kernel<LP>, smem);
+  cudaError_t err = set_smem(spatial_bwd_mma_kernel<LP, MODE>, smem);
   if (err != cudaSuccess) return err;
   using bf = __nv_bfloat16;
-  spatial_bwd_mma_kernel<LP><<<bt * heads, WARPS * 32, smem, stream>>>(
+  spatial_bwd_mma_kernel<LP, MODE><<<bt * heads, WARPS * 32, smem, stream>>>(
       static_cast<const bf*>(qkv), static_cast<const bf*>(qkv_c),
-      static_cast<const bf*>(probs), static_cast<const bf*>(g),
+      static_cast<const bf*>(probs), static_cast<const bf*>(o),
+      static_cast<const bf*>(oc), static_cast<const bf*>(g),
       static_cast<const bf*>(gc), static_cast<bf*>(dqkv),
       static_cast<bf*>(dqkv_c), n, heads, scale);
   return cudaGetLastError();
+}
+
+template <int MODE>
+int backward(const void* qkv, const void* qkv_c, const void* probs,
+             void* scratch, const void* o, const void* oc, const void* g,
+             const void* gc, void* dqkv, void* dqkv_c, int bt, int n,
+             int heads, int dtype, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int L = n + 1;
+  if (L > 208) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    const int lp = (L + 31) & ~31;
+    const size_t smem = (size_t)4 * L * SC_STRIDE * sizeof(float) +
+                        (size_t)(1 + 2 * WARPS) * lp * sizeof(float);
+    cudaError_t err = set_smem(spatial_bwd_scalar_kernel<MODE>, smem);
+    if (err != cudaSuccess) return (int)err;
+    spatial_bwd_scalar_kernel<MODE><<<bt * heads, WARPS * 32, smem, st>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(qkv_c),
+        static_cast<const float*>(probs), static_cast<float*>(scratch),
+        static_cast<const float*>(o), static_cast<const float*>(oc),
+        static_cast<const float*>(g), static_cast<const float*>(gc),
+        static_cast<float*>(dqkv), static_cast<float*>(dqkv_c), n, heads,
+        scale);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (L <= 64)
+    return (int)launch_bwd_mma<64, MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
+                                         dqkv_c, bt, n, heads, scale, st);
+  return (int)launch_bwd_mma<208, MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
+                                        dqkv_c, bt, n, heads, scale, st);
 }
 
 }  // namespace
@@ -765,6 +1085,37 @@ extern "C" int spatial_attention_fwd_probs(const void* qkv, const void* qkv_c,
                        scale, stream);
 }
 
+// The ring depth K1p runs for a requested depth nbuf (0: the shape does
+// not fit).
+extern "C" int spatial_attention_pipe_depth(int n, int dtype, int nbuf) {
+  return dtype == 0 || dtype == 1 ? pipe_depth(n, dtype, nbuf) : 0;
+}
+
+// K1p: K1f's contract through persistent CTAs and a cp.async ring of
+// spatial_attention_pipe_depth(n, dtype, nbuf) stages.
+extern "C" int spatial_attention_fwd_pipe(const void* qkv, const void* qkv_c,
+                                          void* out, void* out_c, int bt,
+                                          int n, int heads, int dtype,
+                                          int nbuf, float scale,
+                                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int L = n + 1;
+  if ((dtype != 0 && dtype != 1) || L > 256) return (int)cudaErrorInvalidValue;
+  const int depth = pipe_depth(n, dtype, nbuf);
+  if (depth < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_pipe<float, 0>(qkv, qkv_c, out, out_c, bt, n, heads,
+                                      depth, scale, st);
+  if (L <= 64)
+    return (int)launch_pipe<__nv_bfloat16, 64>(qkv, qkv_c, out, out_c, bt, n,
+                                               heads, depth, scale, st);
+  if (L <= 208)
+    return (int)launch_pipe<__nv_bfloat16, 208>(qkv, qkv_c, out, out_c, bt, n,
+                                                heads, depth, scale, st);
+  return (int)launch_pipe<__nv_bfloat16, 256>(qkv, qkv_c, out, out_c, bt, n,
+                                              heads, depth, scale, st);
+}
+
 // K1b: dqkv [bt, n, 3C], dqkv_c [bt, 1, 3C] from qkv, qkv_c, the K1sp
 // probabilities and the output gradients g [bt, n, C], gc [bt, 1, C].
 // n + 1 <= 208 (bf16: 210 KB of shared memory at 208; fp32: 228 KB).
@@ -773,26 +1124,29 @@ extern "C" int spatial_attention_bwd(const void* qkv, const void* qkv_c,
                                      const void* gc, void* dqkv, void* dqkv_c,
                                      int bt, int n, int heads, int dtype,
                                      float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int L = n + 1;
-  if (L > 208) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    const int lp = (L + 31) & ~31;
-    const size_t smem = (size_t)4 * L * SC_STRIDE * sizeof(float) +
-                        (size_t)(1 + 2 * WARPS) * lp * sizeof(float);
-    cudaError_t err = set_smem(spatial_bwd_scalar_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    spatial_bwd_scalar_kernel<<<bt * heads, WARPS * 32, smem, st>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(qkv_c),
-        static_cast<const float*>(probs), static_cast<const float*>(g),
-        static_cast<const float*>(gc), static_cast<float*>(dqkv),
-        static_cast<float*>(dqkv_c), n, heads, scale);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (L <= 64)
-    return (int)launch_bwd_mma<64>(qkv, qkv_c, probs, g, gc, dqkv, dqkv_c, bt,
-                                   n, heads, scale, st);
-  return (int)launch_bwd_mma<208>(qkv, qkv_c, probs, g, gc, dqkv, dqkv_c, bt,
-                                  n, heads, scale, st);
+  return backward<BWD_SAVED>(qkv, qkv_c, probs, nullptr, nullptr, nullptr, g,
+                             gc, dqkv, dqkv_c, bt, n, heads, dtype, scale,
+                             stream);
+}
+
+// K1br: K1b with the probabilities recomputed from qkv, qkv_c.  fp32 needs
+// a scratch [bt, heads, n + 1, LS] float buffer (bf16: unused, may be null).
+extern "C" int spatial_attention_bwd_recompute(
+    const void* qkv, const void* qkv_c, const void* g, const void* gc,
+    void* dqkv, void* dqkv_c, void* scratch, int bt, int n, int heads,
+    int dtype, float scale, void* stream) {
+  return backward<BWD_RECOMPUTE>(qkv, qkv_c, nullptr, scratch, nullptr,
+                                 nullptr, g, gc, dqkv, dqkv_c, bt, n, heads,
+                                 dtype, scale, stream);
+}
+
+// K1bd: K1b with delta_i = g_i . o_i from the forward's outputs
+// out [bt, n, C], out_c [bt, 1, C] in place of the jacobian row sums.
+extern "C" int spatial_attention_bwd_delta(
+    const void* qkv, const void* qkv_c, const void* probs, const void* out,
+    const void* out_c, const void* g, const void* gc, void* dqkv,
+    void* dqkv_c, int bt, int n, int heads, int dtype, float scale,
+    void* stream) {
+  return backward<BWD_DELTA>(qkv, qkv_c, probs, nullptr, out, out_c, g, gc,
+                             dqkv, dqkv_c, bt, n, heads, dtype, scale, stream);
 }

@@ -1,10 +1,27 @@
 // Temporal attention of the divided space-time block: forward (K2f) and
-// backward (K2b), read in place from the time-major stream.
+// backward (K2b), and the saved-probability pair K2v3f / K2v3b, read in
+// place from the time-major stream.
 //
 // Replaces the TPU kernels procedurevrl_tpu/ops/pallas_attention.py:
-//   K2f _temporal_fwd_kernel (via _temporal_fwd, the forward of
-//       flash_attention_temporal);
-//   K2b _temporal_bwd_kernel (via _temporal_bwd, its backward).
+//   K2f   _temporal_fwd_kernel (via _temporal_fwd, the forward of
+//         flash_attention_temporal);
+//   K2b   _temporal_bwd_kernel (via _temporal_bwd, its backward);
+//   K2v3f _temporal_fwd_kernel_v3 and K2v3b _temporal_bwd_kernel_v3
+//         (TEMPORAL_BATCHED=1, the same function with the T logits of a
+//         query in one dot over all key frames).
+// K2v3 keeps the TPU pair's residual: the forward stores p [B, N, H, T, T]
+// in the value dtype (768 values per position at 12 heads, T = 8) and the
+// backward reads it and computes no logits.  Its bf16 kernels batch two
+// patch positions into one 16-row mma.sync tile (frames <= 8): the logits
+// of both come from two m16n8k16 products over the head's 64 columns (each
+// keeps its own position's 8 rows), and P V, ds K, p^T g and ds^T q are one
+// product per 8 output columns with a block-diagonal 16 x 16 A operand (one
+// 8 x 8 block per position), so the products of both positions and all key
+// frames are single tensor-core instructions.  Bounds at the training shape
+// (B = 18, T = 8, N = 196, C = 768, bf16): K2v3f reads 130.0 MB and writes
+// 43.4 + 5.4 MB of p, ~53 us; K2v3b reads 130.0 + 43.4 + 5.4 MB and writes
+// 130.0 MB, ~92 us.  fp32 runs K2f's / K2b's scalar kernels with the store
+// or the load of p in place of the softmax.
 // The TPU forward writes its probabilities in a compact 0/1-expander layout
 // for the backward.  Here the forward writes none and the backward
 // recomputes them from q and k with the same device function the forward
@@ -128,10 +145,12 @@ __device__ __forceinline__ void store_half(T_* dst, const float (&v)[HALF],
   }
 }
 
-// dynamic smem: [T][3][heads][HEAD_STRIDE] elements of T_
-template <typename T_>
+// dynamic smem: [T][3][heads][HEAD_STRIDE] elements of T_.  SAVE_P: also
+// write p to probs [B, N, H, T, T] (K2v3f's scalar path).
+template <typename T_, bool SAVE_P>
 __global__ void temporal_kernel(const T_* __restrict__ qkv, T_* __restrict__ out,
-                                int frames, int n, int heads, float scale) {
+                                T_* __restrict__ probs, int frames, int n,
+                                int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T_* sm = reinterpret_cast<T_*>(smem_raw);
   const int c = heads * HEAD_DIM, c3 = 3 * c;
@@ -157,6 +176,15 @@ __global__ void temporal_kernel(const T_* __restrict__ qkv, T_* __restrict__ out
 
     float s[MAX_T];
     softmax_row(q, k0, kstep, frames, scale, mask, s);
+    if constexpr (SAVE_P) {
+      if (half == 0) {
+        T_* prow = probs + (((size_t)blockIdx.x * heads + h) * frames + t) * frames;
+#pragma unroll
+        for (int u = 0; u < MAX_T; ++u) {
+          if (u < frames) store1(prow + u, s[u]);
+        }
+      }
+    }
     // the row's probabilities go to this thread's half of its query slot
     // (consumed; 32 elements hold MAX_T floats), so the PV loop over frames
     // can run without unrolling: a fully unrolled body is thousands of
@@ -199,10 +227,13 @@ __global__ void temporal_kernel(const T_* __restrict__ qkv, T_* __restrict__ out
 }
 
 // dynamic smem: [T][4][heads][HEAD_STRIDE] elements of T_ (q, k, v and g
-// slots of each frame), then p and ds as floats [T * heads][T]
-template <typename T_>
+// slots of each frame), then p and ds as floats [T * heads][T].  SAVED_P:
+// read p from probs [B, N, H, T, T] (K2v3b's scalar path) instead of
+// recomputing it.
+template <typename T_, bool SAVED_P>
 __global__ void temporal_bwd_kernel(const T_* __restrict__ qkv,
                                     const T_* __restrict__ g,
+                                    const T_* __restrict__ probs,
                                     T_* __restrict__ dqkv, int frames, int n,
                                     int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -233,7 +264,13 @@ __global__ void temporal_bwd_kernel(const T_* __restrict__ qkv,
   // phase 1, query row (t, h): p, dp, ds; dq[t]
   if (active) {
     float p[MAX_T], ds[MAX_T];
-    softmax_row(q0 + t * fstep, k0, fstep, frames, scale, mask, p);
+    if constexpr (SAVED_P) {
+      const T_* prow = probs + (((size_t)blockIdx.x * heads + h) * frames + t) * frames;
+#pragma unroll
+      for (int u = 0; u < MAX_T; ++u) p[u] = u < frames ? load1(prow + u) : 0.f;
+    } else {
+      softmax_row(q0 + t * fstep, k0, fstep, frames, scale, mask, p);
+    }
 #pragma unroll
     for (int u = 0; u < MAX_T; ++u) ds[u] = 0.f;
     const T_* gt = g0 + t * fstep;
@@ -326,33 +363,323 @@ int threads_for(int frames, int heads) {
   return ((2 * frames * heads + 31) / 32) * 32;
 }
 
-template <typename T_>
-cudaError_t launch(const void* qkv, void* out, int batch, int frames, int n,
-                   int heads, float scale, cudaStream_t stream) {
+template <typename T_, bool SAVE_P>
+cudaError_t launch(const void* qkv, void* out, void* probs, int batch,
+                   int frames, int n, int heads, float scale,
+                   cudaStream_t stream) {
   const int threads = threads_for(frames, heads);
   if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem = (size_t)frames * 3 * heads * HEAD_STRIDE * sizeof(T_);
-  cudaError_t err = set_smem(temporal_kernel<T_>, smem);
+  cudaError_t err = set_smem(temporal_kernel<T_, SAVE_P>, smem);
   if (err != cudaSuccess) return err;
-  temporal_kernel<T_><<<batch * n, threads, smem, stream>>>(
-      static_cast<const T_*>(qkv), static_cast<T_*>(out), frames, n, heads,
-      scale);
+  temporal_kernel<T_, SAVE_P><<<batch * n, threads, smem, stream>>>(
+      static_cast<const T_*>(qkv), static_cast<T_*>(out),
+      static_cast<T_*>(probs), frames, n, heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T_>
-cudaError_t launch_bwd(const void* qkv, const void* g, void* dqkv, int batch,
-                       int frames, int n, int heads, float scale,
-                       cudaStream_t stream) {
+template <typename T_, bool SAVED_P>
+cudaError_t launch_bwd(const void* qkv, const void* g, const void* probs,
+                       void* dqkv, int batch, int frames, int n, int heads,
+                       float scale, cudaStream_t stream) {
   const int threads = threads_for(frames, heads);
   if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem = (size_t)frames * 4 * heads * HEAD_STRIDE * sizeof(T_) +
                       (size_t)2 * frames * heads * frames * sizeof(float);
-  cudaError_t err = set_smem(temporal_bwd_kernel<T_>, smem);
+  cudaError_t err = set_smem(temporal_bwd_kernel<T_, SAVED_P>, smem);
   if (err != cudaSuccess) return err;
-  temporal_bwd_kernel<T_><<<batch * n, threads, smem, stream>>>(
+  temporal_bwd_kernel<T_, SAVED_P><<<batch * n, threads, smem, stream>>>(
       static_cast<const T_*>(qkv), static_cast<const T_*>(g),
-      static_cast<T_*>(dqkv), frames, n, heads, scale);
+      static_cast<const T_*>(probs), static_cast<T_*>(dqkv), frames, n, heads,
+      scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------ K2v3 (bf16, tensor cores)
+// One CTA stages two patch positions p0 = 2 * blockIdx.x and p0 + 1 as the
+// 16 rows of one m16n8k16 tile: row r = u * 8 + t is frame t of position
+// p0 + u (frames <= 8; rows of missing frames or positions are zero).  A
+// position is P = b * N + pos.
+constexpr int V3_WARPS = 4;
+constexpr int V3_ROWS = 16;
+constexpr int V3_TS = 24;  // per-warp 16 x 16 tile, 48-byte rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+// row (b, t, pos) of a [B, T, N, width] stream for position P = b * N + pos
+__device__ __forceinline__ size_t stream_row(int P, int t, int frames, int n) {
+  return ((size_t)(P / n) * frames + t) * n + P % n;
+}
+
+// the 16 rows of `width` columns of src into smem columns col0.. of rows of
+// rs elements (16-byte cp.async pieces, not waited for)
+__device__ __forceinline__ void v3_stage(uint16_t* sm, int rs, int col0,
+                                         const uint16_t* src, int width,
+                                         int p0, int positions, int frames,
+                                         int n) {
+  const int vecs = width / 8;
+  for (int idx = threadIdx.x; idx < V3_ROWS * vecs; idx += blockDim.x) {
+    const int r = idx / vecs, e = 8 * (idx % vecs);
+    const int u = r >> 3, t = r & 7, P = p0 + u;
+    uint16_t* d = sm + (size_t)r * rs + col0 + e;
+    if (t < frames && P < positions) {
+      cp_async16(d, src + stream_row(P, t, frames, n) * width + e);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// X Y^T of one head for both positions at once: A = the 16 rows of X
+// (columns xc..xc+63), B = the 8 rows of one position's Y (columns yc..).
+// Two products, one per position; of each this thread keeps its own
+// position's row: a = row (0, lane/4) against position 0's keys 2*(lane%4)
+// and +1, b = row (1, lane/4) against position 1's.
+__device__ __forceinline__ void v3_pair_products(const uint16_t* sm, int rs,
+                                                 int xc, int yc,
+                                                 float (&a)[2], float (&b)[2]) {
+  const int lane = threadIdx.x % 32, lrow = lane & 7, ltile = lane >> 3;
+  uint32_t xa[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    ldsm_x4(xa[ks], sm + ((ltile & 1) * 8 + lrow) * rs + xc + ks * 16 +
+                        (ltile >> 1) * 8);
+  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < 4; ks += 2) {
+    uint32_t kb[4];
+    ldsm_x4(kb, sm + lrow * rs + yc + ltile * 8 + ks * 16);
+    mma_16816(s0, xa[ks], kb[0], kb[1]);
+    mma_16816(s0, xa[ks + 1], kb[2], kb[3]);
+    ldsm_x4(kb, sm + (8 + lrow) * rs + yc + ltile * 8 + ks * 16);
+    mma_16816(s1, xa[ks], kb[0], kb[1]);
+    mma_16816(s1, xa[ks + 1], kb[2], kb[3]);
+  }
+  a[0] = s0[0];
+  a[1] = s0[1];
+  b[0] = s1[2];
+  b[1] = s1[3];
+}
+
+// acc = A Y for the A fragment `a` of a 16 x 16 block-diagonal matrix
+// (position 0's 8 x 8 block, then position 1's) and the 16 rows of Y
+// (columns yc..yc+63, the k index) as transposed B fragments
+__device__ __forceinline__ void v3_blockdiag_product(const uint32_t (&a)[4],
+                                                     const uint16_t* sm, int rs,
+                                                     int yc,
+                                                     float (&acc)[8][4]) {
+  const int lane = threadIdx.x % 32, lrow = lane & 7, ltile = lane >> 3;
+  const uint16_t* yr = sm + ((ltile & 1) * 8 + lrow) * rs + yc + (ltile >> 1) * 8;
+#pragma unroll
+  for (int dt = 0; dt < 8; dt += 2) {
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    acc[dt + 1][0] = acc[dt + 1][1] = acc[dt + 1][2] = acc[dt + 1][3] = 0.f;
+    uint32_t b[4];
+    ldsm_x4_t(b, yr + dt * 8);
+    mma_16816(acc[dt], a, b[0], b[1]);
+    mma_16816(acc[dt + 1], a, b[2], b[3]);
+  }
+}
+
+// acc * mul as bf16 into columns col..col+63 of the 16 staged rows
+__device__ __forceinline__ void v3_store_rows(uint16_t* sm, int rs, int col,
+                                              const float (&acc)[8][4],
+                                              float mul) {
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    *reinterpret_cast<uint32_t*>(sm + gid * rs + col + dt * 8 + 2 * tig) =
+        pack_bf16x2(acc[dt][0] * mul, acc[dt][1] * mul);
+    *reinterpret_cast<uint32_t*>(sm + (8 + gid) * rs + col + dt * 8 + 2 * tig) =
+        pack_bf16x2(acc[dt][2] * mul, acc[dt][3] * mul);
+  }
+}
+
+// columns 0..width-1 of the staged rows that exist to dst [B, T, N, width]
+__device__ __forceinline__ void v3_write(uint16_t* dst, int width,
+                                         const uint16_t* sm, int rs, int p0,
+                                         int positions, int frames, int n) {
+  const int vecs = width / 8;
+  for (int idx = threadIdx.x; idx < V3_ROWS * vecs; idx += blockDim.x) {
+    const int r = idx / vecs, e = 8 * (idx % vecs);
+    const int u = r >> 3, t = r & 7, P = p0 + u;
+    if (t < frames && P < positions)
+      *reinterpret_cast<uint4*>(dst + stream_row(P, t, frames, n) * width + e) =
+          *reinterpret_cast<const uint4*>(sm + (size_t)r * rs + e);
+  }
+}
+
+// K2v3f.  Shared memory: the 16 rows of 3C (+ 8) values.  Each warp takes
+// heads warp, warp + 4, ...: logits of both positions (v3_pair_products),
+// the clamp softmax in registers, p packed as the block-diagonal A fragment
+// of O = P V; O goes over the head's consumed q columns and the CTA writes
+// the 16 output rows with 16-byte stores.  SAVE_P: p to probs.
+template <bool SAVE_P>
+__global__ void __launch_bounds__(V3_WARPS * 32)
+temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                       __nv_bfloat16* __restrict__ out,
+                       __nv_bfloat16* __restrict__ probs, int frames, int n,
+                       int heads, int positions, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sm = reinterpret_cast<uint16_t*>(smem_raw);
+  const int c = heads * HEAD_DIM, rs = 3 * c + 8;
+  const int p0 = 2 * blockIdx.x;
+  v3_stage(sm, rs, 0, reinterpret_cast<const uint16_t*>(qkv), 3 * c, p0,
+           positions, frames, n);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  for (int h = warp; h < heads; h += V3_WARPS) {
+    float sa[2], sb[2];
+    v3_pair_products(sm, rs, h * HEAD_DIM, c + h * HEAD_DIM, sa, sb);
+    // clamp softmax over each row's `frames` keys (a quad holds a row)
+    float ea[2], eb[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = 2 * tig + e < frames;
+      ea[e] = key ? exp2f(fminf(sa[e] * scale2, hi2)) : 0.f;
+      eb[e] = key ? exp2f(fminf(sb[e] * scale2, hi2)) : 0.f;
+    }
+    const float ia = 1.f / quad_sum(ea[0] + ea[1]);
+    const float ib = 1.f / quad_sum(eb[0] + eb[1]);
+    const uint32_t a[4] = {pack_bf16x2(ea[0] * ia, ea[1] * ia), 0u, 0u,
+                           pack_bf16x2(eb[0] * ib, eb[1] * ib)};
+    if constexpr (SAVE_P) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int P = p0 + u;
+        if (P >= positions || gid >= frames) continue;
+        uint16_t* prow = reinterpret_cast<uint16_t*>(probs) +
+                         (((size_t)P * heads + h) * frames + gid) * frames;
+        const uint32_t w = u ? a[3] : a[0];
+        if (2 * tig < frames) prow[2 * tig] = (uint16_t)(w & 0xffffu);
+        if (2 * tig + 1 < frames) prow[2 * tig + 1] = (uint16_t)(w >> 16);
+      }
+    }
+    float o[8][4];
+    v3_blockdiag_product(a, sm, rs, 2 * c + h * HEAD_DIM, o);
+    v3_store_rows(sm, rs, h * HEAD_DIM, o, 1.f);
+  }
+  __syncthreads();
+  v3_write(reinterpret_cast<uint16_t*>(out), c, sm, rs, p0, positions, frames,
+           n);
+}
+
+// K2v3b.  Shared memory: the 16 rows of [q | k | v | g] (4C + 8 values),
+// then per warp two 16 x 16 tiles (ds, p) whose off-diagonal blocks stay
+// zero.  Per head: dp = g v^T (v3_pair_products), the saved p, D_t =
+// sum_s dp p over the quad, ds = p (dp - D); dv = p^T g and dk = ds^T q
+// with the transposes from the tiles by ldmatrix.trans, dq = ds k with ds
+// from registers; dv, dk and dq go over the head's consumed v, k and q
+// columns, and the CTA writes the 16 rows of 3C with 16-byte stores.
+__global__ void __launch_bounds__(V3_WARPS * 32)
+temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                           const __nv_bfloat16* __restrict__ probs,
+                           const __nv_bfloat16* __restrict__ g,
+                           __nv_bfloat16* __restrict__ dqkv, int frames, int n,
+                           int heads, int positions, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sm = reinterpret_cast<uint16_t*>(smem_raw);
+  const int c = heads * HEAD_DIM, c3 = 3 * c, rs = 4 * c + 8;
+  uint16_t* tiles = sm + (size_t)V3_ROWS * rs;
+  const int p0 = 2 * blockIdx.x;
+  v3_stage(sm, rs, 0, reinterpret_cast<const uint16_t*>(qkv), c3, p0,
+           positions, frames, n);
+  v3_stage(sm, rs, c3, reinterpret_cast<const uint16_t*>(g), c, p0, positions,
+           frames, n);
+  for (int idx = threadIdx.x; idx < V3_WARPS * 2 * V3_ROWS * V3_TS / 8;
+       idx += blockDim.x)
+    reinterpret_cast<uint4*>(tiles)[idx] = make_uint4(0u, 0u, 0u, 0u);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lrow = lane & 7, ltile = lane >> 3;
+  uint16_t* ds_t = tiles + warp * 2 * V3_ROWS * V3_TS;
+  uint16_t* p_t = ds_t + V3_ROWS * V3_TS;
+  const uint16_t* pg = reinterpret_cast<const uint16_t*>(probs);
+  // ldmatrix.trans address of this lane in a tile: its transpose as an A
+  // fragment
+  const int tt = ((ltile >> 1) * 8 + lrow) * V3_TS + (ltile & 1) * 8;
+  for (int h = warp; h < heads; h += V3_WARPS) {
+    float dpa[2], dpb[2];
+    v3_pair_products(sm, rs, c3 + h * HEAD_DIM, 2 * c + h * HEAD_DIM, dpa, dpb);
+    // the saved p of this thread's rows (frame lane/4 of both positions)
+    float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int P = p0 + u;
+      if (P >= positions || gid >= frames) continue;
+      const uint16_t* prow = pg + (((size_t)P * heads + h) * frames + gid) * frames;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (2 * tig + e >= frames) continue;
+        const float v = __uint_as_float((uint32_t)prow[2 * tig + e] << 16);
+        if (u) pb[e] = v; else pa[e] = v;
+      }
+    }
+    const float da = quad_sum(fmaf(dpa[0], pa[0], dpa[1] * pa[1]));
+    const float db = quad_sum(fmaf(dpb[0], pb[0], dpb[1] * pb[1]));
+    const uint32_t dsa = pack_bf16x2(pa[0] * (dpa[0] - da), pa[1] * (dpa[1] - da));
+    const uint32_t dsb = pack_bf16x2(pb[0] * (dpb[0] - db), pb[1] * (dpb[1] - db));
+    *reinterpret_cast<uint32_t*>(ds_t + gid * V3_TS + 2 * tig) = dsa;
+    *reinterpret_cast<uint32_t*>(ds_t + (8 + gid) * V3_TS + 8 + 2 * tig) = dsb;
+    *reinterpret_cast<uint32_t*>(p_t + gid * V3_TS + 2 * tig) = pack_bf16x2(pa[0], pa[1]);
+    *reinterpret_cast<uint32_t*>(p_t + (8 + gid) * V3_TS + 8 + 2 * tig) =
+        pack_bf16x2(pb[0], pb[1]);
+    __syncwarp();
+    float acc[8][4], dq[8][4];
+    uint32_t at[4];
+    // dv = p^T g over the consumed v columns
+    ldsm_x4_t(at, p_t + tt);
+    v3_blockdiag_product(at, sm, rs, c3 + h * HEAD_DIM, acc);
+    v3_store_rows(sm, rs, 2 * c + h * HEAD_DIM, acc, 1.f);
+    // dq = ds k (kept until q is consumed), dk = ds^T q over the k columns
+    const uint32_t a[4] = {dsa, 0u, 0u, dsb};
+    v3_blockdiag_product(a, sm, rs, c + h * HEAD_DIM, dq);
+    ldsm_x4_t(at, ds_t + tt);
+    v3_blockdiag_product(at, sm, rs, h * HEAD_DIM, acc);
+    v3_store_rows(sm, rs, c + h * HEAD_DIM, acc, scale);
+    v3_store_rows(sm, rs, h * HEAD_DIM, dq, scale);
+    __syncwarp();  // the tiles are rewritten for the next head
+  }
+  __syncthreads();
+  v3_write(reinterpret_cast<uint16_t*>(dqkv), c3, sm, rs, p0, positions,
+           frames, n);
+}
+
+template <bool SAVE_P>
+cudaError_t launch_v3(const void* qkv, void* out, void* probs, int batch,
+                      int frames, int n, int heads, float scale,
+                      cudaStream_t stream) {
+  const int positions = batch * n;
+  const size_t smem = (size_t)V3_ROWS * (3 * heads * HEAD_DIM + 8) * 2;
+  cudaError_t err = set_smem(temporal_v3_mma_kernel<SAVE_P>, smem);
+  if (err != cudaSuccess) return err;
+  temporal_v3_mma_kernel<SAVE_P><<<(positions + 1) / 2, V3_WARPS * 32, smem,
+                                   stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+      static_cast<__nv_bfloat16*>(probs), frames, n, heads, positions, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_v3_bwd(const void* qkv, const void* probs, const void* g,
+                          void* dqkv, int batch, int frames, int n, int heads,
+                          float scale, cudaStream_t stream) {
+  const int positions = batch * n;
+  const size_t smem = (size_t)V3_ROWS * (4 * heads * HEAD_DIM + 8) * 2 +
+                      (size_t)V3_WARPS * 2 * V3_ROWS * V3_TS * 2;
+  cudaError_t err = set_smem(temporal_v3_bwd_mma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  temporal_v3_bwd_mma_kernel<<<(positions + 1) / 2, V3_WARPS * 32, smem,
+                               stream>>>(
+      static_cast<const bf*>(qkv), static_cast<const bf*>(probs),
+      static_cast<const bf*>(g), static_cast<bf*>(dqkv), frames, n, heads,
+      positions, scale);
   return cudaGetLastError();
 }
 
@@ -369,10 +696,11 @@ extern "C" int temporal_attention_fwd(const void* qkv, void* out, int batch,
   if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(qkv, out, batch, frames, n, heads, scale, st);
+    return (int)launch<float, false>(qkv, out, nullptr, batch, frames, n,
+                                     heads, scale, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(qkv, out, batch, frames, n, heads, scale,
-                                      st);
+    return (int)launch<__nv_bfloat16, false>(qkv, out, nullptr, batch, frames,
+                                             n, heads, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -383,10 +711,49 @@ extern "C" int temporal_attention_bwd(const void* qkv, const void* g,
   if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd<float>(qkv, g, dqkv, batch, frames, n, heads, scale,
-                                  st);
+    return (int)launch_bwd<float, false>(qkv, g, nullptr, dqkv, batch, frames,
+                                         n, heads, scale, st);
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(qkv, g, dqkv, batch, frames, n,
-                                          heads, scale, st);
+    return (int)launch_bwd<__nv_bfloat16, false>(qkv, g, nullptr, dqkv, batch,
+                                                 frames, n, heads, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K2v3f: K2f that writes p [B, N, H, T, T] in the value dtype (probs null:
+// no store, the evaluation forward).  bf16 needs frames <= 8 (two positions
+// per 16-row tensor-core tile) and a 16 x (3C + 8) staging tile, 74 KB at
+// C = 768; fp32 runs K2f's scalar kernel with the store.
+extern "C" int temporal_attention_v3_fwd(const void* qkv, void* out,
+                                         void* probs, int batch, int frames,
+                                         int n, int heads, int dtype,
+                                         float scale, void* stream) {
+  if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)(probs ? launch<float, true>(qkv, out, probs, batch, frames, n,
+                                             heads, scale, st)
+                       : launch<float, false>(qkv, out, nullptr, batch, frames,
+                                              n, heads, scale, st));
+  if (dtype != 1 || frames > 8) return (int)cudaErrorInvalidValue;
+  return (int)(probs ? launch_v3<true>(qkv, out, probs, batch, frames, n,
+                                       heads, scale, st)
+                     : launch_v3<false>(qkv, out, nullptr, batch, frames, n,
+                                        heads, scale, st));
+}
+
+// K2v3b: dqkv [B, T, N, 3C] from qkv, K2v3f's probabilities and g
+// [B, T, N, C]; bf16 needs frames <= 8 (104 KB of shared memory at C = 768).
+extern "C" int temporal_attention_v3_bwd(const void* qkv, const void* probs,
+                                         const void* g, void* dqkv, int batch,
+                                         int frames, int n, int heads,
+                                         int dtype, float scale,
+                                         void* stream) {
+  if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_bwd<float, true>(qkv, g, probs, dqkv, batch, frames, n,
+                                        heads, scale, st);
+  if (dtype != 1 || frames > 8) return (int)cudaErrorInvalidValue;
+  return (int)launch_v3_bwd(qkv, probs, g, dqkv, batch, frames, n, heads,
+                            scale, st);
 }

@@ -69,8 +69,10 @@ def _head_kwargs(cfg) -> dict:
 
 
 def _build_timesformer(cfg) -> torch.nn.Module:
-    """TimeSformer-B (reference ``lib/models/vit.py:473-506``)."""
+    """TimeSformer-B (reference ``lib/models/vit.py:473-506``) on the
+    attention route the environment's knobs select, read here once."""
     from procedurevrl_torch.models.procedurevrl import ProcedureVRL
+    from procedurevrl_torch.ops.attention_route import AttentionRoute
 
     return ProcedureVRL(
         img_size=cfg.DATA.TRAIN_CROP_SIZE, patch_size=16, embed_dim=768,
@@ -78,7 +80,7 @@ def _build_timesformer(cfg) -> torch.nn.Module:
         num_frames=cfg.DATA.NUM_FRAMES,
         attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
         drop_path_rate=cfg.MODEL.DROP_PATH, remat=cfg.TPU.REMAT,
-        **_head_kwargs(cfg))
+        route=AttentionRoute.from_env(), **_head_kwargs(cfg))
 
 
 def _build_mvit(cfg) -> torch.nn.Module:

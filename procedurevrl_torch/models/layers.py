@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from procedurevrl_torch.ops.attention import mhsa, mhsa_cls, mhsa_temporal
+from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 from procedurevrl_torch.ops.common import (
     gelu_exact, layer_norm_fp32, quick_gelu, trunc_normal_init,
 )
@@ -69,13 +70,15 @@ class Attention(nn.Module):
     pass with a separate CLS stream (kernel K1), with ``time_axis`` the
     temporal pass over axis 1 of ``[B, T, N, C]`` (kernel K2), otherwise
     plain attention over axis 1 of ``[B, N, C]`` (``causal`` adds the
-    causal mask, as for the CLIP text tower)."""
+    causal mask, as for the CLIP text tower).  ``route`` picks the K1 and
+    K2 kernels (``ops/attention_route.py``)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 causal: bool = False):
+                 causal: bool = False, route: AttentionRoute = DEFAULT_ROUTE):
         super().__init__()
         self.num_heads = num_heads
         self.causal = causal
+        self.route = route
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
@@ -89,9 +92,9 @@ class Attention(nn.Module):
         args = (self.qkv.weight, self.qkv.bias, self.proj.weight,
                 self.proj.bias, self.num_heads)
         if cls_stream is not None:
-            return mhsa_cls(x, cls_stream, *args)
+            return mhsa_cls(x, cls_stream, *args, route=self.route)
         if time_axis:
-            return mhsa_temporal(x, *args)
+            return mhsa_temporal(x, *args, route=self.route)
         return mhsa(x, *args, key_padding_mask=key_padding_mask,
                     causal=self.causal)
 

@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from procedurevrl_torch.models.layers import (
     Attention, DropPath, LayerNormFp32, Linear, Mlp, init_linear,
 )
+from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 from procedurevrl_torch.ops.common import (
     interpolate_nearest_1d, interpolate_nearest_2d, trunc_normal_init,
 )
@@ -59,15 +60,16 @@ class DividedSTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0,
-                 norm_eps: float = 1e-6):
+                 norm_eps: float = 1e-6,
+                 route: AttentionRoute = DEFAULT_ROUTE):
         super().__init__()
         self.norm1 = LayerNormFp32(dim, eps=norm_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, route=route)
         self.norm2 = LayerNormFp32(dim, eps=norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
         self.drop_path = DropPath(drop_path_rate)
         self.temporal_norm1 = LayerNormFp32(dim, eps=norm_eps)
-        self.temporal_attn = Attention(dim, num_heads, qkv_bias)
+        self.temporal_attn = Attention(dim, num_heads, qkv_bias, route=route)
         self.temporal_fc = Linear(dim, dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
@@ -127,7 +129,8 @@ class TimeSformer(nn.Module):
     backward, attention kernels included (the JAX package keeps the
     attention outputs and probabilities across its remat; a selective
     policy is later work).  The masks are drawn before the block, so the
-    recomputation reapplies them."""
+    recomputation reapplies them.  ``route`` picks the attention kernels
+    (``ops/attention_route.py``)."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -135,7 +138,7 @@ class TimeSformer(nn.Module):
                  num_frames: int = 8,
                  attention_type: str = "divided_space_time",
                  drop_path_rate: float = 0.1, norm_eps: float = 1e-6,
-                 remat: bool = False):
+                 remat: bool = False, route: AttentionRoute = DEFAULT_ROUTE):
         super().__init__()
         if attention_type != "divided_space_time":
             raise NotImplementedError(
@@ -150,7 +153,8 @@ class TimeSformer(nn.Module):
         self.time_embed = nn.Parameter(torch.zeros(1, num_frames, embed_dim))
         self.blocks = nn.ModuleList([
             DividedSTBlock(embed_dim, num_heads, mlp_ratio, qkv_bias,
-                           drop_path_rate * i / max(depth - 1, 1), norm_eps)
+                           drop_path_rate * i / max(depth - 1, 1), norm_eps,
+                           route)
             for i in range(depth)
         ])
         self.norm = LayerNormFp32(embed_dim, eps=norm_eps)

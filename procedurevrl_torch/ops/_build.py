@@ -43,10 +43,16 @@ ENTRY_POINTS = {
                                         _F, _P],
         "spatial_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _P],
+        "spatial_attention_pipe_depth": [_I, _I, _I],
+        "spatial_attention_fwd_pipe": [_P] * 4 + [_I] * 5 + [_F, _P],
+        "spatial_attention_bwd_recompute": [_P] * 7 + [_I] * 4 + [_F, _P],
+        "spatial_attention_bwd_delta": [_P] * 9 + [_I] * 4 + [_F, _P],
     },
     "temporal_attention": {
         "temporal_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
         "temporal_attention_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "temporal_attention_v3_fwd": [_P] * 3 + [_I] * 5 + [_F, _P],
+        "temporal_attention_v3_bwd": [_P] * 4 + [_I] * 5 + [_F, _P],
     },
     "mvit_attention": {
         "mvit_attention_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],

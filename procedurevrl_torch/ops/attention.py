@@ -14,9 +14,11 @@ are cast to the activation dtype at each product, as the JAX package casts
   causal, the order transformer does not ask), so the port's ``mhsa`` is
   the plain path until K4 is ported.
 - ``mhsa_cls``: the spatial pass with the CLS as a separate stream, through
-  kernel K1 (``ops/spatial_attention.py``: K1f, or K1sp + K1b under grad).
+  kernel K1 (``ops/spatial_attention.py``: K1f, or K1sp + K1b under grad;
+  K1p, K1br and K1bd on the knob routes of ``ops/attention_route.py``).
 - ``mhsa_temporal``: the temporal pass on the ``[B, T, N, C]`` view,
-  through kernel K2 (``ops/temporal_attention.py``: K2f, + K2b under grad).
+  through kernel K2 (``ops/temporal_attention.py``: K2f, + K2b under grad;
+  K2v3f and K2v3b on ``TEMPORAL_BATCHED``).
 Both kernels use the clamp shift ``exp(min(s, 80))`` of the JAX package's
 Pallas kernels, which equals the row-max softmax while logits stay below 80.
 """
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
+from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor,
@@ -83,7 +86,8 @@ def mhsa(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: Optional[torch.Tensor],
 
 def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
              qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
-             proj_b: torch.Tensor, num_heads: int
+             proj_b: torch.Tensor, num_heads: int,
+             route: AttentionRoute = DEFAULT_ROUTE
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spatial self-attention with the CLS token as a separate stream.
 
@@ -93,15 +97,16 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
     qkv = _linear(x, qkv_w, qkv_b)
     qkv_c = _linear(cls_x, qkv_w, qkv_b)
     out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, num_heads,
-                                               d ** -0.5)
+                                               d ** -0.5, route)
     return _linear(out, proj_w, proj_b), _linear(out_c, proj_w, proj_b)
 
 
 def mhsa_temporal(x: torch.Tensor, qkv_w: torch.Tensor,
                   qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
-                  proj_b: torch.Tensor, num_heads: int) -> torch.Tensor:
+                  proj_b: torch.Tensor, num_heads: int,
+                  route: AttentionRoute = DEFAULT_ROUTE) -> torch.Tensor:
     """Self-attention over axis 1 of the time-major stream x [B, T, N, C]."""
     d = x.shape[-1] // num_heads
     qkv = _linear(x, qkv_w, qkv_b)  # [B, T, N, 3C], read in place by K2
-    out = k2.temporal_attention_autograd(qkv, num_heads, d ** -0.5)
+    out = k2.temporal_attention_autograd(qkv, num_heads, d ** -0.5, route)
     return _linear(out, proj_w, proj_b)

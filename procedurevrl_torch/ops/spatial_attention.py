@@ -3,12 +3,15 @@ as a separate stream (``csrc/spatial_attention.cu``).
 
 Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_attention.py``:
 ``_fwd_cls_qkv_kernel`` (K1f, the forward), ``_fwd_cls_qkv_kernel_sp``
-(K1sp, the forward under grad that also saves the probabilities) and
-``_bwd_cls_qkv_kernel_sp`` (K1b, the backward from them), the pieces of
-``flash_attention_cls_qkv`` on one device.  The JAX kernels take their qkv
-columns in a per-head-group window order that exists only for the TPU's
-128-lane tiles; the port keeps the standard ``[q | k | v]`` column order of
-the projection.
+(K1sp, the forward under grad that also saves the probabilities),
+``_bwd_cls_qkv_kernel_sp`` (K1b, the backward from them), ``_pipe_kernel``
+(K1p, the pipelined forward of ``SPATIAL_PIPE=1``), ``_bwd_cls_qkv_kernel``
+(K1br, the backward that recomputes the probabilities) and
+``_bwd_cls_qkv_kernel_sp_delta`` (K1bd, the saved-probability backward with
+delta_i = g_i . o_i, ``SPATIAL_DELTA=1``), the pieces of
+``flash_attention_cls_qkv``.  The JAX kernels take their qkv columns in a
+per-head-group window order that exists only for the TPU's 128-lane tiles;
+the port keeps the standard ``[q | k | v]`` column order of the projection.
 
 The saved probabilities are ``[BT, H, L, LS]`` in the value dtype: L = N + 1
 rows and columns in the order [patches; CLS], LS = L rounded up to 8 (rows
@@ -16,22 +19,30 @@ rows and columns in the order [patches; CLS], LS = L rounded up to 8 (rows
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`spatial_attention_autograd` is what
-the model calls: under grad it goes through :class:`SpatialAttention`
-(K1sp forward, K1b backward), otherwise straight to K1f.  Bounds, design
-and the H100 numbers: see the source note and ``PERF.md``.
+the model calls, on the route of ``ops/attention_route.py``: under grad
+through :class:`SpatialAttention` (K1sp + K1b, the default),
+:class:`SpatialAttentionDelta` (K1sp + K1bd) or
+:class:`SpatialAttentionRecompute` (K1f or K1p + K1br), otherwise straight
+to K1f or K1p.  Bounds, design and the H100 numbers: see the source note and
+``PERF.md``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
 
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 
 KERNEL = "spatial_attention_fwd"
 KERNEL_PROBS = "spatial_attention_fwd_probs"
 KERNEL_BWD = "spatial_attention_bwd"
+KERNEL_PIPE = "spatial_attention_fwd_pipe"
+KERNEL_BWD_RECOMPUTE = "spatial_attention_bwd_recompute"
+KERNEL_BWD_DELTA = "spatial_attention_bwd_delta"
 HEAD_DIM = 64
 MAX_LEN = 256  # n + 1 tokens per frame, forward
 MAX_BWD_LEN = 208  # n + 1 tokens per frame, backward (shared-memory tile)
@@ -92,31 +103,81 @@ def spatial_attention_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
     return out, out_c
 
 
-def spatial_attention_bwd_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                                probs: torch.Tensor, g: torch.Tensor,
-                                gc: torch.Tensor, num_heads: int, scale: float
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1b, the backward written out.
+def spatial_attention_pipe_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                 num_heads: int, scale: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1p, whose contract and numerics are K1f's
+    (the pipeline only reorders the copies)."""
+    return spatial_attention_plain(qkv, qkv_c, num_heads, scale)
 
-    From the saved probabilities p (value dtype) and the output gradients
-    g [BT, N, C], gc [BT, 1, C]: dv = p^T g; dp = g v^T in fp32;
-    ds = p (dp - rowsum(dp p)) in fp32, cast to the value dtype;
-    dq = scale ds k, dk = scale ds^T q; returns (dqkv [BT, N, 3C],
-    dqkv_c [BT, 1, 3C]) in ``[q | k | v]`` columns.  Like the kernel it is
-    the softmax jacobian, ignoring the clamp."""
+
+def _bwd_from_probs(qkv: torch.Tensor, qkv_c: torch.Tensor, p: torch.Tensor,
+                    g: torch.Tensor, gc: torch.Tensor, num_heads: int,
+                    scale: float, delta: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward written out from p [BT, H, L, L] (value dtype): dv =
+    p^T g; dp = g v^T in fp32; ds = p (dp - D) in fp32, cast to the value
+    dtype, with D the jacobian row sums rowsum(dp p) or the given delta
+    [BT, H, L, 1]; dq = scale ds k, dk = scale ds^T q.  Returns (dqkv
+    [BT, N, 3C], dqkv_c [BT, 1, 3C]) in ``[q | k | v]`` columns.  Like the
+    kernels it is the softmax jacobian, ignoring the clamp."""
     bt, n, c3 = qkv.shape
     L = n + 1
     dt = qkv.dtype
     q, k, v = (t.float() for t in _split_heads(qkv, qkv_c, num_heads))
     gf = torch.cat([g, gc], dim=1).view(bt, L, num_heads, -1).float()
-    p = probs[..., :L].float()  # [BT, H, L, L]
+    p = p.float()
     dv = torch.einsum("bhij,bihd->bjhd", p, gf)
     dp = torch.einsum("bihd,bjhd->bhij", gf, v)
-    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    d = (dp * p).sum(dim=-1, keepdim=True) if delta is None else delta
+    ds = (p * (dp - d)).to(dt).float()
     dq = torch.einsum("bhij,bjhd->bihd", ds, k) * scale
     dk = torch.einsum("bhij,bihd->bjhd", ds, q) * scale
     dx = torch.stack([dq, dk, dv], dim=2).to(dt).reshape(bt, L, c3)
     return dx[:, :n].contiguous(), dx[:, n:].contiguous()
+
+
+def spatial_attention_bwd_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                probs: torch.Tensor, g: torch.Tensor,
+                                gc: torch.Tensor, num_heads: int, scale: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1b: the backward from the saved
+    probabilities p (value dtype) and the output gradients g [BT, N, C],
+    gc [BT, 1, C], with D_i = rowsum(dp p) (see :func:`_bwd_from_probs`)."""
+    L = qkv.shape[1] + 1
+    return _bwd_from_probs(qkv, qkv_c, probs[..., :L], g, gc, num_heads, scale)
+
+
+def spatial_attention_bwd_recompute_plain(qkv: torch.Tensor,
+                                          qkv_c: torch.Tensor,
+                                          g: torch.Tensor, gc: torch.Tensor,
+                                          num_heads: int, scale: float
+                                          ) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Plain PyTorch version of K1br: K1b on the probabilities recomputed
+    as the forward computes them (fp32 logits and clamp softmax, cast to the
+    value dtype)."""
+    q, k, _ = _split_heads(qkv, qkv_c, num_heads)
+    return _bwd_from_probs(qkv, qkv_c, _probs(q, k, scale, qkv.dtype), g, gc,
+                           num_heads, scale)
+
+
+def spatial_attention_bwd_delta_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                      probs: torch.Tensor, out: torch.Tensor,
+                                      out_c: torch.Tensor, g: torch.Tensor,
+                                      gc: torch.Tensor, num_heads: int,
+                                      scale: float
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1bd: K1b with D_i replaced by
+    delta_i = sum_d g_id o_id in fp32, o the forward's outputs
+    out [BT, N, C], out_c [BT, 1, C] (JAX ``pallas_attention.py:1108-1111``)."""
+    bt, n, _ = qkv.shape
+    L = n + 1
+    gf = torch.cat([g, gc], dim=1).view(bt, L, num_heads, -1).float()
+    of = torch.cat([out, out_c], dim=1).view(bt, L, num_heads, -1).float()
+    delta = (gf * of).sum(dim=-1).transpose(1, 2)[..., None]  # [BT, H, L, 1]
+    return _bwd_from_probs(qkv, qkv_c, probs[..., :L], g, gc, num_heads,
+                           scale, delta)
 
 
 def _check(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int) -> None:
@@ -130,6 +191,24 @@ def _check(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int) -> None:
     if qkv.dtype != qkv_c.dtype or qkv.device != qkv_c.device:
         raise ValueError("spatial_attention: qkv and qkv_c differ in dtype "
                          "or device")
+
+
+def _check_rows(name: str, qkv: torch.Tensor, x: torch.Tensor,
+                x_c: torch.Tensor) -> None:
+    """x [BT, N, C], x_c [BT, 1, C] beside qkv [BT, N, 3C]."""
+    bt, n, c3 = qkv.shape
+    if x.shape != (bt, n, c3 // 3) or x_c.shape != (bt, 1, c3 // 3):
+        raise ValueError(f"{name}: {tuple(x.shape)} / {tuple(x_c.shape)} do "
+                         f"not fit qkv {tuple(qkv.shape)}")
+
+
+def _check_probs(name: str, qkv: torch.Tensor, probs: torch.Tensor,
+                 num_heads: int) -> None:
+    bt, n, _ = qkv.shape
+    L = n + 1
+    if probs.shape != (bt, num_heads, L, probs_stride(L)):
+        raise ValueError(f"{name}: probs {tuple(probs.shape)} is not "
+                         f"[{bt}, {num_heads}, {L}, {probs_stride(L)}]")
 
 
 def _check_kernel(tensors, num_heads: int, max_len: int) -> None:
@@ -190,6 +269,33 @@ def spatial_attention(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
     return out, out_c
 
 
+def pipe_depth(n: int, dtype: torch.dtype, nbuf: int) -> int:
+    """The ring depth K1p runs at N tokens per frame (+ CLS) for a
+    requested ``nbuf``: at least 1, at most what fits in shared memory (the
+    kernel's own rule, asked of the built library; needs the card)."""
+    return _build.load("spatial_attention").spatial_attention_pipe_depth(
+        n, _DTYPES[dtype], nbuf)
+
+
+def spatial_attention_pipe(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                           num_heads: int, scale: float, nbuf: int = 3
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1p: K1f's contract through persistent CTAs and a cp.async ring
+    that asks for ``nbuf`` stages (``SPATIAL_PIPE_NBUF``)."""
+    _check(qkv, qkv_c, num_heads)
+    if nbuf < 1:
+        raise ValueError(f"spatial_attention_pipe: nbuf {nbuf} < 1")
+    if qkv.device.type == "cpu":
+        return spatial_attention_pipe_plain(qkv, qkv_c, num_heads, scale)
+    _check_kernel((qkv, qkv_c), num_heads, MAX_LEN)
+    bt, n, _ = qkv.shape
+    out, out_c = _outputs(qkv)
+    _launch(KERNEL_PIPE, KERNEL_PIPE, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
+            out.data_ptr(), out_c.data_ptr(), bt, n, num_heads,
+            _DTYPES[qkv.dtype], int(nbuf), float(scale))
+    return out, out_c
+
+
 def spatial_attention_fwd_probs(qkv: torch.Tensor, qkv_c: torch.Tensor,
                                 num_heads: int, scale: float
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -217,19 +323,13 @@ def spatial_attention_bwd(qkv: torch.Tensor, qkv_c: torch.Tensor,
     probabilities and the output gradients g [BT, N, C], gc [BT, 1, C]
     (N + 1 <= 208 on the card)."""
     _check(qkv, qkv_c, num_heads)
-    bt, n, c3 = qkv.shape
-    L = n + 1
-    if probs.shape != (bt, num_heads, L, probs_stride(L)):
-        raise ValueError(f"spatial_attention_bwd: probs {tuple(probs.shape)} "
-                         f"is not [{bt}, {num_heads}, {L}, {probs_stride(L)}]")
-    if g.shape != (bt, n, c3 // 3) or gc.shape != (bt, 1, c3 // 3):
-        raise ValueError(f"spatial_attention_bwd: gradients {tuple(g.shape)} "
-                         f"/ {tuple(gc.shape)} do not fit qkv "
-                         f"{tuple(qkv.shape)}")
+    _check_probs("spatial_attention_bwd", qkv, probs, num_heads)
+    _check_rows("spatial_attention_bwd: gradients", qkv, g, gc)
     if qkv.device.type == "cpu":
         return spatial_attention_bwd_plain(qkv, qkv_c, probs, g, gc,
                                            num_heads, scale)
     _check_kernel((qkv, qkv_c, probs, g, gc), num_heads, MAX_BWD_LEN)
+    bt, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     dqkv_c = torch.empty_like(qkv_c)
     _launch(KERNEL_BWD, KERNEL_BWD, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
@@ -237,6 +337,67 @@ def spatial_attention_bwd(qkv: torch.Tensor, qkv_c: torch.Tensor,
             dqkv_c.data_ptr(), bt, n, num_heads, _DTYPES[qkv.dtype],
             float(scale))
     return dqkv, dqkv_c
+
+
+def spatial_attention_bwd_recompute(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                    g: torch.Tensor, gc: torch.Tensor,
+                                    num_heads: int, scale: float
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1br: K1b's outputs with the probabilities recomputed from qkv
+    (N + 1 <= 208 on the card)."""
+    _check(qkv, qkv_c, num_heads)
+    _check_rows("spatial_attention_bwd_recompute: gradients", qkv, g, gc)
+    if qkv.device.type == "cpu":
+        return spatial_attention_bwd_recompute_plain(qkv, qkv_c, g, gc,
+                                                     num_heads, scale)
+    _check_kernel((qkv, qkv_c, g, gc), num_heads, MAX_BWD_LEN)
+    bt, n, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    dqkv_c = torch.empty_like(qkv_c)
+    # the fp32 path keeps its recomputed rows in device memory
+    scratch = (torch.empty((bt, num_heads, n + 1, probs_stride(n + 1)),
+                           dtype=torch.float32, device=qkv.device)
+               if qkv.dtype == torch.float32 else None)
+    _launch(KERNEL_BWD_RECOMPUTE, KERNEL_BWD_RECOMPUTE, qkv, qkv.data_ptr(),
+            qkv_c.data_ptr(), g.data_ptr(), gc.data_ptr(), dqkv.data_ptr(),
+            dqkv_c.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            bt, n, num_heads, _DTYPES[qkv.dtype], float(scale))
+    return dqkv, dqkv_c
+
+
+def spatial_attention_bwd_delta(qkv: torch.Tensor, qkv_c: torch.Tensor,
+                                probs: torch.Tensor, out: torch.Tensor,
+                                out_c: torch.Tensor, g: torch.Tensor,
+                                gc: torch.Tensor, num_heads: int, scale: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1bd: K1b with delta_i = g_i . o_i from the forward's outputs
+    out [BT, N, C], out_c [BT, 1, C] (N + 1 <= 208 on the card)."""
+    _check(qkv, qkv_c, num_heads)
+    _check_probs("spatial_attention_bwd_delta", qkv, probs, num_heads)
+    _check_rows("spatial_attention_bwd_delta: outputs", qkv, out, out_c)
+    _check_rows("spatial_attention_bwd_delta: gradients", qkv, g, gc)
+    if qkv.device.type == "cpu":
+        return spatial_attention_bwd_delta_plain(qkv, qkv_c, probs, out, out_c,
+                                                 g, gc, num_heads, scale)
+    _check_kernel((qkv, qkv_c, probs, out, out_c, g, gc), num_heads,
+                  MAX_BWD_LEN)
+    bt, n, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    dqkv_c = torch.empty_like(qkv_c)
+    _launch(KERNEL_BWD_DELTA, KERNEL_BWD_DELTA, qkv, qkv.data_ptr(),
+            qkv_c.data_ptr(), probs.data_ptr(), out.data_ptr(),
+            out_c.data_ptr(), g.data_ptr(), gc.data_ptr(), dqkv.data_ptr(),
+            dqkv_c.data_ptr(), bt, n, num_heads, _DTYPES[qkv.dtype],
+            float(scale))
+    return dqkv, dqkv_c
+
+
+def _output_grads(qkv, qkv_c, g, gc):
+    """The incoming gradients, zeros for an unused output, contiguous."""
+    g = torch.zeros_like(qkv[..., :qkv.shape[-1] // 3]) if g is None else g
+    gc = (torch.zeros_like(qkv_c[..., :qkv_c.shape[-1] // 3]) if gc is None
+          else gc)
+    return g.contiguous(), gc.contiguous()
 
 
 class SpatialAttention(torch.autograd.Function):
@@ -254,21 +415,86 @@ class SpatialAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, gc):
         qkv, qkv_c, probs = ctx.saved_tensors
-        g = torch.zeros_like(qkv[..., :qkv.shape[-1] // 3]) if g is None else g
-        gc = (torch.zeros_like(qkv_c[..., :qkv_c.shape[-1] // 3]) if gc is None
-              else gc)
         dqkv, dqkv_c = spatial_attention_bwd(
-            qkv, qkv_c, probs, g.contiguous(), gc.contiguous(), ctx.num_heads,
-            ctx.scale)
+            qkv, qkv_c, probs, *_output_grads(qkv, qkv_c, g, gc),
+            ctx.num_heads, ctx.scale)
         return dqkv, dqkv_c, None, None
 
 
+class SpatialAttentionDelta(torch.autograd.Function):
+    """K1 under autograd on ``SPATIAL_DELTA=1``: K1sp forward (saves qkv,
+    qkv_c, the probabilities and its outputs), K1bd backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float):
+        out, out_c, probs = spatial_attention_fwd_probs(qkv, qkv_c, num_heads,
+                                                        scale)
+        ctx.save_for_backward(qkv, qkv_c, probs, out, out_c)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out, out_c
+
+    @staticmethod
+    def backward(ctx, g, gc):
+        qkv, qkv_c, probs, out, out_c = ctx.saved_tensors
+        dqkv, dqkv_c = spatial_attention_bwd_delta(
+            qkv, qkv_c, probs, out, out_c, *_output_grads(qkv, qkv_c, g, gc),
+            ctx.num_heads, ctx.scale)
+        return dqkv, dqkv_c, None, None
+
+
+class SpatialAttentionRecompute(torch.autograd.Function):
+    """K1 under autograd on ``SPATIAL_SAVE_PROBS=0``: the forward K1f, or
+    K1p when ``nbuf`` is given (``SPATIAL_PIPE=1``), saves qkv and qkv_c
+    only; the backward K1br recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
+                nbuf: Optional[int]):
+        out, out_c = (spatial_attention(qkv, qkv_c, num_heads, scale)
+                      if nbuf is None else
+                      spatial_attention_pipe(qkv, qkv_c, num_heads, scale,
+                                             nbuf))
+        ctx.save_for_backward(qkv, qkv_c)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out, out_c
+
+    @staticmethod
+    def backward(ctx, g, gc):
+        qkv, qkv_c = ctx.saved_tensors
+        dqkv, dqkv_c = spatial_attention_bwd_recompute(
+            qkv, qkv_c, *_output_grads(qkv, qkv_c, g, gc), ctx.num_heads,
+            ctx.scale)
+        return dqkv, dqkv_c, None, None, None
+
+
+_warned_pipe_vs_saveprobs = False
+
+
 def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                               num_heads: int, scale: float
+                               num_heads: int, scale: float,
+                               route: AttentionRoute = DEFAULT_ROUTE
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The model's entry: :class:`SpatialAttention` (K1sp + K1b) when grad
-    is enabled and an input requires it, else :func:`spatial_attention`
-    (K1f), so evaluation runs the forward-only kernel."""
-    if torch.is_grad_enabled() and (qkv.requires_grad or qkv_c.requires_grad):
+    """The model's entry, routed as JAX ``_facq_fwd`` / ``_facq_bwd``
+    (``pallas_attention.py:1190-1234``, one device).  Under grad (an input
+    requires it): with ``route.save_probs`` K1sp and K1b, or K1bd with
+    ``route.delta``; without, K1f (K1p with ``route.pipe``) and K1br.  No
+    grad: K1f, or K1p with ``route.pipe``.  ``save_probs`` with ``pipe``
+    under grad takes K1sp and warns once, as JAX does."""
+    global _warned_pipe_vs_saveprobs
+    if not (torch.is_grad_enabled()
+            and (qkv.requires_grad or qkv_c.requires_grad)):
+        if route.pipe:
+            return spatial_attention_pipe(qkv, qkv_c, num_heads, scale,
+                                          route.pipe_nbuf)
+        return spatial_attention(qkv, qkv_c, num_heads, scale)
+    if route.save_probs:
+        if route.pipe and not _warned_pipe_vs_saveprobs:
+            warnings.warn("SPATIAL_SAVE_PROBS=1 takes precedence over "
+                          "SPATIAL_PIPE=1 on differentiated forwards; the "
+                          "pipelined kernel K1p runs only without grad")
+            _warned_pipe_vs_saveprobs = True
+        if route.delta:
+            return SpatialAttentionDelta.apply(qkv, qkv_c, num_heads, scale)
         return SpatialAttention.apply(qkv, qkv_c, num_heads, scale)
-    return spatial_attention(qkv, qkv_c, num_heads, scale)
+    return SpatialAttentionRecompute.apply(
+        qkv, qkv_c, num_heads, scale, route.pipe_nbuf if route.pipe else None)

@@ -3,30 +3,40 @@ from the time-major stream (``csrc/temporal_attention.cu``).
 
 Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_attention.py``:
 ``_temporal_fwd_kernel`` (K2f, the forward of ``flash_attention_temporal``)
-and ``_temporal_bwd_kernel`` (K2b, its backward).  The JAX forward also
-writes "compact" probabilities laid out for the TPU's matrix unit, which
-only its backward reads.  Here the forward writes none: the backward
-recomputes them from q and k with the forward's own device function (they
-are 8 x 8 per position and head), so K2f is the same kernel in evaluation
-and training.
+and ``_temporal_bwd_kernel`` (K2b, its backward), and on
+``TEMPORAL_BATCHED=1`` ``_temporal_fwd_kernel_v3`` (K2v3f) and
+``_temporal_bwd_kernel_v3`` (K2v3b).  The JAX forwards also write "compact"
+probabilities laid out for the TPU's matrix unit, which only their
+backwards read.  K2f writes none: K2b recomputes them from q and k with the
+forward's own device function (they are 8 x 8 per position and head), so
+K2f is the same kernel in evaluation and training.  The v3 pair keeps the
+TPU's residual: K2v3f writes p ``[B, N, H, T, T]`` in the value dtype under
+grad (and nothing in evaluation), and K2v3b reads it.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`temporal_attention_autograd` is what
 the model calls: under grad it goes through :class:`TemporalAttention` (K2f
-forward, K2b backward).  Bounds, design and the H100 numbers: see the
-source note and ``PERF.md``.
+forward, K2b backward), or :class:`TemporalAttentionV3` on the batched
+route.  Bounds, design and the H100 numbers: see the source note and
+``PERF.md``.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 
 KERNEL = "temporal_attention_fwd"
 KERNEL_BWD = "temporal_attention_bwd"
+KERNEL_V3 = "temporal_attention_v3_fwd"
+KERNEL_V3_BWD = "temporal_attention_v3_bwd"
 HEAD_DIM = 64
 MAX_T = 16
+MAX_T_V3_BF16 = 8  # two positions per 16-row tensor-core tile
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,33 +56,43 @@ def _probs(q: torch.Tensor, k: torch.Tensor, scale: float,
     return (p / p.sum(dim=-1, keepdim=True)).to(dtype)
 
 
-def temporal_attention_plain(qkv: torch.Tensor, num_heads: int,
-                             scale: float) -> torch.Tensor:
-    """Plain PyTorch version of K2f (same arithmetic).
+def temporal_attention_v3_fwd_plain(qkv: torch.Tensor, num_heads: int,
+                                    scale: float
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2v3f (K2f's arithmetic).
 
-    qkv [B, T, N, 3C] -> [B, T, N, C]: for every (b, n, head) the T queries
-    attend over the T keys; logits and softmax in fp32 with the clamp
-    shift, probabilities cast to the value dtype before the
-    fp32-accumulated PV product."""
+    qkv [B, T, N, 3C] -> (out [B, T, N, C], p [B, N, H, T, T]): for every
+    (b, n, head) the T queries attend over the T keys; logits and softmax
+    in fp32 with the clamp shift, probabilities cast to the value dtype
+    before the fp32-accumulated PV product."""
     b, t, n, c3 = qkv.shape
     q, k, v = _split(qkv, num_heads)
     p = _probs(q, k, scale, v.dtype)
     o = torch.einsum("bnhts,bsnhd->btnhd", p.float(), v.float())
-    return o.to(qkv.dtype).reshape(b, t, n, c3 // 3)
+    return o.to(qkv.dtype).reshape(b, t, n, c3 // 3), p.contiguous()
 
 
-def temporal_attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
-                                 num_heads: int, scale: float) -> torch.Tensor:
-    """Plain PyTorch version of K2b, the backward written out.
+def temporal_attention_plain(qkv: torch.Tensor, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K2f: the output of
+    :func:`temporal_attention_v3_fwd_plain`."""
+    return temporal_attention_v3_fwd_plain(qkv, num_heads, scale)[0]
 
-    qkv [B, T, N, 3C], g [B, T, N, C] -> dqkv [B, T, N, 3C]: p recomputed as
-    the forward computes it; dp = g v^T in fp32; ds = p (dp - rowsum(dp p))
-    cast to the value dtype; dq = scale ds k, dk = scale ds^T q, dv = p^T g.
-    Like the kernel it is the softmax jacobian, ignoring the clamp."""
+
+def temporal_attention_v3_bwd_plain(qkv: torch.Tensor, probs: torch.Tensor,
+                                    g: torch.Tensor, num_heads: int,
+                                    scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K2v3b, the backward written out from the
+    saved p [B, N, H, T(query), T(key)] (value dtype).
+
+    qkv [B, T, N, 3C], g [B, T, N, C] -> dqkv [B, T, N, 3C]: dp = g v^T in
+    fp32; ds = p (dp - rowsum(dp p)) cast to the value dtype;
+    dq = scale ds k, dk = scale ds^T q, dv = p^T g.  Like the kernel it is
+    the softmax jacobian, ignoring the clamp."""
     b, t, n, c3 = qkv.shape
     dt = qkv.dtype
     q, k, v = _split(qkv, num_heads)
-    p = _probs(q, k, scale, dt).float()  # [B, N, H, T(query), T(key)]
+    p = probs.float()
     gf = g.view(b, t, n, num_heads, -1).float()
     dp = torch.einsum("btnhd,bsnhd->bnhts", gf, v.float())
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
@@ -80,6 +100,15 @@ def temporal_attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
     dk = torch.einsum("bnhts,btnhd->bsnhd", ds, q.float()) * scale
     dv = torch.einsum("bnhts,btnhd->bsnhd", p, gf)
     return torch.stack([dq, dk, dv], dim=3).to(dt).reshape(b, t, n, c3)
+
+
+def temporal_attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
+                                 num_heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K2b: K2v3b's backward on p recomputed as
+    the forward computes it."""
+    q, k, _ = _split(qkv, num_heads)
+    return temporal_attention_v3_bwd_plain(
+        qkv, _probs(q, k, scale, qkv.dtype), g, num_heads, scale)
 
 
 def _check(qkv: torch.Tensor, num_heads: int) -> None:
@@ -152,6 +181,58 @@ def temporal_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     return dqkv
 
 
+def temporal_attention_v3(qkv: torch.Tensor, num_heads: int, scale: float,
+                          save_probs: bool = True
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2v3f: (out [B, T, N, C], p [B, N, H, T, T] or None without
+    ``save_probs``) from qkv [B, T, N, 3C] (float32 with T <= 16, or
+    bfloat16 with T <= 8; contiguous, head dim 64)."""
+    _check(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        out, p = temporal_attention_v3_fwd_plain(qkv, num_heads, scale)
+        return out, p if save_probs else None
+    _check_kernel((qkv,), num_heads)
+    b, t, n, c3 = qkv.shape
+    if qkv.dtype == torch.bfloat16 and t > MAX_T_V3_BF16:
+        raise ValueError(f"temporal_attention_v3: bf16 kernel needs T <= "
+                         f"{MAX_T_V3_BF16}")
+    out = torch.empty((b, t, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    probs = (torch.empty((b, n, num_heads, t, t), dtype=qkv.dtype,
+                         device=qkv.device) if save_probs else None)
+    _launch(KERNEL_V3, qkv, qkv.data_ptr(), out.data_ptr(),
+            None if probs is None else probs.data_ptr(), b, t, n, num_heads,
+            _DTYPES[qkv.dtype], float(scale))
+    return out, probs
+
+
+def temporal_attention_v3_bwd(qkv: torch.Tensor, probs: torch.Tensor,
+                              g: torch.Tensor, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """K2v3b: dqkv [B, T, N, 3C] from qkv, K2v3f's p [B, N, H, T, T] and
+    the output gradient g [B, T, N, C]."""
+    _check(qkv, num_heads)
+    b, t, n, c3 = qkv.shape
+    if g.shape != (b, t, n, c3 // 3):
+        raise ValueError(f"temporal_attention_v3_bwd: gradient "
+                         f"{tuple(g.shape)} does not fit qkv "
+                         f"{tuple(qkv.shape)}")
+    if probs.shape != (b, n, num_heads, t, t):
+        raise ValueError(f"temporal_attention_v3_bwd: probs "
+                         f"{tuple(probs.shape)} is not "
+                         f"[{b}, {n}, {num_heads}, {t}, {t}]")
+    if qkv.device.type == "cpu":
+        return temporal_attention_v3_bwd_plain(qkv, probs, g, num_heads, scale)
+    _check_kernel((qkv, probs, g), num_heads)
+    if qkv.dtype == torch.bfloat16 and t > MAX_T_V3_BF16:
+        raise ValueError(f"temporal_attention_v3_bwd: bf16 kernel needs T <= "
+                         f"{MAX_T_V3_BF16}")
+    dqkv = torch.empty_like(qkv)
+    _launch(KERNEL_V3_BWD, qkv, qkv.data_ptr(), probs.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), b, t, n, num_heads,
+            _DTYPES[qkv.dtype], float(scale))
+    return dqkv
+
+
 class TemporalAttention(torch.autograd.Function):
     """K2 under autograd: K2f forward (saves qkv), K2b backward."""
 
@@ -168,10 +249,39 @@ class TemporalAttention(torch.autograd.Function):
                                        ctx.scale), None, None)
 
 
+class TemporalAttentionV3(torch.autograd.Function):
+    """K2 under autograd on ``TEMPORAL_BATCHED=1``: K2v3f forward (saves qkv
+    and p), K2v3b backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        out, probs = temporal_attention_v3(qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, probs)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, probs = ctx.saved_tensors
+        return (temporal_attention_v3_bwd(qkv, probs, g.contiguous(),
+                                          ctx.num_heads, ctx.scale),
+                None, None)
+
+
 def temporal_attention_autograd(qkv: torch.Tensor, num_heads: int,
-                                scale: float) -> torch.Tensor:
-    """The model's entry: :class:`TemporalAttention` when grad is enabled
-    and qkv requires it, else :func:`temporal_attention`."""
-    if torch.is_grad_enabled() and qkv.requires_grad:
+                                scale: float,
+                                route: AttentionRoute = DEFAULT_ROUTE
+                                ) -> torch.Tensor:
+    """The model's entry: when grad is enabled and qkv requires it,
+    :class:`TemporalAttention` (K2f + K2b), or :class:`TemporalAttentionV3`
+    (K2v3f + K2v3b) with ``route.temporal_batched``; otherwise K2f, or
+    K2v3f without its store (JAX takes the v3 forward for the primal too)."""
+    grad = torch.is_grad_enabled() and qkv.requires_grad
+    if route.temporal_batched:
+        if grad:
+            return TemporalAttentionV3.apply(qkv, num_heads, scale)
+        return temporal_attention_v3(qkv, num_heads, scale,
+                                     save_probs=False)[0]
+    if grad:
         return TemporalAttention.apply(qkv, num_heads, scale)
     return temporal_attention(qkv, num_heads, scale)

@@ -1,6 +1,7 @@
 """Show that ``chip_smoke.py``'s limits reject kernels with planted faults:
-K5f/K6f and K7f missing key columns, K8f missing a halo plane and K8dw
-missing a batch.
+K5f/K6f and K7f missing key columns, K8f missing a halo plane, K8dw
+missing a batch, K1br and K1p without the CLS key, K1bd with delta forced
+to 0 and K2v3f without the last key frame.
 
     python -m procedurevrl_torch.tools.mutation_check
 
@@ -15,9 +16,15 @@ K5f at block 0 (B 18, qN 25088, kN 392) and K6f at block 1 (B*H 36, qN
 ``ROWSUM_TOL``, each of which must reject; K7f at blocks 1 and 3 (kN 1568,
 so the last key tile is ragged), out against ``MVIT_FWD_TOL`` and lse
 against ``LSE_TOL``; K8f at blocks 0 and 4 against ``POOL_TOL``; K8dw at
-blocks 0 and 4 against the fp32 limit scaled by the largest gradient.  For
-K7 and K8 the mutant counts as rejected at a shape when the check of that
-shape fails, as ``chip_smoke.py`` then fails.  Exits non-zero unless the
+blocks 0 and 4 against the fp32 limit scaled by the largest gradient; K1br,
+K1bd and K1p at the TimeSformer-B training and eval shapes (BT 144 and 128,
+N 196, 12 heads), the gradients against the bf16 limit scaled by the
+largest gradient and K1p against ``K1K2_FWD_TOL``, with K1br held bit for
+bit against K1b on K1sp's probabilities and K1p against K1f, as
+``chip_smoke.py`` holds them; K2v3f at the training and eval shapes (B 18
+and 16, T 8, N 196), out and p against ``K1K2_FWD_TOL``.  For K7, K8, K1
+and K2 the mutant counts as rejected at a shape when a check of that shape
+fails, as ``chip_smoke.py`` then fails.  Exits non-zero unless the
 limits reject every mutant at both shapes.  Needs a CUDA card; the
 repository's own sources are not modified.
 """
@@ -42,6 +49,12 @@ _KT_TILES = "for (int j0 = 0; j0 < kcols; j0 += BN) {"
 # K8f's bounds check of the input plane t + dt - 1, and K8dw's last position
 _POOL_PLANE = "if (ti < 0 || ti > g.t - 1) continue;"
 _DW_END = "min(p0 + per_block, g.npos)"
+# K1br's recomputed probability tile, K1p's ring slot, K1bd's delta rows and
+# K2v3f's key mask
+_BR_TILE = "softmax_tile<LP>(q_s, k_s, mt, L, scale, e, i0, i1);"
+_PIPE_SLOT = "const uint16_t* q_s = reinterpret_cast<const uint16_t*>(slot);"
+_DELTA = "if (half) d1 = acc; else d0 = acc;"
+_V3_KEYS = "const bool key = 2 * tig + e < frames;"
 
 
 @dataclass(frozen=True)
@@ -76,14 +89,38 @@ MUTANTS = {
     "K8dw last batch dropped": Mutant(
         "depthwise_pool.cu", _DW_END,
         "min(p0 + per_block, g.npos - g.npos / g.b)", "pool_dw"),
+    # keys < L - 1: the CLS key (row n of the tile) leaves the softmax
+    "K1br cls key left out of the recomputed tile": Mutant(
+        "spatial_attention.cu", _BR_TILE,
+        "softmax_tile<LP>(q_s, k_s, mt, L - 1, scale, e, i0, i1);", "k1br"),
+    # the CLS key's rows of the staged k and v tiles zeroed before the item
+    # computes
+    "K1p cls key left out": Mutant(
+        "spatial_attention.cu", _PIPE_SLOT,
+        _PIPE_SLOT + " __syncthreads(); if (threadIdx.x < 16) "
+        "reinterpret_cast<uint4*>(const_cast<uint16_t*>(q_s) + "
+        "((threadIdx.x < 8 ? LP : 2 * LP) + n) * MMA_STRIDE)[threadIdx.x % 8]"
+        " = make_uint4(0u, 0u, 0u, 0u); __syncthreads();", "k1p"),
+    "K1bd delta forced to 0": Mutant(
+        "spatial_attention.cu", _DELTA, "if (half) d1 = 0.f; else d0 = 0.f;",
+        "k1bd"),
+    "K2v3f last key frame left out": Mutant(
+        "temporal_attention.cu", _V3_KEYS,
+        "const bool key = 2 * tig + e < frames - 1;", "k2v3"),
 }
 
 
-def _judge(cs, torch, label, pairs, need_all: bool) -> bool:
+def _judge(cs, torch, label, pairs, need_all: bool, twins=()) -> bool:
     """Compare each (name, got, want, limit) with its limit and with
-    ``BF16_TOL``; returns whether the limits reject the mutant at this
-    shape (every limit if ``need_all``, else any)."""
+    ``BF16_TOL``, and each (name, got tensors, twin tensors) bit for bit;
+    returns whether the checks reject the mutant at this shape (every
+    limit if ``need_all``, else any check)."""
     caught = []
+    for name, got, twin in twins:
+        hit = not all(torch.equal(a, b) for a, b in zip(got, twin))
+        print(f"  mutant {label} {name} (bit for bit): "
+              f"{'rejected' if hit else 'let through'}")
+        caught.append(hit)
     for name, got, want, strict in pairs:
         for limit, tol in (("strict", strict), ("bf16", cs.BF16_TOL)):
             try:
@@ -161,8 +198,82 @@ def _check_pool_dw(cs, torch, gen):
              cs.grad_tol(cs.FP32_TOL, ref))], False)
 
 
+K1_SHAPES = (("training", 144), ("eval", 128))
+
+
+def _check_k1br(cs, torch, gen):
+    from procedurevrl_torch.ops import spatial_attention as k1
+
+    for label, bt in K1_SHAPES:
+        x = cs.k1_inputs(torch, gen, bt, 196, 12, torch.bfloat16)
+        got = k1.spatial_attention_bwd_recompute(*x, 12, 0.125)
+        want = k1.spatial_attention_bwd_recompute_plain(*x, 12, 0.125)
+        _, _, probs = k1.spatial_attention_fwd_probs(*x[:2], 12, 0.125)
+        twin = k1.spatial_attention_bwd(*x[:2], probs, *x[2:], 12, 0.125)
+        print(f"{label}: |dqkv| max {want[0].float().abs().max().item():.3e}")
+        yield _judge(cs, torch, label,
+                     [(name, a, r, cs.grad_tol(cs.BF16_TOL, r))
+                      for name, a, r in zip(("dqkv", "dqkv_c"), got, want)],
+                     False, [("against K1b(K1sp probs)", got, twin)])
+
+
+def _check_k1bd(cs, torch, gen):
+    from procedurevrl_torch.ops import spatial_attention as k1
+
+    for label, bt in K1_SHAPES:
+        x = cs.k1_inputs(torch, gen, bt, 196, 12, torch.bfloat16)
+        out, out_c, probs = k1.spatial_attention_fwd_probs(*x[:2], 12, 0.125)
+        args = (*x[:2], probs, out, out_c, *x[2:], 12, 0.125)
+        got = k1.spatial_attention_bwd_delta(*args)
+        want = k1.spatial_attention_bwd_delta_plain(*args)
+        print(f"{label}: |dqkv| max {want[0].float().abs().max().item():.3e}")
+        yield _judge(cs, torch, label,
+                     [(name, a, r, cs.grad_tol(cs.BF16_TOL, r))
+                      for name, a, r in zip(("dqkv", "dqkv_c"), got, want)],
+                     False)
+
+
+def _check_k1p(cs, torch, gen):
+    from procedurevrl_torch.ops import spatial_attention as k1
+
+    for label, bt in K1_SHAPES:
+        qkv, qkv_c, _, _ = cs.k1_inputs(torch, gen, bt, 196, 12,
+                                        torch.bfloat16, sd=0.5)
+        got = k1.spatial_attention_pipe(qkv, qkv_c, 12, 0.125)
+        want = k1.spatial_attention_pipe_plain(qkv, qkv_c, 12, 0.125)
+        twin = k1.spatial_attention(qkv, qkv_c, 12, 0.125)
+        print(f"{label}: |out| mean {want[0].float().abs().mean().item():.3e}")
+        yield _judge(cs, torch, label,
+                     [(name, a, r, cs.K1K2_FWD_TOL)
+                      for name, a, r in zip(("frames", "cls"), got, want)],
+                     False, [("against K1f", got, twin)])
+
+
+def _check_k2v3(cs, torch, gen):
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    for label, b in (("training", 18), ("eval", 16)):
+        qkv = torch.randn(b, 8, 196, 3 * 768, generator=gen,
+                          device="cuda").bfloat16()
+        got = k2.temporal_attention_v3(qkv, 12, 0.125)
+        want = k2.temporal_attention_v3_fwd_plain(qkv, 12, 0.125)
+        print(f"{label}: |out| mean {want[0].float().abs().mean().item():.3e}")
+        yield _judge(cs, torch, label,
+                     [("out", got[0], want[0], cs.BF16_TOL),
+                      ("probs", got[1], want[1], cs.K1K2_FWD_TOL),
+                      ("out vs P V of its probs", got[0],
+                       cs.v3_pv(torch, qkv, got[1], 12), cs.K1K2_FWD_TOL)],
+                     False)
+
+
 CHECKS = {"mvit": _check_mvit, "kt": _check_kt, "pool": _check_pool,
-          "pool_dw": _check_pool_dw}
+          "pool_dw": _check_pool_dw, "k1br": _check_k1br, "k1bd": _check_k1bd,
+          "k1p": _check_k1p, "k2v3": _check_k2v3}
+# the sources each check builds
+SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
+           "pool": "depthwise_pool", "pool_dw": "depthwise_pool",
+           "k1br": "spatial_attention", "k1bd": "spatial_attention",
+           "k1p": "spatial_attention", "k2v3": "temporal_attention"}
 
 
 def check_copy(check: str) -> int:
@@ -176,7 +287,7 @@ def check_copy(check: str) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("mutation_check: needs a CUDA device")
-    _build.build(["mvit_attention", "depthwise_pool"])
+    _build.build([SOURCES[check]])
     gen = torch.Generator(device="cuda").manual_seed(5)
     return sum(not caught for caught in CHECKS[check](cs, torch, gen))
 
@@ -185,11 +296,15 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--in-copy", choices=sorted(CHECKS),
                         help=argparse.SUPPRESS)
-    check = parser.parse_args(argv).in_copy
-    if check:
-        return 1 if check_copy(check) else 0
+    parser.add_argument("--only", nargs="+", choices=sorted(CHECKS),
+                        help="run only the mutants of these checks")
+    args = parser.parse_args(argv)
+    if args.in_copy:
+        return 1 if check_copy(args.in_copy) else 0
+    mutants = {name: m for name, m in MUTANTS.items()
+               if args.only is None or m.check in args.only}
     failed = []
-    for name, m in MUTANTS.items():
+    for name, m in mutants.items():
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(ROOT / "procedurevrl_torch",
                             Path(tmp) / "procedurevrl_torch",
@@ -207,7 +322,7 @@ def main(argv=None) -> int:
                                  "--in-copy", m.check], cwd=tmp).returncode
         if rc:
             failed.append(name)
-    print(f"mutation_check: {len(MUTANTS) - len(failed)} of {len(MUTANTS)} "
+    print(f"mutation_check: {len(mutants) - len(failed)} of {len(mutants)} "
           f"mutants rejected at both shapes"
           + (f"; let through: {failed}" if failed else ""))
     return 1 if failed else 0

@@ -169,6 +169,104 @@ def test_temporal_autograd_runs_both_kernels(card):
     _close(qkv.grad, ref, torch.float32, scaled=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [196, 49, 207])
+def test_spatial_recompute_and_delta_bwd_match_plain(card, dtype, n):
+    qkv, qkv_c, g, gc = _spatial_inputs(card, dtype, n, seed=4)
+    out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, 4, 0.125)
+    counts = {k: _build.LAUNCHES.get(k, 0)
+              for k in (k1.KERNEL_BWD_RECOMPUTE, k1.KERNEL_BWD_DELTA)}
+    dx, dx_c = k1.spatial_attention_bwd_recompute(qkv, qkv_c, g, gc, 4, 0.125)
+    ref, ref_c = k1.spatial_attention_bwd_recompute_plain(qkv, qkv_c, g, gc, 4,
+                                                          0.125)
+    _close(dx, ref, dtype, scaled=True)
+    _close(dx_c, ref_c, dtype, scaled=True)
+    if dtype == torch.bfloat16:  # K1br's p is K1sp's: K1b's result exactly
+        db, db_c = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, 4, 0.125)
+        assert torch.equal(dx, db) and torch.equal(dx_c, db_c)
+    dd, dd_c = k1.spatial_attention_bwd_delta(qkv, qkv_c, probs, out, out_c, g,
+                                              gc, 4, 0.125)
+    ref, ref_c = k1.spatial_attention_bwd_delta_plain(qkv, qkv_c, probs, out,
+                                                      out_c, g, gc, 4, 0.125)
+    _close(dd, ref, dtype, scaled=True)
+    _close(dd_c, ref_c, dtype, scaled=True)
+    for k, n0 in counts.items():
+        assert _build.LAUNCHES[k] == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [196, 49, 220])
+@pytest.mark.parametrize("nbuf", [1, 3, 8])
+def test_spatial_pipe_equals_the_forward(card, dtype, n, nbuf):
+    qkv, qkv_c, _, _ = _spatial_inputs(card, dtype, n, bt=40, seed=5)
+    before = _build.LAUNCHES.get(k1.KERNEL_PIPE, 0)
+    out, out_c = k1.spatial_attention_pipe(qkv, qkv_c, 4, 0.125, nbuf)
+    assert _build.LAUNCHES[k1.KERNEL_PIPE] == before + 1
+    assert 1 <= k1.pipe_depth(n, dtype, nbuf) <= nbuf
+    ref, ref_c = k1.spatial_attention(qkv, qkv_c, 4, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(out_c, ref_c)
+    ref, ref_c = k1.spatial_attention_pipe_plain(qkv, qkv_c, 4, 0.125)
+    _close(out, ref, dtype)
+    _close(out_c, ref_c, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [8, 3, 1])
+def test_temporal_v3_kernels_match_plain(card, dtype, t):
+    gen = torch.Generator(device=card).manual_seed(20 + t)
+    qkv = torch.randn(3, t, 49, 3 * 256, generator=gen, device=card).to(dtype)
+    g = torch.randn(3, t, 49, 256, generator=gen, device=card).to(dtype)
+    counts = {k: _build.LAUNCHES.get(k, 0) for k in (k2.KERNEL_V3,
+                                                     k2.KERNEL_V3_BWD)}
+    out, probs = k2.temporal_attention_v3(qkv, 4, 0.125)
+    ref, ref_p = k2.temporal_attention_v3_fwd_plain(qkv, 4, 0.125)
+    _close(out, ref, dtype)
+    _close(probs, ref_p, dtype)
+    same, none = k2.temporal_attention_v3(qkv, 4, 0.125, save_probs=False)
+    assert none is None and torch.equal(same, out)
+    dx = k2.temporal_attention_v3_bwd(qkv, probs, g, 4, 0.125)
+    _close(dx, k2.temporal_attention_v3_bwd_plain(qkv, probs, g, 4, 0.125),
+           dtype, scaled=True)
+    assert _build.LAUNCHES[k2.KERNEL_V3] == counts[k2.KERNEL_V3] + 2
+    assert _build.LAUNCHES[k2.KERNEL_V3_BWD] == counts[k2.KERNEL_V3_BWD] + 1
+
+
+def test_temporal_v3_fp32_takes_16_frames_and_bf16_refuses_them(card):
+    qkv = torch.randn(1, 16, 9, 3 * 256, device=card)
+    out, probs = k2.temporal_attention_v3(qkv, 4, 0.125)
+    ref, ref_p = k2.temporal_attention_v3_fwd_plain(qkv, 4, 0.125)
+    _close(out, ref, torch.float32)
+    _close(probs, ref_p, torch.float32)
+    with pytest.raises(ValueError, match="T <= 8"):
+        k2.temporal_attention_v3(qkv.bfloat16(), 4, 0.125)
+
+
+@pytest.mark.parametrize("route", ["A", "B"])
+def test_knob_routes_run_their_kernels(card, route):
+    from procedurevrl_torch.ops.attention_route import AttentionRoute
+
+    r = (AttentionRoute(save_probs=False, pipe=True, temporal_batched=True)
+         if route == "A" else AttentionRoute(delta=True))
+    want = ({k1.KERNEL_PIPE: 1, k1.KERNEL_BWD_RECOMPUTE: 1, k2.KERNEL_V3: 1,
+             k2.KERNEL_V3_BWD: 1} if route == "A" else
+            {k1.KERNEL_PROBS: 1, k1.KERNEL_BWD_DELTA: 1, k2.KERNEL: 1,
+             k2.KERNEL_BWD: 1})
+    qkv, qkv_c, g, gc = _spatial_inputs(card, torch.bfloat16, 196, seed=6)
+    t_qkv = torch.randn(2, 3, 196, 3 * 256, device=card).bfloat16()
+    before = dict(_build.LAUNCHES)
+    qkv.requires_grad_(True)
+    t_qkv.requires_grad_(True)
+    out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, 4, 0.125, r)
+    t_out = k2.temporal_attention_autograd(t_qkv, 4, 0.125, r)
+    torch.autograd.backward((out, out_c, t_out),
+                            (g, gc, torch.ones_like(t_out)))
+    torch.cuda.synchronize()
+    ran = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+           if v != before.get(k, 0)}
+    assert ran == want
+
+
 # (B, H, qN, k_shape): ragged query tails and key counts (kN + 1 = 25, 393,
 # 1569 are no multiples of 8 or 64)
 MVIT_GEOMS = {"small": (2, 2, 70, (2, 3, 4)), "block4": (2, 4, 1568, (8, 7, 7)),
@@ -408,7 +506,9 @@ def _poison(card):
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "fwd_probs", "bwd", "temporal_fwd",
-                                    "temporal_bwd", "mvit_hl_fwd",
+                                    "temporal_bwd", "pipe", "bwd_recompute",
+                                    "bwd_delta", "temporal_v3_fwd",
+                                    "temporal_v3_bwd", "mvit_hl_fwd",
                                     "mvit_hl_bwd", "mvit_fwd", "mvit_bwd",
                                     "mvit_kt_fwd", "mvit_kt_bwd", "pool_fwd",
                                     "pool_dx", "pool_dw"])
@@ -418,9 +518,10 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     which do not run on every machine with a card)."""
     qkv, qkv_c, g, gc = _spatial_inputs(card, torch.bfloat16, 196, bt=18,
                                         heads=12, seed=7)
-    probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, 12, 0.125)[2]
-    t_qkv = qkv.reshape(2, 9, 196, -1)
-    t_g = g.reshape(2, 9, 196, -1)
+    out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, 12, 0.125)
+    t_qkv = qkv.reshape(3, 6, 196, -1)
+    t_g = g.reshape(3, 6, 196, -1)
+    t_probs = k2.temporal_attention_v3(t_qkv, 12, 0.125)[1]
     scale = 96 ** -0.5
     m_hl, ks_hl, h_hl = _mvit_inputs(card, torch.bfloat16, "block4", True,
                                      seed=7, hot=False)
@@ -441,6 +542,14 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
         "temporal_fwd": lambda: (k2.temporal_attention(t_qkv, 12, 0.125),),
         "temporal_bwd": lambda: (k2.temporal_attention_bwd(t_qkv, t_g, 12,
                                                            0.125),),
+        "pipe": lambda: k1.spatial_attention_pipe(qkv, qkv_c, 12, 0.125),
+        "bwd_recompute": lambda: k1.spatial_attention_bwd_recompute(
+            qkv, qkv_c, g, gc, 12, 0.125),
+        "bwd_delta": lambda: k1.spatial_attention_bwd_delta(
+            qkv, qkv_c, probs, out, out_c, g, gc, 12, 0.125),
+        "temporal_v3_fwd": lambda: k2.temporal_attention_v3(t_qkv, 12, 0.125),
+        "temporal_v3_bwd": lambda: (k2.temporal_attention_v3_bwd(
+            t_qkv, t_probs, t_g, 12, 0.125),),
         "mvit_hl_fwd": lambda: k5.mvit_attention_hl_fwd(*m_hl[:6], ks_hl, h_hl,
                                                         scale),
         "mvit_hl_bwd": lambda: k5.mvit_attention_hl_bwd(

@@ -178,4 +178,5 @@ def test_mutation_check_plants_each_fault():
         assert m.line != m.anchor and m.line not in text, m
         assert m.check in mc.CHECKS
     assert {m.source for m in mc.MUTANTS.values()} == {
-        "mvit_attention.cu", "depthwise_pool.cu"}
+        "mvit_attention.cu", "depthwise_pool.cu", "spatial_attention.cu",
+        "temporal_attention.cu"}

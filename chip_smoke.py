@@ -58,6 +58,8 @@ Phases (any failure exits non-zero):
 13. K2v3f / K2v3b (the saved-probability temporal pair) at the training
    shape, plus float32 cases at T = 8 and 3 and a bf16 case with a logit
    above 80, against their plain versions; timed beside K2f / K2b and SDPA;
+   then in bf16 at T = 16 and 11 (one position per tensor-core tile) and
+   at the training geometry with 16 frames, timed beside K2f / K2b;
 14. slice 5, eval: phase 6's zero-shot test with ``SPATIAL_PIPE=1
    TEMPORAL_BATCHED=1`` set while the model is built (12 K1p and 12 K2v3f
    per batch, no K1f or K2f); one batch against the plain path;
@@ -66,9 +68,26 @@ Phases (any failure exits non-zero):
    K1p, 12 K1br, 24 K2v3f, 12 K2v3b, and none of K1f, K1sp, K1b, K1bd, K2f
    or K2b); one step against the plain path; one step profiled;
 16. slice 5, route B: the same with ``SPATIAL_DELTA=1`` (per step 24 K1sp,
-   12 K1bd, 24 K2f, 12 K2b, no K1b); one step against the plain path.
+   12 K1bd, 24 K2f, 12 K2b, no K1b); one step against the plain path;
+17. K5bd (the delta backward, ``MVIT_DELTA=1``) at MViT-v2-S blocks 0 and 4,
+   and K6bd, K6sp (the forward that saves bf16 p) and K6bs (the backward
+   from it) at block 1 (18 clips, bf16), plus small float32 and bf16 cases
+   with logits above 80, against their plain versions; K6sp's output must
+   equal K6f's bit for bit; timed beside K5b / K6f / K6b and SDPA with the
+   bias as a float mask;
+18. slice 6, route C: ``train_net.train`` on
+   ``configs/HowTo100M/procedurevrl_mvitv2_sgd.yaml`` (SGD, momentum 0.9,
+   remat) with ``MVIT_DELTA=1`` set while the model is built: 2 warm-up
+   + 6 timed steps with finite losses and asserted launch counts (per step
+   26 K5f, 6 K6f, 13 K5bd, 3 K6bd, and no K5b, K6b, K6sp, K6bs, K7 or K8);
+   one step against the plain path; one step profiled;
+19. slice 6, route D: the same with ``MVIT_SAVE_PROBS=1 MVIT_DELTA=1`` (per
+   step 26 K5f, 6 K6sp, 13 K5bd, 3 K6bs, and no K6f, K5b, K6b, K6bd, K7
+   or K8: under remat each K6 block's forward and its recomputation both
+   run K6sp); one step against the plain path; one step profiled with its
+   peak memory.
 Phases 6 and 7 assert that none of slice 5's kernels runs without the
-knobs.
+knobs, phases 9 and 11 none of slice 6's.
 Each phase prints its wall time.  The last two lines are the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 """
@@ -76,6 +95,7 @@ Each phase prints its wall time.  The last two lines are the
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -112,6 +132,24 @@ MVIT_FWD_TOL = dict(atol=1e-3, rtol=1e-2)
 # the fp32 row sums l of K5f/K6f: sums of the same exponentials in another
 # order (relative differences ~1e-6; one missing column moves l by ~1/kN)
 ROWSUM_TOL = dict(atol=0.0, rtol=1e-4)
+# K6sp's bf16 probabilities: kernel and plain version round the same p
+# (its logits differ by fp32 summation order) to bf16, so an element may
+# sit one bf16 ulp (<= 2^-7 of it) apart, and zeros agree exactly.  The cls
+# probability averages ~5e-4 at blocks 1 and 3, under MVIT_FWD_TOL's atol,
+# which sees it vanish only on the few rows where it passes 1e-3
+# (procedurevrl_torch/tools/mutation_check.py).
+PROBS_TOL = dict(atol=1e-5, rtol=1e-2)
+# bf16 gradients of K5bd, K6bd and K6bs, each against its own scale
+# (own_tol): kernel and plain version round the same fp32 sums, so an
+# element sits a bf16 ulp or two apart (<= 2^-6 of it, the rtol), and a ds
+# that rounds to the neighbouring bf16 value moves every product it feeds
+# by a small fraction of that gradient's own largest magnitude (the atol).
+# dq and dkc stay far below 1 here, so grad_tol's floor of 1 let a K6bs
+# that drops the cls column through on dq, dkc and drel.  The sound
+# kernels pass from atol 7.5e-4 x, that K6bs fails from 7.8e-3 x on drel
+# and more on dq, dkc and dvc (procedurevrl_torch/tools/mutation_check.py
+# prints both; PERF.md section 6).
+MVIT_GRAD_TOL = dict(atol=2e-3, rtol=1e-2)
 # post-softmax predictions of 12 bf16 blocks, kernels vs plain versions
 PRED_ATOL = 1e-2
 # one bf16 train step, kernels vs plain versions: relative loss and global
@@ -141,6 +179,7 @@ MVIT_STEPS = 12                         # 2 warm-up + 10 timed
 # slice 4, MViT-v2-S under MVIT_POOL=kernel MVIT_KT=1: blocks routed to K7
 # (1 and 3) and K6 (14), and stride-1 pools on K8 (17)
 KNOBS = {"MVIT_POOL": "kernel", "MVIT_KT": "1"}
+MVIT_KNOBS = ("MVIT_POOL", "MVIT_KT", "MVIT_DELTA", "MVIT_SAVE_PROBS")
 # slice 5, TimeSformer on the JAX package's attention knobs
 TS_EVAL_KNOBS = {"SPATIAL_PIPE": "1", "TEMPORAL_BATCHED": "1"}
 ROUTE_A = {"SPATIAL_SAVE_PROBS": "0", "SPATIAL_PIPE": "1",
@@ -150,6 +189,11 @@ TS_KNOBS = ("SPATIAL_SAVE_PROBS", "SPATIAL_DELTA", "SPATIAL_PIPE",
             "SPATIAL_PIPE_NBUF", "TEMPORAL_BATCHED")
 KT_BLOCKS, KNOB_HS_BLOCKS, K8_POOLS = 2, 1, 17
 KNOB_STEPS = 12                         # 2 warm-up + 10 timed
+# slice 6, MViT-v2-S SGD pretraining on the JAX package's backward knobs
+MVIT_SGD_CFG = "configs/HowTo100M/procedurevrl_mvitv2_sgd.yaml"
+ROUTE_C = {"MVIT_DELTA": "1"}
+ROUTE_D = {"MVIT_SAVE_PROBS": "1", "MVIT_DELTA": "1"}
+ROUTE_STEPS = 8                         # 2 warm-up + 6 timed
 # K8f bf16 output: kernel and plain version round the same fp32 sums of 27
 # exact products (fused multiply-adds against products then adds) to bf16,
 # so an element may sit one bf16 ulp (<= 2^-8 of it) apart; the atol covers
@@ -282,6 +326,12 @@ def grad_tol(tol: dict, ref) -> dict:
     return dict(tol, atol=tol["atol"] * max(ref.float().abs().max().item(), 1.0))
 
 
+def own_tol(tol: dict, ref) -> dict:
+    """``tol`` with the atol scaled by the reference's largest magnitude,
+    however small: for gradients whose whole scale lies far below 1."""
+    return dict(tol, atol=tol["atol"] * ref.float().abs().max().item())
+
+
 def sdpa_ms(torch, F, q, k, v, g):
     """The library yardstick for a backward: SDPA forward, and SDPA forward
     + backward less the forward, on inputs that require grad."""
@@ -370,7 +420,8 @@ def plain_attention(k1, k2, k5, k8):
     """Route the models through the plain versions (reference runs only):
     the models' attention entries become the plain forwards, which autograd
     differentiates under grad, on every knob route (the TimeSformer entries
-    ignore the route they are given), and the pool entry takes its plain
+    ignore the route they are given, the MViT entries the backward knobs
+    they are given), and the pool entry takes its plain
     versions (the tap forward, and the tap formulas for its backward)."""
     pool = k8.depthwise_pool3d
     swaps = [(k1, "spatial_attention_autograd",
@@ -379,8 +430,9 @@ def plain_attention(k1, k2, k5, k8):
              (k2, "temporal_attention_autograd",
               lambda qkv, h, s, route=None: k2.temporal_attention_plain(
                   qkv, h, s)),
-             (k5, "mvit_attention_hl", k5.mvit_attention_hl_plain),
-             (k5, "mvit_attention", k5.mvit_attention_plain),
+             (k5, "mvit_attention_hl",
+              lambda *a: k5.mvit_attention_hl_plain(*a[:9])),
+             (k5, "mvit_attention", lambda *a: k5.mvit_attention_plain(*a[:8])),
              (k5, "mvit_attention_kt", k5.mvit_attention_kt_plain),
              (k8, "depthwise_pool3d",
               lambda x5, w27, s, use_kernel=True: pool(x5, w27, s, False))]
@@ -761,6 +813,7 @@ def phase_k2_v3(torch, F, k2) -> list:
               f"{'fwd' if twin == 'f' else 'bwd'} {lib:.4f} ms, bound "
               f"{bound[key][0]:.4f} ms ({bound[key][1]}: {nb[key] / 1e6:.1f} "
               f"MB, {fl[key] / 1e9:.3f} GFLOP)")
+    v3_t16(torch, k2, gen)
     src = "procedurevrl_torch/csrc/temporal_attention.cu"
     where = "procedurevrl_tpu/ops/pallas_attention.py:"
     return [{"name": k2.KERNEL_V3, "route": "cuda", "source": src,
@@ -773,6 +826,64 @@ def phase_k2_v3(torch, F, k2) -> list:
              "ms": ms["v3b"], "plain_ms": plain["v3b"],
              "bound_ms": bound["v3b"][0], "bound_by": bound["v3b"][1],
              "library_ms": lib_b}]
+
+
+def v3_t16(torch, k2, gen) -> None:
+    """K2v3f / K2v3b in bf16 past 8 frames (one position per 16-row tile):
+    small cases at T = 16 and 11 with a logit above 80, then the training
+    geometry with 16 frames, timed beside K2f / K2b at the same shape."""
+    heads, d = 12, 64
+    c, scale = heads * d, d ** -0.5
+    for tt in (16, 11):
+        qkv = torch.randn(2, tt, 21, 3 * c, generator=gen,
+                          device="cuda").bfloat16()
+        g = torch.randn(2, tt, 21, c, generator=gen, device="cuda").bfloat16()
+        qkv[0, 1, 4, :64] = 3.0
+        qkv[0, tt - 1, 4, c:c + 64] = 4.0  # the last key frame, above 80
+        name = f"K2v3 small bf16 T={tt} logit > 80"
+        out, probs = k2.temporal_attention_v3(qkv, heads, scale)
+        ro, rp = k2.temporal_attention_v3_fwd_plain(qkv, heads, scale)
+        compare(torch, f"{name} out", out, ro, BF16_TOL)
+        compare(torch, f"{name} probs", probs, rp, K1K2_FWD_TOL)
+        compare(torch, f"{name} out vs P V of its probs", out,
+                v3_pv(torch, qkv, probs, heads), K1K2_FWD_TOL)
+        o2, none = k2.temporal_attention_v3(qkv, heads, scale, save_probs=False)
+        if none is not None or not torch.equal(o2, out):
+            fail(f"{name}: the forward without the store differs")
+        r = k2.temporal_attention_v3_bwd_plain(qkv, rp, g, heads, scale)
+        compare(torch, f"{name} dqkv", k2.temporal_attention_v3_bwd(
+            qkv, rp, g, heads, scale), r, grad_tol(BF16_TOL, r))
+
+    b, t, n = 2 * CLIPS_PER_SAMPLE, 16, 196
+    qkv = torch.randn(b, t, n, 3 * c, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(b, t, n, c, generator=gen, device="cuda").bfloat16()
+    out, probs = k2.temporal_attention_v3(qkv, heads, scale)
+    ro, rp = k2.temporal_attention_v3_fwd_plain(qkv, heads, scale)
+    compare(torch, "K2v3f bf16 T=16 out", out, ro, BF16_TOL)
+    compare(torch, "K2v3f bf16 T=16 probs", probs, rp, K1K2_FWD_TOL)
+    compare(torch, "K2v3f bf16 T=16 out vs P V of its probs", out,
+            v3_pv(torch, qkv, probs, heads), K1K2_FWD_TOL)
+    r = k2.temporal_attention_v3_bwd_plain(qkv, probs, g, heads, scale)
+    compare(torch, "K2v3b bf16 T=16 dqkv", k2.temporal_attention_v3_bwd(
+        qkv, probs, g, heads, scale), r, grad_tol(BF16_TOL, r))
+    del ro, rp, r
+    ms = {"v3f": time_ms(torch, lambda: k2.temporal_attention_v3(qkv, heads, scale)),
+          "v3b": time_ms(torch, lambda: k2.temporal_attention_v3_bwd(
+              qkv, probs, g, heads, scale)),
+          "f": time_ms(torch, lambda: k2.temporal_attention(qkv, heads, scale)),
+          "b": time_ms(torch, lambda: k2.temporal_attention_bwd(
+              qkv, g, heads, scale))}
+    e, nb_p = 2, b * n * heads * t * t * 2
+    nb = {"v3f": b * t * n * (3 * c + c) * e + nb_p,
+          "v3b": b * t * n * (3 * c + c + 3 * c) * e + nb_p}
+    fl = {"v3f": 2 * 2 * b * n * heads * t * t * d,
+          "v3b": 4 * 2 * b * n * heads * t * t * d}
+    for key, what, twin in (("v3f", "K2v3f", "f"), ("v3b", "K2v3b", "b")):
+        bms, bby = bound_ms(nb[key], fl[key], BF16_FLOPS)
+        print(f"{what} [{b},{t},{n},{3 * c}] bf16 (T = 16): kernel "
+              f"{ms[key]:.4f} ms, K2{twin} {ms[twin]:.4f} ms, bound "
+              f"{bms:.4f} ms ({bby}: {nb[key] / 1e6:.1f} MB, "
+              f"{fl[key] / 1e9:.3f} GFLOP)")
 
 
 def mvit_inputs(torch, gen, b, heads, qn, k_shape, dtype, hot=False):
@@ -1087,11 +1198,174 @@ def phase_kt_kernels(torch, F, k5) -> list:
     return records
 
 
+def phase_mvit_knob_kernels(torch, F, k5) -> list:
+    """Slice 6: K5bd at MViT-v2-S blocks 0 and 4, K6bd, K6sp and K6bs at
+    block 1 (18 clips, bf16), plus small float32 and bf16 cases with logits
+    above 80, against their plain versions; timed beside K5b / K6f / K6b
+    and SDPA with the bias as a float mask; returns their records (K5bd at
+    block 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    scale = 96 ** -0.5
+    names = ("dq", "dk", "dv", "dkc", "dvc", "drel")
+    f32, b16 = torch.float32, torch.bfloat16
+
+    def grads(label, got, want, dtype=b16) -> float:
+        return max(compare(torch, f"{label} {n}", a, r,
+                           grad_tol(FP32_TOL, r) if dtype == f32
+                           else own_tol(MVIT_GRAD_TOL, r))
+                   for n, a, r in zip(names, got, want))
+
+    def probs_pad(label, p, kn) -> None:
+        if p[..., kn + 1:].any():
+            fail(f"{label} wrote non-zero padding columns")
+
+    # kN 24 and 27: the cls column opens a row of 8 or sits inside one
+    for ks, dtype in itertools.product(((2, 3, 4), (3, 3, 3)), (f32, b16)):
+        ftol = FP32_TOL if dtype == f32 else MVIT_FWD_TOL
+        ptol = FP32_TOL if dtype == f32 else PROBS_TOL
+        kn = ks[0] * ks[1] * ks[2]
+        tag = f"small kN {kn} {str(dtype)[6:]} logits > 80"
+        xs = mvit_inputs(torch, gen, 2, 2, 70, ks, dtype, hot=True)
+        ro, rrs = k5.mvit_attention_hl_fwd_plain(*xs[:6], ks, 2, scale)
+        bargs = (*xs[:6], rrs, ro, xs[6], ks, 2, scale)
+        grads(f"K5bd {tag}", k5.mvit_attention_hl_bwd_delta(*bargs),
+              k5.mvit_attention_hl_bwd_delta_plain(*bargs), dtype)
+        xs = mvit_inputs(torch, gen, 4, 1, 70, ks, dtype, hot=True)
+        o, rs, p = k5.mvit_attention_fwd_probs(*xs[:6], ks, scale)
+        ro, rrs, rp = k5.mvit_attention_fwd_probs_plain(*xs[:6], ks, scale)
+        compare(torch, f"K6sp {tag} out", o, ro, ftol)
+        compare(torch, f"K6sp {tag} rowsum", rs, rrs, ROWSUM_TOL)
+        compare(torch, f"K6sp {tag} probs", p, rp, ptol)
+        probs_pad(f"K6sp {tag}", p, kn)
+        bargs = (*xs[:6], rrs, ro, xs[6], ks, scale)
+        grads(f"K6bd {tag}", k5.mvit_attention_bwd_delta(*bargs),
+              k5.mvit_attention_bwd_delta_plain(*bargs), dtype)
+        bargs = (*xs[:6], rp, xs[6], ks, scale)
+        grads(f"K6bs {tag}", k5.mvit_attention_bwd_probs(*bargs),
+              k5.mvit_attention_bwd_probs_plain(*bargs), dtype)
+
+    e = 2
+
+    def io_bytes(b, heads, qn, kn, kcat, rel=True):
+        """bf16 bytes of q, k, v, kc, vc (and rel), and of the gradients
+        dq, dk, dv, dkc, dvc, drel."""
+        c = heads * 96
+        qkv = e * (b * qn * c + 2 * b * kn * c + 2 * b * c)
+        return (qkv + (e * b * qn * heads * kcat if rel else 0),
+                qkv + e * b * qn * heads * kcat)
+
+    src = "procedurevrl_torch/csrc/mvit_attention.cu"
+    where = "procedurevrl_tpu/ops/pallas_mvit_attention.py:"
+
+    def record(name, line, err, ms, plain, lib, bound):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": f"{where}{line}", "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": lib}
+
+    records = []
+    for label, heads, qn in (("block 0", 1, 25088), ("block 4", 4, 1568)):
+        b, k_shape = 2 * CLIPS_PER_SAMPLE, (8, 7, 7)
+        x = mvit_inputs(torch, gen, b, heads, qn, k_shape, b16)
+        out, rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, heads, scale)
+        bargs = (*x[:6], rs, out, x[6], k_shape, heads, scale)
+        err = grads(f"K5bd {label} bf16", k5.mvit_attention_hl_bwd_delta(*bargs),
+                    k5.mvit_attention_hl_bwd_delta_plain(*bargs))
+        ms = time_ms(torch, lambda: k5.mvit_attention_hl_bwd_delta(*bargs))
+        twin = time_ms(torch, lambda: k5.mvit_attention_hl_bwd(
+            *x[:6], rs, x[6], k_shape, heads, scale))
+        plain = time_ms(torch, lambda: k5.mvit_attention_hl_bwd_delta_plain(
+            *bargs), iters=2, reps=5)
+        _, lib = mvit_sdpa_ms(torch, F, k5, x, heads, k_shape, scale)
+        kn, c = x[1].shape[1], heads * 96
+        ins, outs = io_bytes(b, heads, qn, kn, sum(k_shape))
+        nb = ins + 4 * b * heads * qn + 2 * e * b * qn * c + outs
+        pairs = b * heads * qn * (kn + 1) * 96
+        bound = bound_ms(nb, 10 * pairs, BF16_FLOPS)
+        print(f"K5bd {label} [{b},{qn},{c}] x kN {kn} bf16: kernel {ms:.4f} "
+              f"ms, K5b {twin:.4f} ms, plain {plain:.4f} ms, SDPA+mask bwd "
+              f"{lib:.4f} ms (no d(rel)), bound {bound[0]:.4f} ms "
+              f"({bound[1]}: {nb / 1e6:.1f} MB, {10 * pairs / 1e9:.2f} GFLOP)")
+        if label == "block 0":
+            records.append(record(k5.KERNEL_HL_BWD_DELTA, 766, err, ms, plain,
+                                  lib, bound))
+        del out, rs, bargs, x
+
+    b, qn, k_shape = 4 * CLIPS_PER_SAMPLE, 6272, (8, 14, 14)  # block 1, B*H
+    x = mvit_inputs(torch, gen, b, 1, qn, k_shape, b16)
+    kn, c = x[1].shape[1], 96
+    args = (*x[:6], k_shape, scale)
+    out, rs, p = k5.mvit_attention_fwd_probs(*args)
+    ref, ref_rs, ref_p = k5.mvit_attention_fwd_probs_plain(*args)
+    err_sp = max(compare(torch, "K6sp block 1 bf16 out", out, ref,
+                         MVIT_FWD_TOL),
+                 compare(torch, "K6sp block 1 bf16 probs", p, ref_p, PROBS_TOL))
+    compare(torch, "K6sp block 1 rowsum", rs, ref_rs, ROWSUM_TOL)
+    probs_pad("K6sp block 1", p, kn)
+    if not torch.equal(out, k5.mvit_attention_fwd(*args)[0]):
+        fail("K6sp's output differs from K6f's")
+    print("K6sp block 1: output equals K6f's bit for bit")
+    del out, rs, p
+    bargs_d = (*x[:6], ref_rs, ref, x[6], k_shape, scale)
+    err_bd = grads("K6bd block 1 bf16", k5.mvit_attention_bwd_delta(*bargs_d),
+                   k5.mvit_attention_bwd_delta_plain(*bargs_d))
+    bargs_s = (*x[:6], ref_p, x[6], k_shape, scale)
+    err_bs = grads("K6bs block 1 bf16", k5.mvit_attention_bwd_probs(*bargs_s),
+                   k5.mvit_attention_bwd_probs_plain(*bargs_s))
+    ms = {"sp": time_ms(torch, lambda: k5.mvit_attention_fwd_probs(*args)),
+          "f": time_ms(torch, lambda: k5.mvit_attention_fwd(*args)),
+          "bd": time_ms(torch, lambda: k5.mvit_attention_bwd_delta(*bargs_d)),
+          "bs": time_ms(torch, lambda: k5.mvit_attention_bwd_probs(*bargs_s)),
+          "b": time_ms(torch, lambda: k5.mvit_attention_bwd(
+              *x[:6], ref_rs, x[6], k_shape, scale))}
+    plain = {"sp": time_ms(torch, lambda: k5.mvit_attention_fwd_probs_plain(
+                 *args), iters=2, reps=5),
+             "bd": time_ms(torch, lambda: k5.mvit_attention_bwd_delta_plain(
+                 *bargs_d), iters=2, reps=5),
+             "bs": time_ms(torch, lambda: k5.mvit_attention_bwd_probs_plain(
+                 *bargs_s), iters=2, reps=5)}
+    lib_f, lib_b = mvit_sdpa_ms(torch, F, k5, x, 1, k_shape, scale)
+    ins, outs = io_bytes(b, 1, qn, kn, sum(k_shape))
+    ins_s, _ = io_bytes(b, 1, qn, kn, sum(k_shape), rel=False)
+    nb_p = e * b * qn * (kn + 1)  # the kN + 1 valid columns of p
+    pairs = b * qn * (kn + 1) * 96
+    nb = {"sp": ins + e * b * qn * c + 4 * b * qn + nb_p,
+          "bd": ins + 4 * b * qn + 2 * e * b * qn * c + outs,
+          "bs": ins_s + nb_p + e * b * qn * c + outs}
+    fl = {"sp": 4 * pairs, "bd": 10 * pairs, "bs": 8 * pairs}
+    bound = {key: bound_ms(nb[key], fl[key], BF16_FLOPS) for key in nb}
+    shape = f"[{b},{qn},{c}] x kN {kn}"
+    for key, what, twin, lib in (("sp", "K6sp", "K6f", lib_f),
+                                 ("bd", "K6bd", "K6b", lib_b),
+                                 ("bs", "K6bs", "K6b", lib_b)):
+        tw = ms["f"] if twin == "K6f" else ms["b"]
+        print(f"{what} block 1 {shape} bf16: kernel {ms[key]:.4f} ms, {twin} "
+              f"{tw:.4f} ms, plain {plain[key]:.4f} ms, SDPA+mask "
+              f"{'fwd' if key == 'sp' else 'bwd'} {lib:.4f} ms, bound "
+              f"{bound[key][0]:.4f} ms ({bound[key][1]}: "
+              f"{nb[key] / 1e6:.1f} MB, {fl[key] / 1e9:.2f} GFLOP)")
+    records += [record(k5.KERNEL_BWD_DELTA, 268, err_bd, ms["bd"], plain["bd"],
+                       lib_b, bound["bd"]),
+                record(k5.KERNEL_PROBS, 206, err_sp, ms["sp"], plain["sp"],
+                       lib_f, bound["sp"]),
+                record(k5.KERNEL_BWD_PROBS, 316, err_bs, ms["bs"], plain["bs"],
+                       lib_b, bound["bs"])]
+    return records
+
+
 def k1k2_kernels(k1, k2) -> tuple:
     """Every K1 and K2 kernel's launch-count name."""
     return (k1.KERNEL, k1.KERNEL_PROBS, k1.KERNEL_BWD, k1.KERNEL_PIPE,
             k1.KERNEL_BWD_RECOMPUTE, k1.KERNEL_BWD_DELTA, k2.KERNEL,
             k2.KERNEL_BWD, k2.KERNEL_V3, k2.KERNEL_V3_BWD)
+
+
+def mvit_kernel_names(k5, k8) -> tuple:
+    """Every MViT kernel's launch-count name."""
+    return (k5.KERNEL_HL, k5.KERNEL_HL_BWD, k5.KERNEL_HL_BWD_DELTA, k5.KERNEL,
+            k5.KERNEL_BWD, k5.KERNEL_BWD_DELTA, k5.KERNEL_PROBS,
+            k5.KERNEL_BWD_PROBS, k5.KERNEL_KT, k5.KERNEL_KT_BWD, k8.KERNEL,
+            k8.KERNEL_DX, k8.KERNEL_DW)
 
 
 def check_launches(launches: dict, expected: dict, what: str) -> None:
@@ -1180,10 +1454,10 @@ def train_cfg(remat: bool):
          "GLOBAL_BATCH_SIZE", "2", "TPU.REMAT", str(remat)])
 
 
-def mvit_cfg():
+def mvit_cfg(path: str = MVIT_CFG):
     from procedurevrl_torch.config import load_config
 
-    return load_config(os.path.join(ROOT, MVIT_CFG),
+    return load_config(os.path.join(ROOT, path),
                        ["DEV.LOAD_DUMMY_DATA", "True", "TRAIN.BATCH_SIZE", "2",
                         "GLOBAL_BATCH_SIZE", "2"])
 
@@ -1316,13 +1590,14 @@ def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
 
 
 def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
-               expected: dict) -> dict:
-    """MViT-v2-S order pretraining through ``train_net.train`` for ``steps``
-    steps with asserted launch counts, one step against the plain path, and
-    a profiled step; returns the launch counts of the main run."""
+               expected: dict, cfg_path: str = MVIT_CFG) -> dict:
+    """MViT-v2-S order pretraining through ``train_net.train`` on
+    ``cfg_path`` for ``steps`` steps with asserted launch counts (every
+    MViT kernel not in ``expected`` 0), one step against the plain path,
+    and a profiled step; returns the launch counts of the main run."""
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
-    cfg = mvit_cfg()
+    cfg = mvit_cfg(cfg_path)
     stats, launches, peak = run_train(torch, _build, cfg, steps)
     clips = stats["clips_per_step"]
     for i, h in enumerate(stats["history"]):
@@ -1338,9 +1613,9 @@ def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
           f"{stats['clips_per_sec']:.2f} clips/s over steps "
           f"{WARMUP_STEPS + 1}..{steps}, peak memory "
           f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
-    for key in k1k2_kernels(k1, k2):
-        expected[key] = 0
-    check_launches(launches, expected, f"{steps} {label} steps")
+    full = dict.fromkeys(k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8), 0)
+    full.update(expected)
+    check_launches(launches, full, f"{steps} {label} steps")
     step, batch = step_vs_plain(torch, cfg, k1, k2, k5, k8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1354,17 +1629,16 @@ def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
 def phase_mvit_train(torch, k1, k2, k5, k8, _build) -> dict:
     """Drive slice 3, the MViT-v2-S order-pretraining step on the default
     route; return the launch counts of its main run."""
-    if any(os.environ.get(k) for k in KNOBS):
-        fail(f"phase 9 runs the default route: unset {sorted(KNOBS)}")
+    if any(os.environ.get(k) for k in MVIT_KNOBS):
+        fail(f"phase 9 runs the default route: unset {list(MVIT_KNOBS)}")
     # remat recomputes every block's forward for its backward: each forward
-    # kernel runs twice per block and step, each backward kernel once
+    # kernel runs twice per block and step, each backward kernel once; no
+    # kernel of slices 4 and 6 runs
     n = MVIT_STEPS
     expected = {k5.KERNEL_HL: 2 * MVIT_HL_BLOCKS * n,
                 k5.KERNEL: 2 * MVIT_HS_BLOCKS * n,
                 k5.KERNEL_HL_BWD: MVIT_HL_BLOCKS * n,
-                k5.KERNEL_BWD: MVIT_HS_BLOCKS * n,
-                k5.KERNEL_KT: 0, k5.KERNEL_KT_BWD: 0, k8.KERNEL: 0,
-                k8.KERNEL_DX: 0, k8.KERNEL_DW: 0}
+                k5.KERNEL_BWD: MVIT_HS_BLOCKS * n}
     return mvit_train(torch, k1, k2, k5, k8, _build, "MViT train", n,
                       expected)
 
@@ -1389,6 +1663,8 @@ def phase_knob_train(torch, k1, k2, k5, k8, _build) -> dict:
     """Drive slice 4, the MViT-v2-S step on the JAX package's
     ``MVIT_POOL=kernel`` / ``MVIT_KT=1`` route; return the launch counts of
     its main run."""
+    if any(os.environ.get(k) for k in ROUTE_D):
+        fail(f"phase 11 runs without slice 6's knobs: unset {sorted(ROUTE_D)}")
     n = KNOB_STEPS
     hl = MVIT_HL_BLOCKS  # blocks 1 and 3 leave K6 for K7; K5's are as before
     expected = {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL_HL_BWD: hl * n,
@@ -1400,6 +1676,17 @@ def phase_knob_train(torch, k1, k2, k5, k8, _build) -> dict:
     with knobs_set(KNOBS):
         return mvit_train(torch, k1, k2, k5, k8, _build, "MViT knob train",
                           n, expected)
+
+
+def phase_route_train(torch, k1, k2, k5, k8, _build, label: str, knobs: dict,
+                      expected: dict) -> dict:
+    """Slice 6: MViT-v2-S SGD pretraining (``MVIT_SGD_CFG``) with ``knobs``
+    set while the models are built; returns the launch counts of its run."""
+    if any(os.environ.get(k) for k in MVIT_KNOBS):
+        fail(f"{label} runs with its own knobs only: unset {list(MVIT_KNOBS)}")
+    with knobs_set(knobs):
+        return mvit_train(torch, k1, k2, k5, k8, _build, label, ROUTE_STEPS,
+                          expected, MVIT_SGD_CFG)
 
 
 def phase_ts_knob_train(torch, k1, k2, k5, k8, _build, label: str,
@@ -1519,8 +1806,31 @@ def main() -> int:
     for rec in ts_knob_kernels:
         if not rec["launches"]:
             fail(f"{rec['name']} was not launched on the slice 5 path")
+    route_kernels = timed("17 K5bd/K6bd/K6sp/K6bs", phase_mvit_knob_kernels,
+                          torch, F, k5)
+    by_name = {rec["name"]: rec for rec in route_kernels}
+    n, hl, hs = ROUTE_STEPS, MVIT_HL_BLOCKS, MVIT_HS_BLOCKS
+    # remat: each K6 block's forward and its recomputation run K6sp on
+    # route D, and K6f on route C
+    launches = timed("18 slice 6 route C", phase_route_train, torch, k1, k2,
+                     k5, k8, _build, "MViT route C", ROUTE_C,
+                     {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL: 2 * hs * n,
+                      k5.KERNEL_HL_BWD_DELTA: hl * n,
+                      k5.KERNEL_BWD_DELTA: hs * n})
+    for key in (k5.KERNEL_HL_BWD_DELTA, k5.KERNEL_BWD_DELTA):
+        by_name[key]["launches"] = launches.get(key, 0)
+    launches = timed("19 slice 6 route D", phase_route_train, torch, k1, k2,
+                     k5, k8, _build, "MViT route D", ROUTE_D,
+                     {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL_PROBS: 2 * hs * n,
+                      k5.KERNEL_HL_BWD_DELTA: hl * n,
+                      k5.KERNEL_BWD_PROBS: hs * n})
+    for key in (k5.KERNEL_PROBS, k5.KERNEL_BWD_PROBS):
+        by_name[key]["launches"] = launches.get(key, 0)
+    for rec in route_kernels:
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the slice 6 path")
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
-               + ts_knob_kernels)
+               + ts_knob_kernels + route_kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)

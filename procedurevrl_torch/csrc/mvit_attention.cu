@@ -1,6 +1,7 @@
 // MViT pooled attention with the decomposed relative-position bias: the
-// forward (K5f / K6f) and its recompute backward (K5b / K6b), and the
-// key-tiled row-max forward (K7f) with its backward (K7b).
+// forward (K5f / K6f) and its recompute backward (K5b / K6b), the key-tiled
+// row-max forward (K7f) with its backward (K7b), and the knob variants
+// K5bd / K6bd (MVIT_DELTA=1) and K6sp / K6bs (MVIT_SAVE_PROBS=1).
 //
 // Replaces the TPU kernels of procedurevrl_tpu/ops/pallas_mvit_attention.py:
 //   K5f  _fwd_hl_kernel     (via _fwd_hl,  head-last  [B, qN, H*d]);
@@ -8,7 +9,11 @@
 //   K6f  _fwd_kernel        (via _fwd,     head-split [B*H, qN, d]);
 //   K6b  _bwd_kernel        (via _bwd);
 //   K7f  _fwd_hl_kt_kernel  (via _fwd_hl_kt, head-last, MVIT_KT=1);
-//   K7b  _bwd_hl_kt_kernel  (via _bwd_hl_kt).
+//   K7b  _bwd_hl_kt_kernel  (via _bwd_hl_kt);
+//   K5bd _bwd_hl_kernel_delta   (via _bwd_hl_delta);
+//   K6bd _bwd_kernel_delta      (via _bwd_delta);
+//   K6sp _fwd_kernel_saveprobs  (via _fwd with save_probs);
+//   K6bs _bwd_kernel_saveprobs  (via _bwd_saved).
 // One kernel serves both layouts: every tensor is addressed per (batch,
 // head) slice with a token-row stride, so the head-last call passes
 // (B, H) and row stride H*96, the head-split call (B*H, 1) and row stride
@@ -68,6 +73,17 @@
 // D_i = rowsum(g_i o_i) from the saved output o; the rest is K5b's kernel
 // pair (a compile-time switch), so its products run on bf16 operands (ds,
 // p, g, k, q) where the TPU kernel multiplies fp32 ones (:1128-1143).
+// The knob variants are compile-time switches of the same kernels.  K5bd /
+// K6bd: K5b's pair with D_i = rowsum(g_i o_i) from the saved output, as
+// K7b takes it, but p still the clamp exp(min(s, 80)) / l; the query-major
+// pass loses its sweep A.  K6sp: K6f whose sweep 2 also stores the bf16(p)
+// fragments it feeds to P V, probs [BH, qN, LP] with LP = kN + 1 rounded up
+// to 8 (16-byte rows; columns past kN zero).  K6bs: K6b's pair with p read
+// from those probabilities (64 x 64 tiles staged by cp.async in place of
+// the q / rel tiles the logits no longer need), D_i = rowsum(dp p) with the
+// saved p; no QK^T and no exp.  K6sp adds ~710 MB of writes at block 1 (p
+// is bf16 [36, 6272, 1576]), so it is bound by bytes; K6bs reads p three
+// times (sweeps A and B, and the key-major pass).
 // Not done yet: double-buffered staging, wgmma and TMA, and fewer
 // recomputations of s (the backward computes s three times and g v^T
 // twice: ~18 d operations per (query, key) pair against 10 d needed).
@@ -84,13 +100,23 @@ constexpr int BN = 64;        // keys per tile
 constexpr int KCAT = 48;      // rel columns, padded to 3 mma k-steps
 constexpr int SD = D + 8;     // smem row of a 96-wide tile: 208 B
 constexpr int SE = KCAT + 8;  // smem row of a rel / expander tile: 112 B
+constexpr int SP = BN + 8;    // smem row of a saved-probability tile: 144 B
 constexpr int WARPS = 4;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BF16_ONE = 0x3F80u;
 constexpr float MASKED = -1e30f;  // K7's logit of a padding key column
 
+// The backward's variants (compile-time switches of one kernel pair)
+enum Bwd : int {
+  kRecompute = 0,  // K5b / K6b: p = exp(min(s, 80)) / l, D = rowsum(dp p)
+  kRowMax = 1,     // K7b: p = exp(s - lse), D = rowsum(g o)
+  kDelta = 2,      // K5bd / K6bd: p = exp(min(s, 80)) / l, D = rowsum(g o)
+  kSaved = 3,      // K6bs: p read from K6sp's probs, D = rowsum(dp p)
+};
+
 struct Geo {
   int heads, qn, kn, kt, kh, kw, kcat;
+  int pld;      // row stride of the saved probabilities: kn + 1 rounded to 8
   size_t row;   // elements between token rows of q, k, v, g, out (heads*D)
   size_t rrow;  // elements between rows of rel (heads*kcat)
 };
@@ -104,6 +130,7 @@ Geo make_geo(int heads, int qn, int kn, int kt, int kh, int kw) {
   g.kh = kh;
   g.kw = kw;
   g.kcat = kt + kh + kw;
+  g.pld = (kn + 1 + 7) / 8 * 8;
   g.row = (size_t)heads * D;
   g.rrow = (size_t)heads * g.kcat;
   return g;
@@ -123,6 +150,10 @@ template <typename T>
 __device__ __forceinline__ T* c_of(T* x, const Geo& g, int bh) {
   const int b = bh / g.heads, h = bh % g.heads;
   return x + (size_t)b * g.row + h * D;
+}
+template <typename T>
+__device__ __forceinline__ T* probs_of(T* x, const Geo& g, int bh) {
+  return x + (size_t)bh * g.qn * g.pld;
 }
 template <typename T>
 __device__ __forceinline__ T* rel_of(T* x, const Geo& g, int bh) {
@@ -202,6 +233,33 @@ __device__ __forceinline__ void build_expander(uint16_t* dst, int j0,
       *reinterpret_cast<uint32_t*>(dst + r * SE + cc) = lo | (hi << 16);
     }
   }
+}
+
+// rows [i0, i0 + 64) x columns [j0, j0 + 64) of one slice's saved
+// probabilities [qn x pld] into a [64 x SP] tile; zero past qn and pld
+__device__ __forceinline__ void stage_probs(uint16_t* dst, const uint16_t* p,
+                                            const Geo& g, int i0, int j0) {
+  for (int idx = threadIdx.x; idx < BM * (BN / 8); idx += blockDim.x) {
+    const int r = idx / (BN / 8), c = 8 * (idx % (BN / 8));
+    uint16_t* d = dst + r * SP + c;
+    if (i0 + r < g.qn && j0 + c < g.pld) {
+      cp_async16(d, p + (size_t)(i0 + r) * g.pld + j0 + c);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// the saved p of rows (r, r + 8) and tile columns (c, c + 1) as an
+// accumulator-layout quad
+__device__ __forceinline__ void load_p4(float (&p)[4], const uint16_t* p_s,
+                                        int r, int c) {
+  const float2 a = load_bf16x2(p_s + r * SP + c);
+  const float2 b = load_bf16x2(p_s + (r + 8) * SP + c);
+  p[0] = a.x;
+  p[1] = a.y;
+  p[2] = b.x;
+  p[3] = b.y;
 }
 
 // A fragments of rows [row0, row0 + 16) over STEPS 16-column steps
@@ -309,12 +367,15 @@ __device__ __forceinline__ float warp_max(float x) {
 
 constexpr size_t FWD_SMEM = (size_t)(3 * 64 * SD + 2 * 64 * SE) * 2;
 
+// K5f / K6f, and with SAVE K6sp, which also stores the bf16(p) fragments
+// of P V to probs.
+template <bool SAVE>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
              const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
              const uint16_t* __restrict__ vc, const uint16_t* __restrict__ rel,
-             uint16_t* __restrict__ out, float* __restrict__ rowsum, Geo g,
-             float scale) {
+             uint16_t* __restrict__ out, float* __restrict__ rowsum,
+             uint16_t* __restrict__ probs, Geo g, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* k_s = q_s + BM * SD;
@@ -356,6 +417,8 @@ mvit_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r0 = i0 + warp * 16 + gid, r1 = r0 + 8;
+  uint16_t* pp = SAVE ? probs_of(probs, g, bh) : nullptr;
 
   // sweep 2: p = e / l, rounded to bf16 as the A operand of P V
   float o[12][4];
@@ -376,6 +439,18 @@ mvit_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                               pack_bf16x2(s0[2] * inv1, s0[3] * inv1),
                               pack_bf16x2(s1[0] * inv0, s1[1] * inv0),
                               pack_bf16x2(s1[2] * inv1, s1[3] * inv1)};
+      if constexpr (SAVE) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int c = j0 + ks * 16 + u * 8 + 2 * tig;
+          if (c >= g.pld) continue;
+          const uint32_t w0 = pa[2 * u], w1 = pa[2 * u + 1];
+          if (r0 < g.qn)
+            *reinterpret_cast<uint32_t*>(pp + (size_t)r0 * g.pld + c) = w0;
+          if (r1 < g.qn)
+            *reinterpret_cast<uint32_t*>(pp + (size_t)r1 * g.pld + c) = w1;
+        }
+      }
       mma_cols<12>(o, pa, v_s, SD, ks * 16);
     }
   }
@@ -499,11 +574,12 @@ mvit_fwd_kt_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
 constexpr size_t BWD_Q_SMEM = (size_t)(4 * 64 * SD + 2 * 64 * SE) * 2;
 
-// Query-major backward: D (stored for the key-major pass), dq and d(rel).
-// KT = false (K5b / K6b): rowsum holds l, p = exp(min(s, 80)) / l, D =
-// sum_j dp p.  KT = true (K7b): rowsum holds lse, p = exp(s - lse), D =
-// rowsum(g o) from the saved output o.
-template <bool KT>
+// Query-major backward: D (stored for the key-major pass), dq and d(rel),
+// for the variant M (enum Bwd).  rowsum holds l (kRecompute, kDelta) or
+// lse (kRowMax); o is the saved output (kRowMax, kDelta); probs K6sp's
+// probabilities (kSaved, whose p tile takes the q tile's place: the logits
+// need neither q nor rel).
+template <int M>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
@@ -511,11 +587,14 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ rel,
                const float* __restrict__ rowsum,
                const uint16_t* __restrict__ o,
+               const uint16_t* __restrict__ probs,
                const uint16_t* __restrict__ gr, float* __restrict__ delta,
                uint16_t* __restrict__ dq, uint16_t* __restrict__ drel, Geo g,
                float scale) {
+  constexpr bool LSE = M == kRowMax, SAVED = M == kSaved;
+  constexpr bool D_FROM_O = M == kRowMax || M == kDelta;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);  // kSaved: p tile
   uint16_t* g_s = q_s + BM * SD;
   uint16_t* k_s = g_s + BM * SD;
   uint16_t* v_s = k_s + BN * SD;
@@ -526,26 +605,35 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const uint16_t* vp = k_of(v, g, bh);
   const uint16_t* kcp = c_of(kc, g, bh);
   const uint16_t* vcp = c_of(vc, g, bh);
+  const uint16_t* pp = SAVED ? probs_of(probs, g, bh) : nullptr;
 
-  stage_rows(q_s, q_of(q, g, bh), g.row, i0, g.qn);
+  if constexpr (!SAVED) {
+    stage_rows(q_s, q_of(q, g, bh), g.row, i0, g.qn);
+    stage_rel(r_s, rel_of(rel, g, bh), g, i0);
+  }
   stage_rows(g_s, q_of(gr, g, bh), g.row, i0, g.qn);
-  stage_rel(r_s, rel_of(rel, g, bh), g, i0);
   cp_async_wait_all();
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
+  const int pr = warp * 16 + gid;  // this thread's first tile row
   uint32_t qa[6][4], ga[6][4], ra[3][4];
-  load_a<6>(qa, q_s, SD, warp * 16);
+  if constexpr (!SAVED) {
+    load_a<6>(qa, q_s, SD, warp * 16);
+    load_a<3>(ra, r_s, SE, warp * 16);
+  }
   load_a<6>(ga, g_s, SD, warp * 16);
-  load_a<3>(ra, r_s, SE, warp * 16);
-  const int r0 = i0 + warp * 16 + gid, r1 = r0 + 8;
+  const int r0 = i0 + pr, r1 = r0 + 8;
   const float* rs = rowsum + (size_t)bh * g.qn;
-  // K5: 1 / l; K7: lse (pad rows: p = 1 either way, and their g is 0)
-  const float c0 = r0 < g.qn ? (KT ? rs[r0] : 1.f / rs[r0]) : (KT ? 0.f : 1.f);
-  const float c1 = r1 < g.qn ? (KT ? rs[r1] : 1.f / rs[r1]) : (KT ? 0.f : 1.f);
+  // 1 / l, or lse (pad rows: p = 1 either way, and their g is 0)
+  float c0 = LSE ? 0.f : 1.f, c1 = c0;
+  if constexpr (!SAVED) {
+    if (r0 < g.qn) c0 = LSE ? rs[r0] : 1.f / rs[r0];
+    if (r1 < g.qn) c1 = LSE ? rs[r1] : 1.f / rs[r1];
+  }
 
   float d0 = 0.f, d1 = 0.f;
-  if constexpr (KT) {
+  if constexpr (D_FROM_O) {
     // D_i = sum_e g_ie o_ie, the o tile staged in k_s, D in v_s
     float* d_s = reinterpret_cast<float*>(v_s);
     stage_rows(k_s, q_of(o, g, bh), g.row, i0, g.qn);
@@ -562,24 +650,34 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       d_s[threadIdx.x] = acc;
     }
     __syncthreads();
-    d0 = d_s[warp * 16 + gid];
-    d1 = d_s[warp * 16 + gid + 8];
+    d0 = d_s[pr];
+    d1 = d_s[pr + 8];
   } else {
     // sweep A: D_i = sum_j dp_ij p_ij
     for (int j0 = 0; j0 <= g.kn; j0 += BN) {
       __syncthreads();
-      stage_keys(k_s, kp, kcp, g.row, j0, g.kn);
       stage_keys(v_s, vp, vcp, g.row, j0, g.kn);
-      build_expander(e_s, j0, g);
+      if constexpr (SAVED) {
+        stage_probs(q_s, pp, g, i0, j0);
+      } else {
+        stage_keys(k_s, kp, kcp, g.row, j0, g.kn);
+        build_expander(e_s, j0, g);
+      }
       cp_async_wait_all();
       __syncthreads();
 #pragma unroll 2
       for (int n0 = 0; n0 < BN; n0 += 8) {
         float p[4], dp[4] = {0.f, 0.f, 0.f, 0.f};
-        exp_logits8(p, qa, ra, k_s, e_s, n0, j0, g.kn, scale);
+        if constexpr (SAVED) {
+          load_p4(p, q_s, pr, n0 + 2 * tig);
+        } else {
+          exp_logits8(p, qa, ra, k_s, e_s, n0, j0, g.kn, scale);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] *= e < 2 ? c0 : c1;
+        }
         mma_rows<6>(dp, ga, v_s, SD, n0);
-        d0 += dp[0] * (p[0] * c0) + dp[1] * (p[1] * c0);
-        d1 += dp[2] * (p[2] * c1) + dp[3] * (p[3] * c1);
+        d0 += dp[0] * p[0] + dp[1] * p[1];
+        d1 += dp[2] * p[2] + dp[3] * p[3];
       }
     }
     d0 = quad_sum(d0);
@@ -603,6 +701,7 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     stage_keys(k_s, kp, kcp, g.row, j0, g.kn);
     stage_keys(v_s, vp, vcp, g.row, j0, g.kn);
     build_expander(e_s, j0, g);
+    if constexpr (SAVED) stage_probs(q_s, pp, g, i0, j0);
     cp_async_wait_all();
     __syncthreads();
     for (int ks = 0; ks < BN / 16; ++ks) {
@@ -610,7 +709,9 @@ mvit_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         float p[4], dp[4] = {0.f, 0.f, 0.f, 0.f};
-        if constexpr (KT) {
+        if constexpr (SAVED) {
+          load_p4(p, q_s, pr, ks * 16 + u * 8 + 2 * tig);
+        } else if constexpr (LSE) {
           logits8(p, qa, ra, k_s, e_s, ks * 16 + u * 8, j0, g.kn, scale);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -663,25 +764,28 @@ constexpr size_t BWD_K_SMEM =
     (size_t)(4 * 64 * SD + 2 * 64 * SE) * 2 + 2 * BM * sizeof(float);
 
 // Key-major backward: each CTA owns 64 keys of [body; cls] and walks every
-// query tile, so dk and dv are summed in registers in a fixed order (KT as
-// in mvit_bwd_q_mma).
-template <bool KT>
+// query tile, so dk and dv are summed in registers in a fixed order (M as
+// in mvit_bwd_q_mma; kSaved stages the p tile where the expander and rel
+// tiles sit, which it does not need).
+template <int M>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
                const uint16_t* __restrict__ vc,
                const uint16_t* __restrict__ rel,
                const float* __restrict__ rowsum,
+               const uint16_t* __restrict__ probs,
                const uint16_t* __restrict__ gr,
                const float* __restrict__ delta, uint16_t* __restrict__ dk,
                uint16_t* __restrict__ dv, uint16_t* __restrict__ dkc,
                uint16_t* __restrict__ dvc, Geo g, float scale) {
+  constexpr bool LSE = M == kRowMax, SAVED = M == kSaved;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* v_s = k_s + BN * SD;
   uint16_t* q_s = v_s + BN * SD;
   uint16_t* g_s = q_s + BM * SD;
-  uint16_t* e_s = g_s + BM * SD;
+  uint16_t* e_s = g_s + BM * SD;  // kSaved: the p tile, over e_s and r_s
   uint16_t* r_s = e_s + BN * SE;
   float* li_s = reinterpret_cast<float*>(r_s + BM * SE);  // 1 / l_i or lse_i
   float* d_s = li_s + BM;                                 // D_i
@@ -689,12 +793,13 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const uint16_t* qp = q_of(q, g, bh);
   const uint16_t* gp = q_of(gr, g, bh);
   const uint16_t* relp = rel_of(rel, g, bh);
+  const uint16_t* pp = SAVED ? probs_of(probs, g, bh) : nullptr;
   const float* rs = rowsum + (size_t)bh * g.qn;
   const float* dl = delta + (size_t)bh * g.qn;
 
   stage_keys(k_s, k_of(k, g, bh), c_of(kc, g, bh), g.row, j0, g.kn);
   stage_keys(v_s, k_of(v, g, bh), c_of(vc, g, bh), g.row, j0, g.kn);
-  build_expander(e_s, j0, g);
+  if constexpr (!SAVED) build_expander(e_s, j0, g);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
   float acc_k[12][4], acc_v[12][4];
@@ -707,12 +812,17 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     __syncthreads();  // the previous query tile is consumed
     stage_rows(q_s, qp, g.row, i0, g.qn);
     stage_rows(g_s, gp, g.row, i0, g.qn);
-    stage_rel(r_s, relp, g, i0);
-    // padding rows: q = g = rel = 0, l = 1 (lse = 0), D = 0, so p = 1 and
-    // ds = 0
+    if constexpr (SAVED) {
+      stage_probs(e_s, pp, g, i0, j0);
+    } else {
+      stage_rel(r_s, relp, g, i0);
+    }
+    // padding rows: q = g = rel = 0, l = 1 (lse = 0), D = 0, so p = 1 (or
+    // the zero of a staged p row) and ds = 0
     for (int t = threadIdx.x; t < BM; t += blockDim.x) {
-      li_s[t] = i0 + t < g.qn ? (KT ? rs[i0 + t] : 1.f / rs[i0 + t])
-                              : (KT ? 0.f : 1.f);
+      if constexpr (!SAVED)
+        li_s[t] = i0 + t < g.qn ? (LSE ? rs[i0 + t] : 1.f / rs[i0 + t])
+                                : (LSE ? 0.f : 1.f);
       d_s[t] = i0 + t < g.qn ? dl[i0 + t] : 0.f;
     }
     cp_async_wait_all();
@@ -720,7 +830,16 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int kk = 0; kk < BM / 16; ++kk) {
       // s^T, p^T: rows = this warp's 16 keys, columns = queries
       float p[2][4];
-      {
+      if constexpr (SAVED) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = kk * 16 + u * 8 + 2 * tig + (e & 1);
+            const uint16_t x = e_s[i * SP + warp * 16 + gid + 8 * (e >> 1)];
+            p[u][e] = __uint_as_float((uint32_t)x << 16);
+          }
+      } else {
         uint32_t ka[6][4], ea[3][4];
         load_a<6>(ka, k_s, SD, warp * 16);
         load_a<3>(ea, e_s, SE, warp * 16);
@@ -733,7 +852,7 @@ mvit_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
           for (int e = 0; e < 4; ++e) {
             const int i = kk * 16 + u * 8 + 2 * tig + (e & 1);
             const float x = fmaf(qk[e], scale, b[e]);
-            if constexpr (KT) {
+            if constexpr (LSE) {
               p[u][e] = exp2f((x - li_s[i]) * LOG2E);
             } else {
               p[u][e] = exp2f(fminf(x, CLAMP_HI) * LOG2E) * li_s[i];
@@ -811,13 +930,14 @@ __device__ __forceinline__ float logit(const float* qi, const float* ri,
 }
 
 // Forward: one warp per query row; shared memory holds the warp's row of
-// exponentials [kn + 1].
+// exponentials [kn + 1].  SAVE (K6sp) also writes p to probs.
+template <bool SAVE>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ kc,
                 const float* __restrict__ vc, const float* __restrict__ rel,
-                float* __restrict__ out, float* __restrict__ rowsum, Geo g,
-                float scale) {
+                float* __restrict__ out, float* __restrict__ rowsum,
+                float* __restrict__ probs, Geo g, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
@@ -835,6 +955,10 @@ mvit_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
     part += e;
   }
   const float l = warp_sum(part);
+  if constexpr (SAVE) {
+    float* pi = probs_of(probs, g, bh) + (size_t)i * g.pld;
+    for (int j = lane; j < g.pld; j += 32) pi[j] = j <= g.kn ? e_w[j] / l : 0.f;
+  }
   __syncwarp();
   const float* vp = k_of(v, g, bh);
   const float* vcp = c_of(vc, g, bh);
@@ -898,16 +1022,19 @@ mvit_fwd_kt_scalar(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Query-major backward: one warp per query row; per warp two rows [kn + 1]
-// of shared memory (p, then ds; and dp).  KT as in mvit_bwd_q_mma.
-template <bool KT>
+// of shared memory (p, then ds; and dp).  M as in mvit_bwd_q_mma.
+template <int M>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ kc,
                   const float* __restrict__ vc, const float* __restrict__ rel,
                   const float* __restrict__ rowsum, const float* __restrict__ o,
+                  const float* __restrict__ probs,
                   const float* __restrict__ gr, float* __restrict__ delta,
                   float* __restrict__ dq, float* __restrict__ drel, Geo g,
                   float scale) {
+  constexpr bool LSE = M == kRowMax, SAVED = M == kSaved;
+  constexpr bool D_FROM_O = M == kRowMax || M == kDelta;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
@@ -921,18 +1048,24 @@ mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
   const float* kcp = c_of(kc, g, bh);
   const float* vp = k_of(v, g, bh);
   const float* vcp = c_of(vc, g, bh);
-  const float l = rowsum[(size_t)bh * g.qn + i];  // K7: lse
+  const float l = SAVED ? 1.f : rowsum[(size_t)bh * g.qn + i];  // K7: lse
+  const float* pi = SAVED ? probs_of(probs, g, bh) + (size_t)i * g.pld : nullptr;
   float part = 0.f;
   for (int j = lane; j <= g.kn; j += 32) {
-    const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
-    const float p = KT ? expf(s - l) : expf(fminf(s, CLAMP_HI)) / l;
+    float p;
+    if constexpr (SAVED) {
+      p = pi[j];
+    } else {
+      const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
+      p = LSE ? expf(s - l) : expf(fminf(s, CLAMP_HI)) / l;
+    }
     const float dp = dot96(gi, key_row(vp, vcp, j, g));
     p_w[j] = p;
     dp_w[j] = dp;
     part = fmaf(dp, p, part);
   }
-  const float Dl =
-      KT ? dot96(gi, q_of(o, g, bh) + (size_t)i * g.row) : warp_sum(part);
+  const float Dl = D_FROM_O ? dot96(gi, q_of(o, g, bh) + (size_t)i * g.row)
+                            : warp_sum(part);
   if (lane == 0) delta[(size_t)bh * g.qn + i] = Dl;
   for (int j = lane; j <= g.kn; j += 32) p_w[j] = p_w[j] * (dp_w[j] - Dl);
   __syncwarp();
@@ -962,17 +1095,19 @@ mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Key-major backward: one warp per key row of [body; cls]; lanes take 32
-// queries at a time, then sum their products over them.  KT as in
+// queries at a time, then sum their products over them.  M as in
 // mvit_bwd_q_mma.
-template <bool KT>
+template <int M>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ kc,
                   const float* __restrict__ vc, const float* __restrict__ rel,
-                  const float* __restrict__ rowsum, const float* __restrict__ gr,
+                  const float* __restrict__ rowsum,
+                  const float* __restrict__ probs, const float* __restrict__ gr,
                   const float* __restrict__ delta, float* __restrict__ dk,
                   float* __restrict__ dv, float* __restrict__ dkc,
                   float* __restrict__ dvc, Geo g, float scale) {
+  constexpr bool LSE = M == kRowMax, SAVED = M == kSaved;
   __shared__ float p_s[WARPS][32], ds_s[WARPS][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, j = blockIdx.x * WARPS + warp;
@@ -989,9 +1124,13 @@ mvit_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
     const int i = i0 + lane;
     float p = 0.f, ds = 0.f;
     if (i < g.qn) {
-      const float* qi = qp + (size_t)i * g.row;
-      const float s = logit(qi, relp + (size_t)i * g.rrow, kj, j, g, scale);
-      p = KT ? expf(s - rs[i]) : expf(fminf(s, CLAMP_HI)) / rs[i];
+      if constexpr (SAVED) {
+        p = probs_of(probs, g, bh)[(size_t)i * g.pld + j];
+      } else {
+        const float* qi = qp + (size_t)i * g.row;
+        const float s = logit(qi, relp + (size_t)i * g.rrow, kj, j, g, scale);
+        p = LSE ? expf(s - rs[i]) : expf(fminf(s, CLAMP_HI)) / rs[i];
+      }
       ds = p * (dot96(gp + (size_t)i * g.row, vj) - dl[i]);
     }
     p_s[warp][lane] = p;
@@ -1029,105 +1168,128 @@ bool valid(int b, int heads, int qn, int kn, int kt, int kh, int kw) {
          kw > 0 && kt * kh * kw == kn && kt + kh + kw <= KCAT && b * heads <= 65535;
 }
 
-// The forward of K5/K6 (KT = false: out and the row sums l) or of K7 (KT =
-// true: out and lse).
-template <bool KT>
+// The forward of K5/K6 (KT = false: out and the row sums l; with SAVE,
+// K6sp, also probs) or of K7 (KT = true: out and lse).
+template <bool KT, bool SAVE>
 int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
-               const void* vc, const void* rel, void* out, void* stats, int b,
-               int heads, int qn, int kn, int kt, int kh, int kw, int dtype,
-               float scale, void* stream) {
+               const void* vc, const void* rel, void* out, void* stats,
+               void* probs, int b, int heads, int qn, int kn, int kt, int kh,
+               int kw, int dtype, float scale, void* stream) {
   if (!valid(b, heads, qn, kn, kt, kh, kw)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(heads, qn, kn, kt, kh, kw);
   if (dtype == 1) {
-    auto kernel = KT ? mvit_fwd_kt_mma : mvit_fwd_mma;
-    cudaError_t err = set_smem(kernel, FWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
     const dim3 grid((qn + BM - 1) / BM, b * heads);
-    kernel<<<grid, WARPS * 32, FWD_SMEM, st>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(kc),
-        static_cast<const uint16_t*>(vc), static_cast<const uint16_t*>(rel),
-        static_cast<uint16_t*>(out), static_cast<float*>(stats), g, scale);
+    using u16 = uint16_t;
+    cudaError_t err = KT ? set_smem(mvit_fwd_kt_mma, FWD_SMEM)
+                         : set_smem(mvit_fwd_mma<SAVE>, FWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (KT) {
+      mvit_fwd_kt_mma<<<grid, WARPS * 32, FWD_SMEM, st>>>(
+          static_cast<const u16*>(q), static_cast<const u16*>(k),
+          static_cast<const u16*>(v), static_cast<const u16*>(kc),
+          static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+          static_cast<u16*>(out), static_cast<float*>(stats), g, scale);
+    } else {
+      mvit_fwd_mma<SAVE><<<grid, WARPS * 32, FWD_SMEM, st>>>(
+          static_cast<const u16*>(q), static_cast<const u16*>(k),
+          static_cast<const u16*>(v), static_cast<const u16*>(kc),
+          static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+          static_cast<u16*>(out), static_cast<float*>(stats),
+          static_cast<u16*>(probs), g, scale);
+    }
     return (int)cudaGetLastError();
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  auto kernel = KT ? mvit_fwd_kt_scalar : mvit_fwd_scalar;
   const size_t smem = (size_t)WARPS * (kn + 1) * sizeof(float);
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((qn + WARPS - 1) / WARPS, b * heads);
-  kernel<<<grid, WARPS * 32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<const float*>(rel),
-      static_cast<float*>(out), static_cast<float*>(stats), g, scale);
+  if constexpr (KT) {
+    cudaError_t err = set_smem(mvit_fwd_kt_scalar, smem);
+    if (err != cudaSuccess) return (int)err;
+    mvit_fwd_kt_scalar<<<grid, WARPS * 32, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(kc),
+        static_cast<const float*>(vc), static_cast<const float*>(rel),
+        static_cast<float*>(out), static_cast<float*>(stats), g, scale);
+  } else {
+    cudaError_t err = set_smem(mvit_fwd_scalar<SAVE>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mvit_fwd_scalar<SAVE><<<grid, WARPS * 32, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(kc),
+        static_cast<const float*>(vc), static_cast<const float*>(rel),
+        static_cast<float*>(out), static_cast<float*>(stats),
+        static_cast<float*>(probs), g, scale);
+  }
   return (int)cudaGetLastError();
 }
 
-// The backward of K5/K6 (KT = false; stats = l, o unused) or of K7 (KT =
-// true; stats = lse, o the saved output): a query-major kernel writes
-// delta, dq and drel, then a key-major kernel dk, dv, dkc and dvc.
-template <bool KT>
+// The backward of variant M (enum Bwd): stats = l (kRecompute, kDelta) or
+// lse (kRowMax), null for kSaved; o the saved output (kRowMax, kDelta);
+// probs K6sp's probabilities (kSaved).  A query-major kernel writes delta,
+// dq and drel, then a key-major kernel dk, dv, dkc and dvc.
+template <int M>
 int launch_bwd(const void* q, const void* k, const void* v, const void* kc,
                const void* vc, const void* rel, const void* o,
-               const void* stats, const void* g, void* delta, void* dq,
-               void* dk, void* dv, void* dkc, void* dvc, void* drel, int b,
-               int heads, int qn, int kn, int kt, int kh, int kw, int dtype,
-               float scale, void* stream) {
+               const void* stats, const void* probs, const void* g,
+               void* delta, void* dq, void* dk, void* dv, void* dkc, void* dvc,
+               void* drel, int b, int heads, int qn, int kn, int kt, int kh,
+               int kw, int dtype, float scale, void* stream) {
   if (!valid(b, heads, qn, kn, kt, kh, kw)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo geo = make_geo(heads, qn, kn, kt, kh, kw);
   if (dtype == 1) {
     using u16 = uint16_t;
-    cudaError_t err = set_smem(mvit_bwd_q_mma<KT>, BWD_Q_SMEM);
+    cudaError_t err = set_smem(mvit_bwd_q_mma<M>, BWD_Q_SMEM);
     if (err != cudaSuccess) return (int)err;
-    err = set_smem(mvit_bwd_k_mma<KT>, BWD_K_SMEM);
+    err = set_smem(mvit_bwd_k_mma<M>, BWD_K_SMEM);
     if (err != cudaSuccess) return (int)err;
-    mvit_bwd_q_mma<KT><<<dim3((qn + BM - 1) / BM, b * heads), WARPS * 32,
-                         BWD_Q_SMEM, st>>>(
+    mvit_bwd_q_mma<M><<<dim3((qn + BM - 1) / BM, b * heads), WARPS * 32,
+                        BWD_Q_SMEM, st>>>(
         static_cast<const u16*>(q), static_cast<const u16*>(k),
         static_cast<const u16*>(v), static_cast<const u16*>(kc),
         static_cast<const u16*>(vc), static_cast<const u16*>(rel),
         static_cast<const float*>(stats), static_cast<const u16*>(o),
-        static_cast<const u16*>(g), static_cast<float*>(delta),
-        static_cast<u16*>(dq), static_cast<u16*>(drel), geo, scale);
+        static_cast<const u16*>(probs), static_cast<const u16*>(g),
+        static_cast<float*>(delta), static_cast<u16*>(dq),
+        static_cast<u16*>(drel), geo, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    mvit_bwd_k_mma<KT><<<dim3((kn + 1 + BN - 1) / BN, b * heads), WARPS * 32,
-                         BWD_K_SMEM, st>>>(
+    mvit_bwd_k_mma<M><<<dim3((kn + 1 + BN - 1) / BN, b * heads), WARPS * 32,
+                        BWD_K_SMEM, st>>>(
         static_cast<const u16*>(q), static_cast<const u16*>(k),
         static_cast<const u16*>(v), static_cast<const u16*>(kc),
         static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-        static_cast<const float*>(stats), static_cast<const u16*>(g),
-        static_cast<const float*>(delta), static_cast<u16*>(dk),
-        static_cast<u16*>(dv), static_cast<u16*>(dkc), static_cast<u16*>(dvc),
-        geo, scale);
+        static_cast<const float*>(stats), static_cast<const u16*>(probs),
+        static_cast<const u16*>(g), static_cast<const float*>(delta),
+        static_cast<u16*>(dk), static_cast<u16*>(dv), static_cast<u16*>(dkc),
+        static_cast<u16*>(dvc), geo, scale);
     return (int)cudaGetLastError();
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)WARPS * 2 * (kn + 1) * sizeof(float);
-  cudaError_t err = set_smem(mvit_bwd_q_scalar<KT>, smem);
+  cudaError_t err = set_smem(mvit_bwd_q_scalar<M>, smem);
   if (err != cudaSuccess) return (int)err;
-  mvit_bwd_q_scalar<KT><<<dim3((qn + WARPS - 1) / WARPS, b * heads),
-                          WARPS * 32, smem, st>>>(
+  mvit_bwd_q_scalar<M><<<dim3((qn + WARPS - 1) / WARPS, b * heads),
+                         WARPS * 32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(kc),
       static_cast<const float*>(vc), static_cast<const float*>(rel),
       static_cast<const float*>(stats), static_cast<const float*>(o),
-      static_cast<const float*>(g), static_cast<float*>(delta),
-      static_cast<float*>(dq), static_cast<float*>(drel), geo, scale);
+      static_cast<const float*>(probs), static_cast<const float*>(g),
+      static_cast<float*>(delta), static_cast<float*>(dq),
+      static_cast<float*>(drel), geo, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mvit_bwd_k_scalar<KT><<<dim3((kn + 1 + WARPS - 1) / WARPS, b * heads),
-                          WARPS * 32, 0, st>>>(
+  mvit_bwd_k_scalar<M><<<dim3((kn + 1 + WARPS - 1) / WARPS, b * heads),
+                         WARPS * 32, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(kc),
       static_cast<const float*>(vc), static_cast<const float*>(rel),
-      static_cast<const float*>(stats), static_cast<const float*>(g),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(dkc),
-      static_cast<float*>(dvc), geo, scale);
+      static_cast<const float*>(stats), static_cast<const float*>(probs),
+      static_cast<const float*>(g), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dkc), static_cast<float*>(dvc), geo, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1145,8 +1307,23 @@ extern "C" int mvit_attention_fwd(const void* q, const void* k, const void* v,
                                   int b, int heads, int qn, int kn, int kt,
                                   int kh, int kw, int dtype, float scale,
                                   void* stream) {
-  return launch_fwd<false>(q, k, v, kc, vc, rel, out, rowsum, b, heads, qn,
-                           kn, kt, kh, kw, dtype, scale, stream);
+  return launch_fwd<false, false>(q, k, v, kc, vc, rel, out, rowsum, nullptr,
+                                  b, heads, qn, kn, kt, kh, kw, dtype, scale,
+                                  stream);
+}
+
+// K6sp: K6f's out and rowsum, and probs [b, heads, qn, LP] (like q; LP =
+// kn + 1 rounded up to 8, columns past kn zero).
+extern "C" int mvit_attention_fwd_probs(const void* q, const void* k,
+                                        const void* v, const void* kc,
+                                        const void* vc, const void* rel,
+                                        void* out, void* rowsum, void* probs,
+                                        int b, int heads, int qn, int kn,
+                                        int kt, int kh, int kw, int dtype,
+                                        float scale, void* stream) {
+  return launch_fwd<false, true>(q, k, v, kc, vc, rel, out, rowsum, probs, b,
+                                 heads, qn, kn, kt, kh, kw, dtype, scale,
+                                 stream);
 }
 
 // K5b / K6b: dq (like q), dk, dv (like k), dkc, dvc (like kc), drel (like
@@ -1161,9 +1338,43 @@ extern "C" int mvit_attention_bwd(const void* q, const void* k, const void* v,
                                   void* drel, int b, int heads, int qn, int kn,
                                   int kt, int kh, int kw, int dtype,
                                   float scale, void* stream) {
-  return launch_bwd<false>(q, k, v, kc, vc, rel, nullptr, rowsum, g, delta,
-                           dq, dk, dv, dkc, dvc, drel, b, heads, qn, kn, kt,
-                           kh, kw, dtype, scale, stream);
+  return launch_bwd<kRecompute>(q, k, v, kc, vc, rel, nullptr, rowsum,
+                                nullptr, g, delta, dq, dk, dv, dkc, dvc, drel,
+                                b, heads, qn, kn, kt, kh, kw, dtype, scale,
+                                stream);
+}
+
+// K5bd / K6bd: the gradients as for K5b / K6b, from the forward's output
+// `out` (D = rowsum(g out)) and its rowsum; delta as for K5b.
+extern "C" int mvit_attention_bwd_delta(const void* q, const void* k,
+                                        const void* v, const void* kc,
+                                        const void* vc, const void* rel,
+                                        const void* out, const void* rowsum,
+                                        const void* g, void* delta, void* dq,
+                                        void* dk, void* dv, void* dkc,
+                                        void* dvc, void* drel, int b,
+                                        int heads, int qn, int kn, int kt,
+                                        int kh, int kw, int dtype, float scale,
+                                        void* stream) {
+  return launch_bwd<kDelta>(q, k, v, kc, vc, rel, out, rowsum, nullptr, g,
+                            delta, dq, dk, dv, dkc, dvc, drel, b, heads, qn,
+                            kn, kt, kh, kw, dtype, scale, stream);
+}
+
+// K6bs: the gradients as for K6b from K6sp's probabilities (rel is not
+// read: no logits are formed); delta as for K5b.
+extern "C" int mvit_attention_bwd_probs(const void* q, const void* k,
+                                        const void* v, const void* kc,
+                                        const void* vc, const void* rel,
+                                        const void* probs, const void* g,
+                                        void* delta, void* dq, void* dk,
+                                        void* dv, void* dkc, void* dvc,
+                                        void* drel, int b, int heads, int qn,
+                                        int kn, int kt, int kh, int kw,
+                                        int dtype, float scale, void* stream) {
+  return launch_bwd<kSaved>(q, k, v, kc, vc, rel, nullptr, nullptr, probs, g,
+                            delta, dq, dk, dv, dkc, dvc, drel, b, heads, qn,
+                            kn, kt, kh, kw, dtype, scale, stream);
 }
 
 // K7f (head-last, b = B): out (like q) and lse [b, heads, qn] fp32.
@@ -1173,8 +1384,9 @@ extern "C" int mvit_attention_kt_fwd(const void* q, const void* k,
                                      void* out, void* lse, int b, int heads,
                                      int qn, int kn, int kt, int kh, int kw,
                                      int dtype, float scale, void* stream) {
-  return launch_fwd<true>(q, k, v, kc, vc, rel, out, lse, b, heads, qn, kn,
-                          kt, kh, kw, dtype, scale, stream);
+  return launch_fwd<true, false>(q, k, v, kc, vc, rel, out, lse, nullptr, b,
+                                 heads, qn, kn, kt, kh, kw, dtype, scale,
+                                 stream);
 }
 
 // K7b: the gradients as for K5b, from the forward's output `out` and lse;
@@ -1189,7 +1401,7 @@ extern "C" int mvit_attention_kt_bwd(const void* q, const void* k,
                                      void* drel, int b, int heads, int qn,
                                      int kn, int kt, int kh, int kw, int dtype,
                                      float scale, void* stream) {
-  return launch_bwd<true>(q, k, v, kc, vc, rel, out, lse, g, delta, dq, dk,
-                          dv, dkc, dvc, drel, b, heads, qn, kn, kt, kh, kw,
-                          dtype, scale, stream);
+  return launch_bwd<kRowMax>(q, k, v, kc, vc, rel, out, lse, nullptr, g,
+                             delta, dq, dk, dv, dkc, dvc, drel, b, heads, qn,
+                             kn, kt, kh, kw, dtype, scale, stream);
 }

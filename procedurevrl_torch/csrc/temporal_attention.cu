@@ -12,12 +12,14 @@
 // K2v3 keeps the TPU pair's residual: the forward stores p [B, N, H, T, T]
 // in the value dtype (768 values per position at 12 heads, T = 8) and the
 // backward reads it and computes no logits.  Its bf16 kernels batch two
-// patch positions into one 16-row mma.sync tile (frames <= 8): the logits
+// patch positions into one 16-row mma.sync tile for frames <= 8: the logits
 // of both come from two m16n8k16 products over the head's 64 columns (each
 // keeps its own position's 8 rows), and P V, ds K, p^T g and ds^T q are one
 // product per 8 output columns with a block-diagonal 16 x 16 A operand (one
 // 8 x 8 block per position), so the products of both positions and all key
-// frames are single tensor-core instructions.  Bounds at the training shape
+// frames are single tensor-core instructions.  For 9 <= frames <= 16 each
+// position has its own 16-row tile: the two products give all of its 16 x 16
+// logits, and the A operands are full 16 x 16 matrices.  Bounds at the training shape
 // (B = 18, T = 8, N = 196, C = 768, bf16): K2v3f reads 130.0 MB and writes
 // 43.4 + 5.4 MB of p, ~53 us; K2v3b reads 130.0 + 43.4 + 5.4 MB and writes
 // 130.0 MB, ~92 us.  fp32 runs K2f's / K2b's scalar kernels with the store
@@ -396,10 +398,11 @@ cudaError_t launch_bwd(const void* qkv, const void* g, const void* probs,
 }
 
 // ------------------------------------------ K2v3 (bf16, tensor cores)
-// One CTA stages two patch positions p0 = 2 * blockIdx.x and p0 + 1 as the
-// 16 rows of one m16n8k16 tile: row r = u * 8 + t is frame t of position
-// p0 + u (frames <= 8; rows of missing frames or positions are zero).  A
-// position is P = b * N + pos.
+// One CTA stages 16 / FR patch positions as the 16 rows of one m16n8k16
+// tile: row r = u * FR + t is frame t of position p0 + u, p0 = blockIdx.x *
+// (16 / FR).  FR = 8: two positions, frames <= 8; FR = 16: one position,
+// frames <= 16.  Rows of missing frames or positions are zero.  A position
+// is P = b * N + pos.
 constexpr int V3_WARPS = 4;
 constexpr int V3_ROWS = 16;
 constexpr int V3_TS = 24;  // per-warp 16 x 16 tile, 48-byte rows
@@ -412,6 +415,7 @@ __device__ __forceinline__ size_t stream_row(int P, int t, int frames, int n) {
 
 // the 16 rows of `width` columns of src into smem columns col0.. of rows of
 // rs elements (16-byte cp.async pieces, not waited for)
+template <int FR>
 __device__ __forceinline__ void v3_stage(uint16_t* sm, int rs, int col0,
                                          const uint16_t* src, int width,
                                          int p0, int positions, int frames,
@@ -419,7 +423,7 @@ __device__ __forceinline__ void v3_stage(uint16_t* sm, int rs, int col0,
   const int vecs = width / 8;
   for (int idx = threadIdx.x; idx < V3_ROWS * vecs; idx += blockDim.x) {
     const int r = idx / vecs, e = 8 * (idx % vecs);
-    const int u = r >> 3, t = r & 7, P = p0 + u;
+    const int u = r / FR, t = r % FR, P = p0 + u;
     uint16_t* d = sm + (size_t)r * rs + col0 + e;
     if (t < frames && P < positions) {
       cp_async16(d, src + stream_row(P, t, frames, n) * width + e);
@@ -429,21 +433,22 @@ __device__ __forceinline__ void v3_stage(uint16_t* sm, int rs, int col0,
   }
 }
 
-// X Y^T of one head for both positions at once: A = the 16 rows of X
-// (columns xc..xc+63), B = the 8 rows of one position's Y (columns yc..).
-// Two products, one per position; of each this thread keeps its own
-// position's row: a = row (0, lane/4) against position 0's keys 2*(lane%4)
-// and +1, b = row (1, lane/4) against position 1's.
-__device__ __forceinline__ void v3_pair_products(const uint16_t* sm, int rs,
-                                                 int xc, int yc,
-                                                 float (&a)[2], float (&b)[2]) {
+// X Y^T of one head: A = the 16 rows of X (columns xc..xc+63), B = rows
+// 0-7 (s0) and rows 8-15 (s1) of Y (columns yc..), in the accumulator
+// layout: s[0..1] row lane/4, s[2..3] row lane/4 + 8, against the B rows
+// 2*(lane%4) and +1.  With two positions (FR = 8) a thread keeps its own
+// position's rows, s0[0..1] and s1[2..3]; with one, all of them.
+__device__ __forceinline__ void v3_products(const uint16_t* sm, int rs, int xc,
+                                            int yc, float (&s0)[4],
+                                            float (&s1)[4]) {
   const int lane = threadIdx.x % 32, lrow = lane & 7, ltile = lane >> 3;
   uint32_t xa[4][4];
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
     ldsm_x4(xa[ks], sm + ((ltile & 1) * 8 + lrow) * rs + xc + ks * 16 +
                         (ltile >> 1) * 8);
-  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s0[e] = s1[e] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < 4; ks += 2) {
     uint32_t kb[4];
@@ -454,14 +459,11 @@ __device__ __forceinline__ void v3_pair_products(const uint16_t* sm, int rs,
     mma_16816(s1, xa[ks], kb[0], kb[1]);
     mma_16816(s1, xa[ks + 1], kb[2], kb[3]);
   }
-  a[0] = s0[0];
-  a[1] = s0[1];
-  b[0] = s1[2];
-  b[1] = s1[3];
 }
 
-// acc = A Y for the A fragment `a` of a 16 x 16 block-diagonal matrix
-// (position 0's 8 x 8 block, then position 1's) and the 16 rows of Y
+// acc = A Y for the A fragment `a` of a 16 x 16 matrix (with two positions
+// block-diagonal: position 0's 8 x 8 block, then position 1's) and the 16
+// rows of Y
 // (columns yc..yc+63, the k index) as transposed B fragments
 __device__ __forceinline__ void v3_blockdiag_product(const uint32_t (&a)[4],
                                                      const uint16_t* sm, int rs,
@@ -495,13 +497,14 @@ __device__ __forceinline__ void v3_store_rows(uint16_t* sm, int rs, int col,
 }
 
 // columns 0..width-1 of the staged rows that exist to dst [B, T, N, width]
+template <int FR>
 __device__ __forceinline__ void v3_write(uint16_t* dst, int width,
                                          const uint16_t* sm, int rs, int p0,
                                          int positions, int frames, int n) {
   const int vecs = width / 8;
   for (int idx = threadIdx.x; idx < V3_ROWS * vecs; idx += blockDim.x) {
     const int r = idx / vecs, e = 8 * (idx % vecs);
-    const int u = r >> 3, t = r & 7, P = p0 + u;
+    const int u = r / FR, t = r % FR, P = p0 + u;
     if (t < frames && P < positions)
       *reinterpret_cast<uint4*>(dst + stream_row(P, t, frames, n) * width + e) =
           *reinterpret_cast<const uint4*>(sm + (size_t)r * rs + e);
@@ -509,11 +512,11 @@ __device__ __forceinline__ void v3_write(uint16_t* dst, int width,
 }
 
 // K2v3f.  Shared memory: the 16 rows of 3C (+ 8) values.  Each warp takes
-// heads warp, warp + 4, ...: logits of both positions (v3_pair_products),
-// the clamp softmax in registers, p packed as the block-diagonal A fragment
-// of O = P V; O goes over the head's consumed q columns and the CTA writes
-// the 16 output rows with 16-byte stores.  SAVE_P: p to probs.
-template <bool SAVE_P>
+// heads warp, warp + 4, ...: the logits (v3_products), the clamp softmax
+// in registers, p packed as the A fragment of O = P V (block-diagonal with
+// two positions); O goes over the head's consumed q columns and the CTA
+// writes the 16 output rows with 16-byte stores.  SAVE_P: p to probs.
+template <bool SAVE_P, int FR>
 __global__ void __launch_bounds__(V3_WARPS * 32)
 temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                        __nv_bfloat16* __restrict__ out,
@@ -522,40 +525,74 @@ temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sm = reinterpret_cast<uint16_t*>(smem_raw);
   const int c = heads * HEAD_DIM, rs = 3 * c + 8;
-  const int p0 = 2 * blockIdx.x;
-  v3_stage(sm, rs, 0, reinterpret_cast<const uint16_t*>(qkv), 3 * c, p0,
-           positions, frames, n);
+  const int p0 = blockIdx.x * (V3_ROWS / FR);
+  v3_stage<FR>(sm, rs, 0, reinterpret_cast<const uint16_t*>(qkv), 3 * c, p0,
+               positions, frames, n);
   cp_async_wait_all();
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
   const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  uint16_t* pg = reinterpret_cast<uint16_t*>(probs);
   for (int h = warp; h < heads; h += V3_WARPS) {
-    float sa[2], sb[2];
-    v3_pair_products(sm, rs, h * HEAD_DIM, c + h * HEAD_DIM, sa, sb);
-    // clamp softmax over each row's `frames` keys (a quad holds a row)
-    float ea[2], eb[2];
+    float s0[4], s1[4];
+    v3_products(sm, rs, h * HEAD_DIM, c + h * HEAD_DIM, s0, s1);
+    uint32_t a[4];
+    if constexpr (FR == 8) {
+      // clamp softmax over each row's `frames` keys (a quad holds a row)
+      float ea[2], eb[2];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool key = 2 * tig + e < frames;
-      ea[e] = key ? exp2f(fminf(sa[e] * scale2, hi2)) : 0.f;
-      eb[e] = key ? exp2f(fminf(sb[e] * scale2, hi2)) : 0.f;
-    }
-    const float ia = 1.f / quad_sum(ea[0] + ea[1]);
-    const float ib = 1.f / quad_sum(eb[0] + eb[1]);
-    const uint32_t a[4] = {pack_bf16x2(ea[0] * ia, ea[1] * ia), 0u, 0u,
-                           pack_bf16x2(eb[0] * ib, eb[1] * ib)};
-    if constexpr (SAVE_P) {
+      for (int e = 0; e < 2; ++e) {
+        const bool key = 2 * tig + e < frames;
+        ea[e] = key ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
+        eb[e] = key ? exp2f(fminf(s1[2 + e] * scale2, hi2)) : 0.f;
+      }
+      const float ia = 1.f / quad_sum(ea[0] + ea[1]);
+      const float ib = 1.f / quad_sum(eb[0] + eb[1]);
+      a[0] = pack_bf16x2(ea[0] * ia, ea[1] * ia);
+      a[1] = a[2] = 0u;
+      a[3] = pack_bf16x2(eb[0] * ib, eb[1] * ib);
+      if constexpr (SAVE_P) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int P = p0 + u;
-        if (P >= positions || gid >= frames) continue;
-        uint16_t* prow = reinterpret_cast<uint16_t*>(probs) +
-                         (((size_t)P * heads + h) * frames + gid) * frames;
-        const uint32_t w = u ? a[3] : a[0];
-        if (2 * tig < frames) prow[2 * tig] = (uint16_t)(w & 0xffffu);
-        if (2 * tig + 1 < frames) prow[2 * tig + 1] = (uint16_t)(w >> 16);
+        for (int u = 0; u < 2; ++u) {
+          const int P = p0 + u;
+          if (P >= positions || gid >= frames) continue;
+          uint16_t* prow = pg + (((size_t)P * heads + h) * frames + gid) * frames;
+          const uint32_t w = u ? a[3] : a[0];
+          if (2 * tig < frames) prow[2 * tig] = (uint16_t)(w & 0xffffu);
+          if (2 * tig + 1 < frames) prow[2 * tig + 1] = (uint16_t)(w >> 16);
+        }
+      }
+    } else {
+      // one position: rows lane/4 (e < 2) and lane/4 + 8 over key frames
+      // 2*(lane%4) + (e & 1) (s0) and 8 more (s1)
+      float e0[4], e1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key0 = 2 * tig + (e & 1) < frames;
+        const bool key1 = 8 + 2 * tig + (e & 1) < frames;
+        e0[e] = key0 ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
+        e1[e] = key1 ? exp2f(fminf(s1[e] * scale2, hi2)) : 0.f;
+      }
+      const float it = 1.f / quad_sum(e0[0] + e0[1] + e1[0] + e1[1]);
+      const float ib = 1.f / quad_sum(e0[2] + e0[3] + e1[2] + e1[3]);
+      a[0] = pack_bf16x2(e0[0] * it, e0[1] * it);
+      a[1] = pack_bf16x2(e0[2] * ib, e0[3] * ib);
+      a[2] = pack_bf16x2(e1[0] * it, e1[1] * it);
+      a[3] = pack_bf16x2(e1[2] * ib, e1[3] * ib);
+      if constexpr (SAVE_P) {
+        if (p0 < positions) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            // a[w]: row gid + 8 * (w & 1), key frames 8 * (w >> 1) + 2 * tig
+            const int t = gid + 8 * (w & 1), s = 8 * (w >> 1) + 2 * tig;
+            if (t >= frames) continue;
+            uint16_t* prow = pg + (((size_t)p0 * heads + h) * frames + t) * frames;
+            if (s < frames) prow[s] = (uint16_t)(a[w] & 0xffffu);
+            if (s + 1 < frames) prow[s + 1] = (uint16_t)(a[w] >> 16);
+          }
+        }
       }
     }
     float o[8][4];
@@ -563,17 +600,18 @@ temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     v3_store_rows(sm, rs, h * HEAD_DIM, o, 1.f);
   }
   __syncthreads();
-  v3_write(reinterpret_cast<uint16_t*>(out), c, sm, rs, p0, positions, frames,
-           n);
+  v3_write<FR>(reinterpret_cast<uint16_t*>(out), c, sm, rs, p0, positions,
+               frames, n);
 }
 
 // K2v3b.  Shared memory: the 16 rows of [q | k | v | g] (4C + 8 values),
-// then per warp two 16 x 16 tiles (ds, p) whose off-diagonal blocks stay
-// zero.  Per head: dp = g v^T (v3_pair_products), the saved p, D_t =
-// sum_s dp p over the quad, ds = p (dp - D); dv = p^T g and dk = ds^T q
-// with the transposes from the tiles by ldmatrix.trans, dq = ds k with ds
-// from registers; dv, dk and dq go over the head's consumed v, k and q
-// columns, and the CTA writes the 16 rows of 3C with 16-byte stores.
+// then per warp two 16 x 16 tiles (ds, p) whose unused blocks stay zero.
+// Per head: dp = g v^T (v3_products), the saved p, D_t = sum_s dp p over
+// the quad, ds = p (dp - D); dv = p^T g and dk = ds^T q with the transposes
+// from the tiles by ldmatrix.trans, dq = ds k with ds from registers; dv,
+// dk and dq go over the head's consumed v, k and q columns, and the CTA
+// writes the 16 rows of 3C with 16-byte stores.
+template <int FR>
 __global__ void __launch_bounds__(V3_WARPS * 32)
 temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                            const __nv_bfloat16* __restrict__ probs,
@@ -584,11 +622,11 @@ temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   uint16_t* sm = reinterpret_cast<uint16_t*>(smem_raw);
   const int c = heads * HEAD_DIM, c3 = 3 * c, rs = 4 * c + 8;
   uint16_t* tiles = sm + (size_t)V3_ROWS * rs;
-  const int p0 = 2 * blockIdx.x;
-  v3_stage(sm, rs, 0, reinterpret_cast<const uint16_t*>(qkv), c3, p0,
-           positions, frames, n);
-  v3_stage(sm, rs, c3, reinterpret_cast<const uint16_t*>(g), c, p0, positions,
-           frames, n);
+  const int p0 = blockIdx.x * (V3_ROWS / FR);
+  v3_stage<FR>(sm, rs, 0, reinterpret_cast<const uint16_t*>(qkv), c3, p0,
+               positions, frames, n);
+  v3_stage<FR>(sm, rs, c3, reinterpret_cast<const uint16_t*>(g), c, p0,
+               positions, frames, n);
   for (int idx = threadIdx.x; idx < V3_WARPS * 2 * V3_ROWS * V3_TS / 8;
        idx += blockDim.x)
     reinterpret_cast<uint4*>(tiles)[idx] = make_uint4(0u, 0u, 0u, 0u);
@@ -605,31 +643,72 @@ temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   // fragment
   const int tt = ((ltile >> 1) * 8 + lrow) * V3_TS + (ltile & 1) * 8;
   for (int h = warp; h < heads; h += V3_WARPS) {
-    float dpa[2], dpb[2];
-    v3_pair_products(sm, rs, c3 + h * HEAD_DIM, 2 * c + h * HEAD_DIM, dpa, dpb);
-    // the saved p of this thread's rows (frame lane/4 of both positions)
-    float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
+    float dp0[4], dp1[4];
+    v3_products(sm, rs, c3 + h * HEAD_DIM, 2 * c + h * HEAD_DIM, dp0, dp1);
+    uint32_t ds[4], pw[4];
+    if constexpr (FR == 8) {
+      const float dpa[2] = {dp0[0], dp0[1]}, dpb[2] = {dp1[2], dp1[3]};
+      // the saved p of this thread's rows (frame lane/4 of both positions)
+      float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int P = p0 + u;
-      if (P >= positions || gid >= frames) continue;
-      const uint16_t* prow = pg + (((size_t)P * heads + h) * frames + gid) * frames;
+      for (int u = 0; u < 2; ++u) {
+        const int P = p0 + u;
+        if (P >= positions || gid >= frames) continue;
+        const uint16_t* prow = pg + (((size_t)P * heads + h) * frames + gid) * frames;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (2 * tig + e >= frames) continue;
-        const float v = __uint_as_float((uint32_t)prow[2 * tig + e] << 16);
-        if (u) pb[e] = v; else pa[e] = v;
+        for (int e = 0; e < 2; ++e) {
+          if (2 * tig + e >= frames) continue;
+          const float v = __uint_as_float((uint32_t)prow[2 * tig + e] << 16);
+          if (u) pb[e] = v; else pa[e] = v;
+        }
+      }
+      const float da = quad_sum(fmaf(dpa[0], pa[0], dpa[1] * pa[1]));
+      const float db = quad_sum(fmaf(dpb[0], pb[0], dpb[1] * pb[1]));
+      ds[0] = pack_bf16x2(pa[0] * (dpa[0] - da), pa[1] * (dpa[1] - da));
+      ds[3] = pack_bf16x2(pb[0] * (dpb[0] - db), pb[1] * (dpb[1] - db));
+      ds[1] = ds[2] = 0u;
+      pw[0] = pack_bf16x2(pa[0], pa[1]);
+      pw[3] = pack_bf16x2(pb[0], pb[1]);
+      pw[1] = pw[2] = 0u;
+    } else {
+      // one position: p[w] of row gid + 8 * (w & 1) over key frames
+      // 8 * (w >> 1) + 2 * tig and + 1 (the A fragment order)
+      float p[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+      if (p0 < positions) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int t = gid + 8 * (w & 1), s = 8 * (w >> 1) + 2 * tig;
+          if (t >= frames) continue;
+          const uint16_t* prow = pg + (((size_t)p0 * heads + h) * frames + t) * frames;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (s + e < frames)
+              p[w][e] = __uint_as_float((uint32_t)prow[s + e] << 16);
+        }
+      }
+      // dp in the same order: w = 0 rows gid s0[0..1], 1 rows gid + 8
+      // s0[2..3], 2 rows gid s1[0..1], 3 rows gid + 8 s1[2..3]
+      const float dp[4][2] = {{dp0[0], dp0[1]}, {dp0[2], dp0[3]},
+                              {dp1[0], dp1[1]}, {dp1[2], dp1[3]}};
+      const float dtop = quad_sum(fmaf(dp[0][0], p[0][0], dp[0][1] * p[0][1]) +
+                                  fmaf(dp[2][0], p[2][0], dp[2][1] * p[2][1]));
+      const float dbot = quad_sum(fmaf(dp[1][0], p[1][0], dp[1][1] * p[1][1]) +
+                                  fmaf(dp[3][0], p[3][0], dp[3][1] * p[3][1]));
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float dd = (w & 1) ? dbot : dtop;
+        ds[w] = pack_bf16x2(p[w][0] * (dp[w][0] - dd), p[w][1] * (dp[w][1] - dd));
+        pw[w] = pack_bf16x2(p[w][0], p[w][1]);
       }
     }
-    const float da = quad_sum(fmaf(dpa[0], pa[0], dpa[1] * pa[1]));
-    const float db = quad_sum(fmaf(dpb[0], pb[0], dpb[1] * pb[1]));
-    const uint32_t dsa = pack_bf16x2(pa[0] * (dpa[0] - da), pa[1] * (dpa[1] - da));
-    const uint32_t dsb = pack_bf16x2(pb[0] * (dpb[0] - db), pb[1] * (dpb[1] - db));
-    *reinterpret_cast<uint32_t*>(ds_t + gid * V3_TS + 2 * tig) = dsa;
-    *reinterpret_cast<uint32_t*>(ds_t + (8 + gid) * V3_TS + 8 + 2 * tig) = dsb;
-    *reinterpret_cast<uint32_t*>(p_t + gid * V3_TS + 2 * tig) = pack_bf16x2(pa[0], pa[1]);
-    *reinterpret_cast<uint32_t*>(p_t + (8 + gid) * V3_TS + 8 + 2 * tig) =
-        pack_bf16x2(pb[0], pb[1]);
+    // the tiles: fragment w covers rows gid + 8 * (w & 1), columns
+    // 8 * (w >> 1) + 2 * tig
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int off = (gid + 8 * (w & 1)) * V3_TS + 8 * (w >> 1) + 2 * tig;
+      *reinterpret_cast<uint32_t*>(ds_t + off) = ds[w];
+      *reinterpret_cast<uint32_t*>(p_t + off) = pw[w];
+    }
     __syncwarp();
     float acc[8][4], dq[8][4];
     uint32_t at[4];
@@ -638,8 +717,7 @@ temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     v3_blockdiag_product(at, sm, rs, c3 + h * HEAD_DIM, acc);
     v3_store_rows(sm, rs, 2 * c + h * HEAD_DIM, acc, 1.f);
     // dq = ds k (kept until q is consumed), dk = ds^T q over the k columns
-    const uint32_t a[4] = {dsa, 0u, 0u, dsb};
-    v3_blockdiag_product(a, sm, rs, c + h * HEAD_DIM, dq);
+    v3_blockdiag_product(ds, sm, rs, c + h * HEAD_DIM, dq);
     ldsm_x4_t(at, ds_t + tt);
     v3_blockdiag_product(at, sm, rs, h * HEAD_DIM, acc);
     v3_store_rows(sm, rs, c + h * HEAD_DIM, acc, scale);
@@ -647,36 +725,37 @@ temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     __syncwarp();  // the tiles are rewritten for the next head
   }
   __syncthreads();
-  v3_write(reinterpret_cast<uint16_t*>(dqkv), c3, sm, rs, p0, positions,
-           frames, n);
+  v3_write<FR>(reinterpret_cast<uint16_t*>(dqkv), c3, sm, rs, p0, positions,
+               frames, n);
 }
 
-template <bool SAVE_P>
+template <bool SAVE_P, int FR>
 cudaError_t launch_v3(const void* qkv, void* out, void* probs, int batch,
                       int frames, int n, int heads, float scale,
                       cudaStream_t stream) {
-  const int positions = batch * n;
+  const int positions = batch * n, per = V3_ROWS / FR;
   const size_t smem = (size_t)V3_ROWS * (3 * heads * HEAD_DIM + 8) * 2;
-  cudaError_t err = set_smem(temporal_v3_mma_kernel<SAVE_P>, smem);
+  cudaError_t err = set_smem(temporal_v3_mma_kernel<SAVE_P, FR>, smem);
   if (err != cudaSuccess) return err;
-  temporal_v3_mma_kernel<SAVE_P><<<(positions + 1) / 2, V3_WARPS * 32, smem,
-                                   stream>>>(
+  temporal_v3_mma_kernel<SAVE_P, FR><<<(positions + per - 1) / per,
+                                       V3_WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
       static_cast<__nv_bfloat16*>(probs), frames, n, heads, positions, scale);
   return cudaGetLastError();
 }
 
+template <int FR>
 cudaError_t launch_v3_bwd(const void* qkv, const void* probs, const void* g,
                           void* dqkv, int batch, int frames, int n, int heads,
                           float scale, cudaStream_t stream) {
-  const int positions = batch * n;
+  const int positions = batch * n, per = V3_ROWS / FR;
   const size_t smem = (size_t)V3_ROWS * (4 * heads * HEAD_DIM + 8) * 2 +
                       (size_t)V3_WARPS * 2 * V3_ROWS * V3_TS * 2;
-  cudaError_t err = set_smem(temporal_v3_bwd_mma_kernel, smem);
+  cudaError_t err = set_smem(temporal_v3_bwd_mma_kernel<FR>, smem);
   if (err != cudaSuccess) return err;
   using bf = __nv_bfloat16;
-  temporal_v3_bwd_mma_kernel<<<(positions + 1) / 2, V3_WARPS * 32, smem,
-                               stream>>>(
+  temporal_v3_bwd_mma_kernel<FR><<<(positions + per - 1) / per,
+                                   V3_WARPS * 32, smem, stream>>>(
       static_cast<const bf*>(qkv), static_cast<const bf*>(probs),
       static_cast<const bf*>(g), static_cast<bf*>(dqkv), frames, n, heads,
       positions, scale);
@@ -720,9 +799,9 @@ extern "C" int temporal_attention_bwd(const void* qkv, const void* g,
 }
 
 // K2v3f: K2f that writes p [B, N, H, T, T] in the value dtype (probs null:
-// no store, the evaluation forward).  bf16 needs frames <= 8 (two positions
-// per 16-row tensor-core tile) and a 16 x (3C + 8) staging tile, 74 KB at
-// C = 768; fp32 runs K2f's scalar kernel with the store.
+// no store, the evaluation forward).  bf16 stages a 16 x (3C + 8) tile, 74
+// KB at C = 768: two positions per 16-row tensor-core tile for frames <= 8,
+// one for 9..16; fp32 runs K2f's scalar kernel with the store.
 extern "C" int temporal_attention_v3_fwd(const void* qkv, void* out,
                                          void* probs, int batch, int frames,
                                          int n, int heads, int dtype,
@@ -734,15 +813,20 @@ extern "C" int temporal_attention_v3_fwd(const void* qkv, void* out,
                                              heads, scale, st)
                        : launch<float, false>(qkv, out, nullptr, batch, frames,
                                               n, heads, scale, st));
-  if (dtype != 1 || frames > 8) return (int)cudaErrorInvalidValue;
-  return (int)(probs ? launch_v3<true>(qkv, out, probs, batch, frames, n,
-                                       heads, scale, st)
-                     : launch_v3<false>(qkv, out, nullptr, batch, frames, n,
-                                        heads, scale, st));
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (frames > 8)
+    return (int)(probs ? launch_v3<true, 16>(qkv, out, probs, batch, frames, n,
+                                             heads, scale, st)
+                       : launch_v3<false, 16>(qkv, out, nullptr, batch, frames,
+                                              n, heads, scale, st));
+  return (int)(probs ? launch_v3<true, 8>(qkv, out, probs, batch, frames, n,
+                                          heads, scale, st)
+                     : launch_v3<false, 8>(qkv, out, nullptr, batch, frames, n,
+                                           heads, scale, st));
 }
 
 // K2v3b: dqkv [B, T, N, 3C] from qkv, K2v3f's probabilities and g
-// [B, T, N, C]; bf16 needs frames <= 8 (104 KB of shared memory at C = 768).
+// [B, T, N, C]; bf16 takes 104 KB of shared memory at C = 768.
 extern "C" int temporal_attention_v3_bwd(const void* qkv, const void* probs,
                                          const void* g, void* dqkv, int batch,
                                          int frames, int n, int heads,
@@ -753,7 +837,9 @@ extern "C" int temporal_attention_v3_bwd(const void* qkv, const void* probs,
   if (dtype == 0)
     return (int)launch_bwd<float, true>(qkv, g, probs, dqkv, batch, frames, n,
                                         heads, scale, st);
-  if (dtype != 1 || frames > 8) return (int)cudaErrorInvalidValue;
-  return (int)launch_v3_bwd(qkv, probs, g, dqkv, batch, frames, n, heads,
-                            scale, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)(frames > 8 ? launch_v3_bwd<16>(qkv, probs, g, dqkv, batch,
+                                              frames, n, heads, scale, st)
+                          : launch_v3_bwd<8>(qkv, probs, g, dqkv, batch,
+                                             frames, n, heads, scale, st));
 }

@@ -70,7 +70,8 @@ def _head_kwargs(cfg) -> dict:
 
 def _build_timesformer(cfg) -> torch.nn.Module:
     """TimeSformer-B (reference ``lib/models/vit.py:473-506``) on the
-    attention route the environment's knobs select, read here once."""
+    attention route that ``TPU.USE_PALLAS_ATTENTION`` and the environment's
+    knobs select, read here once."""
     from procedurevrl_torch.models.procedurevrl import ProcedureVRL
     from procedurevrl_torch.ops.attention_route import AttentionRoute
 
@@ -80,7 +81,8 @@ def _build_timesformer(cfg) -> torch.nn.Module:
         num_frames=cfg.DATA.NUM_FRAMES,
         attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
         drop_path_rate=cfg.MODEL.DROP_PATH, remat=cfg.TPU.REMAT,
-        route=AttentionRoute.from_env(), **_head_kwargs(cfg))
+        route=AttentionRoute.from_env(cfg.TPU.USE_PALLAS_ATTENTION),
+        **_head_kwargs(cfg))
 
 
 def _build_mvit(cfg) -> torch.nn.Module:

@@ -14,10 +14,13 @@ PyTorch.  Parameters carry the reference ``.pyth`` names
 ``blocks.{i}.attn.rel_pos_h`` ...), which ``convert_mvit`` of the JAX
 package reads.
 
-Two of the JAX package's environment knobs are copied, because they are
-its only routes to two of its kernels; :meth:`MViTConfig.from_cfg` reads
-them once, so a built model's route is fixed:
+The JAX package's switches that select a kernel are copied, because they
+are its only routes to them; :meth:`MViTRoute.from_env` reads them once,
+when :meth:`MViTConfig.from_cfg` runs, so a built model's route is fixed
+and every block carries the same :class:`MViTRoute`:
 
+- ``TPU.USE_PALLAS_ATTENTION`` (config, default True): False sends every
+  block to the plain logits path (JAX ``mvit.py:751-757``).
 - ``MVIT_POOL`` = ``conv`` (default), ``kernel`` or ``taps``: with
   ``kernel`` the stride-1 3x3x3 pools go through the port's K8
   (``ops/depthwise_pool.py``), with ``taps`` through its plain tap
@@ -27,8 +30,16 @@ them once, so a built model's route is fixed:
 - ``MVIT_KT`` (boolean, default off): wide-key blocks that ``hl_supported``
   rejects go to K7 where ``kt_supported`` holds, else to K6 (JAX
   ``mvit.py:656-693``).
+- ``MVIT_DELTA`` (boolean, default off): the K5 and K6 backwards take
+  D_i = g_i . o_i from the saved output, K5bd and K6bd (JAX
+  ``pallas_mvit_attention.py:531-547``).
+- ``MVIT_SAVE_PROBS`` (boolean, default off): the K6 blocks save their
+  probabilities in the forward (K6sp) and the backward reads them (K6bs);
+  it takes precedence over ``MVIT_DELTA`` there, and K5 has no such form
+  (:517-528, :616-645).
 
-The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
+``MVIT_SHIFT`` other than ``clamp`` raises (the kernels take only the clamp
+shift).  The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
 ``MVIT_SAVE_REL``, ``MVIT_HL``) are not copied.
 """
 
@@ -49,6 +60,7 @@ from procedurevrl_torch.models.layers import (
 )
 from procedurevrl_torch.ops import depthwise_pool as dpool
 from procedurevrl_torch.ops import mvit_attention as mattn
+from procedurevrl_torch.ops.attention_route import check_shift
 from procedurevrl_torch.ops.common import (
     grouped_layer_norm_fp32, layer_norm_fp32, trunc_normal_init,
 )
@@ -65,6 +77,29 @@ def pool_route_from_env() -> str:
     if route not in POOL_ROUTES:
         raise ValueError(f"MVIT_POOL={route!r} is not one of {POOL_ROUTES}")
     return route
+
+
+@dataclass(frozen=True)
+class MViTRoute:
+    pool: str = "conv"          # MVIT_POOL
+    kt: bool = False            # MVIT_KT
+    use_pallas: bool = True     # TPU.USE_PALLAS_ATTENTION
+    delta: bool = False         # MVIT_DELTA
+    save_probs: bool = False    # MVIT_SAVE_PROBS
+
+    @classmethod
+    def from_env(cls, use_pallas: bool = True) -> "MViTRoute":
+        """The route the environment selects (``use_pallas`` from the
+        config); a malformed knob raises ``ValueError``, one the port
+        cannot honour ``NotImplementedError``."""
+        check_shift("MVIT_SHIFT")
+        return cls(pool=pool_route_from_env(), kt=env_flag("MVIT_KT", False),
+                   use_pallas=bool(use_pallas),
+                   delta=env_flag("MVIT_DELTA", False),
+                   save_probs=env_flag("MVIT_SAVE_PROBS", False))
+
+
+DEFAULT_ROUTE = MViTRoute()
 
 
 def round_width(width, multiplier, min_width=1, divisor=1) -> int:
@@ -112,11 +147,14 @@ class MViTConfig:
     pool_kv_stride_adaptive: Optional[Tuple] = None
     pool_kvq_kernel: Optional[Tuple] = None
     norm_stem: bool = False
-    pool_route: str = "conv"   # MVIT_POOL
-    kt: bool = False           # MVIT_KT
+    route: MViTRoute = DEFAULT_ROUTE
 
     @classmethod
     def from_cfg(cls, cfg) -> "MViTConfig":
+        """The configuration of ``cfg`` on the route the environment's
+        knobs select; a malformed knob raises ``ValueError``, one the port
+        cannot honour ``NotImplementedError``."""
+        route = MViTRoute.from_env(cfg.TPU.USE_PALLAS_ATTENTION)
         m = cfg.MVIT
         opt = lambda v: None if v is None else tuple(v)
         return cls(
@@ -142,8 +180,7 @@ class MViTConfig:
             pool_kv_stride_adaptive=opt(m.POOL_KV_STRIDE_ADAPTIVE),
             pool_kvq_kernel=opt(m.POOL_KVQ_KERNEL),
             norm_stem=m.NORM_STEM,
-            pool_route=pool_route_from_env(),
-            kt=env_flag("MVIT_KT", False),
+            route=route,
         )
 
     def block_schedule(self):
@@ -425,10 +462,10 @@ class MultiScaleAttention(nn.Module):
     """Pooled multi-scale attention (reference ``attention.py:162-442``;
     the shipped configs use mode='conv', pool_first=False, fused qkv).
 
-    Blocks with rel-pos on both axes, a CLS token, qN >= ``MIN_FUSED_QN``
-    and kN <= ``MAX_FUSED_KN`` take the kernels, as the reference routes
-    them; the rest run the plain logits path.  ``pool_route`` is
-    ``MVIT_POOL`` for the conv pools, ``kt`` is ``MVIT_KT``."""
+    With ``route.use_pallas``, blocks with rel-pos on both axes, a CLS
+    token, qN >= ``MIN_FUSED_QN`` and kN <= ``MAX_FUSED_KN`` take the
+    kernels, as the reference routes them; the rest run the plain logits
+    path.  ``route`` also picks the conv pools' path and the kernels."""
 
     def __init__(self, dim: int, dim_out: int, input_size: Thw,
                  num_heads: int = 8, qkv_bias: bool = False,
@@ -436,8 +473,8 @@ class MultiScaleAttention(nn.Module):
                  mode: str = "conv", has_cls_embed: bool = True,
                  rel_pos_spatial: bool = False,
                  rel_pos_temporal: bool = False,
-                 residual_pooling: bool = False, pool_route: str = "conv",
-                 kt: bool = False):
+                 residual_pooling: bool = False,
+                 route: MViTRoute = DEFAULT_ROUTE):
         super().__init__()
         if mode not in ("conv", "max", "avg"):
             raise NotImplementedError(f"MViT pooling mode {mode!r}")
@@ -446,7 +483,7 @@ class MultiScaleAttention(nn.Module):
         self.mode = mode
         self.has_cls_embed = has_cls_embed
         self.residual_pooling = residual_pooling
-        self.kt = kt
+        self.route = route
         self.pool_geometry = {"q": (tuple(kernel_q), tuple(stride_q)),
                               "k": (tuple(kernel_kv), tuple(stride_kv)),
                               "v": (tuple(kernel_kv), tuple(stride_kv))}
@@ -457,7 +494,7 @@ class MultiScaleAttention(nn.Module):
             if mode == "conv" and _pools(kernel, stride):
                 setattr(self, f"pool_{name}",
                         DepthwisePool3D(head_dim, kernel, stride, num_heads,
-                                        pool_route))
+                                        route.pool))
                 setattr(self, f"norm_{name}",
                         GroupedLayerNorm(head_dim, num_heads))
         self.rel_pos_h = self.rel_pos_w = self.rel_pos_t = None
@@ -513,9 +550,10 @@ class MultiScaleAttention(nn.Module):
     def _fused_attention(self, q, k, v, q_shape: Thw, k_shape: Thw,
                          scale: float) -> torch.Tensor:
         """Body queries through K5 (head-last), or where the reference's
-        ``hl_supported`` fails through K7 (with ``kt`` and
-        ``kt_supported``) or K6 (head-split); the CLS query row in plain
-        PyTorch; returns [B, 1 + qN, C]."""
+        ``hl_supported`` fails through K7 (with ``route.kt`` and
+        ``kt_supported``) or K6 (head-split), each entry on the backward
+        ``route.delta`` / ``route.save_probs`` select; the CLS query row in
+        plain PyTorch; returns [B, 1 + qN, C]."""
         B, _, C = q.shape
         H = self.num_heads
         d = C // H
@@ -533,14 +571,17 @@ class MultiScaleAttention(nn.Module):
                      (self.rel_pos_w, "w", q_shape[2], k_shape[2]))]
         rel = torch.cat(terms, dim=-1).reshape(B, qn, -1)
         body = [t.contiguous() for t in (qb, kb, vb, kc, vc, rel)]
+        route = self.route
         if mattn.hl_supported(kb.shape[1], C, H):
-            out_body = mattn.mvit_attention_hl(*body, k_shape, H, scale)
-        elif self.kt and mattn.kt_supported(C, H):
+            out_body = mattn.mvit_attention_hl(*body, k_shape, H, scale,
+                                               route.delta)
+        elif route.kt and mattn.kt_supported(C, H):
             out_body = mattn.mvit_attention_kt(*body, k_shape, H, scale)
         else:
             fold = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(
                 1, 2).reshape(B * H, t.shape[1], -1).contiguous()
-            out_body = mattn.mvit_attention(*map(fold, body), k_shape, scale)
+            out_body = mattn.mvit_attention(*map(fold, body), k_shape, scale,
+                                            route.delta, route.save_probs)
             out_body = out_body.reshape(B, H, qn, d).transpose(1, 2).reshape(
                 B, qn, C)
         # the CLS query: one row over the cls-first key set, no bias, a
@@ -580,7 +621,7 @@ class MultiScaleAttention(nn.Module):
         q, q_shape = self._pool("q", q, thw)
         k, k_shape = self._pool("k", k, thw)
         v, _ = self._pool("v", v, thw)
-        use_fused = (self.rel_pos_h is not None
+        use_fused = (self.route.use_pallas and self.rel_pos_h is not None
                      and self.rel_pos_t is not None and self.has_cls_embed
                      and int(np.prod(q_shape)) >= mattn.MIN_FUSED_QN
                      and int(np.prod(k_shape)) <= mattn.MAX_FUSED_KN)
@@ -608,8 +649,8 @@ class MultiScaleBlock(nn.Module):
                  rel_pos_spatial: bool = False,
                  rel_pos_temporal: bool = False,
                  residual_pooling: bool = False,
-                 dim_mul_in_att: bool = False, pool_route: str = "conv",
-                 kt: bool = False):
+                 dim_mul_in_att: bool = False,
+                 route: MViTRoute = DEFAULT_ROUTE):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
         self.dim_mul_in_att = dim_mul_in_att
@@ -620,8 +661,7 @@ class MultiScaleBlock(nn.Module):
         self.attn = MultiScaleAttention(
             dim, att_dim, input_size, num_heads, qkv_bias, kernel_q,
             kernel_kv, stride_q, stride_kv, mode, has_cls_embed,
-            rel_pos_spatial, rel_pos_temporal, residual_pooling, pool_route,
-            kt)
+            rel_pos_spatial, rel_pos_temporal, residual_pooling, route)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = LayerNormFp32(att_dim, eps=1e-6)
         self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out)
@@ -729,7 +769,7 @@ class MViTEncoder(nn.Module):
                 rel_pos_temporal=cfg.rel_pos_temporal,
                 residual_pooling=cfg.residual_pooling,
                 dim_mul_in_att=cfg.dim_mul_in_att,
-                pool_route=cfg.pool_route, kt=cfg.kt)
+                route=cfg.route)
             for i, spec in enumerate(plan)])
         self.norm = LayerNormFp32(final_dim, eps=1e-6)
 

@@ -33,7 +33,7 @@ from procedurevrl_torch.models.layers import Linear, init_linear
 from procedurevrl_torch.models.mvit import MViTConfig, MViTEncoder
 from procedurevrl_torch.models.order_transformer import OrderTransformer
 from procedurevrl_torch.models.timesformer import TimeSformer
-from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
+from procedurevrl_torch.ops.attention_route import AttentionRoute
 
 _LATER = ("not ported yet: forecasting and the finetuning heads come with "
           "later slices")
@@ -190,7 +190,7 @@ class ProcedureVRL(_Heads, TimeSformer):
                  num_frames: int = 8,
                  attention_type: str = "divided_space_time",
                  drop_path_rate: float = 0.1, remat: bool = False,
-                 route: AttentionRoute = DEFAULT_ROUTE, **heads):
+                 route: Optional[AttentionRoute] = None, **heads):
         TimeSformer.__init__(self, img_size=img_size, patch_size=patch_size,
                              embed_dim=embed_dim, depth=depth,
                              num_heads=num_heads, num_frames=num_frames,

@@ -129,8 +129,9 @@ class TimeSformer(nn.Module):
     backward, attention kernels included (the JAX package keeps the
     attention outputs and probabilities across its remat; a selective
     policy is later work).  The masks are drawn before the block, so the
-    recomputation reapplies them.  ``route`` picks the attention kernels
-    (``ops/attention_route.py``)."""
+    recomputation reapplies them.  ``route`` picks the attention paths and
+    kernels (``ops/attention_route.py``); by default the environment's
+    knobs, read here once."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -138,8 +139,10 @@ class TimeSformer(nn.Module):
                  num_frames: int = 8,
                  attention_type: str = "divided_space_time",
                  drop_path_rate: float = 0.1, norm_eps: float = 1e-6,
-                 remat: bool = False, route: AttentionRoute = DEFAULT_ROUTE):
+                 remat: bool = False, route: Optional[AttentionRoute] = None):
         super().__init__()
+        if route is None:
+            route = AttentionRoute.from_env()
         if attention_type != "divided_space_time":
             raise NotImplementedError(
                 f"{attention_type} attention is not ported yet")

@@ -59,6 +59,9 @@ ENTRY_POINTS = {
         "mvit_attention_bwd": [_P] * 15 + [_I] * 8 + [_F, _P],
         "mvit_attention_kt_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
         "mvit_attention_kt_bwd": [_P] * 16 + [_I] * 8 + [_F, _P],
+        "mvit_attention_fwd_probs": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "mvit_attention_bwd_delta": [_P] * 16 + [_I] * 8 + [_F, _P],
+        "mvit_attention_bwd_probs": [_P] * 15 + [_I] * 8 + [_F, _P],
     },
     "depthwise_pool": {
         "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 6 + [_L, _L, _I, _P],

@@ -21,6 +21,12 @@ are cast to the activation dtype at each product, as the JAX package casts
   K2v3f and K2v3b on ``TEMPORAL_BATCHED``).
 Both kernels use the clamp shift ``exp(min(s, 80))`` of the JAX package's
 Pallas kernels, which equals the row-max softmax while logits stay below 80.
+
+Whether a pass takes its kernel is the JAX package's shape rule, decided
+before any launch (:func:`takes_k1`, :func:`takes_k2`); otherwise it runs
+the plain row-max path, as JAX runs its XLA path.  One range stays open:
+for 208 < N + 1 <= 1025 JAX runs its spatial kernel, but K1 has no
+geometry there, so the port's K1 wrappers raise on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +39,59 @@ import torch.nn.functional as F
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
+
+# The JAX package's shape rules, copied (``pallas_attention.py:46``, :158-175,
+# :1586-1612; its frame limit :1566 is ``k2.MAX_T``): the bounds model the
+# TPU's VMEM and lane tiling, and the port keeps them so that each pass
+# takes the path JAX takes.
+MAX_FUSED_LEN = 1024
+
+
+def heads_per_block(d: int, num_heads: int) -> int:
+    """Heads per 128-lane block of the JAX spatial kernel, 0 when the
+    shape has none."""
+    hpb = 1
+    while (d * hpb) % 128 != 0 and hpb < num_heads:
+        hpb += 1
+    if (d * hpb) % 128 != 0 or num_heads % hpb != 0:
+        return 0
+    return hpb
+
+
+def temporal_geometry(n: int, d: int, num_heads: int, t: int,
+                      itemsize: int, batched: bool) -> Tuple[int, int, int]:
+    """(heads per block, lane width, n tile) of the JAX temporal kernel,
+    (0, 0, 0) when none fits its VMEM budget (``batched``: the v3 pair's
+    extra scratch)."""
+    budget = 10 * 2 ** 20
+    extra = 14 if batched else 0
+    for nt in (min(n, 256), 128, 64):
+        if nt > n:
+            continue
+        for hpb in (1, 2, 4, 8):
+            if num_heads % hpb or (d * hpb) % 128 or t * hpb > 128:
+                continue
+            w = d * hpb
+            if (8 * 2 * itemsize + extra) * t * nt * w <= budget:
+                return hpb, w, nt
+    return 0, 0, 0
+
+
+def takes_k1(n: int, c: int, num_heads: int, route: AttentionRoute) -> bool:
+    """Whether the spatial pass over N frame tokens takes K1 (JAX
+    ``ops/attention.py:184-188``)."""
+    return (route.use_pallas and route.min_len <= n <= MAX_FUSED_LEN
+            and heads_per_block(c // num_heads, num_heads) > 0)
+
+
+def takes_k2(t: int, n: int, c: int, num_heads: int, itemsize: int,
+             route: AttentionRoute) -> bool:
+    """Whether the temporal pass over T frames takes K2 (JAX
+    ``ops/attention.py:247-258``)."""
+    return (route.use_pallas and route.temporal_pallas
+            and t <= k2.MAX_T
+            and temporal_geometry(n, c // num_heads, num_heads, t,
+                                  itemsize, route.temporal_batched)[0] > 0)
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor,
@@ -92,8 +151,15 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
     """Spatial self-attention with the CLS token as a separate stream.
 
     x [BT, N, C] frame tokens, cls_x [BT, 1, C]; every query attends over
-    [cls; frames].  Returns (frame_out [BT, N, C], cls_out [BT, 1, C])."""
-    d = x.shape[-1] // num_heads
+    [cls; frames].  Returns (frame_out [BT, N, C], cls_out [BT, 1, C]).
+    Where :func:`takes_k1` fails, [cls; frames] goes through
+    :func:`mhsa_xla` (JAX ``ops/attention.py:220-223``)."""
+    c = x.shape[-1]
+    if not takes_k1(x.shape[1], c, num_heads, route):
+        out = mhsa_xla(torch.cat([cls_x, x], dim=1), qkv_w, qkv_b, proj_w,
+                       proj_b, num_heads)
+        return out[:, 1:], out[:, :1]
+    d = c // num_heads
     qkv = _linear(x, qkv_w, qkv_b)
     qkv_c = _linear(cls_x, qkv_w, qkv_b)
     out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, num_heads,
@@ -105,8 +171,16 @@ def mhsa_temporal(x: torch.Tensor, qkv_w: torch.Tensor,
                   qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
                   proj_b: torch.Tensor, num_heads: int,
                   route: AttentionRoute = DEFAULT_ROUTE) -> torch.Tensor:
-    """Self-attention over axis 1 of the time-major stream x [B, T, N, C]."""
-    d = x.shape[-1] // num_heads
+    """Self-attention over axis 1 of the time-major stream x [B, T, N, C].
+    Where :func:`takes_k2` fails, :func:`mhsa_xla` on the [B*N, T, C]
+    transpose, one explicit (T, N) transpose each way (JAX
+    ``ops/attention.py:282-285``)."""
+    b, t, n, c = x.shape
+    if not takes_k2(t, n, c, num_heads, x.element_size(), route):
+        xt = x.transpose(1, 2).reshape(b * n, t, c)
+        out = mhsa_xla(xt, qkv_w, qkv_b, proj_w, proj_b, num_heads)
+        return out.reshape(b, n, t, c).transpose(1, 2).contiguous()
+    d = c // num_heads
     qkv = _linear(x, qkv_w, qkv_b)  # [B, T, N, 3C], read in place by K2
     out = k2.temporal_attention_autograd(qkv, num_heads, d ** -0.5, route)
     return _linear(out, proj_w, proj_b)

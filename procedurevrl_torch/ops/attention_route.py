@@ -1,6 +1,18 @@
-"""Which kernels carry TimeSformer's attention: the JAX package's knobs of
+"""Which path carries TimeSformer's attention: the JAX package's switches of
+``procedurevrl_tpu/ops/attention.py`` and its knobs of
 ``procedurevrl_tpu/ops/pallas_attention.py``, read once when a model is
 built.
+
+Whether a kernel runs at all (``ops/attention.py`` applies the shape rules):
+
+- ``TPU.USE_PALLAS_ATTENTION`` (config, default True): False takes the
+  plain row-max paths for both passes, as JAX's XLA paths.
+- ``PALLAS_MIN_LEN`` (default 128, JAX ``ops/attention.py:25-29``): the
+  spatial pass takes K1 only for ``PALLAS_MIN_LEN <= N <= 1024``.
+- ``TEMPORAL_PALLAS`` (default 1, JAX ``ops/attention.py:247``): 0 takes the
+  plain path for the temporal pass.
+
+Which kernels, once one runs:
 
 - ``SPATIAL_SAVE_PROBS`` (default 1, :868): under grad the forward saves the
   probabilities (K1sp) and the backward reads them (K1b); 0 takes the
@@ -16,9 +28,15 @@ built.
 - ``TEMPORAL_BATCHED`` (default 0, :1476): the temporal pair K2v3f / K2v3b
   (saved probabilities) in place of K2f / K2b, evaluation included.
 
-``SPATIAL_MXU_DSUM`` (:876) and ``PALLAS_SP_GB`` (:851) only choose the
-TPU's tiling or summation order of the same function: they select no
-kernel, and the port does not read them.
+Knobs the port refuses, because they select a function or a kernel it does
+not have: ``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` other than ``clamp``
+(:119, :1362; the port's kernels take only the clamp shift, and a value
+outside ``max|clamp|none`` is malformed), and ``SPATIAL_FUSED_QKV=0`` (the
+split-projection kernel K3 is not ported).
+
+``SPATIAL_MXU_DSUM`` (:876), ``PALLAS_SP_GB`` (:851) and ``PALLAS_HPB``
+(:161) only choose the TPU's tiling or summation order of the same
+function: they select no kernel, and the port does not read them.
 
 JAX reads the knobs each time it traces; the port reads them once, in
 :meth:`AttentionRoute.from_env`, when the model is built, and carries the
@@ -27,9 +45,26 @@ route down to the attention entries.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from procedurevrl_torch.utils.env import env_flag, env_int
+
+SHIFTS = ("max", "clamp", "none")
+
+
+def check_shift(name: str) -> None:
+    """A softmax-shift knob (``SPATIAL_SHIFT``, ``TEMPORAL_SHIFT``,
+    ``MVIT_SHIFT``): ``clamp`` (the default) is the port's; ``max`` and
+    ``none`` raise ``NotImplementedError``; anything else ``ValueError``,
+    as JAX raises on it."""
+    mode = os.environ.get(name, "clamp")
+    if mode not in SHIFTS:
+        raise ValueError(f"{name}={mode!r}: expected max|clamp|none")
+    if mode != "clamp":
+        raise NotImplementedError(
+            f"{name}={mode}: the port's kernels take only the clamp shift "
+            "exp(min(s, 80))")
 
 
 @dataclass(frozen=True)
@@ -39,15 +74,29 @@ class AttentionRoute:
     pipe: bool = False             # SPATIAL_PIPE
     pipe_nbuf: int = 3             # SPATIAL_PIPE_NBUF
     temporal_batched: bool = False  # TEMPORAL_BATCHED
+    use_pallas: bool = True        # TPU.USE_PALLAS_ATTENTION
+    temporal_pallas: bool = True   # TEMPORAL_PALLAS
+    min_len: int = 128             # PALLAS_MIN_LEN
 
     @classmethod
-    def from_env(cls) -> "AttentionRoute":
-        """The route the environment selects; a malformed knob raises."""
+    def from_env(cls, use_pallas: bool = True) -> "AttentionRoute":
+        """The route the environment selects (``use_pallas`` from the
+        config); a malformed knob raises ``ValueError``, a knob the port
+        cannot honour ``NotImplementedError``."""
+        check_shift("SPATIAL_SHIFT")
+        check_shift("TEMPORAL_SHIFT")
+        if not env_flag("SPATIAL_FUSED_QKV", True):
+            raise NotImplementedError(
+                "SPATIAL_FUSED_QKV=0: the split-projection spatial kernel K3 "
+                "is not ported")
         return cls(save_probs=env_flag("SPATIAL_SAVE_PROBS", True),
                    delta=env_flag("SPATIAL_DELTA", False),
                    pipe=env_flag("SPATIAL_PIPE", False),
                    pipe_nbuf=env_int("SPATIAL_PIPE_NBUF", 3),
-                   temporal_batched=env_flag("TEMPORAL_BATCHED", False))
+                   temporal_batched=env_flag("TEMPORAL_BATCHED", False),
+                   use_pallas=bool(use_pallas),
+                   temporal_pallas=env_flag("TEMPORAL_PALLAS", True),
+                   min_len=env_int("PALLAS_MIN_LEN", 128, minimum=0))
 
 
 DEFAULT_ROUTE = AttentionRoute()

@@ -30,6 +30,18 @@ version only for a CPU tensor.  :func:`mvit_attention_hl` and
 straight to the forward.  K5b and K6b each run two CUDA kernels (a
 query-major and a key-major pass); a wrapper call counts as one launch.
 
+The knob variants (JAX ``pallas_mvit_attention.py:517-547``, read by the
+model from ``MVIT_DELTA`` / ``MVIT_SAVE_PROBS``): K5bd (``_bwd_hl_kernel_delta``)
+and K6bd (``_bwd_kernel_delta``) are K5b / K6b with ``D_i = sum_d g_id o_id``
+from the saved forward output in place of ``rowsum(dp p)``;
+:class:`MViTAttentionDelta` saves o beside the row sums.  K6sp
+(``_fwd_kernel_saveprobs``) is K6f that also writes ``bf16(p)``, probs
+[BH, qN, LP] with LP = kN + 1 rounded up to 8 (columns 0..kN-1 the body
+keys, kN the cls key, the rest zero), and K6bs (``_bwd_kernel_saveprobs``)
+is the backward from them, which forms no logits: ``ds = p (dp - rowsum(dp
+p))`` with p the saved value; :class:`MViTAttentionSaved` saves p.  The
+head-last K5 has no saved-probability form.
+
 K7 (``_fwd_hl_kt_kernel`` / ``_bwd_hl_kt_kernel``, the JAX model's route
 for wide-key blocks under ``MVIT_KT=1`` where ``kt_supported`` holds) has
 K5's head-last contract with another softmax: the row max, not the clamp.
@@ -57,6 +69,10 @@ KERNEL = "mvit_attention_fwd"            # K6f
 KERNEL_BWD = "mvit_attention_bwd"        # K6b
 KERNEL_KT = "mvit_attention_kt_fwd"      # K7f
 KERNEL_KT_BWD = "mvit_attention_kt_bwd"  # K7b
+KERNEL_HL_BWD_DELTA = "mvit_attention_hl_bwd_delta"  # K5bd
+KERNEL_BWD_DELTA = "mvit_attention_bwd_delta"        # K6bd
+KERNEL_PROBS = "mvit_attention_fwd_probs"            # K6sp
+KERNEL_BWD_PROBS = "mvit_attention_bwd_probs"        # K6bs
 HEAD_DIM = 96
 MAX_KCAT = 48
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
@@ -149,21 +165,29 @@ def _fwd_core(q, k, v, kc, vc, rel, k_shape, scale):
     p = (e / l[..., None]).to(v.dtype)
     vv = torch.cat([v, vc], dim=1)
     o = torch.einsum("gij,gjd->gid", p.float(), vv.float()).to(q.dtype)
-    return o, l
+    return o, l, p
 
 
-def _bwd_core(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale):
+def _probs(q, k, kc, rel, rowsum, k_shape, scale) -> torch.Tensor:
+    """fp32 p = exp(min(s, 80)) / l from the forward's row sums l."""
+    return torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
+                                 max=CLAMP_HI)) / rowsum[..., None]
+
+
+def _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale, out=None):
+    """The backward from fp32 probabilities pf [G, qN, kN + 1]: D =
+    rowsum(dp pf), or ``sum_d g o`` from the saved output ``out``."""
     dt = q.dtype
     kn = k.shape[1]
     kt, kh, kw = k_shape
-    pf = torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
-                               max=CLAMP_HI)) / rowsum[..., None]
     kk = torch.cat([k, kc], dim=1).float()
     vv = torch.cat([v, vc], dim=1).float()
     gf = g.float()
     dv = torch.einsum("gij,gid->gjd", pf.to(dt).float(), gf)
     dp = torch.einsum("gid,gjd->gij", gf, vv)
-    ds = pf * (dp - (dp * pf).sum(dim=-1, keepdim=True))
+    delta = ((dp * pf).sum(dim=-1, keepdim=True) if out is None
+             else (gf * out.float()).sum(dim=-1, keepdim=True))
+    ds = pf * (dp - delta)
     ds_c = ds.to(dt).float()
     dq = (torch.einsum("gij,gjd->gid", ds_c, kk) * scale).to(dt)
     dk = torch.einsum("gij,gid->gjd", ds_c, q.float()) * scale
@@ -191,7 +215,7 @@ def _merge(x: torch.Tensor, heads: int) -> torch.Tensor:
 def mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K6f: (out [BH, qN, d], rowsum [BH, 1, qN])."""
-    o, l = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)
+    o, l, _ = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)
     return o, l[:, None]
 
 
@@ -205,7 +229,41 @@ def mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
                              scale) -> Grads:
     """Plain PyTorch version of K6b, the backward written out: (dq, dk, dv,
     dkc, dvc, drel) from the forward's row sums and the output gradient."""
-    return _bwd_core(q, k, v, kc, vc, rel, rowsum[:, 0], g, k_shape, scale)
+    pf = _probs(q, k, kc, rel, rowsum[:, 0], k_shape, scale)
+    return _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale)
+
+
+def mvit_attention_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum, out, g,
+                                   k_shape, scale) -> Grads:
+    """Plain PyTorch version of K6bd: K6b with D = sum_d g o from the
+    forward's output ``out``."""
+    pf = _probs(q, k, kc, rel, rowsum[:, 0], k_shape, scale)
+    return _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale, out)
+
+
+def probs_stride(kn: int) -> int:
+    """Row stride LP of K6sp's probabilities: kN + 1 rounded up to 8."""
+    return _round_up(kn + 1, 8)
+
+
+def mvit_attention_fwd_probs_plain(q, k, v, kc, vc, rel, k_shape, scale
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain PyTorch version of K6sp: K6f's (out, rowsum) and the
+    probabilities bf16(p) it multiplies with, [BH, qN, LP] in the input
+    dtype, zero past column kN."""
+    o, l, p = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)
+    pad = probs_stride(k.shape[1]) - p.shape[-1]
+    return o, l[:, None], torch.nn.functional.pad(p, (0, pad))
+
+
+def mvit_attention_bwd_probs_plain(q, k, v, kc, vc, rel, probs, g, k_shape,
+                                   scale) -> Grads:
+    """Plain PyTorch version of K6bs, the backward from K6sp's saved
+    probabilities (their kN + 1 valid columns) in place of recomputed
+    ones."""
+    pf = probs[..., :k.shape[1] + 1].float()
+    return _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale)
 
 
 def mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
@@ -214,8 +272,9 @@ def mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
     k, v [B, kN, C], kc, vc [B, 1, C], rel [B, qN, H*kcat] -> (out
     [B, qN, C], rowsum [B, H, qN])."""
     h = num_heads
-    o, l = _fwd_core(_split(q, h), _split(k, h), _split(v, h), _split(kc, h),
-                     _split(vc, h), _split(rel, h), k_shape, scale)
+    o, l, _ = _fwd_core(_split(q, h), _split(k, h), _split(v, h),
+                        _split(kc, h), _split(vc, h), _split(rel, h), k_shape,
+                        scale)
     return _merge(o, h), l.reshape(q.shape[0], h, -1)
 
 
@@ -230,11 +289,25 @@ def mvit_attention_hl_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
 def mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
                                 num_heads, scale) -> Grads:
     """Plain PyTorch version of K5b on the head-last layout."""
-    h = num_heads
-    grads = _bwd_core(_split(q, h), _split(k, h), _split(v, h), _split(kc, h),
-                      _split(vc, h), _split(rel, h),
-                      rowsum.reshape(-1, rowsum.shape[-1]), _split(g, h),
-                      k_shape, scale)
+    return _hl_bwd(q, k, v, kc, vc, rel, rowsum, None, g, k_shape, num_heads,
+                   scale)
+
+
+def mvit_attention_hl_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum, out, g,
+                                      k_shape, num_heads, scale) -> Grads:
+    """Plain PyTorch version of K5bd: K5b with D = sum_d g o from the
+    forward's output ``out`` [B, qN, C]."""
+    return _hl_bwd(q, k, v, kc, vc, rel, rowsum, out, g, k_shape, num_heads,
+                   scale)
+
+
+def _hl_bwd(q, k, v, kc, vc, rel, rowsum, out, g, k_shape, h, scale) -> Grads:
+    sq, sk, skc, srel = _split(q, h), _split(k, h), _split(kc, h), _split(rel, h)
+    pf = _probs(sq, sk, skc, srel, rowsum.reshape(-1, rowsum.shape[-1]),
+                k_shape, scale)
+    grads = _bwd_core(sq, sk, _split(v, h), skc, _split(vc, h), srel, pf,
+                      _split(g, h), k_shape, scale,
+                      None if out is None else _split(out, h))
     return tuple(_merge(x, h) for x in grads)
 
 
@@ -362,22 +435,20 @@ def _fwd_kernel(fn, kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale):
     return out, stats
 
 
-def _bwd_kernel(fn, kernel, q, k, v, kc, vc, rel, stats, g, k_shape, b,
-                heads, scale, out=None) -> Grads:
-    """Launch entry point ``fn`` from the forward's row statistic (and, for
-    K7, its output ``out``)."""
-    saved = () if out is None else (out,)
+def _bwd_kernel(fn, kernel, q, k, v, kc, vc, rel, saved, g, k_shape, b,
+                heads, scale) -> Grads:
+    """Launch entry point ``fn`` with the forward's residuals ``saved``
+    (between rel and g): (rowsum,) for K5b/K6b, (out, lse) for K7b, (out,
+    rowsum) for K5bd/K6bd, (probs,) for K6bs."""
     _check_kernel((q, k, v, kc, vc, rel, g, *saved), heads, k_shape)
-    if stats.dtype != torch.float32 or not stats.is_contiguous():
-        raise ValueError("mvit_attention: rowsum / lse must be contiguous "
-                         "float32")
-    delta = torch.empty_like(stats)
+    delta = torch.empty((b, heads, q.shape[1]), dtype=torch.float32,
+                        device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dkc, dvc, drel = (torch.empty_like(kc), torch.empty_like(vc),
                       torch.empty_like(rel))
     _launch(fn, kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
-            *(t.data_ptr() for t in saved), stats.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in saved), g.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dkc.data_ptr(), dvc.data_ptr(), drel.data_ptr(), b, heads,
             q.shape[1], k.shape[1], *k_shape, _DTYPES[q.dtype], float(scale))
@@ -388,6 +459,14 @@ def _check_bwd(q, rowsum, g, heads: int) -> None:
     if rowsum.shape != (q.shape[0], heads, q.shape[1]) or g.shape != q.shape:
         raise ValueError(f"mvit_attention_bwd: rowsum {tuple(rowsum.shape)} / "
                          f"g {tuple(g.shape)} do not fit q {tuple(q.shape)}")
+    if rowsum.dtype != torch.float32:
+        raise ValueError("mvit_attention_bwd: rowsum / lse must be float32")
+
+
+def _check_out(q, out) -> None:
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"mvit_attention: out {tuple(out.shape)} does not "
+                         f"fit q {tuple(q.shape)}")
 
 
 def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
@@ -414,7 +493,25 @@ def mvit_attention_hl_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape,
         return mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
                                            k_shape, num_heads, scale)
     return _bwd_kernel("mvit_attention_bwd", KERNEL_HL_BWD, q, k, v, kc, vc,
-                       rel, rowsum, g, k_shape, q.shape[0], num_heads, scale)
+                       rel, (rowsum,), g, k_shape, q.shape[0], num_heads,
+                       scale)
+
+
+def mvit_attention_hl_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g,
+                                k_shape, num_heads, scale) -> Grads:
+    """K5bd: K5b from the K5f row sums and output ``out`` [B, qN, H*96],
+    with D = sum_d g o."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, num_heads)
+    _check_bwd(q, rowsum, g, num_heads)
+    _check_out(q, out)
+    if q.device.type == "cpu":
+        return mvit_attention_hl_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum,
+                                                 out, g, k_shape, num_heads,
+                                                 scale)
+    return _bwd_kernel("mvit_attention_bwd_delta", KERNEL_HL_BWD_DELTA, q, k,
+                       v, kc, vc, rel, (out, rowsum), g, k_shape, q.shape[0],
+                       num_heads, scale)
 
 
 def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale
@@ -439,7 +536,66 @@ def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale
         return mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
                                         k_shape, scale)
     return _bwd_kernel("mvit_attention_bwd", KERNEL_BWD, q, k, v, kc, vc, rel,
-                       rowsum, g, k_shape, q.shape[0], 1, scale)
+                       (rowsum,), g, k_shape, q.shape[0], 1, scale)
+
+
+def mvit_attention_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g, k_shape,
+                             scale) -> Grads:
+    """K6bd: K6b from the K6f row sums and output ``out`` [BH, qN, 96],
+    with D = sum_d g o."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, 1)
+    _check_bwd(q, rowsum, g, 1)
+    _check_out(q, out)
+    if q.device.type == "cpu":
+        return mvit_attention_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum,
+                                              out, g, k_shape, scale)
+    return _bwd_kernel("mvit_attention_bwd_delta", KERNEL_BWD_DELTA, q, k, v,
+                       kc, vc, rel, (out, rowsum), g, k_shape, q.shape[0], 1,
+                       scale)
+
+
+def mvit_attention_fwd_probs(q, k, v, kc, vc, rel, k_shape, scale
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K6sp: K6f that also writes the probabilities it multiplies with ->
+    (out [BH, qN, 96], rowsum [BH, 1, qN] fp32, probs [BH, qN, LP] in the
+    input dtype, LP = :func:`probs_stride`, zero past column kN)."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, 1)
+    if q.device.type == "cpu":
+        return mvit_attention_fwd_probs_plain(q, k, v, kc, vc, rel, k_shape,
+                                              scale)
+    _check_kernel((q, k, v, kc, vc, rel), 1, k_shape)
+    b, qn = q.shape[:2]
+    out = torch.empty_like(q)
+    rowsum = torch.empty((b, 1, qn), dtype=torch.float32, device=q.device)
+    probs = torch.empty((b, qn, probs_stride(k.shape[1])), dtype=q.dtype,
+                        device=q.device)
+    _launch("mvit_attention_fwd_probs", KERNEL_PROBS, q, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            rel.data_ptr(), out.data_ptr(), rowsum.data_ptr(),
+            probs.data_ptr(), b, 1, qn, k.shape[1], *k_shape,
+            _DTYPES[q.dtype], float(scale))
+    return out, rowsum, probs
+
+
+def mvit_attention_bwd_probs(q, k, v, kc, vc, rel, probs, g, k_shape, scale
+                             ) -> Grads:
+    """K6bs: the gradients of K6 from K6sp's probabilities [BH, qN, LP] and
+    the output gradient g [BH, qN, 96]; forms no logits."""
+    k_shape = tuple(k_shape)
+    _check(q, k, v, kc, vc, rel, k_shape, 1)
+    want = (q.shape[0], q.shape[1], probs_stride(k.shape[1]))
+    if probs.shape != want or probs.dtype != q.dtype or g.shape != q.shape:
+        raise ValueError(f"mvit_attention_bwd_probs: probs "
+                         f"{tuple(probs.shape)} / g {tuple(g.shape)} do not "
+                         f"fit q {tuple(q.shape)} (probs {want} in {q.dtype})")
+    if q.device.type == "cpu":
+        return mvit_attention_bwd_probs_plain(q, k, v, kc, vc, rel, probs, g,
+                                              k_shape, scale)
+    return _bwd_kernel("mvit_attention_bwd_probs", KERNEL_BWD_PROBS, q, k, v,
+                       kc, vc, rel, (probs,), g, k_shape, q.shape[0], 1, scale)
 
 
 def mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
@@ -463,15 +619,21 @@ def mvit_attention_kt_bwd(q, k, v, kc, vc, rel, out, lse, g, k_shape,
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     _check_bwd(q, lse, g, num_heads)
-    if out.shape != q.shape or out.dtype != q.dtype:
-        raise ValueError(f"mvit_attention_kt_bwd: out {tuple(out.shape)} "
-                         f"does not fit q {tuple(q.shape)}")
+    _check_out(q, out)
     if q.device.type == "cpu":
         return mvit_attention_kt_bwd_plain(q, k, v, kc, vc, rel, out, lse, g,
                                            k_shape, num_heads, scale)
     return _bwd_kernel("mvit_attention_kt_bwd", KERNEL_KT_BWD, q, k, v, kc,
-                       vc, rel, lse, g, k_shape, q.shape[0], num_heads, scale,
-                       out=out)
+                       vc, rel, (out, lse), g, k_shape, q.shape[0], num_heads,
+                       scale)
+
+
+def _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale):
+    """K6f (``num_heads`` None) or K5f: (out, rowsum)."""
+    if num_heads is None:
+        return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale)
+    return mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads,
+                                 scale)
 
 
 class MViTAttention(torch.autograd.Function):
@@ -481,12 +643,7 @@ class MViTAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
-        if num_heads is None:
-            out, rowsum = mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape,
-                                             scale)
-        else:
-            out, rowsum = mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape,
-                                                num_heads, scale)
+        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale)
         ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum)
         ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
         return out
@@ -504,26 +661,79 @@ class MViTAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+class MViTAttentionDelta(torch.autograd.Function):
+    """K5 or K6 on ``MVIT_DELTA=1``: the forward kernel (saves its inputs,
+    the row sums and the output, as JAX ``_vjp_fwd`` / ``_vjp_hl_fwd``
+    keep o), the delta backward K5bd / K6bd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
+        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale)
+        ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum, out)
+        ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, rowsum, out = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.num_heads is None:
+            grads = mvit_attention_bwd_delta(*inputs, rowsum, out, g,
+                                             ctx.k_shape, ctx.scale)
+        else:
+            grads = mvit_attention_hl_bwd_delta(*inputs, rowsum, out, g,
+                                                ctx.k_shape, ctx.num_heads,
+                                                ctx.scale)
+        return (*grads, None, None, None)
+
+
+class MViTAttentionSaved(torch.autograd.Function):
+    """K6 on ``MVIT_SAVE_PROBS=1``: K6sp (saves its inputs and the
+    probabilities), the backward K6bs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, scale):
+        out, _, probs = mvit_attention_fwd_probs(q, k, v, kc, vc, rel,
+                                                 k_shape, scale)
+        ctx.save_for_backward(q, k, v, kc, vc, rel, probs)
+        ctx.k_shape, ctx.scale = k_shape, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, probs = ctx.saved_tensors
+        grads = mvit_attention_bwd_probs(*inputs, probs, g.contiguous(),
+                                         ctx.k_shape, ctx.scale)
+        return (*grads, None, None)
+
+
 def _needs_grad(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def mvit_attention_hl(q, k, v, kc, vc, rel, k_shape, num_heads, scale
-                      ) -> torch.Tensor:
-    """The model's head-last entry (K5): :class:`MViTAttention` under grad,
-    else the forward kernel alone."""
+def mvit_attention_hl(q, k, v, kc, vc, rel, k_shape, num_heads, scale,
+                      delta: bool = False) -> torch.Tensor:
+    """The model's head-last entry (K5): under grad :class:`MViTAttention`,
+    or :class:`MViTAttentionDelta` with ``delta``; else the forward kernel
+    alone."""
     if _needs_grad((q, k, v, kc, vc, rel)):
-        return MViTAttention.apply(q, k, v, kc, vc, rel, tuple(k_shape),
-                                   num_heads, scale)
+        fn = MViTAttentionDelta if delta else MViTAttention
+        return fn.apply(q, k, v, kc, vc, rel, tuple(k_shape), num_heads, scale)
     return mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads,
                                  scale)[0]
 
 
-def mvit_attention(q, k, v, kc, vc, rel, k_shape, scale) -> torch.Tensor:
-    """The model's head-split entry (K6), as :func:`mvit_attention_hl`."""
+def mvit_attention(q, k, v, kc, vc, rel, k_shape, scale, delta: bool = False,
+                   save_probs: bool = False) -> torch.Tensor:
+    """The model's head-split entry (K6), as :func:`mvit_attention_hl`; under
+    grad with ``save_probs`` :class:`MViTAttentionSaved`, which takes
+    precedence over ``delta`` (JAX ``_vjp_fwd``)."""
     if _needs_grad((q, k, v, kc, vc, rel)):
-        return MViTAttention.apply(q, k, v, kc, vc, rel, tuple(k_shape), None,
-                                   scale)
+        if save_probs:
+            return MViTAttentionSaved.apply(q, k, v, kc, vc, rel,
+                                            tuple(k_shape), scale)
+        fn = MViTAttentionDelta if delta else MViTAttention
+        return fn.apply(q, k, v, kc, vc, rel, tuple(k_shape), None, scale)
     return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale)[0]
 
 

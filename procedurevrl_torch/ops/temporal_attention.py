@@ -36,7 +36,6 @@ KERNEL_V3 = "temporal_attention_v3_fwd"
 KERNEL_V3_BWD = "temporal_attention_v3_bwd"
 HEAD_DIM = 64
 MAX_T = 16
-MAX_T_V3_BF16 = 8  # two positions per 16-row tensor-core tile
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -185,17 +184,14 @@ def temporal_attention_v3(qkv: torch.Tensor, num_heads: int, scale: float,
                           save_probs: bool = True
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K2v3f: (out [B, T, N, C], p [B, N, H, T, T] or None without
-    ``save_probs``) from qkv [B, T, N, 3C] (float32 with T <= 16, or
-    bfloat16 with T <= 8; contiguous, head dim 64)."""
+    ``save_probs``) from qkv [B, T, N, 3C] (float32 or bfloat16, T <= 16,
+    contiguous, head dim 64)."""
     _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         out, p = temporal_attention_v3_fwd_plain(qkv, num_heads, scale)
         return out, p if save_probs else None
     _check_kernel((qkv,), num_heads)
     b, t, n, c3 = qkv.shape
-    if qkv.dtype == torch.bfloat16 and t > MAX_T_V3_BF16:
-        raise ValueError(f"temporal_attention_v3: bf16 kernel needs T <= "
-                         f"{MAX_T_V3_BF16}")
     out = torch.empty((b, t, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     probs = (torch.empty((b, n, num_heads, t, t), dtype=qkv.dtype,
                          device=qkv.device) if save_probs else None)
@@ -223,9 +219,6 @@ def temporal_attention_v3_bwd(qkv: torch.Tensor, probs: torch.Tensor,
     if qkv.device.type == "cpu":
         return temporal_attention_v3_bwd_plain(qkv, probs, g, num_heads, scale)
     _check_kernel((qkv, probs, g), num_heads)
-    if qkv.dtype == torch.bfloat16 and t > MAX_T_V3_BF16:
-        raise ValueError(f"temporal_attention_v3_bwd: bf16 kernel needs T <= "
-                         f"{MAX_T_V3_BF16}")
     dqkv = torch.empty_like(qkv)
     _launch(KERNEL_V3_BWD, qkv, qkv.data_ptr(), probs.data_ptr(),
             g.data_ptr(), dqkv.data_ptr(), b, t, n, num_heads,

@@ -13,10 +13,23 @@ Groups by parameter name, as the JAX package groups by tree path:
 - pretraining: ``bn`` parameters take BN.WEIGHT_DECAY, the rest
   SOLVER.WEIGHT_DECAY.
 
-AdamW is ``torch.optim.AdamW`` (eps 1e-8, decoupled decay): its update
-``p - lr wd p - lr m_hat / (sqrt(v_hat) + eps)`` is the JAX package's
-``scale_by_adam -> add_decayed_weights -> scale(-lr)``.  Each group keeps
-an ``lr_mult``; :func:`set_lr` writes ``lr x lr_mult`` into every group.
+The update rules are the JAX package's optax chains
+(``procedurevrl_tpu/solver/optimizer.py:90-112``):
+
+- ``adamw`` is ``torch.optim.AdamW`` (eps 1e-8, decoupled decay): its
+  update ``p - lr wd p - lr m_hat / (sqrt(v_hat) + eps)`` is
+  ``scale_by_adam -> add_decayed_weights -> scale(-lr)``;
+- ``sgd`` is ``torch.optim.SGD`` (dampening 0, coupled decay): ``g + wd p``
+  into the momentum buffer ``b = m b + g`` (the first step's buffer is g,
+  as optax's zero-initialised ``trace``), the Nesterov update ``g + m b``
+  or ``b``, times ``-lr``: ``add_decayed_weights -> trace(MOMENTUM,
+  NESTEROV) -> scale(-lr)``; with momentum 0, plain ``-lr (g + wd p)``;
+- ``adam`` is ``torch.optim.Adam`` (eps 1e-8, coupled decay):
+  ``add_decayed_weights -> scale_by_adam -> scale(-lr)``.
+
+``TPU.MOMENT_DTYPE bfloat16`` (the JAX package's low-precision Adam
+moments) is not ported and raises.  Each group keeps an ``lr_mult``;
+:func:`set_lr` writes ``lr x lr_mult`` into every group.
 """
 
 from __future__ import annotations
@@ -65,13 +78,23 @@ def param_groups(model: torch.nn.Module, cfg) -> List[Dict]:
 
 
 def construct_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
-    """The optimizer of ``SOLVER.OPTIMIZING_METHOD`` over ``param_groups``
-    (AdamW only so far); its LR is set per step by :func:`set_lr`."""
+    """The optimizer of ``SOLVER.OPTIMIZING_METHOD`` (``sgd``, ``adam`` or
+    ``adamw``) over ``param_groups``; its LR is set per step by
+    :func:`set_lr`."""
     method = cfg.SOLVER.OPTIMIZING_METHOD
-    if method != "adamw":
-        raise NotImplementedError(f"optimizer {method} is not ported yet")
-    return torch.optim.AdamW(param_groups(model, cfg), lr=cfg.SOLVER.BASE_LR,
-                             betas=(0.9, 0.999), eps=1e-8)
+    if method not in ("sgd", "adam", "adamw"):
+        raise NotImplementedError(f"Does not support {method} optimizer")
+    groups, lr = param_groups(model, cfg), cfg.SOLVER.BASE_LR
+    if method == "sgd":
+        momentum = cfg.SOLVER.MOMENTUM
+        return torch.optim.SGD(groups, lr=lr, momentum=momentum, dampening=0.0,
+                               nesterov=bool(cfg.SOLVER.NESTEROV and momentum))
+    if cfg.TPU.MOMENT_DTYPE != "float32":
+        raise NotImplementedError(
+            f"TPU.MOMENT_DTYPE {cfg.TPU.MOMENT_DTYPE}: low-precision Adam "
+            "moments (solver/low_precision.py) are not ported")
+    adam = torch.optim.Adam if method == "adam" else torch.optim.AdamW
+    return adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -206,7 +206,7 @@ def test_the_knob_is_read_when_the_config_is_built(value, route, monkeypatch):
         monkeypatch.setenv("MVIT_POOL", value)
     cfg = get_cfg()
     cfg.MODEL.MODEL_NAME = "MViT"
-    assert pm.MViTConfig.from_cfg(cfg).pool_route == route
+    assert pm.MViTConfig.from_cfg(cfg).route.pool == route
 
 
 @pytest.mark.parametrize("value", ["Kernel", "pallas", "1"])

@@ -13,7 +13,11 @@ bf16 ulp of that product's scale.  The MViT forwards are held tighter
 log-sum-exp atol 1e-4.  K8's bf16 outputs (the pool and its dx) are held
 to atol 1e-3, rtol 1e-2 as well (kernel and plain version round the same
 fp32 sums; the dx limit scaled like a gradient's), its fp32 dw to the fp32
-limit scaled by the largest gradient.
+limit scaled by the largest gradient.  K6sp's bf16 probabilities are
+held to atol 1e-5, rtol 1e-2 (one bf16 ulp; a cls probability is ~1/kN).
+The bf16 gradients of K5bd, K6bd and K6bs are held to atol 2e-3 times each
+gradient's own largest magnitude, with no floor, and rtol 1e-2 (the
+``MVIT_GRAD_TOL`` of ``chip_smoke.py``).
 """
 
 import pytest
@@ -32,8 +36,11 @@ MVIT_FWD_TOLS = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
                  torch.float32: TOLS[torch.float32]}
 ROWSUM_TOL = dict(atol=0.0, rtol=1e-4)
 LSE_TOL = dict(atol=1e-4, rtol=0.0)
+PROBS_TOLS = {torch.bfloat16: dict(atol=1e-5, rtol=1e-2),
+              torch.float32: TOLS[torch.float32]}
 POOL_TOLS = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2),
              torch.float32: TOLS[torch.float32]}
+MVIT_GRAD_TOL = dict(atol=2e-3, rtol=1e-2)
 
 
 @pytest.fixture
@@ -49,6 +56,17 @@ def _close(got, ref, dtype, scaled=False):
     if scaled:
         tol["atol"] *= max(ref.float().abs().max().item(), 1.0)
     torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+def _close_grad(got, ref, dtype):
+    """A slice 6 backward's gradient: bf16 against its own scale."""
+    if dtype == torch.float32:
+        return _close(got, ref, dtype, scaled=True)
+    torch.cuda.synchronize()
+    top = ref.float().abs().max().item()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               atol=MVIT_GRAD_TOL["atol"] * top,
+                               rtol=MVIT_GRAD_TOL["rtol"])
 
 
 def _spatial_inputs(card, dtype, n, bt=6, heads=4, seed=0):
@@ -212,7 +230,7 @@ def test_spatial_pipe_equals_the_forward(card, dtype, n, nbuf):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t", [8, 3, 1])
+@pytest.mark.parametrize("t", [8, 3, 1, 16, 11, 9])
 def test_temporal_v3_kernels_match_plain(card, dtype, t):
     gen = torch.Generator(device=card).manual_seed(20 + t)
     qkv = torch.randn(3, t, 49, 3 * 256, generator=gen, device=card).to(dtype)
@@ -232,14 +250,19 @@ def test_temporal_v3_kernels_match_plain(card, dtype, t):
     assert _build.LAUNCHES[k2.KERNEL_V3_BWD] == counts[k2.KERNEL_V3_BWD] + 1
 
 
-def test_temporal_v3_fp32_takes_16_frames_and_bf16_refuses_them(card):
+def test_temporal_v3_takes_16_frames_and_refuses_17(card):
+    """Both dtypes take up to 16 frames (bf16 with one position per
+    tensor-core tile past 8); 17 frames are refused."""
     qkv = torch.randn(1, 16, 9, 3 * 256, device=card)
-    out, probs = k2.temporal_attention_v3(qkv, 4, 0.125)
-    ref, ref_p = k2.temporal_attention_v3_fwd_plain(qkv, 4, 0.125)
-    _close(out, ref, torch.float32)
-    _close(probs, ref_p, torch.float32)
-    with pytest.raises(ValueError, match="T <= 8"):
-        k2.temporal_attention_v3(qkv.bfloat16(), 4, 0.125)
+    for dtype in (torch.float32, torch.bfloat16):
+        out, probs = k2.temporal_attention_v3(qkv.to(dtype), 4, 0.125)
+        ref, ref_p = k2.temporal_attention_v3_fwd_plain(qkv.to(dtype), 4,
+                                                        0.125)
+        _close(out, ref, dtype)
+        _close(probs, ref_p, dtype)
+    with pytest.raises(ValueError, match="T <= 16"):
+        k2.temporal_attention_v3(torch.randn(1, 17, 9, 3 * 256,
+                                             device=card).bfloat16(), 4, 0.125)
 
 
 @pytest.mark.parametrize("route", ["A", "B"])
@@ -367,6 +390,85 @@ def test_mvit_autograd_runs_both_kernels(card, head_last):
                      scale)
     for t, ref in zip(inputs, refs):
         _close(t.grad, ref, torch.float32, scaled=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_last", [True, False])
+@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+def test_mvit_delta_bwd_kernel_matches_plain(card, dtype, head_last, geom):
+    """K5bd / K6bd from the plain forward's row sums and output."""
+    x, k_shape, h = _mvit_inputs(card, dtype, geom, head_last, seed=3)
+    _, plain_fwd, _ = _mvit_fwd(head_last)
+    scale = 96 ** -0.5
+    out, rowsum = plain_fwd(*_heads((*x[:6], k_shape), head_last, h), scale)
+    args = _heads((*x[:6], rowsum, out, x[6], k_shape), head_last, h) + (scale,)
+    if head_last:
+        kernel, plain = (k5.mvit_attention_hl_bwd_delta,
+                         k5.mvit_attention_hl_bwd_delta_plain)
+        name = k5.KERNEL_HL_BWD_DELTA
+    else:
+        kernel, plain = k5.mvit_attention_bwd_delta, k5.mvit_attention_bwd_delta_plain
+        name = k5.KERNEL_BWD_DELTA
+    before = _build.LAUNCHES.get(name, 0)
+    grads = kernel(*args)
+    assert _build.LAUNCHES[name] == before + 1
+    for got, ref in zip(grads, plain(*args)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        _close_grad(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+def test_mvit_probs_kernels_match_plain(card, dtype, geom):
+    """K6sp: K6f's output bit for bit, and the probabilities; K6bs from the
+    plain version's probabilities."""
+    x, k_shape, _ = _mvit_inputs(card, dtype, geom, False, seed=4)
+    scale = 96 ** -0.5
+    args = (*x[:6], k_shape, scale)
+    counts = {k: _build.LAUNCHES.get(k, 0)
+              for k in (k5.KERNEL_PROBS, k5.KERNEL_BWD_PROBS)}
+    out, rowsum, probs = k5.mvit_attention_fwd_probs(*args)
+    ref, ref_rs, ref_p = k5.mvit_attention_fwd_probs_plain(*args)
+    torch.cuda.synchronize()
+    kn = x[1].shape[1]
+    assert probs.shape == ref_p.shape == (*out.shape[:2], k5.probs_stride(kn))
+    assert torch.equal(out, k5.mvit_attention_fwd(*args)[0])
+    torch.testing.assert_close(out.float(), ref.float(), **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(rowsum, ref_rs, **ROWSUM_TOL)
+    torch.testing.assert_close(probs.float(), ref_p.float(), **PROBS_TOLS[dtype])
+    assert not probs[..., kn + 1:].any()
+    bargs = (*x[:6], ref_p, x[6], k_shape, scale)
+    for got, want in zip(k5.mvit_attention_bwd_probs(*bargs),
+                         k5.mvit_attention_bwd_probs_plain(*bargs)):
+        _close_grad(got, want, dtype)
+    assert _build.LAUNCHES[k5.KERNEL_PROBS] == counts[k5.KERNEL_PROBS] + 1
+    assert (_build.LAUNCHES[k5.KERNEL_BWD_PROBS]
+            == counts[k5.KERNEL_BWD_PROBS] + 1)
+
+
+@pytest.mark.parametrize("route", ["C", "D"])
+@pytest.mark.parametrize("head_last", [True, False])
+def test_mvit_knob_autograd_runs_their_kernels(card, route, head_last):
+    """Under grad, ``delta`` (route C) and ``save_probs`` (route D, which
+    the head-last K5 ignores) select the kernels of JAX ``_vjp_fwd`` /
+    ``_vjp_hl_fwd``."""
+    x, k_shape, h = _mvit_inputs(card, torch.bfloat16, "small", head_last,
+                                 seed=5)
+    inputs = [t.requires_grad_(True) for t in x[:6]]
+    scale = 96 ** -0.5
+    before = dict(_build.LAUNCHES)
+    if head_last:
+        out = k5.mvit_attention_hl(*inputs, k_shape, h, scale, True)
+        want = {k5.KERNEL_HL: 1, k5.KERNEL_HL_BWD_DELTA: 1}
+    else:
+        out = k5.mvit_attention(*inputs, k_shape, scale, True, route == "D")
+        want = ({k5.KERNEL: 1, k5.KERNEL_BWD_DELTA: 1} if route == "C"
+                else {k5.KERNEL_PROBS: 1, k5.KERNEL_BWD_PROBS: 1})
+    out.backward(x[6])
+    torch.cuda.synchronize()
+    ran = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+           if v != before.get(k, 0)}
+    assert ran == want
 
 
 def _kt_inputs(card, dtype, geom, seed=0, hot=True):
@@ -511,7 +613,10 @@ def _poison(card):
                                     "temporal_v3_bwd", "mvit_hl_fwd",
                                     "mvit_hl_bwd", "mvit_fwd", "mvit_bwd",
                                     "mvit_kt_fwd", "mvit_kt_bwd", "pool_fwd",
-                                    "pool_dx", "pool_dw"])
+                                    "pool_dx", "pool_dw", "mvit_hl_bwd_delta",
+                                    "mvit_bwd_delta", "mvit_fwd_probs",
+                                    "mvit_bwd_probs", "temporal_v3_fwd_16",
+                                    "temporal_v3_bwd_16"])
 def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     """Ten launches, each into NaN-filled memory, give bit-identical, finite
     outputs (a substitute for compute-sanitizer's initcheck and racecheck,
@@ -528,7 +633,14 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     m_hs, ks_hs, _ = _mvit_inputs(card, torch.bfloat16, "wide", False,
                                   seed=7, hot=False)
     rs_hl = k5.mvit_attention_hl_fwd(*m_hl[:6], ks_hl, h_hl, scale)[1]
-    rs_hs = k5.mvit_attention_fwd(*m_hs[:6], ks_hs, scale)[1]
+    o_hl = k5.mvit_attention_hl_fwd(*m_hl[:6], ks_hl, h_hl, scale)[0]
+    o_hs, rs_hs, p_hs = k5.mvit_attention_fwd_probs(*m_hs[:6], ks_hs, scale)
+    gen16 = torch.Generator(device=card).manual_seed(16)
+    t16_qkv = torch.randn(2, 16, 49, 3 * 768, generator=gen16,
+                          device=card).bfloat16()
+    t16_g = torch.randn(2, 16, 49, 768, generator=gen16,
+                        device=card).bfloat16()
+    t16_probs = k2.temporal_attention_v3(t16_qkv, 12, 0.125)[1]
     m_kt, ks_kt, h_kt = _kt_inputs(card, torch.bfloat16, "wide", seed=7,
                                    hot=False)
     o_kt, lse_kt = k5.mvit_attention_kt_fwd(*m_kt[:6], ks_kt, h_kt, scale)
@@ -564,6 +676,18 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
         "pool_fwd": lambda: (k8.depthwise_pool3d_fwd(px, pw, 1),),
         "pool_dx": lambda: (k8.depthwise_pool3d_dx(pg, pw),),
         "pool_dw": lambda: (k8.depthwise_pool3d_dw(px, pg),),
+        "mvit_hl_bwd_delta": lambda: k5.mvit_attention_hl_bwd_delta(
+            *m_hl[:6], rs_hl, o_hl, m_hl[6], ks_hl, h_hl, scale),
+        "mvit_bwd_delta": lambda: k5.mvit_attention_bwd_delta(
+            *m_hs[:6], rs_hs, o_hs, m_hs[6], ks_hs, scale),
+        "mvit_fwd_probs": lambda: k5.mvit_attention_fwd_probs(
+            *m_hs[:6], ks_hs, scale),
+        "mvit_bwd_probs": lambda: k5.mvit_attention_bwd_probs(
+            *m_hs[:6], p_hs, m_hs[6], ks_hs, scale),
+        "temporal_v3_fwd_16": lambda: k2.temporal_attention_v3(
+            t16_qkv, 12, 0.125),
+        "temporal_v3_bwd_16": lambda: (k2.temporal_attention_v3_bwd(
+            t16_qkv, t16_probs, t16_g, 12, 0.125),),
     }[kernel]
     first = None
     for _ in range(10):

@@ -122,15 +122,18 @@ ATTN = {
 }
 
 
-def _attn_modules(name, mode="conv", has_cls=True):
+def _attn_modules(name, mode="conv", has_cls=True, use_pallas=True):
     dim, dim_out, heads, thw, kq, sq, kkv, skv = ATTN[name]
     kw = dict(num_heads=heads, qkv_bias=True, kernel_q=kq, kernel_kv=kkv,
               stride_q=sq, stride_kv=skv, mode=mode, has_cls_embed=has_cls,
               rel_pos_spatial=True, rel_pos_temporal=True,
               residual_pooling=True)
     jax_mod = jm.MultiScaleAttention(dim=dim, dim_out=dim_out,
-                                     input_size=thw, use_pallas=True, **kw)
-    port = pm.MultiScaleAttention(dim, dim_out, thw, **kw)
+                                     input_size=thw, use_pallas=use_pallas,
+                                     **kw)
+    port = pm.MultiScaleAttention(dim, dim_out, thw,
+                                  route=pm.MViTRoute(use_pallas=use_pallas),
+                                  **kw)
     x = np.random.RandomState(7).randn(
         2, int(has_cls) + int(np.prod(thw)), dim).astype(np.float32)
     return jax_mod, port, x, thw
@@ -144,6 +147,19 @@ def _attn_convert(tree, out):
 def test_multiscale_attention_matches_jax(name):
     jax_mod, port, x, thw = _attn_modules(name)
     _run_both(jax_mod, port, _attn_convert, x, (thw,), seed=1)
+
+
+def test_multiscale_attention_without_pallas_matches_jax(monkeypatch):
+    """``TPU.USE_PALLAS_ATTENTION False``: a block the kernels would take
+    runs the plain logits path on both sides (JAX ``mvit.py:751-757``)."""
+    calls = []
+    for fn in ("mvit_attention_hl", "mvit_attention", "mvit_attention_kt"):
+        orig = getattr(ma, fn)
+        monkeypatch.setattr(ma, fn, lambda *a, _o=orig: calls.append(1) or
+                            _o(*a))
+    jax_mod, port, x, thw = _attn_modules("kv_pooled", use_pallas=False)
+    _run_both(jax_mod, port, _attn_convert, x, (thw,), seed=3)
+    assert not calls
 
 
 @pytest.mark.parametrize("mode,has_cls", [("max", True), ("avg", True),

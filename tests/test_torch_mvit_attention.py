@@ -104,10 +104,30 @@ def test_head_split_plain_matches_jax(hot):
         np.testing.assert_allclose(got.numpy(), want, **TOL, err_msg=name)
 
 
+# the JAX backward each knob selects (``_vjp_bwd`` / ``_vjp_hl_bwd``):
+# (head_last, knob) -> the function that reaches its Pallas kernel
+JAX_BWD = {(True, ""): "_bwd_hl", (True, "MVIT_DELTA"): "_bwd_hl_delta",
+           (True, "MVIT_SAVE_PROBS"): "_bwd_hl", (False, ""): "_bwd",
+           (False, "MVIT_DELTA"): "_bwd_delta",
+           (False, "MVIT_SAVE_PROBS"): "_bwd_saved"}
+
+
+@pytest.mark.parametrize("knob", ["", "MVIT_DELTA", "MVIT_SAVE_PROBS"])
 @pytest.mark.parametrize("head_last", [True, False])
-def test_autograd_entry_matches_jax_grad(head_last):
+def test_autograd_entry_matches_jax_grad(head_last, knob, monkeypatch):
     """The model's entry under autograd on the CPU: the plain forward, then
-    the written-out backward, against ``jax.grad``."""
+    the written-out backward, against ``jax.grad``; with a knob set for JAX
+    and given to the port's entry as the model gives it (K5bd / K6bd, or
+    K6sp + K6bs)."""
+    from procedurevrl_tpu.ops import pallas_mvit_attention as pm
+
+    if knob:
+        monkeypatch.setenv(knob, "1")
+    taken = []
+    for name in set(JAX_BWD.values()):
+        fn = getattr(pm, name)
+        monkeypatch.setattr(pm, name, lambda *a, _f=fn, _n=name, **kw:
+                            taken.append(_n) or _f(*a, **kw))
     x = _inputs(3)
     if not head_last:
         x = {k: _fold(v) for k, v in x.items()}
@@ -115,11 +135,15 @@ def test_autograd_entry_matches_jax_grad(head_last):
     else:
         fn = lambda *a: flash_attention_mvit_hl(*a, K_SHAPE, H, SCALE)
     ref, ref_grads = _jax_fwd_grads(fn, x)
+    assert taken == [JAX_BWD[head_last, knob]]
     t = {k: v.requires_grad_(k in ARGS) for k, v in _torch(x).items()}
+    delta, save_probs = knob == "MVIT_DELTA", knob == "MVIT_SAVE_PROBS"
     if head_last:
-        out = ma.mvit_attention_hl(*(t[k] for k in ARGS), K_SHAPE, H, SCALE)
+        out = ma.mvit_attention_hl(*(t[k] for k in ARGS), K_SHAPE, H, SCALE,
+                                   delta)
     else:
-        out = ma.mvit_attention(*(t[k] for k in ARGS), K_SHAPE, SCALE)
+        out = ma.mvit_attention(*(t[k] for k in ARGS), K_SHAPE, SCALE, delta,
+                                save_probs)
     np.testing.assert_allclose(out.detach().numpy(), ref, **TOL)
     out.backward(t["g"])
     for name, want in zip(ARGS, ref_grads):

@@ -104,8 +104,8 @@ def test_knob_train_step_matches_jax(all_kt, monkeypatch):
     new_params = _flat(jax.tree_util.tree_map(np.asarray, state.params))
 
     # the port's config as MViTConfig.from_cfg builds it under the knobs
-    cfg = pm.MViTConfig(**KNOB_GEOM, pool_route=pm.pool_route_from_env(),
-                        kt=True)
+    cfg = pm.MViTConfig(**KNOB_GEOM, route=pm.MViTRoute(
+        pool=pm.pool_route_from_env(), kt=True))
     model = ProcedureVRLMViT(cfg, **TOWERS)
     model.load_state_dict(weights.params_from_jax(params), strict=True)
     if all_kt:

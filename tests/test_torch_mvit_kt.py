@@ -149,7 +149,8 @@ def test_multiscale_attention_kt_matches_jax(monkeypatch):
               residual_pooling=True)
     jmod = jm.MultiScaleAttention(dim=dim, dim_out=dim, input_size=thw,
                                   use_pallas=True, **kw)
-    port = pm.MultiScaleAttention(dim, dim, thw, kt=True, **kw)
+    port = pm.MultiScaleAttention(dim, dim, thw,
+                                  route=pm.MViTRoute(kt=True), **kw)
     rng = np.random.RandomState(1)
     x = (0.5 * rng.randn(1, 1 + int(np.prod(thw)), dim)).astype(np.float32)
     g = (0.02 * rng.randn(*x.shape)).astype(np.float32)
@@ -197,7 +198,7 @@ def test_knob_routes_on_the_mvit_v2_s_schedule(monkeypatch):
     monkeypatch.setenv("MVIT_KT", "1")
     cfg = pm.MViTConfig.from_cfg(load_config(os.path.join(
         ROOT, "configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml")))
-    assert (cfg.pool_route, cfg.kt) == ("kernel", True)
+    assert (cfg.route.pool, cfg.route.kt) == ("kernel", True)
     plan = cfg.block_schedule()[0]
     routes = {}
     for i, spec in enumerate(plan):
@@ -207,7 +208,7 @@ def test_knob_routes_on_the_mvit_v2_s_schedule(monkeypatch):
         assert ma.hl_supported(kn, c, h) == jpa.hl_supported(kn, c, h)
         assert ma.kt_supported(c, h) == jpa.kt_supported(c, h)
         routes[i] = ("K5" if ma.hl_supported(kn, c, h)
-                     else "K7" if cfg.kt and ma.kt_supported(c, h) else "K6")
+                     else "K7" if cfg.route.kt and ma.kt_supported(c, h) else "K6")
     assert [i for i, r in routes.items() if r == "K7"] == [1, 3]
     assert [i for i, r in routes.items() if r == "K6"] == [14]
     enc = pm.MViTEncoder(cfg)
@@ -220,4 +221,4 @@ def test_knob_routes_on_the_mvit_v2_s_schedule(monkeypatch):
     assert blocks(on_k8, "pool_q") == [0, 2] + list(range(4, 14)) + [15]
     assert blocks(on_k8, "pool_k") == blocks(on_k8, "pool_v") == [14, 15]
     assert len(on_k8) == 17 and len(on_conv) == 31
-    assert all(enc.blocks[i].attn.kt for i in range(16))
+    assert all(enc.blocks[i].attn.route.kt for i in range(16))

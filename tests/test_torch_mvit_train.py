@@ -225,8 +225,8 @@ def test_mvit_weights_round_trip():
         assert np.array_equal(flat_back[key], val), key
 
 
-def _tiny_cfg(*extra):
-    return load_config(MVIT_YAML, [
+def _tiny_cfg(*extra, yaml=MVIT_YAML):
+    return load_config(yaml, [
         "DEV.LOAD_DUMMY_DATA", "True", "MVIT.DEPTH", "2",
         "MVIT.DIM_MUL", "[[1, 2.0]]", "MVIT.HEAD_MUL", "[[1, 2.0]]",
         "MVIT.POOL_Q_STRIDE", "[[0, 1, 1, 1], [1, 1, 2, 2]]",
@@ -258,13 +258,37 @@ def test_full_size_batch_shape():
     assert pm.MViTConfig.from_cfg(cfg).block_schedule()[1] == [8, 56, 56]
 
 
-def test_mvit_train_net_runs_on_cpu():
+@pytest.mark.parametrize("method", ["adamw", "sgd"])
+def test_mvit_train_net_runs_on_cpu(method, monkeypatch):
     """The entry point itself on the MViT configuration, tiny geometry,
     synthetic data, plain path, bf16 compute and remat as the config sets
-    them, accumulation 2."""
-    cfg = _tiny_cfg()
+    them, accumulation 2.  The SGD configuration runs on route D
+    (``MVIT_SAVE_PROBS=1 MVIT_DELTA=1``, set while the model is built) with
+    block 1 sent head-split, so that the recomputed block forwards run
+    K6sp's plain version under remat."""
+    from procedurevrl_torch.ops import mvit_attention as ma
+
+    yaml = MVIT_YAML.replace("adamw", method)
+    cfg = _tiny_cfg(yaml=yaml)
+    assert cfg.SOLVER.OPTIMIZING_METHOD == method
     assert cfg.TPU.REMAT and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+    calls = []
+    if method == "sgd":
+        monkeypatch.setenv("MVIT_SAVE_PROBS", "1")
+        monkeypatch.setenv("MVIT_DELTA", "1")
+        monkeypatch.setattr(ma, "hl_supported", lambda kn, c, h: h == 1)
+        for name in ("mvit_attention_fwd_probs", "mvit_attention_bwd_probs",
+                     "mvit_attention_hl_bwd_delta"):
+            fn = getattr(ma, name)
+            monkeypatch.setattr(ma, name, lambda *a, _f=fn, _n=name:
+                                calls.append(_n) or _f(*a))
     stats = train(cfg, device="cpu", max_steps=2)
+    if method == "sgd":
+        # per step and clip batch: block 1's forward and its recomputation,
+        # one backward of each block
+        assert calls.count("mvit_attention_fwd_probs") == 2 * 2 * 2
+        assert calls.count("mvit_attention_bwd_probs") == 2 * 2
+        assert calls.count("mvit_attention_hl_bwd_delta") == 2 * 2
     assert stats["steps"] == 2 and len(stats["history"]) == 2
     assert stats["clips_per_step"] == 2 * 9
     for h in stats["history"]:

@@ -85,10 +85,29 @@ def test_k1_clamp_shift_matches_kernel_not_row_max():
     assert np.abs(row_max - f[1, 5, :D]).max() > 0.1
 
 
-@pytest.mark.parametrize("n", [196, 50])
-def test_mhsa_cls_matches_jax(n, monkeypatch):
-    # the JAX dispatch takes its kernel only for N >= PALLAS_MIN_LEN
-    monkeypatch.setenv("PALLAS_MIN_LEN", "1")
+# (N, PALLAS_MIN_LEN, TPU.USE_PALLAS_ATTENTION, whether both sides take the
+# kernel): JAX takes it only for PALLAS_MIN_LEN <= N <= 1024 with Pallas on
+# (``ops/attention.py:184-188``), else concatenates [cls; frames] for its
+# XLA path; the port routes by the same rule, read into its route
+@pytest.mark.parametrize("n,min_len,use_pallas,kernel", [
+    pytest.param(196, "1", True, True, id="196"),
+    pytest.param(50, "1", True, True, id="50"),
+    pytest.param(50, None, True, False, id="50-below-min-len"),
+    pytest.param(196, None, False, False, id="196-no-pallas")])
+def test_mhsa_cls_matches_jax(n, min_len, use_pallas, kernel, monkeypatch):
+    from procedurevrl_tpu.ops import pallas_attention as pa
+    from procedurevrl_torch.ops import spatial_attention as k1
+    from procedurevrl_torch.ops.attention_route import AttentionRoute
+
+    if min_len is not None:
+        monkeypatch.setenv("PALLAS_MIN_LEN", min_len)
+    calls = {"jax": 0, "port": 0}
+    jax_k1, port_k1 = pa.flash_attention_cls_qkv, k1.spatial_attention_autograd
+    monkeypatch.setattr(pa, "flash_attention_cls_qkv", lambda *a, **kw: (
+        calls.__setitem__("jax", calls["jax"] + 1) or jax_k1(*a, **kw)))
+    monkeypatch.setattr(k1, "spatial_attention_autograd", lambda *a, **kw: (
+        calls.__setitem__("port", calls["port"] + 1) or port_k1(*a, **kw)))
+    route = AttentionRoute.from_env(use_pallas)
     rng = np.random.RandomState(7 + n)
     bt, heads = 2, 2
     c = heads * D
@@ -101,10 +120,11 @@ def test_mhsa_cls_matches_jax(n, monkeypatch):
     jf, jcl = jax_mhsa_cls(jnp.asarray(x), jnp.asarray(cls_x),
                            jnp.asarray(qkv_w), jnp.asarray(qkv_b),
                            jnp.asarray(proj_w), jnp.asarray(proj_b), heads,
-                           use_pallas=True)
+                           use_pallas=use_pallas)
     t = torch.from_numpy
     f, cl = mhsa_cls(t(x), t(cls_x), t(qkv_w.T.copy()), t(qkv_b),
-                     t(proj_w.T.copy()), t(proj_b), heads)
+                     t(proj_w.T.copy()), t(proj_b), heads, route=route)
+    assert calls == {"jax": int(kernel), "port": int(kernel)}
     np.testing.assert_allclose(f.numpy(), np.asarray(jf), **TOL)
     np.testing.assert_allclose(cl.numpy(), np.asarray(jcl), **TOL)
 

@@ -61,8 +61,32 @@ def test_k2_clamp_shift_matches_kernel_not_row_max():
     assert np.abs(got - v3).max() > 0.1
 
 
-@pytest.mark.parametrize("t,n", [(8, 196), (4, 30)])
-def test_mhsa_temporal_matches_jax(t, n):
+# (T, N, knobs, TPU.USE_PALLAS_ATTENTION, whether both sides take the
+# kernel): JAX takes it only with Pallas on, TEMPORAL_PALLAS not 0, T <= 16
+# and a temporal geometry (``ops/attention.py:247-258``), else its XLA path
+# on the (T, N) transpose; the port routes by the same rule
+@pytest.mark.parametrize("t,n,knobs,use_pallas,kernel", [
+    pytest.param(8, 196, {}, True, True, id="8-196"),
+    pytest.param(4, 30, {}, True, True, id="4-30"),
+    pytest.param(32, 20, {}, True, False, id="32-20-past-max-t"),
+    pytest.param(8, 20, {}, False, False, id="8-20-no-pallas"),
+    pytest.param(8, 20, {"TEMPORAL_PALLAS": "0"}, True, False,
+                 id="8-20-temporal-pallas-0")])
+def test_mhsa_temporal_matches_jax(t, n, knobs, use_pallas, kernel,
+                                   monkeypatch):
+    from procedurevrl_tpu.ops import pallas_attention as pa
+    from procedurevrl_torch.ops import temporal_attention as k2
+    from procedurevrl_torch.ops.attention_route import AttentionRoute
+
+    for key, value in knobs.items():
+        monkeypatch.setenv(key, value)
+    calls = {"jax": 0, "port": 0}
+    jax_k2, port_k2 = pa.flash_attention_temporal, k2.temporal_attention_autograd
+    monkeypatch.setattr(pa, "flash_attention_temporal", lambda *a, **kw: (
+        calls.__setitem__("jax", calls["jax"] + 1) or jax_k2(*a, **kw)))
+    monkeypatch.setattr(k2, "temporal_attention_autograd", lambda *a, **kw: (
+        calls.__setitem__("port", calls["port"] + 1) or port_k2(*a, **kw)))
+    route = AttentionRoute.from_env(use_pallas)
     rng = np.random.RandomState(9 + t)
     b, heads = 2, 2
     c = heads * D
@@ -73,10 +97,13 @@ def test_mhsa_temporal_matches_jax(t, n):
     proj_b = (0.05 * rng.randn(c)).astype(np.float32)
     ref = jax_mhsa_temporal(jnp.asarray(x), jnp.asarray(qkv_w),
                             jnp.asarray(qkv_b), jnp.asarray(proj_w),
-                            jnp.asarray(proj_b), heads, use_pallas=True)
+                            jnp.asarray(proj_b), heads,
+                            use_pallas=use_pallas)
     t_ = torch.from_numpy
     out = mhsa_temporal(t_(x), t_(qkv_w.T.copy()), t_(qkv_b),
-                        t_(proj_w.T.copy()), t_(proj_b), heads)
+                        t_(proj_w.T.copy()), t_(proj_b), heads, route=route)
+    assert calls == {"jax": int(kernel), "port": int(kernel)}
+    assert out.is_contiguous()
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 

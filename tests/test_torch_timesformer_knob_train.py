@@ -264,11 +264,80 @@ def test_temporal_route(batched, monkeypatch):
 @pytest.mark.parametrize("knob,value", [("SPATIAL_PIPE", "maybe"),
                                         ("SPATIAL_PIPE_NBUF", "two"),
                                         ("SPATIAL_PIPE_NBUF", "0"),
-                                        ("TEMPORAL_BATCHED", "2")])
+                                        ("TEMPORAL_BATCHED", "2"),
+                                        ("SPATIAL_SHIFT", "rowmax"),
+                                        ("TEMPORAL_SHIFT", ""),
+                                        ("TEMPORAL_PALLAS", "2"),
+                                        ("PALLAS_MIN_LEN", "many")])
 def test_a_malformed_knob_raises(knob, value, monkeypatch):
     monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match=knob):
         AttentionRoute.from_env()
+
+
+def _tiny_cfg(model: str, *opts):
+    from procedurevrl_torch.config import load_config
+
+    if model == "mvit":
+        return load_config(os.path.join(
+            ROOT, "configs/HowTo100M/procedurevrl_mvitv2_sgd.yaml"),
+            ["DEV.LOAD_DUMMY_DATA", "True", *opts])
+    return load_config(
+        os.path.join(ROOT, "configs/COIN/step_classification.yaml"),
+        ["TRAIN.ENABLE", "False", "DEV.MATCH_LANG_EMB", "True",
+         "DEV.LOAD_DUMMY_DATA", "True", "TIMESFORMER.DEPTH", "1",
+         "DATA.NUM_FRAMES", "2", "DATA.TRAIN_CROP_SIZE", "32",
+         "DATA.TEST_CROP_SIZE", "32", *opts])
+
+
+# knobs that select a function or a kernel the port does not have: the
+# model build raises and names the knob (JAX would run max / none shifts,
+# or the split-projection kernel K3)
+@pytest.mark.parametrize("model,knob,value", [
+    ("timesformer", "SPATIAL_SHIFT", "max"),
+    ("timesformer", "SPATIAL_SHIFT", "none"),
+    ("timesformer", "TEMPORAL_SHIFT", "max"),
+    ("timesformer", "TEMPORAL_SHIFT", "none"),
+    ("timesformer", "SPATIAL_FUSED_QKV", "0"),
+    ("mvit", "MVIT_SHIFT", "max"),
+    ("mvit", "MVIT_SHIFT", "none")])
+def test_an_unported_knob_raises_at_build(model, knob, value, monkeypatch):
+    from procedurevrl_torch.models.build import build_model
+
+    monkeypatch.setenv(knob, value)
+    with pytest.raises(NotImplementedError, match=knob):
+        build_model(_tiny_cfg(model), "cpu")
+
+
+def test_a_malformed_mvit_shift_raises(monkeypatch):
+    from procedurevrl_torch.models.mvit import MViTConfig
+
+    monkeypatch.setenv("MVIT_SHIFT", "clampp")
+    with pytest.raises(ValueError, match="MVIT_SHIFT"):
+        MViTConfig.from_cfg(_tiny_cfg("mvit"))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_the_builders_read_use_pallas(use_pallas, monkeypatch):
+    """``TPU.USE_PALLAS_ATTENTION`` reaches both encoders' routes, with
+    ``TEMPORAL_PALLAS`` and ``PALLAS_MIN_LEN`` from the environment; MViT's
+    ``MVIT_DELTA`` / ``MVIT_SAVE_PROBS`` are read by the same build."""
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.models.mvit import MViTConfig, MViTRoute
+
+    monkeypatch.setenv("TEMPORAL_PALLAS", "0")
+    monkeypatch.setenv("PALLAS_MIN_LEN", "1")
+    monkeypatch.setenv("MVIT_DELTA", "1")
+    monkeypatch.setenv("MVIT_SAVE_PROBS", "true")
+    flag = ["TPU.USE_PALLAS_ATTENTION", str(use_pallas)]
+    model, _ = build_model(_tiny_cfg("timesformer", *flag), "cpu")
+    want = AttentionRoute(use_pallas=use_pallas, temporal_pallas=False,
+                          min_len=1)
+    blk = model.blocks[0]
+    assert blk.attn.route == want and blk.temporal_attn.route == want
+    cfg = MViTConfig.from_cfg(_tiny_cfg("mvit", *flag))
+    assert cfg.route == MViTRoute(use_pallas=use_pallas, delta=True,
+                                  save_probs=True)
 
 
 def test_the_builder_reads_the_route_once(monkeypatch):

@@ -1,5 +1,6 @@
 """Slice 2 of the PyTorch port end to end against the JAX package: one
-order-pretraining AdamW step, gradient accumulation, the weight round trip
+order-pretraining AdamW step (and one SGD step: momentum 0.9, Nesterov,
+coupled decay), gradient accumulation, the weight round trip
 with both towers, and the port's ``train_net`` entry point on the CPU.
 
 Train step geometry: encoder width 128, 2 heads of 64, depth 2, T = 4,
@@ -61,11 +62,11 @@ TOWERS = dict(label_dim=C, match_lang_emb=True, order_pretrain=True,
               text_heads=2, text_layers=1)
 
 
-def _cfg(cfg):
+def _cfg(cfg, method="adamw"):
     cfg.TRAIN.LABEL_EMB = "bank"
     cfg.TRAIN.TEXT = "asr"
     cfg.TRAIN.TOPK = 5
-    cfg.SOLVER.OPTIMIZING_METHOD = "adamw"
+    cfg.SOLVER.OPTIMIZING_METHOD = method
     cfg.SOLVER.BASE_LR = LR
     cfg.SOLVER.LR_POLICY = "cosine"
     cfg.SOLVER.COSINE_END_LR = 0.0
@@ -134,33 +135,50 @@ def _flat(tree, skip="text_model"):
     return {k: v for k, v in flatten_dict(tree).items() if k[0] != skip}
 
 
-def test_train_step_matches_jax(monkeypatch):
+@pytest.fixture(scope="module")
+def jax_grads():
+    """The JAX package's gradient half of the step (``grad_step``, which no
+    optimizer enters), shared by both update rules: the bank, batch, draws,
+    model, initial parameters, gradients and metrics."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PALLAS_MIN_LEN", "1")
+        bank = _bank()
+        batch, draws = _batch(2), _draws(3)
+        jmodel, params = _jax_params(bank)
+        # the diffusion draws fixed from outside
+        orig = JaxOrderTransformer.pretrain
+
+        def fixed_pretrain(self, x, mask_inds=None, pad_start=None,
+                           level_noise=None):
+            return orig(self, x, jnp.asarray(draws["mask_inds"]),
+                        jnp.asarray(draws["pad_start"]),
+                        jnp.asarray(draws["level_noise"]))
+
+        mp.setattr(JaxOrderTransformer, "pretrain", fixed_pretrain)
+        jcfg = _cfg(jax_get_cfg())
+        sched = jax_lr_schedule(jcfg, 10)
+        jstep = jax_make_train_step(jmodel, jax_optimizer(params, jcfg, sched),
+                                    jcfg, bank, sched, 2)
+        zeros = jax.tree_util.tree_map(np.zeros_like, params)
+        jgrads, jmetrics, _ = jax.jit(jstep.grad_step)(
+            params, 0, zeros, {k: jnp.asarray(v) for k, v in batch.items()},
+            jax.random.PRNGKey(5))
+    return bank, batch, draws, jmodel, params, jgrads, jmetrics
+
+
+@pytest.mark.parametrize("method", ["adamw", "sgd"])
+def test_train_step_matches_jax(method, jax_grads, monkeypatch):
     monkeypatch.setenv("PALLAS_MIN_LEN", "1")
-    bank = _bank()
-    batch, draws = _batch(2), _draws(3)
-    jmodel, params = _jax_params(bank)
+    bank, batch, draws, jmodel, params, jgrads, jmetrics = jax_grads
 
-    # JAX: the package's own step, the diffusion draws fixed from outside
-    orig = JaxOrderTransformer.pretrain
-
-    def fixed_pretrain(self, x, mask_inds=None, pad_start=None,
-                       level_noise=None):
-        return orig(self, x, jnp.asarray(draws["mask_inds"]),
-                    jnp.asarray(draws["pad_start"]),
-                    jnp.asarray(draws["level_noise"]))
-
-    monkeypatch.setattr(JaxOrderTransformer, "pretrain", fixed_pretrain)
-    jcfg = _cfg(jax_get_cfg())
+    # JAX: the package's own step in its two halves, so that the gradients
+    # the update uses can be read: grad_step into a zero accumulator (the
+    # fixture), then apply_step of ``method``, which divides by
+    # accum_steps = 2 (exact for 2 * g)
+    jcfg = _cfg(jax_get_cfg(), method)
     sched = jax_lr_schedule(jcfg, 10)
     tx = jax_optimizer(params, jcfg, sched)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    # the package's step in its two halves, so that the gradients the
-    # update uses can be read: grad_step into a zero accumulator, then
-    # apply_step, which divides by accum_steps = 2 (exact for 2 * g)
     jstep = jax_make_train_step(jmodel, tx, jcfg, bank, sched, 2)
-    zeros = jax.tree_util.tree_map(np.zeros_like, params)
-    jgrads, jmetrics, _ = jax.jit(jstep.grad_step)(
-        params, 0, zeros, jbatch, jax.random.PRNGKey(5))
     state = jax.jit(jstep.apply_step)(
         TrainState.create(params, tx),
         jax.tree_util.tree_map(lambda g: 2 * g, jgrads))
@@ -171,7 +189,7 @@ def test_train_step_matches_jax(monkeypatch):
 
     # the port
     model = _port_model(params)
-    cfg = _cfg(get_cfg())
+    cfg = _cfg(get_cfg(), method)
     optimizer = construct_optimizer(model, cfg)
     step = make_train_step(model, optimizer, cfg, torch.from_numpy(bank),
                            lr_schedule(cfg, 10))

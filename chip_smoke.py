@@ -85,9 +85,34 @@ Phases (any failure exits non-zero):
    step 26 K5f, 6 K6sp, 13 K5bd, 3 K6bs, and no K6f, K5b, K6b, K6bd, K7
    or K8: under remat each K6 block's forward and its recomputation both
    run K6sp); one step against the plain path; one step profiled with its
+   peak memory;
+20. K4f / K4b (whole-sequence attention, ``ops/flash_attention.py``) and
+   K3f / K3b (the same with a separate CLS stream) at the TimeSformer-B
+   training shapes (``[144, 197, 768]``; ``[144, 196, 768]`` + CLS, q, k, v
+   the thirds of one projection) and K4f at the eval shape (``[128, 197,
+   768]``), plus N = 130, 333 and 1024, a small float32 case and a bf16
+   case with a logit above 80, against their plain versions; timed beside
+   SDPA;
+21. K1's long range (the same pair on the fused qkv for 208 < N + 1 <=
+   1025): every K1 route at N + 1 = 257 and 1025 against K1's plain
+   versions and the pair's own, then one divided train step at
+   ``DATA.TRAIN_CROP_SIZE 256`` against the plain path, asserting that the
+   pair carries the spatial pass (no K1 kernel runs);
+22. slice 7, eval: phase 6's zero-shot test with
+   ``TIMESFORMER.ATTENTION_TYPE space_only`` on one view and crop per video
+   (4 batches: 12 K4f per batch, no K1 or K2); one batch against the plain
+   path;
+23. slice 7, ``space_only`` training: phase 7's training (remat) with
+   ``TIMESFORMER.ATTENTION_TYPE space_only`` (2 warm-up + 4 timed steps; per
+   step 24 K4f and 12 K4b, no K1 or K2); one step against the plain path;
+   one step profiled with its peak memory;
+24. slice 7, ``SPATIAL_FUSED_QKV=0``: phase 7's training with the knob set
+   while the model is built (per step 24 K3f, 12 K3b, 24 K2f, 12 K2b, no K1
+   kernel); one step against the plain path; one step profiled with its
    peak memory.
 Phases 6 and 7 assert that none of slice 5's kernels runs without the
-knobs, phases 9 and 11 none of slice 6's.
+knobs, phases 9 and 11 none of slice 6's, and every TimeSformer phase
+before 20 none of slice 7's.
 Each phase prints its wall time.  The last two lines are the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 """
@@ -186,7 +211,7 @@ ROUTE_A = {"SPATIAL_SAVE_PROBS": "0", "SPATIAL_PIPE": "1",
            "TEMPORAL_BATCHED": "1"}
 ROUTE_B = {"SPATIAL_DELTA": "1"}
 TS_KNOBS = ("SPATIAL_SAVE_PROBS", "SPATIAL_DELTA", "SPATIAL_PIPE",
-            "SPATIAL_PIPE_NBUF", "TEMPORAL_BATCHED")
+            "SPATIAL_PIPE_NBUF", "TEMPORAL_BATCHED", "SPATIAL_FUSED_QKV")
 KT_BLOCKS, KNOB_HS_BLOCKS, K8_POOLS = 2, 1, 17
 KNOB_STEPS = 12                         # 2 warm-up + 10 timed
 # slice 6, MViT-v2-S SGD pretraining on the JAX package's backward knobs
@@ -203,6 +228,18 @@ POOL_TOL = dict(atol=1e-3, rtol=1e-2)
 # K7f's fp32 log-sum-exp: the same exponentials summed in another order,
 # per key tile; one missing key column of kN + 1 ~ 1569 moves it by ~6e-4
 LSE_TOL = dict(atol=1e-4, rtol=0.0)
+# slice 7: K3 / K4 bf16 outputs, kernel against plain version: both round
+# e = exp(min(s, 80)) to bf16 and divide the fp32 P V sums by l after, so an
+# element sits a bf16 ulp or two apart (<= 2^-7 of it); the atol covers the
+# fp32 order noise of outputs near zero.  Their gradients: MVIT_GRAD_TOL
+# against each gradient's own largest value.  Against K1's plain versions,
+# which round e / l (one bf16 rounding of each probability in another
+# place), K1's long range is held at 0.5 N(0, 1) inputs to K1K2_FWD_TOL, as
+# K1p is.
+FLASH_FWD_TOL = dict(atol=1e-3, rtol=1e-2)
+SLICE7_STEPS = 6                        # 2 warm-up + 4 timed
+SPACE_ONLY = ("TIMESFORMER.ATTENTION_TYPE", "space_only")
+SPLIT_QKV = {"SPATIAL_FUSED_QKV": "0"}
 # analytic count (utils/misc.py:39 flops_count_timesformer + temporal_fc):
 # ~391 GFLOP per clip forward; a train step is ~3x that (forward + backward)
 FWD_GFLOP_PER_CLIP = 391.0
@@ -272,7 +309,8 @@ def profile_step(torch, label: str, fn, top: int = 12) -> None:
 
 # profile groups: the first pattern found in a kernel's name decides
 KERNEL_GROUPS = (("port pool kernels (K8)", ("dwpool_",)),
-                 ("port kernels", ("spatial_", "temporal_", "mvit_")),
+                 ("port kernels", ("spatial_", "temporal_", "mvit_",
+                                   "flash_")),
                  ("convolutions", ("conv", "depthwise")),
                  ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
                  ("LayerNorm", ("layer_norm",)),
@@ -423,8 +461,12 @@ def plain_attention(k1, k2, k5, k8):
     ignore the route they are given, the MViT entries the backward knobs
     they are given), and the pool entry takes its plain
     versions (the tap forward, and the tap formulas for its backward)."""
+    from procedurevrl_torch.ops import flash_attention as fa
+
     pool = k8.depthwise_pool3d
-    swaps = [(k1, "spatial_attention_autograd",
+    swaps = [(fa, "flash_attention_autograd", fa.flash_attention_plain),
+             (fa, "flash_attention_cls_autograd", fa.flash_attention_cls_plain),
+             (k1, "spatial_attention_autograd",
               lambda qkv, qkv_c, h, s, route=None:
               k1.spatial_attention_plain(qkv, qkv_c, h, s)),
              (k2, "temporal_attention_autograd",
@@ -1353,11 +1395,26 @@ def phase_mvit_knob_kernels(torch, F, k5) -> list:
     return records
 
 
-def k1k2_kernels(k1, k2) -> tuple:
-    """Every K1 and K2 kernel's launch-count name."""
+def flash_kernel_names() -> tuple:
+    """The launch-count names of the key-tiled pair: K4, K3 and K1's long
+    range."""
+    from procedurevrl_torch.ops import flash_attention as fa
+
+    return (fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_CLS, fa.KERNEL_CLS_BWD,
+            fa.KERNEL_QKV, fa.KERNEL_QKV_BWD)
+
+
+def k1_kernel_names(k1) -> tuple:
+    """Every K1 kernel's launch-count name."""
     return (k1.KERNEL, k1.KERNEL_PROBS, k1.KERNEL_BWD, k1.KERNEL_PIPE,
-            k1.KERNEL_BWD_RECOMPUTE, k1.KERNEL_BWD_DELTA, k2.KERNEL,
-            k2.KERNEL_BWD, k2.KERNEL_V3, k2.KERNEL_V3_BWD)
+            k1.KERNEL_BWD_RECOMPUTE, k1.KERNEL_BWD_DELTA)
+
+
+def k1k2_kernels(k1, k2) -> tuple:
+    """Every TimeSformer attention kernel's launch-count name: K1, K2, and
+    the pair that carries K3, K4 and K1's long range."""
+    return (k1_kernel_names(k1) + (k2.KERNEL, k2.KERNEL_BWD, k2.KERNEL_V3,
+                                   k2.KERNEL_V3_BWD) + flash_kernel_names())
 
 
 def mvit_kernel_names(k5, k8) -> tuple:
@@ -1375,9 +1432,12 @@ def check_launches(launches: dict, expected: dict, what: str) -> None:
                  f"expected {n}")
 
 
-def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None) -> dict:
+def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None, opts=(),
+                fwd=None) -> dict:
     """Drive the zero-shot test (slice 1; slice 5's eval with ``knobs``, set
-    while the models are built); return the launch counts of its run."""
+    while the models are built; slice 7's with config ``opts``, asserting
+    the forward kernels ``fwd`` once per block and batch); return the
+    launch counts of its run."""
     from procedurevrl_torch.config import load_config
     from procedurevrl_torch.datasets.synthetic import SyntheticClips
     from procedurevrl_torch.engine.steps import make_eval_step
@@ -1388,14 +1448,16 @@ def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None) -> dict:
                       ["TRAIN.ENABLE", "False", "DEV.MATCH_LANG_EMB", "True",
                        "DEV.LOAD_DUMMY_DATA", "True", "TEST.BATCH_SIZE", "16",
                        "DEV.TEST_LANG_EMB",
-                       os.path.join(ROOT, "data/clip_step_emb_coin.pth")])
+                       os.path.join(ROOT, "data/clip_step_emb_coin.pth"),
+                       *opts])
     dataset = SyntheticClips(cfg, "test")
     n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
 
     if not knobs and any(os.environ.get(k) for k in TS_KNOBS):
         fail(f"phase 6 runs the default route: unset {list(TS_KNOBS)}")
-    label = f"slice ({' '.join(f'{k}={v}' for k, v in knobs.items())})" \
-        if knobs else "slice"
+    named = [f"{k}={v}" for k, v in (knobs or {}).items()]
+    named += [f"{k} {v}" for k, v in zip(opts[::2], opts[1::2])]
+    label = f"slice ({' '.join(named)})" if named else "slice"
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1412,7 +1474,9 @@ def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None) -> dict:
           f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
     # the forward kernels of the route, once per block and batch; no other
     # K1 or K2 kernel (no training kernel, no kernel of the other route)
-    fwd = (k1.KERNEL_PIPE, k2.KERNEL_V3) if knobs else (k1.KERNEL, k2.KERNEL)
+    if fwd is None:
+        fwd = ((k1.KERNEL_PIPE, k2.KERNEL_V3) if knobs
+               else (k1.KERNEL, k2.KERNEL))
     check_launches(launches, {key: DEPTH * n_batches if key in fwd else 0
                               for key in k1k2_kernels(k1, k2)},
                    f"the {label} test")
@@ -1445,13 +1509,13 @@ def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None) -> dict:
     return launches
 
 
-def train_cfg(remat: bool):
+def train_cfg(remat: bool, *opts):
     from procedurevrl_torch.config import load_config
 
     return load_config(
         os.path.join(ROOT, "configs/HowTo100M/procedurevrl_adamw.yaml"),
         ["DEV.LOAD_DUMMY_DATA", "True", "TRAIN.BATCH_SIZE", "2",
-         "GLOBAL_BATCH_SIZE", "2", "TPU.REMAT", str(remat)])
+         "GLOBAL_BATCH_SIZE", "2", "TPU.REMAT", str(remat), *opts])
 
 
 def mvit_cfg(path: str = MVIT_CFG):
@@ -1690,18 +1754,21 @@ def phase_route_train(torch, k1, k2, k5, k8, _build, label: str, knobs: dict,
 
 
 def phase_ts_knob_train(torch, k1, k2, k5, k8, _build, label: str,
-                        knobs: dict, expected: dict, profile: bool) -> dict:
-    """Slice 5: phase 7's TimeSformer training (remat) with ``knobs`` set
-    while the models are built: 12 steps with finite losses and the launch
-    counts ``expected`` (every other K1/K2 kernel 0), one step against the
-    plain path, and optionally a profiled step; returns the launch counts."""
+                        knobs: dict, expected: dict, profile: bool,
+                        opts=(), steps: int = TRAIN_STEPS) -> dict:
+    """Slices 5 and 7: phase 7's TimeSformer training (remat) with
+    ``knobs`` set while the models are built and config ``opts``: ``steps``
+    steps with finite losses and the launch counts ``expected`` per step
+    (every other TimeSformer attention kernel 0), one step against the
+    plain path, and optionally a profiled step with its peak memory;
+    returns the launch counts."""
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
     full = dict.fromkeys(k1k2_kernels(k1, k2), 0)
-    full.update(expected)
+    full.update({key: n * steps for key, n in expected.items()})
+    cfg = train_cfg(True, *opts)
     with knobs_set(knobs):
-        stats, launches, peak = run_train(torch, _build, train_cfg(True),
-                                          TRAIN_STEPS)
+        stats, launches, peak = run_train(torch, _build, cfg, steps)
         for i, h in enumerate(stats["history"]):
             print(f"{label} step {i + 1}: loss {h['loss']:.6f} kl "
                   f"{h['kl']:.6f} mse {h['mse']:.6f} grad_norm "
@@ -1709,20 +1776,287 @@ def phase_ts_knob_train(torch, k1, k2, k5, k8, _build, label: str,
             if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
                                                      "grad_norm")):
                 fail(f"{label} step {i + 1} is not finite")
-        if len(stats["history"]) != TRAIN_STEPS:
-            fail(f"{len(stats['history'])} {label} steps, expected "
-                 f"{TRAIN_STEPS}")
+        if len(stats["history"]) != steps:
+            fail(f"{len(stats['history'])} {label} steps, expected {steps}")
         print(f"{label} (remat): {stats['clips_per_step']} clips/step, "
               f"{stats['clips_per_sec']:.2f} clips/s over steps "
-              f"{WARMUP_STEPS + 1}..{TRAIN_STEPS}, peak memory "
+              f"{WARMUP_STEPS + 1}..{steps}, peak memory "
               f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
-        check_launches(launches, full, f"{TRAIN_STEPS} {label} steps")
-        step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5, k8)
+        check_launches(launches, full, f"{steps} {label} steps")
+        step, batch = step_vs_plain(torch, cfg, k1, k2, k5, k8)
         if profile:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             profile_step(torch, f"one {label} step "
                          f"({stats['clips_per_step']} clips, remat)",
                          lambda: float(step(batch)["loss"]))
+            print(f"{label} profiled step peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     return launches
+
+def flash_inputs(torch, gen, b, n, heads, dtype, cls, hot=False, sd=1.0):
+    """The inputs of one K4 (``cls`` False) or K3 call: q, k, v as the
+    thirds of one projection [B, N, 3C] (and qc, kc, vc of [B, 1, 3C]), g
+    (and gc), sd N(0, 1); ``hot`` puts one logit above 80 (sample 0, query
+    5, head 0, against key 3, or the CLS key)."""
+    c = heads * 64
+
+    def r(*shape):
+        return (sd * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    qkv, g = r(b, n, 3 * c), r(b, n, c)
+    qkv_c, gc = (r(b, 1, 3 * c), r(b, 1, c)) if cls else (None, None)
+    if hot:
+        qkv[0, 5, :64] = 3.0
+        (qkv_c[0, 0] if cls else qkv[0, 3])[c:c + 64] = 4.0  # logit 96
+    x = list(qkv.split(c, dim=-1))
+    if cls:
+        x += list(qkv_c.split(c, dim=-1))
+    return x, g, gc
+
+
+def flash_calls(fa, x, g, gc, heads, scale=0.125):
+    """The kernel and plain callables of one K4 / K3 case: (forward under
+    grad, forward without l, backward from l, plain forward, plain
+    backward)."""
+    if len(x) == 6:
+        return (lambda: fa.flash_attention_cls_fwd(*x, heads, scale),
+                lambda: fa.flash_attention_cls(*x, heads, scale),
+                lambda l: fa.flash_attention_cls_bwd(*x, g, gc, l, heads, scale),
+                lambda: fa.flash_attention_cls_fwd_plain(*x, heads, scale),
+                lambda: fa.flash_attention_cls_bwd_plain(*x, g, gc, heads,
+                                                         scale))
+    return (lambda: fa.flash_attention_fwd(*x, heads, scale),
+            lambda: (fa.flash_attention(*x, heads, scale),),
+            lambda l: fa.flash_attention_bwd(*x, g, l, heads, scale),
+            lambda: fa.flash_attention_fwd_plain(*x, heads, scale),
+            lambda: fa.flash_attention_bwd_plain(*x, g, heads, scale))
+
+
+def check_flash(torch, fa, name, x, g, gc, heads) -> tuple:
+    """One K4 / K3 case against its plain version: the outputs (bf16
+    ``FLASH_FWD_TOL``, fp32 ``FP32_TOL``), l (``ROWSUM_TOL``), the forward
+    without l (bit for bit) and the gradients (bf16 ``MVIT_GRAD_TOL`` of
+    each gradient's own scale, fp32 ``FP32_TOL`` scaled); returns the
+    largest output and gradient errors."""
+    fp32 = x[0].dtype == torch.float32
+    fwd, fwd_no_l, bwd, plain_fwd, plain_bwd = flash_calls(fa, x, g, gc, heads)
+    got, want = fwd(), plain_fwd()
+    parts = ("out", "outc")[:len(got) - 1]
+    ftol = FP32_TOL if fp32 else FLASH_FWD_TOL
+    err_f = max(compare(torch, f"{name} {p}", a, r, ftol)
+                for p, a, r in zip(parts, got, want))
+    compare(torch, f"{name} l", got[-1], want[-1], ROWSUM_TOL)
+    if not all(torch.equal(a, b) for a, b in zip(fwd_no_l(), got)):
+        fail(f"{name}: the forward without l differs")
+    grads = ("dq", "dk", "dv", "dqc", "dkc", "dvc")
+    err_b = max(compare(torch, f"{name} {p}", a, r,
+                        grad_tol(FP32_TOL, r) if fp32
+                        else own_tol(MVIT_GRAD_TOL, r))
+                for p, a, r in zip(grads, bwd(got[-1]), plain_bwd()))
+    return err_f, err_b
+
+
+def sdpa_operands(torch, x, g, gc, heads):
+    """q, k, v, g as contiguous [B, H, L, d] with the CLS appended: SDPA's
+    operands for the same function (while every logit stays below 80)."""
+    def heads_first(t, tc):
+        t = t if tc is None else torch.cat([t, tc], dim=1)
+        b, n, c = t.shape
+        return t.reshape(b, n, heads, c // heads).transpose(1, 2).contiguous()
+
+    cls = x[3:] if len(x) == 6 else (None,) * 3
+    return ([heads_first(t, tc) for t, tc in zip(x[:3], cls)]
+            + [heads_first(g, gc)])
+
+
+def flash_records(bt, L, c, labels, names, replaces, measured) -> list:
+    """Prints the forward and backward lines of one bf16 attention pair over
+    ``bt`` x ``L`` rows of width ``c`` (heads of 64) and returns their two
+    records. The bounds count each input read once and each output written
+    once (q, k, v, o; q, k, v, g, dq, dk, dv): the row sums l the forward
+    keeps for the backward are the kernel's own traffic, not the function's.
+    ``measured`` holds (max_abs_err, ms, plain_ms, library_ms) for each."""
+    e, pairs = 2, bt * (c // 64) * L * L * 64
+    src = "procedurevrl_torch/csrc/flash_attention.cu"
+    records = []
+    for label, name, where, (err, ms, plain, lib), rows, flop, lib_name in zip(
+            labels, names, replaces, measured, (4, 7), (4, 10),
+            ("SDPA fwd", "SDPA bwd")):
+        nb, fl = bt * L * rows * c * e, flop * pairs
+        b_ms, b_by = bound_ms(nb, fl, BF16_FLOPS)
+        print(f"{label} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"{lib_name} {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{nb / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP)")
+        records.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": where, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib})
+    return records
+
+
+def phase_flash_kernels(torch, F, fa) -> list:
+    """K4f / K4b and K3f / K3b against their plain versions at the slice 7
+    shapes and small ones, timed beside SDPA; returns their records (the
+    training shapes)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    heads, scale = 12, 0.125
+    c = heads * 64
+    f32, b16 = torch.float32, torch.bfloat16
+    for dtype, n, cls, hot in ((f32, 130, False, True), (f32, 196, True, True),
+                               (b16, 197, False, True), (b16, 196, True, True),
+                               (b16, 130, False, False), (b16, 130, True, False),
+                               (b16, 333, False, False), (b16, 333, True, False),
+                               (b16, 1024, False, False),
+                               (b16, 1024, True, False)):
+        x, g, gc = flash_inputs(torch, gen, 2, n, heads, dtype, cls, hot)
+        name = (f"{'K3' if cls else 'K4'} small {str(dtype)[6:]} N={n}"
+                + (" logit > 80" if hot else ""))
+        check_flash(torch, fa, name, x, g, gc, heads)
+
+    records = []
+    where = "procedurevrl_tpu/ops/pallas_attention.py:"
+    e = 2
+    for cls, n, tag, lines in ((False, 197, "K4", (177, 240)),
+                               (True, 196, "K3", (354, 404))):
+        bt, L = 2 * CLIPS_PER_SAMPLE * 8, n + cls
+        x, g, gc = flash_inputs(torch, gen, bt, n, heads, b16, cls)
+        err_f, err_b = check_flash(torch, fa, f"{tag} train bf16", x, g, gc,
+                                   heads)
+        fwd, _, bwd, plain_fwd, plain_bwd = flash_calls(fa, x, g, gc, heads)
+        l = fwd()[-1]
+        ms_f, ms_b = time_ms(torch, fwd), time_ms(torch, lambda: bwd(l))
+        plain_f = time_ms(torch, plain_fwd, iters=5)
+        plain_b = time_ms(torch, plain_bwd, iters=3)
+        q, k, v, gy = sdpa_operands(torch, x, g, gc, heads)
+        lib_f, lib_b = sdpa_ms(torch, F, q, k, v, gy)
+        del q, k, v, gy
+        names = ((fa.KERNEL_CLS, fa.KERNEL_CLS_BWD) if cls
+                 else (fa.KERNEL, fa.KERNEL_BWD))
+        shape = f"[{bt},{n},{c}]" + (" + CLS" if cls else "")
+        records += flash_records(
+            bt, L, c, (f"{tag}f {shape}", f"{tag}b {shape}"), names,
+            [f"{where}{line}" for line in lines],
+            ((err_f, ms_f, plain_f, lib_f), (err_b, ms_b, plain_b, lib_b)))
+        del x, g, gc, l
+
+    # K4f at the eval shape (16 views x 8 frames), without l
+    bt = 8 * 16
+    x, _, _ = flash_inputs(torch, gen, bt, 197, heads, b16, False)
+    compare(torch, "K4 eval bf16 out", fa.flash_attention(*x, heads, scale),
+            fa.flash_attention_plain(*x, heads, scale), FLASH_FWD_TOL)
+    ms = time_ms(torch, lambda: fa.flash_attention(*x, heads, scale))
+    plain = time_ms(torch, lambda: fa.flash_attention_plain(*x, heads, scale),
+                    iters=5)
+    q, k, v, _ = sdpa_operands(torch, x, x[0], None, heads)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    nb, fl = bt * 197 * 4 * c * e, 4 * bt * heads * 197 * 197 * 64
+    b_ms, b_by = bound_ms(nb, fl, BF16_FLOPS)
+    print(f"K4f [{bt},197,{c}] bf16 (eval shape): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{nb / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP)")
+    return records
+
+
+def phase_k1_long(torch, F, k1, k2, k5, k8, fa, _build) -> list:
+    """K1's long range: every K1 route at N + 1 = 257 and 1025 takes the
+    pair (launch counts) and holds K1's function; the pair timed at
+    N + 1 = 257 (the training batch); then one divided train step at a
+    256^2 crop against the plain path, the spatial pass on the pair.
+    Returns the pair's records in K1's layout, launches from that step."""
+    from procedurevrl_torch.ops.attention_route import AttentionRoute
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    heads, scale = 12, 0.125
+    c = heads * 64
+    routes = {"default": AttentionRoute(),
+              "SPATIAL_DELTA=1": AttentionRoute(delta=True),
+              "SPATIAL_SAVE_PROBS=0 SPATIAL_PIPE=1":
+                  AttentionRoute(save_probs=False, pipe=True)}
+    only_pair = dict.fromkeys(k1_kernel_names(k1), 0)
+    only_pair.update({fa.KERNEL_QKV: 2, fa.KERNEL_QKV_BWD: 1})
+    for n, bt in ((256, 2 * CLIPS_PER_SAMPLE * 8), (1024, 16)):
+        qkv, qkv_c, g, gc = k1_inputs(torch, gen, bt, n, heads, torch.bfloat16)
+        name = f"K1 long N+1={n + 1}"
+        ro, roc, _ = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, heads, scale)
+        rd = fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, heads, scale)
+        for label, route in routes.items():
+            _build.reset_launches()
+            a, ac = (t.detach().clone().requires_grad_(True)
+                     for t in (qkv, qkv_c))
+            out, out_c = k1.spatial_attention_autograd(a, ac, heads, scale,
+                                                       route)
+            torch.autograd.backward((out, out_c), (g, gc))
+            with torch.no_grad():
+                o2, oc2 = k1.spatial_attention_autograd(qkv, qkv_c, heads,
+                                                        scale, route)
+            torch.cuda.synchronize()
+            check_launches(dict(_build.LAUNCHES), only_pair,
+                           f"{name} on the {label} route")
+            if not (torch.equal(o2, out) and torch.equal(oc2, out_c)):
+                fail(f"{name} {label}: the forward without grad differs")
+            err_f = max(compare(torch, f"{name} {label} out", out, ro,
+                                FLASH_FWD_TOL),
+                        compare(torch, f"{name} {label} out_c", out_c, roc,
+                                FLASH_FWD_TOL))
+            err_b = max(compare(torch, f"{name} {label} {p}", t.grad, r,
+                                own_tol(MVIT_GRAD_TOL, r))
+                        for p, t, r in zip(("dqkv", "dqkv_c"), (a, ac), rd))
+        del a, ac, out, out_c, o2, oc2, ro, roc, rd
+        # K1's own plain versions, which round e / l, at 0.5 N(0, 1)
+        half = [0.5 * t for t in (qkv, qkv_c)]
+        with torch.no_grad():
+            o, oc = k1.spatial_attention_autograd(*half, heads, scale)
+        for p, a, r in zip(("out", "out_c"), (o, oc),
+                           k1.spatial_attention_plain(*half, heads, scale)):
+            compare(torch, f"{name} {p} vs K1f plain", a, r, K1K2_FWD_TOL)
+        l = fa.flash_attention_qkv_fwd(*half, heads, scale)[2]
+        for p, a, r in zip(("dqkv", "dqkv_c"),
+                           fa.flash_attention_qkv_bwd(*half, g, gc, l, heads,
+                                                      scale),
+                           k1.spatial_attention_bwd_recompute_plain(
+                               *half, g, gc, heads, scale)):
+            compare(torch, f"{name} {p} vs K1br plain", a, r,
+                    own_tol(MVIT_GRAD_TOL, r))
+        if n == 256:
+            L = n + 1
+            l = fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale)[2]
+            ms_f = time_ms(torch, lambda: fa.flash_attention_qkv_fwd(
+                qkv, qkv_c, heads, scale))
+            ms_b = time_ms(torch, lambda: fa.flash_attention_qkv_bwd(
+                qkv, qkv_c, g, gc, l, heads, scale))
+            plain_f = time_ms(torch, lambda: fa.flash_attention_qkv_fwd_plain(
+                qkv, qkv_c, heads, scale), iters=5)
+            plain_b = time_ms(torch, lambda: fa.flash_attention_qkv_bwd_plain(
+                qkv, qkv_c, g, gc, heads, scale), iters=3)
+            x = torch.cat([qkv, qkv_c], dim=1).view(bt, L, 3, heads, 64)
+            q, k, v = (x[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+            gy = torch.cat([g, gc], dim=1).view(bt, L, heads, 64).transpose(1, 2)
+            lib_f, lib_b = sdpa_ms(torch, F, q, k, v, gy.contiguous())
+            del x, q, k, v, gy
+            shape = f"[{bt},{n},{3 * c}]"
+            records = flash_records(
+                bt, L, c, (f"K1 long fwd {shape}", f"K1 long bwd {shape}"),
+                (fa.KERNEL_QKV, fa.KERNEL_QKV_BWD),
+                ("procedurevrl_tpu/ops/pallas_attention.py:536",
+                 "procedurevrl_tpu/ops/pallas_attention.py:586"),
+                ((err_f, ms_f, plain_f, lib_f), (err_b, ms_b, plain_b, lib_b)))
+        del qkv, qkv_c, g, gc, half
+
+    # one divided train step at a 256^2 crop (N + 1 = 257), remat
+    cfg = train_cfg(True, "DATA.TRAIN_CROP_SIZE", "256")
+    _build.reset_launches()
+    step_vs_plain(torch, cfg, k1, k2, k5, k8)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
+    expected.update({fa.KERNEL_QKV: 2 * DEPTH, fa.KERNEL_QKV_BWD: DEPTH,
+                     k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH})
+    check_launches(launches, expected, "the divided step at crop 256")
+    print(f"divided train step at crop 256: launches {launches}")
+    for rec in records:
+        rec["launches"] = launches.get(rec["name"], 0)
+    return records
 
 
 def main() -> int:
@@ -1740,6 +2074,7 @@ def main() -> int:
 
     from procedurevrl_torch.ops import _build
     from procedurevrl_torch.ops import depthwise_pool as k8
+    from procedurevrl_torch.ops import flash_attention as fa
     from procedurevrl_torch.ops import mvit_attention as k5
     from procedurevrl_torch.ops import spatial_attention as k1
     from procedurevrl_torch.ops import temporal_attention as k2
@@ -1790,17 +2125,16 @@ def main() -> int:
     launches = timed("14 slice 5 eval", phase_slice, torch, k1, k2, k5, k8,
                      _build, TS_EVAL_KNOBS)
     by_name[k1.KERNEL_PIPE]["launches"] = launches.get(k1.KERNEL_PIPE, 0)
-    n = DEPTH * TRAIN_STEPS
     launches = timed("15 slice 5 route A", phase_ts_knob_train, torch, k1, k2,
                      k5, k8, _build, "route A", ROUTE_A,
-                     {k1.KERNEL_PIPE: 2 * n, k1.KERNEL_BWD_RECOMPUTE: n,
-                      k2.KERNEL_V3: 2 * n, k2.KERNEL_V3_BWD: n}, True)
+                     {k1.KERNEL_PIPE: 2 * DEPTH, k1.KERNEL_BWD_RECOMPUTE: DEPTH,
+                      k2.KERNEL_V3: 2 * DEPTH, k2.KERNEL_V3_BWD: DEPTH}, True)
     for key in (k1.KERNEL_BWD_RECOMPUTE, k2.KERNEL_V3, k2.KERNEL_V3_BWD):
         by_name[key]["launches"] = launches.get(key, 0)
     launches = timed("16 slice 5 route B", phase_ts_knob_train, torch, k1, k2,
                      k5, k8, _build, "route B", ROUTE_B,
-                     {k1.KERNEL_PROBS: 2 * n, k1.KERNEL_BWD_DELTA: n,
-                      k2.KERNEL: 2 * n, k2.KERNEL_BWD: n}, False)
+                     {k1.KERNEL_PROBS: 2 * DEPTH, k1.KERNEL_BWD_DELTA: DEPTH,
+                      k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH}, False)
     by_name[k1.KERNEL_BWD_DELTA]["launches"] = launches.get(
         k1.KERNEL_BWD_DELTA, 0)
     for rec in ts_knob_kernels:
@@ -1829,8 +2163,32 @@ def main() -> int:
     for rec in route_kernels:
         if not rec["launches"]:
             fail(f"{rec['name']} was not launched on the slice 6 path")
+    flash_kernels = timed("20 K4/K3", phase_flash_kernels, torch, F, fa)
+    long_kernels = timed("21 K1 long range", phase_k1_long, torch, F, k1, k2,
+                         k5, k8, fa, _build)
+    timed("22 slice 7 eval", phase_slice, torch, k1, k2, k5, k8, _build, None,
+          SPACE_ONLY + ("TEST.NUM_ENSEMBLE_VIEWS", "1"), (fa.KERNEL,))
+    launches = timed("23 slice 7 space_only", phase_ts_knob_train, torch, k1,
+                     k2, k5, k8, _build, "space_only train", {},
+                     {fa.KERNEL: 2 * DEPTH, fa.KERNEL_BWD: DEPTH}, True,
+                     SPACE_ONLY, SLICE7_STEPS)
+    by_name = {rec["name"]: rec for rec in flash_kernels}
+    for key in (fa.KERNEL, fa.KERNEL_BWD):
+        by_name[key]["launches"] = launches.get(key, 0)
+    launches = timed("24 slice 7 split qkv", phase_ts_knob_train, torch, k1,
+                     k2, k5, k8, _build, "SPATIAL_FUSED_QKV=0 train",
+                     SPLIT_QKV, {fa.KERNEL_CLS: 2 * DEPTH,
+                                 fa.KERNEL_CLS_BWD: DEPTH,
+                                 k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH},
+                     True, (), SLICE7_STEPS)
+    for key in (fa.KERNEL_CLS, fa.KERNEL_CLS_BWD):
+        by_name[key]["launches"] = launches.get(key, 0)
+    for rec in flash_kernels + long_kernels:
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the slice 7 path")
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
-               + ts_knob_kernels + route_kernels)
+               + ts_knob_kernels + route_kernels + flash_kernels
+               + long_kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)

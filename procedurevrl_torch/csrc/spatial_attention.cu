@@ -106,6 +106,7 @@ using namespace pvrl;
 constexpr int WARPS = 4;
 constexpr int PIPE_WARPS = 8;
 constexpr int MAX_DEPTH = 8;
+constexpr int MAX_LEN = 208;  // n + 1 tokens per frame, every K1 kernel
 constexpr size_t MAX_SMEM = 232448;  // a CTA's shared memory on Hopper
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -938,21 +939,17 @@ int forward(const void* qkv, const void* qkv_c, void* out, void* out_c,
             void* probs, int bt, int n, int heads, int dtype, float scale,
             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int L = n + 1;
+  if (L > MAX_LEN) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch_scalar<SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
                                       heads, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const int L = n + 1;
   if (L <= 64)
     return (int)launch_mma<64, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
                                        heads, scale, st);
-  if (L <= 208)
-    return (int)launch_mma<208, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                        heads, scale, st);
-  if (L <= 256)
-    return (int)launch_mma<256, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                        heads, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_mma<208, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
+                                      heads, scale, st);
 }
 
 // K1p geometry: the bytes of one ring stage and of the per-warp rows
@@ -967,12 +964,13 @@ PipeShape pipe_shape(int n, int dtype) {
   if (dtype == 0)
     return {(size_t)3 * L * SC_STRIDE * sizeof(float),
             (size_t)PIPE_WARPS * ((L + 31) & ~31) * sizeof(float), 0};
-  const int lp = L <= 64 ? 64 : L <= 208 ? 208 : 256;
+  const int lp = L <= 64 ? 64 : MAX_LEN;
   return {(size_t)3 * lp * MMA_STRIDE * sizeof(uint16_t), 0, lp};
 }
 
 // ring depth: the requested one, at least 1, clamped to what fits
 int pipe_depth(int n, int dtype, int nbuf) {
+  if (n + 1 > MAX_LEN) return 0;
   const PipeShape s = pipe_shape(n, dtype);
   if (s.stage + s.extra > MAX_SMEM) return 0;
   const int fits = (int)((MAX_SMEM - s.extra) / s.stage);
@@ -1036,7 +1034,7 @@ int backward(const void* qkv, const void* qkv_c, const void* probs,
              int heads, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int L = n + 1;
-  if (L > 208) return (int)cudaErrorInvalidValue;
+  if (L > MAX_LEN) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     const int lp = (L + 31) & ~31;
     const size_t smem = (size_t)4 * L * SC_STRIDE * sizeof(float) +
@@ -1065,8 +1063,8 @@ int backward(const void* qkv, const void* qkv_c, const void* probs,
 // dtype: 0 = float32, 1 = bfloat16.  Head dim is 64.  Each entry point
 // returns the CUDA error code of its launch (0 on success).
 
-// K1f.  Sequences of up to 256 tokens with the CLS (n + 1 <= 256; fp32
-// staging then needs 207 KB of shared memory).
+// K1f.  Sequences of up to MAX_LEN = 208 tokens with the CLS (n + 1 <=
+// 208, the backward's limit); longer ones take flash_attention.cu's pair.
 extern "C" int spatial_attention_fwd(const void* qkv, const void* qkv_c,
                                      void* out, void* out_c, int bt, int n,
                                      int heads, int dtype, float scale,
@@ -1100,7 +1098,8 @@ extern "C" int spatial_attention_fwd_pipe(const void* qkv, const void* qkv_c,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int L = n + 1;
-  if ((dtype != 0 && dtype != 1) || L > 256) return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || L > MAX_LEN)
+    return (int)cudaErrorInvalidValue;
   const int depth = pipe_depth(n, dtype, nbuf);
   if (depth < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
@@ -1109,11 +1108,8 @@ extern "C" int spatial_attention_fwd_pipe(const void* qkv, const void* qkv_c,
   if (L <= 64)
     return (int)launch_pipe<__nv_bfloat16, 64>(qkv, qkv_c, out, out_c, bt, n,
                                                heads, depth, scale, st);
-  if (L <= 208)
-    return (int)launch_pipe<__nv_bfloat16, 208>(qkv, qkv_c, out, out_c, bt, n,
-                                                heads, depth, scale, st);
-  return (int)launch_pipe<__nv_bfloat16, 256>(qkv, qkv_c, out, out_c, bt, n,
-                                              heads, depth, scale, st);
+  return (int)launch_pipe<__nv_bfloat16, MAX_LEN>(qkv, qkv_c, out, out_c, bt,
+                                                  n, heads, depth, scale, st);
 }
 
 // K1b: dqkv [bt, n, 3C], dqkv_c [bt, 1, 3C] from qkv, qkv_c, the K1sp

@@ -67,11 +67,11 @@ class Attention(nn.Module):
     """Fused-qkv self-attention (reference ``lib/models/vit.py:62-92``).
 
     Three dispatches, as the JAX module: with ``cls_stream`` the spatial
-    pass with a separate CLS stream (kernel K1), with ``time_axis`` the
-    temporal pass over axis 1 of ``[B, T, N, C]`` (kernel K2), otherwise
-    plain attention over axis 1 of ``[B, N, C]`` (``causal`` adds the
-    causal mask, as for the CLIP text tower).  ``route`` picks the K1 and
-    K2 kernels (``ops/attention_route.py``)."""
+    pass with a separate CLS stream (kernel K1, or K3), with ``time_axis``
+    the temporal pass over axis 1 of ``[B, T, N, C]`` (kernel K2), otherwise
+    attention over axis 1 of ``[B, N, C]`` (kernel K4 where the route asks
+    for Pallas and the shape rule holds; ``causal`` adds the causal mask).
+    ``route`` picks the kernels (``ops/attention_route.py``)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  causal: bool = False, route: AttentionRoute = DEFAULT_ROUTE):
@@ -96,7 +96,8 @@ class Attention(nn.Module):
         if time_axis:
             return mhsa_temporal(x, *args, route=self.route)
         return mhsa(x, *args, key_padding_mask=key_padding_mask,
-                    causal=self.causal)
+                    causal=self.causal, use_pallas=self.route.use_pallas,
+                    min_len=self.route.min_len)
 
 
 Streams = Union[torch.Tensor, Tuple[torch.Tensor, ...]]

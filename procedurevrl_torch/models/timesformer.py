@@ -8,11 +8,18 @@ resident as ``[B*T, N, D]`` (the spatial layout; the temporal view
 ``[B, 1, D]`` stream.  The attention groups, and so every value, are those
 of the reference's patch-major layout.  Input is channels-last video
 ``[B, T, H, W, C]``; compute runs in the input's dtype.
+
+Two attention types, as the JAX package runs them: ``divided_space_time``
+(the default; temporal pass through K2, spatial pass through K1, or K3 on
+``SPATIAL_FUSED_QKV=0``) and ``space_only`` (each frame's ``[1 + N, D]``
+tokens, its own CLS first, attend within the frame through K4; no time
+embedding; the CLS outputs are averaged over the frames before the final
+norm).  ``joint_space_time`` is refused: the JAX package fails on it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -117,9 +124,49 @@ class DividedSTBlock(nn.Module):
         return cls + mlp_cls, xt + mlp_xt
 
 
+class SpaceOnlyBlock(nn.Module):
+    """The block of ``space_only`` attention (JAX ``DividedSTBlock`` with
+    ``attention_type="space_only"``, ``timesformer.py:110-113``): pre-norm
+    self-attention and MLP on ``[B*T, 1 + N, D]``, each frame on its own."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, drop_path_rate: float = 0.0,
+                 norm_eps: float = 1e-6,
+                 route: AttentionRoute = DEFAULT_ROUTE):
+        super().__init__()
+        self.norm1 = LayerNormFp32(dim, eps=norm_eps)
+        self.attn = Attention(dim, num_heads, qkv_bias, route=route)
+        self.norm2 = LayerNormFp32(dim, eps=norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.drop_path = DropPath(drop_path_rate)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+    def draw_masks(self, B: int, T: int, device: torch.device,
+                   generator: Optional[torch.Generator]
+                   ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Stochastic-depth keep masks of the attention and MLP residuals,
+        each per (sample, frame), the lead of the ``[B*T, ...]`` stream, as
+        JAX's ``DropPath`` draws them on it (None when nothing drops)."""
+        dp = self.drop_path
+        masks = (dp.draw(B * T, device, generator),
+                 dp.draw(B * T, device, generator))
+        return None if masks[0] is None else masks
+
+    def forward(self, x: torch.Tensor, T: int,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        keep_a, keep_m = keep if keep is not None else (None, None)
+        x = x + self.drop_path(self.attn(self.norm1(x)), keep_a)
+        return x + self.drop_path(self.mlp(self.norm2(x)), keep_m)
+
+
 class TimeSformer(nn.Module):
     """TimeSformer-B encoder (reference ``lib/models/vit.py:183-423``):
-    ``[B, T, H, W, 3]`` video -> CLS feature ``[B, D]``.
+    ``[B, T, H, W, 3]`` video -> CLS feature ``[B, D]``, with
+    ``divided_space_time`` or ``space_only`` attention (module docstring).
 
     In train mode each block draws its stochastic-depth masks from the
     ``generator`` given to ``forward`` (on the input's device).  With
@@ -143,9 +190,15 @@ class TimeSformer(nn.Module):
         super().__init__()
         if route is None:
             route = AttentionRoute.from_env()
-        if attention_type != "divided_space_time":
+        if attention_type == "joint_space_time":
             raise NotImplementedError(
-                f"{attention_type} attention is not ported yet")
+                "joint_space_time attention: the JAX reference fails on it "
+                "(its block, procedurevrl_tpu/models/timesformer.py:110, "
+                "receives the divided (cls, xt) tuple), so there is nothing "
+                "to hold a port to")
+        if attention_type not in ("divided_space_time", "space_only"):
+            raise ValueError(f"unknown attention type {attention_type!r}")
+        self.attention_type = attention_type
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.remat = remat
@@ -153,11 +206,14 @@ class TimeSformer(nn.Module):
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1, embed_dim))
-        self.time_embed = nn.Parameter(torch.zeros(1, num_frames, embed_dim))
+        space_only = attention_type == "space_only"
+        if not space_only:
+            self.time_embed = nn.Parameter(torch.zeros(1, num_frames,
+                                                       embed_dim))
+        block = SpaceOnlyBlock if space_only else DividedSTBlock
         self.blocks = nn.ModuleList([
-            DividedSTBlock(embed_dim, num_heads, mlp_ratio, qkv_bias,
-                           drop_path_rate * i / max(depth - 1, 1), norm_eps,
-                           route)
+            block(embed_dim, num_heads, mlp_ratio, qkv_bias,
+                  drop_path_rate * i / max(depth - 1, 1), norm_eps, route)
             for i in range(depth)
         ])
         self.norm = LayerNormFp32(embed_dim, eps=norm_eps)
@@ -168,8 +224,9 @@ class TimeSformer(nn.Module):
         unit LayerNorm scales."""
         trunc_normal_init(self.patch_embed.proj.weight, 0.02, generator)
         nn.init.zeros_(self.patch_embed.proj.bias)
-        for p in (self.cls_token, self.pos_embed, self.time_embed):
-            trunc_normal_init(p, 0.02, generator)
+        for name in ("cls_token", "pos_embed", "time_embed"):
+            if hasattr(self, name):
+                trunc_normal_init(getattr(self, name), 0.02, generator)
         for blk in self.blocks:
             blk.reset_parameters(generator)
         for m in self.modules():
@@ -199,12 +256,17 @@ class TimeSformer(nn.Module):
         n_tok = tokens.shape[1]
         cls = self.cls_token.to(dt).expand(B * T, 1, D)
         tokens = torch.cat([cls, tokens], dim=1) + self._pos_embed(n_tok, gw).to(dt)
-        te = interpolate_nearest_1d(self.time_embed, T, dim=1)
-        # every CLS row is cls_token + its position embedding: one per sample
-        cls = tokens[:B, :1]
-        spatial = tokens[:, 1:].reshape(B, T, n_tok, D) + te.to(dt)[:, :, None]
-        state: Tuple[torch.Tensor, torch.Tensor] = (
-            cls, spatial.reshape(B * T, n_tok, D))
+        if self.attention_type == "space_only":
+            # [B*T, 1 + N, D]: every frame with its own CLS
+            state: Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]] = tokens
+        else:
+            te = interpolate_nearest_1d(self.time_embed, T, dim=1)
+            # every CLS row is cls_token + its position embedding: one per
+            # sample
+            cls = tokens[:B, :1]
+            spatial = (tokens[:, 1:].reshape(B, T, n_tok, D)
+                       + te.to(dt)[:, :, None])
+            state = (cls, spatial.reshape(B * T, n_tok, D))
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             keep = blk.draw_masks(B, T, x.device, generator)
@@ -212,4 +274,9 @@ class TimeSformer(nn.Module):
                 state = checkpoint(blk, state, T, keep, use_reentrant=False)
             else:
                 state = blk(state, T, keep)
+        if self.attention_type == "space_only":
+            # the frames' CLS rows averaged over T; LayerNorm is per token,
+            # so this is JAX's norm(mean_T(tokens))[:, 0]
+            return self.norm(state.view(B, T, n_tok + 1, D)[:, :, 0]
+                             .mean(dim=1))
         return self.norm(state[0])[:, 0]

@@ -63,6 +63,10 @@ ENTRY_POINTS = {
         "mvit_attention_bwd_delta": [_P] * 16 + [_I] * 8 + [_F, _P],
         "mvit_attention_bwd_probs": [_P] * 15 + [_I] * 8 + [_F, _P],
     },
+    "flash_attention": {
+        "flash_attention_fwd": [_P] * 9 + [_I] * 4 + [_L] * 4 + [_I, _F, _P],
+        "flash_attention_bwd": [_P] * 16 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
+    },
     "depthwise_pool": {
         "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 6 + [_L, _L, _I, _P],
         "depthwise_pool3d_dw": [_P] * 4 + [_I] * 5 + [_L, _L, _I, _I, _P],

@@ -8,25 +8,29 @@ are cast to the activation dtype at each product, as the JAX package casts
 
 - ``attention_core`` / ``mhsa_xla``: plain attention with a row-max
   softmax, as the JAX package's XLA paths.
-- ``mhsa``: the dispatcher of the JAX package's ``mhsa``.  The JAX package
-  sends unmasked, non-causal sequences of 128..1024 tokens to its kernel K4
-  when asked for Pallas; no default model path does (the CLIP tower is
-  causal, the order transformer does not ask), so the port's ``mhsa`` is
-  the plain path until K4 is ported.
+- ``mhsa``: the dispatcher of the JAX package's ``mhsa``.  Asked for
+  Pallas (``use_pallas``, which only TimeSformer's ``Attention`` passes, as
+  in JAX: the CLIP tower and the order transformer keep the default False),
+  unmasked, non-causal sequences of ``min_len``..1024 tokens take kernel K4
+  (``ops/flash_attention.py``, K4f, + K4b under grad), as TimeSformer's
+  ``space_only`` blocks do at N = 197.
 - ``mhsa_cls``: the spatial pass with the CLS as a separate stream, through
   kernel K1 (``ops/spatial_attention.py``: K1f, or K1sp + K1b under grad;
-  K1p, K1br and K1bd on the knob routes of ``ops/attention_route.py``).
+  K1p, K1br and K1bd on the knob routes of ``ops/attention_route.py``), or,
+  with ``SPATIAL_FUSED_QKV=0``, through K3 (``ops/flash_attention.py``) on
+  the q, k, v thirds of the projection.
 - ``mhsa_temporal``: the temporal pass on the ``[B, T, N, C]`` view,
   through kernel K2 (``ops/temporal_attention.py``: K2f, + K2b under grad;
   K2v3f and K2v3b on ``TEMPORAL_BATCHED``).
-Both kernels use the clamp shift ``exp(min(s, 80))`` of the JAX package's
+Every kernel uses the clamp shift ``exp(min(s, 80))`` of the JAX package's
 Pallas kernels, which equals the row-max softmax while logits stay below 80.
 
 Whether a pass takes its kernel is the JAX package's shape rule, decided
-before any launch (:func:`takes_k1`, :func:`takes_k2`); otherwise it runs
-the plain row-max path, as JAX runs its XLA path.  One range stays open:
-for 208 < N + 1 <= 1025 JAX runs its spatial kernel, but K1 has no
-geometry there, so the port's K1 wrappers raise on the card.
+before any launch (:func:`takes_k1`, :func:`takes_k2`, :func:`takes_k4`);
+otherwise it runs the plain row-max path, as JAX runs its XLA path.  K1
+carries frames of up to 207 tokens (N + 1 <= 208) on its own kernels and
+longer ones, to JAX's 1024, on the key-tiled pair of
+``ops/flash_attention.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from procedurevrl_torch.ops import flash_attention as fa
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
@@ -81,6 +86,16 @@ def takes_k1(n: int, c: int, num_heads: int, route: AttentionRoute) -> bool:
     """Whether the spatial pass over N frame tokens takes K1 (JAX
     ``ops/attention.py:184-188``)."""
     return (route.use_pallas and route.min_len <= n <= MAX_FUSED_LEN
+            and heads_per_block(c // num_heads, num_heads) > 0)
+
+
+def takes_k4(n: int, c: int, num_heads: int, use_pallas: bool, min_len: int,
+             masked: bool, causal: bool) -> bool:
+    """Whether self-attention over N tokens takes K4 (JAX
+    ``ops/attention.py:309-315``): asked for Pallas, no key mask, not
+    causal, ``min_len <= N <= 1024`` and a heads-per-block geometry."""
+    return (use_pallas and not masked and not causal
+            and min_len <= n <= MAX_FUSED_LEN
             and heads_per_block(c // num_heads, num_heads) > 0)
 
 
@@ -136,11 +151,22 @@ def mhsa_xla(x: torch.Tensor, qkv_w: torch.Tensor,
 def mhsa(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: Optional[torch.Tensor],
          proj_w: torch.Tensor, proj_b: torch.Tensor, num_heads: int,
          key_padding_mask: Optional[torch.Tensor] = None,
-         causal: bool = False) -> torch.Tensor:
+         causal: bool = False, use_pallas: bool = False,
+         min_len: int = 128) -> torch.Tensor:
     """Self-attention on x [B, N, C] with an optional key padding mask
-    ([B, N], True = masked out) and causal mask (plain path)."""
-    return mhsa_xla(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
-                    key_padding_mask, causal)
+    ([B, N], True = masked out) and causal mask.  Where :func:`takes_k4`
+    holds (``use_pallas`` and ``min_len`` as ``TPU.USE_PALLAS_ATTENTION``
+    and ``PALLAS_MIN_LEN`` give them), K4 on the q, k, v thirds of one
+    projection (JAX ``ops/attention.py:316-327``); else :func:`mhsa_xla`."""
+    b, n, c = x.shape
+    if not takes_k4(n, c, num_heads, use_pallas, min_len,
+                    key_padding_mask is not None, causal):
+        return mhsa_xla(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                        key_padding_mask, causal)
+    q, k, v = _linear(x, qkv_w, qkv_b).split(c, dim=-1)
+    out = fa.flash_attention_autograd(q, k, v, num_heads,
+                                      (c // num_heads) ** -0.5)
+    return _linear(out, proj_w, proj_b)
 
 
 def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
@@ -153,17 +179,24 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
     x [BT, N, C] frame tokens, cls_x [BT, 1, C]; every query attends over
     [cls; frames].  Returns (frame_out [BT, N, C], cls_out [BT, 1, C]).
     Where :func:`takes_k1` fails, [cls; frames] goes through
-    :func:`mhsa_xla` (JAX ``ops/attention.py:220-223``)."""
+    :func:`mhsa_xla` (JAX ``ops/attention.py:220-223``).  With
+    ``route.fused_qkv`` False (``SPATIAL_FUSED_QKV=0``), K3 on the q, k, v
+    thirds of the projections, as JAX's ``_qkv_project`` +
+    ``flash_attention_cls`` (:212-217)."""
     c = x.shape[-1]
     if not takes_k1(x.shape[1], c, num_heads, route):
         out = mhsa_xla(torch.cat([cls_x, x], dim=1), qkv_w, qkv_b, proj_w,
                        proj_b, num_heads)
         return out[:, 1:], out[:, :1]
-    d = c // num_heads
+    scale = (c // num_heads) ** -0.5
     qkv = _linear(x, qkv_w, qkv_b)
     qkv_c = _linear(cls_x, qkv_w, qkv_b)
-    out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, num_heads,
-                                               d ** -0.5, route)
+    if route.fused_qkv:
+        out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, num_heads,
+                                                   scale, route)
+    else:
+        out, out_c = fa.flash_attention_cls_autograd(
+            *qkv.split(c, dim=-1), *qkv_c.split(c, dim=-1), num_heads, scale)
     return _linear(out, proj_w, proj_b), _linear(out_c, proj_w, proj_b)
 
 

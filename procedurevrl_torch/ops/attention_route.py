@@ -27,12 +27,18 @@ Which kernels, once one runs:
   (the kernel clamps it to what fits in shared memory).
 - ``TEMPORAL_BATCHED`` (default 0, :1476): the temporal pair K2v3f / K2v3b
   (saved probabilities) in place of K2f / K2b, evaluation included.
+- ``SPATIAL_FUSED_QKV`` (default 1, JAX ``ops/attention.py:192``): 0 takes
+  the split-projection pair K3f / K3b (``ops/flash_attention.py``) for the
+  spatial pass, on the q, k, v thirds of the projection; K1's knobs
+  ``SPATIAL_SAVE_PROBS``, ``SPATIAL_DELTA`` and ``SPATIAL_PIPE`` then select
+  nothing, as in JAX, where they only choose among the fused-qkv kernels.
+  JAX's train tool sets it to 0 for tensor-parallel meshes
+  (``utils/parser.py:82-89``).
 
-Knobs the port refuses, because they select a function or a kernel it does
-not have: ``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` other than ``clamp``
-(:119, :1362; the port's kernels take only the clamp shift, and a value
-outside ``max|clamp|none`` is malformed), and ``SPATIAL_FUSED_QKV=0`` (the
-split-projection kernel K3 is not ported).
+Knobs the port refuses, because they select a function it does not have:
+``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` other than ``clamp`` (:119, :1362;
+the port's kernels take only the clamp shift, and a value outside
+``max|clamp|none`` is malformed).
 
 ``SPATIAL_MXU_DSUM`` (:876), ``PALLAS_SP_GB`` (:851) and ``PALLAS_HPB``
 (:161) only choose the TPU's tiling or summation order of the same
@@ -77,6 +83,7 @@ class AttentionRoute:
     use_pallas: bool = True        # TPU.USE_PALLAS_ATTENTION
     temporal_pallas: bool = True   # TEMPORAL_PALLAS
     min_len: int = 128             # PALLAS_MIN_LEN
+    fused_qkv: bool = True         # SPATIAL_FUSED_QKV
 
     @classmethod
     def from_env(cls, use_pallas: bool = True) -> "AttentionRoute":
@@ -85,10 +92,6 @@ class AttentionRoute:
         cannot honour ``NotImplementedError``."""
         check_shift("SPATIAL_SHIFT")
         check_shift("TEMPORAL_SHIFT")
-        if not env_flag("SPATIAL_FUSED_QKV", True):
-            raise NotImplementedError(
-                "SPATIAL_FUSED_QKV=0: the split-projection spatial kernel K3 "
-                "is not ported")
         return cls(save_probs=env_flag("SPATIAL_SAVE_PROBS", True),
                    delta=env_flag("SPATIAL_DELTA", False),
                    pipe=env_flag("SPATIAL_PIPE", False),
@@ -96,7 +99,8 @@ class AttentionRoute:
                    temporal_batched=env_flag("TEMPORAL_BATCHED", False),
                    use_pallas=bool(use_pallas),
                    temporal_pallas=env_flag("TEMPORAL_PALLAS", True),
-                   min_len=env_int("PALLAS_MIN_LEN", 128, minimum=0))
+                   min_len=env_int("PALLAS_MIN_LEN", 128, minimum=0),
+                   fused_qkv=env_flag("SPATIAL_FUSED_QKV", True))
 
 
 DEFAULT_ROUTE = AttentionRoute()

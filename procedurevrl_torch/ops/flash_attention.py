@@ -1,0 +1,528 @@
+"""K3 and K4: whole-sequence softmax attention with the clamp shift, and the
+long range of K1, on one key-tiled CUDA kernel pair
+(``csrc/flash_attention.cu``).
+
+Replaces the TPU kernels of ``procedurevrl_tpu/ops/pallas_attention.py``:
+``_fwd_kernel`` / ``_bwd_kernel`` (K4f / K4b, ``flash_attention_headfused``:
+unmasked, non-causal attention on ``[B, N, H*d]``) and ``_fwd_cls_kernel`` /
+``_bwd_cls_kernel`` (K3f / K3b, ``flash_attention_cls``: the same with a
+separate CLS stream ``[B, 1, H*d]``, every query attending over [frames;
+cls]).  The forward rounds e = exp(min(s, 80)) to the value dtype before
+the P V product and divides by l = sum_j e_j after it, where the TPU kernels
+round p = e / l: one rounding of each probability either way, and the same
+numbers in float32.  The backward recomputes the probabilities, as the TPU
+kernels do, from the row sums l that the forward saves under grad (fp32
+``[B, H, L]``, L = N + 1 with the CLS): a residual the TPU kernels do not
+keep.
+
+The same pair carries K1's function (``ops/spatial_attention.py``) for
+208 < N + 1 <= 1025, where K1's kernels have no geometry: q, k and v are
+then the column thirds of the fused ``qkv [BT, N, 3C]`` and ``qkv_c [BT, 1,
+3C]``, read in place, and the gradients are written into the thirds of one
+``dqkv``.  Its launches count under their own names (``KERNEL_QKV``,
+``KERNEL_QKV_BWD``), so a run shows which caller took the pair.
+
+q, k and v may be strided views (the thirds of one projection): each must
+have unit column stride and evenly spaced rows of one row stride, 16-byte
+aligned.  Each wrapper launches its kernel for a CUDA tensor and raises on
+anything the kernel does not take (dtype other than float32 / bfloat16,
+head dim outside ``HEAD_DIMS``, more than ``MAX_LEN`` tokens, a layout it
+cannot address); it takes the plain version only for a CPU tensor.  The
+autograd entries (``*_autograd``) take the forward that saves l and the
+kernel backward under grad, the forward alone otherwise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from procedurevrl_torch.ops import _build
+
+KERNEL = "flash_attention_fwd"               # K4f
+KERNEL_BWD = "flash_attention_bwd"           # K4b
+KERNEL_CLS = "flash_attention_cls_fwd"       # K3f
+KERNEL_CLS_BWD = "flash_attention_cls_bwd"   # K3b
+KERNEL_QKV = "flash_attention_qkv_fwd"       # K1's long range, forward
+KERNEL_QKV_BWD = "flash_attention_qkv_bwd"   # K1's long range, backward
+MAX_LEN = 1024          # frame tokens (JAX MAX_FUSED_LEN); + 1 for the CLS
+HEAD_DIMS = (32, 64, 96, 128)
+CLAMP_HI = 80.0         # softmax shift: exp(min(s, 80)), exact for s < 80
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+Cls = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+# ---------------------------------------------------------------- plain
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, L, H*d] -> [B, H, L, d] in float32."""
+    b, n, c = x.shape
+    return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2).float()
+
+
+def _merge(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, L, d] -> [B, L, H*d] in ``dtype``."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d).to(dtype)
+
+
+def _exp_logits(q: torch.Tensor, k: torch.Tensor, scale: float
+                ) -> torch.Tensor:
+    """exp(min(q k^T * scale, 80)) in fp32 on [B, H, L, d] operands."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    return torch.exp(torch.clamp(s, max=CLAMP_HI))
+
+
+def _attend(q, k, v, num_heads: int, scale: float):
+    """(out [B, L, C], l [B, H, L]) of [B, L, C] inputs: fp32 logits and
+    clamp softmax (JAX ``_fwd_kernel`` / ``_softmax_probs``); e = exp(min(s,
+    80)) cast to the value dtype before the fp32 P V product, divided by l
+    after it, as the kernel rounds (the TPU kernel rounds e / l: in float32
+    the two agree)."""
+    e = _exp_logits(_heads(q, num_heads), _heads(k, num_heads), scale)
+    l = e.sum(dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype).float(),
+                     _heads(v, num_heads)) / l[..., None]
+    return _merge(o, v.dtype), l
+
+
+def _attend_bwd(q, k, v, g, num_heads: int, scale: float):
+    """dq, dk, dv [B, L, C] of :func:`_attend`, the TPU kernel's recompute
+    arithmetic (``_bwd_kernel``, ``_ds_chain``): p in fp32; dv = p^T g with p
+    cast to the value dtype; dp = g v^T; ds = p (dp - rowsum(dp p)), cast to
+    the value dtype; dq = scale ds k, dk = scale ds^T q, fp32 sums."""
+    dt = q.dtype
+    qh, kh, vh, gh = (_heads(t, num_heads) for t in (q, k, v, g))
+    e = _exp_logits(qh, kh, scale)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhij,bhid->bhjd", p.to(dt).float(), gh)
+    dp = torch.einsum("bhid,bhjd->bhij", gh, vh)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bhij,bhjd->bhid", ds, kh) * scale
+    dk = torch.einsum("bhij,bhid->bhjd", ds, qh) * scale
+    return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
+
+
+def _with_cls(x: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+    """[frames; cls] along the token axis."""
+    return torch.cat([x, xc], dim=1)
+
+
+def _split_cls(x: torch.Tensor, n: int):
+    return x[:, :n].contiguous(), x[:, n:].contiguous()
+
+
+def flash_attention_fwd_plain(q, k, v, num_heads: int, scale: float):
+    """Plain PyTorch version of K4f under grad: (out [B, N, C], l [B, H,
+    N] fp32)."""
+    return _attend(q, k, v, num_heads, scale)
+
+
+def flash_attention_plain(q, k, v, num_heads: int, scale: float
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of K4f: softmax(q k^T * scale) v per head of
+    q, k, v [B, N, H*d], with the clamp shift exp(min(s, 80))."""
+    return _attend(q, k, v, num_heads, scale)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, g, num_heads: int, scale: float):
+    """Plain PyTorch version of K4b: (dq, dk, dv) from the output gradient
+    g [B, N, C], the probabilities recomputed from q and k."""
+    return _attend_bwd(q, k, v, g, num_heads, scale)
+
+
+def flash_attention_cls_fwd_plain(q, k, v, qc, kc, vc, num_heads: int,
+                                  scale: float):
+    """Plain PyTorch version of K3f under grad: (out [B, N, C], outc [B, 1,
+    C], l [B, H, N + 1]), the rows and l in the order [frames; cls]."""
+    n = q.shape[1]
+    o, l = _attend(_with_cls(q, qc), _with_cls(k, kc), _with_cls(v, vc),
+                   num_heads, scale)
+    return (*_split_cls(o, n), l)
+
+
+def flash_attention_cls_plain(q, k, v, qc, kc, vc, num_heads: int,
+                              scale: float):
+    """Plain PyTorch version of K3f: frame queries q [B, N, C] and the CLS
+    query qc [B, 1, C] attend over keys [k; kc] and values [v; vc];
+    returns (out [B, N, C], outc [B, 1, C])."""
+    return flash_attention_cls_fwd_plain(q, k, v, qc, kc, vc, num_heads,
+                                         scale)[:2]
+
+
+def flash_attention_cls_bwd_plain(q, k, v, qc, kc, vc, g, gc,
+                                  num_heads: int, scale: float):
+    """Plain PyTorch version of K3b: (dq, dk, dv, dqc, dkc, dvc) from the
+    output gradients g [B, N, C], gc [B, 1, C]."""
+    n = q.shape[1]
+    grads = _attend_bwd(_with_cls(q, qc), _with_cls(k, kc), _with_cls(v, vc),
+                        _with_cls(g, gc), num_heads, scale)
+    frames, cls = zip(*(_split_cls(x, n) for x in grads))
+    return (*frames, *cls)
+
+
+def _thirds(x: torch.Tensor):
+    """q, k, v: the column thirds of a fused projection, as views."""
+    return x.split(x.shape[-1] // 3, dim=-1)
+
+
+def flash_attention_qkv_fwd_plain(qkv, qkv_c, num_heads: int, scale: float):
+    """Plain PyTorch version of the pair's forward in K1's layout: (out [BT,
+    N, C], out_c [BT, 1, C], l [BT, H, N + 1])."""
+    return flash_attention_cls_fwd_plain(*_thirds(qkv), *_thirds(qkv_c),
+                                         num_heads, scale)
+
+
+def flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, num_heads: int,
+                                  scale: float):
+    """Plain PyTorch version of the pair's backward in K1's layout: (dqkv
+    [BT, N, 3C], dqkv_c [BT, 1, 3C])."""
+    d = flash_attention_cls_bwd_plain(*_thirds(qkv), *_thirds(qkv_c), g, gc,
+                                      num_heads, scale)
+    return torch.cat(d[:3], dim=-1), torch.cat(d[3:], dim=-1)
+
+
+# --------------------------------------------------------------- kernels
+
+def _row_stride(t: torch.Tensor, name: str) -> int:
+    """The row stride of t [B, n, C] (its batch stride when n is 1): rows
+    evenly spaced with unit column stride, 16-byte aligned."""
+    b, n, _ = t.shape
+    ld = t.stride(1) if n > 1 else t.stride(0)
+    if t.stride(2) != 1 or (b > 1 and t.stride(0) != n * ld):
+        raise ValueError(f"flash_attention: {name} must have unit column "
+                         f"stride and rows of one stride (strides "
+                         f"{t.stride()})")
+    if (ld * t.element_size()) % 16 or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: the rows of {name} must be "
+                         "16-byte aligned")
+    return ld
+
+
+def _group_stride(tensors: Sequence[torch.Tensor], name: str) -> int:
+    strides = {_row_stride(t, name) for t in tensors}
+    if len(strides) != 1:
+        raise ValueError(f"flash_attention: {name} must share one row "
+                         f"stride, got {sorted(strides)}")
+    return strides.pop()
+
+
+def _check(q, k, v, cls: Cls, num_heads: int) -> None:
+    """Shapes, dtype and device of the inputs (any device)."""
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention: q, k, v must be [B, N, C] of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, c = q.shape
+    if c % num_heads:
+        raise ValueError(f"flash_attention: width {c} does not fit "
+                         f"{num_heads} heads")
+    tensors = [q, k, v]
+    if cls is not None:
+        if any(t.shape != (b, 1, c) for t in cls):
+            raise ValueError("flash_attention: qc, kc, vc must be [B, 1, C]")
+        tensors += list(cls)
+    if any(t.dtype != q.dtype or t.device != q.device for t in tensors):
+        raise ValueError("flash_attention: inputs differ in dtype or device")
+
+
+def _check_kernel(q, num_heads: int) -> None:
+    """What the kernel needs beyond :func:`_check`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported")
+    b, n, c = q.shape
+    if c // num_heads not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes head dims "
+                         f"{HEAD_DIMS}, not {c // num_heads}")
+    if n > MAX_LEN:
+        raise ValueError(f"flash_attention: the kernel takes N <= {MAX_LEN} "
+                         f"tokens (+ the CLS), not {n}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn: str, kernel: str, q: torch.Tensor, *args) -> None:
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    _build.check(rc, kernel)
+    _build.count_launch(kernel)
+
+
+def _empty_rowsum(q: torch.Tensor, num_heads: int, cls: Cls) -> torch.Tensor:
+    b, n, _ = q.shape
+    return torch.empty((b, num_heads, n + (cls is not None)),
+                       dtype=torch.float32, device=q.device)
+
+
+def _fwd(kernel: str, q, k, v, cls: Cls, out, outc, rowsum,
+         num_heads: int, scale: float) -> None:
+    """Launch the forward into out (and outc, rowsum where given)."""
+    _check_kernel(q, num_heads)
+    b, n, c = q.shape
+    qc, kc, vc = cls if cls is not None else (None,) * 3
+    ld_in = _group_stride((q, k, v), "q, k, v")
+    ldc_in = 0 if cls is None else _group_stride(cls, "qc, kc, vc")
+    ld_o = _row_stride(out, "out")
+    ldc_o = 0 if outc is None else _row_stride(outc, "outc")
+    _launch("flash_attention_fwd", kernel, q, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(qc), _ptr(kc), _ptr(vc), _ptr(out), _ptr(outc),
+            _ptr(rowsum), b, n, num_heads, c // num_heads, ld_in, ldc_in,
+            ld_o, ldc_o, _DTYPES[q.dtype], float(scale))
+
+
+def _bwd(kernel: str, q, k, v, cls: Cls, g, gc, rowsum, grads, grads_c,
+         num_heads: int, scale: float) -> None:
+    """Launch the backward into grads = (dq, dk, dv) and grads_c = (dqc,
+    dkc, dvc) (None without the CLS)."""
+    _check_kernel(q, num_heads)
+    b, n, c = q.shape
+    if rowsum.shape != (b, num_heads, n + (cls is not None)) or (
+            rowsum.dtype != torch.float32 or not rowsum.is_contiguous()):
+        raise ValueError(f"flash_attention: rowsum {tuple(rowsum.shape)} "
+                         f"{rowsum.dtype} is not the forward's")
+    qc, kc, vc = cls if cls is not None else (None,) * 3
+    dqc, dkc, dvc = grads_c if grads_c is not None else (None,) * 3
+    ld_in = _group_stride((q, k, v), "q, k, v")
+    ldc_in = 0 if cls is None else _group_stride(cls, "qc, kc, vc")
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"flash_attention: g {tuple(g.shape)} {g.dtype} "
+                         f"does not fit q {tuple(q.shape)} {q.dtype}")
+    ld_g = _row_stride(g, "g")
+    ldc_g = 0 if gc is None else _row_stride(gc, "gc")
+    ld_d = _group_stride(grads, "dq, dk, dv")
+    ldc_d = 0 if grads_c is None else _group_stride(grads_c, "dqc, dkc, dvc")
+    delta = torch.empty_like(rowsum)
+    _launch("flash_attention_bwd", kernel, q, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(qc), _ptr(kc), _ptr(vc), _ptr(g), _ptr(gc), _ptr(rowsum),
+            _ptr(delta), *(_ptr(t) for t in grads),
+            _ptr(dqc), _ptr(dkc), _ptr(dvc), b, n, num_heads, c // num_heads,
+            ld_in, ldc_in, ld_g, ldc_g, ld_d, ldc_d, _DTYPES[q.dtype],
+            float(scale))
+
+
+def _new(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def flash_attention_fwd(q, k, v, num_heads: int, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4f under grad: (out [B, N, C], l [B, H, N] fp32) of q, k, v [B, N,
+    H*d]."""
+    _check(q, k, v, None, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, num_heads, scale)
+    out, rowsum = _new(q), _empty_rowsum(q, num_heads, None)
+    _fwd(KERNEL, q, k, v, None, out, None, rowsum, num_heads, scale)
+    return out, rowsum
+
+
+def flash_attention(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """K4f: softmax(q k^T * scale) v per head, clamp shift, of q, k, v
+    [B, N, H*d] (N <= 1024 on the card)."""
+    _check(q, k, v, None, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, num_heads, scale)
+    out = _new(q)
+    _fwd(KERNEL, q, k, v, None, out, None, None, num_heads, scale)
+    return out
+
+
+def flash_attention_bwd(q, k, v, g, rowsum, num_heads: int, scale: float):
+    """K4b: (dq, dk, dv) from the output gradient g [B, N, C] and the
+    forward's l (a CPU tensor takes the plain version, which recomputes l)."""
+    _check(q, k, v, None, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, g, num_heads, scale)
+    grads = (_new(q), _new(q), _new(q))
+    _bwd(KERNEL_BWD, q, k, v, None, g, None, rowsum, grads, None, num_heads,
+         scale)
+    return grads
+
+
+def flash_attention_cls_fwd(q, k, v, qc, kc, vc, num_heads: int,
+                            scale: float):
+    """K3f under grad: (out [B, N, C], outc [B, 1, C], l [B, H, N + 1])."""
+    cls = (qc, kc, vc)
+    _check(q, k, v, cls, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_cls_fwd_plain(q, k, v, *cls, num_heads, scale)
+    out, outc = _new(q), _new(qc)
+    rowsum = _empty_rowsum(q, num_heads, cls)
+    _fwd(KERNEL_CLS, q, k, v, cls, out, outc, rowsum, num_heads, scale)
+    return out, outc, rowsum
+
+
+def flash_attention_cls(q, k, v, qc, kc, vc, num_heads: int, scale: float):
+    """K3f: frame queries q [B, N, C] and the CLS query qc [B, 1, C] over
+    keys [k; kc], values [v; vc]; (out [B, N, C], outc [B, 1, C])."""
+    cls = (qc, kc, vc)
+    _check(q, k, v, cls, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_cls_plain(q, k, v, *cls, num_heads, scale)
+    out, outc = _new(q), _new(qc)
+    _fwd(KERNEL_CLS, q, k, v, cls, out, outc, None, num_heads, scale)
+    return out, outc
+
+
+def flash_attention_cls_bwd(q, k, v, qc, kc, vc, g, gc, rowsum,
+                            num_heads: int, scale: float):
+    """K3b: (dq, dk, dv, dqc, dkc, dvc) from g [B, N, C], gc [B, 1, C] and
+    the forward's l."""
+    cls = (qc, kc, vc)
+    _check(q, k, v, cls, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_cls_bwd_plain(q, k, v, *cls, g, gc, num_heads,
+                                             scale)
+    grads, grads_c = (_new(q), _new(q), _new(q)), (_new(qc), _new(qc), _new(qc))
+    _bwd(KERNEL_CLS_BWD, q, k, v, cls, g, gc, rowsum, grads, grads_c,
+         num_heads, scale)
+    return (*grads, *grads_c)
+
+
+def _check_qkv(qkv, qkv_c, num_heads: int) -> None:
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or qkv_c.shape != (
+            qkv.shape[0], 1, qkv.shape[-1]):
+        raise ValueError(f"flash_attention_qkv: qkv {tuple(qkv.shape)} / "
+                         f"qkv_c {tuple(qkv_c.shape)} are not [BT, N, 3C] / "
+                         "[BT, 1, 3C]")
+
+
+def flash_attention_qkv_fwd(qkv, qkv_c, num_heads: int, scale: float,
+                            with_rowsum: bool = True):
+    """K1's function on the pair (208 < N + 1 <= 1025): (out [BT, N, C],
+    out_c [BT, 1, C], l [BT, H, N + 1] or None) of the fused qkv [BT, N, 3C]
+    and qkv_c [BT, 1, 3C], read in place."""
+    _check_qkv(qkv, qkv_c, num_heads)
+    if qkv.device.type == "cpu":
+        out, out_c, rowsum = flash_attention_qkv_fwd_plain(qkv, qkv_c,
+                                                           num_heads, scale)
+        return out, out_c, rowsum if with_rowsum else None
+    q, k, v = _thirds(qkv)
+    cls = _thirds(qkv_c)
+    _check(q, k, v, cls, num_heads)
+    out, out_c = _new(q), _new(cls[0])
+    rowsum = _empty_rowsum(q, num_heads, cls) if with_rowsum else None
+    _fwd(KERNEL_QKV, q, k, v, cls, out, out_c, rowsum, num_heads, scale)
+    return out, out_c, rowsum
+
+
+def flash_attention_qkv_bwd(qkv, qkv_c, g, gc, rowsum, num_heads: int,
+                            scale: float):
+    """The backward of :func:`flash_attention_qkv_fwd`: (dqkv [BT, N, 3C],
+    dqkv_c [BT, 1, 3C]) from g [BT, N, C], gc [BT, 1, C] and its l."""
+    _check_qkv(qkv, qkv_c, num_heads)
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, num_heads,
+                                             scale)
+    q, k, v = _thirds(qkv)
+    cls = _thirds(qkv_c)
+    _check(q, k, v, cls, num_heads)
+    dqkv, dqkv_c = _new(qkv), _new(qkv_c)
+    _bwd(KERNEL_QKV_BWD, q, k, v, cls, g, gc, rowsum, _thirds(dqkv),
+         _thirds(dqkv_c), num_heads, scale)
+    return dqkv, dqkv_c
+
+
+# -------------------------------------------------------------- autograd
+
+def _grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _output_grad(g: Optional[torch.Tensor], like: torch.Tensor):
+    """The incoming gradient, zeros for an unused output, contiguous."""
+    return torch.zeros_like(like) if g is None else g.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 under autograd: K4f saving q, k, v and l; K4b."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        out, rowsum = flash_attention_fwd(q, k, v, num_heads, scale)
+        ctx.save_for_backward(q, k, v, rowsum)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, rowsum = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, _output_grad(g, q), rowsum,
+                                         ctx.num_heads, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class FlashAttentionCls(torch.autograd.Function):
+    """K3 under autograd: K3f saving q, k, v, qc, kc, vc and l; K3b."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qc, kc, vc, num_heads: int, scale: float):
+        out, outc, rowsum = flash_attention_cls_fwd(q, k, v, qc, kc, vc,
+                                                    num_heads, scale)
+        ctx.save_for_backward(q, k, v, qc, kc, vc, rowsum)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out, outc
+
+    @staticmethod
+    def backward(ctx, g, gc):
+        q, k, v, qc, kc, vc, rowsum = ctx.saved_tensors
+        grads = flash_attention_cls_bwd(
+            q, k, v, qc, kc, vc, _output_grad(g, q), _output_grad(gc, qc),
+            rowsum, ctx.num_heads, ctx.scale)
+        return (*grads, None, None)
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """K1's long range under autograd: the pair's forward on the fused qkv
+    saving qkv, qkv_c and l; its backward into one dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float):
+        out, out_c, rowsum = flash_attention_qkv_fwd(qkv, qkv_c, num_heads,
+                                                     scale)
+        ctx.save_for_backward(qkv, qkv_c, rowsum)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out, out_c
+
+    @staticmethod
+    def backward(ctx, g, gc):
+        qkv, qkv_c, rowsum = ctx.saved_tensors
+        c = qkv.shape[-1] // 3
+        dqkv, dqkv_c = flash_attention_qkv_bwd(
+            qkv, qkv_c, _output_grad(g, qkv[..., :c]),
+            _output_grad(gc, qkv_c[..., :c]), rowsum, ctx.num_heads,
+            ctx.scale)
+        return dqkv, dqkv_c, None, None
+
+
+def flash_attention_autograd(q, k, v, num_heads: int, scale: float
+                             ) -> torch.Tensor:
+    """The model's entry for K4 (JAX ``flash_attention_headfused``)."""
+    if _grad(q, k, v):
+        return FlashAttention.apply(q, k, v, num_heads, scale)
+    return flash_attention(q, k, v, num_heads, scale)
+
+
+def flash_attention_cls_autograd(q, k, v, qc, kc, vc, num_heads: int,
+                                 scale: float):
+    """The model's entry for K3 (JAX ``flash_attention_cls``)."""
+    if _grad(q, k, v, qc, kc, vc):
+        return FlashAttentionCls.apply(q, k, v, qc, kc, vc, num_heads, scale)
+    return flash_attention_cls(q, k, v, qc, kc, vc, num_heads, scale)
+
+
+def flash_attention_qkv_autograd(qkv, qkv_c, num_heads: int, scale: float):
+    """The entry of K1's long range (``spatial_attention_autograd`` for
+    208 < N + 1 <= 1025)."""
+    if _grad(qkv, qkv_c):
+        return FlashAttentionQKV.apply(qkv, qkv_c, num_heads, scale)
+    return flash_attention_qkv_fwd(qkv, qkv_c, num_heads, scale,
+                                   with_rowsum=False)[:2]

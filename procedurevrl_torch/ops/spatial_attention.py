@@ -23,8 +23,11 @@ the model calls, on the route of ``ops/attention_route.py``: under grad
 through :class:`SpatialAttention` (K1sp + K1b, the default),
 :class:`SpatialAttentionDelta` (K1sp + K1bd) or
 :class:`SpatialAttentionRecompute` (K1f or K1p + K1br), otherwise straight
-to K1f or K1p.  Bounds, design and the H100 numbers: see the source note and
-``PERF.md``.
+to K1f or K1p; frames of more than 207 tokens go to the key-tiled pair of
+``ops/flash_attention.py`` on every route, which recomputes the
+probabilities where the JAX package saves them (a storage difference of
+the same function).  Bounds, design and the H100 numbers: see the source
+note and ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops import flash_attention as fa
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 
 KERNEL = "spatial_attention_fwd"
@@ -44,8 +48,10 @@ KERNEL_PIPE = "spatial_attention_fwd_pipe"
 KERNEL_BWD_RECOMPUTE = "spatial_attention_bwd_recompute"
 KERNEL_BWD_DELTA = "spatial_attention_bwd_delta"
 HEAD_DIM = 64
-MAX_LEN = 256  # n + 1 tokens per frame, forward
-MAX_BWD_LEN = 208  # n + 1 tokens per frame, backward (shared-memory tile)
+# n + 1 tokens per frame, every K1 kernel (the backward's shared-memory
+# tile); longer frames take the key-tiled pair of ops/flash_attention.py on
+# every route
+MAX_LEN = 208
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -255,7 +261,7 @@ def spatial_attention(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
     """K1f: CLS-split spatial attention on the fused qkv projection.
 
     qkv [BT, N, 3C], qkv_c [BT, 1, 3C] (float32 or bfloat16, contiguous,
-    head dim 64, N + 1 <= 256) -> (frame_out [BT, N, C], cls_out [BT, 1, C]).
+    head dim 64, N + 1 <= 208) -> (frame_out [BT, N, C], cls_out [BT, 1, C]).
     """
     _check(qkv, qkv_c, num_heads)
     if qkv.device.type == "cpu":
@@ -328,7 +334,7 @@ def spatial_attention_bwd(qkv: torch.Tensor, qkv_c: torch.Tensor,
     if qkv.device.type == "cpu":
         return spatial_attention_bwd_plain(qkv, qkv_c, probs, g, gc,
                                            num_heads, scale)
-    _check_kernel((qkv, qkv_c, probs, g, gc), num_heads, MAX_BWD_LEN)
+    _check_kernel((qkv, qkv_c, probs, g, gc), num_heads, MAX_LEN)
     bt, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     dqkv_c = torch.empty_like(qkv_c)
@@ -350,7 +356,7 @@ def spatial_attention_bwd_recompute(qkv: torch.Tensor, qkv_c: torch.Tensor,
     if qkv.device.type == "cpu":
         return spatial_attention_bwd_recompute_plain(qkv, qkv_c, g, gc,
                                                      num_heads, scale)
-    _check_kernel((qkv, qkv_c, g, gc), num_heads, MAX_BWD_LEN)
+    _check_kernel((qkv, qkv_c, g, gc), num_heads, MAX_LEN)
     bt, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     dqkv_c = torch.empty_like(qkv_c)
@@ -380,7 +386,7 @@ def spatial_attention_bwd_delta(qkv: torch.Tensor, qkv_c: torch.Tensor,
         return spatial_attention_bwd_delta_plain(qkv, qkv_c, probs, out, out_c,
                                                  g, gc, num_heads, scale)
     _check_kernel((qkv, qkv_c, probs, out, out_c, g, gc), num_heads,
-                  MAX_BWD_LEN)
+                  MAX_LEN)
     bt, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     dqkv_c = torch.empty_like(qkv_c)
@@ -479,8 +485,15 @@ def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
     requires it): with ``route.save_probs`` K1sp and K1b, or K1bd with
     ``route.delta``; without, K1f (K1p with ``route.pipe``) and K1br.  No
     grad: K1f, or K1p with ``route.pipe``.  ``save_probs`` with ``pipe``
-    under grad takes K1sp and warns once, as JAX does."""
+    under grad takes K1sp and warns once, as JAX does.  Past
+    ``MAX_LEN`` tokens (N + 1 > 208, where K1's kernels have no
+    geometry) every route takes the key-tiled pair on the fused layout
+    (``ops/flash_attention.py``: its forward for K1f, K1sp and K1p, its
+    recompute backward for K1b, K1br and K1bd), chosen on the shape before
+    any launch."""
     global _warned_pipe_vs_saveprobs
+    if qkv.shape[1] + 1 > MAX_LEN:
+        return fa.flash_attention_qkv_autograd(qkv, qkv_c, num_heads, scale)
     if not (torch.is_grad_enabled()
             and (qkv.requires_grad or qkv_c.requires_grad)):
         if route.pipe:

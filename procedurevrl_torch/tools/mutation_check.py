@@ -3,7 +3,10 @@ K5f/K6f and K7f missing key columns, K8f missing a halo plane, K8dw
 missing a batch, K1br and K1p without the CLS key, K1bd with delta forced
 to 0, K2v3f without the last key frame (at 8 and at 16 frames), K5bd /
 K6bd with D forced to 0, K6sp storing p without the cls column and K6bs
-reading p without it.
+reading p without it, and the slice 7 pair (``flash_attention.cu``, K3f /
+K4f and K3b / K4b) with a forward that drops the CLS key or the last key
+tile, and a backward that drops the jacobian row sums D or leaves the CLS
+row of dk and dv unwritten.
 
     python -m procedurevrl_torch.tools.mutation_check
 
@@ -29,7 +32,10 @@ the gradients against ``MVIT_GRAD_TOL`` scaled by each gradient's own
 largest magnitude; K6sp and K6bs at blocks 1 and 3 (B*H 36 and 72, kN
 1568) and at the small kN 27 geometry with logits above 80 (the cls column
 inside a row of 8), p against ``PROBS_TOL`` and the gradients against
-``MVIT_GRAD_TOL``.  For K7, K8, K1, K2 and the slice 6 kernels the mutant
+``MVIT_GRAD_TOL``; K3f and K3b at L = 197 (the TimeSformer-B training
+batch, 196 frame tokens + CLS) and L = 1025 (1024 + CLS, where the last key
+tile holds only the CLS), out and l against ``FLASH_FWD_TOL`` /
+``ROWSUM_TOL`` and the gradients against ``MVIT_GRAD_TOL``.  For K7, K8, K1, K2 and the slice 6 kernels the mutant
 counts as rejected at a shape when a check of that shape fails, as
 ``chip_smoke.py`` then fails.  Each check also runs once on the unmodified
 sources first, which no strict limit may reject.  For every comparison it
@@ -72,6 +78,12 @@ _V3_KEYS16 = "const bool key1 = 8 + 2 * tig + (e & 1) < frames;"
 _D_ROWS = "d_s[threadIdx.x] = acc;"
 _P_STORE = "const uint32_t w0 = pa[2 * u], w1 = pa[2 * u + 1];"
 _P_TILE = "if (i0 + r < g.qn && j0 + c < g.pld) {"
+# the slice 7 pair: the forward's clamp of a key chunk and its chunk loop,
+# the query-major backward's reduction of D, the key-major pass's store
+_FA_EXP = "clamp_exp<KC / 8>(e, col0, g.L, scale);"
+_FA_CHUNK = "const int col0 = t * BN + c;\n        if (col0 >= g.L) break;"
+_FA_D = "d0 = quad_sum(d0);\n      d1 = quad_sum(d1);"
+_FA_KROW = "const int j = j0 + warp * 16 + gid + 8 * half;\n    if (j >= g.L) continue;"
 
 
 @dataclass(frozen=True)
@@ -145,6 +157,21 @@ MUTANTS = {
         "+ c); reinterpret_cast<uint16_t*>(&w)[g.kn % 8] = 0; "
         "*reinterpret_cast<uint4*>(d) = w; } else "
         "if (i0 + r < g.qn && j0 + c < g.pld) {", "k6bs"),
+    # the CLS is key L - 1 of [frames; cls]
+    "K3f / K4f cls key left out": Mutant(
+        "flash_attention.cu", _FA_EXP,
+        "clamp_exp<KC / 8>(e, col0, g.L - (g.L > g.n), scale);", "flash_fwd"),
+    "K3f / K4f last key tile left out": Mutant(
+        "flash_attention.cu", _FA_CHUNK,
+        "const int col0 = t * BN + c;\n        "
+        "if (col0 >= g.L || t == g.tiles - 1) break;", "flash_fwd"),
+    "K3b / K4b jacobian row sums D forced to 0": Mutant(
+        "flash_attention.cu", _FA_D, "d0 = 0.f;\n      d1 = 0.f;",
+        "flash_bwd"),
+    "K3b / K4b cls row of dk and dv left unwritten": Mutant(
+        "flash_attention.cu", _FA_KROW,
+        "const int j = j0 + warp * 16 + gid + 8 * half;\n    "
+        "if (j >= g.n) continue;", "flash_bwd"),
 }
 
 
@@ -414,17 +441,52 @@ def _check_k6bs(cs, torch, gen):
                      False)
 
 
+# K3 at L = 197 (the training batch) and L = 1025 (the last key tile holds
+# only the CLS)
+FLASH_SHAPES = (("L = 197", 144, 196), ("L = 1025", 16, 1024))
+
+
+def _check_flash_fwd(cs, torch, gen):
+    from procedurevrl_torch.ops import flash_attention as fa
+
+    for label, bt, n in FLASH_SHAPES:
+        x, _, _ = cs.flash_inputs(torch, gen, bt, n, 12, torch.bfloat16, True)
+        got = fa.flash_attention_cls_fwd(*x, 12, 0.125)
+        want = fa.flash_attention_cls_fwd_plain(*x, 12, 0.125)
+        print(f"{label}: |out| mean {want[0].float().abs().mean().item():.3e}")
+        yield _judge(cs, torch, label,
+                     [("out", got[0], want[0], cs.FLASH_FWD_TOL),
+                      ("outc", got[1], want[1], cs.FLASH_FWD_TOL),
+                      ("l", got[2], want[2], cs.ROWSUM_TOL)], False)
+
+
+def _check_flash_bwd(cs, torch, gen):
+    from procedurevrl_torch.ops import flash_attention as fa
+
+    for label, bt, n in FLASH_SHAPES:
+        x, g, gc = cs.flash_inputs(torch, gen, bt, n, 12, torch.bfloat16, True)
+        l = fa.flash_attention_cls_fwd_plain(*x, 12, 0.125)[2]
+        got = fa.flash_attention_cls_bwd(*x, g, gc, l, 12, 0.125)
+        want = fa.flash_attention_cls_bwd_plain(*x, g, gc, 12, 0.125)
+        yield _judge(cs, torch, label,
+                     [(name, a, r, cs.own_tol(cs.MVIT_GRAD_TOL, r))
+                      for name, a, r in zip(("dq", "dk", "dv", "dqc", "dkc",
+                                             "dvc"), got, want)], False)
+
+
 CHECKS = {"mvit": _check_mvit, "kt": _check_kt, "pool": _check_pool,
           "pool_dw": _check_pool_dw, "k1br": _check_k1br, "k1bd": _check_k1bd,
           "k1p": _check_k1p, "k2v3": _check_k2v3, "k2v3_16": _check_k2v3_16,
-          "delta": _check_delta, "k6sp": _check_k6sp, "k6bs": _check_k6bs}
+          "delta": _check_delta, "k6sp": _check_k6sp, "k6bs": _check_k6bs,
+          "flash_fwd": _check_flash_fwd, "flash_bwd": _check_flash_bwd}
 # the sources each check builds
 SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
            "pool": "depthwise_pool", "pool_dw": "depthwise_pool",
            "k1br": "spatial_attention", "k1bd": "spatial_attention",
            "k1p": "spatial_attention", "k2v3": "temporal_attention",
            "k2v3_16": "temporal_attention", "delta": "mvit_attention",
-           "k6sp": "mvit_attention", "k6bs": "mvit_attention"}
+           "k6sp": "mvit_attention", "k6bs": "mvit_attention",
+           "flash_fwd": "flash_attention", "flash_bwd": "flash_attention"}
 
 
 def check_copy(check: str, sound: bool = False) -> int:

@@ -17,7 +17,10 @@ limit scaled by the largest gradient.  K6sp's bf16 probabilities are
 held to atol 1e-5, rtol 1e-2 (one bf16 ulp; a cls probability is ~1/kN).
 The bf16 gradients of K5bd, K6bd and K6bs are held to atol 2e-3 times each
 gradient's own largest magnitude, with no floor, and rtol 1e-2 (the
-``MVIT_GRAD_TOL`` of ``chip_smoke.py``).
+``MVIT_GRAD_TOL`` of ``chip_smoke.py``).  The slice 7 pair (K4, K3 and
+K1's long range, ``ops/flash_attention.py``) is held as ``chip_smoke.py``
+holds it: bf16 outputs atol 1e-3, rtol 1e-2, its row sums rtol 1e-4, its
+bf16 gradients to ``MVIT_GRAD_TOL``.
 """
 
 import pytest
@@ -25,6 +28,7 @@ import torch
 
 from procedurevrl_torch.ops import _build
 from procedurevrl_torch.ops import depthwise_pool as k8
+from procedurevrl_torch.ops import flash_attention as fa
 from procedurevrl_torch.ops import mvit_attention as k5
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
@@ -80,7 +84,7 @@ def _spatial_inputs(card, dtype, n, bt=6, heads=4, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [196, 49, 220])
+@pytest.mark.parametrize("n", [196, 49, 207])
 def test_spatial_kernel_matches_plain(card, dtype, n):
     qkv, qkv_c, _, _ = _spatial_inputs(card, dtype, n)
     before = _build.LAUNCHES.get(k1.KERNEL, 0)
@@ -92,7 +96,7 @@ def test_spatial_kernel_matches_plain(card, dtype, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [196, 49, 220])
+@pytest.mark.parametrize("n", [196, 49, 207])
 def test_spatial_probs_kernel_matches_plain(card, dtype, n):
     qkv, qkv_c, _, _ = _spatial_inputs(card, dtype, n)
     before = _build.LAUNCHES.get(k1.KERNEL_PROBS, 0)
@@ -213,7 +217,7 @@ def test_spatial_recompute_and_delta_bwd_match_plain(card, dtype, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [196, 49, 220])
+@pytest.mark.parametrize("n", [196, 49, 207])
 @pytest.mark.parametrize("nbuf", [1, 3, 8])
 def test_spatial_pipe_equals_the_forward(card, dtype, n, nbuf):
     qkv, qkv_c, _, _ = _spatial_inputs(card, dtype, n, bt=40, seed=5)
@@ -689,6 +693,149 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
         "temporal_v3_bwd_16": lambda: (k2.temporal_attention_v3_bwd(
             t16_qkv, t16_probs, t16_g, 12, 0.125),),
     }[kernel]
+    first = None
+    for _ in range(10):
+        _poison(card)
+        outs = [o.clone() for o in run()]
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(o).all()) for o in outs)
+        if first is None:
+            first = outs
+        for a, b in zip(outs, first):
+            assert torch.equal(a, b)
+
+
+def _flash_inputs(card, dtype, b, n, heads, d, cls, seed=0):
+    """q, k, v (and qc, kc, vc) as the thirds of one projection, g, gc."""
+    gen = torch.Generator(device=card).manual_seed(seed + n + d)
+    c = heads * d
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=card).to(dtype)
+
+    x = list(r(b, n, 3 * c).split(c, dim=-1))
+    g, gc = r(b, n, c), r(b, 1, c)
+    if cls:
+        x += list(r(b, 1, 3 * c).split(c, dim=-1))
+    return x, g, gc
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cls", [False, True])
+@pytest.mark.parametrize("n,d", [(1, 64), (63, 64), (197, 64), (257, 64),
+                                 (1024, 64), (130, 32), (150, 96),
+                                 (200, 128)])
+def test_flash_kernels_match_plain(card, dtype, cls, n, d):
+    heads, scale = 2, d ** -0.5
+    x, g, gc = _flash_inputs(card, dtype, 3, n, heads, d, cls)
+    if cls:
+        got = fa.flash_attention_cls_fwd(*x, heads, scale)
+        want = fa.flash_attention_cls_fwd_plain(*x, heads, scale)
+        grads = fa.flash_attention_cls_bwd(*x, g, gc, got[-1], heads, scale)
+        rgrads = fa.flash_attention_cls_bwd_plain(*x, g, gc, heads, scale)
+        assert all(torch.equal(a, b) for a, b in zip(
+            fa.flash_attention_cls(*x, heads, scale), got))
+    else:
+        got = fa.flash_attention_fwd(*x, heads, scale)
+        want = fa.flash_attention_fwd_plain(*x, heads, scale)
+        grads = fa.flash_attention_bwd(*x, g, got[-1], heads, scale)
+        rgrads = fa.flash_attention_bwd_plain(*x, g, heads, scale)
+        assert torch.equal(fa.flash_attention(*x, heads, scale), got[0])
+    for a, r in zip(got[:-1], want[:-1]):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(a.float(), r.float(),
+                                   **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(got[-1], want[-1], **ROWSUM_TOL)
+    for a, r in zip(grads, rgrads):
+        _close_grad(a, r, dtype)
+
+
+def test_flash_autograd_runs_both_kernels(card):
+    x, g, gc = _flash_inputs(card, torch.bfloat16, 4, 197, 12, 64, True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in x]
+    names = (fa.KERNEL_CLS, fa.KERNEL_CLS_BWD)
+    before = [_build.LAUNCHES.get(k, 0) for k in names]
+    out, outc = fa.flash_attention_cls_autograd(*leaves, 12, 0.125)
+    torch.autograd.backward((out, outc), (g, gc))
+    assert [_build.LAUNCHES.get(k, 0) - n for k, n in zip(names, before)] == [1, 1]
+    for a, r in zip(leaves, fa.flash_attention_cls_bwd_plain(*x, g, gc, 12,
+                                                             0.125)):
+        _close_grad(a.grad, r, torch.bfloat16)
+    names = (fa.KERNEL, fa.KERNEL_BWD)
+    before = [_build.LAUNCHES.get(k, 0) for k in names]
+    leaves = [t.detach().clone().requires_grad_(True) for t in x[:3]]
+    fa.flash_attention_autograd(*leaves, 12, 0.125).backward(g)
+    assert [_build.LAUNCHES.get(k, 0) - n for k, n in zip(names, before)] == [1, 1]
+
+
+def test_k1_kernels_refuse_past_208(card):
+    """Every K1 wrapper stops at N + 1 = 208; the model's entry sends
+    longer frames to the pair before any launch."""
+    qkv, qkv_c, g, gc = _spatial_inputs(card, torch.bfloat16, 208)
+    _, _, probs = k1.spatial_attention_fwd_probs_plain(qkv, qkv_c, 4, 0.125)
+    for call in (lambda: k1.spatial_attention(qkv, qkv_c, 4, 0.125),
+                 lambda: k1.spatial_attention_fwd_probs(qkv, qkv_c, 4, 0.125),
+                 lambda: k1.spatial_attention_pipe(qkv, qkv_c, 4, 0.125),
+                 lambda: k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, 4,
+                                                  0.125)):
+        with pytest.raises(ValueError, match="N \\+ 1 <= 208"):
+            call()
+
+
+@pytest.mark.parametrize("n", [207, 208, 256, 1024])
+def test_k1_long_range_takes_the_pair(card, n):
+    """K1 past N + 1 = 208 runs the pair on the fused qkv (no K1 kernel),
+    and holds K1's plain function."""
+    qkv, qkv_c, g, gc = _spatial_inputs(card, torch.bfloat16, n, bt=4,
+                                        heads=12)
+    before = dict(_build.LAUNCHES)
+    a = qkv.detach().clone().requires_grad_(True)
+    out, out_c = k1.spatial_attention_autograd(a, qkv_c, 12, 0.125)
+    torch.autograd.backward((out, out_c), (g, gc))
+    delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+             if v != before.get(k, 0)}
+    if n + 1 <= k1.MAX_LEN:
+        assert delta == {k1.KERNEL_PROBS: 1, k1.KERNEL_BWD: 1}
+        ro, _ = k1.spatial_attention_plain(qkv, qkv_c, 12, 0.125)
+        _close(out, ro, torch.bfloat16)
+        return
+    assert delta == {fa.KERNEL_QKV: 1, fa.KERNEL_QKV_BWD: 1}
+    ro, roc, _ = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, 12, 0.125)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(),
+                               **MVIT_FWD_TOLS[torch.bfloat16])
+    dq, _ = fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, 12, 0.125)
+    _close_grad(a.grad, dq, torch.bfloat16)
+
+
+def test_flash_refuses_what_it_does_not_take(card):
+    x, _, _ = _flash_inputs(card, torch.bfloat16, 2, 20, 2, 80, False)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(*x, 2, 0.125)
+    x, _, _ = _flash_inputs(card, torch.bfloat16, 1, 1025, 1, 64, False)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        fa.flash_attention(*x, 1, 0.125)
+    x, _, _ = _flash_inputs(card, torch.float16, 2, 20, 2, 64, False)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(*x, 2, 0.125)
+    # rows of 132 bf16 (264 bytes), starting 8 bytes in
+    q = torch.zeros(2, 20, 132, device=card, dtype=torch.bfloat16)[..., 4:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, q, q, 2, 0.125)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd", "cls_fwd", "cls_bwd"])
+def test_flash_kernels_are_deterministic_on_stale_memory(card, kernel):
+    """As ``test_kernels_are_deterministic_on_stale_memory``, for the pair."""
+    x, g, gc = _flash_inputs(card, torch.bfloat16, 6, 197, 12, 64, True,
+                             seed=7)
+    l4 = fa.flash_attention_fwd(*x[:3], 12, 0.125)[1]
+    l3 = fa.flash_attention_cls_fwd(*x, 12, 0.125)[2]
+    run = {"fwd": lambda: fa.flash_attention_fwd(*x[:3], 12, 0.125),
+           "bwd": lambda: fa.flash_attention_bwd(*x[:3], g, l4, 12, 0.125),
+           "cls_fwd": lambda: fa.flash_attention_cls_fwd(*x, 12, 0.125),
+           "cls_bwd": lambda: fa.flash_attention_cls_bwd(*x, g, gc, l3, 12,
+                                                         0.125)}[kernel]
     first = None
     for _ in range(10):
         _poison(card)

@@ -290,15 +290,13 @@ def _tiny_cfg(model: str, *opts):
          "DATA.TEST_CROP_SIZE", "32", *opts])
 
 
-# knobs that select a function or a kernel the port does not have: the
-# model build raises and names the knob (JAX would run max / none shifts,
-# or the split-projection kernel K3)
+# knobs that select a function the port does not have: the model build
+# raises and names the knob (JAX would run max / none shifts)
 @pytest.mark.parametrize("model,knob,value", [
     ("timesformer", "SPATIAL_SHIFT", "max"),
     ("timesformer", "SPATIAL_SHIFT", "none"),
     ("timesformer", "TEMPORAL_SHIFT", "max"),
     ("timesformer", "TEMPORAL_SHIFT", "none"),
-    ("timesformer", "SPATIAL_FUSED_QKV", "0"),
     ("mvit", "MVIT_SHIFT", "max"),
     ("mvit", "MVIT_SHIFT", "none")])
 def test_an_unported_knob_raises_at_build(model, knob, value, monkeypatch):

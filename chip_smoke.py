@@ -109,11 +109,25 @@ Phases (any failure exits non-zero):
 24. slice 7, ``SPATIAL_FUSED_QKV=0``: phase 7's training with the knob set
    while the model is built (per step 24 K3f, 12 K3b, 24 K2f, 12 K2b, no K1
    kernel); one step against the plain path; one step profiled with its
-   peak memory.
+   peak memory;
+25. slice 8: the pair at head dim 32 on the shapes of the next step (K2's
+   function on the time-major qkv ``[18, 8, 196, 2304]``, K1's on the fused
+   qkv ``[144, 196, 2304]`` + CLS) against their plain versions, K2's
+   function timed beside SDPA; then phase 7's training at TimeSformer-B's
+   width in 24 heads of 32 (3 steps; per step 24 + 12 launches of the pair
+   for K1's function and as many for K2's, no K1 or K2 kernel); one step
+   against the plain path;
+26. slice 8: K5f/K5b at block 0 and K6f/K6b at block 1 of MViT-v2-S at
+   width 144 in 2 heads of 72 (tile width 96) against their plain versions;
+   then phase 9's MViT-v2-S training at that width (3 steps; every block on
+   K5 or K6, no other MViT kernel); one step against the plain path.
+The MViT backward pair's two passes are timed apart, and every MViT kernel
+against another checkout, by ``python -m procedurevrl_torch.tools.mvit_ab``.
 Phases 6 and 7 assert that none of slice 5's kernels runs without the
 knobs, phases 9 and 11 none of slice 6's, and every TimeSformer phase
 before 20 none of slice 7's.
-Each phase prints its wall time.  The last two lines are the
+Each phase prints its wall time, and the script its total.  The last two
+lines are the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 """
 
@@ -243,6 +257,14 @@ SPLIT_QKV = {"SPATIAL_FUSED_QKV": "0"}
 # analytic count (utils/misc.py:39 flops_count_timesformer + temporal_fc):
 # ~391 GFLOP per clip forward; a train step is ~3x that (forward + backward)
 FWD_GFLOP_PER_CLIP = 391.0
+# slice 8: head dims other than the shipped models' on the full-width
+# models: TimeSformer-B's width 768 in 24 heads of 32 (K1's and K2's
+# function on the pair), and MViT-v2-S's block plan at MViT-v2-L's width
+# 144 in 2 heads of 72 (every MViT kernel at tile width 96)
+TS_HEADS_32 = 24
+MVIT_D72 = ("MVIT.EMBED_DIM", "144", "MVIT.NUM_HEADS", "2")
+HEAD_DIM_STEPS = 3                      # 2 warm-up + 1 timed
+MVIT_BLOCKS = MVIT_HL_BLOCKS + MVIT_HS_BLOCKS
 
 
 def fail(msg: str) -> None:
@@ -607,11 +629,11 @@ def phase_k2_train(torch, F, k2) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_bwd}
 
 
-def k1_inputs(torch, gen, bt, n, heads, dtype, hot=False, sd=1.0):
-    """qkv, qkv_c, g, gc of one K1 call, sd N(0, 1); ``hot`` puts one
-    query's logit against one key above 80 (frame 0, patch query 5, key 3,
-    head 0)."""
-    c = heads * 64
+def k1_inputs(torch, gen, bt, n, heads, dtype, hot=False, sd=1.0, d=64):
+    """qkv, qkv_c, g, gc of one K1 call with heads of ``d``, sd N(0, 1);
+    ``hot`` (d = 64) puts one query's logit against one key above 80 (frame
+    0, patch query 5, key 3, head 0)."""
+    c = heads * d
 
     def r(*shape):
         return (sd * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
@@ -928,11 +950,11 @@ def v3_t16(torch, k2, gen) -> None:
               f"{fl[key] / 1e9:.3f} GFLOP)")
 
 
-def mvit_inputs(torch, gen, b, heads, qn, k_shape, dtype, hot=False):
-    """q, k, v, kc, vc, rel, g of one K5 call ([B, L, H*96]; a K6 call is
+def mvit_inputs(torch, gen, b, heads, qn, k_shape, dtype, hot=False, d=96):
+    """q, k, v, kc, vc, rel, g of one K5 call ([B, L, H*d]; a K6 call is
     the same with B*H and one head); ``hot`` puts one query row's logits
     above 80."""
-    kn, kcat, c = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape), heads * 96
+    kn, kcat, c = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape), heads * d
 
     def r(*shape):
         return (0.5 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
@@ -1004,7 +1026,9 @@ def phase_mvit_kernels(torch, F, k5) -> list:
             want = bwd_plain(*xs[:6], rrs, xs[6], (2, 3, 4), *shs, scale)
             for gname, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
                                    got, want):
-                compare(torch, f"{name} {gname}", a, r, grad_tol(tol, r))
+                compare(torch, f"{name} {gname}", a, r,
+                        grad_tol(tol, r) if dtype == torch.float32
+                        else own_tol(MVIT_GRAD_TOL, r))
         # the slice shape
         x = mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16)
         args = (*x[:6], k_shape, *hs, scale)
@@ -1016,7 +1040,7 @@ def phase_mvit_kernels(torch, F, k5) -> list:
         bargs = (*x[:6], ref_rs, x[6], k_shape, *hs, scale)
         got, want = bwd(*bargs), bwd_plain(*bargs)
         err_b = max(compare(torch, f"{tag}b {label} bf16 {n}", a, r,
-                            grad_tol(BF16_TOL, r))
+                            own_tol(MVIT_GRAD_TOL, r))
                     for n, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
                                        got, want))
         del out, ref, got, want
@@ -1173,6 +1197,7 @@ def phase_kt_kernels(torch, F, k5) -> list:
     scale = 96 ** -0.5
     fwd, fwd_plain = k5.mvit_attention_kt_fwd, k5.mvit_attention_kt_fwd_plain
     bwd, bwd_plain = k5.mvit_attention_kt_bwd, k5.mvit_attention_kt_bwd_plain
+    rounded = k5.mvit_attention_kt_bwd_rounded_plain
     names = ("dq", "dk", "dv", "dkc", "dvc", "drel")
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         xs = mvit_inputs(torch, gen, 2, 2, 70, (2, 3, 4), dtype, hot=True)
@@ -1185,8 +1210,13 @@ def phase_kt_kernels(torch, F, k5) -> list:
                 tol if dtype == torch.float32 else MVIT_FWD_TOL)
         compare(torch, f"{name} lse", lse, rlse, LSE_TOL)
         bargs = (*xs[:6], ro, rlse, xs[6], (2, 3, 4), 2, scale)
-        for gname, a, r in zip(names, bwd(*bargs), bwd_plain(*bargs)):
+        got = bwd(*bargs)
+        for gname, a, r in zip(names, got, bwd_plain(*bargs)):
             compare(torch, f"{name} {gname}", a, r, grad_tol(tol, r))
+        if dtype == torch.bfloat16:
+            for gname, a, r in zip(names, got, rounded(*bargs)):
+                compare(torch, f"{name} {gname} (kernel rounding)", a, r,
+                        own_tol(MVIT_GRAD_TOL, r))
     records = []
     for label, heads, qn in (("block 1", 2, 6272), ("block 3", 4, 1568)):
         b, k_shape = 2 * CLIPS_PER_SAMPLE, (8, 14, 14)
@@ -1198,9 +1228,12 @@ def phase_kt_kernels(torch, F, k5) -> list:
         compare(torch, f"K7f {label} lse", lse, ref_lse, LSE_TOL)
         bargs = (*x[:6], ref, ref_lse, x[6], k_shape, heads, scale)
         got, want = bwd(*bargs), bwd_plain(*bargs)
-        err_b = max(compare(torch, f"K7b {label} bf16 {n}", a, r,
-                            grad_tol(BF16_TOL, r))
-                    for n, a, r in zip(names, got, want))
+        for n, a, r in zip(names, got, want):
+            compare(torch, f"K7b {label} bf16 {n}", a, r,
+                    grad_tol(BF16_TOL, r))
+        err_b = max(compare(torch, f"K7b {label} bf16 {n} (kernel rounding)",
+                            a, r, own_tol(MVIT_GRAD_TOL, r))
+                    for n, a, r in zip(names, got, rounded(*bargs)))
         del out, lse, got, want
         ms_f = time_ms(torch, lambda: fwd(*args))
         ms_b = time_ms(torch, lambda: bwd(*bargs))
@@ -1396,12 +1429,13 @@ def phase_mvit_knob_kernels(torch, F, k5) -> list:
 
 
 def flash_kernel_names() -> tuple:
-    """The launch-count names of the key-tiled pair: K4, K3 and K1's long
-    range."""
+    """The launch-count names of the key-tiled pair: K4, K3, K1's function
+    (long frames, head dims other than 64) and K2's (head dims other than
+    64)."""
     from procedurevrl_torch.ops import flash_attention as fa
 
     return (fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_CLS, fa.KERNEL_CLS_BWD,
-            fa.KERNEL_QKV, fa.KERNEL_QKV_BWD)
+            fa.KERNEL_QKV, fa.KERNEL_QKV_BWD, fa.KERNEL_T, fa.KERNEL_T_BWD)
 
 
 def k1_kernel_names(k1) -> tuple:
@@ -1518,12 +1552,12 @@ def train_cfg(remat: bool, *opts):
          "GLOBAL_BATCH_SIZE", "2", "TPU.REMAT", str(remat), *opts])
 
 
-def mvit_cfg(path: str = MVIT_CFG):
+def mvit_cfg(path: str = MVIT_CFG, *opts):
     from procedurevrl_torch.config import load_config
 
     return load_config(os.path.join(ROOT, path),
                        ["DEV.LOAD_DUMMY_DATA", "True", "TRAIN.BATCH_SIZE", "2",
-                        "GLOBAL_BATCH_SIZE", "2"])
+                        "GLOBAL_BATCH_SIZE", "2", *opts])
 
 
 def run_train(torch, _build, cfg, steps: int):
@@ -1872,12 +1906,12 @@ def sdpa_operands(torch, x, g, gc, heads):
 
 def flash_records(bt, L, c, labels, names, replaces, measured) -> list:
     """Prints the forward and backward lines of one bf16 attention pair over
-    ``bt`` x ``L`` rows of width ``c`` (heads of 64) and returns their two
+    ``bt`` x ``L`` rows of width ``c`` (any head dim) and returns their two
     records. The bounds count each input read once and each output written
     once (q, k, v, o; q, k, v, g, dq, dk, dv): the row sums l the forward
     keeps for the backward are the kernel's own traffic, not the function's.
     ``measured`` holds (max_abs_err, ms, plain_ms, library_ms) for each."""
-    e, pairs = 2, bt * (c // 64) * L * L * 64
+    e, pairs = 2, bt * L * L * c
     src = "procedurevrl_torch/csrc/flash_attention.cu"
     records = []
     for label, name, where, (err, ms, plain, lib), rows, flop, lib_name in zip(
@@ -2059,9 +2093,175 @@ def phase_k1_long(torch, F, k1, k2, k5, k8, fa, _build) -> list:
     return records
 
 
+@contextlib.contextmanager
+def timesformer_heads(heads: int):
+    """TimeSformer-B built with ``heads`` heads of the same width: the
+    model class ``models/build.py`` constructs, with its head count
+    replaced."""
+    from procedurevrl_torch.models import procedurevrl
+
+    cls = procedurevrl.ProcedureVRL
+    procedurevrl.ProcedureVRL = lambda *a, **kw: cls(*a, **{**kw,
+                                                           "num_heads": heads})
+    try:
+        yield
+    finally:
+        procedurevrl.ProcedureVRL = cls
+
+
+def check_ts_heads_32(torch, F, fa) -> list:
+    """The pair at head dim 32 on the shapes of phase 25's step (18 clips x
+    8 frames, width 768 in 24 heads): K2's function on the time-major qkv
+    [18, 8, 196, 2304] and K1's on the fused qkv [144, 196, 2304] + CLS,
+    against their plain versions; returns the records of K2's function on
+    the pair, timed."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    heads, scale, c = TS_HEADS_32, 32 ** -0.5, 768
+    b16 = torch.bfloat16
+    b, t, n = 2 * CLIPS_PER_SAMPLE, 8, 196
+
+    qkv, qkv_c, g, gc = k1_inputs(torch, gen, b * t, n, heads, b16, d=32)
+    name = f"K1 on the pair d 32 [{b * t},{n},{3 * c}]"
+    out, out_c, l = fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale)
+    ro, roc, rl = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, heads, scale)
+    for p, a, r, tol in (("out", out, ro, FLASH_FWD_TOL),
+                         ("out_c", out_c, roc, FLASH_FWD_TOL),
+                         ("l", l, rl, ROWSUM_TOL)):
+        compare(torch, f"{name} {p}", a, r, tol)
+    for p, a, r in zip(("dqkv", "dqkv_c"),
+                       fa.flash_attention_qkv_bwd(qkv, qkv_c, g, gc, l, heads,
+                                                  scale),
+                       fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc,
+                                                        heads, scale)):
+        compare(torch, f"{name} {p}", a, r, own_tol(MVIT_GRAD_TOL, r))
+    del qkv, qkv_c, g, gc, out, out_c, l, ro, roc, rl
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(b16)
+
+    qkv, g = rand(b, t, n, 3 * c), rand(b, t, n, c)
+    name = f"K2 on the pair d 32 [{b},{t},{n},{3 * c}]"
+    fwd = lambda: fa.flash_attention_temporal_fwd(qkv, heads, scale)
+    out, l = fwd()
+    ro, rl = fa.flash_attention_temporal_fwd_plain(qkv, heads, scale)
+    # N(0, 1) inputs over 8 keys: p rounded to bf16 moves an output by up
+    # to ~ulp(p) |v|, as for K2f, which phase 3 holds to BF16_TOL here
+    err_f = compare(torch, f"{name} out", out, ro, BF16_TOL)
+    compare(torch, f"{name} l", l, rl, ROWSUM_TOL)
+    bwd = lambda: fa.flash_attention_temporal_bwd(qkv, g, l, heads, scale)
+    ref = fa.flash_attention_temporal_bwd_plain(qkv, g, heads, scale)
+    err_b = compare(torch, f"{name} dqkv", bwd(), ref,
+                    own_tol(MVIT_GRAD_TOL, ref))
+    del out, ro, rl, ref
+    ms_f, ms_b = time_ms(torch, fwd), time_ms(torch, bwd)
+    plain_f = time_ms(torch, lambda: fa.flash_attention_temporal_fwd_plain(
+        qkv, heads, scale), iters=5)
+    plain_b = time_ms(torch, lambda: fa.flash_attention_temporal_bwd_plain(
+        qkv, g, heads, scale), iters=3)
+    # SDPA on [B*N, H, T, 32]
+    seq = lambda x: x.permute(0, 2, 1, 3).reshape(b * n, t, heads, -1
+                                                   ).transpose(1, 2)
+    q, k, v = (seq(x).contiguous() for x in qkv.split(c, dim=-1))
+    lib_f, lib_b = sdpa_ms(torch, F, q, k, v, seq(g).contiguous())
+    del q, k, v
+    where = "procedurevrl_tpu/ops/pallas_attention.py:"
+    return flash_records(
+        b * n, t, c, (f"K2 on the pair fwd [{b},{t},{n},{3 * c}] d 32",
+                      f"K2 on the pair bwd [{b},{t},{n},{3 * c}] d 32"),
+        (fa.KERNEL_T, fa.KERNEL_T_BWD), (f"{where}1486", f"{where}1512"),
+        ((err_f, ms_f, plain_f, lib_f), (err_b, ms_b, plain_b, lib_b)))
+
+
+def phase_ts_heads_32(torch, F, k1, k2, k5, k8, fa, _build) -> list:
+    """Slice 8: the pair at head dim 32 against its plain versions
+    (:func:`check_ts_heads_32`), then the TimeSformer-B train step at width
+    768 in 24 heads of 32 (remat): K1's and K2's function on the pair (per
+    step 24 + 12 of each, no K1 or K2 kernel), one step against the plain
+    path; returns the records of K2's function on the pair with their
+    launches."""
+    records = check_ts_heads_32(torch, F, fa)
+    with timesformer_heads(TS_HEADS_32):
+        launches = phase_ts_knob_train(
+            torch, k1, k2, k5, k8, _build, "TimeSformer 24 heads of 32", {},
+            {fa.KERNEL_QKV: 2 * DEPTH, fa.KERNEL_QKV_BWD: DEPTH,
+             fa.KERNEL_T: 2 * DEPTH, fa.KERNEL_T_BWD: DEPTH}, False, (),
+            HEAD_DIM_STEPS)
+    for rec in records:
+        rec["launches"] = launches.get(rec["name"], 0)
+    return records
+
+
+# MViT-v2-S blocks 0 (head-last, K5) and 1 (head-split, K6) at width 144 in
+# 2 heads of 72: (label, head-last, batch, heads, qN, k_shape)
+MVIT_D72_BLOCKS = (("block 0", True, 18, 2, 25088, (8, 7, 7)),
+                   ("block 1", False, 72, 1, 6272, (8, 14, 14)))
+
+
+def check_mvit_d72(torch, k5) -> None:
+    """K5f/K5b and K6f/K6b at head dim 72 (tile width 96) on the shapes of
+    phase 26's step, against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    scale = 72 ** -0.5
+    for label, head_last, b, heads, qn, k_shape in MVIT_D72_BLOCKS:
+        if head_last:
+            fwd, fwd_plain = k5.mvit_attention_hl_fwd, k5.mvit_attention_hl_fwd_plain
+            bwd, bwd_plain = k5.mvit_attention_hl_bwd, k5.mvit_attention_hl_bwd_plain
+            hs = (heads,)
+        else:
+            fwd, fwd_plain = k5.mvit_attention_fwd, k5.mvit_attention_fwd_plain
+            bwd, bwd_plain = k5.mvit_attention_bwd, k5.mvit_attention_bwd_plain
+            hs = ()
+        tag = f"K{5 if head_last else 6}"
+        x = mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16,
+                        d=72)
+        args = (*x[:6], k_shape, *hs, scale)
+        out, rowsum = fwd(*args)
+        ref, ref_rs = fwd_plain(*args)
+        name = f"{tag} d 72 {label} [{b},{qn},{heads * 72}]"
+        compare(torch, f"{name} out", out, ref, MVIT_FWD_TOL)
+        compare(torch, f"{name} rowsum", rowsum, ref_rs, ROWSUM_TOL)
+        bargs = (*x[:6], ref_rs, x[6], k_shape, *hs, scale)
+        for p, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                           bwd(*bargs), bwd_plain(*bargs)):
+            compare(torch, f"{name} {p}", a, r, own_tol(MVIT_GRAD_TOL, r))
+        del x, out, ref
+        torch.cuda.empty_cache()
+
+
+def phase_mvit_d72(torch, k1, k2, k5, k8, _build) -> dict:
+    """Slice 8: K5 and K6 at head dim 72 against their plain versions
+    (:func:`check_mvit_d72`), then MViT-v2-S's block plan at width 144 in 2
+    heads of 72 (remat): every block on K5 or K6 (two forwards and one
+    backward a step), no other MViT kernel; one step against the plain
+    path."""
+    check_mvit_d72(torch, k5)
+    cfg = mvit_cfg(MVIT_CFG, *MVIT_D72)
+    stats, launches, peak = run_train(torch, _build, cfg, HEAD_DIM_STEPS)
+    for i, h in enumerate(stats["history"]):
+        print(f"MViT d 72 step {i + 1}: loss {h['loss']:.6f} grad_norm "
+              f"{h['grad_norm']:.4f}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
+                                                 "grad_norm")):
+            fail(f"MViT d 72 step {i + 1} is not finite")
+    print(f"MViT d 72 (remat): {stats['clips_per_step']} clips/step, peak "
+          f"memory {peak / 2 ** 30:.3f} GiB, launches {launches}")
+    n = HEAD_DIM_STEPS
+    fwd = launches.get(k5.KERNEL_HL, 0) + launches.get(k5.KERNEL, 0)
+    bwd = launches.get(k5.KERNEL_HL_BWD, 0) + launches.get(k5.KERNEL_BWD, 0)
+    if fwd != 2 * MVIT_BLOCKS * n or bwd != MVIT_BLOCKS * n:
+        fail(f"MViT d 72: {fwd} K5f/K6f and {bwd} K5b/K6b launches, "
+             f"expected {2 * MVIT_BLOCKS * n} and {MVIT_BLOCKS * n}")
+    others = set(mvit_kernel_names(k5, k8)) - {
+        k5.KERNEL_HL, k5.KERNEL, k5.KERNEL_HL_BWD, k5.KERNEL_BWD}
+    check_launches(launches, dict.fromkeys(others, 0), "the MViT d 72 steps")
+    step_vs_plain(torch, cfg, k1, k2, k5, k8)
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2186,11 +2386,20 @@ def main() -> int:
     for rec in flash_kernels + long_kernels:
         if not rec["launches"]:
             fail(f"{rec['name']} was not launched on the slice 7 path")
+    head_dim_kernels = timed("25 TimeSformer 24 heads of 32",
+                             phase_ts_heads_32, torch, F, k1, k2, k5, k8, fa,
+                             _build)
+    for rec in head_dim_kernels:
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the 24-head step")
+    timed("26 MViT heads of 72", phase_mvit_d72, torch, k1, k2, k5, k8,
+          _build)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
-               + long_kernels)
+               + long_kernels + head_dim_kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))

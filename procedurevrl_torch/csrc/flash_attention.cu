@@ -8,7 +8,12 @@
 //              CLS query attend over [frames; cls];
 //   K1 long    K3's function on views of the fused qkv [BT, N, 3C] and
 //              qkv_c [BT, 1, 3C] (row stride 3C), with dq/dk/dv written into
-//              views of one dqkv; the K1 routes take it for 208 < N + 1.
+//              views of one dqkv; the K1 routes take it for 208 < N + 1 and
+//              for every head dim other than K1's 64;
+//   K2 wide    K2's function (attention over the T frames of each of the N
+//              positions of the time-major qkv [B, T, N, 3C]) for head dims
+//              other than K2's 64: each row of the [B, T, N*3C] view holds
+//              the rows of M = N sequences side by side (`seqs`).
 //
 // Replaces the TPU kernels of procedurevrl_tpu/ops/pallas_attention.py:
 //   K4f  _fwd_kernel      (via _flash_fwd, flash_attention_headfused);
@@ -53,7 +58,9 @@
 //     every query tile (a two-stage ring) for its 64 keys and accumulates
 //     dk and dv in registers, so no sum crosses CTAs (deterministic, no
 //     atomics);
-//   * the head dimension is a template parameter (32, 64, 96, 128).
+//   * the tile width is a template parameter (32, 64, 96, 128, 192, 256);
+//     a head dim d (a multiple of 8) runs on the narrowest width >= d, its
+//     tiles zero past column d, and only d columns are written.
 // A row of e can reach L exp(80) ~ 5.6e37 (finite in fp32), and o's sum of
 // e v stays finite while fewer than ~6000 / max|v| logits reach 80.
 // Measured at the training shape (PERF.md): the forward at 4.3x its bound,
@@ -61,6 +68,8 @@
 // longer-lived CTAs, and fewer recomputations (the backward forms s three
 // times and g v^T twice: ~18 d operations per (query, key) pair against
 // 10 d needed).
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -72,34 +81,43 @@ constexpr int BM = 64;   // query rows per tile (4 warps x 16)
 constexpr int BN = 64;   // keys per tile
 constexpr int WARPS = 4;
 constexpr int MAX_L = 1025;  // the JAX rule's 1024 tokens (+ the CLS)
+constexpr int MAX_D = 256;   // the widest tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Where the rows of each tensor group live.  A main-stream tensor [B, n, *]
-// has its row j of batch b at base + (b * n + j) * ld; a CLS tensor
-// [B, 1, *] its row of batch b at base + b * ldc.  Head h is columns
-// [h * HD, h * HD + HD) of a row.
+// Where the rows of each tensor group live.  Sequence s = b * seqs + m
+// (b < B, m < seqs) has its row j at base + (b * n + j) * ld + m * (ld /
+// seqs): a row of ld elements holds the rows of `seqs` sequences side by
+// side (seqs = 1 but for K2's layout).  A CLS tensor [B, 1, *] has its row
+// of sequence s at base + s * ldc.  Head h is columns [h * d, h * d + d) of
+// a sequence's row.
 struct Geo {
   int n;       // frame rows
   int L;       // n + 1 with the CLS, else n
   int heads;
+  int d;       // head dim (a multiple of 8, at most the tile width HD)
+  int seqs;    // sequences side by side in a row
   int tiles;   // row tiles of a slice: ceil(L / 64)
   size_t ld_in, ldc_in;   // q, k, v / qc, kc, vc
   size_t ld_g, ldc_g;     // out (forward) or g (backward) / their CLS rows
   size_t ld_d, ldc_d;     // dq, dk, dv / dqc, dkc, dvc
 };
 
-// row j of [frames; cls] of slice (b, h)
-template <int HD, typename T>
+// row j of [frames; cls] of slice (sequence s, head h); one sequence per
+// row (seqs = 1) needs no division
+template <typename T>
 __device__ __forceinline__ T* row_of(T* x, T* xc, size_t ld, size_t ldc,
-                                     const Geo& g, int b, int h, int j) {
-  return (j < g.n ? x + ((size_t)b * g.n + j) * ld : xc + (size_t)b * ldc) +
-         (size_t)h * HD;
+                                     const Geo& g, int s, int h, int j) {
+  if (j >= g.n) return xc + (size_t)s * ldc + (size_t)h * g.d;
+  if (g.seqs == 1) return x + ((size_t)s * g.n + j) * ld + (size_t)h * g.d;
+  const unsigned m = (unsigned)s % (unsigned)g.seqs;
+  return x + ((size_t)((unsigned)s / (unsigned)g.seqs) * g.n + j) * ld +
+         (size_t)m * ((unsigned)ld / (unsigned)g.seqs) + (size_t)h * g.d;
 }
 
 // ------------------------------------------- bf16 (tensor-core) kernels
 
 // rows [r0, r0 + 64) of [frames; cls] into a [64 x (HD + 8)] tile; rows
-// >= L are zero
+// >= L and columns >= d are zero
 template <int HD>
 __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* x,
                                       const uint16_t* xc, size_t ld,
@@ -109,8 +127,8 @@ __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* x,
   for (int idx = threadIdx.x; idx < BM * CH; idx += blockDim.x) {
     const int r = idx / CH, e = 8 * (idx % CH), j = r0 + r;
     uint16_t* d = dst + r * SD + e;
-    if (j < g.L) {
-      cp_async16(d, row_of<HD>(x, xc, ld, ldc, g, b, h, j) + e);
+    if (j < g.L && e < g.d) {
+      cp_async16(d, row_of(x, xc, ld, ldc, g, b, h, j) + e);
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -282,10 +300,11 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const int r = i0 + warp * 16 + gid + 8 * half;
     if (r >= g.L) continue;
     const float l = half ? l1 : l0, inv = 1.f / l;
-    uint16_t* dst = row_of<HD>(out, outc, g.ld_g, g.ldc_g, g, b, h, r) + 2 * tig;
+    uint16_t* dst = row_of(out, outc, g.ld_g, g.ldc_g, g, b, h, r) + 2 * tig;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+      if (dt * 8 < g.d)
+        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
           pack_bf16x2(o[dt][2 * half] * inv, o[dt][2 * half + 1] * inv);
     if (rowsum != nullptr && tig == 0) rowsum[(size_t)bh * g.L + r] = l;
   }
@@ -399,10 +418,11 @@ flash_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int r = half ? r1 : r0;
     if (r >= g.L) continue;
-    uint16_t* dst = row_of<HD>(dq, dqc, g.ld_d, g.ldc_d, g, b, h, r) + 2 * tig;
+    uint16_t* dst = row_of(dq, dqc, g.ld_d, g.ldc_d, g, b, h, r) + 2 * tig;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) = pack_bf16x2(
+      if (dt * 8 < g.d)
+        *reinterpret_cast<uint32_t*>(dst + dt * 8) = pack_bf16x2(
           acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
   }
 }
@@ -522,10 +542,11 @@ flash_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int j = j0 + warp * 16 + gid + 8 * half;
     if (j >= g.L) continue;
-    uint16_t* kd = row_of<HD>(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j) + 2 * tig;
-    uint16_t* vd = row_of<HD>(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j) + 2 * tig;
+    uint16_t* kd = row_of(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j) + 2 * tig;
+    uint16_t* vd = row_of(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j) + 2 * tig;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
+      if (dt * 8 >= g.d) continue;
       *reinterpret_cast<uint32_t*>(kd + dt * 8) = pack_bf16x2(
           acc_k[dt][2 * half] * scale, acc_k[dt][2 * half + 1] * scale);
       *reinterpret_cast<uint32_t*>(vd + dt * 8) =
@@ -536,11 +557,10 @@ flash_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
 // ------------------------------------------------- fp32 (scalar) kernels
 
-template <int HD>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
+__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
   float s = 0.f;
 #pragma unroll 8
-  for (int e = 0; e < HD; ++e) s = fmaf(a[e], b[e], s);
+  for (int e = 0; e < d; ++e) s = fmaf(a[e], b[e], s);
   return s;
 }
 
@@ -561,11 +581,11 @@ flash_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
   if (i >= g.L) return;  // warp-uniform; no block barrier below
   const int b = bh / g.heads, h = bh % g.heads;
   float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * g.L;
-  const float* qi = row_of<HD>(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+  const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
   float part = 0.f;
   for (int j = lane; j < g.L; j += 32) {
-    const float* kj = row_of<HD>(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
-    const float e = expf(fminf(dot<HD>(qi, kj) * scale, CLAMP_HI));
+    const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+    const float e = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI));
     e_w[j] = e;
     part += e;
   }
@@ -576,13 +596,15 @@ flash_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
   for (int u = 0; u < U; ++u) o[u] = 0.f;
   for (int j = 0; j < g.L; ++j) {
     const float p = e_w[j] / l;
-    const float* vj = row_of<HD>(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
+    const float* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
 #pragma unroll
-    for (int u = 0; u < U; ++u) o[u] = fmaf(p, vj[lane + 32 * u], o[u]);
+    for (int u = 0; u < U; ++u)
+      if (lane + 32 * u < g.d) o[u] = fmaf(p, vj[lane + 32 * u], o[u]);
   }
-  float* oi = row_of<HD>(out, outc, g.ld_g, g.ldc_g, g, b, h, i);
+  float* oi = row_of(out, outc, g.ld_g, g.ldc_g, g, b, h, i);
 #pragma unroll
-  for (int u = 0; u < U; ++u) oi[lane + 32 * u] = o[u];
+  for (int u = 0; u < U; ++u)
+    if (lane + 32 * u < g.d) oi[lane + 32 * u] = o[u];
   if (rowsum != nullptr && lane == 0) rowsum[(size_t)bh * g.L + i] = l;
 }
 
@@ -606,15 +628,15 @@ flash_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / g.heads, h = bh % g.heads;
   float* p_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * 2 * g.L;
   float* dp_w = p_w + g.L;
-  const float* qi = row_of<HD>(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
-  const float* gi = row_of<HD>(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
+  const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+  const float* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
   const float l = rowsum[(size_t)bh * g.L + i];
   float part = 0.f;
   for (int j = lane; j < g.L; j += 32) {
-    const float* kj = row_of<HD>(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
-    const float* vj = row_of<HD>(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
-    const float p = expf(fminf(dot<HD>(qi, kj) * scale, CLAMP_HI)) / l;
-    const float dp = dot<HD>(gi, vj);
+    const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+    const float* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
+    const float p = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI)) / l;
+    const float dp = dot(gi, vj, g.d);
     p_w[j] = p;
     dp_w[j] = dp;
     part = fmaf(dp, p, part);
@@ -628,13 +650,15 @@ flash_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
   for (int u = 0; u < U; ++u) a[u] = 0.f;
   for (int j = 0; j < g.L; ++j) {
     const float ds = p_w[j];
-    const float* kj = row_of<HD>(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+    const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
 #pragma unroll
-    for (int u = 0; u < U; ++u) a[u] = fmaf(ds, kj[lane + 32 * u], a[u]);
+    for (int u = 0; u < U; ++u)
+      if (lane + 32 * u < g.d) a[u] = fmaf(ds, kj[lane + 32 * u], a[u]);
   }
-  float* dqi = row_of<HD>(dq, dqc, g.ld_d, g.ldc_d, g, b, h, i);
+  float* dqi = row_of(dq, dqc, g.ld_d, g.ldc_d, g, b, h, i);
 #pragma unroll
-  for (int u = 0; u < U; ++u) dqi[lane + 32 * u] = a[u] * scale;
+  for (int u = 0; u < U; ++u)
+    if (lane + 32 * u < g.d) dqi[lane + 32 * u] = a[u] * scale;
 }
 
 // Key-major backward: one warp per key row of [frames; cls]; lanes take 32
@@ -656,8 +680,8 @@ flash_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x / rows, j = (blockIdx.x % rows) * WARPS + warp;
   if (j >= g.L) return;
   const int b = bh / g.heads, h = bh % g.heads;
-  const float* kj = row_of<HD>(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
-  const float* vj = row_of<HD>(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
+  const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+  const float* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
   const float* rs = rowsum + (size_t)bh * g.L;
   const float* dl = delta + (size_t)bh * g.L;
   float ak[U], av[U];
@@ -667,30 +691,32 @@ flash_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
     const int i = i0 + lane;
     float p = 0.f, ds = 0.f;
     if (i < g.L) {
-      const float* qi = row_of<HD>(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
-      const float* gi = row_of<HD>(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
-      p = expf(fminf(dot<HD>(qi, kj) * scale, CLAMP_HI)) / rs[i];
-      ds = p * (dot<HD>(gi, vj) - dl[i]);
+      const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+      const float* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
+      p = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI)) / rs[i];
+      ds = p * (dot(gi, vj, g.d) - dl[i]);
     }
     p_s[warp][lane] = p;
     ds_s[warp][lane] = ds;
     __syncwarp();
     const int n = min(32, g.L - i0);
     for (int t = 0; t < n; ++t) {
-      const float* qi = row_of<HD>(q, qc, g.ld_in, g.ldc_in, g, b, h, i0 + t);
-      const float* gi = row_of<HD>(gr, gc, g.ld_g, g.ldc_g, g, b, h, i0 + t);
+      const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i0 + t);
+      const float* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i0 + t);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
+        if (lane + 32 * u >= g.d) continue;
         ak[u] = fmaf(ds_s[warp][t], qi[lane + 32 * u], ak[u]);
         av[u] = fmaf(p_s[warp][t], gi[lane + 32 * u], av[u]);
       }
     }
     __syncwarp();
   }
-  float* kd = row_of<HD>(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j);
-  float* vd = row_of<HD>(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j);
+  float* kd = row_of(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j);
+  float* vd = row_of(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j);
 #pragma unroll
   for (int u = 0; u < U; ++u) {
+    if (lane + 32 * u >= g.d) continue;
     kd[lane + 32 * u] = ak[u] * scale;
     vd[lane + 32 * u] = av[u];
   }
@@ -704,13 +730,15 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-Geo make_geo(int n, bool cls, int heads, long long ld_in, long long ldc_in,
-             long long ld_g, long long ldc_g, long long ld_d,
-             long long ldc_d) {
+Geo make_geo(int n, bool cls, int heads, int d, int seqs, long long ld_in,
+             long long ldc_in, long long ld_g, long long ldc_g,
+             long long ld_d, long long ldc_d) {
   Geo g;
   g.n = n;
   g.L = n + (cls ? 1 : 0);
   g.heads = heads;
+  g.d = d;
+  g.seqs = seqs;
   g.tiles = (g.L + BM - 1) / BM;
   g.ld_in = (size_t)ld_in;
   g.ldc_in = (size_t)ldc_in;
@@ -721,9 +749,12 @@ Geo make_geo(int n, bool cls, int heads, long long ld_in, long long ldc_in,
   return g;
 }
 
-bool valid(int b, int n, int heads, int dtype) {
-  return b > 0 && n > 0 && heads > 0 && n + 1 <= MAX_L &&
-         (dtype == 0 || dtype == 1);
+// ld: the largest row stride; with seqs > 1 it must fit 32 bits (row_of)
+bool valid(int b, int seqs, int n, int heads, int d, bool cls, int dtype,
+           long long ld) {
+  return b > 0 && seqs > 0 && b % seqs == 0 && !(cls && seqs > 1) && n > 0 &&
+         heads > 0 && n + 1 <= MAX_L && d >= 8 && d <= MAX_D && d % 8 == 0 &&
+         (dtype == 0 || dtype == 1) && (seqs == 1 || ld < (1LL << 32));
 }
 
 template <int HD>
@@ -818,35 +849,49 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* qc,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64, 96 or 128.  qc, kc,
-// vc (and outc, gc, dqc, dkc, dvc) are null without the CLS stream.  Row
-// strides are in elements: ld_in of q, k, v, ldc_in of qc, kc, vc (their
-// batch stride), ld_o / ldc_o of out and outc (forward) or of g and gc
-// (backward), ld_d / ldc_d of the gradients.  Every row must be 16-byte
-// aligned.  Each entry point returns the CUDA error code of its launches
-// (0 on success).
+// The tile width of head dim d: the narrowest instance >= d.
+static int tile_width(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128
+       : d <= 192 ? 192 : 256;
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 8 up to 256.
+// b: the number of sequences, seqs of them side by side in each row (1 but
+// for K2's layout; b a multiple of seqs, no CLS stream with seqs > 1).  qc,
+// kc, vc (and outc, gc, dqc, dkc, dvc) are null without the CLS stream.
+// Row strides are in elements: ld_in of q, k, v, ldc_in of qc, kc, vc
+// (their batch stride), ld_o / ldc_o of out and outc (forward) or of g and
+// gc (backward), ld_d / ldc_d of the gradients; with seqs > 1 each ld must
+// be a multiple of seqs.  Every row must be 16-byte aligned.  Each entry
+// point returns the CUDA error code of its launches (0 on success).
 
 // The forward: out, outc and, where rowsum is not null, l [b, heads, L]
 // (fp32).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* qc,
                                    const void* kc, const void* vc, void* out,
-                                   void* outc, void* rowsum, int b, int n,
-                                   int heads, int head_dim, long long ld_in,
-                                   long long ldc_in, long long ld_o,
-                                   long long ldc_o, int dtype, float scale,
-                                   void* stream) {
-  if (!valid(b, n, heads, dtype)) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(n, qc != nullptr, heads, ld_in, ldc_in, ld_o, ldc_o,
-                         0, 0);
+                                   void* outc, void* rowsum, int b, int seqs,
+                                   int n, int heads, int head_dim,
+                                   long long ld_in, long long ldc_in,
+                                   long long ld_o, long long ldc_o, int dtype,
+                                   float scale, void* stream) {
+  if (!valid(b, seqs, n, heads, head_dim, qc != nullptr, dtype,
+             std::max(ld_in, ld_o)))
+    return (int)cudaErrorInvalidValue;
+  const Geo g = make_geo(n, qc != nullptr, heads, head_dim, seqs, ld_in,
+                         ldc_in, ld_o, ldc_o, 0, 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32: return launch_fwd<32>(q, k, v, qc, kc, vc, out, outc, rowsum, b, g, dtype, scale, st);
-    case 64: return launch_fwd<64>(q, k, v, qc, kc, vc, out, outc, rowsum, b, g, dtype, scale, st);
-    case 96: return launch_fwd<96>(q, k, v, qc, kc, vc, out, outc, rowsum, b, g, dtype, scale, st);
-    case 128: return launch_fwd<128>(q, k, v, qc, kc, vc, out, outc, rowsum, b, g, dtype, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+#define FWD(HD) launch_fwd<HD>(q, k, v, qc, kc, vc, out, outc, rowsum, b, g, \
+                               dtype, scale, st)
+  switch (tile_width(head_dim)) {
+    case 32: return FWD(32);
+    case 64: return FWD(64);
+    case 96: return FWD(96);
+    case 128: return FWD(128);
+    case 192: return FWD(192);
+    default: return FWD(256);
   }
+#undef FWD
 }
 
 // The recompute backward from the forward's l: dq, dk, dv (and dqc, dkc,
@@ -858,21 +903,27 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* g, const void* gc,
                                    const void* rowsum, void* delta, void* dq,
                                    void* dk, void* dv, void* dqc, void* dkc,
-                                   void* dvc, int b, int n, int heads,
-                                   int head_dim, long long ld_in,
+                                   void* dvc, int b, int seqs, int n,
+                                   int heads, int head_dim, long long ld_in,
                                    long long ldc_in, long long ld_g,
                                    long long ldc_g, long long ld_d,
                                    long long ldc_d, int dtype, float scale,
                                    void* stream) {
-  if (!valid(b, n, heads, dtype)) return (int)cudaErrorInvalidValue;
-  const Geo geo = make_geo(n, qc != nullptr, heads, ld_in, ldc_in, ld_g,
-                           ldc_g, ld_d, ldc_d);
+  if (!valid(b, seqs, n, heads, head_dim, qc != nullptr, dtype,
+             std::max({ld_in, ld_g, ld_d})))
+    return (int)cudaErrorInvalidValue;
+  const Geo geo = make_geo(n, qc != nullptr, heads, head_dim, seqs, ld_in,
+                           ldc_in, ld_g, ldc_g, ld_d, ldc_d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32: return launch_bwd<32>(q, k, v, qc, kc, vc, g, gc, rowsum, delta, dq, dk, dv, dqc, dkc, dvc, b, geo, dtype, scale, st);
-    case 64: return launch_bwd<64>(q, k, v, qc, kc, vc, g, gc, rowsum, delta, dq, dk, dv, dqc, dkc, dvc, b, geo, dtype, scale, st);
-    case 96: return launch_bwd<96>(q, k, v, qc, kc, vc, g, gc, rowsum, delta, dq, dk, dv, dqc, dkc, dvc, b, geo, dtype, scale, st);
-    case 128: return launch_bwd<128>(q, k, v, qc, kc, vc, g, gc, rowsum, delta, dq, dk, dv, dqc, dkc, dvc, b, geo, dtype, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+#define BWD(HD) launch_bwd<HD>(q, k, v, qc, kc, vc, g, gc, rowsum, delta, dq, \
+                               dk, dv, dqc, dkc, dvc, b, geo, dtype, scale, st)
+  switch (tile_width(head_dim)) {
+    case 32: return BWD(32);
+    case 64: return BWD(64);
+    case 96: return BWD(96);
+    case 128: return BWD(128);
+    case 192: return BWD(192);
+    default: return BWD(256);
   }
+#undef BWD
 }

@@ -55,17 +55,16 @@ ENTRY_POINTS = {
         "temporal_attention_v3_bwd": [_P] * 4 + [_I] * 5 + [_F, _P],
     },
     "mvit_attention": {
-        "mvit_attention_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
-        "mvit_attention_bwd": [_P] * 15 + [_I] * 8 + [_F, _P],
-        "mvit_attention_kt_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
-        "mvit_attention_kt_bwd": [_P] * 16 + [_I] * 8 + [_F, _P],
-        "mvit_attention_fwd_probs": [_P] * 9 + [_I] * 8 + [_F, _P],
-        "mvit_attention_bwd_delta": [_P] * 16 + [_I] * 8 + [_F, _P],
-        "mvit_attention_bwd_probs": [_P] * 15 + [_I] * 8 + [_F, _P],
+        "mvit_attention_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
+        "mvit_attention_kt_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
+        "mvit_attention_fwd_probs": [_P] * 9 + [_I] * 9 + [_F, _P],
+        "mvit_attention_bwd": [_I] + [_P] * 18 + [_I] * 10 + [_F, _P],
+        "mvit_attention_bwd_time": ([_I] + [_P] * 18 + [_I] * 9
+                                    + [_F, _I, _P, _P, _P]),
     },
     "flash_attention": {
-        "flash_attention_fwd": [_P] * 9 + [_I] * 4 + [_L] * 4 + [_I, _F, _P],
-        "flash_attention_bwd": [_P] * 16 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
+        "flash_attention_fwd": [_P] * 9 + [_I] * 5 + [_L] * 4 + [_I, _F, _P],
+        "flash_attention_bwd": [_P] * 16 + [_I] * 5 + [_L] * 6 + [_I, _F, _P],
     },
     "depthwise_pool": {
         "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 6 + [_L, _L, _I, _P],

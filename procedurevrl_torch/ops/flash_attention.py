@@ -16,18 +16,25 @@ kernels do, from the row sums l that the forward saves under grad (fp32
 keep.
 
 The same pair carries K1's function (``ops/spatial_attention.py``) for
-208 < N + 1 <= 1025, where K1's kernels have no geometry: q, k and v are
-then the column thirds of the fused ``qkv [BT, N, 3C]`` and ``qkv_c [BT, 1,
-3C]``, read in place, and the gradients are written into the thirds of one
-``dqkv``.  Its launches count under their own names (``KERNEL_QKV``,
-``KERNEL_QKV_BWD``), so a run shows which caller took the pair.
+208 < N + 1 <= 1025 and for every head dim other than 64, where K1's
+kernels have no geometry: q, k and v are then the column thirds of the
+fused ``qkv [BT, N, 3C]`` and ``qkv_c [BT, 1, 3C]``, read in place, and the
+gradients are written into the thirds of one ``dqkv``.  It carries K2's
+function (``ops/temporal_attention.py``) for head dims other than 64: the
+time-major ``qkv [B, T, N, 3C]`` is read in place as B*N sequences of T
+rows, N of them side by side in each row of the ``[B, T, N*3C]`` view.
+Its launches count under their own names (``KERNEL_QKV``,
+``KERNEL_QKV_BWD``, ``KERNEL_T``, ``KERNEL_T_BWD``), so a run shows which
+caller took the pair.
 
 q, k and v may be strided views (the thirds of one projection): each must
 have unit column stride and evenly spaced rows of one row stride, 16-byte
 aligned.  Each wrapper launches its kernel for a CUDA tensor and raises on
-anything the kernel does not take (dtype other than float32 / bfloat16,
-head dim outside ``HEAD_DIMS``, more than ``MAX_LEN`` tokens, a layout it
-cannot address); it takes the plain version only for a CPU tensor.  The
+anything the kernel does not take (dtype other than float32 / bfloat16, a
+head dim that is not a multiple of 8 or exceeds ``MAX_HEAD_DIM``, more
+than ``MAX_LEN`` tokens, a layout it cannot address); it takes the plain
+version only for a CPU tensor.  A head dim d runs on the narrowest of
+``TILE_WIDTHS`` that holds it (:func:`tile_width`), zero past column d.  The
 autograd entries (``*_autograd``) take the forward that saves l and the
 kernel backward under grad, the forward alone otherwise.
 """
@@ -46,8 +53,13 @@ KERNEL_CLS = "flash_attention_cls_fwd"       # K3f
 KERNEL_CLS_BWD = "flash_attention_cls_bwd"   # K3b
 KERNEL_QKV = "flash_attention_qkv_fwd"       # K1's long range, forward
 KERNEL_QKV_BWD = "flash_attention_qkv_bwd"   # K1's long range, backward
+KERNEL_T = "flash_attention_temporal_fwd"    # K2's function, head dim != 64
+KERNEL_T_BWD = "flash_attention_temporal_bwd"
 MAX_LEN = 1024          # frame tokens (JAX MAX_FUSED_LEN); + 1 for the CLS
-HEAD_DIMS = (32, 64, 96, 128)
+# the tile widths of the bf16 kernels: a head dim (a multiple of 8) runs on
+# the narrowest that holds it
+TILE_WIDTHS = (32, 64, 96, 128, 192, 256)
+MAX_HEAD_DIM = TILE_WIDTHS[-1]
 CLAMP_HI = 80.0         # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -184,6 +196,36 @@ def flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, num_heads: int,
     return torch.cat(d[:3], dim=-1), torch.cat(d[3:], dim=-1)
 
 
+def _time_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, N, c] -> [B*N, T, c]: one sequence of T rows per position."""
+    b, t, n, c = x.shape
+    return x.transpose(1, 2).reshape(b * n, t, c)
+
+
+def _from_time_major(x: torch.Tensor, b: int) -> torch.Tensor:
+    """[B*N, T, c] -> [B, T, N, c]."""
+    bn, t, c = x.shape
+    return x.reshape(b, bn // b, t, c).transpose(1, 2)
+
+
+def flash_attention_temporal_fwd_plain(qkv, num_heads: int, scale: float):
+    """Plain PyTorch version of the pair's forward in K2's layout: (out [B,
+    T, N, C], l [B*N, H, T]) of the time-major qkv [B, T, N, 3C], attention
+    over the T frames of each position."""
+    q, k, v = (_time_major(t) for t in _thirds(qkv))
+    out, rowsum = _attend(q, k, v, num_heads, scale)
+    return _from_time_major(out, qkv.shape[0]).contiguous(), rowsum
+
+
+def flash_attention_temporal_bwd_plain(qkv, g, num_heads: int, scale: float):
+    """Plain PyTorch version of the pair's backward in K2's layout: dqkv
+    [B, T, N, 3C] from the output gradient g [B, T, N, C]."""
+    q, k, v = (_time_major(t) for t in _thirds(qkv))
+    grads = _attend_bwd(q, k, v, _time_major(g), num_heads, scale)
+    return torch.cat([_from_time_major(x, qkv.shape[0]) for x in grads],
+                     dim=-1)
+
+
 # --------------------------------------------------------------- kernels
 
 def _row_stride(t: torch.Tensor, name: str) -> int:
@@ -235,12 +277,19 @@ def _check_kernel(q, num_heads: int) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported")
     b, n, c = q.shape
-    if c // num_heads not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head dims "
-                         f"{HEAD_DIMS}, not {c // num_heads}")
+    tile_width(c // num_heads)
     if n > MAX_LEN:
         raise ValueError(f"flash_attention: the kernel takes N <= {MAX_LEN} "
                          f"tokens (+ the CLS), not {n}")
+
+
+def tile_width(d: int) -> int:
+    """The tile width the pair's bf16 kernels run head dim ``d`` on (the
+    source's ``tile_width``); raises for a head dim they do not take."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes head dims that "
+                         f"are multiples of 8 up to {MAX_HEAD_DIM}, not {d}")
+    return min(w for w in TILE_WIDTHS if w >= d)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -274,7 +323,7 @@ def _fwd(kernel: str, q, k, v, cls: Cls, out, outc, rowsum,
     ldc_o = 0 if outc is None else _row_stride(outc, "outc")
     _launch("flash_attention_fwd", kernel, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(qc), _ptr(kc), _ptr(vc), _ptr(out), _ptr(outc),
-            _ptr(rowsum), b, n, num_heads, c // num_heads, ld_in, ldc_in,
+            _ptr(rowsum), b, 1, n, num_heads, c // num_heads, ld_in, ldc_in,
             ld_o, ldc_o, _DTYPES[q.dtype], float(scale))
 
 
@@ -303,8 +352,9 @@ def _bwd(kernel: str, q, k, v, cls: Cls, g, gc, rowsum, grads, grads_c,
     _launch("flash_attention_bwd", kernel, q, _ptr(q), _ptr(k), _ptr(v),
             _ptr(qc), _ptr(kc), _ptr(vc), _ptr(g), _ptr(gc), _ptr(rowsum),
             _ptr(delta), *(_ptr(t) for t in grads),
-            _ptr(dqc), _ptr(dkc), _ptr(dvc), b, n, num_heads, c // num_heads,
-            ld_in, ldc_in, ld_g, ldc_g, ld_d, ldc_d, _DTYPES[q.dtype],
+            _ptr(dqc), _ptr(dkc), _ptr(dvc), b, 1, n, num_heads,
+            c // num_heads, ld_in, ldc_in, ld_g, ldc_g, ld_d, ldc_d,
+            _DTYPES[q.dtype],
             float(scale))
 
 
@@ -431,6 +481,89 @@ def flash_attention_qkv_bwd(qkv, qkv_c, g, gc, rowsum, num_heads: int,
     return dqkv, dqkv_c
 
 
+def _check_temporal(qkv, num_heads: int) -> None:
+    if qkv.dim() != 4 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"flash_attention_temporal: qkv {tuple(qkv.shape)} "
+                         f"is not [B, T, N, 3C] for {num_heads} heads")
+
+
+def _temporal_layout(qkv, num_heads: int) -> Tuple[int, int, int, int]:
+    """(B*N sequences, N side by side, T rows, head dim) of the kernel's
+    view of a contiguous, 16-byte aligned CUDA qkv [B, T, N, 3C]."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device "
+                         f"{qkv.device}")
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {qkv.dtype} not supported")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("flash_attention_temporal: qkv must be contiguous "
+                         "and 16-byte aligned")
+    b, t, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    tile_width(d)
+    if t > MAX_LEN:
+        raise ValueError(f"flash_attention: the kernel takes at most "
+                         f"{MAX_LEN} frames, not {t}")
+    return b * n, n, t, d
+
+
+def flash_attention_temporal_fwd(qkv, num_heads: int, scale: float,
+                                 with_rowsum: bool = True):
+    """K2's function on the pair (head dims other than 64): (out [B, T, N,
+    C], l [B*N, H, T] or None) of the time-major qkv [B, T, N, 3C], read in
+    place."""
+    _check_temporal(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        out, rowsum = flash_attention_temporal_fwd_plain(qkv, num_heads,
+                                                         scale)
+        return out, rowsum if with_rowsum else None
+    seqs, n, t, d = _temporal_layout(qkv, num_heads)
+    b, _, _, c3 = qkv.shape
+    c, e = c3 // 3, qkv.element_size()
+    out = torch.empty((b, t, n, c), dtype=qkv.dtype, device=qkv.device)
+    rowsum = (torch.empty((seqs, num_heads, t), dtype=torch.float32,
+                          device=qkv.device) if with_rowsum else None)
+    base = qkv.data_ptr()
+    _launch("flash_attention_fwd", KERNEL_T, qkv, base, base + c * e,
+            base + 2 * c * e, None, None, None, out.data_ptr(), None,
+            _ptr(rowsum), seqs, n, t, num_heads, d, n * c3, 0, n * c, 0,
+            _DTYPES[qkv.dtype], float(scale))
+    return out, rowsum
+
+
+def flash_attention_temporal_bwd(qkv, g, rowsum, num_heads: int,
+                                 scale: float):
+    """The backward of :func:`flash_attention_temporal_fwd`: dqkv [B, T, N,
+    3C] from g [B, T, N, C] and its l (a CPU tensor takes the plain
+    version, which recomputes l)."""
+    _check_temporal(qkv, num_heads)
+    b, t, n, c3 = qkv.shape
+    if g.shape != (b, t, n, c3 // 3) or g.dtype != qkv.dtype:
+        raise ValueError(f"flash_attention_temporal: g {tuple(g.shape)} "
+                         f"does not fit qkv {tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return flash_attention_temporal_bwd_plain(qkv, g, num_heads, scale)
+    seqs, n, t, d = _temporal_layout(qkv, num_heads)
+    if rowsum.shape != (seqs, num_heads, t) or (
+            rowsum.dtype != torch.float32 or not rowsum.is_contiguous()):
+        raise ValueError(f"flash_attention_temporal: rowsum "
+                         f"{tuple(rowsum.shape)} {rowsum.dtype} is not the "
+                         "forward's")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError("flash_attention_temporal: g must be contiguous and "
+                         "16-byte aligned")
+    c, e = c3 // 3, qkv.element_size()
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(rowsum)
+    base, dbase = qkv.data_ptr(), dqkv.data_ptr()
+    _launch("flash_attention_bwd", KERNEL_T_BWD, qkv, base, base + c * e,
+            base + 2 * c * e, None, None, None, g.data_ptr(), None,
+            rowsum.data_ptr(), delta.data_ptr(), dbase, dbase + c * e,
+            dbase + 2 * c * e, None, None, None, seqs, n, t, num_heads, d,
+            n * c3, 0, n * c, 0, n * c3, 0, _DTYPES[qkv.dtype], float(scale))
+    return dqkv
+
+
 # -------------------------------------------------------------- autograd
 
 def _grad(*tensors: torch.Tensor) -> bool:
@@ -503,6 +636,25 @@ class FlashAttentionQKV(torch.autograd.Function):
         return dqkv, dqkv_c, None, None
 
 
+class FlashAttentionTemporal(torch.autograd.Function):
+    """K2's function on the pair under autograd: the forward saving qkv and
+    l, the recompute backward into one dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        out, rowsum = flash_attention_temporal_fwd(qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, rowsum)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rowsum = ctx.saved_tensors
+        return (flash_attention_temporal_bwd(qkv, g.contiguous(), rowsum,
+                                             ctx.num_heads, ctx.scale),
+                None, None)
+
+
 def flash_attention_autograd(q, k, v, num_heads: int, scale: float
                              ) -> torch.Tensor:
     """The model's entry for K4 (JAX ``flash_attention_headfused``)."""
@@ -526,3 +678,12 @@ def flash_attention_qkv_autograd(qkv, qkv_c, num_heads: int, scale: float):
         return FlashAttentionQKV.apply(qkv, qkv_c, num_heads, scale)
     return flash_attention_qkv_fwd(qkv, qkv_c, num_heads, scale,
                                    with_rowsum=False)[:2]
+
+
+def flash_attention_temporal_autograd(qkv, num_heads: int, scale: float):
+    """The entry of K2's function on the pair (``temporal_attention_autograd``
+    for head dims other than 64)."""
+    if _grad(qkv):
+        return FlashAttentionTemporal.apply(qkv, num_heads, scale)
+    return flash_attention_temporal_fwd(qkv, num_heads, scale,
+                                        with_rowsum=False)[0]

@@ -7,13 +7,15 @@ on the default single-device path: ``_fwd_hl_kernel`` (K5f) and
 ``_fwd_kernel`` (K6f) and ``_bwd_kernel`` (K6b), the head-split
 ``flash_attention_mvit`` that the model takes for wide key sets.  Both
 compute the same function on different layouts, so one CUDA kernel serves
-both: the head-last call passes the token-row stride H*96, the head-split
-call 96.
+both: the head-last call passes the token-row stride H*d, the head-split
+call d.  The kernels take every head dim d that is a multiple of 8 up to
+``MAX_HEAD_DIM`` (MViT-v2-S has 96, MViT-v2-L 72); the bf16 kernels pad
+it to a tile width of 64, 96 or 128 with zero columns.
 
 Contract (head-split; the head-last layout holds the same per (b, h)):
-q [BH, qN, 96] body queries; k, v [BH, kN, 96] body keys and values,
+q [BH, qN, d] body queries; k, v [BH, kN, d] body keys and values,
 row-major over the pooled key grid ``k_shape = (kt, kh, kw)``; kc, vc
-[BH, 1, 96] the cls key and value, key column kN, which takes no bias;
+[BH, 1, d] the cls key and value, key column kN, which takes no bias;
 rel [BH, qN, kt + kh + kw] the per-axis bias tables in the order
 [t | h | w].  ``s = (q.k) scale + (rel_t + rel_h) + rel_w`` in fp32, the
 clamp-shift softmax ``p = exp(min(s, 80)) / l`` over the kN + 1 columns,
@@ -28,7 +30,9 @@ version only for a CPU tensor.  :func:`mvit_attention_hl` and
 :func:`mvit_attention` are the model's entries: under grad they go through
 :class:`MViTAttention` (forward kernel, then backward kernel), otherwise
 straight to the forward.  K5b and K6b each run two CUDA kernels (a
-query-major and a key-major pass); a wrapper call counts as one launch.
+query-major and a key-major pass, the latter over ``key_splits`` query
+chunks with a reduction where its key tiles alone do not fill the card);
+a wrapper call counts as one launch.
 
 The knob variants (JAX ``pallas_mvit_attention.py:517-547``, read by the
 model from ``MVIT_DELTA`` / ``MVIT_SAVE_PROBS``): K5bd (``_bwd_hl_kernel_delta``)
@@ -73,10 +77,20 @@ KERNEL_HL_BWD_DELTA = "mvit_attention_hl_bwd_delta"  # K5bd
 KERNEL_BWD_DELTA = "mvit_attention_bwd_delta"        # K6bd
 KERNEL_PROBS = "mvit_attention_fwd_probs"            # K6sp
 KERNEL_BWD_PROBS = "mvit_attention_bwd_probs"        # K6bs
-HEAD_DIM = 96
+# the tile widths of the bf16 kernels: a head dim (a multiple of 8) runs on
+# the narrowest that holds it
+TILE_WIDTHS = (64, 96, 128)
+MAX_HEAD_DIM = TILE_WIDTHS[-1]
 MAX_KCAT = 48
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's variants, the ``enum Bwd`` of the source
+RECOMPUTE, ROWMAX, DELTA, SAVED = 0, 1, 2, 3
+BM = 64   # query rows per tile of the bf16 backward
+KM = 128  # keys of a key-major CTA of the bf16 backward (two warpgroups)
+# key-major CTAs the split aims for: two per SM, two waves of the one
+# resident CTA per SM of MViT-v2-S's widths
+CTAS_PER_SM = 2
 
 # The reference's routing, copied so that the port takes the same kernel
 # for each block as the JAX model (``pallas_mvit_attention.py:72-80,
@@ -373,6 +387,22 @@ def mvit_attention_kt_bwd_plain(q, k, v, kc, vc, rel, out, lse, g, k_shape,
     return tuple(_merge(x, h) for x in grads)
 
 
+def mvit_attention_kt_bwd_rounded_plain(q, k, v, kc, vc, rel, out, lse, g,
+                                        k_shape, num_heads, scale) -> Grads:
+    """K7b's function with the kernel's rounding: p = exp(s - lse) in fp32,
+    D = sum_d g o, and p and ds cast to the input dtype before the products
+    (``_bwd_core``, as K5bd rounds), where
+    :func:`mvit_attention_kt_bwd_plain` keeps the TPU kernel's fp32
+    products.  The two agree in float32."""
+    h = num_heads
+    sq, sk, skc, srel = _split(q, h), _split(k, h), _split(kc, h), _split(rel, h)
+    pf = torch.exp(_logits(sq, sk, skc, srel, k_shape, scale)
+                   - lse.reshape(-1, lse.shape[-1])[..., None])
+    grads = _bwd_core(sq, sk, _split(v, h), skc, _split(vc, h), srel, pf,
+                      _split(g, h), k_shape, scale, _split(out, h))
+    return tuple(_merge(x, h) for x in grads)
+
+
 # ------------------------------------------------------------ the kernels
 
 
@@ -394,15 +424,25 @@ def _check(q, k, v, kc, vc, rel, k_shape, heads: int) -> None:
             raise ValueError("mvit_attention: inputs differ in dtype or device")
 
 
+def tile_width(d: int) -> int:
+    """The tile width the bf16 kernels run head dim ``d`` on (the source's
+    ``with_width``); raises for a head dim the kernels do not take."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"mvit_attention: the kernels take head dims that "
+                         f"are multiples of 8 up to {MAX_HEAD_DIM}, not {d}")
+    return min(w for w in TILE_WIDTHS if w >= d)
+
+
 def _check_kernel(tensors, heads: int, k_shape) -> None:
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"mvit_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"mvit_attention: dtype {q.dtype} not supported")
-    if q.shape[2] // heads != HEAD_DIM or sum(k_shape) > MAX_KCAT:
-        raise ValueError(f"mvit_attention: kernel needs head dim {HEAD_DIM} "
-                         f"and kt + kh + kw <= {MAX_KCAT}")
+    tile_width(q.shape[2] // heads)
+    if sum(k_shape) > MAX_KCAT:
+        raise ValueError(f"mvit_attention: the kernels take kt + kh + kw <= "
+                         f"{MAX_KCAT}, not k_shape {tuple(k_shape)}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError("mvit_attention: inputs on different devices")
@@ -431,28 +471,94 @@ def _fwd_kernel(fn, kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale):
     _launch(fn, kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kc.data_ptr(), vc.data_ptr(), rel.data_ptr(), out.data_ptr(),
             stats.data_ptr(), b, heads, q.shape[1], k.shape[1], *k_shape,
-            _DTYPES[q.dtype], float(scale))
+            q.shape[2] // heads, _DTYPES[q.dtype], float(scale))
     return out, stats
 
 
-def _bwd_kernel(fn, kernel, q, k, v, kc, vc, rel, saved, g, k_shape, b,
-                heads, scale) -> Grads:
-    """Launch entry point ``fn`` with the forward's residuals ``saved``
-    (between rel and g): (rowsum,) for K5b/K6b, (out, lse) for K7b, (out,
-    rowsum) for K5bd/K6bd, (probs,) for K6bs."""
-    _check_kernel((q, k, v, kc, vc, rel, g, *saved), heads, k_shape)
+def key_splits(bh: int, qn: int, kn: int, sms: int) -> int:
+    """Query chunks of the bf16 key-major pass: enough that its CTAs (tiles
+    of ``KM`` keys x chunks x BH) reach ``CTAS_PER_SM`` per SM of a card
+    with ``sms`` SMs, at most one per query tile.  MViT-v2-S at 18 clips on
+    an H100 (132 SMs): 4 at block 0 (4 key tiles x 18 slices), 2 at block 2
+    (4 x 36), 1 at every later block (4 x 72 or 13 x 72 already fill it)
+    and at block 1 (13 x 36)."""
+    ctas = -(-(kn + 1) // KM) * bh
+    want = -(-CTAS_PER_SM * sms // ctas)
+    return max(1, min(want, -(-qn // BM)))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_buffers(q, k, kc, rel, b, heads, splits):
+    """delta, the gradients (dq, dk, dv, dkc, dvc, drel) and the key-major
+    workspace (None with one chunk) of one backward call."""
+    dev = q.device
     delta = torch.empty((b, heads, q.shape[1]), dtype=torch.float32,
-                        device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dkc, dvc, drel = (torch.empty_like(kc), torch.empty_like(vc),
-                      torch.empty_like(rel))
-    _launch(fn, kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kc.data_ptr(), vc.data_ptr(), rel.data_ptr(),
-            *(t.data_ptr() for t in saved), g.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dkc.data_ptr(), dvc.data_ptr(), drel.data_ptr(), b, heads,
-            q.shape[1], k.shape[1], *k_shape, _DTYPES[q.dtype], float(scale))
-    return dq, dk, dv, dkc, dvc, drel
+                        device=dev)
+    grads = tuple(torch.empty_like(t) for t in (q, k, k, kc, kc, rel))
+    work = (torch.empty((2, splits, b * heads, k.shape[1] + 1,
+                         q.shape[2] // heads), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    return delta, grads, work
+
+
+def _splits(q, k, b, heads) -> int:
+    if q.dtype != torch.bfloat16:
+        return 1
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return key_splits(b * heads, q.shape[1], k.shape[1], sms)
+
+
+def _bwd_kernel(variant, kernel, q, k, v, kc, vc, rel, g, k_shape, b, heads,
+                scale, out=None, stats=None, probs=None, splits=None
+                ) -> Grads:
+    """Launch the backward of ``variant`` with the forward's residuals
+    (``stats``: l for K5b/K6b and K5bd/K6bd, lse for K7b; ``out`` for K7b
+    and K5bd/K6bd; ``probs`` for K6bs) and ``splits`` query chunks of the
+    key-major pass (default :func:`key_splits`)."""
+    saved = tuple(t for t in (out, stats, probs) if t is not None)
+    _check_kernel((q, k, v, kc, vc, rel, g, *saved), heads, k_shape)
+    splits = _splits(q, k, b, heads) if splits is None else splits
+    delta, grads, work = _bwd_buffers(q, k, kc, rel, b, heads, splits)
+    _launch("mvit_attention_bwd", kernel, q, variant, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            rel.data_ptr(), _ptr(out), _ptr(stats), _ptr(probs), g.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in grads), _ptr(work), b,
+            heads, q.shape[1], k.shape[1], *k_shape, q.shape[2] // heads,
+            splits, _DTYPES[q.dtype], float(scale))
+    return grads
+
+
+def bwd_split_times(variant, q, k, v, kc, vc, rel, out, stats, probs, g,
+                    k_shape, num_heads=None, splits=None, reps: int = 20):
+    """Timing only (bf16 CUDA tensors): (query-major ms, key-major ms with
+    its reduction, [CTAs per SM, registers and local bytes of the two
+    kernels]) of the backward of ``variant`` (head-last with ``num_heads``,
+    head-split without), each pass launched ``reps`` times between CUDA
+    events.  The launches are not counted."""
+    import ctypes
+
+    k_shape = tuple(k_shape)
+    b, heads = (q.shape[0], num_heads) if num_heads else (q.shape[0], 1)
+    _check_kernel((q, k, v, kc, vc, rel, g), heads, k_shape)
+    splits = _splits(q, k, b, heads) if splits is None else splits
+    delta, grads, work = _bwd_buffers(q, k, kc, rel, b, heads, splits)
+    ms = (ctypes.c_float * 2)()
+    info = (ctypes.c_int * 6)()
+    lib = _build.load("mvit_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.mvit_attention_bwd_time(
+            variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), rel.data_ptr(), _ptr(out), _ptr(stats),
+            _ptr(probs), g.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in grads), _ptr(work), splits, b, heads,
+            q.shape[1], k.shape[1], *k_shape, q.shape[2] // heads,
+            (q.shape[2] // heads) ** -0.5, reps, ctypes.addressof(ms),
+            ctypes.addressof(info), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "mvit_attention_bwd_time")
+    return ms[0], ms[1], list(info)
 
 
 def _check_bwd(q, rowsum, g, heads: int) -> None:
@@ -471,8 +577,8 @@ def _check_out(q, out) -> None:
 
 def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5f: head-last pooled attention, q [B, qN, H*96] (float32 or
-    bfloat16, contiguous) -> (out [B, qN, H*96], rowsum [B, H, qN] fp32)."""
+    """K5f: head-last pooled attention, q [B, qN, H*d] (float32 or
+    bfloat16, contiguous) -> (out [B, qN, H*d], rowsum [B, H, qN] fp32)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     if q.device.type == "cpu":
@@ -485,21 +591,20 @@ def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
 def mvit_attention_hl_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape,
                           num_heads, scale) -> Grads:
     """K5b: (dq, dk, dv, dkc, dvc, drel) of the head-last layout from the
-    K5f row sums and the output gradient g [B, qN, H*96]."""
+    K5f row sums and the output gradient g [B, qN, H*d]."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     _check_bwd(q, rowsum, g, num_heads)
     if q.device.type == "cpu":
         return mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
                                            k_shape, num_heads, scale)
-    return _bwd_kernel("mvit_attention_bwd", KERNEL_HL_BWD, q, k, v, kc, vc,
-                       rel, (rowsum,), g, k_shape, q.shape[0], num_heads,
-                       scale)
+    return _bwd_kernel(RECOMPUTE, KERNEL_HL_BWD, q, k, v, kc, vc, rel, g,
+                       k_shape, q.shape[0], num_heads, scale, stats=rowsum)
 
 
 def mvit_attention_hl_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g,
                                 k_shape, num_heads, scale) -> Grads:
-    """K5bd: K5b from the K5f row sums and output ``out`` [B, qN, H*96],
+    """K5bd: K5b from the K5f row sums and output ``out`` [B, qN, H*d],
     with D = sum_d g o."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
@@ -509,15 +614,15 @@ def mvit_attention_hl_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g,
         return mvit_attention_hl_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum,
                                                  out, g, k_shape, num_heads,
                                                  scale)
-    return _bwd_kernel("mvit_attention_bwd_delta", KERNEL_HL_BWD_DELTA, q, k,
-                       v, kc, vc, rel, (out, rowsum), g, k_shape, q.shape[0],
-                       num_heads, scale)
+    return _bwd_kernel(DELTA, KERNEL_HL_BWD_DELTA, q, k, v, kc, vc, rel, g,
+                       k_shape, q.shape[0], num_heads, scale, out=out,
+                       stats=rowsum)
 
 
 def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6f: head-split pooled attention, q [BH, qN, 96] -> (out
-    [BH, qN, 96], rowsum [BH, 1, qN] fp32)."""
+    """K6f: head-split pooled attention, q [BH, qN, d] -> (out
+    [BH, qN, d], rowsum [BH, 1, qN] fp32)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
     if q.device.type == "cpu":
@@ -535,13 +640,13 @@ def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale
     if q.device.type == "cpu":
         return mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
                                         k_shape, scale)
-    return _bwd_kernel("mvit_attention_bwd", KERNEL_BWD, q, k, v, kc, vc, rel,
-                       (rowsum,), g, k_shape, q.shape[0], 1, scale)
+    return _bwd_kernel(RECOMPUTE, KERNEL_BWD, q, k, v, kc, vc, rel, g,
+                       k_shape, q.shape[0], 1, scale, stats=rowsum)
 
 
 def mvit_attention_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g, k_shape,
                              scale) -> Grads:
-    """K6bd: K6b from the K6f row sums and output ``out`` [BH, qN, 96],
+    """K6bd: K6b from the K6f row sums and output ``out`` [BH, qN, d],
     with D = sum_d g o."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
@@ -550,16 +655,15 @@ def mvit_attention_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g, k_shape,
     if q.device.type == "cpu":
         return mvit_attention_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum,
                                               out, g, k_shape, scale)
-    return _bwd_kernel("mvit_attention_bwd_delta", KERNEL_BWD_DELTA, q, k, v,
-                       kc, vc, rel, (out, rowsum), g, k_shape, q.shape[0], 1,
-                       scale)
+    return _bwd_kernel(DELTA, KERNEL_BWD_DELTA, q, k, v, kc, vc, rel, g,
+                       k_shape, q.shape[0], 1, scale, out=out, stats=rowsum)
 
 
 def mvit_attention_fwd_probs(q, k, v, kc, vc, rel, k_shape, scale
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K6sp: K6f that also writes the probabilities it multiplies with ->
-    (out [BH, qN, 96], rowsum [BH, 1, qN] fp32, probs [BH, qN, LP] in the
+    (out [BH, qN, d], rowsum [BH, 1, qN] fp32, probs [BH, qN, LP] in the
     input dtype, LP = :func:`probs_stride`, zero past column kN)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
@@ -576,14 +680,14 @@ def mvit_attention_fwd_probs(q, k, v, kc, vc, rel, k_shape, scale
             k.data_ptr(), v.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             rel.data_ptr(), out.data_ptr(), rowsum.data_ptr(),
             probs.data_ptr(), b, 1, qn, k.shape[1], *k_shape,
-            _DTYPES[q.dtype], float(scale))
+            q.shape[2], _DTYPES[q.dtype], float(scale))
     return out, rowsum, probs
 
 
 def mvit_attention_bwd_probs(q, k, v, kc, vc, rel, probs, g, k_shape, scale
                              ) -> Grads:
     """K6bs: the gradients of K6 from K6sp's probabilities [BH, qN, LP] and
-    the output gradient g [BH, qN, 96]; forms no logits."""
+    the output gradient g [BH, qN, d]; forms no logits."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
     want = (q.shape[0], q.shape[1], probs_stride(k.shape[1]))
@@ -594,15 +698,15 @@ def mvit_attention_bwd_probs(q, k, v, kc, vc, rel, probs, g, k_shape, scale
     if q.device.type == "cpu":
         return mvit_attention_bwd_probs_plain(q, k, v, kc, vc, rel, probs, g,
                                               k_shape, scale)
-    return _bwd_kernel("mvit_attention_bwd_probs", KERNEL_BWD_PROBS, q, k, v,
-                       kc, vc, rel, (probs,), g, k_shape, q.shape[0], 1, scale)
+    return _bwd_kernel(SAVED, KERNEL_BWD_PROBS, q, k, v, kc, vc, rel, g,
+                       k_shape, q.shape[0], 1, scale, probs=probs)
 
 
 def mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7f: key-tiled head-last pooled attention with the row-max softmax,
-    q [B, qN, H*96] (float32 or bfloat16, contiguous) -> (out
-    [B, qN, H*96], lse [B, H, qN] fp32)."""
+    q [B, qN, H*d] (float32 or bfloat16, contiguous) -> (out
+    [B, qN, H*d], lse [B, H, qN] fp32)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     if q.device.type == "cpu":
@@ -615,7 +719,7 @@ def mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
 def mvit_attention_kt_bwd(q, k, v, kc, vc, rel, out, lse, g, k_shape,
                           num_heads, scale) -> Grads:
     """K7b: (dq, dk, dv, dkc, dvc, drel) of the head-last layout from the
-    K7f output and lse and the output gradient g [B, qN, H*96]."""
+    K7f output and lse and the output gradient g [B, qN, H*d]."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     _check_bwd(q, lse, g, num_heads)
@@ -623,9 +727,9 @@ def mvit_attention_kt_bwd(q, k, v, kc, vc, rel, out, lse, g, k_shape,
     if q.device.type == "cpu":
         return mvit_attention_kt_bwd_plain(q, k, v, kc, vc, rel, out, lse, g,
                                            k_shape, num_heads, scale)
-    return _bwd_kernel("mvit_attention_kt_bwd", KERNEL_KT_BWD, q, k, v, kc,
-                       vc, rel, (out, lse), g, k_shape, q.shape[0], num_heads,
-                       scale)
+    return _bwd_kernel(ROWMAX, KERNEL_KT_BWD, q, k, v, kc, vc, rel, g,
+                       k_shape, q.shape[0], num_heads, scale, out=out,
+                       stats=lse)
 
 
 def _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale):

@@ -23,11 +23,11 @@ the model calls, on the route of ``ops/attention_route.py``: under grad
 through :class:`SpatialAttention` (K1sp + K1b, the default),
 :class:`SpatialAttentionDelta` (K1sp + K1bd) or
 :class:`SpatialAttentionRecompute` (K1f or K1p + K1br), otherwise straight
-to K1f or K1p; frames of more than 207 tokens go to the key-tiled pair of
-``ops/flash_attention.py`` on every route, which recomputes the
-probabilities where the JAX package saves them (a storage difference of
-the same function).  Bounds, design and the H100 numbers: see the source
-note and ``PERF.md``.
+to K1f or K1p; frames of more than 207 tokens, and every head dim other
+than 64, go to the key-tiled pair of ``ops/flash_attention.py`` on every
+route (:func:`on_pair`), which recomputes the probabilities where the JAX
+package saves them (a storage difference of the same function).  Bounds,
+design and the H100 numbers: see the source note and ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -47,10 +47,10 @@ KERNEL_BWD = "spatial_attention_bwd"
 KERNEL_PIPE = "spatial_attention_fwd_pipe"
 KERNEL_BWD_RECOMPUTE = "spatial_attention_bwd_recompute"
 KERNEL_BWD_DELTA = "spatial_attention_bwd_delta"
-HEAD_DIM = 64
+HEAD_DIM = 64  # the head dim of K1's own kernels
 # n + 1 tokens per frame, every K1 kernel (the backward's shared-memory
-# tile); longer frames take the key-tiled pair of ops/flash_attention.py on
-# every route
+# tile); longer frames, and other head dims, take the key-tiled pair of
+# ops/flash_attention.py on every route
 MAX_LEN = 208
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -476,6 +476,14 @@ class SpatialAttentionRecompute(torch.autograd.Function):
 _warned_pipe_vs_saveprobs = False
 
 
+def on_pair(n: int, head_dim: int) -> bool:
+    """Whether K1's function over N frame tokens of head dim ``head_dim``
+    runs on the key-tiled pair (K1's own kernels take N + 1 <= ``MAX_LEN``
+    at head dim ``HEAD_DIM`` only), decided on the shape before any
+    launch."""
+    return n + 1 > MAX_LEN or head_dim != HEAD_DIM
+
+
 def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
                                num_heads: int, scale: float,
                                route: AttentionRoute = DEFAULT_ROUTE
@@ -485,14 +493,14 @@ def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
     requires it): with ``route.save_probs`` K1sp and K1b, or K1bd with
     ``route.delta``; without, K1f (K1p with ``route.pipe``) and K1br.  No
     grad: K1f, or K1p with ``route.pipe``.  ``save_probs`` with ``pipe``
-    under grad takes K1sp and warns once, as JAX does.  Past
-    ``MAX_LEN`` tokens (N + 1 > 208, where K1's kernels have no
-    geometry) every route takes the key-tiled pair on the fused layout
+    under grad takes K1sp and warns once, as JAX does.  Where K1's kernels
+    have no geometry (:func:`on_pair`: N + 1 > 208, or a head dim other
+    than 64) every route takes the key-tiled pair on the fused layout
     (``ops/flash_attention.py``: its forward for K1f, K1sp and K1p, its
     recompute backward for K1b, K1br and K1bd), chosen on the shape before
     any launch."""
     global _warned_pipe_vs_saveprobs
-    if qkv.shape[1] + 1 > MAX_LEN:
+    if on_pair(qkv.shape[1], qkv.shape[2] // 3 // num_heads):
         return fa.flash_attention_qkv_autograd(qkv, qkv_c, num_heads, scale)
     if not (torch.is_grad_enabled()
             and (qkv.requires_grad or qkv_c.requires_grad)):

@@ -17,7 +17,11 @@ Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`temporal_attention_autograd` is what
 the model calls: under grad it goes through :class:`TemporalAttention` (K2f
 forward, K2b backward), or :class:`TemporalAttentionV3` on the batched
-route.  Bounds, design and the H100 numbers: see the source note and
+route.  K2's kernels take head dim 64; every other head dim runs on the
+key-tiled pair of ``ops/flash_attention.py`` on either route (its forward
+saves the row sums l and its backward recomputes p, where K2v3 saves p: a
+storage difference of the same function), chosen on the shape before any
+launch.  Bounds, design and the H100 numbers: see the source note and
 ``PERF.md``.
 """
 
@@ -28,13 +32,14 @@ from typing import Optional, Tuple
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops import flash_attention as fa
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 
 KERNEL = "temporal_attention_fwd"
 KERNEL_BWD = "temporal_attention_bwd"
 KERNEL_V3 = "temporal_attention_v3_fwd"
 KERNEL_V3_BWD = "temporal_attention_v3_bwd"
-HEAD_DIM = 64
+HEAD_DIM = 64  # the head dim of K2's own kernels
 MAX_T = 16
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -268,7 +273,10 @@ def temporal_attention_autograd(qkv: torch.Tensor, num_heads: int,
     """The model's entry: when grad is enabled and qkv requires it,
     :class:`TemporalAttention` (K2f + K2b), or :class:`TemporalAttentionV3`
     (K2v3f + K2v3b) with ``route.temporal_batched``; otherwise K2f, or
-    K2v3f without its store (JAX takes the v3 forward for the primal too)."""
+    K2v3f without its store (JAX takes the v3 forward for the primal too).
+    A head dim other than 64 takes the key-tiled pair on either route."""
+    if qkv.shape[3] // 3 // num_heads != HEAD_DIM:
+        return fa.flash_attention_temporal_autograd(qkv, num_heads, scale)
     grad = torch.is_grad_enabled() and qkv.requires_grad
     if route.temporal_batched:
         if grad:

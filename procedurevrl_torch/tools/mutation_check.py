@@ -3,10 +3,16 @@ K5f/K6f and K7f missing key columns, K8f missing a halo plane, K8dw
 missing a batch, K1br and K1p without the CLS key, K1bd with delta forced
 to 0, K2v3f without the last key frame (at 8 and at 16 frames), K5bd /
 K6bd with D forced to 0, K6sp storing p without the cls column and K6bs
-reading p without it, and the slice 7 pair (``flash_attention.cu``, K3f /
+reading p without it, the slice 7 pair (``flash_attention.cu``, K3f /
 K4f and K3b / K4b) with a forward that drops the CLS key or the last key
 tile, and a backward that drops the jacobian row sums D or leaves the CLS
-row of dk and dv unwritten.
+row of dk and dv unwritten, and the MViT backward pair (K5b / K6b and its
+variants) with a key-major pass whose last query chunk never reaches the
+sum of the chunks, or that leaves the cls key's row of dk and dv
+unwritten; the pair on K2's time-major layout with each clip's rows
+starting one frame early (``row_of``'s branch for sequences side by side),
+and K5f / K6f at head dim 72 staging q and k without zeros past column 72
+of their 96-wide tiles.
 
     python -m procedurevrl_torch.tools.mutation_check
 
@@ -35,7 +41,16 @@ inside a row of 8), p against ``PROBS_TOL`` and the gradients against
 ``MVIT_GRAD_TOL``; K3f and K3b at L = 197 (the TimeSformer-B training
 batch, 196 frame tokens + CLS) and L = 1025 (1024 + CLS, where the last key
 tile holds only the CLS), out and l against ``FLASH_FWD_TOL`` /
-``ROWSUM_TOL`` and the gradients against ``MVIT_GRAD_TOL``.  For K7, K8, K1, K2 and the slice 6 kernels the mutant
+``ROWSUM_TOL`` and the gradients against ``MVIT_GRAD_TOL``; K5b at block 0
+(its key-major pass split over 4 query chunks on an H100) and at block 4
+over 3 chunks, and K6b at block 1 (one chunk), the gradients against
+``MVIT_GRAD_TOL``; the pair on K2's layout at head dim 32 (24 heads of a
+width of 768, ``chip_smoke.py`` phase 25's shapes: B 18 and 16, T 8, N
+196), out and l against ``BF16_TOL`` (as K2f at these inputs) /
+``ROWSUM_TOL`` and dqkv against
+``MVIT_GRAD_TOL``; K5f at block 0 (B 18, 2 heads of 72) and K6f at block 1
+(B*H 72) of phase 26's MViT-v2-S at width 144, out against
+``MVIT_FWD_TOL`` and the row sums against ``ROWSUM_TOL``.  For K7, K8, K1, K2 and the backward kernels the mutant
 counts as rejected at a shape when a check of that shape fails, as
 ``chip_smoke.py`` then fails.  Each check also runs once on the unmodified
 sources first, which no strict limit may reject.  For every comparison it
@@ -58,10 +73,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 # the keep-mask of the exponentials in the K5/K6 tensor-core logits
-# (``exp_logits8``): columns 0..kN-1 are body keys, column kN the cls key
+# (``logits8<true>``): columns 0..kN-1 are body keys, column kN the cls key
 _MASK = "s[e] = col + (e & 1) <= kn ? exp2f"
-# the keep-mask of K7's logits (``logits8``) and its loop over key tiles
-_KT_MASK = "s[e] = col + (e & 1) <= kn ? fmaf"
+# the keep-mask of K7's logits (``logits8<false>``) and its loop over key
+# tiles
+_KT_MASK = "s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;"
 _KT_TILES = "for (int j0 = 0; j0 < kcols; j0 += BN) {"
 # K8f's bounds check of the input plane t + dt - 1, and K8dw's last position
 _POOL_PLANE = "if (ti < 0 || ti > g.t - 1) continue;"
@@ -75,7 +91,7 @@ _V3_KEYS = "const bool key = 2 * tig + e < frames;"
 _V3_KEYS16 = "const bool key1 = 8 + 2 * tig + (e & 1) < frames;"
 # the D rows of the delta backwards (K5bd, K6bd; K7b shares them), K6sp's
 # store of a p fragment pair, and the tile of saved p K6bs stages
-_D_ROWS = "d_s[threadIdx.x] = acc;"
+_D_ROWS = "dd_s[threadIdx.x] = acc;"
 _P_STORE = "const uint32_t w0 = pa[2 * u], w1 = pa[2 * u + 1];"
 _P_TILE = "if (i0 + r < g.qn && j0 + c < g.pld) {"
 # the slice 7 pair: the forward's clamp of a key chunk and its chunk loop,
@@ -84,6 +100,16 @@ _FA_EXP = "clamp_exp<KC / 8>(e, col0, g.L, scale);"
 _FA_CHUNK = "const int col0 = t * BN + c;\n        if (col0 >= g.L) break;"
 _FA_D = "d0 = quad_sum(d0);\n      d1 = quad_sum(d1);"
 _FA_KROW = "const int j = j0 + warp * 16 + gid + 8 * half;\n    if (j >= g.L) continue;"
+# the MViT backward's key-major pass: the reduction of its query chunks,
+# and the rows it writes (the cls key is row kN)
+_SPLIT_SUM = "for (int s = 0; s < splits; ++s) {"
+_MV_KROW = "const int j = j0 + acc_row(2 * half);\n    if (j > g.kn) continue;"
+# the pair's row address of a sequence with others side by side (K2's
+# layout), and the zero fill past the head dim of the MViT forwards'
+# staged q and k tiles
+_FA_SEQ_ROW = "((unsigned)s / (unsigned)g.seqs) * g.n + j) * ld"
+_MV_Q_FILL = "if (r0 + r < n && e < d) {"
+_MV_K_FILL = "if (j <= kn && e < d) {"
 
 
 @dataclass(frozen=True)
@@ -92,6 +118,7 @@ class Mutant:
     anchor: str   # text planted over, found once in the source
     line: str     # what replaces it
     check: str    # the check run in the copy (a key of CHECKS)
+    more: tuple = ()  # further (anchor, line) edits of the same source
 
 
 MUTANTS = {
@@ -104,7 +131,8 @@ MUTANTS = {
         "s[e] = (col + (e & 1) <= kn && col + (e & 1) != kn - 1) ? exp2f",
         "mvit"),
     "K7f cls column skipped": Mutant(
-        "mvit_attention.cu", _KT_MASK, "s[e] = col + (e & 1) < kn ? fmaf",
+        "mvit_attention.cu", _KT_MASK,
+        "s[e] = col + (e & 1) < kn ? fmaf(qk[e], scale, b[e]) : MASKED;",
         "kt"),
     # kN + 1 = 1569 keys: the last tile holds keys 1536..1567 and the cls
     "K7f ragged last key tile skipped": Mutant(
@@ -140,7 +168,7 @@ MUTANTS = {
         "temporal_attention.cu", _V3_KEYS16,
         "const bool key1 = 8 + 2 * tig + (e & 1) < frames - 1;", "k2v3_16"),
     "K5bd / K6bd delta forced to 0": Mutant(
-        "mvit_attention.cu", _D_ROWS, "d_s[threadIdx.x] = 0.f;", "delta"),
+        "mvit_attention.cu", _D_ROWS, "dd_s[threadIdx.x] = 0.f;", "delta"),
     # a stored word holds columns (c, c + 1), c even: the cls column kN is
     # its low half where kN is even, its high half where kN is odd
     "K6sp cls column left out of the stored p": Mutant(
@@ -155,7 +183,7 @@ MUTANTS = {
         "if (i0 + r < g.qn && j0 + c == g.kn / 8 * 8) { uint4 w = "
         "*reinterpret_cast<const uint4*>(p + (size_t)(i0 + r) * g.pld + j0 "
         "+ c); reinterpret_cast<uint16_t*>(&w)[g.kn % 8] = 0; "
-        "*reinterpret_cast<uint4*>(d) = w; } else "
+        "*reinterpret_cast<uint4*>(t) = w; } else "
         "if (i0 + r < g.qn && j0 + c < g.pld) {", "k6bs"),
     # the CLS is key L - 1 of [frames; cls]
     "K3f / K4f cls key left out": Mutant(
@@ -172,6 +200,25 @@ MUTANTS = {
         "flash_attention.cu", _FA_KROW,
         "const int j = j0 + warp * 16 + gid + 8 * half;\n    "
         "if (j >= g.n) continue;", "flash_bwd"),
+    # the last query chunk's partial dk and dv never reach the sum
+    "K5b / K6b key-major query chunk left out of the reduction": Mutant(
+        "mvit_attention.cu", _SPLIT_SUM, "for (int s = 0; s + 1 < splits; ++s) {",
+        "mvit_split"),
+    "K5b / K6b cls row of dk and dv left unwritten": Mutant(
+        "mvit_attention.cu", _MV_KROW,
+        "const int j = j0 + acc_row(2 * half);\n    if (j >= g.kn) continue;",
+        "mvit_bwd"),
+    # clip b's rows start at b (T - 1) frames: sequences of later clips read
+    # and write frames of the clip before
+    "K2 layout on the pair: a clip's rows one frame early": Mutant(
+        "flash_attention.cu", _FA_SEQ_ROW,
+        "((unsigned)s / (unsigned)g.seqs) * (g.n - 1) + j) * ld",
+        "flash_temporal"),
+    # q and k columns 72..95 read from the next head (or row) into the
+    # logits in place of zeros
+    "K5f / K6f q and k not zeroed past the head dim": Mutant(
+        "mvit_attention.cu", _MV_Q_FILL, "if (r0 + r < n) {", "mvit_d72",
+        ((_MV_K_FILL, "if (j <= kn) {"),)),
 }
 
 
@@ -441,6 +488,46 @@ def _check_k6bs(cs, torch, gen):
                      False)
 
 
+def _mvit_bwd_case(cs, torch, gen, label, head_last, b, heads, qn, k_shape,
+                   splits=None):
+    """K5b (``head_last``) or K6b at one shape, the key-major pass over
+    ``splits`` query chunks (None: the wrappers' own choice), against its
+    plain version."""
+    from procedurevrl_torch.ops import mvit_attention as k5
+
+    scale = 96 ** -0.5
+    x = cs.mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16)
+    if head_last:
+        rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, heads, scale)[1]
+        want = k5.mvit_attention_hl_bwd_plain(*x[:6], rs, x[6], k_shape, heads,
+                                              scale)
+    else:
+        rs = k5.mvit_attention_fwd_plain(*x[:6], k_shape, scale)[1]
+        want = k5.mvit_attention_bwd_plain(*x[:6], rs, x[6], k_shape, scale)
+    got = k5._bwd_kernel(k5.RECOMPUTE, "mutation_check", *x[:6], x[6],
+                         k_shape, b, heads if head_last else 1, scale,
+                         stats=rs, splits=splits)
+    return _judge(cs, torch, label, _grad_pairs(cs, got, want), False)
+
+
+def _check_mvit_split(cs, torch, gen):
+    # the key-major pass over several query chunks: block 0 as the wrapper
+    # splits it (4 chunks on an H100), block 4 over 3 (the wrapper takes 1)
+    yield _mvit_bwd_case(cs, torch, gen, "K5b block 0", True, 18, 1, 25088,
+                         (8, 7, 7))
+    yield _mvit_bwd_case(cs, torch, gen, "K5b block 4, 3 chunks", True, 18,
+                         4, 1568, (8, 7, 7), splits=3)
+
+
+def _check_mvit_bwd(cs, torch, gen):
+    # both ways the key-major pass writes: through the chunk sum (block 0)
+    # and straight from one chunk (block 1)
+    yield _mvit_bwd_case(cs, torch, gen, "K5b block 0", True, 18, 1, 25088,
+                         (8, 7, 7))
+    yield _mvit_bwd_case(cs, torch, gen, "K6b block 1", False, 36, 1, 6272,
+                         (8, 14, 14))
+
+
 # K3 at L = 197 (the training batch) and L = 1025 (the last key tile holds
 # only the CLS)
 FLASH_SHAPES = (("L = 197", 144, 196), ("L = 1025", 16, 1024))
@@ -474,11 +561,52 @@ def _check_flash_bwd(cs, torch, gen):
                                              "dvc"), got, want)], False)
 
 
+def _check_flash_temporal(cs, torch, gen):
+    from procedurevrl_torch.ops import flash_attention as fa
+
+    heads, scale = 24, 32 ** -0.5
+    for label, b in (("training", 18), ("eval", 16)):
+        qkv = torch.randn(b, 8, 196, 3 * 768, generator=gen,
+                          device="cuda").bfloat16()
+        g = torch.randn(b, 8, 196, 768, generator=gen, device="cuda").bfloat16()
+        out, l = fa.flash_attention_temporal_fwd(qkv, heads, scale)
+        ref, ref_l = fa.flash_attention_temporal_fwd_plain(qkv, heads, scale)
+        dqkv = fa.flash_attention_temporal_bwd(qkv, g, ref_l, heads, scale)
+        want = fa.flash_attention_temporal_bwd_plain(qkv, g, heads, scale)
+        yield _judge(cs, torch, label,
+                     [("out", out, ref, cs.BF16_TOL),
+                      ("l", l, ref_l, cs.ROWSUM_TOL),
+                      ("dqkv", dqkv, want, cs.own_tol(cs.MVIT_GRAD_TOL, want))],
+                     False)
+
+
+def _check_mvit_d72(cs, torch, gen):
+    from procedurevrl_torch.ops import mvit_attention as k5
+
+    scale = 72 ** -0.5
+    for label, head_last, b, heads, qn, k_shape in cs.MVIT_D72_BLOCKS:
+        x = cs.mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16,
+                           d=72)
+        if head_last:
+            out, rs = k5.mvit_attention_hl_fwd(*x[:6], k_shape, heads, scale)
+            ref, ref_rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape,
+                                                         heads, scale)
+        else:
+            out, rs = k5.mvit_attention_fwd(*x[:6], k_shape, scale)
+            ref, ref_rs = k5.mvit_attention_fwd_plain(*x[:6], k_shape, scale)
+        yield _judge(cs, torch, label, [("out", out, ref, cs.MVIT_FWD_TOL),
+                                        ("rowsum", rs, ref_rs,
+                                         cs.ROWSUM_TOL)], False)
+
+
 CHECKS = {"mvit": _check_mvit, "kt": _check_kt, "pool": _check_pool,
           "pool_dw": _check_pool_dw, "k1br": _check_k1br, "k1bd": _check_k1bd,
           "k1p": _check_k1p, "k2v3": _check_k2v3, "k2v3_16": _check_k2v3_16,
           "delta": _check_delta, "k6sp": _check_k6sp, "k6bs": _check_k6bs,
-          "flash_fwd": _check_flash_fwd, "flash_bwd": _check_flash_bwd}
+          "flash_fwd": _check_flash_fwd, "flash_bwd": _check_flash_bwd,
+          "mvit_split": _check_mvit_split, "mvit_bwd": _check_mvit_bwd,
+          "flash_temporal": _check_flash_temporal,
+          "mvit_d72": _check_mvit_d72}
 # the sources each check builds
 SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
            "pool": "depthwise_pool", "pool_dw": "depthwise_pool",
@@ -486,7 +614,9 @@ SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
            "k1p": "spatial_attention", "k2v3": "temporal_attention",
            "k2v3_16": "temporal_attention", "delta": "mvit_attention",
            "k6sp": "mvit_attention", "k6bs": "mvit_attention",
-           "flash_fwd": "flash_attention", "flash_bwd": "flash_attention"}
+           "flash_fwd": "flash_attention", "flash_bwd": "flash_attention",
+           "mvit_split": "mvit_attention", "mvit_bwd": "mvit_attention",
+           "flash_temporal": "flash_attention", "mvit_d72": "mvit_attention"}
 
 
 def check_copy(check: str, sound: bool = False) -> int:
@@ -510,7 +640,8 @@ def check_copy(check: str, sound: bool = False) -> int:
 
 def _run_copy(check: str, edit=None, sound: bool = False) -> int:
     """Copy the package and ``chip_smoke.py`` into a temporary directory,
-    apply ``edit`` (source file, anchor, replacement) there and run
+    apply ``edit`` (source file, its (anchor, replacement) pairs) there and
+    run
     ``check`` in the copy; returns its exit code."""
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(ROOT / "procedurevrl_torch",
@@ -518,13 +649,15 @@ def _run_copy(check: str, edit=None, sound: bool = False) -> int:
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", tmp)
         if edit is not None:
-            source, anchor, line = edit
+            source, edits = edit
             cu = Path(tmp) / "procedurevrl_torch" / "csrc" / source
             src = cu.read_text()
-            if src.count(anchor) != 1:
-                raise SystemExit(f"mutation_check: {anchor!r} not found "
-                                 f"once in {source}")
-            cu.write_text(src.replace(anchor, line))
+            for anchor, line in edits:
+                if src.count(anchor) != 1:
+                    raise SystemExit(f"mutation_check: {anchor!r} not found "
+                                     f"once in {source}")
+                src = src.replace(anchor, line)
+            cu.write_text(src)
         return subprocess.run(
             [sys.executable, "-m", "procedurevrl_torch.tools.mutation_check",
              "--in-copy", check] + (["--sound"] if sound else []),
@@ -553,7 +686,7 @@ def main(argv=None) -> int:
     failed = []
     for name, m in mutants.items():
         print(f"mutant: {name}", flush=True)
-        if _run_copy(m.check, (m.source, m.anchor, m.line)):
+        if _run_copy(m.check, (m.source, ((m.anchor, m.line), *m.more))):
             failed.append(name)
     print(f"mutation_check: {len(mutants) - len(failed)} of {len(mutants)} "
           f"mutants rejected at every shape"

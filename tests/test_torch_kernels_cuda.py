@@ -724,7 +724,8 @@ def _flash_inputs(card, dtype, b, n, heads, d, cls, seed=0):
 @pytest.mark.parametrize("cls", [False, True])
 @pytest.mark.parametrize("n,d", [(1, 64), (63, 64), (197, 64), (257, 64),
                                  (1024, 64), (130, 32), (150, 96),
-                                 (200, 128)])
+                                 (200, 128), (197, 16), (100, 48), (197, 80),
+                                 (130, 256)])
 def test_flash_kernels_match_plain(card, dtype, cls, n, d):
     heads, scale = 2, d ** -0.5
     x, g, gc = _flash_inputs(card, dtype, 3, n, heads, d, cls)
@@ -809,9 +810,10 @@ def test_k1_long_range_takes_the_pair(card, n):
 
 
 def test_flash_refuses_what_it_does_not_take(card):
-    x, _, _ = _flash_inputs(card, torch.bfloat16, 2, 20, 2, 80, False)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(*x, 2, 0.125)
+    for d in (12, 264):  # not a multiple of 8; past the widest tile
+        x, _, _ = _flash_inputs(card, torch.bfloat16, 2, 20, 2, d, False)
+        with pytest.raises(ValueError, match="head dims .* up to 256"):
+            fa.flash_attention(*x, 2, 0.125)
     x, _, _ = _flash_inputs(card, torch.bfloat16, 1, 1025, 1, 64, False)
     with pytest.raises(ValueError, match="N <= 1024"):
         fa.flash_attention(*x, 1, 0.125)
@@ -846,3 +848,167 @@ def test_flash_kernels_are_deterministic_on_stale_memory(card, kernel):
             first = outs
         for a, b in zip(outs, first):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------- head dims other than 64 / 96
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_k1_other_head_dims_take_the_pair(card, d):
+    """K1's function at a head dim other than 64 runs the pair on the fused
+    qkv (no K1 kernel) and holds the pair's plain version."""
+    heads, bt, n = 128 // d * 2, 4, 196
+    gen = torch.Generator(device=card).manual_seed(d)
+    c = heads * d
+    r = lambda *s: torch.randn(*s, generator=gen, device=card).bfloat16()
+    qkv, qkv_c, g, gc = r(bt, n, 3 * c), r(bt, 1, 3 * c), r(bt, n, c), r(bt, 1, c)
+    before = dict(_build.LAUNCHES)
+    a = qkv.detach().clone().requires_grad_(True)
+    out, out_c = k1.spatial_attention_autograd(a, qkv_c, heads, d ** -0.5)
+    torch.autograd.backward((out, out_c), (g, gc))
+    delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+             if v != before.get(k, 0)}
+    assert delta == {fa.KERNEL_QKV: 1, fa.KERNEL_QKV_BWD: 1}
+    ro, roc, _ = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(),
+                               **MVIT_FWD_TOLS[torch.bfloat16])
+    dq, _ = fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, heads,
+                                             d ** -0.5)
+    _close_grad(a.grad, dq, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("d,t", [(32, 8), (128, 8), (32, 16)])
+def test_k2_route_takes_the_pair(card, dtype, batched, d, t):
+    """K2's function at a head dim other than 64, on either route, runs the
+    pair on the time-major qkv (no K2 kernel) and holds the pair's plain
+    version."""
+    heads, b, n = 128 // d * 2, 2, 50
+    gen = torch.Generator(device=card).manual_seed(d + t)
+    c = heads * d
+    qkv = torch.randn(b, t, n, 3 * c, generator=gen, device=card).to(dtype)
+    g = torch.randn(b, t, n, c, generator=gen, device=card).to(dtype)
+    before = dict(_build.LAUNCHES)
+    a = qkv.detach().clone().requires_grad_(True)
+    route = k2.AttentionRoute(temporal_batched=batched)
+    out = k2.temporal_attention_autograd(a, heads, d ** -0.5, route)
+    out.backward(g)
+    delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+             if v != before.get(k, 0)}
+    assert delta == {fa.KERNEL_T: 1, fa.KERNEL_T_BWD: 1}
+    ro, _ = fa.flash_attention_temporal_fwd_plain(qkv, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(), **MVIT_FWD_TOLS[dtype])
+    _close_grad(a.grad, fa.flash_attention_temporal_bwd_plain(
+        qkv, g, heads, d ** -0.5), dtype)
+
+
+def _mvit_d_inputs(card, dtype, b, h, qn, k_shape, d, seed=0):
+    """q, k, v, kc, vc, rel, g of a head-last call [B, L, H*d], one query
+    row with logits above 80."""
+    kn, kcat = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape)
+    gen = torch.Generator(device=card).manual_seed(seed + qn + d)
+
+    def r(*shape):
+        return (0.5 * torch.randn(*shape, generator=gen, device=card)).to(dtype)
+
+    c = h * d
+    x = [r(b, qn, c), r(b, kn, c), r(b, kn, c), r(b, 1, c), r(b, 1, c),
+         r(b, qn, h * kcat), r(b, qn, c)]
+    x[0][0, 5] = x[1][0, 3] * 40
+    return x
+
+
+def _fold_heads(t, h):
+    b, n, c = t.shape
+    return t.reshape(b, n, h, c // h).transpose(1, 2).reshape(
+        b * h, n, c // h).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 72, 128])
+def test_mvit_fwd_kernels_at_other_head_dims(card, dtype, d):
+    """K5f, K6f, K6sp and K7f at head dims other than 96 against their
+    plain versions."""
+    k_shape, scale = (2, 8, 8), d ** -0.5
+    x = _mvit_d_inputs(card, dtype, 2, 2, 333, k_shape, d)
+    tol = MVIT_FWD_TOLS[dtype]
+    out, rs = k5.mvit_attention_hl_fwd(*x[:6], k_shape, 2, scale)
+    ref, ref_rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, 2, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(rs, ref_rs, **ROWSUM_TOL)
+    out, lse = k5.mvit_attention_kt_fwd(*x[:6], k_shape, 2, scale)
+    ref, ref_lse = k5.mvit_attention_kt_fwd_plain(*x[:6], k_shape, 2, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+    xs = [_fold_heads(t, 2) for t in x]
+    out, rs, p = k5.mvit_attention_fwd_probs(*xs[:6], k_shape, scale)
+    ref, ref_rs, ref_p = k5.mvit_attention_fwd_probs_plain(*xs[:6], k_shape,
+                                                           scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(p.float(), ref_p.float(), **PROBS_TOLS[dtype])
+    assert torch.equal(out, k5.mvit_attention_fwd(*xs[:6], k_shape, scale)[0])
+
+
+# the backward pair at ragged shapes: qN 333 (not a multiple of 64), kN + 1
+# = 129 (one key past the key-major CTA's 128), and the key-major pass
+# over 1 query chunk or 4 (6 query tiles: chunks of 2, 2, 2 and none)
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("d", [72, 96])
+@pytest.mark.parametrize("variant", ["K5b", "K6b", "K5bd", "K7b", "K6bs"])
+def test_mvit_bwd_pair_at_ragged_shapes(card, variant, d, splits):
+    k_shape, scale, h = (2, 8, 8), d ** -0.5, 2
+    x = _mvit_d_inputs(card, torch.bfloat16, 2, h, 333, k_shape, d)
+    if variant in ("K6b", "K6bs"):
+        x, b, heads = [_fold_heads(t, h) for t in x], 4, 1
+    else:
+        b, heads = 2, h
+    q, k, v, kc, vc, rel, g = x
+    kw = {}
+    if variant == "K7b":
+        out, lse = k5.mvit_attention_kt_fwd_plain(*x[:6], k_shape, h, scale)
+        kw = dict(out=out, stats=lse)
+        want = k5.mvit_attention_kt_bwd_rounded_plain(*x[:6], out, lse, g,
+                                                      k_shape, h, scale)
+        var = k5.ROWMAX
+    elif variant == "K6bs":
+        _, _, p = k5.mvit_attention_fwd_probs_plain(*x[:6], k_shape, scale)
+        kw = dict(probs=p)
+        want = k5.mvit_attention_bwd_probs_plain(*x[:6], p, g, k_shape, scale)
+        var = k5.SAVED
+    elif variant == "K6b":
+        _, rs = k5.mvit_attention_fwd_plain(*x[:6], k_shape, scale)
+        kw = dict(stats=rs)
+        want = k5.mvit_attention_bwd_plain(*x[:6], rs, g, k_shape, scale)
+        var = k5.RECOMPUTE
+    else:
+        out, rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, h, scale)
+        if variant == "K5bd":
+            kw = dict(out=out, stats=rs)
+            want = k5.mvit_attention_hl_bwd_delta_plain(*x[:6], rs, out, g,
+                                                        k_shape, h, scale)
+            var = k5.DELTA
+        else:
+            kw = dict(stats=rs)
+            want = k5.mvit_attention_hl_bwd_plain(*x[:6], rs, g, k_shape, h,
+                                                  scale)
+            var = k5.RECOMPUTE
+    got = k5._bwd_kernel(var, "test", *x[:6], g, k_shape, b, heads, scale,
+                         splits=splits, **kw)
+    for a, r in zip(got, want):
+        _close_grad(a, r, torch.bfloat16)
+
+
+def test_key_splits_fill_the_card(card):
+    """MViT-v2-S at 18 clips: the key-major pass splits block 0's query
+    range (4 key tiles x 18 slices alone fill a fraction of the card) and
+    no other block's."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert k5.key_splits(18, 25088, 392, sms) > 1
+    for bh, qn, kn in ((36, 6272, 1568), (72, 1568, 1568)):
+        assert k5.key_splits(bh, qn, kn, sms) * -(-(kn + 1) // k5.KM) * bh >= sms

@@ -121,8 +121,15 @@ Phases (any failure exits non-zero):
    width 144 in 2 heads of 72 (tile width 96) against their plain versions;
    then phase 9's MViT-v2-S training at that width (3 steps; every block on
    K5 or K6, no other MViT kernel); one step against the plain path.
-The MViT backward pair's two passes are timed apart, and every MViT kernel
-against another checkout, by ``python -m procedurevrl_torch.tools.mvit_ab``.
+27. slice 9: the head dims the tensor-core kernels do not take (their
+   scalar kernels, in column groups past the widest): the pair at d = 12 in
+   32 heads and d = 320 in 2 heads as K4, K3 (``[16, 196, C]``), K1
+   (fused qkv + CLS) and K2 (``[2, 8, 196, 3C]``), and K5f/K5b, K7f/K7b
+   (block 0) and K6f/K6b, K6sp/K6bs (block 1) of MViT-v2-S's token counts
+   at d = 20 and 136 (2 clips), forward and backward against their plain
+   versions, bf16 (the pair also float32).
+The kernels of each attention wrapper are timed apart, and every case
+against another checkout, by ``python -m procedurevrl_torch.tools.kernel_ab``.
 Phases 6 and 7 assert that none of slice 5's kernels runs without the
 knobs, phases 9 and 11 none of slice 6's, and every TimeSformer phase
 before 20 none of slice 7's.
@@ -2258,6 +2265,131 @@ def phase_mvit_d72(torch, k1, k2, k5, k8, _build) -> dict:
     return launches
 
 
+# Phase 27's head dims: the pair's (d, heads), admitted by JAX's
+# _heads_per_block, and the MViT kernels' d; MViT-v2-S blocks 0 (head-last,
+# K5) and 1 (head-split, K6) at 2 clips: (label, head-last, batch, heads,
+# qN, k_shape)
+PAIR_ODD = ((12, 32), (320, 2))
+MVIT_ODD = (20, 136)
+MVIT_ODD_BLOCKS = (("block 0", True, 2, 1, 25088, (8, 7, 7)),
+                   ("block 1", False, 2, 1, 6272, (8, 14, 14)))
+
+
+def check_pair_odd(torch, fa) -> None:
+    """The pair at d = 12 in 32 heads and d = 320 in 2 heads (its scalar
+    kernels; d = 320 in column groups of 256 and 64) on its four callers,
+    forward and backward against the plain versions, bf16 and float32."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for (d, heads), dtype in itertools.product(PAIR_ODD, (torch.bfloat16,
+                                                         torch.float32)):
+        c, scale = heads * d, d ** -0.5
+        fp32 = dtype == torch.float32
+        ftol = FP32_TOL if fp32 else FLASH_FWD_TOL
+
+        def gtol(ref):
+            return grad_tol(FP32_TOL, ref) if fp32 else own_tol(MVIT_GRAD_TOL,
+                                                                 ref)
+
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        tag = f"pair d {d} x {heads} {str(dtype)[6:]}"
+        qkv, qkv_c, g, gc = r(16, 196, 3 * c), r(16, 1, 3 * c), r(16, 196, c), r(16, 1, c)
+        x, xc = list(qkv.split(c, dim=-1)), list(qkv_c.split(c, dim=-1))
+        for name, cls in (("K4", False), ("K3", True)):
+            fwd, _, bwd, plain_fwd, plain_bwd = flash_calls(
+                fa, x + xc if cls else x, g, gc, heads, scale)
+            got, want = fwd(), plain_fwd()
+            for p, a, ref in zip(("out", "outc"), got[:-1], want[:-1]):
+                compare(torch, f"{tag} {name} {p}", a, ref, ftol)
+            compare(torch, f"{tag} {name} l", got[-1], want[-1], ROWSUM_TOL)
+            for p, a, ref in zip(("dq", "dk", "dv", "dqc", "dkc", "dvc"),
+                                 bwd(got[-1]), plain_bwd()):
+                compare(torch, f"{tag} {name} {p}", a, ref, gtol(ref))
+        out, out_c, l = fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale)
+        want = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, heads, scale)
+        for p, a, ref, tol in zip(("out", "out_c", "l"), (out, out_c, l), want,
+                                  (ftol, ftol, ROWSUM_TOL)):
+            compare(torch, f"{tag} K1 {p}", a, ref, tol)
+        for p, a, ref in zip(("dqkv", "dqkv_c"),
+                             fa.flash_attention_qkv_bwd(qkv, qkv_c, g, gc, l,
+                                                        heads, scale),
+                             fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g,
+                                                              gc, heads, scale)):
+            compare(torch, f"{tag} K1 {p}", a, ref, gtol(ref))
+        qkv, g = r(2, 8, 196, 3 * c), r(2, 8, 196, c)
+        out, l = fa.flash_attention_temporal_fwd(qkv, heads, scale)
+        ro, rl = fa.flash_attention_temporal_fwd_plain(qkv, heads, scale)
+        compare(torch, f"{tag} K2 out", out, ro, FP32_TOL if fp32 else BF16_TOL)
+        compare(torch, f"{tag} K2 l", l, rl, ROWSUM_TOL)
+        ref = fa.flash_attention_temporal_bwd_plain(qkv, g, heads, scale)
+        compare(torch, f"{tag} K2 dqkv",
+                fa.flash_attention_temporal_bwd(qkv, g, l, heads, scale), ref,
+                gtol(ref))
+        del qkv, qkv_c, g, gc, x, xc
+
+
+def check_mvit_odd(torch, k5) -> None:
+    """K5f/K5b, K6f/K6b, K6sp/K6bs and K7f/K7b at d = 20 and 136 (the scalar
+    kernels; d = 136 in column groups of 128 and 8) on MViT-v2-S's block 0
+    and 1 token counts, against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(127)
+    for d, (label, head_last, b, heads, qn, k_shape) in itertools.product(
+            MVIT_ODD, MVIT_ODD_BLOCKS):
+        scale = d ** -0.5
+        x = mvit_inputs(torch, gen, b, heads, qn, k_shape, torch.bfloat16, d=d)
+        tag = f"MViT d {d} {label} [{b},{qn},{heads * d}]"
+        if head_last:
+            fwd, fwd_plain = k5.mvit_attention_hl_fwd, k5.mvit_attention_hl_fwd_plain
+            bwd, bwd_plain = k5.mvit_attention_hl_bwd, k5.mvit_attention_hl_bwd_plain
+            hs = (heads,)
+        else:
+            fwd, fwd_plain = k5.mvit_attention_fwd, k5.mvit_attention_fwd_plain
+            bwd, bwd_plain = k5.mvit_attention_bwd, k5.mvit_attention_bwd_plain
+            hs = ()
+        args = (*x[:6], k_shape, *hs, scale)
+        out, rs = fwd(*args)
+        ref, ref_rs = fwd_plain(*args)
+        compare(torch, f"{tag} out", out, ref, MVIT_FWD_TOL)
+        compare(torch, f"{tag} rowsum", rs, ref_rs, ROWSUM_TOL)
+        bargs = (*x[:6], ref_rs, x[6], k_shape, *hs, scale)
+        for p, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                           bwd(*bargs), bwd_plain(*bargs)):
+            compare(torch, f"{tag} {p}", a, r, own_tol(MVIT_GRAD_TOL, r))
+        if head_last:  # K7 takes the head-last layout
+            out, lse = k5.mvit_attention_kt_fwd(*x[:6], k_shape, heads, scale)
+            ref, ref_lse = k5.mvit_attention_kt_fwd_plain(*x[:6], k_shape,
+                                                          heads, scale)
+            compare(torch, f"{tag} K7f out", out, ref, MVIT_FWD_TOL)
+            compare(torch, f"{tag} K7f lse", lse, ref_lse, LSE_TOL)
+            kargs = (*x[:6], ref, ref_lse, x[6], k_shape, heads, scale)
+            for p, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                               k5.mvit_attention_kt_bwd(*kargs),
+                               k5.mvit_attention_kt_bwd_rounded_plain(*kargs)):
+                compare(torch, f"{tag} K7b {p}", a, r, own_tol(MVIT_GRAD_TOL, r))
+        else:  # K6sp / K6bs take the head-split layout
+            out, _, p = k5.mvit_attention_fwd_probs(*x[:6], k_shape, scale)
+            ref, _, ref_p = k5.mvit_attention_fwd_probs_plain(*x[:6], k_shape,
+                                                              scale)
+            compare(torch, f"{tag} K6sp out", out, ref, MVIT_FWD_TOL)
+            compare(torch, f"{tag} K6sp probs", p, ref_p, PROBS_TOL)
+            pargs = (*x[:6], ref_p, x[6], k_shape, scale)
+            for q, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                               k5.mvit_attention_bwd_probs(*pargs),
+                               k5.mvit_attention_bwd_probs_plain(*pargs)):
+                compare(torch, f"{tag} K6bs {q}", a, r, own_tol(MVIT_GRAD_TOL, r))
+        del x, out, ref
+        torch.cuda.empty_cache()
+
+
+def phase_odd_head_dims(torch, fa, k5) -> None:
+    """Slice 9: the head dims the tensor-core kernels do not take, on the
+    pair (:func:`check_pair_odd`) and the MViT kernels
+    (:func:`check_mvit_odd`)."""
+    check_pair_odd(torch, fa)
+    check_mvit_odd(torch, k5)
+
+
 def main() -> int:
     import torch
 
@@ -2293,7 +2425,7 @@ def main() -> int:
           f"{', '.join(report)} (parallel nvcc)")
     for name, rep in report.items():
         for line in rep["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     eval_kernels = [timed("2 K1f", phase_k1, torch, F, k1),
@@ -2394,6 +2526,8 @@ def main() -> int:
             fail(f"{rec['name']} was not launched on the 24-head step")
     timed("26 MViT heads of 72", phase_mvit_d72, torch, k1, k2, k5, k8,
           _build)
+    timed("27 head dims past the tensor cores", phase_odd_head_dims, torch,
+          fa, k5)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
                + long_kernels + head_dim_kernels)

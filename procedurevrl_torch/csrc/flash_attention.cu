@@ -1,6 +1,6 @@
 // Key-tiled softmax attention over one whole sequence per (batch, head),
 // unmasked and non-causal, with an optional CLS stream: the forward and its
-// recompute backward.  One kernel pair serves three callers, told apart only
+// recompute backward.  One kernel pair serves four callers, told apart only
 // by base pointers and row strides:
 //   K4f / K4b  q, k, v [B, N, H*d] (row stride C, or 3C for views of one
 //              fused projection), no CLS;
@@ -43,45 +43,70 @@
 // (~17 us); the backward reads q, k, v, g and writes dq, dk, dv, 305 MB
 // (~91 us), 42.9 GFLOP (~43 us).  Both are bound by bytes; the logits never
 // reach device memory.
-// Design (bf16: mma.sync m16n8k16 with fp32 accumulators, ldmatrix
-// fragments, cp.async staging; fp32: scalar, one warp per row):
-//   * a CTA of 4 warps owns 64 query rows (16 per warp) of one slice, or,
-//     in the backward's key-major pass, 64 keys; the other side is walked
-//     in tiles of 64 rows staged in shared memory, rows past L zero, and
-//     in chunks of 32 inside a tile: chunks and warps wholly past L skip
-//     their tensor-core work;
-//   * forward: a two-stage cp.async ring of k/v tiles.  The clamp needs no
-//     running max and no rescale: the loop only adds l += sum e and
-//     o += e v, and divides once;
-//   * backward, query-major kernel: sweep A sums D_i (and stores it),
-//     sweep B forms ds and accumulates dq; key-major kernel: each CTA walks
-//     every query tile (a two-stage ring) for its 64 keys and accumulates
-//     dk and dv in registers, so no sum crosses CTAs (deterministic, no
-//     atomics);
-//   * the tile width is a template parameter (32, 64, 96, 128, 192, 256);
-//     a head dim d (a multiple of 8) runs on the narrowest width >= d, its
-//     tiles zero past column d, and only d columns are written.
+// Design, bf16 at head dims that are multiples of 8 up to 256 (Hopper
+// warpgroup products, wgmma.cuh; every tile in the core-matrix layout):
+//   * forward: a CTA holds two warpgroups of 64 query rows each; the key
+//     and value tiles are staged once per CTA into a cp.async ring that
+//     both read, of four stages at tile widths up to 64 (three tiles load
+//     under the current one) and two past it; the clamp needs no running
+//     max and no rescale: the loop only adds l += sum e and o += bf16(e) v,
+//     and divides once;
+//   * products: s = q k^T (and dp = g v^T) from shared memory, m64n64k16;
+//     P V, dq += ds k, dk += ds^T q and dv += p^T g with e, ds and p as
+//     register A operands and the other tile as an MN-major B; k-steps
+//     wholly past the sequence are skipped;
+//   * backward, where a slice fits one CTA's shared memory (tile widths up
+//     to 64, L <= 256 at 64; fused_smem): one fused kernel, 7 products per
+//     (query, key) pair: phase D forms s and dp query-major for D_i; phase
+//     K forms s^T and dp^T once more, key-major, sums dk and dv in
+//     registers and keeps bf16 ds^T of the whole slice in shared memory
+//     (at L = 197, 4 x 208 x 64); phase Q forms dq = ds k from it.  The
+//     slice's key and value tiles stay resident, the query and g tiles
+//     stream through a two-stage ring;
+//   * backward elsewhere (wider tiles, longer slices): a query-major
+//     kernel (sweep A over the key tiles sums D_i and stores it, sweep B
+//     forms ds and accumulates dq; two warpgroups, a ring of five stages
+//     that keeps a slice's key tiles resident to L = 320 at d <= 64) and a
+//     persistent key-major kernel (one warpgroup per CTA walks every query
+//     tile for its 64 keys, dk and dv in registers, its next item's key /
+//     value tiles staged under the current one), 9 products per pair;
+//   * no sum crosses CTAs and none runs in a varying order: deterministic,
+//     no atomics;
+//   * short sequences (L <= 64): a slice packs 128 / lp sequences of lp
+//     rows (lp = L rounded up to a power of two, at least 8), so K2's T = 8
+//     frames fill 16 sequences per CTA; the softmax is masked to the block
+//     diagonal and a warpgroup meets only the key (query) tile of its own
+//     rows;
+//   * head dims of 192 and 256 run in two column groups (grid y) of 96 or
+//     128: each CTA forms s (and dp) over all d columns and accumulates and
+//     writes only its group's columns of o (dq, dk, dv); group 0 alone
+//     writes l and D.
+// The scalar kernels take float32 at every head dim and bf16 at the others
+// (d not a multiple of 8, or past 256): one warp per query or key row, fp32
+// arithmetic with the bf16 roundings of the tensor-core path, in column
+// groups of up to 256 (grid y), group 0 writing l and D.
 // A row of e can reach L exp(80) ~ 5.6e37 (finite in fp32), and o's sum of
 // e v stays finite while fewer than ~6000 / max|v| logits reach 80.
-// Measured at the training shape (PERF.md): the forward at 4.3x its bound,
-// the backward at 9x.  Not done yet: wgmma and TMA, 32 query rows per warp,
-// longer-lived CTAs, and fewer recomputations (the backward forms s three
-// times and g v^T twice: ~18 d operations per (query, key) pair against
-// 10 d needed).
+// Measured at the training shape: PERF.md.  Not done yet: TMA and a
+// producer warp, a fused backward for longer slices (ds^T in chunks),
+// key tiles narrower than 64 for a ragged last tile.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace pvrl;
 
-constexpr int BM = 64;   // query rows per tile (4 warps x 16)
-constexpr int BN = 64;   // keys per tile
-constexpr int WARPS = 4;
-constexpr int MAX_L = 1025;  // the JAX rule's 1024 tokens (+ the CLS)
-constexpr int MAX_D = 256;   // the widest tile
+constexpr int BM = 64;        // rows of a warpgroup tile (queries or keys)
+constexpr int WARPS = 4;      // warps of a scalar CTA
+constexpr int MAX_L = 1025;   // the JAX rule's 1024 tokens (+ the CLS)
+constexpr int MAX_TC = 256;   // widest head dim of the tensor-core kernels
+constexpr int SGW = 256;      // widest column group of the scalar kernels
+constexpr int PACK_ROWS = 128;  // rows of a slice of packed sequences
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Where the rows of each tensor group live.  Sequence s = b * seqs + m
@@ -89,14 +114,21 @@ constexpr float LOG2E = 1.4426950408889634f;
 // seqs): a row of ld elements holds the rows of `seqs` sequences side by
 // side (seqs = 1 but for K2's layout).  A CLS tensor [B, 1, *] has its row
 // of sequence s at base + s * ldc.  Head h is columns [h * d, h * d + d) of
-// a sequence's row.
+// a sequence's row.  The tensor-core kernels work on slices: one sequence
+// (pk = 1), or pk > 1 short ones packed, sequence vs * pk + r / lp holding
+// row r of slice vs as its row r % lp.
 struct Geo {
   int n;       // frame rows
   int L;       // n + 1 with the CLS, else n
   int heads;
-  int d;       // head dim (a multiple of 8, at most the tile width HD)
+  int d;       // head dim
   int seqs;    // sequences side by side in a row
-  int tiles;   // row tiles of a slice: ceil(L / 64)
+  int nseq;    // sequences
+  int pk;      // sequences packed into one slice
+  int lp_log;  // log2 of a packed sequence's rows lp (pk > 1)
+  int lv;      // rows of a slice: L, or PACK_ROWS packed
+  int tiles;   // 64-row tiles of a slice
+  int slices;  // slices of one head
   size_t ld_in, ldc_in;   // q, k, v / qc, kc, vc
   size_t ld_g, ldc_g;     // out (forward) or g (backward) / their CLS rows
   size_t ld_d, ldc_d;     // dq, dk, dv / dqc, dkc, dvc
@@ -114,477 +146,835 @@ __device__ __forceinline__ T* row_of(T* x, T* xc, size_t ld, size_t ldc,
          (size_t)m * ((unsigned)ld / (unsigned)g.seqs) + (size_t)h * g.d;
 }
 
-// ------------------------------------------- bf16 (tensor-core) kernels
+// (sequence, row) of row r of slice vs, and whether it exists
+struct Row {
+  int s, j;
+  bool ok;
+};
+__device__ __forceinline__ Row slice_row(const Geo& g, int vs, int r) {
+  if (g.pk == 1) return Row{vs, r, r < g.L};
+  const int s = vs * g.pk + (r >> g.lp_log), j = r & ((1 << g.lp_log) - 1);
+  return Row{s, j, j < g.L && s < g.nseq};
+}
 
-// rows [r0, r0 + 64) of [frames; cls] into a [64 x (HD + 8)] tile; rows
-// >= L and columns >= d are zero
-template <int HD>
+// the fp32 row statistic (l, D) of slice row r: stats [nseq, heads, L]
+__device__ __forceinline__ size_t stat_index(const Geo& g, const Row& R,
+                                             int h) {
+  return ((size_t)R.s * g.heads + h) * g.L + R.j;
+}
+
+// ------------------------------------- bf16 (tensor-core, wgmma) kernels
+
+// this thread's warpgroup, broadcast from lane 0 so that the compiler sees
+// a warp-uniform value: a branch on it around the warpgroup products is then
+// not divergent (ptxas would otherwise serialize every wgmma, C7520)
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+}
+
+__host__ __device__ constexpr int group_width(int W) {
+  return W > 128 ? W / 2 : W;
+}
+
+// rows [r0, r0 + 64) of slice vs, head columns [c0, c0 + W), into a
+// core-matrix tile of width W; rows past the slice and columns past d zero
+template <int W>
 __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* x,
                                       const uint16_t* xc, size_t ld,
-                                      size_t ldc, const Geo& g, int b, int h,
-                                      int r0) {
-  constexpr int SD = HD + 8, CH = HD / 8;
-  for (int idx = threadIdx.x; idx < BM * CH; idx += blockDim.x) {
-    const int r = idx / CH, e = 8 * (idx % CH), j = r0 + r;
-    uint16_t* d = dst + r * SD + e;
-    if (j < g.L && e < g.d) {
-      cp_async16(d, row_of(x, xc, ld, ldc, g, b, h, j) + e);
+                                      size_t ldc, const Geo& g, int vs, int h,
+                                      int r0, int c0) {
+  for (int idx = threadIdx.x; idx < BM * W / 8; idx += blockDim.x) {
+    int r, c;
+    chunk_rc<W>(idx, r, c);
+    const Row R = slice_row(g, vs, r0 + r);
+    uint16_t* t = dst + idx * 8;
+    if (R.ok && c0 + c < g.d) {
+      cp_async16(t, row_of(x, xc, ld, ldc, g, R.s, h, R.j) + c0 + c);
     } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(t) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-// A fragments of rows [row0, row0 + 16) over STEPS 16-column steps
-template <int STEPS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[STEPS][4],
-                                       const uint16_t* tile, int stride,
-                                       int row0) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, ltile = lane >> 3;
-#pragma unroll
-  for (int ks = 0; ks < STEPS; ++ks)
-    ldsm_x4(a[ks], tile + (row0 + (ltile & 1) * 8 + lrow) * stride + ks * 16 +
-                       (ltile >> 1) * 8);
+// whether key column c of tile kt enters the softmax of a query of row r
+// (both within their 64-row tiles): the key exists, and, packed, it belongs
+// to the query's sequence (then kt is the query's own tile)
+__device__ __forceinline__ bool key_in(const Geo& g, int vs, int kt, int r,
+                                       int c) {
+  if (g.pk == 1) return kt * BM + c < g.L;
+  return (r >> g.lp_log) == (c >> g.lp_log) &&
+         slice_row(g, vs, kt * BM + c).ok;
 }
 
-// s[nb] = A (16 x 16*KS) times rows [n0 + 8 nb, n0 + 8 nb + 8) of `tile`
-// taken as the column-major B operand (n = tile row, k = tile column), for
-// NB blocks of 8 rows.  The k-step loop is outside the block loop, so the
-// NB accumulator chains are independent.
-template <int KS, int NB>
-__device__ __forceinline__ void mma_blocks(float (&s)[NB][4],
-                                           const uint32_t (&a)[KS][4],
-                                           const uint16_t* tile, int stride,
-                                           int n0) {
-  static_assert(KS % 2 == 0, "head dims are multiples of 32");
-  const int lane = threadIdx.x & 31, lrow = lane & 7, ltile = lane >> 3;
-  const uint16_t* p = tile + (n0 + lrow) * stride + ltile * 8;
+// k-step kk (16 rows) of tile t holds rows of the slice
+__device__ __forceinline__ bool kstep_in(const Geo& g, int t, int kk) {
+  return t * BM + 16 * kk < g.lv;
+}
+
+// Issue t = C D^T and s = A B^T (tiles of width W, K-major) as one group
+template <int W>
+__device__ __forceinline__ void issue_logits_dp(float (&s)[32], float (&t)[32],
+                                                const uint16_t* a_s,
+                                                const uint16_t* b_s,
+                                                const uint16_t* c_s,
+                                                const uint16_t* d_s) {
+  // defined before the fence: an accumulator a plain instruction defines
+  // inside the group would serialize the group's products
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = t[i] = 0.f;
+  wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < KS; ks += 2) {
-    uint32_t b[NB][4];
+  for (int ks = 0; ks < W / 16; ++ks)
+    wgmma_ss64(s, kmajor<W>(a_s, ks), kmajor<W>(b_s, ks), ks > 0);
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) ldsm_x4(b[nb], p + nb * 8 * stride + ks * 16);
+  for (int ks = 0; ks < W / 16; ++ks)
+    wgmma_ss64(t, kmajor<W>(c_s, ks), kmajor<W>(d_s, ks), ks > 0);
+  wgmma_commit();
+}
+
+// acc (64 x N) = A B (first) or += A B over the k-steps of tile t (64 rows
+// of K) that hold slice rows: A the register operand rounded from a 64 x 64
+// accumulator, B N columns of an MN-major tile of width TW.  The first
+// product overwrites acc, so no plain instruction defines it.
+template <int N, int TW>
+__device__ __forceinline__ void accumulate(float (&acc)[N / 2],
+                                           const float (&x)[32],
+                                           const uint16_t* b_s, bool first,
+                                           const Geo& g, int t) {
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) mma_16816(s[nb], a[ks], b[nb][0], b[nb][1]);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) mma_16816(s[nb], a[ks + 1], b[nb][2], b[nb][3]);
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk > 0 && !kstep_in(g, t, kk)) break;
+    uint32_t a[4];
+    acc_to_a(a, x, kk);
+    wgmma_rs<N>(acc, a, mnmajor<TW>(b_s, kk), kk > 0 || !first);
   }
 }
 
-// acc[0..NT) += A (16 x 16) times rows [k0, k0 + 16) x columns [0, 8*NT)
-// of `tile` (k = tile row, n = tile column)
-template <int NT>
-__device__ __forceinline__ void mma_cols(float (&acc)[NT][4],
-                                         const uint32_t (&a)[4],
-                                         const uint16_t* tile, int stride,
-                                         int k0) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, ltile = lane >> 3;
-  const uint16_t* p = tile + (k0 + (ltile & 1) * 8 + lrow) * stride +
-                      (ltile >> 1) * 8;
+// stages of a ring of tiles: four at tile widths up to 64 (three tiles in
+// flight under the current one), two past it (shared memory)
+__host__ __device__ constexpr int ring_stages(int W) { return W <= 64 ? 4 : 2; }
+
+template <int W>
+constexpr size_t fwd_smem() {
+  return (size_t)(2 * BM * W + ring_stages(W) * (BM * W + BM * group_width(W))) *
+         2;
+}
+
+// The clamp exp of a 64 x 64 logit tile s (accumulator layout) of key tile
+// kt, in place, multiplied by c0, c1 after (rows acc_row(0), acc_row(2));
+// with ROWSUM its terms are added to the row sums l0, l1: e = exp(min(s
+// scale, 80)).
+// A tile wholly inside the slice takes no mask; in the last one, 8-key
+// blocks past it are zero without an exp.
+template <bool ROWSUM>
+__device__ __forceinline__ void clamp_exp(float (&s)[32], const Geo& g, int vs,
+                                          int kt, float scale, float c0,
+                                          float c1, float& l0, float& l1) {
+  const bool full = g.pk == 1 && (kt + 1) * BM <= g.L;
 #pragma unroll
-  for (int nt = 0; nt < NT; nt += 2) {
-    uint32_t b[4];
-    ldsm_x4_t(b, p + nt * 8);
-    mma_16816(acc[nt], a, b[0], b[1]);
-    mma_16816(acc[nt + 1], a, b[2], b[3]);
+  for (int j = 0; j < 8; ++j) {
+    const bool past = g.pk == 1 && kt * BM + 8 * j >= g.L;  // warp-uniform
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = 0.f;
+      if (full || (!past && key_in(g, vs, kt, acc_row(e), acc_col(j, e))))
+        x = exp2f(fminf(s[4 * j + e] * scale, CLAMP_HI) * LOG2E);
+      if (ROWSUM) (e < 2 ? l0 : l1) += x;
+      s[4 * j + e] = x * (e < 2 ? c0 : c1);
+    }
   }
 }
 
-// logits s (accumulator layout) of NB blocks of 8 keys from column col0 ->
-// e = exp(min(s * scale, 80)), zero for keys past the sequence
-template <int NB>
-__device__ __forceinline__ void clamp_exp(float (&s)[NB][4], int col0, int L,
-                                          float scale) {
-  const int col = col0 + 2 * (threadIdx.x & 3);
+// the jacobian row sums D_i += sum_j dp_ij p_ij over a query-major tile,
+// this thread's two rows
+__device__ __forceinline__ void add_jacobian_rows(float& d0, float& d1,
+                                                  const float (&p)[32],
+                                                  const float (&dp)[32]) {
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      s[nb][u] = col + nb * 8 + (u & 1) < L
-                     ? exp2f(fminf(s[nb][u] * scale, CLAMP_HI) * LOG2E)
-                     : 0.f;
+  for (int j = 0; j < 8; ++j) {
+    d0 += dp[4 * j] * p[4 * j] + dp[4 * j + 1] * p[4 * j + 1];
+    d1 += dp[4 * j + 2] * p[4 * j + 2] + dp[4 * j + 3] * p[4 * j + 3];
+  }
 }
 
-// the A fragment of 16 keys (blocks 2 kk and 2 kk + 1 of x) as bf16 pairs
-template <int NB>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[NB][4],
-                                       int kk) {
-  a[0] = pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+// p^T and ds^T = p^T (dp^T - D) in place of the key-major tiles s^T and
+// dp^T: rows 64 keys, columns 64 queries whose 1 / l and D are li_s[c],
+// d_s[c]; packed, a key meets only the queries of its own sequence (p = ds
+// = 0 for the others).  Keys past the slice are zero rows of k and v: their
+// ds multiplies zeros in dq, and their dk, dv rows are not written.
+__device__ __forceinline__ void key_major_ds(float (&s)[32], float (&dp)[32],
+                                             const float* li_s,
+                                             const float* d_s, const Geo& g,
+                                             float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // 1 / l and D of this thread's two query columns of block j
+    const int i0 = acc_col(j, 0);
+    const float2 li = *reinterpret_cast<const float2*>(li_s + i0);
+    const float2 dd = *reinterpret_cast<const float2*>(d_s + i0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = g.pk == 1 ||
+                      (acc_row(e) >> g.lp_log) == ((i0 + (e & 1)) >> g.lp_log);
+      const float p =
+          in ? exp2f(fminf(s[4 * j + e] * scale, CLAMP_HI) * LOG2E) *
+                   ((e & 1) ? li.y : li.x)
+             : 0.f;
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+    }
+  }
 }
 
-// The other side of a tile is walked in chunks of KC = 32 rows (4 blocks of
-// 8): a chunk past the sequence is skipped, and so is a warp whose 16 rows
-// all lie past it, so that L = 197 costs 208 x 224 of tensor-core work, not
-// the 256 x 256 of whole tiles.
-constexpr int KC = 32;
+// dk = scale acc_k and dv = acc_v of key tile kt of slice vs, columns c0 ..
+// c0 + G of head h
+template <int G>
+__device__ __forceinline__ void store_kv(const float (&acc_k)[G / 2],
+                                         const float (&acc_v)[G / 2],
+                                         uint16_t* dk, uint16_t* dv,
+                                         uint16_t* dkc, uint16_t* dvc,
+                                         const Geo& g, int vs, int h, int kt,
+                                         int c0, float scale) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const Row R = slice_row(g, vs, kt * BM + acc_row(2 * half));
+    if (!R.ok) continue;
+    uint16_t* kd = row_of(dk, dkc, g.ld_d, g.ldc_d, g, R.s, h, R.j) + c0;
+    uint16_t* vd = row_of(dv, dvc, g.ld_d, g.ldc_d, g, R.s, h, R.j) + c0;
+#pragma unroll
+    for (int j = 0; j < G / 8; ++j) {
+      const int c = acc_col(j, 0);
+      if (c0 + c >= g.d) continue;
+      *reinterpret_cast<uint32_t*>(kd + c) =
+          pack_bf16x2(acc_k[4 * j + 2 * half] * scale,
+                      acc_k[4 * j + 2 * half + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vd + c) =
+          pack_bf16x2(acc_v[4 * j + 2 * half], acc_v[4 * j + 2 * half + 1]);
+    }
+  }
+}
 
-template <int HD>
-constexpr size_t fwd_smem() { return (size_t)(BM + 4 * BN) * (HD + 8) * 2; }
+// dq = scale acc of query tile qt of slice vs, columns c0 .. c0 + G of
+// head h
+template <int G>
+__device__ __forceinline__ void store_q(const float (&acc)[G / 2],
+                                        uint16_t* dq, uint16_t* dqc,
+                                        const Geo& g, int vs, int h, int qt,
+                                        int c0, float scale) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const Row R = slice_row(g, vs, qt * BM + acc_row(2 * half));
+    if (!R.ok) continue;
+    uint16_t* dst = row_of(dq, dqc, g.ld_d, g.ldc_d, g, R.s, h, R.j) + c0;
+#pragma unroll
+    for (int j = 0; j < G / 8; ++j) {
+      const int c = acc_col(j, 0);
+      if (c0 + c < g.d)
+        *reinterpret_cast<uint32_t*>(dst + c) =
+            pack_bf16x2(acc[4 * j + 2 * half] * scale,
+                        acc[4 * j + 2 * half + 1] * scale);
+    }
+  }
+}
 
-// Forward: out (and l, where rowsum is given) of one 64-row query tile,
-// k / v tiles in a two-stage cp.async ring.
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
-              const uint16_t* __restrict__ kc,
-              const uint16_t* __restrict__ vc, uint16_t* __restrict__ out,
-              uint16_t* __restrict__ outc, float* __restrict__ rowsum, Geo g,
-              float scale) {
-  constexpr int SD = HD + 8, KS = HD / 16, DT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// Forward: out (and l, where rowsum is given) of the query tiles 2 x and
+// 2 x + 1 of one slice (the CTA's two warpgroups), columns group y; the
+// key / value tiles in a ring of ring_stages(W) stages.
+template <int W>
+__global__ void __launch_bounds__(256)
+flash_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+             const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
+             const uint16_t* __restrict__ kc, const uint16_t* __restrict__ vc,
+             uint16_t* __restrict__ out, uint16_t* __restrict__ outc,
+             float* __restrict__ rowsum, Geo g, float scale) {
+  constexpr int G = group_width(W), STAGE = BM * W + BM * G;
+  constexpr int S = ring_stages(W);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* ring = q_s + BM * SD;  // stage s: k at ring + 2 s BN SD, v after
-  const int bh = blockIdx.x / g.tiles, i0 = (blockIdx.x % g.tiles) * BM;
-  const int b = bh / g.heads, h = bh % g.heads;
+  uint16_t* ring = q_s + 2 * BM * W;  // stage s: k at ring + s STAGE, v after
+  const int qblocks = (g.tiles + 1) / 2;
+  const int qb = blockIdx.x % qblocks, sh = blockIdx.x / qblocks;
+  const int h = sh % g.heads, vs = sh / g.heads;
+  const int c0 = blockIdx.y * G;  // this CTA's columns of o
+  const int wg = warpgroup(), qt = 2 * qb + wg;
+  const bool active = qt < g.tiles;  // warp-uniform
 
-  stage<HD>(q_s, q, qc, g.ld_in, g.ldc_in, g, b, h, i0);
-  stage<HD>(ring, k, kc, g.ld_in, g.ldc_in, g, b, h, 0);
-  stage<HD>(ring + BN * SD, v, vc, g.ld_in, g.ldc_in, g, b, h, 0);
-  cp_async_commit();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bool active = i0 + warp * 16 < g.L;  // warp-uniform
-  uint32_t qa[KS][4];
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int w = 0; w < 2; ++w)
+    stage<W>(q_s + w * BM * W, q, qc, g.ld_in, g.ldc_in, g, vs, h,
+             (2 * qb + w) * BM, 0);
+  // key tile t into stage t % S (one commit group per tile, empty past the
+  // slice, so that group t holds tile t)
+  auto stage_kv = [&](int t) {
+    if (t < g.tiles) {
+      uint16_t* st = ring + (t % S) * STAGE;
+      stage<W>(st, k, kc, g.ld_in, g.ldc_in, g, vs, h, t * BM, 0);
+      stage<G>(st + BM * W, v, vc, g.ld_in, g.ldc_in, g, vs, h, t * BM, c0);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t + 1 < S; ++t) stage_kv(t);
+
+  const uint16_t* qa = q_s + wg * BM * W;
+  float o[G / 2];  // written by the first P V product
   float l0 = 0.f, l1 = 0.f;
+  bool first = true;
   for (int t = 0; t < g.tiles; ++t) {
-    if (t + 1 < g.tiles) {  // the next key tile into the other stage
-      uint16_t* nxt = ring + ((t + 1) & 1) * 2 * BN * SD;
-      stage<HD>(nxt, k, kc, g.ld_in, g.ldc_in, g, b, h, (t + 1) * BN);
-      stage<HD>(nxt + BN * SD, v, vc, g.ld_in, g.ldc_in, g, b, h, (t + 1) * BN);
-      cp_async_commit();
-      cp_async_wait_pending(1);
-    } else {
-      cp_async_wait_pending(0);
-    }
+    // tile t has landed and every warpgroup is done with tile t - 1: its
+    // stage takes tile t + S - 1, which loads under tiles t .. t + S - 2
+    cp_async_wait_pending(S - 2);
+    fence_async_smem();
     __syncthreads();
-    if (active) {
-      if (t == 0) load_a<KS>(qa, q_s, SD, warp * 16);
-      const uint16_t* k_s = ring + (t & 1) * 2 * BN * SD;
-      const uint16_t* v_s = k_s + BN * SD;
+    stage_kv(t + S - 1);
+    if (!active || (g.pk > 1 && t != qt)) continue;
+    const uint16_t* k_s = ring + (t % S) * STAGE;
+    const uint16_t* v_s = k_s + BM * W;
+    float s[32];
 #pragma unroll
-      for (int c = 0; c < BN; c += KC) {
-        const int col0 = t * BN + c;
-        if (col0 >= g.L) break;
-        float e[KC / 8][4];
-        mma_blocks<KS, KC / 8>(e, qa, k_s, SD, c);
-        clamp_exp<KC / 8>(e, col0, g.L, scale);
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-        for (int nb = 0; nb < KC / 8; ++nb) {
-          l0 += e[nb][0] + e[nb][1];
-          l1 += e[nb][2] + e[nb][3];
-        }
-#pragma unroll
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          if (col0 + kk * 16 >= g.L) break;
-          uint32_t pa[4];
-          pack_a(pa, e, kk);
-          mma_cols<DT>(o, pa, v_s, SD, c + kk * 16);
-        }
-      }
-    }
-    __syncthreads();  // this stage is consumed before it is refilled
+    for (int ks = 0; ks < W / 16; ++ks)
+      wgmma_ss64(s, kmajor<W>(qa, ks), kmajor<W>(k_s, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    clamp_exp<true>(s, g, vs, t, scale, 1.f, 1.f, l0, l1);
+    wgmma_fence();
+    accumulate<G, G>(o, s, v_s, first, g, t);
+    wgmma_commit();
+    // complete before the loop moves on: no accumulator of a group in
+    // flight crosses the loop's back edge
+    wgmma_wait<0>();
+    fence_regs(o);
+    first = false;
   }
+  if (!active) return;
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = i0 + warp * 16 + gid + 8 * half;
-    if (r >= g.L) continue;
+    const Row R = slice_row(g, vs, qt * BM + acc_row(2 * half));
+    if (!R.ok) continue;
     const float l = half ? l1 : l0, inv = 1.f / l;
-    uint16_t* dst = row_of(out, outc, g.ld_g, g.ldc_g, g, b, h, r) + 2 * tig;
+    uint16_t* dst = row_of(out, outc, g.ld_g, g.ldc_g, g, R.s, h, R.j) + c0;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      if (dt * 8 < g.d)
-        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-          pack_bf16x2(o[dt][2 * half] * inv, o[dt][2 * half + 1] * inv);
-    if (rowsum != nullptr && tig == 0) rowsum[(size_t)bh * g.L + r] = l;
+    for (int j = 0; j < G / 8; ++j) {
+      const int c = acc_col(j, 0);
+      if (c0 + c < g.d)
+        *reinterpret_cast<uint32_t*>(dst + c) = pack_bf16x2(
+            o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+    }
+    if (rowsum != nullptr && blockIdx.y == 0 && (threadIdx.x & 3) == 0)
+      rowsum[stat_index(g, R, h)] = l;
   }
 }
 
-// both backward kernels: the query-major one holds four tiles, the
-// key-major one two resident tiles, a two-stage ring of two more and two
-// stages of 64 floats twice (its 1 / l and D)
-template <int HD>
+// warpgroups of a query-major CTA: two (one at tile width 256, for shared
+// memory)
+__host__ __device__ constexpr int bwd_wgs(int W) { return W > 192 ? 1 : 2; }
+
+// the query-major kernel: per warpgroup two resident tiles, q_ring_stages(W)
+// stages of two tiles
+// stages of the query-major ring: five at tile widths up to 64, so that
+// slices to L = 320 (K1 at N + 1 = 257) keep their key tiles resident
+__host__ __device__ constexpr int q_ring_stages(int W) { return W <= 64 ? 5 : 2; }
+
+template <int W>
 constexpr size_t bwd_smem() {
-  return (size_t)(2 * BM + 4 * BN) * (HD + 8) * 2 + 4 * BM * sizeof(float);
+  return (size_t)(bwd_wgs(W) + q_ring_stages(W)) * 2 * BM * W * 2;
 }
 
-// Query-major backward: D (stored for the key-major pass) and dq of one
-// 64-row query tile: sweep A over the key tiles sums D_i, sweep B forms ds
-// and accumulates dq.
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_q_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v,
-                const uint16_t* __restrict__ qc,
-                const uint16_t* __restrict__ kc,
-                const uint16_t* __restrict__ vc,
-                const uint16_t* __restrict__ gr,
-                const uint16_t* __restrict__ gc,
-                const float* __restrict__ rowsum, float* __restrict__ delta,
-                uint16_t* __restrict__ dq, uint16_t* __restrict__ dqc, Geo g,
-                float scale) {
-  constexpr int SD = HD + 8, KS = HD / 16, DT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* g_s = q_s + BM * SD;
-  uint16_t* k_s = g_s + BM * SD;
-  uint16_t* v_s = k_s + BN * SD;
-  const int bh = blockIdx.x / g.tiles, i0 = (blockIdx.x % g.tiles) * BM;
-  const int b = bh / g.heads, h = bh % g.heads;
+// Query-major backward: D (stored for the key-major pass) and dq, columns
+// group y, of the query tiles of the CTA's warpgroups: sweep A over the key
+// tiles sums D_i, sweep B forms ds and accumulates dq.
+template <int W>
+__global__ void __launch_bounds__(bwd_wgs(W) * 128, W <= 64 ? 2 : 1)
+flash_bwd_q_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+               const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
+               const uint16_t* __restrict__ kc,
+               const uint16_t* __restrict__ vc,
+               const uint16_t* __restrict__ gr,
+               const uint16_t* __restrict__ gc,
+               const float* __restrict__ rowsum, float* __restrict__ delta,
+               uint16_t* __restrict__ dq, uint16_t* __restrict__ dqc, Geo g,
+               float scale) {
+  constexpr int NW = bwd_wgs(W), G = group_width(W), STAGE = 2 * BM * W;
+  constexpr int S = q_ring_stages(W);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint16_t* base = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* ring = base + NW * 2 * BM * W;  // stage s: k at ring + s STAGE, v after
+  const int qblocks = (g.tiles + NW - 1) / NW;
+  const int qb = blockIdx.x % qblocks, sh = blockIdx.x / qblocks;
+  const int h = sh % g.heads, vs = sh / g.heads;
+  const int c0 = blockIdx.y * G;
+  const int wg = warpgroup(), qt = NW * qb + wg;
+  const bool active = qt < g.tiles;
+  const uint16_t* q_s = base + wg * 2 * BM * W;  // this warpgroup's rows
+  const uint16_t* g_s = q_s + BM * W;
 
-  stage<HD>(q_s, q, qc, g.ld_in, g.ldc_in, g, b, h, i0);
-  stage<HD>(g_s, gr, gc, g.ld_g, g.ldc_g, g, b, h, i0);
-  cp_async_wait_all();
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bool active = i0 + warp * 16 < g.L;  // warp-uniform
-  const int r0 = i0 + warp * 16 + gid, r1 = r0 + 8;
-  const float* rs = rowsum + (size_t)bh * g.L;
-  // 1 / l (padding rows: p = 1, and their g is 0)
-  const float c0 = r0 < g.L ? 1.f / rs[r0] : 1.f;
-  const float c1 = r1 < g.L ? 1.f / rs[r1] : 1.f;
-  uint32_t qa[KS][4], ga[KS][4];
-  if (active) {
-    load_a<KS>(qa, q_s, SD, warp * 16);
-    load_a<KS>(ga, g_s, SD, warp * 16);
+  for (int w = 0; w < NW; ++w) {
+    uint16_t* res = base + w * 2 * BM * W;
+    stage<W>(res, q, qc, g.ld_in, g.ldc_in, g, vs, h, (NW * qb + w) * BM, 0);
+    stage<W>(res + BM * W, gr, gc, g.ld_g, g.ldc_g, g, vs, h,
+             (NW * qb + w) * BM, 0);
   }
+  // Steps 0 .. tiles - 1 are sweep A over the key tiles, the next tiles
+  // steps sweep B.  A slice of at most S key tiles keeps them all resident
+  // (stage = tile) through both sweeps; a longer one streams step t into
+  // stage t % S, one commit group per step.
+  const int iters = 2 * g.tiles;
+  const bool resident = g.tiles <= S;
+  auto slot = [&](int t) { return resident ? t % g.tiles : t % S; };
+  auto stage_kv = [&](int t) {
+    if (t < iters && (!resident || t < g.tiles)) {
+      uint16_t* st = ring + slot(t) * STAGE;
+      const int r0 = (t % g.tiles) * BM;
+      stage<W>(st, k, kc, g.ld_in, g.ldc_in, g, vs, h, r0, 0);
+      stage<W>(st + BM * W, v, vc, g.ld_in, g.ldc_in, g, vs, h, r0, 0);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t + 1 < S; ++t) stage_kv(t);
+  if (resident) stage_kv(S - 1);
+
+  const Row R0 = slice_row(g, vs, qt * BM + acc_row(0));
+  const Row R1 = slice_row(g, vs, qt * BM + acc_row(2));
+  // 1 / l (padding rows: p = 1, and their g is 0)
+  const float c0l = active && R0.ok ? 1.f / rowsum[stat_index(g, R0, h)] : 1.f;
+  const float c1l = active && R1.ok ? 1.f / rowsum[stat_index(g, R1, h)] : 1.f;
   float d0 = 0.f, d1 = 0.f;
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    if (sweep == 1) {  // sweep A is done: D, stored for the key-major pass
+  float acc_q[G / 2];  // written by the first sweep B product
+  bool first = true;
+  for (int t = 0; t < iters; ++t) {
+    if (resident) {
+      cp_async_wait_pending(0);
+    } else {
+      cp_async_wait_pending(S - 2);
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (!resident) stage_kv(t + S - 1);
+    const int kt = t % g.tiles;
+    if (t == g.tiles) {  // sweep A is done: D, for sweep B and the key pass
       d0 = quad_sum(d0);
       d1 = quad_sum(d1);
-      float* dl = delta + (size_t)bh * g.L;
-      if (tig == 0) {
-        if (r0 < g.L) dl[r0] = d0;
-        if (r1 < g.L) dl[r1] = d1;
+      if (active && blockIdx.y == 0 && (threadIdx.x & 3) == 0) {
+        if (R0.ok) delta[stat_index(g, R0, h)] = d0;
+        if (R1.ok) delta[stat_index(g, R1, h)] = d1;
       }
     }
-    for (int j0 = 0; j0 < g.L; j0 += BN) {
-      __syncthreads();  // the previous key tile is consumed
-      stage<HD>(k_s, k, kc, g.ld_in, g.ldc_in, g, b, h, j0);
-      stage<HD>(v_s, v, vc, g.ld_in, g.ldc_in, g, b, h, j0);
-      cp_async_wait_all();
-      __syncthreads();
-      if (!active) continue;
-#pragma unroll
-      for (int c = 0; c < BN; c += KC) {
-        const int col0 = j0 + c;
-        if (col0 >= g.L) break;
-        float p[KC / 8][4], dp[KC / 8][4];
-        mma_blocks<KS, KC / 8>(p, qa, k_s, SD, c);
-        mma_blocks<KS, KC / 8>(dp, ga, v_s, SD, c);
-        clamp_exp<KC / 8>(p, col0, g.L, scale);
-        if (sweep == 0) {  // D_i = sum_j dp_ij p_ij
-#pragma unroll
-          for (int nb = 0; nb < KC / 8; ++nb) {
-            d0 += dp[nb][0] * (p[nb][0] * c0) + dp[nb][1] * (p[nb][1] * c0);
-            d1 += dp[nb][2] * (p[nb][2] * c1) + dp[nb][3] * (p[nb][3] * c1);
-          }
-          continue;
-        }
-        // ds = p (dp - D); dq += ds k
-#pragma unroll
-        for (int nb = 0; nb < KC / 8; ++nb) {
-          p[nb][0] *= c0 * (dp[nb][0] - d0);
-          p[nb][1] *= c0 * (dp[nb][1] - d0);
-          p[nb][2] *= c1 * (dp[nb][2] - d1);
-          p[nb][3] *= c1 * (dp[nb][3] - d1);
-        }
-#pragma unroll
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          if (col0 + kk * 16 >= g.L) break;
-          uint32_t da[4];
-          pack_a(da, p, kk);
-          mma_cols<DT>(acc, da, k_s, SD, c + kk * 16);
-        }
-      }
+    if (!active || (g.pk > 1 && kt != qt)) continue;
+    const uint16_t* k_s = ring + slot(t) * STAGE;
+    const uint16_t* v_s = k_s + BM * W;
+    float s[32], dp[32];
+    issue_logits_dp<W>(s, dp, q_s, k_s, g_s, v_s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    clamp_exp<false>(s, g, vs, kt, scale, c0l, c1l, d0, d1);  // d0, d1 untouched
+    if (t < g.tiles) {  // sweep A: D_i = sum_j dp_ij p_ij
+      add_jacobian_rows(d0, d1, s, dp);
+      continue;
     }
+    // sweep B: ds = p (dp - D); dq += ds k (the group's columns of k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - ((i & 2) ? d1 : d0);
+    wgmma_fence();
+    accumulate<G, W>(acc_q, s, k_s + 8 * c0, first, g, kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_q);
+    first = false;
   }
+  if (!active) return;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= g.L) continue;
-    uint16_t* dst = row_of(dq, dqc, g.ld_d, g.ldc_d, g, b, h, r) + 2 * tig;
+    const Row& R = half ? R1 : R0;
+    if (!R.ok) continue;
+    uint16_t* dst = row_of(dq, dqc, g.ld_d, g.ldc_d, g, R.s, h, R.j) + c0;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      if (dt * 8 < g.d)
-        *reinterpret_cast<uint32_t*>(dst + dt * 8) = pack_bf16x2(
-          acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
+    for (int j = 0; j < G / 8; ++j) {
+      const int c = acc_col(j, 0);
+      if (c0 + c < g.d)
+        *reinterpret_cast<uint32_t*>(dst + c) =
+            pack_bf16x2(acc_q[4 * j + 2 * half] * scale,
+                        acc_q[4 * j + 2 * half + 1] * scale);
+    }
   }
 }
 
-// 1 / l and D of query rows [i0, i0 + 64) into shared memory (padding rows:
-// 1 and 0, so that their p is 1 and their ds 0)
-__device__ __forceinline__ void stage_rows_stats(float* li, float* dd,
-                                                 const float* rs,
-                                                 const float* dl, int i0,
-                                                 int L) {
-  for (int t = threadIdx.x; t < BM; t += blockDim.x) {
-    li[t] = i0 + t < L ? 1.f / rs[i0 + t] : 1.f;
-    dd[t] = i0 + t < L ? dl[i0 + t] : 0.f;
-  }
+// A work item of a persistent launch: row block rb (the tiles of the CTA's
+// warpgroups) of slice vs, head h.  CTA x takes items x, x + gridDim.x, ...
+struct Item {
+  int vs, h, rb;
+};
+__device__ __forceinline__ Item item_at(const Geo& g, int blocks, int i) {
+  const int rb = i % blocks, sh = i / blocks;
+  return Item{sh / g.heads, sh % g.heads, rb};
 }
 
-// Key-major backward: each CTA owns 64 keys of [frames; cls] and walks
-// every query tile (q / g tiles in a two-stage ring), so dk and dv are
-// summed in registers in a fixed order.
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_k_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v,
-                const uint16_t* __restrict__ qc,
-                const uint16_t* __restrict__ kc,
-                const uint16_t* __restrict__ vc,
-                const uint16_t* __restrict__ gr,
-                const uint16_t* __restrict__ gc,
-                const float* __restrict__ rowsum,
-                const float* __restrict__ delta, uint16_t* __restrict__ dk,
-                uint16_t* __restrict__ dv, uint16_t* __restrict__ dkc,
-                uint16_t* __restrict__ dvc, Geo g, float scale) {
-  constexpr int SD = HD + 8, KS = HD / 16, DT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* v_s = k_s + BN * SD;
-  uint16_t* ring = v_s + BN * SD;  // stage s: q at ring + 2 s BM SD, g after
-  float* stats = reinterpret_cast<float*>(ring + 4 * BM * SD);
+// buffers of the key-major pass's resident key / value tiles: two, so that
+// a persistent CTA stages its next item's under the current one, where
+// shared memory holds them (tile widths up to 128); else one CTA per item
+__host__ __device__ constexpr int kv_buffers(int W) { return W <= 128 ? 2 : 1; }
+// the key-major pass's resident CTAs per SM: three at tile widths up to 64
+// (at most 168 registers a thread, 65 KB of shared memory)
+__host__ __device__ constexpr int k_min_ctas(int W) { return W <= 64 ? 3 : 1; }
+
+// the key-major kernel: the resident key / value buffers, two ring stages
+// of a query and a g tile, two stages of 64 floats twice
+template <int W>
+constexpr size_t bwd_k_smem() {
+  return (size_t)(kv_buffers(W) + 2) * 2 * BM * W * 2 + 4 * BM * sizeof(float);
+}
+
+// Key-major backward, persistent, one warpgroup a CTA (its dk and dv
+// accumulators leave room for no second one where three CTAs share an
+// SM): for each of its items (a key tile), dk and dv, columns group y.
+// The CTA walks steps (item, query tile) of the item's slice, the q and g
+// tiles with their 1 / l and D in a two-stage ring, the next step staged
+// under the current one (at an item's first step also its key / value
+// tiles, into the resident buffer of the item two back), so dk and dv are
+// summed in registers in a fixed order and written under the next item's
+// loads.
+template <int W>
+__global__ void __launch_bounds__(128, k_min_ctas(W))
+flash_bwd_k_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+               const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
+               const uint16_t* __restrict__ kc,
+               const uint16_t* __restrict__ vc,
+               const uint16_t* __restrict__ gr,
+               const uint16_t* __restrict__ gc,
+               const float* __restrict__ rowsum,
+               const float* __restrict__ delta, uint16_t* __restrict__ dk,
+               uint16_t* __restrict__ dv, uint16_t* __restrict__ dkc,
+               uint16_t* __restrict__ dvc, Geo g, float scale) {
+  constexpr int G = group_width(W), STAGE = 2 * BM * W, KB = kv_buffers(W);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint16_t* kvbuf = reinterpret_cast<uint16_t*>(smem_raw);  // [KB][k, v]
+  uint16_t* ring = kvbuf + KB * STAGE;  // stage s: q at ring + s STAGE, g after
+  float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);
   // stage s: 1 / l_i at stats + 2 s BM, D_i after
-  const int bh = blockIdx.x / g.tiles, j0 = (blockIdx.x % g.tiles) * BN;
-  const int b = bh / g.heads, h = bh % g.heads;
-  const float* rs = rowsum + (size_t)bh * g.L;
-  const float* dl = delta + (size_t)bh * g.L;
+  const int items = g.slices * g.heads * g.tiles;
+  const int mine = (int)blockIdx.x < items
+                       ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int steps = mine * g.tiles;
+  const int c0 = blockIdx.y * G;
 
-  stage<HD>(k_s, k, kc, g.ld_in, g.ldc_in, g, b, h, j0);
-  stage<HD>(v_s, v, vc, g.ld_in, g.ldc_in, g, b, h, j0);
-  stage<HD>(ring, q, qc, g.ld_in, g.ldc_in, g, b, h, 0);
-  stage<HD>(ring + BM * SD, gr, gc, g.ld_g, g.ldc_g, g, b, h, 0);
-  stage_rows_stats(stats, stats + BM, rs, dl, 0, g.L);
-  cp_async_commit();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bool active = j0 + warp * 16 < g.L;  // warp-uniform
-  float acc_k[DT][4], acc_v[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    acc_k[dt][0] = acc_k[dt][1] = acc_k[dt][2] = acc_k[dt][3] = 0.f;
-    acc_v[dt][0] = acc_v[dt][1] = acc_v[dt][2] = acc_v[dt][3] = 0.f;
-  }
-  for (int t = 0; t < g.tiles; ++t) {
-    if (t + 1 < g.tiles) {
-      const int nx = (t + 1) & 1, i1 = (t + 1) * BM;
-      uint16_t* nxt = ring + nx * 2 * BM * SD;
-      stage<HD>(nxt, q, qc, g.ld_in, g.ldc_in, g, b, h, i1);
-      stage<HD>(nxt + BM * SD, gr, gc, g.ld_g, g.ldc_g, g, b, h, i1);
-      stage_rows_stats(stats + nx * 2 * BM, stats + nx * 2 * BM + BM, rs, dl,
-                       i1, g.L);
-      cp_async_commit();
-      cp_async_wait_pending(1);
-    } else {
-      cp_async_wait_pending(0);
-    }
-    __syncthreads();
-    if (active) {
-      const uint16_t* q_s = ring + (t & 1) * 2 * BM * SD;
-      const uint16_t* g_s = q_s + BM * SD;
-      const float* li_s = stats + (t & 1) * 2 * BM;
-      const float* d_s = li_s + BM;
-#pragma unroll
-      for (int c = 0; c < BM; c += KC) {
-        if (t * BM + c >= g.L) break;
-        // p^T and dp^T = v g^T: rows = this warp's 16 keys, columns = the
-        // chunk's 32 queries
-        float p[KC / 8][4], ds[KC / 8][4];
-        {
-          uint32_t ka[KS][4];
-          load_a<KS>(ka, k_s, SD, warp * 16);
-          mma_blocks<KS, KC / 8>(p, ka, q_s, SD, c);
-        }
-        {
-          uint32_t va[KS][4];
-          load_a<KS>(va, v_s, SD, warp * 16);
-          mma_blocks<KS, KC / 8>(ds, va, g_s, SD, c);
-        }
-#pragma unroll
-        for (int nb = 0; nb < KC / 8; ++nb)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = c + nb * 8 + 2 * tig + (e & 1);
-            p[nb][e] = exp2f(fminf(p[nb][e] * scale, CLAMP_HI) * LOG2E) * li_s[i];
-            ds[nb][e] = p[nb][e] * (ds[nb][e] - d_s[i]);
-          }
-#pragma unroll
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          if (t * BM + c + kk * 16 >= g.L) break;
-          uint32_t pa[4], da[4];
-          pack_a(pa, p, kk);
-          pack_a(da, ds, kk);
-          mma_cols<DT>(acc_k, da, q_s, SD, c + kk * 16);
-          mma_cols<DT>(acc_v, pa, g_s, SD, c + kk * 16);
-        }
+  // step n: the item's key / value tiles at its first step, and its query
+  // tile; one commit group per step (empty past the last)
+  auto stage_step = [&](int n) {
+    if (n < steps) {
+      const int kk = n / g.tiles, t = n - kk * g.tiles;
+      const Item it = item_at(g, g.tiles, blockIdx.x + kk * gridDim.x);
+      if (t == 0) {
+        uint16_t* res = kvbuf + (kk % KB) * STAGE;
+        stage<W>(res, k, kc, g.ld_in, g.ldc_in, g, it.vs, it.h, it.rb * BM, 0);
+        stage<W>(res + BM * W, v, vc, g.ld_in, g.ldc_in, g, it.vs, it.h,
+                 it.rb * BM, 0);
       }
+      uint16_t* st = ring + (n & 1) * STAGE;
+      stage<W>(st, q, qc, g.ld_in, g.ldc_in, g, it.vs, it.h, t * BM, 0);
+      stage<W>(st + BM * W, gr, gc, g.ld_g, g.ldc_g, g, it.vs, it.h, t * BM,
+               0);
     }
-    __syncthreads();  // this stage is consumed before it is refilled
+    cp_async_commit();
+  };
+  // the row statistics of step n's query tile through this thread's
+  // registers (the first 64 threads, one row each; padding rows: 1 / l = 1
+  // and D = 0, so that with q = g = 0 there their ds is 0)
+  float stat_l = 1.f, stat_d = 0.f;
+  auto load_stats = [&](int n) {
+    if (threadIdx.x >= BM || n >= steps) return;
+    const int kk = n / g.tiles, t = n - kk * g.tiles;
+    const Item it = item_at(g, g.tiles, blockIdx.x + kk * gridDim.x);
+    const Row R = slice_row(g, it.vs, t * BM + threadIdx.x);
+    const size_t i = R.ok ? stat_index(g, R, it.h) : 0;
+    stat_l = R.ok ? 1.f / rowsum[i] : 1.f;
+    stat_d = R.ok ? delta[i] : 0.f;
+  };
+  auto store_stats = [&](int n) {
+    float* li_s = stats + (n & 1) * 2 * BM;
+    if (threadIdx.x < BM) {
+      li_s[threadIdx.x] = stat_l;
+      li_s[BM + threadIdx.x] = stat_d;
+    }
+  };
+  stage_step(0);
+  load_stats(0);
+  store_stats(0);
+
+  float acc_k[G / 2], acc_v[G / 2];  // written by each item's first products
+  bool first = true;
+  for (int n = 0; n < steps; ++n) {
+    // step n has landed (and its statistics); step n - 1 is done, and its
+    // stage (and, at an item's first step, the resident buffer of the item
+    // two back) take step n + 1
+    cp_async_wait_pending(0);
+    fence_async_smem();
+    __syncthreads();
+    stage_step(n + 1);
+    load_stats(n + 1);
+    const int kk = n / g.tiles, t = n - kk * g.tiles;
+    const Item it = item_at(g, g.tiles, blockIdx.x + kk * gridDim.x);
+    const int kt = it.rb;
+    if (t == 0) first = true;
+    if (g.pk == 1 || t == kt) {
+      const uint16_t* k_s = kvbuf + (kk % KB) * STAGE;
+      const uint16_t* v_s = k_s + BM * W;
+      const uint16_t* q_s = ring + (n & 1) * STAGE;
+      const uint16_t* g_s = q_s + BM * W;
+      const float* li_s = stats + (n & 1) * 2 * BM;
+      const float* d_s = li_s + BM;
+      // s^T and dp^T = v g^T: rows = keys, columns = the tile's queries
+      float s[32], dp[32];
+      issue_logits_dp<W>(s, dp, k_s, q_s, v_s, g_s);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      key_major_ds(s, dp, li_s, d_s, g, scale);
+      wgmma_fence();
+      accumulate<G, W>(acc_k, dp, q_s + 8 * c0, first, g, t);
+      accumulate<G, W>(acc_v, s, g_s + 8 * c0, first, g, t);
+      wgmma_commit();
+      store_stats(n + 1);  // its stage was last read by step n - 1
+      wgmma_wait<0>();
+      fence_regs(acc_k);
+      fence_regs(acc_v);
+      first = false;
+    } else {
+      store_stats(n + 1);
+    }
+    // the item's dk and dv, under the next item's loads
+    if (t + 1 == g.tiles)
+      store_kv<G>(acc_k, acc_v, dk, dv, dkc, dvc, g, it.vs, it.h, kt, c0, scale);
   }
+}
+
+// bf16 ds^T of key tile kt (accumulator layout: rows its keys, columns 64
+// queries) into rows kt * 64 .. of a core-matrix tile of kr rows (the
+// keys) and width 64 (the queries); rows from kr on are not kept
+__device__ __forceinline__ void store_ds(uint16_t* dst, const float (&ds)[32],
+                                         int kt, int kr) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int j = j0 + warp * 16 + gid + 8 * half;
-    if (j >= g.L) continue;
-    uint16_t* kd = row_of(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j) + 2 * tig;
-    uint16_t* vd = row_of(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j) + 2 * tig;
+    const int r = kt * BM + acc_row(2 * half);
+    if (r >= kr) continue;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      if (dt * 8 >= g.d) continue;
-      *reinterpret_cast<uint32_t*>(kd + dt * 8) = pack_bf16x2(
-          acc_k[dt][2 * half] * scale, acc_k[dt][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vd + dt * 8) =
-          pack_bf16x2(acc_v[dt][2 * half], acc_v[dt][2 * half + 1]);
+    for (int j = 0; j < 8; ++j) {
+      const int c = acc_col(j, 0);
+      *reinterpret_cast<uint32_t*>(dst + ((r >> 3) * 8 + j) * 64 +
+                                   (r & 7) * 8 + (c & 7)) =
+          pack_bf16x2(ds[4 * j + 2 * half], ds[4 * j + 2 * half + 1]);
     }
   }
 }
 
-// ------------------------------------------------- fp32 (scalar) kernels
+constexpr size_t MAX_SMEM = 227 * 1024;  // an H100 CTA's shared memory
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
+// The fused backward's shared memory at tile width W, for a slice of
+// `tiles` 64-row tiles and kr keys (its rows rounded up to 16): the
+// slice's key and value tiles, a ring of `stages` stages of a query and a
+// g tile, ds^T of every query tile (kr x 64), 1 / l and D of every row.
+template <int W>
+constexpr size_t fused_smem(int tiles, int kr, int stages) {
+  return (size_t)(2 * tiles * BM * W + 2 * stages * BM * W + tiles * BM * kr) *
+             2 +
+         2 * tiles * BM * sizeof(float);
+}
+
+// Fused backward, one CTA of two warpgroups per slice and head, at tile
+// widths up to 64 where fused_smem fits (K4 / K3 at L <= 256, K2 packed):
+// 7 products per (query, key) pair, the slice's key and value tiles
+// resident, the query and g tiles of each step through a ring of S stages
+// (three at tile width 64 where they fit: two steps load under the current
+// one; two at 32, where two CTAs share an SM).
+//   Phase D, steps 0 .. tiles - 1: query tile t against every key tile
+//     (warpgroup w taking key tiles w, w + 2, ...): s and dp, and each
+//     warpgroup's share of D_i; D = share 0 + share 1.
+//   Phase K, rounds x tiles steps: in round r warpgroup w owns key tile
+//     2 r + w and meets every query tile t: s^T and dp^T, p^T and ds^T,
+//     dk += ds^T q and dv += p^T g in registers; bf16 ds^T (the operand's
+//     rounding) is kept in shared memory.
+//   Phase Q: dq of query tile t (warpgroup w taking t = w, w + 2, ...) =
+//     ds k over the slice's keys, both operands from shared memory.
+// Every sum runs in a fixed order; no atomics.
+template <int W, int S>
+__global__ void __launch_bounds__(256, W <= 32 ? 2 : 1)
+flash_bwd_fused_wg(const uint16_t* __restrict__ q,
+                   const uint16_t* __restrict__ k,
+                   const uint16_t* __restrict__ v,
+                   const uint16_t* __restrict__ qc,
+                   const uint16_t* __restrict__ kc,
+                   const uint16_t* __restrict__ vc,
+                   const uint16_t* __restrict__ gr,
+                   const uint16_t* __restrict__ gc,
+                   const float* __restrict__ rowsum, uint16_t* __restrict__ dq,
+                   uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                   uint16_t* __restrict__ dqc, uint16_t* __restrict__ dkc,
+                   uint16_t* __restrict__ dvc, Geo g, int kr, float scale) {
+  constexpr int TILE = BM * W;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int T = g.tiles, rows = T * BM;
+  uint16_t* k_res = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* v_res = k_res + T * TILE;
+  uint16_t* ring = v_res + T * TILE;  // stage s: q at ring + 2 s TILE, g after
+  uint16_t* ds_buf = ring + 2 * S * TILE;  // query tile t at ds_buf + t kr BM
+  float* inv_l = reinterpret_cast<float*>(ds_buf + (size_t)rows * kr);
+  float* delta = inv_l + rows;
+  float* share = reinterpret_cast<float*>(ds_buf);  // phase D: [2][rows]
+  const int h = blockIdx.x % g.heads, vs = blockIdx.x / g.heads;
+  const int wg = warpgroup();
+  const int steps = T * (1 + (T + 1) / 2);
+
+  for (int t = 0; t < T; ++t) {
+    stage<W>(k_res + t * TILE, k, kc, g.ld_in, g.ldc_in, g, vs, h, t * BM, 0);
+    stage<W>(v_res + t * TILE, v, vc, g.ld_in, g.ldc_in, g, vs, h, t * BM, 0);
+  }
+  // step n's query and g tiles (query tile n % T) into stage n % S, one
+  // commit group per step (empty past the last)
+  auto stage_step = [&](int n) {
+    if (n < steps) {
+      uint16_t* st = ring + (n % S) * 2 * TILE;
+      const int r0 = (n % T) * BM;
+      stage<W>(st, q, qc, g.ld_in, g.ldc_in, g, vs, h, r0, 0);
+      stage<W>(st + TILE, gr, gc, g.ld_g, g.ldc_g, g, vs, h, r0, 0);
+    }
+    cp_async_commit();
+  };
+  for (int n = 0; n + 1 < S; ++n) stage_step(n);
+  // 1 / l (padding rows: 1, with q = g = 0 there, so that their ds is 0)
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const Row R = slice_row(g, vs, i);
+    inv_l[i] = R.ok ? 1.f / rowsum[stat_index(g, R, h)] : 1.f;
+  }
+
+  float acc_k[W / 2], acc_v[W / 2];  // written by each round's first products
+  bool first = true;
+  for (int n = 0; n < steps; ++n) {
+    // step n has landed and step n - 1 is done: its stage takes step
+    // n + S - 1
+    cp_async_wait_pending(S - 2);
+    fence_async_smem();
+    __syncthreads();
+    if (n == T) {  // phase D is done
+      for (int i = threadIdx.x; i < rows; i += blockDim.x)
+        delta[i] = share[i] + share[rows + i];
+      __syncthreads();  // before ds^T takes the shares' place
+    }
+    stage_step(n + S - 1);
+    const int t = n % T;
+    const uint16_t* q_s = ring + (n % S) * 2 * TILE;
+    const uint16_t* g_s = q_s + TILE;
+    if (n < T) {
+      const float c0l = inv_l[t * BM + acc_row(0)];
+      const float c1l = inv_l[t * BM + acc_row(2)];
+      float d0 = 0.f, d1 = 0.f;
+      for (int kt = wg; kt < T; kt += 2) {
+        if (g.pk > 1 && kt != t) continue;
+        float s[32], dp[32];
+        issue_logits_dp<W>(s, dp, q_s, k_res + kt * TILE, g_s,
+                           v_res + kt * TILE);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        clamp_exp<false>(s, g, vs, kt, scale, c0l, c1l, d0, d1);
+        add_jacobian_rows(d0, d1, s, dp);
+      }
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+      if ((threadIdx.x & 3) == 0) {
+        share[wg * rows + t * BM + acc_row(0)] = d0;
+        share[wg * rows + t * BM + acc_row(2)] = d1;
+      }
+      continue;
+    }
+    const int kt = 2 * ((n - T) / T) + wg;
+    if (t == 0) first = true;
+    if (kt >= T) continue;
+    if (g.pk == 1 || t == kt) {
+      const uint16_t* k_s = k_res + kt * TILE;
+      const uint16_t* v_s = v_res + kt * TILE;
+      // s^T and dp^T = v g^T: rows = keys, columns = the tile's queries
+      float s[32], dp[32];
+      issue_logits_dp<W>(s, dp, k_s, q_s, v_s, g_s);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      key_major_ds(s, dp, inv_l + t * BM, delta + t * BM, g, scale);
+      store_ds(ds_buf + (size_t)t * kr * BM, dp, kt, kr);
+      wgmma_fence();
+      accumulate<W, W>(acc_k, dp, q_s, first, g, t);
+      accumulate<W, W>(acc_v, s, g_s, first, g, t);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_k);
+      fence_regs(acc_v);
+      first = false;
+    }
+    if (t == T - 1)
+      store_kv<W>(acc_k, acc_v, dk, dv, dkc, dvc, g, vs, h, kt, 0, scale);
+  }
+  // phase Q: every ds^T is in shared memory
+  fence_async_smem();
+  __syncthreads();
+  for (int t = wg; t < T; t += 2) {
+    // packed, a query tile meets only the keys of its own tile
+    const int klo = g.pk == 1 ? 0 : 4 * t;
+    const int khi = g.pk == 1 ? kr / 16 : min(4 * t + 4, kr / 16);
+    const uint16_t* ds_t = ds_buf + (size_t)t * kr * BM;
+    float acc_q[W / 2];  // written by the first product
+    wgmma_fence();
+    for (int kk = klo; kk < khi; ++kk)
+      wgmma_ss_mn<W>(acc_q, mnmajor<BM>(ds_t, kk), mnmajor<W>(k_res, kk),
+                     kk > klo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_q);
+    store_q<W>(acc_q, dq, dqc, g, vs, h, t, 0, scale);
+  }
+}
+
+// ------------------------------------------ scalar kernels (any head dim)
+
+template <typename T>
+__device__ __forceinline__ float dot(const T* a, const T* b, int d) {
   float s = 0.f;
 #pragma unroll 8
-  for (int e = 0; e < d; ++e) s = fmaf(a[e], b[e], s);
+  for (int e = 0; e < d; ++e) s = fmaf(load1(a + e), load1(b + e), s);
   return s;
 }
 
-// Forward: one warp per query row; shared memory holds the warp's row of
-// exponentials [L].
-template <int HD>
+// x rounded as the tensor-core path rounds an operand of type T
+template <typename T>
+__device__ __forceinline__ float op(float x) {
+  return round_to(x, static_cast<const T*>(nullptr));
+}
+
+// Forward: one warp per query row, its HD columns of group y (lane's
+// columns lane + 32 u); shared memory holds the warp's row of exponentials
+// [L].  o = sum_j op(e_j) v_j / l.
+template <typename T, int HD>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ qc,
-                 const float* __restrict__ kc, const float* __restrict__ vc,
-                 float* __restrict__ out, float* __restrict__ outc,
+flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ qc,
+                 const T* __restrict__ kc, const T* __restrict__ vc,
+                 T* __restrict__ out, T* __restrict__ outc,
                  float* __restrict__ rowsum, Geo g, float scale) {
   constexpr int U = HD / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int rows = (g.L + WARPS - 1) / WARPS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.x / rows, i = (blockIdx.x % rows) * WARPS + warp;
+  const int c0 = blockIdx.y * HD;
   if (i >= g.L) return;  // warp-uniform; no block barrier below
   const int b = bh / g.heads, h = bh % g.heads;
   float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * g.L;
-  const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+  const T* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
   float part = 0.f;
   for (int j = lane; j < g.L; j += 32) {
-    const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+    const T* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
     const float e = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI));
     e_w[j] = e;
     part += e;
@@ -595,46 +985,48 @@ flash_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int u = 0; u < U; ++u) o[u] = 0.f;
   for (int j = 0; j < g.L; ++j) {
-    const float p = e_w[j] / l;
-    const float* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
+    const float e = op<T>(e_w[j]);
+    const T* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j) + c0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (lane + 32 * u < g.d) o[u] = fmaf(p, vj[lane + 32 * u], o[u]);
+      if (c0 + lane + 32 * u < g.d) o[u] = fmaf(e, load1(vj + lane + 32 * u), o[u]);
   }
-  float* oi = row_of(out, outc, g.ld_g, g.ldc_g, g, b, h, i);
+  T* oi = row_of(out, outc, g.ld_g, g.ldc_g, g, b, h, i) + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (lane + 32 * u < g.d) oi[lane + 32 * u] = o[u];
-  if (rowsum != nullptr && lane == 0) rowsum[(size_t)bh * g.L + i] = l;
+    if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u] / l);
+  if (rowsum != nullptr && c0 == 0 && lane == 0)
+    rowsum[(size_t)bh * g.L + i] = l;
 }
 
 // Query-major backward: one warp per query row; per warp two rows [L] of
-// shared memory (p, then ds; and dp).
-template <int HD>
+// shared memory (p, then op(ds); and dp).
+template <typename T, int HD>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ qc,
-                   const float* __restrict__ kc, const float* __restrict__ vc,
-                   const float* __restrict__ gr, const float* __restrict__ gc,
+flash_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ qc,
+                   const T* __restrict__ kc, const T* __restrict__ vc,
+                   const T* __restrict__ gr, const T* __restrict__ gc,
                    const float* __restrict__ rowsum,
-                   float* __restrict__ delta, float* __restrict__ dq,
-                   float* __restrict__ dqc, Geo g, float scale) {
+                   float* __restrict__ delta, T* __restrict__ dq,
+                   T* __restrict__ dqc, Geo g, float scale) {
   constexpr int U = HD / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int rows = (g.L + WARPS - 1) / WARPS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.x / rows, i = (blockIdx.x % rows) * WARPS + warp;
+  const int c0 = blockIdx.y * HD;
   if (i >= g.L) return;
   const int b = bh / g.heads, h = bh % g.heads;
   float* p_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * 2 * g.L;
   float* dp_w = p_w + g.L;
-  const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
-  const float* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
+  const T* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+  const T* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
   const float l = rowsum[(size_t)bh * g.L + i];
   float part = 0.f;
   for (int j = lane; j < g.L; j += 32) {
-    const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
-    const float* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
+    const T* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+    const T* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
     const float p = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI)) / l;
     const float dp = dot(gi, vj, g.d);
     p_w[j] = p;
@@ -642,46 +1034,47 @@ flash_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
     part = fmaf(dp, p, part);
   }
   const float D = warp_sum(part);
-  if (lane == 0) delta[(size_t)bh * g.L + i] = D;
-  for (int j = lane; j < g.L; j += 32) p_w[j] = p_w[j] * (dp_w[j] - D);
+  if (c0 == 0 && lane == 0) delta[(size_t)bh * g.L + i] = D;
+  for (int j = lane; j < g.L; j += 32) p_w[j] = op<T>(p_w[j] * (dp_w[j] - D));
   __syncwarp();
   float a[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) a[u] = 0.f;
   for (int j = 0; j < g.L; ++j) {
     const float ds = p_w[j];
-    const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+    const T* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j) + c0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (lane + 32 * u < g.d) a[u] = fmaf(ds, kj[lane + 32 * u], a[u]);
+      if (c0 + lane + 32 * u < g.d) a[u] = fmaf(ds, load1(kj + lane + 32 * u), a[u]);
   }
-  float* dqi = row_of(dq, dqc, g.ld_d, g.ldc_d, g, b, h, i);
+  T* dqi = row_of(dq, dqc, g.ld_d, g.ldc_d, g, b, h, i) + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (lane + 32 * u < g.d) dqi[lane + 32 * u] = a[u] * scale;
+    if (c0 + lane + 32 * u < g.d) store1(dqi + lane + 32 * u, a[u] * scale);
 }
 
 // Key-major backward: one warp per key row of [frames; cls]; lanes take 32
 // queries at a time, then sum their products over them.
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ qc,
-                   const float* __restrict__ kc, const float* __restrict__ vc,
-                   const float* __restrict__ gr, const float* __restrict__ gc,
+flash_bwd_k_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ qc,
+                   const T* __restrict__ kc, const T* __restrict__ vc,
+                   const T* __restrict__ gr, const T* __restrict__ gc,
                    const float* __restrict__ rowsum,
-                   const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, float* __restrict__ dkc,
-                   float* __restrict__ dvc, Geo g, float scale) {
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, T* __restrict__ dkc,
+                   T* __restrict__ dvc, Geo g, float scale) {
   constexpr int U = HD / 32;
   __shared__ float p_s[WARPS][32], ds_s[WARPS][32];
   const int rows = (g.L + WARPS - 1) / WARPS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.x / rows, j = (blockIdx.x % rows) * WARPS + warp;
+  const int c0 = blockIdx.y * HD;
   if (j >= g.L) return;
   const int b = bh / g.heads, h = bh % g.heads;
-  const float* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
-  const float* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
+  const T* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
+  const T* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
   const float* rs = rowsum + (size_t)bh * g.L;
   const float* dl = delta + (size_t)bh * g.L;
   float ak[U], av[U];
@@ -691,34 +1084,34 @@ flash_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
     const int i = i0 + lane;
     float p = 0.f, ds = 0.f;
     if (i < g.L) {
-      const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
-      const float* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
+      const T* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+      const T* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
       p = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI)) / rs[i];
       ds = p * (dot(gi, vj, g.d) - dl[i]);
     }
-    p_s[warp][lane] = p;
-    ds_s[warp][lane] = ds;
+    p_s[warp][lane] = op<T>(p);
+    ds_s[warp][lane] = op<T>(ds);
     __syncwarp();
     const int n = min(32, g.L - i0);
     for (int t = 0; t < n; ++t) {
-      const float* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i0 + t);
-      const float* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i0 + t);
+      const T* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i0 + t) + c0;
+      const T* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i0 + t) + c0;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (lane + 32 * u >= g.d) continue;
-        ak[u] = fmaf(ds_s[warp][t], qi[lane + 32 * u], ak[u]);
-        av[u] = fmaf(p_s[warp][t], gi[lane + 32 * u], av[u]);
+        if (c0 + lane + 32 * u >= g.d) continue;
+        ak[u] = fmaf(ds_s[warp][t], load1(qi + lane + 32 * u), ak[u]);
+        av[u] = fmaf(p_s[warp][t], load1(gi + lane + 32 * u), av[u]);
       }
     }
     __syncwarp();
   }
-  float* kd = row_of(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j);
-  float* vd = row_of(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j);
+  T* kd = row_of(dk, dkc, g.ld_d, g.ldc_d, g, b, h, j) + c0;
+  T* vd = row_of(dv, dvc, g.ld_d, g.ldc_d, g, b, h, j) + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    if (lane + 32 * u >= g.d) continue;
-    kd[lane + 32 * u] = ak[u] * scale;
-    vd[lane + 32 * u] = av[u];
+    if (c0 + lane + 32 * u >= g.d) continue;
+    store1(kd + lane + 32 * u, ak[u] * scale);
+    store1(vd + lane + 32 * u, av[u]);
   }
 }
 
@@ -730,16 +1123,42 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-Geo make_geo(int n, bool cls, int heads, int d, int seqs, long long ld_in,
-             long long ldc_in, long long ld_g, long long ldc_g,
-             long long ld_d, long long ldc_d) {
+// whether the bf16 tensor-core kernels take head dim d
+bool on_tensor_cores(int d) { return d % 8 == 0 && d <= MAX_TC; }
+
+// The tile width of a tensor-core head dim: the narrowest instance >= d.
+int tile_width(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128
+       : d <= 192 ? 192 : 256;
+}
+
+// A scalar kernel's columns per lane group: the narrowest power of two
+// from 32 to SGW that holds d (SGW past it, in column groups).
+int scalar_width(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : SGW;
+}
+
+// pack: short sequences share the tensor-core kernels' slices
+Geo make_geo(int b, int n, bool cls, int heads, int d, int seqs, bool pack,
+             long long ld_in, long long ldc_in, long long ld_g,
+             long long ldc_g, long long ld_d, long long ldc_d) {
   Geo g;
   g.n = n;
   g.L = n + (cls ? 1 : 0);
   g.heads = heads;
   g.d = d;
   g.seqs = seqs;
-  g.tiles = (g.L + BM - 1) / BM;
+  g.nseq = b;
+  g.pk = 1;
+  g.lp_log = 0;
+  g.lv = g.L;
+  if (pack && g.L <= BM) {
+    while ((1 << g.lp_log) < std::max(g.L, 8)) ++g.lp_log;
+    g.pk = PACK_ROWS >> g.lp_log;
+    g.lv = PACK_ROWS;
+  }
+  g.tiles = (g.lv + BM - 1) / BM;
+  g.slices = (b + g.pk - 1) / g.pk;
   g.ld_in = (size_t)ld_in;
   g.ldc_in = (size_t)ldc_in;
   g.ld_g = (size_t)ld_g;
@@ -753,117 +1172,204 @@ Geo make_geo(int n, bool cls, int heads, int d, int seqs, long long ld_in,
 bool valid(int b, int seqs, int n, int heads, int d, bool cls, int dtype,
            long long ld) {
   return b > 0 && seqs > 0 && b % seqs == 0 && !(cls && seqs > 1) && n > 0 &&
-         heads > 0 && n + 1 <= MAX_L && d >= 8 && d <= MAX_D && d % 8 == 0 &&
-         (dtype == 0 || dtype == 1) && (seqs == 1 || ld < (1LL << 32));
+         heads > 0 && n + 1 <= MAX_L && d >= 1 &&
+         (d + SGW - 1) / SGW <= 65535 && (dtype == 0 || dtype == 1) &&
+         (seqs == 1 || ld < (1LL << 32));
 }
 
-template <int HD>
-int launch_fwd(const void* q, const void* k, const void* v, const void* qc,
-               const void* kc, const void* vc, void* out, void* outc,
-               void* rowsum, int b, const Geo& g, int dtype, float scale,
-               cudaStream_t st) {
-  const long long bh = (long long)b * g.heads;
-  if (dtype == 1) {
-    using u16 = uint16_t;
-    const size_t smem = fwd_smem<HD>();
-    cudaError_t err = set_smem(flash_fwd_mma<HD>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_mma<HD><<<(unsigned)(bh * g.tiles), WARPS * 32, smem, st>>>(
-        static_cast<const u16*>(q), static_cast<const u16*>(k),
-        static_cast<const u16*>(v), static_cast<const u16*>(qc),
-        static_cast<const u16*>(kc), static_cast<const u16*>(vc),
-        static_cast<u16*>(out), static_cast<u16*>(outc),
-        static_cast<float*>(rowsum), g, scale);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)WARPS * g.L * sizeof(float);
-  cudaError_t err = set_smem(flash_fwd_scalar<HD>, smem);
+// CTAs of a tensor-core launch: slices x heads x row blocks of nw tiles
+unsigned wg_ctas(const Geo& g, int nw) {
+  return (unsigned)((long long)g.slices * g.heads * ((g.tiles + nw - 1) / nw));
+}
+
+template <int W>
+int launch_fwd_wg(const void* q, const void* k, const void* v, const void* qc,
+                  const void* kc, const void* vc, void* out, void* outc,
+                  void* rowsum, const Geo& g, float scale, cudaStream_t st) {
+  using u16 = uint16_t;
+  constexpr size_t smem = fwd_smem<W>();
+  cudaError_t err = set_smem(flash_fwd_wg<W>, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (g.L + WARPS - 1) / WARPS;
-  flash_fwd_scalar<HD><<<(unsigned)(bh * rows), WARPS * 32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(qc),
-      static_cast<const float*>(kc), static_cast<const float*>(vc),
-      static_cast<float*>(out), static_cast<float*>(outc),
+  flash_fwd_wg<W><<<dim3(wg_ctas(g, 2), W / group_width(W)), 256, smem, st>>>(
+      static_cast<const u16*>(q), static_cast<const u16*>(k),
+      static_cast<const u16*>(v), static_cast<const u16*>(qc),
+      static_cast<const u16*>(kc), static_cast<const u16*>(vc),
+      static_cast<u16*>(out), static_cast<u16*>(outc),
       static_cast<float*>(rowsum), g, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* qc,
-               const void* kc, const void* vc, const void* gr, const void* gc,
-               const void* rowsum, void* delta, void* dq, void* dk, void* dv,
-               void* dqc, void* dkc, void* dvc, int b, const Geo& g, int dtype,
-               float scale, cudaStream_t st) {
-  const long long bh = (long long)b * g.heads;
-  if (dtype == 1) {
-    using u16 = uint16_t;
-    const size_t smem = bwd_smem<HD>();
-    cudaError_t err = set_smem(flash_bwd_q_mma<HD>, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = set_smem(flash_bwd_k_mma<HD>, smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)(bh * g.tiles);
-    flash_bwd_q_mma<HD><<<grid, WARPS * 32, smem, st>>>(
-        static_cast<const u16*>(q), static_cast<const u16*>(k),
-        static_cast<const u16*>(v), static_cast<const u16*>(qc),
-        static_cast<const u16*>(kc), static_cast<const u16*>(vc),
-        static_cast<const u16*>(gr), static_cast<const u16*>(gc),
-        static_cast<const float*>(rowsum), static_cast<float*>(delta),
-        static_cast<u16*>(dq), static_cast<u16*>(dqc), g, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_k_mma<HD><<<grid, WARPS * 32, smem, st>>>(
-        static_cast<const u16*>(q), static_cast<const u16*>(k),
-        static_cast<const u16*>(v), static_cast<const u16*>(qc),
-        static_cast<const u16*>(kc), static_cast<const u16*>(vc),
-        static_cast<const u16*>(gr), static_cast<const u16*>(gc),
-        static_cast<const float*>(rowsum), static_cast<const float*>(delta),
-        static_cast<u16*>(dk), static_cast<u16*>(dv), static_cast<u16*>(dkc),
-        static_cast<u16*>(dvc), g, scale);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)WARPS * 2 * g.L * sizeof(float);
-  cudaError_t err = set_smem(flash_bwd_q_scalar<HD>, smem);
+template <typename T, int HD>
+int launch_fwd_scalar(const void* q, const void* k, const void* v,
+                      const void* qc, const void* kc, const void* vc,
+                      void* out, void* outc, void* rowsum, const Geo& g,
+                      float scale, cudaStream_t st) {
+  const size_t smem = (size_t)WARPS * g.L * sizeof(float);
+  cudaError_t err = set_smem(flash_fwd_scalar<T, HD>, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)(bh * ((g.L + WARPS - 1) / WARPS));
-  flash_bwd_q_scalar<HD><<<grid, WARPS * 32, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(qc),
-      static_cast<const float*>(kc), static_cast<const float*>(vc),
-      static_cast<const float*>(gr), static_cast<const float*>(gc),
-      static_cast<const float*>(rowsum), static_cast<float*>(delta),
-      static_cast<float*>(dq), static_cast<float*>(dqc), g, scale);
+  const long long rows = (g.L + WARPS - 1) / WARPS;
+  flash_fwd_scalar<T, HD><<<dim3((unsigned)((long long)g.nseq * g.heads * rows),
+                                 (g.d + HD - 1) / HD),
+                            WARPS * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(qc),
+      static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<T*>(out), static_cast<T*>(outc),
+      static_cast<float*>(rowsum), g, scale);
+  return (int)cudaGetLastError();
+}
+
+// The pointers of one backward call
+struct BwdArgs {
+  const void *q, *k, *v, *qc, *kc, *vc, *g, *gc, *rowsum;
+  void *delta, *dq, *dk, *dv, *dqc, *dkc, *dvc;
+};
+
+// CTAs of a kernel the card holds at once
+template <typename K>
+unsigned resident_ctas(K kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  return (unsigned)(std::max(per_sm, 1) * sms);
+}
+
+template <int W, int S>
+int launch_bwd_fused(const BwdArgs& a, const Geo& geo, int kr, size_t smem,
+                     float scale, cudaStream_t st) {
+  using u16 = uint16_t;
+  static const cudaError_t set = set_smem(flash_bwd_fused_wg<W, S>, MAX_SMEM);
+  if (set != cudaSuccess) return (int)set;
+  flash_bwd_fused_wg<W, S><<<wg_ctas(geo, geo.tiles), 256, smem, st>>>(
+      static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
+      static_cast<const u16*>(a.v), static_cast<const u16*>(a.qc),
+      static_cast<const u16*>(a.kc), static_cast<const u16*>(a.vc),
+      static_cast<const u16*>(a.g), static_cast<const u16*>(a.gc),
+      static_cast<const float*>(a.rowsum), static_cast<u16*>(a.dq),
+      static_cast<u16*>(a.dk), static_cast<u16*>(a.dv),
+      static_cast<u16*>(a.dqc), static_cast<u16*>(a.dkc),
+      static_cast<u16*>(a.dvc), geo, kr, scale);
+  return (int)cudaGetLastError();
+}
+
+// The fused kernel where a slice fits it; else the query-major pass (D and
+// dq) and the key-major pass (dk and dv), 9 products per pair
+template <int W>
+int launch_bwd_wg(const BwdArgs& a, const Geo& geo, float scale,
+                  cudaStream_t st) {
+  using u16 = uint16_t;
+  if constexpr (W <= 64) {
+    const int kr = (geo.lv + 15) / 16 * 16;
+    if constexpr (W == 64) {
+      const size_t smem3 = fused_smem<W>(geo.tiles, kr, 3);
+      if (smem3 <= MAX_SMEM)
+        return launch_bwd_fused<W, 3>(a, geo, kr, smem3, scale, st);
+    }
+    const size_t smem2 = fused_smem<W>(geo.tiles, kr, 2);
+    if (smem2 <= MAX_SMEM)
+      return launch_bwd_fused<W, 2>(a, geo, kr, smem2, scale, st);
+  }
+  constexpr size_t smem = bwd_smem<W>(), smem_k = bwd_k_smem<W>();
+  constexpr int NW = bwd_wgs(W);
+  cudaError_t err = set_smem(flash_bwd_q_wg<W>, smem);
+  if (err == cudaSuccess) err = set_smem(flash_bwd_k_wg<W>, smem_k);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(wg_ctas(geo, NW), W / group_width(W));
+  // the key-major pass persists where it double-buffers its resident
+  // tiles: as many CTAs as the card holds (counted once: the process runs
+  // on one card model), at most one per item
+  static const unsigned resident =
+      resident_ctas(flash_bwd_k_wg<W>, 128, smem_k);
+  const unsigned kitems = wg_ctas(geo, 1);
+  const unsigned kctas =
+      kv_buffers(W) > 1 ? std::max(1u, std::min(kitems, resident)) : kitems;
+  flash_bwd_q_wg<W><<<grid, NW * 128, smem, st>>>(
+      static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
+      static_cast<const u16*>(a.v), static_cast<const u16*>(a.qc),
+      static_cast<const u16*>(a.kc), static_cast<const u16*>(a.vc),
+      static_cast<const u16*>(a.g), static_cast<const u16*>(a.gc),
+      static_cast<const float*>(a.rowsum), static_cast<float*>(a.delta),
+      static_cast<u16*>(a.dq), static_cast<u16*>(a.dqc), geo, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_k_scalar<HD><<<grid, WARPS * 32, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(qc),
-      static_cast<const float*>(kc), static_cast<const float*>(vc),
-      static_cast<const float*>(gr), static_cast<const float*>(gc),
-      static_cast<const float*>(rowsum), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(dkc), static_cast<float*>(dvc), g, scale);
+  flash_bwd_k_wg<W><<<dim3(kctas, grid.y), 128, smem_k, st>>>(
+      static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
+      static_cast<const u16*>(a.v), static_cast<const u16*>(a.qc),
+      static_cast<const u16*>(a.kc), static_cast<const u16*>(a.vc),
+      static_cast<const u16*>(a.g), static_cast<const u16*>(a.gc),
+      static_cast<const float*>(a.rowsum), static_cast<const float*>(a.delta),
+      static_cast<u16*>(a.dk), static_cast<u16*>(a.dv),
+      static_cast<u16*>(a.dkc), static_cast<u16*>(a.dvc), geo, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_bwd_scalar(const BwdArgs& a, const Geo& geo, float scale,
+                      cudaStream_t st) {
+  const size_t smem = (size_t)WARPS * 2 * geo.L * sizeof(float);
+  cudaError_t err = set_smem(flash_bwd_q_scalar<T, HD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(
+      (unsigned)((long long)geo.nseq * geo.heads * ((geo.L + WARPS - 1) / WARPS)),
+      (geo.d + HD - 1) / HD);
+  flash_bwd_q_scalar<T, HD><<<grid, WARPS * 32, smem, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.qc),
+      static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
+      static_cast<const T*>(a.g), static_cast<const T*>(a.gc),
+      static_cast<const float*>(a.rowsum), static_cast<float*>(a.delta),
+      static_cast<T*>(a.dq), static_cast<T*>(a.dqc), geo, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_k_scalar<T, HD><<<grid, WARPS * 32, 0, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.qc),
+      static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
+      static_cast<const T*>(a.g), static_cast<const T*>(a.gc),
+      static_cast<const float*>(a.rowsum), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), static_cast<T*>(a.dkc),
+      static_cast<T*>(a.dvc), geo, scale);
+  return (int)cudaGetLastError();
+}
+
+// f(integral_constant W) for the tensor-core tile width of d
+template <typename F>
+int with_tile(int d, F f) {
+  switch (tile_width(d)) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    default: return f(std::integral_constant<int, 256>{});
+  }
+}
+
+// f(type tag T, integral_constant HD) for a scalar kernel of d
+template <typename T, typename F>
+int with_scalar(int d, F f) {
+  switch (scalar_width(d)) {
+    case 32: return f(T{}, std::integral_constant<int, 32>{});
+    case 64: return f(T{}, std::integral_constant<int, 64>{});
+    case 128: return f(T{}, std::integral_constant<int, 128>{});
+    default: return f(T{}, std::integral_constant<int, SGW>{});
+  }
 }
 
 }  // namespace
 
-// The tile width of head dim d: the narrowest instance >= d.
-static int tile_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128
-       : d <= 192 ? 192 : 256;
-}
-
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: a multiple of 8 up to 256.
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: any (the bf16 tensor-core
+// kernels take multiples of 8 up to 256, the scalar kernels the rest).
 // b: the number of sequences, seqs of them side by side in each row (1 but
 // for K2's layout; b a multiple of seqs, no CLS stream with seqs > 1).  qc,
 // kc, vc (and outc, gc, dqc, dkc, dvc) are null without the CLS stream.
 // Row strides are in elements: ld_in of q, k, v, ldc_in of qc, kc, vc
 // (their batch stride), ld_o / ldc_o of out and outc (forward) or of g and
 // gc (backward), ld_d / ldc_d of the gradients; with seqs > 1 each ld must
-// be a multiple of seqs.  Every row must be 16-byte aligned.  Each entry
-// point returns the CUDA error code of its launches (0 on success).
+// be a multiple of seqs.  The tensor-core kernels need every row 16-byte
+// aligned.  Each entry point returns the CUDA error code of its launches
+// (0 on success).
 
 // The forward: out, outc and, where rowsum is not null, l [b, heads, L]
 // (fp32).
@@ -878,20 +1384,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (!valid(b, seqs, n, heads, head_dim, qc != nullptr, dtype,
              std::max(ld_in, ld_o)))
     return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(n, qc != nullptr, heads, head_dim, seqs, ld_in,
+  const bool tc = dtype == 1 && on_tensor_cores(head_dim);
+  const Geo g = make_geo(b, n, qc != nullptr, heads, head_dim, seqs, tc, ld_in,
                          ldc_in, ld_o, ldc_o, 0, 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD(HD) launch_fwd<HD>(q, k, v, qc, kc, vc, out, outc, rowsum, b, g, \
-                               dtype, scale, st)
-  switch (tile_width(head_dim)) {
-    case 32: return FWD(32);
-    case 64: return FWD(64);
-    case 96: return FWD(96);
-    case 128: return FWD(128);
-    case 192: return FWD(192);
-    default: return FWD(256);
-  }
-#undef FWD
+  if (tc)
+    return with_tile(head_dim, [&](auto w) {
+      return launch_fwd_wg<decltype(w)::value>(q, k, v, qc, kc, vc, out, outc,
+                                               rowsum, g, scale, st);
+    });
+  auto scalar = [&](auto t, auto hd) {
+    return launch_fwd_scalar<decltype(t), decltype(hd)::value>(
+        q, k, v, qc, kc, vc, out, outc, rowsum, g, scale, st);
+  };
+  return dtype == 0 ? with_scalar<float>(head_dim, scalar)
+                    : with_scalar<__nv_bfloat16>(head_dim, scalar);
 }
 
 // The recompute backward from the forward's l: dq, dk, dv (and dqc, dkc,
@@ -912,18 +1419,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (!valid(b, seqs, n, heads, head_dim, qc != nullptr, dtype,
              std::max({ld_in, ld_g, ld_d})))
     return (int)cudaErrorInvalidValue;
-  const Geo geo = make_geo(n, qc != nullptr, heads, head_dim, seqs, ld_in,
-                           ldc_in, ld_g, ldc_g, ld_d, ldc_d);
+  const bool tc = dtype == 1 && on_tensor_cores(head_dim);
+  const Geo geo = make_geo(b, n, qc != nullptr, heads, head_dim, seqs, tc,
+                           ld_in, ldc_in, ld_g, ldc_g, ld_d, ldc_d);
+  const BwdArgs a{q, k, v, qc, kc, vc, g, gc, rowsum, delta,
+                  dq, dk, dv, dqc, dkc, dvc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BWD(HD) launch_bwd<HD>(q, k, v, qc, kc, vc, g, gc, rowsum, delta, dq, \
-                               dk, dv, dqc, dkc, dvc, b, geo, dtype, scale, st)
-  switch (tile_width(head_dim)) {
-    case 32: return BWD(32);
-    case 64: return BWD(64);
-    case 96: return BWD(96);
-    case 128: return BWD(128);
-    case 192: return BWD(192);
-    default: return BWD(256);
-  }
-#undef BWD
+  if (tc)
+    return with_tile(head_dim, [&](auto w) {
+      return launch_bwd_wg<decltype(w)::value>(a, geo, scale, st);
+    });
+  auto scalar = [&](auto t, auto hd) {
+    return launch_bwd_scalar<decltype(t), decltype(hd)::value>(a, geo, scale,
+                                                                st);
+  };
+  return dtype == 0 ? with_scalar<float>(head_dim, scalar)
+                    : with_scalar<__nv_bfloat16>(head_dim, scalar);
 }

@@ -17,9 +17,11 @@
 // One kernel serves both layouts: every tensor is addressed per (batch,
 // head) slice with a token-row stride, so the head-last call passes
 // (B, H) and row stride H*d, the head-split call (B*H, 1) and row stride d.
-// The head dim d is a multiple of 8 up to 128; the bf16 kernels run it on
-// the narrowest tile width DP of (64, 96, 128) that holds it, their tiles
-// zero past column d, and write d columns.
+// Any head dim d: the bf16 tensor-core kernels take multiples of 8 up to
+// 128 and run them on the narrowest tile width DP of (64, 96, 128) that
+// holds them, their tiles zero past column d; the scalar kernels take
+// float32 at every d and bf16 at the other head dims (not a multiple of 8,
+// or past 128), in column groups of 128 (see there).
 //
 // Contract, per (batch b, head h) slice:
 //   q [qN, d] body queries; k, v [kN, d] body keys/values, row-major over
@@ -87,8 +89,9 @@
 //   * the first product into an accumulator overwrites it, so no plain
 //     instruction defines an accumulator of a group in flight (ptxas would
 //     serialize the group's products);
-//   * fp32: scalar paths (the tensor cores have no exact fp32 mode), one
-//     warp per query or key row, for small shapes.
+//   * fp32, and bf16 at the head dims the tensor-core kernels do not take:
+//     scalar kernels (the tensor cores have no exact fp32 mode), one warp
+//     per query or key row, for small shapes, in column groups.
 // K7 has the same contract and layout except its softmax: the row max, not
 // the clamp.  K7f keeps a running max m over key tiles, p = exp(s - m)
 // (padding columns masked to -1e30 as on the TPU), rounds the unnormalised
@@ -120,7 +123,7 @@ namespace {
 
 using namespace pvrl;
 
-constexpr int MAX_D = 128;    // widest head dim
+constexpr int MAX_D = 128;    // widest head dim of the tensor-core kernels
 constexpr int BM = 64;        // query rows per tile (4 warps x 16)
 constexpr int BN = 64;        // keys per tile
 constexpr int KCAT = 48;      // rel columns, padded to 3 mma k-steps
@@ -186,12 +189,6 @@ template <typename T>
 __device__ __forceinline__ T* rel_of(T* x, const Geo& g, int bh) {
   const int b = bh / g.heads, h = bh % g.heads;
   return x + (size_t)b * g.qn * g.rrow + (size_t)h * g.kcat;
-}
-
-// bias of key j < kn on the fp32 rel row r: ((rel_t + rel_h) + rel_w)
-__device__ __forceinline__ float bias_of(const float* r, int j, const Geo& g) {
-  const int hw = g.kh * g.kw;
-  return (r[j / hw] + r[g.kt + (j / g.kw) % g.kh]) + r[g.kt + g.kh + j % g.kw];
 }
 
 // columns t', kt + h', kt + kh + w' of rel that key j < kn reads (-1 for
@@ -586,30 +583,8 @@ mvit_fwd_kt_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
 // --------------------------------------- bf16 backward (wgmma) kernels
 
-// Tiles of the backward live in the core-matrix layout of wgmma.cuh.  A
-// K-major descriptor of k-step ks of a tile of width W (rows = M or N,
-// columns = K), and an MN-major one of k-step kk of a tile whose rows are
-// the K index (columns = N).
-template <int W>
-__device__ __forceinline__ uint64_t kmajor(const uint16_t* tile, int ks) {
-  return wgmma_desc(tile + ks * 128, 128, W * 16);
-}
-template <int W>
-__device__ __forceinline__ uint64_t mnmajor(const uint16_t* tile, int kk) {
-  return wgmma_desc(tile + kk * 16 * W, W * 16, 128);
-}
-
-// 16-byte chunk idx of a 64-row core-matrix tile of width W: eight
-// consecutive chunks are the eight rows of one core matrix, so a warp's
-// copies fill whole 128-byte core matrices (no bank conflicts) and read
-// 64 contiguous bytes of each of eight rows; the chunk's smem offset is
-// idx * 8 elements
-template <int W>
-__device__ __forceinline__ void chunk_rc(int idx, int& r, int& c) {
-  const int rest = idx >> 3;
-  r = (rest / (W / 8)) * 8 + (idx & 7);
-  c = 8 * (rest % (W / 8));
-}
+// Tiles of the backward live in the core-matrix layout of wgmma.cuh
+// (kmajor, mnmajor, chunk_rc).
 
 // rows [r0, r0 + 64) of an [n x d] slice (row stride `row`) into a
 // core-matrix tile of width W; rows >= n and columns >= d zero
@@ -718,27 +693,6 @@ __device__ __forceinline__ void stage_probs(uint16_t* dst, const uint16_t* p,
       *reinterpret_cast<uint4*>(t) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
-}
-
-// Accumulator element e (0..3) of column block j of a warpgroup's 64 x 64
-// product: tile row 16 (warp in the warpgroup) + lane / 4 (+ 8 for e >=
-// 2), tile column 8 j + 2 (lane % 4) + (e & 1).
-__device__ __forceinline__ int acc_row(int e) {
-  return ((threadIdx.x & 127) >> 5) * 16 + ((threadIdx.x & 31) >> 2) +
-         8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int j, int e) {
-  return 8 * j + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
-// the register A operand of k-step kk (16 columns = blocks 2 kk, 2 kk + 1)
-// from a 64 x 64 accumulator, rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[32],
-                                         int kk) {
-  a[0] = pack_bf16x2(x[8 * kk], x[8 * kk + 1]);
-  a[1] = pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
-  a[2] = pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
-  a[3] = pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
 // Issue t = C D^T (the dp product) and, with `logits`, s = A B^T (A, B,
@@ -1258,50 +1212,77 @@ __global__ void mvit_bwd_reduce(const float* __restrict__ work, int splits,
   }
 }
 
-// ------------------------------------------------- fp32 (scalar) kernels
+// ------------------------------------------ scalar kernels (any head dim)
+
+// The fp32 kernels, and the bf16 ones at the head dims the tensor-core
+// kernels do not take (d not a multiple of 8, or d > 128): one warp per
+// query or key row, fp32 arithmetic with the bf16 roundings of the
+// tensor-core path (p, or K7's unnormalised e, before P V; ds before the
+// dq, dk and d(rel) sums; p before dv).  A head of d columns is split into
+// ceil(d / GW) column groups along grid z: each CTA forms the logits over
+// all d columns and writes its group's columns of o (dq, dk, dv); group 0
+// alone writes l or lse, the saved probabilities, D and d(rel).
+constexpr int GW = 128;     // columns of a group
+constexpr int U = GW / 32;  // a lane's columns lane + 32 u of its group
+
+__device__ __forceinline__ int groups_of(int d) { return (d + GW - 1) / GW; }
 
 // key row j of [body; cls]
-__device__ __forceinline__ const float* key_row(const float* x, const float* xc,
-                                                int j, const Geo& g) {
+template <typename T>
+__device__ __forceinline__ const T* key_row(const T* x, const T* xc, int j,
+                                            const Geo& g) {
   return j < g.kn ? x + (size_t)j * g.row : xc;
 }
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
+template <typename T>
+__device__ __forceinline__ float dot(const T* a, const T* b, int d) {
   float s = 0.f;
 #pragma unroll 8
-  for (int e = 0; e < d; ++e) s = fmaf(a[e], b[e], s);
+  for (int e = 0; e < d; ++e) s = fmaf(load1(a + e), load1(b + e), s);
   return s;
 }
 
-// lane's columns lane + 32 u (u < 4) of a head of d <= 128
-constexpr int U = MAX_D / 32;
+// bias of key j < kn on the rel row r: ((rel_t + rel_h) + rel_w)
+template <typename T>
+__device__ __forceinline__ float bias_of(const T* r, int j, const Geo& g) {
+  const int hw = g.kh * g.kw;
+  return (load1(r + j / hw) + load1(r + g.kt + (j / g.kw) % g.kh)) +
+         load1(r + g.kt + g.kh + j % g.kw);
+}
 
 // s_ij of query row qi (its rel row ri) and key row j
-__device__ __forceinline__ float logit(const float* qi, const float* ri,
-                                       const float* kj, int j, const Geo& g,
-                                       float scale) {
+template <typename T>
+__device__ __forceinline__ float logit(const T* qi, const T* ri, const T* kj,
+                                       int j, const Geo& g, float scale) {
   const float s = dot(qi, kj, g.d) * scale;
   return j < g.kn ? s + bias_of(ri, j, g) : s;
 }
 
+// x rounded as the tensor-core path rounds an operand of type T
+template <typename T>
+__device__ __forceinline__ float op(float x) {
+  return round_to(x, static_cast<const T*>(nullptr));
+}
+
 // Forward: one warp per query row; shared memory holds the warp's row of
 // exponentials [kn + 1].  SAVE (K6sp) also writes p to probs.
-template <bool SAVE>
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(WARPS * 32)
-mvit_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ kc,
-                const float* __restrict__ vc, const float* __restrict__ rel,
-                float* __restrict__ out, float* __restrict__ rowsum,
-                float* __restrict__ probs, Geo g, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+mvit_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ kc,
+                const T* __restrict__ vc, const T* __restrict__ rel,
+                T* __restrict__ out, float* __restrict__ rowsum,
+                T* __restrict__ probs, Geo g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
+  const int c0 = blockIdx.z * GW;  // this CTA's column group
   if (i >= g.qn) return;  // warp-uniform; no block barrier below
   float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * (g.kn + 1);
-  const float* qi = q_of(q, g, bh) + (size_t)i * g.row;
-  const float* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
-  const float* kp = k_of(k, g, bh);
-  const float* kcp = c_of(kc, g, bh);
+  const T* qi = q_of(q, g, bh) + (size_t)i * g.row;
+  const T* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
+  const T* kp = k_of(k, g, bh);
+  const T* kcp = c_of(kc, g, bh);
   float part = 0.f;
   for (int j = lane; j <= g.kn; j += 32) {
     const float e =
@@ -1310,45 +1291,47 @@ mvit_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
     part += e;
   }
   const float l = warp_sum(part);
-  if constexpr (SAVE) {
-    float* pi = probs_of(probs, g, bh) + (size_t)i * g.pld;
-    for (int j = lane; j < g.pld; j += 32) pi[j] = j <= g.kn ? e_w[j] / l : 0.f;
+  if (SAVE && c0 == 0) {
+    T* pi = probs_of(probs, g, bh) + (size_t)i * g.pld;
+    for (int j = lane; j < g.pld; j += 32) store1(pi + j, j <= g.kn ? e_w[j] / l : 0.f);
   }
   __syncwarp();
-  const float* vp = k_of(v, g, bh);
-  const float* vcp = c_of(vc, g, bh);
+  const T* vp = k_of(v, g, bh);
+  const T* vcp = c_of(vc, g, bh);
   float o[U] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j <= g.kn; ++j) {
-    const float p = e_w[j] / l;
-    const float* vj = key_row(vp, vcp, j, g);
+    const float p = op<T>(e_w[j] / l);
+    const T* vj = key_row(vp, vcp, j, g) + c0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (lane + 32 * u < g.d) o[u] = fmaf(p, vj[lane + 32 * u], o[u]);
+      if (c0 + lane + 32 * u < g.d) o[u] = fmaf(p, load1(vj + lane + 32 * u), o[u]);
   }
-  float* oi = q_of(out, g, bh) + (size_t)i * g.row;
+  T* oi = q_of(out, g, bh) + (size_t)i * g.row + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (lane + 32 * u < g.d) oi[lane + 32 * u] = o[u];
-  if (lane == 0) rowsum[(size_t)bh * g.qn + i] = l;
+    if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u]);
+  if (c0 == 0 && lane == 0) rowsum[(size_t)bh * g.qn + i] = l;
 }
 
 // K7f: one warp per query row; shared memory holds the warp's logits, then
-// p = exp(s - m) with m the row max; o = (sum_j p_j v_j) / l.
+// e = exp(s - m) with m the row max; o = (sum_j e_j v_j) / l.
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-mvit_fwd_kt_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ kc,
-                   const float* __restrict__ vc, const float* __restrict__ rel,
-                   float* __restrict__ out, float* __restrict__ lse, Geo g,
+mvit_fwd_kt_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ kc,
+                   const T* __restrict__ vc, const T* __restrict__ rel,
+                   T* __restrict__ out, float* __restrict__ lse, Geo g,
                    float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
+  const int c0 = blockIdx.z * GW;
   if (i >= g.qn) return;  // warp-uniform; no block barrier below
   float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * (g.kn + 1);
-  const float* qi = q_of(q, g, bh) + (size_t)i * g.row;
-  const float* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
-  const float* kp = k_of(k, g, bh);
-  const float* kcp = c_of(kc, g, bh);
+  const T* qi = q_of(q, g, bh) + (size_t)i * g.row;
+  const T* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
+  const T* kp = k_of(k, g, bh);
+  const T* kcp = c_of(kc, g, bh);
   float mx = MASKED;
   for (int j = lane; j <= g.kn; j += 32) {
     const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
@@ -1364,56 +1347,57 @@ mvit_fwd_kt_scalar(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float l = warp_sum(part);
   __syncwarp();
-  const float* vp = k_of(v, g, bh);
-  const float* vcp = c_of(vc, g, bh);
+  const T* vp = k_of(v, g, bh);
+  const T* vcp = c_of(vc, g, bh);
   float o[U] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j <= g.kn; ++j) {
-    const float* vj = key_row(vp, vcp, j, g);
+    const float e = op<T>(e_w[j]);
+    const T* vj = key_row(vp, vcp, j, g) + c0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (lane + 32 * u < g.d) o[u] = fmaf(e_w[j], vj[lane + 32 * u], o[u]);
+      if (c0 + lane + 32 * u < g.d) o[u] = fmaf(e, load1(vj + lane + 32 * u), o[u]);
   }
-  float* oi = q_of(out, g, bh) + (size_t)i * g.row;
+  T* oi = q_of(out, g, bh) + (size_t)i * g.row + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (lane + 32 * u < g.d) oi[lane + 32 * u] = o[u] / l;
-  if (lane == 0) lse[(size_t)bh * g.qn + i] = m + logf(l);
+    if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u] / l);
+  if (c0 == 0 && lane == 0) lse[(size_t)bh * g.qn + i] = m + logf(l);
 }
 
 // Query-major backward: one warp per query row; per warp two rows [kn + 1]
-// of shared memory (p, then ds; and dp).  M as in mvit_bwd_q_mma.
-template <int M>
+// of shared memory (p, then ds rounded; and dp).  M as in mvit_bwd_q_wg.
+template <typename T, int M>
 __global__ void __launch_bounds__(WARPS * 32)
-mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ kc,
-                  const float* __restrict__ vc, const float* __restrict__ rel,
-                  const float* __restrict__ rowsum, const float* __restrict__ o,
-                  const float* __restrict__ probs,
-                  const float* __restrict__ gr, float* __restrict__ delta,
-                  float* __restrict__ dq, float* __restrict__ drel, Geo g,
-                  float scale) {
+mvit_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ kc,
+                  const T* __restrict__ vc, const T* __restrict__ rel,
+                  const float* __restrict__ rowsum, const T* __restrict__ o,
+                  const T* __restrict__ probs, const T* __restrict__ gr,
+                  float* __restrict__ delta, T* __restrict__ dq,
+                  T* __restrict__ drel, Geo g, float scale) {
   constexpr bool LSE = M == kRowMax, SAVED = M == kSaved;
   constexpr bool D_FROM_O = M == kRowMax || M == kDelta;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
+  const int c0 = blockIdx.z * GW;
   if (i >= g.qn) return;
   float* p_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * 2 * (g.kn + 1);
   float* dp_w = p_w + g.kn + 1;
-  const float* qi = q_of(q, g, bh) + (size_t)i * g.row;
-  const float* gi = q_of(gr, g, bh) + (size_t)i * g.row;
-  const float* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
-  const float* kp = k_of(k, g, bh);
-  const float* kcp = c_of(kc, g, bh);
-  const float* vp = k_of(v, g, bh);
-  const float* vcp = c_of(vc, g, bh);
+  const T* qi = q_of(q, g, bh) + (size_t)i * g.row;
+  const T* gi = q_of(gr, g, bh) + (size_t)i * g.row;
+  const T* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
+  const T* kp = k_of(k, g, bh);
+  const T* kcp = c_of(kc, g, bh);
+  const T* vp = k_of(v, g, bh);
+  const T* vcp = c_of(vc, g, bh);
   const float l = SAVED ? 1.f : rowsum[(size_t)bh * g.qn + i];  // K7: lse
-  const float* pi = SAVED ? probs_of(probs, g, bh) + (size_t)i * g.pld : nullptr;
+  const T* pi = SAVED ? probs_of(probs, g, bh) + (size_t)i * g.pld : nullptr;
   float part = 0.f;
   for (int j = lane; j <= g.kn; j += 32) {
     float p;
     if constexpr (SAVED) {
-      p = pi[j];
+      p = load1(pi + j);
     } else {
       const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
       p = LSE ? expf(s - l) : expf(fminf(s, CLAMP_HI)) / l;
@@ -1425,23 +1409,24 @@ mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float Dl = D_FROM_O ? dot(gi, q_of(o, g, bh) + (size_t)i * g.row, g.d)
                             : warp_sum(part);
-  if (lane == 0) delta[(size_t)bh * g.qn + i] = Dl;
-  for (int j = lane; j <= g.kn; j += 32) p_w[j] = p_w[j] * (dp_w[j] - Dl);
+  if (c0 == 0 && lane == 0) delta[(size_t)bh * g.qn + i] = Dl;
+  for (int j = lane; j <= g.kn; j += 32) p_w[j] = op<T>(p_w[j] * (dp_w[j] - Dl));
   __syncwarp();
   float a[U] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j <= g.kn; ++j) {
     const float ds = p_w[j];
-    const float* kj = key_row(kp, kcp, j, g);
+    const T* kj = key_row(kp, kcp, j, g) + c0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (lane + 32 * u < g.d) a[u] = fmaf(ds, kj[lane + 32 * u], a[u]);
+      if (c0 + lane + 32 * u < g.d) a[u] = fmaf(ds, load1(kj + lane + 32 * u), a[u]);
   }
-  float* dqi = q_of(dq, g, bh) + (size_t)i * g.row;
+  T* dqi = q_of(dq, g, bh) + (size_t)i * g.row + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (lane + 32 * u < g.d) dqi[lane + 32 * u] = a[u] * scale;
+    if (c0 + lane + 32 * u < g.d) store1(dqi + lane + 32 * u, a[u] * scale);
+  if (c0 != 0) return;
   // d(rel): lane c sums ds over the body keys on its axis entry, j rising
-  float* dri = rel_of(drel, g, bh) + (size_t)i * g.rrow;
+  T* dri = rel_of(drel, g, bh) + (size_t)i * g.rrow;
   const int hw = g.kh * g.kw;
   for (int c = lane; c < g.kcat; c += 32) {
     float s = 0.f;
@@ -1451,33 +1436,34 @@ mvit_bwd_q_scalar(const float* __restrict__ q, const float* __restrict__ k,
                                       : j % g.kw == c - g.kt - g.kh;
       if (on) s += p_w[j];
     }
-    dri[c] = s;
+    store1(dri + c, s);
   }
 }
 
 // Key-major backward: one warp per key row of [body; cls]; lanes take 32
 // queries at a time, then sum their products over them.  M as in
-// mvit_bwd_q_mma.
-template <int M>
+// mvit_bwd_q_wg.
+template <typename T, int M>
 __global__ void __launch_bounds__(WARPS * 32)
-mvit_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ kc,
-                  const float* __restrict__ vc, const float* __restrict__ rel,
+mvit_bwd_k_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ kc,
+                  const T* __restrict__ vc, const T* __restrict__ rel,
                   const float* __restrict__ rowsum,
-                  const float* __restrict__ probs, const float* __restrict__ gr,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, float* __restrict__ dkc,
-                  float* __restrict__ dvc, Geo g, float scale) {
+                  const T* __restrict__ probs, const T* __restrict__ gr,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, T* __restrict__ dkc,
+                  T* __restrict__ dvc, Geo g, float scale) {
   constexpr bool LSE = M == kRowMax, SAVED = M == kSaved;
   __shared__ float p_s[WARPS][32], ds_s[WARPS][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bh = blockIdx.y, j = blockIdx.x * WARPS + warp;
+  const int c0 = blockIdx.z * GW;
   if (j > g.kn) return;
-  const float* kj = key_row(k_of(k, g, bh), c_of(kc, g, bh), j, g);
-  const float* vj = key_row(k_of(v, g, bh), c_of(vc, g, bh), j, g);
-  const float* qp = q_of(q, g, bh);
-  const float* gp = q_of(gr, g, bh);
-  const float* relp = rel_of(rel, g, bh);
+  const T* kj = key_row(k_of(k, g, bh), c_of(kc, g, bh), j, g);
+  const T* vj = key_row(k_of(v, g, bh), c_of(vc, g, bh), j, g);
+  const T* qp = q_of(q, g, bh);
+  const T* gp = q_of(gr, g, bh);
+  const T* relp = rel_of(rel, g, bh);
   const float* rs = rowsum + (size_t)bh * g.qn;
   const float* dl = delta + (size_t)bh * g.qn;
   float ak[U] = {0.f, 0.f, 0.f, 0.f}, av[U] = {0.f, 0.f, 0.f, 0.f};
@@ -1486,37 +1472,37 @@ mvit_bwd_k_scalar(const float* __restrict__ q, const float* __restrict__ k,
     float p = 0.f, ds = 0.f;
     if (i < g.qn) {
       if constexpr (SAVED) {
-        p = probs_of(probs, g, bh)[(size_t)i * g.pld + j];
+        p = load1(probs_of(probs, g, bh) + (size_t)i * g.pld + j);
       } else {
-        const float* qi = qp + (size_t)i * g.row;
+        const T* qi = qp + (size_t)i * g.row;
         const float s = logit(qi, relp + (size_t)i * g.rrow, kj, j, g, scale);
         p = LSE ? expf(s - rs[i]) : expf(fminf(s, CLAMP_HI)) / rs[i];
       }
       ds = p * (dot(gp + (size_t)i * g.row, vj, g.d) - dl[i]);
     }
-    p_s[warp][lane] = p;
-    ds_s[warp][lane] = ds;
+    p_s[warp][lane] = op<T>(p);
+    ds_s[warp][lane] = op<T>(ds);
     __syncwarp();
     const int n = min(32, g.qn - i0);
     for (int t = 0; t < n; ++t) {
-      const float* qi = qp + (size_t)(i0 + t) * g.row;
-      const float* gi = gp + (size_t)(i0 + t) * g.row;
+      const T* qi = qp + (size_t)(i0 + t) * g.row + c0;
+      const T* gi = gp + (size_t)(i0 + t) * g.row + c0;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (lane + 32 * u >= g.d) continue;
-        ak[u] = fmaf(ds_s[warp][t], qi[lane + 32 * u], ak[u]);
-        av[u] = fmaf(p_s[warp][t], gi[lane + 32 * u], av[u]);
+        if (c0 + lane + 32 * u >= g.d) continue;
+        ak[u] = fmaf(ds_s[warp][t], load1(qi + lane + 32 * u), ak[u]);
+        av[u] = fmaf(p_s[warp][t], load1(gi + lane + 32 * u), av[u]);
       }
     }
     __syncwarp();
   }
-  float* kd = j < g.kn ? k_of(dk, g, bh) + (size_t)j * g.row : c_of(dkc, g, bh);
-  float* vd = j < g.kn ? k_of(dv, g, bh) + (size_t)j * g.row : c_of(dvc, g, bh);
+  T* kd = (j < g.kn ? k_of(dk, g, bh) + (size_t)j * g.row : c_of(dkc, g, bh)) + c0;
+  T* vd = (j < g.kn ? k_of(dv, g, bh) + (size_t)j * g.row : c_of(dvc, g, bh)) + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    if (lane + 32 * u >= g.d) continue;
-    kd[lane + 32 * u] = ak[u] * scale;
-    vd[lane + 32 * u] = av[u];
+    if (c0 + lane + 32 * u >= g.d) continue;
+    store1(kd + lane + 32 * u, ak[u] * scale);
+    store1(vd + lane + 32 * u, av[u]);
   }
 }
 
@@ -1529,8 +1515,11 @@ cudaError_t set_smem(K kernel, size_t smem) {
 bool valid(int b, int heads, int qn, int kn, int kt, int kh, int kw, int d) {
   return b > 0 && heads > 0 && qn > 0 && kn > 0 && kt > 0 && kh > 0 &&
          kw > 0 && kt * kh * kw == kn && kt + kh + kw <= KCAT &&
-         b * heads <= 65535 && d >= 8 && d <= MAX_D && d % 8 == 0;
+         b * heads <= 65535 && d >= 1 && (d + GW - 1) / GW <= 65535;
 }
+
+// whether the bf16 tensor-core kernels take head dim d
+bool on_tensor_cores(int d) { return d % 8 == 0 && d <= MAX_D; }
 
 // f(width) for the bf16 tile width of head dim d: the narrowest of 64, 96
 // and 128 that holds it
@@ -1541,6 +1530,36 @@ int with_width(int d, F f) {
   return f(std::integral_constant<int, 128>{});
 }
 
+// The scalar forward of element type T: K5/K6 (KT = false; with SAVE,
+// K6sp) or K7 (KT = true)
+template <typename T, bool KT, bool SAVE>
+int launch_fwd_scalar(const void* q, const void* k, const void* v,
+                      const void* kc, const void* vc, const void* rel,
+                      void* out, void* stats, void* probs, int bhs,
+                      const Geo& g, float scale, cudaStream_t st) {
+  const size_t smem = (size_t)WARPS * (g.kn + 1) * sizeof(float);
+  const dim3 grid((g.qn + WARPS - 1) / WARPS, bhs, (g.d + GW - 1) / GW);
+  if constexpr (KT) {
+    cudaError_t err = set_smem(mvit_fwd_kt_scalar<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mvit_fwd_kt_scalar<T><<<grid, WARPS * 32, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(kc),
+        static_cast<const T*>(vc), static_cast<const T*>(rel),
+        static_cast<T*>(out), static_cast<float*>(stats), g, scale);
+  } else {
+    cudaError_t err = set_smem(mvit_fwd_scalar<T, SAVE>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mvit_fwd_scalar<T, SAVE><<<grid, WARPS * 32, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(kc),
+        static_cast<const T*>(vc), static_cast<const T*>(rel),
+        static_cast<T*>(out), static_cast<float*>(stats),
+        static_cast<T*>(probs), g, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 // The forward of K5/K6 (KT = false: out and the row sums l; with SAVE,
 // K6sp, also probs) or of K7 (KT = true: out and lse).
 template <bool KT, bool SAVE>
@@ -1548,63 +1567,46 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
                const void* vc, const void* rel, void* out, void* stats,
                void* probs, int b, int heads, int qn, int kn, int kt, int kh,
                int kw, int d, int dtype, float scale, void* stream) {
-  if (!valid(b, heads, qn, kn, kt, kh, kw, d)) return (int)cudaErrorInvalidValue;
+  if (!valid(b, heads, qn, kn, kt, kh, kw, d) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(heads, qn, kn, kt, kh, kw, d);
-  if (dtype == 1) {
-    using u16 = uint16_t;
-    const dim3 grid((qn + BM - 1) / BM, b * heads);
-    auto run = [&](auto w, auto exact) {
-      constexpr int DP = decltype(w)::value;
-      constexpr bool EXACT = decltype(exact)::value;
-      constexpr size_t smem = fwd_smem<DP>();
-      if constexpr (KT) {
-        cudaError_t err = set_smem(mvit_fwd_kt_mma<DP, EXACT>, smem);
-        if (err != cudaSuccess) return (int)err;
-        mvit_fwd_kt_mma<DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
-            static_cast<const u16*>(q), static_cast<const u16*>(k),
-            static_cast<const u16*>(v), static_cast<const u16*>(kc),
-            static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-            static_cast<u16*>(out), static_cast<float*>(stats), g, scale);
-      } else {
-        cudaError_t err = set_smem(mvit_fwd_mma<SAVE, DP, EXACT>, smem);
-        if (err != cudaSuccess) return (int)err;
-        mvit_fwd_mma<SAVE, DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
-            static_cast<const u16*>(q), static_cast<const u16*>(k),
-            static_cast<const u16*>(v), static_cast<const u16*>(kc),
-            static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-            static_cast<u16*>(out), static_cast<float*>(stats),
-            static_cast<u16*>(probs), g, scale);
-      }
-      return (int)cudaGetLastError();
-    };
-    return with_width(d, [&](auto w) {
-      return d == decltype(w)::value ? run(w, std::true_type{})
-                                     : run(w, std::false_type{});
-    });
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * (kn + 1) * sizeof(float);
-  const dim3 grid((qn + WARPS - 1) / WARPS, b * heads);
-  if constexpr (KT) {
-    cudaError_t err = set_smem(mvit_fwd_kt_scalar, smem);
-    if (err != cudaSuccess) return (int)err;
-    mvit_fwd_kt_scalar<<<grid, WARPS * 32, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(kc),
-        static_cast<const float*>(vc), static_cast<const float*>(rel),
-        static_cast<float*>(out), static_cast<float*>(stats), g, scale);
-  } else {
-    cudaError_t err = set_smem(mvit_fwd_scalar<SAVE>, smem);
-    if (err != cudaSuccess) return (int)err;
-    mvit_fwd_scalar<SAVE><<<grid, WARPS * 32, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(kc),
-        static_cast<const float*>(vc), static_cast<const float*>(rel),
-        static_cast<float*>(out), static_cast<float*>(stats),
-        static_cast<float*>(probs), g, scale);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_fwd_scalar<float, KT, SAVE>(q, k, v, kc, vc, rel, out, stats,
+                                              probs, b * heads, g, scale, st);
+  if (!on_tensor_cores(d))
+    return launch_fwd_scalar<__nv_bfloat16, KT, SAVE>(
+        q, k, v, kc, vc, rel, out, stats, probs, b * heads, g, scale, st);
+  using u16 = uint16_t;
+  const dim3 grid((qn + BM - 1) / BM, b * heads);
+  auto run = [&](auto w, auto exact) {
+    constexpr int DP = decltype(w)::value;
+    constexpr bool EXACT = decltype(exact)::value;
+    constexpr size_t smem = fwd_smem<DP>();
+    if constexpr (KT) {
+      cudaError_t err = set_smem(mvit_fwd_kt_mma<DP, EXACT>, smem);
+      if (err != cudaSuccess) return (int)err;
+      mvit_fwd_kt_mma<DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
+          static_cast<const u16*>(q), static_cast<const u16*>(k),
+          static_cast<const u16*>(v), static_cast<const u16*>(kc),
+          static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+          static_cast<u16*>(out), static_cast<float*>(stats), g, scale);
+    } else {
+      cudaError_t err = set_smem(mvit_fwd_mma<SAVE, DP, EXACT>, smem);
+      if (err != cudaSuccess) return (int)err;
+      mvit_fwd_mma<SAVE, DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
+          static_cast<const u16*>(q), static_cast<const u16*>(k),
+          static_cast<const u16*>(v), static_cast<const u16*>(kc),
+          static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+          static_cast<u16*>(out), static_cast<float*>(stats),
+          static_cast<u16*>(probs), g, scale);
+    }
+    return (int)cudaGetLastError();
+  };
+  return with_width(d, [&](auto w) {
+    return d == decltype(w)::value ? run(w, std::true_type{})
+                                   : run(w, std::false_type{});
+  });
 }
 
 // The pointers of one backward call
@@ -1614,51 +1616,77 @@ struct BwdArgs {
   float* work;  // [2][splits][b * heads][kn + 1][d] fp32, splits > 1
 };
 
-// The bf16 backward of variant M at tile width DP: the query-major pass
-// (passes & 1), then the key-major pass and, with splits > 1, its
-// reduction (passes & 2).
+// The bf16 backward of variant M at tile width DP: the query-major pass,
+// then the key-major pass and, with splits > 1, its reduction.
 template <int M, int DP>
 int launch_bwd_wg(const BwdArgs& a, int bhs, const Geo& geo, int splits,
-                  float scale, cudaStream_t st, int passes = 3) {
+                  float scale, cudaStream_t st) {
   using u16 = uint16_t;
   constexpr size_t sq = bwd_q_smem<M, DP>(), sk = bwd_k_smem<M, DP>();
   cudaError_t err = set_smem(mvit_bwd_q_wg<M, DP>, sq);
   if (err == cudaSuccess) err = set_smem(mvit_bwd_k_wg<M, DP>, sk);
   if (err != cudaSuccess) return (int)err;
-  if (passes & 1) {
-    mvit_bwd_q_wg<M, DP><<<dim3((geo.qn + QM - 1) / QM, bhs), QWG * 128, sq,
-                           st>>>(
-        static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
-        static_cast<const u16*>(a.v), static_cast<const u16*>(a.kc),
-        static_cast<const u16*>(a.vc), static_cast<const u16*>(a.rel),
-        static_cast<const float*>(a.stats), static_cast<const u16*>(a.o),
-        static_cast<const u16*>(a.probs), static_cast<const u16*>(a.g),
-        static_cast<float*>(a.delta), static_cast<u16*>(a.dq),
-        static_cast<u16*>(a.drel), geo, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (passes & 2) {
-    mvit_bwd_k_wg<M, DP><<<dim3((geo.kn + 1 + KM - 1) / KM, splits, bhs),
-                           KWG * 128, sk, st>>>(
-        static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
-        static_cast<const u16*>(a.v), static_cast<const u16*>(a.kc),
-        static_cast<const u16*>(a.vc), static_cast<const u16*>(a.rel),
-        static_cast<const float*>(a.stats), static_cast<const u16*>(a.probs),
-        static_cast<const u16*>(a.g), static_cast<const float*>(a.delta),
-        static_cast<u16*>(a.dk), static_cast<u16*>(a.dv),
-        static_cast<u16*>(a.dkc), static_cast<u16*>(a.dvc), a.work, splits,
-        geo, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return (int)err;
-    const size_t n = (size_t)2 * bhs * (geo.kn + 1) * (geo.d / 4);
-    const unsigned blocks = (unsigned)std::min<size_t>((n + 255) / 256, 4096);
-    mvit_bwd_reduce<<<blocks, 256, 0, st>>>(
-        a.work, splits, bhs, static_cast<u16*>(a.dk), static_cast<u16*>(a.dv),
-        static_cast<u16*>(a.dkc), static_cast<u16*>(a.dvc), geo, scale);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  mvit_bwd_q_wg<M, DP><<<dim3((geo.qn + QM - 1) / QM, bhs), QWG * 128, sq,
+                         st>>>(
+      static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
+      static_cast<const u16*>(a.v), static_cast<const u16*>(a.kc),
+      static_cast<const u16*>(a.vc), static_cast<const u16*>(a.rel),
+      static_cast<const float*>(a.stats), static_cast<const u16*>(a.o),
+      static_cast<const u16*>(a.probs), static_cast<const u16*>(a.g),
+      static_cast<float*>(a.delta), static_cast<u16*>(a.dq),
+      static_cast<u16*>(a.drel), geo, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mvit_bwd_k_wg<M, DP><<<dim3((geo.kn + 1 + KM - 1) / KM, splits, bhs),
+                         KWG * 128, sk, st>>>(
+      static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
+      static_cast<const u16*>(a.v), static_cast<const u16*>(a.kc),
+      static_cast<const u16*>(a.vc), static_cast<const u16*>(a.rel),
+      static_cast<const float*>(a.stats), static_cast<const u16*>(a.probs),
+      static_cast<const u16*>(a.g), static_cast<const float*>(a.delta),
+      static_cast<u16*>(a.dk), static_cast<u16*>(a.dv),
+      static_cast<u16*>(a.dkc), static_cast<u16*>(a.dvc), a.work, splits,
+      geo, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n = (size_t)2 * bhs * (geo.kn + 1) * (geo.d / 4);
+  const unsigned blocks = (unsigned)std::min<size_t>((n + 255) / 256, 4096);
+  mvit_bwd_reduce<<<blocks, 256, 0, st>>>(
+      a.work, splits, bhs, static_cast<u16*>(a.dk), static_cast<u16*>(a.dv),
+      static_cast<u16*>(a.dkc), static_cast<u16*>(a.dvc), geo, scale);
+  return (int)cudaGetLastError();
+}
+
+// The scalar backward of element type T, variant M: the query-major and
+// the key-major kernel, each over the head's column groups
+template <typename T, int M>
+int launch_bwd_scalar(const BwdArgs& a, int bhs, const Geo& geo, float scale,
+                      cudaStream_t st) {
+  const int groups = (geo.d + GW - 1) / GW;
+  const size_t smem = (size_t)WARPS * 2 * (geo.kn + 1) * sizeof(float);
+  cudaError_t err = set_smem(mvit_bwd_q_scalar<T, M>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mvit_bwd_q_scalar<T, M><<<dim3((geo.qn + WARPS - 1) / WARPS, bhs, groups),
+                            WARPS * 32, smem, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), static_cast<const T*>(a.rel),
+      static_cast<const float*>(a.stats), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.probs), static_cast<const T*>(a.g),
+      static_cast<float*>(a.delta), static_cast<T*>(a.dq),
+      static_cast<T*>(a.drel), geo, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mvit_bwd_k_scalar<T, M><<<dim3((geo.kn + 1 + WARPS - 1) / WARPS, bhs, groups),
+                            WARPS * 32, 0, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), static_cast<const T*>(a.rel),
+      static_cast<const float*>(a.stats), static_cast<const T*>(a.probs),
+      static_cast<const T*>(a.g), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), static_cast<T*>(a.dkc),
+      static_cast<T*>(a.dvc), geo, scale);
+  return (int)cudaGetLastError();
 }
 
 // The backward of variant M (enum Bwd): stats = l (kRecompute, kDelta) or
@@ -1675,83 +1703,25 @@ int launch_bwd(const BwdArgs& a, int b, int heads, int qn, int kn, int kt,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo geo = make_geo(heads, qn, kn, kt, kh, kw, d);
-  if (dtype == 1) {
+  if (dtype == 1 && on_tensor_cores(d)) {
     return with_width(d, [&](auto w) {
       return launch_bwd_wg<M, decltype(w)::value>(a, b * heads, geo, splits,
                                                   scale, st);
     });
   }
+  if (dtype == 1)
+    return launch_bwd_scalar<__nv_bfloat16, M>(a, b * heads, geo, scale, st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * 2 * (kn + 1) * sizeof(float);
-  cudaError_t err = set_smem(mvit_bwd_q_scalar<M>, smem);
-  if (err != cudaSuccess) return (int)err;
-  mvit_bwd_q_scalar<M><<<dim3((qn + WARPS - 1) / WARPS, b * heads),
-                         WARPS * 32, smem, st>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.kc),
-      static_cast<const float*>(a.vc), static_cast<const float*>(a.rel),
-      static_cast<const float*>(a.stats), static_cast<const float*>(a.o),
-      static_cast<const float*>(a.probs), static_cast<const float*>(a.g),
-      static_cast<float*>(a.delta), static_cast<float*>(a.dq),
-      static_cast<float*>(a.drel), geo, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mvit_bwd_k_scalar<M><<<dim3((kn + 1 + WARPS - 1) / WARPS, b * heads),
-                         WARPS * 32, 0, st>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.kc),
-      static_cast<const float*>(a.vc), static_cast<const float*>(a.rel),
-      static_cast<const float*>(a.stats), static_cast<const float*>(a.probs),
-      static_cast<const float*>(a.g), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      static_cast<float*>(a.dkc), static_cast<float*>(a.dvc), geo, scale);
-  return (int)cudaGetLastError();
-}
-
-// Each pass of the bf16 backward of variant M launched `reps` times between
-// CUDA events (after one warm-up call); ms[0] the query-major pass, ms[1]
-// the key-major pass with its reduction.  info[0..5]: resident CTAs per SM,
-// registers and local bytes of the query-major and the key-major kernel.
-template <int M, int DP>
-int time_bwd(const BwdArgs& a, int bhs, const Geo& geo, int splits,
-             float scale, int reps, float* ms, int* info, cudaStream_t st) {
-  int rc = launch_bwd_wg<M, DP>(a, bhs, geo, splits, scale, st);
-  if (rc) return rc;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[0], mvit_bwd_q_wg<M, DP>, QWG * 128, bwd_q_smem<M, DP>());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[1], mvit_bwd_k_wg<M, DP>, KWG * 128, bwd_k_smem<M, DP>());
-  cudaFuncAttributes fa;
-  cudaFuncGetAttributes(&fa, mvit_bwd_q_wg<M, DP>);
-  info[2] = fa.numRegs;
-  info[4] = (int)fa.localSizeBytes;
-  cudaFuncGetAttributes(&fa, mvit_bwd_k_wg<M, DP>);
-  info[3] = fa.numRegs;
-  info[5] = (int)fa.localSizeBytes;
-  cudaEvent_t e[3];
-  for (auto& x : e) cudaEventCreate(&x);
-  cudaEventRecord(e[0], st);
-  for (int r = 0; r < reps && !rc; ++r)
-    rc = launch_bwd_wg<M, DP>(a, bhs, geo, splits, scale, st, 1);
-  cudaEventRecord(e[1], st);
-  for (int r = 0; r < reps && !rc; ++r)
-    rc = launch_bwd_wg<M, DP>(a, bhs, geo, splits, scale, st, 2);
-  cudaEventRecord(e[2], st);
-  cudaEventSynchronize(e[2]);
-  cudaEventElapsedTime(&ms[0], e[0], e[1]);
-  cudaEventElapsedTime(&ms[1], e[1], e[2]);
-  ms[0] /= reps;
-  ms[1] /= reps;
-  for (auto& x : e) cudaEventDestroy(x);
-  return rc;
+  return launch_bwd_scalar<float, M>(a, b * heads, geo, scale, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  b, heads: the head-last call passes
 // (B, H) with tensors [B, L, H*d]; the head-split call (B*H, 1) with
-// tensors [B*H, L, d].  head_dim d: a multiple of 8 up to 128.  Each entry
-// point returns the CUDA error code of its launches (0 on success).
+// tensors [B*H, L, d].  head_dim d: any; the bf16 tensor-core kernels take
+// multiples of 8 up to 128, the scalar kernels the rest.  Each entry point
+// returns the CUDA error code of its launches (0 on success).
 
 // K5f / K6f: out (like q) and rowsum [b, heads, qn] fp32.
 extern "C" int mvit_attention_fwd(const void* q, const void* k, const void* v,
@@ -1798,8 +1768,9 @@ extern "C" int mvit_attention_kt_fwd(const void* q, const void* k,
 // residuals: o, the output (variants 1, 2); stats, l (0, 2) or lse (1);
 // probs, K6sp's probabilities (3).  delta [b, heads, qn] fp32 is scratch
 // written by the query-major kernel and read by the key-major one; work,
-// with splits > 1 (bf16 only), scratch of 2 * splits * b * heads * (kn + 1)
-// * head_dim floats for the key-major partials.
+// with splits > 1 (the bf16 tensor-core kernels only), scratch of 2 *
+// splits * b * heads * (kn + 1) * head_dim floats for the key-major
+// partials.
 extern "C" int mvit_attention_bwd(int variant, const void* q, const void* k,
                                   const void* v, const void* kc,
                                   const void* vc, const void* rel,
@@ -1823,39 +1794,4 @@ extern "C" int mvit_attention_bwd(int variant, const void* q, const void* k,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BWD
-}
-
-// Timing only: the two passes of the bf16 backward of `variant` (arguments
-// as mvit_attention_bwd) apart, `reps` times each between CUDA events after
-// one warm-up call, on `stream`, which it synchronises.  ms[0] the
-// query-major pass, ms[1] the key-major pass with its reduction; info[0..5]
-// resident CTAs per SM, registers and local bytes of the query-major and
-// the key-major kernel.
-extern "C" int mvit_attention_bwd_time(
-    int variant, const void* q, const void* k, const void* v, const void* kc,
-    const void* vc, const void* rel, const void* o, const void* stats,
-    const void* probs, const void* g, void* delta, void* dq, void* dk,
-    void* dv, void* dkc, void* dvc, void* drel, void* work, int splits,
-    int b, int heads, int qn, int kn, int kt, int kh, int kw, int head_dim,
-    float scale, int reps, float* ms, int* info, void* stream) {
-  if (!valid(b, heads, qn, kn, kt, kh, kw, head_dim) || splits < 1 ||
-      reps < 1 || (splits > 1 && work == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, kc, vc, rel, o, stats, probs, g, delta, dq, dk,
-                  dv, dkc, dvc, drel, static_cast<float*>(work)};
-  const Geo geo = make_geo(heads, qn, kn, kt, kh, kw, head_dim);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_width(head_dim, [&](auto w) {
-    constexpr int DP = decltype(w)::value;
-#define TIME(M) time_bwd<M, DP>(a, b * heads, geo, splits, scale, reps, ms, \
-                                info, st)
-    switch (variant) {
-      case kRecompute: return TIME(kRecompute);
-      case kRowMax: return TIME(kRowMax);
-      case kDelta: return TIME(kDelta);
-      case kSaved: return TIME(kSaved);
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef TIME
-  });
 }

@@ -12,12 +12,14 @@
 // matrices of 8 rows x 16 bytes (128 contiguous bytes each, rows 16 bytes
 // apart), core matrix (r / 8, c / 8) at byte ((r / 8) (W / 8) + c / 8) 128.
 // Such a tile serves as a K-major operand (tile rows = M or N, columns =
-// K: LBO = 128, SBO = W * 16) and as an MN-major B (tile rows = K, columns
-// = N, the transpose flag set: LBO = W * 16, SBO = 128).  The instances
-// below are those the port uses.
+// K: LBO = 128, SBO = W * 16) and as an MN-major A or B (tile rows = K,
+// columns = M or N, the transpose flag set: LBO = W * 16, SBO = 128).  The
+// instances below are those the port uses.
 #pragma once
 
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace pvrl {
 
@@ -54,6 +56,51 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// A K-major descriptor of k-step ks of a core-matrix tile of width W (rows
+// = M or N, columns = K), and an MN-major one of k-step kk of a tile whose
+// rows are the K index (columns = N); an MN-major B of N < W columns
+// starting at column c (a multiple of 8) is mnmajor<W>(tile + 8 c, kk)
+template <int W>
+__device__ __forceinline__ uint64_t kmajor(const uint16_t* tile, int ks) {
+  return wgmma_desc(tile + ks * 128, 128, W * 16);
+}
+template <int W>
+__device__ __forceinline__ uint64_t mnmajor(const uint16_t* tile, int kk) {
+  return wgmma_desc(tile + kk * 16 * W, W * 16, 128);
+}
+
+// 16-byte chunk idx of a 64-row core-matrix tile of width W: eight
+// consecutive chunks are the eight rows of one core matrix, so a warp's
+// copies fill whole 128-byte core matrices (no bank conflicts) and read
+// 64 contiguous bytes of each of eight rows; the chunk's smem offset is
+// idx * 8 elements
+template <int W>
+__device__ __forceinline__ void chunk_rc(int idx, int& r, int& c) {
+  const int rest = idx >> 3;
+  r = (rest / (W / 8)) * 8 + (idx & 7);
+  c = 8 * (rest % (W / 8));
+}
+
+// Accumulator element e (0..3) of column block j of a warpgroup's 64 x N
+// product: tile row 16 (warp in the warpgroup) + lane / 4 (+ 8 for e >=
+// 2), tile column 8 j + 2 (lane % 4) + (e & 1).
+__device__ __forceinline__ int acc_row(int e) {
+  return ((threadIdx.x & 127) >> 5) * 16 + ((threadIdx.x & 31) >> 2) +
+         8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int j, int e) {
+  return 8 * j + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// the register A operand of k-step kk (16 columns = blocks 2 kk, 2 kk + 1)
+// from a 64 x 64 accumulator, rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[32],
+                                         int kk) {
+  a[0] = pack_bf16x2(x[8 * kk], x[8 * kk + 1]);
+  a[1] = pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
+}
 
 // d (+)= A B, N = 64: A and B from shared memory (descriptors da, db), B
 // K-major; acc = 0 overwrites d
@@ -73,6 +120,18 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
@@ -120,6 +179,35 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d (+)= A B with both operands MN-major in shared memory (A's tile rows
+// the K index, its columns the 64 rows of M; B's rows K, columns N: the
+// transpose flags set); acc = 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<32>(float (&d)[16], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 }  // namespace pvrl

@@ -59,8 +59,6 @@ ENTRY_POINTS = {
         "mvit_attention_kt_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
         "mvit_attention_fwd_probs": [_P] * 9 + [_I] * 9 + [_F, _P],
         "mvit_attention_bwd": [_I] + [_P] * 18 + [_I] * 10 + [_F, _P],
-        "mvit_attention_bwd_time": ([_I] + [_P] * 18 + [_I] * 9
-                                    + [_F, _I, _P, _P, _P]),
     },
     "flash_attention": {
         "flash_attention_fwd": [_P] * 9 + [_I] * 5 + [_L] * 4 + [_I, _F, _P],

@@ -30,13 +30,19 @@ caller took the pair.
 q, k and v may be strided views (the thirds of one projection): each must
 have unit column stride and evenly spaced rows of one row stride, 16-byte
 aligned.  Each wrapper launches its kernel for a CUDA tensor and raises on
-anything the kernel does not take (dtype other than float32 / bfloat16, a
-head dim that is not a multiple of 8 or exceeds ``MAX_HEAD_DIM``, more
-than ``MAX_LEN`` tokens, a layout it cannot address); it takes the plain
-version only for a CPU tensor.  A head dim d runs on the narrowest of
-``TILE_WIDTHS`` that holds it (:func:`tile_width`), zero past column d.  The
-autograd entries (``*_autograd``) take the forward that saves l and the
-kernel backward under grad, the forward alone otherwise.
+anything the kernel does not take (dtype other than float32 / bfloat16,
+more than ``MAX_LEN`` tokens, a layout it cannot address); it takes the
+plain version only for a CPU tensor.  Every head dim runs; the source
+chooses the kernels: in bf16 a multiple of 8 up to 256 runs on the
+tensor-core (``wgmma``) kernels, on the narrowest of the tile widths 32,
+64, 96, 128, 192 and 256 that holds it (zero past column d; 192 and 256 in
+two column groups), its backward on one fused kernel (7 products per
+query-key pair) where a slice fits one CTA (tile widths up to 64, at most
+256 tokens at 64) and on a query-major and a key-major pass (9 products)
+elsewhere; float32 at every head dim, and bf16 at the others, runs on the
+scalar kernels in column groups of up to 256.  The autograd entries
+(``*_autograd``) take the forward that saves l and the kernel backward
+under grad, the forward alone otherwise.
 """
 
 from __future__ import annotations
@@ -56,10 +62,6 @@ KERNEL_QKV_BWD = "flash_attention_qkv_bwd"   # K1's long range, backward
 KERNEL_T = "flash_attention_temporal_fwd"    # K2's function, head dim != 64
 KERNEL_T_BWD = "flash_attention_temporal_bwd"
 MAX_LEN = 1024          # frame tokens (JAX MAX_FUSED_LEN); + 1 for the CLS
-# the tile widths of the bf16 kernels: a head dim (a multiple of 8) runs on
-# the narrowest that holds it
-TILE_WIDTHS = (32, 64, 96, 128, 192, 256)
-MAX_HEAD_DIM = TILE_WIDTHS[-1]
 CLAMP_HI = 80.0         # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -277,19 +279,9 @@ def _check_kernel(q, num_heads: int) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported")
     b, n, c = q.shape
-    tile_width(c // num_heads)
     if n > MAX_LEN:
         raise ValueError(f"flash_attention: the kernel takes N <= {MAX_LEN} "
                          f"tokens (+ the CLS), not {n}")
-
-
-def tile_width(d: int) -> int:
-    """The tile width the pair's bf16 kernels run head dim ``d`` on (the
-    source's ``tile_width``); raises for a head dim they do not take."""
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernel takes head dims that "
-                         f"are multiples of 8 up to {MAX_HEAD_DIM}, not {d}")
-    return min(w for w in TILE_WIDTHS if w >= d)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -500,7 +492,6 @@ def _temporal_layout(qkv, num_heads: int) -> Tuple[int, int, int, int]:
                          "and 16-byte aligned")
     b, t, n, c3 = qkv.shape
     d = c3 // 3 // num_heads
-    tile_width(d)
     if t > MAX_LEN:
         raise ValueError(f"flash_attention: the kernel takes at most "
                          f"{MAX_LEN} frames, not {t}")

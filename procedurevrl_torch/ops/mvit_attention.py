@@ -8,9 +8,11 @@ on the default single-device path: ``_fwd_hl_kernel`` (K5f) and
 ``flash_attention_mvit`` that the model takes for wide key sets.  Both
 compute the same function on different layouts, so one CUDA kernel serves
 both: the head-last call passes the token-row stride H*d, the head-split
-call d.  The kernels take every head dim d that is a multiple of 8 up to
-``MAX_HEAD_DIM`` (MViT-v2-S has 96, MViT-v2-L 72); the bf16 kernels pad
-it to a tile width of 64, 96 or 128 with zero columns.
+call d.  The kernels take every head dim d (MViT-v2-S has 96, MViT-v2-L
+72): the bf16 tensor-core kernels the multiples of 8 up to
+``MAX_HEAD_DIM`` (:func:`on_tensor_cores`), padded to a tile width of 64,
+96 or 128 with zero columns; scalar kernels float32 at every d and bf16 at
+the other head dims, in column groups of 128.
 
 Contract (head-split; the head-last layout holds the same per (b, h)):
 q [BH, qN, d] body queries; k, v [BH, kN, d] body keys and values,
@@ -77,10 +79,8 @@ KERNEL_HL_BWD_DELTA = "mvit_attention_hl_bwd_delta"  # K5bd
 KERNEL_BWD_DELTA = "mvit_attention_bwd_delta"        # K6bd
 KERNEL_PROBS = "mvit_attention_fwd_probs"            # K6sp
 KERNEL_BWD_PROBS = "mvit_attention_bwd_probs"        # K6bs
-# the tile widths of the bf16 kernels: a head dim (a multiple of 8) runs on
-# the narrowest that holds it
-TILE_WIDTHS = (64, 96, 128)
-MAX_HEAD_DIM = TILE_WIDTHS[-1]
+# the widest head dim of the bf16 tensor-core kernels (the source's MAX_D)
+MAX_HEAD_DIM = 128
 MAX_KCAT = 48
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -424,13 +424,10 @@ def _check(q, k, v, kc, vc, rel, k_shape, heads: int) -> None:
             raise ValueError("mvit_attention: inputs differ in dtype or device")
 
 
-def tile_width(d: int) -> int:
-    """The tile width the bf16 kernels run head dim ``d`` on (the source's
-    ``with_width``); raises for a head dim the kernels do not take."""
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"mvit_attention: the kernels take head dims that "
-                         f"are multiples of 8 up to {MAX_HEAD_DIM}, not {d}")
-    return min(w for w in TILE_WIDTHS if w >= d)
+def on_tensor_cores(d: int) -> bool:
+    """Whether the bf16 tensor-core kernels take head dim ``d`` (the
+    source's ``on_tensor_cores``): a multiple of 8 up to ``MAX_HEAD_DIM``."""
+    return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
 def _check_kernel(tensors, heads: int, k_shape) -> None:
@@ -439,7 +436,6 @@ def _check_kernel(tensors, heads: int, k_shape) -> None:
         raise ValueError(f"mvit_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"mvit_attention: dtype {q.dtype} not supported")
-    tile_width(q.shape[2] // heads)
     if sum(k_shape) > MAX_KCAT:
         raise ValueError(f"mvit_attention: the kernels take kt + kh + kw <= "
                          f"{MAX_KCAT}, not k_shape {tuple(k_shape)}")
@@ -505,7 +501,7 @@ def _bwd_buffers(q, k, kc, rel, b, heads, splits):
 
 
 def _splits(q, k, b, heads) -> int:
-    if q.dtype != torch.bfloat16:
+    if q.dtype != torch.bfloat16 or not on_tensor_cores(q.shape[2] // heads):
         return 1
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return key_splits(b * heads, q.shape[1], k.shape[1], sms)
@@ -529,36 +525,6 @@ def _bwd_kernel(variant, kernel, q, k, v, kc, vc, rel, g, k_shape, b, heads,
             heads, q.shape[1], k.shape[1], *k_shape, q.shape[2] // heads,
             splits, _DTYPES[q.dtype], float(scale))
     return grads
-
-
-def bwd_split_times(variant, q, k, v, kc, vc, rel, out, stats, probs, g,
-                    k_shape, num_heads=None, splits=None, reps: int = 20):
-    """Timing only (bf16 CUDA tensors): (query-major ms, key-major ms with
-    its reduction, [CTAs per SM, registers and local bytes of the two
-    kernels]) of the backward of ``variant`` (head-last with ``num_heads``,
-    head-split without), each pass launched ``reps`` times between CUDA
-    events.  The launches are not counted."""
-    import ctypes
-
-    k_shape = tuple(k_shape)
-    b, heads = (q.shape[0], num_heads) if num_heads else (q.shape[0], 1)
-    _check_kernel((q, k, v, kc, vc, rel, g), heads, k_shape)
-    splits = _splits(q, k, b, heads) if splits is None else splits
-    delta, grads, work = _bwd_buffers(q, k, kc, rel, b, heads, splits)
-    ms = (ctypes.c_float * 2)()
-    info = (ctypes.c_int * 6)()
-    lib = _build.load("mvit_attention")
-    with torch.cuda.device(q.device):
-        rc = lib.mvit_attention_bwd_time(
-            variant, q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
-            vc.data_ptr(), rel.data_ptr(), _ptr(out), _ptr(stats),
-            _ptr(probs), g.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in grads), _ptr(work), splits, b, heads,
-            q.shape[1], k.shape[1], *k_shape, q.shape[2] // heads,
-            (q.shape[2] // heads) ** -0.5, reps, ctypes.addressof(ms),
-            ctypes.addressof(info), torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "mvit_attention_bwd_time")
-    return ms[0], ms[1], list(info)
 
 
 def _check_bwd(q, rowsum, g, heads: int) -> None:

@@ -3,10 +3,14 @@ K5f/K6f and K7f missing key columns, K8f missing a halo plane, K8dw
 missing a batch, K1br and K1p without the CLS key, K1bd with delta forced
 to 0, K2v3f without the last key frame (at 8 and at 16 frames), K5bd /
 K6bd with D forced to 0, K6sp storing p without the cls column and K6bs
-reading p without it, the slice 7 pair (``flash_attention.cu``, K3f /
+reading p without it, the key-tiled pair (``flash_attention.cu``, K3f /
 K4f and K3b / K4b) with a forward that drops the CLS key or the last key
-tile, and a backward that drops the jacobian row sums D or leaves the CLS
-row of dk and dv unwritten, and the MViT backward pair (K5b / K6b and its
+tile, and a backward that drops the jacobian row sums D, leaves the CLS
+row of dk and dv unwritten or leaves the last key tile out of dq; the
+pair's scalar kernels (the head dims past its tensor-core kernels') with
+the second column group of the output unwritten (d = 320) or logits that
+read past the head dim (d = 12), the MViT scalar kernels with the second
+column group of dk and dv unwritten (d = 136), and the MViT backward pair (K5b / K6b and its
 variants) with a key-major pass whose last query chunk never reaches the
 sum of the chunks, or that leaves the cls key's row of dk and dv
 unwritten; the pair on K2's time-major layout with each clip's rows
@@ -14,11 +18,13 @@ starting one frame early (``row_of``'s branch for sequences side by side),
 and K5f / K6f at head dim 72 staging q and k without zeros past column 72
 of their 96-wide tiles.
 
-    python -m procedurevrl_torch.tools.mutation_check
+    python -m procedurevrl_torch.tools.mutation_check [--only CHECK ...]
+        [--jobs N]
 
 For each fault in :data:`MUTANTS` this copies the package and
-``chip_smoke.py`` into a temporary directory, plants the fault in the copy
-of its CUDA source, builds it, and holds the mutated kernel at two or three
+``chip_smoke.py`` into a temporary directory (``--jobs`` copies at once,
+each printed whole when done), plants the fault in the copy of its CUDA
+source, builds it, and holds the mutated kernel at two or three
 shapes against its plain version, with ``chip_smoke.py``'s limit and, for
 comparison, with the looser ``BF16_TOL``.  The inputs are those of
 ``chip_smoke.py``'s kernel phases: K5f at block 0 (B 18, qN 25088, kN 392)
@@ -50,7 +56,12 @@ width of 768, ``chip_smoke.py`` phase 25's shapes: B 18 and 16, T 8, N
 ``ROWSUM_TOL`` and dqkv against
 ``MVIT_GRAD_TOL``; K5f at block 0 (B 18, 2 heads of 72) and K6f at block 1
 (B*H 72) of phase 26's MViT-v2-S at width 144, out against
-``MVIT_FWD_TOL`` and the row sums against ``ROWSUM_TOL``.  For K7, K8, K1, K2 and the backward kernels the mutant
+``MVIT_FWD_TOL`` and the row sums against ``ROWSUM_TOL``; K3 at d = 320
+in 2 heads (the column-group fault) and at d = 12 in 32 heads (the ragged
+one), 16 frames of 196 tokens + CLS, bf16 and float32, out and l against ``FLASH_FWD_TOL`` (float32 ``FP32_TOL``) /
+``ROWSUM_TOL`` and the gradients against ``MVIT_GRAD_TOL`` (float32 the
+scaled ``FP32_TOL``); K5b at d = 136 (block 4's key grid, 4 clips of 2
+heads), bf16 and float32, against ``MVIT_GRAD_TOL``.  For K7, K8, K1, K2 and the backward kernels the mutant
 counts as rejected at a shape when a check of that shape fails, as
 ``chip_smoke.py`` then fails.  Each check also runs once on the unmodified
 sources first, which no strict limit may reject.  For every comparison it
@@ -68,6 +79,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -94,12 +106,24 @@ _V3_KEYS16 = "const bool key1 = 8 + 2 * tig + (e & 1) < frames;"
 _D_ROWS = "dd_s[threadIdx.x] = acc;"
 _P_STORE = "const uint32_t w0 = pa[2 * u], w1 = pa[2 * u + 1];"
 _P_TILE = "if (i0 + r < g.qn && j0 + c < g.pld) {"
-# the slice 7 pair: the forward's clamp of a key chunk and its chunk loop,
-# the query-major backward's reduction of D, the key-major pass's store
-_FA_EXP = "clamp_exp<KC / 8>(e, col0, g.L, scale);"
-_FA_CHUNK = "const int col0 = t * BN + c;\n        if (col0 >= g.L) break;"
-_FA_D = "d0 = quad_sum(d0);\n      d1 = quad_sum(d1);"
-_FA_KROW = "const int j = j0 + warp * 16 + gid + 8 * half;\n    if (j >= g.L) continue;"
+# the key-tiled pair: the forward's key mask and its walk over the key
+# tiles, the backward's sum of D (shared by the fused kernel and the
+# query-major pass), its dq products (the query-major pass's and the fused
+# kernel's) and the rows of dk and dv it writes; the scalar kernels'
+# forward store (column groups) and dot product (head dims past the tensor
+# cores')
+_FA_EXP = "key_in(g, vs, kt, acc_row(e), acc_col(j, e))"
+_FA_CHUNK = "if (!active || (g.pk > 1 && t != qt)) continue;\n    const uint16_t* k_s"
+_FA_D = ("d0 += dp[4 * j] * p[4 * j] + dp[4 * j + 1] * p[4 * j + 1];\n"
+         "    d1 += dp[4 * j + 2] * p[4 * j + 2] + dp[4 * j + 3] * p[4 * j + 3];")
+_FA_KROW = ("const Row R = slice_row(g, vs, kt * BM + acc_row(2 * half));\n"
+            "    if (!R.ok) continue;")
+_FA_DQ = "accumulate<G, W>(acc_q, s, k_s + 8 * c0, first, g, kt);"
+_FA_DQ_FUSED = "for (int kk = klo; kk < khi; ++kk)"
+_FA_GROUP = "if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u] / l);"
+_FA_DOT = "for (int e = 0; e < d; ++e) s = fmaf(load1(a + e), load1(b + e), s);"
+# the MViT scalar key-major pass's store of dk and dv (column groups)
+_MV_GROUP = "if (c0 + lane + 32 * u >= g.d) continue;\n    store1(kd"
 # the MViT backward's key-major pass: the reduction of its query chunks,
 # and the rows it writes (the cls key is row kN)
 _SPLIT_SUM = "for (int s = 0; s < splits; ++s) {"
@@ -185,21 +209,48 @@ MUTANTS = {
         "+ c); reinterpret_cast<uint16_t*>(&w)[g.kn % 8] = 0; "
         "*reinterpret_cast<uint4*>(t) = w; } else "
         "if (i0 + r < g.qn && j0 + c < g.pld) {", "k6bs"),
-    # the CLS is key L - 1 of [frames; cls]
+    # the CLS is key n of [frames; cls]; the clamp exp of a key tile that
+    # holds it is the masked one, shared with the query-major backward
     "K3f / K4f cls key left out": Mutant(
         "flash_attention.cu", _FA_EXP,
-        "clamp_exp<KC / 8>(e, col0, g.L - (g.L > g.n), scale);", "flash_fwd"),
+        "(key_in(g, vs, kt, acc_row(e), acc_col(j, e)) && "
+        "!(g.L > g.n && kt * BM + acc_col(j, e) == g.n))", "flash_fwd"),
     "K3f / K4f last key tile left out": Mutant(
         "flash_attention.cu", _FA_CHUNK,
-        "const int col0 = t * BN + c;\n        "
-        "if (col0 >= g.L || t == g.tiles - 1) break;", "flash_fwd"),
+        "if (!active || (g.pk > 1 && t != qt) || t == g.tiles - 1) continue;"
+        "\n    const uint16_t* k_s", "flash_fwd"),
+    # the fused kernel's phase D and the query-major pass's sweep A share
+    # the sum of D; the two kernels share the store of dk and dv
     "K3b / K4b jacobian row sums D forced to 0": Mutant(
-        "flash_attention.cu", _FA_D, "d0 = 0.f;\n      d1 = 0.f;",
+        "flash_attention.cu", _FA_D, "(void)p;  // D stays 0\n    (void)dp;",
         "flash_bwd"),
     "K3b / K4b cls row of dk and dv left unwritten": Mutant(
         "flash_attention.cu", _FA_KROW,
-        "const int j = j0 + warp * 16 + gid + 8 * half;\n    "
-        "if (j >= g.n) continue;", "flash_bwd"),
+        "const Row R = slice_row(g, vs, kt * BM + acc_row(2 * half));\n"
+        "    if (!R.ok || R.j >= g.n) continue;", "flash_bwd"),
+    # dq never sums the products of the last key tile: the fused kernel's
+    # phase Q (L = 197) and the query-major pass's sweep B (L = 1025)
+    "K3b / K4b last key tile left out of dq": Mutant(
+        "flash_attention.cu", _FA_DQ,
+        "if (kt + 1 < g.tiles || kt == 0) " + _FA_DQ, "flash_bwd",
+        ((_FA_DQ_FUSED, "for (int kk = klo; kk < (g.pk == 1 && khi > 4 * "
+          "(g.tiles - 1) ? 4 * (g.tiles - 1) : khi); ++kk)"),)),
+    # d = 320 runs in column groups of 256 and 64: group 1's columns of o
+    # are never written
+    "pair's second column group left unwritten": Mutant(
+        "flash_attention.cu", _FA_GROUP, "if (c0 == 0 && c0 + lane + 32 * u "
+        "< g.d) store1(oi + lane + 32 * u, o[u] / l);", "flash_groups"),
+    # d = 12: the logits read 16 columns, 4 of them the next head's
+    "pair reads past the head dim": Mutant(
+        "flash_attention.cu", _FA_DOT,
+        "for (int e = 0; e < ((d + 7) & ~7); ++e) s = fmaf(load1(a + e), "
+        "load1(b + e), s);", "flash_ragged"),
+    # d = 136 runs in column groups of 128 and 8: group 1's columns of dk
+    # and dv are never written
+    "MViT's second column group of dk and dv left unwritten": Mutant(
+        "mvit_attention.cu", _MV_GROUP,
+        "if (c0 > 0 || c0 + lane + 32 * u >= g.d) continue;\n    store1(kd",
+        "mvit_odd"),
     # the last query chunk's partial dk and dv never reach the sum
     "K5b / K6b key-major query chunk left out of the reduction": Mutant(
         "mvit_attention.cu", _SPLIT_SUM, "for (int s = 0; s + 1 < splits; ++s) {",
@@ -580,6 +631,57 @@ def _check_flash_temporal(cs, torch, gen):
                      False)
 
 
+# the pair at the head dims its scalar kernels take, K3 (with the CLS) at
+# L = 197 in bf16 and float32: d = 320 in 2 heads (column groups of 256 and
+# 64) and d = 12 in 32 heads (one group, ragged past the head dim)
+def _check_flash_groups(cs, torch, gen):
+    return _check_flash_odd(cs, torch, gen, 320, 2)
+
+
+def _check_flash_ragged(cs, torch, gen):
+    return _check_flash_odd(cs, torch, gen, 12, 32)
+
+
+def _check_flash_odd(cs, torch, gen, d, heads):
+    from procedurevrl_torch.ops import flash_attention as fa
+
+    c, scale = heads * d, d ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+        x = list(r(16, 196, 3 * c).split(c, dim=-1))
+        x += list(r(16, 1, 3 * c).split(c, dim=-1))
+        g, gc = r(16, 196, c), r(16, 1, c)
+        got = fa.flash_attention_cls_fwd(*x, heads, scale)
+        want = fa.flash_attention_cls_fwd_plain(*x, heads, scale)
+        grads = fa.flash_attention_cls_bwd(*x, g, gc, want[2], heads, scale)
+        rgrads = fa.flash_attention_cls_bwd_plain(*x, g, gc, heads, scale)
+        fp32 = dtype == torch.float32
+        ftol = cs.FP32_TOL if fp32 else cs.FLASH_FWD_TOL
+        pairs = [("out", got[0], want[0], ftol),
+                 ("outc", got[1], want[1], ftol),
+                 ("l", got[2], want[2], cs.ROWSUM_TOL)]
+        pairs += [(name, a, ref, cs.grad_tol(cs.FP32_TOL, ref) if fp32
+                   else cs.own_tol(cs.MVIT_GRAD_TOL, ref))
+                  for name, a, ref in zip(("dq", "dk", "dv", "dqc", "dkc",
+                                           "dvc"), grads, rgrads)]
+        yield _judge(cs, torch, f"d {d} {str(dtype)[6:]}", pairs, False)
+
+
+def _check_mvit_odd(cs, torch, gen):
+    from procedurevrl_torch.ops import mvit_attention as k5
+
+    # d = 136 (two column groups) at MViT-v2-S block 4's key grid, head-last
+    k_shape, scale = (8, 7, 7), 136 ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        x = cs.mvit_inputs(torch, gen, 4, 2, 1568, k_shape, dtype, d=136)
+        rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, 2, scale)[1]
+        args = (*x[:6], rs, x[6], k_shape, 2, scale)
+        got = k5.mvit_attention_hl_bwd(*args)
+        want = k5.mvit_attention_hl_bwd_plain(*args)
+        yield _judge(cs, torch, f"K5b d 136 {str(dtype)[6:]}",
+                     _grad_pairs(cs, got, want), False)
+
+
 def _check_mvit_d72(cs, torch, gen):
     from procedurevrl_torch.ops import mvit_attention as k5
 
@@ -606,7 +708,8 @@ CHECKS = {"mvit": _check_mvit, "kt": _check_kt, "pool": _check_pool,
           "flash_fwd": _check_flash_fwd, "flash_bwd": _check_flash_bwd,
           "mvit_split": _check_mvit_split, "mvit_bwd": _check_mvit_bwd,
           "flash_temporal": _check_flash_temporal,
-          "mvit_d72": _check_mvit_d72}
+          "mvit_d72": _check_mvit_d72, "flash_groups": _check_flash_groups,
+          "flash_ragged": _check_flash_ragged, "mvit_odd": _check_mvit_odd}
 # the sources each check builds
 SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
            "pool": "depthwise_pool", "pool_dw": "depthwise_pool",
@@ -616,7 +719,9 @@ SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
            "k6sp": "mvit_attention", "k6bs": "mvit_attention",
            "flash_fwd": "flash_attention", "flash_bwd": "flash_attention",
            "mvit_split": "mvit_attention", "mvit_bwd": "mvit_attention",
-           "flash_temporal": "flash_attention", "mvit_d72": "mvit_attention"}
+           "flash_temporal": "flash_attention", "mvit_d72": "mvit_attention",
+           "flash_groups": "flash_attention", "flash_ragged": "flash_attention",
+           "mvit_odd": "mvit_attention"}
 
 
 def check_copy(check: str, sound: bool = False) -> int:
@@ -638,16 +743,21 @@ def check_copy(check: str, sound: bool = False) -> int:
     return sum(caught == sound for caught in CHECKS[check](cs, torch, gen))
 
 
-def _run_copy(check: str, edit=None, sound: bool = False) -> int:
+def _run_copy(check: str, edit=None, sound: bool = False):
     """Copy the package and ``chip_smoke.py`` into a temporary directory,
     apply ``edit`` (source file, its (anchor, replacement) pairs) there and
-    run
-    ``check`` in the copy; returns its exit code."""
+    run ``check`` in the copy; returns its exit code and its output.  The
+    libraries this tree has built come along: a copy rebuilds only the
+    source it changes."""
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(ROOT / "procedurevrl_torch",
                         Path(tmp) / "procedurevrl_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", tmp)
+        built = ROOT / "build" / "torch_kernels"
+        if built.is_dir():
+            shutil.copytree(built, Path(tmp) / "build" / "torch_kernels",
+                            ignore=shutil.ignore_patterns("*.tmp"))
         if edit is not None:
             source, edits = edit
             cu = Path(tmp) / "procedurevrl_torch" / "csrc" / source
@@ -658,10 +768,12 @@ def _run_copy(check: str, edit=None, sound: bool = False) -> int:
                                      f"once in {source}")
                 src = src.replace(anchor, line)
             cu.write_text(src)
-        return subprocess.run(
+        proc = subprocess.run(
             [sys.executable, "-m", "procedurevrl_torch.tools.mutation_check",
              "--in-copy", check] + (["--sound"] if sound else []),
-            cwd=tmp).returncode
+            cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        return proc.returncode, proc.stdout
 
 
 def main(argv=None) -> int:
@@ -672,22 +784,31 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--only", nargs="+", choices=sorted(CHECKS),
                         help="run only the mutants of these checks")
+    parser.add_argument("--jobs", type=int, default=4,
+                        help="copies built and checked at once (default 4)")
     args = parser.parse_args(argv)
     if args.in_copy:
         return 1 if check_copy(args.in_copy, args.sound) else 0
     mutants = {name: m for name, m in MUTANTS.items()
                if args.only is None or m.check in args.only}
-    # the unmodified kernels first: a limit that rejects them is no limit
-    rejected = []
-    for check in sorted({m.check for m in mutants.values()}):
-        print(f"sound: {check}", flush=True)
-        if _run_copy(check, sound=True):
-            rejected.append(check)
-    failed = []
-    for name, m in mutants.items():
-        print(f"mutant: {name}", flush=True)
-        if _run_copy(m.check, (m.source, ((m.anchor, m.line), *m.more))):
-            failed.append(name)
+    # the unmodified kernels first: a limit that rejects them is no limit;
+    # each copy's output is printed whole, in this order
+    with ThreadPoolExecutor(max_workers=max(args.jobs, 1)) as pool:
+        checks = sorted({m.check for m in mutants.values()})
+        rejected = []
+        for check, (rc, out) in zip(checks, pool.map(
+                lambda c: _run_copy(c, sound=True), checks)):
+            print(f"sound: {check}\n{out}", end="", flush=True)
+            if rc:
+                rejected.append(check)
+        failed = []
+        for name, (rc, out) in zip(mutants, pool.map(
+                lambda m: _run_copy(m.check, (m.source, ((m.anchor, m.line),
+                                                         *m.more))),
+                mutants.values())):
+            print(f"mutant: {name}\n{out}", end="", flush=True)
+            if rc:
+                failed.append(name)
     print(f"mutation_check: {len(mutants) - len(failed)} of {len(mutants)} "
           f"mutants rejected at every shape"
           + (f"; let through: {failed}" if failed else "")

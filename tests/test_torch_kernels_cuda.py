@@ -722,8 +722,8 @@ def _flash_inputs(card, dtype, b, n, heads, d, cls, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cls", [False, True])
-@pytest.mark.parametrize("n,d", [(1, 64), (63, 64), (197, 64), (257, 64),
-                                 (1024, 64), (130, 32), (150, 96),
+@pytest.mark.parametrize("n,d", [(1, 64), (63, 64), (197, 64), (255, 64),
+                                 (257, 64), (1024, 64), (130, 32), (150, 96),
                                  (200, 128), (197, 16), (100, 48), (197, 80),
                                  (130, 256)])
 def test_flash_kernels_match_plain(card, dtype, cls, n, d):
@@ -810,10 +810,10 @@ def test_k1_long_range_takes_the_pair(card, n):
 
 
 def test_flash_refuses_what_it_does_not_take(card):
-    for d in (12, 264):  # not a multiple of 8; past the widest tile
+    for d in (12, 264):  # not a multiple of 8; past the widest tile: taken
         x, _, _ = _flash_inputs(card, torch.bfloat16, 2, 20, 2, d, False)
-        with pytest.raises(ValueError, match="head dims .* up to 256"):
-            fa.flash_attention(*x, 2, 0.125)
+        _close(fa.flash_attention(*x, 2, 0.125),
+               fa.flash_attention_plain(*x, 2, 0.125), torch.bfloat16)
     x, _, _ = _flash_inputs(card, torch.bfloat16, 1, 1025, 1, 64, False)
     with pytest.raises(ValueError, match="N <= 1024"):
         fa.flash_attention(*x, 1, 0.125)
@@ -905,6 +905,72 @@ def test_k2_route_takes_the_pair(card, dtype, batched, d, t):
         qkv, g, heads, d ** -0.5), dtype)
 
 
+# the head dims the tensor-core kernels do not take: (d, heads) that JAX's
+# _heads_per_block admits for the pair, d for the MViT kernels
+PAIR_ODD = [(12, 32), (320, 2)]
+MVIT_ODD = [20, 136]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cls", [False, True])
+@pytest.mark.parametrize("d,heads", PAIR_ODD)
+def test_flash_kernels_at_once_refused_head_dims(card, dtype, cls, d, heads):
+    """The pair at d = 12 and 320 (the scalar kernels, column groups past
+    256) against its plain version, forward and backward."""
+    scale = d ** -0.5
+    x, g, gc = _flash_inputs(card, dtype, 2, 40, heads, d, cls)
+    if cls:
+        got = fa.flash_attention_cls_fwd(*x, heads, scale)
+        want = fa.flash_attention_cls_fwd_plain(*x, heads, scale)
+        grads = fa.flash_attention_cls_bwd(*x, g, gc, got[-1], heads, scale)
+        rgrads = fa.flash_attention_cls_bwd_plain(*x, g, gc, heads, scale)
+    else:
+        got = fa.flash_attention_fwd(*x, heads, scale)
+        want = fa.flash_attention_fwd_plain(*x, heads, scale)
+        grads = fa.flash_attention_bwd(*x, g, got[-1], heads, scale)
+        rgrads = fa.flash_attention_bwd_plain(*x, g, heads, scale)
+    for a, r in zip(got[:-1], want[:-1]):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(a.float(), r.float(),
+                                   **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(got[-1], want[-1], **ROWSUM_TOL)
+    for a, r in zip(grads, rgrads):
+        _close_grad(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [12, 320])
+def test_k1_and_k2_functions_at_once_refused_head_dims(card, dtype, d):
+    """K1's function (fused qkv + CLS) and K2's (time-major qkv) on the pair
+    at d = 12 and 320."""
+    heads = dict(PAIR_ODD)[d]
+    scale = d ** -0.5
+    gen = torch.Generator(device=card).manual_seed(d)
+    c = heads * d
+    r = lambda *s: torch.randn(*s, generator=gen, device=card).to(dtype)
+    qkv, qkv_c, g, gc = r(2, 30, 3 * c), r(2, 1, 3 * c), r(2, 30, c), r(2, 1, c)
+    out, out_c, l = fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale)
+    ro, roc, rl = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, heads, scale)
+    torch.cuda.synchronize()
+    for a, b in ((out, ro), (out_c, roc)):
+        torch.testing.assert_close(a.float(), b.float(), **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(l, rl, **ROWSUM_TOL)
+    for a, b in zip(fa.flash_attention_qkv_bwd(qkv, qkv_c, g, gc, l, heads,
+                                               scale),
+                    fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, heads,
+                                                     scale)):
+        _close_grad(a, b, dtype)
+    qkv, g = r(2, 8, 5, 3 * c), r(2, 8, 5, c)
+    out, l = fa.flash_attention_temporal_fwd(qkv, heads, scale)
+    ro, rl = fa.flash_attention_temporal_fwd_plain(qkv, heads, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(), **MVIT_FWD_TOLS[dtype])
+    torch.testing.assert_close(l, rl, **ROWSUM_TOL)
+    _close_grad(fa.flash_attention_temporal_bwd(qkv, g, l, heads, scale),
+                fa.flash_attention_temporal_bwd_plain(qkv, g, heads, scale),
+                dtype)
+
+
 def _mvit_d_inputs(card, dtype, b, h, qn, k_shape, d, seed=0):
     """q, k, v, kc, vc, rel, g of a head-last call [B, L, H*d], one query
     row with logits above 80."""
@@ -953,6 +1019,62 @@ def test_mvit_fwd_kernels_at_other_head_dims(card, dtype, d):
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     torch.testing.assert_close(p.float(), ref_p.float(), **PROBS_TOLS[dtype])
     assert torch.equal(out, k5.mvit_attention_fwd(*xs[:6], k_shape, scale)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", MVIT_ODD)
+def test_mvit_kernels_at_once_refused_head_dims(card, dtype, d):
+    """K5f/K5b, K6f/K6b, K6sp/K6bs, K7f/K7b and K5bd at d = 20 and 136 (the
+    scalar kernels, two column groups at 136) against their plain
+    versions."""
+    k_shape, scale, h = (2, 4, 4), d ** -0.5, 2
+    x = _mvit_d_inputs(card, dtype, 2, h, 70, k_shape, d)
+    q, k, v, kc, vc, rel, g = x
+    tol = MVIT_FWD_TOLS[dtype]
+    out, rs = k5.mvit_attention_hl_fwd(*x[:6], k_shape, h, scale)
+    ref, ref_rs = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, h, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(rs, ref_rs, **ROWSUM_TOL)
+    for a, r in zip(k5.mvit_attention_hl_bwd(*x[:6], ref_rs, g, k_shape, h,
+                                             scale),
+                    k5.mvit_attention_hl_bwd_plain(*x[:6], ref_rs, g, k_shape,
+                                                   h, scale)):
+        _close_grad(a, r, dtype)
+    for a, r in zip(k5.mvit_attention_hl_bwd_delta(*x[:6], ref_rs, ref, g,
+                                                   k_shape, h, scale),
+                    k5.mvit_attention_hl_bwd_delta_plain(*x[:6], ref_rs, ref,
+                                                         g, k_shape, h,
+                                                         scale)):
+        _close_grad(a, r, dtype)
+    out, lse = k5.mvit_attention_kt_fwd(*x[:6], k_shape, h, scale)
+    ref, ref_lse = k5.mvit_attention_kt_fwd_plain(*x[:6], k_shape, h, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+    for a, r in zip(k5.mvit_attention_kt_bwd(*x[:6], ref, ref_lse, g, k_shape,
+                                             h, scale),
+                    k5.mvit_attention_kt_bwd_rounded_plain(
+                        *x[:6], ref, ref_lse, g, k_shape, h, scale)):
+        _close_grad(a, r, dtype)
+    xs = [_fold_heads(t, h) for t in x]
+    out, rs, p = k5.mvit_attention_fwd_probs(*xs[:6], k_shape, scale)
+    ref, ref_rs, ref_p = k5.mvit_attention_fwd_probs_plain(*xs[:6], k_shape,
+                                                           scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(p.float(), ref_p.float(), **PROBS_TOLS[dtype])
+    assert torch.equal(out, k5.mvit_attention_fwd(*xs[:6], k_shape, scale)[0])
+    for a, r in zip(k5.mvit_attention_bwd(*xs[:6], ref_rs, xs[6], k_shape,
+                                          scale),
+                    k5.mvit_attention_bwd_plain(*xs[:6], ref_rs, xs[6],
+                                                k_shape, scale)):
+        _close_grad(a, r, dtype)
+    for a, r in zip(k5.mvit_attention_bwd_probs(*xs[:6], ref_p, xs[6],
+                                                k_shape, scale),
+                    k5.mvit_attention_bwd_probs_plain(*xs[:6], ref_p, xs[6],
+                                                      k_shape, scale)):
+        _close_grad(a, r, dtype)
 
 
 # the backward pair at ragged shapes: qN 333 (not a multiple of 64), kN + 1

@@ -12,9 +12,10 @@ Phases (any failure exits non-zero):
    time the kernel, the plain version and one PyTorch library call that
    computes the same function (the yardstick; the port never calls it);
    compute the bound from the shapes;
-4. K1sp (forward that saves the probabilities) and K1b (its backward), and
-   5. K2b (temporal backward), the same way at the training shapes
-   (18 clips x 8 frames, bf16) plus small float32 cases;
+4. K1sp (forward that saves the probabilities; its outputs must equal
+   K1f's bit for bit, one kernel) and K1b (its backward), and 5. K2b
+   (temporal backward), the same way at the training shapes (18 clips x 8
+   frames, bf16) plus small float32 cases;
 6. slice 1: ``procedurevrl_torch.tools.test_net.test`` on
    ``configs/COIN/step_classification.yaml`` with synthetic data, full
    TimeSformer-B in bf16, 192 clips in batches of 16; launch counts of
@@ -534,9 +535,15 @@ def phase_k1_train(torch, F, k1) -> list:
                                                              scale)
     err_sp = max(compare(torch, "K1sp bf16 frames", out, ref, BF16_TOL),
                  compare(torch, "K1sp bf16 cls", out_c, ref_c, BF16_TOL),
-                 compare(torch, "K1sp bf16 probs", probs, ref_p, BF16_TOL))
+                 compare(torch, "K1sp bf16 probs", probs, ref_p,
+                         K1K2_FWD_TOL))
     if probs[..., L:].any():
         fail("K1sp wrote non-zero padding columns")
+    # K1f and K1sp are one forward kernel: the same outputs bit for bit
+    f, fc = k1.spatial_attention(qkv, qkv_c, heads, scale)
+    torch.cuda.synchronize()
+    if not (torch.equal(f, out) and torch.equal(fc, out_c)):
+        fail("K1sp's outputs differ from K1f's")
     dx, dx_c = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, heads, scale)
     rdx, rdx_c = k1.spatial_attention_bwd_plain(qkv, qkv_c, probs, g, gc,
                                                 heads, scale)

@@ -56,6 +56,15 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
                  pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
 }
 
+// 2^x by the MUFU alone (ex2.approx.ftz: results below 2^-126 flush to
+// zero), the exponential of the Hopper forwards (K1's, with K1br's
+// recompute; K5f / K6f / K6sp)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -103,6 +112,59 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
+}
+
+// Bulk asynchronous stores (the TMA unit, no tensor map): `bytes` (a
+// multiple of 16; both addresses 16-byte aligned) from shared to global
+// memory, tracked by the issuing thread's bulk groups.  The shared memory
+// must have been written through the async proxy's fence
+// (fence.proxy.async) before the store is issued.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until this thread's bulk stores have read their shared memory / are done
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// mbarriers in shared memory (64-bit words): init by one thread (then
+// mbar_init_fence and a CTA barrier before any use); arrive; the arrive of
+// this thread's cp.async copies issued so far, once they have landed (the
+// barrier's count includes it: noinc); and the wait for the completion of
+// the phase of the given parity
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// a barrier of `threads` threads (a multiple of 32) on named barrier `id`
+// (1..15; 0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // Tensor-core building blocks (bf16 operands, fp32 accumulators).

@@ -165,13 +165,6 @@ __device__ __forceinline__ size_t stat_index(const Geo& g, const Row& R,
 
 // ------------------------------------- bf16 (tensor-core, wgmma) kernels
 
-// this thread's warpgroup, broadcast from lane 0 so that the compiler sees
-// a warp-uniform value: a branch on it around the warpgroup products is then
-// not divergent (ptxas would otherwise serialize every wgmma, C7520)
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
-}
-
 __host__ __device__ constexpr int group_width(int W) {
   return W > 128 ? W / 2 : W;
 }

@@ -33,7 +33,9 @@
 //   rel[i, kt+kh+w']) for body keys, (q_i . kc) * scale for the cls key;
 //   p = exp(min(s, 80)) / l_i with l_i = sum_j exp(min(s_ij, 80)) over the
 //   kN + 1 columns (the clamp shift of the TPU kernels, MVIT_SHIFT=clamp);
-//   o_i = sum_j bf16(p_ij) v_j, accumulated in fp32, in the input dtype.
+//   o_i = sum_j bf16(p_ij) v_j, accumulated in fp32, in the input dtype
+//   (the bf16 tensor-core forward: o_i = (sum_j bf16(e_ij) v_j) / l_i with
+//   e = exp(min(s, 80)), see its design below).
 //   The forward also writes rowsum [B, H, qN] = l (fp32), the backward's
 //   residual.
 // Backward (the TPU kernel's arithmetic): p recomputed in fp32 from l;
@@ -52,17 +54,26 @@
 // MViT-v2-S block (170 GFLOP at block 0, 340 at block 1).  The logits
 // matrix [qN, kN+1] never reaches device memory.
 //
-// Forward design (bf16, mma.sync m16n8k16 with fp32 accumulators, ldmatrix
-// fragments, cp.async staging):
-//   * a CTA of 4 warps owns 64 query rows (16 per warp) of one slice; the
-//     keys are walked in tiles of 64 staged in shared memory;
+// Forward design, for Hopper (bf16; wgmma, see wgmma.cuh; mvit_fwd_wg):
+//   * a CTA of four warpgroups (three at tile width 128, for registers and
+//     shared memory) owns 256 query rows of one slice (64 per
+//     warpgroup, q and rel resident); the keys stream in tiles of 64 (k, v
+//     and the expander) through a three-stage cp.async ring shared by the
+//     warpgroups, so K and V are read once for 256 queries;
 //   * the bias is one more tensor-core product, as on the TPU: the rel
-//     rows (padded to 48 columns) times the 0/1 expander [48 x 64 keys],
-//     built per key tile in shared memory from (kt, kh, kw); exact, since
-//     the expander holds ones and zeros;
-//   * sweep 1 over the keys sums l, sweep 2 forms p = e / l and the PV
-//     product, so bf16(p) is the normalised probability the plain version
-//     rounds.
+//     rows (padded to 48 columns) times the 0/1 expander [64 keys x 48],
+//     built once per key tile in the stage from (kt, kh, kw); exact, since
+//     the expander holds ones and zeros; it accumulates onto the scaled
+//     logits (s rounds once more than the TPU kernel's fused form: fp32
+//     ulps, as in the backward);
+//   * one sweep over the keys: the clamp needs no running max, so each tile
+//     adds e = exp(min(s, 80)) to the row sums l and bf16(e) v to o (P V on
+//     wgmma with e as the register A operand), and o / l closes the row.
+//     This rounds e to bf16 where the TPU kernel rounds p = e / l (its
+//     second sweep): ROADMAP Queue 3 lists the difference, and the plain
+//     versions round where the kernel does.  K6sp keeps a first sweep for l
+//     (it stores the normalised bf16(e / l), as K6bs reads it), then runs
+//     K6f's sweep with the same sums, so its out and l are K6f's bit for bit.
 // Backward design, for Hopper (bf16; wgmma, see wgmma.cuh): every product
 // a warpgroup product of a 64-row tile with its B operand (and the
 // warpgroup's resident A tiles) in shared memory in the core-matrix
@@ -103,15 +114,17 @@
 // The knob variants are compile-time switches of the same kernels.  K5bd /
 // K6bd: K5b's pair with D_i = rowsum(g_i o_i) from the saved output, as
 // K7b takes it, but p still the clamp exp(min(s, 80)) / l; the query-major
-// pass loses its sweep A.  K6sp: K6f whose sweep 2 also stores the bf16(p)
-// fragments it feeds to P V, probs [BH, qN, LP] with LP = kN + 1 rounded up
-// to 8 (16-byte rows; columns past kN zero).  K6bs: K6b's pair with p read
+// pass loses its sweep A.  K6sp: K6f with a first sweep for l, whose
+// second sweep (K6f's) also stores bf16(e / l), probs [BH, qN, LP] with LP =
+// kN + 1 rounded up to 8 (16-byte rows; columns past kN zero).  K6bs: K6b's pair with p read
 // from those probabilities (tiles staged by cp.async beside each ring
 // stage; its sweep A loads v alone), D_i = rowsum(dp p) with the saved p;
 // no QK^T and no exp.  Times against the previous (mma.sync) pair and
 // against the bounds: PERF.md.
 // Not done yet: TMA and a producer warp, 128-key tiles, fewer
-// recomputations of s (the backward forms s three times and g v^T twice).
+// recomputations of s in the backward (it forms s three times and g v^T
+// twice), the forward's products and exponentials overlapped within a
+// warpgroup (each tile's groups are waited for in turn).
 
 #include <algorithm>
 #include <type_traits>
@@ -326,9 +339,8 @@ __device__ __forceinline__ void mma_cols(float (&acc)[NT][4],
 
 // K7: the logits s = (q.k) * scale + bias for the warp's 16 query rows and
 // tile keys [n0, n0 + 8), MASKED for keys past the cls (j > kn), as the
-// TPU kernel masks its padding columns; K5/K6 (CLAMP): exp(min(s, 80)),
-// zero past the cls
-template <bool CLAMP, int KS>
+// TPU kernel masks its padding columns
+template <int KS>
 __device__ __forceinline__ void logits8(float (&s)[4],
                                         const uint32_t (&qa)[KS][4],
                                         const uint32_t (&ra)[3][4],
@@ -340,14 +352,8 @@ __device__ __forceinline__ void logits8(float (&s)[4],
   mma_rows<3>(b, ra, e_s, SE, n0);
   const int col = j0 + n0 + 2 * (threadIdx.x & 3);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if constexpr (CLAMP) {
-      const float x = fmaf(qk[e], scale, b[e]);
-      s[e] = col + (e & 1) <= kn ? exp2f(fminf(x, CLAMP_HI) * LOG2E) : 0.f;
-    } else {
-      s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;
-    }
-  }
+  for (int e = 0; e < 4; ++e)
+    s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -363,114 +369,8 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 template <int DP>
-__host__ __device__ constexpr size_t fwd_smem() {
+__host__ __device__ constexpr size_t kt_fwd_smem() {
   return (size_t)(3 * 64 * (DP + 8) + 2 * 64 * SE) * 2;
-}
-
-// K5f / K6f, and with SAVE K6sp, which also stores the bf16(p) fragments
-// of P V to probs.  EXACT: the head dim is the tile width DP, so the
-// column tests against d fold away at compile time.
-template <bool SAVE, int DP, bool EXACT>
-__global__ void __launch_bounds__(WARPS * 32)
-mvit_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-             const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
-             const uint16_t* __restrict__ vc, const uint16_t* __restrict__ rel,
-             uint16_t* __restrict__ out, float* __restrict__ rowsum,
-             uint16_t* __restrict__ probs, Geo g, float scale) {
-  constexpr int SD = DP + 8, KS = DP / 16, DT = DP / 8;
-  if constexpr (EXACT) g.d = DP;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* k_s = q_s + BM * SD;
-  uint16_t* v_s = k_s + BN * SD;
-  uint16_t* e_s = v_s + BN * SD;
-  uint16_t* r_s = e_s + BN * SE;
-  const int bh = blockIdx.y, i0 = blockIdx.x * BM;
-  const uint16_t* kp = k_of(k, g, bh);
-  const uint16_t* vp = k_of(v, g, bh);
-  const uint16_t* kcp = c_of(kc, g, bh);
-  const uint16_t* vcp = c_of(vc, g, bh);
-
-  stage_rows<DP>(q_s, q_of(q, g, bh), g.row, i0, g.qn, g.d);
-  stage_rel(r_s, rel_of(rel, g, bh), g, i0);
-  cp_async_wait_all();
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  uint32_t qa[KS][4], ra[3][4];
-  load_a<KS>(qa, q_s, SD, warp * 16);
-  load_a<3>(ra, r_s, SE, warp * 16);
-
-  // sweep 1: the row sums l
-  float l0 = 0.f, l1 = 0.f;
-  for (int j0 = 0; j0 <= g.kn; j0 += BN) {
-    __syncthreads();  // the previous key tile is consumed
-    stage_keys<DP>(k_s, kp, kcp, g.row, j0, g.kn, g.d);
-    build_expander(e_s, j0, g);
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 2
-    for (int n0 = 0; n0 < BN; n0 += 8) {
-      float s[4];
-      logits8<true, KS>(s, qa, ra, k_s, SD, e_s, n0, j0, g.kn, scale);
-      l0 += s[0] + s[1];
-      l1 += s[2] + s[3];
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = i0 + warp * 16 + gid, r1 = r0 + 8;
-  uint16_t* pp = SAVE ? probs_of(probs, g, bh) : nullptr;
-
-  // sweep 2: p = e / l, rounded to bf16 as the A operand of P V
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  for (int j0 = 0; j0 <= g.kn; j0 += BN) {
-    __syncthreads();
-    stage_keys<DP>(k_s, kp, kcp, g.row, j0, g.kn, g.d);
-    stage_keys<DP>(v_s, vp, vcp, g.row, j0, g.kn, g.d);
-    build_expander(e_s, j0, g);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      float s0[4], s1[4];
-      logits8<true, KS>(s0, qa, ra, k_s, SD, e_s, ks * 16, j0, g.kn, scale);
-      logits8<true, KS>(s1, qa, ra, k_s, SD, e_s, ks * 16 + 8, j0, g.kn, scale);
-      const uint32_t pa[4] = {pack_bf16x2(s0[0] * inv0, s0[1] * inv0),
-                              pack_bf16x2(s0[2] * inv1, s0[3] * inv1),
-                              pack_bf16x2(s1[0] * inv0, s1[1] * inv0),
-                              pack_bf16x2(s1[2] * inv1, s1[3] * inv1)};
-      if constexpr (SAVE) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int c = j0 + ks * 16 + u * 8 + 2 * tig;
-          if (c >= g.pld) continue;
-          const uint32_t w0 = pa[2 * u], w1 = pa[2 * u + 1];
-          if (r0 < g.qn)
-            *reinterpret_cast<uint32_t*>(pp + (size_t)r0 * g.pld + c) = w0;
-          if (r1 < g.qn)
-            *reinterpret_cast<uint32_t*>(pp + (size_t)r1 * g.pld + c) = w1;
-        }
-      }
-      mma_cols<DT>(o, pa, v_s, SD, ks * 16);
-    }
-  }
-  uint16_t* op = q_of(out, g, bh);
-  float* rs = rowsum + (size_t)bh * g.qn;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = i0 + warp * 16 + gid + 8 * half;
-    if (r >= g.qn) continue;
-    uint16_t* dst = op + (size_t)r * g.row + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      if (dt * 8 < g.d)
-        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-            pack_bf16x2(o[dt][2 * half], o[dt][2 * half + 1]);
-    if (tig == 0) rs[r] = half ? l1 : l0;
-  }
 }
 
 // K7f: one sweep over the key tiles with an online softmax (the
@@ -478,7 +378,7 @@ mvit_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 // and partial sums l and acc; a tile whose max exceeds m rescales them by
 // exp(m_old - m_new); p = exp(s - m) is rounded to bf16 unnormalised as the
 // A operand of P V; o = acc / l and lse = m + log l at the end.  EXACT as
-// for mvit_fwd_mma.
+// for mvit_fwd_wg.
 template <int DP, bool EXACT>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_fwd_kt_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
@@ -527,7 +427,7 @@ mvit_fwd_kt_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     float t0 = MASKED, t1 = MASKED;
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
-      logits8<false, KS>(s[nb], qa, ra, k_s, SD, e_s, nb * 8, j0, g.kn, scale);
+      logits8<KS>(s[nb], qa, ra, k_s, SD, e_s, nb * 8, j0, g.kn, scale);
       t0 = fmaxf(t0, fmaxf(s[nb][0], s[nb][1]));
       t1 = fmaxf(t1, fmaxf(s[nb][2], s[nb][3]));
     }
@@ -749,6 +649,200 @@ __device__ __forceinline__ void accumulate(float (&acc)[N / 2],
     uint32_t a[4];
     acc_to_a(a, x, kk);
     wgmma_rs<N>(acc, a, mnmajor<N>(b_s, kk), kk > 0 || !first);
+  }
+}
+
+// ----------------------------------------- bf16 forward (wgmma) kernel
+
+// K5f / K6f, and with SAVE K6sp (mvit_fwd_wg): a CTA of FWG warpgroups owns
+// FWG x 64 query rows of one slice (each warpgroup's q and rel resident);
+// the key tiles of 64 (k, v and the 0/1 expander, built once per tile for
+// all warpgroups) stream through a ring of FSTAGES stages, filled by
+// cp.async groups issued FSTAGES - 1 steps ahead, so a tile's K and V are
+// read once for FWG x 64 queries.  Per key tile a warpgroup forms s =
+// (q k^T) scale + R E^T with two wgmma groups (the bias product accumulated
+// onto the scaled logits, as the backward forms them), e = exp(min(s, 80))
+// (zero past the cls key, column kN), adds e to its rows' sums l and
+// accumulates o += bf16(e) v (wgmma, e the register A operand): one sweep
+// over the keys, o / l at the end, so q k^T and the bias product run once.
+// K6sp sweeps the key tiles first for l alone (no v), then runs K6f's
+// sweep, sums and all, storing bf16(e (1 / l)) through a staging tile in
+// 16-byte rows; its out and l are K6f's bit for bit.  Each warpgroup waits
+// on its own product groups in turn, so more warpgroups overlap more.
+
+// warpgroups of a forward CTA (FWG): four where their registers (512
+// threads leave 128 each) and shared memory allow, to tile width 96; else
+// three
+template <int DP>
+__host__ __device__ constexpr int fwd_wgs() {
+  return DP > 96 ? 3 : 4;
+}
+constexpr int FSTAGES = 3;      // ring stages of key tiles
+
+// per warpgroup q (width DP) and rel (KCAT); per stage k, v (DP) and the
+// expander (KCAT); for K6sp a [64 x SP] p staging tile per warpgroup
+template <int DP>
+__host__ __device__ constexpr int fwd_resident() {
+  return 64 * DP + 64 * KCAT;  // elements
+}
+template <int DP>
+__host__ __device__ constexpr int fwd_stage() {
+  return 2 * 64 * DP + 64 * KCAT;  // elements
+}
+template <bool SAVE, int DP>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return ((size_t)fwd_wgs<DP>() * fwd_resident<DP>() +
+          FSTAGES * fwd_stage<DP>() + (SAVE ? fwd_wgs<DP>() * 64 * SP : 0)) *
+         2;
+}
+
+// EXACT: the head dim is the tile width DP, so the column tests against d
+// fold away at compile time
+template <bool SAVE, int DP, bool EXACT>
+__global__ void __launch_bounds__(fwd_wgs<DP>() * 128, 1)
+mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+            const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
+            const uint16_t* __restrict__ vc, const uint16_t* __restrict__ rel,
+            uint16_t* __restrict__ out, float* __restrict__ rowsum,
+            uint16_t* __restrict__ probs, Geo g, float scale) {
+  constexpr int RES = fwd_resident<DP>(), STAGE = fwd_stage<DP>();
+  constexpr int FWG = fwd_wgs<DP>(), FM = FWG * BM;
+  if constexpr (EXACT) g.d = DP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* base = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* ring = base + FWG * RES;  // stage s at ring + s * STAGE
+  const int wg = warpgroup();
+  const uint16_t* q_s = base + wg * RES;  // this warpgroup's rows
+  const uint16_t* r_s = q_s + 64 * DP;
+  uint16_t* p_st = ring + FSTAGES * STAGE + wg * 64 * SP;
+  const int bh = blockIdx.y, i0 = blockIdx.x * FM, w0 = i0 + wg * BM;
+  const bool active = w0 < g.qn;  // warp-uniform
+  const uint16_t* kp = k_of(k, g, bh);
+  const uint16_t* vp = k_of(v, g, bh);
+  const uint16_t* kcp = c_of(kc, g, bh);
+  const uint16_t* vcp = c_of(vc, g, bh);
+  uint16_t* pp = SAVE ? probs_of(probs, g, bh) : nullptr;
+  const int tiles = (g.kn + 1 + BN - 1) / BN;
+  const int iters = SAVE ? 2 * tiles : tiles;  // K6sp: the sums, then K6f
+
+  for (int w = 0; w < FWG; ++w) {
+    stage_cm<DP>(base + w * RES, q_of(q, g, bh), g.row, i0 + w * BM, g.qn,
+                 g.d);
+    stage_rel_cm(base + w * RES + 64 * DP, rel_of(rel, g, bh), g, i0 + w * BM);
+  }
+  // key tile t % tiles of step t into stage t % FSTAGES: one commit group
+  // per step (empty past the last), so that group t holds step t
+  auto stage = [&](int t) {
+    if (t < iters) {
+      uint16_t* st = ring + (t % FSTAGES) * STAGE;
+      const int j0 = (t % tiles) * BN;
+      stage_keys_cm<DP>(st, kp, kcp, g.row, j0, g);
+      if (!SAVE || t >= tiles)
+        stage_keys_cm<DP>(st + 64 * DP, vp, vcp, g.row, j0, g);
+      build_expander_cm(st + 128 * DP, j0, g);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t + 1 < FSTAGES; ++t) stage(t);
+
+  float o[DP / 2];  // written by the first P V product
+  float l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+  for (int t = 0; t < iters; ++t) {
+    // step t has landed and every warpgroup is done with step t - 1: its
+    // stage takes step t + FSTAGES - 1
+    cp_async_wait_pending(FSTAGES - 2);
+    fence_async_smem();
+    __syncthreads();
+    stage(t + FSTAGES - 1);
+    if (SAVE && t == tiles) {  // K6sp's first sweep is done: 1 / l of p
+      inv0 = 1.f / quad_sum(l0);
+      inv1 = 1.f / quad_sum(l1);
+      l0 = l1 = 0.f;
+    }
+    if (!active) continue;
+    const uint16_t* st = ring + (t % FSTAGES) * STAGE;
+    const uint16_t* k_s = st;
+    const uint16_t* v_s = st + 64 * DP;
+    const uint16_t* e_s = st + 128 * DP;
+    const int j0 = (t % tiles) * BN;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks)
+      wgmma_ss64(s, kmajor<DP>(q_s, ks), kmajor<DP>(k_s, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    add_bias(s, r_s, e_s, scale);
+    // e = exp(min(s, 80)) over the body keys and the cls (columns <= kN);
+    // a tile wholly inside takes no mask, 8-key blocks past kN no exp
+    const bool full_tile = j0 + BN <= g.kn + 1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool past = j0 + 8 * j > g.kn;  // warp-uniform
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = 0.f;
+        if (full_tile || (!past && j0 + acc_col(j, e) <= g.kn))
+          x = exp2_ftz(fminf(s[4 * j + e], CLAMP_HI) * LOG2E);
+        if (e < 2) l0 += x; else l1 += x;
+        s[4 * j + e] = x;
+      }
+    }
+    if (SAVE && t < tiles) continue;  // the first sweep sums l alone
+    if constexpr (SAVE) {
+      // p = bf16(e (1 / l)) of the tile into the staging tile, once every
+      // thread has read the previous one out (before the P V group: no
+      // divergent code may sit inside it, or ptxas serializes its products)
+      bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float f = h ? inv1 : inv0;
+          *reinterpret_cast<uint32_t*>(p_st + (acc_row(0) + 8 * h) * SP +
+                                       acc_col(j, 0)) =
+              pack_bf16x2(s[4 * j + 2 * h] * f, s[4 * j + 2 * h + 1] * f);
+        }
+    }
+    wgmma_fence();
+    accumulate<DP>(o, s, v_s, t == iters - tiles);
+    wgmma_commit();
+    // complete before the loop moves on: no accumulator of a group in
+    // flight crosses the loop's back edge
+    wgmma_wait<0>();
+    fence_regs(o);
+    if constexpr (SAVE) {
+      // the staged rows to probs in 16-byte pieces, columns < LP
+      bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int c = threadIdx.x & 127; c < 64 * BN / 8; c += 128) {
+        const int r = c >> 3, col = j0 + 8 * (c & 7);
+        if (w0 + r < g.qn && col < g.pld)
+          *reinterpret_cast<uint4*>(pp + (size_t)(w0 + r) * g.pld + col) =
+              *reinterpret_cast<const uint4*>(p_st + r * SP + 8 * (c & 7));
+      }
+    }
+  }
+  if (!active) return;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  uint16_t* op = q_of(out, g, bh);
+  float* rs = rowsum + (size_t)bh * g.qn;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = w0 + acc_row(2 * half);
+    if (r >= g.qn) continue;
+    const float l = half ? l1 : l0, f = 1.f / l;
+    uint16_t* dst = op + (size_t)r * g.row;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < g.d)
+        *reinterpret_cast<uint32_t*>(dst + acc_col(j, 0)) =
+            pack_bf16x2(o[4 * j + 2 * half] * f, o[4 * j + 2 * half + 1] * f);
+    if ((threadIdx.x & 3) == 0) rs[r] = l;
   }
 }
 
@@ -1578,12 +1672,12 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
     return launch_fwd_scalar<__nv_bfloat16, KT, SAVE>(
         q, k, v, kc, vc, rel, out, stats, probs, b * heads, g, scale, st);
   using u16 = uint16_t;
-  const dim3 grid((qn + BM - 1) / BM, b * heads);
   auto run = [&](auto w, auto exact) {
     constexpr int DP = decltype(w)::value;
     constexpr bool EXACT = decltype(exact)::value;
-    constexpr size_t smem = fwd_smem<DP>();
     if constexpr (KT) {
+      constexpr size_t smem = kt_fwd_smem<DP>();
+      const dim3 grid((qn + BM - 1) / BM, b * heads);
       cudaError_t err = set_smem(mvit_fwd_kt_mma<DP, EXACT>, smem);
       if (err != cudaSuccess) return (int)err;
       mvit_fwd_kt_mma<DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
@@ -1592,9 +1686,12 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
           static_cast<const u16*>(vc), static_cast<const u16*>(rel),
           static_cast<u16*>(out), static_cast<float*>(stats), g, scale);
     } else {
-      cudaError_t err = set_smem(mvit_fwd_mma<SAVE, DP, EXACT>, smem);
+      constexpr size_t smem = fwd_smem<SAVE, DP>();
+      constexpr int FWG = fwd_wgs<DP>(), FM = FWG * BM;
+      const dim3 grid((qn + FM - 1) / FM, b * heads);
+      cudaError_t err = set_smem(mvit_fwd_wg<SAVE, DP, EXACT>, smem);
       if (err != cudaSuccess) return (int)err;
-      mvit_fwd_mma<SAVE, DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
+      mvit_fwd_wg<SAVE, DP, EXACT><<<grid, FWG * 128, smem, st>>>(
           static_cast<const u16*>(q), static_cast<const u16*>(k),
           static_cast<const u16*>(v), static_cast<const u16*>(kc),
           static_cast<const u16*>(vc), static_cast<const u16*>(rel),

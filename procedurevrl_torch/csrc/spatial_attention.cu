@@ -57,26 +57,37 @@
 //        441 MB, ~132 us (bytes); 34.3 GFLOP, ~35 us;
 //   K1br K1b's bytes less the probs, 305 MB, ~91 us; 42.9 GFLOP, ~43 us;
 //   K1bd K1b's bytes plus 43.6 MB of o, 485 MB, ~145 us.
-// All are memory-bound.  Design: one CTA per (frame, head) stages that
-// head's rows in shared memory with cp.async (all of a CTA's copies in
-// flight at once), so every input byte is read from device memory once and
-// the L x L logits never reach device memory.
-//   * bf16 forward: four warps, each owns 16-query tiles; QK^T and PV run on
-//     the tensor cores with mma.sync m16n8k16 (fp32 accumulators).  The
-//     logits tile stays in registers; its accumulator layout is reused
-//     directly as the A operand of the PV product; the Q, K and V fragments
-//     come from shared memory by ldmatrix.  The exponential is exp2f of a
-//     log2(e)-scaled argument and each row is normalised by one reciprocal
-//     (softmax_tile).  K1sp is the same template with the probabilities
-//     stored from those A fragments (4-byte stores, zeros past L), so the
-//     forward math has one copy (mma_item).
-//   * K1p, the TPU's manually pipelined forward: persistent CTAs of eight
-//     warps walk the (frame, head) items with stride gridDim.x; a ring of
-//     `depth` stages, filled by cp.async groups, keeps the next items' q, k
-//     and v rows in flight while the current item computes (mma_item).  One
-//     stage of q, k and v at L = 197 is 208 x 72 x 3 bf16 = 88 KB, so the
-//     requested depth (SPATIAL_PIPE_NBUF, default 3) is clamped to what fits
-//     in 227 KB: 2 at the TimeSformer shape, up to 8 for short sequences.
+// All are memory-bound.  Design: every input byte is read from device
+// memory once, and the L x L logits never reach device memory.
+//   * bf16 forward (K1f, K1sp, K1p: spatial_wg_kernel, for Hopper):
+//     persistent CTAs walk the (frame, head) items.  A copying warpgroup
+//     fills a ring of stages, each q, k and v of one item in the
+//     core-matrix layout of wgmma.cuh (3 x 208 x 64 bf16 = 78 KB), with
+//     cp.async under mbarriers (full: the copies have landed; empty: the
+//     computing warpgroups are done with the stage), so the copies, which
+//     wait on the memory system, never hold up the products; it gives its
+//     registers to the two computing warpgroups (setmaxnreg).  The item's
+//     four 64-row query tiles (197 rows: 3 x 64 + 5) go two to each
+//     computing warpgroup; a tile's logits against all 208 keys are one
+//     wgmma group (m64n208k16; its fp32 logits are mma.sync m16n8k16's bit
+//     for bit on the card, so K1br's softmax_tile recomputes K1sp's p
+//     exactly, which chip_smoke.py holds), the clamp softmax runs in
+//     registers in softmax_tile's order (ex2.approx.ftz of the
+//     log2(e)-scaled argument, one reciprocal per row; 8-key blocks wholly
+//     inside L take no column test), and P V is a wgmma with p as the
+//     register A operand.  K1sp writes each tile's bf16 p rows to a staging
+//     tile in shared memory and stores them with one bulk copy (the item's
+//     [L, LS] block of probs is contiguous), which runs under the next
+//     tile.  K1f and K1sp run a ring of 2; K1p, the TPU's manually
+//     pipelined forward, is the same kernel with the depth SPATIAL_PIPE_NBUF
+//     asks for, clamped to what fits in 227 KB (2 at the TimeSformer shape,
+//     up to 8 for short sequences), so its outputs equal K1f's bit for bit.
+//     Not done: TMA (a head's rows are 128-byte pieces 4.6 KB apart, which
+//     cp.async moves into the layout wgmma reads without a tensor map), and
+//     two tiles of a warpgroup in flight at once (their logits alone would
+//     take 208 registers a thread).
+//   * K1p in float32: persistent CTAs of eight warps and a cp.async ring of
+//     scalar stages (3 x L x 66 floats), the scalar forward's item code.
 //   * bf16 backward: q, k, v, g (208 x 64 each) and the probability tile
 //     (208 x 216) fill 210 KB of shared memory.  K1b copies the saved tile;
 //     K1br computes it instead (softmax_tile on the staged q and k, cast to
@@ -95,9 +106,9 @@
 //     for the products with V, K, Q and G; expf and a true division.  K1br's
 //     fp32 path writes its recomputed p rows to a scratch buffer the wrapper
 //     allocates (they do not fit in shared memory beside q, k, v and g).
-// Not done yet: TMA, wgmma, warp specialisation.
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -429,8 +440,8 @@ __device__ __forceinline__ void stage_qkv(uint16_t* dst, const uint16_t* x,
 // s[nt][e] = exp(min(q.k * scale, 80)) for key columns < L and 0 past them,
 // in the m16n8 accumulator layout (rows r0 = mt*16 + lane/4 and r1 = r0 + 8,
 // columns nt*8 + 2*(lane%4) + (e & 1)), and the reciprocals of the two rows'
-// sums.  p = s * inv rounded to bf16 is the one probability of K1f, K1sp,
-// K1p and K1br.
+// sums.  p = s * inv rounded to bf16 is K1br's probability, and bit for
+// bit that of K1f, K1sp and K1p (wg_tile, the same arithmetic on wgmma).
 template <int LP>
 __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
                                              const uint16_t* k_s, int mt,
@@ -472,7 +483,7 @@ __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = nt * 8 + 2 * tig + (e & 1);
-      const float x = col < L ? exp2f(fminf(s[nt][e] * scale2, hi2)) : 0.f;
+      const float x = col < L ? exp2_ftz(fminf(s[nt][e] * scale2, hi2)) : 0.f;
       s[nt][e] = x;
       if (e < 2) sum0 += x; else sum1 += x;
     }
@@ -481,142 +492,295 @@ __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
   inv1 = 1.f / quad_sum(sum1);
 }
 
-// One (frame, head) item of the bf16 forward from staged q, k, v tiles
-// [LP x MMA_STRIDE]: warps `warp`, `warp + nwarps`, ... take the 16-query
-// tiles.  SAVE_P: also write the probabilities to p_dst (K1sp).
+// ------------------------------------------ bf16 forward (wgmma) kernel
+
+// K1f, K1sp and K1p in bf16 (spatial_wg_kernel): persistent CTAs walk the
+// (frame, head) items blockIdx.x, blockIdx.x + gridDim.x, ...; the k-th item
+// of a CTA lands in ring stage k % depth.  A stage holds q, k and v rows
+// [0, LP) of the item in the core-matrix layout of wgmma.cuh (LP x 64 each,
+// rows >= L zero: they are zeroed once and never copied over).  The item's
+// 64-row query tiles go to the CTA's computing warpgroups in turn (LP =
+// 208: four tiles over two warpgroups; the last tile's rows past LP read
+// the stage's first k rows, which only feed rows past L, never stored).  A
+// warpgroup forms the logits of its tile against all LP keys with one
+// wgmma group (m64nLPk16; its fp32 logits equal mma.sync m16n8k16's bit for
+// bit, so softmax_tile, K1br's recompute, gives the same p), the clamp
+// softmax in registers in softmax_tile's order, and P V with p as the
+// register A operand.  K1sp stages the tile's bf16 p rows in shared memory
+// and writes them with one bulk copy (the item's [L, LS] block is
+// contiguous in probs), which runs under the next tile.
+constexpr int FWD_DEPTH = 2;  // the ring of K1f and K1sp
+
+__host__ __device__ constexpr int fwd_wgs(int lp) { return lp == 64 ? 1 : 2; }
+__host__ __device__ constexpr int fwd_qtiles(int lp) { return lp == 64 ? 1 : 4; }
+// the computing warpgroups and the copying warpgroup
+__host__ __device__ constexpr int fwd_threads(int lp) {
+  return (fwd_wgs(lp) + 1) * 128;
+}
+
+// the forward's shared memory: `depth` stages of q, k, v, and beside them
+// per warpgroup a p staging tile of 64 x LP (used by K1sp) and the ring's
+// full and empty mbarriers
+struct FwdShape {
+  int lp;
+  size_t stage, extra;
+};
+
+FwdShape fwd_shape(int n, bool save_p) {
+  const int lp = n + 1 <= 64 ? 64 : MAX_LEN;
+  const size_t staging =
+      save_p ? (size_t)fwd_wgs(lp) * 64 * lp * sizeof(uint16_t) : 0;
+  return {lp, (size_t)3 * lp * HEAD_DIM * sizeof(uint16_t),
+          staging + 2 * MAX_DEPTH * sizeof(uint64_t)};
+}
+
+// ring depth: the requested one, at least 1, clamped to what fits
+int fwd_depth(int n, bool save_p, int nbuf) {
+  if (n + 1 > MAX_LEN || n < 1) return 0;
+  const FwdShape s = fwd_shape(n, save_p);
+  const int fits = (int)((MAX_SMEM - s.extra) / s.stage);
+  int d = nbuf < 1 ? 1 : nbuf;
+  d = d > fits ? fits : d;
+  return d > MAX_DEPTH ? MAX_DEPTH : d;
+}
+
+// the logits of a 64-row query tile against the LP staged keys
+template <int LP>
+__device__ __forceinline__ void wg_logits(float (&s)[LP / 2], uint64_t da,
+                                          uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void wg_logits<64>(float (&s)[32], uint64_t da,
+                                              uint64_t db, int acc) {
+  wgmma_ss64(s, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void wg_logits<208>(float (&s)[104], uint64_t da,
+                                               uint64_t db, int acc) {
+  wgmma_ss208(s, da, db, acc);
+}
+
+// Query tile t (rows 64 t .. 64 t + 63) of the item staged at st, in the
+// calling warpgroup: out rows < L, and with SAVE_P the p rows to p_dst (the
+// item's [L, LS] block) through the warpgroup's staging tile p_st.
 template <int LP, bool SAVE_P>
-__device__ __forceinline__ void mma_item(const uint16_t* q_s,
-                                         const uint16_t* k_s,
-                                         const uint16_t* v_s, uint16_t* out,
-                                         uint16_t* out_c, uint16_t* p_dst,
-                                         int bt, int h, int n, int heads,
-                                         float scale, int nwarps) {
-  constexpr int NT = LP / 8;   // 8-wide key tiles of the logits row
-  constexpr int KT = LP / 16;  // 16-deep key steps of the PV product
-  constexpr int MT = LP / 16;  // 16-row query tiles
-  const int L = n + 1, c = heads * HEAD_DIM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int lrow = lane & 7, ltile = lane >> 3;
-  const int ls = probs_stride(L);
-  for (int mt = warp; mt < MT; mt += nwarps) {
-    const int r0 = mt * 16 + gid, r1 = r0 + 8;
-    float s[NT][4];
-    float inv0, inv1;
-    softmax_tile<LP>(q_s, k_s, mt, L, scale, s, inv0, inv1);
-    // O = P V: the accumulator layout of two adjacent key tiles is the A
-    // fragment of one 16-deep step; p is rounded to bf16 there
-    float o[8][4];
+__device__ __forceinline__ void wg_tile(const uint16_t* st, int t,
+                                        uint16_t* p_st, uint16_t* out,
+                                        uint16_t* out_c, uint16_t* p_dst,
+                                        int bt, int h, int n, int heads,
+                                        float scale) {
+  constexpr int NB = LP / 8, KK = LP / 16;
+  const int L = n + 1, c = heads * HEAD_DIM, ls = probs_stride(L);
+  // the warp within the warpgroup, broadcast so that the compiler sees a
+  // warp-uniform branch on it (a divergent one would serialize the wgmma)
+  const int tid = threadIdx.x & 127;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const uint16_t* q_s = st + t * 64 * HEAD_DIM;
+  const uint16_t* k_s = st + LP * HEAD_DIM;
+  const uint16_t* v_s = st + 2 * LP * HEAD_DIM;
+  float s[NB * 4];
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int i = 0; i < NB * 4; ++i) s[i] = 0.f;
+  wgmma_fence();
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kt][0] * inv0, s[2 * kt][1] * inv0);
-      pa[1] = pack_bf16x2(s[2 * kt][2] * inv1, s[2 * kt][3] * inv1);
-      pa[2] = pack_bf16x2(s[2 * kt + 1][0] * inv0, s[2 * kt + 1][1] * inv0);
-      pa[3] = pack_bf16x2(s[2 * kt + 1][2] * inv1, s[2 * kt + 1][3] * inv1);
-      if constexpr (SAVE_P) {
-        // rows r0 (pa[0], pa[2]) and r1 (pa[1], pa[3]), column pairs
-        // kt*16 + 2*tig and 8 further; LS is a multiple of 8, so a pair is
-        // inside the row or wholly past it; columns >= L hold zeros
-        const int col = kt * 16 + 2 * tig;
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
+    wg_logits<LP>(s, kmajor<HEAD_DIM>(q_s, ks), kmajor<HEAD_DIM>(k_s, ks),
+                  ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  // softmax_tile's clamp softmax, same order: a warp whose 16 rows all lie
+  // past L forms no exponentials (its p is zero)
+  const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  float inv0 = 0.f, inv1 = 0.f;
+  if (t * 64 + 16 * warp < L) {
+    float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (col + 8 * u >= ls) continue;
-          if (r0 < L)
-            *reinterpret_cast<uint32_t*>(p_dst + (size_t)r0 * ls + col + 8 * u) =
-                pa[2 * u];
-          if (r1 < L)
-            *reinterpret_cast<uint32_t*>(p_dst + (size_t)r1 * ls + col + 8 * u) =
-                pa[2 * u + 1];
-        }
-      }
-      // B fragments of V (keys are the k index): transposed tiles
-      // (keys 0-7 | 8-15) x (columns of this dt | the next)
-      const uint16_t* vr = v_s + (kt * 16 + (ltile & 1) * 8 + lrow) * MMA_STRIDE +
-                           (ltile >> 1) * 8;
+    for (int j = 0; j < NB; ++j) {
+      const bool inside = 8 * j + 8 <= L;  // uniform: no column test
 #pragma unroll
-      for (int dt = 0; dt < 8; dt += 2) {
-        uint32_t vb[4];
-        ldsm_x4_t(vb, vr + dt * 8);
-        mma_16816(o[dt], pa, vb[0], vb[1]);
-        mma_16816(o[dt + 1], pa, vb[2], vb[3]);
+      for (int e = 0; e < 4; ++e) {
+        const float x = inside || acc_col(j, e) < L
+                            ? exp2_ftz(fminf(s[4 * j + e] * scale2, hi2))
+                            : 0.f;
+        s[4 * j + e] = x;
+        if (e < 2) sum0 += x; else sum1 += x;
       }
     }
-    // rows < n are patches, row n is the CLS query, rows > n are padding
+    inv0 = 1.f / quad_sum(sum0);
+    inv1 = 1.f / quad_sum(sum1);
+  } else {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? r1 : r0;
-      if (r > n) continue;
-      uint16_t* dst = seq_row(out, out_c, bt, r, n, c) + h * HEAD_DIM + 2 * tig;
+    for (int i = 0; i < NB * 4; ++i) s[i] = 0.f;
+  }
+  // p = e / l rounded to bf16: the A operand of P V, k-step kk = key
+  // blocks 2 kk, 2 kk + 1 (the accumulator layout of mma_16816's A)
+  uint32_t pa[KK][4];
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt)
-        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-            pack_bf16x2(o[dt][2 * half], o[dt][2 * half + 1]);
+  for (int kk = 0; kk < KK; ++kk) {
+    pa[kk][0] = pack_bf16x2(s[8 * kk] * inv0, s[8 * kk + 1] * inv0);
+    pa[kk][1] = pack_bf16x2(s[8 * kk + 2] * inv1, s[8 * kk + 3] * inv1);
+    pa[kk][2] = pack_bf16x2(s[8 * kk + 4] * inv0, s[8 * kk + 5] * inv0);
+    pa[kk][3] = pack_bf16x2(s[8 * kk + 6] * inv1, s[8 * kk + 7] * inv1);
+  }
+  if constexpr (SAVE_P) {
+    // the tile's p rows into the staging tile (row stride LS; columns
+    // L..LS-1 hold the zeros of the masked keys) once the previous tile's
+    // bulk store has read it; no divergent code may sit inside the P V
+    // group below (ptxas would serialize its products)
+    if (tid == 0) bulk_wait_read();
+    bar_sync(1 + (threadIdx.x >> 7), 128);
+    const int r0 = acc_row(0), r1 = r0 + 8;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = acc_col(2 * kk + u, 0);
+        if (col >= ls) continue;
+        *reinterpret_cast<uint32_t*>(p_st + r0 * ls + col) = pa[kk][2 * u];
+        *reinterpret_cast<uint32_t*>(p_st + r1 * ls + col) = pa[kk][2 * u + 1];
+      }
     }
+    fence_async_smem();
+  }
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+    wgmma_rs<HEAD_DIM>(o, pa[kk], mnmajor<HEAD_DIM>(v_s, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  if constexpr (SAVE_P) {
+    // one bulk store of the tile's rows < L, which runs under what follows
+    bar_sync(1 + (threadIdx.x >> 7), 128);
+    if (tid == 0) {
+      const int rows = min(64, L - t * 64);
+      bulk_store(p_dst + (size_t)t * 64 * ls, p_st,
+                 (unsigned)(rows * ls * sizeof(uint16_t)));
+      bulk_commit();
+    }
+  }
+  // rows < n are patches, row n is the CLS query, rows past it padding
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = t * 64 + acc_row(2 * half);
+    if (r > n) continue;
+    uint16_t* dst = seq_row(out, out_c, bt, r, n, c) + h * HEAD_DIM;
+#pragma unroll
+    for (int j = 0; j < HEAD_DIM / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + acc_col(j, 0)) =
+          pack_bf16x2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
   }
 }
 
-// LP: padded sequence length (multiple of 16).  One CTA per (frame, head).
-// SAVE_P: also write the probabilities (K1sp).
+// LP: 64 (L <= 64) or 208.  SAVE_P: K1sp.  depth: the ring's stages.
+// Warpgroups 0 .. WGS-1 compute; the warpgroup after them copies the
+// items' rows into the ring: stage k % depth takes item k
+// once the computing warpgroups have released item k - depth (mbarrier
+// empty), and the landed copies report through cp.async's own arrive
+// (mbarrier full), so the copies, which wait on the memory system, never
+// hold up the products, and the computing warpgroups run out of step.  At
+// LP = 208 the copying warpgroup gives up its registers (setmaxnreg) to the
+// computing ones, whose logits and probabilities take ~200 a thread.
 template <int LP, bool SAVE_P>
-__global__ void __launch_bounds__(WARPS * 32)
-spatial_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   const __nv_bfloat16* __restrict__ qkv_c,
-                   __nv_bfloat16* __restrict__ out,
-                   __nv_bfloat16* __restrict__ out_c,
-                   __nv_bfloat16* __restrict__ probs, int n, int heads,
-                   float scale) {
+__global__ void __launch_bounds__(fwd_threads(LP), 1)
+spatial_wg_kernel(const uint16_t* __restrict__ qkv,
+                  const uint16_t* __restrict__ qkv_c,
+                  uint16_t* __restrict__ out, uint16_t* __restrict__ out_c,
+                  uint16_t* __restrict__ probs, int n, int heads, int items,
+                  int depth, float scale) {
+  constexpr int WGS = fwd_wgs(LP), QT = fwd_qtiles(LP);
+  constexpr int TILE = LP * HEAD_DIM, STAGE = 3 * TILE;  // elements
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  const int bt = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int L = n + 1;
-  // rows >= L are zero so padded keys contribute exact zeros to PV
-  stage_qkv(q_s, reinterpret_cast<const uint16_t*>(qkv),
-            reinterpret_cast<const uint16_t*>(qkv_c), bt, h, n, heads, LP);
-  cp_async_wait_all();
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_raw);
+  const int L = n + 1, c = heads * HEAD_DIM, ls = probs_stride(L);
+  const int wg = warpgroup();
+  uint16_t* p_st = ring + depth * STAGE + wg * 64 * LP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + depth * STAGE + (SAVE_P ? WGS * 64 * LP : 0));
+  uint64_t* empty = full + MAX_DEPTH;
+
+  // rows L .. LP-1 of every stage's q, k and v: zero, never copied over
+  for (int idx = threadIdx.x; idx < depth * 3 * LP * 8; idx += blockDim.x) {
+    int r, cc;
+    chunk_rc<HEAD_DIM>(idx % (LP * 8), r, cc);
+    if (r >= L)
+      *reinterpret_cast<uint4*>(ring + (size_t)idx * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < depth; ++st) {
+      mbar_init(full + st, 128);  // the copying warpgroup's threads
+      mbar_init(empty + st, WGS);   // one thread of each warpgroup
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  uint16_t* p_dst = SAVE_P ? reinterpret_cast<uint16_t*>(probs) +
-                                 (size_t)blockIdx.x * L * probs_stride(L)
-                           : nullptr;
-  mma_item<LP, SAVE_P>(q_s, q_s + LP * MMA_STRIDE, q_s + 2 * LP * MMA_STRIDE,
-                       reinterpret_cast<uint16_t*>(out),
-                       reinterpret_cast<uint16_t*>(out_c), p_dst, bt, h, n,
-                       heads, scale, WARPS);
+
+  if (wg == WGS) {  // the copying warpgroup
+    if constexpr (LP == MAX_LEN) setmaxnreg_dec<40>();
+    const int lane = threadIdx.x & 127;
+    for (int k = 0; blockIdx.x + k * gridDim.x < items; ++k) {
+      const int item = blockIdx.x + k * gridDim.x, slot = k % depth;
+      if (k >= depth) mbar_wait(empty + slot, (k / depth - 1) & 1);
+      uint16_t* st = ring + slot * STAGE;
+      const int bt = item / heads, h = item % heads;
+      for (int idx = lane; idx < 3 * LP * 8; idx += 128) {
+        const int part = idx / (LP * 8), i = idx % (LP * 8);
+        int r, cc;
+        chunk_rc<HEAD_DIM>(i, r, cc);
+        if (r < L)
+          cp_async16(st + part * TILE + i * 8,
+                     seq_row(qkv, qkv_c, bt, r, n, 3 * c) + part * c +
+                         h * HEAD_DIM + cc);
+      }
+      cp_async_mbar_arrive(full + slot);
+    }
+    cp_async_wait_all();
+    return;
+  }
+  if constexpr (LP == MAX_LEN) setmaxnreg_inc<232>();
+  for (int k = 0; blockIdx.x + k * gridDim.x < items; ++k) {
+    const int item = blockIdx.x + k * gridDim.x, slot = k % depth;
+    mbar_wait(full + slot, (k / depth) & 1);  // item k's rows have landed
+    fence_async_smem();
+    const uint16_t* st = ring + slot * STAGE;
+    uint16_t* p_dst =
+        SAVE_P ? probs + (size_t)item * L * ls : nullptr;
+    for (int t = wg; t < QT && t * 64 < L; t += WGS)
+      wg_tile<LP, SAVE_P>(st, t, p_st, out, out_c, p_dst, item / heads,
+                          item % heads, n, heads, scale);
+    // every warp of the warpgroup is past its products on the stage
+    bar_sync(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(empty + slot);
+  }
+  if constexpr (SAVE_P) {
+    if ((threadIdx.x & 127) == 0) bulk_wait();
+  }
 }
 
-// K1p: persistent CTAs walk the items (frame, head) = blockIdx.x,
+// K1p in float32: persistent CTAs walk the items (frame, head) = blockIdx.x,
 // blockIdx.x + gridDim.x, ...; the k-th item of a CTA is staged into ring
-// slot k % depth by one cp.async group, issued depth - 1 items ahead.
-// T = float (scalar compute, per-warp probability rows after the ring) or
-// bf16 (tensor cores).
-template <typename T, int LP>
+// slot k % depth by one cp.async group, issued depth - 1 items ahead;
+// per-warp probability rows after the ring.
 __global__ void __launch_bounds__(PIPE_WARPS * 32)
-spatial_pipe_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
-                    T* __restrict__ out, T* __restrict__ out_c, int n,
-                    int heads, int items, int depth, float scale) {
+spatial_pipe_kernel(const float* __restrict__ qkv,
+                    const float* __restrict__ qkv_c, float* __restrict__ out,
+                    float* __restrict__ out_c, int n, int heads, int items,
+                    int depth, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool MMA = sizeof(T) == 2;
   const int L = n + 1;
-  const size_t stage = MMA ? (size_t)3 * LP * MMA_STRIDE
-                           : (size_t)3 * L * SC_STRIDE;  // elements
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  float* p_all = reinterpret_cast<float*>(ring + depth * stage);
+  const size_t stage = (size_t)3 * L * SC_STRIDE;  // elements
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* p_all = ring + depth * stage;
 
   auto issue = [&](int k) {
     const int item = blockIdx.x + k * gridDim.x;
-    if (item < items) {
-      T* slot = ring + (k % depth) * stage;
-      if constexpr (MMA) {
-        stage_qkv(reinterpret_cast<uint16_t*>(slot),
-                  reinterpret_cast<const uint16_t*>(qkv),
-                  reinterpret_cast<const uint16_t*>(qkv_c), item / heads,
-                  item % heads, n, heads, LP);
-      } else {
-        stage_scalar(slot, qkv, qkv_c, item / heads, item % heads, n, heads);
-      }
-    }
+    if (item < items)
+      stage_scalar(ring + (k % depth) * stage, qkv, qkv_c, item / heads,
+                   item % heads, n, heads);
     cp_async_commit();  // an empty group past the last item keeps the count
   };
   for (int k = 0; k < depth - 1; ++k) issue(k);
@@ -625,19 +789,11 @@ spatial_pipe_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
     cp_async_wait_pending(depth - 1);
     __syncthreads();  // item k's rows are in its slot for every thread
     const int item = blockIdx.x + k * gridDim.x;
-    const int bt = item / heads, h = item % heads;
-    const T* slot = ring + (k % depth) * stage;
-    if constexpr (MMA) {
-      const uint16_t* q_s = reinterpret_cast<const uint16_t*>(slot);
-      mma_item<LP, false>(q_s, q_s + LP * MMA_STRIDE, q_s + 2 * LP * MMA_STRIDE,
-                          reinterpret_cast<uint16_t*>(out),
-                          reinterpret_cast<uint16_t*>(out_c), nullptr, bt, h,
-                          n, heads, scale, PIPE_WARPS);
-    } else {
-      scalar_item<T, false>(slot, slot + (size_t)L * SC_STRIDE,
-                            slot + (size_t)2 * L * SC_STRIDE, p_all, out, out_c,
-                            nullptr, bt, h, n, heads, scale, PIPE_WARPS);
-    }
+    const float* slot = ring + (k % depth) * stage;
+    scalar_item<float, false>(slot, slot + (size_t)L * SC_STRIDE,
+                              slot + (size_t)2 * L * SC_STRIDE, p_all, out,
+                              out_c, nullptr, item / heads, item % heads, n,
+                              heads, scale, PIPE_WARPS);
     __syncthreads();  // every warp is done with the slot before its refill
   }
   cp_async_wait_all();
@@ -903,18 +1059,41 @@ spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-template <int LP, bool SAVE_P>
-cudaError_t launch_mma(const void* qkv, const void* qkv_c, void* out,
-                       void* out_c, void* probs, int bt, int n, int heads,
-                       float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)3 * LP * MMA_STRIDE * sizeof(uint16_t);
-  cudaError_t err = set_smem(spatial_mma_kernel<LP, SAVE_P>, smem);
+// persistent CTAs of `kernel` with `threads` threads and `smem` bytes: as
+// many as fit on the card at once, at most one per item
+template <typename K>
+cudaError_t persistent_ctas(K kernel, int threads, size_t smem, int items,
+                            int& ctas) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
   if (err != cudaSuccess) return err;
-  spatial_mma_kernel<LP, SAVE_P><<<bt * heads, WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<const __nv_bfloat16*>(qkv_c),
-      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(out_c),
-      static_cast<__nv_bfloat16*>(probs), n, heads, scale);
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  ctas = sms * per_sm < items ? sms * per_sm : items;
+  return cudaSuccess;
+}
+
+// the bf16 forward (K1f, K1sp, K1p) with a ring of `depth` stages
+template <int LP, bool SAVE_P>
+cudaError_t launch_wg(const void* qkv, const void* qkv_c, void* out,
+                      void* out_c, void* probs, int bt, int n, int heads,
+                      int depth, float scale, cudaStream_t stream) {
+  const FwdShape s = fwd_shape(n, SAVE_P);
+  const size_t smem = depth * s.stage + s.extra;
+  const int items = bt * heads, threads = fwd_threads(LP);
+  int ctas = 0;
+  cudaError_t err = persistent_ctas(spatial_wg_kernel<LP, SAVE_P>, threads,
+                                    smem, items, ctas);
+  if (err != cudaSuccess) return err;
+  spatial_wg_kernel<LP, SAVE_P><<<ctas, threads, smem, stream>>>(
+      static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(qkv_c),
+      static_cast<uint16_t*>(out), static_cast<uint16_t*>(out_c),
+      static_cast<uint16_t*>(probs), n, heads, items, depth, scale);
   return cudaGetLastError();
 }
 
@@ -934,44 +1113,47 @@ cudaError_t launch_scalar(const void* qkv, const void* qkv_c, void* out,
   return cudaGetLastError();
 }
 
+// The forward: K1f / K1sp (SAVE_P) in float32 on the scalar kernel, in
+// bf16 on spatial_wg_kernel with `nbuf` ring stages asked for (clamped by
+// fwd_depth)
 template <bool SAVE_P>
 int forward(const void* qkv, const void* qkv_c, void* out, void* out_c,
-            void* probs, int bt, int n, int heads, int dtype, float scale,
-            void* stream) {
+            void* probs, int bt, int n, int heads, int dtype, int nbuf,
+            float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int L = n + 1;
-  if (L > MAX_LEN) return (int)cudaErrorInvalidValue;
+  if (L > MAX_LEN || n < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch_scalar<SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
                                       heads, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int depth = fwd_depth(n, SAVE_P, nbuf);
+  if (depth < 1) return (int)cudaErrorInvalidValue;
   if (L <= 64)
-    return (int)launch_mma<64, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                       heads, scale, st);
-  return (int)launch_mma<208, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                      heads, scale, st);
+    return (int)launch_wg<64, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
+                                      heads, depth, scale, st);
+  return (int)launch_wg<MAX_LEN, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
+                                         heads, depth, scale, st);
 }
 
-// K1p geometry: the bytes of one ring stage and of the per-warp rows
-// beside the ring, and the padded length LP (0 = the scalar path).
+// K1p's float32 ring: the bytes of one stage and of the per-warp rows
+// beside it
 struct PipeShape {
   size_t stage, extra;
-  int lp;
 };
 
-PipeShape pipe_shape(int n, int dtype) {
+PipeShape pipe_shape(int n) {
   const int L = n + 1;
-  if (dtype == 0)
-    return {(size_t)3 * L * SC_STRIDE * sizeof(float),
-            (size_t)PIPE_WARPS * ((L + 31) & ~31) * sizeof(float), 0};
-  const int lp = L <= 64 ? 64 : MAX_LEN;
-  return {(size_t)3 * lp * MMA_STRIDE * sizeof(uint16_t), 0, lp};
+  return {(size_t)3 * L * SC_STRIDE * sizeof(float),
+          (size_t)PIPE_WARPS * ((L + 31) & ~31) * sizeof(float)};
 }
 
-// ring depth: the requested one, at least 1, clamped to what fits
+// K1p's ring depth: the requested one, at least 1, clamped to what fits
+// (bf16: the forward's rule)
 int pipe_depth(int n, int dtype, int nbuf) {
-  if (n + 1 > MAX_LEN) return 0;
-  const PipeShape s = pipe_shape(n, dtype);
+  if (n + 1 > MAX_LEN || n < 1) return 0;
+  if (dtype == 1) return fwd_depth(n, false, nbuf);
+  const PipeShape s = pipe_shape(n);
   if (s.stage + s.extra > MAX_SMEM) return 0;
   const int fits = (int)((MAX_SMEM - s.extra) / s.stage);
   int d = nbuf < 1 ? 1 : nbuf;
@@ -979,30 +1161,20 @@ int pipe_depth(int n, int dtype, int nbuf) {
   return d > MAX_DEPTH ? MAX_DEPTH : d;
 }
 
-template <typename T, int LP>
 cudaError_t launch_pipe(const void* qkv, const void* qkv_c, void* out,
                         void* out_c, int bt, int n, int heads, int depth,
                         float scale, cudaStream_t stream) {
-  const PipeShape s = pipe_shape(n, sizeof(T) == 2 ? 1 : 0);
+  const PipeShape s = pipe_shape(n);
   const size_t smem = depth * s.stage + s.extra;
-  cudaError_t err = set_smem(spatial_pipe_kernel<T, LP>, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, spatial_pipe_kernel<T, LP>, PIPE_WARPS * 32, smem)) !=
-      cudaSuccess)
-    return err;
   const int items = bt * heads;
-  if (per_sm < 1) return cudaErrorInvalidValue;
-  const int ctas = sms * per_sm < items ? sms * per_sm : items;
-  spatial_pipe_kernel<T, LP><<<ctas, PIPE_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(qkv_c),
-      static_cast<T*>(out), static_cast<T*>(out_c), n, heads, items, depth,
-      scale);
+  int ctas = 0;
+  cudaError_t err = persistent_ctas(spatial_pipe_kernel, PIPE_WARPS * 32,
+                                    smem, items, ctas);
+  if (err != cudaSuccess) return err;
+  spatial_pipe_kernel<<<ctas, PIPE_WARPS * 32, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(qkv_c),
+      static_cast<float*>(out), static_cast<float*>(out_c), n, heads, items,
+      depth, scale);
   return cudaGetLastError();
 }
 
@@ -1070,7 +1242,7 @@ extern "C" int spatial_attention_fwd(const void* qkv, const void* qkv_c,
                                      int heads, int dtype, float scale,
                                      void* stream) {
   return forward<false>(qkv, qkv_c, out, out_c, nullptr, bt, n, heads, dtype,
-                        scale, stream);
+                        FWD_DEPTH, scale, stream);
 }
 
 // K1sp: K1f that also writes probs [bt, heads, n + 1, LS] (LS = n + 1
@@ -1080,7 +1252,7 @@ extern "C" int spatial_attention_fwd_probs(const void* qkv, const void* qkv_c,
                                            int bt, int n, int heads, int dtype,
                                            float scale, void* stream) {
   return forward<true>(qkv, qkv_c, out, out_c, probs, bt, n, heads, dtype,
-                       scale, stream);
+                       FWD_DEPTH, scale, stream);
 }
 
 // The ring depth K1p runs for a requested depth nbuf (0: the shape does
@@ -1089,27 +1261,24 @@ extern "C" int spatial_attention_pipe_depth(int n, int dtype, int nbuf) {
   return dtype == 0 || dtype == 1 ? pipe_depth(n, dtype, nbuf) : 0;
 }
 
-// K1p: K1f's contract through persistent CTAs and a cp.async ring of
-// spatial_attention_pipe_depth(n, dtype, nbuf) stages.
+// K1p: K1f's contract through persistent CTAs and a ring of
+// spatial_attention_pipe_depth(n, dtype, nbuf) stages (bf16: K1f's kernel,
+// so its outputs equal K1f's bit for bit).
 extern "C" int spatial_attention_fwd_pipe(const void* qkv, const void* qkv_c,
                                           void* out, void* out_c, int bt,
                                           int n, int heads, int dtype,
                                           int nbuf, float scale,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int L = n + 1;
-  if ((dtype != 0 && dtype != 1) || L > MAX_LEN)
+  if (dtype == 1)
+    return forward<false>(qkv, qkv_c, out, out_c, nullptr, bt, n, heads,
+                          dtype, nbuf, scale, stream);
+  if (dtype != 0 || n + 1 > MAX_LEN || n < 1)
     return (int)cudaErrorInvalidValue;
   const int depth = pipe_depth(n, dtype, nbuf);
   if (depth < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_pipe<float, 0>(qkv, qkv_c, out, out_c, bt, n, heads,
-                                      depth, scale, st);
-  if (L <= 64)
-    return (int)launch_pipe<__nv_bfloat16, 64>(qkv, qkv_c, out, out_c, bt, n,
-                                               heads, depth, scale, st);
-  return (int)launch_pipe<__nv_bfloat16, MAX_LEN>(qkv, qkv_c, out, out_c, bt,
-                                                  n, heads, depth, scale, st);
+  return (int)launch_pipe(qkv, qkv_c, out, out_c, bt, n, heads, depth, scale,
+                          st);
 }
 
 // K1b: dqkv [bt, n, 3C], dqkv_c [bt, 1, 3C] from qkv, qkv_c, the K1sp

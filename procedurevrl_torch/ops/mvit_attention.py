@@ -21,11 +21,14 @@ row-major over the pooled key grid ``k_shape = (kt, kh, kw)``; kc, vc
 rel [BH, qN, kt + kh + kw] the per-axis bias tables in the order
 [t | h | w].  ``s = (q.k) scale + (rel_t + rel_h) + rel_w`` in fp32, the
 clamp-shift softmax ``p = exp(min(s, 80)) / l`` over the kN + 1 columns,
-``o = bf16(p) v`` accumulated in fp32.  The forward also returns the fp32
-row sums ``l`` ([B, H, qN]), the backward's residual; the backward is the
-TPU kernel's (``ds = p (dp - rowsum(dp p))``, cast to the input dtype
-before the dq, dk and d(rel) products; dk, dv summed over every query in
-fp32).  The CLS query row is not part of it: the model computes it.
+``o = bf16(p) v`` accumulated in fp32 (the bf16 tensor-core kernel, one
+sweep over the keys, rounds e = exp(min(s, 80)) instead: ``o = (bf16(e) v)
+/ l``, :func:`rounds_e`; the plain versions round where the kernels do).
+The forward also returns the fp32 row sums ``l`` ([B, H, qN]), the
+backward's residual; the backward is the TPU kernel's (``ds = p (dp -
+rowsum(dp p))``, cast to the input dtype before the dq, dk and d(rel)
+products; dk, dv summed over every query in fp32).  The CLS query row is
+not part of it: the model computes it.
 
 Each wrapper launches the kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`mvit_attention_hl` and
@@ -173,13 +176,20 @@ def _logits(q, k, kc, rel, k_shape, scale: float) -> torch.Tensor:
 
 
 def _fwd_core(q, k, v, kc, vc, rel, k_shape, scale):
+    """(out, l, p) of the head-split layout: the output rounded where the
+    kernel of this dtype and head dim rounds (:func:`rounds_e`), the fp32
+    row sums l and p = e / l in the input dtype."""
     e = torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
                               max=CLAMP_HI))
     l = e.sum(dim=-1)
     p = (e / l[..., None]).to(v.dtype)
-    vv = torch.cat([v, vc], dim=1)
-    o = torch.einsum("gij,gjd->gid", p.float(), vv.float()).to(q.dtype)
-    return o, l, p
+    vv = torch.cat([v, vc], dim=1).float()
+    if rounds_e(v.dtype, v.shape[-1]):
+        o = torch.einsum("gij,gjd->gid", e.to(v.dtype).float(), vv)
+        o = o / l[..., None]
+    else:
+        o = torch.einsum("gij,gjd->gid", p.float(), vv)
+    return o.to(q.dtype), l, p
 
 
 def _probs(q, k, kc, rel, rowsum, k_shape, scale) -> torch.Tensor:
@@ -428,6 +438,15 @@ def on_tensor_cores(d: int) -> bool:
     """Whether the bf16 tensor-core kernels take head dim ``d`` (the
     source's ``on_tensor_cores``): a multiple of 8 up to ``MAX_HEAD_DIM``."""
     return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+
+
+def rounds_e(dtype: torch.dtype, d: int) -> bool:
+    """Whether the K5/K6 forward of this dtype and head dim rounds the
+    unnormalised e = exp(min(s, 80)) to the input dtype before P V and
+    divides by l after (the bf16 tensor-core kernel, one sweep over the
+    keys), rather than p = e / l (the scalar kernels, two sweeps; in float32
+    nothing is rounded either way)."""
+    return dtype == torch.bfloat16 and on_tensor_cores(d)
 
 
 def _check_kernel(tensors, heads: int, k_shape) -> None:

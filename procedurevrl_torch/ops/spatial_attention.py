@@ -54,11 +54,43 @@ HEAD_DIM = 64  # the head dim of K1's own kernels
 MAX_LEN = 208
 CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The bf16 forward's ring (K1f, K1sp and K1p: ``fwd_shape`` and
+# ``fwd_depth`` of the source), written out here so that the CPU tests hold
+# the rule at every shape the kernels take
+MAX_SMEM = 232448  # the shared memory of one CTA on an H100, bytes
+MAX_DEPTH = 8      # stages of a ring, at most
+FWD_DEPTH = 2      # the stages K1f and K1sp ask for
 
 
 def probs_stride(seq_len: int) -> int:
     """Row stride of the saved probabilities: ``seq_len`` rounded up to 8."""
     return (seq_len + 7) // 8 * 8
+
+
+def fwd_geometry(n: int, save_probs: bool) -> Tuple[int, int, int, int]:
+    """(LP, warpgroups, stage bytes, extra bytes) of the bf16 forward at
+    N tokens per frame (+ CLS): the padded length LP (64 to L = 64, else
+    ``MAX_LEN``), the computing warpgroups of a CTA (one 64-row query tile
+    each at LP = 64, two sharing four tiles at 208; a copying warpgroup
+    beside them), one ring stage (q, k and v of an item, LP x 64 bf16 each) and
+    the bytes beside the ring: for K1sp the p staging tiles (64 x LP bf16
+    per warpgroup), and the ring's full and empty mbarriers (8 bytes each,
+    ``MAX_DEPTH`` of each)."""
+    lp = 64 if n + 1 <= 64 else MAX_LEN
+    wgs = 1 if lp == 64 else 2
+    staging = wgs * 64 * lp * 2 if save_probs else 0
+    return lp, wgs, 3 * lp * HEAD_DIM * 2, staging + 2 * MAX_DEPTH * 8
+
+
+def ring_depth(n: int, nbuf: int, save_probs: bool = False) -> int:
+    """The stages the bf16 forward runs for a request of ``nbuf`` (K1p's
+    ``SPATIAL_PIPE_NBUF``; K1f and K1sp ask for ``FWD_DEPTH``): at least 1,
+    at most what fits beside the staging tiles in ``MAX_SMEM`` and
+    ``MAX_DEPTH``; 0 where K1's kernels take no such frame."""
+    if not 1 <= n < MAX_LEN:
+        return 0
+    _, _, stage, extra = fwd_geometry(n, save_probs)
+    return min(max(nbuf, 1), (MAX_SMEM - extra) // stage, MAX_DEPTH)
 
 
 def _split_heads(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int):
@@ -278,7 +310,8 @@ def spatial_attention(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
 def pipe_depth(n: int, dtype: torch.dtype, nbuf: int) -> int:
     """The ring depth K1p runs at N tokens per frame (+ CLS) for a
     requested ``nbuf``: at least 1, at most what fits in shared memory (the
-    kernel's own rule, asked of the built library; needs the card)."""
+    kernel's own rule, asked of the built library; needs the card; in bf16
+    it is :func:`ring_depth`)."""
     return _build.load("spatial_attention").spatial_attention_pipe_depth(
         n, _DTYPES[dtype], nbuf)
 
@@ -287,7 +320,8 @@ def spatial_attention_pipe(qkv: torch.Tensor, qkv_c: torch.Tensor,
                            num_heads: int, scale: float, nbuf: int = 3
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1p: K1f's contract through persistent CTAs and a cp.async ring
-    that asks for ``nbuf`` stages (``SPATIAL_PIPE_NBUF``)."""
+    that asks for ``nbuf`` stages (``SPATIAL_PIPE_NBUF``; in bf16 K1f's
+    kernel with that ring, so its outputs equal K1f's bit for bit)."""
     _check(qkv, qkv_c, num_heads)
     if nbuf < 1:
         raise ValueError(f"spatial_attention_pipe: nbuf {nbuf} < 1")

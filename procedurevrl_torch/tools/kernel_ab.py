@@ -1,12 +1,16 @@
 """Time the port's attention kernels on one CUDA card: each kernel of a
 wrapper call apart, and an A/B of every case against another checkout.
 
-    python -m procedurevrl_torch.tools.kernel_ab [--family pair|mvit|all]
-        [--split-in DIR] [--ab DIR]
+    python -m procedurevrl_torch.tools.kernel_ab
+        [--family spatial|pair|mvit|all] [--split-in DIR] [--ab DIR]
 
-Two families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
-phases): ``pair``, the key-tiled pair of ``ops/flash_attention.py`` as K4
-(``[144, 197, 768]``), K3 (``[144, 196, 768]`` + CLS), K1's long range
+Three families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
+phases): ``spatial``, K1's own kernels of ``ops/spatial_attention.py`` (K1f
+and K1p at the eval shape ``[128, 196, 2304]`` + CLS; K1sp, K1b, K1br, K1bd
+and K1p at the training shape ``[144, 196, 2304]`` + CLS; K1f and K1sp at
+N = 48, the short-sequence instance); ``pair``, the key-tiled pair of
+``ops/flash_attention.py`` as K4 (``[144, 197, 768]``), K3
+(``[144, 196, 768]`` + CLS), K1's long range
 (``[144, 256, 2304]`` + CLS, N + 1 = 257) and K2's function at head dim 32
 (``[18, 8, 196, 2304]``, 24 heads), each forward and backward; ``mvit``,
 the MViT kernels of ``ops/mvit_attention.py`` (K5f, K6f, K6sp, K7f and the
@@ -83,6 +87,20 @@ PAIR_CASES = tuple(
         ("K2 d 32 [18,8,196,2304]", "temporal", 18, 8, 24, 32))
     for kind in ("fwd", "bwd"))
 K2_POSITIONS = 196
+
+# (label, kind, frames BT, patches N): K1's kernels at 12 heads of 64;
+# kind "fwd" K1f, "pipe" K1p (the default ring request, 3), "sp" K1sp,
+# "bwd" K1b, "bwdr" K1br, "bwdd" K1bd (the backwards fed K1sp's outputs)
+SPATIAL_CASES = (("K1f eval [128,196,2304]+CLS", "fwd", 128, 196),
+                 ("K1p eval [128,196,2304]+CLS", "pipe", 128, 196),
+                 ("K1sp [144,196,2304]+CLS", "sp", 144, 196),
+                 ("K1p [144,196,2304]+CLS", "pipe", 144, 196),
+                 ("K1b [144,196,2304]+CLS", "bwd", 144, 196),
+                 ("K1br [144,196,2304]+CLS", "bwdr", 144, 196),
+                 ("K1bd [144,196,2304]+CLS", "bwdd", 144, 196),
+                 ("K1f N 48 [144,48,2304]+CLS", "fwd", 144, 48),
+                 ("K1sp N 48 [144,48,2304]+CLS", "sp", 144, 48))
+SPATIAL_HEADS, SPATIAL_HEAD_DIM = 12, 64
 
 
 def mvit_inputs(torch, k5, variant, head_last, b, heads, qn, k_shape,
@@ -195,8 +213,43 @@ def pair_call(torch, case, seed=0):
     return lambda: fa.flash_attention_bwd(*x, g, l, heads, scale)
 
 
-FAMILIES = {"pair": (PAIR_CASES, pair_call, "flash_attention"),
+def spatial_call(torch, case, seed=0):
+    """One call of a K1 case through its wrapper (a closure)."""
+    from procedurevrl_torch.ops import spatial_attention as k1
+
+    _, kind, bt, n = case
+    heads, d = SPATIAL_HEADS, SPATIAL_HEAD_DIM
+    c, scale = heads * d, d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    qkv, qkv_c = r(bt, n, 3 * c), r(bt, 1, 3 * c)
+    g, gc = r(bt, n, c), r(bt, 1, c)
+    if kind == "fwd":
+        return lambda: k1.spatial_attention(qkv, qkv_c, heads, scale)
+    if kind == "pipe":
+        return lambda: k1.spatial_attention_pipe(qkv, qkv_c, heads, scale, 3)
+    if kind == "sp":
+        return lambda: k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale)
+    out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads,
+                                                       scale)
+    if kind == "bwd":
+        return lambda: k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc,
+                                                heads, scale)
+    if kind == "bwdr":
+        return lambda: k1.spatial_attention_bwd_recompute(qkv, qkv_c, g, gc,
+                                                          heads, scale)
+    return lambda: k1.spatial_attention_bwd_delta(qkv, qkv_c, probs, out,
+                                                  out_c, g, gc, heads, scale)
+
+
+FAMILIES = {"spatial": (SPATIAL_CASES, spatial_call, "spatial_attention"),
+            "pair": (PAIR_CASES, pair_call, "flash_attention"),
             "mvit": (MVIT_CASES, mvit_call, "mvit_attention")}
+
+
 def family_cases(family: str, only: str = ""):
     """The cases of ``family`` whose label holds ``only``."""
     return [c for c in FAMILIES[family][0] if only in c[0]]
@@ -404,7 +457,7 @@ def ab(other: Path, family: str, only: str = "") -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=("pair", "mvit", "all"),
+    ap.add_argument("--family", choices=("spatial", "pair", "mvit", "all"),
                     default="all")
     ap.add_argument("--ab", metavar="DIR", help="another checkout of the "
                     "repository to time the wrappers against")

@@ -16,7 +16,14 @@ sum of the chunks, or that leaves the cls key's row of dk and dv
 unwritten; the pair on K2's time-major layout with each clip's rows
 starting one frame early (``row_of``'s branch for sequences side by side),
 and K5f / K6f at head dim 72 staging q and k without zeros past column 72
-of their 96-wide tiles.
+of their 96-wide tiles; and the Hopper forwards' rings, staging and
+sweep: K1f / K1sp / K1p without the CLS row in the stage, with a stage
+released to the copying warpgroup before its products are done, K1sp
+with the last p row of an item not flushed or its zero columns past L
+staged as ones, K5f / K6f with the cls column left out of the one-sweep
+row sums l only, a stage released early, or the expander built for the
+next key tile, and K6sp with the last 16-byte piece of each p row not
+flushed.
 
     python -m procedurevrl_torch.tools.mutation_check [--only CHECK ...]
         [--jobs N]
@@ -38,6 +45,9 @@ TimeSformer-B training and eval shapes (BT 144 and 128, N 196, 12 heads),
 the gradients against the bf16 limit scaled by the largest gradient and
 K1p against ``K1K2_FWD_TOL``, with K1br held bit for bit against K1b on
 K1sp's probabilities and K1p against K1f, as ``chip_smoke.py`` holds them;
+K1sp at the same shapes, out and p against ``K1K2_FWD_TOL`` and out bit
+for bit against K1f's; K5f / K6f as above but rejected where either limit
+rejects (``mvit_sum``);
 K2v3f at the training and eval shapes (B 18 and 16, T 8 and 16, N 196),
 out and p against ``K1K2_FWD_TOL``; K5bd at block 0 and K6bd at block 1,
 the gradients against ``MVIT_GRAD_TOL`` scaled by each gradient's own
@@ -84,9 +94,15 @@ from dataclasses import dataclass
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-# the keep-mask of the exponentials in the K5/K6 tensor-core logits
-# (``logits8<true>``): columns 0..kN-1 are body keys, column kN the cls key
-_MASK = "s[e] = col + (e & 1) <= kn ? exp2f"
+# the keep-mask of the exponentials of the K5/K6 tensor-core forward
+# (``mvit_fwd_wg``): columns 0..kN-1 are body keys, column kN the cls key;
+# its row sums, its ring refill and the expander of a stage
+_MASK = "if (full_tile || (!past && j0 + acc_col(j, e) <= g.kn))"
+_MV_L = "        if (e < 2) l0 += x; else l1 += x;"
+_MV_REFILL = "    stage(t + FSTAGES - 1);\n"
+_MV_EXPANDER = ("      build_expander_cm(st + 128 * DP, j0, g);\n    }\n"
+                "    cp_async_commit();\n  };\n"
+                "  for (int t = 0; t + 1 < FSTAGES; ++t) stage(t);")
 # the keep-mask of K7's logits (``logits8<false>``) and its loop over key
 # tiles
 _KT_MASK = "s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;"
@@ -97,14 +113,26 @@ _DW_END = "min(p0 + per_block, g.npos)"
 # K1br's recomputed probability tile, K1p's ring slot, K1bd's delta rows and
 # K2v3f's key mask
 _BR_TILE = "softmax_tile<LP>(q_s, k_s, mt, L, scale, e, i0, i1);"
-_PIPE_SLOT = "const uint16_t* q_s = reinterpret_cast<const uint16_t*>(slot);"
+_PIPE_SLOT = ("    const uint16_t* st = ring + slot * STAGE;\n"
+              "    uint16_t* p_dst =")
+# the bf16 forward's (K1f, K1sp, K1p) copy of an item's rows into its ring
+# stage, the ring's refill, and K1sp's staging and bulk store of p
+_K1_ROWS = "        if (r < L)\n          cp_async16(st + part * TILE + i * 8,"
+_K1_FULL = ("    mbar_wait(full + slot, (k / depth) & 1);  // item k's rows "
+            "have landed\n")
+_K1_RELEASE = ("    bar_sync(1 + wg, 128);\n    if ((threadIdx.x & 127) == 0) "
+               "mbar_arrive(empty + slot);\n  }")
+_K1_FLUSH = "      const int rows = min(64, L - t * 64);"
+_K1_STAGE_P = ("        *reinterpret_cast<uint32_t*>(p_st + r0 * ls + col) = "
+               "pa[kk][2 * u];")
 _DELTA = "if (half) d1 = acc; else d0 = acc;"
 _V3_KEYS = "const bool key = 2 * tig + e < frames;"
 _V3_KEYS16 = "const bool key1 = 8 + 2 * tig + (e & 1) < frames;"
 # the D rows of the delta backwards (K5bd, K6bd; K7b shares them), K6sp's
 # store of a p fragment pair, and the tile of saved p K6bs stages
 _D_ROWS = "dd_s[threadIdx.x] = acc;"
-_P_STORE = "const uint32_t w0 = pa[2 * u], w1 = pa[2 * u + 1];"
+_P_STORE = "pack_bf16x2(s[4 * j + 2 * h] * f, s[4 * j + 2 * h + 1] * f);"
+_P_FLUSH = "if (w0 + r < g.qn && col < g.pld)"
 _P_TILE = "if (i0 + r < g.qn && j0 + c < g.pld) {"
 # the key-tiled pair: the forward's key mask and its walk over the key
 # tiles, the backward's sum of D (shared by the fused kernel and the
@@ -132,8 +160,8 @@ _MV_KROW = "const int j = j0 + acc_row(2 * half);\n    if (j > g.kn) continue;"
 # layout), and the zero fill past the head dim of the MViT forwards'
 # staged q and k tiles
 _FA_SEQ_ROW = "((unsigned)s / (unsigned)g.seqs) * g.n + j) * ld"
-_MV_Q_FILL = "if (r0 + r < n && e < d) {"
-_MV_K_FILL = "if (j <= kn && e < d) {"
+_MV_Q_FILL = "if (r0 + r < n && c < d) {"
+_MV_K_FILL = "if (j <= g.kn && c < g.d) {"
 
 
 @dataclass(frozen=True)
@@ -147,13 +175,25 @@ class Mutant:
 
 MUTANTS = {
     "cls column skipped": Mutant(
-        "mvit_attention.cu", _MASK, "s[e] = col + (e & 1) < kn ? exp2f",
-        "mvit"),
+        "mvit_attention.cu", _MASK,
+        "if (!past && j0 + acc_col(j, e) < g.kn)", "mvit"),
     # the last body key lies in the ragged last key tile at both shapes
     "last body key skipped": Mutant(
         "mvit_attention.cu", _MASK,
-        "s[e] = (col + (e & 1) <= kn && col + (e & 1) != kn - 1) ? exp2f",
-        "mvit"),
+        "if ((full_tile || (!past && j0 + acc_col(j, e) <= g.kn)) && "
+        "j0 + acc_col(j, e) != g.kn - 1)", "mvit"),
+    # o keeps the cls term, l loses it: out moves by ~1 / kN, l fails
+    "K5f / K6f cls column left out of the one-sweep l": Mutant(
+        "mvit_attention.cu", _MV_L,
+        "        if (j0 + acc_col(j, e) != g.kn) { if (e < 2) l0 += x; "
+        "else l1 += x; }", "mvit_sum"),
+    # the refill of step t + 3 lands in the stage step t is read from, and
+    # step t + 2 is never loaded
+    "K5f / K6f ring stage refilled before its warpgroups release it": Mutant(
+        "mvit_attention.cu", _MV_REFILL, "    stage(t + FSTAGES);\n", "mvit"),
+    "K5f / K6f expander built for the next key tile": Mutant(
+        "mvit_attention.cu", _MV_EXPANDER,
+        _MV_EXPANDER.replace("j0, g);", "j0 + BN, g);"), "mvit"),
     "K7f cls column skipped": Mutant(
         "mvit_attention.cu", _KT_MASK,
         "s[e] = col + (e & 1) < kn ? fmaf(qk[e], scale, b[e]) : MASKED;",
@@ -175,13 +215,38 @@ MUTANTS = {
         "spatial_attention.cu", _BR_TILE,
         "softmax_tile<LP>(q_s, k_s, mt, L - 1, scale, e, i0, i1);", "k1br"),
     # the CLS key's rows of the staged k and v tiles zeroed before the item
-    # computes
+    # computes (row n's eight 16-byte pieces in the core-matrix layout)
     "K1p cls key left out": Mutant(
         "spatial_attention.cu", _PIPE_SLOT,
-        _PIPE_SLOT + " __syncthreads(); if (threadIdx.x < 16) "
-        "reinterpret_cast<uint4*>(const_cast<uint16_t*>(q_s) + "
-        "((threadIdx.x < 8 ? LP : 2 * LP) + n) * MMA_STRIDE)[threadIdx.x % 8]"
-        " = make_uint4(0u, 0u, 0u, 0u); __syncthreads();", "k1p"),
+        _PIPE_SLOT.replace(
+            "    uint16_t* p_dst =",
+            "    if ((threadIdx.x & 127) < 16) reinterpret_cast<uint4*>("
+            "const_cast<uint16_t*>(st) + (1 + ((threadIdx.x & 127) >> 3)) * "
+            "TILE)[(((n >> 3) * 8 + (threadIdx.x & 7)) << 3) | (n & 7)] = "
+            "make_uint4(0u, 0u, 0u, 0u);\n    fence_async_smem();\n"
+            "    bar_sync(1 + wg, 128);\n    uint16_t* p_dst ="), "k1p"),
+    # the CLS row (row n of q, k and v) never reaches the stage
+    "K1 cls row not copied into the stage": Mutant(
+        "spatial_attention.cu", _K1_ROWS,
+        _K1_ROWS.replace("if (r < L)", "if (r < n)"), "k1sp"),
+    # each warpgroup releases its stage as soon as the item has landed, so
+    # the copying warpgroup refills it under the products that read it
+    "K1 ring stage refilled before its warpgroups release it": Mutant(
+        "spatial_attention.cu", _K1_FULL,
+        _K1_FULL + "    if ((threadIdx.x & 127) == 0) mbar_arrive(empty + "
+        "slot);\n", "k1p",
+        ((_K1_RELEASE, "    bar_sync(1 + wg, 128);\n  }"),)),
+    # the last row of a ragged query tile (the CLS query's p row) stays in
+    # the staging tile
+    "K1sp last p row of the item not flushed": Mutant(
+        "spatial_attention.cu", _K1_FLUSH,
+        "      const int rows = min(64, L - t * 64) - (t * 64 + 64 > L);",
+        "k1sp"),
+    # p columns past L (the zero pad of each row) staged as ones
+    "K1sp p columns past L not zeroed": Mutant(
+        "spatial_attention.cu", _K1_STAGE_P,
+        "        *reinterpret_cast<uint32_t*>(p_st + r0 * ls + col) = "
+        "col >= L ? 0x3f803f80u : pa[kk][2 * u];", "k1sp"),
     "K1bd delta forced to 0": Mutant(
         "spatial_attention.cu", _DELTA, "if (half) d1 = 0.f; else d0 = 0.f;",
         "k1bd"),
@@ -193,13 +258,18 @@ MUTANTS = {
         "const bool key1 = 8 + 2 * tig + (e & 1) < frames - 1;", "k2v3_16"),
     "K5bd / K6bd delta forced to 0": Mutant(
         "mvit_attention.cu", _D_ROWS, "dd_s[threadIdx.x] = 0.f;", "delta"),
-    # a stored word holds columns (c, c + 1), c even: the cls column kN is
-    # its low half where kN is even, its high half where kN is odd
+    # the staged word of columns (c, c + 1), c even, with the cls column
+    # kN zeroed (its low half where kN is even, its high half where odd)
     "K6sp cls column left out of the stored p": Mutant(
         "mvit_attention.cu", _P_STORE,
-        "const uint32_t m = c == g.kn ? 0xffff0000u : c + 1 == g.kn ? "
-        "0x0000ffffu : ~0u; const uint32_t w0 = pa[2 * u] & m, "
-        "w1 = pa[2 * u + 1] & m;", "k6sp"),
+        "pack_bf16x2(j0 + acc_col(j, 0) == g.kn ? 0.f : s[4 * j + 2 * h] * "
+        "f, j0 + acc_col(j, 1) == g.kn ? 0.f : s[4 * j + 2 * h + 1] * f);",
+        "k6sp"),
+    # the last 16-byte piece of each p row (the cls column and the zeros
+    # past it) stays in the staging tile
+    "K6sp last piece of each p row not flushed": Mutant(
+        "mvit_attention.cu", _P_FLUSH,
+        "if (w0 + r < g.qn && col + 8 < g.pld)", "k6sp"),
     # the 16-byte chunk of 8 columns that holds kN is loaded with its
     # element kN % 8 zeroed; every other chunk is staged as before
     "K6bs cls column left out of the staged p": Mutant(
@@ -269,7 +339,7 @@ MUTANTS = {
     # logits in place of zeros
     "K5f / K6f q and k not zeroed past the head dim": Mutant(
         "mvit_attention.cu", _MV_Q_FILL, "if (r0 + r < n) {", "mvit_d72",
-        ((_MV_K_FILL, "if (j <= kn) {"),)),
+        ((_MV_K_FILL, "if (j <= g.kn) {"),)),
 }
 
 
@@ -315,7 +385,7 @@ def _judge(cs, torch, label, pairs, need_all: bool, twins=()) -> bool:
     return all(caught) if need_all and _WHO == "mutant" else any(caught)
 
 
-def _check_mvit(cs, torch, gen):
+def _check_mvit(cs, torch, gen, need_all=True):
     from procedurevrl_torch.ops import mvit_attention as k5
 
     scale = 96 ** -0.5
@@ -334,7 +404,12 @@ def _check_mvit(cs, torch, gen):
               f"max {ref.float().abs().max().item():.3e}")
         yield _judge(cs, torch, label, [("out", out, ref, cs.MVIT_FWD_TOL),
                                         ("rowsum", rs, ref_rs,
-                                         cs.ROWSUM_TOL)], True)
+                                         cs.ROWSUM_TOL)], need_all)
+
+
+def _check_mvit_sum(cs, torch, gen):
+    """K5f / K6f as ``_check_mvit``, rejected where either limit rejects."""
+    return _check_mvit(cs, torch, gen, need_all=False)
 
 
 def _check_kt(cs, torch, gen):
@@ -427,6 +502,24 @@ def _check_k1p(cs, torch, gen):
                      [(name, a, r, cs.K1K2_FWD_TOL)
                       for name, a, r in zip(("frames", "cls"), got, want)],
                      False, [("against K1f", got, twin)])
+
+
+def _check_k1sp(cs, torch, gen):
+    from procedurevrl_torch.ops import spatial_attention as k1
+
+    for label, bt in K1_SHAPES:
+        qkv, qkv_c, _, _ = cs.k1_inputs(torch, gen, bt, 196, 12,
+                                        torch.bfloat16, sd=0.5)
+        out, out_c, p = k1.spatial_attention_fwd_probs(qkv, qkv_c, 12, 0.125)
+        ref, ref_c, ref_p = k1.spatial_attention_fwd_probs_plain(qkv, qkv_c,
+                                                                 12, 0.125)
+        twin = k1.spatial_attention(qkv, qkv_c, 12, 0.125)
+        print(f"{label}: |p| mean {ref_p.float().abs().mean().item():.3e}")
+        yield _judge(cs, torch, label,
+                     [("frames", out, ref, cs.K1K2_FWD_TOL),
+                      ("cls", out_c, ref_c, cs.K1K2_FWD_TOL),
+                      ("probs", p, ref_p, cs.K1K2_FWD_TOL)],
+                     False, [("against K1f", (out, out_c), twin)])
 
 
 def _check_k2v3(cs, torch, gen):
@@ -701,9 +794,11 @@ def _check_mvit_d72(cs, torch, gen):
                                          cs.ROWSUM_TOL)], False)
 
 
-CHECKS = {"mvit": _check_mvit, "kt": _check_kt, "pool": _check_pool,
+CHECKS = {"mvit": _check_mvit, "mvit_sum": _check_mvit_sum,
+          "kt": _check_kt, "pool": _check_pool,
           "pool_dw": _check_pool_dw, "k1br": _check_k1br, "k1bd": _check_k1bd,
-          "k1p": _check_k1p, "k2v3": _check_k2v3, "k2v3_16": _check_k2v3_16,
+          "k1p": _check_k1p, "k1sp": _check_k1sp, "k2v3": _check_k2v3,
+          "k2v3_16": _check_k2v3_16,
           "delta": _check_delta, "k6sp": _check_k6sp, "k6bs": _check_k6bs,
           "flash_fwd": _check_flash_fwd, "flash_bwd": _check_flash_bwd,
           "mvit_split": _check_mvit_split, "mvit_bwd": _check_mvit_bwd,
@@ -711,10 +806,12 @@ CHECKS = {"mvit": _check_mvit, "kt": _check_kt, "pool": _check_pool,
           "mvit_d72": _check_mvit_d72, "flash_groups": _check_flash_groups,
           "flash_ragged": _check_flash_ragged, "mvit_odd": _check_mvit_odd}
 # the sources each check builds
-SOURCES = {"mvit": "mvit_attention", "kt": "mvit_attention",
+SOURCES = {"mvit": "mvit_attention", "mvit_sum": "mvit_attention",
+           "kt": "mvit_attention",
            "pool": "depthwise_pool", "pool_dw": "depthwise_pool",
            "k1br": "spatial_attention", "k1bd": "spatial_attention",
-           "k1p": "spatial_attention", "k2v3": "temporal_attention",
+           "k1p": "spatial_attention", "k1sp": "spatial_attention",
+           "k2v3": "temporal_attention",
            "k2v3_16": "temporal_attention", "delta": "mvit_attention",
            "k6sp": "mvit_attention", "k6bs": "mvit_attention",
            "flash_fwd": "flash_attention", "flash_bwd": "flash_attention",

@@ -233,6 +233,44 @@ def test_spatial_pipe_equals_the_forward(card, dtype, n, nbuf):
     _close(out_c, ref_c, dtype)
 
 
+def test_spatial_ring_rule_is_the_librarys(card):
+    """The bf16 forward's ring depth as the wrapper writes it out
+    (``ring_depth``, held at every shape by the CPU tests) is the built
+    kernel's own (``spatial_attention_pipe_depth``)."""
+    for n in range(1, k1.MAX_LEN):
+        for nbuf in (1, 2, 3, 8, 9):
+            assert (k1.pipe_depth(n, torch.bfloat16, nbuf)
+                    == k1.ring_depth(n, nbuf)), (n, nbuf)
+
+
+@pytest.mark.parametrize("n", [196, 49, 207, 63, 64])
+@pytest.mark.parametrize("hot", [False, True])
+def test_spatial_fwd_kernels_agree_bit_for_bit(card, n, hot):
+    """K1f, K1sp and K1p (every ring depth) are one forward: the same
+    outputs bit for bit; K1br recomputes K1sp's p exactly (K1b's gradients
+    on it); with ``hot`` one query's logits pass the clamp at 80."""
+    qkv, qkv_c, g, gc = _spatial_inputs(card, torch.bfloat16, n, bt=20,
+                                        seed=7)
+    if hot:
+        qkv[0, 3, :64] = qkv[0, 5, 256:320] * 40  # q of head 0, its k
+    out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, 4, 0.125)
+    ref, ref_c, ref_p = k1.spatial_attention_fwd_probs_plain(qkv, qkv_c, 4,
+                                                             0.125)
+    _close(out, ref, torch.bfloat16)
+    _close(out_c, ref_c, torch.bfloat16)
+    _close(probs, ref_p, torch.bfloat16)
+    assert not probs[..., n + 1:].any()
+    for twin in [k1.spatial_attention(qkv, qkv_c, 4, 0.125)] + [
+            k1.spatial_attention_pipe(qkv, qkv_c, 4, 0.125, nbuf)
+            for nbuf in (1, 2, 8)]:
+        torch.cuda.synchronize()
+        assert torch.equal(twin[0], out) and torch.equal(twin[1], out_c)
+    dr = k1.spatial_attention_bwd_recompute(qkv, qkv_c, g, gc, 4, 0.125)
+    db = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, 4, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(dr[0], db[0]) and torch.equal(dr[1], db[1])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [8, 3, 1, 16, 11, 9])
 def test_temporal_v3_kernels_match_plain(card, dtype, t):
@@ -448,6 +486,55 @@ def test_mvit_probs_kernels_match_plain(card, dtype, geom):
     assert _build.LAUNCHES[k5.KERNEL_PROBS] == counts[k5.KERNEL_PROBS] + 1
     assert (_build.LAUNCHES[k5.KERNEL_BWD_PROBS]
             == counts[k5.KERNEL_BWD_PROBS] + 1)
+
+
+def _mvit_inputs_d(card, geom, head_last, d, seed=0):
+    """``_mvit_inputs`` in bf16 at head dim ``d``, one query row's logits
+    above 80."""
+    b, h, qn, k_shape = MVIT_GEOMS[geom]
+    kn, kcat = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape)
+    if not head_last:
+        b, h = b * h, 1
+    gen = torch.Generator(device=card).manual_seed(seed + qn + d)
+
+    def r(*shape):
+        return (0.5 * torch.randn(*shape, generator=gen, device=card)
+                ).bfloat16()
+
+    c = h * d
+    x = [r(b, qn, c), r(b, kn, c), r(b, kn, c), r(b, 1, c), r(b, 1, c),
+         r(b, qn, h * kcat)]
+    x[0][0, 5] = x[1][0, 3] * 40
+    return x, k_shape, h
+
+
+@pytest.mark.parametrize("d", [64, 72, 96, 128])
+@pytest.mark.parametrize("head_last", [True, False])
+@pytest.mark.parametrize("geom", ["small", "block4"])
+def test_mvit_fwd_head_dims_match_plain(card, d, head_last, geom):
+    """The bf16 forward (three warpgroups of 64 query rows, qN = 70 and
+    1568 no multiple of their 192; kN + 1 = 25 and 393 no multiple of the
+    64-key tile) at the tile widths 64, 96 (d = 72 and 96) and 128, with a
+    logit above 80, against its plain version; K6sp's out and l equal
+    K6f's bit for bit and its p the plain version's."""
+    x, k_shape, h = _mvit_inputs_d(card, geom, head_last, d)
+    kernel, plain, _ = _mvit_fwd(head_last)
+    args = _heads((*x, k_shape), head_last, h) + (d ** -0.5,)
+    out, rowsum = kernel(*args)
+    ref, ref_rs = plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **MVIT_FWD_TOLS[torch.bfloat16])
+    torch.testing.assert_close(rowsum, ref_rs, **ROWSUM_TOL)
+    if head_last:
+        return
+    po, prs, probs = k5.mvit_attention_fwd_probs(*args)
+    _, _, ref_p = k5.mvit_attention_fwd_probs_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(po, out) and torch.equal(prs, rowsum)
+    torch.testing.assert_close(probs.float(), ref_p.float(),
+                               **PROBS_TOLS[torch.bfloat16])
+    assert not probs[..., x[1].shape[1] + 1:].any()
 
 
 @pytest.mark.parametrize("route", ["C", "D"])

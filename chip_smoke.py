@@ -70,6 +70,7 @@ Phases (any failure exits non-zero):
    or K2b); one step against the plain path; one step profiled;
 16. slice 5, route B: the same with ``SPATIAL_DELTA=1`` (per step 24 K1sp,
    12 K1bd, 24 K2f, 12 K2b, no K1b); one step against the plain path;
+   one step profiled;
 17. K5bd (the delta backward, ``MVIT_DELTA=1``) at MViT-v2-S blocks 0 and 4,
    and K6bd, K6sp (the forward that saves bf16 p) and K6bs (the backward
    from it) at block 1 (18 clips, bf16), plus small float32 and bf16 cases
@@ -2473,7 +2474,7 @@ def main() -> int:
     launches = timed("16 slice 5 route B", phase_ts_knob_train, torch, k1, k2,
                      k5, k8, _build, "route B", ROUTE_B,
                      {k1.KERNEL_PROBS: 2 * DEPTH, k1.KERNEL_BWD_DELTA: DEPTH,
-                      k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH}, False)
+                      k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH}, True)
     by_name[k1.KERNEL_BWD_DELTA]["launches"] = launches.get(
         k1.KERNEL_BWD_DELTA, 0)
     for rec in ts_knob_kernels:

@@ -134,6 +134,12 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
+// Ask the L2 cache to fetch `bytes` (a multiple of 16; the address 16-byte
+// aligned) of device memory ahead of the loads that will read them.
+__device__ __forceinline__ void prefetch_l2(const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(src), "r"(bytes) : "memory");
+}
 // mbarriers in shared memory (64-bit words): init by one thread (then
 // mbar_init_fence and a CTA barrier before any use); arrive; the arrive of
 // this thread's cp.async copies issued so far, once they have landed (the
@@ -198,6 +204,15 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const uint16_t* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+// an 8 x 8 b16 matrix held one pair a thread in the mma fragment layout
+// (lane l: row l / 4, columns 2 (l % 4), + 1), transposed across the warp:
+// lane l then holds row l / 4 of the transpose
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
 }
 // the two bf16 of a packed register (low half first) as floats
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {

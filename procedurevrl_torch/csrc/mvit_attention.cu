@@ -104,10 +104,11 @@
 //     scalar kernels (the tensor cores have no exact fp32 mode), one warp
 //     per query or key row, for small shapes, in column groups.
 // K7 has the same contract and layout except its softmax: the row max, not
-// the clamp.  K7f keeps a running max m over key tiles, p = exp(s - m)
-// (padding columns masked to -1e30 as on the TPU), rounds the unnormalised
-// p to bf16 before P V, divides by l at the end and writes lse = m + log l
-// (fp32 [B, H, qN]) in place of l.  K7b rebuilds p = exp(s - lse) and takes
+// the clamp.  K7f is the forward kernel above with a running max m over
+// its 64-key tiles (a compile-time switch), p = exp(s - m) (padding columns
+// masked to -1e30 as on the TPU), the unnormalised p rounded to bf16 before
+// P V, o / l at the end and lse = m + log l (fp32 [B, H, qN]) written in
+// place of l.  K7b rebuilds p = exp(s - lse) and takes
 // D_i = rowsum(g_i o_i) from the saved output o; the rest is K5b's kernel
 // pair (a compile-time switch), so its products run on bf16 operands (ds,
 // p, g, k, q) where the TPU kernel multiplies fp32 ones (:1128-1143).
@@ -216,146 +217,6 @@ __device__ __forceinline__ void axis_cols(int j, const Geo& g, int& a, int& b,
   }
 }
 
-// ------------------------------------- bf16 forward (mma.sync) kernels
-
-// rows [r0, r0 + 64) of an [n x d] slice into a [64 x (DP + 8)] tile; rows
-// >= n and columns >= d are zero
-template <int DP>
-__device__ __forceinline__ void stage_rows(uint16_t* dst, const uint16_t* src,
-                                           size_t row, int r0, int n, int d) {
-  constexpr int SD = DP + 8, CH = DP / 8;
-  for (int idx = threadIdx.x; idx < BM * CH; idx += blockDim.x) {
-    const int r = idx / CH, e = 8 * (idx % CH);
-    uint16_t* t = dst + r * SD + e;
-    if (r0 + r < n && e < d) {
-      cp_async16(t, src + (size_t)(r0 + r) * row + e);
-    } else {
-      *reinterpret_cast<uint4*>(t) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// keys [j0, j0 + 64) of [body; cls]: rows < kn from x, row kn from xc,
-// rows past it and columns >= d zero
-template <int DP>
-__device__ __forceinline__ void stage_keys(uint16_t* dst, const uint16_t* x,
-                                           const uint16_t* xc, size_t row,
-                                           int j0, int kn, int d) {
-  constexpr int SD = DP + 8, CH = DP / 8;
-  for (int idx = threadIdx.x; idx < BN * CH; idx += blockDim.x) {
-    const int r = idx / CH, e = 8 * (idx % CH);
-    const int j = j0 + r;
-    uint16_t* t = dst + r * SD + e;
-    if (j <= kn && e < d) {
-      cp_async16(t, (j < kn ? x + (size_t)j * row : xc) + e);
-    } else {
-      *reinterpret_cast<uint4*>(t) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// rel rows [i0, i0 + 64) into a [64 x SE] tile, zero past qn and kcat
-// (rows of kcat bf16 values need not be 4-byte aligned: plain loads)
-__device__ __forceinline__ void stage_rel(uint16_t* dst, const uint16_t* rel,
-                                          const Geo& g, int i0) {
-  for (int idx = threadIdx.x; idx < BM * KCAT; idx += blockDim.x) {
-    const int r = idx / KCAT, c = idx % KCAT;
-    dst[r * SE + c] = (i0 + r < g.qn && c < g.kcat)
-                          ? rel[(size_t)(i0 + r) * g.rrow + c]
-                          : (uint16_t)0;
-  }
-}
-
-// The transposed 0/1 expander of keys [j0, j0 + 64): row r holds ones at
-// columns t', kt + h', kt + kh + w' of key j0 + r; rows of the cls key and
-// of padding are zero (no bias there)
-__device__ __forceinline__ void build_expander(uint16_t* dst, int j0,
-                                               const Geo& g) {
-  for (int r = threadIdx.x; r < BN; r += blockDim.x) {
-    int a, b, c;
-    axis_cols(j0 + r, g, a, b, c);
-    for (int cc = 0; cc < KCAT; cc += 2) {
-      const uint32_t lo = (cc == a || cc == b || cc == c) ? BF16_ONE : 0u;
-      const uint32_t hi =
-          (cc + 1 == a || cc + 1 == b || cc + 1 == c) ? BF16_ONE : 0u;
-      *reinterpret_cast<uint32_t*>(dst + r * SE + cc) = lo | (hi << 16);
-    }
-  }
-}
-
-// A fragments of rows [row0, row0 + 16) over STEPS 16-column steps
-template <int STEPS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[STEPS][4],
-                                       const uint16_t* tile, int stride,
-                                       int row0) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, ltile = lane >> 3;
-#pragma unroll
-  for (int ks = 0; ks < STEPS; ++ks)
-    ldsm_x4(a[ks], tile + (row0 + (ltile & 1) * 8 + lrow) * stride + ks * 16 +
-                       (ltile >> 1) * 8);
-}
-
-// acc += A (16 x 16*STEPS) times rows [n0, n0 + 8) of `tile` taken as the
-// column-major B operand (n = tile row, k = tile column)
-template <int STEPS>
-__device__ __forceinline__ void mma_rows(float (&acc)[4],
-                                         const uint32_t (&a)[STEPS][4],
-                                         const uint16_t* tile, int stride,
-                                         int n0) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, ltile = lane >> 3;
-  const uint16_t* p = tile + (n0 + lrow) * stride + ltile * 8;
-#pragma unroll
-  for (int ks = 0; ks + 1 < STEPS; ks += 2) {
-    uint32_t b[4];
-    ldsm_x4(b, p + ks * 16);
-    mma_16816(acc, a[ks], b[0], b[1]);
-    mma_16816(acc, a[ks + 1], b[2], b[3]);
-  }
-  if constexpr (STEPS & 1) {
-    uint32_t b[2];
-    ldsm_x2(b, p + (STEPS - 1) * 16);
-    mma_16816(acc, a[STEPS - 1], b[0], b[1]);
-  }
-}
-
-// acc[0..NT) += A (16 x 16) times rows [k0, k0 + 16) x columns [0, 8*NT)
-// of `tile` (k = tile row, n = tile column)
-template <int NT>
-__device__ __forceinline__ void mma_cols(float (&acc)[NT][4],
-                                         const uint32_t (&a)[4],
-                                         const uint16_t* tile, int stride,
-                                         int k0) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, ltile = lane >> 3;
-  const uint16_t* p = tile + (k0 + (ltile & 1) * 8 + lrow) * stride +
-                      (ltile >> 1) * 8;
-#pragma unroll
-  for (int nt = 0; nt < NT; nt += 2) {
-    uint32_t b[4];
-    ldsm_x4_t(b, p + nt * 8);
-    mma_16816(acc[nt], a, b[0], b[1]);
-    mma_16816(acc[nt + 1], a, b[2], b[3]);
-  }
-}
-
-// K7: the logits s = (q.k) * scale + bias for the warp's 16 query rows and
-// tile keys [n0, n0 + 8), MASKED for keys past the cls (j > kn), as the
-// TPU kernel masks its padding columns
-template <int KS>
-__device__ __forceinline__ void logits8(float (&s)[4],
-                                        const uint32_t (&qa)[KS][4],
-                                        const uint32_t (&ra)[3][4],
-                                        const uint16_t* k_s, int sd,
-                                        const uint16_t* e_s, int n0, int j0,
-                                        int kn, float scale) {
-  float qk[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_rows<KS>(qk, qa, k_s, sd, n0);
-  mma_rows<3>(b, ra, e_s, SE, n0);
-  const int col = j0 + n0 + 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -366,119 +227,6 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
-}
-
-template <int DP>
-__host__ __device__ constexpr size_t kt_fwd_smem() {
-  return (size_t)(3 * 64 * (DP + 8) + 2 * 64 * SE) * 2;
-}
-
-// K7f: one sweep over the key tiles with an online softmax (the
-// FlashAttention-2 form of the TPU kernel): per query row a running max m
-// and partial sums l and acc; a tile whose max exceeds m rescales them by
-// exp(m_old - m_new); p = exp(s - m) is rounded to bf16 unnormalised as the
-// A operand of P V; o = acc / l and lse = m + log l at the end.  EXACT as
-// for mvit_fwd_wg.
-template <int DP, bool EXACT>
-__global__ void __launch_bounds__(WARPS * 32)
-mvit_fwd_kt_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v,
-                const uint16_t* __restrict__ kc,
-                const uint16_t* __restrict__ vc,
-                const uint16_t* __restrict__ rel, uint16_t* __restrict__ out,
-                float* __restrict__ lse, Geo g, float scale) {
-  constexpr int SD = DP + 8, KS = DP / 16, DT = DP / 8;
-  if constexpr (EXACT) g.d = DP;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* k_s = q_s + BM * SD;
-  uint16_t* v_s = k_s + BN * SD;
-  uint16_t* e_s = v_s + BN * SD;
-  uint16_t* r_s = e_s + BN * SE;
-  const int bh = blockIdx.y, i0 = blockIdx.x * BM;
-  const uint16_t* kp = k_of(k, g, bh);
-  const uint16_t* vp = k_of(v, g, bh);
-  const uint16_t* kcp = c_of(kc, g, bh);
-  const uint16_t* vcp = c_of(vc, g, bh);
-
-  stage_rows<DP>(q_s, q_of(q, g, bh), g.row, i0, g.qn, g.d);
-  stage_rel(r_s, rel_of(rel, g, bh), g, i0);
-  cp_async_wait_all();
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  uint32_t qa[KS][4], ra[3][4];
-  load_a<KS>(qa, q_s, SD, warp * 16);
-  load_a<3>(ra, r_s, SE, warp * 16);
-
-  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  const int kcols = g.kn + 1;  // the body keys and the cls key
-  for (int j0 = 0; j0 < kcols; j0 += BN) {
-    __syncthreads();  // the previous key tile is consumed
-    stage_keys<DP>(k_s, kp, kcp, g.row, j0, g.kn, g.d);
-    stage_keys<DP>(v_s, vp, vcp, g.row, j0, g.kn, g.d);
-    build_expander(e_s, j0, g);
-    cp_async_wait_all();
-    __syncthreads();
-    float s[8][4];
-    float t0 = MASKED, t1 = MASKED;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      logits8<KS>(s[nb], qa, ra, k_s, SD, e_s, nb * 8, j0, g.kn, scale);
-      t0 = fmaxf(t0, fmaxf(s[nb][0], s[nb][1]));
-      t1 = fmaxf(t1, fmaxf(s[nb][2], s[nb][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
-    const float a0 = exp2f((m0 - n0) * LOG2E), a1 = exp2f((m1 - n1) * LOG2E);
-    m0 = n0;
-    m1 = n1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      s[nb][0] = exp2f((s[nb][0] - n0) * LOG2E);
-      s[nb][1] = exp2f((s[nb][1] - n0) * LOG2E);
-      s[nb][2] = exp2f((s[nb][2] - n1) * LOG2E);
-      s[nb][3] = exp2f((s[nb][3] - n1) * LOG2E);
-      l0 += s[nb][0] + s[nb][1];
-      l1 += s[nb][2] + s[nb][3];
-    }
-#pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * ks][0], s[2 * ks][1]),
-                              pack_bf16x2(s[2 * ks][2], s[2 * ks][3]),
-                              pack_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                              pack_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      mma_cols<DT>(o, pa, v_s, SD, ks * 16);
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  uint16_t* op = q_of(out, g, bh);
-  float* ls = lse + (size_t)bh * g.qn;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = i0 + warp * 16 + gid + 8 * half;
-    if (r >= g.qn) continue;
-    const float l = half ? l1 : l0;
-    uint16_t* dst = op + (size_t)r * g.row + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      if (dt * 8 < g.d)
-        *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-            pack_bf16x2(o[dt][2 * half] / l, o[dt][2 * half + 1] / l);
-    if (tig == 0) ls[r] = (half ? m1 : m0) + logf(l);
-  }
 }
 
 // --------------------------------------- bf16 backward (wgmma) kernels
@@ -654,7 +402,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[N / 2],
 
 // ----------------------------------------- bf16 forward (wgmma) kernel
 
-// K5f / K6f, and with SAVE K6sp (mvit_fwd_wg): a CTA of FWG warpgroups owns
+// K5f / K6f, with SAVE K6sp, and with KT K7f (mvit_fwd_wg): a CTA of FWG
+// warpgroups owns
 // FWG x 64 query rows of one slice (each warpgroup's q and rel resident);
 // the key tiles of 64 (k, v and the 0/1 expander, built once per tile for
 // all warpgroups) stream through a ring of FSTAGES stages, filled by
@@ -667,8 +416,18 @@ __device__ __forceinline__ void accumulate(float (&acc)[N / 2],
 // over the keys, o / l at the end, so q k^T and the bias product run once.
 // K6sp sweeps the key tiles first for l alone (no v), then runs K6f's
 // sweep, sums and all, storing bf16(e (1 / l)) through a staging tile in
-// 16-byte rows; its out and l are K6f's bit for bit.  Each warpgroup waits
-// on its own product groups in turn, so more warpgroups overlap more.
+// 16-byte rows; its out and l are K6f's bit for bit.  K7f takes the row max
+// of the TPU kernel in place of the clamp: the columns past the cls key are
+// masked to MASKED, each row keeps a running max m over the key tiles, and
+// when a tile raises it the row sums l and the o accumulators are rescaled
+// by exp(m_old - m_new) before the tile's P V group (the previous group has
+// been waited for, so no plain instruction defines an accumulator of a group
+// in flight); p = exp(s - m) is rounded to bf16 unnormalised as the A
+// operand of P V, and lse = m + log l is written in place of l.  The tiles
+// stay 64 keys wide, as in the mma.sync K7f this replaces, so the running
+// maxima, and with them the bf16 rounding of p, are the ones it took.
+// Each warpgroup waits on its own product groups in turn, so more
+// warpgroups overlap more.
 
 // warpgroups of a forward CTA (FWG): four where their registers (512
 // threads leave 128 each) and shared memory allow, to tile width 96; else
@@ -697,8 +456,8 @@ __host__ __device__ constexpr size_t fwd_smem() {
 }
 
 // EXACT: the head dim is the tile width DP, so the column tests against d
-// fold away at compile time
-template <bool SAVE, int DP, bool EXACT>
+// fold away at compile time.  KT (K7f, not with SAVE): rowsum takes lse.
+template <bool SAVE, int DP, bool EXACT, bool KT>
 __global__ void __launch_bounds__(fwd_wgs<DP>() * 128, 1)
 mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
@@ -747,6 +506,7 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
   float o[DP / 2];  // written by the first P V product
   float l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+  float m0 = MASKED, m1 = MASKED;  // K7f's running row maxima
   for (int t = 0; t < iters; ++t) {
     // step t has landed and every warpgroup is done with step t - 1: its
     // stage takes step t + FSTAGES - 1
@@ -776,19 +536,56 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     wgmma_wait<0>();
     fence_regs(s);
     add_bias(s, r_s, e_s, scale);
-    // e = exp(min(s, 80)) over the body keys and the cls (columns <= kN);
-    // a tile wholly inside takes no mask, 8-key blocks past kN no exp
     const bool full_tile = j0 + BN <= g.kn + 1;
+    if constexpr (KT) {
+      // p = exp(s - m) with the running max m; columns past the cls key
+      // masked, as the TPU kernel masks its padding columns
+      float t0 = MASKED, t1 = MASKED;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool past = j0 + 8 * j > g.kn;  // warp-uniform
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = 0.f;
-        if (full_tile || (!past && j0 + acc_col(j, e) <= g.kn))
-          x = exp2_ftz(fminf(s[4 * j + e], CLAMP_HI) * LOG2E);
-        if (e < 2) l0 += x; else l1 += x;
-        s[4 * j + e] = x;
+        for (int e = 0; e < 4; ++e) {
+          if (!full_tile && j0 + acc_col(j, e) > g.kn) s[4 * j + e] = MASKED;
+          if (e < 2) t0 = fmaxf(t0, s[4 * j + e]);
+          else t1 = fmaxf(t1, s[4 * j + e]);
+        }
+      const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+      const float a0 = exp2f((m0 - n0) * LOG2E), a1 = exp2f((m1 - n1) * LOG2E);
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      l1 *= a1;
+      if (t > 0) {  // o holds the previous tiles' sum (its group is done)
+#pragma unroll
+        for (int i = 0; i < DP / 2; i += 4) {
+          o[i] *= a0;
+          o[i + 1] *= a0;
+          o[i + 2] *= a1;
+          o[i + 3] *= a1;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = exp2f((s[4 * j + e] - (e < 2 ? n0 : n1)) * LOG2E);
+        l0 += s[4 * j] + s[4 * j + 1];
+        l1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+    } else {
+      // e = exp(min(s, 80)) over the body keys and the cls (columns <= kN);
+      // a tile wholly inside takes no mask, 8-key blocks past kN no exp
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool past = j0 + 8 * j > g.kn;  // warp-uniform
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = 0.f;
+          if (full_tile || (!past && j0 + acc_col(j, e) <= g.kn))
+            x = exp2_ftz(fminf(s[4 * j + e], CLAMP_HI) * LOG2E);
+          if (e < 2) l0 += x; else l1 += x;
+          s[4 * j + e] = x;
+        }
       }
     }
     if (SAVE && t < tiles) continue;  // the first sweep sums l alone
@@ -842,7 +639,8 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       if (8 * j < g.d)
         *reinterpret_cast<uint32_t*>(dst + acc_col(j, 0)) =
             pack_bf16x2(o[4 * j + 2 * half] * f, o[4 * j + 2 * half + 1] * f);
-    if ((threadIdx.x & 3) == 0) rs[r] = l;
+    if ((threadIdx.x & 3) == 0)
+      rs[r] = KT ? (half ? m1 : m0) + logf(l) : l;
   }
 }
 
@@ -1675,29 +1473,17 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
   auto run = [&](auto w, auto exact) {
     constexpr int DP = decltype(w)::value;
     constexpr bool EXACT = decltype(exact)::value;
-    if constexpr (KT) {
-      constexpr size_t smem = kt_fwd_smem<DP>();
-      const dim3 grid((qn + BM - 1) / BM, b * heads);
-      cudaError_t err = set_smem(mvit_fwd_kt_mma<DP, EXACT>, smem);
-      if (err != cudaSuccess) return (int)err;
-      mvit_fwd_kt_mma<DP, EXACT><<<grid, WARPS * 32, smem, st>>>(
-          static_cast<const u16*>(q), static_cast<const u16*>(k),
-          static_cast<const u16*>(v), static_cast<const u16*>(kc),
-          static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-          static_cast<u16*>(out), static_cast<float*>(stats), g, scale);
-    } else {
-      constexpr size_t smem = fwd_smem<SAVE, DP>();
-      constexpr int FWG = fwd_wgs<DP>(), FM = FWG * BM;
-      const dim3 grid((qn + FM - 1) / FM, b * heads);
-      cudaError_t err = set_smem(mvit_fwd_wg<SAVE, DP, EXACT>, smem);
-      if (err != cudaSuccess) return (int)err;
-      mvit_fwd_wg<SAVE, DP, EXACT><<<grid, FWG * 128, smem, st>>>(
-          static_cast<const u16*>(q), static_cast<const u16*>(k),
-          static_cast<const u16*>(v), static_cast<const u16*>(kc),
-          static_cast<const u16*>(vc), static_cast<const u16*>(rel),
-          static_cast<u16*>(out), static_cast<float*>(stats),
-          static_cast<u16*>(probs), g, scale);
-    }
+    constexpr size_t smem = fwd_smem<SAVE, DP>();
+    constexpr int FWG = fwd_wgs<DP>(), FM = FWG * BM;
+    const dim3 grid((qn + FM - 1) / FM, b * heads);
+    cudaError_t err = set_smem(mvit_fwd_wg<SAVE, DP, EXACT, KT>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mvit_fwd_wg<SAVE, DP, EXACT, KT><<<grid, FWG * 128, smem, st>>>(
+        static_cast<const u16*>(q), static_cast<const u16*>(k),
+        static_cast<const u16*>(v), static_cast<const u16*>(kc),
+        static_cast<const u16*>(vc), static_cast<const u16*>(rel),
+        static_cast<u16*>(out), static_cast<float*>(stats),
+        static_cast<u16*>(probs), g, scale);
     return (int)cudaGetLastError();
   };
   return with_width(d, [&](auto w) {

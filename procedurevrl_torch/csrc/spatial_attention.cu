@@ -88,18 +88,22 @@
 //     take 208 registers a thread).
 //   * K1p in float32: persistent CTAs of eight warps and a cp.async ring of
 //     scalar stages (3 x L x 66 floats), the scalar forward's item code.
-//   * bf16 backward: q, k, v, g (208 x 64 each) and the probability tile
-//     (208 x 216) fill 210 KB of shared memory.  K1b copies the saved tile;
-//     K1br computes it instead (softmax_tile on the staged q and k, cast to
-//     bf16, rows >= L zero); K1bd copies it and takes delta_i from g and the
-//     saved o rows, read straight from device memory (the tile budget is
-//     full).  Pass 1, each warp over 16 query rows: dp = g v^T, the row sums
-//     D_i = sum_j dp*p or delta_i (kept in shared memory), ds, and dq = ds k
-//     with ds packed in registers as the A operand.  Pass 2, each warp over
-//     16 key rows: ldmatrix.trans of the probability tile gives p^T directly
-//     as the A operand of dv = p^T g and, unpacked, in the accumulator
-//     layout of dp^T = v g^T (recomputed, cheap next to the bytes), which
-//     with D_i gives ds^T for dk = ds^T q.
+//   * bf16 backward (K1b, K1br, K1bd: spatial_bwd_wg_kernel, for Hopper):
+//     persistent CTAs walk the items; a copying warpgroup fills a ring of
+//     two stages, each q, k, v and g of one item in the core-matrix layout
+//     (4 x 208 x 64 bf16 = 104 KB), under mbarriers, so the next item lands
+//     while the current one's products run; two computing warpgroups split
+//     each pass's four 64-row windows.  Two stages leave no room for p, so
+//     p never enters shared memory: K1b and K1bd read the saved rows into
+//     registers, K1br recomputes them in both passes (pass 2 forms s^T =
+//     k q^T, the same fp32 logits, and takes 1 / l from pass 1).  Pass 1
+//     (query windows): dp = g v^T, D_i = sum_j dp*p or delta_i (shared
+//     memory), ds in bf16 as the register A operand of dq = ds k.  Pass 2
+//     (key windows): dp^T = v g^T, p^T (the saved rows' 8 x 8 blocks
+//     transposed in registers by movmatrix), ds^T, and dk = ds^T q, dv =
+//     p^T g.  Every product is a wgmma; each output tile leaves through a
+//     staging tile as whole 128-byte rows.  Short sequences (L <= 64) keep
+//     the mma.sync kernel of one item per CTA (spatial_bwd_mma_kernel<64>).
 //   * fp32: scalar FMA paths (the tensor cores have no exact fp32 mode); one
 //     warp per query row (forward, backward pass 1) or key row (backward
 //     pass 2), lanes over keys for the logits and over the head dimension
@@ -799,8 +803,9 @@ spatial_pipe_kernel(const float* __restrict__ qkv,
   cp_async_wait_all();
 }
 
-// Backward.  LP: padded sequence length (64 or 208); the probability tile
-// has PSTR = LP + 8 columns (432-byte rows: conflict-free ldmatrix and
+// Backward of short sequences (L <= 64, LP = 64; the Hopper kernel below
+// takes LP = 208) on mma.sync: one item per CTA.  The probability tile
+// has PSTR = LP + 8 columns (144-byte rows: conflict-free ldmatrix and
 // 4-byte row reads).  MODE: BWD_SAVED (K1b), BWD_RECOMPUTE (K1br: probs,
 // o and oc unused), BWD_DELTA (K1bd).
 template <int LP, int MODE>
@@ -1059,6 +1064,455 @@ spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
+// ------------------------------------------ bf16 backward (wgmma) kernel
+
+// K1b, K1br and K1bd in bf16 at LP = 208 (spatial_bwd_wg_kernel<MODE>):
+// persistent CTAs walk the (frame, head) items as the forward does.  A
+// copying warpgroup fills a ring of two stages, each q, k, v and g of one
+// item in the core-matrix layout (4 x 208 x 64 bf16 = 104 KB), with cp.async
+// under full / empty mbarriers, so the next item lands while the current
+// one's products run; it gives its registers to the two computing
+// warpgroups (setmaxnreg).  Two stages fill 208 KB, so p never goes to
+// shared memory: K1b and K1bd read the saved rows straight into registers,
+// and K1br recomputes them.  The item's 208 rows are cut into four 64-row
+// windows, the last starting at row 144 so that every operand stays inside
+// its tile (it owns rows 192..207 only); the windows go two to each
+// computing warpgroup.
+//   * pass 1, query window i: (K1br: s = q k^T, one wgmma group m64n208k16,
+//     and the forward's clamp softmax in softmax_tile's order, so p is
+//     K1sp's bit for bit; 1 / l_i to shared memory), dp = g v^T (m64n208k16),
+//     D_i = sum_j dp p (K1b, K1br) or g_i . o_i (K1bd) to shared memory,
+//     ds = p (dp - D) rounded to bf16 as the register A operand of dq = ds k
+//     (k as the MN-major B);
+//   * pass 2, once both warpgroups have stored D, key window j: dp^T = v g^T
+//     (m64n208k16), p^T (K1br: s^T = k q^T, the same fp32 logits, times the
+//     stored 1 / l; K1b, K1bd: 8 x 8 blocks of the saved rows read in the
+//     fragment layout and transposed in registers, movmatrix), ds^T =
+//     p^T (dp^T - D) in bf16, and dk = ds^T q, dv = p^T g with q and g as the
+//     MN-major B;
+//   * each 64 x 64 output tile goes through a warpgroup staging tile in
+//     shared memory (16-byte chunks XOR-swizzled by row) and leaves as one
+//     128-byte piece per row.
+constexpr int BWD_WGS = 2;                    // computing warpgroups
+constexpr int BWD_THREADS = (BWD_WGS + 1) * 128;
+constexpr int BWD_DEPTH = 2;                  // ring stages of whole items
+constexpr int BWD_TILE = MAX_LEN * HEAD_DIM;  // elements of a 208 x 64 tile
+constexpr int BWD_STAGE = 4 * BWD_TILE;       // q, k, v, g
+constexpr int BWD_OUT = 64 * HEAD_DIM;        // a warpgroup's output staging
+constexpr int BWD_NB = MAX_LEN / 8, BWD_KK = MAX_LEN / 16;
+// the ring, the staging tiles, D and 1 / l per row, the mbarriers
+constexpr size_t BWD_SMEM =
+    ((size_t)BWD_DEPTH * BWD_STAGE + BWD_WGS * BWD_OUT) * sizeof(uint16_t) +
+    2 * MAX_LEN * sizeof(float) + 2 * BWD_DEPTH * sizeof(uint64_t);
+
+// the first row of 64-row window t (t = 0..3) of an item's 208 rows
+__device__ __forceinline__ int bwd_window(int t) {
+  return t < 3 ? 64 * t : MAX_LEN - 64;
+}
+
+// A warpgroup's 64 x 64 fp32 accumulator of window rows w0.., times mul and
+// rounded to bf16, to rows [lo, L) of x's [patches; CLS] rows (width
+// `width`), columns col0..col0+63, through the warpgroup's staging tile st
+// (barrier wgbar): each row leaves as one 128-byte piece.  The 16-byte
+// chunks of a staged row are XOR-swizzled by the row, so the accumulator
+// writes and the row reads are free of bank conflicts.
+__device__ __forceinline__ void bwd_store(const float (&acc)[32], float mul,
+                                          uint16_t* st, uint16_t* x,
+                                          uint16_t* x_c, int bt, int n,
+                                          int width, int col0, int w0, int lo,
+                                          int wgbar) {
+  const int tid = threadIdx.x & 127, L = n + 1;
+  bar_sync(wgbar, 128);  // the previous tile's rows have been read out
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = acc_row(2 * half);
+#pragma unroll
+    for (int j = 0; j < HEAD_DIM / 8; ++j)
+      *reinterpret_cast<uint32_t*>(st + r * HEAD_DIM + ((j ^ (r & 7)) << 3) +
+                                   2 * (tid & 3)) =
+          pack_bf16x2(acc[4 * j + 2 * half] * mul,
+                      acc[4 * j + 2 * half + 1] * mul);
+  }
+  bar_sync(wgbar, 128);
+  for (int ch = tid; ch < 64 * 8; ch += 128) {
+    const int r = ch >> 3, e = ch & 7, row = w0 + r;
+    if (row < lo || row >= L) continue;
+    *reinterpret_cast<uint4*>(seq_row(x, x_c, bt, row, n, width) + col0 +
+                              8 * e) =
+        *reinterpret_cast<const uint4*>(st + r * HEAD_DIM +
+                                        ((e ^ (r & 7)) << 3));
+  }
+}
+
+// Pass 1 over query window t of the item staged at st, in the calling
+// warpgroup: D_i (and for K1br 1 / l_i) of the rows it owns into d_s
+// (inv_s), and their dq.  pg: the item's saved [L, LS] p block (K1b, K1bd).
+template <int MODE>
+__device__ __forceinline__ void bwd_rows(const uint16_t* st, int t,
+                                         const uint16_t* pg,
+                                         const uint16_t* o, const uint16_t* oc,
+                                         float* d_s, float* inv_s,
+                                         uint16_t* out_st, uint16_t* dx,
+                                         uint16_t* dx_c, int bt, int h, int n,
+                                         int heads, float scale, int wgbar) {
+  constexpr int NB = BWD_NB, KK = BWD_KK;
+  const int L = n + 1, c = heads * HEAD_DIM, ls = probs_stride(L);
+  const int w0 = bwd_window(t), lo = 64 * t, tig = threadIdx.x & 3;
+  const uint16_t* q_s = st;
+  const uint16_t* k_s = st + BWD_TILE;
+  const uint16_t* v_s = st + 2 * BWD_TILE;
+  const uint16_t* g_s = st + 3 * BWD_TILE;
+  const int r0 = w0 + acc_row(0), r1 = r0 + 8;
+  // p of rows r0 and r1 at key columns 8 j + 2 tig, + 1: bf16 pairs
+  uint32_t p0[NB], p1[NB];
+  if constexpr (MODE == BWD_RECOMPUTE) {
+    float s[NB * 4];
+#pragma unroll
+    for (int i = 0; i < NB * 4; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
+      wgmma_ss208(s, kmajor<HEAD_DIM>(q_s + w0 * HEAD_DIM, ks),
+                  kmajor<HEAD_DIM>(k_s, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    // wg_tile's clamp softmax, same order, so p is K1sp's bit for bit
+    const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const bool inside = 8 * j + 8 <= L;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = inside || acc_col(j, e) < L
+                            ? exp2_ftz(fminf(s[4 * j + e] * scale2, hi2))
+                            : 0.f;
+        s[4 * j + e] = x;
+        if (e < 2) sum0 += x; else sum1 += x;
+      }
+    }
+    const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      p0[j] = pack_bf16x2(s[4 * j] * inv0, s[4 * j + 1] * inv0);
+      p1[j] = pack_bf16x2(s[4 * j + 2] * inv1, s[4 * j + 3] * inv1);
+    }
+    // pass 2 rebuilds p^T from the logits and 1 / l: zero past L
+    if (tig == 0) {
+      if (r0 >= lo) inv_s[r0] = r0 < L ? inv0 : 0.f;
+      if (r1 >= lo) inv_s[r1] = r1 < L ? inv1 : 0.f;
+    }
+  } else {
+    // the saved rows (zero past L and past LS), issued before the products
+    const uint16_t* a0 = pg + (size_t)r0 * ls + 2 * tig;
+    const uint16_t* a1 = pg + (size_t)r1 * ls + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const bool in = 8 * j + 2 * tig < ls;
+      p0[j] = r0 < L && in ? *reinterpret_cast<const uint32_t*>(a0 + 8 * j) : 0u;
+      p1[j] = r1 < L && in ? *reinterpret_cast<const uint32_t*>(a1 + 8 * j) : 0u;
+    }
+  }
+  float dp[NB * 4];
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) dp[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
+    wgmma_ss208(dp, kmajor<HEAD_DIM>(g_s + w0 * HEAD_DIM, ks),
+                kmajor<HEAD_DIM>(v_s, ks), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dp);
+  float d0 = 0.f, d1 = 0.f;
+  if constexpr (MODE == BWD_DELTA) {
+    // delta_i = g_i . o_i in fp32: the quad's threads take 16 columns each
+    // of rows r0 and r1, o straight from device memory; rows >= L give 0
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (r >= L) continue;
+      const uint16_t* orow = seq_row(o, oc, bt, r, n, c) + h * HEAD_DIM +
+                             tig * 16;
+      float acc = 0.f;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * v);
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            g_s + (((r >> 3) * 8 + 2 * tig + v) << 6) + ((r & 7) << 3));
+        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+        const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 a = unpack_bf16x2(gw[w]), b = unpack_bf16x2(ow[w]);
+          acc = fmaf(a.x, b.x, fmaf(a.y, b.y, acc));
+        }
+      }
+      (half ? d1 : d0) = acc;
+    }
+  } else {
+    // D_i = sum_j dp_ij p_ij
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float2 a = unpack_bf16x2(p0[j]), b = unpack_bf16x2(p1[j]);
+      d0 = fmaf(dp[4 * j], a.x, fmaf(dp[4 * j + 1], a.y, d0));
+      d1 = fmaf(dp[4 * j + 2], b.x, fmaf(dp[4 * j + 3], b.y, d1));
+    }
+  }
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+  if (tig == 0) {
+    if (r0 >= lo) d_s[r0] = d0;
+    if (r1 >= lo) d_s[r1] = d1;
+  }
+  // ds = p (dp - D), rounded to bf16: the A operand of dq = ds k
+  uint32_t da[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = 2 * kk + u;
+      const float2 a = unpack_bf16x2(p0[j]), b = unpack_bf16x2(p1[j]);
+      da[kk][2 * u] = pack_bf16x2(a.x * (dp[4 * j] - d0),
+                                  a.y * (dp[4 * j + 1] - d0));
+      da[kk][2 * u + 1] = pack_bf16x2(b.x * (dp[4 * j + 2] - d1),
+                                      b.y * (dp[4 * j + 3] - d1));
+    }
+  }
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+    wgmma_rs<HEAD_DIM>(dq, da[kk], mnmajor<HEAD_DIM>(k_s, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  bwd_store(dq, scale, out_st, dx, dx_c, bt, n, 3 * c, h * HEAD_DIM, w0, lo,
+            wgbar);
+}
+
+// Pass 2 over key window t of the item staged at st, in the calling
+// warpgroup: dk and dv of the key rows it owns, from D (and for K1br
+// 1 / l) of every query row.
+template <int MODE>
+__device__ __forceinline__ void bwd_keys(const uint16_t* st, int t,
+                                         const uint16_t* pg, const float* d_s,
+                                         const float* inv_s, uint16_t* out_st,
+                                         uint16_t* dx, uint16_t* dx_c, int bt,
+                                         int h, int n, int heads, float scale,
+                                         int wgbar) {
+  constexpr int NB = BWD_NB, KK = BWD_KK;
+  const int L = n + 1, c = heads * HEAD_DIM, ls = probs_stride(L);
+  const int w0 = bwd_window(t), lo = 64 * t;
+  const uint16_t* q_s = st;
+  const uint16_t* k_s = st + BWD_TILE;
+  const uint16_t* v_s = st + 2 * BWD_TILE;
+  const uint16_t* g_s = st + 3 * BWD_TILE;
+  // p^T of key rows r0 and r1 at query columns 8 j + 2 tig, + 1
+  uint32_t pt0[NB], pt1[NB];
+  if constexpr (MODE != BWD_RECOMPUTE) {
+    // 8 x 8 blocks of the saved rows (queries 8 j.., the warp's two blocks
+    // of 8 keys) in the fragment layout, issued before the products and
+    // transposed once they are done; zero past L and past LS
+    const int lane = threadIdx.x & 31;
+    const int i = lane >> 2;
+    const int kb = w0 + 16 * ((threadIdx.x & 127) >> 5) + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const uint16_t* row = pg + (size_t)(8 * j + i) * ls + kb;
+      const bool in = 8 * j + i < L;
+      pt0[j] = in && kb < ls ? *reinterpret_cast<const uint32_t*>(row) : 0u;
+      pt1[j] = in && kb + 8 < ls ? *reinterpret_cast<const uint32_t*>(row + 8)
+                                 : 0u;
+    }
+  }
+  if constexpr (MODE == BWD_RECOMPUTE) {
+    // s^T = k q^T: the fp32 logits of pass 1, so p^T = bf16(e / l) is the
+    // same p (1 / l is zero past L)
+    float s[NB * 4];
+#pragma unroll
+    for (int i = 0; i < NB * 4; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
+      wgmma_ss208(s, kmajor<HEAD_DIM>(k_s + w0 * HEAD_DIM, ks),
+                  kmajor<HEAD_DIM>(q_s, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float2 inv = *reinterpret_cast<const float2*>(inv_s + acc_col(j, 0));
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = exp2_ftz(fminf(s[4 * j + e] * scale2, hi2));
+      pt0[j] = pack_bf16x2(x[0] * inv.x, x[1] * inv.y);
+      pt1[j] = pack_bf16x2(x[2] * inv.x, x[3] * inv.y);
+    }
+  }
+  float dpt[NB * 4];
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) dpt[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < HEAD_DIM / 16; ++ks)
+    wgmma_ss208(dpt, kmajor<HEAD_DIM>(v_s + w0 * HEAD_DIM, ks),
+                kmajor<HEAD_DIM>(g_s, ks), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dpt);
+  if constexpr (MODE != BWD_RECOMPUTE) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      pt0[j] = movmatrix_t(pt0[j]);
+      pt1[j] = movmatrix_t(pt1[j]);
+    }
+  }
+  // ds^T = p^T (dp^T - D) in bf16, and p^T: the A operands of dk and dv
+  uint32_t da[KK][4], pa[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = 2 * kk + u;
+      const float2 D = *reinterpret_cast<const float2*>(d_s + acc_col(j, 0));
+      const float2 a = unpack_bf16x2(pt0[j]), b = unpack_bf16x2(pt1[j]);
+      da[kk][2 * u] = pack_bf16x2(a.x * (dpt[4 * j] - D.x),
+                                  a.y * (dpt[4 * j + 1] - D.y));
+      da[kk][2 * u + 1] = pack_bf16x2(b.x * (dpt[4 * j + 2] - D.x),
+                                      b.y * (dpt[4 * j + 3] - D.y));
+      pa[kk][2 * u] = pt0[j];
+      pa[kk][2 * u + 1] = pt1[j];
+    }
+  }
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    wgmma_rs<HEAD_DIM>(dk, da[kk], mnmajor<HEAD_DIM>(q_s, kk), kk > 0);
+    wgmma_rs<HEAD_DIM>(dv, pa[kk], mnmajor<HEAD_DIM>(g_s, kk), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+  bwd_store(dk, scale, out_st, dx, dx_c, bt, n, 3 * c, c + h * HEAD_DIM, w0,
+            lo, wgbar);
+  bwd_store(dv, 1.f, out_st, dx, dx_c, bt, n, 3 * c, 2 * c + h * HEAD_DIM, w0,
+            lo, wgbar);
+}
+
+// MODE: BWD_SAVED (K1b), BWD_RECOMPUTE (K1br: probs, o and oc unused),
+// BWD_DELTA (K1bd).  Warpgroups 0 and 1 compute, warpgroup 2 copies: stage
+// k % 2 takes the CTA's item k once the computing warpgroups have released
+// item k - 2 (mbarrier empty); the landed copies report through cp.async's
+// own arrive (mbarrier full).
+template <int MODE>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+spatial_bwd_wg_kernel(const uint16_t* __restrict__ qkv,
+                      const uint16_t* __restrict__ qkv_c,
+                      const uint16_t* __restrict__ probs,
+                      const uint16_t* __restrict__ o,
+                      const uint16_t* __restrict__ oc,
+                      const uint16_t* __restrict__ g,
+                      const uint16_t* __restrict__ gc,
+                      uint16_t* __restrict__ dqkv,
+                      uint16_t* __restrict__ dqkv_c, int n, int heads,
+                      int items, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem_raw);
+  const int L = n + 1, c = heads * HEAD_DIM, ls = probs_stride(L);
+  const int wg = warpgroup();
+  uint16_t* out_st = ring + BWD_DEPTH * BWD_STAGE + wg * BWD_OUT;
+  float* d_s = reinterpret_cast<float*>(ring + BWD_DEPTH * BWD_STAGE +
+                                        BWD_WGS * BWD_OUT);
+  float* inv_s = d_s + MAX_LEN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(inv_s + MAX_LEN);
+  uint64_t* empty = full + BWD_DEPTH;
+
+  // rows L .. 207 of every stage's tiles: zero, never copied over; D and
+  // 1 / l zero, so rows past L (never written) add nothing
+  for (int idx = threadIdx.x; idx < BWD_DEPTH * 4 * MAX_LEN * 8;
+       idx += blockDim.x) {
+    int r, cc;
+    chunk_rc<HEAD_DIM>(idx % (MAX_LEN * 8), r, cc);
+    if (r >= L)
+      *reinterpret_cast<uint4*>(ring + (size_t)idx * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = threadIdx.x; i < 2 * MAX_LEN; i += blockDim.x) d_s[i] = 0.f;
+  fence_async_smem();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < BWD_DEPTH; ++st) {
+      mbar_init(full + st, 128);  // the copying warpgroup's threads
+      mbar_init(empty + st, 1);   // one thread once both warpgroups are done
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == BWD_WGS) {  // the copying warpgroup
+    setmaxnreg_dec<40>();
+    const int lane = threadIdx.x & 127;
+    for (int k = 0; blockIdx.x + k * gridDim.x < items; ++k) {
+      const int item = blockIdx.x + k * gridDim.x, slot = k % BWD_DEPTH;
+      if (k >= BWD_DEPTH) mbar_wait(empty + slot, (k / BWD_DEPTH - 1) & 1);
+      uint16_t* st = ring + slot * BWD_STAGE;
+      const int bt = item / heads, h = item % heads;
+      for (int idx = lane; idx < 4 * MAX_LEN * 8; idx += 128) {
+        const int part = idx / (MAX_LEN * 8), i = idx % (MAX_LEN * 8);
+        int r, cc;
+        chunk_rc<HEAD_DIM>(i, r, cc);
+        if (r >= L) continue;
+        const uint16_t* src = part < 3
+            ? seq_row(qkv, qkv_c, bt, r, n, 3 * c) + part * c
+            : seq_row(g, gc, bt, r, n, c);
+        cp_async16(st + part * BWD_TILE + i * 8, src + h * HEAD_DIM + cc);
+      }
+      cp_async_mbar_arrive(full + slot);
+      // K1b: the item's saved p block (contiguous), which the computing
+      // warpgroups read straight into registers, into L2 now (K1bd, whose
+      // first pass also reads the o rows, ran 2 % slower with it)
+      if constexpr (MODE == BWD_SAVED) {
+        if (lane == 0)
+          prefetch_l2(probs + (size_t)item * L * ls,
+                      (unsigned)(L * ls * sizeof(uint16_t)));
+      }
+    }
+    cp_async_wait_all();
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int wgbar = 1 + wg;
+  for (int k = 0; blockIdx.x + k * gridDim.x < items; ++k) {
+    const int item = blockIdx.x + k * gridDim.x, slot = k % BWD_DEPTH;
+    mbar_wait(full + slot, (k / BWD_DEPTH) & 1);  // item k's rows have landed
+    fence_async_smem();
+    const uint16_t* st = ring + slot * BWD_STAGE;
+    const int bt = item / heads, h = item % heads;
+    const uint16_t* pg =
+        MODE == BWD_RECOMPUTE ? nullptr : probs + (size_t)item * L * ls;
+    for (int t = wg; t < 4 && 64 * t < L; t += BWD_WGS)
+      bwd_rows<MODE>(st, t, pg, o, oc, d_s, inv_s, out_st, dqkv, dqkv_c, bt,
+                     h, n, heads, scale, wgbar);
+    bar_sync(3, BWD_WGS * 128);  // every D_i (and 1 / l_i) is stored
+    for (int t = wg; t < 4 && 64 * t < L; t += BWD_WGS)
+      bwd_keys<MODE>(st, t, pg, d_s, inv_s, out_st, dqkv, dqkv_c, bt, h, n,
+                     heads, scale, wgbar);
+    // both warpgroups are done with the stage and with D before the next
+    // item rewrites D and the copying warpgroup refills the stage
+    bar_sync(3, BWD_WGS * 128);
+    if (threadIdx.x == 0) mbar_arrive(empty + slot);
+  }
+}
+
 // persistent CTAs of `kernel` with `threads` threads and `smem` bytes: as
 // many as fit on the card at once, at most one per item
 template <typename K>
@@ -1199,6 +1653,28 @@ cudaError_t launch_bwd_mma(const void* qkv, const void* qkv_c,
   return cudaGetLastError();
 }
 
+// the bf16 backward at LP = 208 on persistent CTAs
+template <int MODE>
+cudaError_t launch_bwd_wg(const void* qkv, const void* qkv_c,
+                          const void* probs, const void* o, const void* oc,
+                          const void* g, const void* gc, void* dqkv,
+                          void* dqkv_c, int bt, int n, int heads, float scale,
+                          cudaStream_t stream) {
+  const int items = bt * heads;
+  int ctas = 0;
+  cudaError_t err = persistent_ctas(spatial_bwd_wg_kernel<MODE>, BWD_THREADS,
+                                    BWD_SMEM, items, ctas);
+  if (err != cudaSuccess) return err;
+  using u16 = uint16_t;
+  spatial_bwd_wg_kernel<MODE><<<ctas, BWD_THREADS, BWD_SMEM, stream>>>(
+      static_cast<const u16*>(qkv), static_cast<const u16*>(qkv_c),
+      static_cast<const u16*>(probs), static_cast<const u16*>(o),
+      static_cast<const u16*>(oc), static_cast<const u16*>(g),
+      static_cast<const u16*>(gc), static_cast<u16*>(dqkv),
+      static_cast<u16*>(dqkv_c), n, heads, items, scale);
+  return cudaGetLastError();
+}
+
 template <int MODE>
 int backward(const void* qkv, const void* qkv_c, const void* probs,
              void* scratch, const void* o, const void* oc, const void* g,
@@ -1226,8 +1702,8 @@ int backward(const void* qkv, const void* qkv_c, const void* probs,
   if (L <= 64)
     return (int)launch_bwd_mma<64, MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
                                          dqkv_c, bt, n, heads, scale, st);
-  return (int)launch_bwd_mma<208, MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
-                                        dqkv_c, bt, n, heads, scale, st);
+  return (int)launch_bwd_wg<MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
+                                  dqkv_c, bt, n, heads, scale, st);
 }
 
 }  // namespace

@@ -97,7 +97,8 @@ class Attention(nn.Module):
             return mhsa_temporal(x, *args, route=self.route)
         return mhsa(x, *args, key_padding_mask=key_padding_mask,
                     causal=self.causal, use_pallas=self.route.use_pallas,
-                    min_len=self.route.min_len)
+                    min_len=self.route.min_len,
+                    shift=self.route.spatial_shift)
 
 
 Streams = Union[torch.Tensor, Tuple[torch.Tensor, ...]]

@@ -38,8 +38,11 @@ and every block carries the same :class:`MViTRoute`:
   it takes precedence over ``MVIT_DELTA`` there, and K5 has no such form
   (:517-528, :616-645).
 
-``MVIT_SHIFT`` other than ``clamp`` raises (the kernels take only the clamp
-shift).  The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
+``MVIT_SHIFT`` (``max|clamp|none``, read at build; anything else raises
+``ValueError``): JAX reads it only inside K5 and K6, whose port takes only
+the clamp shift, so ``max`` and ``none`` raise ``NotImplementedError`` where
+a block takes K5 or K6; K7 always takes the row max and the plain path the
+row-max softmax, so blocks there run under any shift, as in JAX.  The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
 ``MVIT_SAVE_REL``, ``MVIT_HL``) are not copied.
 """
 
@@ -60,7 +63,7 @@ from procedurevrl_torch.models.layers import (
 )
 from procedurevrl_torch.ops import depthwise_pool as dpool
 from procedurevrl_torch.ops import mvit_attention as mattn
-from procedurevrl_torch.ops.attention_route import check_shift
+from procedurevrl_torch.ops.attention_route import check_shift, read_shift
 from procedurevrl_torch.ops.common import (
     grouped_layer_norm_fp32, layer_norm_fp32, trunc_normal_init,
 )
@@ -86,17 +89,17 @@ class MViTRoute:
     use_pallas: bool = True     # TPU.USE_PALLAS_ATTENTION
     delta: bool = False         # MVIT_DELTA
     save_probs: bool = False    # MVIT_SAVE_PROBS
+    shift: str = "clamp"        # MVIT_SHIFT
 
     @classmethod
     def from_env(cls, use_pallas: bool = True) -> "MViTRoute":
         """The route the environment selects (``use_pallas`` from the
-        config); a malformed knob raises ``ValueError``, one the port
-        cannot honour ``NotImplementedError``."""
-        check_shift("MVIT_SHIFT")
+        config); a malformed knob raises ``ValueError``."""
         return cls(pool=pool_route_from_env(), kt=env_flag("MVIT_KT", False),
                    use_pallas=bool(use_pallas),
                    delta=env_flag("MVIT_DELTA", False),
-                   save_probs=env_flag("MVIT_SAVE_PROBS", False))
+                   save_probs=env_flag("MVIT_SAVE_PROBS", False),
+                   shift=read_shift("MVIT_SHIFT"))
 
 
 DEFAULT_ROUTE = MViTRoute()
@@ -573,11 +576,13 @@ class MultiScaleAttention(nn.Module):
         body = [t.contiguous() for t in (qb, kb, vb, kc, vc, rel)]
         route = self.route
         if mattn.hl_supported(kb.shape[1], C, H):
+            check_shift("MVIT_SHIFT", route.shift)
             out_body = mattn.mvit_attention_hl(*body, k_shape, H, scale,
                                                route.delta)
         elif route.kt and mattn.kt_supported(C, H):
             out_body = mattn.mvit_attention_kt(*body, k_shape, H, scale)
         else:
+            check_shift("MVIT_SHIFT", route.shift)
             fold = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(
                 1, 2).reshape(B * H, t.shape[1], -1).contiguous()
             out_body = mattn.mvit_attention(*map(fold, body), k_shape, scale,

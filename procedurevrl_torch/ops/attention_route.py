@@ -35,10 +35,15 @@ Which kernels, once one runs:
   JAX's train tool sets it to 0 for tensor-parallel meshes
   (``utils/parser.py:82-89``).
 
-Knobs the port refuses, because they select a function it does not have:
-``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` other than ``clamp`` (:119, :1362;
-the port's kernels take only the clamp shift, and a value outside
-``max|clamp|none`` is malformed).
+Knobs the port carries but cannot honour on its kernels:
+``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` (:104, :1362; ``max|clamp|none``,
+anything else is malformed and raises ``ValueError`` at build).  JAX reads
+them only inside its Pallas kernels, and its XLA paths take the row-max
+softmax whatever they say.  The port's kernels take only the clamp shift,
+so ``max`` and ``none`` raise ``NotImplementedError`` where a kernel (or its
+plain version) would run: K1, K3 and K4 under ``SPATIAL_SHIFT``, K2 under
+``TEMPORAL_SHIFT`` (``ops/attention.py``); a pass that takes the plain
+row-max path runs as in JAX.
 
 ``SPATIAL_MXU_DSUM`` (:876), ``PALLAS_SP_GB`` (:851) and ``PALLAS_HPB``
 (:161) only choose the TPU's tiling or summation order of the same
@@ -59,14 +64,20 @@ from procedurevrl_torch.utils.env import env_flag, env_int
 SHIFTS = ("max", "clamp", "none")
 
 
-def check_shift(name: str) -> None:
+def read_shift(name: str) -> str:
     """A softmax-shift knob (``SPATIAL_SHIFT``, ``TEMPORAL_SHIFT``,
-    ``MVIT_SHIFT``): ``clamp`` (the default) is the port's; ``max`` and
-    ``none`` raise ``NotImplementedError``; anything else ``ValueError``,
-    as JAX raises on it."""
+    ``MVIT_SHIFT``): its value, ``clamp`` when unset; a value outside
+    ``max|clamp|none`` raises ``ValueError``, as JAX raises on it."""
     mode = os.environ.get(name, "clamp")
     if mode not in SHIFTS:
         raise ValueError(f"{name}={mode!r}: expected max|clamp|none")
+    return mode
+
+
+def check_shift(name: str, mode: str) -> None:
+    """Raise ``NotImplementedError`` naming the knob where a kernel that
+    takes only the clamp shift exp(min(s, 80)), or its plain version, is
+    about to run under ``max`` or ``none``."""
     if mode != "clamp":
         raise NotImplementedError(
             f"{name}={mode}: the port's kernels take only the clamp shift "
@@ -84,14 +95,13 @@ class AttentionRoute:
     temporal_pallas: bool = True   # TEMPORAL_PALLAS
     min_len: int = 128             # PALLAS_MIN_LEN
     fused_qkv: bool = True         # SPATIAL_FUSED_QKV
+    spatial_shift: str = "clamp"   # SPATIAL_SHIFT
+    temporal_shift: str = "clamp"  # TEMPORAL_SHIFT
 
     @classmethod
     def from_env(cls, use_pallas: bool = True) -> "AttentionRoute":
         """The route the environment selects (``use_pallas`` from the
-        config); a malformed knob raises ``ValueError``, a knob the port
-        cannot honour ``NotImplementedError``."""
-        check_shift("SPATIAL_SHIFT")
-        check_shift("TEMPORAL_SHIFT")
+        config); a malformed knob raises ``ValueError``."""
         return cls(save_probs=env_flag("SPATIAL_SAVE_PROBS", True),
                    delta=env_flag("SPATIAL_DELTA", False),
                    pipe=env_flag("SPATIAL_PIPE", False),
@@ -100,7 +110,9 @@ class AttentionRoute:
                    use_pallas=bool(use_pallas),
                    temporal_pallas=env_flag("TEMPORAL_PALLAS", True),
                    min_len=env_int("PALLAS_MIN_LEN", 128, minimum=0),
-                   fused_qkv=env_flag("SPATIAL_FUSED_QKV", True))
+                   fused_qkv=env_flag("SPATIAL_FUSED_QKV", True),
+                   spatial_shift=read_shift("SPATIAL_SHIFT"),
+                   temporal_shift=read_shift("TEMPORAL_SHIFT"))
 
 
 DEFAULT_ROUTE = AttentionRoute()

@@ -23,7 +23,10 @@ with the last p row of an item not flushed or its zero columns past L
 staged as ones, K5f / K6f with the cls column left out of the one-sweep
 row sums l only, a stage released early, or the expander built for the
 next key tile, and K6sp with the last 16-byte piece of each p row not
-flushed.
+flushed; K7f on that forward with o not rescaled when a tile raises the
+running max, or a ring stage refilled before its warpgroups release it;
+and K1's Hopper backward with a ring stage refilled before its empty
+barrier, or a key-major pass that drops the last, partial key window.
 
     python -m procedurevrl_torch.tools.mutation_check [--only CHECK ...]
         [--jobs N]
@@ -103,16 +106,23 @@ _MV_REFILL = "    stage(t + FSTAGES - 1);\n"
 _MV_EXPANDER = ("      build_expander_cm(st + 128 * DP, j0, g);\n    }\n"
                 "    cp_async_commit();\n  };\n"
                 "  for (int t = 0; t + 1 < FSTAGES; ++t) stage(t);")
-# the keep-mask of K7's logits (``logits8<false>``) and its loop over key
-# tiles
-_KT_MASK = "s[e] = col + (e & 1) <= kn ? fmaf(qk[e], scale, b[e]) : MASKED;"
-_KT_TILES = "for (int j0 = 0; j0 < kcols; j0 += BN) {"
+# K7f (``mvit_fwd_wg`` with KT): the mask of the columns past the cls key,
+# and the rescale of o when a tile raises the running max
+_KT_MASK = "if (!full_tile && j0 + acc_col(j, e) > g.kn) s[4 * j + e] = MASKED;"
+_KT_RESCALE = "if (t > 0) {  // o holds the previous tiles' sum"
 # K8f's bounds check of the input plane t + dt - 1, and K8dw's last position
 _POOL_PLANE = "if (ti < 0 || ti > g.t - 1) continue;"
 _DW_END = "min(p0 + per_block, g.npos)"
-# K1br's recomputed probability tile, K1p's ring slot, K1bd's delta rows and
-# K2v3f's key mask
-_BR_TILE = "softmax_tile<LP>(q_s, k_s, mt, L, scale, e, i0, i1);"
+# the Hopper backward of K1 (``spatial_bwd_wg_kernel``): K1br's recomputed
+# softmax in pass 1, the barrier between its passes, its release of a
+# stage and the loop of pass 2 over the key windows; K1p's ring slot, K1bd's delta
+# rows and K2v3f's key mask
+_BR_SOFTMAX = "      const bool inside = 8 * j + 8 <= L;\n"
+_BWD_PASSES = ("    bar_sync(3, BWD_WGS * 128);  // every D_i (and 1 / l_i) "
+               "is stored\n")
+_BWD_RELEASE = "    if (threadIdx.x == 0) mbar_arrive(empty + slot);\n  }\n}"
+_BWD_KEYS = ("    for (int t = wg; t < 4 && 64 * t < L; t += BWD_WGS)\n"
+             "      bwd_keys<MODE>")
 _PIPE_SLOT = ("    const uint16_t* st = ring + slot * STAGE;\n"
               "    uint16_t* p_dst =")
 # the bf16 forward's (K1f, K1sp, K1p) copy of an item's rows into its ring
@@ -125,7 +135,7 @@ _K1_RELEASE = ("    bar_sync(1 + wg, 128);\n    if ((threadIdx.x & 127) == 0) "
 _K1_FLUSH = "      const int rows = min(64, L - t * 64);"
 _K1_STAGE_P = ("        *reinterpret_cast<uint32_t*>(p_st + r0 * ls + col) = "
                "pa[kk][2 * u];")
-_DELTA = "if (half) d1 = acc; else d0 = acc;"
+_DELTA = "(half ? d1 : d0) = acc;"
 _V3_KEYS = "const bool key = 2 * tig + e < frames;"
 _V3_KEYS16 = "const bool key1 = 8 + 2 * tig + (e & 1) < frames;"
 # the D rows of the delta backwards (K5bd, K6bd; K7b shares them), K6sp's
@@ -196,12 +206,17 @@ MUTANTS = {
         _MV_EXPANDER.replace("j0, g);", "j0 + BN, g);"), "mvit"),
     "K7f cls column skipped": Mutant(
         "mvit_attention.cu", _KT_MASK,
-        "s[e] = col + (e & 1) < kn ? fmaf(qk[e], scale, b[e]) : MASKED;",
-        "kt"),
+        _KT_MASK.replace("> g.kn", ">= g.kn"), "kt"),
     # kN + 1 = 1569 keys: the last tile holds keys 1536..1567 and the cls
     "K7f ragged last key tile skipped": Mutant(
-        "mvit_attention.cu", _KT_TILES,
-        "for (int j0 = 0; j0 + BN <= kcols; j0 += BN) {", "kt"),
+        "mvit_attention.cu", _KT_MASK,
+        "if (!full_tile) s[4 * j + e] = MASKED;", "kt"),
+    # l is rescaled when a tile raises the running max, o keeps its old scale
+    "K7f o not rescaled when the running max rises": Mutant(
+        "mvit_attention.cu", _KT_RESCALE,
+        "if (false) {  // o holds the previous tiles' sum", "kt"),
+    "K7f ring stage refilled before its warpgroups release it": Mutant(
+        "mvit_attention.cu", _MV_REFILL, "    stage(t + FSTAGES);\n", "kt"),
     # output plane T-2 loses its taps on plane T-1
     "K8f halo plane T-1 skipped": Mutant(
         "depthwise_pool.cu", _POOL_PLANE,
@@ -210,10 +225,22 @@ MUTANTS = {
     "K8dw last batch dropped": Mutant(
         "depthwise_pool.cu", _DW_END,
         "min(p0 + per_block, g.npos - g.npos / g.b)", "pool_dw"),
-    # keys < L - 1: the CLS key (row n of the tile) leaves the softmax
-    "K1br cls key left out of the recomputed tile": Mutant(
-        "spatial_attention.cu", _BR_TILE,
-        "softmax_tile<LP>(q_s, k_s, mt, L - 1, scale, e, i0, i1);", "k1br"),
+    # keys < L - 1: the CLS key (key n) leaves pass 1's recomputed softmax
+    "K1br cls key left out of the recomputed p": Mutant(
+        "spatial_attention.cu", _BR_SOFTMAX,
+        "      const int L = n;  // the CLS key left out\n" + _BR_SOFTMAX,
+        "k1br"),
+    # the stage is released to the copying warpgroup after pass 1, so the
+    # next item but one lands in it under pass 2's products
+    "K1 backward ring stage refilled before its empty barrier": Mutant(
+        "spatial_attention.cu", _BWD_PASSES,
+        _BWD_PASSES + "    if (threadIdx.x == 0) mbar_arrive(empty + slot);\n",
+        "k1br", ((_BWD_RELEASE, "  }\n}"),)),
+    # pass 2 stops before the last key window (keys 192..207, the CLS key's
+    # row of dk and dv among them)
+    "K1 backward key-major pass drops the last partial window": Mutant(
+        "spatial_attention.cu", _BWD_KEYS,
+        _BWD_KEYS.replace("t < 4", "t < 3"), "k1br"),
     # the CLS key's rows of the staged k and v tiles zeroed before the item
     # computes (row n's eight 16-byte pieces in the core-matrix layout)
     "K1p cls key left out": Mutant(
@@ -248,8 +275,7 @@ MUTANTS = {
         "        *reinterpret_cast<uint32_t*>(p_st + r0 * ls + col) = "
         "col >= L ? 0x3f803f80u : pa[kk][2 * u];", "k1sp"),
     "K1bd delta forced to 0": Mutant(
-        "spatial_attention.cu", _DELTA, "if (half) d1 = 0.f; else d0 = 0.f;",
-        "k1bd"),
+        "spatial_attention.cu", _DELTA, "(half ? d1 : d0) = 0.f;", "k1bd"),
     "K2v3f last key frame left out": Mutant(
         "temporal_attention.cu", _V3_KEYS,
         "const bool key = 2 * tig + e < frames - 1;", "k2v3"),

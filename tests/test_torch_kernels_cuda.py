@@ -116,10 +116,13 @@ def test_spatial_probs_kernel_matches_plain(card, dtype, n):
     torch.testing.assert_close(fc, out_c, atol=0, rtol=0)
 
 
+# bt 37 of 4 heads: 148 items, more than one wave of the backward's
+# persistent CTAs (one per SM) and no multiple of their count
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [196, 49, 207])
-def test_spatial_bwd_kernel_matches_plain(card, dtype, n):
-    qkv, qkv_c, g, gc = _spatial_inputs(card, dtype, n, seed=1)
+@pytest.mark.parametrize("bt", [6, 37])
+def test_spatial_bwd_kernel_matches_plain(card, dtype, n, bt):
+    qkv, qkv_c, g, gc = _spatial_inputs(card, dtype, n, bt=bt, seed=1)
     _, _, probs = k1.spatial_attention_fwd_probs_plain(qkv, qkv_c, 4, 0.125)
     before = _build.LAUNCHES.get(k1.KERNEL_BWD, 0)
     dx, dx_c = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, 4, 0.125)
@@ -192,9 +195,10 @@ def test_temporal_autograd_runs_both_kernels(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [196, 49, 207])
-def test_spatial_recompute_and_delta_bwd_match_plain(card, dtype, n):
-    qkv, qkv_c, g, gc = _spatial_inputs(card, dtype, n, seed=4)
+@pytest.mark.parametrize("n", [196, 49, 207, 130])
+@pytest.mark.parametrize("bt", [6, 37])
+def test_spatial_recompute_and_delta_bwd_match_plain(card, dtype, n, bt):
+    qkv, qkv_c, g, gc = _spatial_inputs(card, dtype, n, bt=bt, seed=4)
     out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, 4, 0.125)
     counts = {k: _build.LAUNCHES.get(k, 0)
               for k in (k1.KERNEL_BWD_RECOMPUTE, k1.KERNEL_BWD_DELTA)}
@@ -335,7 +339,8 @@ def test_knob_routes_run_their_kernels(card, route):
 # (B, H, qN, k_shape): ragged query tails and key counts (kN + 1 = 25, 393,
 # 1569 are no multiples of 8 or 64)
 MVIT_GEOMS = {"small": (2, 2, 70, (2, 3, 4)), "block4": (2, 4, 1568, (8, 7, 7)),
-              "wide": (1, 2, 392, (8, 14, 14))}
+              "wide": (1, 2, 392, (8, 14, 14)),
+              "wide_odd": (3, 2, 300, (8, 14, 14))}
 
 
 def _mvit_inputs(card, dtype, geom, head_last, seed=0, hot=True):
@@ -572,7 +577,9 @@ def _kt_inputs(card, dtype, geom, seed=0, hot=True):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+# wide: kN = 1568, so the last key tile holds 33 of its 64 columns;
+# wide_odd: 300 query rows, the last CTA's warpgroups partly or not active
+@pytest.mark.parametrize("geom", ["small", "block4", "wide", "wide_odd"])
 def test_mvit_kt_fwd_kernel_matches_plain(card, dtype, geom):
     x, k_shape, h = _kt_inputs(card, dtype, geom)
     args = (*x[:6], k_shape, h, 96 ** -0.5)
@@ -586,7 +593,9 @@ def test_mvit_kt_fwd_kernel_matches_plain(card, dtype, geom):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("geom", ["small", "block4", "wide"])
+# wide: kN = 1568, so the last key tile holds 33 of its 64 columns;
+# wide_odd: 300 query rows, the last CTA's warpgroups partly or not active
+@pytest.mark.parametrize("geom", ["small", "block4", "wide", "wide_odd"])
 def test_mvit_kt_bwd_kernel_matches_plain(card, dtype, geom):
     x, k_shape, h = _kt_inputs(card, dtype, geom, seed=1)
     scale = 96 ** -0.5

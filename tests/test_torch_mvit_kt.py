@@ -149,8 +149,9 @@ def test_multiscale_attention_kt_matches_jax(monkeypatch):
               residual_pooling=True)
     jmod = jm.MultiScaleAttention(dim=dim, dim_out=dim, input_size=thw,
                                   use_pallas=True, **kw)
-    port = pm.MultiScaleAttention(dim, dim, thw,
-                                  route=pm.MViTRoute(kt=True), **kw)
+    route = pm.MViTRoute.from_env()
+    assert route.kt
+    port = pm.MultiScaleAttention(dim, dim, thw, route=route, **kw)
     rng = np.random.RandomState(1)
     x = (0.5 * rng.randn(1, 1 + int(np.prod(thw)), dim)).astype(np.float32)
     g = (0.02 * rng.randn(*x.shape)).astype(np.float32)

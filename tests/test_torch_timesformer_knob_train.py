@@ -290,8 +290,12 @@ def _tiny_cfg(model: str, *opts):
          "DATA.TEST_CROP_SIZE", "32", *opts])
 
 
-# knobs that select a function the port does not have: the model build
-# raises and names the knob (JAX would run max / none shifts)
+# A shift knob the port's kernels do not take (ROADMAP Queue 3, F7): the
+# model builds, since JAX reads the knob only inside its Pallas kernels, and
+# the first pass through a kernel that takes only the clamp shift raises,
+# naming the knob.  TimeSformer at crop 32 has N = 4 frame tokens:
+# PALLAS_MIN_LEN=1 sends the spatial pass to K1, and the temporal pass
+# takes K2 there by default; MViT-v2-S block 0 takes K5, block 14 K6.
 @pytest.mark.parametrize("model,knob,value", [
     ("timesformer", "SPATIAL_SHIFT", "max"),
     ("timesformer", "SPATIAL_SHIFT", "none"),
@@ -301,10 +305,101 @@ def _tiny_cfg(model: str, *opts):
     ("mvit", "MVIT_SHIFT", "none")])
 def test_an_unported_knob_raises_at_build(model, knob, value, monkeypatch):
     from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.ops import mvit_attention as ma
 
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match=knob):
-        build_model(_tiny_cfg(model), "cpu")
+    monkeypatch.setenv("PALLAS_MIN_LEN", "1")
+    net, _ = build_model(_tiny_cfg(model), "cpu")
+    rng = np.random.RandomState(11)
+    if model == "mvit":
+        block = 0 if value == "max" else 14
+        attn = net.video_encoder.blocks[block].attn
+        spec = net.video_encoder.cfg.block_schedule()[0][block]
+        thw = tuple(spec["input_size"])
+        x = torch.from_numpy(rng.randn(
+            1, 1 + int(np.prod(thw)), spec["dim"]).astype(np.float32))
+        called = []
+        for fn in ("mvit_attention_hl", "mvit_attention"):
+            monkeypatch.setattr(ma, fn, lambda *a, _n=fn: called.append(_n))
+        with pytest.raises(NotImplementedError, match=knob), \
+                torch.no_grad():
+            attn(x, thw)
+        assert not called
+        return
+    x = torch.from_numpy(rng.randn(1, 2, 32, 32, 3).astype(np.float32))
+    with pytest.raises(NotImplementedError, match=knob), torch.no_grad():
+        net._encode(x, None)
+
+
+# The same knobs where no kernel runs: the port builds and runs, and
+# matches the JAX model (fp32, atol = rtol = 2e-5) with the same weights
+# and numpy inputs.  SPATIAL_SHIFT: TPU.USE_PALLAS_ATTENTION False;
+# TEMPORAL_SHIFT: TEMPORAL_PALLAS=0 at N = 4 < PALLAS_MIN_LEN; MVIT_SHIFT:
+# a kernel-sized block with TPU.USE_PALLAS_ATTENTION False.
+@pytest.mark.parametrize("knob,value", [
+    ("SPATIAL_SHIFT", "max"), ("SPATIAL_SHIFT", "none"),
+    ("TEMPORAL_SHIFT", "max"), ("TEMPORAL_SHIFT", "none"),
+    ("MVIT_SHIFT", "max"), ("MVIT_SHIFT", "none")])
+def test_a_shift_knob_runs_where_no_kernel_does(knob, value, monkeypatch):
+    from procedurevrl_tpu.models import mvit as jm
+    from procedurevrl_tpu.models.timesformer import (
+        TimeSformer as JaxTimeSformer,
+    )
+    from procedurevrl_torch.models import mvit as pm
+    from procedurevrl_torch.models.timesformer import TimeSformer
+    from procedurevrl_torch.ops import mvit_attention as ma
+    from test_torch_mvit import ATTN, _attn_convert, _run_both
+    from test_torch_timesformer import GEOM as ENC, TOL as ENC_TOL
+    from test_torch_timesformer import random_params
+
+    monkeypatch.setenv(knob, value)
+    monkeypatch.delenv("PALLAS_MIN_LEN", raising=False)
+    if knob == "MVIT_SHIFT":
+        for fn in ("mvit_attention_hl", "mvit_attention", "mvit_attention_kt"):
+            monkeypatch.setattr(ma, fn, lambda *a: pytest.fail("a kernel ran"))
+        dim, dim_out, heads, thw, kq, sq, kkv, skv = ATTN["kv_pooled"]
+        kw = dict(num_heads=heads, qkv_bias=True, kernel_q=kq,
+                  kernel_kv=kkv, stride_q=sq, stride_kv=skv, mode="conv",
+                  has_cls_embed=True, rel_pos_spatial=True,
+                  rel_pos_temporal=True, residual_pooling=True)
+        jmod = jm.MultiScaleAttention(dim=dim, dim_out=dim_out,
+                                      input_size=thw, use_pallas=False, **kw)
+        route = pm.MViTRoute.from_env(use_pallas=False)
+        assert route.shift == value
+        port = pm.MultiScaleAttention(dim, dim_out, thw, route=route, **kw)
+        x = np.random.RandomState(7).randn(
+            2, 1 + int(np.prod(thw)), dim).astype(np.float32)
+        _run_both(jmod, port, _attn_convert, x, (thw,), seed=4)
+        return
+    for mod, name in WRAPPERS:
+        monkeypatch.setattr(mod, name, lambda *a, **k: pytest.fail("K1/K2"))
+    use_pallas = knob == "TEMPORAL_SHIFT"
+    if use_pallas:
+        monkeypatch.setenv("TEMPORAL_PALLAS", "0")
+    rng = np.random.RandomState(21)
+    x = rng.randn(2, 4, 32, 32, 3).astype(np.float32)
+    jmodel = JaxTimeSformer(**ENC, dtype=jnp.float32, use_pallas=use_pallas)
+    params = random_params(jmodel, x, rng)
+    ref = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x),
+                                  deterministic=True))
+    route = AttentionRoute.from_env(use_pallas=use_pallas)
+    assert (route.spatial_shift if knob == "SPATIAL_SHIFT"
+            else route.temporal_shift) == value
+    model = TimeSformer(**ENC, route=route).eval()
+    model.load_state_dict(weights.params_from_jax(params), strict=True)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, **ENC_TOL)
+
+
+def test_the_kt_route_runs_under_a_max_shift(monkeypatch):
+    """``MVIT_KT=1 MVIT_SHIFT=max``: K7 always takes the row max, so a block
+    routed to it runs under the knob and matches JAX, whose K7 does not
+    read it (the wide-key block of ``test_torch_mvit_kt``)."""
+    from test_torch_mvit_kt import test_multiscale_attention_kt_matches_jax
+
+    monkeypatch.setenv("MVIT_SHIFT", "max")
+    test_multiscale_attention_kt_matches_jax(monkeypatch)
 
 
 def test_a_malformed_mvit_shift_raises(monkeypatch):

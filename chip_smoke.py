@@ -40,10 +40,13 @@ Phases (any failure exits non-zero):
    K5f, 6 K6f, 13 K5b, 3 K6b, and no K7 or K8); one step against the plain
    path; one step profiled with its peak memory;
 10. K8f (MViT's depthwise 3x3x3 pool, stride 1 and 2, and its stride-1 dx
-   with reversed taps) and K8dw at MViT-v2-S blocks 0 and 4, and K7f/K7b
-   (key-tiled pooled attention, row-max softmax) at blocks 1 and 3 (18
-   clips, bf16), plus small float32 cases and a bf16 case with logits above
-   80, against their plain versions; timed beside ``conv3d(groups=C)``
+   with reversed taps) and K8dw at the five stride-1 pool shapes of the
+   MViT-v2-S training step (blocks 0, 2, 4-13, 14, 15), K8dw twice bit for
+   bit, and the edge cases of the pool's tiling in bf16 and float32 (every
+   stride), and K7f/K7b (key-tiled pooled attention, row-max softmax) at
+   blocks 1 and 3 (18 clips, bf16), plus small float32 cases and a bf16
+   case with logits above 80, against their plain versions; timed beside
+   ``conv3d(groups=C)`` (K8 also beside its byte bound and fp32 FMA floor)
    and SDPA with the bias as a float mask;
 11. slice 4: the same MViT-v2-S training as phase 9 with ``MVIT_POOL=kernel``
    and ``MVIT_KT=1`` set while the model is built (and restored after):
@@ -156,6 +159,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 BF16_FLOPS = 989e12         # dense tensor-core peak
+FP32_FLOPS = 67e12          # fp32 outside the tensor cores (K8's FMAs)
 # bf16 kernel vs plain version: both round p and the output to bf16; sums
 # run in another order, so outputs may differ by a bf16 ulp or two
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -235,7 +239,7 @@ ROUTE_A = {"SPATIAL_SAVE_PROBS": "0", "SPATIAL_PIPE": "1",
 ROUTE_B = {"SPATIAL_DELTA": "1"}
 TS_KNOBS = ("SPATIAL_SAVE_PROBS", "SPATIAL_DELTA", "SPATIAL_PIPE",
             "SPATIAL_PIPE_NBUF", "TEMPORAL_BATCHED", "SPATIAL_FUSED_QKV")
-KT_BLOCKS, KNOB_HS_BLOCKS, K8_POOLS = 2, 1, 17
+KT_BLOCKS, KNOB_HS_BLOCKS = 2, 1
 KNOB_STEPS = 12                         # 2 warm-up + 10 timed
 # slice 6, MViT-v2-S SGD pretraining on the JAX package's backward knobs
 MVIT_SGD_CFG = "configs/HowTo100M/procedurevrl_mvitv2_sgd.yaml"
@@ -248,6 +252,20 @@ ROUTE_STEPS = 8                         # 2 warm-up + 6 timed
 # the fp32 order noise of outputs near zero.  Outputs are ~0.5 here, so a
 # skipped tap plane moves an element by ~0.3.
 POOL_TOL = dict(atol=1e-3, rtol=1e-2)
+# K8 at the five stride-1 pools of the MViT-v2-S training step, 18 clips:
+# (label, [T, H, W], C, pools per pass): block 0's q, 2's q, the q of
+# blocks 4-13, the k and v of 14, the q, k and v of 15
+POOL_SHAPES = (("block 0", (8, 56, 56), 96, 1), ("block 2", (8, 28, 28), 192, 1),
+               ("block 4", (8, 14, 14), 384, 10),
+               ("block 14", (8, 14, 14), 768, 2),
+               ("block 15", (8, 7, 7), 768, 3))
+K8_POOLS = sum(n for *_, n in POOL_SHAPES)  # 17 stride-1 pools per pass
+# the edge cases of K8's window tiling (label, B, [T, H, W], C): channels
+# not a multiple of its 32-channel slice, unit axes, an odd W that is no
+# multiple of its 7-column strip, a band of rows that does not divide H
+POOL_EDGES = (("C 8", 2, (3, 9, 11), 8), ("C 40", 2, (4, 10, 13), 40),
+              ("H W 1", 3, (2, 1, 1), 32), ("T 1", 2, (1, 12, 9), 64),
+              ("odd W", 2, (3, 5, 9), 64), ("band", 2, (3, 61, 23), 32))
 # K7f's fp32 log-sum-exp: the same exponentials summed in another order,
 # per key tile; one missing key column of kN + 1 ~ 1569 moves it by ~6e-4
 LSE_TOL = dict(atol=1e-4, rtol=0.0)
@@ -1128,42 +1146,59 @@ def conv_ms(torch, F, x, w, g):
     return fwd, dx - fwd, dw - fwd
 
 
+def pool_bounds(b, thw, c) -> tuple:
+    """K8's bounds at x [b, *thw, c] in bf16: (bytes of K8f and of its dx,
+    bytes of K8dw, flops): each input read once and each output written
+    once, and the products the zero padding leaves, (3d - 2) taps per axis
+    of length d."""
+    n = b * math.prod(thw) * c
+    return (2 * (2 * n + 27 * c), 2 * 2 * n + 4 * 27 * c,
+            2 * b * c * math.prod(3 * d - 2 for d in thw))
+
+
 def phase_pool_kernels(torch, F, k8) -> list:
-    """K8f (stride 1 and 2), its stride-1 dx and K8dw at MViT-v2-S blocks 0
-    and 4 (18 clips, bf16) and small float32 cases against their plain
-    versions; returns the records of block 0."""
+    """K8f (every stride), its stride-1 dx and K8dw on the edge cases of
+    the window tiling (bf16 and float32), then K8f (stride 1 and 2), dx and
+    K8dw at the five stride-1 pool shapes of the MViT-v2-S training step
+    (18 clips, bf16), K8dw twice bit for bit, each timed beside its plain
+    version, ``conv3d(groups=C)`` and its bound (bytes, and the fp32 FMA
+    floor); returns the records of block 0."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     taps = k8.depthwise_pool3d_taps
-    for s in (1, 2, 4):
-        x, w, g = pool_inputs(torch, gen, 2, (3, 7, 9), 64, torch.float32)
-        compare(torch, f"K8f small fp32 s={s}", k8.depthwise_pool3d_fwd(x, w, s),
-                taps(x, w, (1, s, s)), FP32_TOL)
-    rdx = taps(g, w.flip(0), (1, 1, 1))
-    compare(torch, "K8f dx small fp32", k8.depthwise_pool3d_dx(g, w), rdx,
-            grad_tol(FP32_TOL, rdx))
-    rdw = k8.taps_dw(x, g, (1, 1, 1))
-    compare(torch, "K8dw small fp32", k8.depthwise_pool3d_dw(x, g), rdw,
-            grad_tol(FP32_TOL, rdw))
+    for label, b, thw, c in POOL_EDGES:
+        for dtype, tol in ((torch.bfloat16, POOL_TOL),
+                           (torch.float32, FP32_TOL)):
+            name = f"{label} [{b},{','.join(map(str, thw))},{c}] {str(dtype)[6:]}"
+            x, w, g = pool_inputs(torch, gen, b, thw, c, dtype)
+            for s in k8.STRIDES if dtype == torch.float32 else (1, 2):
+                compare(torch, f"K8f {name} s={s}", k8.depthwise_pool3d_fwd(
+                    x, w, s), taps(x, w, (1, s, s)), tol)
+            rdx = taps(g, w.flip(0), (1, 1, 1))
+            compare(torch, f"K8f dx {name}", k8.depthwise_pool3d_dx(g, w), rdx,
+                    grad_tol(tol, rdx))
+            rdw = k8.taps_dw(x, g, (1, 1, 1))
+            compare(torch, f"K8dw {name}", k8.depthwise_pool3d_dw(x, g), rdw,
+                    grad_tol(FP32_TOL, rdw))
     records = []
-    for label, thw, c in (("block 0", (8, 56, 56), 96),
-                          ("block 4", (8, 14, 14), 384)):
+    for label, thw, c, _ in POOL_SHAPES:
         b = 2 * CLIPS_PER_SAMPLE
         x, w, g = pool_inputs(torch, gen, b, thw, c, torch.bfloat16)
-        err_f = compare(torch, f"K8f {label} bf16", k8.depthwise_pool3d_fwd(
-            x, w, 1), taps(x, w, (1, 1, 1)), POOL_TOL)
-        if label == "block 0":
-            compare(torch, f"K8f {label} bf16 s=2",
-                    k8.depthwise_pool3d_fwd(x, w, 2), taps(x, w, (1, 2, 2)),
-                    POOL_TOL)
+        err = {"f": compare(torch, f"K8f {label} bf16", k8.depthwise_pool3d_fwd(
+            x, w, 1), taps(x, w, (1, 1, 1)), POOL_TOL)}
+        compare(torch, f"K8f {label} bf16 s=2", k8.depthwise_pool3d_fwd(x, w, 2),
+                taps(x, w, (1, 2, 2)), POOL_TOL)
         rdx = taps(g, w.flip(0), (1, 1, 1))
-        err_x = compare(torch, f"K8f dx {label} bf16",
-                        k8.depthwise_pool3d_dx(g, w), rdx,
-                        grad_tol(POOL_TOL, rdx))
+        err["x"] = compare(torch, f"K8f dx {label} bf16",
+                           k8.depthwise_pool3d_dx(g, w), rdx,
+                           grad_tol(POOL_TOL, rdx))
         rdw = k8.taps_dw(x, g, (1, 1, 1))
-        err_w = compare(torch, f"K8dw {label} bf16 (fp32 out)",
-                        k8.depthwise_pool3d_dw(x, g), rdw,
-                        grad_tol(FP32_TOL, rdw))
-        del rdx, rdw
+        dw = k8.depthwise_pool3d_dw(x, g)
+        err["w"] = compare(torch, f"K8dw {label} bf16 (fp32 out)", dw, rdw,
+                           grad_tol(FP32_TOL, rdw))
+        if not torch.equal(dw, k8.depthwise_pool3d_dw(x, g)):
+            fail(f"K8dw {label}: two runs on the same inputs differ")
+        print(f"K8dw {label}: two runs agree bit for bit")
+        del rdx, rdw, dw
         ms = {"f": time_ms(torch, lambda: k8.depthwise_pool3d_fwd(x, w, 1)),
               "x": time_ms(torch, lambda: k8.depthwise_pool3d_dx(g, w)),
               "w": time_ms(torch, lambda: k8.depthwise_pool3d_dw(x, g))}
@@ -1174,31 +1209,30 @@ def phase_pool_kernels(torch, F, k8) -> list:
                  "w": time_ms(torch, lambda: k8.taps_dw(x, g, (1, 1, 1)),
                               iters=2, reps=5)}
         lib = dict(zip("fxw", conv_ms(torch, F, x, w, g)))
-        n = b * thw[0] * thw[1] * thw[2] * c
-        # the products the zero padding leaves: (3d - 2) taps per axis of d
-        taps_done = b * c * math.prod(3 * d - 2 for d in thw)
-        nb_f, nb_w = 2 * (2 * n + 27 * c), 2 * 2 * n + 4 * 27 * c
-        bound = {"f": bound_ms(nb_f, 2 * taps_done, BF16_FLOPS),
-                 "w": bound_ms(nb_w, 2 * taps_done, BF16_FLOPS)}
+        nb_f, nb_w, flops = pool_bounds(b, thw, c)
+        fma_ms = flops / FP32_FLOPS * 1e3
+        bound = {"f": bound_ms(nb_f, flops, FP32_FLOPS),
+                 "w": bound_ms(nb_w, flops, FP32_FLOPS)}
         bound["x"] = bound["f"]
         shape = f"[{b},{thw[0]},{thw[1]},{thw[2]},{c}]"
         for key, what, nb in (("f", "K8f", nb_f), ("x", "K8f dx", nb_f),
                               ("w", "K8dw", nb_w)):
             print(f"{what} {label} {shape} bf16: kernel {ms[key]:.4f} ms, "
                   f"plain {plain[key]:.4f} ms, conv3d {lib[key]:.4f} ms, "
-                  f"bound {bound[key][0]:.4f} ms ({bound[key][1]}: "
-                  f"{nb / 1e6:.1f} MB, {2 * taps_done / 1e9:.2f} GFLOP)")
+                  f"bound {bound[key][0]:.4f} ms ({bound[key][1]}; bytes "
+                  f"{nb / 1e6:.1f} MB: {nb / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+                  f"fp32 FMA floor {flops / 1e9:.2f} GFLOP at "
+                  f"{FP32_FLOPS / 1e12:.0f} TFLOP/s: {fma_ms:.4f} ms)")
         if label != "block 0":
             continue
         src = "procedurevrl_torch/csrc/depthwise_pool.cu"
         where = "procedurevrl_tpu/ops/pallas_pool.py:"
-        for name, key, line, err in ((k8.KERNEL, "f", 149, err_f),
-                                     (k8.KERNEL_DX, "x", 149, err_x),
-                                     (k8.KERNEL_DW, "w", 186, err_w)):
+        for name, key, line in ((k8.KERNEL, "f", 149), (k8.KERNEL_DX, "x", 149),
+                                (k8.KERNEL_DW, "w", 186)):
             records.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": f"{where}{line}", "max_abs_err": err,
-                            "ms": ms[key], "plain_ms": plain[key],
-                            "bound_ms": bound[key][0],
+                            "replaces": f"{where}{line}",
+                            "max_abs_err": err[key], "ms": ms[key],
+                            "plain_ms": plain[key], "bound_ms": bound[key][0],
                             "bound_by": bound[key][1],
                             "library_ms": lib[key]})
     return records

@@ -167,6 +167,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
       :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
+// this thread's arrive on `bar`, announcing `bytes` of asynchronous copies
+// that will complete the phase (expect-tx)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// The TMA unit's copy of one box of a 5-d tensor map (a __grid_constant__
+// kernel parameter) at element coordinates {c0, c1, c2, c3, c4} into
+// shared memory, densely in the box's order (dimension 0 innermost); what
+// lies outside the tensor is zero-filled.  Completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4), "r"(smem_addr(bar))
+      : "memory");
+}
 // a barrier of `threads` threads (a multiple of 32) on named barrier `id`
 // (1..15; 0 is __syncthreads)
 __device__ __forceinline__ void bar_sync(int id, int threads) {

@@ -65,8 +65,8 @@ ENTRY_POINTS = {
         "flash_attention_bwd": [_P] * 16 + [_I] * 5 + [_L] * 6 + [_I, _F, _P],
     },
     "depthwise_pool": {
-        "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 6 + [_L, _L, _I, _P],
-        "depthwise_pool3d_dw": [_P] * 4 + [_I] * 5 + [_L, _L, _I, _I, _P],
+        "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 8 + [_L, _L, _I, _I, _P],
+        "depthwise_pool3d_dw": [_P] * 4 + [_I] * 7 + [_L, _L, _I, _P],
     },
 }
 

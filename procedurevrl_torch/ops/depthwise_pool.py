@@ -15,8 +15,11 @@ The weight gradient is fp32 ``[27, C]``.
 The kernels read x through its token-row stride (``x5.stride(3)``, with
 ``stride(2) = W * stride(3)`` and ``stride(1) = H * stride(2)``) and any
 batch stride, so the model hands them a view of its fused qkv product
-without a copy.  Each wrapper launches its kernel for a CUDA tensor and
-takes the plain version only for a CPU tensor.  :func:`depthwise_pool3d`
+without a copy.  Each CTA walks t over a window of the input staged in
+shared memory: a band of output rows, a tile of strips of ``SW`` output
+columns and a slice of ``CS`` channels, sized by :func:`pool_plan`.  Each
+wrapper launches its kernel for a CUDA tensor and takes the plain version
+only for a CPU tensor.  :func:`depthwise_pool3d`
 is the model's entry (JAX ``depthwise_pool3d``), through
 :class:`DepthwisePool3DFunction`, which differentiates as JAX ``_dp_bwd``
 does: at s == 1 with the kernel, dx is K8f on the output gradient with
@@ -28,7 +31,7 @@ the tap formulas for the backward, on any device.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -39,8 +42,23 @@ KERNEL_DX = "depthwise_pool3d_dx"   # K8f on g with the taps reversed
 KERNEL_DW = "depthwise_pool3d_dw"   # K8dw
 KTAPS = 27
 STRIDES = (1, 2, 4, 8)
-VEC = 8               # channels a kernel thread loads at once (16 bytes of bf16)
-DW_POSITIONS = 1024   # output positions per K8dw partial block
+VEC = 8               # channel and stride multiple (16 bytes of bf16)
+# the kernels' tiling (``csrc/depthwise_pool.cu``): a thread owns 2 channels
+# (K8f) or 1 (K8dw) of a strip of SW output columns; a CTA a slice of CS
+# channels, at most MAX_THREADS threads and SMEM_MAX bytes of shared memory
+SW = 7
+CS = 32
+FWD_LANES = CS // 2           # K8f threads across a slice (2 channels each)
+MAX_THREADS = 512
+SMEM_MAX = 232448
+MAX_BOX = 256                 # a TMA box's extent along each dimension
+BAR_BYTES = 128               # the ring's mbarriers
+W_BYTES = KTAPS * CS * 4      # K8f's fp32 weights in shared memory
+FWD_SLOTS, DW_SLOTS = 3, 4    # ring slots of K8f and of K8dw
+# the planner aims a CTA at this many threads and its ring at this many
+# bytes, so that two CTAs share an SM
+TARGET_THREADS = 256
+RING_BYTES = 112 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (dt, dh, dw) of tap row r = dt*9 + dh*3 + dw
 _TAPS = tuple((dt, dh, dw) for dt in range(3) for dh in range(3)
@@ -147,20 +165,140 @@ def taps_dw(x5: torch.Tensor, g5: torch.Tensor,
     return torch.stack(rows, dim=0)
 
 
+# ------------------------------------------------------------ the tiling
+
+
+class PoolPlan(NamedTuple):
+    """A launch's CTA tile: ``band`` output rows by ``strips`` strips of SW
+    output columns by CS channels; ``bands``, ``tiles``, ``slices`` CTAs
+    along H', W' and C (per batch element); ``lanes`` threads across the
+    CS channels (FWD_LANES for K8f, CS for K8dw)."""
+    band: int
+    strips: int
+    bands: int
+    tiles: int
+    slices: int
+    lanes: int
+
+    @property
+    def threads(self) -> int:
+        return _threads(self.band, self.strips, self.lanes)
+
+    @property
+    def parts(self) -> int:
+        """K8dw partials per batch element (one per band and tile)."""
+        return self.bands * self.tiles
+
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def _threads(band: int, strips: int, lanes: int) -> int:
+    return -(-band * strips * lanes // 32) * 32
+
+
+def _r128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _boxes(band: int, strips: int, s: int) -> Tuple[int, int, int]:
+    """(rows, columns) of a CTA's staged x box and the columns of its g
+    box, each column count odd (``make_geo`` in the source)."""
+    return ((band - 1) * s + 3, _odd((strips * SW - 1) * s + 3),
+            _odd(strips * SW))
+
+
+def smem_bytes(band: int, strips: int, s: int, esize: int,
+               dw: bool = False) -> int:
+    """Shared memory of a K8f (or K8dw) CTA of ``band`` x ``strips`` at
+    stride s, as ``smem_of`` in the source computes it."""
+    rows, pitch, gpitch = _boxes(band, strips, s)
+    slot = _r128(rows * pitch * CS * esize)
+    if not dw:
+        return BAR_BYTES + W_BYTES + FWD_SLOTS * slot
+    slot += _r128(band * gpitch * CS * esize)
+    red = _threads(band, strips, CS) // 32 * KTAPS * CS * 4
+    return BAR_BYTES + max(DW_SLOTS * slot, red)
+
+
+def _fits(band: int, strips: int, s: int, esize: int, dw: bool,
+          limit: int) -> bool:
+    """Whether a CTA of ``band`` x ``strips`` takes at most ``limit`` bytes
+    of shared memory and its boxes stay within MAX_BOX."""
+    return (max(_boxes(band, strips, s)) <= MAX_BOX
+            and smem_bytes(band, strips, s, esize, dw) <= limit)
+
+
+def pool_plan(h: int, w: int, c: int, s: int, esize: int,
+              dw: bool = False) -> PoolPlan:
+    """The CTA tile of a launch on an [*, *, h, w, c] input at stride s
+    with elements of ``esize`` bytes: the strips of a row split evenly over
+    the fewest tiles that keep a band of one row within MAX_THREADS and
+    RING_BYTES, then the rows split evenly over the fewest bands of at most
+    TARGET_THREADS threads (at least one row) within RING_BYTES."""
+    ho, wo = out_hw(h, s), out_hw(w, s)
+    lanes = CS if dw else FWD_LANES
+    nstrip = -(-wo // SW)
+    tiles = 1
+    while True:
+        strips = -(-nstrip // tiles)
+        if strips == 1 or (strips * lanes <= MAX_THREADS and _fits(
+                1, strips, s, esize, dw, RING_BYTES)):
+            break
+        tiles += 1
+    tiles = -(-nstrip // strips)
+    band = max(1, min(ho, TARGET_THREADS // (lanes * strips)))
+    while band > 1 and not _fits(band, strips, s, esize, dw, RING_BYTES):
+        band -= 1
+    bands = -(-ho // band)
+    return PoolPlan(-(-ho // bands), strips, bands, tiles, -(-c // CS), lanes)
+
+
+def plan_cover(plan: PoolPlan, ho: int, wo: int, c: int) -> torch.Tensor:
+    """How many times the kernels write each ``[ho, wo, c]`` output of one
+    batch element under ``plan``: ``blockIdx.x`` decoded as the kernels
+    decode it (tile fastest, then band, then slice), ``threadIdx.x`` as
+    lane in the slice, then strip, then row, each thread writing CS /
+    lanes channels of the SW columns of its strip that lie inside."""
+    cta = torch.arange(plan.bands * plan.tiles * plan.slices)
+    tile, band = cta % plan.tiles, cta // plan.tiles % plan.bands
+    slice_ = cta // (plan.tiles * plan.bands)
+    thread = torch.arange(plan.threads)
+    lane, q = thread % plan.lanes, thread // plan.lanes
+    per = CS // plan.lanes
+    row = band[:, None] * plan.band + q // plan.strips          # [cta, thread]
+    w0 = tile[:, None] * plan.strips * SW + q % plan.strips * SW
+    ch = slice_[:, None] * CS + lane * per
+    owns = (q < plan.band * plan.strips) & (row < ho) & (w0 < wo) & (ch < c)
+    col = w0[..., None, None] + torch.arange(SW)[:, None]        # [.., k, e]
+    chan = ch[..., None, None] + torch.arange(per)
+    index = (row[..., None, None] * wo + col) * c + chan
+    keep = (owns[..., None, None] & (col < wo)).expand_as(index)
+    cover = torch.zeros(ho * wo * c, dtype=torch.int64)
+    cover.index_add_(0, index[keep], torch.ones_like(index[keep]))
+    return cover.view(ho, wo, c)
+
+
 # ------------------------------------------------------------ the kernels
 
 
 def _geometry(x5: torch.Tensor) -> Tuple[int, int]:
     """(token-row stride, batch stride) of x5 in elements; raises unless
-    the (T, H, W) positions are evenly spaced rows of C channels."""
+    the (T, H, W) positions are evenly spaced rows of C channels.  The
+    stride of an axis of length 1 is never stepped, so it says nothing:
+    the row stride comes from the innermost longer axis (C with none), and
+    a single batch element's stride is taken as T*H*W rows."""
     B, T, H, W, C = x5.shape
-    row = x5.stride(3)
-    if (x5.stride(4) != 1 or x5.stride(2) != W * row
-            or x5.stride(1) != H * W * row or row < C):
+    spans = {3: 1, 2: W, 1: H * W}  # positions one step of each axis spans
+    longer = [a for a in (3, 2, 1) if x5.shape[a] > 1]
+    row = x5.stride(longer[0]) // spans[longer[0]] if longer else C
+    if (x5.stride(4) != 1 or row < C
+            or any(x5.stride(a) != spans[a] * row for a in longer)):
         raise ValueError(f"depthwise_pool3d: strides {x5.stride()} of "
                          f"{tuple(x5.shape)} are not evenly spaced "
                          f"channels-last token rows")
-    return row, x5.stride(0)
+    return row, x5.stride(0) if B > 1 else T * H * W * row
 
 
 def _check_kernel(x5: torch.Tensor, other: torch.Tensor) -> Tuple[int, int]:
@@ -193,13 +331,17 @@ def _launch(fn: str, kernel: str, x5: torch.Tensor, *args) -> None:
     _build.count_launch(kernel)
 
 
-def _pool_kernel(kernel: str, x5, w27, s: int) -> torch.Tensor:
+def _pool_kernel(kernel: str, x5, w27, s: int,
+                 flip: bool = False) -> torch.Tensor:
+    """K8f's launch; ``flip`` reads the tap table reversed."""
     row, batch = _check_kernel(x5, w27)
     B, T, H, W, C = x5.shape
+    plan = pool_plan(H, W, C, s, x5.element_size())
     out = torch.empty((B, T, out_hw(H, s), out_hw(W, s), C), dtype=x5.dtype,
                       device=x5.device)
     _launch("depthwise_pool3d_fwd", kernel, x5, x5.data_ptr(), w27.data_ptr(),
-            out.data_ptr(), B, T, H, W, C, s, row, batch, _DTYPES[x5.dtype])
+            out.data_ptr(), B, T, H, W, C, s, plan.band, plan.strips, row,
+            batch, int(flip), _DTYPES[x5.dtype])
     return out
 
 
@@ -224,18 +366,19 @@ def depthwise_pool3d_fwd(x5: torch.Tensor, w27: torch.Tensor,
 
 def depthwise_pool3d_dx(g5: torch.Tensor, w27: torch.Tensor) -> torch.Tensor:
     """dx of the stride-1 pool: K8f on the output gradient with the tap
-    table reversed (JAX ``_dp_bwd``: ``_pool_call(g, w27[::-1], 1)``)."""
-    w_rev = w27.flip(0)
-    _check(g5, w_rev, 1)
+    table reversed (JAX ``_dp_bwd``: ``_pool_call(g, w27[::-1], 1)``); the
+    kernel reads w27's rows in reverse order, so no flipped copy is made."""
+    _check(g5, w27, 1)
     if g5.device.type == "cpu":
-        return depthwise_pool3d_taps(g5, w_rev, (1, 1, 1))
-    return _pool_kernel(KERNEL_DX, g5, w_rev, 1)
+        return depthwise_pool3d_taps(g5, w27.flip(0), (1, 1, 1))
+    return _pool_kernel(KERNEL_DX, g5, w27, 1, flip=True)
 
 
 def depthwise_pool3d_dw(x5: torch.Tensor, g5: torch.Tensor) -> torch.Tensor:
     """K8dw: the stride-1 weight gradient, fp32 ``[27, C]``; g5 contiguous
-    ``[B, T, H, W, C]`` in the dtype of x5.  Deterministic: per-block fp32
-    partial sums, then a second pass that adds them in a fixed order."""
+    ``[B, T, H, W, C]`` in the dtype of x5.  Deterministic: one fp32
+    partial per (batch element, band, tile) of the plan, then a second pass
+    that adds them in a fixed order."""
     if x5.dim() != 5 or g5.shape != x5.shape:
         raise ValueError(f"depthwise_pool3d_dw: x {tuple(x5.shape)} and g "
                          f"{tuple(g5.shape)} differ")
@@ -243,13 +386,13 @@ def depthwise_pool3d_dw(x5: torch.Tensor, g5: torch.Tensor) -> torch.Tensor:
         return taps_dw(x5, g5, (1, 1, 1))
     row, batch = _check_kernel(x5, g5)
     B, T, H, W, C = x5.shape
-    nblk = -(-B * T * H * W // DW_POSITIONS)
-    partial = torch.empty((nblk, KTAPS, C), dtype=torch.float32,
+    plan = pool_plan(H, W, C, 1, x5.element_size(), dw=True)
+    partial = torch.empty((B * plan.parts, KTAPS, C), dtype=torch.float32,
                           device=x5.device)
     dw = torch.empty((KTAPS, C), dtype=torch.float32, device=x5.device)
     _launch("depthwise_pool3d_dw", KERNEL_DW, x5, x5.data_ptr(),
             g5.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, H, W, C,
-            row, batch, nblk, _DTYPES[x5.dtype])
+            plan.band, plan.strips, row, batch, _DTYPES[x5.dtype])
     return dw
 
 

@@ -1,10 +1,10 @@
-"""Time the port's attention kernels on one CUDA card: each kernel of a
-wrapper call apart, and an A/B of every case against another checkout.
+"""Time the port's attention and pool kernels on one CUDA card: each kernel
+of a wrapper call apart, and an A/B of every case against another checkout.
 
     python -m procedurevrl_torch.tools.kernel_ab
-        [--family spatial|pair|mvit|all] [--split-in DIR] [--ab DIR]
+        [--family spatial|pair|mvit|pool|all] [--split-in DIR] [--ab DIR]
 
-Three families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
+Four families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
 phases): ``spatial``, K1's own kernels of ``ops/spatial_attention.py`` (K1f
 and K1p at the eval shape ``[128, 196, 2304]`` + CLS; K1sp, K1b, K1br, K1bd
 and K1p at the training shape ``[144, 196, 2304]`` + CLS; K1f and K1sp at
@@ -15,7 +15,11 @@ N = 48, the short-sequence instance); ``pair``, the key-tiled pair of
 (``[18, 8, 196, 2304]``, 24 heads), each forward and backward; ``mvit``,
 the MViT kernels of ``ops/mvit_attention.py`` (K5f, K6f, K6sp, K7f and the
 backward K5b / K6b with its variants K5bd, K6bd, K7b, K6bs) at MViT-v2-S's
-blocks, 18 clips.
+blocks, 18 clips; ``pool``, the depthwise pool of ``ops/depthwise_pool.py``
+(K8f, its dx and K8dw, each a case) at the five stride-1 pool shapes of
+the MViT-v2-S training step (18 clips: blocks 0, 2, 4-13, 14 and 15), x a
+view of a fused qkv product as the model hands it, and K8f at stride 2 on
+block 0.
 
 Without ``--ab`` it runs each case's wrapper under ``torch.profiler`` in
 one process per checkout (this tree, or DIR with ``--split-in``) and
@@ -101,6 +105,22 @@ SPATIAL_CASES = (("K1f eval [128,196,2304]+CLS", "fwd", 128, 196),
                  ("K1f N 48 [144,48,2304]+CLS", "fwd", 144, 48),
                  ("K1sp N 48 [144,48,2304]+CLS", "sp", 144, 48))
 SPATIAL_HEADS, SPATIAL_HEAD_DIM = 12, 64
+
+# (label, block, x [B, T, H, W, C]) of the stride-1 pools of the MViT-v2-S
+# training step, 18 clips: block 0's q, 2's q, the q of blocks 4-13, the k
+# and v of 14, the q, k and v of 15
+POOL_SHAPES = (("block 0", (18, 8, 56, 56, 96)),
+               ("block 2", (18, 8, 28, 28, 192)),
+               ("block 4", (18, 8, 14, 14, 384)),
+               ("block 14", (18, 8, 14, 14, 768)),
+               ("block 15", (18, 8, 7, 7, 768)))
+# (label, kind, stride, shape); kind "fwd" K8f, "dx" K8f on g with the taps
+# reversed, "dw" K8dw
+POOL_CASES = tuple((f"{name} {label}", kind, 1, shape)
+                   for label, shape in POOL_SHAPES
+                   for name, kind in (("K8f", "fwd"), ("K8f dx", "dx"),
+                                      ("K8dw", "dw"))) + (
+    ("K8f s=2 block 0", "fwd", 2, POOL_SHAPES[0][1]),)
 
 
 def mvit_inputs(torch, k5, variant, head_last, b, heads, qn, k_shape,
@@ -245,9 +265,32 @@ def spatial_call(torch, case, seed=0):
                                                   out_c, g, gc, heads, scale)
 
 
+def pool_call(torch, case, seed=0):
+    """One call of a pool case through its wrapper (a closure): x the k
+    third of a fused qkv product [B, 1 + T*H*W, 3C] past its first token,
+    bf16."""
+    from procedurevrl_torch.ops import depthwise_pool as k8
+
+    _, kind, s, (b, t, h, w, c) = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, sd=1.0):
+        return (sd * torch.randn(*shape, generator=gen, device="cuda")
+                ).bfloat16()
+
+    x = r(b, 1 + t * h * w, 3 * c)[:, 1:, c:2 * c].reshape(b, t, h, w, c)
+    w27, g = r(27, c, sd=0.1), r(b, t, h, w, c)
+    if kind == "fwd":
+        return lambda: k8.depthwise_pool3d_fwd(x, w27, s)
+    if kind == "dx":
+        return lambda: k8.depthwise_pool3d_dx(g, w27)
+    return lambda: k8.depthwise_pool3d_dw(x, g)
+
+
 FAMILIES = {"spatial": (SPATIAL_CASES, spatial_call, "spatial_attention"),
             "pair": (PAIR_CASES, pair_call, "flash_attention"),
-            "mvit": (MVIT_CASES, mvit_call, "mvit_attention")}
+            "mvit": (MVIT_CASES, mvit_call, "mvit_attention"),
+            "pool": (POOL_CASES, pool_call, "depthwise_pool")}
 
 
 def family_cases(family: str, only: str = ""):
@@ -457,7 +500,7 @@ def ab(other: Path, family: str, only: str = "") -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=("spatial", "pair", "mvit", "all"),
+    ap.add_argument("--family", choices=(*FAMILIES, "all"),
                     default="all")
     ap.add_argument("--ab", metavar="DIR", help="another checkout of the "
                     "repository to time the wrappers against")

@@ -1,6 +1,7 @@
 """Show that ``chip_smoke.py``'s limits reject kernels with planted faults:
-K5f/K6f and K7f missing key columns, K8f missing a halo plane, K8dw
-missing a batch, K1br and K1p without the CLS key, K1bd with delta forced
+K5f/K6f and K7f missing key columns, K8f missing a halo plane, reading the
+halo row below a band as zeros or reading the ring slot of the next plane,
+K8dw missing a batch or one CTA's partial, K1br and K1p without the CLS key, K1bd with delta forced
 to 0, K2v3f without the last key frame (at 8 and at 16 frames), K5bd /
 K6bd with D forced to 0, K6sp storing p without the cls column and K6bs
 reading p without it, the key-tiled pair (``flash_attention.cu``, K3f /
@@ -42,8 +43,9 @@ and K6f at block 1 (B*H 36, qN 6272, kN 1568), out against
 ``MVIT_FWD_TOL`` and the row sums against ``ROWSUM_TOL``, each of which
 must reject; K7f at blocks 1 and 3 (kN 1568, so the last key tile is
 ragged), out against ``MVIT_FWD_TOL`` and lse against ``LSE_TOL``; K8f at
-blocks 0 and 4 against ``POOL_TOL``; K8dw at blocks 0 and 4 against the
-fp32 limit scaled by the largest gradient; K1br, K1bd and K1p at the
+blocks 0 and 4 against ``POOL_TOL`` (both shapes tile H in more than one
+band, so a band edge is inside the grid); K8dw at blocks 0 and 4 against
+the fp32 limit scaled by the largest gradient; K1br, K1bd and K1p at the
 TimeSformer-B training and eval shapes (BT 144 and 128, N 196, 12 heads),
 the gradients against the bf16 limit scaled by the largest gradient and
 K1p against ``K1K2_FWD_TOL``, with K1br held bit for bit against K1b on
@@ -110,9 +112,14 @@ _MV_EXPANDER = ("      build_expander_cm(st + 128 * DP, j0, g);\n    }\n"
 # and the rescale of o when a tile raises the running max
 _KT_MASK = "if (!full_tile && j0 + acc_col(j, e) > g.kn) s[4 * j + e] = MASKED;"
 _KT_RESCALE = "if (t > 0) {  // o holds the previous tiles' sum"
-# K8f's bounds check of the input plane t + dt - 1, and K8dw's last position
-_POOL_PLANE = "if (ti < 0 || ti > g.t - 1) continue;"
-_DW_END = "min(p0 + per_block, g.npos)"
+# K8f's dt = 2 taps (an input plane's products for the output plane
+# before it), its read of a staged column, and its wait for a landing
+# plane; K8dw's store of a CTA's partial and the walk of its second pass
+_POOL_PLANE = "pv[k][e] = fmaf(v[e], wt[2][dw][e], pv[k][e]);"
+_POOL_READ = "          load_pair(pl + (dh * g.pitch + j) * CS, v);\n"
+_POOL_SLOT = "reinterpret_cast<const T*>(ring + slot * g.slot)"
+_DW_STORE = "pb[(size_t)r * g.c + P.c0 + cc] = s;"
+_DW_PARTS = "for (int k = l; k < nparts; k += RED_LANES)"
 # the Hopper backward of K1 (``spatial_bwd_wg_kernel``): K1br's recomputed
 # softmax in pass 1, the barrier between its passes, its release of a
 # stage and the loop of pass 2 over the key windows; K1p's ring slot, K1bd's delta
@@ -219,12 +226,27 @@ MUTANTS = {
         "mvit_attention.cu", _MV_REFILL, "    stage(t + FSTAGES);\n", "kt"),
     # output plane T-2 loses its taps on plane T-1
     "K8f halo plane T-1 skipped": Mutant(
-        "depthwise_pool.cu", _POOL_PLANE,
-        "if (ti < 0 || ti > g.t - 1 || (dt == 2 && ti == g.t - 1)) continue;",
+        "depthwise_pool.cu", _POOL_PLANE, "if (ti != g.t - 1) " + _POOL_PLANE,
+        "pool"),
+    # the last output row of each band loses the halo row below the band
+    # (real data but in the last band)
+    "K8f halo row below a band read as zeros": Mutant(
+        "depthwise_pool.cu", _POOL_READ,
+        _POOL_READ + "          if (dh == 2 && P.rr == g.band - 1) "
+        "v[0] = v[1] = 0.f;\n", "pool"),
+    # every plane is still waited for (no copy outlives the CTA), but read
+    # from the slot of the plane that lands next
+    "K8f reads the ring slot of the next plane": Mutant(
+        "depthwise_pool.cu", _POOL_SLOT,
+        "reinterpret_cast<const T*>(ring + (ti + 1) % FWD_SLOTS * g.slot)",
         "pool"),
     "K8dw last batch dropped": Mutant(
-        "depthwise_pool.cu", _DW_END,
-        "min(p0 + per_block, g.npos - g.npos / g.b)", "pool_dw"),
+        "depthwise_pool.cu", _DW_STORE,
+        "pb[(size_t)r * g.c + P.c0 + cc] = P.b == g.b - 1 ? 0.f : s;",
+        "pool_dw"),
+    "K8dw one CTA's partial left out of the sum": Mutant(
+        "depthwise_pool.cu", _DW_PARTS,
+        "for (int k = l; k < nparts - 1; k += RED_LANES)", "pool_dw"),
     # keys < L - 1: the CLS key (key n) leaves pass 1's recomputed softmax
     "K1br cls key left out of the recomputed p": Mutant(
         "spatial_attention.cu", _BR_SOFTMAX,
@@ -463,6 +485,11 @@ def _check_pool(cs, torch, gen):
 
     for label, thw, c in POOL_SHAPES:
         x, w, _ = cs.pool_inputs(torch, gen, 18, thw, c, torch.bfloat16)
+        plan = k8.pool_plan(thw[1], thw[2], c, 1, 2)
+        print(f"{label}: {plan}")
+        if plan.bands < 2:
+            raise SystemExit(f"mutation_check: {label} is one band of rows; "
+                             f"the band-edge fault needs two")
         yield _judge(cs, torch, label, [
             ("out", k8.depthwise_pool3d_fwd(x, w, 1),
              k8.depthwise_pool3d_taps(x, w, (1, 1, 1)), cs.POOL_TOL)], False)

@@ -12,7 +12,11 @@ under ``MVIT_POOL=kernel`` it runs the conv, the same function (and
 ``tests/test_pallas_pool.py::test_model_pool_knob_matches_conv`` compares
 the conv with itself); the port's module is held against it all the same.
 Tolerances: forward fp32 atol = rtol = 2e-5, gradients 5e-5 (as the JAX
-pool tests).
+pool tests).  The CUDA kernels' tiling is planned in Python
+(``pool_plan``), so its coverage is held here: every output of the five
+stride-1 pool shapes of the MViT-v2-S training step and of the edge cases
+is written exactly once, within the kernels' thread and shared-memory
+limits.
 """
 
 import jax
@@ -117,6 +121,46 @@ def test_the_qkv_view_needs_no_copy():
                        dp.depthwise_pool3d_taps(k.contiguous(), w, (1, 1, 1)))
     with pytest.raises(ValueError, match="evenly spaced"):
         dp._geometry(k.transpose(2, 3))
+
+
+@pytest.mark.parametrize("thw", [(1, 1, 1), (2, 1, 1), (1, 3, 1), (1, 1, 4),
+                                 (3, 1, 5), (2, 5, 1)])
+def test_the_qkv_view_with_unit_axes_needs_no_copy(thw):
+    """An axis of length 1 is never stepped, so its stride says nothing:
+    the kernels' geometry takes the qkv view at any (T, H, W), the row
+    stride from the innermost longer axis (3C; C with none)."""
+    c, n = 16, thw[0] * thw[1] * thw[2]
+    qkv = torch.randn(2, 1 + n, 3 * c)
+    k = qkv.chunk(3, dim=-1)[1][:, 1:].reshape(2, *thw, c)
+    assert dp._geometry(k) == (3 * c if n > 1 else c, (1 + n) * 3 * c)
+
+
+# the five stride-1 pools of the MViT-v2-S training step ([H, W, C] of
+# blocks 0, 2, 4-13, 14 and 15) and the edge cases of the kernels' tiling:
+# C = 8 and 40 (not a multiple of the 32-channel slice), H = W = 1, an odd
+# W that is not a multiple of the 7-column strip, a band that does not
+# divide H, a row wider than one CTA
+PLAN_GEOMS = {"block 0": (56, 56, 96), "block 2": (28, 28, 192),
+              "block 4": (14, 14, 384), "block 14": (14, 14, 768),
+              "block 15": (7, 7, 768), "C 8": (9, 11, 8), "C 40": (10, 13, 40),
+              "H W 1": (1, 1, 32), "odd W": (5, 9, 64), "band": (61, 23, 32),
+              "wide": (3, 300, 16)}
+
+
+@pytest.mark.parametrize("kind", ["fwd 1", "fwd 2", "fwd 4", "fwd 8", "dw"])
+@pytest.mark.parametrize("geom", sorted(PLAN_GEOMS))
+def test_the_plan_covers_every_output_once(geom, kind):
+    h, w, c = PLAN_GEOMS[geom]
+    dw = kind == "dw"
+    s = 1 if dw else int(kind.split()[1])
+    for esize in (2, 4):
+        plan = dp.pool_plan(h, w, c, s, esize, dw)
+        cover = dp.plan_cover(plan, dp.out_hw(h, s), dp.out_hw(w, s), c)
+        assert bool((cover == 1).all()), (plan, esize)
+        assert plan.threads <= dp.MAX_THREADS
+        smem = dp.smem_bytes(plan.band, plan.strips, s, esize, dw)
+        assert smem <= dp.SMEM_MAX
+        assert smem <= dp.RING_BYTES or plan.band == plan.strips == 1
 
 
 def test_wrappers_check_their_inputs():

@@ -13,7 +13,7 @@ bf16 ulp of that product's scale.  The MViT forwards are held tighter
 log-sum-exp atol 1e-4.  K8's bf16 outputs (the pool and its dx) are held
 to atol 1e-3, rtol 1e-2 as well (kernel and plain version round the same
 fp32 sums; the dx limit scaled like a gradient's), its fp32 dw to the fp32
-limit scaled by the largest gradient.  K6sp's bf16 probabilities are
+limit scaled by the largest gradient, and K8dw must repeat bit for bit.  K6sp's bf16 probabilities are
 held to atol 1e-5, rtol 1e-2 (one bf16 ulp; a cls probability is ~1/kN).
 The bf16 gradients of K5bd, K6bd and K6bs are held to atol 2e-3 times each
 gradient's own largest magnitude, with no floor, and rtol 1e-2 (the
@@ -627,9 +627,20 @@ def test_mvit_kt_autograd_runs_both_kernels(card):
 
 
 # (B, T, H, W, C): MViT-v2-S block 4's grid, an odd grid, and a channel
-# count that is no multiple of the kernel's 32-channel CTA slice
+# count that is no multiple of the kernel's 32-channel CTA slice; the five
+# stride-1 pools of the MViT-v2-S training step at 18 clips; the edge cases
+# of the window tiling: C = 8 and 40, unit axes, an odd W that is no
+# multiple of the 7-column strip, a band of rows that does not divide H, one
+# batch element, a row wider than one CTA
 POOL_GEOMS = {"block4": (2, 8, 14, 14, 384), "odd": (2, 3, 7, 9, 64),
-              "c160": (1, 4, 10, 10, 160)}
+              "c160": (1, 4, 10, 10, 160),
+              "step0": (18, 8, 56, 56, 96), "step2": (18, 8, 28, 28, 192),
+              "step4": (18, 8, 14, 14, 384), "step14": (18, 8, 14, 14, 768),
+              "step15": (18, 8, 7, 7, 768),
+              "c8": (2, 3, 9, 11, 8), "c40": (2, 4, 10, 13, 40),
+              "hw1": (3, 2, 1, 1, 32), "t1": (2, 1, 12, 9, 64),
+              "oddw": (2, 3, 5, 9, 64), "band": (2, 3, 61, 23, 32),
+              "b1": (1, 3, 10, 10, 48), "wide": (1, 2, 3, 300, 16)}
 
 
 def _pool_inputs(card, dtype, geom, seed=0):
@@ -679,6 +690,16 @@ def test_pool_dx_and_dw_kernels_match_plain(card, dtype, geom):
     assert dw.dtype == torch.float32 and dw.shape == w.shape
     ref = k8.taps_dw(x, g, (1, 1, 1))
     _pool_close(dw, ref, torch.float32, scaled=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", sorted(POOL_GEOMS))
+def test_pool_dw_kernel_is_repeatable(card, dtype, geom):
+    """K8dw sums in a fixed order (no atomics): two runs on the same inputs
+    agree bit for bit."""
+    x, _, g = _pool_inputs(card, dtype, geom, seed=3)
+    first = k8.depthwise_pool3d_dw(x, g)
+    assert torch.equal(first, k8.depthwise_pool3d_dw(x, g))
 
 
 @pytest.mark.parametrize("s", [1, 2])

@@ -8,14 +8,15 @@ Phases (any failure exits non-zero):
    per source, in parallel) and print the build time;
 2. K1f (spatial attention forward) and 3. K2f (temporal attention forward)
    against their plain PyTorch versions at the eval shapes of
-   TimeSformer-B with 16 views (bf16), plus a small float32 case each;
-   time the kernel, the plain version and one PyTorch library call that
-   computes the same function (the yardstick; the port never calls it);
-   compute the bound from the shapes;
+   TimeSformer-B with 16 views (bf16), plus a small float32 case each (K2f
+   also bf16 cases of its ring's other tilings: an odd N at T = 1, 3, 9 and
+   16, groups of 3 and 1 heads); time the kernel, the plain version and
+   one PyTorch library call that computes the same function (the
+   yardstick; the port never calls it); compute the bound from the shapes;
 4. K1sp (forward that saves the probabilities; its outputs must equal
    K1f's bit for bit, one kernel) and K1b (its backward), and 5. K2b
    (temporal backward), the same way at the training shapes (18 clips x 8
-   frames, bf16) plus small float32 cases;
+   frames, bf16) plus small float32 cases (K2b also phase 3's tilings);
 6. slice 1: ``procedurevrl_torch.tools.test_net.test`` on
    ``configs/COIN/step_classification.yaml`` with synthetic data, full
    TimeSformer-B in bf16, 192 clips in batches of 16; launch counts of
@@ -27,7 +28,8 @@ Phases (any failure exits non-zero):
    2 samples x 9 clips per step, ``TPU.REMAT`` as the config sets it:
    2 warm-up + 10 timed steps with finite losses and asserted launch
    counts, then 3 timed steps without remat; one step is held against the
-   same step through the plain versions; one step is profiled;
+   same step through the plain versions; one step is profiled (device
+   time by kernel group, K2's kernels a group of their own);
 8. K5f/K5b (MViT pooled attention, head-last) at blocks 0 and 4 and
    K6f/K6b (head-split) at block 1 of MViT-v2-S with 18 clips (bf16), plus
    small float32 and bf16 cases with logits above 80, against their plain
@@ -63,7 +65,9 @@ Phases (any failure exits non-zero):
    shape, plus float32 cases at T = 8 and 3 and a bf16 case with a logit
    above 80, against their plain versions; timed beside K2f / K2b and SDPA;
    then in bf16 at T = 16 and 11 (one position per tensor-core tile) and
-   at the training geometry with 16 frames, timed beside K2f / K2b;
+   at the training geometry with 16 frames, timed beside K2f / K2b; at
+   both training geometries K2f must equal K2v3f and K2b must equal K2v3b
+   fed K2v3f's p, bit for bit (one set of device functions);
 14. slice 5, eval: phase 6's zero-shot test with ``SPATIAL_PIPE=1
    TEMPORAL_BATCHED=1`` set while the model is built (12 K1p and 12 K2v3f
    per batch, no K1f or K2f); one batch against the plain path;
@@ -358,6 +362,7 @@ def profile_step(torch, label: str, fn, top: int = 12) -> None:
 
 # profile groups: the first pattern found in a kernel's name decides
 KERNEL_GROUPS = (("port pool kernels (K8)", ("dwpool_",)),
+                 ("port temporal kernels (K2)", ("temporal_",)),
                  ("port kernels", ("spatial_", "temporal_", "mvit_",
                                    "flash_")),
                  ("convolutions", ("conv", "depthwise")),
@@ -468,6 +473,26 @@ def phase_k1(torch, F, k1) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def k2_ring_cases(torch, gen, grad=False):
+    """Inputs of the K2f / K2b ring's other tilings, bf16: 3 clips of an odd
+    N (each clip's last 16-row tile holds one position) at T = 1, 3, 9 (one
+    position a tile past 8 frames) and 16, and head counts that split into
+    groups of 3 (6 heads) and 1 (5 heads); (qkv, heads, name), and with
+    ``grad`` (qkv, g, heads, name)."""
+    cases = []
+    for tt, n, heads in ((1, 49, 12), (3, 49, 12), (9, 49, 12), (16, 49, 12),
+                         (8, 49, 6), (5, 21, 5)):
+        c = heads * 64
+        x = torch.randn(3, tt, n, 3 * c, generator=gen, device="cuda")
+        name = f"[3,{tt},{n},{3 * c}] {heads} heads"
+        if grad:
+            gy = torch.randn(3, tt, n, c, generator=gen, device="cuda")
+            cases.append((x.bfloat16(), gy.bfloat16(), heads, name))
+        else:
+            cases.append((x.bfloat16(), heads, name))
+    return cases
+
+
 def phase_k2(torch, F, k2) -> dict:
     b, t, n, heads, d = 16, 8, 196, 12, 64
     c = heads * d
@@ -481,6 +506,9 @@ def phase_k2(torch, F, k2) -> dict:
         q32 = qkv[:2, :tt].float().contiguous()
         compare(torch, f"K2 fp32 T={tt}", k2.temporal_attention(q32, heads, scale),
                 k2.temporal_attention_plain(q32, heads, scale), FP32_TOL)
+    for x, hh, name in k2_ring_cases(torch, g):
+        compare(torch, f"K2 bf16 {name}", k2.temporal_attention(x, hh, scale),
+                k2.temporal_attention_plain(x, hh, scale), BF16_TOL)
 
     ms = time_ms(torch, lambda: k2.temporal_attention(qkv, heads, scale))
     plain_ms = time_ms(torch, lambda: k2.temporal_attention_plain(
@@ -639,6 +667,11 @@ def phase_k2_train(torch, F, k2) -> dict:
         compare(torch, f"K2b fp32 T={tt}",
                 k2.temporal_attention_bwd(q32, g32, heads, scale), r32,
                 grad_tol(FP32_TOL, r32))
+    for x, gy, hh, name in k2_ring_cases(torch, gen, grad=True):
+        r = k2.temporal_attention_bwd_plain(x, gy, hh, scale)
+        compare(torch, f"K2b bf16 {name}",
+                k2.temporal_attention_bwd(x, gy, hh, scale), r,
+                grad_tol(BF16_TOL, r))
 
     ms = time_ms(torch, lambda: k2.temporal_attention_bwd(qkv, g, heads, scale))
     plain_ms = time_ms(torch, lambda: k2.temporal_attention_bwd_plain(
@@ -837,6 +870,18 @@ def v3_pv(torch, qkv, probs, heads):
     return o.to(qkv.dtype).reshape(b, t, n, c3 // 3)
 
 
+def k2_twins(torch, k2, qkv, g, out_v3, dx_v3, shape: str) -> None:
+    """K2f and K2b share K2v3's device functions in one arithmetic order:
+    in bf16 K2f's output must be K2v3f's bit for bit, and K2b's gradient
+    K2v3b's fed K2v3f's p (an even N pairs the same positions)."""
+    heads = qkv.shape[-1] // 3 // 64
+    if not torch.equal(k2.temporal_attention(qkv, heads, 0.125), out_v3):
+        fail(f"K2f differs from K2v3f at {shape}")
+    if not torch.equal(k2.temporal_attention_bwd(qkv, g, heads, 0.125), dx_v3):
+        fail(f"K2b differs from K2v3b on K2v3f's p at {shape}")
+    print(f"K2f = K2v3f and K2b = K2v3b (K2v3f's p) bit for bit at {shape}")
+
+
 def phase_k2_v3(torch, F, k2) -> list:
     """K2v3f / K2v3b (slice 5) against their plain versions, timed beside
     K2f / K2b and SDPA at the training shape; returns their records."""
@@ -880,6 +925,7 @@ def phase_k2_v3(torch, F, k2) -> list:
     dx = k2.temporal_attention_v3_bwd(qkv, probs, g, heads, scale)
     r = k2.temporal_attention_v3_bwd_plain(qkv, probs, g, heads, scale)
     err_b = compare(torch, "K2v3b bf16 dqkv", dx, r, grad_tol(BF16_TOL, r))
+    k2_twins(torch, k2, qkv, g, out, dx, f"[{b},{t},{n},{3 * c}]")
     del ro, rp, dx, r
     ms = {"v3f": time_ms(torch, lambda: k2.temporal_attention_v3(qkv, heads, scale)),
           "v3b": time_ms(torch, lambda: k2.temporal_attention_v3_bwd(
@@ -961,9 +1007,10 @@ def v3_t16(torch, k2, gen) -> None:
     compare(torch, "K2v3f bf16 T=16 out vs P V of its probs", out,
             v3_pv(torch, qkv, probs, heads), K1K2_FWD_TOL)
     r = k2.temporal_attention_v3_bwd_plain(qkv, probs, g, heads, scale)
-    compare(torch, "K2v3b bf16 T=16 dqkv", k2.temporal_attention_v3_bwd(
-        qkv, probs, g, heads, scale), r, grad_tol(BF16_TOL, r))
-    del ro, rp, r
+    dx = k2.temporal_attention_v3_bwd(qkv, probs, g, heads, scale)
+    compare(torch, "K2v3b bf16 T=16 dqkv", dx, r, grad_tol(BF16_TOL, r))
+    k2_twins(torch, k2, qkv, g, out, dx, f"[{b},{t},{n},{3 * c}]")
+    del ro, rp, r, dx
     ms = {"v3f": time_ms(torch, lambda: k2.temporal_attention_v3(qkv, heads, scale)),
           "v3b": time_ms(torch, lambda: k2.temporal_attention_v3_bwd(
               qkv, probs, g, heads, scale)),

@@ -131,6 +131,10 @@ __device__ __forceinline__ void bulk_commit() {
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// until all but this thread's newest bulk group have read their shared memory
+__device__ __forceinline__ void bulk_wait_read_all_but_newest() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
@@ -186,6 +190,26 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const void* map,
       :: "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
          "r"(c4), "r"(smem_addr(bar))
       : "memory");
+}
+// The TMA unit's store of one box of a 5-d tensor map (a __grid_constant__
+// kernel parameter) from shared memory (laid out as tma_load_5d lands it)
+// at element coordinates {c0, ..., c4}; what lies outside the tensor is not
+// written.  Tracked by the issuing thread's bulk groups (bulk_commit).
+__device__ __forceinline__ void tma_store_5d(const void* map, const void* src,
+                                             int c0, int c1, int c2, int c3,
+                                             int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :: "l"(map), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4)
+      : "memory");
+}
+// shared-memory writes of this thread (st.shared, cp.async) made visible to
+// the asynchronous proxy that wgmma and the TMA unit read through; a block
+// (or warp) barrier after it makes every thread's writes visible
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // a barrier of `threads` threads (a multiple of 32) on named barrier `id`
 // (1..15; 0 is __syncthreads)

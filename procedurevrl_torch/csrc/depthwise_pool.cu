@@ -69,9 +69,8 @@
 //     checked here: at most 512 threads, boxes of at most 256 along each
 //     axis, and the ring within the card's shared memory.
 
-#include <cuda.h>  // CUtensorMap and its enums (no driver library linked)
-
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -416,46 +415,10 @@ bool make_geo(int b, int t, int h, int w, int c, int s, int band, int strips,
          ctas < (1LL << 31);
 }
 
-// cuTensorMapEncodeTiled, through the runtime (the driver library is not
-// linked), or null
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The encoder reads the thread's current context, and a host thread's first
-// runtime call is what makes the device's context current there (autograd
-// runs a backward on a thread of its own): bind it before encoding.
-bool bind_context() {
-  int dev = 0;
-  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
-}
-
 // The tensor map of [b, t, h, w, c] at `base` (token-row stride `row`, batch
 // stride `sb`, in elements) read in boxes of [1, 1, rows, cols, CS].
 bool tensor_map(CUtensorMap* map, const void* base, int esize, const Geo& g,
                 long long row, long long sb, int rows, int cols) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[5] = {(cuuint64_t)g.c, (cuuint64_t)g.w,
                               (cuuint64_t)g.h, (cuuint64_t)g.t,
                               (cuuint64_t)g.b};
@@ -463,13 +426,8 @@ bool tensor_map(CUtensorMap* map, const void* base, int esize, const Geo& g,
       (cuuint64_t)(row * esize), (cuuint64_t)(row * esize * g.w),
       (cuuint64_t)(row * esize * g.w * g.h), (cuuint64_t)(sb * esize)};
   const cuuint32_t box[5] = {CS, (cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode(map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                5, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_5d(map, base, esize, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <typename K, typename... Args>

@@ -9,27 +9,12 @@
 //   K2v3f _temporal_fwd_kernel_v3 and K2v3b _temporal_bwd_kernel_v3
 //         (TEMPORAL_BATCHED=1, the same function with the T logits of a
 //         query in one dot over all key frames).
-// K2v3 keeps the TPU pair's residual: the forward stores p [B, N, H, T, T]
-// in the value dtype (768 values per position at 12 heads, T = 8) and the
-// backward reads it and computes no logits.  Its bf16 kernels batch two
-// patch positions into one 16-row mma.sync tile for frames <= 8: the logits
-// of both come from two m16n8k16 products over the head's 64 columns (each
-// keeps its own position's 8 rows), and P V, ds K, p^T g and ds^T q are one
-// product per 8 output columns with a block-diagonal 16 x 16 A operand (one
-// 8 x 8 block per position), so the products of both positions and all key
-// frames are single tensor-core instructions.  For 9 <= frames <= 16 each
-// position has its own 16-row tile: the two products give all of its 16 x 16
-// logits, and the A operands are full 16 x 16 matrices.  Bounds at the training shape
-// (B = 18, T = 8, N = 196, C = 768, bf16): K2v3f reads 130.0 MB and writes
-// 43.4 + 5.4 MB of p, ~53 us; K2v3b reads 130.0 + 43.4 + 5.4 MB and writes
-// 130.0 MB, ~92 us.  fp32 runs K2f's / K2b's scalar kernels with the store
-// or the load of p in place of the softmax.
 // The TPU forward writes its probabilities in a compact 0/1-expander layout
-// for the backward.  Here the forward writes none and the backward
-// recomputes them from q and k with the same device function the forward
-// uses (softmax_row), so it multiplies with exactly the values the forward
-// used: p is 8 x 8 per (position, head), 128 bytes against 3 KB of qkv, and
-// recomputing it costs ~0.1 GFLOP at the training shape.
+// for the backward.  Here K2f writes none and K2b recomputes them from q and
+// k with the forward's own device function, so it multiplies with exactly
+// the values the forward used: p is 8 x 8 per (position, head), 128 bytes
+// against 3 KB of qkv.  K2v3 keeps the TPU pair's residual: K2v3f stores p
+// [B, N, H, T, T] in the value dtype and K2v3b reads it.
 //
 // Contract: qkv [B, T, N, 3C] (T <= 16), the fused projection output in the
 // time-major stream layout, columns [q | k | v] with heads interleaved
@@ -47,28 +32,51 @@
 // Bounds on an H100 SXM (3.35 TB/s) at the training shape (B = 18, T = 8,
 // N = 196, C = 768, bf16): K2f reads 130.0 MB and writes 43.4 MB, ~52 us;
 // K2b reads 130.0 MB of qkv and 43.4 MB of g and writes 130.0 MB of dqkv,
-// ~91 us.  Their 0.7 and 1.7 GFLOP are nothing next to that: memory-bound.
-// Design: one CTA per patch position (b, n) stages that position's T rows
-// of 3C values (and, backward, of C gradient values) in shared memory with
-// contiguous 16-byte cp.async copies (each input byte is read once, all
-// copies in flight at once).  Two threads per (frame t, head) query row,
-// each owning 32 of the 64 head-dimension columns, compute its T logits
-// (one shuffle each joins the halves) and the softmax from shared memory.
-//   * K2f: the row's outputs go back over its own query slot and the CTA
-//     stores the T output rows with 16-byte coalesced writes.
-//   * K2b, phase 1 per query row (t, head): p, dp, ds (p and ds to shared
-//     memory) and dq[t], written with 16-byte stores; phase 2 per key row
-//     (t', head), after a barrier: dk[t'] and dv[t'] sum over t from shared
-//     memory, written with 16-byte stores.
-// Head slots are padded by 8 elements, which keeps them 16-byte aligned at
-// the price of some 2-way bank conflicts.
-// Measured on an H100 (PERF.md), K2f: 4-byte copies with conflict-free
-// 2-element padding took 1.56x as long (the copy instructions were the
-// limit); a persistent, double-buffered CTA was slower, not faster; a first
-// version with one warp per (b, n, head) took 3.7x as long (every lane
-// repeated the softmax, and each logit took a 5-step shuffle reduction).
+// ~91 us; K2v3f also writes 5.4 MB of p and K2v3b reads it.  Their 0.7 and
+// 1.7 GFLOP are nothing next to that: memory-bound.
+//
+// bf16 design.  Every bf16 kernel does its math on the tensor cores with
+// mma.sync m16n8k16 on 16-row tiles that hold two patch positions of <= 8
+// frames (or one of 9-16): the logits of both come from two products over
+// the head's 64 columns (each keeps its own position's rows), and P V, ds K,
+// p^T g and ds^T q are one product per 8 output columns with a
+// block-diagonal 16 x 16 A operand (one 8 x 8 block per position), so the
+// products of both positions and all key frames are single instructions.
+// K2f, K2b and K2v3 share these device functions (v3_products, v3_softmax,
+// v3_blockdiag_product, v3_bwd_head) in one arithmetic order: for the same
+// inputs K2f's output is K2v3f's bit for bit, and K2b's K2v3b's fed
+// K2v3f's p.
+//   * K2f / K2b (temporal_ring_kernel): persistent CTAs, two per SM, walk
+//     items of one tile of a clip times a group of 4 heads (24.6 KB of qkv,
+//     K2b also 8.2 KB of g).  A copying warp keeps a ring of 4 (K2b 3)
+//     slots full with one TMA box a third on a tensor map of the stream as
+//     [B, T, N, 3H, 64] taken in the order (64, T, N, heads, B), so each
+//     head's 16 rows land as one 2 KB tile in the 128-byte swizzle (the
+//     rows an ldmatrix reads sit in 8 bank groups); frames past T and the
+//     missing position of an odd N are the unit's zero fill, and no thread
+//     computes an address.  A computing warp per head writes its results
+//     over its consumed tiles and stores them with a TMA box each; the slot
+//     returns to the ring once its stores have read it, one item later, so
+//     stores and loads overlap the products.
+//   * K2v3f / K2v3b (temporal_v3_*_kernel): one CTA of 4 warps per 16-row
+//     tile, staged by cp.async from every thread.
+// fp32 runs the scalar kernels (temporal_kernel / temporal_bwd_kernel),
+// K2v3 with the store or the load of p in place of the softmax: one CTA per
+// patch position (b, n) stages that position's T rows of 3C values (and,
+// backward, of C gradient values) in shared memory with 16-byte cp.async
+// copies; two threads per (frame t, head) query row, each owning 32 of the
+// 64 head-dimension columns, compute its T logits and the softmax.
+//   * forward: the row's outputs go back over its own query slot and the
+//     CTA stores the T output rows with 16-byte coalesced writes.
+//   * backward, phase 1 per query row (t, head): p, dp, ds (p and ds to
+//     shared memory) and dq[t]; phase 2 per key row (t', head), after a
+//     barrier: dk[t'] and dv[t'] sum over t from shared memory.
+// Head slots are padded by 8 elements, which keeps them 16-byte aligned.
+
+#include <algorithm>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -397,16 +405,38 @@ cudaError_t launch_bwd(const void* qkv, const void* g, const void* probs,
   return cudaGetLastError();
 }
 
-// ------------------------------------------ K2v3 (bf16, tensor cores)
-// One CTA stages 16 / FR patch positions as the 16 rows of one m16n8k16
-// tile: row r = u * FR + t is frame t of position p0 + u, p0 = blockIdx.x *
-// (16 / FR).  FR = 8: two positions, frames <= 8; FR = 16: one position,
-// frames <= 16.  Rows of missing frames or positions are zero.  A position
-// is P = b * N + pos.
+// ------------------------------------------ 16-row tensor-core tiles (bf16)
+// The bf16 kernels put 16 / FR patch positions into the 16 rows of one
+// m16n8k16 tile: row r = u * FR + t is frame t of the tile's position u.
+// FR = 8: two positions, frames <= 8; FR = 16: one position, frames <= 16.
+// Rows of missing frames or positions are zero.  K2v3 pairs the positions
+// P = b * N + pos, 2j and 2j + 1; K2f / K2b pair positions 2j and 2j + 1 of
+// one clip (the same pairs for an even N).
 constexpr int V3_WARPS = 4;
 constexpr int V3_ROWS = 16;
 constexpr int V3_TS = 24;  // per-warp 16 x 16 tile, 48-byte rows
 constexpr float LOG2E = 1.4426950408889634f;
+
+// One head's 16 x 64 tile of q, k, v or g in shared memory: the address of
+// element (row, col), col even (a multiple of 8 for an ldmatrix row).
+// PadTile: rows of rs elements from p (K2v3's stage, p at the head's first
+// column).
+struct PadTile {
+  uint16_t* p;
+  int rs;
+  __device__ __forceinline__ uint16_t* at(int row, int col) const {
+    return p + row * rs + col;
+  }
+};
+// SwzTile: 16 rows of 128 bytes from a 1024-byte aligned p, the 16-byte
+// piece c of row r at piece c ^ (r % 8): the TMA unit's 128-byte swizzle,
+// which puts the 8 rows an ldmatrix reads in 8 different bank groups.
+struct SwzTile {
+  uint16_t* p;
+  __device__ __forceinline__ uint16_t* at(int row, int col) const {
+    return p + row * HEAD_DIM + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+  }
+};
 
 // row (b, t, pos) of a [B, T, N, width] stream for position P = b * N + pos
 __device__ __forceinline__ size_t stream_row(int P, int t, int frames, int n) {
@@ -433,67 +463,184 @@ __device__ __forceinline__ void v3_stage(uint16_t* sm, int rs, int col0,
   }
 }
 
-// X Y^T of one head: A = the 16 rows of X (columns xc..xc+63), B = rows
-// 0-7 (s0) and rows 8-15 (s1) of Y (columns yc..), in the accumulator
-// layout: s[0..1] row lane/4, s[2..3] row lane/4 + 8, against the B rows
-// 2*(lane%4) and +1.  With two positions (FR = 8) a thread keeps its own
-// position's rows, s0[0..1] and s1[2..3]; with one, all of them.
-__device__ __forceinline__ void v3_products(const uint16_t* sm, int rs, int xc,
-                                            int yc, float (&s0)[4],
-                                            float (&s1)[4]) {
+// X Y^T of one head: A = the 16 rows of X, B = rows 0-7 (s0) and rows 8-15
+// (s1) of Y, in the accumulator layout: s[0..1] row lane/4, s[2..3] row
+// lane/4 + 8, against the B rows 2*(lane%4) and +1.  With two positions
+// (FR = 8) a thread keeps its own position's rows, s0[0..1] and s1[2..3];
+// with one, all of them.
+template <class Tile>
+__device__ __forceinline__ void v3_products(const Tile& x, const Tile& y,
+                                            float (&s0)[4], float (&s1)[4]) {
   const int lane = threadIdx.x % 32, lrow = lane & 7, ltile = lane >> 3;
   uint32_t xa[4][4];
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
-    ldsm_x4(xa[ks], sm + ((ltile & 1) * 8 + lrow) * rs + xc + ks * 16 +
-                        (ltile >> 1) * 8);
+    ldsm_x4(xa[ks], x.at((ltile & 1) * 8 + lrow, ks * 16 + (ltile >> 1) * 8));
 #pragma unroll
   for (int e = 0; e < 4; ++e) s0[e] = s1[e] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < 4; ks += 2) {
     uint32_t kb[4];
-    ldsm_x4(kb, sm + lrow * rs + yc + ltile * 8 + ks * 16);
+    ldsm_x4(kb, y.at(lrow, ltile * 8 + ks * 16));
     mma_16816(s0, xa[ks], kb[0], kb[1]);
     mma_16816(s0, xa[ks + 1], kb[2], kb[3]);
-    ldsm_x4(kb, sm + (8 + lrow) * rs + yc + ltile * 8 + ks * 16);
+    ldsm_x4(kb, y.at(8 + lrow, ltile * 8 + ks * 16));
     mma_16816(s1, xa[ks], kb[0], kb[1]);
     mma_16816(s1, xa[ks + 1], kb[2], kb[3]);
   }
 }
 
+// The clamp softmax of one head's logits s0, s1 (v3_products of q and k)
+// over each row's `frames` keys, in registers (a quad holds a row), as the
+// A fragment of P V: with two positions block-diagonal, position 0's 8 x 8
+// block in a[0], position 1's in a[3]; with one, a[w] holds row gid + 8 (w
+// & 1) over key frames 8 (w >> 1) + 2 tig and + 1.  Keys past `frames` get
+// p = 0.  The one softmax of K2f, K2v3f and K2b's recomputation.
+template <int FR>
+__device__ __forceinline__ void v3_softmax(const float (&s0)[4],
+                                           const float (&s1)[4], int frames,
+                                           float scale2, float hi2,
+                                           uint32_t (&a)[4]) {
+  const int tig = (threadIdx.x % 32) & 3;
+  if constexpr (FR == 8) {
+    float ea[2], eb[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = 2 * tig + e < frames;
+      ea[e] = key ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
+      eb[e] = key ? exp2f(fminf(s1[2 + e] * scale2, hi2)) : 0.f;
+    }
+    const float ia = 1.f / quad_sum(ea[0] + ea[1]);
+    const float ib = 1.f / quad_sum(eb[0] + eb[1]);
+    a[0] = pack_bf16x2(ea[0] * ia, ea[1] * ia);
+    a[1] = a[2] = 0u;
+    a[3] = pack_bf16x2(eb[0] * ib, eb[1] * ib);
+  } else {
+    // one position: rows lane/4 (e < 2) and lane/4 + 8 over key frames
+    // 2*(lane%4) + (e & 1) (s0) and 8 more (s1)
+    float e0[4], e1[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool key0 = 2 * tig + (e & 1) < frames;
+      const bool key1 = 8 + 2 * tig + (e & 1) < frames;
+      e0[e] = key0 ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
+      e1[e] = key1 ? exp2f(fminf(s1[e] * scale2, hi2)) : 0.f;
+    }
+    const float it = 1.f / quad_sum(e0[0] + e0[1] + e1[0] + e1[1]);
+    const float ib = 1.f / quad_sum(e0[2] + e0[3] + e1[2] + e1[3]);
+    a[0] = pack_bf16x2(e0[0] * it, e0[1] * it);
+    a[1] = pack_bf16x2(e0[2] * ib, e0[3] * ib);
+    a[2] = pack_bf16x2(e1[0] * it, e1[1] * it);
+    a[3] = pack_bf16x2(e1[2] * ib, e1[3] * ib);
+  }
+}
+
 // acc = A Y for the A fragment `a` of a 16 x 16 matrix (with two positions
 // block-diagonal: position 0's 8 x 8 block, then position 1's) and the 16
-// rows of Y
-// (columns yc..yc+63, the k index) as transposed B fragments
+// rows of Y (the k index) as transposed B fragments
+template <class Tile>
 __device__ __forceinline__ void v3_blockdiag_product(const uint32_t (&a)[4],
-                                                     const uint16_t* sm, int rs,
-                                                     int yc,
+                                                     const Tile& y,
                                                      float (&acc)[8][4]) {
   const int lane = threadIdx.x % 32, lrow = lane & 7, ltile = lane >> 3;
-  const uint16_t* yr = sm + ((ltile & 1) * 8 + lrow) * rs + yc + (ltile >> 1) * 8;
 #pragma unroll
   for (int dt = 0; dt < 8; dt += 2) {
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
     acc[dt + 1][0] = acc[dt + 1][1] = acc[dt + 1][2] = acc[dt + 1][3] = 0.f;
     uint32_t b[4];
-    ldsm_x4_t(b, yr + dt * 8);
+    ldsm_x4_t(b, y.at((ltile & 1) * 8 + lrow, (ltile >> 1) * 8 + dt * 8));
     mma_16816(acc[dt], a, b[0], b[1]);
     mma_16816(acc[dt + 1], a, b[2], b[3]);
   }
 }
 
-// acc * mul as bf16 into columns col..col+63 of the 16 staged rows
-__device__ __forceinline__ void v3_store_rows(uint16_t* sm, int rs, int col,
+// acc * mul as bf16 over the 16 rows of a tile
+template <class Tile>
+__device__ __forceinline__ void v3_store_rows(const Tile& t,
                                               const float (&acc)[8][4],
                                               float mul) {
   const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(sm + gid * rs + col + dt * 8 + 2 * tig) =
+    *reinterpret_cast<uint32_t*>(t.at(gid, dt * 8 + 2 * tig)) =
         pack_bf16x2(acc[dt][0] * mul, acc[dt][1] * mul);
-    *reinterpret_cast<uint32_t*>(sm + (8 + gid) * rs + col + dt * 8 + 2 * tig) =
+    *reinterpret_cast<uint32_t*>(t.at(8 + gid, dt * 8 + 2 * tig)) =
         pack_bf16x2(acc[dt][2] * mul, acc[dt][3] * mul);
   }
+}
+
+// The backward of one head from its p (p[w][e]: row gid + 8 (w & 1), key
+// frame 8 (w >> 1) + 2 tig + e, the order of v3_softmax's fragment; with two
+// positions only p[0] and p[3]): dp = g v^T (v3_products), D_t = sum_s dp p
+// over the quad, ds = p (dp - D); dv = p^T g and dk = ds^T q with the
+// transposes from the warp's two 16 x 16 tiles (ds_t, p_t) by
+// ldmatrix.trans, dq = ds k with ds from registers.  dv, dk and dq go over
+// the consumed v, k and q tiles.  The one body of K2v3b and K2b.
+template <int FR, class Tile>
+__device__ __forceinline__ void v3_bwd_head(const float (&p)[4][2],
+                                            const Tile& q, const Tile& k,
+                                            const Tile& v, const Tile& g,
+                                            uint16_t* ds_t, uint16_t* p_t,
+                                            float scale) {
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+  const int lrow = lane & 7, ltile = lane >> 3;
+  float dp0[4], dp1[4];
+  v3_products(g, v, dp0, dp1);
+  uint32_t ds[4], pw[4];
+  if constexpr (FR == 8) {
+    // this thread's rows: frame lane/4 of both positions
+    const float dpa[2] = {dp0[0], dp0[1]}, dpb[2] = {dp1[2], dp1[3]};
+    const float(&pa)[2] = p[0];
+    const float(&pb)[2] = p[3];
+    const float da = quad_sum(fmaf(dpa[0], pa[0], dpa[1] * pa[1]));
+    const float db = quad_sum(fmaf(dpb[0], pb[0], dpb[1] * pb[1]));
+    ds[0] = pack_bf16x2(pa[0] * (dpa[0] - da), pa[1] * (dpa[1] - da));
+    ds[3] = pack_bf16x2(pb[0] * (dpb[0] - db), pb[1] * (dpb[1] - db));
+    ds[1] = ds[2] = 0u;
+    pw[0] = pack_bf16x2(pa[0], pa[1]);
+    pw[3] = pack_bf16x2(pb[0], pb[1]);
+    pw[1] = pw[2] = 0u;
+  } else {
+    // dp in p's order: w = 0 rows gid s0[0..1], 1 rows gid + 8 s0[2..3],
+    // 2 rows gid s1[0..1], 3 rows gid + 8 s1[2..3]
+    const float dp[4][2] = {{dp0[0], dp0[1]}, {dp0[2], dp0[3]},
+                            {dp1[0], dp1[1]}, {dp1[2], dp1[3]}};
+    const float dtop = quad_sum(fmaf(dp[0][0], p[0][0], dp[0][1] * p[0][1]) +
+                                fmaf(dp[2][0], p[2][0], dp[2][1] * p[2][1]));
+    const float dbot = quad_sum(fmaf(dp[1][0], p[1][0], dp[1][1] * p[1][1]) +
+                                fmaf(dp[3][0], p[3][0], dp[3][1] * p[3][1]));
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float dd = (w & 1) ? dbot : dtop;
+      ds[w] = pack_bf16x2(p[w][0] * (dp[w][0] - dd), p[w][1] * (dp[w][1] - dd));
+      pw[w] = pack_bf16x2(p[w][0], p[w][1]);
+    }
+  }
+  // the tiles: fragment w covers rows gid + 8 * (w & 1), columns
+  // 8 * (w >> 1) + 2 * tig
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int off = (gid + 8 * (w & 1)) * V3_TS + 8 * (w >> 1) + 2 * tig;
+    *reinterpret_cast<uint32_t*>(ds_t + off) = ds[w];
+    *reinterpret_cast<uint32_t*>(p_t + off) = pw[w];
+  }
+  __syncwarp();
+  // ldmatrix.trans address of this lane in a tile: its transpose as an A
+  // fragment
+  const int tt = ((ltile >> 1) * 8 + lrow) * V3_TS + (ltile & 1) * 8;
+  float acc[8][4], dq[8][4];
+  uint32_t at[4];
+  // dv = p^T g over the consumed v
+  ldsm_x4_t(at, p_t + tt);
+  v3_blockdiag_product(at, g, acc);
+  v3_store_rows(v, acc, 1.f);
+  // dq = ds k (kept until q is consumed), dk = ds^T q over the consumed k
+  v3_blockdiag_product(ds, k, dq);
+  ldsm_x4_t(at, ds_t + tt);
+  v3_blockdiag_product(at, q, acc);
+  v3_store_rows(k, acc, scale);
+  v3_store_rows(q, dq, scale);
+  __syncwarp();  // the tiles are rewritten for the next head
 }
 
 // columns 0..width-1 of the staged rows that exist to dst [B, T, N, width]
@@ -511,11 +658,14 @@ __device__ __forceinline__ void v3_write(uint16_t* dst, int width,
   }
 }
 
+// ------------------------------------------ K2v3f / K2v3b (bf16)
+// One CTA stages 16 / FR patch positions P = p0, p0 + 1 (p0 = blockIdx.x *
+// (16 / FR)) as the 16 rows of the tile.
 // K2v3f.  Shared memory: the 16 rows of 3C (+ 8) values.  Each warp takes
-// heads warp, warp + 4, ...: the logits (v3_products), the clamp softmax
-// in registers, p packed as the A fragment of O = P V (block-diagonal with
-// two positions); O goes over the head's consumed q columns and the CTA
-// writes the 16 output rows with 16-byte stores.  SAVE_P: p to probs.
+// heads warp, warp + 4, ...: the logits (v3_products), v3_softmax, P V
+// (block-diagonal with two positions); O goes over the head's consumed q
+// columns and the CTA writes the 16 output rows with 16-byte stores.
+// SAVE_P: p to probs.
 template <bool SAVE_P, int FR>
 __global__ void __launch_bounds__(V3_WARPS * 32)
 temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -536,68 +686,38 @@ temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
   uint16_t* pg = reinterpret_cast<uint16_t*>(probs);
   for (int h = warp; h < heads; h += V3_WARPS) {
+    const PadTile q{sm + h * HEAD_DIM, rs}, k{sm + c + h * HEAD_DIM, rs},
+        v{sm + 2 * c + h * HEAD_DIM, rs};
     float s0[4], s1[4];
-    v3_products(sm, rs, h * HEAD_DIM, c + h * HEAD_DIM, s0, s1);
+    v3_products(q, k, s0, s1);
     uint32_t a[4];
-    if constexpr (FR == 8) {
-      // clamp softmax over each row's `frames` keys (a quad holds a row)
-      float ea[2], eb[2];
+    v3_softmax<FR>(s0, s1, frames, scale2, hi2, a);
+    if constexpr (SAVE_P && FR == 8) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool key = 2 * tig + e < frames;
-        ea[e] = key ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
-        eb[e] = key ? exp2f(fminf(s1[2 + e] * scale2, hi2)) : 0.f;
+      for (int u = 0; u < 2; ++u) {
+        const int P = p0 + u;
+        if (P >= positions || gid >= frames) continue;
+        uint16_t* prow = pg + (((size_t)P * heads + h) * frames + gid) * frames;
+        const uint32_t w = u ? a[3] : a[0];
+        if (2 * tig < frames) prow[2 * tig] = (uint16_t)(w & 0xffffu);
+        if (2 * tig + 1 < frames) prow[2 * tig + 1] = (uint16_t)(w >> 16);
       }
-      const float ia = 1.f / quad_sum(ea[0] + ea[1]);
-      const float ib = 1.f / quad_sum(eb[0] + eb[1]);
-      a[0] = pack_bf16x2(ea[0] * ia, ea[1] * ia);
-      a[1] = a[2] = 0u;
-      a[3] = pack_bf16x2(eb[0] * ib, eb[1] * ib);
-      if constexpr (SAVE_P) {
+    } else if constexpr (SAVE_P) {
+      if (p0 < positions) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int P = p0 + u;
-          if (P >= positions || gid >= frames) continue;
-          uint16_t* prow = pg + (((size_t)P * heads + h) * frames + gid) * frames;
-          const uint32_t w = u ? a[3] : a[0];
-          if (2 * tig < frames) prow[2 * tig] = (uint16_t)(w & 0xffffu);
-          if (2 * tig + 1 < frames) prow[2 * tig + 1] = (uint16_t)(w >> 16);
-        }
-      }
-    } else {
-      // one position: rows lane/4 (e < 2) and lane/4 + 8 over key frames
-      // 2*(lane%4) + (e & 1) (s0) and 8 more (s1)
-      float e0[4], e1[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool key0 = 2 * tig + (e & 1) < frames;
-        const bool key1 = 8 + 2 * tig + (e & 1) < frames;
-        e0[e] = key0 ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
-        e1[e] = key1 ? exp2f(fminf(s1[e] * scale2, hi2)) : 0.f;
-      }
-      const float it = 1.f / quad_sum(e0[0] + e0[1] + e1[0] + e1[1]);
-      const float ib = 1.f / quad_sum(e0[2] + e0[3] + e1[2] + e1[3]);
-      a[0] = pack_bf16x2(e0[0] * it, e0[1] * it);
-      a[1] = pack_bf16x2(e0[2] * ib, e0[3] * ib);
-      a[2] = pack_bf16x2(e1[0] * it, e1[1] * it);
-      a[3] = pack_bf16x2(e1[2] * ib, e1[3] * ib);
-      if constexpr (SAVE_P) {
-        if (p0 < positions) {
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            // a[w]: row gid + 8 * (w & 1), key frames 8 * (w >> 1) + 2 * tig
-            const int t = gid + 8 * (w & 1), s = 8 * (w >> 1) + 2 * tig;
-            if (t >= frames) continue;
-            uint16_t* prow = pg + (((size_t)p0 * heads + h) * frames + t) * frames;
-            if (s < frames) prow[s] = (uint16_t)(a[w] & 0xffffu);
-            if (s + 1 < frames) prow[s + 1] = (uint16_t)(a[w] >> 16);
-          }
+        for (int w = 0; w < 4; ++w) {
+          // a[w]: row gid + 8 * (w & 1), key frames 8 * (w >> 1) + 2 * tig
+          const int t = gid + 8 * (w & 1), s = 8 * (w >> 1) + 2 * tig;
+          if (t >= frames) continue;
+          uint16_t* prow = pg + (((size_t)p0 * heads + h) * frames + t) * frames;
+          if (s < frames) prow[s] = (uint16_t)(a[w] & 0xffffu);
+          if (s + 1 < frames) prow[s + 1] = (uint16_t)(a[w] >> 16);
         }
       }
     }
     float o[8][4];
-    v3_blockdiag_product(a, sm, rs, 2 * c + h * HEAD_DIM, o);
-    v3_store_rows(sm, rs, h * HEAD_DIM, o, 1.f);
+    v3_blockdiag_product(a, v, o);
+    v3_store_rows(q, o, 1.f);
   }
   __syncthreads();
   v3_write<FR>(reinterpret_cast<uint16_t*>(out), c, sm, rs, p0, positions,
@@ -606,11 +726,8 @@ temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 // K2v3b.  Shared memory: the 16 rows of [q | k | v | g] (4C + 8 values),
 // then per warp two 16 x 16 tiles (ds, p) whose unused blocks stay zero.
-// Per head: dp = g v^T (v3_products), the saved p, D_t = sum_s dp p over
-// the quad, ds = p (dp - D); dv = p^T g and dk = ds^T q with the transposes
-// from the tiles by ldmatrix.trans, dq = ds k with ds from registers; dv,
-// dk and dq go over the head's consumed v, k and q columns, and the CTA
-// writes the 16 rows of 3C with 16-byte stores.
+// Per head: the saved p, then v3_bwd_head; the CTA writes the 16 rows of
+// 3C with 16-byte stores.
 template <int FR>
 __global__ void __launch_bounds__(V3_WARPS * 32)
 temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -635,21 +752,14 @@ temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
-  const int lrow = lane & 7, ltile = lane >> 3;
   uint16_t* ds_t = tiles + warp * 2 * V3_ROWS * V3_TS;
   uint16_t* p_t = ds_t + V3_ROWS * V3_TS;
   const uint16_t* pg = reinterpret_cast<const uint16_t*>(probs);
-  // ldmatrix.trans address of this lane in a tile: its transpose as an A
-  // fragment
-  const int tt = ((ltile >> 1) * 8 + lrow) * V3_TS + (ltile & 1) * 8;
   for (int h = warp; h < heads; h += V3_WARPS) {
-    float dp0[4], dp1[4];
-    v3_products(sm, rs, c3 + h * HEAD_DIM, 2 * c + h * HEAD_DIM, dp0, dp1);
-    uint32_t ds[4], pw[4];
+    // the saved p in v3_bwd_head's order (with two positions, frame lane/4
+    // of position 0 in p[0], of position 1 in p[3])
+    float p[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
     if constexpr (FR == 8) {
-      const float dpa[2] = {dp0[0], dp0[1]}, dpb[2] = {dp1[2], dp1[3]};
-      // the saved p of this thread's rows (frame lane/4 of both positions)
-      float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int P = p0 + u;
@@ -658,77 +768,244 @@ temporal_v3_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (2 * tig + e >= frames) continue;
-          const float v = __uint_as_float((uint32_t)prow[2 * tig + e] << 16);
-          if (u) pb[e] = v; else pa[e] = v;
+          p[3 * u][e] = __uint_as_float((uint32_t)prow[2 * tig + e] << 16);
         }
       }
-      const float da = quad_sum(fmaf(dpa[0], pa[0], dpa[1] * pa[1]));
-      const float db = quad_sum(fmaf(dpb[0], pb[0], dpb[1] * pb[1]));
-      ds[0] = pack_bf16x2(pa[0] * (dpa[0] - da), pa[1] * (dpa[1] - da));
-      ds[3] = pack_bf16x2(pb[0] * (dpb[0] - db), pb[1] * (dpb[1] - db));
-      ds[1] = ds[2] = 0u;
-      pw[0] = pack_bf16x2(pa[0], pa[1]);
-      pw[3] = pack_bf16x2(pb[0], pb[1]);
-      pw[1] = pw[2] = 0u;
-    } else {
-      // one position: p[w] of row gid + 8 * (w & 1) over key frames
-      // 8 * (w >> 1) + 2 * tig and + 1 (the A fragment order)
-      float p[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-      if (p0 < positions) {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const int t = gid + 8 * (w & 1), s = 8 * (w >> 1) + 2 * tig;
-          if (t >= frames) continue;
-          const uint16_t* prow = pg + (((size_t)p0 * heads + h) * frames + t) * frames;
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (s + e < frames)
-              p[w][e] = __uint_as_float((uint32_t)prow[s + e] << 16);
-        }
-      }
-      // dp in the same order: w = 0 rows gid s0[0..1], 1 rows gid + 8
-      // s0[2..3], 2 rows gid s1[0..1], 3 rows gid + 8 s1[2..3]
-      const float dp[4][2] = {{dp0[0], dp0[1]}, {dp0[2], dp0[3]},
-                              {dp1[0], dp1[1]}, {dp1[2], dp1[3]}};
-      const float dtop = quad_sum(fmaf(dp[0][0], p[0][0], dp[0][1] * p[0][1]) +
-                                  fmaf(dp[2][0], p[2][0], dp[2][1] * p[2][1]));
-      const float dbot = quad_sum(fmaf(dp[1][0], p[1][0], dp[1][1] * p[1][1]) +
-                                  fmaf(dp[3][0], p[3][0], dp[3][1] * p[3][1]));
+    } else if (p0 < positions) {
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        const float dd = (w & 1) ? dbot : dtop;
-        ds[w] = pack_bf16x2(p[w][0] * (dp[w][0] - dd), p[w][1] * (dp[w][1] - dd));
-        pw[w] = pack_bf16x2(p[w][0], p[w][1]);
+        const int t = gid + 8 * (w & 1), s = 8 * (w >> 1) + 2 * tig;
+        if (t >= frames) continue;
+        const uint16_t* prow = pg + (((size_t)p0 * heads + h) * frames + t) * frames;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (s + e < frames)
+            p[w][e] = __uint_as_float((uint32_t)prow[s + e] << 16);
       }
     }
-    // the tiles: fragment w covers rows gid + 8 * (w & 1), columns
-    // 8 * (w >> 1) + 2 * tig
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int off = (gid + 8 * (w & 1)) * V3_TS + 8 * (w >> 1) + 2 * tig;
-      *reinterpret_cast<uint32_t*>(ds_t + off) = ds[w];
-      *reinterpret_cast<uint32_t*>(p_t + off) = pw[w];
-    }
-    __syncwarp();
-    float acc[8][4], dq[8][4];
-    uint32_t at[4];
-    // dv = p^T g over the consumed v columns
-    ldsm_x4_t(at, p_t + tt);
-    v3_blockdiag_product(at, sm, rs, c3 + h * HEAD_DIM, acc);
-    v3_store_rows(sm, rs, 2 * c + h * HEAD_DIM, acc, 1.f);
-    // dq = ds k (kept until q is consumed), dk = ds^T q over the k columns
-    v3_blockdiag_product(ds, sm, rs, c + h * HEAD_DIM, dq);
-    ldsm_x4_t(at, ds_t + tt);
-    v3_blockdiag_product(at, sm, rs, h * HEAD_DIM, acc);
-    v3_store_rows(sm, rs, c + h * HEAD_DIM, acc, scale);
-    v3_store_rows(sm, rs, h * HEAD_DIM, dq, scale);
-    __syncwarp();  // the tiles are rewritten for the next head
+    const PadTile q{sm + h * HEAD_DIM, rs}, k{sm + c + h * HEAD_DIM, rs},
+        v{sm + 2 * c + h * HEAD_DIM, rs}, gt{sm + c3 + h * HEAD_DIM, rs};
+    v3_bwd_head<FR>(p, q, k, v, gt, ds_t, p_t, scale);
   }
   __syncthreads();
   v3_write<FR>(reinterpret_cast<uint16_t*>(dqkv), c3, sm, rs, p0, positions,
                frames, n);
 }
 
+// ------------------------------------------ K2f / K2b (bf16): the ring
+// An item is one 16-row tile of a clip (positions pos0, pos0 + 1 for FR =
+// 8; pos0 for FR = 16) times a group of hg heads (hg of {4, 3, 2, 1} that
+// divides the head count), item it = tile * groups + group.
+struct RingGeo {
+  int frames, heads, hg, groups;
+  int tiles;  // per clip
+  int items;
+  float scale;
+};
+struct Item {
+  int b, pos0, h0;
+};
+template <int FR>
+__device__ __forceinline__ Item item_of(const RingGeo& g, int it) {
+  const int tile = it / g.groups;
+  return {tile / g.tiles, (tile % g.tiles) * (V3_ROWS / FR),
+          (it % g.groups) * g.hg};
+}
+
+constexpr int HEAD_TILE = V3_ROWS * HEAD_DIM;  // elements of one head's tile
+constexpr int RING_MAX_STAGES = 8;
+// shared memory of one CTA: two CTAs fit on an SM (228 KB, 1 KB of it
+// reserved per CTA)
+constexpr size_t RING_SMEM = 113 * 1024;
+
+// K2f (BWD false) and K2b (BWD true) on persistent CTAs.  Warp 0 is the
+// copying warp: one thread keeps a ring of `stages` slots full, each slot
+// one item's q, k and v (K2b also g) of its heads, one TMA box a third
+// (qkv_map, g_map), completed on the slot's `full` mbarrier.  Warp 1 + j
+// computes head j of every item: K2f the logits (v3_products), v3_softmax
+// and P V over its consumed q tile; K2b the same softmax, recomputed, then
+// v3_bwd_head (dq, dk, dv over its q, k and v tiles).  Each computing warp
+// then stores its results from the slot with one TMA box a tile (out_map:
+// out [B, T, N, H, 64] or dqkv [B, T, N, 3H, 64]) and releases the slot of
+// its previous item on the `empty` mbarrier once that item's store has
+// read it: a store runs under the next item's products and the copies in
+// flight.
+template <int FR, bool BWD>
+__global__ void __launch_bounds__((V3_WARPS + 1) * 32)
+temporal_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const __grid_constant__ CUtensorMap out_map, RingGeo geo,
+                     int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + stages;
+  // the ring from the first 1024-byte boundary past the barriers (the
+  // period of the swizzle), then K2b's per-warp ds and p tiles
+  const unsigned base = smem_addr(smem);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(
+      smem + (((base + 16 * stages + 1023) & ~1023u) - base));
+  const int box = geo.hg * HEAD_TILE;       // elements of a third's box
+  const int stage = (BWD ? 4 : 3) * box;    // elements of a slot
+  uint16_t* tiles = ring + (size_t)stages * stage;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, geo.hg);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    if (lane == 0) {
+      for (int k = 0, it = blockIdx.x; it < geo.items; it += gridDim.x, ++k) {
+        const int slot = k % stages;
+        if (k >= stages) mbar_wait(empty + slot, (k / stages - 1) & 1);
+        const Item I = item_of<FR>(geo, it);
+        uint16_t* st = ring + (size_t)slot * stage;
+        mbar_expect_tx(full + slot, stage * 2);
+#pragma unroll
+        for (int x = 0; x < 3; ++x)
+          tma_load_5d(st + x * box, &qkv_map, full + slot, 0, 0, I.pos0,
+                      x * geo.heads + I.h0, I.b);
+        if constexpr (BWD)
+          tma_load_5d(st + 3 * box, &g_map, full + slot, 0, 0, I.pos0, I.h0,
+                      I.b);
+      }
+    }
+    return;
+  }
+
+  const int hh = warp - 1;  // this warp's head in the group
+  const float scale2 = geo.scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  uint16_t* ds_t = tiles + hh * 2 * V3_ROWS * V3_TS;
+  uint16_t* p_t = ds_t + V3_ROWS * V3_TS;
+  int held = -1;  // the slot of the previous item, its store in flight
+  for (int k = 0, it = blockIdx.x; it < geo.items; it += gridDim.x, ++k) {
+    const int slot = k % stages;
+    mbar_wait(full + slot, (k / stages) & 1);
+    const Item I = item_of<FR>(geo, it);
+    uint16_t* st = ring + (size_t)slot * stage + hh * HEAD_TILE;
+    const SwzTile q{st}, kt{st + box}, v{st + 2 * box};
+    float s0[4], s1[4];
+    v3_products(q, kt, s0, s1);
+    uint32_t a[4];
+    v3_softmax<FR>(s0, s1, geo.frames, scale2, hi2, a);
+    if constexpr (BWD) {
+      float p[4][2];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 f = unpack_bf16x2(a[w]);
+        p[w][0] = f.x;
+        p[w][1] = f.y;
+      }
+      v3_bwd_head<FR>(p, q, kt, v, SwzTile{st + 3 * box}, ds_t, p_t,
+                      geo.scale);
+    } else {
+      float o[8][4];
+      v3_blockdiag_product(a, v, o);
+      v3_store_rows(q, o, 1.f);
+    }
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) {
+      const int h = I.h0 + hh;
+      tma_store_5d(&out_map, q.p, 0, 0, I.pos0, h, I.b);
+      if constexpr (BWD) {
+        tma_store_5d(&out_map, kt.p, 0, 0, I.pos0, geo.heads + h, I.b);
+        tma_store_5d(&out_map, v.p, 0, 0, I.pos0, 2 * geo.heads + h, I.b);
+      }
+      bulk_commit();
+      if (held >= 0) {
+        bulk_wait_read_all_but_newest();
+        mbar_arrive(empty + held);
+      }
+    }
+    held = slot;
+  }
+  if (lane == 0) bulk_wait();
+}
+
+// The tensor map of a time-major bf16 stream [B, T, N, heads, 64] at base,
+// its dims taken in the order (64, T, N, heads, B) and its boxes [1,
+// box_heads, 16 / FR, FR, 64]: each head's 16 rows (frame t of the box's
+// position u at row u * FR + t; frames past T and positions past N are
+// zeros, or not written) land as one swizzled 2 KB tile.
+bool stream_map(CUtensorMap* map, const void* base, int frames, int n,
+                int heads, int batch, int fr, int box_heads) {
+  const cuuint64_t row = (cuuint64_t)heads * HEAD_DIM * 2;  // a position
+  const cuuint64_t dims[5] = {HEAD_DIM, (cuuint64_t)frames, (cuuint64_t)n,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[4] = {row * n, row, HEAD_DIM * 2,
+                                 row * n * frames};
+  const cuuint32_t box[5] = {HEAD_DIM, (cuuint32_t)fr,
+                             (cuuint32_t)(V3_ROWS / fr), (cuuint32_t)box_heads,
+                             1};
+  return tensor_map_5d(map, base, 2, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// persistent CTAs of `kernel` with `threads` threads and `smem` bytes: as
+// many as fit on the card at once, at most one per item
+template <typename K>
+cudaError_t persistent_ctas(K kernel, int threads, size_t smem, int items,
+                            int& ctas) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  ctas = sms * per_sm < items ? sms * per_sm : items;
+  return cudaSuccess;
+}
+
+// K2f (g null) or K2b on the ring
+template <int FR, bool BWD>
+cudaError_t launch_ring(const void* qkv, const void* g, void* out, int batch,
+                        int frames, int n, int heads, float scale,
+                        cudaStream_t stream) {
+  RingGeo geo;
+  geo.frames = frames;
+  geo.heads = heads;
+  geo.hg = heads % 4 == 0 ? 4 : heads % 3 == 0 ? 3 : heads % 2 == 0 ? 2 : 1;
+  geo.groups = heads / geo.hg;
+  geo.tiles = (n + V3_ROWS / FR - 1) / (V3_ROWS / FR);
+  const long long items = (long long)batch * geo.tiles * geo.groups;
+  if (items < 1 || items >= (1LL << 31)) return cudaErrorInvalidValue;
+  geo.items = (int)items;
+  geo.scale = scale;
+  CUtensorMap qkv_map, g_map, out_map;
+  if (!bind_context() ||
+      !stream_map(&qkv_map, qkv, frames, n, 3 * heads, batch, FR, geo.hg) ||
+      !stream_map(&out_map, out, frames, n, BWD ? 3 * heads : heads, batch,
+                  FR, 1) ||
+      (BWD && !stream_map(&g_map, g, frames, n, heads, batch, FR, geo.hg)))
+    return cudaErrorInvalidValue;
+  if (!BWD) g_map = qkv_map;  // K2f reads no g
+  const size_t slot = (size_t)(BWD ? 4 : 3) * geo.hg * HEAD_TILE * 2 + 16;
+  const size_t fixed =
+      1024 + (BWD ? (size_t)V3_WARPS * 2 * V3_ROWS * V3_TS * 2 : 0);
+  const int stages = (int)std::min<size_t>((RING_SMEM - fixed) / slot,
+                                           RING_MAX_STAGES);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = fixed + stages * slot;
+  const int threads = (geo.hg + 1) * 32;
+  auto kernel = temporal_ring_kernel<FR, BWD>;
+  int ctas = 0;
+  cudaError_t err = persistent_ctas(kernel, threads, smem, geo.items, ctas);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, threads, smem, stream>>>(qkv_map, g_map, out_map, geo,
+                                          stages);
+  return cudaGetLastError();
+}
+
+// K2v3f / K2v3b
 template <bool SAVE_P, int FR>
 cudaError_t launch_v3(const void* qkv, void* out, void* probs, int batch,
                       int frames, int n, int heads, float scale,
@@ -764,11 +1041,14 @@ cudaError_t launch_v3_bwd(const void* qkv, const void* probs, const void* g,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Head dim is 64, frames <= 16, and
-// frames * heads <= 512; the staged rows must fit in shared memory
-// (forward frames * 3 * heads * 72 elements, backward frames * 4 * heads * 72
-// elements plus 8 * frames^2 * heads bytes).  Each entry point returns the
-// CUDA error code of its launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Head dim is 64 and frames <= 16.
+// float32 (the scalar kernels) needs frames * heads <= 512 and the staged
+// rows within shared memory (forward frames * 3 * heads * 72 elements,
+// backward frames * 4 * heads * 72 elements plus 8 * frames^2 * heads
+// bytes); bfloat16 (the ring) needs qkv, out, g and dqkv 16-byte aligned.
+// Each entry point returns the CUDA error code of its launch (0 on success;
+// cudaErrorInvalidValue for a geometry the kernels do not take or a tensor
+// map the driver refuses).
 extern "C" int temporal_attention_fwd(const void* qkv, void* out, int batch,
                                       int frames, int n, int heads, int dtype,
                                       float scale, void* stream) {
@@ -778,8 +1058,11 @@ extern "C" int temporal_attention_fwd(const void* qkv, void* out, int batch,
     return (int)launch<float, false>(qkv, out, nullptr, batch, frames, n,
                                      heads, scale, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16, false>(qkv, out, nullptr, batch, frames,
-                                             n, heads, scale, st);
+    return (int)(frames > 8
+                     ? launch_ring<16, false>(qkv, nullptr, out, batch, frames,
+                                              n, heads, scale, st)
+                     : launch_ring<8, false>(qkv, nullptr, out, batch, frames,
+                                             n, heads, scale, st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -793,8 +1076,11 @@ extern "C" int temporal_attention_bwd(const void* qkv, const void* g,
     return (int)launch_bwd<float, false>(qkv, g, nullptr, dqkv, batch, frames,
                                          n, heads, scale, st);
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16, false>(qkv, g, nullptr, dqkv, batch,
-                                                 frames, n, heads, scale, st);
+    return (int)(frames > 8
+                     ? launch_ring<16, true>(qkv, g, dqkv, batch, frames, n,
+                                             heads, scale, st)
+                     : launch_ring<8, true>(qkv, g, dqkv, batch, frames, n,
+                                            heads, scale, st));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -61,12 +61,6 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// shared-memory writes of this thread (st.shared, cp.async) made visible to
-// the asynchronous proxy that wgmma reads through; a block barrier after it
-// makes every thread's writes visible
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // keeps the compiler from moving accesses of accumulator registers across
 // the asynchronous products
 template <int R>

@@ -17,7 +17,11 @@ Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`temporal_attention_autograd` is what
 the model calls: under grad it goes through :class:`TemporalAttention` (K2f
 forward, K2b backward), or :class:`TemporalAttentionV3` on the batched
-route.  K2's kernels take head dim 64; every other head dim runs on the
+route.  In bf16, K2f and K2b run on one persistent kernel that the TMA
+unit feeds and drains (16-byte aligned tensors; frames and positions past
+the edges are its zero fill), and share their tensor-core arithmetic with
+K2v3, so K2f's output is K2v3f's bit for bit; fp32 runs scalar kernels.
+K2's kernels take head dim 64; every other head dim runs on the
 key-tiled pair of ``ops/flash_attention.py`` on either route (its forward
 saves the row sums l and its backward recomputes p, where K2v3 saves p: a
 storage difference of the same function), chosen on the shape before any

@@ -2,13 +2,19 @@
 of a wrapper call apart, and an A/B of every case against another checkout.
 
     python -m procedurevrl_torch.tools.kernel_ab
-        [--family spatial|pair|mvit|pool|all] [--split-in DIR] [--ab DIR]
+        [--family spatial|temporal|pair|mvit|pool|all] [--split-in DIR]
+        [--ab DIR]
 
-Four families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
+Five families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
 phases): ``spatial``, K1's own kernels of ``ops/spatial_attention.py`` (K1f
 and K1p at the eval shape ``[128, 196, 2304]`` + CLS; K1sp, K1b, K1br, K1bd
 and K1p at the training shape ``[144, 196, 2304]`` + CLS; K1f and K1sp at
-N = 48, the short-sequence instance); ``pair``, the key-tiled pair of
+N = 48, the short-sequence instance); ``temporal``, K2's kernels of
+``ops/temporal_attention.py`` on the time-major qkv at 12 heads of 64 (K2f
+at the eval shape ``[16, 8, 196, 2304]``, the training shape ``[18, 8,
+196, 2304]`` and 16 frames ``[18, 16, 196, 2304]``; K2b at the training
+shape and 16 frames; K2v3f, saving p, and K2v3b, fed K2v3f's p, at 8 and
+16 frames); ``pair``, the key-tiled pair of
 ``ops/flash_attention.py`` as K4 (``[144, 197, 768]``), K3
 (``[144, 196, 768]`` + CLS), K1's long range
 (``[144, 256, 2304]`` + CLS, N + 1 = 257) and K2's function at head dim 32
@@ -105,6 +111,19 @@ SPATIAL_CASES = (("K1f eval [128,196,2304]+CLS", "fwd", 128, 196),
                  ("K1f N 48 [144,48,2304]+CLS", "fwd", 144, 48),
                  ("K1sp N 48 [144,48,2304]+CLS", "sp", 144, 48))
 SPATIAL_HEADS, SPATIAL_HEAD_DIM = 12, 64
+
+# (label, kind, batch, frames): K2's kernels on the time-major qkv [B, T,
+# 196, 2304]; kind "fwd" K2f, "bwd" K2b, "v3f" K2v3f (saving p), "v3b"
+# K2v3b (fed K2v3f's p)
+TEMPORAL_CASES = (("K2f eval [16,8,196,2304]", "fwd", 16, 8),
+                  ("K2f [18,8,196,2304]", "fwd", 18, 8),
+                  ("K2f T 16 [18,16,196,2304]", "fwd", 18, 16),
+                  ("K2b [18,8,196,2304]", "bwd", 18, 8),
+                  ("K2b T 16 [18,16,196,2304]", "bwd", 18, 16),
+                  ("K2v3f [18,8,196,2304]", "v3f", 18, 8),
+                  ("K2v3f T 16 [18,16,196,2304]", "v3f", 18, 16),
+                  ("K2v3b [18,8,196,2304]", "v3b", 18, 8),
+                  ("K2v3b T 16 [18,16,196,2304]", "v3b", 18, 16))
 
 # (label, block, x [B, T, H, W, C]) of the stride-1 pools of the MViT-v2-S
 # training step, 18 clips: block 0's q, 2's q, the q of blocks 4-13, the k
@@ -265,6 +284,29 @@ def spatial_call(torch, case, seed=0):
                                                   out_c, g, gc, heads, scale)
 
 
+def temporal_call(torch, case, seed=0):
+    """One call of a K2 case through its wrapper (a closure)."""
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    _, kind, b, t = case
+    heads, d = SPATIAL_HEADS, SPATIAL_HEAD_DIM
+    c, scale = heads * d, d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    qkv, g = r(b, t, K2_POSITIONS, 3 * c), r(b, t, K2_POSITIONS, c)
+    if kind == "fwd":
+        return lambda: k2.temporal_attention(qkv, heads, scale)
+    if kind == "bwd":
+        return lambda: k2.temporal_attention_bwd(qkv, g, heads, scale)
+    if kind == "v3f":
+        return lambda: k2.temporal_attention_v3(qkv, heads, scale)
+    probs = k2.temporal_attention_v3(qkv, heads, scale)[1]
+    return lambda: k2.temporal_attention_v3_bwd(qkv, probs, g, heads, scale)
+
+
 def pool_call(torch, case, seed=0):
     """One call of a pool case through its wrapper (a closure): x the k
     third of a fused qkv product [B, 1 + T*H*W, 3C] past its first token,
@@ -288,6 +330,7 @@ def pool_call(torch, case, seed=0):
 
 
 FAMILIES = {"spatial": (SPATIAL_CASES, spatial_call, "spatial_attention"),
+            "temporal": (TEMPORAL_CASES, temporal_call, "temporal_attention"),
             "pair": (PAIR_CASES, pair_call, "flash_attention"),
             "mvit": (MVIT_CASES, mvit_call, "mvit_attention"),
             "pool": (POOL_CASES, pool_call, "depthwise_pool")}

@@ -2,7 +2,10 @@
 K5f/K6f and K7f missing key columns, K8f missing a halo plane, reading the
 halo row below a band as zeros or reading the ring slot of the next plane,
 K8dw missing a batch or one CTA's partial, K1br and K1p without the CLS key, K1bd with delta forced
-to 0, K2v3f without the last key frame (at 8 and at 16 frames), K5bd /
+to 0, K2v3f and K2f without the last key frame (at 8 and at 16 frames),
+K2b with the last frame's dk unwritten, the K2f / K2b ring with a clip's
+last tile read from the next clip or a slot released before its results
+are stored (and so before its store has read it), K5bd /
 K6bd with D forced to 0, K6sp storing p without the cls column and K6bs
 reading p without it, the key-tiled pair (``flash_attention.cu``, K3f /
 K4f and K3b / K4b) with a forward that drops the CLS key or the last key
@@ -54,7 +57,11 @@ K1sp at the same shapes, out and p against ``K1K2_FWD_TOL`` and out bit
 for bit against K1f's; K5f / K6f as above but rejected where either limit
 rejects (``mvit_sum``);
 K2v3f at the training and eval shapes (B 18 and 16, T 8 and 16, N 196),
-out and p against ``K1K2_FWD_TOL``; K5bd at block 0 and K6bd at block 1,
+out and p against ``K1K2_FWD_TOL``; K2f at the same shapes against
+``BF16_TOL`` (phase 3's limit) and K2v3f bit for bit, K2b at the training
+shape with 8 and 16 frames against the bf16 limit scaled by the largest
+gradient and K2v3b fed K2v3f's p bit for bit, both at 3 clips of N 49 (T
+8 and 3) and at the training shape, each output from NaN-filled memory; K5bd at block 0 and K6bd at block 1,
 the gradients against ``MVIT_GRAD_TOL`` scaled by each gradient's own
 largest magnitude; K6sp and K6bs at blocks 1 and 3 (B*H 36 and 72, kN
 1568) and at the small kN 27 geometry with logits above 80 (the cls column
@@ -145,6 +152,15 @@ _K1_STAGE_P = ("        *reinterpret_cast<uint32_t*>(p_st + r0 * ls + col) = "
 _DELTA = "(half ? d1 : d0) = acc;"
 _V3_KEYS = "const bool key = 2 * tig + e < frames;"
 _V3_KEYS16 = "const bool key1 = 8 + 2 * tig + (e & 1) < frames;"
+# the K2f / K2b ring (``temporal_ring_kernel``): K2b's backward body of an
+# item's head, the clip of an item's tile, a computing warp's wait for its
+# slot and its release of the previous item's slot
+_RING_BWD = ("      v3_bwd_head<FR>(p, q, kt, v, SwzTile{st + 3 * box}, ds_t, "
+             "p_t,\n                      geo.scale);\n")
+_RING_CLIP = "  return {tile / g.tiles, (tile % g.tiles) * (V3_ROWS / FR),"
+_RING_FULL = "    mbar_wait(full + slot, (k / stages) & 1);\n"
+_RING_READ = "        bulk_wait_read_all_but_newest();\n"
+_RING_RELEASE = "        mbar_arrive(empty + held);\n"
 # the D rows of the delta backwards (K5bd, K6bd; K7b shares them), K6sp's
 # store of a p fragment pair, and the tile of saved p K6bs stages
 _D_ROWS = "dd_s[threadIdx.x] = acc;"
@@ -304,6 +320,32 @@ MUTANTS = {
     "K2v3f last key frame left out at 16 frames": Mutant(
         "temporal_attention.cu", _V3_KEYS16,
         "const bool key1 = 8 + 2 * tig + (e & 1) < frames - 1;", "k2v3_16"),
+    # the shared softmax's key mask, held through K2f (the ring)
+    "K2f last key frame left out": Mutant(
+        "temporal_attention.cu", _V3_KEYS,
+        "const bool key = 2 * tig + e < frames - 1;", "k2f"),
+    "K2f last key frame left out at 16 frames": Mutant(
+        "temporal_attention.cu", _V3_KEYS16,
+        "const bool key1 = 8 + 2 * tig + (e & 1) < frames - 1;", "k2f_16"),
+    # the last frame's row of dk (each position's) zeroed in the slot
+    # before its store, as if never written
+    "K2b last frame's dk left unwritten": Mutant(
+        "temporal_attention.cu", _RING_BWD,
+        _RING_BWD + "      if (lane < 8 * (V3_ROWS / FR)) *reinterpret_cast"
+        "<uint4*>(kt.at((lane >> 3) * FR + geo.frames - 1, (lane & 7) * 8)) "
+        "= make_uint4(0u, 0u, 0u, 0u);\n", "k2b"),
+    # the clip index rounds up on a clip's last tile: its positions are read
+    # from (and written to) the next clip, and the clip's own never written
+    "K2 a clip's last tile read from the next clip": Mutant(
+        "temporal_attention.cu", _RING_CLIP,
+        "  return {(tile + 1) / g.tiles, (tile % g.tiles) * (V3_ROWS / FR),",
+        "k2_odd"),
+    # the slot goes back to the copying warp as soon as it has landed: the
+    # next load into it races the products and the store that read it
+    "K2 ring slot released before its store has read it": Mutant(
+        "temporal_attention.cu", _RING_FULL,
+        _RING_FULL + "    if (lane == 0) mbar_arrive(empty + slot);\n",
+        "k2_ring", ((_RING_RELEASE, ""),)),
     "K5bd / K6bd delta forced to 0": Mutant(
         "mvit_attention.cu", _D_ROWS, "dd_s[threadIdx.x] = 0.f;", "delta"),
     # the staged word of columns (c, c + 1), c even, with the cls column
@@ -610,6 +652,92 @@ def _check_k2v3_16(cs, torch, gen):
                      False)
 
 
+def _poison(torch):
+    """Fill freed device memory with NaN, so that an output element a
+    kernel leaves unwritten shows."""
+    torch.full((64 << 20,), float("nan"), device="cuda")
+    torch.cuda.synchronize()
+
+
+def _k2_pairs(cs, torch, k2, qkv, g, fwd=True, bwd=True):
+    """K2f's output and K2b's gradient against their plain versions, at
+    ``chip_smoke.py``'s limits, each from NaN-filled memory."""
+    pairs = []
+    if fwd:
+        _poison(torch)
+        pairs.append(("out", k2.temporal_attention(qkv, 12, 0.125),
+                      k2.temporal_attention_plain(qkv, 12, 0.125),
+                      cs.BF16_TOL))
+    if bwd:
+        _poison(torch)
+        got = k2.temporal_attention_bwd(qkv, g, 12, 0.125)
+        ref = k2.temporal_attention_bwd_plain(qkv, g, 12, 0.125)
+        pairs.append(("dqkv", got, ref, cs.grad_tol(cs.BF16_TOL, ref)))
+    return pairs
+
+
+def _k2_inputs(torch, gen, b, t, n=196):
+    qkv = torch.randn(b, t, n, 3 * 768, generator=gen, device="cuda")
+    g = torch.randn(b, t, n, 768, generator=gen, device="cuda")
+    return qkv.bfloat16(), g.bfloat16()
+
+
+def _check_k2f(cs, torch, gen, frames=8, shapes=(("training", 18),
+                                                 ("eval", 16))):
+    """K2f at ``chip_smoke.py`` phase 3's shapes against its plain version
+    (``BF16_TOL``) and K2v3f bit for bit."""
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    for label, b in shapes:
+        qkv, _ = _k2_inputs(torch, gen, b, frames)
+        pairs = _k2_pairs(cs, torch, k2, qkv, None, bwd=False)
+        twin = k2.temporal_attention_v3(qkv, 12, 0.125, save_probs=False)[0]
+        yield _judge(cs, torch, f"{label} T = {frames}", pairs, False,
+                     [("against K2v3f", (pairs[0][1],), (twin,))])
+
+
+def _check_k2f_16(cs, torch, gen):
+    return _check_k2f(cs, torch, gen, 16, (("training", 18),))
+
+
+def _check_k2b(cs, torch, gen):
+    """K2b at the training shape with 8 and 16 frames against its plain
+    version (``grad_tol(BF16_TOL)``) and K2v3b fed K2v3f's p bit for
+    bit."""
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    for frames in (8, 16):
+        qkv, g = _k2_inputs(torch, gen, 18, frames)
+        pairs = _k2_pairs(cs, torch, k2, qkv, g, fwd=False)
+        probs = k2.temporal_attention_v3(qkv, 12, 0.125)[1]
+        twin = k2.temporal_attention_v3_bwd(qkv, probs, g, 12, 0.125)
+        yield _judge(cs, torch, f"training T = {frames}", pairs, False,
+                     [("against K2v3b(K2v3f p)", (pairs[0][1],), (twin,))])
+
+
+def _check_k2_odd(cs, torch, gen):
+    """K2f and K2b at an odd N (3 clips of 49 positions; 8 and 3 frames)
+    against their plain versions."""
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    for frames in (8, 3):
+        qkv, g = _k2_inputs(torch, gen, 3, frames, 49)
+        yield _judge(cs, torch, f"N = 49 T = {frames}",
+                     _k2_pairs(cs, torch, k2, qkv, g), False)
+
+
+def _check_k2_ring(cs, torch, gen):
+    """K2f and K2b at the training shape against their plain versions,
+    each a shape of its own."""
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    qkv, g = _k2_inputs(torch, gen, 18, 8)
+    yield _judge(cs, torch, "K2f training",
+                 _k2_pairs(cs, torch, k2, qkv, g, bwd=False), False)
+    yield _judge(cs, torch, "K2b training",
+                 _k2_pairs(cs, torch, k2, qkv, g, fwd=False), False)
+
+
 GRADS = ("dq", "dk", "dv", "dkc", "dvc", "drel")
 
 
@@ -851,7 +979,9 @@ CHECKS = {"mvit": _check_mvit, "mvit_sum": _check_mvit_sum,
           "kt": _check_kt, "pool": _check_pool,
           "pool_dw": _check_pool_dw, "k1br": _check_k1br, "k1bd": _check_k1bd,
           "k1p": _check_k1p, "k1sp": _check_k1sp, "k2v3": _check_k2v3,
-          "k2v3_16": _check_k2v3_16,
+          "k2v3_16": _check_k2v3_16, "k2f": _check_k2f,
+          "k2f_16": _check_k2f_16, "k2b": _check_k2b, "k2_odd": _check_k2_odd,
+          "k2_ring": _check_k2_ring,
           "delta": _check_delta, "k6sp": _check_k6sp, "k6bs": _check_k6bs,
           "flash_fwd": _check_flash_fwd, "flash_bwd": _check_flash_bwd,
           "mvit_split": _check_mvit_split, "mvit_bwd": _check_mvit_bwd,
@@ -865,7 +995,10 @@ SOURCES = {"mvit": "mvit_attention", "mvit_sum": "mvit_attention",
            "k1br": "spatial_attention", "k1bd": "spatial_attention",
            "k1p": "spatial_attention", "k1sp": "spatial_attention",
            "k2v3": "temporal_attention",
-           "k2v3_16": "temporal_attention", "delta": "mvit_attention",
+           "k2v3_16": "temporal_attention", "k2f": "temporal_attention",
+           "k2f_16": "temporal_attention", "k2b": "temporal_attention",
+           "k2_odd": "temporal_attention", "k2_ring": "temporal_attention",
+           "delta": "mvit_attention",
            "k6sp": "mvit_attention", "k6bs": "mvit_attention",
            "flash_fwd": "flash_attention", "flash_bwd": "flash_attention",
            "mvit_split": "mvit_attention", "mvit_bwd": "mvit_attention",

@@ -130,7 +130,9 @@ def _temporal_case(b, t, n, heads=2):
     return qkv, g, heads
 
 
-@pytest.mark.parametrize("b,t,n", [(2, 8, 196), (2, 3, 20)])
+# T = 1, 9 and 16 and an odd N, as the forward's parity cases
+@pytest.mark.parametrize("b,t,n", [(2, 8, 196), (2, 3, 20), (2, 1, 49),
+                                   (2, 9, 49), (1, 16, 49)])
 def test_k2_backward_matches_jax_grad(b, t, n):
     qkv, g, heads = _temporal_case(b, t, n)
     scale = D ** -0.5

@@ -194,6 +194,80 @@ def test_temporal_autograd_runs_both_kernels(card):
     _close(qkv.grad, ref, torch.float32, scaled=True)
 
 
+def _temporal_inputs(card, dtype, b, t, n, heads, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    c = heads * 64
+    qkv = torch.randn(b, t, n, 3 * c, generator=gen, device=card).to(dtype)
+    g = torch.randn(b, t, n, c, generator=gen, device=card).to(dtype)
+    return qkv, g
+
+
+# bf16 runs the ring (16-row tiles of two positions of <= 8 frames or one
+# of 9-16, groups of 4, 3, 2 or 1 heads); an odd N leaves each clip's last
+# tile one position, whose rows the TMA unit fills with zeros and whose
+# stores it drops
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("heads", [4, 6, 5])
+def test_temporal_kernels_take_odd_n_and_every_t(card, dtype, t, heads):
+    qkv, g = _temporal_inputs(card, dtype, 3, t, 49, heads, 30 + t + heads)
+    counts = {k: _build.LAUNCHES.get(k, 0) for k in (k2.KERNEL,
+                                                     k2.KERNEL_BWD)}
+    _poison(card)
+    out = k2.temporal_attention(qkv, heads, 0.125)
+    _close(out, k2.temporal_attention_plain(qkv, heads, 0.125), dtype)
+    _poison(card)
+    dx = k2.temporal_attention_bwd(qkv, g, heads, 0.125)
+    _close(dx, k2.temporal_attention_bwd_plain(qkv, g, heads, 0.125), dtype,
+           scaled=True)
+    assert _build.LAUNCHES[k2.KERNEL] == counts[k2.KERNEL] + 1
+    assert _build.LAUNCHES[k2.KERNEL_BWD] == counts[k2.KERNEL_BWD] + 1
+
+
+@pytest.mark.parametrize("t,n", [(8, 196), (16, 197)])
+def test_temporal_ring_ctas_take_several_items(card, t, n):
+    """More items than the card holds persistent CTAs (two an SM): each CTA
+    walks several, its ring slots reused; 3 x 6 x 98 (t 8) and 3 x 6 x 197
+    (t 16, odd N) items of 4 heads."""
+    qkv, g = _temporal_inputs(card, torch.bfloat16, 6, t, n, 12, 40 + t)
+    items = 6 * 3 * ((n + 1) // 2) if t <= 8 else 6 * 3 * n
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert items >= 4 * 2 * sms
+    _poison(card)
+    out = k2.temporal_attention(qkv, 12, 0.125)
+    _close(out, k2.temporal_attention_plain(qkv, 12, 0.125), torch.bfloat16)
+    _poison(card)
+    dx = k2.temporal_attention_bwd(qkv, g, 12, 0.125)
+    _close(dx, k2.temporal_attention_bwd_plain(qkv, g, 12, 0.125),
+           torch.bfloat16, scaled=True)
+
+
+def test_temporal_bf16_backward_runs_on_autograd_thread(card):
+    """K2b's tensor maps are encoded on autograd's backward thread, which
+    must bind the device's context first."""
+    qkv, g = _temporal_inputs(card, torch.bfloat16, 3, 8, 49, 12, 50)
+    a = qkv.clone().requires_grad_(True)
+    counts = {k: _build.LAUNCHES.get(k, 0) for k in (k2.KERNEL,
+                                                     k2.KERNEL_BWD)}
+    k2.temporal_attention_autograd(a, 12, 0.125).backward(g)
+    assert _build.LAUNCHES[k2.KERNEL] == counts[k2.KERNEL] + 1
+    assert _build.LAUNCHES[k2.KERNEL_BWD] == counts[k2.KERNEL_BWD] + 1
+    _close(a.grad, k2.temporal_attention_bwd_plain(qkv, g, 12, 0.125),
+           torch.bfloat16, scaled=True)
+
+
+@pytest.mark.parametrize("t", [8, 3, 16, 11])
+def test_temporal_kernels_equal_v3_bit_for_bit(card, t):
+    """K2f, K2b and K2v3 share their device functions and arithmetic order:
+    in bf16 K2f's output is K2v3f's bit for bit, and K2b's K2v3b's fed
+    K2v3f's p (an even N pairs the same positions in both)."""
+    qkv, g = _temporal_inputs(card, torch.bfloat16, 4, t, 196, 12, 60 + t)
+    out3, probs = k2.temporal_attention_v3(qkv, 12, 0.125)
+    assert torch.equal(k2.temporal_attention(qkv, 12, 0.125), out3)
+    assert torch.equal(k2.temporal_attention_bwd(qkv, g, 12, 0.125),
+                       k2.temporal_attention_v3_bwd(qkv, probs, g, 12, 0.125))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [196, 49, 207, 130])
 @pytest.mark.parametrize("bt", [6, 37])
@@ -737,7 +811,8 @@ def _poison(card):
                                     "pool_dx", "pool_dw", "mvit_hl_bwd_delta",
                                     "mvit_bwd_delta", "mvit_fwd_probs",
                                     "mvit_bwd_probs", "temporal_v3_fwd_16",
-                                    "temporal_v3_bwd_16"])
+                                    "temporal_v3_bwd_16", "temporal_fwd_16",
+                                    "temporal_bwd_16"])
 def test_kernels_are_deterministic_on_stale_memory(card, kernel):
     """Ten launches, each into NaN-filled memory, give bit-identical, finite
     outputs (a substitute for compute-sanitizer's initcheck and racecheck,
@@ -809,6 +884,10 @@ def test_kernels_are_deterministic_on_stale_memory(card, kernel):
             t16_qkv, 12, 0.125),
         "temporal_v3_bwd_16": lambda: (k2.temporal_attention_v3_bwd(
             t16_qkv, t16_probs, t16_g, 12, 0.125),),
+        "temporal_fwd_16": lambda: (k2.temporal_attention(t16_qkv, 12,
+                                                          0.125),),
+        "temporal_bwd_16": lambda: (k2.temporal_attention_bwd(
+            t16_qkv, t16_g, 12, 0.125),),
     }[kernel]
     first = None
     for _ in range(10):

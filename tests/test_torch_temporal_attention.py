@@ -24,7 +24,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 D = 64
 
 
-@pytest.mark.parametrize("b,t,n", [(2, 8, 196), (1, 4, 50)])
+# T = 1, 9 and 16 and an odd N: the geometries the kernels tile apart
+# (two positions of <= 8 frames per 16-row tile, one of 9-16, a last
+# tile of a clip with one position)
+@pytest.mark.parametrize("b,t,n", [(2, 8, 196), (1, 4, 50), (2, 1, 49),
+                                   (2, 9, 49), (1, 16, 49)])
 def test_k2_plain_matches_jax_kernel(b, t, n):
     rng = np.random.RandomState(b + t + n)
     heads = 2

@@ -137,6 +137,29 @@ Phases (any failure exits non-zero):
    (block 0) and K6f/K6b, K6sp/K6bs (block 1) of MViT-v2-S's token counts
    at d = 20 and 136 (2 clips), forward and backward against their plain
    versions, bf16 (the pair also float32).
+28. slice 14, zero-shot step forecasting: ``test_net.test`` on
+   ``configs/COIN/step_forecasting.yaml`` (TimeSformer-B, bf16, 8 observed
+   clips of 8 frames a sample, the order transformer's forecast, the
+   778-step COIN bank) at one view a video: 64 samples in 4 batches of 16
+   x 8 clips (K1f on [1024, 196, 2304]), 12 K1f and 12 K2f per batch and
+   no other port kernel; one batch against the plain path; clips/s and
+   the peak memory;
+29. slice 14, the MViT-v2-S zero-shot eval: ``test_net.test`` on
+   ``configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml`` (16 frames at
+   224^2, 64 videos x 4 views in batches of 16, the COIN bank) on the
+   default route (13 K5f and 3 K6f per batch) and with ``MVIT_POOL=kernel
+   MVIT_KT=1`` set while the model is built (13 K5f, 1 K6f, 2 K7f and 17
+   K8f per batch), no other port kernel; one batch of each against the
+   plain path; one eval step of each profiled;
+30. slice 14, the COIN finetunes on the frozen encoder (``TRAIN.LINEAR``,
+   SGD): ``train_net.train`` on ``step_forecasting.yaml`` and
+   ``task_classification.yaml`` (2 samples x 8 clips a step, 2 warm-up +
+   4 timed steps) and ``step_classification.yaml`` (16 clips a step, 3
+   steps), each cut there and so ending with one val epoch; finite losses
+   and val errors; 12 K1f and 12 K2f per micro-batch and val batch, and
+   none of K1sp, K1b, K1br, K1bd, K2b, K2v3b or any other port kernel;
+   one step of each against the plain path (phase 7's limits) and one
+   step of each profiled with its peak memory.
 The kernels of each attention wrapper are timed apart, and every case
 against another checkout, by ``python -m procedurevrl_torch.tools.kernel_ab``.
 Phases 6 and 7 assert that none of slice 5's kernels runs without the
@@ -296,6 +319,13 @@ TS_HEADS_32 = 24
 MVIT_D72 = ("MVIT.EMBED_DIM", "144", "MVIT.NUM_HEADS", "2")
 HEAD_DIM_STEPS = 3                      # 2 warm-up + 1 timed
 MVIT_BLOCKS = MVIT_HL_BLOCKS + MVIT_HS_BLOCKS
+# slice 14: the 778-step COIN bank; the COIN finetunes on the frozen
+# encoder, 2 warm-up + 4 timed steps of 2 samples (phase 7's step size)
+# each for the heads on 8 clips, 2 + 1 of 16 one-clip samples for step
+# classification
+COIN_BANK = os.path.join(ROOT, "data/clip_step_emb_coin.pth")
+FINETUNES = (("step_forecasting", 2, 6), ("task_classification", 2, 6),
+             ("step_classification", 16, 3))
 
 
 def fail(msg: str) -> None:
@@ -1562,60 +1592,67 @@ def check_launches(launches: dict, expected: dict, what: str) -> None:
                  f"expected {n}")
 
 
-def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None, opts=(),
-                fwd=None) -> dict:
-    """Drive the zero-shot test (slice 1; slice 5's eval with ``knobs``, set
-    while the models are built; slice 7's with config ``opts``, asserting
-    the forward kernels ``fwd`` once per block and batch); return the
-    launch counts of its run."""
+def coin_cfg(name: str, *opts):
+    """``configs/COIN/<name>.yaml`` with synthetic data and ``opts``."""
     from procedurevrl_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, f"configs/COIN/{name}.yaml"),
+                       ["DEV.LOAD_DUMMY_DATA", "True", *opts])
+
+
+def zero_shot_opts(*opts) -> tuple:
+    """The zero-shot test's overrides: no training, the 778-step COIN bank,
+    16 samples a batch."""
+    return ("TRAIN.ENABLE", "False", "DEV.MATCH_LANG_EMB", "True",
+            "TEST.BATCH_SIZE", "16", "DEV.TEST_LANG_EMB", COIN_BANK, *opts)
+
+
+def eval_phase(torch, k1, k2, k5, k8, _build, cfg, label: str, knobs,
+               per_batch: dict, profile: bool = True) -> dict:
+    """Drive ``test_net.test`` on ``cfg`` with ``knobs`` set while the
+    models are built: the port kernels ``per_batch`` launch that many times
+    per batch and no other port kernel launches; finite stats; one batch
+    held against the same model through the plain versions; optionally one
+    eval step profiled.  Returns the launch counts of the test's run."""
     from procedurevrl_torch.datasets.synthetic import SyntheticClips
     from procedurevrl_torch.engine.steps import make_eval_step
     from procedurevrl_torch.models.build import build_model
     from procedurevrl_torch.tools.test_net import test
 
-    cfg = load_config(os.path.join(ROOT, "configs/COIN/step_classification.yaml"),
-                      ["TRAIN.ENABLE", "False", "DEV.MATCH_LANG_EMB", "True",
-                       "DEV.LOAD_DUMMY_DATA", "True", "TEST.BATCH_SIZE", "16",
-                       "DEV.TEST_LANG_EMB",
-                       os.path.join(ROOT, "data/clip_step_emb_coin.pth"),
-                       *opts])
+    knobs = knobs or {}
+    stray = [k for k in TS_KNOBS + MVIT_KNOBS
+             if os.environ.get(k) and k not in knobs]
+    if stray:
+        fail(f"{label} runs with its own knobs only: unset {stray}")
     dataset = SyntheticClips(cfg, "test")
     n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
-
-    if not knobs and any(os.environ.get(k) for k in TS_KNOBS):
-        fail(f"phase 6 runs the default route: unset {list(TS_KNOBS)}")
-    named = [f"{k}={v}" for k, v in (knobs or {}).items()]
-    named += [f"{k} {v}" for k, v in zip(opts[::2], opts[1::2])]
-    label = f"slice ({' '.join(named)})" if named else "slice"
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    with knobs_set(knobs or {}):
+    with knobs_set(knobs):
         stats = test(cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: {len(dataset)} clips in {n_batches} batches, top1 "
+    clips = len(dataset) * dataset.clips
+    print(f"{label}: {clips} clips ({len(dataset)} samples of "
+          f"{dataset.clips}) in {n_batches} batches, top1 "
           f"{stats['top1_acc']} top5 {stats['top5_acc']}, "
-          f"{stats['clips_per_sec']:.2f} clips/s over batches 2..{n_batches}, "
-          f"wall {wall:.1f} s (model build included), peak memory "
-          f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
-    # the forward kernels of the route, once per block and batch; no other
-    # K1 or K2 kernel (no training kernel, no kernel of the other route)
-    if fwd is None:
-        fwd = ((k1.KERNEL_PIPE, k2.KERNEL_V3) if knobs
-               else (k1.KERNEL, k2.KERNEL))
-    check_launches(launches, {key: DEPTH * n_batches if key in fwd else 0
-                              for key in k1k2_kernels(k1, k2)},
-                   f"the {label} test")
+          f"{stats['clips_per_sec']:.2f} clips/s "
+          f"over batches 2..{n_batches}, wall {wall:.1f} s (model build "
+          f"included), peak memory {peak / 2 ** 30:.3f} GiB, launches "
+          f"{launches}")
+    check_launches(launches, {
+        key: per_batch.get(key, 0) * n_batches
+        for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
+        f"the {label} test")
     for key in ("top1_acc", "top5_acc"):
         if not math.isfinite(float(stats[key])):
             fail(f"{key} is not finite")
 
     # one batch: kernels vs the same model through the plain versions
-    with knobs_set(knobs or {}):
+    with knobs_set(knobs):
         model, bank = build_model(cfg, "cuda")
     step = make_eval_step(model, cfg, bank)
     batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
@@ -1634,9 +1671,65 @@ def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None, opts=(),
           f"max pred {preds.max().item():.4f}")
     if diff > PRED_ATOL:
         fail("predictions through the kernels disagree with the plain path")
-    profile_step(torch, f"one eval step (16 clips, {label})",
-                 lambda: step(batch))
+    if profile:
+        profile_step(torch, f"one eval step ({cfg.TEST.BATCH_SIZE * dataset.clips}"
+                     f" clips, {label})", lambda: step(batch))
     return launches
+
+
+def phase_slice(torch, k1, k2, k5, k8, _build, knobs=None, opts=(),
+                fwd=None) -> dict:
+    """Drive the zero-shot test (slice 1; slice 5's eval with ``knobs``, set
+    while the models are built; slice 7's with config ``opts``, asserting
+    the forward kernels ``fwd`` once per block and batch); return the
+    launch counts of its run."""
+    cfg = coin_cfg("step_classification", *zero_shot_opts(*opts))
+    named = [f"{k}={v}" for k, v in (knobs or {}).items()]
+    named += [f"{k} {v}" for k, v in zip(opts[::2], opts[1::2])]
+    label = f"slice ({' '.join(named)})" if named else "slice"
+    # the forward kernels of the route, once per block and batch; no other
+    # port kernel (no training kernel, no kernel of the other route)
+    if fwd is None:
+        fwd = ((k1.KERNEL_PIPE, k2.KERNEL_V3) if knobs
+               else (k1.KERNEL, k2.KERNEL))
+    return eval_phase(torch, k1, k2, k5, k8, _build, cfg, label, knobs,
+                      dict.fromkeys(fwd, DEPTH))
+
+
+def phase_forecast(torch, k1, k2, k5, k8, _build) -> dict:
+    """Slice 14, zero-shot step forecasting: ``test_net.test`` on
+    ``configs/COIN/step_forecasting.yaml`` at one view a video (64 samples
+    of 8 clips x 8 frames, 4 batches of 128 clips: K1f on [1024, 196,
+    2304]), 12 K1f and 12 K2f per batch and no other port kernel; one batch
+    against the plain path."""
+    cfg = coin_cfg("step_forecasting",
+                   *zero_shot_opts("TEST.NUM_ENSEMBLE_VIEWS", "1"))
+    return eval_phase(torch, k1, k2, k5, k8, _build, cfg,
+                      "zero-shot forecasting", None,
+                      {k1.KERNEL: DEPTH, k2.KERNEL: DEPTH}, profile=False)
+
+
+def phase_mvit_eval(torch, k1, k2, k5, k8, _build) -> list:
+    """Slice 14, the MViT-v2-S zero-shot eval (16 frames at 224^2, the
+    778-step COIN bank, 64 videos x 4 views in batches of 16) on the
+    default route (13 K5f and 3 K6f per batch) and with ``MVIT_POOL=kernel
+    MVIT_KT=1`` (13 K5f, 1 K6f, 2 K7f and 17 K8f per batch); one batch of
+    each against the plain path.  ``TRAIN.LABEL_EMB`` is cleared, so the
+    bank is the COIN one the test names rather than the pretraining
+    config's."""
+    from procedurevrl_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, MVIT_CFG), [
+        "DEV.LOAD_DUMMY_DATA", "True", "TEST.ENABLE", "True",
+        "TRAIN.LABEL_EMB", "", "MODEL.NUM_CLASSES", "778",
+        *zero_shot_opts()])
+    hl, hs = MVIT_HL_BLOCKS, MVIT_HS_BLOCKS
+    return [eval_phase(torch, k1, k2, k5, k8, _build, cfg, "MViT eval", None,
+                       {k5.KERNEL_HL: hl, k5.KERNEL: hs}),
+            eval_phase(torch, k1, k2, k5, k8, _build, cfg,
+                       "MViT eval (MVIT_POOL=kernel MVIT_KT=1)", KNOBS,
+                       {k5.KERNEL_HL: hl, k5.KERNEL: KNOB_HS_BLOCKS,
+                        k5.KERNEL_KT: KT_BLOCKS, k8.KERNEL: K8_POOLS})]
 
 
 def train_cfg(remat: bool, *opts):
@@ -1671,27 +1764,43 @@ def run_train(torch, _build, cfg, steps: int):
 def step_vs_plain(torch, cfg, k1, k2, k5, k8):
     """One train step of ``cfg`` through the kernels and the same step
     (params, batch, generator seeds) through the plain versions; returns
-    the kernel path's step function and batch for the profile."""
-    from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
+    the kernel path's step function and batch for the profile.  A
+    finetuning config takes its first synthetic train batch.  Every trained
+    tensor must hold a gradient after the step on both paths."""
+    from procedurevrl_torch.datasets.synthetic import (
+        SyntheticClips, SyntheticPretrain,
+    )
     from procedurevrl_torch.engine.steps import make_train_step
     from procedurevrl_torch.models.build import build_model
     from procedurevrl_torch.solver.lr_policy import lr_schedule
     from procedurevrl_torch.solver.optimizer import construct_optimizer
 
-    batch = SyntheticPretrain(cfg).batch(2, 0, torch.Generator(device="cuda"))
+    gen = torch.Generator(device="cuda")
+    if cfg.TRAIN.TEXT:
+        batch = SyntheticPretrain(cfg).batch(2, 0, gen)
+    else:
+        batch = SyntheticClips(cfg, "train").batch(cfg.TRAIN.BATCH_SIZE, 0,
+                                                   gen)
 
     def one_step():
         model, bank = build_model(cfg, "cuda")
         step = make_train_step(model, construct_optimizer(model, cfg), cfg,
                                bank, lr_schedule(cfg, 1))
         m = step(batch)
-        grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+        grads = {n: p.grad for n, p in model.named_parameters()
                  if p.requires_grad}
-        return step, {k: float(v) for k, v in m.items()}, grads
+        missing = sorted(n for n, g in grads.items() if g is None)
+        if missing:
+            fail(f"trained tensors without a gradient: {missing}")
+        return step, {k: float(v) for k, v in m.items()}, {
+            n: g.float().clone() for n, g in grads.items()}
 
     step, mk, gk = one_step()
     with plain_attention(k1, k2, k5, k8):
         _, mp, gp = one_step()
+    if set(gk) != set(gp):
+        fail(f"trained tensors differ between the paths: "
+             f"{sorted(set(gk) ^ set(gp))}")
     worst_cos, worst, least = 1.0, "", math.inf
     zero = {}  # name -> (kernel-path, plain-path norm) / global norm
     for name, g in gk.items():
@@ -1709,10 +1818,11 @@ def step_vs_plain(torch, cfg, k1, k2, k5, k8):
     kinds = sorted({re.sub(r"\.\d+\.", ".*.", n) for n in zero})
     d_loss = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
     d_norm = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    parts = "".join(f"{k} {mk[k]:.6f} / {mp[k]:.6f}, " for k in ("kl", "mse")
+                    if k in mk)
     print(f"train step vs plain versions: loss {mk['loss']:.6f} / "
           f"{mp['loss']:.6f} (rel {d_loss:.2e}, tol {STEP_LOSS_RTOL}), "
-          f"kl {mk['kl']:.6f} / {mp['kl']:.6f}, mse {mk['mse']:.6f} / "
-          f"{mp['mse']:.6f}, grad norm {mk['grad_norm']:.6f} / "
+          f"{parts}grad norm {mk['grad_norm']:.6f} / "
           f"{mp['grad_norm']:.6f} (rel {d_norm:.2e}, tol {STEP_NORM_RTOL}), "
           f"least gradient cosine {worst_cos:.6f} ({worst}; min "
           f"{STEP_MIN_COS}) over {len(gk) - len(zero)} trained tensors, "
@@ -1781,6 +1891,63 @@ def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
     profile_step(torch, f"one train step ({clips} clips, remat)",
                  lambda: float(step(batch)["loss"]))
     return launches
+
+
+def phase_finetune(torch, k1, k2, k5, k8, _build) -> dict:
+    """Slice 14, the COIN finetunes (``TRAIN.LINEAR``, SGD, the encoder
+    frozen): ``train_net.train`` on each of ``FINETUNES`` for its steps,
+    cut there, so that the run ends with one val epoch (batches of
+    ``TRAIN.BATCH_SIZE``); finite losses and val errors; per micro-batch
+    and val batch 12 K1f and 12 K2f and no other port kernel (no K1sp, no
+    backward kernel: the frozen encoder runs without autograd, so nothing
+    is recomputed); one step against the plain path and one step profiled.
+    Returns the launch counts summed over the runs."""
+    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    from procedurevrl_torch.tools.train_net import WARMUP_STEPS
+
+    if any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 30 runs the default route: unset {list(TS_KNOBS)}")
+    total: dict = {}
+    for name, batch_size, steps in FINETUNES:
+        cfg = coin_cfg(name, "TRAIN.BATCH_SIZE", str(batch_size),
+                       "GLOBAL_BATCH_SIZE", str(batch_size))
+        if not cfg.TRAIN.LINEAR:
+            fail(f"{name} is no linear probe")
+        stats, launches, peak = run_train(torch, _build, cfg, steps)
+        for i, h in enumerate(stats["history"]):
+            print(f"{name} step {i + 1}: loss {h['loss']:.6f} grad_norm "
+                  f"{h['grad_norm']:.4f} top1_err {h['top1_err']:.1f} lr "
+                  f"{h['lr']:.3e}")
+            if not all(math.isfinite(h[k]) for k in ("loss", "grad_norm")):
+                fail(f"{name} step {i + 1} is not finite")
+        if len(stats["history"]) != steps or len(stats["val"]) != 1:
+            fail(f"{name}: {len(stats['history'])} steps and "
+                 f"{len(stats['val'])} val epochs, expected {steps} and 1")
+        val = stats["val"][0]
+        if not all(math.isfinite(val[k]) for k in ("top1_err", "top5_err")):
+            fail(f"{name}: the val errors are not finite")
+        n_val = SyntheticClips(cfg, "val").num_batches(batch_size)
+        print(f"{name} (linear probe): {stats['clips_per_step']} clips/step, "
+              f"{stats['clips_per_sec']:.2f} clips/s over steps "
+              f"{WARMUP_STEPS + 1}..{steps}, val epoch of {n_val} batches: "
+              f"top1_err {val['top1_err']:.3f} top5_err "
+              f"{val['top5_err']:.3f}, peak memory {peak / 2 ** 30:.3f} GiB, "
+              f"launches {launches}")
+        forwards = DEPTH * (steps + n_val)
+        check_launches(launches, {
+            key: forwards if key in (k1.KERNEL, k2.KERNEL) else 0
+            for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
+            f"{steps} {name} steps and a val epoch")
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        step, batch = step_vs_plain(torch, cfg, k1, k2, k5, k8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profile_step(torch, f"one {name} step ({stats['clips_per_step']} "
+                     f"clips, linear probe)", lambda: float(step(batch)["loss"]))
+        print(f"{name} profiled step peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    return total
 
 
 def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
@@ -2617,6 +2784,12 @@ def main() -> int:
           _build)
     timed("27 head dims past the tensor cores", phase_odd_head_dims, torch,
           fa, k5)
+    timed("28 slice 14 forecasting", phase_forecast, torch, k1, k2, k5, k8,
+          _build)
+    timed("29 slice 14 MViT eval", phase_mvit_eval, torch, k1, k2, k5, k8,
+          _build)
+    timed("30 slice 14 COIN finetunes", phase_finetune, torch, k1, k2, k5,
+          k8, _build)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
                + long_kernels + head_dim_kernels)

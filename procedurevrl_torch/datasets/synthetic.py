@@ -2,11 +2,15 @@
 every tensor is drawn from ``RNG_SEED`` on the device that runs the model,
 so the host moves no frames.  Real decoding comes in a later slice.
 
-- :class:`SyntheticClips`, the multi-view test split of
-  ``procedurevrl_tpu/datasets/howto100m.py`` (:98-114): 64 videos x
-  ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` clips, clip ``i`` of video
-  ``v`` at global index ``v * num_clips + i``, label ``video % NUM_CLASSES``,
-  uint8 frames ``[T, S, S, 3]`` (S = ``DATA.TEST_CROP_SIZE``).
+- :class:`SyntheticClips`, the train, val and test splits of
+  ``procedurevrl_tpu/datasets/howto100m.py`` (:60-115, :155-158): 64
+  videos, each one clip in train and val and ``NUM_ENSEMBLE_VIEWS x
+  NUM_SPATIAL_CROPS`` clips in test (clip ``i`` of video ``v`` at global
+  index ``v * num_clips + i``), ``TRAIN.EPOCH_MUL`` times over in train;
+  label ``video % NUM_CLASSES``; uint8 frames ``[T * max(NUM_SEG, 1), S, S,
+  3]`` (S = ``DATA.TRAIN_CROP_SIZE`` in train, ``DATA.TEST_CROP_SIZE``
+  otherwise): a forecasting sample is its ``NUM_SEG`` observed clips of T
+  frames end to end.
 - :class:`SyntheticPretrain`, the order-pretraining train split: the batch
   ``bench.py`` builds (:366-374) for each step.  A sample is
   ``ORDER_PRETRAIN_MAX_LEN`` (M = 9) clips: uint8 frames
@@ -23,52 +27,73 @@ import torch
 
 NUM_VIDEOS = 64
 TEXT_LEN = 77  # CLIP context length
+# per-split offsets of the clip seeds, so that the splits draw other clips
+_SPLIT_SEED = {"test": 0, "train": 100_003, "val": 200_003}
 
 
 class SyntheticClips:
-    """Index of the synthetic test split and its clip generator."""
+    """Index of one synthetic split and its clip generator."""
 
     def __init__(self, cfg, split: str = "test"):
-        if split != "test":
-            raise NotImplementedError(
-                f"synthetic {split} split: the train split is "
-                "SyntheticPretrain; val comes with the finetuning slice")
-        self.num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+        if split not in _SPLIT_SEED:
+            raise ValueError(f"synthetic split {split!r}: expected train, "
+                             "val or test")
+        self.split = split
+        self.num_clips = (cfg.TEST.NUM_ENSEMBLE_VIEWS
+                          * cfg.TEST.NUM_SPATIAL_CROPS if split == "test"
+                          else 1)
+        self.epochs = max(cfg.TRAIN.EPOCH_MUL, 1) if split == "train" else 1
+        self.clips = max(cfg.MODEL.NUM_SEG, 1)  # clips per sample
         self.num_classes = max(cfg.MODEL.NUM_CLASSES, 1)
-        self.frames = cfg.DATA.NUM_FRAMES
-        self.size = cfg.DATA.TEST_CROP_SIZE
+        self.frames = cfg.DATA.NUM_FRAMES * max(cfg.MODEL.NUM_SEG, 1)
+        self.size = (cfg.DATA.TRAIN_CROP_SIZE if split == "train"
+                     else cfg.DATA.TEST_CROP_SIZE)
         self.seed = cfg.RNG_SEED
 
     def __len__(self) -> int:
-        return NUM_VIDEOS * self.num_clips
+        return NUM_VIDEOS * self.num_clips * self.epochs
 
     def label(self, index: int) -> int:
-        return (index // self.num_clips) % self.num_classes
+        return (index // self.num_clips) % NUM_VIDEOS % self.num_classes
 
     def clip(self, index: int, generator: torch.Generator) -> torch.Tensor:
-        """uint8 frames [T, S, S, 3] of clip ``index``, on the generator's
-        device."""
-        generator.manual_seed(self.seed * 1_000_003 + index)
+        """uint8 frames [T * max(NUM_SEG, 1), S, S, 3] of clip ``index``, on
+        the generator's device."""
+        generator.manual_seed(self.seed * 1_000_003 + _SPLIT_SEED[self.split]
+                              + index)
         return torch.randint(0, 256, (self.frames, self.size, self.size, 3),
                              generator=generator, dtype=torch.uint8,
                              device=generator.device)
 
+    def num_batches(self, batch_size: int) -> int:
+        """Batches of an epoch: train drops the short last batch, val and
+        test keep it (JAX ``datasets/loader.py:227-245``)."""
+        if self.split == "train":
+            return len(self) // batch_size
+        return -(-len(self) // batch_size)
+
+    def batch(self, batch_size: int, index: int,
+              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Batch ``index`` of an epoch in index order, on the generator's
+        device: ``frames`` [b, T * max(NUM_SEG, 1), S, S, 3] uint8,
+        ``labels`` and ``index`` [b] int64 (the last val or test batch may
+        be short).  An index past the epoch's last batch counts on into the
+        next epochs, which hold the same samples."""
+        start = index % self.num_batches(batch_size) * batch_size
+        idx = list(range(start, min(start + batch_size, len(self))))
+        dev = generator.device
+        return {
+            "frames": torch.stack([self.clip(i, generator) for i in idx]),
+            "labels": torch.tensor([self.label(i) for i in idx], device=dev),
+            "index": torch.tensor(idx, device=dev),
+        }
+
     def batches(self, batch_size: int,
                 device: Union[str, torch.device]) -> Iterator[Dict]:
-        """Batches in index order: ``frames`` [b, T, S, S, 3] uint8 on
-        ``device``, ``labels`` and ``index`` int64 on the CPU.  The last
-        batch may be short."""
+        """Every batch of an epoch in index order, on ``device``."""
         gen = torch.Generator(device=device)
-        for start in range(0, len(self), batch_size):
-            idx = list(range(start, min(start + batch_size, len(self))))
-            yield {
-                "frames": torch.stack([self.clip(i, gen) for i in idx]),
-                "labels": torch.tensor([self.label(i) for i in idx]),
-                "index": torch.tensor(idx),
-            }
-
-    def num_batches(self, batch_size: int) -> int:
-        return -(-len(self) // batch_size)
+        for i in range(self.num_batches(batch_size)):
+            yield self.batch(batch_size, i, gen)
 
 
 class SyntheticPretrain:

@@ -1,14 +1,19 @@
-"""Pretraining loss (counterpart of ``procedurevrl_tpu/engine/losses.py:27-63``;
-reference ``tools/train_net.py:129-173``):
-``KLDivLoss(reduction='batchmean')`` between ``log_softmax(student)`` and a
-top-k-sharpened teacher distribution, plus ``MSELoss(reduction='mean')`` on
-the diffusion (target, prediction) pair.  The cross-entropy family of the
-finetuning paths comes with those paths.
+"""Losses (counterpart of ``procedurevrl_tpu/engine/losses.py``; reference
+``tools/train_net.py:129-173``, ``lib/models/losses.py``):
+
+- pretraining: ``KLDivLoss(reduction='batchmean')`` between
+  ``log_softmax(student)`` and a top-k-sharpened teacher distribution,
+  plus ``MSELoss(reduction='mean')`` on the diffusion (target, prediction)
+  pair;
+- finetuning: mean cross-entropy, label-smoothing CE (0.2, ``smooth``),
+  soft-target CE, BCE on probabilities or logits, and MIL-NCE (unwired, as
+  in the reference), by name through :func:`get_loss_func`.
+EPIC-Kitchens' verb + noun loss comes with the EPIC slice.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -48,3 +53,70 @@ def pretrain_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     kl = kl_div_batchmean(logp, teacher)
     mse = ((mse_pair[0].float() - mse_pair[1].float()) ** 2).mean()
     return kl + mse, kl, mse
+
+
+def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    return torch.log_softmax(logits.float(), dim=-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the batch; integer labels."""
+    logp = _log_softmax(logits)
+    return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
+
+
+def label_smoothing_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  smoothing: float = 0.2) -> torch.Tensor:
+    """timm ``LabelSmoothingCrossEntropy`` (reference
+    ``tools/train_net.py:130``)."""
+    logp = _log_softmax(logits)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    smooth = -logp.mean(dim=-1)
+    return ((1.0 - smoothing) * nll + smoothing * smooth).mean()
+
+
+def soft_target_cross_entropy(logits: torch.Tensor,
+                              target_probs: torch.Tensor) -> torch.Tensor:
+    """timm ``SoftTargetCrossEntropy`` (the mixup path)."""
+    return (-target_probs * _log_softmax(logits)).sum(dim=-1).mean()
+
+
+def bce(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary CE of probabilities clipped to [1e-12, 1 - 1e-12]."""
+    p = probs.float().clamp(1e-12, 1 - 1e-12)
+    return -(targets * torch.log(p) + (1 - targets) * torch.log(1 - p)).mean()
+
+
+def bce_logit(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary CE of logits, in the stable form."""
+    x = logits.float()
+    return (x.clamp_min(0) - x * targets
+            + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def milnce(video_emb: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
+    """MIL-NCE over candidate narrations (reference
+    ``lib/models/losses.py:11-23``): video_emb [B, C], text_emb [B, n, C]
+    or [B, C]; each video's own n narrations are its positives."""
+    if text_emb.dim() == 2:
+        text_emb = text_emb[:, None]
+    x = torch.einsum("bc,knc->bkn", video_emb.float(), text_emb.float())
+    x = x.reshape(x.shape[0], -1)  # [B, B*n]
+    n = text_emb.shape[1]
+    cols = torch.arange(x.shape[1], device=x.device)
+    pos = cols[None, :] // n == torch.arange(x.shape[0], device=x.device)[:, None]
+    nominator = torch.logsumexp(x.masked_fill(~pos, float("-inf")), dim=1)
+    return (torch.logsumexp(x, dim=1) - nominator).mean()
+
+
+_LOSSES = {"cross_entropy": cross_entropy,
+           "smooth": label_smoothing_cross_entropy, "bce": bce,
+           "bce_logit": bce_logit, "milnce": milnce,
+           "soft_target": soft_target_cross_entropy}
+
+
+def get_loss_func(name: str) -> Callable:
+    """Loss by name (reference ``lib/models/losses.py:45-50``)."""
+    if name not in _LOSSES:
+        raise KeyError(f"loss {name!r}: expected one of {sorted(_LOSSES)}")
+    return _LOSSES[name]

@@ -5,12 +5,15 @@
 ``build_model(cfg, device)`` returns ``(model, label_emb)``: the model with
 float32 parameters drawn from ``cfg.RNG_SEED`` (on the CPU, then moved),
 in eval mode on ``device``, and the L2-normalised step bank as a float32
-tensor on the same device (or None when the config matches no bank).  A
-pretraining config (``TRAIN.LABEL_EMB`` set) builds the order transformer
-and, with ``MODEL.TEXT_MODEL clip_vit_b_16``, the CLIP text tower
-(JAX ``build.py:_common_kwargs``).  Under ``DEV.LOAD_DUMMY_DATA`` a missing
-bank file is replaced by a seeded ``NUM_CLASSES x 512`` random bank, as the
-JAX builder does.
+tensor on the same device, or None where the model matches no bank (a
+finetuning config names ``DEV.TEST_LANG_EMB`` only for its width; JAX
+``build.py:140-141``).  A pretraining config (``TRAIN.LABEL_EMB`` set)
+builds the order transformer and, with ``MODEL.TEXT_MODEL clip_vit_b_16``,
+the CLIP text tower; ``MODEL.NUM_SEG > 0`` builds the order transformer
+for forecasting; ``DEV.MATCH_LANG_EMB False`` (and no ``TRAIN.LABEL_EMB``)
+a ``MODEL.NUM_CLASSES`` finetuning head (JAX ``build.py:_common_kwargs``).
+Under ``DEV.LOAD_DUMMY_DATA`` a missing bank file is replaced by a seeded
+``NUM_CLASSES x 512`` random bank, as the JAX package's ``build_model`` does.
 """
 
 from __future__ import annotations
@@ -53,19 +56,25 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.TPU.COMPUTE_DTYPE]
 
 
+def _match_lang(cfg) -> bool:
+    return bool(cfg.DEV.MATCH_LANG_EMB or cfg.TRAIN.LABEL_EMB != "")
+
+
 def _head_kwargs(cfg) -> dict:
     """The head, order-transformer and text-tower arguments both encoders
     share (JAX ``build.py:_common_kwargs``)."""
     return dict(
+        num_classes=cfg.MODEL.NUM_CLASSES,
         temp=cfg.DEV.TEMP,
-        match_lang_emb=bool(cfg.DEV.MATCH_LANG_EMB or cfg.TRAIN.LABEL_EMB != ""),
+        match_lang_emb=_match_lang(cfg),
         order_pretrain=cfg.DEV.ORDER_PRETRAIN_ENABLED,
         order_max_len=cfg.DEV.ORDER_PRETRAIN_MAX_LEN,
         order_tfm_layers=cfg.DEV.ORDER_TFM_LAYERS,
         order_recog_batch=cfg.DEV.ORDER_RECOG_BATCH,
         num_seg=cfg.MODEL.NUM_SEG,
         with_text_model=cfg.MODEL.TEXT_MODEL == "clip_vit_b_16",
-        text_layers=cfg.DEV.TEXT_LAYERS, compute_dtype=compute_dtype(cfg))
+        text_layers=cfg.DEV.TEXT_LAYERS,
+        compute_dtype=compute_dtype(cfg))
 
 
 def _build_timesformer(cfg) -> torch.nn.Module:
@@ -107,20 +116,31 @@ def build_model(cfg, device: Union[str, torch.device, None] = None
     if cfg.MODEL.MODEL_NAME not in MODELS:
         raise NotImplementedError(
             f"model {cfg.MODEL.MODEL_NAME} is not ported yet")
+    if cfg.TRAIN.DATASET == "Epickitchens" and not _match_lang(cfg):
+        raise NotImplementedError(
+            "EPIC-Kitchens' verb and noun heads (head_v, head_n) are not "
+            "ported yet: they come with the EPIC slice")
     model = MODELS[cfg.MODEL.MODEL_NAME](cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.RNG_SEED))
     model = model.to(device).eval()
+    return model, step_bank(cfg, model.match_lang_emb, device)
 
-    label_emb = None
+
+def step_bank(cfg, match_lang_emb: bool,
+              device: Union[str, torch.device, None] = None
+              ) -> Optional[torch.Tensor]:
+    """The L2-normalised step bank of ``TRAIN.LABEL_EMB`` (or
+    ``DEV.TEST_LANG_EMB``) on ``device`` for a model that matches one, else
+    None."""
     emb_path = cfg.TRAIN.LABEL_EMB or cfg.DEV.TEST_LANG_EMB
-    if emb_path:
-        if os.path.exists(emb_path):
-            bank = normalize_bank(load_embedding_bank(emb_path))
-        elif cfg.DEV.LOAD_DUMMY_DATA:
-            rng = np.random.RandomState(0)
-            bank = normalize_bank(
-                rng.randn(cfg.MODEL.NUM_CLASSES, 512).astype(np.float32))
-        else:
-            raise FileNotFoundError(f"Step bank not found: {emb_path}")
-        label_emb = torch.from_numpy(bank).to(device)
-    return model, label_emb
+    if not (match_lang_emb and emb_path):
+        return None
+    if os.path.exists(emb_path):
+        bank = normalize_bank(load_embedding_bank(emb_path))
+    elif cfg.DEV.LOAD_DUMMY_DATA:
+        rng = np.random.RandomState(0)
+        bank = normalize_bank(
+            rng.randn(cfg.MODEL.NUM_CLASSES, 512).astype(np.float32))
+    else:
+        raise FileNotFoundError(f"Step bank not found: {emb_path}")
+    return torch.from_numpy(bank).to(resolve_device(device))

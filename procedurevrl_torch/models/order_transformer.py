@@ -98,8 +98,8 @@ class TemporalModelling(nn.Module):
 
 class OrderTransformer(nn.Module):
     """Clip-level diffusion transformer.  :meth:`pretrain` masks one clip
-    per sample and denoises it across all levels; ``forecast`` comes with
-    the forecasting slice."""
+    per sample and denoises it across all levels; :meth:`forecast` denoises
+    a clip appended after ``num_seg`` observed ones."""
 
     def __init__(self, num_seg: int = 8, tfm_layers: int = 4,
                  tfm_heads: int = 8, hidden_size: int = 512, max_len: int = 9,
@@ -229,6 +229,37 @@ class OrderTransformer(nn.Module):
         return denoised, mask_inds, (x0_expanded, denoised_all), denoised_all
 
     def forecast(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "OrderTransformer.forecast is not ported yet: it comes with the "
-            "zero-shot forecasting slice")
+        """Denoise a future-clip token appended after the ``num_seg``
+        observed clips (JAX ``order_transformer.py:271-309``; reference
+        ``tfm_model.py:206-249``).
+
+        x: [B * num_seg, C] clip embeddings, sample-major -> [B, C].  A zero
+        token sits at position ``num_seg``, the masked position; level 0
+        takes the features as they are, each later level re-noises the
+        detached estimate with zero noise (a pure sqrt(alpha_bar) scale);
+        nothing is padded."""
+        S, C = self.num_seg, self.hidden_size
+        L = S + 1
+        if L > self.max_len:
+            raise ValueError(f"forecast of {S} clips needs {L} positions, "
+                             f"the temporal embedding has {self.max_len}")
+        B = x.shape[0] // S
+        dev = x.device
+        feats = torch.cat([x.reshape(B, S, C), x.new_zeros(B, 1, C)], dim=1)
+        mask_onehot = (torch.arange(L, device=dev) == S).float()
+        mask_onehot = mask_onehot[None, :, None].expand(B, L, 1)
+        keep_ctx = (1.0 - mask_onehot).to(feats.dtype)
+        denoised = None
+        for time_i in range(self.tfm_layers):
+            t = torch.full((B,), self.tfm_layers - 1 - time_i,
+                           dtype=torch.long, device=dev)
+            if time_i == 0:
+                level_feats = feats
+            else:
+                src = denoised.detach()
+                noisy = self.schedule.ennoise(src, torch.zeros_like(src), t)
+                level_feats = (feats * keep_ctx
+                               + noisy[:, None].to(feats.dtype)
+                               * mask_onehot.to(feats.dtype))
+            denoised = self._level_forward(level_feats, mask_onehot, t, None)
+        return denoised

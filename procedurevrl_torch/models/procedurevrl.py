@@ -1,28 +1,40 @@
 """ProcedureVRL: a video encoder (TimeSformer or MViT-v2) with its 512-d
-projection head, the diffusion order transformer and the frozen CLIP text
-tower (counterpart of ``procedurevrl_tpu/models/procedurevrl.py``;
-reference ``lib/models/vit.py:183-358``, ``lib/models/mvit.py``).
+projection head, the diffusion order transformer, the frozen CLIP text
+tower and the finetuning head (counterpart of
+``procedurevrl_tpu/models/procedurevrl.py``; reference
+``lib/models/vit.py:183-358``, ``lib/models/mvit.py``).
 
-Ported branches of the forward dispatch:
+Branches of the forward dispatch:
 
 - **order pretraining** (train, ``order_pretrain``): encode B*M clips, match
   them against the step bank, build CLIP pseudo-labels from the ASR text
   (through the frozen text tower) and the precomputed CLIP visual features,
   denoise a masked clip across all diffusion levels, and return (student
   logits, teacher logits, MSE pair);
-- **zero-shot step classification** (eval, ``match_lang_emb``): normalised
-  head embedding @ step bank / temp, softmax.
+- **zero-shot step classification** (``match_lang_emb``): normalised head
+  embedding @ step bank / temp;
+- **zero-shot step forecasting** (``match_lang_emb``, ``num_seg > 0``): the
+  normalised head embeddings of the ``num_seg`` observed clips through
+  ``order_tfm.forecast``, normalised, @ step bank / temp;
+- **finetuning** (``match_lang_emb`` False): ``head_cls`` on the normalised
+  head embedding, / temp (COIN step and task classification), or on the
+  forecast of the ``num_seg`` clips with no temperature (COIN forecasting).
+Eval returns the softmax.  EPIC-Kitchens' verb and noun heads raise: they
+come with the EPIC slice.  Where no encoder parameter requires grad (the
+linear probe, ``TRAIN.LINEAR``) the encoder runs without autograd: no
+recomputation under remat, the forward kernels only, and no backward
+through it, as the JAX package's ``stop_frozen_gradients`` removes it.
 
-Forecasting (``num_seg > 0``) and the finetuning heads (``match_lang_emb``
-False) raise: they come with later slices.  The state dict carries the
-reference ``.pyth`` keys: for TimeSformer the encoder is the base class
-(``patch_embed.*``, ``blocks.*``, ``norm.*``, ``cls_token``, ``pos_embed``,
-``time_embed`` at the root), for MViT it sits under ``video_encoder.``;
-both add ``head.*``, ``order_tfm.*`` and ``text_model.*``.
+The state dict carries the reference ``.pyth`` keys: for TimeSformer the
+encoder is the base class (``patch_embed.*``, ``blocks.*``, ``norm.*``,
+``cls_token``, ``pos_embed``, ``time_embed`` at the root), for MViT it sits
+under ``video_encoder.``; both add ``head.*``, ``order_tfm.*``,
+``text_model.*`` and ``head_cls.*``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -34,9 +46,7 @@ from procedurevrl_torch.models.mvit import MViTConfig, MViTEncoder
 from procedurevrl_torch.models.order_transformer import OrderTransformer
 from procedurevrl_torch.models.timesformer import TimeSformer
 from procedurevrl_torch.ops.attention_route import AttentionRoute
-
-_LATER = ("not ported yet: forecasting and the finetuning heads come with "
-          "later slices")
+from procedurevrl_torch.solver.optimizer import is_encoder
 
 
 def _l2norm(x: torch.Tensor) -> torch.Tensor:
@@ -52,15 +62,17 @@ def _match(emb: torch.Tensor, bank: torch.Tensor, temp: float) -> torch.Tensor:
 
 class _Heads:
     """What the encoders share: the ``head`` projection, the order
-    transformer, the text tower, the teacher and the forward dispatch.  A
-    model class mixes it into an ``nn.Module`` and provides ``_encode``
-    (video -> [N, D] feature) and ``_reset_encoder``.
+    transformer, the text tower, the finetuning head and the forward
+    dispatch.  A model class mixes it into an ``nn.Module`` and provides
+    ``_encode`` (video -> [N, D] feature) and ``_reset_encoder``.
 
     ``forward(x, text, label_emb, train, generators, draws)``:
 
-    - eval: ``x`` [B, T, H, W, 3] normalised frames (cast to the compute
-      dtype here), ``label_emb`` [K, label_dim] L2-normalised step bank ->
-      post-softmax float32 predictions [B, K];
+    - classification: ``x`` [B, T, H, W, 3] normalised frames (cast to the
+      compute dtype here); forecasting (``num_seg`` M > 0): [B, M*T, H, W,
+      3]; ``label_emb`` [K, label_dim] the L2-normalised step bank, needed
+      where ``match_lang_emb`` holds -> float32 logits [B, K] in train
+      mode, their softmax in eval;
     - order pretraining (``train`` with ``text``): ``x`` [B, M, T, H, W, 3],
       ``text`` = {"clip_text_ids": [B*M, 77], "clip_vis_feat": [B*M, 512]}
       -> (student [B*M' + levels*B, K], teacher [same], (x0, denoised)).
@@ -68,32 +80,47 @@ class _Heads:
     ``torch.Generator``s on x's device; ``draws`` may fix "mask_inds",
     "pad_start", "level_noise" and "perm" (the recognition subset)."""
 
-    def _init_heads(self, feat_dim: int, label_dim: int, temp: float,
-                    match_lang_emb: bool, order_pretrain: bool,
+    def _init_heads(self, feat_dim: int, label_dim: int, num_classes: int,
+                    temp: float, match_lang_emb: bool, order_pretrain: bool,
                     order_max_len: int, order_tfm_layers: int,
                     order_recog_batch: int, num_seg: int,
                     with_text_model: bool, text_vocab: int, text_width: int,
                     text_heads: int, text_layers: int,
                     compute_dtype: torch.dtype) -> None:
-        if not match_lang_emb or num_seg > 0:
-            raise NotImplementedError(_LATER)
+        # the encoder's parameters, by the optimizer's grouping rule
+        self._encoder_params = [p for n, p in self.named_parameters()
+                                if is_encoder(n)]
         self.temp = temp
         self.compute_dtype = compute_dtype
+        self.match_lang_emb = match_lang_emb
+        self.order_pretrain = order_pretrain
+        self.num_seg = num_seg
         self.order_max_len = order_max_len
         self.order_recog_batch = order_recog_batch
         self.head = Linear(feat_dim, label_dim)
         self.order_tfm = (OrderTransformer(
-            num_seg=order_max_len - 1, tfm_layers=order_tfm_layers,
-            hidden_size=label_dim, max_len=order_max_len,
-            compute_dtype=compute_dtype) if order_pretrain else None)
+            num_seg=num_seg if num_seg > 0 else order_max_len - 1,
+            tfm_layers=order_tfm_layers, hidden_size=label_dim,
+            max_len=order_max_len, compute_dtype=compute_dtype)
+            if order_pretrain or num_seg > 0 else None)
         self.text_model = (CLIPTextEncoder(
             vocab_size=text_vocab, width=text_width, heads=text_heads,
             layers=text_layers, embed_dim=label_dim,
             compute_dtype=compute_dtype) if with_text_model else None)
+        self.head_cls = (None if match_lang_emb
+                         else Linear(label_dim, num_classes))
 
     def _encode(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         raise NotImplementedError
+
+    def _encoder_grad(self):
+        """``torch.no_grad()`` where no encoder parameter requires grad (a
+        frozen encoder: nothing before it needs a gradient either), else a
+        no-op.  Train mode still draws the drop-path masks."""
+        if any(p.requires_grad for p in self._encoder_params):
+            return contextlib.nullcontext()
+        return torch.no_grad()
 
     def _reset_encoder(self, generator: Optional[torch.Generator]) -> None:
         raise NotImplementedError
@@ -101,6 +128,8 @@ class _Heads:
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         self._reset_encoder(generator)
         init_linear(self.head, generator)
+        if self.head_cls is not None:
+            init_linear(self.head_cls, generator)
         for sub in (self.order_tfm, self.text_model):
             if sub is not None:
                 sub.reset_parameters(generator)
@@ -123,21 +152,33 @@ class _Heads:
                 label_emb: Optional[torch.Tensor] = None, train: bool = False,
                 generators: Optional[Dict[str, torch.Generator]] = None,
                 draws: Optional[Mapping[str, torch.Tensor]] = None):
-        if label_emb is None:
+        if self.match_lang_emb and label_emb is None:
             raise ValueError("match_lang_emb requires a step bank")
         gens = generators or {}
         draws = draws or {}
         batch_size = x.shape[0]
-        pretrain = self.order_tfm is not None and train
+        pretrain = self.order_pretrain and train
         if pretrain:
             x = x.reshape((-1,) + x.shape[2:])  # [B*M, T, H, W, 3]
-        feat = self._encode(x.to(self.compute_dtype),
-                            gens.get("droppath"))  # [N, D]
+        elif self.num_seg > 0:  # [B, M*T, ...] -> [B*M, T, ...]
+            x = x.reshape((batch_size * self.num_seg,
+                           x.shape[1] // self.num_seg) + x.shape[2:])
+        with self._encoder_grad():
+            feat = self._encode(x.to(self.compute_dtype),
+                                gens.get("droppath"))  # [N, D]
         emb = _l2norm(self.head(feat))
-        logits = _match(emb, label_emb, self.temp)
+        if self.match_lang_emb:
+            match_emb = emb
+            if self.num_seg > 0:  # zero-shot step forecasting
+                match_emb = _l2norm(self.order_tfm.forecast(emb))
+            logits = _match(match_emb, label_emb, self.temp)
+        elif self.num_seg > 0:  # forecasting head: no temperature
+            logits = self.head_cls(self.order_tfm.forecast(emb)).float()
+        else:
+            logits = self.head_cls(emb).float() / self.temp
         if not train:
             return torch.softmax(logits, dim=-1)
-        if not pretrain or text is None:
+        if not (pretrain and self.match_lang_emb and text is not None):
             return logits
 
         # order pretraining branch (reference lib/models/vit.py:325-352)
@@ -172,15 +213,16 @@ class _Heads:
 
 
 _HEAD_DEFAULTS = dict(
-    label_dim=512, temp=0.02, match_lang_emb=True, order_pretrain=False,
-    order_max_len=9, order_tfm_layers=4, order_recog_batch=9, num_seg=0,
-    with_text_model=False, text_vocab=49408, text_width=512, text_heads=8,
-    text_layers=12, compute_dtype=torch.float32)
+    label_dim=512, num_classes=1000, temp=0.02, match_lang_emb=True,
+    order_pretrain=False, order_max_len=9, order_tfm_layers=4,
+    order_recog_batch=9, num_seg=0, with_text_model=False, text_vocab=49408,
+    text_width=512, text_heads=8, text_layers=12, compute_dtype=torch.float32)
 
 
 class ProcedureVRL(_Heads, TimeSformer):
     """TimeSformer encoder + ``head`` projection (+ ``order_tfm`` and
-    ``text_model`` for order pretraining); the encoder is the base class,
+    ``text_model`` for order pretraining, ``order_tfm`` for forecasting,
+    ``head_cls`` for finetuning); the encoder is the base class,
     so its parameters sit at the root of the state dict, as in the
     reference's ViT checkpoints.  Head keyword arguments: see
     ``_HEAD_DEFAULTS``; forward: see :class:`_Heads`."""

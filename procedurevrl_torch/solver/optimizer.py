@@ -39,16 +39,26 @@ from typing import Dict, List
 import torch
 
 
+def _is_text(name: str) -> bool:
+    return "text_model" in name or "text_module" in name
+
+
+def is_encoder(name: str) -> bool:
+    """Whether a parameter name belongs to the video encoder: the group
+    that ``TRAIN.LINEAR`` freezes and ``TRAIN.MULT`` scales."""
+    return not (_is_text(name) or "head" in name or "order" in name)
+
+
 def _group_of(name: str, cfg) -> str:
     """Group label of one parameter name (``blocks.0.attn.qkv.weight``)."""
-    if "text_model" in name or "text_module" in name:
+    if _is_text(name):
         return "frozen"
     finetune = cfg.TRAIN.MULT != 1.0 or cfg.TRAIN.LINEAR
     if finetune:
         is_pretrain_head = cfg.TRAIN.LABEL_EMB != ""
         if name.startswith("head.") and not is_pretrain_head:
             return "frozen"
-        if "head" in name or "order" in name:
+        if not is_encoder(name):
             return "heads"
         return "frozen" if cfg.TRAIN.LINEAR else "encoder"
     if cfg.TRAIN.LABEL_EMB == "" and name.startswith("head."):

@@ -11,8 +11,17 @@ runs order pretraining on the card (``TRAIN.ENABLE``; the same with
         --cfg configs/COIN/step_classification.yaml \\
         TRAIN.ENABLE False DEV.MATCH_LANG_EMB True DEV.LOAD_DUMMY_DATA True
 
-runs the multi-view test (``TEST.ENABLE``).  Each prints its final stats
-as one JSON line.  ``--device cpu`` runs the plain PyTorch path instead.
+runs the multi-view test (``TEST.ENABLE``).  A COIN finetune,
+
+    python -m procedurevrl_torch.tools.run_net \\
+        --cfg configs/COIN/step_forecasting.yaml \\
+        DEV.LOAD_DUMMY_DATA True SOLVER.MAX_EPOCH 1
+
+(also ``step_classification.yaml``, ``task_classification.yaml``) trains
+the heads on the frozen encoder with evaluation on the val split, then
+tests the trained model (checkpoints are not ported yet: the model passes
+from the one to the other in memory).  Each prints its final stats as one
+JSON line.  ``--device cpu`` runs the plain PyTorch path instead.
 """
 
 from __future__ import annotations
@@ -44,17 +53,22 @@ def main(argv=None) -> int:
     cfg = load_config(args.cfg_file, args.opts or ())
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="[%(asctime)s][%(levelname)s] %(message)s")
+    model = None
     if cfg.TRAIN.ENABLE:
         from procedurevrl_torch.tools.train_net import train
 
         stats = train(cfg, device=args.device)
+        model = stats["model"]
         last = stats["history"][-1] if stats["history"] else {}
+        val = stats["val"][-1] if stats["val"] else {}
         print(json.dumps({"split": "train", "steps": stats["steps"],
-                          "clips_per_sec": stats["clips_per_sec"], **last}))
+                          "clips_per_sec": stats["clips_per_sec"], **last,
+                          **{f"val_{k}": v for k, v in val.items()
+                             if k.endswith("_err")}}))
     if cfg.TEST.ENABLE:
         from procedurevrl_torch.tools.test_net import test
 
-        print(json.dumps(test(cfg, device=args.device)))
+        print(json.dumps(test(cfg, device=args.device, model=model)))
     return 0
 
 

@@ -4,20 +4,22 @@
 Every test video contributes ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS``
 clips; each clip's softmax predictions are ensembled per video by the
 TestMeter, then top-1/top-5 are finalised.  Zero-shot COIN step
-classification runs this path with the CLIP step bank as the classifier.
+classification and step forecasting (``MODEL.NUM_SEG`` observed clips a
+sample, ``[B, NUM_SEG * T, ...]`` batches) run this path with the CLIP step
+bank as the classifier, the finetuning heads with none.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from procedurevrl_torch.datasets.synthetic import SyntheticClips
 from procedurevrl_torch.engine.steps import make_eval_step
-from procedurevrl_torch.models.build import build_model
+from procedurevrl_torch.models.build import build_model, step_bank
 from procedurevrl_torch.utils import weights
 from procedurevrl_torch.utils.device import resolve_device
 from procedurevrl_torch.utils.meters import TestMeter
@@ -29,22 +31,23 @@ def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
                  cfg, device: torch.device) -> Dict:
     """Run every test clip through ``eval_step`` and finalise the meter.
 
-    Besides the meter's stats, returns ``clips_per_sec``: clips over host
-    seconds from the end of the first batch to the end of the last (each
-    batch ends when its predictions reach the host), i.e. the steady rate
-    without the first batch's warm-up; null with a single batch."""
+    Besides the meter's stats, returns ``clips_per_sec``: clips (a
+    forecasting sample is ``NUM_SEG`` of them) over host seconds from the
+    end of the first batch to the end of the last (each batch ends when its
+    predictions reach the host), i.e. the steady rate without the first
+    batch's warm-up; null with a single batch."""
     n_clips = 0
     t_first = None
     test_meter.iter_tic()
     for cur_iter, batch in enumerate(dataset.batches(cfg.TEST.BATCH_SIZE,
                                                      device)):
         preds = eval_step(batch).cpu()
-        test_meter.update_stats(preds.numpy(), batch["labels"].numpy(),
-                                batch["index"].numpy())
+        test_meter.update_stats(preds.numpy(), batch["labels"].cpu().numpy(),
+                                batch["index"].cpu().numpy())
         if t_first is None:
             t_first = time.perf_counter()
         else:
-            n_clips += preds.shape[0]
+            n_clips += preds.shape[0] * dataset.clips
         test_meter.log_iter_stats(cur_iter)
         test_meter.iter_tic()
     elapsed = time.perf_counter() - t_first
@@ -53,22 +56,28 @@ def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
     return stats
 
 
-def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
+def test(cfg, device: Union[str, torch.device, None] = None,
+         model: Optional[torch.nn.Module] = None) -> Dict:
     """Test entry: build the model (random init from ``RNG_SEED``, or
     ``TEST.CHECKPOINT_FILE_PATH``), run the multi-view test, return stats.
-    ``device`` defaults to the card; pass ``"cpu"`` for the plain path."""
+    ``model`` (a trained model on ``device``, as ``train`` returns it) is
+    tested in place of a built one.  ``device`` defaults to the card;
+    pass ``"cpu"`` for the plain path."""
     device = resolve_device(device)
     logger.info("Test with config:\n%s", cfg.dump())
     if not cfg.DEV.LOAD_DUMMY_DATA:
         raise NotImplementedError("video decoding is not ported yet: set "
                                   "DEV.LOAD_DUMMY_DATA True")
-    model, label_emb = build_model(cfg, device)
+    if model is None:
+        model, label_emb = build_model(cfg, device)
+    else:
+        label_emb = step_bank(cfg, model.match_lang_emb, device)
     if cfg.TEST.CHECKPOINT_FILE_PATH:
         ignored = weights.load_into(model, weights.load_reference_checkpoint(
             cfg.TEST.CHECKPOINT_FILE_PATH))
         logger.info("Loaded %s (%d keys of other branches ignored)",
                     cfg.TEST.CHECKPOINT_FILE_PATH, len(ignored))
-    if label_emb is None:
+    if model.match_lang_emb and label_emb is None:
         raise ValueError("zero-shot testing needs a step bank "
                          "(DEV.TEST_LANG_EMB)")
     dataset = SyntheticClips(cfg, "test")

@@ -1,17 +1,24 @@
-"""Order-pretraining loop (counterpart of ``tools/train_net.py``; reference
-``tools/train_net.py:56-247``).
+"""Training loop (counterpart of ``tools/train_net.py``; reference
+``tools/train_net.py:56-530``): order pretraining, and the COIN finetunes
+(step classification, task classification and step forecasting heads).
 
 Each optimizer step takes ``accum = GLOBAL_BATCH_SIZE // TRAIN.BATCH_SIZE``
-micro-batches of ``TRAIN.BATCH_SIZE`` samples (each sample 9 clips), runs
-the pretraining branch forward and backward on each, and applies one AdamW
-update with the LR of the schedule.  Metrics stay on the device until a log
-boundary (every ``LOG_PERIOD`` steps, the end of the warm-up and the last
-step), where they reach the host and feed the :class:`TrainMeter`, so the
-steps queue on the card without a host round trip each.
+micro-batches of ``TRAIN.BATCH_SIZE`` samples, runs the model's forward
+and backward on each, and applies one update (AdamW, SGD or Adam) with the
+LR of the schedule.  A pretraining sample is 9 clips; a finetuning sample
+is one clip, or ``MODEL.NUM_SEG`` clips for forecasting.  Metrics stay on
+the device until a log boundary (every ``LOG_PERIOD`` steps, the end of
+the warm-up and the last step), where they reach the host and feed the
+:class:`TrainMeter`, so the steps queue on the card without a host round
+trip each.  Where ``TRAIN.EVAL_PERIOD <= SOLVER.MAX_EPOCH`` the val split
+is evaluated after every epoch that :func:`is_eval_epoch` names (the
+finetuning configs; the pretraining configs set 100), and after the last
+step of a run that ``max_steps`` cut short, through a :class:`ValMeter`.
 
-Data is the synthetic pretraining split (``DEV.LOAD_DUMMY_DATA``); the real
-HowTo100M loader, evaluation during training and checkpoint saving come
-later.
+Data is synthetic (``DEV.LOAD_DUMMY_DATA``: the pretraining split, or the
+train and val splits of :class:`SyntheticClips`); the real loaders,
+checkpoint saving and ``TRAIN.AUTO_RESUME`` are not ported yet: the
+trained model is returned instead (``run_net`` hands it to the test).
 """
 
 from __future__ import annotations
@@ -23,14 +30,15 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
-from procedurevrl_torch.engine.steps import make_train_step
+from procedurevrl_torch.datasets.synthetic import SyntheticClips, SyntheticPretrain
+from procedurevrl_torch.engine.steps import make_eval_step, make_train_step
 from procedurevrl_torch.models.build import build_model
 from procedurevrl_torch.solver.lr_policy import lr_schedule
 from procedurevrl_torch.solver.optimizer import construct_optimizer
 from procedurevrl_torch.utils import weights
 from procedurevrl_torch.utils.device import resolve_device
-from procedurevrl_torch.utils.meters import TrainMeter
+from procedurevrl_torch.utils.meters import TrainMeter, ValMeter
+from procedurevrl_torch.utils.metrics import topk_errors
 
 logger = logging.getLogger("procedurevrl_torch")
 
@@ -42,35 +50,69 @@ def _to_host(metrics: Dict[str, Union[torch.Tensor, float]]
     return {k: float(v) for k, v in metrics.items()}
 
 
+def is_eval_epoch(cfg, cur_epoch: int) -> bool:
+    """The last epoch and every ``TRAIN.EVAL_PERIOD``-th (JAX
+    ``utils/misc.py:73-77``)."""
+    if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
+        return True
+    return (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0
+
+
+def eval_epoch(dataset: SyntheticClips, eval_step, val_meter: ValMeter,
+               cfg, cur_epoch: int, device: torch.device) -> Dict:
+    """One pass over the val split in batches of ``TRAIN.BATCH_SIZE``
+    (JAX ``tools/train_net.py:204-250``): top-1 / top-5 errors of the
+    predictions per batch into ``val_meter``; returns its epoch stats."""
+    gen = torch.Generator(device=device)
+    batch_size = cfg.TRAIN.BATCH_SIZE
+    n_batches = dataset.num_batches(batch_size)
+    if n_batches == 0:
+        raise ValueError("the val split has no batch")
+    val_meter.iter_tic()
+    for cur_iter in range(n_batches):
+        batch = dataset.batch(batch_size, cur_iter, gen)
+        preds = eval_step(batch)
+        top1, top5 = topk_errors(preds, batch["labels"], (1, 5))
+        val_meter.update_stats(float(top1), float(top5), preds.shape[0])
+        val_meter.iter_toc()
+        val_meter.log_iter_stats(cur_epoch, cur_iter)
+        val_meter.iter_tic()
+    stats = val_meter.log_epoch_stats(cur_epoch)
+    val_meter.reset()
+    return stats
+
+
 def train(cfg, device: Union[str, torch.device, None] = None,
           max_steps: Optional[int] = None) -> Dict:
     """Train entry: build the model (random init from ``RNG_SEED``, or
     ``TRAIN.CHECKPOINT_FILE_PATH``) and run ``SOLVER.MAX_EPOCH`` epochs of
-    the synthetic pretraining split, or ``max_steps`` optimizer steps.
+    the synthetic train split, or ``max_steps`` optimizer steps.
     ``device`` defaults to the card; pass ``"cpu"`` for the plain path.
 
     Returns ``history`` (one dict of host floats per optimizer step:
-    ``loss``, ``kl``, ``mse``, ``top1_err``, ``top5_err``, ``lr``,
-    ``grad_norm``), ``steps``, ``clips_per_step`` and ``clips_per_sec``:
+    ``loss``, ``top1_err``, ``top5_err``, ``lr``, ``grad_norm``, and for
+    pretraining ``kl``, ``mse``), ``val`` (the :class:`ValMeter` stats of
+    each val epoch), ``steps``, ``clips_per_step``, ``clips_per_sec``:
     clips of the steps after the first ``WARMUP_STEPS`` over host seconds
     from the end of step ``WARMUP_STEPS`` to the end of the last step (each
-    end is a host read of that step's metrics); None with no such step."""
+    end is a host read of that step's metrics; val epochs in between are
+    left out), None with no such step, and ``model``, the trained model."""
     device = resolve_device(device)
     logger.info("Train with config:\n%s", cfg.dump())
     if not cfg.DEV.LOAD_DUMMY_DATA:
         raise NotImplementedError("video decoding is not ported yet: set "
                                   "DEV.LOAD_DUMMY_DATA True")
     model, label_emb = build_model(cfg, device)
-    if label_emb is None or cfg.TRAIN.TEXT == "":
-        raise NotImplementedError("only order pretraining (TRAIN.LABEL_EMB "
-                                  "and TRAIN.TEXT set) is ported so far")
     if cfg.TRAIN.CHECKPOINT_FILE_PATH:
         weights.load_into(model, weights.load_reference_checkpoint(
             cfg.TRAIN.CHECKPOINT_FILE_PATH))
-    vocab = (model.text_model.token_embedding.num_embeddings
-             if model.text_model is not None else 49408)
-    dataset = SyntheticPretrain(cfg, text_vocab=vocab,
-                                vis_dim=label_emb.shape[1])
+    if cfg.TRAIN.LABEL_EMB != "" and cfg.TRAIN.TEXT != "":
+        vocab = (model.text_model.token_embedding.num_embeddings
+                 if model.text_model is not None else 49408)
+        dataset = SyntheticPretrain(cfg, text_vocab=vocab,
+                                    vis_dim=label_emb.shape[1])
+    else:
+        dataset = SyntheticClips(cfg, "train")
     batch_size = cfg.TRAIN.BATCH_SIZE
     iters_per_epoch = dataset.num_batches(batch_size)
     accum = max(cfg.GLOBAL_BATCH_SIZE // max(batch_size, 1), 1)
@@ -82,18 +124,25 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     optimizer = construct_optimizer(model, cfg)
     train_step = make_train_step(model, optimizer, cfg, label_emb, sched,
                                  accum)
+    val = (SyntheticClips(cfg, "val")
+           if cfg.TRAIN.EVAL_PERIOD <= cfg.SOLVER.MAX_EPOCH else None)
+    eval_step = make_eval_step(model, cfg, label_emb)
+    val_meter = ValMeter(val.num_batches(batch_size) if val else 0, cfg)
     total = cfg.SOLVER.MAX_EPOCH * steps_per_epoch
-    if max_steps is not None:
-        total = min(total, max_steps)
+    cut = max_steps is not None and max_steps < total
+    if cut:
+        total = max_steps
     clips_per_step = accum * batch_size * dataset.clips
     meter = TrainMeter(steps_per_epoch, cfg)
     logger.info("%d optimizer steps of %d micro-batches x %d samples "
                 "(%d clips)", total, accum, batch_size, clips_per_step)
 
     history: List[Dict[str, float]] = []
+    val_stats: List[Dict] = []
     pending: List[Dict[str, Union[torch.Tensor, float]]] = []
     gen = torch.Generator(device=device)
-    t_timed = None
+    t_timed = t_end = None
+    eval_seconds = 0.0  # val epochs inside the timed steps
     step = 0
     meter.iter_tic()
     while step < total:
@@ -114,18 +163,32 @@ def train(cfg, device: Union[str, torch.device, None] = None,
                 meter.update_stats(
                     host["top1_err"], host["top5_err"], host["loss"],
                     host["lr"], accum * batch_size,
-                    extra={k: host[k] for k in ("kl", "mse", "grad_norm")})
+                    extra={k: host[k] for k in ("kl", "mse", "grad_norm")
+                           if k in host})
             pending = []
             if step == WARMUP_STEPS:
                 t_timed = time.perf_counter()
+            if step == total:
+                t_end = time.perf_counter()
         meter.iter_toc()
         meter.log_iter_stats(epoch, cur_iter)
         meter.iter_tic()
-        if cur_iter + 1 == steps_per_epoch or step == total:
+        epoch_end = cur_iter + 1 == steps_per_epoch
+        if epoch_end or step == total:
             meter.log_epoch_stats(epoch)
             meter.reset()
+        if val is not None and ((epoch_end and is_eval_epoch(cfg, epoch))
+                                or (cut and step == total)):
+            if device.type == "cuda":  # queued train steps stay timed
+                torch.cuda.synchronize(device)
+            t_eval = time.perf_counter()
+            val_stats.append(eval_epoch(val, eval_step, val_meter, cfg,
+                                        epoch, device))
+            if t_timed is not None and step < total:
+                eval_seconds += time.perf_counter() - t_eval
     timed = total - WARMUP_STEPS
-    rate = (timed * clips_per_step / (time.perf_counter() - t_timed)
+    rate = (timed * clips_per_step / (t_end - t_timed - eval_seconds)
             if timed > 0 else None)
-    return {"history": history, "steps": total,
-            "clips_per_step": clips_per_step, "clips_per_sec": rate}
+    return {"history": history, "val": val_stats, "steps": total,
+            "clips_per_step": clips_per_step, "clips_per_sec": rate,
+            "model": model}

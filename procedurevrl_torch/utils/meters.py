@@ -1,4 +1,4 @@
-"""Meters (counterpart of ``TestMeter`` and ``TrainMeter`` in
+"""Meters (counterpart of ``TestMeter``, ``TrainMeter`` and ``ValMeter`` in
 ``procedurevrl_tpu/utils/meters.py``; reference ``lib/utils/meters.py``).
 
 - ``TestMeter``: per-video accumulation (sum or max) of the softmax
@@ -6,7 +6,9 @@
   over videos;
 - ``TrainMeter``: window medians of the train metrics (loss, kl, mse,
   top-1/top-5 error, lr, grad_norm) every ``LOG_PERIOD`` iterations and
-  sample-weighted epoch means.
+  sample-weighted epoch means;
+- ``ValMeter``: window medians of the validation top-1/top-5 errors and
+  their sample-weighted epoch means, with the least epoch errors so far.
 Stats are logged as ``json_stats: {...}`` lines, the reference's format.
 """
 
@@ -186,5 +188,66 @@ class TrainMeter:
                  "loss": self.loss_total / n, "lr": self.lr,
                  "top1_err": self.num_top1_mis / n,
                  "top5_err": self.num_top5_mis / n}
+        log_json_stats(stats)
+        return stats
+
+
+class ValMeter:
+    """Validation meter (reference ``lib/utils/meters.py:423-537``); errors
+    arrive as host floats in percent."""
+
+    def __init__(self, max_iter: int, cfg):
+        self._cfg = cfg
+        self.max_iter = max_iter
+        self.min_top1_err = 100.0
+        self.min_top5_err = 100.0
+        self._tic = time.perf_counter()
+        self.iter_seconds = 0.0
+        self.reset()
+
+    def reset(self) -> None:
+        self.mb_top1_err = ScalarMeter(self._cfg.LOG_PERIOD)
+        self.mb_top5_err = ScalarMeter(self._cfg.LOG_PERIOD)
+        self.num_top1_mis = 0.0
+        self.num_top5_mis = 0.0
+        self.num_samples = 0
+
+    def iter_tic(self) -> None:
+        self._tic = time.perf_counter()
+
+    def iter_toc(self) -> None:
+        self.iter_seconds = time.perf_counter() - self._tic
+
+    def update_stats(self, top1_err: float, top5_err: float,
+                     mb_size: int) -> None:
+        self.mb_top1_err.add_value(top1_err)
+        self.mb_top5_err.add_value(top5_err)
+        self.num_top1_mis += top1_err * mb_size
+        self.num_top5_mis += top5_err * mb_size
+        self.num_samples += mb_size
+
+    def log_iter_stats(self, cur_epoch: int, cur_iter: int) -> None:
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+            return
+        eta = datetime.timedelta(seconds=int(
+            self.iter_seconds * (self.max_iter - cur_iter - 1)))
+        log_json_stats({
+            "_type": "val_iter",
+            "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.max_iter}",
+            "time_diff": self.iter_seconds, "eta": str(eta),
+            "top1_err": self.mb_top1_err.get_win_median(),
+            "top5_err": self.mb_top5_err.get_win_median()})
+
+    def log_epoch_stats(self, cur_epoch: int) -> Dict:
+        n = max(self.num_samples, 1)
+        top1, top5 = self.num_top1_mis / n, self.num_top5_mis / n
+        self.min_top1_err = min(self.min_top1_err, top1)
+        self.min_top5_err = min(self.min_top5_err, top5)
+        stats = {"_type": "val_epoch",
+                 "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+                 "top1_err": top1, "top5_err": top5,
+                 "min_top1_err": self.min_top1_err,
+                 "min_top5_err": self.min_top5_err}
         log_json_stats(stats)
         return stats

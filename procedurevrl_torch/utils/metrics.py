@@ -1,5 +1,5 @@
 """Accuracy metrics (counterpart of ``procedurevrl_tpu/utils/metrics.py``;
-reference ``lib/utils/metrics.py:10-52``)."""
+reference ``lib/utils/metrics.py:10-52``, :268)."""
 
 from __future__ import annotations
 
@@ -23,3 +23,25 @@ def topk_errors(preds: torch.Tensor, labels: torch.Tensor,
     """Top-k error rates in percent (reference ``lib/utils/metrics.py``)."""
     return [(1.0 - x / preds.shape[0]) * 100.0
             for x in topks_correct(preds, labels, ks)]
+
+
+def topk_accuracies(preds: torch.Tensor, labels: torch.Tensor,
+                    ks: Sequence[int]) -> List[torch.Tensor]:
+    """Top-k accuracies in percent."""
+    return [x / preds.shape[0] * 100.0
+            for x in topks_correct(preds, labels, ks)]
+
+
+def mean_class_recall(preds: torch.Tensor, labels: torch.Tensor,
+                      num_classes: int) -> torch.Tensor:
+    """Macro-averaged recall over the classes present in ``labels``, in
+    percent (reference ``lib/utils/metrics.py:268``)."""
+    labels = labels.reshape(-1).long()
+    correct = (preds.argmax(dim=1) == labels).float()
+    hits = torch.zeros(num_classes, device=preds.device).index_add_(
+        0, labels, correct)
+    total = torch.zeros(num_classes, device=preds.device).index_add_(
+        0, labels, torch.ones_like(correct))
+    present = total > 0
+    recall = hits / total.clamp_min(1.0)
+    return (recall[present].sum() / present.sum().clamp_min(1)) * 100.0

@@ -159,11 +159,14 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter tree -> the port's state dict.
 
     Takes the tree of a JAX ``ProcedureVRL`` (``{"encoder": ..., "head":
-    ..., "order_tfm": ..., "text_model": ...}``) or of a bare
+    ..., "order_tfm": ..., "text_model": ..., "head_cls": ...}``; the order
+    transformer's parameters are the same whether it was built for
+    pretraining or for ``num_seg`` forecasting) or of a bare
     ``TimeSformer``; an MViT encoder (the tree has ``patch_embed_kernel``)
     lands under ``video_encoder.``.  Inverse of ``convert_timesformer``,
     ``convert_mvit``, ``convert_linear``, ``convert_order_transformer`` and
-    ``convert_clip_text`` in ``procedurevrl_tpu/utils/converter.py``."""
+    ``convert_clip_text`` in ``procedurevrl_tpu/utils/converter.py``
+    (``convert_procedurevrl``)."""
     out: Dict[str, torch.Tensor] = {}
     enc = tree["encoder"] if "encoder" in tree else tree
     if "patch_embed_kernel" in enc:
@@ -176,6 +179,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         _order_tfm(tree["order_tfm"], out)
     if "text_model" in tree:
         _text_model(tree["text_model"], out)
+    if "head_cls" in tree:
+        _linear(tree["head_cls"], "head_cls", out)
     return out
 
 

@@ -95,6 +95,23 @@ def test_spatial_kernel_matches_plain(card, dtype, n):
     _close(out_c, ref_c, dtype)
 
 
+def test_spatial_kernel_at_the_forecasting_batch(card):
+    """K1f on the zero-shot forecasting test's batch, 16 samples x 8 clips
+    x 8 frames of TimeSformer-B: qkv [1024, 196, 2304] bf16 (4.6e8
+    elements, 0.93 GB; 12288 items of a frame and a head)."""
+    g = torch.Generator(device=card).manual_seed(14)
+    qkv = torch.randn(1024, 196, 2304, generator=g, device=card).to(
+        torch.bfloat16)
+    qkv_c = torch.randn(1024, 1, 2304, generator=g, device=card).to(
+        torch.bfloat16)
+    before = _build.LAUNCHES.get(k1.KERNEL, 0)
+    out, out_c = k1.spatial_attention(qkv, qkv_c, 12, 0.125)
+    assert _build.LAUNCHES[k1.KERNEL] == before + 1
+    ref, ref_c = k1.spatial_attention_plain(qkv, qkv_c, 12, 0.125)
+    _close(out, ref, torch.bfloat16)
+    _close(out_c, ref_c, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [196, 49, 207])
 def test_spatial_probs_kernel_matches_plain(card, dtype, n):

@@ -159,7 +159,28 @@ Phases (any failure exits non-zero):
    and val errors; 12 K1f and 12 K2f per micro-batch and val batch, and
    none of K1sp, K1b, K1br, K1bd, K2b, K2v3b or any other port kernel;
    one step of each against the plain path (phase 7's limits) and one
-   step of each profiled with its peak memory.
+   step of each profiled with its peak memory;
+31. slice 15, checkpoints, through files: TimeSformer-B order pretraining
+   (``procedurevrl_adamw.yaml``, bf16, remat, 2 samples a micro-batch, 8
+   micro-batches a step, 4 steps an epoch, 2 epochs, a checkpoint after
+   each) uninterrupted (run A), and cut after epoch 1 then resumed by
+   AUTO_RESUME from its ``OUTPUT_DIR`` (run B: asserted to start at epoch 2
+   and step 4); B's epoch-2 losses and final parameters against A's
+   (phase 7's limits; whether bit for bit is printed); 24 K1sp, 24 K2f,
+   12 K1b and 12 K2b per micro-batch and no other port kernel; one
+   checkpoint written by the blocking and by the thread writer (equal
+   tensors; file size, the loop's stall in each ``save``, the load time);
+   then the COIN forecasting linear probe from A's last file with
+   ``CHECKPOINT_EPOCH_RESET`` (encoder and order transformer the file's,
+   ``head_cls`` at its seeded init), one epoch, which saves (12 K1f and 12
+   K2f per micro-batch, no backward kernel); then ``test_net.test`` with
+   no model, which loads that checkpoint from ``OUTPUT_DIR`` (its
+   predictions on one batch equal the in-memory model's) and writes
+   ``TEST.SAVE_RESULTS_PATH``, read back.  Each leg's wall time.
+Every phase that trains or tests gives ``OUTPUT_DIR`` a temporary
+directory of its own (the shipped configs name ``.``, and AUTO_RESUME would
+pick up a checkpoint left there), and sends the port's log lines, which
+``setup_logging`` puts on stdout, to that directory only.
 The kernels of each attention wrapper are timed apart, and every case
 against another checkout, by ``python -m procedurevrl_torch.tools.kernel_ab``.
 Phases 6 and 7 assert that none of slice 5's kernels runs without the
@@ -173,14 +194,18 @@ lines are the
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -326,10 +351,36 @@ MVIT_BLOCKS = MVIT_HL_BLOCKS + MVIT_HS_BLOCKS
 COIN_BANK = os.path.join(ROOT, "data/clip_step_emb_coin.pth")
 FINETUNES = (("step_forecasting", 2, 6), ("task_classification", 2, 6),
              ("step_classification", 16, 3))
+# phase 31: 64 synthetic videos, 2 a micro-batch, 8 micro-batches a step
+RESUME_OPTS = ("TRAIN.BATCH_SIZE", "2", "GLOBAL_BATCH_SIZE", "16",
+               "SOLVER.MAX_EPOCH", "2", "TRAIN.CHECKPOINT_PERIOD", "1")
+RESUME_STEPS, RESUME_ACCUM = 4, 8   # an epoch's optimizer steps, micro-batches
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+@contextlib.contextmanager
+def quiet():
+    """The port's log lines, which its entry points put on stdout, off
+    stdout while inside (they still reach ``OUTPUT_DIR/stdout.log``)."""
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        yield
+
+
+@contextlib.contextmanager
+def job_dir(cfg):
+    """``cfg.OUTPUT_DIR`` a temporary directory for one train or test run
+    (checkpoints, ``stdout.log``), its logs off stdout, the directory
+    removed afterwards."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_")
+    cfg.OUTPUT_DIR = out
+    try:
+        with quiet():
+            yield out
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def time_ms(torch, fn, iters: int = 20, reps: int = 21) -> float:
@@ -1629,9 +1680,9 @@ def eval_phase(torch, k1, k2, k5, k8, _build, cfg, label: str, knobs,
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    with knobs_set(knobs):
+    with knobs_set(knobs), job_dir(cfg):
         stats = test(cfg, device="cuda")
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1756,8 +1807,9 @@ def run_train(torch, _build, cfg, steps: int):
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    stats = train(cfg, device="cuda", max_steps=steps)
-    torch.cuda.synchronize()
+    with job_dir(cfg):
+        stats = train(cfg, device="cuda", max_steps=steps)
+        torch.cuda.synchronize()
     return stats, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated()
 
 
@@ -1948,6 +2000,274 @@ def phase_finetune(torch, k1, k2, k5, k8, _build) -> dict:
         print(f"{name} profiled step peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     return total
+
+
+def resume_run(torch, k1, k2, k5, k8, _build, out: str, label: str,
+               max_steps=None) -> dict:
+    """One ``train_net.train`` of phase 31's pretraining in ``out``;
+    asserts finite metrics and, per micro-batch, 24 K1sp, 24 K2f, 12 K1b
+    and 12 K2b (remat) and no other port kernel.  Returns its stats."""
+    from procedurevrl_torch.tools.train_net import train
+
+    cfg = train_cfg(True, *RESUME_OPTS)
+    cfg.OUTPUT_DIR = out
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with quiet():
+        stats = train(cfg, device="cuda", max_steps=max_steps)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for h in stats["history"]:
+        if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
+                                                 "grad_norm")):
+            fail(f"run {label} has a non-finite step: {h}")
+    micro = stats["steps"] * RESUME_ACCUM
+    per_micro = {k1.KERNEL_PROBS: 2 * DEPTH, k2.KERNEL: 2 * DEPTH,
+                 k1.KERNEL_BWD: DEPTH, k2.KERNEL_BWD: DEPTH}
+    check_launches(launches, {
+        key: per_micro.get(key, 0) * micro
+        for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
+        f"run {label}")
+    print(f"run {label}: epochs {stats['start_epoch'] + 1}.."
+          f"{stats['start_epoch'] + stats['steps'] // RESUME_STEPS} from "
+          f"optimizer step {stats['start_step']}, {stats['steps']} steps of "
+          f"{stats['clips_per_step']} clips in {wall:.1f} s (model build and "
+          f"checkpoint writes included), losses "
+          f"{[round(h['loss'], 6) for h in stats['history']]}, checkpoints "
+          f"{[os.path.basename(p) for p in stats['checkpoints']]}, launches "
+          f"{launches}")
+    return stats
+
+
+def same_state(torch, a: dict, b: dict, what: str) -> None:
+    """Every tensor of ``a`` (nested dicts of tensors) equals ``b``'s."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"{what}: keys differ")
+        for k in a:
+            same_state(torch, a[k], b[k], f"{what}.{k}")
+    elif torch.is_tensor(a):
+        if not torch.equal(a, b):
+            fail(f"{what} differs")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_state(torch, x, y, f"{what}[{i}]")
+
+
+def phase_checkpoints(torch, k1, k2, k5, k8, _build) -> None:
+    """Slice 15 (phase 31): pretrain, resume, finetune from the file, and
+    test from ``OUTPUT_DIR``, all through files (see the module's list)."""
+    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    from procedurevrl_torch.engine.steps import make_eval_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+    from procedurevrl_torch.tools.test_net import test
+    from procedurevrl_torch.tools.train_net import train
+    from procedurevrl_torch.utils import checkpoint as cu
+    from procedurevrl_torch.utils.metrics import topks_correct
+
+    if any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 31 runs the default route: unset {list(TS_KNOBS)}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # 1. pretraining: A straight, B cut after epoch 1 and resumed
+        t0 = time.perf_counter()
+        run = functools.partial(resume_run, torch, k1, k2, k5, k8, _build)
+        a = run(os.path.join(root, "a"), "A")
+        names = [os.path.basename(p) for p in a["checkpoints"]]
+        if names != ["checkpoint_epoch_00001.pyth",
+                     "checkpoint_epoch_00002.pyth"]:
+            fail(f"run A wrote {names}")
+        b1 = run(os.path.join(root, "b"), "B (cut after epoch 1)",
+                 RESUME_STEPS)
+        if [os.path.basename(p) for p in b1["checkpoints"]] != [
+                "checkpoint_epoch_00001.pyth"]:
+            fail(f"run B's first part wrote {b1['checkpoints']}")
+        b2 = run(os.path.join(root, "b"), "B (resumed)")
+        if (b2["start_epoch"], b2["start_step"]) != (1, RESUME_STEPS):
+            fail(f"run B resumed at epoch {b2['start_epoch'] + 1}, step "
+                 f"{b2['start_step']}, expected epoch 2, step "
+                 f"{RESUME_STEPS}")
+        ha, hb = a["history"][RESUME_STEPS:], b2["history"]
+        if len(hb) != RESUME_STEPS or any(x["lr"] != y["lr"]
+                                          for x, y in zip(ha, hb)):
+            fail("run B's epoch 2 is not run A's (steps or LR)")
+        d_loss = max(abs(x["loss"] - y["loss"]) / abs(x["loss"])
+                     for x, y in zip(ha, hb))
+        d_norm = max(abs(x["grad_norm"] - y["grad_norm"]) / x["grad_norm"]
+                     for x, y in zip(ha, hb))
+        pa, pb = a["model"].state_dict(), b2["model"].state_dict()
+        d_param = max((pa[k].float() - pb[k].float()).abs().max().item()
+                      for k in pa)
+        d_rel = max(((pa[k].float() - pb[k].float()).norm()
+                     / pa[k].float().norm().clamp_min(1e-30)).item()
+                    for k in pa)
+        exact = (all(x == y for x, y in zip(ha, hb))
+                 and all(torch.equal(pa[k], pb[k]) for k in pa)
+                 and all(x == y for x, y in zip(a["history"][:RESUME_STEPS],
+                                                b1["history"])))
+        print(f"resume: run B's epoch 2 vs run A's: max loss rel diff "
+              f"{d_loss:.3e} (tol {STEP_LOSS_RTOL}), max grad norm rel diff "
+              f"{d_norm:.3e} (tol {STEP_NORM_RTOL}), final parameters max "
+              f"|d| {d_param:.3e}, max per-tensor rel norm diff {d_rel:.3e} "
+              f"(tol {STEP_NORM_RTOL}); bit for bit: {exact}")
+        if d_loss > STEP_LOSS_RTOL or d_norm > STEP_NORM_RTOL:
+            fail("the resumed run's epoch 2 disagrees with the straight run")
+        if d_rel > STEP_NORM_RTOL:
+            fail("the resumed run's parameters disagree with the straight "
+                 "run's")
+        del b1, b2, pb
+        shutil.rmtree(os.path.join(root, "b"))
+        os.remove(a["checkpoints"][0])
+        print(f"phase 31 leg 1 (pretrain, resume): "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # the writers and the load, on run A's last file
+        t0 = time.perf_counter()
+        path_a = a["checkpoints"][-1]
+        cfg = train_cfg(True, *RESUME_OPTS)
+        with quiet():
+            model, _ = build_model(cfg, "cuda")
+            opt = construct_optimizer(model, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            epoch, step = cu.load_checkpoint(path_a, model, opt)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t1
+            if (epoch, step) != (1, 2 * RESUME_STEPS):
+                fail(f"{path_a} holds epoch {epoch}, step {step}")
+            same_state(torch, model.state_dict(), pa, "the loaded model")
+            t1 = time.perf_counter()
+            sync_path = cu.save_checkpoint(os.path.join(root, "sync"), model,
+                                           opt, cfg, epoch, step)
+            t_sync = time.perf_counter() - t1
+            writer = cu.AsyncCheckpointer()
+            t1 = time.perf_counter()
+            async_path = writer.save(os.path.join(root, "async"), model, opt,
+                                     cfg, epoch, step)
+            t_async = time.perf_counter() - t1
+            writer.wait()
+            t_async_all = time.perf_counter() - t1
+        size = os.path.getsize(sync_path)
+        blobs = [torch.load(p, map_location="cpu", weights_only=False)
+                 for p in (sync_path, async_path)]
+        same_state(torch, blobs[0], blobs[1], "the thread writer's file")
+        if blobs[0]["step"] != step or blobs[1]["cfg"] != blobs[0]["cfg"]:
+            fail("the two writers' files differ")
+        file_state = blobs[0]["model_state"]
+        print(f"checkpoint of TimeSformer-B pretraining (model + AdamW): "
+              f"{size} bytes ({size / 2 ** 30:.3f} GiB); the loop's stall "
+              f"in save: blocking writer {t_sync:.3f} s, thread writer "
+              f"{t_async:.4f} s (its write done {t_async_all:.3f} s after "
+              f"the call); load (read + restore onto the card) "
+              f"{t_load:.3f} s; the two files' tensors equal")
+        del blobs, model, opt, a, pa
+        shutil.rmtree(os.path.join(root, "sync"))
+        shutil.rmtree(os.path.join(root, "async"))
+        torch.cuda.empty_cache()
+        print(f"phase 31 leg 2 (writers, load): "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # 3. the COIN forecasting linear probe from run A's last file
+        t0 = time.perf_counter()
+        ft = os.path.join(root, "ft")
+        cfg = coin_cfg("step_forecasting", "TRAIN.BATCH_SIZE", "2",
+                       "GLOBAL_BATCH_SIZE", "16", "SOLVER.MAX_EPOCH", "1",
+                       "TRAIN.CHECKPOINT_FILE_PATH", path_a,
+                       "TRAIN.CHECKPOINT_EPOCH_RESET", "True",
+                       "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.BATCH_SIZE",
+                       "16", "TEST.SAVE_RESULTS_PATH", "results.pkl",
+                       "OUTPUT_DIR", ft)
+        if not cfg.TRAIN.LINEAR:
+            fail("step_forecasting.yaml is no linear probe")
+        with quiet():  # the load train_net makes, on a model of its own
+            model, _ = build_model(cfg, "cuda")
+            head_cls = {k: v.clone() for k, v in model.state_dict().items()
+                        if k.startswith("head_cls.")}
+            start = cu.load_train_checkpoint(cfg, model,
+                                             construct_optimizer(model, cfg))
+        if start != (0, 0):
+            fail(f"the finetune starts at (epoch, step) {start}")
+        for k, v in model.state_dict().items():
+            want = head_cls.get(k, file_state.get(k))
+            if want is None or not torch.equal(v.cpu(), want.cpu()):
+                fail(f"the finetune's {k} is not "
+                     f"{'its init' if k in head_cls else 'from the file'}")
+        n_order = sum(k.startswith("order_tfm.") for k in model.state_dict())
+        del model, file_state
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        with quiet():
+            stats = train(cfg, device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(_build.LAUNCHES)
+        # TRAIN.EPOCH_MUL 2: an epoch is 128 samples, 64 micro-batches
+        micro = SyntheticClips(cfg, "train").num_batches(cfg.TRAIN.BATCH_SIZE)
+        check_launches(launches, {
+            key: DEPTH * micro if key in (k1.KERNEL, k2.KERNEL) else 0
+            for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
+            "the finetune from the pretraining file")
+        saved = [os.path.basename(p) for p in stats["checkpoints"]]
+        if stats["steps"] != micro // RESUME_ACCUM or saved != [
+                "checkpoint_epoch_00001.pyth"]:
+            fail(f"the finetune ran {stats['steps']} steps and wrote {saved}")
+        if not all(math.isfinite(h["loss"]) for h in stats["history"]):
+            fail("the finetune has a non-finite loss")
+        print(f"finetune from {os.path.basename(path_a)}: encoder, head and "
+              f"{n_order} order_tfm tensors the file's, head_cls at its "
+              f"seeded init; {stats['steps']} steps of "
+              f"{stats['clips_per_step']} clips in {wall:.1f} s, losses "
+              f"{[round(h['loss'], 6) for h in stats['history']]}, wrote "
+              f"{saved}, launches {launches}")
+        print(f"phase 31 leg 3 (finetune): {time.perf_counter() - t0:.1f} s")
+
+        # 4. the test, from OUTPUT_DIR's last checkpoint
+        t0 = time.perf_counter()
+        dataset = SyntheticClips(cfg, "test")
+        n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
+        _build.reset_launches()
+        with quiet():
+            tstats = test(cfg, device="cuda")
+            torch.cuda.synchronize()
+            model, _ = build_model(cfg, "cuda")
+            loaded = cu.load_test_checkpoint(cfg, model)
+        launches = dict(_build.LAUNCHES)
+        check_launches(launches, {
+            key: DEPTH * n_batches if key in (k1.KERNEL, k2.KERNEL) else 0
+            for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
+            "the test from OUTPUT_DIR")
+        if loaded != stats["checkpoints"][-1]:
+            fail(f"the test loaded {loaded}, not the finetune's checkpoint")
+        batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
+        p_file = make_eval_step(model, cfg, None)(batch)
+        p_mem = make_eval_step(stats["model"], cfg, None)(batch)
+        torch.cuda.synchronize()
+        if not torch.equal(p_file, p_mem):
+            fail(f"the loaded model predicts other than the trained one: max "
+                 f"|d| {(p_file - p_mem).abs().max().item():.3e}")
+        with open(os.path.join(ft, "results.pkl"), "rb") as f:
+            res = pickle.load(f)
+        preds, labels = (torch.from_numpy(res[k]) for k in ("preds",
+                                                            "labels"))
+        top1 = float(topks_correct(preds, labels, (1,))[0]) / len(labels)
+        if (preds.shape != (len(dataset), cfg.MODEL.NUM_CLASSES)
+                or not bool(torch.isfinite(preds).all())
+                or "{:.2f}".format(top1 * 100) != tstats["top1_acc"]):
+            fail(f"TEST.SAVE_RESULTS_PATH holds preds {tuple(preds.shape)}, "
+                 f"top1 {top1 * 100:.2f} against {tstats['top1_acc']}")
+        print(f"test from {os.path.basename(loaded)} in OUTPUT_DIR: "
+              f"{n_batches} batches of {cfg.TEST.BATCH_SIZE} x "
+              f"{dataset.clips} clips, top1 {tstats['top1_acc']} top5 "
+              f"{tstats['top5_acc']}, {tstats['clips_per_sec']:.2f} clips/s; "
+              f"one batch's predictions equal the in-memory model's bit for "
+              f"bit (max {p_file.max().item():.4f}); results.pkl read back "
+              f"({tuple(preds.shape)}, top1 {top1 * 100:.2f}); launches "
+              f"{launches}")
+        print(f"phase 31 leg 4 (test): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def mvit_train(torch, k1, k2, k5, k8, _build, label: str, steps: int,
@@ -2789,6 +3109,8 @@ def main() -> int:
     timed("29 slice 14 MViT eval", phase_mvit_eval, torch, k1, k2, k5, k8,
           _build)
     timed("30 slice 14 COIN finetunes", phase_finetune, torch, k1, k2, k5,
+          k8, _build)
+    timed("31 slice 15 checkpoints", phase_checkpoints, torch, k1, k2, k5,
           k8, _build)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels

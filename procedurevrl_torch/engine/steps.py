@@ -62,8 +62,10 @@ def seed_generators(gens: Dict[str, torch.Generator], seed: int, step: int,
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg, label_emb: Optional[torch.Tensor],
                     sched: Callable[[int], float],
-                    accum_steps: int = 1) -> Callable:
-    """The train step of the task ``cfg`` selects.
+                    accum_steps: int = 1, start_step: int = 0) -> Callable:
+    """The train step of the task ``cfg`` selects; its first call is
+    optimizer step ``start_step`` (a resumed run's restored step), whose
+    number seeds the random streams and picks the LR of ``sched``.
 
     ``train_step(batch, draws=None)``: ``batch`` holds ``frames`` (uint8 or
     normalised float) and ``labels`` [B], for pretraining frames [B, M, T,
@@ -90,7 +92,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     params = [p for g in optimizer.param_groups for p in g["params"]]
     device = next(model.parameters()).device
     gens = {name: torch.Generator(device=device) for name in STREAMS}
-    state = {"step": 0}
+    state = {"step": start_step}
 
     def pretrain_metrics(batch: Batch, frames: torch.Tensor,
                          draws: Optional[Mapping]):

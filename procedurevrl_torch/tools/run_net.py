@@ -19,19 +19,26 @@ runs the multi-view test (``TEST.ENABLE``).  A COIN finetune,
 
 (also ``step_classification.yaml``, ``task_classification.yaml``) trains
 the heads on the frozen encoder with evaluation on the val split, then
-tests the trained model (checkpoints are not ported yet: the model passes
-from the one to the other in memory).  Each prints its final stats as one
-JSON line.  ``--device cpu`` runs the plain PyTorch path instead.
+tests the model of the last checkpoint in ``OUTPUT_DIR``.  A finetune
+starts from a pretraining run's file with ``TRAIN.CHECKPOINT_FILE_PATH
+<file> TRAIN.CHECKPOINT_EPOCH_RESET True``, and every run resumes from
+``OUTPUT_DIR``'s last checkpoint under ``TRAIN.AUTO_RESUME`` (the shipped
+configs set it, with ``OUTPUT_DIR .``: give each run its own
+``OUTPUT_DIR``).  The logs go to stdout and ``OUTPUT_DIR/stdout.log``;
+train and test each print their final stats as one JSON line (a line of
+its own that starts with ``{``).  ``--device cpu`` runs the plain PyTorch
+path instead.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import sys
 
 from procedurevrl_torch.config import load_config
+from procedurevrl_torch.utils.device import resolve_device
+from procedurevrl_torch.utils.logging import setup_logging
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -51,24 +58,22 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = load_config(args.cfg_file, args.opts or ())
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
-                        format="[%(asctime)s][%(levelname)s] %(message)s")
-    model = None
+    device = resolve_device(args.device)
+    setup_logging(cfg.OUTPUT_DIR)
     if cfg.TRAIN.ENABLE:
         from procedurevrl_torch.tools.train_net import train
 
-        stats = train(cfg, device=args.device)
-        model = stats["model"]
+        stats = train(cfg, device=device)
         last = stats["history"][-1] if stats["history"] else {}
         val = stats["val"][-1] if stats["val"] else {}
         print(json.dumps({"split": "train", "steps": stats["steps"],
                           "clips_per_sec": stats["clips_per_sec"], **last,
                           **{f"val_{k}": v for k, v in val.items()
-                             if k.endswith("_err")}}))
+                             if k.endswith("_err")}}), flush=True)
     if cfg.TEST.ENABLE:
         from procedurevrl_torch.tools.test_net import test
 
-        print(json.dumps(test(cfg, device=args.device, model=model)))
+        print(json.dumps(test(cfg, device=device)), flush=True)
     return 0
 
 

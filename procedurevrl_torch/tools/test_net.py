@@ -6,25 +6,34 @@ clips; each clip's softmax predictions are ensembled per video by the
 TestMeter, then top-1/top-5 are finalised.  Zero-shot COIN step
 classification and step forecasting (``MODEL.NUM_SEG`` observed clips a
 sample, ``[B, NUM_SEG * T, ...]`` batches) run this path with the CLIP step
-bank as the classifier, the finetuning heads with none.
+bank as the classifier, the finetuning heads with none.  The weights come
+from the first of ``TEST.CHECKPOINT_FILE_PATH``, ``OUTPUT_DIR``'s last
+checkpoint and ``TRAIN.CHECKPOINT_FILE_PATH``
+(``utils/checkpoint.py:load_test_checkpoint``), over the pretrained encoder
+of ``TIMESFORMER.PRETRAINED_MODEL``.  ``TEST.SAVE_RESULTS_PATH`` and
+``TEST.SAVE_PREDICT_PATH`` dump the per-video predictions and labels into
+``OUTPUT_DIR``.
 """
 
 from __future__ import annotations
 
-import logging
+import os
+import pickle
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Union
 
 import torch
 
 from procedurevrl_torch.datasets.synthetic import SyntheticClips
 from procedurevrl_torch.engine.steps import make_eval_step
-from procedurevrl_torch.models.build import build_model, step_bank
-from procedurevrl_torch.utils import weights
+from procedurevrl_torch.models.build import build_model
+from procedurevrl_torch.utils import checkpoint as cu
+from procedurevrl_torch.utils import misc, weights
 from procedurevrl_torch.utils.device import resolve_device
+from procedurevrl_torch.utils.logging import get_logger, setup_logging
 from procedurevrl_torch.utils.meters import TestMeter
 
-logger = logging.getLogger("procedurevrl_torch")
+logger = get_logger(__name__)
 
 
 def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
@@ -53,30 +62,45 @@ def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
     elapsed = time.perf_counter() - t_first
     stats = dict(test_meter.finalize_metrics())
     stats["clips_per_sec"] = n_clips / elapsed if n_clips else None
+    save_results(test_meter, cfg)
     return stats
 
 
-def test(cfg, device: Union[str, torch.device, None] = None,
-         model: Optional[torch.nn.Module] = None) -> Dict:
-    """Test entry: build the model (random init from ``RNG_SEED``, or
-    ``TEST.CHECKPOINT_FILE_PATH``), run the multi-view test, return stats.
-    ``model`` (a trained model on ``device``, as ``train`` returns it) is
-    tested in place of a built one.  ``device`` defaults to the card;
-    pass ``"cpu"`` for the plain path."""
+def save_results(test_meter: TestMeter, cfg) -> None:
+    """``TEST.SAVE_RESULTS_PATH``: a pickle of ``{"preds", "labels"}`` (the
+    ensembled per-video predictions and labels, numpy); and
+    ``TEST.SAVE_PREDICT_PATH``: the same as tensors by ``torch.save``, the
+    reference's ``vis_pred_zeroshot_step_cls.pth`` format; both in
+    ``OUTPUT_DIR`` (JAX ``tools/test_net.py:62-89``)."""
+    if cfg.TEST.SAVE_RESULTS_PATH:
+        out = os.path.join(cfg.OUTPUT_DIR, cfg.TEST.SAVE_RESULTS_PATH)
+        with open(out, "wb") as f:
+            pickle.dump({"preds": test_meter.video_preds,
+                         "labels": test_meter.video_labels}, f)
+        logger.info("Saved results to %s", out)
+    if cfg.TEST.SAVE_PREDICT_PATH:
+        out = os.path.join(cfg.OUTPUT_DIR, cfg.TEST.SAVE_PREDICT_PATH)
+        torch.save({"preds": torch.from_numpy(test_meter.video_preds.copy()),
+                    "labels": torch.from_numpy(
+                        test_meter.video_labels.copy())}, out)
+        logger.info("Saved predictions to %s", out)
+
+
+def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
+    """Test entry: build the model (random init from ``RNG_SEED``, then the
+    pretrained encoder and the checkpoint the module names), run the
+    multi-view test, return stats.  ``device`` defaults to the card; pass
+    ``"cpu"`` for the plain path."""
     device = resolve_device(device)
+    setup_logging(cfg.OUTPUT_DIR)
     logger.info("Test with config:\n%s", cfg.dump())
     if not cfg.DEV.LOAD_DUMMY_DATA:
         raise NotImplementedError("video decoding is not ported yet: set "
                                   "DEV.LOAD_DUMMY_DATA True")
-    if model is None:
-        model, label_emb = build_model(cfg, device)
-    else:
-        label_emb = step_bank(cfg, model.match_lang_emb, device)
-    if cfg.TEST.CHECKPOINT_FILE_PATH:
-        ignored = weights.load_into(model, weights.load_reference_checkpoint(
-            cfg.TEST.CHECKPOINT_FILE_PATH))
-        logger.info("Loaded %s (%d keys of other branches ignored)",
-                    cfg.TEST.CHECKPOINT_FILE_PATH, len(ignored))
+    model, label_emb = build_model(cfg, device)
+    weights.load_pretrained_encoder(model, cfg)
+    cu.load_test_checkpoint(cfg, model)
+    misc.log_model_info(model, cfg)
     if model.match_lang_emb and label_emb is None:
         raise ValueError("zero-shot testing needs a step bank "
                          "(DEV.TEST_LANG_EMB)")

@@ -15,8 +15,6 @@ Stats are logged as ``json_stats: {...}`` lines, the reference's format.
 from __future__ import annotations
 
 import datetime
-import json
-import logging
 import statistics
 import time
 from collections import defaultdict, deque
@@ -26,14 +24,9 @@ import numpy as np
 import torch
 
 from procedurevrl_torch.utils import metrics
+from procedurevrl_torch.utils.logging import get_logger, log_json_stats
 
-logger = logging.getLogger("procedurevrl_torch")
-
-
-def log_json_stats(stats: Dict) -> None:
-    stats = {k: round(v, 5) if isinstance(v, float) else v
-             for k, v in stats.items()}
-    logger.info("json_stats: %s", json.dumps(stats, sort_keys=True))
+logger = get_logger(__name__)
 
 
 class TestMeter:

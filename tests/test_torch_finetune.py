@@ -285,14 +285,16 @@ TINY = ["DEV.LOAD_DUMMY_DATA", "True", "TIMESFORMER.DEPTH", "1",
 @pytest.mark.parametrize("name,classes,seg", [
     ("step_forecasting", 778, 8), ("task_classification", 180, 8),
     ("step_classification", 778, 0)])
-def test_train_net_finetunes_on_cpu(name, classes, seg, monkeypatch):
+def test_train_net_finetunes_on_cpu(name, classes, seg, monkeypatch,
+                                    tmp_path):
     """The entry point itself on each COIN configuration, tiny geometry,
     synthetic data, plain path, bf16 and remat, accumulation 2: a run cut
     at 3 steps, which ends with a val epoch.  The frozen encoder runs
     without autograd, so remat checkpoints no block."""
     from procedurevrl_torch.models import timesformer
 
-    cfg = load_config(os.path.join(ROOT, f"configs/COIN/{name}.yaml"), TINY)
+    cfg = load_config(os.path.join(ROOT, f"configs/COIN/{name}.yaml"),
+                      TINY + ["OUTPUT_DIR", str(tmp_path)])
     assert cfg.TRAIN.LINEAR and cfg.MODEL.NUM_SEG == seg
     assert cfg.TPU.COMPUTE_DTYPE == "bfloat16" and cfg.TPU.REMAT
     assert cfg.MODEL.NUM_CLASSES == classes
@@ -321,18 +323,23 @@ def test_train_net_finetunes_on_cpu(name, classes, seg, monkeypatch):
     assert stats["clips_per_sec"] > 0
 
 
-def test_run_net_trains_then_tests_on_cpu(capsys):
+def test_run_net_trains_then_tests_on_cpu(capsys, tmp_path):
     """``run_net`` on the task classification configuration: one epoch of
     training (EVAL_PERIOD 1: a val epoch), then the test of the trained
-    model."""
+    model, which it loads from the epoch's checkpoint in ``OUTPUT_DIR``.
+    The logs share stdout with the two JSON lines of stats."""
     import json
 
     rc = run_net.main(["--device", "cpu", "--cfg", os.path.join(
         ROOT, "configs/COIN/task_classification.yaml"), *TINY,
         "SOLVER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "1",
-        "GLOBAL_BATCH_SIZE", "64"])
+        "GLOBAL_BATCH_SIZE", "64", "OUTPUT_DIR", str(tmp_path)])
     assert rc == 0
-    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert len(lines) == 2
+    assert os.listdir(tmp_path / "checkpoints") == [
+        "checkpoint_epoch_00001.pyth"]
     assert lines[0]["split"] == "train" and lines[0]["steps"] == 2
     assert math.isfinite(lines[0]["loss"])
     assert 0.0 <= lines[0]["val_top1_err"] <= 100.0

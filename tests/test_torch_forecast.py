@@ -242,7 +242,7 @@ def _forecast_cfg(*extra):
          "TEST.BATCH_SIZE", "32", *extra])
 
 
-def test_test_net_zero_shot_forecasting_on_cpu():
+def test_test_net_zero_shot_forecasting_on_cpu(tmp_path):
     """The entry point on the forecasting configuration, tiny geometry,
     bf16 as the config sets it, the real 778-step bank: 64 samples of 8
     clips in batches of 32."""
@@ -250,6 +250,7 @@ def test_test_net_zero_shot_forecasting_on_cpu():
     model, bank = build_model(cfg, device="cpu")
     assert bank.shape == (778, 512) and model.head_cls is None
     assert model.order_tfm.num_seg == 8 and model.order_tfm.max_len == 9
+    cfg.OUTPUT_DIR = str(tmp_path)
     stats = port_test(cfg, device="cpu")
     assert 0.0 <= float(stats["top1_acc"]) <= float(stats["top5_acc"]) <= 100.0
     assert stats["clips_per_sec"] > 0
@@ -275,14 +276,15 @@ MVIT_TINY = ["TRAIN.ENABLE", "False", "TEST.ENABLE", "True",
 @pytest.mark.parametrize("knobs", [{}, {"MVIT_POOL": "kernel",
                                         "MVIT_KT": "1"}],
                          ids=["default", "kernel_kt"])
-def test_test_net_mvit_zero_shot_on_cpu(knobs, monkeypatch):
+def test_test_net_mvit_zero_shot_on_cpu(knobs, monkeypatch, tmp_path):
     """The MViT-v2 zero-shot eval through the entry point on the shipped
     MViT configuration, tiny geometry, bf16, on the default route and on
     ``MVIT_POOL=kernel MVIT_KT=1`` (plain versions on the CPU)."""
     for k, v in knobs.items():
         monkeypatch.setenv(k, v)
     cfg = load_config(os.path.join(
-        ROOT, "configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml"), MVIT_TINY)
+        ROOT, "configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml"),
+        MVIT_TINY + ["OUTPUT_DIR", str(tmp_path)])
     stats = port_test(cfg, device="cpu")
     for key in ("top1_acc", "top5_acc"):
         assert math.isfinite(float(stats[key]))

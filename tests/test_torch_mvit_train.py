@@ -259,7 +259,7 @@ def test_full_size_batch_shape():
 
 
 @pytest.mark.parametrize("method", ["adamw", "sgd"])
-def test_mvit_train_net_runs_on_cpu(method, monkeypatch):
+def test_mvit_train_net_runs_on_cpu(method, monkeypatch, tmp_path):
     """The entry point itself on the MViT configuration, tiny geometry,
     synthetic data, plain path, bf16 compute and remat as the config sets
     them, accumulation 2.  The SGD configuration runs on route D
@@ -269,7 +269,7 @@ def test_mvit_train_net_runs_on_cpu(method, monkeypatch):
     from procedurevrl_torch.ops import mvit_attention as ma
 
     yaml = MVIT_YAML.replace("adamw", method)
-    cfg = _tiny_cfg(yaml=yaml)
+    cfg = _tiny_cfg("OUTPUT_DIR", str(tmp_path), yaml=yaml)
     assert cfg.SOLVER.OPTIMIZING_METHOD == method
     assert cfg.TPU.REMAT and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
     calls = []

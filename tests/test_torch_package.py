@@ -55,7 +55,8 @@ def test_no_jax_import_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
-def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
+def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch,
+                                                        tmp_path):
     from procedurevrl_torch.config import get_cfg
     from procedurevrl_torch.models.build import build_model
     from procedurevrl_torch.tools import run_net
@@ -66,10 +67,12 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
     cfg = get_cfg()
     cfg.MODEL.MODEL_NAME = "vit_base_patch16_224_develop"
     cfg.DEV.LOAD_DUMMY_DATA = True
+    cfg.OUTPUT_DIR = str(tmp_path)
     for call in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
                  lambda: build_model(cfg), lambda: test(cfg),
                  lambda: run_net.main(["TRAIN.ENABLE", "False",
-                                       "DEV.LOAD_DUMMY_DATA", "True"])):
+                                       "DEV.LOAD_DUMMY_DATA", "True",
+                                       "OUTPUT_DIR", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -80,7 +80,7 @@ def test_test_meter_matches_jax(method):
                                   meters[1].video_labels)
 
 
-def test_test_net_runs_on_cpu():
+def test_test_net_runs_on_cpu(tmp_path):
     """The entry point itself, tiny geometry, synthetic data, plain path."""
     cfg = load_config(os.path.join(ROOT, "configs/COIN/step_classification.yaml"),
                       ["TRAIN.ENABLE", "False", "DEV.MATCH_LANG_EMB", "True",
@@ -88,7 +88,8 @@ def test_test_net_runs_on_cpu():
                        "TIMESFORMER.DEPTH", "1", "DATA.NUM_FRAMES", "2",
                        "DATA.TRAIN_CROP_SIZE", "32", "DATA.TEST_CROP_SIZE", "32",
                        "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.BATCH_SIZE", "24",
-                       "TPU.COMPUTE_DTYPE", "bfloat16"])
+                       "TPU.COMPUTE_DTYPE", "bfloat16",
+                       "OUTPUT_DIR", str(tmp_path)])
     stats = port_test(cfg, device="cpu")
     for key in ("top1_acc", "top5_acc"):
         assert math.isfinite(float(stats[key]))

@@ -296,10 +296,10 @@ def _tiny_train_cfg(*extra):
          "GLOBAL_BATCH_SIZE", "2", "LOG_PERIOD", "2", *extra])
 
 
-def test_train_net_runs_on_cpu():
+def test_train_net_runs_on_cpu(tmp_path):
     """The entry point itself, tiny geometry, synthetic data, plain path,
     bf16 compute and remat as the config sets them, accumulation 2."""
-    cfg = _tiny_train_cfg()
+    cfg = _tiny_train_cfg("OUTPUT_DIR", str(tmp_path))
     assert cfg.TPU.REMAT and cfg.TPU.COMPUTE_DTYPE == "bfloat16"
     stats = train(cfg, device="cpu", max_steps=3)
     assert stats["steps"] == 3 and len(stats["history"]) == 3
@@ -312,13 +312,14 @@ def test_train_net_runs_on_cpu():
     assert stats["clips_per_sec"] > 0
 
 
-def test_train_net_needs_the_card_unless_asked_for_cpu(monkeypatch):
+def test_train_net_needs_the_card_unless_asked_for_cpu(monkeypatch,
+                                                      tmp_path):
     from procedurevrl_torch.tools import run_net
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        train(_tiny_train_cfg())
+        train(_tiny_train_cfg("OUTPUT_DIR", str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_net.main(["--cfg", os.path.join(
             ROOT, "configs/HowTo100M/procedurevrl_adamw.yaml"),
-            "DEV.LOAD_DUMMY_DATA", "True"])
+            "DEV.LOAD_DUMMY_DATA", "True", "OUTPUT_DIR", str(tmp_path)])

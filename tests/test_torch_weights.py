@@ -3,8 +3,12 @@
 - JAX parameter tree -> ``params_from_jax`` -> port ``state_dict()`` ->
   JAX ``convert_procedurevrl`` gives back the same tree, bit for bit;
 - a reference-style ``.pyth`` checkpoint (``model.``-prefixed keys, keys of
-  branches the port does not run) loads into the port.
+  branches the port does not run) loads into the port; a parameter the file
+  lacks keeps its init and is logged, as JAX ``load_reference_params`` has
+  it.
 """
+
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -59,10 +63,27 @@ def test_reference_checkpoint_loads(tmp_path):
     for k, v in src.state_dict().items():
         assert torch.equal(dst.state_dict()[k], v), k
 
-    del loaded["head.weight"]
+    # JAX's rule: a parameter the file lacks keeps its init, and is logged
+    del state["model.head.weight"]
+    torch.save({"model_state": state, "epoch": 1}, path)
+    dst = ProcedureVRL(**GEOM)
+    dst.reset_parameters(torch.Generator().manual_seed(6))
+    init = dst.head.weight.detach().clone()
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("procedurevrl_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
     try:
-        weights.load_into(ProcedureVRL(**GEOM), loaded)
-    except KeyError as e:
-        assert "head.weight" in str(e)
-    else:
-        raise AssertionError("a checkpoint missing a parameter must not load")
+        assert weights.load_reference_params(dst, str(path)) == 1
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    assert torch.equal(dst.head.weight, init)
+    for k, v in src.state_dict().items():
+        if k != "head.weight":
+            assert torch.equal(dst.state_dict()[k], v), k
+    assert any("kept at init" in r.getMessage()
+               and "head.weight" in r.getMessage() for r in records)

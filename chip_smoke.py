@@ -177,6 +177,24 @@ Phases (any failure exits non-zero):
    no model, which loads that checkpoint from ``OUTPUT_DIR`` (its
    predictions on one batch equal the in-memory model's) and writes
    ``TEST.SAVE_RESULTS_PATH``, read back.  Each leg's wall time.
+32. slice 16, the softmax shifts (``SPATIAL_SHIFT``, ``TEMPORAL_SHIFT``,
+   ``MVIT_SHIFT``) under ``max`` and ``none``: every variant a route
+   reaches (K1f, K1sp, K1p, K1br; K2f, K2v3f, K2b; the pair as K4, K3, K1's
+   long range and K2's function at head dim 32; K5f, K6f, K6sp, K5b, K6b
+   and under none K5bd, K6bd) against its plain version in bf16 at the
+   training shapes and in float32 at a smaller one, on queries aimed so
+   that a row's top logit lies in (80, 88) or (88, 300) (under none only
+   the first count and the port must be non-finite on exactly the plain
+   version's non-finite rows; its backwards take no row past 88), with
+   K1sp == K1f, K1p == K1f, K1br == K1b(K1sp p), K2f == K2v3f and K2b ==
+   K2v3b(K2v3f p) bit for bit under each shift; then TimeSformer-B order
+   pretraining under ``SPATIAL_SHIFT=max TEMPORAL_SHIFT=max`` (3 steps; per
+   step 24 K1sp, 12 K1b, 24 K2f, 12 K2b), MViT-v2-S order pretraining under
+   ``MVIT_SHIFT=max`` (3 steps; per step 26 K5f, 6 K6f, 13 K5b, 3 K6b) and
+   the zero-shot COIN test under all three knobs ``none`` (2 batches of 32
+   clips; 12 K1f and 12 K2f per batch), each against the plain path; the
+   variants these paths launch are timed at their clamp rows' shapes beside
+   the clamp kernel.
 Every phase that trains or tests gives ``OUTPUT_DIR`` a temporary
 directory of its own (the shipped configs name ``.``, and AUTO_RESUME would
 pick up a checkpoint left there), and sends the port's log lines, which
@@ -355,6 +373,24 @@ FINETUNES = (("step_forecasting", 2, 6), ("task_classification", 2, 6),
 RESUME_OPTS = ("TRAIN.BATCH_SIZE", "2", "GLOBAL_BATCH_SIZE", "16",
                "SOLVER.MAX_EPOCH", "2", "TRAIN.CHECKPOINT_PERIOD", "1")
 RESUME_STEPS, RESUME_ACCUM = 4, 8   # an epoch's optimizer steps, micro-batches
+# slice 16: the softmax shifts SPATIAL_SHIFT, TEMPORAL_SHIFT and MVIT_SHIFT
+# under max and none.  The top logit each query row is aimed at, in turn:
+# left small, in (80, 88) and in (88, 300), where the shifts part (the clamp
+# saturates, none overflows past ~88.7); the backwards under none take the
+# first two only (one overflowing query's NaN reaches every key's gradient)
+# (The aimed rows put probabilities near 1, where one bf16 ulp of p times
+# |v| ~ 2 is ~8e-3, and make ds O(1), where one bf16 ulp of a ds moves a
+# sum of them by ~4e-3 whatever the sum's own scale: the shift checks hold
+# bf16 outputs to BF16_TOL, probabilities to K1K2_FWD_TOL and every bf16
+# gradient to grad_tol(BF16_TOL), as K1's and K2's.)
+SHIFTS = ("max", "none")
+SHIFT_KNOBS = ("SPATIAL_SHIFT", "TEMPORAL_SHIFT", "MVIT_SHIFT")
+HOT_TARGETS = (None, 84.0, 200.0)
+COOL_TARGETS = (None, 84.0)
+SHIFT_STEPS = 3                         # 2 warm-up + 1 timed
+TS_MAX = {"SPATIAL_SHIFT": "max", "TEMPORAL_SHIFT": "max"}
+MVIT_MAX = {"MVIT_SHIFT": "max"}
+ALL_NONE = dict.fromkeys(SHIFT_KNOBS, "none")
 
 
 def fail(msg: str) -> None:
@@ -473,6 +509,9 @@ def timed(label: str, phase, *args):
 
 def compare(torch, name, got, ref, tol) -> float:
     torch.cuda.synchronize()
+    if got.numel() == 0 and ref.numel() == 0:
+        print(f"{name}: nothing left to compare")
+        return 0.0
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     max_abs = err.max().item()
@@ -618,21 +657,27 @@ def plain_attention(k1, k2, k5, k8):
     differentiates under grad, on every knob route (the TimeSformer entries
     ignore the route they are given, the MViT entries the backward knobs
     they are given), and the pool entry takes its plain
-    versions (the tap forward, and the tap formulas for its backward)."""
+    versions (the tap forward, and the tap formulas for its backward).
+    Each plain forward takes the shift its entry is given (the route's)."""
     from procedurevrl_torch.ops import flash_attention as fa
 
+    from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE
+
     pool = k8.depthwise_pool3d
+    shift = lambda a, i: a[i] if len(a) > i else "clamp"
     swaps = [(fa, "flash_attention_autograd", fa.flash_attention_plain),
              (fa, "flash_attention_cls_autograd", fa.flash_attention_cls_plain),
              (k1, "spatial_attention_autograd",
-              lambda qkv, qkv_c, h, s, route=None:
-              k1.spatial_attention_plain(qkv, qkv_c, h, s)),
+              lambda qkv, qkv_c, h, s, route=DEFAULT_ROUTE:
+              k1.spatial_attention_plain(qkv, qkv_c, h, s,
+                                         route.spatial_shift)),
              (k2, "temporal_attention_autograd",
-              lambda qkv, h, s, route=None: k2.temporal_attention_plain(
-                  qkv, h, s)),
+              lambda qkv, h, s, route=DEFAULT_ROUTE:
+              k2.temporal_attention_plain(qkv, h, s, route.temporal_shift)),
              (k5, "mvit_attention_hl",
-              lambda *a: k5.mvit_attention_hl_plain(*a[:9])),
-             (k5, "mvit_attention", lambda *a: k5.mvit_attention_plain(*a[:8])),
+              lambda *a: k5.mvit_attention_hl_plain(*a[:9], shift(a, 10))),
+             (k5, "mvit_attention",
+              lambda *a: k5.mvit_attention_plain(*a[:8], shift(a, 10))),
              (k5, "mvit_attention_kt", k5.mvit_attention_kt_plain),
              (k8, "depthwise_pool3d",
               lambda x5, w27, s, use_kernel=True: pool(x5, w27, s, False))]
@@ -2966,6 +3011,474 @@ def phase_odd_head_dims(torch, fa, k5) -> None:
     check_mvit_odd(torch, k5)
 
 
+def aim_rows(torch, gen, q, k, scale, targets):
+    """q [G, Lq, d] with its rows aimed at the keys k [G, Lk, d]: row i
+    takes targets[i % len(targets)] (None: kept); an aimed row is k_a +
+    0.95 k_b for two random keys, scaled so that its largest logit (q.k)
+    scale is the target (to the rounding of q's dtype): the top two logits
+    of the row lie ~5 % apart, so the clamp saturates both past 80 and a
+    row max or no shift weighs them apart."""
+    g, lq, d = q.shape
+    lk = k.shape[1]
+    kf = k.float()
+    a = torch.randint(0, lk, (g, lq), generator=gen, device=q.device)
+    b = (a + torch.randint(1, lk, (g, lq), generator=gen,
+                           device=q.device)) % lk
+    pick = lambda i: torch.gather(kf, 1, i[..., None].expand(g, lq, d))
+    rows = pick(a) + 0.95 * pick(b)
+    top = torch.einsum("gid,gjd->gij", rows, kf).amax(-1) * scale
+    t = torch.tensor([0.0 if x is None else x for x in targets],
+                     device=q.device)
+    t = t[torch.arange(lq, device=q.device) % len(targets)]
+    aimed = (rows * (t / top)[..., None]).to(q.dtype)
+    return torch.where((t > 0)[None, :, None], aimed, q)
+
+
+def finite_rows(torch, got, ref, width: int):
+    """Under the ``none`` shift: the rows (of ``width`` elements) that are
+    non-finite in the plain version ``ref`` must be exactly the kernel's
+    non-finite rows; then both without those rows (the rows of (80, 88)
+    and the small ones), else both whole, which the comparison rejects.
+    Also returns the count of non-finite rows."""
+    torch.cuda.synchronize()
+    g2, r2 = got.float().reshape(-1, width), ref.float().reshape(-1, width)
+    bad = ~torch.isfinite(r2).all(1)
+    if not torch.equal(bad, ~torch.isfinite(g2).all(1)):
+        return g2, r2, -1
+    return g2[~bad], r2[~bad], int(bad.sum())
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether a and b are the same bits (NaNs included)."""
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(bits),
+                                              b.contiguous().view(bits))
+
+
+def shift_pair(torch, shift, name, got, ref, tol, width):
+    """One comparison (name, got, want, tol) of a variant's output under
+    ``shift``: under ``none`` through :func:`finite_rows`."""
+    if shift != "none":
+        return (name, got, ref, tol)
+    g2, r2, bad = finite_rows(torch, got, ref, width)
+    note = "rows non-finite in one only" if bad < 0 else (
+        f"{bad} overflowing rows non-finite in both")
+    return (f"{name} ({note})", g2, r2, tol)
+
+
+def k1_shift_inputs(torch, gen, bt, n, heads, dtype, targets, d=64):
+    """qkv [BT, N, 3C], qkv_c [BT, 1, 3C] (0.5 N(0, 1), the queries of
+    [patches; CLS] aimed by :func:`aim_rows`), g, gc."""
+    c = heads * d
+    r = lambda *s: (0.5 * torch.randn(*s, generator=gen, device="cuda")
+                    ).to(dtype)
+    x = r(bt, n + 1, 3, heads, d)
+    split = lambda i: x[:, :, i].permute(0, 2, 1, 3).reshape(-1, n + 1, d)
+    q = aim_rows(torch, gen, split(0), split(1), d ** -0.5, targets)
+    x[:, :, 0] = q.view(bt, heads, n + 1, d).permute(0, 2, 1, 3)
+    x = x.reshape(bt, n + 1, 3 * c)
+    return (x[:, :n].contiguous(), x[:, n:].contiguous(), r(bt, n, c),
+            r(bt, 1, c))
+
+
+def k1_shift_checks(torch, gen, k1, shift, dtype, bt, n):
+    """K1f, K1sp, K1p and K1br under ``shift`` at [BT, N] + CLS, 12 heads
+    of 64, against their plain versions; returns (comparisons, bit-for-bit
+    pairs): K1sp's outputs K1f's, K1p's K1f's (bf16), K1br K1b's on K1sp's
+    p."""
+    heads, scale = 12, 0.125
+    fp32 = dtype == torch.float32
+    ftol, ptol = (FP32_TOL, FP32_TOL) if fp32 else (BF16_TOL, K1K2_FWD_TOL)
+    gtol = FP32_TOL if fp32 else BF16_TOL
+    label = f"K1 {str(dtype)[6:]} [{bt},{n}] {shift}"
+    qkv, qkv_c, _, _ = k1_shift_inputs(torch, gen, bt, n, heads, dtype,
+                                       HOT_TARGETS)
+    f, fc = k1.spatial_attention(qkv, qkv_c, heads, scale, shift)
+    rf, rfc = k1.spatial_attention_plain(qkv, qkv_c, heads, scale, shift)
+    o, oc, p = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale, shift)
+    _, _, rp = k1.spatial_attention_fwd_probs_plain(qkv, qkv_c, heads, scale,
+                                                    shift)
+    po, poc = k1.spatial_attention_pipe(qkv, qkv_c, heads, scale, 3, shift)
+    pairs = [shift_pair(torch, shift, f"{label} K1f frames", f, rf, ftol, 64),
+             shift_pair(torch, shift, f"{label} K1f cls", fc, rfc, ftol, 64),
+             shift_pair(torch, shift, f"{label} K1sp probs", p, rp, ptol,
+                        p.shape[-1]),
+             shift_pair(torch, shift, f"{label} K1p frames", po, rf, ftol, 64)]
+    twins = [(f"{label} K1sp out == K1f out", (o, oc), (f, fc))]
+    if not fp32:
+        twins.append((f"{label} K1p == K1f", (po, poc), (f, fc)))
+    # the backward: under none from rows that do not overflow
+    qkv, qkv_c, g, gc = k1_shift_inputs(
+        torch, gen, bt, n, heads, dtype,
+        COOL_TARGETS if shift == "none" else HOT_TARGETS)
+    dx, dxc = k1.spatial_attention_bwd_recompute(qkv, qkv_c, g, gc, heads,
+                                                 scale, shift)
+    rdx, rdxc = k1.spatial_attention_bwd_recompute_plain(qkv, qkv_c, g, gc,
+                                                         heads, scale, shift)
+    pairs += [(f"{label} K1br dqkv", dx, rdx, grad_tol(gtol, rdx)),
+              (f"{label} K1br dqkv_c", dxc, rdxc, grad_tol(gtol, rdxc))]
+    _, _, p = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale, shift)
+    twins.append((f"{label} K1br == K1b(K1sp p)", (dx, dxc),
+                  k1.spatial_attention_bwd(qkv, qkv_c, p, g, gc, heads,
+                                           scale)))
+    return pairs, twins
+
+
+def k2_shift_inputs(torch, gen, b, t, n, heads, dtype, targets, d=64):
+    """The time-major qkv [B, T, N, 3C] (0.5 N(0, 1), the query rows
+    aimed) and g."""
+    r = lambda *s: (0.5 * torch.randn(*s, generator=gen, device="cuda")
+                    ).to(dtype)
+    x = r(b, t, n, 3, heads, d)
+    split = lambda i: x[:, :, :, i].permute(0, 2, 3, 1, 4).reshape(-1, t, d)
+    q = aim_rows(torch, gen, split(0), split(1), d ** -0.5, targets)
+    x[:, :, :, 0] = q.view(b, n, heads, t, d).permute(0, 3, 1, 2, 4)
+    return x.reshape(b, t, n, 3 * heads * d).contiguous(), r(b, t, n,
+                                                            heads * d)
+
+
+def k2_shift_checks(torch, gen, k2, shift, dtype, b, t, n):
+    """K2f, K2v3f and K2b under ``shift`` against their plain versions;
+    bit for bit (bf16): K2f K2v3f's output, K2b K2v3b's fed K2v3f's p."""
+    heads, scale = 12, 0.125
+    fp32 = dtype == torch.float32
+    ftol, ptol = (FP32_TOL, FP32_TOL) if fp32 else (BF16_TOL, K1K2_FWD_TOL)
+    gtol = FP32_TOL if fp32 else BF16_TOL
+    label = f"K2 {str(dtype)[6:]} [{b},{t},{n}] {shift}"
+    qkv, _ = k2_shift_inputs(torch, gen, b, t, n, heads, dtype, HOT_TARGETS)
+    f = k2.temporal_attention(qkv, heads, scale, shift)
+    o3, p3 = k2.temporal_attention_v3(qkv, heads, scale, shift=shift)
+    rf, rp = k2.temporal_attention_v3_fwd_plain(qkv, heads, scale, shift)
+    pairs = [shift_pair(torch, shift, f"{label} K2f", f, rf, ftol, 64),
+             shift_pair(torch, shift, f"{label} K2v3f probs", p3, rp, ptol,
+                        t)]
+    twins = [] if fp32 else [(f"{label} K2f == K2v3f", (f,), (o3,))]
+    qkv, g = k2_shift_inputs(torch, gen, b, t, n, heads, dtype,
+                             COOL_TARGETS if shift == "none" else HOT_TARGETS)
+    dx = k2.temporal_attention_bwd(qkv, g, heads, scale, shift)
+    rdx = k2.temporal_attention_bwd_plain(qkv, g, heads, scale, shift)
+    pairs.append((f"{label} K2b", dx, rdx, grad_tol(gtol, rdx)))
+    if not fp32:
+        _, p3 = k2.temporal_attention_v3(qkv, heads, scale, shift=shift)
+        twins.append((f"{label} K2b == K2v3b(K2v3f p)", (dx,),
+                      (k2.temporal_attention_v3_bwd(qkv, p3, g, heads,
+                                                    scale),)))
+    return pairs, twins
+
+
+def pair_shift_checks(torch, gen, fa, shift, dtype, b, n, cls):
+    """K4 (``cls`` False) or K3 under ``shift`` at [B, N, 768] (+ CLS), 12
+    heads of 64: out and the row statistic (l, lse under max), and the
+    gradients, against the plain versions."""
+    heads, scale = 12, 0.125
+    fp32 = dtype == torch.float32
+    label = f"{'K3' if cls else 'K4'} {str(dtype)[6:]} [{b},{n}] {shift}"
+    pairs = []
+    for part, targets in (("fwd", HOT_TARGETS), ("bwd", COOL_TARGETS
+                                                  if shift == "none"
+                                                  else HOT_TARGETS)):
+        x, g, gc = flash_inputs(torch, gen, b, n, heads, dtype, cls, sd=0.5)
+        seq = lambda t: t.reshape(b, -1, heads, 64).transpose(1, 2).reshape(
+            b * heads, -1, 64)
+        cat = (lambda i: torch.cat([x[i], x[i + 3]], 1)) if cls else (
+            lambda i: x[i])
+        q = aim_rows(torch, gen, seq(cat(0)), seq(cat(1)), scale, targets)
+        q = q.reshape(b, heads, -1, 64).transpose(1, 2).reshape(b, n + cls,
+                                                                 -1)
+        x[0].copy_(q[:, :n])
+        if cls:
+            x[3].copy_(q[:, n:])
+        if part == "fwd":
+            fwd = (fa.flash_attention_cls_fwd if cls
+                   else fa.flash_attention_fwd)
+            got = fwd(*x, heads, scale, shift)
+            want = (fa.flash_attention_cls_fwd_plain if cls
+                    else fa.flash_attention_fwd_plain)(*x, heads, scale, shift)
+            names = ("out", "outc")[:len(got) - 1] + ("stat",)
+            for p, a, r in zip(names, got, want):
+                tol = ROWSUM_TOL if p == "stat" else (
+                    FP32_TOL if fp32 else BF16_TOL)
+                pairs.append(shift_pair(torch, shift, f"{label} {p}", a, r,
+                                        tol, 1 if p == "stat" else 64))
+            continue
+        l = (fa.flash_attention_cls_fwd_plain if cls
+             else fa.flash_attention_fwd_plain)(*x, heads, scale, shift)[-1]
+        if cls:
+            got = fa.flash_attention_cls_bwd(*x, g, gc, l, heads, scale, shift)
+            want = fa.flash_attention_cls_bwd_plain(*x, g, gc, heads, scale,
+                                                    shift)
+        else:
+            got = fa.flash_attention_bwd(*x, g, l, heads, scale, shift)
+            want = fa.flash_attention_bwd_plain(*x, g, heads, scale, shift)
+        for p, a, r in zip(("dq", "dk", "dv", "dqc", "dkc", "dvc"), got, want):
+            pairs.append((f"{label} {p}", a, r,
+                          grad_tol(FP32_TOL if fp32 else BF16_TOL, r)))
+    return pairs
+
+
+def pair_layout_checks(torch, gen, fa, shift):
+    """The pair's other layouts under ``shift``, bf16: K1's long range (the
+    fused qkv at N + 1 = 257: the query-major and key-major backward) and
+    K2's function at head dim 32 (the time-major qkv, 16 sequences packed
+    to a slice)."""
+    pairs = []
+    targets = COOL_TARGETS if shift == "none" else HOT_TARGETS
+    qkv, qkv_c, g, gc = k1_shift_inputs(torch, gen, 2, 256, 12, torch.bfloat16,
+                                        targets)
+    got = fa.flash_attention_qkv_fwd(qkv, qkv_c, 12, 0.125, shift=shift)
+    want = fa.flash_attention_qkv_fwd_plain(qkv, qkv_c, 12, 0.125, shift)
+    label = f"K1 long bf16 [2,256] {shift}"
+    pairs += [(f"{label} out", got[0], want[0], BF16_TOL),
+              (f"{label} out_c", got[1], want[1], BF16_TOL),
+              (f"{label} stat", got[2], want[2], ROWSUM_TOL)]
+    dx = fa.flash_attention_qkv_bwd(qkv, qkv_c, g, gc, want[2], 12, 0.125,
+                                    shift)
+    rdx = fa.flash_attention_qkv_bwd_plain(qkv, qkv_c, g, gc, 12, 0.125,
+                                           shift)
+    pairs += [(f"{label} dqkv", dx[0], rdx[0], grad_tol(BF16_TOL, rdx[0])),
+              (f"{label} dqkv_c", dx[1], rdx[1], grad_tol(BF16_TOL, rdx[1]))]
+    scale = 32 ** -0.5
+    qkv, g = k2_shift_inputs(torch, gen, 2, 8, 49, 24, torch.bfloat16,
+                             targets, d=32)
+    out, l = fa.flash_attention_temporal_fwd(qkv, 24, scale, shift=shift)
+    rout, rl = fa.flash_attention_temporal_fwd_plain(qkv, 24, scale, shift)
+    dx = fa.flash_attention_temporal_bwd(qkv, g, rl, 24, scale, shift)
+    rdx = fa.flash_attention_temporal_bwd_plain(qkv, g, 24, scale, shift)
+    label = f"K2 on the pair d 32 bf16 [2,8,49] {shift}"
+    return pairs + [(f"{label} out", out, rout, BF16_TOL),
+                    (f"{label} stat", l, rl, ROWSUM_TOL),
+                    (f"{label} dqkv", dx, rdx, grad_tol(BF16_TOL, rdx))]
+
+
+def mvit_shift_inputs(torch, gen, b, heads, qn, k_shape, dtype, targets,
+                      d=96):
+    """:func:`mvit_inputs` with the query rows aimed at [body; cls]."""
+    x = mvit_inputs(torch, gen, b, heads, qn, k_shape, dtype, d=d)
+    seq = lambda t: t.reshape(b, t.shape[1], heads, d).transpose(1, 2).reshape(
+        b * heads, t.shape[1], d)
+    q = aim_rows(torch, gen, seq(x[0]), seq(torch.cat([x[1], x[3]], 1)),
+                 d ** -0.5, targets)
+    x[0] = q.reshape(b, heads, qn, d).transpose(1, 2).reshape(b, qn,
+                                                              heads * d)
+    return x
+
+
+def mvit_shift_checks(torch, gen, k5, shift, dtype, label, head_last, b,
+                      heads, qn, k_shape, saved=False):
+    """K5f / K6f (``saved``: K6sp, out, statistic and p) under ``shift``
+    against the plain versions, and the backward (under max K5b / K6b's
+    ``kRowMax`` from the forward's lse and output; under none K5b / K6b and
+    K5bd / K6bd)."""
+    scale = 96 ** -0.5
+    fp32 = dtype == torch.float32
+    ftol = FP32_TOL if fp32 else BF16_TOL
+    label = f"{label} {str(dtype)[6:]} {shift}"
+    hs = (heads,) if head_last else ()
+    x = mvit_shift_inputs(torch, gen, b, heads, qn, k_shape, dtype,
+                          HOT_TARGETS)
+    args = (*x[:6], k_shape, *hs, scale)
+    if saved:
+        got = k5.mvit_attention_fwd_probs(*args, shift)
+        want = k5.mvit_attention_fwd_probs_plain(*args, shift)
+        names, tols = ("out", "stat", "probs"), (ftol, ROWSUM_TOL,
+                                                 FP32_TOL if fp32
+                                                 else PROBS_TOL)
+    else:
+        fwd = k5.mvit_attention_hl_fwd if head_last else k5.mvit_attention_fwd
+        fwd_plain = (k5.mvit_attention_hl_fwd_plain if head_last
+                     else k5.mvit_attention_fwd_plain)
+        got, want = fwd(*args, shift), fwd_plain(*args, shift)
+        names, tols = ("out", "stat"), (ftol, ROWSUM_TOL)
+    pairs = [shift_pair(torch, shift, f"{label} {n}", a, r, t,
+                        {"out": 96, "stat": 1}.get(n, r.shape[-1]))
+             for n, a, r, t in zip(names, got, want, tols)]
+    if saved:
+        return pairs
+    x = mvit_shift_inputs(torch, gen, b, heads, qn, k_shape, dtype,
+                          COOL_TARGETS if shift == "none" else HOT_TARGETS)
+    args = (*x[:6], k_shape, *hs, scale)
+    out, stat = fwd_plain(*args, shift)
+    bargs = (*x[:6], stat, x[6], k_shape, *hs, scale, shift)
+    gtol = (lambda r: grad_tol(FP32_TOL if fp32 else BF16_TOL, r))
+    bwds = [("b", k5.mvit_attention_hl_bwd if head_last
+             else k5.mvit_attention_bwd,
+             k5.mvit_attention_hl_bwd_plain if head_last
+             else k5.mvit_attention_bwd_plain, dict(out=out))]
+    if shift == "none":
+        bwds.append(("bd", None, None, None))
+    for tag, bwd, bwd_plain, kw in bwds:
+        if tag == "bd":
+            dargs = (*x[:6], stat, out, x[6], k_shape, *hs, scale, shift)
+            got = (k5.mvit_attention_hl_bwd_delta if head_last
+                   else k5.mvit_attention_bwd_delta)(*dargs)
+            want = (k5.mvit_attention_hl_bwd_delta_plain if head_last
+                    else k5.mvit_attention_bwd_delta_plain)(*dargs)
+        else:
+            kw = kw if shift == "max" else {}
+            got, want = bwd(*bargs, **kw), bwd_plain(*bargs, **kw)
+        pairs += [(f"{label} {tag} {n}", a, r, gtol(r))
+                  for n, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                                     got, want)]
+    return pairs
+
+
+def shift_kernel_checks(torch, gen, k1, k2, fa, k5, shift):
+    """Every ``shift`` variant a route reaches against its plain version:
+    bf16 at the training shapes of ``PERF.md`` section 6 and a short or
+    packed case, float32 at a smaller shape; yields (family, comparisons,
+    bit-for-bit pairs)."""
+    b16, f32 = torch.bfloat16, torch.float32
+    for dtype, bt, n in ((b16, 2 * CLIPS_PER_SAMPLE * 8, 196), (b16, 4, 48),
+                         (f32, 4, 196)):
+        yield ("k1", *k1_shift_checks(torch, gen, k1, shift, dtype, bt, n))
+    for dtype, b, t, n in ((b16, 2 * CLIPS_PER_SAMPLE, 8, 196),
+                           (b16, 2, 16, 49), (f32, 2, 8, 49)):
+        yield ("k2", *k2_shift_checks(torch, gen, k2, shift, dtype, b, t, n))
+    for dtype, b, n, cls in ((b16, 2 * CLIPS_PER_SAMPLE * 8, 197, False),
+                             (b16, 2 * CLIPS_PER_SAMPLE * 8, 196, True),
+                             (f32, 2, 130, True)):
+        yield ("pair", pair_shift_checks(torch, gen, fa, shift, dtype, b, n,
+                                         cls), [])
+    yield ("pair", pair_layout_checks(torch, gen, fa, shift), [])
+    for args in ((b16, "K5 block 0", True, 18, 1, 25088, (8, 7, 7)),
+                 (b16, "K6 block 1", False, 36, 1, 6272, (8, 14, 14)),
+                 (f32, "K5 small", True, 2, 2, 70, (2, 3, 4)),
+                 (f32, "K6 small", False, 4, 1, 70, (2, 3, 4))):
+        yield ("mvit", mvit_shift_checks(torch, gen, k5, shift, *args), [])
+    for dtype, qn, k_shape, b in ((b16, 6272, (8, 14, 14), 36),
+                                  (f32, 70, (2, 3, 4), 4)):
+        yield ("mvit", mvit_shift_checks(torch, gen, k5, shift, dtype,
+                                         "K6sp", False, b, 1, qn, k_shape,
+                                         saved=True), [])
+
+
+def shift_records(torch, k1, k2, k5, clamp: dict) -> list:
+    """The records of the variants phase 32's three paths launch, timed at
+    the shapes of their clamp rows, whose bound and library time they
+    carry: K1sp, K2f, K2b, K5f, K5b, K6f and K6b under max, K1f and K2f
+    under none (phases 2-8's shapes; random inputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").bfloat16()
+    heads, scale, c = 12, 0.125, 768
+    bt, b = 2 * CLIPS_PER_SAMPLE * 8, 2 * CLIPS_PER_SAMPLE
+    qkv, qkv_c = r(bt, 196, 3 * c), r(bt, 1, 3 * c)
+    ev, ev_c = r(8 * 16, 196, 3 * c), r(8 * 16, 1, 3 * c)
+    t_ev, t_tr, t_g = (r(16, 8, 196, 3 * c), r(b, 8, 196, 3 * c),
+                       r(b, 8, 196, c))
+    calls = [
+        (k1.KERNEL_PROBS, "max",
+         lambda s: k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale, s),
+         lambda s: k1.spatial_attention_fwd_probs_plain(qkv, qkv_c, heads,
+                                                        scale, s)),
+        (k1.KERNEL, "none",
+         lambda s: k1.spatial_attention(ev, ev_c, heads, scale, s),
+         lambda s: k1.spatial_attention_plain(ev, ev_c, heads, scale, s))]
+    for shift in ("max", "none"):
+        calls.append((k2.KERNEL, shift,
+                      lambda s: k2.temporal_attention(t_ev, heads, scale, s),
+                      lambda s: k2.temporal_attention_plain(t_ev, heads,
+                                                            scale, s)))
+    calls.append((k2.KERNEL_BWD, "max",
+                  lambda s: k2.temporal_attention_bwd(t_tr, t_g, heads, scale,
+                                                      s),
+                  lambda s: k2.temporal_attention_bwd_plain(t_tr, t_g, heads,
+                                                            scale, s)))
+    mscale = 96 ** -0.5
+    for head_last, b_, qn, k_shape, fname, bname in (
+            (True, 18, 25088, (8, 7, 7), k5.KERNEL_HL, k5.KERNEL_HL_BWD),
+            (False, 36, 6272, (8, 14, 14), k5.KERNEL, k5.KERNEL_BWD)):
+        x = mvit_inputs(torch, gen, b_, 1, qn, k_shape, torch.bfloat16)
+        hs = (1,) if head_last else ()
+        args = (*x[:6], k_shape, *hs, mscale)
+        fwd = k5.mvit_attention_hl_fwd if head_last else k5.mvit_attention_fwd
+        fwd_plain = (k5.mvit_attention_hl_fwd_plain if head_last
+                     else k5.mvit_attention_fwd_plain)
+        bwd = k5.mvit_attention_hl_bwd if head_last else k5.mvit_attention_bwd
+        bwd_plain = (k5.mvit_attention_hl_bwd_plain if head_last
+                     else k5.mvit_attention_bwd_plain)
+        out, lse = fwd_plain(*args, "max")
+        bargs = (*x[:6], lse, x[6], k_shape, *hs, mscale)
+        calls += [(fname, "max",
+                   lambda s, a=args, f=fwd: f(*a, s),
+                   lambda s, a=args, f=fwd_plain: f(*a, s)),
+                  (bname, "max",
+                   lambda s, a=bargs, f=bwd, o=out: f(*a, s, o),
+                   lambda s, a=bargs, f=bwd_plain, o=out: f(*a, s, o))]
+    knob = {"spatial": "SPATIAL_SHIFT", "temporal": "TEMPORAL_SHIFT",
+            "mvit": "MVIT_SHIFT"}
+    records = []
+    for name, shift, kernel, plain in calls:
+        base = clamp[name]
+        kernel(shift)
+        got = kernel(shift)
+        want = plain(shift)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,),
+                                                                (want,))
+        err = max(((a.float() - r.float()).abs().max().item()
+                   for a, r in zip(got, want)), default=0.0)
+        del got, want
+        ms = time_ms(torch, lambda: kernel(shift))
+        plain_ms = time_ms(torch, lambda: plain(shift), iters=2, reps=5)
+        clamp_ms = time_ms(torch, lambda: kernel("clamp"))
+        family = name.split("_")[0]
+        rec = dict(base, name=f"{name}:{knob[family]}={shift}",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        print(f"{rec['name']}: kernel {ms:.4f} ms ({ms / clamp_ms:.3f} x the "
+              f"clamp kernel's {clamp_ms:.4f} ms in this call), plain "
+              f"{plain_ms:.4f} ms, bound {base['bound_ms']:.4f} ms, library "
+              f"{base['library_ms']} ms (the clamp row's), max_abs_err "
+              f"{err:.3e} on random inputs")
+        records.append(rec)
+    return records
+
+
+def phase_shifts(torch, k1, k2, k5, k8, fa, _build, clamp: dict) -> list:
+    """Slice 16: every ``max`` and ``none`` variant against its plain
+    version (:func:`shift_kernel_checks`); then three paths at full width
+    against the plain path with asserted launches: TimeSformer-B order
+    pretraining under ``SPATIAL_SHIFT=max TEMPORAL_SHIFT=max`` and
+    MViT-v2-S order pretraining under ``MVIT_SHIFT=max`` (``SHIFT_STEPS``
+    each), and the zero-shot COIN test under all three knobs ``none`` (2
+    batches).  Returns the records of the variants those paths launch
+    (:func:`shift_records`), with their launches."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for shift in SHIFTS:
+        for _, pairs, twins in shift_kernel_checks(torch, gen, k1, k2, fa, k5,
+                                                   shift):
+            for name, got, want, tol in pairs:
+                compare(torch, name, got, want, tol)
+            for name, got, twin in twins:
+                torch.cuda.synchronize()
+                if not all(same_bits(torch, a, b) for a, b in zip(got, twin)):
+                    fail(f"{name}: not bit for bit")
+                print(f"{name}: bit for bit")
+            del pairs, twins
+            torch.cuda.empty_cache()
+    records = shift_records(torch, k1, k2, k5, clamp)
+    hl, hs, n = MVIT_HL_BLOCKS, MVIT_HS_BLOCKS, SHIFT_STEPS
+    ts = phase_ts_knob_train(
+        torch, k1, k2, k5, k8, _build,
+        "TimeSformer SPATIAL_SHIFT=max TEMPORAL_SHIFT=max", TS_MAX,
+        {k1.KERNEL_PROBS: 2 * DEPTH, k1.KERNEL_BWD: DEPTH,
+         k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH}, False, (), n)
+    with knobs_set(MVIT_MAX):
+        mv = mvit_train(torch, k1, k2, k5, k8, _build, "MViT MVIT_SHIFT=max",
+                        n, {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL: 2 * hs * n,
+                            k5.KERNEL_HL_BWD: hl * n, k5.KERNEL_BWD: hs * n})
+    ev = phase_slice(torch, k1, k2, k5, k8, _build, ALL_NONE,
+                     ("TEST.NUM_ENSEMBLE_VIEWS", "1",
+                      "TEST.NUM_SPATIAL_CROPS", "1", "TEST.BATCH_SIZE", "32"),
+                     (k1.KERNEL, k2.KERNEL))
+    for rec in records:
+        base, shift = rec["name"].split(":")[0], rec["name"].split("=")[1]
+        runs = ev if shift == "none" else (mv if base.startswith("mvit")
+                                           else ts)
+        rec["launches"] = runs.get(base, 0)
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the slice 16 paths")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3112,9 +3625,13 @@ def main() -> int:
           k8, _build)
     timed("31 slice 15 checkpoints", phase_checkpoints, torch, k1, k2, k5,
           k8, _build)
+    clamp = {rec["name"]: rec for rec in eval_kernels + train_kernels
+             + mvit_kernels}
+    shift_kernels = timed("32 slice 16 shifts", phase_shifts, torch, k1, k2,
+                          k5, k8, fa, _build, clamp)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
-               + long_kernels + head_dim_kernels)
+               + long_kernels + head_dim_kernels + shift_kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

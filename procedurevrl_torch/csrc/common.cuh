@@ -5,12 +5,53 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pvrl {
 
 constexpr int HEAD_DIM = 64;
 // softmax shift of the TPU kernels: exp(min(s, 80)); a row of exp(80)
 // terms still sums far below the fp32 maximum
 constexpr float CLAMP_HI = 80.0f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The softmax shift (SPATIAL_SHIFT, TEMPORAL_SHIFT, MVIT_SHIFT), a
+// compile-time switch of every attention kernel that forms exponentials:
+// kClamp exp(min(x, 80)) (the default), kMax exp(x - m) with m the row max
+// over the valid keys (the reference's softmax), kNone exp(x) (overflows to
+// inf past x ~ 88.7, as the reference does).  The entry points take it as
+// an int of these values.
+enum Shift : int { kClamp = 0, kMax = 1, kNone = 2 };
+
+// f(integral_constant S) for the shift S of an entry point's int, or
+// cudaErrorInvalidValue for any other value
+template <typename F>
+int with_shift(int shift, F f) {
+  switch (shift) {
+    case kClamp: return f(std::integral_constant<int, kClamp>{});
+    case kMax: return f(std::integral_constant<int, kMax>{});
+    case kNone: return f(std::integral_constant<int, kNone>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The exponent of a scaled logit x under shift S; m the row max (kMax).
+template <int S>
+__device__ __forceinline__ float shift_arg(float x, float m) {
+  if constexpr (S == kClamp) return fminf(x, CLAMP_HI);
+  else if constexpr (S == kMax) return x - m;
+  else return x;
+}
+// The base-2 exponent of a raw logit s (scale2 = scale * log2 e) under
+// shift S; nm2 = -(row max of s) * scale2 (kMax), so that under kMax it is
+// one FMA, as the clamp's product and min are two instructions.
+template <int S>
+__device__ __forceinline__ float shift_arg2(float s, float scale2,
+                                            float nm2) {
+  if constexpr (S == kClamp) return fminf(s * scale2, CLAMP_HI * LOG2E);
+  else if constexpr (S == kMax) return fmaf(s, scale2, nm2);
+  else return s * scale2;
+}
 
 // two consecutive elements as floats / from floats
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -68,6 +109,12 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
@@ -269,6 +316,10 @@ __device__ __forceinline__ float2 load_bf16x2(const uint16_t* p) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 }  // namespace pvrl

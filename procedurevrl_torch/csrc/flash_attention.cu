@@ -26,7 +26,12 @@
 // the TPU kernels splice it into their padding row):
 //   s_ij = (q_i . k_j) * scale in fp32; e_ij = exp(min(s_ij, 80)), the clamp
 //   shift of the TPU kernels; l_i = sum_j e_ij; o_i = sum_j p_ij v_j with
-//   p = e / l.  bf16: e is rounded to bf16 as the A operand of P V and the
+//   p = e / l.  The shift is a compile-time switch (enum Shift, common.cuh):
+//   under max e = exp(s - m) with m the row max, which the forward keeps
+//   online over the key tiles (o and l rescaled by exp(m_old - m_new) when a
+//   tile raises it; online_exp) and saves as lse = m + log l in l's place,
+//   from which the backward rebuilds p = exp(s - lse); under none e =
+//   exp(s).  bf16: e is rounded to bf16 as the A operand of P V and the
 //   fp32 sum is divided by l once at the end, as the plain version rounds
 //   (the TPU kernel rounds e / l; either way one bf16 rounding of each
 //   probability).  The forward may also write l (fp32 [B, H, L]), the
@@ -107,7 +112,6 @@ constexpr int MAX_L = 1025;   // the JAX rule's 1024 tokens (+ the CLS)
 constexpr int MAX_TC = 256;   // widest head dim of the tensor-core kernels
 constexpr int SGW = 256;      // widest column group of the scalar kernels
 constexpr int PACK_ROWS = 128;  // rows of a slice of packed sequences
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Where the rows of each tensor group live.  Sequence s = b * seqs + m
 // (b < B, m < seqs) has its row j at base + (b * n + j) * ld + m * (ld /
@@ -253,29 +257,89 @@ constexpr size_t fwd_smem() {
          2;
 }
 
-// The clamp exp of a 64 x 64 logit tile s (accumulator layout) of key tile
-// kt, in place, multiplied by c0, c1 after (rows acc_row(0), acc_row(2));
-// with ROWSUM its terms are added to the row sums l0, l1: e = exp(min(s
-// scale, 80)).
+// The exp under shift SH of a 64 x 64 logit tile s (accumulator layout) of
+// key tile kt, in place, with the row statistics c0, c1 of this thread's
+// rows acc_row(0), acc_row(2): kClamp and kNone e = exp(min(s scale, 80))
+// or exp(s scale) times c (1 / l in the backward, 1 in the forward), with
+// ROWSUM its terms added to the row sums l0, l1; kMax (the backward) p =
+// exp(s scale - c) with c the row's lse.
 // A tile wholly inside the slice takes no mask; in the last one, 8-key
 // blocks past it are zero without an exp.
-template <bool ROWSUM>
-__device__ __forceinline__ void clamp_exp(float (&s)[32], const Geo& g, int vs,
-                                          int kt, float scale, float c0,
-                                          float c1, float& l0, float& l1) {
+template <bool ROWSUM, int SH>
+__device__ __forceinline__ void tile_exp(float (&s)[32], const Geo& g, int vs,
+                                         int kt, float scale, float c0,
+                                         float c1, float& l0, float& l1) {
   const bool full = g.pk == 1 && (kt + 1) * BM <= g.L;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const bool past = g.pk == 1 && kt * BM + 8 * j >= g.L;  // warp-uniform
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
+      const float c = e < 2 ? c0 : c1;
       float x = 0.f;
       if (full || (!past && key_in(g, vs, kt, acc_row(e), acc_col(j, e))))
-        x = exp2f(fminf(s[4 * j + e] * scale, CLAMP_HI) * LOG2E);
+        x = exp2f(shift_arg<SH>(s[4 * j + e] * scale, c) * LOG2E);
       if (ROWSUM) (e < 2 ? l0 : l1) += x;
-      s[4 * j + e] = x * (e < 2 ? c0 : c1);
+      s[4 * j + e] = SH == kMax ? x : x * c;
     }
   }
+}
+
+// The forward's online softmax under kMax for the logit tile s of key tile
+// kt: masks it, raises the running maxima m0, m1 (of the scaled logits) of
+// this thread's two rows, rescales their sums l0, l1 and, past the first
+// tile, their output accumulator o by exp(m_old - m_new), and leaves e =
+// exp(s scale - m) in s, added to l0, l1.  A row that has met no key yet
+// keeps m = -inf, its e and factor 0.
+template <int N>
+__device__ __forceinline__ void online_exp(float (&s)[32], float (&o)[N],
+                                           bool first, const Geo& g, int vs,
+                                           int kt, float scale, float& m0,
+                                           float& m1, float& l0, float& l1) {
+  const bool full = g.pk == 1 && (kt + 1) * BM <= g.L;
+  float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool past = g.pk == 1 && kt * BM + 8 * j >= g.L;  // warp-uniform
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = full ||
+                      (!past && key_in(g, vs, kt, acc_row(e), acc_col(j, e)));
+      const float x = in ? s[4 * j + e] * scale : -INFINITY;
+      s[4 * j + e] = x;
+      if (e < 2) t0 = fmaxf(t0, x); else t1 = fmaxf(t1, x);
+    }
+  }
+  const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+  const float b0 = n0 == -INFINITY ? 0.f : n0, b1 = n1 == -INFINITY ? 0.f : n1;
+  const float a0 = exp2f((m0 - b0) * LOG2E), a1 = exp2f((m1 - b1) * LOG2E);
+  m0 = n0;
+  m1 = n1;
+  l0 *= a0;
+  l1 *= a1;
+  if (!first) {  // o holds the previous tiles' sum (its group is done)
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] *= (i & 2) ? a1 : a0;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = exp2f((s[4 * j + e] - (e < 2 ? b0 : b1)) * LOG2E);
+      s[4 * j + e] = x;
+      (e < 2 ? l0 : l1) += x;
+    }
+  }
+}
+
+// The backward's statistic of a row from the forward's: 1 / l (kClamp,
+// kNone) or lse (kMax); for a padding row (q = g = 0, so that its ds is 0)
+// the one that gives p = 1
+template <int SH>
+__device__ __forceinline__ float row_stat(const float* rowsum, size_t i,
+                                          bool ok) {
+  if constexpr (SH == kMax) return ok ? rowsum[i] : 0.f;
+  else return ok ? 1.f / rowsum[i] : 1.f;
 }
 
 // the jacobian row sums D_i += sum_j dp_ij p_ij over a query-major tile,
@@ -291,10 +355,11 @@ __device__ __forceinline__ void add_jacobian_rows(float& d0, float& d1,
 }
 
 // p^T and ds^T = p^T (dp^T - D) in place of the key-major tiles s^T and
-// dp^T: rows 64 keys, columns 64 queries whose 1 / l and D are li_s[c],
-// d_s[c]; packed, a key meets only the queries of its own sequence (p = ds
+// dp^T: rows 64 keys, columns 64 queries whose statistic (row_stat) and D
+// are li_s[c], d_s[c]; packed, a key meets only the queries of its own sequence (p = ds
 // = 0 for the others).  Keys past the slice are zero rows of k and v: their
 // ds multiplies zeros in dq, and their dk, dv rows are not written.
+template <int SH>
 __device__ __forceinline__ void key_major_ds(float (&s)[32], float (&dp)[32],
                                              const float* li_s,
                                              const float* d_s, const Geo& g,
@@ -309,10 +374,12 @@ __device__ __forceinline__ void key_major_ds(float (&s)[32], float (&dp)[32],
     for (int e = 0; e < 4; ++e) {
       const bool in = g.pk == 1 ||
                       (acc_row(e) >> g.lp_log) == ((i0 + (e & 1)) >> g.lp_log);
-      const float p =
-          in ? exp2f(fminf(s[4 * j + e] * scale, CLAMP_HI) * LOG2E) *
-                   ((e & 1) ? li.y : li.x)
-             : 0.f;
+      const float c = (e & 1) ? li.y : li.x;
+      float p = 0.f;
+      if (in) {
+        p = exp2f(shift_arg<SH>(s[4 * j + e] * scale, c) * LOG2E);
+        if constexpr (SH != kMax) p *= c;
+      }
       s[4 * j + e] = p;
       dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
     }
@@ -370,10 +437,10 @@ __device__ __forceinline__ void store_q(const float (&acc)[G / 2],
   }
 }
 
-// Forward: out (and l, where rowsum is given) of the query tiles 2 x and
-// 2 x + 1 of one slice (the CTA's two warpgroups), columns group y; the
-// key / value tiles in a ring of ring_stages(W) stages.
-template <int W>
+// Forward: out (and l, under kMax lse, where rowsum is given) of the query
+// tiles 2 x and 2 x + 1 of one slice (the CTA's two warpgroups), columns
+// group y; the key / value tiles in a ring of ring_stages(W) stages.
+template <int W, int SH>
 __global__ void __launch_bounds__(256)
 flash_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
              const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
@@ -410,6 +477,7 @@ flash_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const uint16_t* qa = q_s + wg * BM * W;
   float o[G / 2];  // written by the first P V product
   float l0 = 0.f, l1 = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // kMax: the running row maxima
   bool first = true;
   for (int t = 0; t < g.tiles; ++t) {
     // tile t has landed and every warpgroup is done with tile t - 1: its
@@ -431,7 +499,10 @@ flash_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    clamp_exp<true>(s, g, vs, t, scale, 1.f, 1.f, l0, l1);
+    if constexpr (SH == kMax)
+      online_exp(s, o, first, g, vs, t, scale, m0, m1, l0, l1);
+    else
+      tile_exp<true, SH>(s, g, vs, t, scale, 1.f, 1.f, l0, l1);
     wgmma_fence();
     accumulate<G, G>(o, s, v_s, first, g, t);
     wgmma_commit();
@@ -458,7 +529,8 @@ flash_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
     }
     if (rowsum != nullptr && blockIdx.y == 0 && (threadIdx.x & 3) == 0)
-      rowsum[stat_index(g, R, h)] = l;
+      rowsum[stat_index(g, R, h)] =
+          SH == kMax ? (half ? m1 : m0) + logf(l) : l;
   }
 }
 
@@ -480,7 +552,7 @@ constexpr size_t bwd_smem() {
 // Query-major backward: D (stored for the key-major pass) and dq, columns
 // group y, of the query tiles of the CTA's warpgroups: sweep A over the key
 // tiles sums D_i, sweep B forms ds and accumulates dq.
-template <int W>
+template <int W, int SH>
 __global__ void __launch_bounds__(bwd_wgs(W) * 128, W <= 64 ? 2 : 1)
 flash_bwd_q_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
@@ -532,9 +604,10 @@ flash_bwd_q_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
   const Row R0 = slice_row(g, vs, qt * BM + acc_row(0));
   const Row R1 = slice_row(g, vs, qt * BM + acc_row(2));
-  // 1 / l (padding rows: p = 1, and their g is 0)
-  const float c0l = active && R0.ok ? 1.f / rowsum[stat_index(g, R0, h)] : 1.f;
-  const float c1l = active && R1.ok ? 1.f / rowsum[stat_index(g, R1, h)] : 1.f;
+  // 1 / l or lse (padding rows: p = 1, and their g is 0)
+  const bool ok0 = active && R0.ok, ok1 = active && R1.ok;
+  const float c0l = row_stat<SH>(rowsum, ok0 ? stat_index(g, R0, h) : 0, ok0);
+  const float c1l = row_stat<SH>(rowsum, ok1 ? stat_index(g, R1, h) : 0, ok1);
   float d0 = 0.f, d1 = 0.f;
   float acc_q[G / 2];  // written by the first sweep B product
   bool first = true;
@@ -564,7 +637,7 @@ flash_bwd_q_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
-    clamp_exp<false>(s, g, vs, kt, scale, c0l, c1l, d0, d1);  // d0, d1 untouched
+    tile_exp<false, SH>(s, g, vs, kt, scale, c0l, c1l, d0, d1);  // d0, d1 untouched
     if (t < g.tiles) {  // sweep A: D_i = sum_j dp_ij p_ij
       add_jacobian_rows(d0, d1, s, dp);
       continue;
@@ -630,7 +703,7 @@ constexpr size_t bwd_k_smem() {
 // tiles, into the resident buffer of the item two back), so dk and dv are
 // summed in registers in a fixed order and written under the next item's
 // loads.
-template <int W>
+template <int W, int SH>
 __global__ void __launch_bounds__(128, k_min_ctas(W))
 flash_bwd_k_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const uint16_t* __restrict__ qc,
@@ -675,16 +748,16 @@ flash_bwd_k_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     cp_async_commit();
   };
   // the row statistics of step n's query tile through this thread's
-  // registers (the first 64 threads, one row each; padding rows: 1 / l = 1
+  // registers (the first 64 threads, one row each; padding rows: row_stat's
   // and D = 0, so that with q = g = 0 there their ds is 0)
-  float stat_l = 1.f, stat_d = 0.f;
+  float stat_l = SH == kMax ? 0.f : 1.f, stat_d = 0.f;
   auto load_stats = [&](int n) {
     if (threadIdx.x >= BM || n >= steps) return;
     const int kk = n / g.tiles, t = n - kk * g.tiles;
     const Item it = item_at(g, g.tiles, blockIdx.x + kk * gridDim.x);
     const Row R = slice_row(g, it.vs, t * BM + threadIdx.x);
     const size_t i = R.ok ? stat_index(g, R, it.h) : 0;
-    stat_l = R.ok ? 1.f / rowsum[i] : 1.f;
+    stat_l = row_stat<SH>(rowsum, i, R.ok);
     stat_d = R.ok ? delta[i] : 0.f;
   };
   auto store_stats = [&](int n) {
@@ -726,7 +799,7 @@ flash_bwd_k_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      key_major_ds(s, dp, li_s, d_s, g, scale);
+      key_major_ds<SH>(s, dp, li_s, d_s, g, scale);
       wgmma_fence();
       accumulate<G, W>(acc_k, dp, q_s + 8 * c0, first, g, t);
       accumulate<G, W>(acc_v, s, g_s + 8 * c0, first, g, t);
@@ -793,7 +866,7 @@ constexpr size_t fused_smem(int tiles, int kr, int stages) {
 //   Phase Q: dq of query tile t (warpgroup w taking t = w, w + 2, ...) =
 //     ds k over the slice's keys, both operands from shared memory.
 // Every sum runs in a fixed order; no atomics.
-template <int W, int S>
+template <int W, int S, int SH>
 __global__ void __launch_bounds__(256, W <= 32 ? 2 : 1)
 flash_bwd_fused_wg(const uint16_t* __restrict__ q,
                    const uint16_t* __restrict__ k,
@@ -837,10 +910,11 @@ flash_bwd_fused_wg(const uint16_t* __restrict__ q,
     cp_async_commit();
   };
   for (int n = 0; n + 1 < S; ++n) stage_step(n);
-  // 1 / l (padding rows: 1, with q = g = 0 there, so that their ds is 0)
+  // 1 / l or lse (padding rows: p = 1, with q = g = 0 there, so that their
+  // ds is 0)
   for (int i = threadIdx.x; i < rows; i += blockDim.x) {
     const Row R = slice_row(g, vs, i);
-    inv_l[i] = R.ok ? 1.f / rowsum[stat_index(g, R, h)] : 1.f;
+    inv_l[i] = row_stat<SH>(rowsum, R.ok ? stat_index(g, R, h) : 0, R.ok);
   }
 
   float acc_k[W / 2], acc_v[W / 2];  // written by each round's first products
@@ -872,7 +946,7 @@ flash_bwd_fused_wg(const uint16_t* __restrict__ q,
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
-        clamp_exp<false>(s, g, vs, kt, scale, c0l, c1l, d0, d1);
+        tile_exp<false, SH>(s, g, vs, kt, scale, c0l, c1l, d0, d1);
         add_jacobian_rows(d0, d1, s, dp);
       }
       d0 = quad_sum(d0);
@@ -895,7 +969,7 @@ flash_bwd_fused_wg(const uint16_t* __restrict__ q,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      key_major_ds(s, dp, inv_l + t * BM, delta + t * BM, g, scale);
+      key_major_ds<SH>(s, dp, inv_l + t * BM, delta + t * BM, g, scale);
       store_ds(ds_buf + (size_t)t * kr * BM, dp, kt, kr);
       wgmma_fence();
       accumulate<W, W>(acc_k, dp, q_s, first, g, t);
@@ -947,8 +1021,8 @@ __device__ __forceinline__ float op(float x) {
 
 // Forward: one warp per query row, its HD columns of group y (lane's
 // columns lane + 32 u); shared memory holds the warp's row of exponentials
-// [L].  o = sum_j op(e_j) v_j / l.
-template <typename T, int HD>
+// [L] (kMax: first its logits).  o = sum_j op(e_j) v_j / l.
+template <typename T, int HD, int SH>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ qc,
@@ -965,10 +1039,21 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / g.heads, h = bh % g.heads;
   float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * g.L;
   const T* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
+  auto logit = [&](int j) {
+    return dot(qi, row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j), g.d) * scale;
+  };
+  float mx = 0.f;
+  if constexpr (SH == kMax) {
+    mx = -INFINITY;
+    for (int j = lane; j < g.L; j += 32) {
+      e_w[j] = logit(j);
+      mx = fmaxf(mx, e_w[j]);
+    }
+    mx = warp_max(mx);
+  }
   float part = 0.f;
   for (int j = lane; j < g.L; j += 32) {
-    const T* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
-    const float e = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI));
+    const float e = expf(shift_arg<SH>(SH == kMax ? e_w[j] : logit(j), mx));
     e_w[j] = e;
     part += e;
   }
@@ -989,12 +1074,20 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
   for (int u = 0; u < U; ++u)
     if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u] / l);
   if (rowsum != nullptr && c0 == 0 && lane == 0)
-    rowsum[(size_t)bh * g.L + i] = l;
+    rowsum[(size_t)bh * g.L + i] = SH == kMax ? mx + logf(l) : l;
+}
+
+// The probability of a scaled logit x under shift SH from the forward's
+// statistic c of its row: l, or lse under kMax
+template <int SH>
+__device__ __forceinline__ float prob(float x, float c) {
+  if constexpr (SH == kMax) return expf(x - c);
+  else return expf(shift_arg<SH>(x, 0.f)) / c;
 }
 
 // Query-major backward: one warp per query row; per warp two rows [L] of
 // shared memory (p, then op(ds); and dp).
-template <typename T, int HD>
+template <typename T, int HD, int SH>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ qc,
@@ -1020,7 +1113,7 @@ flash_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = lane; j < g.L; j += 32) {
     const T* kj = row_of(k, kc, g.ld_in, g.ldc_in, g, b, h, j);
     const T* vj = row_of(v, vc, g.ld_in, g.ldc_in, g, b, h, j);
-    const float p = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI)) / l;
+    const float p = prob<SH>(dot(qi, kj, g.d) * scale, l);
     const float dp = dot(gi, vj, g.d);
     p_w[j] = p;
     dp_w[j] = dp;
@@ -1048,7 +1141,7 @@ flash_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
 
 // Key-major backward: one warp per key row of [frames; cls]; lanes take 32
 // queries at a time, then sum their products over them.
-template <typename T, int HD>
+template <typename T, int HD, int SH>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_k_scalar(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ qc,
@@ -1079,7 +1172,7 @@ flash_bwd_k_scalar(const T* __restrict__ q, const T* __restrict__ k,
     if (i < g.L) {
       const T* qi = row_of(q, qc, g.ld_in, g.ldc_in, g, b, h, i);
       const T* gi = row_of(gr, gc, g.ld_g, g.ldc_g, g, b, h, i);
-      p = expf(fminf(dot(qi, kj, g.d) * scale, CLAMP_HI)) / rs[i];
+      p = prob<SH>(dot(qi, kj, g.d) * scale, rs[i]);
       ds = p * (dot(gi, vj, g.d) - dl[i]);
     }
     p_s[warp][lane] = op<T>(p);
@@ -1175,15 +1268,16 @@ unsigned wg_ctas(const Geo& g, int nw) {
   return (unsigned)((long long)g.slices * g.heads * ((g.tiles + nw - 1) / nw));
 }
 
-template <int W>
+template <int W, int SH>
 int launch_fwd_wg(const void* q, const void* k, const void* v, const void* qc,
                   const void* kc, const void* vc, void* out, void* outc,
                   void* rowsum, const Geo& g, float scale, cudaStream_t st) {
   using u16 = uint16_t;
   constexpr size_t smem = fwd_smem<W>();
-  cudaError_t err = set_smem(flash_fwd_wg<W>, smem);
+  cudaError_t err = set_smem(flash_fwd_wg<W, SH>, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_wg<W><<<dim3(wg_ctas(g, 2), W / group_width(W)), 256, smem, st>>>(
+  flash_fwd_wg<W, SH><<<dim3(wg_ctas(g, 2), W / group_width(W)), 256, smem,
+                        st>>>(
       static_cast<const u16*>(q), static_cast<const u16*>(k),
       static_cast<const u16*>(v), static_cast<const u16*>(qc),
       static_cast<const u16*>(kc), static_cast<const u16*>(vc),
@@ -1192,16 +1286,16 @@ int launch_fwd_wg(const void* q, const void* k, const void* v, const void* qc,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int SH>
 int launch_fwd_scalar(const void* q, const void* k, const void* v,
                       const void* qc, const void* kc, const void* vc,
                       void* out, void* outc, void* rowsum, const Geo& g,
                       float scale, cudaStream_t st) {
   const size_t smem = (size_t)WARPS * g.L * sizeof(float);
-  cudaError_t err = set_smem(flash_fwd_scalar<T, HD>, smem);
+  cudaError_t err = set_smem(flash_fwd_scalar<T, HD, SH>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (g.L + WARPS - 1) / WARPS;
-  flash_fwd_scalar<T, HD><<<dim3((unsigned)((long long)g.nseq * g.heads * rows),
+  flash_fwd_scalar<T, HD, SH><<<dim3((unsigned)((long long)g.nseq * g.heads * rows),
                                  (g.d + HD - 1) / HD),
                             WARPS * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1228,13 +1322,14 @@ unsigned resident_ctas(K kernel, int threads, size_t smem) {
   return (unsigned)(std::max(per_sm, 1) * sms);
 }
 
-template <int W, int S>
+template <int W, int S, int SH>
 int launch_bwd_fused(const BwdArgs& a, const Geo& geo, int kr, size_t smem,
                      float scale, cudaStream_t st) {
   using u16 = uint16_t;
-  static const cudaError_t set = set_smem(flash_bwd_fused_wg<W, S>, MAX_SMEM);
+  static const cudaError_t set =
+      set_smem(flash_bwd_fused_wg<W, S, SH>, MAX_SMEM);
   if (set != cudaSuccess) return (int)set;
-  flash_bwd_fused_wg<W, S><<<wg_ctas(geo, geo.tiles), 256, smem, st>>>(
+  flash_bwd_fused_wg<W, S, SH><<<wg_ctas(geo, geo.tiles), 256, smem, st>>>(
       static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
       static_cast<const u16*>(a.v), static_cast<const u16*>(a.qc),
       static_cast<const u16*>(a.kc), static_cast<const u16*>(a.vc),
@@ -1248,7 +1343,7 @@ int launch_bwd_fused(const BwdArgs& a, const Geo& geo, int kr, size_t smem,
 
 // The fused kernel where a slice fits it; else the query-major pass (D and
 // dq) and the key-major pass (dk and dv), 9 products per pair
-template <int W>
+template <int W, int SH>
 int launch_bwd_wg(const BwdArgs& a, const Geo& geo, float scale,
                   cudaStream_t st) {
   using u16 = uint16_t;
@@ -1257,27 +1352,27 @@ int launch_bwd_wg(const BwdArgs& a, const Geo& geo, float scale,
     if constexpr (W == 64) {
       const size_t smem3 = fused_smem<W>(geo.tiles, kr, 3);
       if (smem3 <= MAX_SMEM)
-        return launch_bwd_fused<W, 3>(a, geo, kr, smem3, scale, st);
+        return launch_bwd_fused<W, 3, SH>(a, geo, kr, smem3, scale, st);
     }
     const size_t smem2 = fused_smem<W>(geo.tiles, kr, 2);
     if (smem2 <= MAX_SMEM)
-      return launch_bwd_fused<W, 2>(a, geo, kr, smem2, scale, st);
+      return launch_bwd_fused<W, 2, SH>(a, geo, kr, smem2, scale, st);
   }
   constexpr size_t smem = bwd_smem<W>(), smem_k = bwd_k_smem<W>();
   constexpr int NW = bwd_wgs(W);
-  cudaError_t err = set_smem(flash_bwd_q_wg<W>, smem);
-  if (err == cudaSuccess) err = set_smem(flash_bwd_k_wg<W>, smem_k);
+  cudaError_t err = set_smem(flash_bwd_q_wg<W, SH>, smem);
+  if (err == cudaSuccess) err = set_smem(flash_bwd_k_wg<W, SH>, smem_k);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(wg_ctas(geo, NW), W / group_width(W));
   // the key-major pass persists where it double-buffers its resident
   // tiles: as many CTAs as the card holds (counted once: the process runs
   // on one card model), at most one per item
   static const unsigned resident =
-      resident_ctas(flash_bwd_k_wg<W>, 128, smem_k);
+      resident_ctas(flash_bwd_k_wg<W, SH>, 128, smem_k);
   const unsigned kitems = wg_ctas(geo, 1);
   const unsigned kctas =
       kv_buffers(W) > 1 ? std::max(1u, std::min(kitems, resident)) : kitems;
-  flash_bwd_q_wg<W><<<grid, NW * 128, smem, st>>>(
+  flash_bwd_q_wg<W, SH><<<grid, NW * 128, smem, st>>>(
       static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
       static_cast<const u16*>(a.v), static_cast<const u16*>(a.qc),
       static_cast<const u16*>(a.kc), static_cast<const u16*>(a.vc),
@@ -1286,7 +1381,7 @@ int launch_bwd_wg(const BwdArgs& a, const Geo& geo, float scale,
       static_cast<u16*>(a.dq), static_cast<u16*>(a.dqc), geo, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_k_wg<W><<<dim3(kctas, grid.y), 128, smem_k, st>>>(
+  flash_bwd_k_wg<W, SH><<<dim3(kctas, grid.y), 128, smem_k, st>>>(
       static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
       static_cast<const u16*>(a.v), static_cast<const u16*>(a.qc),
       static_cast<const u16*>(a.kc), static_cast<const u16*>(a.vc),
@@ -1297,16 +1392,16 @@ int launch_bwd_wg(const BwdArgs& a, const Geo& geo, float scale,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int SH>
 int launch_bwd_scalar(const BwdArgs& a, const Geo& geo, float scale,
                       cudaStream_t st) {
   const size_t smem = (size_t)WARPS * 2 * geo.L * sizeof(float);
-  cudaError_t err = set_smem(flash_bwd_q_scalar<T, HD>, smem);
+  cudaError_t err = set_smem(flash_bwd_q_scalar<T, HD, SH>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(
       (unsigned)((long long)geo.nseq * geo.heads * ((geo.L + WARPS - 1) / WARPS)),
       (geo.d + HD - 1) / HD);
-  flash_bwd_q_scalar<T, HD><<<grid, WARPS * 32, smem, st>>>(
+  flash_bwd_q_scalar<T, HD, SH><<<grid, WARPS * 32, smem, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.qc),
       static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
@@ -1315,7 +1410,7 @@ int launch_bwd_scalar(const BwdArgs& a, const Geo& geo, float scale,
       static_cast<T*>(a.dq), static_cast<T*>(a.dqc), geo, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_k_scalar<T, HD><<<grid, WARPS * 32, 0, st>>>(
+  flash_bwd_k_scalar<T, HD, SH><<<grid, WARPS * 32, 0, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.qc),
       static_cast<const T*>(a.kc), static_cast<const T*>(a.vc),
@@ -1361,11 +1456,13 @@ int with_scalar(int d, F f) {
 // (their batch stride), ld_o / ldc_o of out and outc (forward) or of g and
 // gc (backward), ld_d / ldc_d of the gradients; with seqs > 1 each ld must
 // be a multiple of seqs.  The tensor-core kernels need every row 16-byte
-// aligned.  Each entry point returns the CUDA error code of its launches
-// (0 on success).
+// aligned.  shift: the softmax shift (enum Shift: 0 clamp, 1 max, 2 none).
+// Each entry point returns the CUDA error code of its launches (0 on
+// success).
 
 // The forward: out, outc and, where rowsum is not null, l [b, heads, L]
-// (fp32).
+// (fp32; under max lse = m + log l, with m the row max of the scaled
+// logits).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* qc,
                                    const void* kc, const void* vc, void* out,
@@ -1373,7 +1470,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int n, int heads, int head_dim,
                                    long long ld_in, long long ldc_in,
                                    long long ld_o, long long ldc_o, int dtype,
-                                   float scale, void* stream) {
+                                   int shift, float scale, void* stream) {
   if (!valid(b, seqs, n, heads, head_dim, qc != nullptr, dtype,
              std::max(ld_in, ld_o)))
     return (int)cudaErrorInvalidValue;
@@ -1381,21 +1478,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const Geo g = make_geo(b, n, qc != nullptr, heads, head_dim, seqs, tc, ld_in,
                          ldc_in, ld_o, ldc_o, 0, 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tc)
-    return with_tile(head_dim, [&](auto w) {
-      return launch_fwd_wg<decltype(w)::value>(q, k, v, qc, kc, vc, out, outc,
-                                               rowsum, g, scale, st);
-    });
-  auto scalar = [&](auto t, auto hd) {
-    return launch_fwd_scalar<decltype(t), decltype(hd)::value>(
-        q, k, v, qc, kc, vc, out, outc, rowsum, g, scale, st);
-  };
-  return dtype == 0 ? with_scalar<float>(head_dim, scalar)
-                    : with_scalar<__nv_bfloat16>(head_dim, scalar);
+  return with_shift(shift, [&](auto sh) {
+    constexpr int SH = decltype(sh)::value;
+    if (tc)
+      return with_tile(head_dim, [&](auto w) {
+        return launch_fwd_wg<decltype(w)::value, SH>(q, k, v, qc, kc, vc, out,
+                                                     outc, rowsum, g, scale,
+                                                     st);
+      });
+    auto scalar = [&](auto t, auto hd) {
+      return launch_fwd_scalar<decltype(t), decltype(hd)::value, SH>(
+          q, k, v, qc, kc, vc, out, outc, rowsum, g, scale, st);
+    };
+    return dtype == 0 ? with_scalar<float>(head_dim, scalar)
+                      : with_scalar<__nv_bfloat16>(head_dim, scalar);
+  });
 }
 
-// The recompute backward from the forward's l: dq, dk, dv (and dqc, dkc,
-// dvc).  delta [b, heads, L] fp32 is scratch written by the query-major
+// The recompute backward from the forward's l (lse under max, the same
+// shift as the forward's): dq, dk, dv (and dqc, dkc, dvc).  delta [b, heads, L] fp32 is scratch written by the query-major
 // kernel and read by the key-major one.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* qc,
@@ -1407,8 +1508,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int heads, int head_dim, long long ld_in,
                                    long long ldc_in, long long ld_g,
                                    long long ldc_g, long long ld_d,
-                                   long long ldc_d, int dtype, float scale,
-                                   void* stream) {
+                                   long long ldc_d, int dtype, int shift,
+                                   float scale, void* stream) {
   if (!valid(b, seqs, n, heads, head_dim, qc != nullptr, dtype,
              std::max({ld_in, ld_g, ld_d})))
     return (int)cudaErrorInvalidValue;
@@ -1418,14 +1519,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const BwdArgs a{q, k, v, qc, kc, vc, g, gc, rowsum, delta,
                   dq, dk, dv, dqc, dkc, dvc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tc)
-    return with_tile(head_dim, [&](auto w) {
-      return launch_bwd_wg<decltype(w)::value>(a, geo, scale, st);
-    });
-  auto scalar = [&](auto t, auto hd) {
-    return launch_bwd_scalar<decltype(t), decltype(hd)::value>(a, geo, scale,
-                                                                st);
-  };
-  return dtype == 0 ? with_scalar<float>(head_dim, scalar)
-                    : with_scalar<__nv_bfloat16>(head_dim, scalar);
+  return with_shift(shift, [&](auto sh) {
+    constexpr int SH = decltype(sh)::value;
+    if (tc)
+      return with_tile(head_dim, [&](auto w) {
+        return launch_bwd_wg<decltype(w)::value, SH>(a, geo, scale, st);
+      });
+    auto scalar = [&](auto t, auto hd) {
+      return launch_bwd_scalar<decltype(t), decltype(hd)::value, SH>(
+          a, geo, scale, st);
+    };
+    return dtype == 0 ? with_scalar<float>(head_dim, scalar)
+                      : with_scalar<__nv_bfloat16>(head_dim, scalar);
+  });
 }

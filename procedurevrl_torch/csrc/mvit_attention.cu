@@ -32,7 +32,10 @@
 //   s_ij = (q_i . k_j) * scale + ((rel[i, t'] + rel[i, kt+h']) +
 //   rel[i, kt+kh+w']) for body keys, (q_i . kc) * scale for the cls key;
 //   p = exp(min(s, 80)) / l_i with l_i = sum_j exp(min(s_ij, 80)) over the
-//   kN + 1 columns (the clamp shift of the TPU kernels, MVIT_SHIFT=clamp);
+//   kN + 1 columns (the clamp shift of the TPU kernels, MVIT_SHIFT=clamp;
+//   under none exp(s), under max exp(s - m) with the running row max of
+//   K7f's forward, which saves lse, and the kRowMax backward; a
+//   compile-time switch, enum Shift of common.cuh);
 //   o_i = sum_j bf16(p_ij) v_j, accumulated in fp32, in the input dtype
 //   (the bf16 tensor-core forward: o_i = (sum_j bf16(e_ij) v_j) / l_i with
 //   e = exp(min(s, 80)), see its design below).
@@ -144,15 +147,16 @@ constexpr int KCAT = 48;      // rel columns, padded to 3 mma k-steps
 constexpr int SE = KCAT + 8;  // smem row of a rel / expander tile: 112 B
 constexpr int SP = BN + 8;    // smem row of a saved-probability tile: 144 B
 constexpr int WARPS = 4;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BF16_ONE = 0x3F80u;
 constexpr float MASKED = -1e30f;  // K7's logit of a padding key column
 
 // The backward's variants (compile-time switches of one kernel pair)
 enum Bwd : int {
-  kRecompute = 0,  // K5b / K6b: p = exp(min(s, 80)) / l, D = rowsum(dp p)
-  kRowMax = 1,     // K7b: p = exp(s - lse), D = rowsum(g o)
-  kDelta = 2,      // K5bd / K6bd: p = exp(min(s, 80)) / l, D = rowsum(g o)
+  kRecompute = 0,  // K5b / K6b: p = exp(min(s, 80)) / l (kNone: exp(s) / l),
+                   // D = rowsum(dp p)
+  kRowMax = 1,     // K7b, and K5b / K6b / K5bd / K6bd under MVIT_SHIFT=max:
+                   // p = exp(s - lse), D = rowsum(g o)
+  kDelta = 2,      // K5bd / K6bd: p as kRecompute's, D = rowsum(g o)
   kSaved = 3,      // K6bs: p read from K6sp's probs, D = rowsum(dp p)
 };
 
@@ -215,18 +219,6 @@ __device__ __forceinline__ void axis_cols(int j, const Geo& g, int& a, int& b,
     b = g.kt + (j / g.kw) % g.kh;
     c = g.kt + g.kh + j % g.kw;
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 // --------------------------------------- bf16 backward (wgmma) kernels
@@ -402,7 +394,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[N / 2],
 
 // ----------------------------------------- bf16 forward (wgmma) kernel
 
-// K5f / K6f, with SAVE K6sp, and with KT K7f (mvit_fwd_wg): a CTA of FWG
+// K5f / K6f, with SAVE K6sp, and under kMax K7f (mvit_fwd_wg): a CTA of FWG
 // warpgroups owns
 // FWG x 64 query rows of one slice (each warpgroup's q and rel resident);
 // the key tiles of 64 (k, v and the 0/1 expander, built once per tile for
@@ -456,8 +448,11 @@ __host__ __device__ constexpr size_t fwd_smem() {
 }
 
 // EXACT: the head dim is the tile width DP, so the column tests against d
-// fold away at compile time.  KT (K7f, not with SAVE): rowsum takes lse.
-template <bool SAVE, int DP, bool EXACT, bool KT>
+// fold away at compile time.  SH: the softmax shift; kMax (K7f, and K5f /
+// K6f / K6sp under MVIT_SHIFT=max) takes the running row max, rescaling o
+// and l, and rowsum takes lse; K6sp's first sweep finds the max and l, its
+// second forms e = exp(s - m) with the final m.
+template <bool SAVE, int DP, bool EXACT, int SH>
 __global__ void __launch_bounds__(fwd_wgs<DP>() * 128, 1)
 mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
@@ -506,7 +501,7 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
   float o[DP / 2];  // written by the first P V product
   float l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
-  float m0 = MASKED, m1 = MASKED;  // K7f's running row maxima
+  float m0 = MASKED, m1 = MASKED;  // kMax: the running row maxima
   for (int t = 0; t < iters; ++t) {
     // step t has landed and every warpgroup is done with step t - 1: its
     // stage takes step t + FSTAGES - 1
@@ -537,7 +532,7 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     fence_regs(s);
     add_bias(s, r_s, e_s, scale);
     const bool full_tile = j0 + BN <= g.kn + 1;
-    if constexpr (KT) {
+    if constexpr (SH == kMax) {
       // p = exp(s - m) with the running max m; columns past the cls key
       // masked, as the TPU kernel masks its padding columns
       float t0 = MASKED, t1 = MASKED;
@@ -549,21 +544,27 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
           if (e < 2) t0 = fmaxf(t0, s[4 * j + e]);
           else t1 = fmaxf(t1, s[4 * j + e]);
         }
-      const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
-      const float a0 = exp2f((m0 - n0) * LOG2E), a1 = exp2f((m1 - n1) * LOG2E);
-      m0 = n0;
-      m1 = n1;
-      l0 *= a0;
-      l1 *= a1;
-      if (t > 0) {  // o holds the previous tiles' sum (its group is done)
+      // K6sp's second sweep keeps the first's final max
+      if (!SAVE || t < tiles) {
+        const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+        const float a0 = exp2f((m0 - n0) * LOG2E);
+        const float a1 = exp2f((m1 - n1) * LOG2E);
+        m0 = n0;
+        m1 = n1;
+        l0 *= a0;
+        l1 *= a1;
+        // o holds the previous tiles' sum (its group is done)
+        if (!SAVE && t > 0) {
 #pragma unroll
-        for (int i = 0; i < DP / 2; i += 4) {
-          o[i] *= a0;
-          o[i + 1] *= a0;
-          o[i + 2] *= a1;
-          o[i + 3] *= a1;
+          for (int i = 0; i < DP / 2; i += 4) {
+            o[i] *= a0;
+            o[i + 1] *= a0;
+            o[i + 2] *= a1;
+            o[i + 3] *= a1;
+          }
         }
       }
+      const float n0 = m0, n1 = m1;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -573,8 +574,9 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         l1 += s[4 * j + 2] + s[4 * j + 3];
       }
     } else {
-      // e = exp(min(s, 80)) over the body keys and the cls (columns <= kN);
-      // a tile wholly inside takes no mask, 8-key blocks past kN no exp
+      // e = exp(min(s, 80)) (kNone exp(s)) over the body keys and the cls
+      // (columns <= kN); a tile wholly inside takes no mask, 8-key blocks
+      // past kN no exp
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const bool past = j0 + 8 * j > g.kn;  // warp-uniform
@@ -582,7 +584,7 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           float x = 0.f;
           if (full_tile || (!past && j0 + acc_col(j, e) <= g.kn))
-            x = exp2_ftz(fminf(s[4 * j + e], CLAMP_HI) * LOG2E);
+            x = exp2_ftz(shift_arg<SH>(s[4 * j + e], 0.f) * LOG2E);
           if (e < 2) l0 += x; else l1 += x;
           s[4 * j + e] = x;
         }
@@ -640,7 +642,7 @@ mvit_fwd_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         *reinterpret_cast<uint32_t*>(dst + acc_col(j, 0)) =
             pack_bf16x2(o[4 * j + 2 * half] * f, o[4 * j + 2 * half + 1] * f);
     if ((threadIdx.x & 3) == 0)
-      rs[r] = KT ? (half ? m1 : m0) + logf(l) : l;
+      rs[r] = SH == kMax ? (half ? m1 : m0) + logf(l) : l;
   }
 }
 
@@ -670,7 +672,8 @@ __host__ __device__ constexpr size_t bwd_q_smem() {
 // of QM query rows, for the variant M (enum Bwd).  rowsum holds l
 // (kRecompute, kDelta) or lse (kRowMax); o is the saved output (kRowMax,
 // kDelta); probs K6sp's probabilities (kSaved: no logits, so no q or rel).
-template <int M, int DP>
+// SH: the shift of kRecompute and kDelta's p (kClamp or kNone).
+template <int M, int DP, int SH>
 __global__ void __launch_bounds__(QWG * 128)
 mvit_bwd_q_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
@@ -809,7 +812,7 @@ mvit_bwd_q_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
           s[4 * j + e] =
               j0 + acc_col(j, e) > g.kn ? 0.f
               : LSE ? exp2f((x - c) * LOG2E)
-                    : exp2f(fminf(x, CLAMP_HI) * LOG2E) * c;
+                    : exp2f(shift_arg<SH>(x, 0.f) * LOG2E) * c;
         }
     }
     if (sweep_a) {  // D_i = sum_j dp_ij p_ij
@@ -893,7 +896,7 @@ __host__ __device__ constexpr size_t bwd_k_smem() {
 // chunk shorter), summing dk and dv in registers.  With one chunk it
 // writes the bf16 gradients; with several, fp32 partials [2][splits][BH]
 // [kN + 1][d] to `work` (dk unscaled, then dv), which mvit_bwd_reduce sums.
-template <int M, int DP>
+template <int M, int DP, int SH>
 __global__ void __launch_bounds__(KWG * 128)
 mvit_bwd_k_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v, const uint16_t* __restrict__ kc,
@@ -1015,7 +1018,7 @@ mvit_bwd_k_wg(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         } else if constexpr (LSE) {
           p = exp2f((s[4 * j + e] - li_s[i]) * LOG2E);
         } else {
-          p = exp2f(fminf(s[4 * j + e], CLAMP_HI) * LOG2E) * li_s[i];
+          p = exp2f(shift_arg<SH>(s[4 * j + e], 0.f) * LOG2E) * li_s[i];
         }
         s[4 * j + e] = p;
         dp[4 * j + e] = p * (dp[4 * j + e] - d_s[i]);  // ds^T
@@ -1157,8 +1160,11 @@ __device__ __forceinline__ float op(float x) {
 }
 
 // Forward: one warp per query row; shared memory holds the warp's row of
-// exponentials [kn + 1].  SAVE (K6sp) also writes p to probs.
-template <typename T, bool SAVE>
+// exponentials [kn + 1] (kMax: first its logits).  SAVE (K6sp) also writes
+// p to probs.  kClamp and kNone: o = sum_j op(e_j / l) v_j, rowsum l; kMax
+// (K7f, and K5f / K6f / K6sp under MVIT_SHIFT=max): e = exp(s - m) with m
+// the row max, o = (sum_j op(e_j) v_j) / l, rowsum lse = m + log l.
+template <typename T, bool SAVE, int SH>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ kc,
@@ -1175,10 +1181,21 @@ mvit_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
   const T* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
   const T* kp = k_of(k, g, bh);
   const T* kcp = c_of(kc, g, bh);
+  auto logit_j = [&](int j) {
+    return logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
+  };
+  float mx = 0.f;
+  if constexpr (SH == kMax) {
+    mx = MASKED;
+    for (int j = lane; j <= g.kn; j += 32) {
+      e_w[j] = logit_j(j);
+      mx = fmaxf(mx, e_w[j]);
+    }
+    mx = warp_max(mx);
+  }
   float part = 0.f;
   for (int j = lane; j <= g.kn; j += 32) {
-    const float e =
-        expf(fminf(logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale), CLAMP_HI));
+    const float e = expf(shift_arg<SH>(SH == kMax ? e_w[j] : logit_j(j), mx));
     e_w[j] = e;
     part += e;
   }
@@ -1192,7 +1209,7 @@ mvit_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
   const T* vcp = c_of(vc, g, bh);
   float o[U] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j <= g.kn; ++j) {
-    const float p = op<T>(e_w[j] / l);
+    const float p = SH == kMax ? op<T>(e_w[j]) : op<T>(e_w[j] / l);
     const T* vj = key_row(vp, vcp, j, g) + c0;
 #pragma unroll
     for (int u = 0; u < U; ++u)
@@ -1201,64 +1218,15 @@ mvit_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
   T* oi = q_of(out, g, bh) + (size_t)i * g.row + c0;
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u]);
-  if (c0 == 0 && lane == 0) rowsum[(size_t)bh * g.qn + i] = l;
-}
-
-// K7f: one warp per query row; shared memory holds the warp's logits, then
-// e = exp(s - m) with m the row max; o = (sum_j e_j v_j) / l.
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-mvit_fwd_kt_scalar(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ kc,
-                   const T* __restrict__ vc, const T* __restrict__ rel,
-                   T* __restrict__ out, float* __restrict__ lse, Geo g,
-                   float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y, i = blockIdx.x * WARPS + warp;
-  const int c0 = blockIdx.z * GW;
-  if (i >= g.qn) return;  // warp-uniform; no block barrier below
-  float* e_w = reinterpret_cast<float*>(smem_raw) + (size_t)warp * (g.kn + 1);
-  const T* qi = q_of(q, g, bh) + (size_t)i * g.row;
-  const T* ri = rel_of(rel, g, bh) + (size_t)i * g.rrow;
-  const T* kp = k_of(k, g, bh);
-  const T* kcp = c_of(kc, g, bh);
-  float mx = MASKED;
-  for (int j = lane; j <= g.kn; j += 32) {
-    const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
-    e_w[j] = s;
-    mx = fmaxf(mx, s);
-  }
-  const float m = warp_max(mx);
-  float part = 0.f;
-  for (int j = lane; j <= g.kn; j += 32) {
-    const float e = expf(e_w[j] - m);
-    e_w[j] = e;
-    part += e;
-  }
-  const float l = warp_sum(part);
-  __syncwarp();
-  const T* vp = k_of(v, g, bh);
-  const T* vcp = c_of(vc, g, bh);
-  float o[U] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = 0; j <= g.kn; ++j) {
-    const float e = op<T>(e_w[j]);
-    const T* vj = key_row(vp, vcp, j, g) + c0;
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (c0 + lane + 32 * u < g.d) o[u] = fmaf(e, load1(vj + lane + 32 * u), o[u]);
-  }
-  T* oi = q_of(out, g, bh) + (size_t)i * g.row + c0;
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (c0 + lane + 32 * u < g.d) store1(oi + lane + 32 * u, o[u] / l);
-  if (c0 == 0 && lane == 0) lse[(size_t)bh * g.qn + i] = m + logf(l);
+    if (c0 + lane + 32 * u < g.d)
+      store1(oi + lane + 32 * u, SH == kMax ? o[u] / l : o[u]);
+  if (c0 == 0 && lane == 0)
+    rowsum[(size_t)bh * g.qn + i] = SH == kMax ? mx + logf(l) : l;
 }
 
 // Query-major backward: one warp per query row; per warp two rows [kn + 1]
 // of shared memory (p, then ds rounded; and dp).  M as in mvit_bwd_q_wg.
-template <typename T, int M>
+template <typename T, int M, int SH>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ kc,
@@ -1292,7 +1260,7 @@ mvit_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
       p = load1(pi + j);
     } else {
       const float s = logit(qi, ri, key_row(kp, kcp, j, g), j, g, scale);
-      p = LSE ? expf(s - l) : expf(fminf(s, CLAMP_HI)) / l;
+      p = LSE ? expf(s - l) : expf(shift_arg<SH>(s, 0.f)) / l;
     }
     const float dp = dot(gi, key_row(vp, vcp, j, g), g.d);
     p_w[j] = p;
@@ -1335,7 +1303,7 @@ mvit_bwd_q_scalar(const T* __restrict__ q, const T* __restrict__ k,
 // Key-major backward: one warp per key row of [body; cls]; lanes take 32
 // queries at a time, then sum their products over them.  M as in
 // mvit_bwd_q_wg.
-template <typename T, int M>
+template <typename T, int M, int SH>
 __global__ void __launch_bounds__(WARPS * 32)
 mvit_bwd_k_scalar(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ kc,
@@ -1368,7 +1336,7 @@ mvit_bwd_k_scalar(const T* __restrict__ q, const T* __restrict__ k,
       } else {
         const T* qi = qp + (size_t)i * g.row;
         const float s = logit(qi, relp + (size_t)i * g.rrow, kj, j, g, scale);
-        p = LSE ? expf(s - rs[i]) : expf(fminf(s, CLAMP_HI)) / rs[i];
+        p = LSE ? expf(s - rs[i]) : expf(shift_arg<SH>(s, 0.f)) / rs[i];
       }
       ds = p * (dot(gp + (size_t)i * g.row, vj, g.d) - dl[i]);
     }
@@ -1422,39 +1390,29 @@ int with_width(int d, F f) {
   return f(std::integral_constant<int, 128>{});
 }
 
-// The scalar forward of element type T: K5/K6 (KT = false; with SAVE,
-// K6sp) or K7 (KT = true)
-template <typename T, bool KT, bool SAVE>
+// The scalar forward of element type T under shift SH: K5/K6 (with SAVE,
+// K6sp) or, under kMax, K7
+template <typename T, int SH, bool SAVE>
 int launch_fwd_scalar(const void* q, const void* k, const void* v,
                       const void* kc, const void* vc, const void* rel,
                       void* out, void* stats, void* probs, int bhs,
                       const Geo& g, float scale, cudaStream_t st) {
   const size_t smem = (size_t)WARPS * (g.kn + 1) * sizeof(float);
   const dim3 grid((g.qn + WARPS - 1) / WARPS, bhs, (g.d + GW - 1) / GW);
-  if constexpr (KT) {
-    cudaError_t err = set_smem(mvit_fwd_kt_scalar<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    mvit_fwd_kt_scalar<T><<<grid, WARPS * 32, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(kc),
-        static_cast<const T*>(vc), static_cast<const T*>(rel),
-        static_cast<T*>(out), static_cast<float*>(stats), g, scale);
-  } else {
-    cudaError_t err = set_smem(mvit_fwd_scalar<T, SAVE>, smem);
-    if (err != cudaSuccess) return (int)err;
-    mvit_fwd_scalar<T, SAVE><<<grid, WARPS * 32, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(kc),
-        static_cast<const T*>(vc), static_cast<const T*>(rel),
-        static_cast<T*>(out), static_cast<float*>(stats),
-        static_cast<T*>(probs), g, scale);
-  }
+  cudaError_t err = set_smem(mvit_fwd_scalar<T, SAVE, SH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mvit_fwd_scalar<T, SAVE, SH><<<grid, WARPS * 32, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), static_cast<const T*>(rel),
+      static_cast<T*>(out), static_cast<float*>(stats),
+      static_cast<T*>(probs), g, scale);
   return (int)cudaGetLastError();
 }
 
-// The forward of K5/K6 (KT = false: out and the row sums l; with SAVE,
-// K6sp, also probs) or of K7 (KT = true: out and lse).
-template <bool KT, bool SAVE>
+// The forward of K5/K6 under shift SH (out and the row sums l, under kMax
+// lse; with SAVE, K6sp, also probs); K7 is K5's under kMax.
+template <int SH, bool SAVE>
 int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
                const void* vc, const void* rel, void* out, void* stats,
                void* probs, int b, int heads, int qn, int kn, int kt, int kh,
@@ -1464,10 +1422,10 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Geo g = make_geo(heads, qn, kn, kt, kh, kw, d);
   if (dtype == 0)
-    return launch_fwd_scalar<float, KT, SAVE>(q, k, v, kc, vc, rel, out, stats,
+    return launch_fwd_scalar<float, SH, SAVE>(q, k, v, kc, vc, rel, out, stats,
                                               probs, b * heads, g, scale, st);
   if (!on_tensor_cores(d))
-    return launch_fwd_scalar<__nv_bfloat16, KT, SAVE>(
+    return launch_fwd_scalar<__nv_bfloat16, SH, SAVE>(
         q, k, v, kc, vc, rel, out, stats, probs, b * heads, g, scale, st);
   using u16 = uint16_t;
   auto run = [&](auto w, auto exact) {
@@ -1476,9 +1434,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* kc,
     constexpr size_t smem = fwd_smem<SAVE, DP>();
     constexpr int FWG = fwd_wgs<DP>(), FM = FWG * BM;
     const dim3 grid((qn + FM - 1) / FM, b * heads);
-    cudaError_t err = set_smem(mvit_fwd_wg<SAVE, DP, EXACT, KT>, smem);
+    cudaError_t err = set_smem(mvit_fwd_wg<SAVE, DP, EXACT, SH>, smem);
     if (err != cudaSuccess) return (int)err;
-    mvit_fwd_wg<SAVE, DP, EXACT, KT><<<grid, FWG * 128, smem, st>>>(
+    mvit_fwd_wg<SAVE, DP, EXACT, SH><<<grid, FWG * 128, smem, st>>>(
         static_cast<const u16*>(q), static_cast<const u16*>(k),
         static_cast<const u16*>(v), static_cast<const u16*>(kc),
         static_cast<const u16*>(vc), static_cast<const u16*>(rel),
@@ -1501,16 +1459,16 @@ struct BwdArgs {
 
 // The bf16 backward of variant M at tile width DP: the query-major pass,
 // then the key-major pass and, with splits > 1, its reduction.
-template <int M, int DP>
+template <int M, int DP, int SH>
 int launch_bwd_wg(const BwdArgs& a, int bhs, const Geo& geo, int splits,
                   float scale, cudaStream_t st) {
   using u16 = uint16_t;
   constexpr size_t sq = bwd_q_smem<M, DP>(), sk = bwd_k_smem<M, DP>();
-  cudaError_t err = set_smem(mvit_bwd_q_wg<M, DP>, sq);
-  if (err == cudaSuccess) err = set_smem(mvit_bwd_k_wg<M, DP>, sk);
+  cudaError_t err = set_smem(mvit_bwd_q_wg<M, DP, SH>, sq);
+  if (err == cudaSuccess) err = set_smem(mvit_bwd_k_wg<M, DP, SH>, sk);
   if (err != cudaSuccess) return (int)err;
-  mvit_bwd_q_wg<M, DP><<<dim3((geo.qn + QM - 1) / QM, bhs), QWG * 128, sq,
-                         st>>>(
+  mvit_bwd_q_wg<M, DP, SH><<<dim3((geo.qn + QM - 1) / QM, bhs), QWG * 128,
+                             sq, st>>>(
       static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
       static_cast<const u16*>(a.v), static_cast<const u16*>(a.kc),
       static_cast<const u16*>(a.vc), static_cast<const u16*>(a.rel),
@@ -1520,8 +1478,8 @@ int launch_bwd_wg(const BwdArgs& a, int bhs, const Geo& geo, int splits,
       static_cast<u16*>(a.drel), geo, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mvit_bwd_k_wg<M, DP><<<dim3((geo.kn + 1 + KM - 1) / KM, splits, bhs),
-                         KWG * 128, sk, st>>>(
+  mvit_bwd_k_wg<M, DP, SH><<<dim3((geo.kn + 1 + KM - 1) / KM, splits, bhs),
+                             KWG * 128, sk, st>>>(
       static_cast<const u16*>(a.q), static_cast<const u16*>(a.k),
       static_cast<const u16*>(a.v), static_cast<const u16*>(a.kc),
       static_cast<const u16*>(a.vc), static_cast<const u16*>(a.rel),
@@ -1542,14 +1500,15 @@ int launch_bwd_wg(const BwdArgs& a, int bhs, const Geo& geo, int splits,
 
 // The scalar backward of element type T, variant M: the query-major and
 // the key-major kernel, each over the head's column groups
-template <typename T, int M>
+template <typename T, int M, int SH>
 int launch_bwd_scalar(const BwdArgs& a, int bhs, const Geo& geo, float scale,
                       cudaStream_t st) {
   const int groups = (geo.d + GW - 1) / GW;
   const size_t smem = (size_t)WARPS * 2 * (geo.kn + 1) * sizeof(float);
-  cudaError_t err = set_smem(mvit_bwd_q_scalar<T, M>, smem);
+  cudaError_t err = set_smem(mvit_bwd_q_scalar<T, M, SH>, smem);
   if (err != cudaSuccess) return (int)err;
-  mvit_bwd_q_scalar<T, M><<<dim3((geo.qn + WARPS - 1) / WARPS, bhs, groups),
+  mvit_bwd_q_scalar<T, M, SH><<<dim3((geo.qn + WARPS - 1) / WARPS, bhs,
+                                     groups),
                             WARPS * 32, smem, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.kc),
@@ -1560,7 +1519,8 @@ int launch_bwd_scalar(const BwdArgs& a, int bhs, const Geo& geo, float scale,
       static_cast<T*>(a.drel), geo, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mvit_bwd_k_scalar<T, M><<<dim3((geo.kn + 1 + WARPS - 1) / WARPS, bhs, groups),
+  mvit_bwd_k_scalar<T, M, SH><<<dim3((geo.kn + 1 + WARPS - 1) / WARPS, bhs,
+                                     groups),
                             WARPS * 32, 0, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.kc),
@@ -1577,7 +1537,7 @@ int launch_bwd_scalar(const BwdArgs& a, int bhs, const Geo& geo, float scale,
 // probs K6sp's probabilities (kSaved).  A query-major kernel writes delta,
 // dq and drel, then a key-major kernel dk, dv, dkc and dvc (bf16: through
 // `work` and a reduction when splits > 1).
-template <int M>
+template <int M, int SH>
 int launch_bwd(const BwdArgs& a, int b, int heads, int qn, int kn, int kt,
                int kh, int kw, int d, int splits, int dtype, float scale,
                void* stream) {
@@ -1588,14 +1548,15 @@ int launch_bwd(const BwdArgs& a, int b, int heads, int qn, int kn, int kt,
   const Geo geo = make_geo(heads, qn, kn, kt, kh, kw, d);
   if (dtype == 1 && on_tensor_cores(d)) {
     return with_width(d, [&](auto w) {
-      return launch_bwd_wg<M, decltype(w)::value>(a, b * heads, geo, splits,
-                                                  scale, st);
+      return launch_bwd_wg<M, decltype(w)::value, SH>(a, b * heads, geo,
+                                                      splits, scale, st);
     });
   }
   if (dtype == 1)
-    return launch_bwd_scalar<__nv_bfloat16, M>(a, b * heads, geo, scale, st);
+    return launch_bwd_scalar<__nv_bfloat16, M, SH>(a, b * heads, geo, scale,
+                                                   st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return launch_bwd_scalar<float, M>(a, b * heads, geo, scale, st);
+  return launch_bwd_scalar<float, M, SH>(a, b * heads, geo, scale, st);
 }
 
 }  // namespace
@@ -1603,19 +1564,23 @@ int launch_bwd(const BwdArgs& a, int b, int heads, int qn, int kn, int kt,
 // dtype: 0 = float32, 1 = bfloat16.  b, heads: the head-last call passes
 // (B, H) with tensors [B, L, H*d]; the head-split call (B*H, 1) with
 // tensors [B*H, L, d].  head_dim d: any; the bf16 tensor-core kernels take
-// multiples of 8 up to 128, the scalar kernels the rest.  Each entry point
+// multiples of 8 up to 128, the scalar kernels the rest.  shift: the
+// softmax shift (enum Shift: 0 clamp, 1 max, 2 none).  Each entry point
 // returns the CUDA error code of its launches (0 on success).
 
-// K5f / K6f: out (like q) and rowsum [b, heads, qn] fp32.
+// K5f / K6f: out (like q) and rowsum [b, heads, qn] fp32: l, or under max
+// lse = m + log l (K7f's kernel).
 extern "C" int mvit_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* kc, const void* vc,
                                   const void* rel, void* out, void* rowsum,
                                   int b, int heads, int qn, int kn, int kt,
                                   int kh, int kw, int head_dim, int dtype,
-                                  float scale, void* stream) {
-  return launch_fwd<false, false>(q, k, v, kc, vc, rel, out, rowsum, nullptr,
-                                  b, heads, qn, kn, kt, kh, kw, head_dim,
-                                  dtype, scale, stream);
+                                  int shift, float scale, void* stream) {
+  return with_shift(shift, [&](auto s) {
+    return launch_fwd<decltype(s)::value, false>(
+        q, k, v, kc, vc, rel, out, rowsum, nullptr, b, heads, qn, kn, kt, kh,
+        kw, head_dim, dtype, scale, stream);
+  });
 }
 
 // K6sp: K6f's out and rowsum, and probs [b, heads, qn, LP] (like q; LP =
@@ -1626,13 +1591,17 @@ extern "C" int mvit_attention_fwd_probs(const void* q, const void* k,
                                         void* out, void* rowsum, void* probs,
                                         int b, int heads, int qn, int kn,
                                         int kt, int kh, int kw, int head_dim,
-                                        int dtype, float scale, void* stream) {
-  return launch_fwd<false, true>(q, k, v, kc, vc, rel, out, rowsum, probs, b,
-                                 heads, qn, kn, kt, kh, kw, head_dim, dtype,
-                                 scale, stream);
+                                        int dtype, int shift, float scale,
+                                        void* stream) {
+  return with_shift(shift, [&](auto s) {
+    return launch_fwd<decltype(s)::value, true>(
+        q, k, v, kc, vc, rel, out, rowsum, probs, b, heads, qn, kn, kt, kh,
+        kw, head_dim, dtype, scale, stream);
+  });
 }
 
-// K7f (head-last, b = B): out (like q) and lse [b, heads, qn] fp32.
+// K7f (head-last, b = B): out (like q) and lse [b, heads, qn] fp32; the
+// K5f kernel under max.
 extern "C" int mvit_attention_kt_fwd(const void* q, const void* k,
                                      const void* v, const void* kc,
                                      const void* vc, const void* rel,
@@ -1640,7 +1609,7 @@ extern "C" int mvit_attention_kt_fwd(const void* q, const void* k,
                                      int qn, int kn, int kt, int kh, int kw,
                                      int head_dim, int dtype, float scale,
                                      void* stream) {
-  return launch_fwd<true, false>(q, k, v, kc, vc, rel, out, lse, nullptr, b,
+  return launch_fwd<kMax, false>(q, k, v, kc, vc, rel, out, lse, nullptr, b,
                                  heads, qn, kn, kt, kh, kw, head_dim, dtype,
                                  scale, stream);
 }
@@ -1649,11 +1618,13 @@ extern "C" int mvit_attention_kt_fwd(const void* q, const void* k,
 // (like q), dk, dv (like k), dkc, dvc (like kc), drel (like rel) from q, k,
 // v, kc, vc, rel, the output gradient g (like q) and the forward's
 // residuals: o, the output (variants 1, 2); stats, l (0, 2) or lse (1);
-// probs, K6sp's probabilities (3).  delta [b, heads, qn] fp32 is scratch
-// written by the query-major kernel and read by the key-major one; work,
-// with splits > 1 (the bf16 tensor-core kernels only), scratch of 2 *
-// splits * b * heads * (kn + 1) * head_dim floats for the key-major
-// partials.
+// probs, K6sp's probabilities (3).  shift: the forward's, clamp or none for
+// variants 0 and 2 (under max K5b / K6b / K5bd / K6bd take variant 1 from
+// the max forward's lse); variants 1 and 3 take clamp.  delta [b, heads,
+// qn] fp32 is scratch written by the query-major kernel and read by the
+// key-major one; work, with splits > 1 (the bf16 tensor-core kernels only),
+// scratch of 2 * splits * b * heads * (kn + 1) * head_dim floats for the
+// key-major partials.
 extern "C" int mvit_attention_bwd(int variant, const void* q, const void* k,
                                   const void* v, const void* kc,
                                   const void* vc, const void* rel,
@@ -1663,17 +1634,22 @@ extern "C" int mvit_attention_bwd(int variant, const void* q, const void* k,
                                   void* dkc, void* dvc, void* drel,
                                   void* work, int b, int heads, int qn,
                                   int kn, int kt, int kh, int kw, int head_dim,
-                                  int splits, int dtype, float scale,
-                                  void* stream) {
+                                  int splits, int dtype, int shift,
+                                  float scale, void* stream) {
   const BwdArgs a{q, k, v, kc, vc, rel, o, stats, probs, g, delta, dq, dk,
                   dv, dkc, dvc, drel, static_cast<float*>(work)};
-#define BWD(M) launch_bwd<M>(a, b, heads, qn, kn, kt, kh, kw, head_dim, \
-                             splits, dtype, scale, stream)
+#define BWD(M, SH) launch_bwd<M, SH>(a, b, heads, qn, kn, kt, kh, kw, \
+                                     head_dim, splits, dtype, scale, stream)
+  const bool none = shift == kNone;
+  if (shift != kClamp &&
+      (!none || (variant != kRecompute && variant != kDelta)))
+    return (int)cudaErrorInvalidValue;
   switch (variant) {
-    case kRecompute: return BWD(kRecompute);
-    case kRowMax: return BWD(kRowMax);
-    case kDelta: return BWD(kDelta);
-    case kSaved: return BWD(kSaved);
+    case kRecompute:
+      return none ? BWD(kRecompute, kNone) : BWD(kRecompute, kClamp);
+    case kRowMax: return BWD(kRowMax, kClamp);
+    case kDelta: return none ? BWD(kDelta, kNone) : BWD(kDelta, kClamp);
+    case kSaved: return BWD(kSaved, kClamp);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BWD

@@ -34,7 +34,13 @@
 //   g [BT, N, C], gc [BT, 1, C] -> dqkv [BT, N, 3C], dqkv_c [BT, 1, 3C].
 // Forward: each of the L queries attends over the L keys [patches; CLS]:
 // s = (q.k) * scale in fp32, p = exp(min(s, 80)) / sum, p cast to the value
-// dtype, o = sum p*v accumulated in fp32.  The CLS row sits at row N of the
+// dtype, o = sum p*v accumulated in fp32.  The exponent is the softmax
+// shift SPATIAL_SHIFT, a compile-time switch of every kernel that forms it
+// (enum Shift, common.cuh): the clamp min(s, 80) above, max s - m with m
+// the row's max (a quad_max of the row before the exp; the bf16 kernels
+// take exp2(s scale log2e - m scale log2e), one FMA), none s; K1br's
+// recompute keeps each row's shift beside 1 / l for its second pass, so
+// its p stays K1sp's bit for bit under every shift.  The CLS row sits at row N of the
 // staged tile, as the TPU kernel splices it into its padding row (K1p copies
 // it there straight from qkv_c, as the TPU's _pipe_kernel DMAs it; the
 // 8-row gap of its _softmax_probs_gap is a Mosaic alignment rule the card
@@ -123,7 +129,6 @@ constexpr int PIPE_WARPS = 8;
 constexpr int MAX_DEPTH = 8;
 constexpr int MAX_LEN = 208;  // n + 1 tokens per frame, every K1 kernel
 constexpr size_t MAX_SMEM = 232448;  // a CTA's shared memory on Hopper
-constexpr float LOG2E = 1.4426950408889634f;
 
 // backward variants: p copied from the saved probabilities (K1b),
 // recomputed (K1br), or copied with delta_i = g_i . o_i (K1bd)
@@ -173,7 +178,7 @@ __device__ __forceinline__ void stage_scalar(T* dst, const T* qkv,
 
 // One (frame, head) item of the scalar forward from the staged q, k, v;
 // p_all holds a padded probability row per warp.
-template <typename T, bool SAVE_P>
+template <typename T, bool SAVE_P, int S>
 __device__ __forceinline__ void scalar_item(const T* q_s, const T* k_s,
                                             const T* v_s, float* p_all,
                                             T* out, T* out_c, T* p_dst, int bt,
@@ -191,9 +196,8 @@ __device__ __forceinline__ void scalar_item(const T* q_s, const T* k_s,
       qf[2 * m] = t.x;
       qf[2 * m + 1] = t.y;
     }
-    // logits for keys lane, lane+32, ...; clamp-exp; row sum
-    float part_sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
+    // the scaled logit of key j
+    auto logit = [&](int j) {
       const T* kr = k_s + (size_t)j * SC_STRIDE;
       float s = 0.f;
 #pragma unroll
@@ -202,7 +206,22 @@ __device__ __forceinline__ void scalar_item(const T* q_s, const T* k_s,
         s = fmaf(qf[2 * m], kk.x, s);
         s = fmaf(qf[2 * m + 1], kk.y, s);
       }
-      const float e = expf(fminf(s * scale, CLAMP_HI));
+      return s * scale;
+    };
+    // kMax: the logits to p_s first, and their row max
+    float mx = 0.f;
+    if constexpr (S == kMax) {
+      mx = -INFINITY;
+      for (int j = lane; j < L; j += 32) {
+        p_s[j] = logit(j);
+        mx = fmaxf(mx, p_s[j]);
+      }
+      mx = warp_max(mx);
+    }
+    // keys lane, lane+32, ...: the shifted exp; row sum
+    float part_sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(shift_arg<S>(S == kMax ? p_s[j] : logit(j), mx));
       p_s[j] = e;
       part_sum += e;
     }
@@ -229,7 +248,7 @@ __device__ __forceinline__ void scalar_item(const T* q_s, const T* k_s,
   }
 }
 
-template <typename T, bool SAVE_P>
+template <typename T, bool SAVE_P, int S>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
                       T* __restrict__ out, T* __restrict__ out_c,
@@ -245,8 +264,8 @@ spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
   cp_async_wait_all();
   __syncthreads();
   T* p_dst = SAVE_P ? probs + (size_t)blockIdx.x * L * probs_stride(L) : nullptr;
-  scalar_item<T, SAVE_P>(q_s, k_s, v_s, p_all, out, out_c, p_dst, bt, h, n,
-                         heads, scale, WARPS);
+  scalar_item<T, SAVE_P, S>(q_s, k_s, v_s, p_all, out, out_c, p_dst, bt, h,
+                            n, heads, scale, WARPS);
 }
 
 // fp32 backward.  Shared memory: q, k, v, g rows [L x 66], the row sums D_i
@@ -254,7 +273,7 @@ spatial_scalar_kernel(const T* __restrict__ qkv, const T* __restrict__ qkv_c,
 // from `probs` (K1b, K1bd) or, for K1br, from `scratch`, which pass 0 fills
 // with the forward's probabilities (not __restrict__: written and read back
 // by the same block, ordered by __syncthreads).
-template <int MODE>
+template <int MODE, int S>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_bwd_scalar_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ qkv_c,
@@ -299,8 +318,7 @@ spatial_bwd_scalar_kernel(const float* __restrict__ qkv,
     // this item's scratch rows
     float* pr = scratch + (size_t)blockIdx.x * L * ls;
     for (int i = warp; i < L; i += WARPS) {
-      float part_sum = 0.f;
-      for (int j = lane; j < L; j += 32) {
+      auto logit = [&](int j) {
         float s = 0.f;
 #pragma unroll
         for (int m = 0; m < HEAD_DIM / 2; ++m) {
@@ -309,7 +327,21 @@ spatial_bwd_scalar_kernel(const float* __restrict__ qkv,
           s = fmaf(qq.x, kk.x, s);
           s = fmaf(qq.y, kk.y, s);
         }
-        const float e = expf(fminf(s * scale, CLAMP_HI));
+        return s * scale;
+      };
+      float mx = 0.f;
+      if constexpr (S == kMax) {
+        mx = -INFINITY;
+        for (int j = lane; j < L; j += 32) {
+          pr[(size_t)i * ls + j] = logit(j);
+          mx = fmaxf(mx, pr[(size_t)i * ls + j]);
+        }
+        mx = warp_max(mx);
+      }
+      float part_sum = 0.f;
+      for (int j = lane; j < L; j += 32) {
+        const float e = expf(
+            shift_arg<S>(S == kMax ? pr[(size_t)i * ls + j] : logit(j), mx));
         pr[(size_t)i * ls + j] = e;
         part_sum += e;
       }
@@ -439,14 +471,16 @@ __device__ __forceinline__ void stage_qkv(uint16_t* dst, const uint16_t* x,
                part * c + h * HEAD_DIM, LP);
 }
 
-// The forward's logits and clamp softmax for query tile mt (rows mt*16 ..
-// mt*16+15) against the LP staged keys, in the calling warp:
-// s[nt][e] = exp(min(q.k * scale, 80)) for key columns < L and 0 past them,
+// The forward's logits and softmax under shift S for query tile mt (rows
+// mt*16 .. mt*16+15) against the LP staged keys, in the calling warp:
+// s[nt][e] = exp(min(q.k * scale, 80)) (kClamp; kMax exp((q.k - m) scale)
+// with m the row max, kNone exp(q.k * scale)) for key columns < L and 0
+// past them,
 // in the m16n8 accumulator layout (rows r0 = mt*16 + lane/4 and r1 = r0 + 8,
 // columns nt*8 + 2*(lane%4) + (e & 1)), and the reciprocals of the two rows'
 // sums.  p = s * inv rounded to bf16 is K1br's probability, and bit for
 // bit that of K1f, K1sp and K1p (wg_tile, the same arithmetic on wgmma).
-template <int LP>
+template <int LP, int S>
 __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
                                              const uint16_t* k_s, int mt,
                                              int L, float scale,
@@ -456,7 +490,7 @@ __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
   const int lane = threadIdx.x % 32, tig = lane & 3;
   // ldmatrix: this lane addresses row (lane % 8) of tile (lane / 8)
   const int lrow = lane & 7, ltile = lane >> 3;
-  const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  const float scale2 = scale * LOG2E;
   // A fragments of the 16 x 64 query tile: tiles (rows 0-7 | 8-15) x
   // (cols 0-7 | 8-15) of each 16-column step
   uint32_t qa[4][4];
@@ -478,7 +512,21 @@ __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
       mma_16816(s[nt], qa[ks + 1], kb[2], kb[3]);
     }
   }
-  // clamp softmax over the valid keys (columns < L):
+  // kMax: -(row max) * scale2 of each row over the valid keys (the quad)
+  float nm0 = 0.f, nm1 = 0.f;
+  if constexpr (S == kMax) {
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nt * 8 + 2 * tig + (e & 1) < L) {
+          if (e < 2) m0 = fmaxf(m0, s[nt][e]); else m1 = fmaxf(m1, s[nt][e]);
+        }
+    nm0 = -quad_max(m0) * scale2;
+    nm1 = -quad_max(m1) * scale2;
+  }
+  // the softmax over the valid keys (columns < L): under the clamp
   // exp(min(s*scale, 80)) = 2^(min(s*scale*log2e, 80*log2e)); each row's
   // sum is spread over the 4 threads of a quad
   float sum0 = 0.f, sum1 = 0.f;
@@ -487,7 +535,10 @@ __device__ __forceinline__ void softmax_tile(const uint16_t* q_s,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = nt * 8 + 2 * tig + (e & 1);
-      const float x = col < L ? exp2_ftz(fminf(s[nt][e] * scale2, hi2)) : 0.f;
+      const float x =
+          col < L ? exp2_ftz(shift_arg2<S>(s[nt][e], scale2,
+                                           e < 2 ? nm0 : nm1))
+                  : 0.f;
       s[nt][e] = x;
       if (e < 2) sum0 += x; else sum1 += x;
     }
@@ -563,10 +614,31 @@ __device__ __forceinline__ void wg_logits<208>(float (&s)[104], uint64_t da,
   wgmma_ss208(s, da, db, acc);
 }
 
+// kMax: -(row max) * scale2 of this thread's two rows of a 64 x LP logit
+// tile (accumulator layout) over the key columns < L, from its quad
+template <int NS>
+__device__ __forceinline__ void wg_row_max(const float (&s)[NS], int L,
+                                           float scale2, float& nm0,
+                                           float& nm1) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const bool inside = 8 * j + 8 <= L;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (inside || acc_col(j, e) < L) {
+        if (e < 2) m0 = fmaxf(m0, s[4 * j + e]);
+        else m1 = fmaxf(m1, s[4 * j + e]);
+      }
+  }
+  nm0 = -quad_max(m0) * scale2;
+  nm1 = -quad_max(m1) * scale2;
+}
+
 // Query tile t (rows 64 t .. 64 t + 63) of the item staged at st, in the
 // calling warpgroup: out rows < L, and with SAVE_P the p rows to p_dst (the
 // item's [L, LS] block) through the warpgroup's staging tile p_st.
-template <int LP, bool SAVE_P>
+template <int LP, bool SAVE_P, int S>
 __device__ __forceinline__ void wg_tile(const uint16_t* st, int t,
                                         uint16_t* p_st, uint16_t* out,
                                         uint16_t* out_c, uint16_t* p_dst,
@@ -592,20 +664,24 @@ __device__ __forceinline__ void wg_tile(const uint16_t* st, int t,
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
-  // softmax_tile's clamp softmax, same order: a warp whose 16 rows all lie
-  // past L forms no exponentials (its p is zero)
-  const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  // softmax_tile's softmax, same order: a warp whose 16 rows all lie past
+  // L forms no exponentials (its p is zero)
+  const float scale2 = scale * LOG2E;
   float inv0 = 0.f, inv1 = 0.f;
   if (t * 64 + 16 * warp < L) {
+    float nm0 = 0.f, nm1 = 0.f;
+    if constexpr (S == kMax) wg_row_max(s, L, scale2, nm0, nm1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const bool inside = 8 * j + 8 <= L;  // uniform: no column test
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = inside || acc_col(j, e) < L
-                            ? exp2_ftz(fminf(s[4 * j + e] * scale2, hi2))
-                            : 0.f;
+        const float x =
+            inside || acc_col(j, e) < L
+                ? exp2_ftz(shift_arg2<S>(s[4 * j + e], scale2,
+                                         e < 2 ? nm0 : nm1))
+                : 0.f;
         s[4 * j + e] = x;
         if (e < 2) sum0 += x; else sum1 += x;
       }
@@ -688,7 +764,7 @@ __device__ __forceinline__ void wg_tile(const uint16_t* st, int t,
 // hold up the products, and the computing warpgroups run out of step.  At
 // LP = 208 the copying warpgroup gives up its registers (setmaxnreg) to the
 // computing ones, whose logits and probabilities take ~200 a thread.
-template <int LP, bool SAVE_P>
+template <int LP, bool SAVE_P, int S>
 __global__ void __launch_bounds__(fwd_threads(LP), 1)
 spatial_wg_kernel(const uint16_t* __restrict__ qkv,
                   const uint16_t* __restrict__ qkv_c,
@@ -754,8 +830,8 @@ spatial_wg_kernel(const uint16_t* __restrict__ qkv,
     uint16_t* p_dst =
         SAVE_P ? probs + (size_t)item * L * ls : nullptr;
     for (int t = wg; t < QT && t * 64 < L; t += WGS)
-      wg_tile<LP, SAVE_P>(st, t, p_st, out, out_c, p_dst, item / heads,
-                          item % heads, n, heads, scale);
+      wg_tile<LP, SAVE_P, S>(st, t, p_st, out, out_c, p_dst, item / heads,
+                             item % heads, n, heads, scale);
     // every warp of the warpgroup is past its products on the stage
     bar_sync(1 + wg, 128);
     if ((threadIdx.x & 127) == 0) mbar_arrive(empty + slot);
@@ -769,6 +845,7 @@ spatial_wg_kernel(const uint16_t* __restrict__ qkv,
 // blockIdx.x + gridDim.x, ...; the k-th item of a CTA is staged into ring
 // slot k % depth by one cp.async group, issued depth - 1 items ahead;
 // per-warp probability rows after the ring.
+template <int S>
 __global__ void __launch_bounds__(PIPE_WARPS * 32)
 spatial_pipe_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ qkv_c, float* __restrict__ out,
@@ -794,7 +871,7 @@ spatial_pipe_kernel(const float* __restrict__ qkv,
     __syncthreads();  // item k's rows are in its slot for every thread
     const int item = blockIdx.x + k * gridDim.x;
     const float* slot = ring + (k % depth) * stage;
-    scalar_item<float, false>(slot, slot + (size_t)L * SC_STRIDE,
+    scalar_item<float, false, S>(slot, slot + (size_t)L * SC_STRIDE,
                               slot + (size_t)2 * L * SC_STRIDE, p_all, out,
                               out_c, nullptr, item / heads, item % heads, n,
                               heads, scale, PIPE_WARPS);
@@ -808,7 +885,7 @@ spatial_pipe_kernel(const float* __restrict__ qkv,
 // has PSTR = LP + 8 columns (144-byte rows: conflict-free ldmatrix and
 // 4-byte row reads).  MODE: BWD_SAVED (K1b), BWD_RECOMPUTE (K1br: probs,
 // o and oc unused), BWD_DELTA (K1bd).
-template <int LP, int MODE>
+template <int LP, int MODE, int S>
 __global__ void __launch_bounds__(WARPS * 32)
 spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                        const __nv_bfloat16* __restrict__ qkv_c,
@@ -865,7 +942,7 @@ spatial_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
       const int r0 = mt * 16 + gid, r1 = r0 + 8;
       float e[NT][4];
       float i0, i1;
-      softmax_tile<LP>(q_s, k_s, mt, L, scale, e, i0, i1);
+      softmax_tile<LP, S>(q_s, k_s, mt, L, scale, e, i0, i1);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int col = nt * 8 + 2 * tig;
@@ -1100,10 +1177,17 @@ constexpr int BWD_TILE = MAX_LEN * HEAD_DIM;  // elements of a 208 x 64 tile
 constexpr int BWD_STAGE = 4 * BWD_TILE;       // q, k, v, g
 constexpr int BWD_OUT = 64 * HEAD_DIM;        // a warpgroup's output staging
 constexpr int BWD_NB = MAX_LEN / 8, BWD_KK = MAX_LEN / 16;
-// the ring, the staging tiles, D and 1 / l per row, the mbarriers
-constexpr size_t BWD_SMEM =
-    ((size_t)BWD_DEPTH * BWD_STAGE + BWD_WGS * BWD_OUT) * sizeof(uint16_t) +
-    2 * MAX_LEN * sizeof(float) + 2 * BWD_DEPTH * sizeof(uint64_t);
+// the ring, the staging tiles, D and 1 / l per row (and under kMax the
+// recompute's row shifts), the mbarriers
+__host__ __device__ constexpr int bwd_stats(int S) {
+  return S == kMax ? 3 : 2;
+}
+constexpr size_t bwd_smem(int S) {
+  return ((size_t)BWD_DEPTH * BWD_STAGE + BWD_WGS * BWD_OUT) *
+             sizeof(uint16_t) +
+         bwd_stats(S) * MAX_LEN * sizeof(float) +
+         2 * BWD_DEPTH * sizeof(uint64_t);
+}
 
 // the first row of 64-row window t (t = 0..3) of an item's 208 rows
 __device__ __forceinline__ int bwd_window(int t) {
@@ -1145,13 +1229,14 @@ __device__ __forceinline__ void bwd_store(const float (&acc)[32], float mul,
 }
 
 // Pass 1 over query window t of the item staged at st, in the calling
-// warpgroup: D_i (and for K1br 1 / l_i) of the rows it owns into d_s
-// (inv_s), and their dq.  pg: the item's saved [L, LS] p block (K1b, K1bd).
-template <int MODE>
+// warpgroup: D_i (and for K1br 1 / l_i, under kMax also -m_i scale2) of the
+// rows it owns into d_s (inv_s, nm_s), and their dq.  pg: the item's saved
+// [L, LS] p block (K1b, K1bd).
+template <int MODE, int S>
 __device__ __forceinline__ void bwd_rows(const uint16_t* st, int t,
                                          const uint16_t* pg,
                                          const uint16_t* o, const uint16_t* oc,
-                                         float* d_s, float* inv_s,
+                                         float* d_s, float* inv_s, float* nm_s,
                                          uint16_t* out_st, uint16_t* dx,
                                          uint16_t* dx_c, int bt, int h, int n,
                                          int heads, float scale, int wgbar) {
@@ -1177,17 +1262,21 @@ __device__ __forceinline__ void bwd_rows(const uint16_t* st, int t,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    // wg_tile's clamp softmax, same order, so p is K1sp's bit for bit
-    const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+    // wg_tile's softmax, same order, so p is K1sp's bit for bit
+    const float scale2 = scale * LOG2E;
+    float nm0 = 0.f, nm1 = 0.f;
+    if constexpr (S == kMax) wg_row_max(s, L, scale2, nm0, nm1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const bool inside = 8 * j + 8 <= L;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = inside || acc_col(j, e) < L
-                            ? exp2_ftz(fminf(s[4 * j + e] * scale2, hi2))
-                            : 0.f;
+        const float x =
+            inside || acc_col(j, e) < L
+                ? exp2_ftz(shift_arg2<S>(s[4 * j + e], scale2,
+                                         e < 2 ? nm0 : nm1))
+                : 0.f;
         s[4 * j + e] = x;
         if (e < 2) sum0 += x; else sum1 += x;
       }
@@ -1198,10 +1287,15 @@ __device__ __forceinline__ void bwd_rows(const uint16_t* st, int t,
       p0[j] = pack_bf16x2(s[4 * j] * inv0, s[4 * j + 1] * inv0);
       p1[j] = pack_bf16x2(s[4 * j + 2] * inv1, s[4 * j + 3] * inv1);
     }
-    // pass 2 rebuilds p^T from the logits and 1 / l: zero past L
+    // pass 2 rebuilds p^T from the logits and 1 / l (zero past L), and
+    // under kMax the rows' shifts
     if (tig == 0) {
       if (r0 >= lo) inv_s[r0] = r0 < L ? inv0 : 0.f;
       if (r1 >= lo) inv_s[r1] = r1 < L ? inv1 : 0.f;
+      if constexpr (S == kMax) {
+        if (r0 >= lo) nm_s[r0] = r0 < L ? nm0 : 0.f;
+        if (r1 >= lo) nm_s[r1] = r1 < L ? nm1 : 0.f;
+      }
     }
   } else {
     // the saved rows (zero past L and past LS), issued before the products
@@ -1296,11 +1390,12 @@ __device__ __forceinline__ void bwd_rows(const uint16_t* st, int t,
 
 // Pass 2 over key window t of the item staged at st, in the calling
 // warpgroup: dk and dv of the key rows it owns, from D (and for K1br
-// 1 / l) of every query row.
-template <int MODE>
+// 1 / l, under kMax also -m scale2) of every query row.
+template <int MODE, int S>
 __device__ __forceinline__ void bwd_keys(const uint16_t* st, int t,
                                          const uint16_t* pg, const float* d_s,
-                                         const float* inv_s, uint16_t* out_st,
+                                         const float* inv_s,
+                                         const float* nm_s, uint16_t* out_st,
                                          uint16_t* dx, uint16_t* dx_c, int bt,
                                          int h, int n, int heads, float scale,
                                          int wgbar) {
@@ -1343,14 +1438,18 @@ __device__ __forceinline__ void bwd_keys(const uint16_t* st, int t,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+    const float scale2 = scale * LOG2E;
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const float2 inv = *reinterpret_cast<const float2*>(inv_s + acc_col(j, 0));
+      float2 nm = make_float2(0.f, 0.f);
+      if constexpr (S == kMax)
+        nm = *reinterpret_cast<const float2*>(nm_s + acc_col(j, 0));
       float x[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        x[e] = exp2_ftz(fminf(s[4 * j + e] * scale2, hi2));
+        x[e] = exp2_ftz(
+            shift_arg2<S>(s[4 * j + e], scale2, (e & 1) ? nm.y : nm.x));
       pt0[j] = pack_bf16x2(x[0] * inv.x, x[1] * inv.y);
       pt1[j] = pack_bf16x2(x[2] * inv.x, x[3] * inv.y);
     }
@@ -1414,7 +1513,7 @@ __device__ __forceinline__ void bwd_keys(const uint16_t* st, int t,
 // k % 2 takes the CTA's item k once the computing warpgroups have released
 // item k - 2 (mbarrier empty); the landed copies report through cp.async's
 // own arrive (mbarrier full).
-template <int MODE>
+template <int MODE, int S>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 spatial_bwd_wg_kernel(const uint16_t* __restrict__ qkv,
                       const uint16_t* __restrict__ qkv_c,
@@ -1434,7 +1533,9 @@ spatial_bwd_wg_kernel(const uint16_t* __restrict__ qkv,
   float* d_s = reinterpret_cast<float*>(ring + BWD_DEPTH * BWD_STAGE +
                                         BWD_WGS * BWD_OUT);
   float* inv_s = d_s + MAX_LEN;
-  uint64_t* full = reinterpret_cast<uint64_t*>(inv_s + MAX_LEN);
+  float* nm_s = inv_s + MAX_LEN;  // kMax only
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(d_s + bwd_stats(S) * MAX_LEN);
   uint64_t* empty = full + BWD_DEPTH;
 
   // rows L .. 207 of every stage's tiles: zero, never copied over; D and
@@ -1447,7 +1548,8 @@ spatial_bwd_wg_kernel(const uint16_t* __restrict__ qkv,
       *reinterpret_cast<uint4*>(ring + (size_t)idx * 8) =
           make_uint4(0u, 0u, 0u, 0u);
   }
-  for (int i = threadIdx.x; i < 2 * MAX_LEN; i += blockDim.x) d_s[i] = 0.f;
+  for (int i = threadIdx.x; i < bwd_stats(S) * MAX_LEN; i += blockDim.x)
+    d_s[i] = 0.f;
   fence_async_smem();
   if (threadIdx.x == 0) {
     for (int st = 0; st < BWD_DEPTH; ++st) {
@@ -1500,12 +1602,12 @@ spatial_bwd_wg_kernel(const uint16_t* __restrict__ qkv,
     const uint16_t* pg =
         MODE == BWD_RECOMPUTE ? nullptr : probs + (size_t)item * L * ls;
     for (int t = wg; t < 4 && 64 * t < L; t += BWD_WGS)
-      bwd_rows<MODE>(st, t, pg, o, oc, d_s, inv_s, out_st, dqkv, dqkv_c, bt,
-                     h, n, heads, scale, wgbar);
+      bwd_rows<MODE, S>(st, t, pg, o, oc, d_s, inv_s, nm_s, out_st, dqkv,
+                        dqkv_c, bt, h, n, heads, scale, wgbar);
     bar_sync(3, BWD_WGS * 128);  // every D_i (and 1 / l_i) is stored
     for (int t = wg; t < 4 && 64 * t < L; t += BWD_WGS)
-      bwd_keys<MODE>(st, t, pg, d_s, inv_s, out_st, dqkv, dqkv_c, bt, h, n,
-                     heads, scale, wgbar);
+      bwd_keys<MODE, S>(st, t, pg, d_s, inv_s, nm_s, out_st, dqkv, dqkv_c,
+                        bt, h, n, heads, scale, wgbar);
     // both warpgroups are done with the stage and with D before the next
     // item rewrites D and the copying warpgroup refills the stage
     bar_sync(3, BWD_WGS * 128);
@@ -1533,7 +1635,7 @@ cudaError_t persistent_ctas(K kernel, int threads, size_t smem, int items,
 }
 
 // the bf16 forward (K1f, K1sp, K1p) with a ring of `depth` stages
-template <int LP, bool SAVE_P>
+template <int LP, bool SAVE_P, int S>
 cudaError_t launch_wg(const void* qkv, const void* qkv_c, void* out,
                       void* out_c, void* probs, int bt, int n, int heads,
                       int depth, float scale, cudaStream_t stream) {
@@ -1541,26 +1643,27 @@ cudaError_t launch_wg(const void* qkv, const void* qkv_c, void* out,
   const size_t smem = depth * s.stage + s.extra;
   const int items = bt * heads, threads = fwd_threads(LP);
   int ctas = 0;
-  cudaError_t err = persistent_ctas(spatial_wg_kernel<LP, SAVE_P>, threads,
-                                    smem, items, ctas);
+  cudaError_t err = persistent_ctas(spatial_wg_kernel<LP, SAVE_P, S>,
+                                    threads, smem, items, ctas);
   if (err != cudaSuccess) return err;
-  spatial_wg_kernel<LP, SAVE_P><<<ctas, threads, smem, stream>>>(
+  spatial_wg_kernel<LP, SAVE_P, S><<<ctas, threads, smem, stream>>>(
       static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(qkv_c),
       static_cast<uint16_t*>(out), static_cast<uint16_t*>(out_c),
       static_cast<uint16_t*>(probs), n, heads, items, depth, scale);
   return cudaGetLastError();
 }
 
-template <bool SAVE_P>
+template <bool SAVE_P, int S>
 cudaError_t launch_scalar(const void* qkv, const void* qkv_c, void* out,
                           void* out_c, void* probs, int bt, int n, int heads,
                           float scale, cudaStream_t stream) {
   const int L = n + 1, lp = (L + 31) & ~31;
   const size_t smem = (size_t)3 * L * SC_STRIDE * sizeof(float) +
                       (size_t)WARPS * lp * sizeof(float);
-  cudaError_t err = set_smem(spatial_scalar_kernel<float, SAVE_P>, smem);
+  cudaError_t err = set_smem(spatial_scalar_kernel<float, SAVE_P, S>, smem);
   if (err != cudaSuccess) return err;
-  spatial_scalar_kernel<float, SAVE_P><<<bt * heads, WARPS * 32, smem, stream>>>(
+  spatial_scalar_kernel<float, SAVE_P, S><<<bt * heads, WARPS * 32, smem,
+                                            stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(qkv_c),
       static_cast<float*>(out), static_cast<float*>(out_c),
       static_cast<float*>(probs), n, heads, scale);
@@ -1569,8 +1672,8 @@ cudaError_t launch_scalar(const void* qkv, const void* qkv_c, void* out,
 
 // The forward: K1f / K1sp (SAVE_P) in float32 on the scalar kernel, in
 // bf16 on spatial_wg_kernel with `nbuf` ring stages asked for (clamped by
-// fwd_depth)
-template <bool SAVE_P>
+// fwd_depth), under shift S
+template <bool SAVE_P, int S>
 int forward(const void* qkv, const void* qkv_c, void* out, void* out_c,
             void* probs, int bt, int n, int heads, int dtype, int nbuf,
             float scale, void* stream) {
@@ -1578,16 +1681,16 @@ int forward(const void* qkv, const void* qkv_c, void* out, void* out_c,
   const int L = n + 1;
   if (L > MAX_LEN || n < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch_scalar<SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                      heads, scale, st);
+    return (int)launch_scalar<SAVE_P, S>(qkv, qkv_c, out, out_c, probs, bt,
+                                         n, heads, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int depth = fwd_depth(n, SAVE_P, nbuf);
   if (depth < 1) return (int)cudaErrorInvalidValue;
   if (L <= 64)
-    return (int)launch_wg<64, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                      heads, depth, scale, st);
-  return (int)launch_wg<MAX_LEN, SAVE_P>(qkv, qkv_c, out, out_c, probs, bt, n,
-                                         heads, depth, scale, st);
+    return (int)launch_wg<64, SAVE_P, S>(qkv, qkv_c, out, out_c, probs, bt,
+                                         n, heads, depth, scale, st);
+  return (int)launch_wg<MAX_LEN, SAVE_P, S>(qkv, qkv_c, out, out_c, probs, bt,
+                                            n, heads, depth, scale, st);
 }
 
 // K1p's float32 ring: the bytes of one stage and of the per-warp rows
@@ -1615,6 +1718,7 @@ int pipe_depth(int n, int dtype, int nbuf) {
   return d > MAX_DEPTH ? MAX_DEPTH : d;
 }
 
+template <int S>
 cudaError_t launch_pipe(const void* qkv, const void* qkv_c, void* out,
                         void* out_c, int bt, int n, int heads, int depth,
                         float scale, cudaStream_t stream) {
@@ -1622,17 +1726,17 @@ cudaError_t launch_pipe(const void* qkv, const void* qkv_c, void* out,
   const size_t smem = depth * s.stage + s.extra;
   const int items = bt * heads;
   int ctas = 0;
-  cudaError_t err = persistent_ctas(spatial_pipe_kernel, PIPE_WARPS * 32,
+  cudaError_t err = persistent_ctas(spatial_pipe_kernel<S>, PIPE_WARPS * 32,
                                     smem, items, ctas);
   if (err != cudaSuccess) return err;
-  spatial_pipe_kernel<<<ctas, PIPE_WARPS * 32, smem, stream>>>(
+  spatial_pipe_kernel<S><<<ctas, PIPE_WARPS * 32, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(qkv_c),
       static_cast<float*>(out), static_cast<float*>(out_c), n, heads, items,
       depth, scale);
   return cudaGetLastError();
 }
 
-template <int LP, int MODE>
+template <int LP, int MODE, int S>
 cudaError_t launch_bwd_mma(const void* qkv, const void* qkv_c,
                            const void* probs, const void* o, const void* oc,
                            const void* g, const void* gc, void* dqkv,
@@ -1641,10 +1745,11 @@ cudaError_t launch_bwd_mma(const void* qkv, const void* qkv_c,
   const size_t smem = (size_t)4 * LP * MMA_STRIDE * sizeof(uint16_t) +
                       (size_t)LP * (LP + 8) * sizeof(uint16_t) +
                       (size_t)LP * sizeof(float);
-  cudaError_t err = set_smem(spatial_bwd_mma_kernel<LP, MODE>, smem);
+  cudaError_t err = set_smem(spatial_bwd_mma_kernel<LP, MODE, S>, smem);
   if (err != cudaSuccess) return err;
   using bf = __nv_bfloat16;
-  spatial_bwd_mma_kernel<LP, MODE><<<bt * heads, WARPS * 32, smem, stream>>>(
+  spatial_bwd_mma_kernel<LP, MODE, S><<<bt * heads, WARPS * 32, smem,
+                                        stream>>>(
       static_cast<const bf*>(qkv), static_cast<const bf*>(qkv_c),
       static_cast<const bf*>(probs), static_cast<const bf*>(o),
       static_cast<const bf*>(oc), static_cast<const bf*>(g),
@@ -1654,7 +1759,7 @@ cudaError_t launch_bwd_mma(const void* qkv, const void* qkv_c,
 }
 
 // the bf16 backward at LP = 208 on persistent CTAs
-template <int MODE>
+template <int MODE, int S>
 cudaError_t launch_bwd_wg(const void* qkv, const void* qkv_c,
                           const void* probs, const void* o, const void* oc,
                           const void* g, const void* gc, void* dqkv,
@@ -1662,11 +1767,12 @@ cudaError_t launch_bwd_wg(const void* qkv, const void* qkv_c,
                           cudaStream_t stream) {
   const int items = bt * heads;
   int ctas = 0;
-  cudaError_t err = persistent_ctas(spatial_bwd_wg_kernel<MODE>, BWD_THREADS,
-                                    BWD_SMEM, items, ctas);
+  constexpr size_t smem = bwd_smem(S);
+  cudaError_t err = persistent_ctas(spatial_bwd_wg_kernel<MODE, S>,
+                                    BWD_THREADS, smem, items, ctas);
   if (err != cudaSuccess) return err;
   using u16 = uint16_t;
-  spatial_bwd_wg_kernel<MODE><<<ctas, BWD_THREADS, BWD_SMEM, stream>>>(
+  spatial_bwd_wg_kernel<MODE, S><<<ctas, BWD_THREADS, smem, stream>>>(
       static_cast<const u16*>(qkv), static_cast<const u16*>(qkv_c),
       static_cast<const u16*>(probs), static_cast<const u16*>(o),
       static_cast<const u16*>(oc), static_cast<const u16*>(g),
@@ -1675,7 +1781,9 @@ cudaError_t launch_bwd_wg(const void* qkv, const void* qkv_c,
   return cudaGetLastError();
 }
 
-template <int MODE>
+// The backward of MODE under shift S (BWD_SAVED and BWD_DELTA read p and
+// take kClamp only)
+template <int MODE, int S>
 int backward(const void* qkv, const void* qkv_c, const void* probs,
              void* scratch, const void* o, const void* oc, const void* g,
              const void* gc, void* dqkv, void* dqkv_c, int bt, int n,
@@ -1687,9 +1795,9 @@ int backward(const void* qkv, const void* qkv_c, const void* probs,
     const int lp = (L + 31) & ~31;
     const size_t smem = (size_t)4 * L * SC_STRIDE * sizeof(float) +
                         (size_t)(1 + 2 * WARPS) * lp * sizeof(float);
-    cudaError_t err = set_smem(spatial_bwd_scalar_kernel<MODE>, smem);
+    cudaError_t err = set_smem(spatial_bwd_scalar_kernel<MODE, S>, smem);
     if (err != cudaSuccess) return (int)err;
-    spatial_bwd_scalar_kernel<MODE><<<bt * heads, WARPS * 32, smem, st>>>(
+    spatial_bwd_scalar_kernel<MODE, S><<<bt * heads, WARPS * 32, smem, st>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(qkv_c),
         static_cast<const float*>(probs), static_cast<float*>(scratch),
         static_cast<const float*>(o), static_cast<const float*>(oc),
@@ -1700,25 +1808,31 @@ int backward(const void* qkv, const void* qkv_c, const void* probs,
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (L <= 64)
-    return (int)launch_bwd_mma<64, MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
-                                         dqkv_c, bt, n, heads, scale, st);
-  return (int)launch_bwd_wg<MODE>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
-                                  dqkv_c, bt, n, heads, scale, st);
+    return (int)launch_bwd_mma<64, MODE, S>(qkv, qkv_c, probs, o, oc, g, gc,
+                                            dqkv, dqkv_c, bt, n, heads, scale,
+                                            st);
+  return (int)launch_bwd_wg<MODE, S>(qkv, qkv_c, probs, o, oc, g, gc, dqkv,
+                                     dqkv_c, bt, n, heads, scale, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Head dim is 64.  Each entry point
-// returns the CUDA error code of its launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Head dim is 64.  shift: the softmax
+// shift (enum Shift: 0 clamp, 1 max, 2 none; K1b and K1bd read p and take
+// none).  Each entry point returns the CUDA error code of its launch (0 on
+// success).
 
 // K1f.  Sequences of up to MAX_LEN = 208 tokens with the CLS (n + 1 <=
 // 208, the backward's limit); longer ones take flash_attention.cu's pair.
 extern "C" int spatial_attention_fwd(const void* qkv, const void* qkv_c,
                                      void* out, void* out_c, int bt, int n,
-                                     int heads, int dtype, float scale,
-                                     void* stream) {
-  return forward<false>(qkv, qkv_c, out, out_c, nullptr, bt, n, heads, dtype,
-                        FWD_DEPTH, scale, stream);
+                                     int heads, int dtype, int shift,
+                                     float scale, void* stream) {
+  return with_shift(shift, [&](auto s) {
+    return forward<false, decltype(s)::value>(qkv, qkv_c, out, out_c, nullptr,
+                                              bt, n, heads, dtype, FWD_DEPTH,
+                                              scale, stream);
+  });
 }
 
 // K1sp: K1f that also writes probs [bt, heads, n + 1, LS] (LS = n + 1
@@ -1726,9 +1840,13 @@ extern "C" int spatial_attention_fwd(const void* qkv, const void* qkv_c,
 extern "C" int spatial_attention_fwd_probs(const void* qkv, const void* qkv_c,
                                            void* out, void* out_c, void* probs,
                                            int bt, int n, int heads, int dtype,
-                                           float scale, void* stream) {
-  return forward<true>(qkv, qkv_c, out, out_c, probs, bt, n, heads, dtype,
-                       FWD_DEPTH, scale, stream);
+                                           int shift, float scale,
+                                           void* stream) {
+  return with_shift(shift, [&](auto s) {
+    return forward<true, decltype(s)::value>(qkv, qkv_c, out, out_c, probs, bt,
+                                             n, heads, dtype, FWD_DEPTH, scale,
+                                             stream);
+  });
 }
 
 // The ring depth K1p runs for a requested depth nbuf (0: the shape does
@@ -1743,18 +1861,21 @@ extern "C" int spatial_attention_pipe_depth(int n, int dtype, int nbuf) {
 extern "C" int spatial_attention_fwd_pipe(const void* qkv, const void* qkv_c,
                                           void* out, void* out_c, int bt,
                                           int n, int heads, int dtype,
-                                          int nbuf, float scale,
+                                          int nbuf, int shift, float scale,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return forward<false>(qkv, qkv_c, out, out_c, nullptr, bt, n, heads,
-                          dtype, nbuf, scale, stream);
-  if (dtype != 0 || n + 1 > MAX_LEN || n < 1)
-    return (int)cudaErrorInvalidValue;
-  const int depth = pipe_depth(n, dtype, nbuf);
-  if (depth < 1) return (int)cudaErrorInvalidValue;
-  return (int)launch_pipe(qkv, qkv_c, out, out_c, bt, n, heads, depth, scale,
-                          st);
+  return with_shift(shift, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    if (dtype == 1)
+      return forward<false, S>(qkv, qkv_c, out, out_c, nullptr, bt, n, heads,
+                               dtype, nbuf, scale, stream);
+    if (dtype != 0 || n + 1 > MAX_LEN || n < 1)
+      return (int)cudaErrorInvalidValue;
+    const int depth = pipe_depth(n, dtype, nbuf);
+    if (depth < 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_pipe<S>(qkv, qkv_c, out, out_c, bt, n, heads, depth,
+                               scale, st);
+  });
 }
 
 // K1b: dqkv [bt, n, 3C], dqkv_c [bt, 1, 3C] from qkv, qkv_c, the K1sp
@@ -1765,20 +1886,23 @@ extern "C" int spatial_attention_bwd(const void* qkv, const void* qkv_c,
                                      const void* gc, void* dqkv, void* dqkv_c,
                                      int bt, int n, int heads, int dtype,
                                      float scale, void* stream) {
-  return backward<BWD_SAVED>(qkv, qkv_c, probs, nullptr, nullptr, nullptr, g,
-                             gc, dqkv, dqkv_c, bt, n, heads, dtype, scale,
-                             stream);
+  return backward<BWD_SAVED, kClamp>(qkv, qkv_c, probs, nullptr, nullptr,
+                                     nullptr, g, gc, dqkv, dqkv_c, bt, n,
+                                     heads, dtype, scale, stream);
 }
 
-// K1br: K1b with the probabilities recomputed from qkv, qkv_c.  fp32 needs
-// a scratch [bt, heads, n + 1, LS] float buffer (bf16: unused, may be null).
+// K1br: K1b with the probabilities recomputed from qkv, qkv_c under the
+// shift.  fp32 needs a scratch [bt, heads, n + 1, LS] float buffer (bf16:
+// unused, may be null).
 extern "C" int spatial_attention_bwd_recompute(
     const void* qkv, const void* qkv_c, const void* g, const void* gc,
     void* dqkv, void* dqkv_c, void* scratch, int bt, int n, int heads,
-    int dtype, float scale, void* stream) {
-  return backward<BWD_RECOMPUTE>(qkv, qkv_c, nullptr, scratch, nullptr,
-                                 nullptr, g, gc, dqkv, dqkv_c, bt, n, heads,
-                                 dtype, scale, stream);
+    int dtype, int shift, float scale, void* stream) {
+  return with_shift(shift, [&](auto s) {
+    return backward<BWD_RECOMPUTE, decltype(s)::value>(
+        qkv, qkv_c, nullptr, scratch, nullptr, nullptr, g, gc, dqkv, dqkv_c,
+        bt, n, heads, dtype, scale, stream);
+  });
 }
 
 // K1bd: K1b with delta_i = g_i . o_i from the forward's outputs
@@ -1788,6 +1912,7 @@ extern "C" int spatial_attention_bwd_delta(
     const void* out_c, const void* g, const void* gc, void* dqkv,
     void* dqkv_c, int bt, int n, int heads, int dtype, float scale,
     void* stream) {
-  return backward<BWD_DELTA>(qkv, qkv_c, probs, nullptr, out, out_c, g, gc,
-                             dqkv, dqkv_c, bt, n, heads, dtype, scale, stream);
+  return backward<BWD_DELTA, kClamp>(qkv, qkv_c, probs, nullptr, out, out_c,
+                                     g, gc, dqkv, dqkv_c, bt, n, heads, dtype,
+                                     scale, stream);
 }

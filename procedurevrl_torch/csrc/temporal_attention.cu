@@ -21,7 +21,10 @@
 // inside each third; out [B, T, N, C]; g [B, T, N, C] -> dqkv [B, T, N, 3C].
 // For every (b, n, head):
 //   s[t, t'] = scale * sum_d q[t] k[t'] in fp32,
-//   p = exp(min(s, 80)) / sum_t' exp(min(s, 80)), cast to the value dtype,
+//   p = exp(min(s, 80)) / sum_t' exp(min(s, 80)), cast to the value dtype
+//   (the clamp; TEMPORAL_SHIFT max takes exp(s - m), m the max over the
+//   row's T keys, a quad_max in the tensor-core kernels; none exp(s): a
+//   compile-time switch, enum Shift of common.cuh),
 //   o[t] = sum_t' p[t, t'] v[t'] accumulated in fp32;
 //   dp[t, t'] = g[t] . v[t'] in fp32, ds = p (dp - sum_t' dp p) cast to the
 //   value dtype, dq[t] = scale sum_t' ds[t, t'] k[t'],
@@ -89,7 +92,7 @@ constexpr int HALF = HEAD_DIM / 2;  // head-dim columns per thread
 // The probabilities p[u] (u < frames) of one query row, from this thread's
 // half of the head dimension of q and of the keys k0 + u * kstep; the two
 // halves of a row are adjacent lanes (`mask`) and end with the same row.
-template <typename T_>
+template <typename T_, int S>
 __device__ __forceinline__ void softmax_row(const T_* q, const T_* k0,
                                             size_t kstep, int frames,
                                             float scale, unsigned mask,
@@ -108,12 +111,21 @@ __device__ __forceinline__ void softmax_row(const T_* q, const T_* k0,
       }
     }
   }
-  float denom = 0.f;
+  // both lanes of the row hold its whole logits; kMax: their max
+  float m = -INFINITY;
 #pragma unroll
   for (int u = 0; u < MAX_T; ++u) {
     if (u < frames) {
       s[u] += __shfl_xor_sync(mask, s[u], 1);
-      s[u] = expf(fminf(s[u] * scale, CLAMP_HI));
+      s[u] *= scale;
+      if constexpr (S == kMax) m = fmaxf(m, s[u]);
+    }
+  }
+  float denom = 0.f;
+#pragma unroll
+  for (int u = 0; u < MAX_T; ++u) {
+    if (u < frames) {
+      s[u] = expf(shift_arg<S>(s[u], m));
       denom += s[u];
     }
   }
@@ -157,7 +169,7 @@ __device__ __forceinline__ void store_half(T_* dst, const float (&v)[HALF],
 
 // dynamic smem: [T][3][heads][HEAD_STRIDE] elements of T_.  SAVE_P: also
 // write p to probs [B, N, H, T, T] (K2v3f's scalar path).
-template <typename T_, bool SAVE_P>
+template <typename T_, bool SAVE_P, int S>
 __global__ void temporal_kernel(const T_* __restrict__ qkv, T_* __restrict__ out,
                                 T_* __restrict__ probs, int frames, int n,
                                 int heads, float scale) {
@@ -185,7 +197,7 @@ __global__ void temporal_kernel(const T_* __restrict__ qkv, T_* __restrict__ out
     const T_* v0 = sm + ((size_t)2 * heads + h) * HEAD_STRIDE + half * HALF;
 
     float s[MAX_T];
-    softmax_row(q, k0, kstep, frames, scale, mask, s);
+    softmax_row<T_, S>(q, k0, kstep, frames, scale, mask, s);
     if constexpr (SAVE_P) {
       if (half == 0) {
         T_* prow = probs + (((size_t)blockIdx.x * heads + h) * frames + t) * frames;
@@ -240,7 +252,7 @@ __global__ void temporal_kernel(const T_* __restrict__ qkv, T_* __restrict__ out
 // slots of each frame), then p and ds as floats [T * heads][T].  SAVED_P:
 // read p from probs [B, N, H, T, T] (K2v3b's scalar path) instead of
 // recomputing it.
-template <typename T_, bool SAVED_P>
+template <typename T_, bool SAVED_P, int S>
 __global__ void temporal_bwd_kernel(const T_* __restrict__ qkv,
                                     const T_* __restrict__ g,
                                     const T_* __restrict__ probs,
@@ -279,7 +291,7 @@ __global__ void temporal_bwd_kernel(const T_* __restrict__ qkv,
 #pragma unroll
       for (int u = 0; u < MAX_T; ++u) p[u] = u < frames ? load1(prow + u) : 0.f;
     } else {
-      softmax_row(q0 + t * fstep, k0, fstep, frames, scale, mask, p);
+      softmax_row<T_, S>(q0 + t * fstep, k0, fstep, frames, scale, mask, p);
     }
 #pragma unroll
     for (int u = 0; u < MAX_T; ++u) ds[u] = 0.f;
@@ -373,22 +385,22 @@ int threads_for(int frames, int heads) {
   return ((2 * frames * heads + 31) / 32) * 32;
 }
 
-template <typename T_, bool SAVE_P>
+template <typename T_, bool SAVE_P, int S>
 cudaError_t launch(const void* qkv, void* out, void* probs, int batch,
                    int frames, int n, int heads, float scale,
                    cudaStream_t stream) {
   const int threads = threads_for(frames, heads);
   if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem = (size_t)frames * 3 * heads * HEAD_STRIDE * sizeof(T_);
-  cudaError_t err = set_smem(temporal_kernel<T_, SAVE_P>, smem);
+  cudaError_t err = set_smem(temporal_kernel<T_, SAVE_P, S>, smem);
   if (err != cudaSuccess) return err;
-  temporal_kernel<T_, SAVE_P><<<batch * n, threads, smem, stream>>>(
+  temporal_kernel<T_, SAVE_P, S><<<batch * n, threads, smem, stream>>>(
       static_cast<const T_*>(qkv), static_cast<T_*>(out),
       static_cast<T_*>(probs), frames, n, heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T_, bool SAVED_P>
+template <typename T_, bool SAVED_P, int S>
 cudaError_t launch_bwd(const void* qkv, const void* g, const void* probs,
                        void* dqkv, int batch, int frames, int n, int heads,
                        float scale, cudaStream_t stream) {
@@ -396,9 +408,9 @@ cudaError_t launch_bwd(const void* qkv, const void* g, const void* probs,
   if (threads > 1024) return cudaErrorInvalidValue;
   const size_t smem = (size_t)frames * 4 * heads * HEAD_STRIDE * sizeof(T_) +
                       (size_t)2 * frames * heads * frames * sizeof(float);
-  cudaError_t err = set_smem(temporal_bwd_kernel<T_, SAVED_P>, smem);
+  cudaError_t err = set_smem(temporal_bwd_kernel<T_, SAVED_P, S>, smem);
   if (err != cudaSuccess) return err;
-  temporal_bwd_kernel<T_, SAVED_P><<<batch * n, threads, smem, stream>>>(
+  temporal_bwd_kernel<T_, SAVED_P, S><<<batch * n, threads, smem, stream>>>(
       static_cast<const T_*>(qkv), static_cast<const T_*>(g),
       static_cast<const T_*>(probs), static_cast<T_*>(dqkv), frames, n, heads,
       scale);
@@ -415,7 +427,6 @@ cudaError_t launch_bwd(const void* qkv, const void* g, const void* probs,
 constexpr int V3_WARPS = 4;
 constexpr int V3_ROWS = 16;
 constexpr int V3_TS = 24;  // per-warp 16 x 16 tile, 48-byte rows
-constexpr float LOG2E = 1.4426950408889634f;
 
 // One head's 16 x 64 tile of q, k, v or g in shared memory: the address of
 // element (row, col), col even (a multiple of 8 for an ldmatrix row).
@@ -490,25 +501,38 @@ __device__ __forceinline__ void v3_products(const Tile& x, const Tile& y,
   }
 }
 
-// The clamp softmax of one head's logits s0, s1 (v3_products of q and k)
-// over each row's `frames` keys, in registers (a quad holds a row), as the
+// The softmax under shift S of one head's logits s0, s1 (v3_products of q
+// and k) over each row's `frames` keys, in registers (a quad holds a row;
+// kMax takes the max over the row's quad), as the
 // A fragment of P V: with two positions block-diagonal, position 0's 8 x 8
 // block in a[0], position 1's in a[3]; with one, a[w] holds row gid + 8 (w
 // & 1) over key frames 8 (w >> 1) + 2 tig and + 1.  Keys past `frames` get
 // p = 0.  The one softmax of K2f, K2v3f and K2b's recomputation.
-template <int FR>
+template <int FR, int S>
 __device__ __forceinline__ void v3_softmax(const float (&s0)[4],
                                            const float (&s1)[4], int frames,
-                                           float scale2, float hi2,
-                                           uint32_t (&a)[4]) {
+                                           float scale2, uint32_t (&a)[4]) {
   const int tig = (threadIdx.x % 32) & 3;
   if constexpr (FR == 8) {
+    // kMax: -(row max) scale2 of the two positions' rows
+    float na = 0.f, nb = 0.f;
+    if constexpr (S == kMax) {
+      float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (2 * tig + e < frames) {
+          ma = fmaxf(ma, s0[e]);
+          mb = fmaxf(mb, s1[2 + e]);
+        }
+      na = -quad_max(ma) * scale2;
+      nb = -quad_max(mb) * scale2;
+    }
     float ea[2], eb[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool key = 2 * tig + e < frames;
-      ea[e] = key ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
-      eb[e] = key ? exp2f(fminf(s1[2 + e] * scale2, hi2)) : 0.f;
+      ea[e] = key ? exp2f(shift_arg2<S>(s0[e], scale2, na)) : 0.f;
+      eb[e] = key ? exp2f(shift_arg2<S>(s1[2 + e], scale2, nb)) : 0.f;
     }
     const float ia = 1.f / quad_sum(ea[0] + ea[1]);
     const float ib = 1.f / quad_sum(eb[0] + eb[1]);
@@ -518,13 +542,27 @@ __device__ __forceinline__ void v3_softmax(const float (&s0)[4],
   } else {
     // one position: rows lane/4 (e < 2) and lane/4 + 8 over key frames
     // 2*(lane%4) + (e & 1) (s0) and 8 more (s1)
+    // kMax: -(row max) scale2 of the rows lane/4 (e < 2) and lane/4 + 8
+    float nt = 0.f, nb = 0.f;
+    if constexpr (S == kMax) {
+      float mt = -INFINITY, mb = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& m = e < 2 ? mt : mb;
+        if (2 * tig + (e & 1) < frames) m = fmaxf(m, s0[e]);
+        if (8 + 2 * tig + (e & 1) < frames) m = fmaxf(m, s1[e]);
+      }
+      nt = -quad_max(mt) * scale2;
+      nb = -quad_max(mb) * scale2;
+    }
     float e0[4], e1[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool key0 = 2 * tig + (e & 1) < frames;
       const bool key1 = 8 + 2 * tig + (e & 1) < frames;
-      e0[e] = key0 ? exp2f(fminf(s0[e] * scale2, hi2)) : 0.f;
-      e1[e] = key1 ? exp2f(fminf(s1[e] * scale2, hi2)) : 0.f;
+      const float nm = e < 2 ? nt : nb;
+      e0[e] = key0 ? exp2f(shift_arg2<S>(s0[e], scale2, nm)) : 0.f;
+      e1[e] = key1 ? exp2f(shift_arg2<S>(s1[e], scale2, nm)) : 0.f;
     }
     const float it = 1.f / quad_sum(e0[0] + e0[1] + e1[0] + e1[1]);
     const float ib = 1.f / quad_sum(e0[2] + e0[3] + e1[2] + e1[3]);
@@ -666,7 +704,7 @@ __device__ __forceinline__ void v3_write(uint16_t* dst, int width,
 // (block-diagonal with two positions); O goes over the head's consumed q
 // columns and the CTA writes the 16 output rows with 16-byte stores.
 // SAVE_P: p to probs.
-template <bool SAVE_P, int FR>
+template <bool SAVE_P, int FR, int S>
 __global__ void __launch_bounds__(V3_WARPS * 32)
 temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                        __nv_bfloat16* __restrict__ out,
@@ -683,7 +721,7 @@ temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
-  const float scale2 = scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  const float scale2 = scale * LOG2E;
   uint16_t* pg = reinterpret_cast<uint16_t*>(probs);
   for (int h = warp; h < heads; h += V3_WARPS) {
     const PadTile q{sm + h * HEAD_DIM, rs}, k{sm + c + h * HEAD_DIM, rs},
@@ -691,7 +729,7 @@ temporal_v3_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     float s0[4], s1[4];
     v3_products(q, k, s0, s1);
     uint32_t a[4];
-    v3_softmax<FR>(s0, s1, frames, scale2, hi2, a);
+    v3_softmax<FR, S>(s0, s1, frames, scale2, a);
     if constexpr (SAVE_P && FR == 8) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -830,7 +868,7 @@ constexpr size_t RING_SMEM = 113 * 1024;
 // its previous item on the `empty` mbarrier once that item's store has
 // read it: a store runs under the next item's products and the copies in
 // flight.
-template <int FR, bool BWD>
+template <int FR, bool BWD, int S>
 __global__ void __launch_bounds__((V3_WARPS + 1) * 32)
 temporal_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
                      const __grid_constant__ CUtensorMap g_map,
@@ -878,7 +916,7 @@ temporal_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
   }
 
   const int hh = warp - 1;  // this warp's head in the group
-  const float scale2 = geo.scale * LOG2E, hi2 = CLAMP_HI * LOG2E;
+  const float scale2 = geo.scale * LOG2E;
   uint16_t* ds_t = tiles + hh * 2 * V3_ROWS * V3_TS;
   uint16_t* p_t = ds_t + V3_ROWS * V3_TS;
   int held = -1;  // the slot of the previous item, its store in flight
@@ -891,7 +929,7 @@ temporal_ring_kernel(const __grid_constant__ CUtensorMap qkv_map,
     float s0[4], s1[4];
     v3_products(q, kt, s0, s1);
     uint32_t a[4];
-    v3_softmax<FR>(s0, s1, geo.frames, scale2, hi2, a);
+    v3_softmax<FR, S>(s0, s1, geo.frames, scale2, a);
     if constexpr (BWD) {
       float p[4][2];
 #pragma unroll
@@ -966,7 +1004,7 @@ cudaError_t persistent_ctas(K kernel, int threads, size_t smem, int items,
 }
 
 // K2f (g null) or K2b on the ring
-template <int FR, bool BWD>
+template <int FR, bool BWD, int S>
 cudaError_t launch_ring(const void* qkv, const void* g, void* out, int batch,
                         int frames, int n, int heads, float scale,
                         cudaStream_t stream) {
@@ -996,7 +1034,7 @@ cudaError_t launch_ring(const void* qkv, const void* g, void* out, int batch,
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t smem = fixed + stages * slot;
   const int threads = (geo.hg + 1) * 32;
-  auto kernel = temporal_ring_kernel<FR, BWD>;
+  auto kernel = temporal_ring_kernel<FR, BWD, S>;
   int ctas = 0;
   cudaError_t err = persistent_ctas(kernel, threads, smem, geo.items, ctas);
   if (err != cudaSuccess) return err;
@@ -1006,15 +1044,15 @@ cudaError_t launch_ring(const void* qkv, const void* g, void* out, int batch,
 }
 
 // K2v3f / K2v3b
-template <bool SAVE_P, int FR>
+template <bool SAVE_P, int FR, int S>
 cudaError_t launch_v3(const void* qkv, void* out, void* probs, int batch,
                       int frames, int n, int heads, float scale,
                       cudaStream_t stream) {
   const int positions = batch * n, per = V3_ROWS / FR;
   const size_t smem = (size_t)V3_ROWS * (3 * heads * HEAD_DIM + 8) * 2;
-  cudaError_t err = set_smem(temporal_v3_mma_kernel<SAVE_P, FR>, smem);
+  cudaError_t err = set_smem(temporal_v3_mma_kernel<SAVE_P, FR, S>, smem);
   if (err != cudaSuccess) return err;
-  temporal_v3_mma_kernel<SAVE_P, FR><<<(positions + per - 1) / per,
+  temporal_v3_mma_kernel<SAVE_P, FR, S><<<(positions + per - 1) / per,
                                        V3_WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
       static_cast<__nv_bfloat16*>(probs), frames, n, heads, positions, scale);
@@ -1046,42 +1084,51 @@ cudaError_t launch_v3_bwd(const void* qkv, const void* probs, const void* g,
 // rows within shared memory (forward frames * 3 * heads * 72 elements,
 // backward frames * 4 * heads * 72 elements plus 8 * frames^2 * heads
 // bytes); bfloat16 (the ring) needs qkv, out, g and dqkv 16-byte aligned.
-// Each entry point returns the CUDA error code of its launch (0 on success;
+// shift: the softmax shift (enum Shift: 0 clamp, 1 max, 2 none; K2v3b reads
+// p and takes none).  Each entry point returns the CUDA error code of its
+// launch (0 on success;
 // cudaErrorInvalidValue for a geometry the kernels do not take or a tensor
 // map the driver refuses).
 extern "C" int temporal_attention_fwd(const void* qkv, void* out, int batch,
                                       int frames, int n, int heads, int dtype,
-                                      float scale, void* stream) {
+                                      int shift, float scale, void* stream) {
   if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float, false>(qkv, out, nullptr, batch, frames, n,
-                                     heads, scale, st);
-  if (dtype == 1)
-    return (int)(frames > 8
-                     ? launch_ring<16, false>(qkv, nullptr, out, batch, frames,
-                                              n, heads, scale, st)
-                     : launch_ring<8, false>(qkv, nullptr, out, batch, frames,
-                                             n, heads, scale, st));
-  return (int)cudaErrorInvalidValue;
+  return with_shift(shift, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    if (dtype == 0)
+      return (int)launch<float, false, S>(qkv, out, nullptr, batch, frames, n,
+                                          heads, scale, st);
+    if (dtype == 1)
+      return (int)(frames > 8
+                       ? launch_ring<16, false, S>(qkv, nullptr, out, batch,
+                                                   frames, n, heads, scale, st)
+                       : launch_ring<8, false, S>(qkv, nullptr, out, batch,
+                                                  frames, n, heads, scale,
+                                                  st));
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 extern "C" int temporal_attention_bwd(const void* qkv, const void* g,
                                       void* dqkv, int batch, int frames, int n,
-                                      int heads, int dtype, float scale,
-                                      void* stream) {
+                                      int heads, int dtype, int shift,
+                                      float scale, void* stream) {
   if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_bwd<float, false>(qkv, g, nullptr, dqkv, batch, frames,
-                                         n, heads, scale, st);
-  if (dtype == 1)
-    return (int)(frames > 8
-                     ? launch_ring<16, true>(qkv, g, dqkv, batch, frames, n,
-                                             heads, scale, st)
-                     : launch_ring<8, true>(qkv, g, dqkv, batch, frames, n,
-                                            heads, scale, st));
-  return (int)cudaErrorInvalidValue;
+  return with_shift(shift, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    if (dtype == 0)
+      return (int)launch_bwd<float, false, S>(qkv, g, nullptr, dqkv, batch,
+                                              frames, n, heads, scale, st);
+    if (dtype == 1)
+      return (int)(frames > 8
+                       ? launch_ring<16, true, S>(qkv, g, dqkv, batch, frames,
+                                                  n, heads, scale, st)
+                       : launch_ring<8, true, S>(qkv, g, dqkv, batch, frames,
+                                                 n, heads, scale, st));
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 // K2v3f: K2f that writes p [B, N, H, T, T] in the value dtype (probs null:
@@ -1091,24 +1138,30 @@ extern "C" int temporal_attention_bwd(const void* qkv, const void* g,
 extern "C" int temporal_attention_v3_fwd(const void* qkv, void* out,
                                          void* probs, int batch, int frames,
                                          int n, int heads, int dtype,
-                                         float scale, void* stream) {
+                                         int shift, float scale,
+                                         void* stream) {
   if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)(probs ? launch<float, true>(qkv, out, probs, batch, frames, n,
-                                             heads, scale, st)
-                       : launch<float, false>(qkv, out, nullptr, batch, frames,
-                                              n, heads, scale, st));
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (frames > 8)
-    return (int)(probs ? launch_v3<true, 16>(qkv, out, probs, batch, frames, n,
-                                             heads, scale, st)
-                       : launch_v3<false, 16>(qkv, out, nullptr, batch, frames,
-                                              n, heads, scale, st));
-  return (int)(probs ? launch_v3<true, 8>(qkv, out, probs, batch, frames, n,
-                                          heads, scale, st)
-                     : launch_v3<false, 8>(qkv, out, nullptr, batch, frames, n,
-                                           heads, scale, st));
+  return with_shift(shift, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    if (dtype == 0)
+      return (int)(probs ? launch<float, true, S>(qkv, out, probs, batch,
+                                                  frames, n, heads, scale, st)
+                         : launch<float, false, S>(qkv, out, nullptr, batch,
+                                                   frames, n, heads, scale,
+                                                   st));
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (frames > 8)
+      return (int)(probs ? launch_v3<true, 16, S>(qkv, out, probs, batch,
+                                                  frames, n, heads, scale, st)
+                         : launch_v3<false, 16, S>(qkv, out, nullptr, batch,
+                                                   frames, n, heads, scale,
+                                                   st));
+    return (int)(probs ? launch_v3<true, 8, S>(qkv, out, probs, batch, frames,
+                                               n, heads, scale, st)
+                       : launch_v3<false, 8, S>(qkv, out, nullptr, batch,
+                                                frames, n, heads, scale, st));
+  });
 }
 
 // K2v3b: dqkv [B, T, N, 3C] from qkv, K2v3f's probabilities and g
@@ -1121,8 +1174,8 @@ extern "C" int temporal_attention_v3_bwd(const void* qkv, const void* probs,
   if (frames < 1 || frames > MAX_T) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd<float, true>(qkv, g, probs, dqkv, batch, frames, n,
-                                        heads, scale, st);
+    return (int)launch_bwd<float, true, kClamp>(qkv, g, probs, dqkv, batch,
+                                                frames, n, heads, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)(frames > 8 ? launch_v3_bwd<16>(qkv, probs, g, dqkv, batch,
                                               frames, n, heads, scale, st)

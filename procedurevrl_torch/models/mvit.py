@@ -39,10 +39,10 @@ and every block carries the same :class:`MViTRoute`:
   (:517-528, :616-645).
 
 ``MVIT_SHIFT`` (``max|clamp|none``, read at build; anything else raises
-``ValueError``): JAX reads it only inside K5 and K6, whose port takes only
-the clamp shift, so ``max`` and ``none`` raise ``NotImplementedError`` where
-a block takes K5 or K6; K7 always takes the row max and the plain path the
-row-max softmax, so blocks there run under any shift, as in JAX.  The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
+``ValueError``): the softmax shift of K5 and K6, the only kernels JAX reads
+it in (``clamp`` exp(min(s, 80)), ``max`` the row max, ``none`` exp(s));
+K7 always takes the row max and the plain path the row-max softmax, as in
+JAX.  The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
 ``MVIT_SAVE_REL``, ``MVIT_HL``) are not copied.
 """
 
@@ -63,7 +63,7 @@ from procedurevrl_torch.models.layers import (
 )
 from procedurevrl_torch.ops import depthwise_pool as dpool
 from procedurevrl_torch.ops import mvit_attention as mattn
-from procedurevrl_torch.ops.attention_route import check_shift, read_shift
+from procedurevrl_torch.ops.attention_route import read_shift
 from procedurevrl_torch.ops.common import (
     grouped_layer_norm_fp32, layer_norm_fp32, trunc_normal_init,
 )
@@ -576,17 +576,16 @@ class MultiScaleAttention(nn.Module):
         body = [t.contiguous() for t in (qb, kb, vb, kc, vc, rel)]
         route = self.route
         if mattn.hl_supported(kb.shape[1], C, H):
-            check_shift("MVIT_SHIFT", route.shift)
             out_body = mattn.mvit_attention_hl(*body, k_shape, H, scale,
-                                               route.delta)
+                                               route.delta, route.shift)
         elif route.kt and mattn.kt_supported(C, H):
             out_body = mattn.mvit_attention_kt(*body, k_shape, H, scale)
         else:
-            check_shift("MVIT_SHIFT", route.shift)
             fold = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(
                 1, 2).reshape(B * H, t.shape[1], -1).contiguous()
             out_body = mattn.mvit_attention(*map(fold, body), k_shape, scale,
-                                            route.delta, route.save_probs)
+                                            route.delta, route.save_probs,
+                                            route.shift)
             out_body = out_body.reshape(B, H, qn, d).transpose(1, 2).reshape(
                 B, qn, C)
         # the CLS query: one row over the cls-first key set, no bias, a

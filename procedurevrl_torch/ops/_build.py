@@ -38,31 +38,32 @@ _L = ctypes.c_longlong
 # error code of the launch as an int)
 ENTRY_POINTS = {
     "spatial_attention": {
-        "spatial_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        "spatial_attention_fwd_probs": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _F, _P],
+        "spatial_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _P],
+        "spatial_attention_fwd_probs": [_P] * 5 + [_I] * 5 + [_F, _P],
         "spatial_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _P],
         "spatial_attention_pipe_depth": [_I, _I, _I],
-        "spatial_attention_fwd_pipe": [_P] * 4 + [_I] * 5 + [_F, _P],
-        "spatial_attention_bwd_recompute": [_P] * 7 + [_I] * 4 + [_F, _P],
+        "spatial_attention_fwd_pipe": [_P] * 4 + [_I] * 6 + [_F, _P],
+        "spatial_attention_bwd_recompute": [_P] * 7 + [_I] * 5 + [_F, _P],
         "spatial_attention_bwd_delta": [_P] * 9 + [_I] * 4 + [_F, _P],
     },
     "temporal_attention": {
-        "temporal_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "temporal_attention_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "temporal_attention_v3_fwd": [_P] * 3 + [_I] * 5 + [_F, _P],
+        "temporal_attention_fwd": [_P] * 2 + [_I] * 6 + [_F, _P],
+        "temporal_attention_bwd": [_P] * 3 + [_I] * 6 + [_F, _P],
+        "temporal_attention_v3_fwd": [_P] * 3 + [_I] * 6 + [_F, _P],
         "temporal_attention_v3_bwd": [_P] * 4 + [_I] * 5 + [_F, _P],
     },
     "mvit_attention": {
-        "mvit_attention_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
+        "mvit_attention_fwd": [_P] * 8 + [_I] * 10 + [_F, _P],
         "mvit_attention_kt_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
-        "mvit_attention_fwd_probs": [_P] * 9 + [_I] * 9 + [_F, _P],
-        "mvit_attention_bwd": [_I] + [_P] * 18 + [_I] * 10 + [_F, _P],
+        "mvit_attention_fwd_probs": [_P] * 9 + [_I] * 10 + [_F, _P],
+        "mvit_attention_bwd": [_I] + [_P] * 18 + [_I] * 11 + [_F, _P],
     },
     "flash_attention": {
-        "flash_attention_fwd": [_P] * 9 + [_I] * 5 + [_L] * 4 + [_I, _F, _P],
-        "flash_attention_bwd": [_P] * 16 + [_I] * 5 + [_L] * 6 + [_I, _F, _P],
+        "flash_attention_fwd": [_P] * 9 + [_I] * 5 + [_L] * 4 + [_I, _I, _F,
+                                                                  _P],
+        "flash_attention_bwd": [_P] * 16 + [_I] * 5 + [_L] * 6 + [_I, _I, _F,
+                                                                   _P],
     },
     "depthwise_pool": {
         "depthwise_pool3d_fwd": [_P] * 3 + [_I] * 8 + [_L, _L, _I, _I, _P],

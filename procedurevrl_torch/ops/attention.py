@@ -22,11 +22,12 @@ are cast to the activation dtype at each product, as the JAX package casts
 - ``mhsa_temporal``: the temporal pass on the ``[B, T, N, C]`` view,
   through kernel K2 (``ops/temporal_attention.py``: K2f, + K2b under grad;
   K2v3f and K2v3b on ``TEMPORAL_BATCHED``).
-Every kernel uses the clamp shift ``exp(min(s, 80))`` of the JAX package's
-Pallas kernels, which equals the row-max softmax while logits stay below 80;
-a pass that takes a kernel under ``SPATIAL_SHIFT`` / ``TEMPORAL_SHIFT`` =
-``max`` or ``none`` raises ``NotImplementedError`` naming the knob, and a
-pass on the plain path runs under any shift, as JAX's XLA paths do.
+Every kernel takes the softmax shift of the JAX package's Pallas kernels,
+``SPATIAL_SHIFT`` for K1, K3 and K4 and ``TEMPORAL_SHIFT`` for K2 (read
+into the route at build): ``clamp`` (default) ``exp(min(s, 80))``, which
+equals the row-max softmax while logits stay below 80, ``max`` the row-max
+softmax, ``none`` ``exp(s)``; a pass on the plain path takes the row-max
+softmax whatever the knobs say, as JAX's XLA paths do.
 
 Whether a pass takes its kernel is the JAX package's shape rule, decided
 before any launch (:func:`takes_k1`, :func:`takes_k2`, :func:`takes_k4`);
@@ -47,7 +48,7 @@ from procedurevrl_torch.ops import flash_attention as fa
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
 from procedurevrl_torch.ops.attention_route import (
-    DEFAULT_ROUTE, AttentionRoute, check_shift,
+    DEFAULT_ROUTE, AttentionRoute,
 )
 
 # The JAX package's shape rules, copied (``pallas_attention.py:46``, :158-175,
@@ -162,18 +163,16 @@ def mhsa(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: Optional[torch.Tensor],
     ([B, N], True = masked out) and causal mask.  Where :func:`takes_k4`
     holds (``use_pallas`` and ``min_len`` as ``TPU.USE_PALLAS_ATTENTION``
     and ``PALLAS_MIN_LEN`` give them), K4 on the q, k, v thirds of one
-    projection (JAX ``ops/attention.py:316-327``), which refuses a
-    ``shift`` (``SPATIAL_SHIFT``) other than ``clamp``; else
-    :func:`mhsa_xla`."""
+    projection (JAX ``ops/attention.py:316-327``) under the softmax shift
+    ``shift`` (``SPATIAL_SHIFT``); else :func:`mhsa_xla`."""
     b, n, c = x.shape
     if not takes_k4(n, c, num_heads, use_pallas, min_len,
                     key_padding_mask is not None, causal):
         return mhsa_xla(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
                         key_padding_mask, causal)
-    check_shift("SPATIAL_SHIFT", shift)
     q, k, v = _linear(x, qkv_w, qkv_b).split(c, dim=-1)
     out = fa.flash_attention_autograd(q, k, v, num_heads,
-                                      (c // num_heads) ** -0.5)
+                                      (c // num_heads) ** -0.5, shift)
     return _linear(out, proj_w, proj_b)
 
 
@@ -196,7 +195,6 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
         out = mhsa_xla(torch.cat([cls_x, x], dim=1), qkv_w, qkv_b, proj_w,
                        proj_b, num_heads)
         return out[:, 1:], out[:, :1]
-    check_shift("SPATIAL_SHIFT", route.spatial_shift)
     scale = (c // num_heads) ** -0.5
     qkv = _linear(x, qkv_w, qkv_b)
     qkv_c = _linear(cls_x, qkv_w, qkv_b)
@@ -205,7 +203,8 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
                                                    scale, route)
     else:
         out, out_c = fa.flash_attention_cls_autograd(
-            *qkv.split(c, dim=-1), *qkv_c.split(c, dim=-1), num_heads, scale)
+            *qkv.split(c, dim=-1), *qkv_c.split(c, dim=-1), num_heads, scale,
+            route.spatial_shift)
     return _linear(out, proj_w, proj_b), _linear(out_c, proj_w, proj_b)
 
 
@@ -222,7 +221,6 @@ def mhsa_temporal(x: torch.Tensor, qkv_w: torch.Tensor,
         xt = x.transpose(1, 2).reshape(b * n, t, c)
         out = mhsa_xla(xt, qkv_w, qkv_b, proj_w, proj_b, num_heads)
         return out.reshape(b, n, t, c).transpose(1, 2).contiguous()
-    check_shift("TEMPORAL_SHIFT", route.temporal_shift)
     d = c // num_heads
     qkv = _linear(x, qkv_w, qkv_b)  # [B, T, N, 3C], read in place by K2
     out = k2.temporal_attention_autograd(qkv, num_heads, d ** -0.5, route)

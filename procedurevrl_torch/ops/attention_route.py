@@ -35,15 +35,16 @@ Which kernels, once one runs:
   JAX's train tool sets it to 0 for tensor-parallel meshes
   (``utils/parser.py:82-89``).
 
-Knobs the port carries but cannot honour on its kernels:
-``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` (:104, :1362; ``max|clamp|none``,
-anything else is malformed and raises ``ValueError`` at build).  JAX reads
-them only inside its Pallas kernels, and its XLA paths take the row-max
-softmax whatever they say.  The port's kernels take only the clamp shift,
-so ``max`` and ``none`` raise ``NotImplementedError`` where a kernel (or its
-plain version) would run: K1, K3 and K4 under ``SPATIAL_SHIFT``, K2 under
-``TEMPORAL_SHIFT`` (``ops/attention.py``); a pass that takes the plain
-row-max path runs as in JAX.
+The softmax shifts ``SPATIAL_SHIFT`` and ``TEMPORAL_SHIFT`` (:104, :1362;
+``max|clamp|none``, anything else is malformed and raises ``ValueError`` at
+build): ``clamp`` (default) exp(min(s, 80)), ``max`` exp(s - rowmax s) (the
+reference's softmax), ``none`` exp(s) (inf past s ~ 88.7, as JAX).  JAX
+reads them only inside its Pallas kernels, and its XLA paths take the
+row-max softmax whatever they say; so here every kernel family takes each
+shift as a compile-time switch (``csrc/common.cuh`` ``enum Shift``): K1, K3
+and K4 (and K1's function on the pair) under ``SPATIAL_SHIFT``, K2 (and its
+function on the pair) under ``TEMPORAL_SHIFT``, and a pass that takes the
+plain row-max path runs as in JAX.
 
 ``SPATIAL_MXU_DSUM`` (:876), ``PALLAS_SP_GB`` (:851) and ``PALLAS_HPB``
 (:161) only choose the TPU's tiling or summation order of the same
@@ -59,9 +60,14 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+import torch
+
 from procedurevrl_torch.utils.env import env_flag, env_int
 
-SHIFTS = ("max", "clamp", "none")
+# each softmax shift and its int at the kernels' entry points
+# (csrc/common.cuh enum Shift)
+SHIFT_CODES = {"clamp": 0, "max": 1, "none": 2}
+CLAMP_HI = 80.0  # the clamp shift: exp(min(s, 80)), exact for s < 80
 
 
 def read_shift(name: str) -> str:
@@ -69,19 +75,32 @@ def read_shift(name: str) -> str:
     ``MVIT_SHIFT``): its value, ``clamp`` when unset; a value outside
     ``max|clamp|none`` raises ``ValueError``, as JAX raises on it."""
     mode = os.environ.get(name, "clamp")
-    if mode not in SHIFTS:
+    if mode not in SHIFT_CODES:
         raise ValueError(f"{name}={mode!r}: expected max|clamp|none")
     return mode
 
 
-def check_shift(name: str, mode: str) -> None:
-    """Raise ``NotImplementedError`` naming the knob where a kernel that
-    takes only the clamp shift exp(min(s, 80)), or its plain version, is
-    about to run under ``max`` or ``none``."""
-    if mode != "clamp":
-        raise NotImplementedError(
-            f"{name}={mode}: the port's kernels take only the clamp shift "
-            "exp(min(s, 80))")
+def shift_code(shift: str) -> int:
+    """The kernels' int of a softmax shift; anything but
+    ``max|clamp|none`` raises ``ValueError``."""
+    if shift not in SHIFT_CODES:
+        raise ValueError(f"softmax shift {shift!r}: expected max|clamp|none")
+    return SHIFT_CODES[shift]
+
+
+def shifted_exp(s: torch.Tensor, shift: str) -> torch.Tensor:
+    """The exponentials of the scaled fp32 logits ``s`` (keys on the last
+    axis, every key valid) under a softmax shift, as JAX ``_shift`` /
+    ``_compact_exp`` / the MViT ``_probs`` form them: ``clamp``
+    exp(min(s, 80)), ``max`` exp(s - m) with m the row max (detached: a
+    constant shift, so autograd's gradient is the softmax's), ``none``
+    exp(s)."""
+    shift_code(shift)
+    if shift == "clamp":
+        return torch.exp(torch.clamp(s, max=CLAMP_HI))
+    if shift == "max":
+        return torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    return torch.exp(s)
 
 
 @dataclass(frozen=True)

@@ -20,15 +20,22 @@ row-major over the pooled key grid ``k_shape = (kt, kh, kw)``; kc, vc
 [BH, 1, d] the cls key and value, key column kN, which takes no bias;
 rel [BH, qN, kt + kh + kw] the per-axis bias tables in the order
 [t | h | w].  ``s = (q.k) scale + (rel_t + rel_h) + rel_w`` in fp32, the
-clamp-shift softmax ``p = exp(min(s, 80)) / l`` over the kN + 1 columns,
-``o = bf16(p) v`` accumulated in fp32 (the bf16 tensor-core kernel, one
-sweep over the keys, rounds e = exp(min(s, 80)) instead: ``o = (bf16(e) v)
-/ l``, :func:`rounds_e`; the plain versions round where the kernels do).
-The forward also returns the fp32 row sums ``l`` ([B, H, qN]), the
-backward's residual; the backward is the TPU kernel's (``ds = p (dp -
-rowsum(dp p))``, cast to the input dtype before the dq, dk and d(rel)
-products; dk, dv summed over every query in fp32).  The CLS query row is
-not part of it: the model computes it.
+softmax ``p = e / l`` over the kN + 1 columns under the shift
+``MVIT_SHIFT`` (each wrapper's ``shift``): ``clamp`` (default) e =
+exp(min(s, 80)), ``max`` e = exp(s - m) with m the row max, ``none`` e =
+exp(s); ``o = bf16(p) v`` accumulated in fp32 (the bf16 tensor-core kernel,
+one sweep over the keys, and every forward under ``max`` round e instead:
+``o = (bf16(e) v) / l``, :func:`rounds_e`; the plain versions round where
+the kernels do).  The forward also returns the fp32 row statistic ([B, H,
+qN]), the backward's residual: the row sums ``l``, under ``max`` lse = m +
+log l (K7f's kernel, the row-max switch; K6sp's first sweep then finds m
+and l, its second forms p with the final m); the backward is the TPU
+kernel's (``ds = p (dp - rowsum(dp p))``, cast to the input dtype before
+the dq, dk and d(rel) products; dk, dv summed over every query in fp32),
+under ``none`` from p = exp(s) / l; under ``max`` K5b / K6b and K5bd /
+K6bd are K7b's ``ROWMAX`` variant, p = exp(s - lse) and D = rowsum(g o)
+from the saved output, which equals JAX's rowsum(dp p).  The CLS query row
+is not part of it: the model computes it.
 
 Each wrapper launches the kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`mvit_attention_hl` and
@@ -71,6 +78,7 @@ from typing import Sequence, Tuple
 import torch
 
 from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops.attention_route import shift_code, shifted_exp
 
 KERNEL_HL = "mvit_attention_hl_fwd"      # K5f
 KERNEL_HL_BWD = "mvit_attention_hl_bwd"  # K5b
@@ -85,7 +93,6 @@ KERNEL_BWD_PROBS = "mvit_attention_bwd_probs"        # K6bs
 # the widest head dim of the bf16 tensor-core kernels (the source's MAX_D)
 MAX_HEAD_DIM = 128
 MAX_KCAT = 48
-CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's variants, the ``enum Bwd`` of the source
 RECOMPUTE, ROWMAX, DELTA, SAVED = 0, 1, 2, 3
@@ -175,27 +182,37 @@ def _logits(q, k, kc, rel, k_shape, scale: float) -> torch.Tensor:
     return torch.cat([s[..., :kn] + bias, s[..., kn:]], dim=-1)
 
 
-def _fwd_core(q, k, v, kc, vc, rel, k_shape, scale):
-    """(out, l, p) of the head-split layout: the output rounded where the
-    kernel of this dtype and head dim rounds (:func:`rounds_e`), the fp32
-    row sums l and p = e / l in the input dtype."""
-    e = torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
-                              max=CLAMP_HI))
+def _fwd_core(q, k, v, kc, vc, rel, k_shape, scale, shift: str = "clamp"):
+    """(out, the fp32 row statistic, p) of the head-split layout under the
+    softmax shift (``MVIT_SHIFT``; JAX ``_probs``): e = exp(min(s, 80)),
+    exp(s - m) with m the row max (``max``) or exp(s) (``none``); the output
+    rounded where the kernel of this dtype and head dim rounds: e before P V
+    and l after (:func:`rounds_e`, and every forward under ``max``), else p
+    = e / l; the statistic l, under ``max`` lse = m + log l; p = e / l in
+    the input dtype."""
+    s = _logits(q, k, kc, rel, k_shape, scale)
+    e = shifted_exp(s, shift)
     l = e.sum(dim=-1)
     p = (e / l[..., None]).to(v.dtype)
     vv = torch.cat([v, vc], dim=1).float()
-    if rounds_e(v.dtype, v.shape[-1]):
+    if rounds_e(v.dtype, v.shape[-1]) or shift == "max":
         o = torch.einsum("gij,gjd->gid", e.to(v.dtype).float(), vv)
         o = o / l[..., None]
     else:
         o = torch.einsum("gij,gjd->gid", p.float(), vv)
-    return o.to(q.dtype), l, p
+    stat = (s.amax(dim=-1).detach() + torch.log(l) if shift == "max"
+            else l)
+    return o.to(q.dtype), stat, p
 
 
-def _probs(q, k, kc, rel, rowsum, k_shape, scale) -> torch.Tensor:
-    """fp32 p = exp(min(s, 80)) / l from the forward's row sums l."""
-    return torch.exp(torch.clamp(_logits(q, k, kc, rel, k_shape, scale),
-                                 max=CLAMP_HI)) / rowsum[..., None]
+def _probs(q, k, kc, rel, rowsum, k_shape, scale,
+           shift: str = "clamp") -> torch.Tensor:
+    """fp32 p from the forward's row statistic: exp(min(s, 80)) / l
+    (``none``: exp(s) / l), under ``max`` exp(s - lse)."""
+    s = _logits(q, k, kc, rel, k_shape, scale)
+    if shift == "max":
+        return torch.exp(s - rowsum[..., None])
+    return shifted_exp(s, shift) / rowsum[..., None]
 
 
 def _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale, out=None):
@@ -236,32 +253,38 @@ def _merge(x: torch.Tensor, heads: int) -> torch.Tensor:
         bh // heads, n, heads * c)
 
 
-def mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale
+def mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale,
+                             shift: str = "clamp"
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K6f: (out [BH, qN, d], rowsum [BH, 1, qN])."""
-    o, l, _ = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)
+    """Plain PyTorch version of K6f: (out [BH, qN, d], rowsum [BH, 1, qN];
+    lse under ``max``)."""
+    o, l, _ = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale, shift)
     return o, l[:, None]
 
 
-def mvit_attention_plain(q, k, v, kc, vc, rel, k_shape, scale) -> torch.Tensor:
+def mvit_attention_plain(q, k, v, kc, vc, rel, k_shape, scale,
+                         shift: str = "clamp") -> torch.Tensor:
     """The output of :func:`mvit_attention_fwd_plain` (the function of JAX
     ``flash_attention_mvit``)."""
-    return _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)[0]
+    return _fwd_core(q, k, v, kc, vc, rel, k_shape, scale, shift)[0]
 
 
 def mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
-                             scale) -> Grads:
+                             scale, shift: str = "clamp", out=None) -> Grads:
     """Plain PyTorch version of K6b, the backward written out: (dq, dk, dv,
-    dkc, dvc, drel) from the forward's row sums and the output gradient."""
-    pf = _probs(q, k, kc, rel, rowsum[:, 0], k_shape, scale)
-    return _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale)
+    dkc, dvc, drel) from the forward's row statistic and the output
+    gradient; D = rowsum(dp p), or sum_d g o where the forward's output
+    ``out`` is given (the kernel's D under ``max``)."""
+    pf = _probs(q, k, kc, rel, rowsum[:, 0], k_shape, scale, shift)
+    return _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale, out)
 
 
 def mvit_attention_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum, out, g,
-                                   k_shape, scale) -> Grads:
+                                   k_shape, scale,
+                                   shift: str = "clamp") -> Grads:
     """Plain PyTorch version of K6bd: K6b with D = sum_d g o from the
     forward's output ``out``."""
-    pf = _probs(q, k, kc, rel, rowsum[:, 0], k_shape, scale)
+    pf = _probs(q, k, kc, rel, rowsum[:, 0], k_shape, scale, shift)
     return _bwd_core(q, k, v, kc, vc, rel, pf, g, k_shape, scale, out)
 
 
@@ -270,13 +293,14 @@ def probs_stride(kn: int) -> int:
     return _round_up(kn + 1, 8)
 
 
-def mvit_attention_fwd_probs_plain(q, k, v, kc, vc, rel, k_shape, scale
+def mvit_attention_fwd_probs_plain(q, k, v, kc, vc, rel, k_shape, scale,
+                                   shift: str = "clamp"
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """Plain PyTorch version of K6sp: K6f's (out, rowsum) and the
     probabilities bf16(p) it multiplies with, [BH, qN, LP] in the input
     dtype, zero past column kN."""
-    o, l, p = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale)
+    o, l, p = _fwd_core(q, k, v, kc, vc, rel, k_shape, scale, shift)
     pad = probs_stride(k.shape[1]) - p.shape[-1]
     return o, l[:, None], torch.nn.functional.pad(p, (0, pad))
 
@@ -291,58 +315,53 @@ def mvit_attention_bwd_probs_plain(q, k, v, kc, vc, rel, probs, g, k_shape,
 
 
 def mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
-                                scale) -> Tuple[torch.Tensor, torch.Tensor]:
+                                scale, shift: str = "clamp"
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K5f on the head-last layout: q [B, qN, C],
     k, v [B, kN, C], kc, vc [B, 1, C], rel [B, qN, H*kcat] -> (out
-    [B, qN, C], rowsum [B, H, qN])."""
+    [B, qN, C], rowsum [B, H, qN]; lse under ``max``)."""
     h = num_heads
     o, l, _ = _fwd_core(_split(q, h), _split(k, h), _split(v, h),
                         _split(kc, h), _split(vc, h), _split(rel, h), k_shape,
-                        scale)
+                        scale, shift)
     return _merge(o, h), l.reshape(q.shape[0], h, -1)
 
 
 def mvit_attention_hl_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
-                            scale) -> torch.Tensor:
+                            scale, shift: str = "clamp") -> torch.Tensor:
     """The output of :func:`mvit_attention_hl_fwd_plain` (the function of
     JAX ``flash_attention_mvit_hl``)."""
     return mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape,
-                                       num_heads, scale)[0]
+                                       num_heads, scale, shift)[0]
 
 
 def mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g, k_shape,
-                                num_heads, scale) -> Grads:
-    """Plain PyTorch version of K5b on the head-last layout."""
-    return _hl_bwd(q, k, v, kc, vc, rel, rowsum, None, g, k_shape, num_heads,
-                   scale)
+                                num_heads, scale, shift: str = "clamp",
+                                out=None) -> Grads:
+    """Plain PyTorch version of K5b on the head-last layout (D from ``out``
+    where it is given, as :func:`mvit_attention_bwd_plain`)."""
+    return _hl_bwd(q, k, v, kc, vc, rel, rowsum, out, g, k_shape, num_heads,
+                   scale, shift)
 
 
 def mvit_attention_hl_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum, out, g,
-                                      k_shape, num_heads, scale) -> Grads:
+                                      k_shape, num_heads, scale,
+                                      shift: str = "clamp") -> Grads:
     """Plain PyTorch version of K5bd: K5b with D = sum_d g o from the
     forward's output ``out`` [B, qN, C]."""
     return _hl_bwd(q, k, v, kc, vc, rel, rowsum, out, g, k_shape, num_heads,
-                   scale)
+                   scale, shift)
 
 
-def _hl_bwd(q, k, v, kc, vc, rel, rowsum, out, g, k_shape, h, scale) -> Grads:
+def _hl_bwd(q, k, v, kc, vc, rel, rowsum, out, g, k_shape, h, scale,
+            shift: str = "clamp") -> Grads:
     sq, sk, skc, srel = _split(q, h), _split(k, h), _split(kc, h), _split(rel, h)
     pf = _probs(sq, sk, skc, srel, rowsum.reshape(-1, rowsum.shape[-1]),
-                k_shape, scale)
+                k_shape, scale, shift)
     grads = _bwd_core(sq, sk, _split(v, h), skc, _split(vc, h), srel, pf,
                       _split(g, h), k_shape, scale,
                       None if out is None else _split(out, h))
     return tuple(_merge(x, h) for x in grads)
-
-
-def _kt_fwd_core(q, k, v, kc, vc, rel, k_shape, scale):
-    s = _logits(q, k, kc, rel, k_shape, scale)
-    m = s.amax(dim=-1, keepdim=True).detach()
-    e = torch.exp(s - m)
-    l = e.sum(dim=-1)
-    vv = torch.cat([v, vc], dim=1)
-    o = torch.einsum("gij,gjd->gid", e.to(v.dtype).float(), vv.float())
-    return (o / l[..., None]).to(q.dtype), m[..., 0] + torch.log(l)
 
 
 def _kt_bwd_core(q, k, v, kc, vc, rel, out, lse, g, k_shape, scale):
@@ -369,11 +388,8 @@ def mvit_attention_kt_fwd_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
                                 scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K7f on the head-last layout (the shapes of
     K5f) -> (out [B, qN, C], lse [B, H, qN] fp32)."""
-    h = num_heads
-    o, lse = _kt_fwd_core(_split(q, h), _split(k, h), _split(v, h),
-                          _split(kc, h), _split(vc, h), _split(rel, h),
-                          k_shape, scale)
-    return _merge(o, h), lse.reshape(q.shape[0], h, -1)
+    return mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape,
+                                       num_heads, scale, "max")
 
 
 def mvit_attention_kt_plain(q, k, v, kc, vc, rel, k_shape, num_heads,
@@ -476,17 +492,20 @@ def _launch(fn: str, kernel: str, q: torch.Tensor, *args) -> None:
     _build.count_launch(kernel)
 
 
-def _fwd_kernel(fn, kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale):
-    """Launch entry point ``fn``: (out, the fp32 row statistic [b, heads,
-    qN]: l for K5/K6, lse for K7)."""
+def _fwd_kernel(fn, kernel, q, k, v, kc, vc, rel, k_shape, b, heads, scale,
+                shift=None):
+    """Launch entry point ``fn`` (under ``shift`` where it takes one): (out,
+    the fp32 row statistic [b, heads, qN]: l for K5/K6 under clamp and
+    none, lse under max and for K7)."""
     _check_kernel((q, k, v, kc, vc, rel), heads, k_shape)
     out = torch.empty_like(q)
     stats = torch.empty((b, heads, q.shape[1]), dtype=torch.float32,
                         device=q.device)
+    code = () if shift is None else (shift_code(shift),)
     _launch(fn, kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kc.data_ptr(), vc.data_ptr(), rel.data_ptr(), out.data_ptr(),
             stats.data_ptr(), b, heads, q.shape[1], k.shape[1], *k_shape,
-            q.shape[2] // heads, _DTYPES[q.dtype], float(scale))
+            q.shape[2] // heads, _DTYPES[q.dtype], *code, float(scale))
     return out, stats
 
 
@@ -527,12 +546,13 @@ def _splits(q, k, b, heads) -> int:
 
 
 def _bwd_kernel(variant, kernel, q, k, v, kc, vc, rel, g, k_shape, b, heads,
-                scale, out=None, stats=None, probs=None, splits=None
-                ) -> Grads:
+                scale, out=None, stats=None, probs=None, splits=None,
+                shift: str = "clamp") -> Grads:
     """Launch the backward of ``variant`` with the forward's residuals
     (``stats``: l for K5b/K6b and K5bd/K6bd, lse for K7b; ``out`` for K7b
-    and K5bd/K6bd; ``probs`` for K6bs) and ``splits`` query chunks of the
-    key-major pass (default :func:`key_splits`)."""
+    and K5bd/K6bd; ``probs`` for K6bs), ``splits`` query chunks of the
+    key-major pass (default :func:`key_splits`) and the shift of
+    RECOMPUTE's and DELTA's p (clamp or none)."""
     saved = tuple(t for t in (out, stats, probs) if t is not None)
     _check_kernel((q, k, v, kc, vc, rel, g, *saved), heads, k_shape)
     splits = _splits(q, k, b, heads) if splits is None else splits
@@ -542,8 +562,26 @@ def _bwd_kernel(variant, kernel, q, k, v, kc, vc, rel, g, k_shape, b, heads,
             rel.data_ptr(), _ptr(out), _ptr(stats), _ptr(probs), g.data_ptr(),
             delta.data_ptr(), *(t.data_ptr() for t in grads), _ptr(work), b,
             heads, q.shape[1], k.shape[1], *k_shape, q.shape[2] // heads,
-            splits, _DTYPES[q.dtype], float(scale))
+            splits, _DTYPES[q.dtype], shift_code(shift), float(scale))
     return grads
+
+
+def _shifted_bwd(variant, kernel, q, k, v, kc, vc, rel, rowsum, out, g,
+                 k_shape, b, heads, scale, shift: str) -> Grads:
+    """K5b / K6b (``variant`` RECOMPUTE) or K5bd / K6bd (DELTA) under the
+    forward's shift: under clamp and none the variant with p = exp(min(s,
+    80)) / l or exp(s) / l; under max both take ROWMAX, K7b's arithmetic: p
+    = exp(s - lse) from the max forward's lse and D = sum_d g o from its
+    output ``out``."""
+    if shift == "max":
+        if out is None:
+            raise ValueError("mvit_attention: under MVIT_SHIFT=max the "
+                             "backward takes D from the forward's output")
+        return _bwd_kernel(ROWMAX, kernel, q, k, v, kc, vc, rel, g, k_shape,
+                           b, heads, scale, out=out, stats=rowsum)
+    return _bwd_kernel(variant, kernel, q, k, v, kc, vc, rel, g, k_shape, b,
+                       heads, scale, out=out if variant == DELTA else None,
+                       stats=rowsum, shift=shift)
 
 
 def _check_bwd(q, rowsum, g, heads: int) -> None:
@@ -560,101 +598,122 @@ def _check_out(q, out) -> None:
                          f"fit q {tuple(q.shape)}")
 
 
-def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale
+def mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads, scale,
+                          shift: str = "clamp"
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5f: head-last pooled attention, q [B, qN, H*d] (float32 or
-    bfloat16, contiguous) -> (out [B, qN, H*d], rowsum [B, H, qN] fp32)."""
+    bfloat16, contiguous) -> (out [B, qN, H*d], rowsum [B, H, qN] fp32),
+    under the softmax shift ``shift`` (``MVIT_SHIFT``: clamp, max, none;
+    under max the statistic is lse, K7f's kernel)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
+    shift_code(shift)
     if q.device.type == "cpu":
         return mvit_attention_hl_fwd_plain(q, k, v, kc, vc, rel, k_shape,
-                                           num_heads, scale)
+                                           num_heads, scale, shift)
     return _fwd_kernel("mvit_attention_fwd", KERNEL_HL, q, k, v, kc, vc, rel,
-                       k_shape, q.shape[0], num_heads, scale)
+                       k_shape, q.shape[0], num_heads, scale, shift)
 
 
 def mvit_attention_hl_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape,
-                          num_heads, scale) -> Grads:
+                          num_heads, scale, shift: str = "clamp",
+                          out=None) -> Grads:
     """K5b: (dq, dk, dv, dkc, dvc, drel) of the head-last layout from the
-    K5f row sums and the output gradient g [B, qN, H*d]."""
+    K5f row statistic and the output gradient g [B, qN, H*d], under the
+    forward's shift (under max from the forward's output ``out`` too,
+    :func:`_shifted_bwd`)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     _check_bwd(q, rowsum, g, num_heads)
+    shift_code(shift)
     if q.device.type == "cpu":
         return mvit_attention_hl_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
-                                           k_shape, num_heads, scale)
-    return _bwd_kernel(RECOMPUTE, KERNEL_HL_BWD, q, k, v, kc, vc, rel, g,
-                       k_shape, q.shape[0], num_heads, scale, stats=rowsum)
+                                           k_shape, num_heads, scale, shift,
+                                           out)
+    return _shifted_bwd(RECOMPUTE, KERNEL_HL_BWD, q, k, v, kc, vc, rel,
+                        rowsum, out, g, k_shape, q.shape[0], num_heads, scale,
+                        shift)
 
 
 def mvit_attention_hl_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g,
-                                k_shape, num_heads, scale) -> Grads:
-    """K5bd: K5b from the K5f row sums and output ``out`` [B, qN, H*d],
-    with D = sum_d g o."""
+                                k_shape, num_heads, scale,
+                                shift: str = "clamp") -> Grads:
+    """K5bd: K5b from the K5f row statistic and output ``out`` [B, qN,
+    H*d], with D = sum_d g o."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, num_heads)
     _check_bwd(q, rowsum, g, num_heads)
     _check_out(q, out)
+    shift_code(shift)
     if q.device.type == "cpu":
         return mvit_attention_hl_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum,
                                                  out, g, k_shape, num_heads,
-                                                 scale)
-    return _bwd_kernel(DELTA, KERNEL_HL_BWD_DELTA, q, k, v, kc, vc, rel, g,
-                       k_shape, q.shape[0], num_heads, scale, out=out,
-                       stats=rowsum)
+                                                 scale, shift)
+    return _shifted_bwd(DELTA, KERNEL_HL_BWD_DELTA, q, k, v, kc, vc, rel,
+                        rowsum, out, g, k_shape, q.shape[0], num_heads, scale,
+                        shift)
 
 
-def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale
+def mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale,
+                       shift: str = "clamp"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6f: head-split pooled attention, q [BH, qN, d] -> (out
-    [BH, qN, d], rowsum [BH, 1, qN] fp32)."""
+    [BH, qN, d], rowsum [BH, 1, qN] fp32; lse under max)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
+    shift_code(shift)
     if q.device.type == "cpu":
-        return mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale)
+        return mvit_attention_fwd_plain(q, k, v, kc, vc, rel, k_shape, scale,
+                                        shift)
     return _fwd_kernel("mvit_attention_fwd", KERNEL, q, k, v, kc, vc, rel,
-                       k_shape, q.shape[0], 1, scale)
+                       k_shape, q.shape[0], 1, scale, shift)
 
 
-def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale
-                       ) -> Grads:
-    """K6b: the backward of :func:`mvit_attention_fwd`."""
+def mvit_attention_bwd(q, k, v, kc, vc, rel, rowsum, g, k_shape, scale,
+                       shift: str = "clamp", out=None) -> Grads:
+    """K6b: the backward of :func:`mvit_attention_fwd` under its shift
+    (under max from its output ``out`` too)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
     _check_bwd(q, rowsum, g, 1)
+    shift_code(shift)
     if q.device.type == "cpu":
         return mvit_attention_bwd_plain(q, k, v, kc, vc, rel, rowsum, g,
-                                        k_shape, scale)
-    return _bwd_kernel(RECOMPUTE, KERNEL_BWD, q, k, v, kc, vc, rel, g,
-                       k_shape, q.shape[0], 1, scale, stats=rowsum)
+                                        k_shape, scale, shift, out)
+    return _shifted_bwd(RECOMPUTE, KERNEL_BWD, q, k, v, kc, vc, rel, rowsum,
+                        out, g, k_shape, q.shape[0], 1, scale, shift)
 
 
 def mvit_attention_bwd_delta(q, k, v, kc, vc, rel, rowsum, out, g, k_shape,
-                             scale) -> Grads:
-    """K6bd: K6b from the K6f row sums and output ``out`` [BH, qN, d],
-    with D = sum_d g o."""
+                             scale, shift: str = "clamp") -> Grads:
+    """K6bd: K6b from the K6f row statistic and output ``out`` [BH, qN,
+    d], with D = sum_d g o."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
     _check_bwd(q, rowsum, g, 1)
     _check_out(q, out)
+    shift_code(shift)
     if q.device.type == "cpu":
         return mvit_attention_bwd_delta_plain(q, k, v, kc, vc, rel, rowsum,
-                                              out, g, k_shape, scale)
-    return _bwd_kernel(DELTA, KERNEL_BWD_DELTA, q, k, v, kc, vc, rel, g,
-                       k_shape, q.shape[0], 1, scale, out=out, stats=rowsum)
+                                              out, g, k_shape, scale, shift)
+    return _shifted_bwd(DELTA, KERNEL_BWD_DELTA, q, k, v, kc, vc, rel, rowsum,
+                        out, g, k_shape, q.shape[0], 1, scale, shift)
 
 
-def mvit_attention_fwd_probs(q, k, v, kc, vc, rel, k_shape, scale
+def mvit_attention_fwd_probs(q, k, v, kc, vc, rel, k_shape, scale,
+                             shift: str = "clamp"
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """K6sp: K6f that also writes the probabilities it multiplies with ->
-    (out [BH, qN, d], rowsum [BH, 1, qN] fp32, probs [BH, qN, LP] in the
-    input dtype, LP = :func:`probs_stride`, zero past column kN)."""
+    (out [BH, qN, d], rowsum [BH, 1, qN] fp32 (lse under max), probs
+    [BH, qN, LP] in the input dtype, LP = :func:`probs_stride`, zero past
+    column kN)."""
     k_shape = tuple(k_shape)
     _check(q, k, v, kc, vc, rel, k_shape, 1)
+    code = shift_code(shift)
     if q.device.type == "cpu":
         return mvit_attention_fwd_probs_plain(q, k, v, kc, vc, rel, k_shape,
-                                              scale)
+                                              scale, shift)
     _check_kernel((q, k, v, kc, vc, rel), 1, k_shape)
     b, qn = q.shape[:2]
     out = torch.empty_like(q)
@@ -665,7 +724,7 @@ def mvit_attention_fwd_probs(q, k, v, kc, vc, rel, k_shape, scale
             k.data_ptr(), v.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             rel.data_ptr(), out.data_ptr(), rowsum.data_ptr(),
             probs.data_ptr(), b, 1, qn, k.shape[1], *k_shape,
-            q.shape[2], _DTYPES[q.dtype], float(scale))
+            q.shape[2], _DTYPES[q.dtype], code, float(scale))
     return out, rowsum, probs
 
 
@@ -717,49 +776,62 @@ def mvit_attention_kt_bwd(q, k, v, kc, vc, rel, out, lse, g, k_shape,
                        stats=lse)
 
 
-def _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale):
+def _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale, shift):
     """K6f (``num_heads`` None) or K5f: (out, rowsum)."""
     if num_heads is None:
-        return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale)
+        return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale, shift)
     return mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads,
-                                 scale)
+                                 scale, shift)
 
 
 class MViTAttention(torch.autograd.Function):
     """K5 (``num_heads`` > 0, head-last) or K6 (``num_heads`` None,
     head-split) under autograd: the forward kernel (saves its inputs and
-    the row sums), the backward kernel."""
+    the row statistic, and under ``max`` the output, whose D the backward
+    takes), the backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
-        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale)
-        ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum)
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale,
+                shift: str = "clamp"):
+        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads,
+                               scale, shift)
+        kept = (out,) if shift == "max" else ()
+        ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum, *kept)
         ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
+        ctx.shift = shift
         return out
 
     @staticmethod
     def backward(ctx, g):
-        *inputs, rowsum = ctx.saved_tensors
+        # saved_tensors unpacks once: twice fails under activation
+        # checkpointing
+        saved = ctx.saved_tensors
+        *inputs, rowsum = saved[:7]
+        out = saved[7] if ctx.shift == "max" else None
         g = g.contiguous()
         if ctx.num_heads is None:
             grads = mvit_attention_bwd(*inputs, rowsum, g, ctx.k_shape,
-                                       ctx.scale)
+                                       ctx.scale, ctx.shift, out)
         else:
             grads = mvit_attention_hl_bwd(*inputs, rowsum, g, ctx.k_shape,
-                                          ctx.num_heads, ctx.scale)
-        return (*grads, None, None, None)
+                                          ctx.num_heads, ctx.scale, ctx.shift,
+                                          out)
+        return (*grads, None, None, None, None)
 
 
 class MViTAttentionDelta(torch.autograd.Function):
     """K5 or K6 on ``MVIT_DELTA=1``: the forward kernel (saves its inputs,
-    the row sums and the output, as JAX ``_vjp_fwd`` / ``_vjp_hl_fwd``
+    the row statistic and the output, as JAX ``_vjp_fwd`` / ``_vjp_hl_fwd``
     keep o), the delta backward K5bd / K6bd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
-        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads, scale)
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale,
+                shift: str = "clamp"):
+        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads,
+                               scale, shift)
         ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum, out)
         ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
+        ctx.shift = shift
         return out
 
     @staticmethod
@@ -768,12 +840,13 @@ class MViTAttentionDelta(torch.autograd.Function):
         g = g.contiguous()
         if ctx.num_heads is None:
             grads = mvit_attention_bwd_delta(*inputs, rowsum, out, g,
-                                             ctx.k_shape, ctx.scale)
+                                             ctx.k_shape, ctx.scale,
+                                             ctx.shift)
         else:
             grads = mvit_attention_hl_bwd_delta(*inputs, rowsum, out, g,
                                                 ctx.k_shape, ctx.num_heads,
-                                                ctx.scale)
-        return (*grads, None, None, None)
+                                                ctx.scale, ctx.shift)
+        return (*grads, None, None, None, None)
 
 
 class MViTAttentionSaved(torch.autograd.Function):
@@ -781,9 +854,10 @@ class MViTAttentionSaved(torch.autograd.Function):
     probabilities), the backward K6bs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kc, vc, rel, k_shape, scale):
+    def forward(ctx, q, k, v, kc, vc, rel, k_shape, scale,
+                shift: str = "clamp"):
         out, _, probs = mvit_attention_fwd_probs(q, k, v, kc, vc, rel,
-                                                 k_shape, scale)
+                                                 k_shape, scale, shift)
         ctx.save_for_backward(q, k, v, kc, vc, rel, probs)
         ctx.k_shape, ctx.scale = k_shape, scale
         return out
@@ -793,7 +867,7 @@ class MViTAttentionSaved(torch.autograd.Function):
         *inputs, probs = ctx.saved_tensors
         grads = mvit_attention_bwd_probs(*inputs, probs, g.contiguous(),
                                          ctx.k_shape, ctx.scale)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def _needs_grad(tensors) -> bool:
@@ -801,29 +875,33 @@ def _needs_grad(tensors) -> bool:
 
 
 def mvit_attention_hl(q, k, v, kc, vc, rel, k_shape, num_heads, scale,
-                      delta: bool = False) -> torch.Tensor:
-    """The model's head-last entry (K5): under grad :class:`MViTAttention`,
-    or :class:`MViTAttentionDelta` with ``delta``; else the forward kernel
-    alone."""
+                      delta: bool = False,
+                      shift: str = "clamp") -> torch.Tensor:
+    """The model's head-last entry (K5) under ``MVIT_SHIFT``'s ``shift``:
+    under grad :class:`MViTAttention`, or :class:`MViTAttentionDelta` with
+    ``delta``; else the forward kernel alone."""
     if _needs_grad((q, k, v, kc, vc, rel)):
         fn = MViTAttentionDelta if delta else MViTAttention
-        return fn.apply(q, k, v, kc, vc, rel, tuple(k_shape), num_heads, scale)
+        return fn.apply(q, k, v, kc, vc, rel, tuple(k_shape), num_heads, scale,
+                        shift)
     return mvit_attention_hl_fwd(q, k, v, kc, vc, rel, k_shape, num_heads,
-                                 scale)[0]
+                                 scale, shift)[0]
 
 
 def mvit_attention(q, k, v, kc, vc, rel, k_shape, scale, delta: bool = False,
-                   save_probs: bool = False) -> torch.Tensor:
+                   save_probs: bool = False,
+                   shift: str = "clamp") -> torch.Tensor:
     """The model's head-split entry (K6), as :func:`mvit_attention_hl`; under
     grad with ``save_probs`` :class:`MViTAttentionSaved`, which takes
     precedence over ``delta`` (JAX ``_vjp_fwd``)."""
     if _needs_grad((q, k, v, kc, vc, rel)):
         if save_probs:
             return MViTAttentionSaved.apply(q, k, v, kc, vc, rel,
-                                            tuple(k_shape), scale)
+                                            tuple(k_shape), scale, shift)
         fn = MViTAttentionDelta if delta else MViTAttention
-        return fn.apply(q, k, v, kc, vc, rel, tuple(k_shape), None, scale)
-    return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale)[0]
+        return fn.apply(q, k, v, kc, vc, rel, tuple(k_shape), None, scale,
+                        shift)
+    return mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, scale, shift)[0]
 
 
 class MViTAttentionKT(torch.autograd.Function):

@@ -19,7 +19,10 @@ rows and columns in the order [patches; CLS], LS = L rounded up to 8 (rows
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor.  :func:`spatial_attention_autograd` is what
-the model calls, on the route of ``ops/attention_route.py``: under grad
+the model calls, on the route of ``ops/attention_route.py`` and under its
+``SPATIAL_SHIFT`` (every forward and K1br take ``shift``: ``clamp``
+exp(min(s, 80)), ``max`` exp(s - rowmax), ``none`` exp(s); K1b and K1bd
+read p and take none): under grad
 through :class:`SpatialAttention` (K1sp + K1b, the default),
 :class:`SpatialAttentionDelta` (K1sp + K1bd) or
 :class:`SpatialAttentionRecompute` (K1f or K1p + K1br), otherwise straight
@@ -39,7 +42,9 @@ import torch
 
 from procedurevrl_torch.ops import _build
 from procedurevrl_torch.ops import flash_attention as fa
-from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
+from procedurevrl_torch.ops.attention_route import (
+    DEFAULT_ROUTE, AttentionRoute, shift_code, shifted_exp,
+)
 
 KERNEL = "spatial_attention_fwd"
 KERNEL_PROBS = "spatial_attention_fwd_probs"
@@ -52,7 +57,6 @@ HEAD_DIM = 64  # the head dim of K1's own kernels
 # tile); longer frames, and other head dims, take the key-tiled pair of
 # ops/flash_attention.py on every route
 MAX_LEN = 208
-CLAMP_HI = 80.0  # softmax shift: exp(min(s, 80)), exact for s < 80
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The bf16 forward's ring (K1f, K1sp and K1p: ``fwd_shape`` and
 # ``fwd_depth`` of the source), written out here so that the CPU tests hold
@@ -101,29 +105,31 @@ def _split_heads(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int):
     return x.unbind(dim=2)
 
 
-def _probs(q: torch.Tensor, k: torch.Tensor, scale: float, dtype: torch.dtype
-           ) -> torch.Tensor:
-    """fp32 logits and clamp-shift softmax, cast to ``dtype``: [BT, H, L, L]."""
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float, dtype: torch.dtype,
+           shift: str = "clamp") -> torch.Tensor:
+    """fp32 logits and softmax under ``shift`` (``SPATIAL_SHIFT``), cast to
+    ``dtype``: [BT, H, L, L]."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    p = torch.exp(torch.clamp(s, max=CLAMP_HI))
+    p = shifted_exp(s, shift)
     return (p / p.sum(dim=-1, keepdim=True)).to(dtype)
 
 
 def spatial_attention_fwd_probs_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                                      num_heads: int, scale: float
+                                      num_heads: int, scale: float,
+                                      shift: str = "clamp"
                                       ) -> Tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor]:
     """Plain PyTorch version of K1sp (same arithmetic as K1f).
 
     qkv [BT, N, 3C], qkv_c [BT, 1, 3C] -> (out [BT, N, C], out_c [BT, 1, C],
     probs [BT, H, N + 1, LS]).  Every query of [patches; CLS] attends over
-    the same N+1 keys; logits and softmax in fp32 with the clamp shift,
-    probabilities cast to the value dtype before the fp32-accumulated PV
-    product."""
+    the same N+1 keys; logits and softmax in fp32 under the shift (clamp,
+    max or none), probabilities cast to the value dtype before the
+    fp32-accumulated PV product."""
     bt, n, c3 = qkv.shape
     c = c3 // 3
     q, k, v = _split_heads(qkv, qkv_c, num_heads)
-    p = _probs(q, k, scale, v.dtype)
+    p = _probs(q, k, scale, v.dtype, shift)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     o = o.to(qkv.dtype).reshape(bt, n + 1, c)
     pad = probs_stride(n + 1) - (n + 1)
@@ -132,21 +138,23 @@ def spatial_attention_fwd_probs_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
 
 
 def spatial_attention_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                            num_heads: int, scale: float
+                            num_heads: int, scale: float,
+                            shift: str = "clamp"
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1f: the outputs of
     :func:`spatial_attention_fwd_probs_plain`."""
     out, out_c, _ = spatial_attention_fwd_probs_plain(qkv, qkv_c, num_heads,
-                                                      scale)
+                                                      scale, shift)
     return out, out_c
 
 
 def spatial_attention_pipe_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                                 num_heads: int, scale: float
+                                 num_heads: int, scale: float,
+                                 shift: str = "clamp"
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1p, whose contract and numerics are K1f's
     (the pipeline only reorders the copies)."""
-    return spatial_attention_plain(qkv, qkv_c, num_heads, scale)
+    return spatial_attention_plain(qkv, qkv_c, num_heads, scale, shift)
 
 
 def _bwd_from_probs(qkv: torch.Tensor, qkv_c: torch.Tensor, p: torch.Tensor,
@@ -158,7 +166,8 @@ def _bwd_from_probs(qkv: torch.Tensor, qkv_c: torch.Tensor, p: torch.Tensor,
     dtype, with D the jacobian row sums rowsum(dp p) or the given delta
     [BT, H, L, 1]; dq = scale ds k, dk = scale ds^T q.  Returns (dqkv
     [BT, N, 3C], dqkv_c [BT, 1, 3C]) in ``[q | k | v]`` columns.  Like the
-    kernels it is the softmax jacobian, ignoring the clamp."""
+    kernels it is the softmax jacobian, ignoring the clamp (exact under
+    ``max`` and ``none``)."""
     bt, n, c3 = qkv.shape
     L = n + 1
     dt = qkv.dtype
@@ -189,15 +198,16 @@ def spatial_attention_bwd_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
 def spatial_attention_bwd_recompute_plain(qkv: torch.Tensor,
                                           qkv_c: torch.Tensor,
                                           g: torch.Tensor, gc: torch.Tensor,
-                                          num_heads: int, scale: float
+                                          num_heads: int, scale: float,
+                                          shift: str = "clamp"
                                           ) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """Plain PyTorch version of K1br: K1b on the probabilities recomputed
-    as the forward computes them (fp32 logits and clamp softmax, cast to the
-    value dtype)."""
+    as the forward computes them (fp32 logits and the shift's softmax, cast
+    to the value dtype)."""
     q, k, _ = _split_heads(qkv, qkv_c, num_heads)
-    return _bwd_from_probs(qkv, qkv_c, _probs(q, k, scale, qkv.dtype), g, gc,
-                           num_heads, scale)
+    return _bwd_from_probs(qkv, qkv_c, _probs(q, k, scale, qkv.dtype, shift),
+                           g, gc, num_heads, scale)
 
 
 def spatial_attention_bwd_delta_plain(qkv: torch.Tensor, qkv_c: torch.Tensor,
@@ -289,21 +299,24 @@ def _outputs(qkv: torch.Tensor):
 
 
 def spatial_attention(qkv: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
-                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                      scale: float, shift: str = "clamp"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1f: CLS-split spatial attention on the fused qkv projection.
 
     qkv [BT, N, 3C], qkv_c [BT, 1, 3C] (float32 or bfloat16, contiguous,
-    head dim 64, N + 1 <= 208) -> (frame_out [BT, N, C], cls_out [BT, 1, C]).
+    head dim 64, N + 1 <= 208) -> (frame_out [BT, N, C], cls_out [BT, 1, C]),
+    under the softmax shift ``shift`` (``SPATIAL_SHIFT``: clamp, max, none).
     """
     _check(qkv, qkv_c, num_heads)
+    code = shift_code(shift)
     if qkv.device.type == "cpu":
-        return spatial_attention_plain(qkv, qkv_c, num_heads, scale)
+        return spatial_attention_plain(qkv, qkv_c, num_heads, scale, shift)
     _check_kernel((qkv, qkv_c), num_heads, MAX_LEN)
     bt, n, _ = qkv.shape
     out, out_c = _outputs(qkv)
     _launch(KERNEL, KERNEL, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
             out.data_ptr(), out_c.data_ptr(), bt, n, num_heads,
-            _DTYPES[qkv.dtype], float(scale))
+            _DTYPES[qkv.dtype], code, float(scale))
     return out, out_c
 
 
@@ -317,33 +330,39 @@ def pipe_depth(n: int, dtype: torch.dtype, nbuf: int) -> int:
 
 
 def spatial_attention_pipe(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                           num_heads: int, scale: float, nbuf: int = 3
+                           num_heads: int, scale: float, nbuf: int = 3,
+                           shift: str = "clamp"
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1p: K1f's contract through persistent CTAs and a cp.async ring
     that asks for ``nbuf`` stages (``SPATIAL_PIPE_NBUF``; in bf16 K1f's
     kernel with that ring, so its outputs equal K1f's bit for bit)."""
     _check(qkv, qkv_c, num_heads)
+    code = shift_code(shift)
     if nbuf < 1:
         raise ValueError(f"spatial_attention_pipe: nbuf {nbuf} < 1")
     if qkv.device.type == "cpu":
-        return spatial_attention_pipe_plain(qkv, qkv_c, num_heads, scale)
+        return spatial_attention_pipe_plain(qkv, qkv_c, num_heads, scale,
+                                            shift)
     _check_kernel((qkv, qkv_c), num_heads, MAX_LEN)
     bt, n, _ = qkv.shape
     out, out_c = _outputs(qkv)
     _launch(KERNEL_PIPE, KERNEL_PIPE, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
             out.data_ptr(), out_c.data_ptr(), bt, n, num_heads,
-            _DTYPES[qkv.dtype], int(nbuf), float(scale))
+            _DTYPES[qkv.dtype], int(nbuf), code, float(scale))
     return out, out_c
 
 
 def spatial_attention_fwd_probs(qkv: torch.Tensor, qkv_c: torch.Tensor,
-                                num_heads: int, scale: float
+                                num_heads: int, scale: float,
+                                shift: str = "clamp"
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """K1sp: K1f that also returns the probabilities [BT, H, N + 1, LS]."""
     _check(qkv, qkv_c, num_heads)
+    code = shift_code(shift)
     if qkv.device.type == "cpu":
-        return spatial_attention_fwd_probs_plain(qkv, qkv_c, num_heads, scale)
+        return spatial_attention_fwd_probs_plain(qkv, qkv_c, num_heads, scale,
+                                                 shift)
     _check_kernel((qkv, qkv_c), num_heads, MAX_LEN)
     bt, n, _ = qkv.shape
     out, out_c = _outputs(qkv)
@@ -351,7 +370,7 @@ def spatial_attention_fwd_probs(qkv: torch.Tensor, qkv_c: torch.Tensor,
                         dtype=qkv.dtype, device=qkv.device)
     _launch(KERNEL_PROBS, KERNEL_PROBS, qkv, qkv.data_ptr(), qkv_c.data_ptr(),
             out.data_ptr(), out_c.data_ptr(), probs.data_ptr(), bt, n,
-            num_heads, _DTYPES[qkv.dtype], float(scale))
+            num_heads, _DTYPES[qkv.dtype], code, float(scale))
     return out, out_c, probs
 
 
@@ -381,15 +400,17 @@ def spatial_attention_bwd(qkv: torch.Tensor, qkv_c: torch.Tensor,
 
 def spatial_attention_bwd_recompute(qkv: torch.Tensor, qkv_c: torch.Tensor,
                                     g: torch.Tensor, gc: torch.Tensor,
-                                    num_heads: int, scale: float
+                                    num_heads: int, scale: float,
+                                    shift: str = "clamp"
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1br: K1b's outputs with the probabilities recomputed from qkv
-    (N + 1 <= 208 on the card)."""
+    under the forward's shift (N + 1 <= 208 on the card)."""
     _check(qkv, qkv_c, num_heads)
     _check_rows("spatial_attention_bwd_recompute: gradients", qkv, g, gc)
+    code = shift_code(shift)
     if qkv.device.type == "cpu":
         return spatial_attention_bwd_recompute_plain(qkv, qkv_c, g, gc,
-                                                     num_heads, scale)
+                                                     num_heads, scale, shift)
     _check_kernel((qkv, qkv_c, g, gc), num_heads, MAX_LEN)
     bt, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
@@ -401,7 +422,7 @@ def spatial_attention_bwd_recompute(qkv: torch.Tensor, qkv_c: torch.Tensor,
     _launch(KERNEL_BWD_RECOMPUTE, KERNEL_BWD_RECOMPUTE, qkv, qkv.data_ptr(),
             qkv_c.data_ptr(), g.data_ptr(), gc.data_ptr(), dqkv.data_ptr(),
             dqkv_c.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            bt, n, num_heads, _DTYPES[qkv.dtype], float(scale))
+            bt, n, num_heads, _DTYPES[qkv.dtype], code, float(scale))
     return dqkv, dqkv_c
 
 
@@ -445,9 +466,10 @@ class SpatialAttention(torch.autograd.Function):
     probabilities), K1b backward."""
 
     @staticmethod
-    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float):
+    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
+                shift: str = "clamp"):
         out, out_c, probs = spatial_attention_fwd_probs(qkv, qkv_c, num_heads,
-                                                        scale)
+                                                        scale, shift)
         ctx.save_for_backward(qkv, qkv_c, probs)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out, out_c
@@ -458,7 +480,7 @@ class SpatialAttention(torch.autograd.Function):
         dqkv, dqkv_c = spatial_attention_bwd(
             qkv, qkv_c, probs, *_output_grads(qkv, qkv_c, g, gc),
             ctx.num_heads, ctx.scale)
-        return dqkv, dqkv_c, None, None
+        return dqkv, dqkv_c, None, None, None
 
 
 class SpatialAttentionDelta(torch.autograd.Function):
@@ -466,9 +488,10 @@ class SpatialAttentionDelta(torch.autograd.Function):
     qkv_c, the probabilities and its outputs), K1bd backward."""
 
     @staticmethod
-    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float):
+    def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
+                shift: str = "clamp"):
         out, out_c, probs = spatial_attention_fwd_probs(qkv, qkv_c, num_heads,
-                                                        scale)
+                                                        scale, shift)
         ctx.save_for_backward(qkv, qkv_c, probs, out, out_c)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out, out_c
@@ -479,23 +502,25 @@ class SpatialAttentionDelta(torch.autograd.Function):
         dqkv, dqkv_c = spatial_attention_bwd_delta(
             qkv, qkv_c, probs, out, out_c, *_output_grads(qkv, qkv_c, g, gc),
             ctx.num_heads, ctx.scale)
-        return dqkv, dqkv_c, None, None
+        return dqkv, dqkv_c, None, None, None
 
 
 class SpatialAttentionRecompute(torch.autograd.Function):
     """K1 under autograd on ``SPATIAL_SAVE_PROBS=0``: the forward K1f, or
     K1p when ``nbuf`` is given (``SPATIAL_PIPE=1``), saves qkv and qkv_c
-    only; the backward K1br recomputes the probabilities."""
+    only; the backward K1br recomputes the probabilities under the same
+    shift."""
 
     @staticmethod
     def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
-                nbuf: Optional[int]):
-        out, out_c = (spatial_attention(qkv, qkv_c, num_heads, scale)
+                nbuf: Optional[int], shift: str = "clamp"):
+        out, out_c = (spatial_attention(qkv, qkv_c, num_heads, scale,
+                                        shift=shift)
                       if nbuf is None else
                       spatial_attention_pipe(qkv, qkv_c, num_heads, scale,
-                                             nbuf))
+                                             nbuf, shift=shift))
         ctx.save_for_backward(qkv, qkv_c)
-        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
         return out, out_c
 
     @staticmethod
@@ -503,8 +528,8 @@ class SpatialAttentionRecompute(torch.autograd.Function):
         qkv, qkv_c = ctx.saved_tensors
         dqkv, dqkv_c = spatial_attention_bwd_recompute(
             qkv, qkv_c, *_output_grads(qkv, qkv_c, g, gc), ctx.num_heads,
-            ctx.scale)
-        return dqkv, dqkv_c, None, None, None
+            ctx.scale, ctx.shift)
+        return dqkv, dqkv_c, None, None, None, None
 
 
 _warned_pipe_vs_saveprobs = False
@@ -532,16 +557,18 @@ def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
     than 64) every route takes the key-tiled pair on the fused layout
     (``ops/flash_attention.py``: its forward for K1f, K1sp and K1p, its
     recompute backward for K1b, K1br and K1bd), chosen on the shape before
-    any launch."""
+    any launch.  Every kernel takes ``route.spatial_shift``."""
     global _warned_pipe_vs_saveprobs
+    shift = route.spatial_shift
     if on_pair(qkv.shape[1], qkv.shape[2] // 3 // num_heads):
-        return fa.flash_attention_qkv_autograd(qkv, qkv_c, num_heads, scale)
+        return fa.flash_attention_qkv_autograd(qkv, qkv_c, num_heads, scale,
+                                               shift)
     if not (torch.is_grad_enabled()
             and (qkv.requires_grad or qkv_c.requires_grad)):
         if route.pipe:
             return spatial_attention_pipe(qkv, qkv_c, num_heads, scale,
-                                          route.pipe_nbuf)
-        return spatial_attention(qkv, qkv_c, num_heads, scale)
+                                          route.pipe_nbuf, shift=shift)
+        return spatial_attention(qkv, qkv_c, num_heads, scale, shift=shift)
     if route.save_probs:
         if route.pipe and not _warned_pipe_vs_saveprobs:
             warnings.warn("SPATIAL_SAVE_PROBS=1 takes precedence over "
@@ -549,7 +576,9 @@ def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
                           "pipelined kernel K1p runs only without grad")
             _warned_pipe_vs_saveprobs = True
         if route.delta:
-            return SpatialAttentionDelta.apply(qkv, qkv_c, num_heads, scale)
-        return SpatialAttention.apply(qkv, qkv_c, num_heads, scale)
+            return SpatialAttentionDelta.apply(qkv, qkv_c, num_heads, scale,
+                                               shift)
+        return SpatialAttention.apply(qkv, qkv_c, num_heads, scale, shift)
     return SpatialAttentionRecompute.apply(
-        qkv, qkv_c, num_heads, scale, route.pipe_nbuf if route.pipe else None)
+        qkv, qkv_c, num_heads, scale, route.pipe_nbuf if route.pipe else None,
+        shift)

@@ -3,7 +3,7 @@ of a wrapper call apart, and an A/B of every case against another checkout.
 
     python -m procedurevrl_torch.tools.kernel_ab
         [--family spatial|temporal|pair|mvit|pool|all] [--split-in DIR]
-        [--ab DIR]
+        [--ab DIR] [--shifts] [--only TEXT]
 
 Five families of cases (bf16, the shapes of ``chip_smoke.py``'s kernel
 phases): ``spatial``, K1's own kernels of ``ops/spatial_attention.py`` (K1f
@@ -45,7 +45,12 @@ process imports the wrappers of its own checkout and builds its kernels
 there.  Both sides read the same inputs (made from one seed) and must have
 the same wrapper signatures.  The speed-up of a case is the ratio of the
 two sides' means, and the spread of a side the difference of its two
-runs.  Needs a CUDA card and ``nvcc``.
+runs.  With ``--shifts`` it times every case of this tree under the
+softmax shifts clamp, max and none (``SPATIAL_SHIFT``, ``TEMPORAL_SHIFT``,
+``MVIT_SHIFT``: each wrapper's ``shift``) in one process a family, and
+prints each variant beside the clamp kernel as a factor; cases that read
+saved probabilities, K7 and the pool form no shifted exponentials and are
+timed under clamp only.  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -142,10 +147,18 @@ POOL_CASES = tuple((f"{name} {label}", kind, 1, shape)
     ("K8f s=2 block 0", "fwd", 2, POOL_SHAPES[0][1]),)
 
 
+def shift_kw(shift: str) -> dict:
+    """The keyword a wrapper takes for a softmax shift other than the
+    default clamp (none for clamp, so that an earlier checkout's wrappers,
+    which take no shift, time the same cases)."""
+    return {} if shift == "clamp" else {"shift": shift}
+
+
 def mvit_inputs(torch, k5, variant, head_last, b, heads, qn, k_shape,
-                seed=0):
+                seed=0, shift="clamp"):
     """q, k, v, kc, vc, rel, g ([B, L, H*96]) and the backward residuals of
-    the variant from its plain forward: (out, stats, probs)."""
+    the variant from its plain forward under ``shift``: (out, stats,
+    probs)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kn, kcat = k_shape[0] * k_shape[1] * k_shape[2], sum(k_shape)
     c = heads * MVIT_HEAD_DIM
@@ -163,36 +176,45 @@ def mvit_inputs(torch, k5, variant, head_last, b, heads, qn, k_shape,
                                                         MVIT_SCALE)
         elif variant == 3:
             out, stats, probs = k5.mvit_attention_fwd_probs_plain(
-                *x[:6], k_shape, MVIT_SCALE)
+                *x[:6], k_shape, MVIT_SCALE, **shift_kw(shift))
         elif head_last:
-            out, stats = k5.mvit_attention_hl_fwd_plain(*x[:6], k_shape, heads,
-                                                        MVIT_SCALE)
+            out, stats = k5.mvit_attention_hl_fwd_plain(
+                *x[:6], k_shape, heads, MVIT_SCALE, **shift_kw(shift))
         else:
-            out, stats = k5.mvit_attention_fwd_plain(*x[:6], k_shape,
-                                                     MVIT_SCALE)
+            out, stats = k5.mvit_attention_fwd_plain(
+                *x[:6], k_shape, MVIT_SCALE, **shift_kw(shift))
     return x, (out, stats.contiguous(), probs)
 
 
-def mvit_call(torch, case):
-    """One call of an MViT case's kernel through its wrapper (a closure)."""
+def mvit_call(torch, case, shift="clamp"):
+    """One call of an MViT case's kernel through its wrapper (a closure);
+    None for a case with no variant under ``shift`` (K7, K6bs; K5bd / K6bd
+    under max, which is K5b / K6b's kernel)."""
     from procedurevrl_torch.ops import mvit_attention as k5
 
     _, kind, variant, head_last, b, heads, qn, k_shape = case
+    if shift != "clamp" and (variant == 1 or (kind == "bwd" and variant == 3)
+                             or (shift == "max" and variant == 2)):
+        return None
     x, (out, stats, probs) = mvit_inputs(torch, k5, variant, head_last, b,
-                                         heads, qn, k_shape)
+                                         heads, qn, k_shape, shift=shift)
     q, k, v, kc, vc, rel, g = x
     s = MVIT_SCALE
+    kw = shift_kw(shift)
     if kind == "fwd":
         if variant == 1:
             return lambda: k5.mvit_attention_kt_fwd(q, k, v, kc, vc, rel,
                                                     k_shape, heads, s)
         if variant == 3:
             return lambda: k5.mvit_attention_fwd_probs(q, k, v, kc, vc, rel,
-                                                       k_shape, s)
+                                                       k_shape, s, **kw)
         if head_last:
             return lambda: k5.mvit_attention_hl_fwd(q, k, v, kc, vc, rel,
-                                                    k_shape, heads, s)
-        return lambda: k5.mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, s)
+                                                    k_shape, heads, s, **kw)
+        return lambda: k5.mvit_attention_fwd(q, k, v, kc, vc, rel, k_shape, s,
+                                             **kw)
+    if shift == "max":  # K5b / K6b from the max forward's lse and output
+        kw = dict(kw, out=out)
     if variant == 1:
         return lambda: k5.mvit_attention_kt_bwd(q, k, v, kc, vc, rel, out,
                                                 stats, g, k_shape, heads, s)
@@ -202,22 +224,23 @@ def mvit_call(torch, case):
     if head_last:
         if variant == 2:
             return lambda: k5.mvit_attention_hl_bwd_delta(
-                q, k, v, kc, vc, rel, stats, out, g, k_shape, heads, s)
+                q, k, v, kc, vc, rel, stats, out, g, k_shape, heads, s, **kw)
         return lambda: k5.mvit_attention_hl_bwd(q, k, v, kc, vc, rel, stats, g,
-                                                k_shape, heads, s)
+                                                k_shape, heads, s, **kw)
     if variant == 2:
         return lambda: k5.mvit_attention_bwd_delta(q, k, v, kc, vc, rel, stats,
-                                                   out, g, k_shape, s)
+                                                   out, g, k_shape, s, **kw)
     return lambda: k5.mvit_attention_bwd(q, k, v, kc, vc, rel, stats, g,
-                                         k_shape, s)
+                                         k_shape, s, **kw)
 
 
-def pair_call(torch, case, seed=0):
-    """One call of a pair case through its wrapper (a closure), the
-    backward fed the forward's l."""
+def pair_call(torch, case, seed=0, shift="clamp"):
+    """One call of a pair case through its wrapper (a closure) under
+    ``shift``, the backward fed the forward's l (lse under max)."""
     from procedurevrl_torch.ops import flash_attention as fa
 
     _, caller, kind, b, n, heads, d = case
+    kw = shift_kw(shift)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     c, scale = heads * d, d ** -0.5
 
@@ -227,36 +250,44 @@ def pair_call(torch, case, seed=0):
     if caller == "temporal":
         qkv, g = r(b, n, K2_POSITIONS, 3 * c), r(b, n, K2_POSITIONS, c)
         if kind == "fwd":
-            return lambda: fa.flash_attention_temporal_fwd(qkv, heads, scale)
-        l = fa.flash_attention_temporal_fwd(qkv, heads, scale)[1]
-        return lambda: fa.flash_attention_temporal_bwd(qkv, g, l, heads, scale)
+            return lambda: fa.flash_attention_temporal_fwd(qkv, heads, scale,
+                                                           **kw)
+        l = fa.flash_attention_temporal_fwd(qkv, heads, scale, **kw)[1]
+        return lambda: fa.flash_attention_temporal_bwd(qkv, g, l, heads, scale,
+                                                       **kw)
     qkv, g = r(b, n, 3 * c), r(b, n, c)
     qkv_c, gc = r(b, 1, 3 * c), r(b, 1, c)
     if caller == "qkv":
         if kind == "fwd":
-            return lambda: fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale)
-        l = fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale)[2]
+            return lambda: fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale,
+                                                      **kw)
+        l = fa.flash_attention_qkv_fwd(qkv, qkv_c, heads, scale, **kw)[2]
         return lambda: fa.flash_attention_qkv_bwd(qkv, qkv_c, g, gc, l, heads,
-                                                  scale)
+                                                  scale, **kw)
     x = qkv.split(c, dim=-1)
     if caller == "k3":
         xc = qkv_c.split(c, dim=-1)
         if kind == "fwd":
-            return lambda: fa.flash_attention_cls_fwd(*x, *xc, heads, scale)
-        l = fa.flash_attention_cls_fwd(*x, *xc, heads, scale)[2]
+            return lambda: fa.flash_attention_cls_fwd(*x, *xc, heads, scale,
+                                                      **kw)
+        l = fa.flash_attention_cls_fwd(*x, *xc, heads, scale, **kw)[2]
         return lambda: fa.flash_attention_cls_bwd(*x, *xc, g, gc, l, heads,
-                                                  scale)
+                                                  scale, **kw)
     if kind == "fwd":
-        return lambda: fa.flash_attention_fwd(*x, heads, scale)
-    l = fa.flash_attention_fwd(*x, heads, scale)[1]
-    return lambda: fa.flash_attention_bwd(*x, g, l, heads, scale)
+        return lambda: fa.flash_attention_fwd(*x, heads, scale, **kw)
+    l = fa.flash_attention_fwd(*x, heads, scale, **kw)[1]
+    return lambda: fa.flash_attention_bwd(*x, g, l, heads, scale, **kw)
 
 
-def spatial_call(torch, case, seed=0):
-    """One call of a K1 case through its wrapper (a closure)."""
+def spatial_call(torch, case, seed=0, shift="clamp"):
+    """One call of a K1 case through its wrapper (a closure) under
+    ``shift``; None for K1b and K1bd, which read p and take no shift."""
     from procedurevrl_torch.ops import spatial_attention as k1
 
     _, kind, bt, n = case
+    if shift != "clamp" and kind in ("bwd", "bwdd"):
+        return None
+    kw = shift_kw(shift)
     heads, d = SPATIAL_HEADS, SPATIAL_HEAD_DIM
     c, scale = heads * d, d ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -267,11 +298,13 @@ def spatial_call(torch, case, seed=0):
     qkv, qkv_c = r(bt, n, 3 * c), r(bt, 1, 3 * c)
     g, gc = r(bt, n, c), r(bt, 1, c)
     if kind == "fwd":
-        return lambda: k1.spatial_attention(qkv, qkv_c, heads, scale)
+        return lambda: k1.spatial_attention(qkv, qkv_c, heads, scale, **kw)
     if kind == "pipe":
-        return lambda: k1.spatial_attention_pipe(qkv, qkv_c, heads, scale, 3)
+        return lambda: k1.spatial_attention_pipe(qkv, qkv_c, heads, scale, 3,
+                                                 **kw)
     if kind == "sp":
-        return lambda: k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale)
+        return lambda: k1.spatial_attention_fwd_probs(qkv, qkv_c, heads, scale,
+                                                      **kw)
     out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads,
                                                        scale)
     if kind == "bwd":
@@ -279,16 +312,20 @@ def spatial_call(torch, case, seed=0):
                                                 heads, scale)
     if kind == "bwdr":
         return lambda: k1.spatial_attention_bwd_recompute(qkv, qkv_c, g, gc,
-                                                          heads, scale)
+                                                          heads, scale, **kw)
     return lambda: k1.spatial_attention_bwd_delta(qkv, qkv_c, probs, out,
                                                   out_c, g, gc, heads, scale)
 
 
-def temporal_call(torch, case, seed=0):
-    """One call of a K2 case through its wrapper (a closure)."""
+def temporal_call(torch, case, seed=0, shift="clamp"):
+    """One call of a K2 case through its wrapper (a closure) under
+    ``shift``; None for K2v3b, which reads p and takes no shift."""
     from procedurevrl_torch.ops import temporal_attention as k2
 
     _, kind, b, t = case
+    if shift != "clamp" and kind == "v3b":
+        return None
+    kw = shift_kw(shift)
     heads, d = SPATIAL_HEADS, SPATIAL_HEAD_DIM
     c, scale = heads * d, d ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -298,22 +335,24 @@ def temporal_call(torch, case, seed=0):
 
     qkv, g = r(b, t, K2_POSITIONS, 3 * c), r(b, t, K2_POSITIONS, c)
     if kind == "fwd":
-        return lambda: k2.temporal_attention(qkv, heads, scale)
+        return lambda: k2.temporal_attention(qkv, heads, scale, **kw)
     if kind == "bwd":
-        return lambda: k2.temporal_attention_bwd(qkv, g, heads, scale)
+        return lambda: k2.temporal_attention_bwd(qkv, g, heads, scale, **kw)
     if kind == "v3f":
-        return lambda: k2.temporal_attention_v3(qkv, heads, scale)
+        return lambda: k2.temporal_attention_v3(qkv, heads, scale, **kw)
     probs = k2.temporal_attention_v3(qkv, heads, scale)[1]
     return lambda: k2.temporal_attention_v3_bwd(qkv, probs, g, heads, scale)
 
 
-def pool_call(torch, case, seed=0):
+def pool_call(torch, case, seed=0, shift="clamp"):
     """One call of a pool case through its wrapper (a closure): x the k
     third of a fused qkv product [B, 1 + T*H*W, 3C] past its first token,
     bf16."""
     from procedurevrl_torch.ops import depthwise_pool as k8
 
     _, kind, s, (b, t, h, w, c) = case
+    if shift != "clamp":  # the pool forms no exponentials
+        return None
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape, sd=1.0):
@@ -498,17 +537,47 @@ def split_times(torch, family: str, only: str = "", calls: int = 10) -> list:
     return rows
 
 
-def wrapper_times(torch, family: str, only: str = "") -> dict:
+SHIFTS = ("clamp", "max", "none")
+
+
+def wrapper_times(torch, family: str, only: str = "",
+                  shifts=("clamp",)) -> dict:
     """{label: ms} of every case through the wrappers of the checkout on
-    ``sys.path``."""
+    ``sys.path``; with ``shifts`` other than clamp each case that has a
+    variant under them also as "label [shift]"."""
     make_call = FAMILIES[family][1]
     times = {}
     for case in family_cases(family, only):
-        fn = make_call(torch, case)
-        times[case[0]] = events_ms(torch, fn)
-        del fn
-        torch.cuda.empty_cache()
+        for shift in shifts:
+            fn = (make_call(torch, case) if shift == "clamp"
+                  else make_call(torch, case, shift=shift))
+            if fn is None:
+                continue
+            key = case[0] if shift == "clamp" else f"{case[0]} [{shift}]"
+            times[key] = events_ms(torch, fn)
+            del fn
+            torch.cuda.empty_cache()
     return times
+
+
+def shift_times(family: str, only: str = "") -> list:
+    """Every case of ``family`` under clamp, max and none in one process of
+    this tree: each variant's time and its factor over the clamp kernel's
+    (the card's clock and neighbours the same for all three)."""
+    times = json.loads(_in_checkout(ROOT, only, "--time", family, "--shift",
+                                    "all").strip().splitlines()[-1])
+    rows = []
+    for label, *_ in family_cases(family, only):
+        clamp = times[label]
+        line = [f"shifts {label}: clamp {clamp:.4f} ms"]
+        for shift in SHIFTS[1:]:
+            ms = times.get(f"{label} [{shift}]")
+            if ms is not None:
+                line.append(f"{shift} {ms:.4f} ms ({ms / clamp:.3f}x)")
+                rows.append({"case": label, "shift": shift, "ms": ms,
+                             "clamp_ms": clamp})
+        print(", ".join(line), flush=True)
+    return rows
 
 
 def _in_checkout(side: Path, only: str, *args) -> str:
@@ -551,6 +620,11 @@ def main(argv=None) -> int:
                     "another checkout apart (default: this tree)")
     ap.add_argument("--only", metavar="TEXT", default="",
                     help="the cases whose label holds TEXT")
+    ap.add_argument("--shifts", action="store_true", help="time each case "
+                    "under the softmax shifts clamp, max and none (this "
+                    "tree, one process a family)")
+    ap.add_argument("--shift", choices=("clamp", "all"), default="clamp",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--in", dest="in_dir", metavar="DIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--time", choices=sorted(FAMILIES), help=argparse.SUPPRESS)
@@ -565,13 +639,17 @@ def main(argv=None) -> int:
     if args.in_dir:
         sys.path.insert(0, str(Path(args.in_dir).resolve()))
         if args.time:
-            print(json.dumps(wrapper_times(torch, args.time, args.only)))
+            shifts = SHIFTS if args.shift == "all" else ("clamp",)
+            print(json.dumps(wrapper_times(torch, args.time, args.only,
+                                           shifts)))
         else:
             print(json.dumps(split_times(torch, args.split, args.only)))
         return 0
     families = sorted(FAMILIES) if args.family == "all" else [args.family]
     for family in families:
-        if args.ab:
+        if args.shifts:
+            shift_times(family, args.only)
+        elif args.ab:
             ab(Path(args.ab).resolve(), family, args.only)
         else:
             side = Path(args.split_in).resolve() if args.split_in else ROOT

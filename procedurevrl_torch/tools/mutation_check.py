@@ -30,7 +30,12 @@ next key tile, and K6sp with the last 16-byte piece of each p row not
 flushed; K7f on that forward with o not rescaled when a tile raises the
 running max, or a ring stage refilled before its warpgroups release it;
 and K1's Hopper backward with a ring stage refilled before its empty
-barrier, or a key-major pass that drops the last, partial key window.
+barrier, or a key-major pass that drops the last, partial key window; and
+the softmax shifts' variants: K1 under max without the row max, the
+key-tiled pair under max without the rescale of o, K2 under max with the
+max taken over the wrong lanes, K6sp under max with the clamp in its
+second sweep, and none with the clamp's min left in (``common.cuh``),
+each held by ``chip_smoke.py``'s phase 32 checks at two shapes.
 
     python -m procedurevrl_torch.tools.mutation_check [--only CHECK ...]
         [--jobs N]
@@ -118,7 +123,7 @@ _MV_EXPANDER = ("      build_expander_cm(st + 128 * DP, j0, g);\n    }\n"
 # K7f (``mvit_fwd_wg`` with KT): the mask of the columns past the cls key,
 # and the rescale of o when a tile raises the running max
 _KT_MASK = "if (!full_tile && j0 + acc_col(j, e) > g.kn) s[4 * j + e] = MASKED;"
-_KT_RESCALE = "if (t > 0) {  // o holds the previous tiles' sum"
+_KT_RESCALE = "if (!SAVE && t > 0) {"
 # K8f's dt = 2 taps (an input plane's products for the output plane
 # before it), its read of a staged column, and its wait for a landing
 # plane; K8dw's store of a CTA's partial and the walk of its second pass
@@ -136,7 +141,7 @@ _BWD_PASSES = ("    bar_sync(3, BWD_WGS * 128);  // every D_i (and 1 / l_i) "
                "is stored\n")
 _BWD_RELEASE = "    if (threadIdx.x == 0) mbar_arrive(empty + slot);\n  }\n}"
 _BWD_KEYS = ("    for (int t = wg; t < 4 && 64 * t < L; t += BWD_WGS)\n"
-             "      bwd_keys<MODE>")
+             "      bwd_keys<MODE, S>")
 _PIPE_SLOT = ("    const uint16_t* st = ring + slot * STAGE;\n"
               "    uint16_t* p_dst =")
 # the bf16 forward's (K1f, K1sp, K1p) copy of an item's rows into its ring
@@ -173,7 +178,8 @@ _P_TILE = "if (i0 + r < g.qn && j0 + c < g.pld) {"
 # kernel's) and the rows of dk and dv it writes; the scalar kernels'
 # forward store (column groups) and dot product (head dims past the tensor
 # cores')
-_FA_EXP = "key_in(g, vs, kt, acc_row(e), acc_col(j, e))"
+_FA_EXP = ("key_in(g, vs, kt, acc_row(e), acc_col(j, e))))\n"
+           "        x = exp2f(")
 _FA_CHUNK = "if (!active || (g.pk > 1 && t != qt)) continue;\n    const uint16_t* k_s"
 _FA_D = ("d0 += dp[4 * j] * p[4 * j] + dp[4 * j + 1] * p[4 * j + 1];\n"
          "    d1 += dp[4 * j + 2] * p[4 * j + 2] + dp[4 * j + 3] * p[4 * j + 3];")
@@ -194,6 +200,18 @@ _MV_KROW = "const int j = j0 + acc_row(2 * half);\n    if (j > g.kn) continue;"
 # staged q and k tiles
 _FA_SEQ_ROW = "((unsigned)s / (unsigned)g.seqs) * g.n + j) * ld"
 _MV_Q_FILL = "if (r0 + r < n && c < d) {"
+# the softmax shifts (slice 16): K1's row max of a wgmma logit tile, the
+# pair's rescale of o when a key tile raises the running max, K2's max over
+# a row's quad, the exponentials of the MViT forward under max (K6sp's
+# second sweep among them), and the none shift's exponent
+_K1_ROW_MAX = ("  nm0 = -quad_max(m0) * scale2;\n"
+               "  nm1 = -quad_max(m1) * scale2;\n")
+_FA_RESCALE = "  if (!first) {  // o holds the previous tiles' sum"
+_K2_QUAD_MAX = ("      na = -quad_max(ma) * scale2;\n"
+                "      nb = -quad_max(mb) * scale2;\n")
+_MV_MAX_EXP = ("s[4 * j + e] = exp2f((s[4 * j + e] - (e < 2 ? n0 : n1)) "
+               "* LOG2E);")
+_NONE_ARG = "  else return s * scale2;"
 _MV_K_FILL = "if (j <= g.kn && c < g.d) {"
 
 
@@ -236,8 +254,28 @@ MUTANTS = {
         "if (!full_tile) s[4 * j + e] = MASKED;", "kt"),
     # l is rescaled when a tile raises the running max, o keeps its old scale
     "K7f o not rescaled when the running max rises": Mutant(
-        "mvit_attention.cu", _KT_RESCALE,
-        "if (false) {  // o holds the previous tiles' sum", "kt"),
+        "mvit_attention.cu", _KT_RESCALE, "if (false) {", "kt"),
+    # slice 16: each family's max variant, and the none shift
+    "K1 under max: the row max not subtracted": Mutant(
+        "spatial_attention.cu", _K1_ROW_MAX,
+        "  nm0 = 0.f * quad_max(m0);\n  nm1 = 0.f * quad_max(m1);\n",
+        "k1_max"),
+    "the pair under max: o not rescaled when the running max rises": Mutant(
+        "flash_attention.cu", _FA_RESCALE, "  if (false) {  // o holds",
+        "pair_max"),
+    "K2 under max: the max taken over the wrong lane class": Mutant(
+        "temporal_attention.cu", _K2_QUAD_MAX,
+        "      na = -fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, 4)) * "
+        "scale2;\n      nb = -fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, "
+        "4)) * scale2;\n", "k2_max"),
+    "K6sp under max: the second sweep takes the clamp": Mutant(
+        "mvit_attention.cu", _MV_MAX_EXP,
+        "s[4 * j + e] = SAVE && t >= tiles ? exp2f(fminf(s[4 * j + e], "
+        "CLAMP_HI) * LOG2E) : exp2f((s[4 * j + e] - (e < 2 ? n0 : n1)) * "
+        "LOG2E);", "k6sp_max"),
+    "none with the clamp's min left in place": Mutant(
+        "common.cuh", _NONE_ARG,
+        "  else return fminf(s * scale2, CLAMP_HI * LOG2E);", "k1_none"),
     "K7f ring stage refilled before its warpgroups release it": Mutant(
         "mvit_attention.cu", _MV_REFILL, "    stage(t + FSTAGES);\n", "kt"),
     # output plane T-2 loses its taps on plane T-1
@@ -374,7 +412,8 @@ MUTANTS = {
     "K3f / K4f cls key left out": Mutant(
         "flash_attention.cu", _FA_EXP,
         "(key_in(g, vs, kt, acc_row(e), acc_col(j, e)) && "
-        "!(g.L > g.n && kt * BM + acc_col(j, e) == g.n))", "flash_fwd"),
+        "!(g.L > g.n && kt * BM + acc_col(j, e) == g.n))))\n"
+        "        x = exp2f(", "flash_fwd"),
     "K3f / K4f last key tile left out": Mutant(
         "flash_attention.cu", _FA_CHUNK,
         "if (!active || (g.pk > 1 && t != qt) || t == g.tiles - 1) continue;"
@@ -454,7 +493,7 @@ def _judge(cs, torch, label, pairs, need_all: bool, twins=()) -> bool:
     limit if ``need_all``, else any check)."""
     caught = []
     for name, got, twin in twins:
-        hit = not all(torch.equal(a, b) for a, b in zip(got, twin))
+        hit = not all(cs.same_bits(torch, a, b) for a, b in zip(got, twin))
         print(f"  {_WHO} {label} {name} (bit for bit): "
               f"{'rejected' if hit else 'let through'}")
         caught.append(hit)
@@ -975,6 +1014,57 @@ def _check_mvit_d72(cs, torch, gen):
                                          cs.ROWSUM_TOL)], False)
 
 
+def _check_k1_shift(cs, torch, gen, shift):
+    from procedurevrl_torch.ops import spatial_attention as k1
+
+    for label, bt, n in (("training", 144, 196), ("N 48", 4, 48)):
+        pairs, twins = cs.k1_shift_checks(torch, gen, k1, shift,
+                                          torch.bfloat16, bt, n)
+        yield _judge(cs, torch, label, pairs, False, twins)
+
+
+def _check_k1_max(cs, torch, gen):
+    """K1f, K1sp, K1p and K1br under max (the training shape and N 48)."""
+    return _check_k1_shift(cs, torch, gen, "max")
+
+
+def _check_k1_none(cs, torch, gen):
+    """The same under none."""
+    return _check_k1_shift(cs, torch, gen, "none")
+
+
+def _check_k2_max(cs, torch, gen):
+    """K2f, K2v3f and K2b under max at two positions a tile (T 8)."""
+    from procedurevrl_torch.ops import temporal_attention as k2
+
+    for label, b, t, n in (("training", 18, 8, 196), ("N 49", 3, 8, 49)):
+        pairs, twins = cs.k2_shift_checks(torch, gen, k2, "max",
+                                          torch.bfloat16, b, t, n)
+        yield _judge(cs, torch, label, pairs, False, twins)
+
+
+def _check_pair_max(cs, torch, gen):
+    """K4 and K3 under max at the training shapes."""
+    from procedurevrl_torch.ops import flash_attention as fa
+
+    for label, n, cls in (("K4", 197, False), ("K3", 196, True)):
+        yield _judge(cs, torch, label,
+                     cs.pair_shift_checks(torch, gen, fa, "max",
+                                          torch.bfloat16, 144, n, cls), False)
+
+
+def _check_k6sp_max(cs, torch, gen):
+    """K6sp under max at block 1 and at the small kN 27 geometry."""
+    from procedurevrl_torch.ops import mvit_attention as k5
+
+    for label, b, qn, k_shape in (("block 1", 36, 6272, (8, 14, 14)),
+                                  ("kN 27", 4, 70, (3, 3, 3))):
+        yield _judge(cs, torch, label,
+                     cs.mvit_shift_checks(torch, gen, k5, "max",
+                                          torch.bfloat16, "K6sp", False, b, 1,
+                                          qn, k_shape, saved=True), False)
+
+
 CHECKS = {"mvit": _check_mvit, "mvit_sum": _check_mvit_sum,
           "kt": _check_kt, "pool": _check_pool,
           "pool_dw": _check_pool_dw, "k1br": _check_k1br, "k1bd": _check_k1bd,
@@ -987,7 +1077,10 @@ CHECKS = {"mvit": _check_mvit, "mvit_sum": _check_mvit_sum,
           "mvit_split": _check_mvit_split, "mvit_bwd": _check_mvit_bwd,
           "flash_temporal": _check_flash_temporal,
           "mvit_d72": _check_mvit_d72, "flash_groups": _check_flash_groups,
-          "flash_ragged": _check_flash_ragged, "mvit_odd": _check_mvit_odd}
+          "flash_ragged": _check_flash_ragged, "mvit_odd": _check_mvit_odd,
+          "k1_max": _check_k1_max, "k1_none": _check_k1_none,
+          "k2_max": _check_k2_max, "pair_max": _check_pair_max,
+          "k6sp_max": _check_k6sp_max}
 # the sources each check builds
 SOURCES = {"mvit": "mvit_attention", "mvit_sum": "mvit_attention",
            "kt": "mvit_attention",
@@ -1004,7 +1097,9 @@ SOURCES = {"mvit": "mvit_attention", "mvit_sum": "mvit_attention",
            "mvit_split": "mvit_attention", "mvit_bwd": "mvit_attention",
            "flash_temporal": "flash_attention", "mvit_d72": "mvit_attention",
            "flash_groups": "flash_attention", "flash_ragged": "flash_attention",
-           "mvit_odd": "mvit_attention"}
+           "mvit_odd": "mvit_attention", "k1_max": "spatial_attention",
+           "k1_none": "spatial_attention", "k2_max": "temporal_attention",
+           "pair_max": "flash_attention", "k6sp_max": "mvit_attention"}
 
 
 def check_copy(check: str, sound: bool = False) -> int:

@@ -81,6 +81,18 @@ def eval_epoch(dataset: SyntheticClips, eval_step, val_meter: ValMeter,
     return stats
 
 
+def _check_multigrid(cfg) -> None:
+    """The multigrid schedule (JAX ``tools/train_net.py:256-263``,
+    ``utils/multigrid.py``) rewrites the epochs, the LR steps and (T, S, B):
+    refuse its knobs rather than train another schedule."""
+    for knob in ("LONG_CYCLE", "SHORT_CYCLE"):
+        if getattr(cfg.MULTIGRID, knob):
+            raise NotImplementedError(
+                f"MULTIGRID.{knob}: the multigrid schedule "
+                "(utils/multigrid.py) is not ported yet (ROADMAP.md Queue 1 "
+                "item 7)")
+
+
 def train(cfg, device: Union[str, torch.device, None] = None,
           max_steps: Optional[int] = None) -> Dict:
     """Train entry: build the model (random init from ``RNG_SEED``, the
@@ -102,7 +114,9 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     ``WARMUP_STEPS`` to the end of its last step (each end is a host read
     of that step's metrics; val epochs in between are left out, checkpoint
     saves are not), None with no such step, and ``model``, the trained
-    model."""
+    model.  ``MULTIGRID.LONG_CYCLE`` or ``SHORT_CYCLE`` raises
+    ``NotImplementedError``."""
+    _check_multigrid(cfg)
     device = resolve_device(device)
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:\n%s", cfg.dump())

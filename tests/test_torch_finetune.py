@@ -274,6 +274,21 @@ def test_finetune_step_refuses_what_is_not_ported():
         build_model(cfg, "cpu")
 
 
+@pytest.mark.parametrize("knob", ["LONG_CYCLE", "SHORT_CYCLE"])
+def test_train_refuses_the_multigrid_knobs(knob, tmp_path):
+    """``MULTIGRID.LONG_CYCLE`` / ``SHORT_CYCLE`` rewrite the schedule in
+    JAX (``tools/train_net.py:256-263``); the port's ``train`` raises,
+    naming the knob, before it builds anything."""
+    from procedurevrl_torch.tools import train_net
+
+    cfg = get_cfg()
+    cfg.OUTPUT_DIR = str(tmp_path)
+    setattr(cfg.MULTIGRID, knob, True)
+    with pytest.raises(NotImplementedError, match=f"MULTIGRID.{knob}"):
+        train_net.train(cfg, "cpu")
+    assert not any(tmp_path.iterdir())
+
+
 TINY = ["DEV.LOAD_DUMMY_DATA", "True", "TIMESFORMER.DEPTH", "1",
         "DATA.NUM_FRAMES", "2", "DATA.TRAIN_CROP_SIZE", "32",
         "DATA.TEST_CROP_SIZE", "32", "TRAIN.BATCH_SIZE", "16",

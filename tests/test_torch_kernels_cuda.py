@@ -1347,3 +1347,103 @@ def test_key_splits_fill_the_card(card):
     assert k5.key_splits(18, 25088, 392, sms) > 1
     for bh, qn, kn in ((36, 6272, 1568), (72, 1568, 1568)):
         assert k5.key_splits(bh, qn, kn, sms) * -(-(kn + 1) // k5.KM) * bh >= sms
+
+
+# ---------------------------------------------------------------- slice 16
+# The softmax shifts under max and none: every variant against its plain
+# version on queries aimed past the clamp (``chip_smoke.py``'s phase 32
+# checks at smaller shapes and its limits; under none the rows that
+# overflow in the plain version must be exactly the kernel's non-finite
+# rows, and the others are compared), and the entries' routes.
+
+def _smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _hold(pairs, twins=()):
+    cs = _smoke()
+    torch.cuda.synchronize()
+    for name, got, want, tol in pairs:
+        assert bool(torch.isfinite(got.float()).all()), name
+        if got.numel():
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+    for name, got, twin in twins:
+        assert all(cs.same_bits(torch, a, b) for a, b in zip(got, twin)), name
+
+
+SHIFT_CASES = ("k1", "k1 N 48", "k2", "k2 T 16", "k4", "k3", "pair layouts",
+               "k5", "k6", "k6sp")
+
+
+@pytest.mark.parametrize("shift", ["max", "none"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SHIFT_CASES)
+def test_shift_variants_match_plain(card, case, dtype, shift):
+    cs = _smoke()
+    if case == "pair layouts" and dtype == torch.float32:
+        pytest.skip("the pair's other layouts are held in bf16")
+    if case == "k2 T 16" and dtype == torch.float32:
+        pytest.skip("float32 K2 at 16 frames of 12 heads exceeds the scalar "
+                    "kernels' shared memory")
+    gen = torch.Generator(device=card).manual_seed(16)
+    if case.startswith("k1"):
+        n = 48 if "48" in case else 196
+        _hold(*cs.k1_shift_checks(torch, gen, k1, shift, dtype, 6, n))
+    elif case.startswith("k2"):
+        t = 16 if "16" in case else 8
+        _hold(*cs.k2_shift_checks(torch, gen, k2, shift, dtype, 3, t, 49))
+    elif case in ("k4", "k3"):
+        _hold(cs.pair_shift_checks(torch, gen, fa, shift, dtype, 4,
+                                   197 if case == "k4" else 196, case == "k3"))
+    elif case == "pair layouts":
+        _hold(cs.pair_layout_checks(torch, gen, fa, shift))
+    else:
+        head_last = case == "k5"
+        _hold(cs.mvit_shift_checks(torch, gen, k5, shift, dtype, case,
+                                   head_last, 2, 2 if head_last else 1,
+                                   1568 if head_last else 392,
+                                   (8, 7, 7), saved=case == "k6sp"))
+
+
+@pytest.mark.parametrize("shift", ["max", "none"])
+def test_shift_routes_run_their_kernels(card, shift):
+    """The entries under each shift launch their own kernels: K1sp + K1b,
+    K2f + K2b, K4f + K4b, K5f + K5b and K6f + K6b under autograd (the MViT
+    backward under max from the forward's output)."""
+    from procedurevrl_torch.ops.attention_route import AttentionRoute
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    r = lambda *s: (0.5 * torch.randn(*s, generator=gen, device=card)
+                    ).bfloat16().requires_grad_(True)
+    route = AttentionRoute(spatial_shift=shift, temporal_shift=shift)
+    _build.reset_launches()
+    out = k1.spatial_attention_autograd(r(4, 196, 2304), r(4, 1, 2304), 12,
+                                        0.125, route)
+    (out[0].float().sum() + out[1].float().sum()).backward()
+    k2.temporal_attention_autograd(r(2, 8, 49, 2304), 12, 0.125,
+                                   route).float().sum().backward()
+    fa.flash_attention_autograd(r(4, 197, 768), r(4, 197, 768),
+                                r(4, 197, 768), 12, 0.125,
+                                shift).float().sum().backward()
+    x = [r(2, 392, 192), r(2, 98, 192), r(2, 98, 192), r(2, 1, 192),
+         r(2, 1, 192), r(2, 392, 2 * 16)]
+    k5.mvit_attention_hl(*x, (2, 7, 7), 2, 96 ** -0.5,
+                         shift=shift).float().sum().backward()
+    x = [t.detach().reshape(4, t.shape[1], 96 if t.shape[2] == 192 else 16)
+         .requires_grad_(True) for t in x]
+    k5.mvit_attention(*x, (2, 7, 7), 96 ** -0.5,
+                      shift=shift).float().sum().backward()
+    torch.cuda.synchronize()
+    want = {k1.KERNEL_PROBS: 1, k1.KERNEL_BWD: 1, k2.KERNEL: 1,
+            k2.KERNEL_BWD: 1, fa.KERNEL: 1, fa.KERNEL_BWD: 1,
+            k5.KERNEL_HL: 1, k5.KERNEL_HL_BWD: 1, k5.KERNEL: 1,
+            k5.KERNEL_BWD: 1}
+    assert _build.LAUNCHES == want

@@ -203,4 +203,4 @@ def test_mutation_check_plants_each_fault():
         assert m.check in mc.CHECKS
     assert {m.source for m in mc.MUTANTS.values()} == {
         "mvit_attention.cu", "depthwise_pool.cu", "spatial_attention.cu",
-        "temporal_attention.cu", "flash_attention.cu"}
+        "temporal_attention.cu", "flash_attention.cu", "common.cuh"}

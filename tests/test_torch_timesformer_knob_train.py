@@ -290,12 +290,14 @@ def _tiny_cfg(model: str, *opts):
          "DATA.TEST_CROP_SIZE", "32", *opts])
 
 
-# A shift knob the port's kernels do not take (ROADMAP Queue 3, F7): the
-# model builds, since JAX reads the knob only inside its Pallas kernels, and
-# the first pass through a kernel that takes only the clamp shift raises,
-# naming the knob.  TimeSformer at crop 32 has N = 4 frame tokens:
-# PALLAS_MIN_LEN=1 sends the spatial pass to K1, and the temporal pass
-# takes K2 there by default; MViT-v2-S block 0 takes K5, block 14 K6.
+# A shift knob on the kernel routes: every kernel takes its knob's variant.
+# The tiny TimeSformer (crop 32, N = 4 frame tokens: PALLAS_MIN_LEN=1 sends
+# the spatial pass to K1, and the temporal pass takes K2 there by default)
+# and an MViT-v2-S attention block routed to K5 (``test_torch_mvit``'s
+# "kv_pooled", outputs and gradients) against the JAX model under the same
+# knob, its Pallas kernels in interpret mode (its caches cleared first: JAX
+# reads the knob when it traces), fp32 atol = rtol = 2e-5.  The kernel-level
+# cases, on logits where the shifts part, are ``tests/test_torch_shift.py``.
 @pytest.mark.parametrize("model,knob,value", [
     ("timesformer", "SPATIAL_SHIFT", "max"),
     ("timesformer", "SPATIAL_SHIFT", "none"),
@@ -304,31 +306,63 @@ def _tiny_cfg(model: str, *opts):
     ("mvit", "MVIT_SHIFT", "max"),
     ("mvit", "MVIT_SHIFT", "none")])
 def test_an_unported_knob_raises_at_build(model, knob, value, monkeypatch):
-    from procedurevrl_torch.models.build import build_model
+    """The knob builds, takes the kernels' route and matches JAX."""
+    from procedurevrl_tpu.models import mvit as jm
+    from procedurevrl_tpu.models.timesformer import (
+        TimeSformer as JaxTimeSformer,
+    )
+    from procedurevrl_torch.models import mvit as pm
+    from procedurevrl_torch.models.timesformer import TimeSformer
     from procedurevrl_torch.ops import mvit_attention as ma
+    from test_torch_mvit import ATTN, _attn_convert, _run_both
+    from test_torch_timesformer import GEOM as ENC, TOL as ENC_TOL
+    from test_torch_timesformer import random_params
 
     monkeypatch.setenv(knob, value)
     monkeypatch.setenv("PALLAS_MIN_LEN", "1")
-    net, _ = build_model(_tiny_cfg(model), "cpu")
-    rng = np.random.RandomState(11)
+    jax.clear_caches()
     if model == "mvit":
-        block = 0 if value == "max" else 14
-        attn = net.video_encoder.blocks[block].attn
-        spec = net.video_encoder.cfg.block_schedule()[0][block]
-        thw = tuple(spec["input_size"])
-        x = torch.from_numpy(rng.randn(
-            1, 1 + int(np.prod(thw)), spec["dim"]).astype(np.float32))
-        called = []
-        for fn in ("mvit_attention_hl", "mvit_attention"):
-            monkeypatch.setattr(ma, fn, lambda *a, _n=fn: called.append(_n))
-        with pytest.raises(NotImplementedError, match=knob), \
-                torch.no_grad():
-            attn(x, thw)
-        assert not called
+        seen = []
+        entry = ma.mvit_attention_hl
+        monkeypatch.setattr(ma, "mvit_attention_hl",
+                            lambda *a: seen.append(a[-1]) or entry(*a))
+        dim, dim_out, heads, thw, kq, sq, kkv, skv = ATTN["kv_pooled"]
+        kw = dict(num_heads=heads, qkv_bias=True, kernel_q=kq,
+                  kernel_kv=kkv, stride_q=sq, stride_kv=skv, mode="conv",
+                  has_cls_embed=True, rel_pos_spatial=True,
+                  rel_pos_temporal=True, residual_pooling=True)
+        jmod = jm.MultiScaleAttention(dim=dim, dim_out=dim_out,
+                                      input_size=thw, use_pallas=True, **kw)
+        route = pm.MViTRoute.from_env(use_pallas=True)
+        assert route.shift == value
+        port = pm.MultiScaleAttention(dim, dim_out, thw, route=route, **kw)
+        x = np.random.RandomState(7).randn(
+            2, 1 + int(np.prod(thw)), dim).astype(np.float32)
+        _run_both(jmod, port, _attn_convert, x, (thw,), seed=4)
+        assert seen and set(seen) == {value}
         return
-    x = torch.from_numpy(rng.randn(1, 2, 32, 32, 3).astype(np.float32))
-    with pytest.raises(NotImplementedError, match=knob), torch.no_grad():
-        net._encode(x, None)
+    seen = []
+    for mod, name in WRAPPERS:
+        fn = getattr(mod, name)
+        monkeypatch.setattr(
+            mod, name, lambda *a, _f=fn, _n=name, **k:
+            seen.append((_n, k.get("shift", a[-1]))) or _f(*a, **k))
+    rng = np.random.RandomState(21)
+    x = rng.randn(2, 4, 32, 32, 3).astype(np.float32)
+    jmodel = JaxTimeSformer(**ENC, dtype=jnp.float32, use_pallas=True)
+    params = random_params(jmodel, x, rng)
+    ref = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x),
+                                  deterministic=True))
+    route = AttentionRoute.from_env(use_pallas=True)
+    model = TimeSformer(**ENC, route=route).eval()
+    model.load_state_dict(weights.params_from_jax(params), strict=True)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, **ENC_TOL)
+    ours = "spatial_attention" if knob == "SPATIAL_SHIFT" else (
+        "temporal_attention")
+    assert {s for n, s in seen if n == ours} == {value}
+    assert {s for n, s in seen if n != ours} == {"clamp"}
 
 
 # The same knobs where no kernel runs: the port builds and runs, and

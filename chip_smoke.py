@@ -38,8 +38,8 @@ Phases (any failure exits non-zero):
    ``configs/HowTo100M/procedurevrl_mvitv2_adamw.yaml`` with synthetic
    data, full MViT-v2-S (16 frames at 224^2) + CLIP text tower + order
    transformer, AdamW, bf16, remat, 2 samples x 9 clips: 2 warm-up + 10
-   timed steps with finite losses and asserted launch counts (per step 26
-   K5f, 6 K6f, 13 K5b, 3 K6b, and no K7 or K8); one step against the plain
+   timed steps with finite losses and asserted launch counts (per step 13
+   K5f, 3 K6f, 13 K5b, 3 K6b, and no K7 or K8); one step against the plain
    path; one step profiled with its peak memory;
 10. K8f (MViT's depthwise 3x3x3 pool, stride 1 and 2, and its stride-1 dx
    with reversed taps) and K8dw at the five stride-1 pool shapes of the
@@ -53,7 +53,7 @@ Phases (any failure exits non-zero):
 11. slice 4: the same MViT-v2-S training as phase 9 with ``MVIT_POOL=kernel``
    and ``MVIT_KT=1`` set while the model is built (and restored after):
    2 warm-up + 10 timed steps with finite losses and asserted launch counts
-   (per step 34 K8f, 17 K8f dx, 17 K8dw, 4 K7f, 2 K7b, 26 K5f, 2 K6f, 13
+   (per step 34 K8f, 17 K8f dx, 17 K8dw, 2 K7f, 2 K7b, 13 K5f, 1 K6f, 13
    K5b, 1 K6b); one step against the plain path; one step profiled;
 12. K1br (recompute backward), K1bd (delta backward) and K1p (pipelined
    forward) at the training shape (K1p also at the eval shape), plus small
@@ -72,11 +72,11 @@ Phases (any failure exits non-zero):
    TEMPORAL_BATCHED=1`` set while the model is built (12 K1p and 12 K2v3f
    per batch, no K1f or K2f); one batch against the plain path;
 15. slice 5, route A: phase 7's training (12 steps, remat) with
-   ``SPATIAL_SAVE_PROBS=0 SPATIAL_PIPE=1 TEMPORAL_BATCHED=1`` (per step 24
-   K1p, 12 K1br, 24 K2v3f, 12 K2v3b, and none of K1f, K1sp, K1b, K1bd, K2f
+   ``SPATIAL_SAVE_PROBS=0 SPATIAL_PIPE=1 TEMPORAL_BATCHED=1`` (per step 12
+   K1p, 12 K1br, 12 K2v3f, 12 K2v3b, and none of K1f, K1sp, K1b, K1bd, K2f
    or K2b); one step against the plain path; one step profiled;
-16. slice 5, route B: the same with ``SPATIAL_DELTA=1`` (per step 24 K1sp,
-   12 K1bd, 24 K2f, 12 K2b, no K1b); one step against the plain path;
+16. slice 5, route B: the same with ``SPATIAL_DELTA=1`` (per step 12 K1sp,
+   12 K1bd, 12 K2f, 12 K2b, no K1b); one step against the plain path;
    one step profiled;
 17. K5bd (the delta backward, ``MVIT_DELTA=1``) at MViT-v2-S blocks 0 and 4,
    and K6bd, K6sp (the forward that saves bf16 p) and K6bs (the backward
@@ -88,12 +88,11 @@ Phases (any failure exits non-zero):
    ``configs/HowTo100M/procedurevrl_mvitv2_sgd.yaml`` (SGD, momentum 0.9,
    remat) with ``MVIT_DELTA=1`` set while the model is built: 2 warm-up
    + 6 timed steps with finite losses and asserted launch counts (per step
-   26 K5f, 6 K6f, 13 K5bd, 3 K6bd, and no K5b, K6b, K6sp, K6bs, K7 or K8);
+   13 K5f, 3 K6f, 13 K5bd, 3 K6bd, and no K5b, K6b, K6sp, K6bs, K7 or K8);
    one step against the plain path; one step profiled;
 19. slice 6, route D: the same with ``MVIT_SAVE_PROBS=1 MVIT_DELTA=1`` (per
-   step 26 K5f, 6 K6sp, 13 K5bd, 3 K6bs, and no K6f, K5b, K6b, K6bd, K7
-   or K8: under remat each K6 block's forward and its recomputation both
-   run K6sp); one step against the plain path; one step profiled with its
+   step 13 K5f, 3 K6sp, 13 K5bd, 3 K6bs, and no K6f, K5b, K6b, K6bd, K7
+   or K8: under remat the recomputation takes K6sp's kept outputs); one step against the plain path; one step profiled with its
    peak memory;
 20. K4f / K4b (whole-sequence attention, ``ops/flash_attention.py``) and
    K3f / K3b (the same with a separate CLS stream) at the TimeSformer-B
@@ -113,17 +112,17 @@ Phases (any failure exits non-zero):
    path;
 23. slice 7, ``space_only`` training: phase 7's training (remat) with
    ``TIMESFORMER.ATTENTION_TYPE space_only`` (2 warm-up + 4 timed steps; per
-   step 24 K4f and 12 K4b, no K1 or K2); one step against the plain path;
+   step 12 K4f and 12 K4b, no K1 or K2); one step against the plain path;
    one step profiled with its peak memory;
 24. slice 7, ``SPATIAL_FUSED_QKV=0``: phase 7's training with the knob set
-   while the model is built (per step 24 K3f, 12 K3b, 24 K2f, 12 K2b, no K1
+   while the model is built (per step 12 K3f, 12 K3b, 12 K2f, 12 K2b, no K1
    kernel); one step against the plain path; one step profiled with its
    peak memory;
 25. slice 8: the pair at head dim 32 on the shapes of the next step (K2's
    function on the time-major qkv ``[18, 8, 196, 2304]``, K1's on the fused
    qkv ``[144, 196, 2304]`` + CLS) against their plain versions, K2's
    function timed beside SDPA; then phase 7's training at TimeSformer-B's
-   width in 24 heads of 32 (3 steps; per step 24 + 12 launches of the pair
+   width in 24 heads of 32 (3 steps; per step 12 + 12 launches of the pair
    for K1's function and as many for K2's, no K1 or K2 kernel); one step
    against the plain path;
 26. slice 8: K5f/K5b at block 0 and K6f/K6b at block 1 of MViT-v2-S at
@@ -166,7 +165,7 @@ Phases (any failure exits non-zero):
    each) uninterrupted (run A), and cut after epoch 1 then resumed by
    AUTO_RESUME from its ``OUTPUT_DIR`` (run B: asserted to start at epoch 2
    and step 4); B's epoch-2 losses and final parameters against A's
-   (phase 7's limits; whether bit for bit is printed); 24 K1sp, 24 K2f,
+   (phase 7's limits; whether bit for bit is printed); 12 K1sp, 12 K2f,
    12 K1b and 12 K2b per micro-batch and no other port kernel; one
    checkpoint written by the blocking and by the thread writer (equal
    tensors; file size, the loop's stall in each ``save``, the load time);
@@ -189,12 +188,29 @@ Phases (any failure exits non-zero):
    K1sp == K1f, K1p == K1f, K1br == K1b(K1sp p), K2f == K2v3f and K2b ==
    K2v3b(K2v3f p) bit for bit under each shift; then TimeSformer-B order
    pretraining under ``SPATIAL_SHIFT=max TEMPORAL_SHIFT=max`` (3 steps; per
-   step 24 K1sp, 12 K1b, 24 K2f, 12 K2b), MViT-v2-S order pretraining under
-   ``MVIT_SHIFT=max`` (3 steps; per step 26 K5f, 6 K6f, 13 K5b, 3 K6b) and
+   step 12 K1sp, 12 K1b, 12 K2f, 12 K2b), MViT-v2-S order pretraining under
+   ``MVIT_SHIFT=max`` (3 steps; per step 13 K5f, 3 K6f, 13 K5b, 3 K6b) and
    the zero-shot COIN test under all three knobs ``none`` (2 batches of 32
    clips; 12 K1f and 12 K2f per batch), each against the plain path; the
    variants these paths launch are timed at their clamp rows' shapes beside
    the clamp kernel.
+33. slice 17, the EPIC-Kitchens-100 full finetune at its shipped width
+   (``configs/EK/egocentric_action_classification.yaml``, ``TRAIN.EPOCH_MUL
+   2``): 2 optimizer steps of 4 micro-batches of 32 clips x 32 frames
+   through ``train_net.train`` and its val epoch (per micro-batch 12 K1sp
+   and 12 K1b, per val batch 12 K1f, no K2), one micro-batch step against
+   the plain path and profiled, ``test_net.test`` in 4 batches of 16 clips
+   (12 K1f a batch) with the verb and noun logits of one batch against the
+   plain path relative to their scale, the peak memory of one micro-batch
+   step under the default policy, ``REMAT_SAVE_ATTN False`` and without
+   remat, and K1sp / K1b / K1f at EK's shapes against their plain versions,
+   timed beside SDPA with their bounds;
+34. slice 17, the remat policies: the default TimeSformer-B pretraining
+   step under ``TPU.REMAT_SAVE_ATTN True`` and ``False`` (one step's
+   launches, asserted, and its peak memory above the resident state;
+   device busy profiled in the order True, False, False, True), then 2
+   steps of
+   ``configs/HowTo100M/procedurevrl_sgd.yaml``.
 Every phase that trains or tests gives ``OUTPUT_DIR`` a temporary
 directory of its own (the shipped configs name ``.``, and AUTO_RESUME would
 pick up a checkpoint left there), and sends the port's log lines, which
@@ -383,6 +399,20 @@ RESUME_STEPS, RESUME_ACCUM = 4, 8   # an epoch's optimizer steps, micro-batches
 # sum of them by ~4e-3 whatever the sum's own scale: the shift checks hold
 # bf16 outputs to BF16_TOL, probabilities to K1K2_FWD_TOL and every bf16
 # gradient to grad_tol(BF16_TOL), as K1's and K2's.)
+EK_CFG = "configs/EK/egocentric_action_classification.yaml"
+# 64 synthetic videos make 2 micro-batches of 32 an epoch, fewer than the
+# 4 that GLOBAL_BATCH_SIZE 128 accumulates: the epoch is taken twice
+EK_OPTS = ("DEV.LOAD_DUMMY_DATA", "True", "TRAIN.EPOCH_MUL", "2")
+EK_STEPS = 2
+EK_TEST_OPTS = ("TRAIN.ENABLE", "False", "TEST.NUM_ENSEMBLE_VIEWS", "1",
+                "TEST.NUM_SPATIAL_CROPS", "1")
+# the EPIC heads' logits (divided by DEV.TEMP, no softmax) through the
+# kernels against the plain path: max |d| over the plain logits' max |x|.
+# The bf16 encoder's rounding differences reach the logits multiplied by
+# 1 / DEV.TEMP = 50: a first card run read 1.55e-2 on a sound path
+EPIC_LOGIT_RTOL = 5e-2
+SGD_CFG = "configs/HowTo100M/procedurevrl_sgd.yaml"
+POLICY_STEPS = 2                        # warm-up steps before the reads
 SHIFTS = ("max", "none")
 SHIFT_KNOBS = ("SPATIAL_SHIFT", "TEMPORAL_SHIFT", "MVIT_SHIFT")
 HOT_TARGETS = (None, 84.0, 200.0)
@@ -440,9 +470,10 @@ def time_ms(torch, fn, iters: int = 20, reps: int = 21) -> float:
     return statistics.median(times)
 
 
-def profile_step(torch, label: str, fn, top: int = 12) -> None:
+def profile_step(torch, label: str, fn, top: int = 12) -> float:
     """Device time by kernel for one call of ``fn`` (torch.profiler), and
-    the device busy share of its wall time (the rest is the host gap)."""
+    the device busy share of its wall time (the rest is the host gap);
+    returns the device busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -475,6 +506,7 @@ def profile_step(torch, label: str, fn, top: int = 12) -> None:
     for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
               f"{e.key[:100]}")
+    return busy_ms
 
 
 # profile groups: the first pattern found in a kernel's name decides
@@ -1963,11 +1995,12 @@ def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
           f"steps {WARMUP_STEPS + 1}..{TRAIN_STEPS} (~"
           f"{3 * FWD_GFLOP_PER_CLIP * rate / 1e3:.1f} model TFLOP/s), peak "
           f"memory {peak / 2 ** 30:.3f} GiB, launches {launches}")
-    # under remat every block's forward runs twice (the forward, and its
-    # recomputation for the backward), each backward kernel once
+    # under remat JAX's policy keeps the attention kernels' outputs: every
+    # forward kernel runs once per block and step (the recomputation takes
+    # its kept outputs), each backward kernel once
     expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
-    expected.update({k1.KERNEL_PROBS: 2 * DEPTH * TRAIN_STEPS,
-                     k2.KERNEL: 2 * DEPTH * TRAIN_STEPS,
+    expected.update({k1.KERNEL_PROBS: DEPTH * TRAIN_STEPS,
+                     k2.KERNEL: DEPTH * TRAIN_STEPS,
                      k1.KERNEL_BWD: DEPTH * TRAIN_STEPS,
                      k2.KERNEL_BWD: DEPTH * TRAIN_STEPS})
     check_launches(launches, expected, f"{TRAIN_STEPS} steps")
@@ -2050,7 +2083,7 @@ def phase_finetune(torch, k1, k2, k5, k8, _build) -> dict:
 def resume_run(torch, k1, k2, k5, k8, _build, out: str, label: str,
                max_steps=None) -> dict:
     """One ``train_net.train`` of phase 31's pretraining in ``out``;
-    asserts finite metrics and, per micro-batch, 24 K1sp, 24 K2f, 12 K1b
+    asserts finite metrics and, per micro-batch, 12 K1sp, 12 K2f, 12 K1b
     and 12 K2b (remat) and no other port kernel.  Returns its stats."""
     from procedurevrl_torch.tools.train_net import train
 
@@ -2068,7 +2101,7 @@ def resume_run(torch, k1, k2, k5, k8, _build, out: str, label: str,
                                                  "grad_norm")):
             fail(f"run {label} has a non-finite step: {h}")
     micro = stats["steps"] * RESUME_ACCUM
-    per_micro = {k1.KERNEL_PROBS: 2 * DEPTH, k2.KERNEL: 2 * DEPTH,
+    per_micro = {k1.KERNEL_PROBS: DEPTH, k2.KERNEL: DEPTH,
                  k1.KERNEL_BWD: DEPTH, k2.KERNEL_BWD: DEPTH}
     check_launches(launches, {
         key: per_micro.get(key, 0) * micro
@@ -2357,12 +2390,12 @@ def phase_mvit_train(torch, k1, k2, k5, k8, _build) -> dict:
     route; return the launch counts of its main run."""
     if any(os.environ.get(k) for k in MVIT_KNOBS):
         fail(f"phase 9 runs the default route: unset {list(MVIT_KNOBS)}")
-    # remat recomputes every block's forward for its backward: each forward
-    # kernel runs twice per block and step, each backward kernel once; no
+    # remat keeps the attention kernels' outputs (JAX's MViT policy): each
+    # forward and each backward kernel runs once per block and step; no
     # kernel of slices 4 and 6 runs
     n = MVIT_STEPS
-    expected = {k5.KERNEL_HL: 2 * MVIT_HL_BLOCKS * n,
-                k5.KERNEL: 2 * MVIT_HS_BLOCKS * n,
+    expected = {k5.KERNEL_HL: MVIT_HL_BLOCKS * n,
+                k5.KERNEL: MVIT_HS_BLOCKS * n,
                 k5.KERNEL_HL_BWD: MVIT_HL_BLOCKS * n,
                 k5.KERNEL_BWD: MVIT_HS_BLOCKS * n}
     return mvit_train(torch, k1, k2, k5, k8, _build, "MViT train", n,
@@ -2393,9 +2426,11 @@ def phase_knob_train(torch, k1, k2, k5, k8, _build) -> dict:
         fail(f"phase 11 runs without slice 6's knobs: unset {sorted(ROUTE_D)}")
     n = KNOB_STEPS
     hl = MVIT_HL_BLOCKS  # blocks 1 and 3 leave K6 for K7; K5's are as before
-    expected = {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL_HL_BWD: hl * n,
-                k5.KERNEL_KT: 2 * KT_BLOCKS * n, k5.KERNEL_KT_BWD: KT_BLOCKS * n,
-                k5.KERNEL: 2 * KNOB_HS_BLOCKS * n,
+    # the policy keeps the attention kernels' outputs, not the pools': the
+    # pool forward still runs twice a step (forward and recomputation)
+    expected = {k5.KERNEL_HL: hl * n, k5.KERNEL_HL_BWD: hl * n,
+                k5.KERNEL_KT: KT_BLOCKS * n, k5.KERNEL_KT_BWD: KT_BLOCKS * n,
+                k5.KERNEL: KNOB_HS_BLOCKS * n,
                 k5.KERNEL_BWD: KNOB_HS_BLOCKS * n,
                 k8.KERNEL: 2 * K8_POOLS * n, k8.KERNEL_DX: K8_POOLS * n,
                 k8.KERNEL_DW: K8_POOLS * n}
@@ -2712,8 +2747,8 @@ def phase_k1_long(torch, F, k1, k2, k5, k8, fa, _build) -> list:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
-    expected.update({fa.KERNEL_QKV: 2 * DEPTH, fa.KERNEL_QKV_BWD: DEPTH,
-                     k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH})
+    expected.update({fa.KERNEL_QKV: DEPTH, fa.KERNEL_QKV_BWD: DEPTH,
+                     k2.KERNEL: DEPTH, k2.KERNEL_BWD: DEPTH})
     check_launches(launches, expected, "the divided step at crop 256")
     print(f"divided train step at crop 256: launches {launches}")
     for rec in records:
@@ -2811,8 +2846,8 @@ def phase_ts_heads_32(torch, F, k1, k2, k5, k8, fa, _build) -> list:
     with timesformer_heads(TS_HEADS_32):
         launches = phase_ts_knob_train(
             torch, k1, k2, k5, k8, _build, "TimeSformer 24 heads of 32", {},
-            {fa.KERNEL_QKV: 2 * DEPTH, fa.KERNEL_QKV_BWD: DEPTH,
-             fa.KERNEL_T: 2 * DEPTH, fa.KERNEL_T_BWD: DEPTH}, False, (),
+            {fa.KERNEL_QKV: DEPTH, fa.KERNEL_QKV_BWD: DEPTH,
+             fa.KERNEL_T: DEPTH, fa.KERNEL_T_BWD: DEPTH}, False, (),
             HEAD_DIM_STEPS)
     for rec in records:
         rec["launches"] = launches.get(rec["name"], 0)
@@ -2859,7 +2894,7 @@ def check_mvit_d72(torch, k5) -> None:
 def phase_mvit_d72(torch, k1, k2, k5, k8, _build) -> dict:
     """Slice 8: K5 and K6 at head dim 72 against their plain versions
     (:func:`check_mvit_d72`), then MViT-v2-S's block plan at width 144 in 2
-    heads of 72 (remat): every block on K5 or K6 (two forwards and one
+    heads of 72 (remat): every block on K5 or K6 (one forward and one
     backward a step), no other MViT kernel; one step against the plain
     path."""
     check_mvit_d72(torch, k5)
@@ -2876,9 +2911,9 @@ def phase_mvit_d72(torch, k1, k2, k5, k8, _build) -> dict:
     n = HEAD_DIM_STEPS
     fwd = launches.get(k5.KERNEL_HL, 0) + launches.get(k5.KERNEL, 0)
     bwd = launches.get(k5.KERNEL_HL_BWD, 0) + launches.get(k5.KERNEL_BWD, 0)
-    if fwd != 2 * MVIT_BLOCKS * n or bwd != MVIT_BLOCKS * n:
+    if fwd != MVIT_BLOCKS * n or bwd != MVIT_BLOCKS * n:
         fail(f"MViT d 72: {fwd} K5f/K6f and {bwd} K5b/K6b launches, "
-             f"expected {2 * MVIT_BLOCKS * n} and {MVIT_BLOCKS * n}")
+             f"expected {MVIT_BLOCKS * n} and {MVIT_BLOCKS * n}")
     others = set(mvit_kernel_names(k5, k8)) - {
         k5.KERNEL_HL, k5.KERNEL, k5.KERNEL_HL_BWD, k5.KERNEL_BWD}
     check_launches(launches, dict.fromkeys(others, 0), "the MViT d 72 steps")
@@ -3459,11 +3494,11 @@ def phase_shifts(torch, k1, k2, k5, k8, fa, _build, clamp: dict) -> list:
     ts = phase_ts_knob_train(
         torch, k1, k2, k5, k8, _build,
         "TimeSformer SPATIAL_SHIFT=max TEMPORAL_SHIFT=max", TS_MAX,
-        {k1.KERNEL_PROBS: 2 * DEPTH, k1.KERNEL_BWD: DEPTH,
-         k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH}, False, (), n)
+        {k1.KERNEL_PROBS: DEPTH, k1.KERNEL_BWD: DEPTH,
+         k2.KERNEL: DEPTH, k2.KERNEL_BWD: DEPTH}, False, (), n)
     with knobs_set(MVIT_MAX):
         mv = mvit_train(torch, k1, k2, k5, k8, _build, "MViT MVIT_SHIFT=max",
-                        n, {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL: 2 * hs * n,
+                        n, {k5.KERNEL_HL: hl * n, k5.KERNEL: hs * n,
                             k5.KERNEL_HL_BWD: hl * n, k5.KERNEL_BWD: hs * n})
     ev = phase_slice(torch, k1, k2, k5, k8, _build, ALL_NONE,
                      ("TEST.NUM_ENSEMBLE_VIEWS", "1",
@@ -3477,6 +3512,362 @@ def phase_shifts(torch, k1, k2, k5, k8, fa, _build, clamp: dict) -> list:
         if not rec["launches"]:
             fail(f"{rec['name']} was not launched on the slice 16 paths")
     return records
+
+
+def ek_cfg(*opts):
+    """``configs/EK/egocentric_action_classification.yaml`` at its shipped
+    width with synthetic data (``EK_OPTS``) and ``opts``."""
+    from procedurevrl_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, EK_CFG), [*EK_OPTS, *opts])
+
+
+def ek_kernels(torch, F, k1, train: dict, test: dict) -> list:
+    """K1sp and K1b on EK's training micro-batch (32 clips x 32 frames:
+    ``[1024, 196, 2304]`` + CLS) and K1f on its test batch (16 clips:
+    ``[512, 196, 2304]``) against their plain versions, timed beside the
+    plain versions and SDPA, with their bounds; ``kernels`` records named
+    ``<kernel>@EK`` with the launches of the EK train and test runs."""
+    heads, d, n = 12, 64, 196
+    c, L = heads * d, n + 1
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    src = "procedurevrl_torch/csrc/spatial_attention.cu"
+    e = 2  # bf16 bytes
+    records = []
+    for bt, kind in ((1024, "train"), (512, "test")):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+        qkv, qkv_c = r(bt, n, 3 * c), r(bt, 1, 3 * c)
+        x = torch.cat([qkv, qkv_c], dim=1).view(bt, L, 3, heads, d)
+        q, k, v = (x[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        shape = f"[{bt},{n},{3 * c}]"
+        if kind == "test":
+            out, out_c = k1.spatial_attention(qkv, qkv_c, heads, scale)
+            ref, ref_c = k1.spatial_attention_plain(qkv, qkv_c, heads, scale)
+            err = max(compare(torch, f"K1f EK {shape} frames", out, ref,
+                              BF16_TOL),
+                      compare(torch, f"K1f EK {shape} cls", out_c, ref_c,
+                              BF16_TOL))
+            ms = time_ms(torch, lambda: k1.spatial_attention(
+                qkv, qkv_c, heads, scale))
+            plain = time_ms(torch, lambda: k1.spatial_attention_plain(
+                qkv, qkv_c, heads, scale), iters=3, reps=5)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v))
+            nb, fl = bt * L * 4 * c * e, 2 * 2 * bt * heads * L * L * d
+            b_ms, b_by = bound_ms(nb, fl, BF16_FLOPS)
+            print(f"K1f EK {shape} bf16: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}: {nb / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP)")
+            records.append({
+                "name": f"{k1.KERNEL}@EK", "route": "cuda", "source": src,
+                "replaces": "procedurevrl_tpu/ops/pallas_attention.py:536",
+                "launches": test.get(k1.KERNEL, 0), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib})
+            continue
+        g, gc = r(bt, n, c), r(bt, 1, c)
+        out, out_c, probs = k1.spatial_attention_fwd_probs(qkv, qkv_c, heads,
+                                                           scale)
+        ref, ref_c, ref_p = k1.spatial_attention_fwd_probs_plain(
+            qkv, qkv_c, heads, scale)
+        err_sp = max(compare(torch, f"K1sp EK {shape} frames", out, ref,
+                             BF16_TOL),
+                     compare(torch, f"K1sp EK {shape} cls", out_c, ref_c,
+                             BF16_TOL),
+                     compare(torch, f"K1sp EK {shape} probs", probs, ref_p,
+                             K1K2_FWD_TOL))
+        del ref, ref_c, ref_p
+        dx, dx_c = k1.spatial_attention_bwd(qkv, qkv_c, probs, g, gc, heads,
+                                            scale)
+        rdx, rdx_c = k1.spatial_attention_bwd_plain(qkv, qkv_c, probs, g, gc,
+                                                    heads, scale)
+        err_b = max(compare(torch, f"K1b EK {shape} dqkv", dx, rdx,
+                            grad_tol(BF16_TOL, rdx)),
+                    compare(torch, f"K1b EK {shape} dqkv_c", dx_c, rdx_c,
+                            grad_tol(BF16_TOL, rdx_c)))
+        del rdx, rdx_c
+        ms_sp = time_ms(torch, lambda: k1.spatial_attention_fwd_probs(
+            qkv, qkv_c, heads, scale))
+        plain_sp = time_ms(torch, lambda: k1.spatial_attention_fwd_probs_plain(
+            qkv, qkv_c, heads, scale), iters=3, reps=5)
+        ms_b = time_ms(torch, lambda: k1.spatial_attention_bwd(
+            qkv, qkv_c, probs, g, gc, heads, scale))
+        plain_b = time_ms(torch, lambda: k1.spatial_attention_bwd_plain(
+            qkv, qkv_c, probs, g, gc, heads, scale), iters=2, reps=5)
+        gy = torch.cat([g, gc], dim=1).view(bt, L, heads, d).transpose(1, 2)
+        lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, gy.contiguous())
+        ls = k1.probs_stride(L)
+        nb_sp = bt * L * 4 * c * e + bt * heads * L * ls * e
+        fl_sp = 2 * 2 * bt * heads * L * L * d
+        nb_b = bt * L * 7 * c * e + bt * heads * L * ls * e
+        fl_b = 4 * 2 * bt * heads * L * L * d
+        b_sp, by_sp = bound_ms(nb_sp, fl_sp, BF16_FLOPS)
+        b_b, by_b = bound_ms(nb_b, fl_b, BF16_FLOPS)
+        print(f"K1sp EK {shape} bf16: kernel {ms_sp:.4f} ms, plain "
+              f"{plain_sp:.4f} ms, SDPA fwd {lib_fwd:.4f} ms, bound "
+              f"{b_sp:.4f} ms ({by_sp}: {nb_sp / 1e6:.1f} MB)")
+        print(f"K1b EK {shape} bf16: kernel {ms_b:.4f} ms, plain "
+              f"{plain_b:.4f} ms, SDPA bwd {lib_bwd:.4f} ms, bound "
+              f"{b_b:.4f} ms ({by_b}: {nb_b / 1e6:.1f} MB)")
+        records += [
+            {"name": f"{k1.KERNEL_PROBS}@EK", "route": "cuda", "source": src,
+             "replaces": "procedurevrl_tpu/ops/pallas_attention.py:917",
+             "launches": train.get(k1.KERNEL_PROBS, 0), "max_abs_err": err_sp,
+             "ms": ms_sp, "plain_ms": plain_sp, "bound_ms": b_sp,
+             "bound_by": by_sp, "library_ms": lib_fwd},
+            {"name": f"{k1.KERNEL_BWD}@EK", "route": "cuda", "source": src,
+             "replaces": "procedurevrl_tpu/ops/pallas_attention.py:941",
+             "launches": train.get(k1.KERNEL_BWD, 0), "max_abs_err": err_b,
+             "ms": ms_b, "plain_ms": plain_b, "bound_ms": b_b,
+             "bound_by": by_b, "library_ms": lib_bwd}]
+        del qkv, qkv_c, g, gc, probs, dx, dx_c, out, out_c, x, q, k, v, gy
+        torch.cuda.empty_cache()
+    return records
+
+
+def step_peak(torch, cfg):
+    """Peak device memory (bytes) of building ``cfg``'s model and taking one
+    micro-batch train step, None where the card runs out of memory."""
+    import gc
+
+    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.solver.lr_policy import lr_schedule
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+
+    batch = SyntheticClips(cfg, "train").batch(
+        cfg.TRAIN.BATCH_SIZE, 0, torch.Generator(device="cuda"))
+    model = step = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model, _ = build_model(cfg, "cuda")
+        step = make_train_step(model, construct_optimizer(model, cfg), cfg,
+                               None, lr_schedule(cfg, 1))
+        float(step(batch)["loss"])
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        del model, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_ek(torch, F, k1, k2, k5, k8, _build) -> list:
+    """Slice 17, the EPIC-Kitchens-100 full finetune at its shipped width:
+    ``train_net.train`` on ``EK_CFG`` (TimeSformer-B, 32 frames at 224^2,
+    verb + noun heads, AdamW, bf16, remat under the default policy, mixup
+    set and not applied) for ``EK_STEPS`` optimizer steps of 4 micro-batches
+    of 32 clips, which ends with a val epoch (2 batches of 32); per
+    micro-batch 12 K1sp and 12 K1b, per val batch 12 K1f, and no K2 (T > 16
+    takes the plain temporal pass) or other port kernel; one micro-batch
+    step against the plain path and profiled; then ``test_net.test`` on 64
+    videos x 1 view in 4 batches of 16 clips (12 K1f a batch), its verb and
+    noun logits on one batch against the plain path relative to their
+    scale; the peak memory of one micro-batch step under the default
+    policy, ``REMAT_SAVE_ATTN False`` and without remat; K1sp / K1b / K1f
+    at EK's shapes (:func:`ek_kernels`)."""
+    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    from procedurevrl_torch.engine.steps import make_eval_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.tools.test_net import test
+
+    if any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 33 runs the default route: unset {list(TS_KNOBS)}")
+    cfg = ek_cfg()
+    if cfg.TRAIN.DATASET != "Epickitchens" or not cfg.MIXUP.ENABLED:
+        fail(f"{EK_CFG} is no EPIC finetune with mixup")
+    accum = cfg.GLOBAL_BATCH_SIZE // cfg.TRAIN.BATCH_SIZE
+    t0 = time.perf_counter()
+    stats, launches, peak = run_train(torch, _build, cfg, EK_STEPS)
+    wall = time.perf_counter() - t0
+    for i, h in enumerate(stats["history"]):
+        print(f"EK step {i + 1}: loss {h['loss']:.6f} verb_loss "
+              f"{h['verb_loss']:.6f} noun_loss {h['noun_loss']:.6f} "
+              f"grad_norm {h['grad_norm']:.4f} verb_top1_acc "
+              f"{h['verb_top1_acc']:.2f} noun_top1_acc "
+              f"{h['noun_top1_acc']:.2f} top1_acc {h['top1_acc']:.2f} lr "
+              f"{h['lr']:.3e}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "verb_loss",
+                                                 "noun_loss", "grad_norm")):
+            fail(f"EK step {i + 1} is not finite")
+    if len(stats["history"]) != EK_STEPS or len(stats["val"]) != 1:
+        fail(f"EK: {len(stats['history'])} steps and {len(stats['val'])} "
+             f"val epochs, expected {EK_STEPS} and 1")
+    val = stats["val"][0]
+    for k in ("verb_top1_acc", "noun_top1_acc", "top1_acc", "top5_acc"):
+        if not 0.0 <= val[k] <= 100.0:
+            fail(f"EK val {k} {val[k]}")
+    n_val = SyntheticClips(cfg, "val").num_batches(cfg.TRAIN.BATCH_SIZE)
+    micro = EK_STEPS * accum
+    print(f"EK train: {EK_STEPS} steps of {accum} micro-batches x "
+          f"{cfg.TRAIN.BATCH_SIZE} clips x {cfg.DATA.NUM_FRAMES} frames at "
+          f"{cfg.DATA.TRAIN_CROP_SIZE}^2, a val epoch of {n_val} batches "
+          f"(verb / noun / action top-1 {val['verb_top1_acc']:.2f} / "
+          f"{val['noun_top1_acc']:.2f} / {val['top1_acc']:.2f}), wall "
+          f"{wall:.1f} s (model build and val included), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
+    expected = dict.fromkeys(k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8),
+                             0)
+    expected.update({k1.KERNEL_PROBS: DEPTH * micro,
+                     k1.KERNEL_BWD: DEPTH * micro, k1.KERNEL: DEPTH * n_val})
+    check_launches(launches, expected, f"{EK_STEPS} EK steps and a val epoch")
+    step, batch = step_vs_plain(torch, cfg, k1, k2, k5, k8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profile_step(torch, f"one EK micro-batch step ({cfg.TRAIN.BATCH_SIZE} "
+                 f"clips x {cfg.DATA.NUM_FRAMES} frames, remat)",
+                 lambda: float(step(batch)["loss"]))
+    print(f"EK profiled micro-batch step peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    del step, batch
+    torch.cuda.empty_cache()
+
+    tcfg = ek_cfg(*EK_TEST_OPTS)
+    dataset = SyntheticClips(tcfg, "test")
+    n_batches = dataset.num_batches(tcfg.TEST.BATCH_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with job_dir(tcfg):
+        tstats = test(tcfg, device="cuda")
+        torch.cuda.synchronize()
+    tl = dict(_build.LAUNCHES)
+    print(f"EK test: {len(dataset)} clips in {n_batches} batches of "
+          f"{tcfg.TEST.BATCH_SIZE}, {tstats['clips_per_sec']:.2f} clips/s "
+          f"over batches 2..{n_batches}, stats "
+          f"{ {k: v for k, v in tstats.items() if k.endswith('_acc')} }, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB, launches {tl}")
+    if n_batches < 4:
+        fail(f"EK test: {n_batches} batches, expected at least 4")
+    expected = dict.fromkeys(k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8),
+                             0)
+    expected[k1.KERNEL] = DEPTH * n_batches
+    check_launches(tl, expected, "the EK test")
+    for key in ("verb", "noun", "action"):
+        if not 0.0 <= float(tstats[f"{key}_top1_acc"]) <= float(
+                tstats[f"{key}_top5_acc"]) <= 100.0:
+            fail(f"EK test {key} accuracies {tstats}")
+    model, _ = build_model(tcfg, "cuda")
+    estep = make_eval_step(model, tcfg, None)
+    b = next(dataset.batches(tcfg.TEST.BATCH_SIZE, "cuda"))
+    got = estep(b)
+    with plain_attention(k1, k2, k5, k8):
+        ref = estep(b)
+    torch.cuda.synchronize()
+    for name, classes, gv, rv in zip(("verb", "noun"), (97, 300), got, ref):
+        if gv.shape != (tcfg.TEST.BATCH_SIZE, classes):
+            fail(f"EK {name} logits have shape {tuple(gv.shape)}")
+        if not bool(torch.isfinite(gv).all()):
+            fail(f"EK {name} logits are not finite")
+        scale = rv.abs().max().item()
+        rel = (gv - rv).abs().max().item() / scale
+        agree = (gv.argmax(1) == rv.argmax(1)).float().mean().item()
+        print(f"EK test batch {name} logits vs plain versions: max |d| "
+              f"{rel * scale:.3e} over max |x| {scale:.4f} = {rel:.3e} "
+              f"(max {EPIC_LOGIT_RTOL}), top-1 agreement {agree:.3f}")
+        if rel > EPIC_LOGIT_RTOL:
+            fail(f"EK {name} logits through the kernels disagree with the "
+                 f"plain path")
+    del model, estep, b, got, ref
+    torch.cuda.empty_cache()
+
+    for label, opts in (("default policy", ()),
+                        ("REMAT_SAVE_ATTN False",
+                         ("TPU.REMAT_SAVE_ATTN", "False")),
+                        ("REMAT False", ("TPU.REMAT", "False"))):
+        mem = step_peak(torch, ek_cfg(*opts))
+        print(f"EK one micro-batch step, {label}: peak memory "
+              + ("does not fit (OutOfMemoryError)" if mem is None
+                 else f"{mem / 2 ** 30:.3f} GiB"))
+    return ek_kernels(torch, F, k1, launches, tl)
+
+
+def phase_remat(torch, k1, k2, k5, k8, _build) -> None:
+    """Slice 17, the remat policies: the default TimeSformer-B
+    order-pretraining step (``procedurevrl_adamw.yaml``, 2 samples x 9
+    clips) under ``TPU.REMAT_SAVE_ATTN True`` (K1sp and K2f once per block
+    a step) and ``False`` (twice), each after ``POLICY_STEPS`` warm-up
+    steps: one step's launches and its peak memory above the resident
+    state, and device busy profiled in the order True, False, False, True;
+    then 2 steps of
+    ``configs/HowTo100M/procedurevrl_sgd.yaml``."""
+    from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.solver.lr_policy import lr_schedule
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+
+    if any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 34 runs the default route: unset {list(TS_KNOBS)}")
+    steps = {}
+    for keep in (True, False):
+        cfg = train_cfg(True, "TPU.REMAT_SAVE_ATTN", str(keep))
+        model, bank = build_model(cfg, "cuda")
+        step = make_train_step(model, construct_optimizer(model, cfg), cfg,
+                               bank, lr_schedule(cfg, 1))
+        batch = SyntheticPretrain(cfg).batch(2, 0,
+                                             torch.Generator(device="cuda"))
+        for _ in range(POLICY_STEPS):
+            float(step(batch)["loss"])
+        torch.cuda.synchronize()
+        # the other policy's model stays resident: read the step's own
+        # peak above what is allocated before it
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        loss = float(step(batch)["loss"])
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - resident
+        fwd = DEPTH if keep else 2 * DEPTH
+        expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
+        expected.update({k1.KERNEL_PROBS: fwd, k2.KERNEL: fwd,
+                         k1.KERNEL_BWD: DEPTH, k2.KERNEL_BWD: DEPTH})
+        check_launches(launches, expected,
+                       f"one step under REMAT_SAVE_ATTN {keep}")
+        print(f"REMAT_SAVE_ATTN {keep}: loss {loss:.6f}, the step's peak "
+              f"memory above the resident state {peak / 2 ** 30:.3f} GiB "
+              f"(resident {resident / 2 ** 30:.3f} GiB), launches "
+              f"{launches}")
+        steps[keep] = (step, batch)
+    busy = {True: [], False: []}
+    for keep in (True, False, False, True):
+        step, batch = steps[keep]
+        busy[keep].append(profile_step(
+            torch, f"one train step (18 clips, REMAT_SAVE_ATTN {keep})",
+            lambda: float(step(batch)["loss"]), top=6))
+    print(f"device busy by policy (ms): REMAT_SAVE_ATTN True {busy[True]}, "
+          f"False {busy[False]}")
+    del steps, step, batch
+    torch.cuda.empty_cache()
+
+    from procedurevrl_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, SGD_CFG), [
+        "DEV.LOAD_DUMMY_DATA", "True", "TRAIN.BATCH_SIZE", "2",
+        "GLOBAL_BATCH_SIZE", "2"])
+    if cfg.SOLVER.OPTIMIZING_METHOD != "sgd":
+        fail(f"{SGD_CFG} is no SGD config")
+    stats, launches, peak = run_train(torch, _build, cfg, 2)
+    for i, h in enumerate(stats["history"]):
+        print(f"SGD pretraining step {i + 1}: loss {h['loss']:.6f} kl "
+              f"{h['kl']:.6f} mse {h['mse']:.6f} grad_norm "
+              f"{h['grad_norm']:.4f} lr {h['lr']:.3e}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "kl", "mse",
+                                                 "grad_norm")):
+            fail(f"SGD pretraining step {i + 1} is not finite")
+    expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
+    expected.update({key: 2 * DEPTH for key in (
+        k1.KERNEL_PROBS, k2.KERNEL, k1.KERNEL_BWD, k2.KERNEL_BWD)})
+    check_launches(launches, expected, "2 SGD pretraining steps")
+    print(f"SGD pretraining ({SGD_CFG}): 2 steps, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
 
 
 def main() -> int:
@@ -3548,14 +3939,14 @@ def main() -> int:
     by_name[k1.KERNEL_PIPE]["launches"] = launches.get(k1.KERNEL_PIPE, 0)
     launches = timed("15 slice 5 route A", phase_ts_knob_train, torch, k1, k2,
                      k5, k8, _build, "route A", ROUTE_A,
-                     {k1.KERNEL_PIPE: 2 * DEPTH, k1.KERNEL_BWD_RECOMPUTE: DEPTH,
-                      k2.KERNEL_V3: 2 * DEPTH, k2.KERNEL_V3_BWD: DEPTH}, True)
+                     {k1.KERNEL_PIPE: DEPTH, k1.KERNEL_BWD_RECOMPUTE: DEPTH,
+                      k2.KERNEL_V3: DEPTH, k2.KERNEL_V3_BWD: DEPTH}, True)
     for key in (k1.KERNEL_BWD_RECOMPUTE, k2.KERNEL_V3, k2.KERNEL_V3_BWD):
         by_name[key]["launches"] = launches.get(key, 0)
     launches = timed("16 slice 5 route B", phase_ts_knob_train, torch, k1, k2,
                      k5, k8, _build, "route B", ROUTE_B,
-                     {k1.KERNEL_PROBS: 2 * DEPTH, k1.KERNEL_BWD_DELTA: DEPTH,
-                      k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH}, True)
+                     {k1.KERNEL_PROBS: DEPTH, k1.KERNEL_BWD_DELTA: DEPTH,
+                      k2.KERNEL: DEPTH, k2.KERNEL_BWD: DEPTH}, True)
     by_name[k1.KERNEL_BWD_DELTA]["launches"] = launches.get(
         k1.KERNEL_BWD_DELTA, 0)
     for rec in ts_knob_kernels:
@@ -3565,18 +3956,18 @@ def main() -> int:
                           torch, F, k5)
     by_name = {rec["name"]: rec for rec in route_kernels}
     n, hl, hs = ROUTE_STEPS, MVIT_HL_BLOCKS, MVIT_HS_BLOCKS
-    # remat: each K6 block's forward and its recomputation run K6sp on
-    # route D, and K6f on route C
+    # remat keeps the forward kernels' outputs: each K6 block runs K6sp
+    # (route D) or K6f (route C) once a step
     launches = timed("18 slice 6 route C", phase_route_train, torch, k1, k2,
                      k5, k8, _build, "MViT route C", ROUTE_C,
-                     {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL: 2 * hs * n,
+                     {k5.KERNEL_HL: hl * n, k5.KERNEL: hs * n,
                       k5.KERNEL_HL_BWD_DELTA: hl * n,
                       k5.KERNEL_BWD_DELTA: hs * n})
     for key in (k5.KERNEL_HL_BWD_DELTA, k5.KERNEL_BWD_DELTA):
         by_name[key]["launches"] = launches.get(key, 0)
     launches = timed("19 slice 6 route D", phase_route_train, torch, k1, k2,
                      k5, k8, _build, "MViT route D", ROUTE_D,
-                     {k5.KERNEL_HL: 2 * hl * n, k5.KERNEL_PROBS: 2 * hs * n,
+                     {k5.KERNEL_HL: hl * n, k5.KERNEL_PROBS: hs * n,
                       k5.KERNEL_HL_BWD_DELTA: hl * n,
                       k5.KERNEL_BWD_PROBS: hs * n})
     for key in (k5.KERNEL_PROBS, k5.KERNEL_BWD_PROBS):
@@ -3591,16 +3982,16 @@ def main() -> int:
           SPACE_ONLY + ("TEST.NUM_ENSEMBLE_VIEWS", "1"), (fa.KERNEL,))
     launches = timed("23 slice 7 space_only", phase_ts_knob_train, torch, k1,
                      k2, k5, k8, _build, "space_only train", {},
-                     {fa.KERNEL: 2 * DEPTH, fa.KERNEL_BWD: DEPTH}, True,
+                     {fa.KERNEL: DEPTH, fa.KERNEL_BWD: DEPTH}, True,
                      SPACE_ONLY, SLICE7_STEPS)
     by_name = {rec["name"]: rec for rec in flash_kernels}
     for key in (fa.KERNEL, fa.KERNEL_BWD):
         by_name[key]["launches"] = launches.get(key, 0)
     launches = timed("24 slice 7 split qkv", phase_ts_knob_train, torch, k1,
                      k2, k5, k8, _build, "SPATIAL_FUSED_QKV=0 train",
-                     SPLIT_QKV, {fa.KERNEL_CLS: 2 * DEPTH,
+                     SPLIT_QKV, {fa.KERNEL_CLS: DEPTH,
                                  fa.KERNEL_CLS_BWD: DEPTH,
-                                 k2.KERNEL: 2 * DEPTH, k2.KERNEL_BWD: DEPTH},
+                                 k2.KERNEL: DEPTH, k2.KERNEL_BWD: DEPTH},
                      True, (), SLICE7_STEPS)
     for key in (fa.KERNEL_CLS, fa.KERNEL_CLS_BWD):
         by_name[key]["launches"] = launches.get(key, 0)
@@ -3629,9 +4020,14 @@ def main() -> int:
              + mvit_kernels}
     shift_kernels = timed("32 slice 16 shifts", phase_shifts, torch, k1, k2,
                           k5, k8, fa, _build, clamp)
+    ek_kernel_recs = timed("33 slice 17 EPIC-Kitchens", phase_ek, torch, F,
+                           k1, k2, k5, k8, _build)
+    timed("34 slice 17 remat policies", phase_remat, torch, k1, k2, k5, k8,
+          _build)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
-               + long_kernels + head_dim_kernels + shift_kernels)
+               + long_kernels + head_dim_kernels + shift_kernels
+               + ek_kernel_recs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -10,7 +10,11 @@ so the host moves no frames.  Real decoding comes in a later slice.
   label ``video % NUM_CLASSES``; uint8 frames ``[T * max(NUM_SEG, 1), S, S,
   3]`` (S = ``DATA.TRAIN_CROP_SIZE`` in train, ``DATA.TEST_CROP_SIZE``
   otherwise): a forecasting sample is its ``NUM_SEG`` observed clips of T
-  frames end to end.
+  frames end to end.  The EPIC-Kitchens splits (``TRAIN.DATASET``, for
+  test ``TEST.DATASET``, ``Epickitchens``) are the JAX dummy split's
+  (``procedurevrl_tpu/datasets/epickitchens.py:115-126``): video ``v``
+  has verb ``v % 97`` and noun ``v % 300``, the batches ``verb`` and
+  ``noun`` in place of ``labels``.
 - :class:`SyntheticPretrain`, the order-pretraining train split: the batch
   ``bench.py`` builds (:366-374) for each step.  A sample is
   ``ORDER_PRETRAIN_MAX_LEN`` (M = 9) clips: uint8 frames
@@ -24,6 +28,8 @@ from __future__ import annotations
 from typing import Dict, Iterator, Union
 
 import torch
+
+from procedurevrl_torch.models.procedurevrl import EPIC_NOUNS, EPIC_VERBS
 
 NUM_VIDEOS = 64
 TEXT_LEN = 77  # CLIP context length
@@ -49,12 +55,25 @@ class SyntheticClips:
         self.size = (cfg.DATA.TRAIN_CROP_SIZE if split == "train"
                      else cfg.DATA.TEST_CROP_SIZE)
         self.seed = cfg.RNG_SEED
+        dataset = cfg.TEST.DATASET if split == "test" else cfg.TRAIN.DATASET
+        self.epic = dataset == "Epickitchens"
 
     def __len__(self) -> int:
         return NUM_VIDEOS * self.num_clips * self.epochs
 
+    def video(self, index: int) -> int:
+        return (index // self.num_clips) % NUM_VIDEOS
+
     def label(self, index: int) -> int:
-        return (index // self.num_clips) % NUM_VIDEOS % self.num_classes
+        return self.video(index) % self.num_classes
+
+    def labels(self, idx) -> Dict[str, list]:
+        """The label lists of clips ``idx``: ``labels``, or EPIC's ``verb``
+        and ``noun``."""
+        if self.epic:
+            return {"verb": [self.video(i) % EPIC_VERBS for i in idx],
+                    "noun": [self.video(i) % EPIC_NOUNS for i in idx]}
+        return {"labels": [self.label(i) for i in idx]}
 
     def clip(self, index: int, generator: torch.Generator) -> torch.Tensor:
         """uint8 frames [T * max(NUM_SEG, 1), S, S, 3] of clip ``index``, on
@@ -76,17 +95,19 @@ class SyntheticClips:
               generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """Batch ``index`` of an epoch in index order, on the generator's
         device: ``frames`` [b, T * max(NUM_SEG, 1), S, S, 3] uint8,
-        ``labels`` and ``index`` [b] int64 (the last val or test batch may
-        be short).  An index past the epoch's last batch counts on into the
+        ``labels`` (EPIC: ``verb`` and ``noun``) and ``index`` [b] int64
+        (the last val or test batch may be short).  An index past the
+        epoch's last batch counts on into the
         next epochs, which hold the same samples."""
         start = index % self.num_batches(batch_size) * batch_size
         idx = list(range(start, min(start + batch_size, len(self))))
         dev = generator.device
-        return {
-            "frames": torch.stack([self.clip(i, generator) for i in idx]),
-            "labels": torch.tensor([self.label(i) for i in idx], device=dev),
-            "index": torch.tensor(idx, device=dev),
-        }
+        batch = {"frames": torch.stack([self.clip(i, generator)
+                                        for i in idx]),
+                 "index": torch.tensor(idx, device=dev)}
+        for key, vals in self.labels(idx).items():
+            batch[key] = torch.tensor(vals, device=dev)
+        return batch
 
     def batches(self, batch_size: int,
                 device: Union[str, torch.device]) -> Iterator[Dict]:

@@ -7,8 +7,8 @@
   pair;
 - finetuning: mean cross-entropy, label-smoothing CE (0.2, ``smooth``),
   soft-target CE, BCE on probabilities or logits, and MIL-NCE (unwired, as
-  in the reference), by name through :func:`get_loss_func`.
-EPIC-Kitchens' verb + noun loss comes with the EPIC slice.
+  in the reference), by name through :func:`get_loss_func`;
+- EPIC-Kitchens: :func:`epic_loss`, the mean of the verb and noun losses.
 """
 
 from __future__ import annotations
@@ -107,6 +107,17 @@ def milnce(video_emb: torch.Tensor, text_emb: torch.Tensor) -> torch.Tensor:
     pos = cols[None, :] // n == torch.arange(x.shape[0], device=x.device)[:, None]
     nominator = torch.logsumexp(x.masked_fill(~pos, float("-inf")), dim=1)
     return (torch.logsumexp(x, dim=1) - nominator).mean()
+
+
+def epic_loss(verb_logits: torch.Tensor, noun_logits: torch.Tensor,
+              verb_labels: torch.Tensor, noun_labels: torch.Tensor,
+              loss_fn: Callable = cross_entropy
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """0.5 (verb loss + noun loss); returns (total, verb, noun) (JAX
+    ``engine/losses.py:124-135``, reference ``tools/train_net.py:166-169``)."""
+    lv = loss_fn(verb_logits, verb_labels)
+    ln = loss_fn(noun_logits, noun_labels)
+    return 0.5 * (lv + ln), lv, ln
 
 
 _LOSSES = {"cross_entropy": cross_entropy,

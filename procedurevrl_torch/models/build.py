@@ -11,7 +11,11 @@ finetuning config names ``DEV.TEST_LANG_EMB`` only for its width; JAX
 builds the order transformer and, with ``MODEL.TEXT_MODEL clip_vit_b_16``,
 the CLIP text tower; ``MODEL.NUM_SEG > 0`` builds the order transformer
 for forecasting; ``DEV.MATCH_LANG_EMB False`` (and no ``TRAIN.LABEL_EMB``)
-a ``MODEL.NUM_CLASSES`` finetuning head (JAX ``build.py:_common_kwargs``).
+a ``MODEL.NUM_CLASSES`` finetuning head, or under ``TRAIN.DATASET
+Epickitchens`` the verb and noun heads (JAX ``build.py:_common_kwargs``).
+``TPU.REMAT`` checkpoints the encoder's blocks, TimeSformer's under the
+policy of ``TPU.REMAT_SAVE_ATTN`` / ``_QKV`` / ``_TEMPORAL``, MViT's under
+JAX's fixed one (``ops/remat.py``).
 Under ``DEV.LOAD_DUMMY_DATA`` a missing bank file is replaced by a seeded
 ``NUM_CLASSES x 512`` random bank, as the JAX package's ``build_model`` does.
 """
@@ -74,7 +78,9 @@ def _head_kwargs(cfg) -> dict:
         num_seg=cfg.MODEL.NUM_SEG,
         with_text_model=cfg.MODEL.TEXT_MODEL == "clip_vit_b_16",
         text_layers=cfg.DEV.TEXT_LAYERS,
-        compute_dtype=compute_dtype(cfg))
+        compute_dtype=compute_dtype(cfg),
+        epic_heads=(cfg.TRAIN.DATASET == "Epickitchens"
+                    and not _match_lang(cfg)))
 
 
 def _build_timesformer(cfg) -> torch.nn.Module:
@@ -91,6 +97,9 @@ def _build_timesformer(cfg) -> torch.nn.Module:
         attention_type=cfg.TIMESFORMER.ATTENTION_TYPE,
         drop_path_rate=cfg.MODEL.DROP_PATH, remat=cfg.TPU.REMAT,
         route=AttentionRoute.from_env(cfg.TPU.USE_PALLAS_ATTENTION),
+        remat_save_attn=cfg.TPU.REMAT_SAVE_ATTN,
+        remat_save_qkv=cfg.TPU.REMAT_SAVE_QKV,
+        remat_save_temporal=cfg.TPU.REMAT_SAVE_TEMPORAL,
         **_head_kwargs(cfg))
 
 
@@ -116,10 +125,6 @@ def build_model(cfg, device: Union[str, torch.device, None] = None
     if cfg.MODEL.MODEL_NAME not in MODELS:
         raise NotImplementedError(
             f"model {cfg.MODEL.MODEL_NAME} is not ported yet")
-    if cfg.TRAIN.DATASET == "Epickitchens" and not _match_lang(cfg):
-        raise NotImplementedError(
-            "EPIC-Kitchens' verb and noun heads (head_v, head_n) are not "
-            "ported yet: they come with the EPIC slice")
     model = MODELS[cfg.MODEL.MODEL_NAME](cfg)
     model.reset_parameters(torch.Generator().manual_seed(cfg.RNG_SEED))
     model = model.to(device).eval()

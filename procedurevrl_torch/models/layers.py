@@ -9,6 +9,7 @@ in the dtype of the activations, with the weights cast at each product.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 from procedurevrl_torch.ops.attention import mhsa, mhsa_cls, mhsa_temporal
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 from procedurevrl_torch.ops.common import (
-    gelu_exact, layer_norm_fp32, quick_gelu, trunc_normal_init,
+    gelu_exact, gelu_exact_stored, layer_norm_fp32, quick_gelu,
+    trunc_normal_init,
 )
 
 
@@ -47,20 +49,31 @@ def init_linear(layer: nn.Linear, generator: Optional[torch.Generator]
         nn.init.zeros_(layer.bias)
 
 
-class Mlp(nn.Module):
-    """Transformer MLP with exact GELU (reference ``lib/models/vit.py:44-60``)."""
+def gelu_stored_from_env() -> bool:
+    """``GELU_STORED=1``: the encoders' MLPs take the stored-derivative GELU
+    (JAX ``models/layers.py:18-25``, which reads the variable once at
+    import; the encoders read it once at build)."""
+    return os.environ.get("GELU_STORED") == "1"
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int):
+
+class Mlp(nn.Module):
+    """Transformer MLP with exact GELU (reference ``lib/models/vit.py:44-60``);
+    with ``gelu_stored`` the GELU keeps its derivative from the forward
+    (``ops/common.py:gelu_exact_stored``)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 gelu_stored: bool = False):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, out_dim)
+        self.act = gelu_exact_stored if gelu_stored else gelu_exact
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         init_linear(self.fc1, generator)
         init_linear(self.fc2, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class Attention(nn.Module):

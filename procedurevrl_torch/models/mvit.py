@@ -59,9 +59,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from procedurevrl_torch.models.layers import (
-    DropPath, LayerNormFp32, Linear, Mlp, init_linear,
+    DropPath, LayerNormFp32, Linear, Mlp, gelu_stored_from_env, init_linear,
 )
 from procedurevrl_torch.ops import depthwise_pool as dpool
+from procedurevrl_torch.ops import remat
 from procedurevrl_torch.ops import mvit_attention as mattn
 from procedurevrl_torch.ops.attention_route import read_shift
 from procedurevrl_torch.ops.common import (
@@ -71,6 +72,11 @@ from procedurevrl_torch.utils.env import env_flag
 
 Thw = Tuple[int, int, int]
 POOL_ROUTES = ("conv", "kernel", "taps")
+# what a block keeps across its recomputation (JAX models/mvit.py:958-962,
+# ops/remat.py); JAX's fifth name, "mvit_rel", exists only under
+# MVIT_SAVE_REL, which the port does not read yet
+REMAT_NAMES = ("flash_attn_out", "flash_attn_lse", "flash_attn_probs",
+               "gelu_grad")
 
 
 def pool_route_from_env() -> str:
@@ -654,7 +660,8 @@ class MultiScaleBlock(nn.Module):
                  rel_pos_temporal: bool = False,
                  residual_pooling: bool = False,
                  dim_mul_in_att: bool = False,
-                 route: MViTRoute = DEFAULT_ROUTE):
+                 route: MViTRoute = DEFAULT_ROUTE,
+                 gelu_stored: bool = False):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
         self.dim_mul_in_att = dim_mul_in_att
@@ -668,7 +675,8 @@ class MultiScaleBlock(nn.Module):
             rel_pos_spatial, rel_pos_temporal, residual_pooling, route)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = LayerNormFp32(att_dim, eps=1e-6)
-        self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out)
+        self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out,
+                       gelu_stored)
         self.proj = Linear(dim, dim_out) if dim != dim_out else None
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
@@ -731,12 +739,16 @@ class MViTEncoder(nn.Module):
     ``[B, D_final]``.
 
     With ``remat`` (``TPU.REMAT``) each block runs under
-    ``torch.utils.checkpoint`` when gradients are recorded and is
-    recomputed whole for the backward, attention kernels included (the JAX
-    policy keeps the attention outputs; a selective policy is later
-    work)."""
+    ``torch.utils.checkpoint`` when gradients are recorded, with JAX's
+    fixed MViT policy (:data:`REMAT_NAMES`; JAX ``models/mvit.py:953-963``
+    reads no ``REMAT_SAVE_*`` knob): the attention kernels' outputs, their
+    row statistics and probabilities and the stored GELU derivative are
+    kept, the rest of the block (the pools included) is recomputed for the
+    backward.  ``gelu_stored`` picks the MLPs' GELU (``GELU_STORED``, read
+    here once by default)."""
 
-    def __init__(self, cfg: MViTConfig, remat: bool = False):
+    def __init__(self, cfg: MViTConfig, remat: bool = False,
+                 gelu_stored: Optional[bool] = None):
         super().__init__()
         if cfg.norm_stem or cfg.use_mean_pooling or not cfg.cls_embed_on:
             raise NotImplementedError(
@@ -744,6 +756,8 @@ class MViTEncoder(nn.Module):
                 "token are not ported (no shipped configuration sets them)")
         self.cfg = cfg
         self.remat = remat
+        if gelu_stored is None:
+            gelu_stored = gelu_stored_from_env()
         plan, patch_dims, final_dim = cfg.block_schedule()
         self.plan, self.patch_dims = plan, tuple(patch_dims)
         D = cfg.embed_dim
@@ -773,7 +787,7 @@ class MViTEncoder(nn.Module):
                 rel_pos_temporal=cfg.rel_pos_temporal,
                 residual_pooling=cfg.residual_pooling,
                 dim_mul_in_att=cfg.dim_mul_in_att,
-                route=cfg.route)
+                route=cfg.route, gelu_stored=gelu_stored)
             for i, spec in enumerate(plan)])
         self.norm = LayerNormFp32(final_dim, eps=1e-6)
 
@@ -817,12 +831,13 @@ class MViTEncoder(nn.Module):
             B, 1, c.embed_dim), tokens], dim=1)
         if c.use_abs_pos:
             tokens = tokens + self._abs_pos().to(x.dtype)
-        remat = self.remat and torch.is_grad_enabled()
+        recompute = self.remat and torch.is_grad_enabled()
         for spec, blk in zip(self.plan, self.blocks):
             thw = tuple(spec["input_size"])
             keep = blk.draw_masks(B, x.device, generator)
-            if remat:
-                tokens = checkpoint(blk, tokens, thw, keep, use_reentrant=False)
+            if recompute:
+                tokens = checkpoint(blk, tokens, thw, keep,
+                                    **remat.checkpoint_kwargs(REMAT_NAMES))
             else:
                 tokens = blk(tokens, thw, keep)
         return self.norm(tokens)[:, 0]

@@ -18,9 +18,12 @@ Branches of the forward dispatch:
   ``order_tfm.forecast``, normalised, @ step bank / temp;
 - **finetuning** (``match_lang_emb`` False): ``head_cls`` on the normalised
   head embedding, / temp (COIN step and task classification), or on the
-  forecast of the ``num_seg`` clips with no temperature (COIN forecasting).
-Eval returns the softmax.  EPIC-Kitchens' verb and noun heads raise: they
-come with the EPIC slice.  Where no encoder parameter requires grad (the
+  forecast of the ``num_seg`` clips with no temperature (COIN forecasting);
+  with ``epic_heads`` (EPIC-Kitchens) ``head_v`` (97 verbs) and ``head_n``
+  (300 nouns) on the normalised head embedding, each / temp.
+Eval returns the softmax, but for the EPIC heads, whose ``(verb, noun)``
+logits it returns as they are (JAX ``models/procedurevrl.py:213-217``
+returns them before its softmax).  Where no encoder parameter requires grad (the
 linear probe, ``TRAIN.LINEAR``) the encoder runs without autograd: no
 recomputation under remat, the forward kernels only, and no backward
 through it, as the JAX package's ``stop_frozen_gradients`` removes it.
@@ -29,7 +32,8 @@ The state dict carries the reference ``.pyth`` keys: for TimeSformer the
 encoder is the base class (``patch_embed.*``, ``blocks.*``, ``norm.*``,
 ``cls_token``, ``pos_embed``, ``time_embed`` at the root), for MViT it sits
 under ``video_encoder.``; both add ``head.*``, ``order_tfm.*``,
-``text_model.*`` and ``head_cls.*``.
+``text_model.*`` and ``head_cls.*`` (``head_v.*`` and ``head_n.*`` for
+EPIC-Kitchens).
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ class _Heads:
       compute dtype here); forecasting (``num_seg`` M > 0): [B, M*T, H, W,
       3]; ``label_emb`` [K, label_dim] the L2-normalised step bank, needed
       where ``match_lang_emb`` holds -> float32 logits [B, K] in train
-      mode, their softmax in eval;
+      mode, their softmax in eval; with ``epic_heads`` the float32 (verb
+      [B, 97], noun [B, 300]) logits in both modes;
     - order pretraining (``train`` with ``text``): ``x`` [B, M, T, H, W, 3],
       ``text`` = {"clip_text_ids": [B*M, 77], "clip_vis_feat": [B*M, 512]}
       -> (student [B*M' + levels*B, K], teacher [same], (x0, denoised)).
@@ -86,7 +91,7 @@ class _Heads:
                     order_recog_batch: int, num_seg: int,
                     with_text_model: bool, text_vocab: int, text_width: int,
                     text_heads: int, text_layers: int,
-                    compute_dtype: torch.dtype) -> None:
+                    compute_dtype: torch.dtype, epic_heads: bool) -> None:
         # the encoder's parameters, by the optimizer's grouping rule
         self._encoder_params = [p for n, p in self.named_parameters()
                                 if is_encoder(n)]
@@ -107,8 +112,12 @@ class _Heads:
             vocab_size=text_vocab, width=text_width, heads=text_heads,
             layers=text_layers, embed_dim=label_dim,
             compute_dtype=compute_dtype) if with_text_model else None)
-        self.head_cls = (None if match_lang_emb
-                         else Linear(label_dim, num_classes))
+        finetune = not match_lang_emb
+        self.head_cls = (Linear(label_dim, num_classes)
+                         if finetune and not epic_heads else None)
+        epic = finetune and epic_heads
+        self.head_v = Linear(label_dim, EPIC_VERBS) if epic else None
+        self.head_n = Linear(label_dim, EPIC_NOUNS) if epic else None
 
     def _encode(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -128,8 +137,9 @@ class _Heads:
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         self._reset_encoder(generator)
         init_linear(self.head, generator)
-        if self.head_cls is not None:
-            init_linear(self.head_cls, generator)
+        for head in (self.head_cls, self.head_v, self.head_n):
+            if head is not None:
+                init_linear(head, generator)
         for sub in (self.order_tfm, self.text_model):
             if sub is not None:
                 sub.reset_parameters(generator)
@@ -174,6 +184,9 @@ class _Heads:
             logits = _match(match_emb, label_emb, self.temp)
         elif self.num_seg > 0:  # forecasting head: no temperature
             logits = self.head_cls(self.order_tfm.forecast(emb)).float()
+        elif self.head_v is not None:  # EPIC-Kitchens: no softmax in eval
+            return (self.head_v(emb).float() / self.temp,
+                    self.head_n(emb).float() / self.temp)
         else:
             logits = self.head_cls(emb).float() / self.temp
         if not train:
@@ -216,7 +229,10 @@ _HEAD_DEFAULTS = dict(
     label_dim=512, num_classes=1000, temp=0.02, match_lang_emb=True,
     order_pretrain=False, order_max_len=9, order_tfm_layers=4,
     order_recog_batch=9, num_seg=0, with_text_model=False, text_vocab=49408,
-    text_width=512, text_heads=8, text_layers=12, compute_dtype=torch.float32)
+    text_width=512, text_heads=8, text_layers=12, compute_dtype=torch.float32,
+    epic_heads=False)
+# the EPIC-Kitchens-100 verb and noun classes (JAX procedurevrl.py:137-141)
+EPIC_VERBS, EPIC_NOUNS = 97, 300
 
 
 class ProcedureVRL(_Heads, TimeSformer):
@@ -225,20 +241,25 @@ class ProcedureVRL(_Heads, TimeSformer):
     ``head_cls`` for finetuning); the encoder is the base class,
     so its parameters sit at the root of the state dict, as in the
     reference's ViT checkpoints.  Head keyword arguments: see
-    ``_HEAD_DEFAULTS``; forward: see :class:`_Heads`."""
+    ``_HEAD_DEFAULTS``; the remat switches: see :class:`TimeSformer`;
+    forward: see :class:`_Heads`."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  num_frames: int = 8,
                  attention_type: str = "divided_space_time",
                  drop_path_rate: float = 0.1, remat: bool = False,
-                 route: Optional[AttentionRoute] = None, **heads):
+                 route: Optional[AttentionRoute] = None,
+                 remat_save_attn: bool = True, remat_save_qkv: bool = False,
+                 remat_save_temporal: bool = False, **heads):
         TimeSformer.__init__(self, img_size=img_size, patch_size=patch_size,
                              embed_dim=embed_dim, depth=depth,
                              num_heads=num_heads, num_frames=num_frames,
                              attention_type=attention_type,
                              drop_path_rate=drop_path_rate, remat=remat,
-                             route=route)
+                             route=route, remat_save_attn=remat_save_attn,
+                             remat_save_qkv=remat_save_qkv,
+                             remat_save_temporal=remat_save_temporal)
         self._init_heads(embed_dim, **{**_HEAD_DEFAULTS, **heads})
 
     def _encode(self, x, generator):

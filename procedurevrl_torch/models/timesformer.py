@@ -26,8 +26,10 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from procedurevrl_torch.models.layers import (
-    Attention, DropPath, LayerNormFp32, Linear, Mlp, init_linear,
+    Attention, DropPath, LayerNormFp32, Linear, Mlp, gelu_stored_from_env,
+    init_linear,
 )
+from procedurevrl_torch.ops import remat
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 from procedurevrl_torch.ops.common import (
     interpolate_nearest_1d, interpolate_nearest_2d, trunc_normal_init,
@@ -68,12 +70,13 @@ class DividedSTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0,
                  norm_eps: float = 1e-6,
-                 route: AttentionRoute = DEFAULT_ROUTE):
+                 route: AttentionRoute = DEFAULT_ROUTE,
+                 gelu_stored: bool = False):
         super().__init__()
         self.norm1 = LayerNormFp32(dim, eps=norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, route=route)
         self.norm2 = LayerNormFp32(dim, eps=norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, gelu_stored)
         self.drop_path = DropPath(drop_path_rate)
         self.temporal_norm1 = LayerNormFp32(dim, eps=norm_eps)
         self.temporal_attn = Attention(dim, num_heads, qkv_bias, route=route)
@@ -132,12 +135,13 @@ class SpaceOnlyBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0,
                  norm_eps: float = 1e-6,
-                 route: AttentionRoute = DEFAULT_ROUTE):
+                 route: AttentionRoute = DEFAULT_ROUTE,
+                 gelu_stored: bool = False):
         super().__init__()
         self.norm1 = LayerNormFp32(dim, eps=norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, route=route)
         self.norm2 = LayerNormFp32(dim, eps=norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, gelu_stored)
         self.drop_path = DropPath(drop_path_rate)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
@@ -163,6 +167,24 @@ class SpaceOnlyBlock(nn.Module):
         return x + self.drop_path(self.mlp(self.norm2(x)), keep_m)
 
 
+def remat_names(save_attn: bool = True, save_qkv: bool = False,
+                save_temporal: bool = False) -> Tuple[str, ...]:
+    """The names a TimeSformer block keeps across its recomputation (JAX
+    ``models/timesformer.py:267-291``): ``TPU.REMAT_SAVE_ATTN`` the
+    attention kernels' outputs and the stored GELU derivative,
+    ``REMAT_SAVE_QKV`` the qkv projections, ``REMAT_SAVE_TEMPORAL`` the
+    plain temporal pass's output (``ops/remat.py``); none of them, the
+    whole block recomputed."""
+    names: Tuple[str, ...] = ()
+    if save_attn:
+        names += ("flash_attn_out", "gelu_grad")
+    if save_qkv:
+        names += ("qkv_out",)
+    if save_temporal:
+        names += ("temporal_out",)
+    return names
+
+
 class TimeSformer(nn.Module):
     """TimeSformer-B encoder (reference ``lib/models/vit.py:183-423``):
     ``[B, T, H, W, 3]`` video -> CLS feature ``[B, D]``, with
@@ -171,14 +193,16 @@ class TimeSformer(nn.Module):
     In train mode each block draws its stochastic-depth masks from the
     ``generator`` given to ``forward`` (on the input's device).  With
     ``remat`` (``TPU.REMAT``) each block runs under
-    ``torch.utils.checkpoint`` when gradients are recorded: its activations
-    are dropped after the forward and the whole block is recomputed for the
-    backward, attention kernels included (the JAX package keeps the
-    attention outputs and probabilities across its remat; a selective
-    policy is later work).  The masks are drawn before the block, so the
-    recomputation reapplies them.  ``route`` picks the attention paths and
-    kernels (``ops/attention_route.py``); by default the environment's
-    knobs, read here once."""
+    ``torch.utils.checkpoint`` when gradients are recorded, with JAX's
+    selective policy: the values :func:`remat_names` names for the three
+    ``remat_save_*`` switches are kept from the forward and everything else
+    in the block is recomputed for the backward (by default the attention
+    kernels run once a step, their outputs and K1's probabilities kept).
+    The masks are drawn before the block, so the recomputation reapplies
+    them.  ``route`` picks the attention paths and kernels
+    (``ops/attention_route.py``) and ``gelu_stored`` the MLPs' GELU
+    (``GELU_STORED``); by default the environment's knobs, read here
+    once."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -186,10 +210,15 @@ class TimeSformer(nn.Module):
                  num_frames: int = 8,
                  attention_type: str = "divided_space_time",
                  drop_path_rate: float = 0.1, norm_eps: float = 1e-6,
-                 remat: bool = False, route: Optional[AttentionRoute] = None):
+                 remat: bool = False, route: Optional[AttentionRoute] = None,
+                 remat_save_attn: bool = True, remat_save_qkv: bool = False,
+                 remat_save_temporal: bool = False,
+                 gelu_stored: Optional[bool] = None):
         super().__init__()
         if route is None:
             route = AttentionRoute.from_env()
+        if gelu_stored is None:
+            gelu_stored = gelu_stored_from_env()
         if attention_type == "joint_space_time":
             raise NotImplementedError(
                 "joint_space_time attention: the JAX reference fails on it "
@@ -202,6 +231,8 @@ class TimeSformer(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.remat = remat
+        self.remat_names = remat_names(remat_save_attn, remat_save_qkv,
+                                       remat_save_temporal)
         num_patches = (img_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -213,7 +244,8 @@ class TimeSformer(nn.Module):
         block = SpaceOnlyBlock if space_only else DividedSTBlock
         self.blocks = nn.ModuleList([
             block(embed_dim, num_heads, mlp_ratio, qkv_bias,
-                  drop_path_rate * i / max(depth - 1, 1), norm_eps, route)
+                  drop_path_rate * i / max(depth - 1, 1), norm_eps, route,
+                  gelu_stored)
             for i in range(depth)
         ])
         self.norm = LayerNormFp32(embed_dim, eps=norm_eps)
@@ -267,11 +299,12 @@ class TimeSformer(nn.Module):
             spatial = (tokens[:, 1:].reshape(B, T, n_tok, D)
                        + te.to(dt)[:, :, None])
             state = (cls, spatial.reshape(B * T, n_tok, D))
-        remat = self.remat and torch.is_grad_enabled()
+        recompute = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             keep = blk.draw_masks(B, T, x.device, generator)
-            if remat:
-                state = checkpoint(blk, state, T, keep, use_reentrant=False)
+            if recompute:
+                state = checkpoint(blk, state, T, keep,
+                                   **remat.checkpoint_kwargs(self.remat_names))
             else:
                 state = blk(state, T, keep)
         if self.attention_type == "space_only":

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from procedurevrl_torch.ops import flash_attention as fa
+from procedurevrl_torch.ops import remat
 from procedurevrl_torch.ops import spatial_attention as k1
 from procedurevrl_torch.ops import temporal_attention as k2
 from procedurevrl_torch.ops.attention_route import (
@@ -115,9 +116,15 @@ def takes_k2(t: int, n: int, c: int, num_heads: int, itemsize: int,
                                   itemsize, route.temporal_batched)[0] > 0)
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor]) -> torch.Tensor:
-    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+            name: Optional[str] = None) -> torch.Tensor:
+    """x w^T + b, the weights cast to x's dtype; with ``name`` the product
+    carries that checkpoint name (``ops/remat.py``)."""
+    w, b = w.to(x.dtype), None if b is None else b.to(x.dtype)
+    if name is None:
+        return F.linear(x, w, b)
+    with remat.named(name):
+        return F.linear(x, w, b)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,18 +147,28 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(v.dtype)
 
 
+def _attend_xla(x: torch.Tensor, qkv_w: torch.Tensor,
+                qkv_b: Optional[torch.Tensor], num_heads: int,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                causal: bool = False) -> torch.Tensor:
+    """The plain path up to the output projection: x [B, N, C] -> the
+    attention output [B, N, C]."""
+    b, n, c = x.shape
+    d = c // num_heads
+    qkv = _linear(x, qkv_w, qkv_b).view(b, n, 3, num_heads, d)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))  # [B, H, N, d]
+    o = attention_core(q, k, v, d ** -0.5, key_padding_mask, causal)
+    return o.transpose(1, 2).reshape(b, n, c)
+
+
 def mhsa_xla(x: torch.Tensor, qkv_w: torch.Tensor,
              qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
              proj_b: torch.Tensor, num_heads: int,
              key_padding_mask: Optional[torch.Tensor] = None,
              causal: bool = False) -> torch.Tensor:
     """Fused-projection self-attention on x [B, N, C] (plain path)."""
-    b, n, c = x.shape
-    d = c // num_heads
-    qkv = _linear(x, qkv_w, qkv_b).view(b, n, 3, num_heads, d)
-    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))  # [B, H, N, d]
-    o = attention_core(q, k, v, d ** -0.5, key_padding_mask, causal)
-    return _linear(o.transpose(1, 2).reshape(b, n, c), proj_w, proj_b)
+    return _linear(_attend_xla(x, qkv_w, qkv_b, num_heads, key_padding_mask,
+                               causal), proj_w, proj_b)
 
 
 def mhsa(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: Optional[torch.Tensor],
@@ -170,7 +187,7 @@ def mhsa(x: torch.Tensor, qkv_w: torch.Tensor, qkv_b: Optional[torch.Tensor],
                     key_padding_mask is not None, causal):
         return mhsa_xla(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
                         key_padding_mask, causal)
-    q, k, v = _linear(x, qkv_w, qkv_b).split(c, dim=-1)
+    q, k, v = _linear(x, qkv_w, qkv_b, "qkv_out").split(c, dim=-1)
     out = fa.flash_attention_autograd(q, k, v, num_heads,
                                       (c // num_heads) ** -0.5, shift)
     return _linear(out, proj_w, proj_b)
@@ -196,8 +213,8 @@ def mhsa_cls(x: torch.Tensor, cls_x: torch.Tensor, qkv_w: torch.Tensor,
                        proj_b, num_heads)
         return out[:, 1:], out[:, :1]
     scale = (c // num_heads) ** -0.5
-    qkv = _linear(x, qkv_w, qkv_b)
-    qkv_c = _linear(cls_x, qkv_w, qkv_b)
+    qkv = _linear(x, qkv_w, qkv_b, "qkv_out")
+    qkv_c = _linear(cls_x, qkv_w, qkv_b, "qkv_out")
     if route.fused_qkv:
         out, out_c = k1.spatial_attention_autograd(qkv, qkv_c, num_heads,
                                                    scale, route)
@@ -213,14 +230,16 @@ def mhsa_temporal(x: torch.Tensor, qkv_w: torch.Tensor,
                   proj_b: torch.Tensor, num_heads: int,
                   route: AttentionRoute = DEFAULT_ROUTE) -> torch.Tensor:
     """Self-attention over axis 1 of the time-major stream x [B, T, N, C].
-    Where :func:`takes_k2` fails, :func:`mhsa_xla` on the [B*N, T, C]
+    Where :func:`takes_k2` fails, the plain path on the [B*N, T, C]
     transpose, one explicit (T, N) transpose each way (JAX
-    ``ops/attention.py:282-285``)."""
+    ``ops/attention.py:282-285``); its output projection, the pass's last
+    product, is named ``temporal_out`` (JAX :291, ``ops/remat.py``)."""
     b, t, n, c = x.shape
     if not takes_k2(t, n, c, num_heads, x.element_size(), route):
         xt = x.transpose(1, 2).reshape(b * n, t, c)
-        out = mhsa_xla(xt, qkv_w, qkv_b, proj_w, proj_b, num_heads)
-        return out.reshape(b, n, t, c).transpose(1, 2).contiguous()
+        o = _attend_xla(xt, qkv_w, qkv_b, num_heads)
+        o = o.view(b, n, t, c).transpose(1, 2).contiguous()
+        return _linear(o, proj_w, proj_b, "temporal_out")
     d = c // num_heads
     qkv = _linear(x, qkv_w, qkv_b)  # [B, T, N, 3C], read in place by K2
     out = k2.temporal_attention_autograd(qkv, num_heads, d ** -0.5, route)

@@ -7,8 +7,11 @@
 - ``grouped_layer_norm_fp32``: the same per head of a head-last layout,
   with parameters shared across heads (MViT's pooled q/k/v norms).
 - ``gelu_exact``: the erf form of GELU (torch ``nn.GELU()`` default), with
-  autograd's own backward.  The JAX package's stored-derivative variant is
-  a TPU memory device and has no counterpart.
+  autograd's own backward; ``gelu_exact_stored`` the same value with the
+  derivative cdf(x) + x pdf(x) computed in the forward and kept for a
+  backward that is one product (JAX ``gelu_exact_stored``, taken under
+  ``GELU_STORED=1``).  The derivative is :func:`gelu_grad`, whose output
+  the remat policy keeps as ``gelu_grad`` (``ops/remat.py``).
 - ``quick_gelu``: CLIP's ``x * sigmoid(1.702 x)``.
 - ``sinusoidal_time_embedding``: the diffusion time embedding.
 - ``interpolate_nearest_1d/2d``: torch ``F.interpolate(mode='nearest')``
@@ -25,6 +28,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from procedurevrl_torch.ops import remat
 
 
 def layer_norm_fp32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -50,6 +55,33 @@ def grouped_layer_norm_fp32(x: torch.Tensor, weight: torch.Tensor,
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx gelu(x) = cdf(x) + x pdf(x) in float32, in x's dtype (JAX
+    ``_gelu_stored_fwd``, ``ops/common.py:50-59``)."""
+    xf = x.float()
+    cdf = 0.5 * (1.0 + torch.erf(xf * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * xf * xf) * (1.0 / math.sqrt(2.0 * math.pi))
+    return (cdf + xf * pdf).to(x.dtype)
+
+
+class _GeluStored(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(remat.kept("gelu_grad", gelu_grad, x))
+        return gelu_exact(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dg,) = ctx.saved_tensors
+        return g * dg
+
+
+def gelu_exact_stored(x: torch.Tensor) -> torch.Tensor:
+    """``gelu_exact`` whose backward multiplies by the derivative kept from
+    the forward (JAX ``gelu_exact_stored``, ``ops/common.py:30-66``)."""
+    return _GeluStored.apply(x)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

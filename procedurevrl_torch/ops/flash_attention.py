@@ -55,7 +55,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops import _build, remat
 from procedurevrl_torch.ops.attention_route import shift_code, shifted_exp
 
 KERNEL = "flash_attention_fwd"               # K4f
@@ -613,7 +613,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, scale: float,
                 shift: str = "clamp"):
-        out, rowsum = flash_attention_fwd(q, k, v, num_heads, scale, shift)
+        out, rowsum = remat.kept("flash_attn_out", flash_attention_fwd, q, k,
+                                 v, num_heads, scale, shift)
         ctx.save_for_backward(q, k, v, rowsum)
         ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
         return out
@@ -632,8 +633,9 @@ class FlashAttentionCls(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, qc, kc, vc, num_heads: int, scale: float,
                 shift: str = "clamp"):
-        out, outc, rowsum = flash_attention_cls_fwd(q, k, v, qc, kc, vc,
-                                                    num_heads, scale, shift)
+        out, outc, rowsum = remat.kept(
+            "flash_attn_out", flash_attention_cls_fwd, q, k, v, qc, kc, vc,
+            num_heads, scale, shift)
         ctx.save_for_backward(q, k, v, qc, kc, vc, rowsum)
         ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
         return out, outc
@@ -654,8 +656,9 @@ class FlashAttentionQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
                 shift: str = "clamp"):
-        out, out_c, rowsum = flash_attention_qkv_fwd(qkv, qkv_c, num_heads,
-                                                     scale, shift=shift)
+        out, out_c, rowsum = remat.kept(
+            "flash_attn_out", flash_attention_qkv_fwd, qkv, qkv_c, num_heads,
+            scale, shift=shift)
         ctx.save_for_backward(qkv, qkv_c, rowsum)
         ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
         return out, out_c
@@ -677,8 +680,9 @@ class FlashAttentionTemporal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, num_heads: int, scale: float, shift: str = "clamp"):
-        out, rowsum = flash_attention_temporal_fwd(qkv, num_heads, scale,
-                                                   shift=shift)
+        out, rowsum = remat.kept("flash_attn_out",
+                                 flash_attention_temporal_fwd, qkv, num_heads,
+                                 scale, shift=shift)
         ctx.save_for_backward(qkv, rowsum)
         ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
         return out

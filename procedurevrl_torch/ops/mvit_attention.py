@@ -77,7 +77,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from procedurevrl_torch.ops import _build
+from procedurevrl_torch.ops import _build, remat
 from procedurevrl_torch.ops.attention_route import shift_code, shifted_exp
 
 KERNEL_HL = "mvit_attention_hl_fwd"      # K5f
@@ -793,8 +793,8 @@ class MViTAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale,
                 shift: str = "clamp"):
-        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads,
-                               scale, shift)
+        out, rowsum = remat.kept("flash_attn_out", _forward, q, k, v, kc, vc,
+                                 rel, k_shape, num_heads, scale, shift)
         kept = (out,) if shift == "max" else ()
         ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum, *kept)
         ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
@@ -827,8 +827,8 @@ class MViTAttentionDelta(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale,
                 shift: str = "clamp"):
-        out, rowsum = _forward(q, k, v, kc, vc, rel, k_shape, num_heads,
-                               scale, shift)
+        out, rowsum = remat.kept("flash_attn_out", _forward, q, k, v, kc, vc,
+                                 rel, k_shape, num_heads, scale, shift)
         ctx.save_for_backward(q, k, v, kc, vc, rel, rowsum, out)
         ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
         ctx.shift = shift
@@ -856,8 +856,10 @@ class MViTAttentionSaved(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kc, vc, rel, k_shape, scale,
                 shift: str = "clamp"):
-        out, _, probs = mvit_attention_fwd_probs(q, k, v, kc, vc, rel,
-                                                 k_shape, scale, shift)
+        # JAX names K6sp's probabilities flash_attn_probs
+        out, _, probs = remat.kept("flash_attn_probs",
+                                   mvit_attention_fwd_probs, q, k, v, kc, vc,
+                                   rel, k_shape, scale, shift)
         ctx.save_for_backward(q, k, v, kc, vc, rel, probs)
         ctx.k_shape, ctx.scale = k_shape, scale
         return out
@@ -910,8 +912,9 @@ class MViTAttentionKT(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kc, vc, rel, k_shape, num_heads, scale):
-        out, lse = mvit_attention_kt_fwd(q, k, v, kc, vc, rel, k_shape,
-                                         num_heads, scale)
+        # JAX names K7f's lse flash_attn_lse
+        out, lse = remat.kept("flash_attn_lse", mvit_attention_kt_fwd, q, k, v,
+                              kc, vc, rel, k_shape, num_heads, scale)
         ctx.save_for_backward(q, k, v, kc, vc, rel, out, lse)
         ctx.k_shape, ctx.num_heads, ctx.scale = k_shape, num_heads, scale
         return out

@@ -42,6 +42,7 @@ import torch
 
 from procedurevrl_torch.ops import _build
 from procedurevrl_torch.ops import flash_attention as fa
+from procedurevrl_torch.ops import remat
 from procedurevrl_torch.ops.attention_route import (
     DEFAULT_ROUTE, AttentionRoute, shift_code, shifted_exp,
 )
@@ -468,8 +469,9 @@ class SpatialAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
                 shift: str = "clamp"):
-        out, out_c, probs = spatial_attention_fwd_probs(qkv, qkv_c, num_heads,
-                                                        scale, shift)
+        out, out_c, probs = remat.kept(
+            "flash_attn_out", spatial_attention_fwd_probs, qkv, qkv_c,
+            num_heads, scale, shift)
         ctx.save_for_backward(qkv, qkv_c, probs)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out, out_c
@@ -490,8 +492,9 @@ class SpatialAttentionDelta(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
                 shift: str = "clamp"):
-        out, out_c, probs = spatial_attention_fwd_probs(qkv, qkv_c, num_heads,
-                                                        scale, shift)
+        out, out_c, probs = remat.kept(
+            "flash_attn_out", spatial_attention_fwd_probs, qkv, qkv_c,
+            num_heads, scale, shift)
         ctx.save_for_backward(qkv, qkv_c, probs, out, out_c)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out, out_c
@@ -514,11 +517,12 @@ class SpatialAttentionRecompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, qkv_c, num_heads: int, scale: float,
                 nbuf: Optional[int], shift: str = "clamp"):
-        out, out_c = (spatial_attention(qkv, qkv_c, num_heads, scale,
-                                        shift=shift)
+        out, out_c = (remat.kept("flash_attn_out", spatial_attention, qkv,
+                                 qkv_c, num_heads, scale, shift=shift)
                       if nbuf is None else
-                      spatial_attention_pipe(qkv, qkv_c, num_heads, scale,
-                                             nbuf, shift=shift))
+                      remat.kept("flash_attn_out", spatial_attention_pipe,
+                                 qkv, qkv_c, num_heads, scale, nbuf,
+                                 shift=shift))
         ctx.save_for_backward(qkv, qkv_c)
         ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
         return out, out_c

@@ -41,6 +41,7 @@ import torch
 
 from procedurevrl_torch.ops import _build
 from procedurevrl_torch.ops import flash_attention as fa
+from procedurevrl_torch.ops import remat
 from procedurevrl_torch.ops.attention_route import (
     DEFAULT_ROUTE, AttentionRoute, shift_code, shifted_exp,
 )
@@ -257,7 +258,8 @@ class TemporalAttention(torch.autograd.Function):
     def forward(ctx, qkv, num_heads: int, scale: float, shift: str = "clamp"):
         ctx.save_for_backward(qkv)
         ctx.num_heads, ctx.scale, ctx.shift = num_heads, scale, shift
-        return temporal_attention(qkv, num_heads, scale, shift)
+        return remat.kept("flash_attn_out", temporal_attention, qkv,
+                          num_heads, scale, shift)
 
     @staticmethod
     def backward(ctx, g):
@@ -272,7 +274,8 @@ class TemporalAttentionV3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, num_heads: int, scale: float, shift: str = "clamp"):
-        out, probs = temporal_attention_v3(qkv, num_heads, scale, shift=shift)
+        out, probs = remat.kept("flash_attn_out", temporal_attention_v3, qkv,
+                                num_heads, scale, shift=shift)
         ctx.save_for_backward(qkv, probs)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out

@@ -19,7 +19,17 @@ runs the multi-view test (``TEST.ENABLE``).  A COIN finetune,
 
 (also ``step_classification.yaml``, ``task_classification.yaml``) trains
 the heads on the frozen encoder with evaluation on the val split, then
-tests the model of the last checkpoint in ``OUTPUT_DIR``.  A finetune
+tests the model of the last checkpoint in ``OUTPUT_DIR``.  The
+EPIC-Kitchens-100 full finetune (TimeSformer-B, 32 frames, verb and noun
+heads, 30 test views a video),
+
+    python -m procedurevrl_torch.tools.run_net \\
+        --cfg configs/EK/egocentric_action_classification.yaml \\
+        DEV.LOAD_DUMMY_DATA True TRAIN.EPOCH_MUL 2
+
+trains, validates and tests the same way (``TRAIN.EPOCH_MUL 2``: the 64
+synthetic videos make 2 micro-batches of 32 an epoch, fewer than the 4
+that ``GLOBAL_BATCH_SIZE 128`` accumulates).  A finetune
 starts from a pretraining run's file with ``TRAIN.CHECKPOINT_FILE_PATH
 <file> TRAIN.CHECKPOINT_EPOCH_RESET True``, and every run resumes from
 ``OUTPUT_DIR``'s last checkpoint under ``TRAIN.AUTO_RESUME`` (the shipped
@@ -69,7 +79,7 @@ def main(argv=None) -> int:
         print(json.dumps({"split": "train", "steps": stats["steps"],
                           "clips_per_sec": stats["clips_per_sec"], **last,
                           **{f"val_{k}": v for k, v in val.items()
-                             if k.endswith("_err")}}), flush=True)
+                             if k.endswith(("_err", "_acc"))}}), flush=True)
     if cfg.TEST.ENABLE:
         from procedurevrl_torch.tools.test_net import test
 

@@ -3,7 +3,10 @@
 
 Every test video contributes ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS``
 clips; each clip's softmax predictions are ensembled per video by the
-TestMeter, then top-1/top-5 are finalised.  Zero-shot COIN step
+TestMeter, then top-1/top-5 are finalised; an EPIC-Kitchens model's verb
+and noun logits are summed per video by the EPICTestMeter, which reports
+verb, noun and action top-1/top-5 (JAX ``tools/test_net.py:37-70``,
+:122-126).  Zero-shot COIN step
 classification and step forecasting (``MODEL.NUM_SEG`` observed clips a
 sample, ``[B, NUM_SEG * T, ...]`` batches) run this path with the CLIP step
 bank as the classifier, the finetuning heads with none.  The weights come
@@ -27,17 +30,19 @@ import torch
 from procedurevrl_torch.datasets.synthetic import SyntheticClips
 from procedurevrl_torch.engine.steps import make_eval_step
 from procedurevrl_torch.models.build import build_model
+from procedurevrl_torch.models.procedurevrl import EPIC_NOUNS, EPIC_VERBS
 from procedurevrl_torch.utils import checkpoint as cu
 from procedurevrl_torch.utils import misc, weights
 from procedurevrl_torch.utils.device import resolve_device
 from procedurevrl_torch.utils.logging import get_logger, setup_logging
-from procedurevrl_torch.utils.meters import TestMeter
+from procedurevrl_torch.utils.meters import EPICTestMeter, TestMeter
 
 logger = get_logger(__name__)
 
 
-def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
-                 cfg, device: torch.device) -> Dict:
+def perform_test(dataset: SyntheticClips, eval_step,
+                 test_meter: Union[TestMeter, EPICTestMeter], cfg,
+                 device: torch.device) -> Dict:
     """Run every test clip through ``eval_step`` and finalise the meter.
 
     Besides the meter's stats, returns ``clips_per_sec``: clips (a
@@ -50,13 +55,20 @@ def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
     test_meter.iter_tic()
     for cur_iter, batch in enumerate(dataset.batches(cfg.TEST.BATCH_SIZE,
                                                      device)):
-        preds = eval_step(batch).cpu()
-        test_meter.update_stats(preds.numpy(), batch["labels"].cpu().numpy(),
-                                batch["index"].cpu().numpy())
+        preds = eval_step(batch)
+        index = batch["index"].cpu().numpy()
+        if isinstance(preds, tuple):  # EPIC: (verb, noun) logits
+            test_meter.update_stats(
+                tuple(p.cpu().numpy() for p in preds),
+                (batch["verb"].cpu().numpy(), batch["noun"].cpu().numpy()),
+                None, index)
+        else:
+            test_meter.update_stats(preds.cpu().numpy(),
+                                    batch["labels"].cpu().numpy(), index)
         if t_first is None:
             t_first = time.perf_counter()
         else:
-            n_clips += preds.shape[0] * dataset.clips
+            n_clips += len(index) * dataset.clips
         test_meter.log_iter_stats(cur_iter)
         test_meter.iter_tic()
     elapsed = time.perf_counter() - t_first
@@ -66,18 +78,25 @@ def perform_test(dataset: SyntheticClips, eval_step, test_meter: TestMeter,
     return stats
 
 
-def save_results(test_meter: TestMeter, cfg) -> None:
+def save_results(test_meter: Union[TestMeter, EPICTestMeter], cfg) -> None:
     """``TEST.SAVE_RESULTS_PATH``: a pickle of ``{"preds", "labels"}`` (the
-    ensembled per-video predictions and labels, numpy); and
-    ``TEST.SAVE_PREDICT_PATH``: the same as tensors by ``torch.save``, the
-    reference's ``vis_pred_zeroshot_step_cls.pth`` format; both in
-    ``OUTPUT_DIR`` (JAX ``tools/test_net.py:62-89``)."""
+    ensembled per-video predictions and labels, numpy; EPIC-Kitchens:
+    ``{"verb", "noun"}``, the summed logits); and ``TEST.SAVE_PREDICT_PATH``:
+    the same as tensors by ``torch.save``, the reference's
+    ``vis_pred_zeroshot_step_cls.pth`` format, not for EPIC-Kitchens (JAX
+    ``tools/test_net.py:78-89`` reads ``video_preds``, which its EPIC meter
+    lacks); both in ``OUTPUT_DIR`` (JAX :62-89)."""
+    epic = isinstance(test_meter, EPICTestMeter)
     if cfg.TEST.SAVE_RESULTS_PATH:
         out = os.path.join(cfg.OUTPUT_DIR, cfg.TEST.SAVE_RESULTS_PATH)
         with open(out, "wb") as f:
-            pickle.dump({"preds": test_meter.video_preds,
+            pickle.dump({"verb": test_meter.verb_preds,
+                         "noun": test_meter.noun_preds} if epic else
+                        {"preds": test_meter.video_preds,
                          "labels": test_meter.video_labels}, f)
         logger.info("Saved results to %s", out)
+    if epic:
+        return
     if cfg.TEST.SAVE_PREDICT_PATH:
         out = os.path.join(cfg.OUTPUT_DIR, cfg.TEST.SAVE_PREDICT_PATH)
         torch.save({"preds": torch.from_numpy(test_meter.video_preds.copy()),
@@ -105,10 +124,15 @@ def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
         raise ValueError("zero-shot testing needs a step bank "
                          "(DEV.TEST_LANG_EMB)")
     dataset = SyntheticClips(cfg, "test")
-    test_meter = TestMeter(
-        len(dataset) // dataset.num_clips, dataset.num_clips,
-        cfg.MODEL.NUM_CLASSES, dataset.num_batches(cfg.TEST.BATCH_SIZE),
-        multi_label=cfg.DATA.MULTI_LABEL,
-        ensemble_method=cfg.DATA.ENSEMBLE_METHOD)
+    num_videos = len(dataset) // dataset.num_clips
+    n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
+    if dataset.epic:
+        test_meter = EPICTestMeter(num_videos, dataset.num_clips,
+                                   [EPIC_VERBS, EPIC_NOUNS], n_batches)
+    else:
+        test_meter = TestMeter(
+            num_videos, dataset.num_clips, cfg.MODEL.NUM_CLASSES, n_batches,
+            multi_label=cfg.DATA.MULTI_LABEL,
+            ensemble_method=cfg.DATA.ENSEMBLE_METHOD)
     return perform_test(dataset, make_eval_step(model, cfg, label_emb),
                         test_meter, cfg, device)

@@ -1,6 +1,7 @@
 """Training loop (counterpart of ``tools/train_net.py``; reference
-``tools/train_net.py:56-530``): order pretraining, and the COIN finetunes
-(step classification, task classification and step forecasting heads).
+``tools/train_net.py:56-530``): order pretraining, the COIN finetunes
+(step classification, task classification and step forecasting heads)
+and the EPIC-Kitchens-100 verb + noun full finetune.
 
 Each optimizer step takes ``accum = GLOBAL_BATCH_SIZE // TRAIN.BATCH_SIZE``
 micro-batches of ``TRAIN.BATCH_SIZE`` samples, runs the model's forward
@@ -13,7 +14,10 @@ the warm-up and the last step), where they reach the host and feed the
 trip each.  Where ``TRAIN.EVAL_PERIOD <= SOLVER.MAX_EPOCH`` the val split
 is evaluated after every epoch that :func:`misc.is_eval_epoch` names (the
 finetuning configs; the pretraining configs set 100), and after the last
-step of a run that ``max_steps`` cut short, through a :class:`ValMeter`.
+step of a run that ``max_steps`` cut short, through a :class:`ValMeter`
+(EPIC-Kitchens: an :class:`EPICValMeter` of the verb, noun and action
+accuracies, and the train meter takes the action accuracies and the verb
+and noun metrics, JAX ``tools/train_net.py:172-177``, :226-236, :348).
 
 Checkpoints (``utils/checkpoint.py``): the model starts from the
 pretrained encoder of ``TIMESFORMER.PRETRAINED_MODEL``, then from
@@ -44,8 +48,12 @@ from procedurevrl_torch.utils import checkpoint as cu
 from procedurevrl_torch.utils import misc, weights
 from procedurevrl_torch.utils.device import resolve_device
 from procedurevrl_torch.utils.logging import get_logger, setup_logging
-from procedurevrl_torch.utils.meters import TrainMeter, ValMeter
-from procedurevrl_torch.utils.metrics import topk_errors
+from procedurevrl_torch.utils.meters import (
+    EPICValMeter, TrainMeter, ValMeter,
+)
+from procedurevrl_torch.utils.metrics import (
+    multitask_topk_accuracies, topk_accuracies, topk_errors,
+)
 
 logger = get_logger(__name__)
 
@@ -57,11 +65,14 @@ def _to_host(metrics: Dict[str, Union[torch.Tensor, float]]
     return {k: float(v) for k, v in metrics.items()}
 
 
-def eval_epoch(dataset: SyntheticClips, eval_step, val_meter: ValMeter,
-               cfg, cur_epoch: int, device: torch.device) -> Dict:
+def eval_epoch(dataset: SyntheticClips, eval_step,
+               val_meter: Union[ValMeter, EPICValMeter], cfg, cur_epoch: int,
+               device: torch.device) -> Dict:
     """One pass over the val split in batches of ``TRAIN.BATCH_SIZE``
     (JAX ``tools/train_net.py:204-250``): top-1 / top-5 errors of the
-    predictions per batch into ``val_meter``; returns its epoch stats."""
+    predictions per batch into ``val_meter``, or for EPIC-Kitchens' (verb,
+    noun) logits the verb, noun and action accuracies; returns its epoch
+    stats."""
     gen = torch.Generator(device=device)
     batch_size = cfg.TRAIN.BATCH_SIZE
     n_batches = dataset.num_batches(batch_size)
@@ -71,8 +82,17 @@ def eval_epoch(dataset: SyntheticClips, eval_step, val_meter: ValMeter,
     for cur_iter in range(n_batches):
         batch = dataset.batch(batch_size, cur_iter, gen)
         preds = eval_step(batch)
-        top1, top5 = topk_errors(preds, batch["labels"], (1, 5))
-        val_meter.update_stats(float(top1), float(top5), preds.shape[0])
+        if isinstance(preds, tuple):  # EPIC: verb / noun / action
+            labels = (batch["verb"], batch["noun"])
+            (v1, v5), (n1, n5) = (topk_accuracies(p, lab, (1, 5))
+                                  for p, lab in zip(preds, labels))
+            a1, a5 = multitask_topk_accuracies(preds, labels, (1, 5))
+            val_meter.update_stats((float(v1), float(n1), float(a1)),
+                                   (float(v5), float(n5), float(a5)),
+                                   preds[0].shape[0])
+        else:
+            top1, top5 = topk_errors(preds, batch["labels"], (1, 5))
+            val_meter.update_stats(float(top1), float(top5), preds.shape[0])
         val_meter.iter_toc()
         val_meter.log_iter_stats(cur_epoch, cur_iter)
         val_meter.iter_tic()
@@ -104,8 +124,9 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     for the plain path.
 
     Returns ``history`` (one dict of host floats per optimizer step of this
-    run: ``loss``, ``top1_err``, ``top5_err``, ``lr``, ``grad_norm``, and
-    for pretraining ``kl``, ``mse``), ``val`` (the :class:`ValMeter` stats
+    run: the train step's metrics, ``loss``, ``top1_err``, ``top5_err``,
+    ``lr``, ``grad_norm``, and for pretraining ``kl``, ``mse``;
+    EPIC-Kitchens: see ``make_train_step``), ``val`` (the val meter's stats
     of each val epoch), ``steps`` (of this run), ``start_epoch`` and
     ``start_step`` (0-based epoch and optimizer step it began at),
     ``checkpoints`` (the files it wrote), ``clips_per_step``,
@@ -148,7 +169,9 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     val = (SyntheticClips(cfg, "val")
            if cfg.TRAIN.EVAL_PERIOD <= cfg.SOLVER.MAX_EPOCH else None)
     eval_step = make_eval_step(model, cfg, label_emb)
-    val_meter = ValMeter(val.num_batches(batch_size) if val else 0, cfg)
+    is_epic = cfg.TRAIN.DATASET == "Epickitchens"
+    val_meter = (EPICValMeter if is_epic else ValMeter)(
+        val.num_batches(batch_size) if val else 0, cfg)
     first = start_epoch * steps_per_epoch  # the run's first step in the plan
     total = max(cfg.SOLVER.MAX_EPOCH * steps_per_epoch - first, 0)
     cut = max_steps is not None and max_steps < total
@@ -183,11 +206,18 @@ def train(cfg, device: Union[str, torch.device, None] = None,
                 host = _to_host(m)
                 misc.check_nan_losses(host["loss"])
                 history.append(host)
-                meter.update_stats(
-                    host["top1_err"], host["top5_err"], host["loss"],
-                    host["lr"], accum * batch_size,
-                    extra={k: host[k] for k in ("kl", "mse", "grad_norm")
-                           if k in host})
+                if is_epic:  # the action accuracies, as JAX passes them
+                    meter.update_stats(
+                        host["top1_acc"], host["top5_acc"], host["loss"],
+                        host["lr"], accum * batch_size,
+                        extra={k: v for k, v in host.items()
+                               if k.startswith(("verb", "noun"))})
+                else:
+                    meter.update_stats(
+                        host["top1_err"], host["top5_err"], host["loss"],
+                        host["lr"], accum * batch_size,
+                        extra={k: host[k] for k in ("kl", "mse", "grad_norm")
+                               if k in host})
             pending = []
             if done == WARMUP_STEPS:
                 t_timed = time.perf_counter()

@@ -8,7 +8,11 @@
   top-1/top-5 error, lr, grad_norm) every ``LOG_PERIOD`` iterations and
   sample-weighted epoch means;
 - ``ValMeter``: window medians of the validation top-1/top-5 errors and
-  their sample-weighted epoch means, with the least epoch errors so far.
+  their sample-weighted epoch means, with the least epoch errors so far;
+- ``EPICValMeter``: the same for EPIC-Kitchens' verb, noun and action
+  top-1/top-5 accuracies, with the largest epoch accuracies so far;
+- ``EPICTestMeter``: per-video sums of the verb and noun logits of its
+  clips, then verb, noun and action top-1/top-5 over videos.
 Stats are logged as ``json_stats: {...}`` lines, the reference's format.
 """
 
@@ -101,6 +105,10 @@ class ScalarMeter:
 
     def __init__(self, window_size: int):
         self.deque: deque = deque(maxlen=window_size)
+        self.count = 0
+
+    def reset(self) -> None:
+        self.deque.clear()
         self.count = 0
 
     def add_value(self, value: float) -> None:
@@ -243,4 +251,143 @@ class ValMeter:
                  "min_top1_err": self.min_top1_err,
                  "min_top5_err": self.min_top5_err}
         log_json_stats(stats)
+        return stats
+
+
+class EPICValMeter:
+    """EPIC-Kitchens validation meter (JAX ``utils/meters.py:257``;
+    reference ``lib/utils/meters.py:798-978``): accuracies, not errors,
+    each the largest over the epochs so far.  ``update_stats`` takes the
+    (verb, noun, action) top-1 and top-5 accuracy triplets in percent."""
+
+    KEYS = ("verb", "noun", "action")
+
+    def __init__(self, max_iter: int, cfg):
+        self._cfg = cfg
+        self.max_iter = max_iter
+        self.mb = {f"{k}_top{j}": ScalarMeter(cfg.LOG_PERIOD)
+                   for k in self.KEYS for j in (1, 5)}
+        self.num_cor = dict.fromkeys(self.mb, 0.0)
+        self.max_acc = dict.fromkeys(self.mb, 0.0)
+        self.num_samples = 0
+        self._tic = time.perf_counter()
+        self.iter_seconds = 0.0
+        self.stats: Dict = {}
+
+    def reset(self) -> None:
+        for m in self.mb.values():
+            m.reset()
+        self.num_cor = dict.fromkeys(self.mb, 0.0)
+        self.num_samples = 0
+
+    def iter_tic(self) -> None:
+        self._tic = time.perf_counter()
+
+    def iter_toc(self) -> None:
+        self.iter_seconds = time.perf_counter() - self._tic
+
+    def update_stats(self, top1_acc, top5_acc, mb_size: int) -> None:
+        for i, k in enumerate(self.KEYS):
+            for j, acc in ((1, top1_acc[i]), (5, top5_acc[i])):
+                self.mb[f"{k}_top{j}"].add_value(acc)
+                self.num_cor[f"{k}_top{j}"] += acc * mb_size
+        self.num_samples += mb_size
+
+    @staticmethod
+    def stat_name(key: str) -> str:
+        """``verb_top1`` -> ``verb_top1_acc``; the action's are plain
+        ``top1_acc``, as the reference logs them."""
+        return key.replace("action_", "") + "_acc"
+
+    def log_iter_stats(self, cur_epoch: int, cur_iter: int) -> None:
+        if (cur_iter + 1) % self._cfg.LOG_PERIOD != 0:
+            return
+        eta = datetime.timedelta(seconds=int(
+            self.iter_seconds * (self.max_iter - cur_iter - 1)))
+        stats = {"_type": "val_iter",
+                 "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+                 "iter": f"{cur_iter + 1}/{self.max_iter}",
+                 "time_diff": self.iter_seconds, "eta": str(eta)}
+        for k, m in self.mb.items():
+            stats[self.stat_name(k)] = m.get_win_median()
+        log_json_stats(stats)
+
+    def log_epoch_stats(self, cur_epoch: int) -> Dict:
+        """Logs and returns the epoch's accuracies and the largest so far;
+        ``is_best`` says whether the action top-1 rose."""
+        n = max(self.num_samples, 1)
+        accs = {k: self.num_cor[k] / n for k in self.num_cor}
+        is_best = accs["action_top1"] > self.max_acc["action_top1"]
+        for k, v in accs.items():
+            self.max_acc[k] = max(self.max_acc[k], v)
+        stats = {"_type": "val_epoch",
+                 "epoch": f"{cur_epoch + 1}/{self._cfg.SOLVER.MAX_EPOCH}",
+                 "time_diff": self.iter_seconds}
+        for k, v in accs.items():
+            stats[self.stat_name(k)] = v
+            stats["max_" + self.stat_name(k)] = self.max_acc[k]
+        log_json_stats(stats)
+        self.stats = dict(stats, is_best=is_best)
+        return self.stats
+
+
+class EPICTestMeter:
+    """EPIC-Kitchens multi-view test meter (JAX ``utils/meters.py:430``;
+    reference ``lib/utils/meters.py:608``): each video's verb and noun
+    logits summed over its ``num_clips`` clips."""
+
+    __test__ = False  # not a pytest class
+
+    def __init__(self, num_videos: int, num_clips: int, num_cls,
+                 overall_iters: int):
+        self.num_clips = num_clips
+        self.overall_iters = overall_iters
+        self.verb_preds = np.zeros((num_videos, num_cls[0]), np.float32)
+        self.noun_preds = np.zeros((num_videos, num_cls[1]), np.float32)
+        self.verb_labels = np.zeros((num_videos,), np.int64)
+        self.noun_labels = np.zeros((num_videos,), np.int64)
+        self.metadata = np.zeros(num_videos, dtype=object)
+        self.clip_count = np.zeros((num_videos,), np.int64)
+        self.stats: Dict = {}
+        self._tic = time.perf_counter()
+
+    def update_stats(self, preds, labels, metadata, clip_ids) -> None:
+        """preds (verb [N, 97], noun [N, 300]); labels (verb [N], noun
+        [N]); metadata [N] or None; clip_ids [N] global clip indices."""
+        verb_p, noun_p = (np.asarray(p) for p in preds)
+        verb_l, noun_l = (np.asarray(x) for x in labels)
+        for ind, clip in enumerate(np.asarray(clip_ids)):
+            vid_id = int(clip) // self.num_clips
+            self.verb_labels[vid_id] = verb_l[ind]
+            self.noun_labels[vid_id] = noun_l[ind]
+            self.verb_preds[vid_id] += verb_p[ind]
+            self.noun_preds[vid_id] += noun_p[ind]
+            if metadata is not None:
+                self.metadata[vid_id] = metadata[ind]
+            self.clip_count[vid_id] += 1
+
+    def iter_tic(self) -> None:
+        self._tic = time.perf_counter()
+
+    def log_iter_stats(self, cur_iter: int) -> None:
+        dt = time.perf_counter() - self._tic
+        eta = datetime.timedelta(seconds=int(dt * (self.overall_iters
+                                                   - cur_iter)))
+        log_json_stats({"split": "test_iter", "cur_iter": str(cur_iter + 1),
+                        "eta": str(eta), "time_diff": dt})
+
+    def finalize_metrics(self, ks=(1, 5)) -> Dict:
+        stats = {"split": "test_final"}
+        vp, np_, vl, nl = (torch.from_numpy(a) for a in (
+            self.verb_preds, self.noun_preds, self.verb_labels,
+            self.noun_labels))
+        verb = metrics.topk_accuracies(vp, vl, ks)
+        noun = metrics.topk_accuracies(np_, nl, ks)
+        action = metrics.multitask_topk_accuracies((vp, np_), (vl, nl), ks)
+        for k, v, n, a in zip(ks, verb, noun, action):
+            stats[f"verb_top{k}_acc"] = "{:.2f}".format(float(v))
+            stats[f"noun_top{k}_acc"] = "{:.2f}".format(float(n))
+            stats[f"action_top{k}_acc"] = "{:.2f}".format(float(a))
+        log_json_stats(stats)
+        self.stats = stats
         return stats

@@ -173,7 +173,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter tree -> the port's state dict.
 
     Takes the tree of a JAX ``ProcedureVRL`` (``{"encoder": ..., "head":
-    ..., "order_tfm": ..., "text_model": ..., "head_cls": ...}``; the order
+    ..., "order_tfm": ..., "text_model": ..., "head_cls": ...}``, or
+    ``head_v`` and ``head_n`` for EPIC-Kitchens; the order
     transformer's parameters are the same whether it was built for
     pretraining or for ``num_seg`` forecasting) or of a bare
     ``TimeSformer``; an MViT encoder (the tree has ``patch_embed_kernel``)
@@ -193,8 +194,9 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         _order_tfm(tree["order_tfm"], out)
     if "text_model" in tree:
         _text_model(tree["text_model"], out)
-    if "head_cls" in tree:
-        _linear(tree["head_cls"], "head_cls", out)
+    for head in ("head_cls", "head_v", "head_n"):
+        if head in tree:
+            _linear(tree[head], head, out)
     return out
 
 
@@ -345,8 +347,9 @@ def load_reference_params(model: torch.nn.Module, path: str,
     """Load a full model's ``.pyth`` (the reference's or the port's) into
     ``model`` by JAX ``load_reference_params``: keys containing a pattern
     of ``clear_patterns`` (``TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN``) are
-    dropped first; a tensor the file lacks (``head_cls`` of a finetune
-    loaded from a pretraining file) or holds at another shape keeps its
+    dropped first; a tensor the file lacks (``head_cls``, or ``head_v`` and
+    ``head_n``, of a finetune loaded from a pretraining file) or holds at
+    another shape keeps its
     init; each case is logged.  ``blob`` is the file's content where the
     caller has read it already.  Returns the file's ``epoch`` (None if it
     has none)."""

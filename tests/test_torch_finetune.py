@@ -259,19 +259,60 @@ def test_finetune_step_matches_jax(head, mode):
 
 
 def test_finetune_step_refuses_what_is_not_ported():
-    model = ProcedureVRL(**GEOM, **HEADS)
-    cfg = _cfg(get_cfg(), "linear")
-    opt = construct_optimizer(model, cfg)
-    cfg.MIXUP.ENABLED = True
-    with pytest.raises(NotImplementedError, match="mixup"):
-        make_train_step(model, opt, cfg, None, lr_schedule(cfg, 10))
-    cfg.MIXUP.ENABLED = False
+    """Mixup and EPIC-Kitchens, which the port refused until its EPIC
+    slice, now run: the classification finetune under ``MIXUP.ENABLED``
+    (mixup, then the soft-target cross-entropy) holds against JAX's step
+    fed the same mixup draws (JAX's ``mixup`` stream, read into the port's
+    ``draws``), and the EPIC config builds its verb and noun heads and its
+    step (held against JAX in ``test_torch_epic.py``)."""
+    from procedurevrl_tpu.engine import mixup as jax_mixup
+    from procedurevrl_tpu.engine.steps import _model_rngs
+    from test_torch_epic import _jax_draws
+
+    batch = _batch(0)
+    jmodel = JaxProcedureVRL(**GEOM, **HEADS, num_seg=0, use_pallas=False)
+    params = _jax_params(jmodel, 0)
+    jcfg = _cfg(jax_get_cfg(), "mult")
+    cfg = _cfg(get_cfg(), "mult")
+    for c in (cfg, jcfg):
+        c.MIXUP.ENABLED = True
+        c.MODEL.NUM_CLASSES = K  # the mixup's soft targets
+    sched = jax_lr_schedule(jcfg, 10)
+    tx = jax_optimizer(params, jcfg, sched)
+    jstep = jax_make_train_step(jmodel, tx, jcfg, None, sched, 2)
+    zeros = jax.tree_util.tree_map(np.zeros_like, params)
+    rng = jax.random.PRNGKey(5)
+    jgrads, jmetrics, _ = jax.jit(jstep.grad_step)(
+        params, 0, zeros, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    key = _model_rngs(rng, jnp.asarray(0))["mixup"]
+    draws = _jax_draws(jax_mixup.Mixup(
+        jcfg.MIXUP.ALPHA, jcfg.MIXUP.CUTMIX_ALPHA, jcfg.MIXUP.PROB,
+        jcfg.MIXUP.SWITCH_PROB, 0.1, K), key, S, S)
+
+    model = ProcedureVRL(**GEOM, **HEADS, route=AttentionRoute.from_env(False))
+    model.load_state_dict(params_from_jax(params), strict=True)
+    step = make_train_step(model, construct_optimizer(model, cfg), cfg, None,
+                           lr_schedule(cfg, 10))
+    m = step({k: torch.from_numpy(v) for k, v in batch.items()},
+             draws={"mixup": draws})
+    for k in ("loss", "top1_err", "top5_err"):
+        np.testing.assert_allclose(float(m[k]), float(jmetrics[k]), **TOL,
+                                   err_msg=k)
+    jgrads = flatten_dict(jax.tree_util.tree_map(np.asarray, jgrads))
+    grads = flatten_dict(convert_procedurevrl({
+        n: p.grad for n, p in model.named_parameters() if p.requires_grad}))
+    for k, g in grads.items():
+        np.testing.assert_allclose(g, jgrads[k], **GRAD_TOL, err_msg=str(k))
+
     cfg.TRAIN.DATASET = "Epickitchens"
-    with pytest.raises(NotImplementedError, match="EPIC"):
-        make_train_step(model, opt, cfg, None, lr_schedule(cfg, 10))
     cfg.MODEL.MODEL_NAME = "vit_base_patch16_224_develop"
-    with pytest.raises(NotImplementedError, match="EPIC"):
-        build_model(cfg, "cpu")
+    cfg.TIMESFORMER.DEPTH = 1
+    epic, _ = build_model(cfg, "cpu")
+    assert epic.head_cls is None
+    assert epic.head_v.weight.shape == (97, 512)
+    assert epic.head_n.weight.shape == (300, 512)
+    make_train_step(epic, construct_optimizer(epic, cfg), cfg, None,
+                    lr_schedule(cfg, 10))
 
 
 @pytest.mark.parametrize("knob", ["LONG_CYCLE", "SHORT_CYCLE"])

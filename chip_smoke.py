@@ -18,7 +18,11 @@ Phases (any failure exits non-zero):
    (temporal backward), the same way at the training shapes (18 clips x 8
    frames, bf16) plus small float32 cases (K2b also phase 3's tilings);
 6. slice 1: ``procedurevrl_torch.tools.test_net.test`` on
-   ``configs/COIN/step_classification.yaml`` with synthetic data, full
+   ``configs/COIN/step_classification.yaml`` with synthetic data
+   (``DEV.LOAD_DUMMY_DATA``: since slice 18 every train and test run of a
+   HowTo100M / COIN config reads the dataset's ``synthetic://`` index
+   through the host loader, and a batch held against the plain path is
+   the loader's first, copied to the card), full
    TimeSformer-B in bf16, 192 clips in batches of 16; launch counts of
    both forward kernels must be 12 per batch; one batch is held against
    the same model run through the plain versions;
@@ -160,7 +164,7 @@ Phases (any failure exits non-zero):
    one step of each against the plain path (phase 7's limits) and one
    step of each profiled with its peak memory;
 31. slice 15, checkpoints, through files: TimeSformer-B order pretraining
-   (``procedurevrl_adamw.yaml``, bf16, remat, 2 samples a micro-batch, 8
+   (``procedurevrl_adamw.yaml``, bf16, remat, 4 samples a micro-batch, 4
    micro-batches a step, 4 steps an epoch, 2 epochs, a checkpoint after
    each) uninterrupted (run A), and cut after epoch 1 then resumed by
    AUTO_RESUME from its ``OUTPUT_DIR`` (run B: asserted to start at epoch 2
@@ -210,7 +214,21 @@ Phases (any failure exits non-zero):
    launches, asserted, and its peak memory above the resident state;
    device busy profiled in the order True, False, False, True), then 2
    steps of
-   ``configs/HowTo100M/procedurevrl_sgd.yaml``.
+   ``configs/HowTo100M/procedurevrl_sgd.yaml``;
+35. slice 18, the host data pipeline: which of ``cv2``, ``av``, ``PIL``,
+   ``pandas`` and ``ffmpeg`` this machine has, and its cores; the native
+   preprocess must be the build of ``csrc/videoproc.cpp`` and must run;
+   the loader alone (host arrays, then pinned and copied to the card) on
+   the pretraining train split (2 samples of 9 clips x 8 frames at 224^2,
+   ``NUM_WORKERS`` 8) and the COIN test split; two passes of one loader
+   give identical batches; ``train_net.train`` on ``procedurevrl_adamw.yaml``
+   through the loader (2 warm-up + 4 timed steps, per step 12 K1sp, 12
+   K2f, 12 K1b, 12 K2b); one model's step fed by the loader and by
+   ``SyntheticPretrain``'s device-drawn batch (loader, device, device,
+   loader: clips/s and one profiled step each); ``test_net.test`` on
+   ``step_classification.yaml`` (12 K1f + 12 K2f a batch); every copied
+   tensor pinned; where the machine has ``cv2`` or ``ffmpeg``, a test on
+   clips it writes, decoded by each decoder found.
 Every phase that trains or tests gives ``OUTPUT_DIR`` a temporary
 directory of its own (the shipped configs name ``.``, and AUTO_RESUME would
 pick up a checkpoint left there), and sends the port's log lines, which
@@ -385,10 +403,12 @@ MVIT_BLOCKS = MVIT_HL_BLOCKS + MVIT_HS_BLOCKS
 COIN_BANK = os.path.join(ROOT, "data/clip_step_emb_coin.pth")
 FINETUNES = (("step_forecasting", 2, 6), ("task_classification", 2, 6),
              ("step_classification", 16, 3))
-# phase 31: 64 synthetic videos, 2 a micro-batch, 8 micro-batches a step
-RESUME_OPTS = ("TRAIN.BATCH_SIZE", "2", "GLOBAL_BATCH_SIZE", "16",
+# phase 31: 64 synthetic videos, 4 a micro-batch, 4 micro-batches a step
+# (2 and 8 until slice 18: each micro-batch now reads the host loader, and
+# half as many keep the script inside its time)
+RESUME_OPTS = ("TRAIN.BATCH_SIZE", "4", "GLOBAL_BATCH_SIZE", "16",
                "SOLVER.MAX_EPOCH", "2", "TRAIN.CHECKPOINT_PERIOD", "1")
-RESUME_STEPS, RESUME_ACCUM = 4, 8   # an epoch's optimizer steps, micro-batches
+RESUME_STEPS, RESUME_ACCUM = 4, 4   # an epoch's optimizer steps, micro-batches
 # slice 16: the softmax shifts SPATIAL_SHIFT, TEMPORAL_SHIFT and MVIT_SHIFT
 # under max and none.  The top logit each query row is aimed at, in turn:
 # left small, in (80, 88) and in (88, 300), where the shifts part (the clamp
@@ -421,6 +441,13 @@ SHIFT_STEPS = 3                         # 2 warm-up + 1 timed
 TS_MAX = {"SPATIAL_SHIFT": "max", "TEMPORAL_SHIFT": "max"}
 MVIT_MAX = {"MVIT_SHIFT": "max"}
 ALL_NONE = dict.fromkeys(SHIFT_KNOBS, "none")
+# slice 18, the host data pipeline: the loader alone over this many
+# pretraining batches; train_net.train through it for LOADER_STEPS steps;
+# the step fed by the loader and by SyntheticPretrain's device-drawn batch,
+# WARMUP_STEPS + LOADER_TIMED steps each, twice
+LOADER_BATCHES = 12
+LOADER_STEPS = 6                        # 2 warm-up + 4 timed
+LOADER_TIMED = 4
 
 
 def fail(msg: str) -> None:
@@ -1735,14 +1762,32 @@ def zero_shot_opts(*opts) -> tuple:
             "TEST.BATCH_SIZE", "16", "DEV.TEST_LANG_EMB", COIN_BANK, *opts)
 
 
+def test_loader(cfg):
+    """The test split's loader (``datasets/loader.py:construct_loader``)."""
+    from procedurevrl_torch.datasets.loader import construct_loader
+
+    return construct_loader(cfg, "test")
+
+
+def first_batch(loader) -> dict:
+    """The first batch of ``loader``, copied to the card (pinned, on the
+    prefetch stream), its producer stopped."""
+    from procedurevrl_torch.datasets.loader import prefetch_to_device
+
+    batches = prefetch_to_device(loader, "cuda", size=1)
+    with contextlib.closing(batches):
+        return next(batches)[0]
+
+
 def eval_phase(torch, k1, k2, k5, k8, _build, cfg, label: str, knobs,
                per_batch: dict, profile: bool = True) -> dict:
     """Drive ``test_net.test`` on ``cfg`` with ``knobs`` set while the
     models are built: the port kernels ``per_batch`` launch that many times
     per batch and no other port kernel launches; finite stats; one batch
     held against the same model through the plain versions; optionally one
-    eval step profiled.  Returns the launch counts of the test's run."""
-    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    eval step profiled.  Clips and batches are the test loader's; the batch
+    held against the plain path is its first, copied to the card.  Returns
+    the launch counts of the test's run."""
     from procedurevrl_torch.engine.steps import make_eval_step
     from procedurevrl_torch.models.build import build_model
     from procedurevrl_torch.tools.test_net import test
@@ -1752,8 +1797,9 @@ def eval_phase(torch, k1, k2, k5, k8, _build, cfg, label: str, knobs,
              if os.environ.get(k) and k not in knobs]
     if stray:
         fail(f"{label} runs with its own knobs only: unset {stray}")
-    dataset = SyntheticClips(cfg, "test")
-    n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
+    loader = test_loader(cfg)
+    dataset = loader.dataset
+    n_batches = len(loader)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1783,7 +1829,7 @@ def eval_phase(torch, k1, k2, k5, k8, _build, cfg, label: str, knobs,
     with knobs_set(knobs):
         model, bank = build_model(cfg, "cuda")
     step = make_eval_step(model, cfg, bank)
-    batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
+    batch = first_batch(loader)
     preds = step(batch)
     with plain_attention(k1, k2, k5, k8):
         ref = step(batch)
@@ -1844,12 +1890,13 @@ def phase_mvit_eval(torch, k1, k2, k5, k8, _build) -> list:
     MVIT_KT=1`` (13 K5f, 1 K6f, 2 K7f and 17 K8f per batch); one batch of
     each against the plain path.  ``TRAIN.LABEL_EMB`` is cleared, so the
     bank is the COIN one the test names rather than the pretraining
-    config's."""
+    config's, and ``TRAIN.TEXT``, so the test split holds one clip a
+    sample, not the pretraining config's 9 ASR windows."""
     from procedurevrl_torch.config import load_config
 
     cfg = load_config(os.path.join(ROOT, MVIT_CFG), [
         "DEV.LOAD_DUMMY_DATA", "True", "TEST.ENABLE", "True",
-        "TRAIN.LABEL_EMB", "", "MODEL.NUM_CLASSES", "778",
+        "TRAIN.LABEL_EMB", "", "TRAIN.TEXT", "", "MODEL.NUM_CLASSES", "778",
         *zero_shot_opts()])
     hl, hs = MVIT_HL_BLOCKS, MVIT_HS_BLOCKS
     return [eval_phase(torch, k1, k2, k5, k8, _build, cfg, "MViT eval", None,
@@ -1890,12 +1937,15 @@ def run_train(torch, _build, cfg, steps: int):
     return stats, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated()
 
 
-def step_vs_plain(torch, cfg, k1, k2, k5, k8):
+def step_vs_plain(torch, cfg, k1, k2, k5, k8, batch=None):
     """One train step of ``cfg`` through the kernels and the same step
     (params, batch, generator seeds) through the plain versions; returns
-    the kernel path's step function and batch for the profile.  A
-    finetuning config takes its first synthetic train batch.  Every trained
+    the kernel path's step function and batch for the profile.  Without
+    ``batch``, pretraining takes ``SyntheticPretrain``'s first batch (2
+    samples), EPIC-Kitchens its synthetic split's, a COIN finetune the
+    first batch of its train loader, copied to the card.  Every trained
     tensor must hold a gradient after the step on both paths."""
+    from procedurevrl_torch.datasets.loader import construct_loader
     from procedurevrl_torch.datasets.synthetic import (
         SyntheticClips, SyntheticPretrain,
     )
@@ -1905,11 +1955,16 @@ def step_vs_plain(torch, cfg, k1, k2, k5, k8):
     from procedurevrl_torch.solver.optimizer import construct_optimizer
 
     gen = torch.Generator(device="cuda")
-    if cfg.TRAIN.TEXT:
+    if batch is not None:
+        pass
+    elif cfg.TRAIN.TEXT:
         batch = SyntheticPretrain(cfg).batch(2, 0, gen)
-    else:
+    elif cfg.TRAIN.DATASET == "Epickitchens":
         batch = SyntheticClips(cfg, "train").batch(cfg.TRAIN.BATCH_SIZE, 0,
                                                    gen)
+    else:
+        batch = first_batch(construct_loader(cfg, "train"))
+        batch.pop("index")
 
     def one_step():
         model, bank = build_model(cfg, "cuda")
@@ -1975,6 +2030,7 @@ def step_vs_plain(torch, cfg, k1, k2, k5, k8):
 
 def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
     """Drive slice 2; return the launch counts of its main run."""
+    from procedurevrl_torch.datasets.loader import construct_loader
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
     if any(os.environ.get(k) for k in TS_KNOBS):
@@ -2017,7 +2073,10 @@ def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
             fail(f"{key} launched {launches2.get(key, 0)} times without "
                  f"remat, expected {DEPTH * NO_REMAT_STEPS}")
 
-    step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5, k8)
+    # one batch of the train loader, copied to the card
+    batch = first_batch(construct_loader(train_cfg(True), "train"))
+    batch.pop("index")
+    step, batch = step_vs_plain(torch, train_cfg(True), k1, k2, k5, k8, batch)
     profile_step(torch, f"one train step ({clips} clips, remat)",
                  lambda: float(step(batch)["loss"]))
     return launches
@@ -2032,7 +2091,7 @@ def phase_finetune(torch, k1, k2, k5, k8, _build) -> dict:
     backward kernel: the frozen encoder runs without autograd, so nothing
     is recomputed); one step against the plain path and one step profiled.
     Returns the launch counts summed over the runs."""
-    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    from procedurevrl_torch.datasets.loader import construct_loader
     from procedurevrl_torch.tools.train_net import WARMUP_STEPS
 
     if any(os.environ.get(k) for k in TS_KNOBS):
@@ -2056,7 +2115,7 @@ def phase_finetune(torch, k1, k2, k5, k8, _build) -> dict:
         val = stats["val"][0]
         if not all(math.isfinite(val[k]) for k in ("top1_err", "top5_err")):
             fail(f"{name}: the val errors are not finite")
-        n_val = SyntheticClips(cfg, "val").num_batches(batch_size)
+        n_val = len(construct_loader(cfg, "val"))
         print(f"{name} (linear probe): {stats['clips_per_step']} clips/step, "
               f"{stats['clips_per_sec']:.2f} clips/s over steps "
               f"{WARMUP_STEPS + 1}..{steps}, val epoch of {n_val} batches: "
@@ -2136,7 +2195,7 @@ def same_state(torch, a: dict, b: dict, what: str) -> None:
 def phase_checkpoints(torch, k1, k2, k5, k8, _build) -> None:
     """Slice 15 (phase 31): pretrain, resume, finetune from the file, and
     test from ``OUTPUT_DIR``, all through files (see the module's list)."""
-    from procedurevrl_torch.datasets.synthetic import SyntheticClips
+    from procedurevrl_torch.datasets.loader import construct_loader
     from procedurevrl_torch.engine.steps import make_eval_step
     from procedurevrl_torch.models.build import build_model
     from procedurevrl_torch.solver.optimizer import construct_optimizer
@@ -2282,13 +2341,14 @@ def phase_checkpoints(torch, k1, k2, k5, k8, _build) -> None:
         wall = time.perf_counter() - t1
         launches = dict(_build.LAUNCHES)
         # TRAIN.EPOCH_MUL 2: an epoch is 128 samples, 64 micro-batches
-        micro = SyntheticClips(cfg, "train").num_batches(cfg.TRAIN.BATCH_SIZE)
+        micro = len(construct_loader(cfg, "train"))
+        accum = cfg.GLOBAL_BATCH_SIZE // cfg.TRAIN.BATCH_SIZE
         check_launches(launches, {
             key: DEPTH * micro if key in (k1.KERNEL, k2.KERNEL) else 0
             for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
             "the finetune from the pretraining file")
         saved = [os.path.basename(p) for p in stats["checkpoints"]]
-        if stats["steps"] != micro // RESUME_ACCUM or saved != [
+        if stats["steps"] != micro // accum or saved != [
                 "checkpoint_epoch_00001.pyth"]:
             fail(f"the finetune ran {stats['steps']} steps and wrote {saved}")
         if not all(math.isfinite(h["loss"]) for h in stats["history"]):
@@ -2303,8 +2363,9 @@ def phase_checkpoints(torch, k1, k2, k5, k8, _build) -> None:
 
         # 4. the test, from OUTPUT_DIR's last checkpoint
         t0 = time.perf_counter()
-        dataset = SyntheticClips(cfg, "test")
-        n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
+        loader = test_loader(cfg)
+        dataset = loader.dataset
+        n_batches = len(loader)
         _build.reset_launches()
         with quiet():
             tstats = test(cfg, device="cuda")
@@ -2318,7 +2379,7 @@ def phase_checkpoints(torch, k1, k2, k5, k8, _build) -> None:
             "the test from OUTPUT_DIR")
         if loaded != stats["checkpoints"][-1]:
             fail(f"the test loaded {loaded}, not the finetune's checkpoint")
-        batch = next(dataset.batches(cfg.TEST.BATCH_SIZE, "cuda"))
+        batch = first_batch(loader)
         p_file = make_eval_step(model, cfg, None)(batch)
         p_mem = make_eval_step(stats["model"], cfg, None)(batch)
         torch.cuda.synchronize()
@@ -3870,6 +3931,267 @@ def phase_remat(torch, k1, k2, k5, k8, _build) -> None:
           f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
 
 
+def probe_host() -> dict:
+    """Which decoders and readers this machine has, and its cores."""
+    import importlib.util
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("cv2", "av", "PIL", "pandas")}
+    found["ffmpeg"] = shutil.which("ffmpeg") is not None
+    print(f"host: os.cpu_count() {os.cpu_count()}; found "
+          f"{', '.join(k for k, v in found.items() if v) or 'none'}; "
+          f"missing {', '.join(k for k, v in found.items() if not v) or 'none'}")
+    return found
+
+
+def loader_rate(torch, loader, n_batches: int, to_card: bool) -> float:
+    """Samples/s of ``loader`` alone over batches 2..``n_batches`` of an
+    epoch (the first fills the pool), host arrays only or copied to the
+    card by ``prefetch_to_device``."""
+    from procedurevrl_torch.datasets.loader import prefetch_to_device
+
+    batches = (prefetch_to_device(loader, "cuda", size=loader.prefetch_depth)
+               if to_card else iter(loader))
+    n = 0
+    with contextlib.closing(batches):
+        for i, item in enumerate(batches):
+            if i == 0:
+                t0 = time.perf_counter()
+            else:
+                n += item[1]
+            if i + 1 == n_batches:
+                break
+        if to_card:
+            torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def same_passes(loader, n_batches: int) -> None:
+    """Two passes of ``loader`` at one epoch give identical batches."""
+    passes = []
+    for _ in range(2):
+        batches = iter(loader)
+        with contextlib.closing(batches):
+            passes.append([b for b, _, _ in itertools.islice(batches,
+                                                              n_batches)])
+    for i, (a, b) in enumerate(zip(*passes)):
+        for key in a:
+            if not np_equal(a[key], b[key]):
+                fail(f"two loader passes differ in batch {i}, key {key}")
+    print(f"two passes of the pretraining loader: {n_batches} batches "
+          f"identical in every key ({sorted(passes[0][0])})")
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def check_pinned(what: str) -> dict:
+    """Every tensor ``prefetch_to_device`` copied since the last reset came
+    from pinned memory (a non-blocking copy from pageable memory would be
+    synchronous)."""
+    from procedurevrl_torch.datasets import loader as loader_mod
+
+    copies = dict(loader_mod.COPIES)
+    if not copies["tensors"] or copies["pinned"] != copies["tensors"]:
+        fail(f"{what}: {copies['pinned']} of {copies['tensors']} copied "
+             "tensors were pinned")
+    return copies
+
+
+def write_clips(folder: str, found: dict, n: int = 3) -> bool:
+    """``n`` clips of 12 s at 30 fps, 320x180, and a windowed CSV index of
+    them (``test.csv``), written by ``cv2.VideoWriter`` or the ``ffmpeg``
+    binary; False if neither is there."""
+    import numpy as np
+
+    for i in range(n):
+        path = os.path.join(folder, f"clip{i}.mp4")
+        if found["cv2"]:
+            import cv2
+
+            w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30.0,
+                                (320, 180))
+            ramp = np.arange(320, dtype=np.int64)[None, :, None]
+            for f in range(360):
+                img = ((ramp * (i + 1) + f) % 256).astype(np.uint8)
+                w.write(np.broadcast_to(img, (180, 320, 3)).copy())
+            w.release()
+        elif found["ffmpeg"]:
+            subprocess.run([shutil.which("ffmpeg"), "-nostdin", "-loglevel",
+                            "error", "-f", "lavfi", "-i",
+                            "testsrc=duration=12:size=320x180:rate=30",
+                            "-pix_fmt", "yuv420p", path], check=True,
+                           timeout=120)
+        else:
+            return False
+    with open(os.path.join(folder, "test.csv"), "w") as f:
+        f.write("".join(f"clip{i} {i} 12 2 11\n" for i in range(n)))
+    return True
+
+
+def phase_loader(torch, k1, k2, k5, k8, _build) -> None:
+    """Slice 18, the host data pipeline (see the module's list)."""
+    from procedurevrl_torch.datasets import loader as loader_mod
+    from procedurevrl_torch.datasets import videoproc
+    from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.solver.lr_policy import lr_schedule
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+    from procedurevrl_torch.tools.test_net import test
+    from procedurevrl_torch.tools.train_net import WARMUP_STEPS
+
+    if any(os.environ.get(k) for k in TS_KNOBS):
+        fail(f"phase 35 runs the default route: unset {list(TS_KNOBS)}")
+    found = probe_host()
+    lib = videoproc.load()
+    if (os.path.realpath(lib._name) != os.path.realpath(
+            videoproc.library_path())
+            or not str(videoproc.library_path()).startswith(
+                str(_build.BUILD_DIR))):
+        fail(f"the preprocess library is {lib._name}, not the build of "
+             "csrc/videoproc.cpp")
+    passes0 = videoproc.PASSES["fused_preprocess"]
+
+    # the loader alone: pretraining (9 clips x 8 frames at 224) and the
+    # COIN zero-shot test split
+    pre_cfg = train_cfg(True)
+    test_cfg = coin_cfg("step_classification", *zero_shot_opts())
+    for label, cfg, split, n in (
+            ("pretraining train split", pre_cfg, "train", LOADER_BATCHES),
+            ("COIN test split", test_cfg, "test", None)):
+        loader = loader_mod.construct_loader(cfg, split)
+        n = n or len(loader)
+        host = loader_rate(torch, loader, n, False)
+        loader_mod.reset_copies()
+        card = loader_rate(torch, loader, n, True)
+        copies = check_pinned(label)
+        per_batch = loader.local_batch
+        print(f"loader alone, {label} ({per_batch} samples of "
+              f"{loader.dataset.clips} clips a batch, NUM_WORKERS "
+              f"{cfg.DATA_LOADER.NUM_WORKERS}): {host:.2f} samples/s on the "
+              f"host, {card:.2f} samples/s pinned and copied to the card "
+              f"(batches 2..{n}; {copies['batches']} batches, "
+              f"{copies['bytes'] / 2 ** 20:.1f} MiB copied, all pinned)")
+    same_passes(loader_mod.construct_loader(pre_cfg, "train"), 3)
+
+    # train_net.train through the loader, launches asserted
+    loader_mod.reset_copies()
+    stats, launches, peak = run_train(torch, _build, train_cfg(True),
+                                      LOADER_STEPS)
+    copies = check_pinned("train_net.train")
+    if not all(math.isfinite(h["loss"]) for h in stats["history"]):
+        fail("a train step through the loader is not finite")
+    expected = dict.fromkeys(k1k2_kernels(k1, k2), 0)
+    expected.update({key: DEPTH * LOADER_STEPS for key in (
+        k1.KERNEL_PROBS, k2.KERNEL, k1.KERNEL_BWD, k2.KERNEL_BWD)})
+    check_launches(launches, expected, f"{LOADER_STEPS} steps through the "
+                   "loader")
+    print(f"train_net.train through the loader: {stats['clips_per_sec']:.2f} "
+          f"clips/s over steps {WARMUP_STEPS + 1}..{LOADER_STEPS}, losses "
+          f"{[round(h['loss'], 6) for h in stats['history']]}, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, {copies['batches']} batches copied "
+          f"pinned, launches {launches}")
+
+    # one model, its step fed by the loader and by SyntheticPretrain's
+    # device-drawn batch, in the order loader, device, device, loader
+    cfg = train_cfg(True)
+    model, bank = build_model(cfg, "cuda")
+    step = make_train_step(model, construct_optimizer(model, cfg), cfg, bank,
+                           lr_schedule(cfg, 1))
+    batches = loader_mod.prefetch_to_device(
+        loader_mod.construct_loader(cfg, "train"), "cuda",
+        size=cfg.TPU.PREFETCH_DEPTH)
+    synthetic = SyntheticPretrain(cfg)
+    gen = torch.Generator(device="cuda")
+    drawn = itertools.count()
+
+    def loader_batch():
+        batch = next(batches)[0]
+        batch.pop("index")
+        return batch
+
+    feeds = {"loader": loader_batch,
+             "device": lambda: synthetic.batch(2, next(drawn), gen)}
+    clips = 2 * CLIPS_PER_SAMPLE
+    with contextlib.closing(batches):
+        for name in ("loader", "device", "device", "loader"):
+            feed = feeds[name]
+            for _ in range(WARMUP_STEPS):
+                float(step(feed())["loss"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = [step(feed()) for _ in range(LOADER_TIMED)]
+            loss = [float(m["loss"]) for m in metrics]
+            wall = time.perf_counter() - t0
+            busy = profile_step(torch, f"one train step ({clips} clips, "
+                                f"batch from the {name})",
+                                lambda: float(step(feed())["loss"]), top=4)
+            print(f"steps fed by the {name}: {LOADER_TIMED * clips / wall:.2f}"
+                  f" clips/s over {LOADER_TIMED} steps, losses "
+                  f"{[round(x, 6) for x in loss]}, device busy {busy:.3f} ms "
+                  "a step (profile above)")
+            if not all(math.isfinite(x) for x in loss):
+                fail(f"a step fed by the {name} is not finite")
+    del model, step, batches
+    torch.cuda.empty_cache()
+
+    # the zero-shot test through the loader
+    loader_mod.reset_copies()
+    n_batches = len(test_loader(test_cfg))
+    _build.reset_launches()
+    with job_dir(test_cfg):
+        tstats = test(test_cfg, device="cuda")
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    copies = check_pinned("test_net.test")
+    check_launches(launches, {
+        key: DEPTH * n_batches if key in (k1.KERNEL, k2.KERNEL) else 0
+        for key in k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8)},
+        "the zero-shot test through the loader")
+    print(f"test_net.test through the loader: {n_batches} batches, "
+          f"{tstats['clips_per_sec']:.2f} clips/s over batches 2..{n_batches}, "
+          f"top1 {tstats['top1_acc']}, {copies['batches']} batches copied "
+          f"pinned, launches {launches}")
+    passes = videoproc.PASSES["fused_preprocess"] - passes0
+    if passes <= 0:
+        fail("no frame went through the native fused preprocess")
+    print(f"native preprocess: {passes} fused passes in this phase, library "
+          f"{os.path.basename(lib._name)}")
+
+    # real decoding, where this machine has a decoder
+    backends = [b for b in ("cv2", "ffmpeg", "pyav")
+                if found["av" if b == "pyav" else b]]
+    folder = tempfile.mkdtemp(prefix="chip_smoke_clips_")
+    try:
+        if not backends or not write_clips(folder, found):
+            print("real decoding: no decoder on this machine (cv2, av and "
+                  "ffmpeg missing); left out")
+            return
+        for backend in backends:
+            cfg = coin_cfg("step_classification", *zero_shot_opts(
+                "DEV.LOAD_DUMMY_DATA", "False", "DATA.PATH_TO_DATA_DIR",
+                folder, "DATA.PATH_PREFIX", folder, "DATA.DECODING_BACKEND",
+                backend, "TEST.NUM_ENSEMBLE_VIEWS", "2"))
+            _build.reset_launches()
+            with job_dir(cfg):
+                rstats = test(cfg, device="cuda")
+                torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            check_launches(launches, {k1.KERNEL: DEPTH, k2.KERNEL: DEPTH},
+                           f"the test on decoded clips ({backend})")
+            if not math.isfinite(float(rstats["top1_acc"])):
+                fail(f"the test on decoded clips ({backend}) is not finite")
+            print(f"real decoding ({backend}): 3 written clips x 2 views in "
+                  f"one batch, top1 {rstats['top1_acc']}, launches "
+                  f"{launches}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4024,6 +4346,8 @@ def main() -> int:
                            k1, k2, k5, k8, _build)
     timed("34 slice 17 remat policies", phase_remat, torch, k1, k2, k5, k8,
           _build)
+    timed("35 slice 18 host data pipeline", phase_loader, torch, k1, k2, k5,
+          k8, _build)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
                + long_kernels + head_dim_kernels + shift_kernels

@@ -5,8 +5,10 @@ Hopper (``sm_90a``) into its own shared library with a plain C interface,
 ``build/torch_kernels/<name>-<source hash>.so`` at the repository root,
 and loaded with ``ctypes``.  The build happens on first use (or all at once
 through :func:`build`, which starts one ``nvcc`` per source in parallel);
-a library whose source hash matches is reused.  Nothing here runs at
-import time, so the CPU-only tests import every module without a compiler.
+a library whose source hash matches is reused.  The host code of the data
+pipeline, ``csrc/<name>.cpp``, is built the same way by ``g++`` for the
+host CPU (:func:`build_host`).  Nothing here runs at import time, so the
+CPU-only tests import every module without a compiler.
 
 The launch counters are the port's only global state: each kernel wrapper
 adds one to its kernel's count where it launches it, so a run can show
@@ -19,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -31,6 +34,9 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's flags for native/videoproc.cpp, so both libraries round
+# alike (procedurevrl_tpu/datasets/videoproc.py:_build)
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -135,6 +141,48 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return report
+
+
+def _host_cpu() -> bytes:
+    """What ``-march=native`` compiles for: the host CPU's model and
+    feature flags, so that a library built on another CPU is not reused."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = {line for line in f
+                     if line.startswith(("model name", "flags"))}
+        return "".join(sorted(lines)).encode()
+    except OSError:
+        return f"{platform.machine()} {platform.processor()}".encode()
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cpp`` lives: named by a hash of
+    the source, the compiler flags and the host CPU."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(_host_cpu())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """The library of ``csrc/<name>.cpp``, compiled by ``g++`` if it has no
+    current one; raises with the compiler's output if the build fails."""
+    target = host_library_path(name)
+    if target.exists():
+        return target
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name}.cpp needs a C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cpp"), "-lpthread"],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {name}.cpp:\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target
 
 
 @functools.lru_cache(maxsize=None)

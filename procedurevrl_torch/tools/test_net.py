@@ -15,11 +15,14 @@ checkpoint and ``TRAIN.CHECKPOINT_FILE_PATH``
 (``utils/checkpoint.py:load_test_checkpoint``), over the pretrained encoder
 of ``TIMESFORMER.PRETRAINED_MODEL``.  ``TEST.SAVE_RESULTS_PATH`` and
 ``TEST.SAVE_PREDICT_PATH`` dump the per-video predictions and labels into
-``OUTPUT_DIR``.
+``OUTPUT_DIR``.  Batches come from ``construct_loader(cfg, "test")``
+through ``prefetch_to_device`` (EPIC-Kitchens: its synthetic split), the
+last one padded; the meter takes each batch's ``n_valid`` real rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -27,10 +30,12 @@ from typing import Dict, Union
 
 import torch
 
-from procedurevrl_torch.datasets.synthetic import SyntheticClips
+from procedurevrl_torch.datasets.loader import Loader
+from procedurevrl_torch.datasets.synthetic import SyntheticLoader
 from procedurevrl_torch.engine.steps import make_eval_step
 from procedurevrl_torch.models.build import build_model
 from procedurevrl_torch.models.procedurevrl import EPIC_NOUNS, EPIC_VERBS
+from procedurevrl_torch.tools.train_net import build_loader, device_batches
 from procedurevrl_torch.utils import checkpoint as cu
 from procedurevrl_torch.utils import misc, weights
 from procedurevrl_torch.utils.device import resolve_device
@@ -40,7 +45,7 @@ from procedurevrl_torch.utils.meters import EPICTestMeter, TestMeter
 logger = get_logger(__name__)
 
 
-def perform_test(dataset: SyntheticClips, eval_step,
+def perform_test(loader: Union[Loader, SyntheticLoader], eval_step,
                  test_meter: Union[TestMeter, EPICTestMeter], cfg,
                  device: torch.device) -> Dict:
     """Run every test clip through ``eval_step`` and finalise the meter.
@@ -49,28 +54,32 @@ def perform_test(dataset: SyntheticClips, eval_step,
     forecasting sample is ``NUM_SEG`` of them) over host seconds from the
     end of the first batch to the end of the last (each batch ends when its
     predictions reach the host), i.e. the steady rate without the first
-    batch's warm-up; null with a single batch."""
+    batch's warm-up, the input path included; null with a single batch."""
     n_clips = 0
     t_first = None
+    clips = loader.dataset.clips
     test_meter.iter_tic()
-    for cur_iter, batch in enumerate(dataset.batches(cfg.TEST.BATCH_SIZE,
-                                                     device)):
-        preds = eval_step(batch)
-        index = batch["index"].cpu().numpy()
-        if isinstance(preds, tuple):  # EPIC: (verb, noun) logits
-            test_meter.update_stats(
-                tuple(p.cpu().numpy() for p in preds),
-                (batch["verb"].cpu().numpy(), batch["noun"].cpu().numpy()),
-                None, index)
-        else:
-            test_meter.update_stats(preds.cpu().numpy(),
-                                    batch["labels"].cpu().numpy(), index)
-        if t_first is None:
-            t_first = time.perf_counter()
-        else:
-            n_clips += len(index) * dataset.clips
-        test_meter.log_iter_stats(cur_iter)
-        test_meter.iter_tic()
+    batches = device_batches(loader, device, cfg)
+    with contextlib.closing(batches):
+        for cur_iter, (batch, n_valid, extra, _host) in enumerate(batches):
+            preds = eval_step(batch)
+            index = batch["index"][:n_valid].cpu().numpy()
+            if isinstance(preds, tuple):  # EPIC: (verb, noun) logits
+                test_meter.update_stats(
+                    tuple(p[:n_valid].cpu().numpy() for p in preds),
+                    (batch["verb"][:n_valid].cpu().numpy(),
+                     batch["noun"][:n_valid].cpu().numpy()),
+                    extra.get("narration_id"), index)
+            else:
+                test_meter.update_stats(
+                    preds[:n_valid].cpu().numpy(),
+                    batch["labels"][:n_valid].cpu().numpy(), index)
+            if t_first is None:
+                t_first = time.perf_counter()
+            else:
+                n_clips += n_valid * clips
+            test_meter.log_iter_stats(cur_iter)
+            test_meter.iter_tic()
     elapsed = time.perf_counter() - t_first
     stats = dict(test_meter.finalize_metrics())
     stats["clips_per_sec"] = n_clips / elapsed if n_clips else None
@@ -113,9 +122,6 @@ def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
     device = resolve_device(device)
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Test with config:\n%s", cfg.dump())
-    if not cfg.DEV.LOAD_DUMMY_DATA:
-        raise NotImplementedError("video decoding is not ported yet: set "
-                                  "DEV.LOAD_DUMMY_DATA True")
     model, label_emb = build_model(cfg, device)
     weights.load_pretrained_encoder(model, cfg)
     cu.load_test_checkpoint(cfg, model)
@@ -123,16 +129,19 @@ def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
     if model.match_lang_emb and label_emb is None:
         raise ValueError("zero-shot testing needs a step bank "
                          "(DEV.TEST_LANG_EMB)")
-    dataset = SyntheticClips(cfg, "test")
-    num_videos = len(dataset) // dataset.num_clips
-    n_batches = dataset.num_batches(cfg.TEST.BATCH_SIZE)
-    if dataset.epic:
-        test_meter = EPICTestMeter(num_videos, dataset.num_clips,
-                                   [EPIC_VERBS, EPIC_NOUNS], n_batches)
+    loader = build_loader(cfg, "test")
+    num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    if len(loader.dataset) % num_clips:
+        raise ValueError(f"test size {len(loader.dataset)} not divisible by "
+                         f"views x crops {num_clips}")
+    num_videos = len(loader.dataset) // num_clips
+    if cfg.TEST.DATASET == "Epickitchens":
+        test_meter = EPICTestMeter(num_videos, num_clips,
+                                   [EPIC_VERBS, EPIC_NOUNS], len(loader))
     else:
         test_meter = TestMeter(
-            num_videos, dataset.num_clips, cfg.MODEL.NUM_CLASSES, n_batches,
+            num_videos, num_clips, cfg.MODEL.NUM_CLASSES, len(loader),
             multi_label=cfg.DATA.MULTI_LABEL,
             ensemble_method=cfg.DATA.ENSEMBLE_METHOD)
-    return perform_test(dataset, make_eval_step(model, cfg, label_emb),
+    return perform_test(loader, make_eval_step(model, cfg, label_emb),
                         test_meter, cfg, device)

@@ -27,19 +27,26 @@ optimizer step, its random streams and its LR where the file left them.
 After every ``TRAIN.CHECKPOINT_PERIOD``-th epoch and the last, the state
 goes to ``OUTPUT_DIR/checkpoints``, written by a thread under
 ``TPU.ASYNC_CHECKPOINT``.  A NaN loss aborts the run (an infinite one
-trains on, as in JAX).  Data is synthetic (``DEV.LOAD_DUMMY_DATA``: the
-pretraining split, or the train and val splits of :class:`SyntheticClips`);
-the real loaders are not ported yet.
+trains on, as in JAX).  Data comes from ``datasets/loader.py:construct_loader``
+(the HowTo100M / COIN dataset, decoded files or, under
+``DEV.LOAD_DUMMY_DATA``, its ``synthetic://`` index), reshuffled each
+epoch and copied to the card one batch ahead (``prefetch_to_device``); the
+EPIC-Kitchens splits are still :class:`SyntheticLoader`'s, drawn on the
+card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Union
 
 import torch
 
-from procedurevrl_torch.datasets.synthetic import SyntheticClips, SyntheticPretrain
+from procedurevrl_torch.datasets.loader import (
+    Loader, construct_loader, prefetch_to_device, shuffle_dataset,
+)
+from procedurevrl_torch.datasets.synthetic import SyntheticLoader
 from procedurevrl_torch.engine.steps import make_eval_step, make_train_step
 from procedurevrl_torch.models.build import build_model
 from procedurevrl_torch.solver.lr_policy import lr_schedule
@@ -65,37 +72,63 @@ def _to_host(metrics: Dict[str, Union[torch.Tensor, float]]
     return {k: float(v) for k, v in metrics.items()}
 
 
-def eval_epoch(dataset: SyntheticClips, eval_step,
+def build_loader(cfg, split: str) -> Union[Loader, SyntheticLoader]:
+    """The loader of ``split``: ``construct_loader``'s, or for the
+    EPIC-Kitchens dataset (``TRAIN.DATASET``, for test ``TEST.DATASET``)
+    the synthetic split, until that dataset is ported."""
+    name = cfg.TEST.DATASET if split == "test" else cfg.TRAIN.DATASET
+    if name != "Epickitchens":
+        return construct_loader(cfg, split)
+    if not cfg.DEV.LOAD_DUMMY_DATA:
+        raise NotImplementedError(
+            "the EPIC-Kitchens dataset is not ported yet (ROADMAP.md Queue 1 "
+            "item 4b): set DEV.LOAD_DUMMY_DATA True")
+    return SyntheticLoader(cfg, split, cfg.TEST.BATCH_SIZE if split == "test"
+                           else cfg.TRAIN.BATCH_SIZE)
+
+
+def device_batches(loader: Union[Loader, SyntheticLoader], device, cfg
+                   ) -> Iterator:
+    """One epoch of ``loader`` on ``device``: ``(dev_batch, n_valid, extra,
+    host_batch)`` per batch, through ``prefetch_to_device`` (a synthetic
+    split is drawn there already)."""
+    if isinstance(loader, SyntheticLoader):
+        return loader.batches(device)
+    return prefetch_to_device(loader, device, size=cfg.TPU.PREFETCH_DEPTH)
+
+
+def eval_epoch(val_loader: Union[Loader, SyntheticLoader], eval_step,
                val_meter: Union[ValMeter, EPICValMeter], cfg, cur_epoch: int,
                device: torch.device) -> Dict:
     """One pass over the val split in batches of ``TRAIN.BATCH_SIZE``
-    (JAX ``tools/train_net.py:204-250``): top-1 / top-5 errors of the
-    predictions per batch into ``val_meter``, or for EPIC-Kitchens' (verb,
-    noun) logits the verb, noun and action accuracies; returns its epoch
-    stats."""
-    gen = torch.Generator(device=device)
-    batch_size = cfg.TRAIN.BATCH_SIZE
-    n_batches = dataset.num_batches(batch_size)
-    if n_batches == 0:
+    (JAX ``tools/train_net.py:204-250``): top-1 / top-5 errors of each
+    batch's ``n_valid`` real rows into ``val_meter``, or for EPIC-Kitchens'
+    (verb, noun) logits the verb, noun and action accuracies; returns its
+    epoch stats."""
+    if len(val_loader) == 0:
         raise ValueError("the val split has no batch")
     val_meter.iter_tic()
-    for cur_iter in range(n_batches):
-        batch = dataset.batch(batch_size, cur_iter, gen)
-        preds = eval_step(batch)
-        if isinstance(preds, tuple):  # EPIC: verb / noun / action
-            labels = (batch["verb"], batch["noun"])
-            (v1, v5), (n1, n5) = (topk_accuracies(p, lab, (1, 5))
-                                  for p, lab in zip(preds, labels))
-            a1, a5 = multitask_topk_accuracies(preds, labels, (1, 5))
-            val_meter.update_stats((float(v1), float(n1), float(a1)),
-                                   (float(v5), float(n5), float(a5)),
-                                   preds[0].shape[0])
-        else:
-            top1, top5 = topk_errors(preds, batch["labels"], (1, 5))
-            val_meter.update_stats(float(top1), float(top5), preds.shape[0])
-        val_meter.iter_toc()
-        val_meter.log_iter_stats(cur_epoch, cur_iter)
-        val_meter.iter_tic()
+    batches = device_batches(val_loader, device, cfg)
+    with contextlib.closing(batches):
+        for cur_iter, (batch, n_valid, _extra, _host) in enumerate(batches):
+            preds = eval_step(batch)
+            if isinstance(preds, tuple):  # EPIC: verb / noun / action
+                preds = tuple(p[:n_valid] for p in preds)
+                labels = (batch["verb"][:n_valid], batch["noun"][:n_valid])
+                (v1, v5), (n1, n5) = (topk_accuracies(p, lab, (1, 5))
+                                      for p, lab in zip(preds, labels))
+                a1, a5 = multitask_topk_accuracies(preds, labels, (1, 5))
+                val_meter.update_stats((float(v1), float(n1), float(a1)),
+                                       (float(v5), float(n5), float(a5)),
+                                       n_valid)
+            else:
+                top1, top5 = topk_errors(
+                    preds[:n_valid], batch["labels"].reshape(-1)[:n_valid],
+                    (1, 5))
+                val_meter.update_stats(float(top1), float(top5), n_valid)
+            val_meter.iter_toc()
+            val_meter.log_iter_stats(cur_epoch, cur_iter)
+            val_meter.iter_tic()
     stats = val_meter.log_epoch_stats(cur_epoch)
     val_meter.reset()
     return stats
@@ -117,8 +150,8 @@ def train(cfg, device: Union[str, torch.device, None] = None,
           max_steps: Optional[int] = None) -> Dict:
     """Train entry: build the model (random init from ``RNG_SEED``, the
     pretrained encoder, then a checkpoint: see the module), and run the
-    synthetic train split from the start epoch to ``SOLVER.MAX_EPOCH``, or
-    for ``max_steps`` optimizer steps.  A run cut at an epoch's end saves
+    train split from the start epoch to ``SOLVER.MAX_EPOCH``, or for
+    ``max_steps`` optimizer steps.  A run cut at an epoch's end saves
     that epoch's checkpoint where one is due; a run cut inside an epoch
     saves none for it.  ``device`` defaults to the card; pass ``"cpu"``
     for the plain path.
@@ -141,21 +174,12 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     device = resolve_device(device)
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:\n%s", cfg.dump())
-    if not cfg.DEV.LOAD_DUMMY_DATA:
-        raise NotImplementedError("video decoding is not ported yet: set "
-                                  "DEV.LOAD_DUMMY_DATA True")
     model, label_emb = build_model(cfg, device)
     weights.load_pretrained_encoder(model, cfg)
     misc.log_model_info(model, cfg)
-    if cfg.TRAIN.LABEL_EMB != "" and cfg.TRAIN.TEXT != "":
-        vocab = (model.text_model.token_embedding.num_embeddings
-                 if model.text_model is not None else 49408)
-        dataset = SyntheticPretrain(cfg, text_vocab=vocab,
-                                    vis_dim=label_emb.shape[1])
-    else:
-        dataset = SyntheticClips(cfg, "train")
+    train_loader = build_loader(cfg, "train")
     batch_size = cfg.TRAIN.BATCH_SIZE
-    iters_per_epoch = dataset.num_batches(batch_size)
+    iters_per_epoch = len(train_loader)
     accum = max(cfg.GLOBAL_BATCH_SIZE // max(batch_size, 1), 1)
     steps_per_epoch = max(iters_per_epoch // accum, 1)
     if iters_per_epoch < accum:
@@ -166,18 +190,18 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     start_epoch, start_step = cu.load_train_checkpoint(cfg, model, optimizer)
     train_step = make_train_step(model, optimizer, cfg, label_emb, sched,
                                  accum, start_step)
-    val = (SyntheticClips(cfg, "val")
+    val = (build_loader(cfg, "val")
            if cfg.TRAIN.EVAL_PERIOD <= cfg.SOLVER.MAX_EPOCH else None)
     eval_step = make_eval_step(model, cfg, label_emb)
     is_epic = cfg.TRAIN.DATASET == "Epickitchens"
     val_meter = (EPICValMeter if is_epic else ValMeter)(
-        val.num_batches(batch_size) if val else 0, cfg)
+        len(val) if val else 0, cfg)
     first = start_epoch * steps_per_epoch  # the run's first step in the plan
     total = max(cfg.SOLVER.MAX_EPOCH * steps_per_epoch - first, 0)
     cut = max_steps is not None and max_steps < total
     if cut:
         total = max_steps
-    clips_per_step = accum * batch_size * dataset.clips
+    clips_per_step = accum * batch_size * train_loader.dataset.clips
     meter = TrainMeter(steps_per_epoch, cfg)
     ckpt = cu.AsyncCheckpointer() if cfg.TPU.ASYNC_CHECKPOINT else None
     logger.info("Start epoch: %d (optimizer step %d); %d optimizer steps of "
@@ -188,48 +212,55 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     val_stats: List[Dict] = []
     saved: List[str] = []
     pending: List[Dict[str, Union[torch.Tensor, float]]] = []
-    gen = torch.Generator(device=device)
     t_timed = t_end = None
     eval_seconds = 0.0  # val epochs inside the timed steps
     done = 0  # steps of this run
+    epoch = start_epoch
     meter.iter_tic()
     while done < total:
-        epoch, cur_iter = divmod(first + done, steps_per_epoch)
-        index = epoch * iters_per_epoch + cur_iter * accum
-        micro = [dataset.batch(batch_size, index + i, gen)
-                 for i in range(accum)]
-        pending.append(train_step(micro if accum > 1 else micro[0]))
-        done += 1
-        if (done % cfg.LOG_PERIOD == 0 or done == total
-                or done == WARMUP_STEPS):
-            for m in pending:
-                host = _to_host(m)
-                misc.check_nan_losses(host["loss"])
-                history.append(host)
-                if is_epic:  # the action accuracies, as JAX passes them
-                    meter.update_stats(
-                        host["top1_acc"], host["top5_acc"], host["loss"],
-                        host["lr"], accum * batch_size,
-                        extra={k: v for k, v in host.items()
-                               if k.startswith(("verb", "noun"))})
-                else:
-                    meter.update_stats(
-                        host["top1_err"], host["top5_err"], host["loss"],
-                        host["lr"], accum * batch_size,
-                        extra={k: host[k] for k in ("kl", "mse", "grad_norm")
-                               if k in host})
-            pending = []
-            if done == WARMUP_STEPS:
-                t_timed = time.perf_counter()
-            if done == total:
-                t_end = time.perf_counter()
-        meter.iter_toc()
-        meter.log_iter_stats(epoch, cur_iter)
-        meter.iter_tic()
+        shuffle_dataset(train_loader, epoch)
+        batches = device_batches(train_loader, device, cfg)
+        with contextlib.closing(batches):
+            for cur_iter in range(steps_per_epoch):
+                micro = []
+                for _ in range(accum):
+                    batch = next(batches)[0]
+                    batch.pop("index", None)
+                    micro.append(batch)
+                pending.append(train_step(micro if accum > 1 else micro[0]))
+                done += 1
+                if (done % cfg.LOG_PERIOD == 0 or done == total
+                        or done == WARMUP_STEPS):
+                    for m in pending:
+                        host = _to_host(m)
+                        misc.check_nan_losses(host["loss"])
+                        history.append(host)
+                        if is_epic:  # the action accuracies, as JAX passes
+                            meter.update_stats(
+                                host["top1_acc"], host["top5_acc"],
+                                host["loss"], host["lr"], accum * batch_size,
+                                extra={k: v for k, v in host.items()
+                                       if k.startswith(("verb", "noun"))})
+                        else:
+                            meter.update_stats(
+                                host["top1_err"], host["top5_err"],
+                                host["loss"], host["lr"], accum * batch_size,
+                                extra={k: host[k] for k in
+                                       ("kl", "mse", "grad_norm")
+                                       if k in host})
+                    pending = []
+                    if done == WARMUP_STEPS:
+                        t_timed = time.perf_counter()
+                    if done == total:
+                        t_end = time.perf_counter()
+                meter.iter_toc()
+                meter.log_iter_stats(epoch, cur_iter)
+                meter.iter_tic()
+                if done == total:
+                    break
         epoch_end = cur_iter + 1 == steps_per_epoch
-        if epoch_end or done == total:
-            meter.log_epoch_stats(epoch)
-            meter.reset()
+        meter.log_epoch_stats(epoch)
+        meter.reset()
         if epoch_end and cu.is_checkpoint_epoch(cfg, epoch):
             save = ckpt.save if ckpt is not None else cu.save_checkpoint
             saved.append(save(cfg.OUTPUT_DIR, model, optimizer, cfg, epoch,
@@ -243,6 +274,7 @@ def train(cfg, device: Union[str, torch.device, None] = None,
                                         epoch, device))
             if t_timed is not None and done < total:
                 eval_seconds += time.perf_counter() - t_eval
+        epoch += 1
     if ckpt is not None:
         ckpt.wait()  # the save in flight is on disk, or its error raised
     logger.info("Training done.")

@@ -8,7 +8,8 @@ Geometry: the shipped configurations at depth 1, 2 frames, 32^2 crops,
 float32, no CLIP text tower, the order transformer at 1 level, and the
 TimeSformer at width 128 in 2 heads (``build_model`` fixes 768; the
 tests narrow it) or MViT-v2 at depth 2 on 4 frames of 64^2; 4 synthetic
-videos an epoch where a run trains (``synthetic.NUM_VIDEOS``).
+videos an epoch where a run trains (the HowTo100M / COIN dataset's
+``synthetic://`` index cut to 4, ``howto100m.NUM_SYNTHETIC``).
 Comparisons with JAX are exact (the load moves tensors, it computes nothing) except the
 eval predictions of the port's file in JAX, fp32 atol = rtol = 2e-5.
 """
@@ -33,7 +34,7 @@ from procedurevrl_tpu.models.procedurevrl import ProcedureVRL as JaxProcedureVRL
 from procedurevrl_tpu.utils import checkpoint as jax_cu
 from procedurevrl_tpu.utils.converter import convert_procedurevrl
 from procedurevrl_torch.config import load_config
-from procedurevrl_torch.datasets import synthetic
+from procedurevrl_torch.datasets import howto100m
 from procedurevrl_torch.engine.steps import make_eval_step
 from procedurevrl_torch.models import procedurevrl as port_models
 from procedurevrl_torch.models.build import build_model
@@ -72,7 +73,7 @@ def narrow(monkeypatch):
     """``build_model``'s TimeSformer at width 128 in 2 heads, epochs of 4
     videos."""
     monkeypatch.setattr(port_models, "ProcedureVRL", _Narrow)
-    monkeypatch.setattr(synthetic, "NUM_VIDEOS", 4)
+    monkeypatch.setattr(howto100m, "NUM_SYNTHETIC", 4)
 
 
 def _cfg(path, out, *opts):

@@ -260,7 +260,9 @@ def test_test_net_zero_shot_forecasting_on_cpu(tmp_path):
     assert bank is None and model.head_cls.weight.shape == (778, 512)
 
 
-MVIT_TINY = ["TRAIN.ENABLE", "False", "TEST.ENABLE", "True",
+# TRAIN.TEXT "": the test split then holds one clip a sample, not the
+# pretraining config's 9 ASR windows (the dataset's mode, as in JAX)
+MVIT_TINY = ["TRAIN.ENABLE", "False", "TEST.ENABLE", "True", "TRAIN.TEXT", "",
              "DEV.MATCH_LANG_EMB", "True", "DEV.TEST_LANG_EMB", BANK,
              "MODEL.NUM_CLASSES", "778", "DEV.LOAD_DUMMY_DATA", "True",
              "MVIT.DEPTH", "2", "MVIT.DIM_MUL", "[[1, 2.0]]",

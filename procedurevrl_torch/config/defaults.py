@@ -350,7 +350,9 @@ def _build_defaults() -> CfgNode:
     _C.SOLVER.BASE_LR_SCALE_NUM_SHARDS = False
 
     # ---- Misc root keys (reference :629-659) ---------------------------------------
-    # NUM_GPUS is kept for YAML compatibility; it means "chips per host" here.
+    # NUM_GPUS ranks (one process a card) on each of NUM_SHARDS hosts
+    # (utils/misc.py:launch_job); TRAIN/TEST.BATCH_SIZE are per host, split
+    # over its NUM_GPUS ranks (parallel/ddp.py).  1 x 1 is one process.
     _C.NUM_GPUS = 1
     _C.NUM_SHARDS = 1
     _C.SHARD_ID = 0
@@ -358,7 +360,7 @@ def _build_defaults() -> CfgNode:
     _C.RNG_SEED = 1
     _C.LOG_PERIOD = 10
     _C.LOG_MODEL_INFO = False
-    _C.DIST_BACKEND = "nccl"  # unused on TPU; retained so reference YAMLs load
+    _C.DIST_BACKEND = "nccl"  # on the cards; gloo shares a card, the CPU is gloo
     _C.GLOBAL_BATCH_SIZE = 64
 
     # ---- Benchmark (reference :663-672) ---------------------------------------------
@@ -452,8 +454,8 @@ def _build_defaults() -> CfgNode:
     _C.TPU.USE_PALLAS_ATTENTION = True
     # Rematerialize encoder blocks to trade FLOPs for HBM.
     _C.TPU.REMAT = True
-    # ZeRO-1: shard optimizer moments over the data axis (TPU extension;
-    # cuts per-chip optimizer memory ~(N-1)/N at N-chip data parallel)
+    # ZeRO-1: shard optimizer moments over the ranks (ZeroRedundancyOptimizer,
+    # parallel/ddp.py; cuts each rank's optimizer memory ~(N-1)/N)
     _C.TPU.SHARD_OPT_STATE = False
     # keep qkv projections as remat residuals (more HBM, less recompute)
     _C.TPU.REMAT_SAVE_QKV = False

@@ -5,8 +5,10 @@ reference ``lib/datasets/loader.py:75-160``, ``lib/datasets/utils.py:358-372``).
 - Each process owns ``1 / world size`` of every global batch, sliced from
   an epoch-seeded global permutation (``RandomState(RNG_SEED +
   epoch)``), the sample-to-step assignment of ``DistributedSampler`` with
-  ``drop_last``.  The world is ``torch.distributed``'s where it is
-  initialised, else one process.
+  ``drop_last``.  The global batch is the config's per-host batch times
+  the hosts, and each rank takes its contiguous rows
+  (``parallel/ddp.py:batch_plan``, JAX's rule); one process without a
+  group holds the whole batch.
 - A pool of ``DATA_LOADER.NUM_WORKERS`` threads decodes samples
   concurrently (the decode and the native preprocess release the GIL);
   batches are assembled in order and pass through a bounded queue, so
@@ -14,6 +16,8 @@ reference ``lib/datasets/loader.py:75-160``, ``lib/datasets/utils.py:358-372``).
   numpy only, never CUDA.
 - The last partial val or test batch is padded to the full batch and the
   number of valid rows is reported (``n_valid``).
+- A consumer that leaves early stops the producer, whose queued samples
+  are dropped (those being decoded finish).
 - :func:`prefetch_to_device` pins each batch's arrays and copies them to
   the card on a stream of its own, ``size`` batches ahead; the step's
   stream waits on the copy before it reads a batch.
@@ -33,6 +37,8 @@ import numpy as np
 import torch
 
 from procedurevrl_torch.datasets.build import build_dataset
+from procedurevrl_torch.parallel import ddp
+from procedurevrl_torch.parallel.collectives import get_rank, get_world_size
 
 # host-to-device copies of prefetch_to_device since the last
 # reset_copies(): batches, tensors, those that were pinned, bytes
@@ -163,9 +169,12 @@ class Loader:
                                 [f.result() for f in futs0])
                         except Exception as e:  # raised in the consumer
                             _put(e)
+                            pool.shutdown(wait=False, cancel_futures=True)
                             return
                         if not _put((batch, nv0, extra)):
-                            return  # the consumer is gone
+                            # the consumer is gone: decode no queued sample
+                            pool.shutdown(wait=False, cancel_futures=True)
+                            return
             _put(None)
 
         producer = threading.Thread(target=produce, daemon=True)
@@ -182,18 +191,11 @@ class Loader:
             stop.set()
 
 
-def _world() -> Tuple[int, int]:
-    """(world size, rank) of ``torch.distributed``, or (1, 0)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
-
-
 def construct_loader(cfg, split: str) -> Loader:
     """The loader of ``split`` (reference ``loader.py:75-140``): train
     shuffles and drops the last partial batch, val and test keep it,
-    padded.  ``TRAIN.BATCH_SIZE`` / ``TEST.BATCH_SIZE`` are per process."""
+    padded.  ``TRAIN.BATCH_SIZE`` / ``TEST.BATCH_SIZE`` are per host, split
+    over its ``NUM_GPUS`` ranks (F12)."""
     if split not in ("train", "val", "test"):
         raise ValueError(f"split {split!r}: expected train, val or test")
     if split == "train" and cfg.MULTIGRID.SHORT_CYCLE:
@@ -206,13 +208,13 @@ def construct_loader(cfg, split: str) -> Loader:
     else:
         dataset_name, batch_size = cfg.TRAIN.DATASET, cfg.TRAIN.BATCH_SIZE
     shuffle = drop_last = split == "train"
-    world, rank = _world()
+    global_batch, _ = ddp.batch_plan(batch_size, cfg)
     return Loader(
         build_dataset(dataset_name, cfg, split),
-        global_batch_size=batch_size * world, shuffle=shuffle,
+        global_batch_size=global_batch, shuffle=shuffle,
         drop_last=drop_last, num_workers=cfg.DATA_LOADER.NUM_WORKERS,
-        prefetch_depth=cfg.TPU.PREFETCH_DEPTH, num_hosts=world,
-        host_id=rank, seed=cfg.RNG_SEED,
+        prefetch_depth=cfg.TPU.PREFETCH_DEPTH, num_hosts=get_world_size(),
+        host_id=get_rank(), seed=cfg.RNG_SEED,
         repeated_aug=3 if (split == "train" and cfg.DATA.USE_REPEATED_AUG)
         else 0)
 

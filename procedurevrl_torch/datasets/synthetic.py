@@ -1,13 +1,9 @@
 """Synthetic splits drawn on the device from ``RNG_SEED``: no video file is
 read and the host moves no frames.  Since the host pipeline was ported
-(``howto100m.py``, ``loader.py``), the entry points read the HowTo100M /
-COIN splits through it, under ``DEV.LOAD_DUMMY_DATA`` too; this module
-serves two things only:
-
-- the EPIC-Kitchens splits, which ``train_net`` and ``test_net`` take from
-  :class:`SyntheticLoader` until that dataset is ported;
-- :class:`SyntheticPretrain`, ``bench.py``'s own batch, for the step
-  comparisons of ``chip_smoke.py``.
+(``howto100m.py``, ``epickitchens.py``, ``loader.py``), the entry points
+read every split through it, under ``DEV.LOAD_DUMMY_DATA`` too; this
+module serves batches drawn on the card to ``chip_smoke.py`` and the
+tests:
 
 - :class:`SyntheticClips`, the train, val and test splits of
   ``procedurevrl_tpu/datasets/howto100m.py`` (:60-115, :155-158): 64
@@ -32,7 +28,7 @@ serves two things only:
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple, Union
+from typing import Dict
 
 import torch
 
@@ -115,37 +111,6 @@ class SyntheticClips:
         for key, vals in self.labels(idx).items():
             batch[key] = torch.tensor(vals, device=dev)
         return batch
-
-    def batches(self, batch_size: int,
-                device: Union[str, torch.device]) -> Iterator[Dict]:
-        """Every batch of an epoch in index order, on ``device``."""
-        gen = torch.Generator(device=device)
-        for i in range(self.num_batches(batch_size)):
-            yield self.batch(batch_size, i, gen)
-
-
-class SyntheticLoader:
-    """A :class:`SyntheticClips` split in the loader's shape
-    (``datasets/loader.py:Loader``): ``len`` is its batches of
-    ``batch_size``, and every epoch holds the same batches in index order
-    (train drops the short last batch, val and test keep it unpadded)."""
-
-    def __init__(self, cfg, split: str, batch_size: int):
-        self.dataset = SyntheticClips(cfg, split)
-        self.batch_size = batch_size
-
-    def __len__(self) -> int:
-        return self.dataset.num_batches(self.batch_size)
-
-    def set_epoch(self, epoch: int) -> None:
-        """Nothing to reshuffle: the clips do not depend on the epoch."""
-
-    def batches(self, device: Union[str, torch.device]
-                ) -> Iterator[Tuple[Dict, int, Dict, Dict]]:
-        """``(batch, n_valid, {}, batch)`` per batch, drawn on ``device``,
-        as ``loader.prefetch_to_device`` yields them."""
-        for batch in self.dataset.batches(self.batch_size, device):
-            yield batch, len(batch["index"]), {}, batch
 
 
 class SyntheticPretrain:

@@ -3,7 +3,9 @@
 reference's ``lib/datasets/mixup.py:97``).
 
 One lambda per batch: with probability ``prob`` the batch is mixed with
-its flip along the batch axis, by mixup (``lam x + (1 - lam) x_flipped``,
+its flip along the batch axis (the global batch's flip: in a group of
+processes row ``i`` pairs with row ``B - 1 - i`` of the mirror rank,
+``parallel/collectives.py:flip_batch``, as JAX flips its global batch), by mixup (``lam x + (1 - lam) x_flipped``,
 lam ~ Beta(mixup_alpha, mixup_alpha)) or, with probability
 ``switch_prob`` when both alphas are positive, by CutMix (a box of about
 ``1 - lam`` of the frame, lam ~ Beta(cutmix_alpha, cutmix_alpha), pasted
@@ -19,6 +21,8 @@ from __future__ import annotations
 from typing import Mapping, Optional, Tuple
 
 import torch
+
+from procedurevrl_torch.parallel.collectives import flip_batch
 
 # the draws of one call, which ``draws`` may fix
 DRAWS = ("apply", "switch", "lam", "cy", "cx")
@@ -106,7 +110,7 @@ class Mixup:
         use_cutmix = self._use_cutmix(d["switch"].float())
         lam = d["lam"].float()
 
-        flipped = frames.flip(0)
+        flipped = flip_batch(frames)
         box, lam_cut = self._cut_box(h, w, lam, d["cy"], d["cx"])
         box = box[..., None].to(frames.dtype)  # [H, W, 1]
         mixed_mix = (lam * frames + (1.0 - lam) * flipped).to(frames.dtype)
@@ -117,6 +121,6 @@ class Mixup:
         mixed = torch.where(apply, mixed, frames)
 
         y1 = one_hot_smooth(labels, self.num_classes, self.label_smoothing)
-        y2 = one_hot_smooth(labels.flip(0), self.num_classes,
+        y2 = one_hot_smooth(flip_batch(labels), self.num_classes,
                             self.label_smoothing)
         return mixed, lam_eff * y1 + (1.0 - lam_eff) * y2

@@ -27,13 +27,25 @@ one update (the mean of micro-batch gradients, JAX ``steps.py:225-252``).
 Random streams: one ``torch.Generator`` each for "diffusion", "subset",
 "droppath" and "mixup", on the model's device, re-seeded for every
 micro-batch from ``RNG_SEED``, the optimizer step, the micro-batch index
-and the stream's index in :data:`STREAMS`.  Metrics stay
-on the device as tensors (``lr`` is a float): the caller reads them at log
-boundaries, so steps queue on the card without a host round trip.
+and the stream's index in :data:`STREAMS`, alike on every rank of a
+group of processes: there each draw over the batch axis is made at the
+global batch's shape and this rank keeps its rows
+(``parallel/collectives.py:draw_rows``), so N ranks draw what one process
+draws for the global batch, as JAX draws once under its global view.
+Metrics stay on the device as tensors (``lr`` is a float): the caller
+reads them at log boundaries, so steps queue on the card without a host
+round trip.
+
+Data parallel (``parallel/ddp.py``): ``model`` may be the
+``DistributedDataParallel`` wrapper; every micro-batch but the last runs
+under its ``no_sync``, so the gradients are averaged over the ranks once,
+on the last backward, and the gradient norm reads the averaged gradient.
+The metrics are means over the ranks (one all-reduce a step).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -43,6 +55,7 @@ from procedurevrl_torch.engine.losses import (
     epic_loss, get_loss_func, pretrain_loss, soft_target_cross_entropy,
 )
 from procedurevrl_torch.engine.mixup import Mixup
+from procedurevrl_torch.parallel.collectives import all_reduce_mean_dict
 from procedurevrl_torch.solver.optimizer import set_lr
 from procedurevrl_torch.utils.metrics import (
     multitask_topk_accuracies, topk_accuracies, topk_errors,
@@ -190,8 +203,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         sums: Dict[str, torch.Tensor] = {}
         for i, (mb, dr) in enumerate(zip(micro, per_micro)):
             seed_generators(gens, cfg.RNG_SEED, step, i)
-            loss, metrics = loss_and_metrics(mb, dr)
-            loss.backward()
+            last = i == len(micro) - 1
+            with (contextlib.nullcontext() if last or not hasattr(
+                    model, "no_sync") else model.no_sync()):
+                loss, metrics = loss_and_metrics(mb, dr)
+                loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
         # a trained tensor the loss does not reach (the forecast's pad
@@ -212,7 +228,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             k: v / len(micro) for k, v in sums.items()}
         out["grad_norm"] = grad_norm
         out["lr"] = lr
-        return out
+        return all_reduce_mean_dict(out)
 
     return train_step
 

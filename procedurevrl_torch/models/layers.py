@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from procedurevrl_torch.ops.attention import mhsa, mhsa_cls, mhsa_temporal
+from procedurevrl_torch.parallel.collectives import draw_rows
 from procedurevrl_torch.ops.attention_route import DEFAULT_ROUTE, AttentionRoute
 from procedurevrl_torch.ops.common import (
     gelu_exact, gelu_exact_stored, layer_norm_fp32, quick_gelu,
@@ -139,8 +140,10 @@ class DropPath(nn.Module):
         if generator is not None and generator.device != torch.device(device):
             raise ValueError(f"DropPath: a generator on {generator.device} "
                              f"cannot draw a mask on {device}")
-        return torch.rand(lead, generator=generator, device=device) < (
-            1.0 - self.rate)
+        # the global batch's mask, this rank's rows (parallel/collectives)
+        u = draw_rows(lambda n: torch.rand(n, generator=generator,
+                                           device=device), lead)
+        return u < (1.0 - self.rate)
 
     def forward(self, x: Streams, keep: Optional[torch.Tensor] = None
                 ) -> Streams:

@@ -68,6 +68,7 @@ from procedurevrl_torch.ops.attention_route import read_shift
 from procedurevrl_torch.ops.common import (
     grouped_layer_norm_fp32, layer_norm_fp32, trunc_normal_init,
 )
+from procedurevrl_torch.parallel.collectives import in_group
 from procedurevrl_torch.utils.env import env_flag
 
 Thw = Tuple[int, int, int]
@@ -295,14 +296,6 @@ def _pooled_thw(thw, kernel, stride) -> Thw:
                  for d, k, s in zip(thw, kernel, stride))
 
 
-def _one_process() -> bool:
-    """Not one of a distributed group of more than one process (the port's
-    reading of JAX's ``jax.device_count() == 1``)."""
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1)
-
-
 class DepthwisePool3D(nn.Module):
     """The 'conv' pooling mode: a depthwise 3-D conv over the head
     channels, one kernel shared by the heads (reference
@@ -330,7 +323,7 @@ class DepthwisePool3D(nn.Module):
         """Whether this pool goes through ``depthwise_pool3d`` (JAX
         ``mvit.py:285-292``)."""
         return (self.route in ("kernel", "taps") and self.stride[1] == 1
-                and _one_process()
+                and not in_group()
                 and dpool.supported(self.kernel, self.stride))
 
     def forward(self, grid: torch.Tensor) -> torch.Tensor:

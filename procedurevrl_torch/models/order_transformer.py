@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from procedurevrl_torch.models.layers import Linear, ResidualAttentionBlock
 from procedurevrl_torch.ops.common import gelu_exact, sinusoidal_time_embedding
+from procedurevrl_torch.parallel.collectives import draw_rows
 
 
 def linear_beta_schedule(timesteps: int) -> np.ndarray:
@@ -183,8 +184,8 @@ class OrderTransformer(nn.Module):
         dev = x.device
         feats = x.reshape(B, L, C)
         if mask_inds is None:
-            mask_inds = torch.randint(0, L, (B,), generator=generator,
-                                      device=dev)
+            mask_inds = draw_rows(lambda n: torch.randint(
+                0, L, (n,), generator=generator, device=dev), B)
         mask_inds = mask_inds.to(dev).long()
         positions = torch.arange(L, device=dev)[None, :]
         mask_onehot = (positions == mask_inds[:, None]).float()[..., None]
@@ -196,14 +197,16 @@ class OrderTransformer(nn.Module):
         if pad_start is None:
             lo = mask_inds + 1
             hi = torch.clamp(mask_inds + 2, min=L)
-            u = torch.rand(B, generator=generator, device=dev)
+            u = draw_rows(lambda n: torch.rand(n, generator=generator,
+                                               device=dev), B)
             rand_start = torch.minimum(lo + (u * (hi - lo)).long(), hi - 1)
             pad_start = torch.where(mask_inds + 1 == L,
                                     torch.full_like(mask_inds, L), rand_start)
         pad_start = pad_start.to(dev).long()
         if level_noise is None:
-            level_noise = torch.randn(self.tfm_layers, B, C,
-                                      generator=generator, device=dev)
+            level_noise = draw_rows(lambda n: torch.randn(
+                self.tfm_layers, n, C, generator=generator, device=dev), B,
+                dim=1)
         pad_mask = positions >= pad_start[:, None]  # [B, L] True = padded
         feats = torch.where(pad_mask[..., None],
                             self.pad_embedding.weight[0].to(feats.dtype), feats)

@@ -50,6 +50,7 @@ from procedurevrl_torch.models.mvit import MViTConfig, MViTEncoder
 from procedurevrl_torch.models.order_transformer import OrderTransformer
 from procedurevrl_torch.models.timesformer import TimeSformer
 from procedurevrl_torch.ops.attention_route import AttentionRoute
+from procedurevrl_torch.parallel.collectives import get_rank, get_world_size
 from procedurevrl_torch.solver.optimizer import is_encoder
 
 
@@ -62,6 +63,32 @@ def _match(emb: torch.Tensor, bank: torch.Tensor, temp: float) -> torch.Tensor:
     """emb @ bank^T / temp: products of emb-dtype values, accumulated in
     fp32, float32 result."""
     return emb.float() @ bank.to(emb.dtype).float().t() / temp
+
+
+def _recognition_subset(n_total: int, n_keep: int,
+                        generator: Optional[torch.Generator],
+                        device: torch.device) -> torch.Tensor:
+    """The recognition subset (reference ``lib/models/vit.py:345-347``):
+    ``n_keep`` of the ``n_total`` rows, in a random order.  In a group of
+    processes the order is a permutation of the global batch's rows,
+    which every rank draws alike, and this rank keeps its own rows in that
+    order (as JAX draws it for the global batch).  A subset smaller than
+    the batch would split unevenly over the ranks, and raises there."""
+    world = get_world_size()
+    if world == 1:
+        return torch.randperm(n_total, generator=generator,
+                              device=device)[:n_keep]
+    if n_keep < n_total:
+        raise NotImplementedError(
+            "DEV.ORDER_RECOG_BATCH below the clips of a sample: a "
+            "recognition subset smaller than the batch would split unevenly "
+            "over the processes")
+    perm = torch.randperm(n_total * world, generator=generator,
+                          device=device)
+    rank = get_rank()
+    theirs = (perm // n_total != rank).to(torch.int8)
+    mine = torch.argsort(theirs, stable=True)[:n_total]
+    return perm[mine] - rank * n_total
 
 
 class _Heads:
@@ -218,8 +245,8 @@ class _Heads:
         n_keep = min(batch_size * self.order_recog_batch, n_total)
         perm = draws.get("perm")
         if perm is None:
-            perm = torch.randperm(n_total, generator=gens.get("subset"),
-                                  device=logits.device)[:n_keep]
+            perm = _recognition_subset(n_total, n_keep, gens.get("subset"),
+                                       logits.device)
         student = torch.cat([logits[perm], inter_pred], dim=0)
         teacher_out = torch.cat([teacher[perm], inter_teacher], dim=0)
         return student, teacher_out, mse_pair

@@ -46,6 +46,7 @@ from procedurevrl_torch.ops import remat
 from procedurevrl_torch.ops.attention_route import (
     DEFAULT_ROUTE, AttentionRoute, shift_code, shifted_exp,
 )
+from procedurevrl_torch.parallel.collectives import in_group
 
 KERNEL = "spatial_attention_fwd"
 KERNEL_PROBS = "spatial_attention_fwd_probs"
@@ -552,9 +553,11 @@ def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
                                route: AttentionRoute = DEFAULT_ROUTE
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The model's entry, routed as JAX ``_facq_fwd`` / ``_facq_bwd``
-    (``pallas_attention.py:1190-1234``, one device).  Under grad (an input
-    requires it): with ``route.save_probs`` K1sp and K1b, or K1bd with
-    ``route.delta``; without, K1f (K1p with ``route.pipe``) and K1br.  No
+    (``pallas_attention.py:1190-1234``).  Under grad (an input requires
+    it): with ``route.save_probs`` in one process K1sp and K1b, or K1bd
+    with ``route.delta``; without, or in a group of more than one process
+    (JAX's ``jax.device_count() > 1``), K1f (K1p with ``route.pipe``) and
+    K1br.  No
     grad: K1f, or K1p with ``route.pipe``.  ``save_probs`` with ``pipe``
     under grad takes K1sp and warns once, as JAX does.  Where K1's kernels
     have no geometry (:func:`on_pair`: N + 1 > 208, or a head dim other
@@ -573,7 +576,9 @@ def spatial_attention_autograd(qkv: torch.Tensor, qkv_c: torch.Tensor,
             return spatial_attention_pipe(qkv, qkv_c, num_heads, scale,
                                           route.pipe_nbuf, shift=shift)
         return spatial_attention(qkv, qkv_c, num_heads, scale, shift=shift)
-    if route.save_probs:
+    # JAX pallas_attention.py:1205: the saved-probabilities pair on one
+    # device only; a group of processes takes the recompute pair
+    if route.save_probs and not in_group():
         if route.pipe and not _warned_pipe_vs_saveprobs:
             warnings.warn("SPATIAL_SAVE_PROBS=1 takes precedence over "
                           "SPATIAL_PIPE=1 on differentiated forwards; the "

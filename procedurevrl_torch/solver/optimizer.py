@@ -34,7 +34,7 @@ moments) is not ported and raises.  Each group keeps an ``lr_mult``;
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple, Type
 
 import torch
 
@@ -87,24 +87,34 @@ def param_groups(model: torch.nn.Module, cfg) -> List[Dict]:
              "name": g} for g, ps in sorted(groups.items())]
 
 
-def construct_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
+def optimizer_spec(model: torch.nn.Module, cfg
+                   ) -> Tuple[Type[torch.optim.Optimizer], List[Dict], Dict]:
     """The optimizer of ``SOLVER.OPTIMIZING_METHOD`` (``sgd``, ``adam`` or
-    ``adamw``) over ``param_groups``; its LR is set per step by
-    :func:`set_lr`."""
+    ``adamw``) as (class, ``param_groups``, keyword arguments), which
+    :func:`construct_optimizer` and the ZeRO-1 wrapper
+    (``parallel/ddp.py``) build alike."""
     method = cfg.SOLVER.OPTIMIZING_METHOD
     if method not in ("sgd", "adam", "adamw"):
         raise NotImplementedError(f"Does not support {method} optimizer")
     groups, lr = param_groups(model, cfg), cfg.SOLVER.BASE_LR
     if method == "sgd":
         momentum = cfg.SOLVER.MOMENTUM
-        return torch.optim.SGD(groups, lr=lr, momentum=momentum, dampening=0.0,
-                               nesterov=bool(cfg.SOLVER.NESTEROV and momentum))
+        return torch.optim.SGD, groups, dict(
+            lr=lr, momentum=momentum, dampening=0.0,
+            nesterov=bool(cfg.SOLVER.NESTEROV and momentum))
     if cfg.TPU.MOMENT_DTYPE != "float32":
         raise NotImplementedError(
             f"TPU.MOMENT_DTYPE {cfg.TPU.MOMENT_DTYPE}: low-precision Adam "
             "moments (solver/low_precision.py) are not ported")
     adam = torch.optim.Adam if method == "adam" else torch.optim.AdamW
-    return adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return adam, groups, dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def construct_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
+    """The optimizer of :func:`optimizer_spec`; its LR is set per step by
+    :func:`set_lr`."""
+    cls, groups, kwargs = optimizer_spec(model, cfg)
+    return cls(groups, **kwargs)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

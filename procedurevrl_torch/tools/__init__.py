@@ -1,1 +1,2 @@
-"""The port's entry points: ``run_net`` (CLI) and ``test_net``."""
+"""The port's entry points: ``run_net`` (CLI), ``train_net``, ``test_net``,
+``emb_extract``, ``feat_extract`` and ``dryrun``."""

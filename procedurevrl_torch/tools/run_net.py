@@ -38,6 +38,19 @@ configs set it, with ``OUTPUT_DIR .``: give each run its own
 train and test each print their final stats as one JSON line (a line of
 its own that starts with ``{``).  ``--device cpu`` runs the plain PyTorch
 path instead.
+
+Data parallel (``parallel/ddp.py``): ``NUM_GPUS N`` spawns N ranks on this
+host, joined at ``--init_method`` (``tcp://localhost:<port>`` or
+``file://<path>``), rank ``--shard_id x N + d`` on card ``d``, NCCL on the
+cards (``DIST_BACKEND gloo`` lets ranks share one) and gloo under
+``--device cpu``; ``--num_shards`` hosts run the same command with their
+own ``--shard_id``.  ``TRAIN.BATCH_SIZE`` is per host, split over its
+ranks; only rank 0 logs, prints and writes.
+
+    python -m procedurevrl_torch.tools.run_net --device cpu \\
+        --init_method file:///tmp/pvrl_group \\
+        --cfg configs/HowTo100M/procedurevrl_adamw.yaml NUM_GPUS 2 \\
+        DEV.LOAD_DUMMY_DATA True TRAIN.BATCH_SIZE 2 GLOBAL_BATCH_SIZE 2
 """
 
 from __future__ import annotations
@@ -47,8 +60,10 @@ import json
 import sys
 
 from procedurevrl_torch.config import load_config
+from procedurevrl_torch.parallel.collectives import is_master_proc
 from procedurevrl_torch.utils.device import resolve_device
 from procedurevrl_torch.utils.logging import setup_logging
+from procedurevrl_torch.utils.misc import launch_job
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -59,31 +74,51 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Path to the config file.")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu.")
+    parser.add_argument("--shard_id", default=0, type=int,
+                        help="The shard id of this host (0-based).")
+    parser.add_argument("--num_shards", default=1, type=int,
+                        help="Number of hosts in the job.")
+    parser.add_argument("--init_method", default="tcp://localhost:9999",
+                        help="Where the ranks meet: tcp://host:port or "
+                             "file://path.")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None,
                         help="KEY VALUE overrides, see "
                              "procedurevrl_torch/config/defaults.py.")
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    cfg = load_config(args.cfg_file, args.opts or ())
-    device = resolve_device(args.device)
-    setup_logging(cfg.OUTPUT_DIR)
+def run(cfg, device) -> None:
+    """Train then test, as the config enables them; rank 0 prints each
+    one's stats line."""
     if cfg.TRAIN.ENABLE:
         from procedurevrl_torch.tools.train_net import train
 
         stats = train(cfg, device=device)
         last = stats["history"][-1] if stats["history"] else {}
         val = stats["val"][-1] if stats["val"] else {}
-        print(json.dumps({"split": "train", "steps": stats["steps"],
-                          "clips_per_sec": stats["clips_per_sec"], **last,
-                          **{f"val_{k}": v for k, v in val.items()
-                             if k.endswith(("_err", "_acc"))}}), flush=True)
+        if is_master_proc():
+            print(json.dumps({"split": "train", "steps": stats["steps"],
+                              "clips_per_sec": stats["clips_per_sec"],
+                              **last,
+                              **{f"val_{k}": v for k, v in val.items()
+                                 if k.endswith(("_err", "_acc"))}}),
+                  flush=True)
     if cfg.TEST.ENABLE:
         from procedurevrl_torch.tools.test_net import test
 
-        print(json.dumps(test(cfg, device=device)), flush=True)
+        stats = test(cfg, device=device)
+        if is_master_proc():
+            print(json.dumps(stats), flush=True)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    cfg = load_config(args.cfg_file, [
+        *(args.opts or ()), "NUM_SHARDS", str(args.num_shards), "SHARD_ID",
+        str(args.shard_id)])
+    device = resolve_device(args.device)
+    setup_logging(cfg.OUTPUT_DIR)
+    launch_job(cfg, args.init_method, run, device)
     return 0
 
 

@@ -16,8 +16,10 @@ checkpoint and ``TRAIN.CHECKPOINT_FILE_PATH``
 of ``TIMESFORMER.PRETRAINED_MODEL``.  ``TEST.SAVE_RESULTS_PATH`` and
 ``TEST.SAVE_PREDICT_PATH`` dump the per-video predictions and labels into
 ``OUTPUT_DIR``.  Batches come from ``construct_loader(cfg, "test")``
-through ``prefetch_to_device`` (EPIC-Kitchens: its synthetic split), the
-last one padded; the meter takes each batch's ``n_valid`` real rows.
+through ``prefetch_to_device``, the last one padded; the meter takes each
+batch's ``n_valid`` real rows.  In a group of processes every rank's valid
+rows reach every rank's meter (rank order: the global batch's rows), and
+only rank 0 logs and writes the results.
 """
 
 from __future__ import annotations
@@ -30,12 +32,15 @@ from typing import Dict, Union
 
 import torch
 
-from procedurevrl_torch.datasets.loader import Loader
-from procedurevrl_torch.datasets.synthetic import SyntheticLoader
+from procedurevrl_torch.datasets.loader import Loader, construct_loader
 from procedurevrl_torch.engine.steps import make_eval_step
 from procedurevrl_torch.models.build import build_model
 from procedurevrl_torch.models.procedurevrl import EPIC_NOUNS, EPIC_VERBS
-from procedurevrl_torch.tools.train_net import build_loader, device_batches
+from procedurevrl_torch.parallel import ddp
+from procedurevrl_torch.parallel.collectives import (
+    all_gather_rows, gather_objects, is_master_proc,
+)
+from procedurevrl_torch.tools.train_net import device_batches
 from procedurevrl_torch.utils import checkpoint as cu
 from procedurevrl_torch.utils import misc, weights
 from procedurevrl_torch.utils.device import resolve_device
@@ -45,7 +50,7 @@ from procedurevrl_torch.utils.meters import EPICTestMeter, TestMeter
 logger = get_logger(__name__)
 
 
-def perform_test(loader: Union[Loader, SyntheticLoader], eval_step,
+def perform_test(loader: Loader, eval_step,
                  test_meter: Union[TestMeter, EPICTestMeter], cfg,
                  device: torch.device) -> Dict:
     """Run every test clip through ``eval_step`` and finalise the meter.
@@ -63,27 +68,32 @@ def perform_test(loader: Union[Loader, SyntheticLoader], eval_step,
     with contextlib.closing(batches):
         for cur_iter, (batch, n_valid, extra, _host) in enumerate(batches):
             preds = eval_step(batch)
-            index = batch["index"][:n_valid].cpu().numpy()
+
+            def rows(t: torch.Tensor):
+                return all_gather_rows(t, n_valid).cpu().numpy()
+
+            index = rows(batch["index"])
             if isinstance(preds, tuple):  # EPIC: (verb, noun) logits
+                meta = extra.get("narration_id")
+                if meta is not None:
+                    meta = sum(gather_objects(list(meta[:n_valid])), [])
                 test_meter.update_stats(
-                    tuple(p[:n_valid].cpu().numpy() for p in preds),
-                    (batch["verb"][:n_valid].cpu().numpy(),
-                     batch["noun"][:n_valid].cpu().numpy()),
-                    extra.get("narration_id"), index)
+                    tuple(rows(p) for p in preds),
+                    (rows(batch["verb"]), rows(batch["noun"])), meta, index)
             else:
-                test_meter.update_stats(
-                    preds[:n_valid].cpu().numpy(),
-                    batch["labels"][:n_valid].cpu().numpy(), index)
+                test_meter.update_stats(rows(preds), rows(batch["labels"]),
+                                        index)
             if t_first is None:
                 t_first = time.perf_counter()
             else:
-                n_clips += n_valid * clips
+                n_clips += len(index) * clips
             test_meter.log_iter_stats(cur_iter)
             test_meter.iter_tic()
     elapsed = time.perf_counter() - t_first
     stats = dict(test_meter.finalize_metrics())
     stats["clips_per_sec"] = n_clips / elapsed if n_clips else None
-    save_results(test_meter, cfg)
+    if is_master_proc():
+        save_results(test_meter, cfg)
     return stats
 
 
@@ -118,7 +128,9 @@ def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
     """Test entry: build the model (random init from ``RNG_SEED``, then the
     pretrained encoder and the checkpoint the module names), run the
     multi-view test, return stats.  ``device`` defaults to the card; pass
-    ``"cpu"`` for the plain path."""
+    ``"cpu"`` for the plain path.  In a group of processes each rank calls
+    it with its card and returns the same stats."""
+    ddp.check_mesh(cfg)
     device = resolve_device(device)
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Test with config:\n%s", cfg.dump())
@@ -129,7 +141,7 @@ def test(cfg, device: Union[str, torch.device, None] = None) -> Dict:
     if model.match_lang_emb and label_emb is None:
         raise ValueError("zero-shot testing needs a step bank "
                          "(DEV.TEST_LANG_EMB)")
-    loader = build_loader(cfg, "test")
+    loader = construct_loader(cfg, "test")
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     if len(loader.dataset) % num_clips:
         raise ValueError(f"test size {len(loader.dataset)} not divisible by "

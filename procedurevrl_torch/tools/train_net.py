@@ -3,10 +3,11 @@
 (step classification, task classification and step forecasting heads)
 and the EPIC-Kitchens-100 verb + noun full finetune.
 
-Each optimizer step takes ``accum = GLOBAL_BATCH_SIZE // TRAIN.BATCH_SIZE``
-micro-batches of ``TRAIN.BATCH_SIZE`` samples, runs the model's forward
-and backward on each, and applies one update (AdamW, SGD or Adam) with the
-LR of the schedule.  A pretraining sample is 9 clips; a finetuning sample
+Each optimizer step takes ``accum = GLOBAL_BATCH_SIZE // (TRAIN.BATCH_SIZE
+x hosts)`` micro-batches of ``TRAIN.BATCH_SIZE`` samples a host, runs the
+model's forward and backward on each, and applies one update (AdamW, SGD
+or Adam) with the LR of the schedule.  A pretraining sample is 9 clips; a
+finetuning sample
 is one clip, or ``MODEL.NUM_SEG`` clips for forecasting.  Metrics stay on
 the device until a log boundary (every ``LOG_PERIOD`` steps, the end of
 the warm-up and the last step), where they reach the host and feed the
@@ -29,10 +30,15 @@ goes to ``OUTPUT_DIR/checkpoints``, written by a thread under
 ``TPU.ASYNC_CHECKPOINT``.  A NaN loss aborts the run (an infinite one
 trains on, as in JAX).  Data comes from ``datasets/loader.py:construct_loader``
 (the HowTo100M / COIN dataset, decoded files or, under
-``DEV.LOAD_DUMMY_DATA``, its ``synthetic://`` index), reshuffled each
-epoch and copied to the card one batch ahead (``prefetch_to_device``); the
-EPIC-Kitchens splits are still :class:`SyntheticLoader`'s, drawn on the
-card.
+``DEV.LOAD_DUMMY_DATA``, its ``synthetic://`` index; the EPIC-Kitchens
+dataset, files or its dummy split), reshuffled each epoch and copied to
+the card one batch ahead (``prefetch_to_device``).
+
+In a group of processes (``utils/misc.py:launch_job``, ``parallel/ddp.py``)
+each rank takes its rows of every global batch, the model trains inside
+``DistributedDataParallel`` (and ``TPU.SHARD_OPT_STATE`` shards the
+optimizer, ZeRO-1), the logged metrics are means over the ranks, the val
+meters take every rank's valid rows, and only rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -46,11 +52,13 @@ import torch
 from procedurevrl_torch.datasets.loader import (
     Loader, construct_loader, prefetch_to_device, shuffle_dataset,
 )
-from procedurevrl_torch.datasets.synthetic import SyntheticLoader
 from procedurevrl_torch.engine.steps import make_eval_step, make_train_step
 from procedurevrl_torch.models.build import build_model
+from procedurevrl_torch.parallel import ddp
+from procedurevrl_torch.parallel.collectives import (
+    all_gather_rows, sync_global_barrier,
+)
 from procedurevrl_torch.solver.lr_policy import lr_schedule
-from procedurevrl_torch.solver.optimizer import construct_optimizer
 from procedurevrl_torch.utils import checkpoint as cu
 from procedurevrl_torch.utils import misc, weights
 from procedurevrl_torch.utils.device import resolve_device
@@ -72,39 +80,20 @@ def _to_host(metrics: Dict[str, Union[torch.Tensor, float]]
     return {k: float(v) for k, v in metrics.items()}
 
 
-def build_loader(cfg, split: str) -> Union[Loader, SyntheticLoader]:
-    """The loader of ``split``: ``construct_loader``'s, or for the
-    EPIC-Kitchens dataset (``TRAIN.DATASET``, for test ``TEST.DATASET``)
-    the synthetic split, until that dataset is ported."""
-    name = cfg.TEST.DATASET if split == "test" else cfg.TRAIN.DATASET
-    if name != "Epickitchens":
-        return construct_loader(cfg, split)
-    if not cfg.DEV.LOAD_DUMMY_DATA:
-        raise NotImplementedError(
-            "the EPIC-Kitchens dataset is not ported yet (ROADMAP.md Queue 1 "
-            "item 4b): set DEV.LOAD_DUMMY_DATA True")
-    return SyntheticLoader(cfg, split, cfg.TEST.BATCH_SIZE if split == "test"
-                           else cfg.TRAIN.BATCH_SIZE)
-
-
-def device_batches(loader: Union[Loader, SyntheticLoader], device, cfg
-                   ) -> Iterator:
+def device_batches(loader: Loader, device, cfg) -> Iterator:
     """One epoch of ``loader`` on ``device``: ``(dev_batch, n_valid, extra,
-    host_batch)`` per batch, through ``prefetch_to_device`` (a synthetic
-    split is drawn there already)."""
-    if isinstance(loader, SyntheticLoader):
-        return loader.batches(device)
+    host_batch)`` per batch, through ``prefetch_to_device``."""
     return prefetch_to_device(loader, device, size=cfg.TPU.PREFETCH_DEPTH)
 
 
-def eval_epoch(val_loader: Union[Loader, SyntheticLoader], eval_step,
+def eval_epoch(val_loader: Loader, eval_step,
                val_meter: Union[ValMeter, EPICValMeter], cfg, cur_epoch: int,
                device: torch.device) -> Dict:
-    """One pass over the val split in batches of ``TRAIN.BATCH_SIZE``
-    (JAX ``tools/train_net.py:204-250``): top-1 / top-5 errors of each
-    batch's ``n_valid`` real rows into ``val_meter``, or for EPIC-Kitchens'
-    (verb, noun) logits the verb, noun and action accuracies; returns its
-    epoch stats."""
+    """One pass over the val split in global batches of ``TRAIN.BATCH_SIZE``
+    a host (JAX ``tools/train_net.py:204-250``): top-1 / top-5 errors of
+    each global batch's valid rows (every rank's ``n_valid``) into
+    ``val_meter``, or for EPIC-Kitchens' (verb, noun) logits the verb,
+    noun and action accuracies; returns its epoch stats."""
     if len(val_loader) == 0:
         raise ValueError("the val split has no batch")
     val_meter.iter_tic()
@@ -113,19 +102,21 @@ def eval_epoch(val_loader: Union[Loader, SyntheticLoader], eval_step,
         for cur_iter, (batch, n_valid, _extra, _host) in enumerate(batches):
             preds = eval_step(batch)
             if isinstance(preds, tuple):  # EPIC: verb / noun / action
-                preds = tuple(p[:n_valid] for p in preds)
-                labels = (batch["verb"][:n_valid], batch["noun"][:n_valid])
+                preds = tuple(all_gather_rows(p, n_valid) for p in preds)
+                labels = tuple(all_gather_rows(batch[k], n_valid)
+                               for k in ("verb", "noun"))
                 (v1, v5), (n1, n5) = (topk_accuracies(p, lab, (1, 5))
                                       for p, lab in zip(preds, labels))
                 a1, a5 = multitask_topk_accuracies(preds, labels, (1, 5))
                 val_meter.update_stats((float(v1), float(n1), float(a1)),
                                        (float(v5), float(n5), float(a5)),
-                                       n_valid)
+                                       labels[0].shape[0])
             else:
-                top1, top5 = topk_errors(
-                    preds[:n_valid], batch["labels"].reshape(-1)[:n_valid],
-                    (1, 5))
-                val_meter.update_stats(float(top1), float(top5), n_valid)
+                labels = all_gather_rows(batch["labels"].reshape(-1), n_valid)
+                top1, top5 = topk_errors(all_gather_rows(preds, n_valid),
+                                         labels, (1, 5))
+                val_meter.update_stats(float(top1), float(top5),
+                                       labels.shape[0])
             val_meter.iter_toc()
             val_meter.log_iter_stats(cur_epoch, cur_iter)
             val_meter.iter_tic()
@@ -168,29 +159,31 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     ``WARMUP_STEPS`` to the end of its last step (each end is a host read
     of that step's metrics; val epochs in between are left out, checkpoint
     saves are not), None with no such step, and ``model``, the trained
-    model.  ``MULTIGRID.LONG_CYCLE`` or ``SHORT_CYCLE`` raises
-    ``NotImplementedError``."""
+    model.  ``MULTIGRID.LONG_CYCLE`` or ``SHORT_CYCLE`` and ``TPU.MESH_MODEL
+    > 1`` raise ``NotImplementedError``.  In a group of processes each
+    rank calls it with its card; the clips are the global batch's."""
     _check_multigrid(cfg)
+    ddp.check_mesh(cfg)
     device = resolve_device(device)
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Train with config:\n%s", cfg.dump())
     model, label_emb = build_model(cfg, device)
     weights.load_pretrained_encoder(model, cfg)
     misc.log_model_info(model, cfg)
-    train_loader = build_loader(cfg, "train")
-    batch_size = cfg.TRAIN.BATCH_SIZE
+    train_loader = construct_loader(cfg, "train")
+    batch_size, _ = ddp.batch_plan(cfg.TRAIN.BATCH_SIZE, cfg)  # global
     iters_per_epoch = len(train_loader)
-    accum = max(cfg.GLOBAL_BATCH_SIZE // max(batch_size, 1), 1)
+    accum = ddp.accumulation(cfg)
     steps_per_epoch = max(iters_per_epoch // accum, 1)
     if iters_per_epoch < accum:
         raise ValueError(f"an epoch of {iters_per_epoch} micro-batches "
                          f"cannot fill {accum} accumulation steps")
     sched = lr_schedule(cfg, steps_per_epoch)
-    optimizer = construct_optimizer(model, cfg)
+    optimizer = ddp.build_optimizer(model, cfg)
     start_epoch, start_step = cu.load_train_checkpoint(cfg, model, optimizer)
-    train_step = make_train_step(model, optimizer, cfg, label_emb, sched,
-                                 accum, start_step)
-    val = (build_loader(cfg, "val")
+    train_step = make_train_step(ddp.wrap_model(model), optimizer, cfg,
+                                 label_emb, sched, accum, start_step)
+    val = (construct_loader(cfg, "val")
            if cfg.TRAIN.EVAL_PERIOD <= cfg.SOLVER.MAX_EPOCH else None)
     eval_step = make_eval_step(model, cfg, label_emb)
     is_epic = cfg.TRAIN.DATASET == "Epickitchens"
@@ -277,6 +270,7 @@ def train(cfg, device: Union[str, torch.device, None] = None,
         epoch += 1
     if ckpt is not None:
         ckpt.wait()  # the save in flight is on disk, or its error raised
+    sync_global_barrier()  # rank 0's files are on disk for every rank
     logger.info("Training done.")
     timed = total - WARMUP_STEPS
     rate = (timed * clips_per_step / (t_end - t_timed - eval_seconds)

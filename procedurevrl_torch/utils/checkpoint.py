@@ -16,6 +16,12 @@ the JAX package (flax msgpack bytes) is refused by name.
 
 Writes go to ``path + ".tmp"`` and are renamed into place, so a crash
 mid-save leaves no half file for AUTO_RESUME to pick.
+
+In a group of processes (``parallel/ddp.py``) every rank calls the saves,
+and only rank 0 writes; under ZeRO-1 the optimizer's shards are first
+gathered to rank 0 (:func:`ddp.optimizer_state_dict`), so the file has
+one process's layout.  Every rank loads, each keeping its ZeRO share;
+``TRAIN.AUTO_RESUME`` takes the file rank 0 finds.
 """
 
 from __future__ import annotations
@@ -26,6 +32,10 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from procedurevrl_torch.parallel import ddp
+from procedurevrl_torch.parallel.collectives import (
+    broadcast_object, is_master_proc,
+)
 from procedurevrl_torch.utils import weights
 from procedurevrl_torch.utils.logging import get_logger
 
@@ -86,10 +96,15 @@ def _map_tensors(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]):
 
 def _payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg,
              epoch: int, step: int,
-             copy: Callable[[torch.Tensor], torch.Tensor]) -> dict:
+             copy: Callable[[torch.Tensor], torch.Tensor]) -> Optional[dict]:
+    """What a checkpoint holds, on rank 0; None on the other ranks (a
+    collective under ZeRO: every rank calls it)."""
+    opt_state = ddp.optimizer_state_dict(optimizer)
+    if not is_master_proc():
+        return None
     return {"epoch": epoch,
             "model_state": _map_tensors(model.state_dict(), copy),
-            "optimizer_state": _map_tensors(optimizer.state_dict(), copy),
+            "optimizer_state": _map_tensors(opt_state, copy),
             "step": int(step), "cfg": cfg.dump(),
             FORMAT_KEY: FORMAT_VERSION}
 
@@ -108,11 +123,14 @@ def save_checkpoint(path_to_job: str, model: torch.nn.Module,
                     step: int) -> str:
     """Write the state after ``epoch`` (0-based) and optimizer step
     ``step`` to ``checkpoint_epoch_{epoch + 1}``, blocking until it is on
-    disk."""
-    make_checkpoint_dir(path_to_job)
+    disk (rank 0; the other ranks return the path)."""
     path = get_path_to_checkpoint(path_to_job, epoch + 1)
-    return _write(path, _payload(model, optimizer, cfg, epoch, step,
-                                 lambda t: t.detach().to("cpu", copy=True)))
+    payload = _payload(model, optimizer, cfg, epoch, step,
+                       lambda t: t.detach().to("cpu", copy=True))
+    if payload is None:
+        return path
+    make_checkpoint_dir(path_to_job)
+    return _write(path, payload)
 
 
 class AsyncCheckpointer:
@@ -145,10 +163,12 @@ class AsyncCheckpointer:
              optimizer: torch.optim.Optimizer, cfg, epoch: int,
              step: int) -> str:
         self.wait()
-        make_checkpoint_dir(path_to_job)
         path = get_path_to_checkpoint(path_to_job, epoch + 1)
         snapshot = _payload(model, optimizer, cfg, epoch, step,
                             lambda t: t.detach().clone())
+        if snapshot is None:  # not rank 0
+            return path
+        make_checkpoint_dir(path_to_job)
         device = next(model.parameters()).device
         done = None
         if device.type == "cuda":
@@ -184,7 +204,7 @@ def _restore(blob: dict, path: str, model: torch.nn.Module,
         if unused:
             raise KeyError(f"{len(unused)} tensors the model lacks, e.g. "
                            f"{unused[:5]}")
-        optimizer.load_state_dict(blob["optimizer_state"])
+        ddp.load_optimizer_state(optimizer, blob["optimizer_state"])
     except (KeyError, RuntimeError, ValueError) as e:
         # the common cause of a mismatch is an AUTO_RESUME from a stale
         # OUTPUT_DIR of another configuration
@@ -242,8 +262,10 @@ def load_train_checkpoint(cfg, model: torch.nn.Module,
 
     Returns (start epoch, optimizer step to continue from: the file's on a
     full restore, else 0)."""
-    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
-        last = get_last_checkpoint(cfg.OUTPUT_DIR)
+    last = (broadcast_object(get_last_checkpoint(cfg.OUTPUT_DIR)
+                             if is_master_proc() else None)
+            if cfg.TRAIN.AUTO_RESUME else None)
+    if last is not None:
         logger.info("Load from last checkpoint, %s.", last)
         epoch, step = load_checkpoint(last, model, optimizer)
         return epoch + 1, step

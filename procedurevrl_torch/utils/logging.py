@@ -6,8 +6,8 @@ The port logs through one logger, ``procedurevrl_torch``.  Until
 resort prints warnings to stderr); the entry points call it with
 ``OUTPUT_DIR``, which puts the logger on stdout and, with a directory, on
 ``OUTPUT_DIR/stdout.log`` too.  Stats are logged as ``json_stats: {...}``
-lines, the reference's format, so log-scraping tools keep working.  One
-process drives one card, so every process is the master.
+lines, the reference's format, so log-scraping tools keep working.  In a
+group of processes only rank 0 logs (reference ``logging.py:36-57``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import logging
 import os
 import sys
 from typing import Any, Dict
+
+from procedurevrl_torch.parallel.collectives import is_master_proc
 
 NAME = "procedurevrl_torch"
 _FORMAT = logging.Formatter(
@@ -40,14 +42,18 @@ class _Stdout(logging.StreamHandler):
 
 def setup_logging(output_dir: str = "") -> logging.Logger:
     """Put the port's logger on stdout, and on ``output_dir/stdout.log``
-    where ``output_dir`` is given.  A second call replaces the handlers of
-    the first instead of stacking them (JAX ``utils/logging.py:43-67``)."""
+    where ``output_dir`` is given; on a rank other than 0 nowhere.  A
+    second call replaces the handlers of the first instead of stacking
+    them (JAX ``utils/logging.py:43-67``)."""
     logger = logging.getLogger(NAME)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
         handler.close()
+    if not is_master_proc():
+        logger.addHandler(logging.NullHandler())
+        return logger
     handlers = [_Stdout()]
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)

@@ -336,9 +336,10 @@ def _port_modules():
 @pytest.mark.parametrize("path", sorted(_port_modules()),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_pandas_pil_or_module_level_decoders(path):
-    """The port imports no ``pandas`` or ``PIL`` anywhere, and ``cv2`` /
-    ``av`` only inside functions, so it imports on a machine without
-    them."""
+    """The port imports no ``pandas`` or ``PIL`` anywhere but inside the
+    functions of the EPIC-Kitchens dataset (its annotation pickles) and
+    RandAugment (PIL's ops), and ``cv2`` / ``av`` only inside functions,
+    so it imports on a machine without them."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
 
@@ -349,10 +350,20 @@ def test_no_pandas_pil_or_module_level_decoders(path):
             return [(node.module or "").split(".")[0]]
         return []
 
-    for node in ast.walk(tree):
-        assert not {"pandas", "PIL"} & set(names(node)), (path, node.lineno)
+    inside_only = {"cv2", "av"}
+    if os.path.relpath(path, ROOT) in PANDAS_PIL_INSIDE:
+        inside_only |= {"pandas", "PIL"}
+    else:
+        for node in ast.walk(tree):
+            assert not {"pandas", "PIL"} & set(names(node)), (path,
+                                                               node.lineno)
     top = [n for n in tree.body]
     top += [n for t in tree.body if isinstance(t, (ast.Try, ast.If))
             for n in ast.walk(t)]
     for node in top:
-        assert not {"cv2", "av"} & set(names(node)), (path, node.lineno)
+        assert not inside_only & set(names(node)), (path, node.lineno)
+
+
+# the modules that read pandas pickles or run PIL's ops, inside functions
+PANDAS_PIL_INSIDE = {"procedurevrl_torch/datasets/epickitchens.py",
+                     "procedurevrl_torch/datasets/rand_augment.py"}

@@ -203,7 +203,8 @@ Phases (any failure exits non-zero):
    (``configs/EK/egocentric_action_classification.yaml``), since slice 19
    on the EPIC dataset's dummy split through the host loader (RandAugment
    on; phase 36 times the loader alone; the split cut to 32 segments, 4
-   times over): 1 optimizer step (2 until slice 19) of 4 micro-batches of
+   times over): 1 optimizer step (2 until slice 19) of 2 micro-batches (4
+   until slice 20) of
    32 clips x 32 frames
    through ``train_net.train`` and its val epoch (per micro-batch 12 K1sp
    and 12 K1b, per val batch 12 K1f, no K2), one micro-batch step against
@@ -225,10 +226,10 @@ Phases (any failure exits non-zero):
    preprocess must be the build of ``csrc/videoproc.cpp`` and must run;
    the loader alone (host arrays, then pinned and copied to the card) on
    the pretraining train split (2 samples of 9 clips x 8 frames at 224^2,
-   ``NUM_WORKERS`` 8) and the COIN test split, 5 batches each (12 and all
-   until slice 19); two passes of one loader
+   ``NUM_WORKERS`` 8) and the COIN test split, 2 batches each (12 and all
+   until slice 19, 5 until slice 20); two passes of one loader
    give identical batches; ``train_net.train`` on ``procedurevrl_adamw.yaml``
-   through the loader (2 warm-up + 2 timed steps, per step 12 K1sp, 12
+   through the loader (2 warm-up + 1 timed steps, per step 12 K1sp, 12
    K2f, 12 K1b, 12 K2b); one model's step fed by the loader and by
    ``SyntheticPretrain``'s device-drawn batch (loader, device, device,
    loader: clips/s and one profiled step each); ``test_net.test`` on
@@ -238,9 +239,11 @@ Phases (any failure exits non-zero):
 36. slice 19, the EPIC-Kitchens dataset and the extract tools: a tree of
    two ``cv2`` MP4s at 456x256 (a 50 and a 60 fps video id), their
    ``rgb_frames`` JPGs and a pickled list of 16 segments; the loader alone
-   at EK's train shape with RandAugment (samples/s on the host, then
+   at EK's clip shape, 8 clips a batch, with RandAugment (samples/s on the
+   host, then
    pinned and copied), decoding and reading the JPGs; ``train_net.train``
-   on the EK config through it (one step of 4 micro-batches of 32, then a
+   on the EK config through it (one step of 2 micro-batches of 32, 4 until
+   slice 20, then a
    val epoch: 12 K1sp + 12 K1b a micro-batch, 12 K1f a val batch, no K2)
    and ``test_net.test`` in 2 batches (12 K1f each); ``emb_extract`` on a
    seeded ViT-B/16-shaped text tower (12 layers, width 512) over
@@ -252,9 +255,10 @@ Phases (any failure exits non-zero):
    rows of the global batches of TimeSformer-B order pretraining (3 steps,
    one sample a rank), of one such step under ``TPU.SHARD_OPT_STATE``
    (ZeRO-1; each rank's optimizer bytes) and of one EK step (2 micro-batches of 32
-   clips, 16 a rank); rank 0 launches per micro-batch 12 K1f + 12 K1br (12
-   K2f + 12 K2b where T = 8) and no K1sp or K1b (JAX's multi-device
-   route), and its losses, gradients and parameters are held against one
+   clips, 16 a rank), since slice 20 on models 4 blocks deep
+   (``DDP_DEPTH``); rank 0 launches per micro-batch one K1f + one K1br a
+   block (and one K2f + one K2b where T = 8) and no K1sp or K1b (JAX's
+   multi-device route), and its losses, gradients and parameters are held against one
    process on the global batch within phase 7's limits (the first step's
    gradients; every parameter after it within AdamW's 2 lr); ZeRO-1's
    parameters equal the plain optimizer's; ``tools/dryrun.py`` on 2 ranks;
@@ -262,7 +266,41 @@ Phases (any failure exits non-zero):
    (one card: one NCCL rank).  To stay in time, slice 19 cut the step
    counts of phases 7, 9, 11, 15, 16, 18, 19, 30 and 35, the synthetic
    index of phases 30 and 31, and the repeats a kernel time is the median
-   of (21 -> 11).
+   of (21 -> 11); slice 20 cut the launches a kernel time averages (20 ->
+   10), the micro-batches of phases 33 and 36's EK step (4 -> 2), phase
+   35's loader batches timed alone (5 -> 2) and timed steps (2 -> 1), the
+   clips of a batch phase 36 times the EPIC loader on (32 -> 8), and the
+   depth of phase 37's models and run_net test (12 -> 4 blocks).
+38. slice 20, the MViT leftovers: K6f / K6b at each of the 7 block
+   geometries of the MViT-v2-S step under ``MVIT_HL=0`` (``HL0_SHAPES``,
+   every block folded to ``[B*H, qN, 96]``) against their plain versions,
+   timed beside SDPA with the bias as a float mask, with their bounds (the
+   ``kernels`` record ``<K6 name>:MVIT_HL=0``: a launch averaged over the
+   step's 16 blocks); one MViT-v2-S order-pretraining step through
+   ``train_net.train`` under ``MVIT_HL=0`` (16 K6f + 16 K6b, no K5); then
+   one step of one model (the route each knob selects set on its attention
+   modules, the first step's weights restored before each) and batch on
+   the default route and under
+   ``MVIT_HL=0``, each with its launches
+   asserted, held to the default's within phase 7's limits, its device
+   busy profiled and its peak memory above the resident state printed;
+   and ``MViTRoute.from_env`` refusing each of ``REFUSED_KNOBS``;
+39. slice 20, the BatchNorm video family on the dummy Kinetics split:
+   SlowFast 8x8 R50 at the published widths of PySlowFast's
+   ``configs/Kinetics/SLOWFAST_8x8_R50.yaml`` (``SLOWFAST_8X8``, cut as
+   ``BN_FAMILY_CUTS`` says: 8 clips a step, one epoch of 2 steps, precise
+   BN over 2 batches) through ``train_net.train`` (a checkpoint and a val
+   epoch), a resume from its ``OUTPUT_DIR`` whose BN statistics equal the
+   trained model's bit for bit, a timed and a profiled step, and
+   ``test_net.test``
+   of the file on one video's 10 x 3 views at 256^2 (2 batches); one step
+   of Slow 8x8 R50 (``SLOW_8x8_R50.yaml``) and of X3D-M (``X3D_M.yaml``)
+   through ``train_net.train``, then two more on a ready batch, timed and
+   profiled;
+   no port kernel on these paths (asserted); and each model's eval
+   predictions and SGD step in fp32 with TF32 off on the card against the
+   CPU (same weights and 2 clips); clips/s, device busy and peak memory
+   beside the card's name and power limit.
 Every phase that trains or tests gives ``OUTPUT_DIR`` a temporary
 directory of its own (the shipped configs name ``.``, and AUTO_RESUME would
 pick up a checkpoint left there), and sends the port's log lines, which
@@ -464,8 +502,13 @@ EK_OPTS = ("DEV.LOAD_DUMMY_DATA", "True", "TRAIN.EPOCH_MUL", "2")
 # one step, and the dummy split cut to 32 segments (epochs 4 times over)
 # for a shorter val and test; the shapes are the config's
 EK_STEPS = 1
+# since slice 20 a step of phases 33 and 36 is 2 micro-batches of 32 (4 of
+# 32, GLOBAL_BATCH_SIZE 128, as shipped until then): the loader feeds
+# ~4-11 samples/s, and fewer keep the script in time
+EK_STEP_CLIPS = "64"
 EK_VIDEOS = 32
-EK_SPLIT_OPTS = ("TRAIN.EPOCH_MUL", "4")
+EK_SPLIT_OPTS = ("TRAIN.EPOCH_MUL", "4", "GLOBAL_BATCH_SIZE",
+                 EK_STEP_CLIPS)
 EK_TEST_OPTS = ("TRAIN.ENABLE", "False", "TEST.NUM_ENSEMBLE_VIEWS", "1",
                 "TEST.NUM_SPATIAL_CROPS", "1")
 # the EPIC heads' logits (divided by DEV.TEMP, no softmax) through the
@@ -487,16 +530,16 @@ ALL_NONE = dict.fromkeys(SHIFT_KNOBS, "none")
 # pretraining batches; train_net.train through it for LOADER_STEPS steps;
 # the step fed by the loader and by SyntheticPretrain's device-drawn batch,
 # WARMUP_STEPS + LOADER_TIMED steps each, twice
-LOADER_BATCHES = 5
-LOADER_STEPS = 4                        # 2 warm-up + 2 timed
-LOADER_TIMED = 2
+LOADER_BATCHES = 2                      # 5 until slice 20
+LOADER_STEPS = 3                        # 2 warm-up + 1 timed (+1 until 20)
+LOADER_TIMED = 1                        # 2 until slice 20
 # slice 19: the EPIC-Kitchens tree phase 36 writes (video, frame rate: a
 # three-digit id is EPIC-100's 50 fps, a two-digit one 60), 8 segments of
 # EPIC_SEG_S seconds a video, EPIC_SPACING_S apart, at 456x256
 EPIC_VIDEOS = (("P01_101", 50), ("P02_03", 60))
 EPIC_SEGMENTS, EPIC_SEG_S, EPIC_SPACING_S = 8, 1.2, 1.25
 EPIC_W, EPIC_H = 456, 256
-# 16 segments 8 times over: 128 samples, one optimizer step of 4 x 32
+# 16 segments 8 times over: 128 samples, optimizer steps of 2 x 32
 EPIC_TREE_OPTS = ("DEV.LOAD_DUMMY_DATA", "False", "TRAIN.EPOCH_MUL", "8",
                   "DATA.DECODING_BACKEND", "cv2",
                   "EPICKITCHENS.TRAIN_LIST", "segments.pkl",
@@ -514,6 +557,86 @@ FEAT_VIDEOS = 8                         # 8 videos x 3 views, 2 batches
 # micro-batches), and the ranks
 DDP_STEPS = {"plain": 3, "zero": 1, "ek": 1}
 DDP_RANKS = 2
+# since slice 20 phase 37's programs and its run_net test run TimeSformer-B
+# and the CLIP tower 4 blocks deep (12 as shipped until then), to keep the
+# script in time
+DDP_DEPTH = 4
+DDP_SHALLOW = ("TIMESFORMER.DEPTH", str(DDP_DEPTH), "DEV.TEXT_LAYERS",
+               str(DDP_DEPTH))
+# slice 20: K6 at each block geometry of the MViT-v2-S step (18 clips)
+# under MVIT_HL=0, folded to [B*H, qN, 96]: (label, B*H, qN, key grid,
+# blocks of the step with it)
+HL0_SHAPES = (("block 0", 18, 25088, (8, 7, 7), 1),
+              ("block 1", 36, 6272, (8, 14, 14), 1),
+              ("block 2", 36, 6272, (8, 7, 7), 1),
+              ("block 3", 72, 1568, (8, 14, 14), 1),
+              ("blocks 4-13", 72, 1568, (8, 7, 7), 10),
+              ("block 14", 144, 392, (8, 14, 14), 1),
+              ("block 15", 144, 392, (8, 7, 7), 1))
+# the MViT knobs of slice 20: the route phase 38 steps, and the TPU layout
+# knobs the port refuses
+LEFTOVER_ROUTES = (("MVIT_HL=0", {"MVIT_HL": "0"}),)
+REFUSED_KNOBS = ({"MVIT_RELV2": "gather"}, {"MVIT_RELV2": "einsum"},
+                 {"MVIT_SAVE_REL": "1"}, {"MVIT_MAXPOOL": "taps"})
+# the BatchNorm family at published widths, PySlowFast's
+# configs/Kinetics/SLOWFAST_8x8_R50.yaml, SLOW_8x8_R50.yaml and X3D_M.yaml
+# (MODEL, DATA, SLOWFAST, RESNET, X3D, NONLOCAL, BN and SOLVER groups)
+_KINETICS_SOLVER = ("MODEL.NUM_CLASSES", "400", "MODEL.LOSS_FUNC",
+                    "cross_entropy", "MODEL.DROPOUT_RATE", "0.5",
+                    "BN.USE_PRECISE_STATS", "True", "SOLVER.BASE_LR", "0.1",
+                    "SOLVER.LR_POLICY", "cosine", "SOLVER.MOMENTUM", "0.9",
+                    "SOLVER.WARMUP_START_LR", "0.01",
+                    "SOLVER.OPTIMIZING_METHOD", "sgd",
+                    "DATA.TRAIN_JITTER_SCALES", "[256, 320]",
+                    "DATA.TRAIN_CROP_SIZE", "224", "DATA.TEST_CROP_SIZE",
+                    "256", "RESNET.ZERO_INIT_FINAL_BN", "True")
+SLOWFAST_8X8 = _KINETICS_SOLVER + (
+    "MODEL.MODEL_NAME", "SlowFast", "MODEL.ARCH", "slowfast",
+    "DATA.NUM_FRAMES", "32", "DATA.SAMPLING_RATE", "2",
+    "DATA.INPUT_CHANNEL_NUM", "[3, 3]", "SLOWFAST.ALPHA", "4",
+    "SLOWFAST.BETA_INV", "8", "SLOWFAST.FUSION_CONV_CHANNEL_RATIO", "2",
+    "SLOWFAST.FUSION_KERNEL_SZ", "7", "RESNET.WIDTH_PER_GROUP", "64",
+    "RESNET.NUM_GROUPS", "1", "RESNET.DEPTH", "50",
+    "RESNET.TRANS_FUNC", "bottleneck_transform",
+    "RESNET.NUM_BLOCK_TEMP_KERNEL", "[[3, 3], [4, 4], [6, 6], [3, 3]]",
+    "RESNET.SPATIAL_STRIDES", "[[1, 1], [2, 2], [2, 2], [2, 2]]",
+    "RESNET.SPATIAL_DILATIONS", "[[1, 1], [1, 1], [1, 1], [1, 1]]",
+    "NONLOCAL.LOCATION", "[[[], []], [[], []], [[], []], [[], []]]",
+    "NONLOCAL.GROUP", "[[1, 1], [1, 1], [1, 1], [1, 1]]",
+    "NONLOCAL.INSTANTIATION", "dot_product", "SOLVER.MAX_EPOCH", "196",
+    "SOLVER.WEIGHT_DECAY", "1e-4", "SOLVER.WARMUP_EPOCHS", "34.0",
+    "TEST.NUM_ENSEMBLE_VIEWS", "10", "TEST.NUM_SPATIAL_CROPS", "3")
+SLOW_8X8 = _KINETICS_SOLVER + (
+    "MODEL.MODEL_NAME", "ResNet", "MODEL.ARCH", "slow", "DATA.NUM_FRAMES",
+    "8", "DATA.SAMPLING_RATE", "8", "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "RESNET.WIDTH_PER_GROUP", "64", "RESNET.NUM_GROUPS", "1",
+    "RESNET.DEPTH", "50", "RESNET.TRANS_FUNC", "bottleneck_transform",
+    "RESNET.NUM_BLOCK_TEMP_KERNEL", "[[3], [4], [6], [3]]",
+    "NONLOCAL.INSTANTIATION", "softmax", "SOLVER.MAX_EPOCH", "196",
+    "SOLVER.WEIGHT_DECAY", "1e-4", "SOLVER.WARMUP_EPOCHS", "34.0")
+X3D_M = _KINETICS_SOLVER + (
+    "MODEL.MODEL_NAME", "X3D", "MODEL.ARCH", "x3d", "DATA.NUM_FRAMES", "16",
+    "DATA.SAMPLING_RATE", "5", "DATA.INPUT_CHANNEL_NUM", "[3]",
+    "X3D.WIDTH_FACTOR", "2.0", "X3D.DEPTH_FACTOR", "2.2",
+    "X3D.BOTTLENECK_FACTOR", "2.25", "X3D.DIM_C5", "2048", "X3D.DIM_C1",
+    "12", "RESNET.TRANS_FUNC", "x3d_transform", "BN.WEIGHT_DECAY", "0.0",
+    "SOLVER.MAX_EPOCH", "300", "SOLVER.WEIGHT_DECAY", "5e-5",
+    "SOLVER.WARMUP_EPOCHS", "35.0")
+# what phase 39 cuts: 8 clips a step (64 / 128 published), one epoch of 2
+# steps, precise BN over 2 batches (200), the dummy split (BN_TRAIN_VIDEOS
+# videos to train on, one to test on 30 views in 2 batches of 15)
+BN_FAMILY_CUTS = ("DEV.LOAD_DUMMY_DATA", "True", "TRAIN.DATASET", "kinetics",
+                  "TEST.DATASET", "kinetics", "TRAIN.BATCH_SIZE", "8",
+                  "GLOBAL_BATCH_SIZE", "8", "SOLVER.MAX_EPOCH", "1",
+                  "BN.NUM_BATCHES_PRECISE", "2", "TRAIN.EVAL_PERIOD", "1",
+                  "TRAIN.CHECKPOINT_PERIOD", "1", "TRAIN.AUTO_RESUME", "True",
+                  "MODEL.PRETRAINED", "False", "TRAIN.LABEL_EMB", "",
+                  "DATA_LOADER.NUM_WORKERS", "8", "TEST.BATCH_SIZE", "15",
+                  "LOG_PERIOD", "1")
+BN_TRAIN_VIDEOS = 16
+# fp32 with TF32 off, card against CPU: post-softmax predictions (~1/400
+# each at a random init) through 50+ eval-mode BN layers, which are affine
+FP32_PRED_ATOL = 1e-5
 
 
 
@@ -543,7 +666,7 @@ def job_dir(cfg):
         shutil.rmtree(out, ignore_errors=True)
 
 
-def time_ms(torch, fn, iters: int = 20, reps: int = 11) -> float:
+def time_ms(torch, fn, iters: int = 10, reps: int = 11) -> float:
     """Device time of one call in ms: the median over ``reps`` of CUDA-event
     time around ``iters`` back-to-back calls, divided by ``iters``.  A device
     sleep is queued first, so the host enqueues the whole run before the
@@ -2044,6 +2167,15 @@ def step_vs_plain(torch, cfg, k1, k2, k5, k8, batch=None):
     step, mk, gk = one_step()
     with plain_attention(k1, k2, k5, k8):
         _, mp, gp = one_step()
+    held_to_step("train step vs plain versions", mk, gk, mp, gp)
+    return step, batch
+
+
+def held_to_step(what: str, mk: dict, gk: dict, mp: dict, gp: dict) -> None:
+    """One step's metrics ``mk`` and gradients ``gk`` held to the reference
+    step's ``mp`` / ``gp`` within phase 7's limits: the loss and the global
+    gradient norm, each trained tensor's gradient cosine, and the norm of
+    a gradient that is nought to rounding on the reference."""
     if set(gk) != set(gp):
         fail(f"trained tensors differ between the paths: "
              f"{sorted(set(gk) ^ set(gp))}")
@@ -2061,12 +2193,14 @@ def step_vs_plain(torch, cfg, k1, k2, k5, k8, batch=None):
             worst_cos, worst = cos, name
     zero_k = max((z[0] for z in zero.values()), default=0.0)
     zero_p = max((z[1] for z in zero.values()), default=0.0)
-    kinds = sorted({re.sub(r"\.\d+\.", ".*.", n) for n in zero})
+    kinds = sorted({re.sub(r"\d+", "*", n) for n in zero})
+    if len(kinds) > 8:
+        kinds = kinds[:8] + [f"... {len(kinds) - 8} more"]
     d_loss = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
     d_norm = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
     parts = "".join(f"{k} {mk[k]:.6f} / {mp[k]:.6f}, " for k in ("kl", "mse")
                     if k in mk)
-    print(f"train step vs plain versions: loss {mk['loss']:.6f} / "
+    print(f"{what}: loss {mk['loss']:.6f} / "
           f"{mp['loss']:.6f} (rel {d_loss:.2e}, tol {STEP_LOSS_RTOL}), "
           f"{parts}grad norm {mk['grad_norm']:.6f} / "
           f"{mp['grad_norm']:.6f} (rel {d_norm:.2e}, tol {STEP_NORM_RTOL}), "
@@ -2080,14 +2214,13 @@ def step_vs_plain(torch, cfg, k1, k2, k5, k8, batch=None):
     if not all(math.isfinite(v) for v in mk.values()):
         fail("train step metrics are not finite")
     if d_loss > STEP_LOSS_RTOL or d_norm > STEP_NORM_RTOL:
-        fail("the train step through the kernels disagrees with the plain path")
+        fail(f"{what}: the step disagrees with its reference")
     if worst_cos < STEP_MIN_COS:
-        fail(f"gradient of {worst} disagrees with the plain path "
+        fail(f"{what}: gradient of {worst} disagrees with the reference "
              f"(cosine {worst_cos:.4f})")
     if zero_k > ZERO_GRAD_RTOL:
-        fail("a gradient that is nought on the plain path is not small "
-             "through the kernels")
-    return step, batch
+        fail(f"{what}: a gradient that is nought on the reference is not "
+             "small on the other path")
 
 
 def phase_train(torch, k1, k2, k5, k8, _build) -> dict:
@@ -3804,7 +3937,7 @@ def phase_ek(torch, F, k1, k2, k5, k8, _build) -> list:
     """Slice 17, the EPIC-Kitchens-100 full finetune at its shipped width:
     ``train_net.train`` on ``EK_CFG`` (TimeSformer-B, 32 frames at 224^2,
     verb + noun heads, AdamW, bf16, remat under the default policy, mixup
-    set and not applied) for ``EK_STEPS`` optimizer steps of 4 micro-batches
+    set and not applied) for ``EK_STEPS`` optimizer steps of 2 micro-batches
     of 32 clips through the EPIC dataset's dummy split (cut to
     ``EK_VIDEOS`` segments), which ends with a val epoch (1 batch of 32);
     per micro-batch 12 K1sp and 12 K1b, per val batch 12 K1f, and no K2 (T
@@ -4372,14 +4505,15 @@ def phase_epic_data(torch, k1, k2, k5, k8, _build) -> None:
         tree = (*EPIC_TREE_OPTS, "EPICKITCHENS.VISUAL_DATA_DIR", folder,
                 "EPICKITCHENS.ANNOTATIONS_DIR",
                 os.path.join(folder, "annotations"))
-        # the loader alone at EK's train shape, RandAugment on: on the
+        # the loader alone at EK's clip shape, RandAugment on: on the
         # host over 2 batches by each reader, then pinned and copied over
         # 4 (batches 2-4: the copy runs 2 batches ahead, fewer would time
-        # only the fill)
+        # only the fill); 8 clips a batch since slice 20 (32 until then)
         for label, frames, copied in (("decoded (cv2)", "False", True),
                                       ("rgb_frames JPGs", "True", False)):
             cfg = ek_cfg(*tree, "DEV.EPIC_USE_FRAME_LOADER", frames,
-                         "TRAIN.EPOCH_MUL", "4")  # 2 batches of 32
+                         "TRAIN.EPOCH_MUL", "1", "TRAIN.BATCH_SIZE", "8",
+                         "GLOBAL_BATCH_SIZE", "8")  # 2 batches of 8
             loader = loader_mod.construct_loader(cfg, "train")
             host = loader_rate(torch, loader, len(loader), False)
             line = (f"EPIC loader alone, {label}: {loader.local_batch} clips "
@@ -4389,7 +4523,7 @@ def phase_epic_data(torch, k1, k2, k5, k8, _build) -> None:
                     f"{cfg.DATA_LOADER.NUM_WORKERS}): {host:.2f} samples/s "
                     f"on the host (batch 2)")
             if copied:
-                cfg.TRAIN.EPOCH_MUL = 8  # 4 batches
+                cfg.TRAIN.EPOCH_MUL = 2  # 4 batches
                 loader = loader_mod.construct_loader(cfg, "train")
                 loader_mod.reset_copies()
                 card = loader_rate(torch, loader, len(loader), True)
@@ -4399,8 +4533,8 @@ def phase_epic_data(torch, k1, k2, k5, k8, _build) -> None:
                          "MiB)")
             print(line)
 
-        # train_net.train on the tree: one step of 4 x 32, a val epoch
-        cfg = ek_cfg(*tree)
+        # train_net.train on the tree: one step of 2 x 32, a val epoch
+        cfg = ek_cfg(*tree, "GLOBAL_BATCH_SIZE", EK_STEP_CLIPS)
         accum = cfg.GLOBAL_BATCH_SIZE // cfg.TRAIN.BATCH_SIZE
         n_val = len(loader_mod.construct_loader(cfg, "val"))
         t0 = time.perf_counter()
@@ -4518,7 +4652,7 @@ def ddp_cfg(name: str):
     config: 2 samples of 9 clips a step, one a rank), under ZeRO-1, and
     the EK step (2 micro-batches of 32 clips x 32 frames, 16 a rank;
     mixup set, not applied), each with ``NUM_GPUS`` the ranks."""
-    ranks = ("NUM_GPUS", str(DDP_RANKS))
+    ranks = ("NUM_GPUS", str(DDP_RANKS), *DDP_SHALLOW)
     if name == "ek":
         return ek_cfg("GLOBAL_BATCH_SIZE", "64", *ranks)
     zero = ("TPU.SHARD_OPT_STATE", "True") if name == "zero" else ()
@@ -4712,11 +4846,11 @@ def phase_ddp(torch, k1, k2, k5, k8, _build) -> None:
     for name in names:
         micro = DDP_STEPS[name] * got[name]["accum"]
         expected = dict(silent)
-        expected.update({k1.KERNEL: DEPTH * micro,
-                         k1.KERNEL_BWD_RECOMPUTE: DEPTH * micro})
+        expected.update({k1.KERNEL: DDP_DEPTH * micro,
+                         k1.KERNEL_BWD_RECOMPUTE: DDP_DEPTH * micro})
         if name != "ek":  # EK's 32 frames take the plain temporal pass
-            expected.update({k2.KERNEL: DEPTH * micro,
-                             k2.KERNEL_BWD: DEPTH * micro})
+            expected.update({k2.KERNEL: DDP_DEPTH * micro,
+                             k2.KERNEL_BWD: DDP_DEPTH * micro})
         check_launches(got[name]["launches"], expected,
                        f"{name} on rank 0 of {DDP_RANKS}")
         lr = want["ek" if name == "ek" else "plain"]["history"][0]["lr"]
@@ -4743,7 +4877,8 @@ def phase_ddp(torch, k1, k2, k5, k8, _build) -> None:
     # run_net over NCCL at NUM_GPUS = the cards; one card is one NCCL rank
     # of its own group (launch_job keeps 1 x 1 a process with no group)
     cfg = coin_cfg("step_classification", *zero_shot_opts(
-        "TEST.NUM_ENSEMBLE_VIEWS", "1", "NUM_GPUS", str(cards)))
+        "TEST.NUM_ENSEMBLE_VIEWS", "1", "NUM_GPUS", str(cards),
+        *DDP_SHALLOW))
     t0 = time.perf_counter()
     with job_dir(cfg) as job:
         if cards > 1:
@@ -4759,6 +4894,383 @@ def phase_ddp(torch, k1, k2, k5, k8, _build) -> None:
           f"{time.perf_counter() - t0:.1f} s")
     if '"split": "test_final"' not in logged:
         fail("run_net over NCCL logged no final test stats")
+
+
+# ------------------------------------------------------------- slice 20
+
+
+def phase_hl0_kernels(torch, F, k5) -> list:
+    """K6f / K6b at every block geometry of the MViT-v2-S step under
+    ``MVIT_HL=0`` (``HL0_SHAPES``: each block folded to ``[B*H, qN, 96]``),
+    against their plain versions, timed beside SDPA with the bias as a float
+    mask, with their bounds as phase 8 computes K6's; returns the two
+    records, each number the mean of a launch over the step's 16 blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    scale = 96 ** -0.5
+    sums = {key: [0.0] * 5 for key in ("f", "b")}  # ms, plain, lib, bound, n
+    errs = {"f": 0.0, "b": 0.0}
+    by = {"f": (0.0, ""), "b": (0.0, "")}  # the largest bound's limit
+    for label, bh, qn, k_shape, blocks in HL0_SHAPES:
+        x = mvit_inputs(torch, gen, bh, 1, qn, k_shape, torch.bfloat16)
+        args = (*x[:6], k_shape, scale)
+        out, rowsum = k5.mvit_attention_fwd(*args)
+        ref, ref_rs = k5.mvit_attention_fwd_plain(*args)
+        errs["f"] = max(errs["f"], compare(
+            torch, f"K6f MVIT_HL=0 {label} bf16 out", out, ref,
+            MVIT_FWD_TOL))
+        compare(torch, f"K6f MVIT_HL=0 {label} rowsum", rowsum, ref_rs,
+                ROWSUM_TOL)
+        bargs = (*x[:6], ref_rs, x[6], k_shape, scale)
+        got, want = k5.mvit_attention_bwd(*bargs), \
+            k5.mvit_attention_bwd_plain(*bargs)
+        errs["b"] = max(errs["b"], *(
+            compare(torch, f"K6b MVIT_HL=0 {label} bf16 {n}", a, r,
+                    own_tol(MVIT_GRAD_TOL, r))
+            for n, a, r in zip(("dq", "dk", "dv", "dkc", "dvc", "drel"),
+                               got, want)))
+        del out, ref, got, want
+        ms_f = time_ms(torch, lambda: k5.mvit_attention_fwd(*args), 5, 5)
+        ms_b = time_ms(torch, lambda: k5.mvit_attention_bwd(*bargs), 5, 5)
+        plain_f = time_ms(torch, lambda: k5.mvit_attention_fwd_plain(*args),
+                          1, 3)
+        plain_b = time_ms(torch, lambda: k5.mvit_attention_bwd_plain(*bargs),
+                          1, 3)
+        lib_f, lib_b = mvit_sdpa_ms(torch, F, k5, x, 1, k_shape, scale)
+        kn, kcat, c, e = x[1].shape[1], sum(k_shape), 96, 2
+        ins = e * (bh * qn * c + 2 * bh * kn * c + 2 * bh * c + bh * qn * kcat)
+        nb_f = ins + e * bh * qn * c + 4 * bh * qn
+        nb_b = ins + 4 * bh * qn + e * bh * qn * c + ins
+        pairs = bh * qn * (kn + 1) * 96
+        bf_ms, bf_by = bound_ms(nb_f, 4 * pairs, BF16_FLOPS)
+        bb_ms, bb_by = bound_ms(nb_b, 10 * pairs, BF16_FLOPS)
+        for key, vals, limit in (("f", (ms_f, plain_f, lib_f, bf_ms), bf_by),
+                                 ("b", (ms_b, plain_b, lib_b, bb_ms), bb_by)):
+            by[key] = max(by[key], (blocks * vals[3], limit))
+            for i, v in enumerate(vals):
+                sums[key][i] += blocks * v
+            sums[key][4] += blocks
+            print(f"K6{key} MVIT_HL=0 {label} [{bh},{qn},96] x kN {kn} bf16 "
+                  f"({blocks} a step): kernel {vals[0]:.4f} ms, plain "
+                  f"{vals[1]:.4f} ms, SDPA+mask {vals[2]:.4f} ms, bound "
+                  f"{vals[3]:.4f} ms")
+    src = "procedurevrl_torch/csrc/mvit_attention.cu"
+    where = "procedurevrl_tpu/ops/pallas_mvit_attention.py:"
+    records = []
+    for key, name, line in (("f", k5.KERNEL, 197), ("b", k5.KERNEL_BWD, 221)):
+        ms, plain, lib, bnd, n = sums[key]
+        records.append({"name": f"{name}:MVIT_HL=0", "route": "cuda",
+                        "source": src, "replaces": f"{where}{line}",
+                        "max_abs_err": errs[key], "ms": ms / n,
+                        "plain_ms": plain / n, "bound_ms": bnd / n,
+                        "bound_by": by[key][1], "library_ms": lib / n})
+        print(f"K6{key} under MVIT_HL=0, a launch averaged over the step's "
+              f"{n:.0f} blocks: {ms / n:.4f} ms, plain {plain / n:.4f} ms, "
+              f"SDPA+mask {lib / n:.4f} ms, bound {bnd / n:.4f} ms")
+    return records
+
+
+def phase_mvit_leftovers(torch, k1, k2, k5, k8, _build, smi: str) -> dict:
+    """Slice 20, the MViT knobs that select no new kernel, on MViT-v2-S
+    order pretraining at full width and depth (``MVIT_CFG``, remat): one
+    step of ``train_net.train`` under ``MVIT_HL=0`` (16 K6f + 16 K6b, no K5);
+    then one step of one model (the route each knob selects set on its
+    attention modules, the first step's weights restored before each) and
+    batch on the default route and under each of ``LEFTOVER_ROUTES``, each
+    held to the default's within
+    phase 7's limits, with its launches asserted, its peak memory above the
+    resident state and its device busy.  Before them, each of
+    ``REFUSED_KNOBS`` must make ``MViTRoute.from_env`` raise.  Returns the
+    ``MVIT_HL=0`` run's launch counts."""
+    from procedurevrl_torch.datasets.synthetic import SyntheticPretrain
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.models.mvit import MultiScaleAttention, MViTRoute
+    from procedurevrl_torch.solver.lr_policy import lr_schedule
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+
+    knobs = MVIT_KNOBS + tuple(k for _, kn in LEFTOVER_ROUTES for k in kn) \
+        + tuple(k for kn in REFUSED_KNOBS for k in kn)
+    if any(os.environ.get(k) for k in knobs):
+        fail(f"phase 38 sets its own knobs: unset {sorted(set(knobs))}")
+    for kn in REFUSED_KNOBS:
+        with knobs_set(kn):
+            try:
+                MViTRoute.from_env()
+            except ValueError:
+                continue
+        fail(f"MViTRoute.from_env took the refused knob {kn}")
+    print(f"MViTRoute.from_env refuses {REFUSED_KNOBS}")
+    none = dict.fromkeys(k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8), 0)
+    blocks = MVIT_BLOCKS
+    hl0 = {**none, k5.KERNEL: blocks, k5.KERNEL_BWD: blocks}
+    with knobs_set({"MVIT_HL": "0"}):
+        stats, launches, peak = run_train(torch, _build, mvit_cfg(), 1)
+    h = stats["history"][0]
+    if not math.isfinite(h["loss"]):
+        fail("the MVIT_HL=0 step is not finite")
+    check_launches(launches, hl0, "one MVIT_HL=0 step of train_net.train")
+    print(f"MViT MVIT_HL=0 through train_net.train: loss {h['loss']:.6f}, "
+          f"peak memory {peak / 2 ** 30:.3f} GiB, launches {launches}")
+
+    cfg = mvit_cfg()
+    batch = SyntheticPretrain(cfg).batch(2, 0, torch.Generator(device="cuda"))
+    default = {**none, k5.KERNEL_HL: MVIT_HL_BLOCKS,
+               k5.KERNEL_HL_BWD: MVIT_HL_BLOCKS, k5.KERNEL: MVIT_HS_BLOCKS,
+               k5.KERNEL_BWD: MVIT_HS_BLOCKS}
+    # one model for every route: the route each knob selects is set on its
+    # attention modules, and the first step's weights restored before each
+    model, bank = build_model(cfg, "cuda")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    ref = None
+    for label, kn in (("default", {}),) + LEFTOVER_ROUTES:
+        with knobs_set(kn):
+            route = MViTRoute.from_env(cfg.TPU.USE_PALLAS_ATTENTION)
+        for m in model.modules():
+            if isinstance(m, MultiScaleAttention):
+                m.route = route
+        model.load_state_dict(start)
+        step = make_train_step(model, construct_optimizer(model, cfg), cfg,
+                               bank, lr_schedule(cfg, 1))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        m = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        launches_1 = dict(_build.LAUNCHES)
+        step_peak_b = torch.cuda.max_memory_allocated() - resident
+        grads = {n: p.grad.float().clone() for n, p in
+                 model.named_parameters() if p.requires_grad}
+        check_launches(launches_1, hl0 if kn.get("MVIT_HL") == "0"
+                       else default, f"one MViT step under {label}")
+        if ref is None:
+            ref = (m, grads)
+        else:
+            held_to_step(f"MViT step under {label} vs the default route", m,
+                         grads, *ref)
+        busy = profile_step(torch, f"one MViT step under {label} (18 clips, "
+                            "remat)", lambda: float(step(batch)["loss"]),
+                            top=4)
+        print(f"MViT step under {label}: device busy {busy:.3f} ms, the "
+              f"step's peak memory above the resident state "
+              f"{step_peak_b / 2 ** 30:.3f} GiB ({smi})")
+        del step, grads
+        torch.cuda.empty_cache()
+    del model, start
+    torch.cuda.empty_cache()
+    return launches
+
+
+def steps_per_sec(torch, step, batch) -> float:
+    """Train steps a second of ``step`` on a batch already on the card: one
+    warm-up step, then one timed to its host read of the loss."""
+    float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(step(batch)["loss"])
+    return 1.0 / (time.perf_counter() - t0)
+
+
+def bn_busy(torch, model, batch, label: str, step_busy: float) -> None:
+    """Device busy of a step's BatchNorms alone: every ``video_batch_norm``
+    call of one train-mode forward of ``batch``, replayed forward and
+    backward (gradients of its input, scale and shift) on the input it took
+    and on copies of its statistics, profiled as ``profile_step`` does;
+    printed beside ``step_busy``, the whole step's."""
+    from procedurevrl_torch.models import resnet_video as rv
+
+    calls, plain = [], rv.video_batch_norm
+
+    def keep(x, weight, bias, mean, var, *rest):
+        calls.append((x.detach().clone().requires_grad_(),
+                      weight.detach().clone().requires_grad_(),
+                      bias.detach().clone().requires_grad_(), mean.clone(),
+                      var.clone(), *rest))
+        return plain(x, weight, bias, mean, var, *rest)
+
+    rv.video_batch_norm = keep
+    try:
+        with torch.no_grad():
+            model(batch["frames"], train=True)
+    finally:
+        rv.video_batch_norm = plain
+    grads = [torch.ones_like(c[0]) for c in calls]
+
+    def replay():
+        for c, g in zip(calls, grads):
+            torch.autograd.grad(plain(*c), c[:3], g)
+
+    busy = profile_step(torch, f"the {len(calls)} BatchNorms of one {label} "
+                        "step alone (forward + backward)", replay, top=3)
+    print(f"{label} step: its {len(calls)} BatchNorms alone take {busy:.3f} "
+          f"ms of device busy, {100 * busy / step_busy:.1f} % of the step's "
+          f"{step_busy:.3f} ms")
+    del calls, grads
+    torch.cuda.empty_cache()
+
+
+def bn_family_cfg(opts, *more):
+    """A config of the BatchNorm family on the dummy Kinetics split: the
+    published configuration ``opts`` cut as ``BN_FAMILY_CUTS`` says, then
+    ``more``."""
+    from procedurevrl_torch.config import load_config
+
+    return load_config(None, [*opts, *BN_FAMILY_CUTS, *more])
+
+
+def bn_cpu_vs_card(torch, opts, label: str) -> None:
+    """One forward (eval predictions) and one SGD step (loss, gradients,
+    running statistics) of the model of ``opts`` in fp32 with TF32 off on
+    the card against the CPU, same weights (``RNG_SEED``) and batch (2
+    samples of the train loader's first batch), dropout off and no BN
+    zero-initialised (else every residual branch's convolutions take a
+    nought gradient at init): the predictions to ``FP32_PRED_ATOL``, the
+    step within phase 7's limits."""
+    from procedurevrl_torch.datasets.loader import construct_loader
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.models.build import build_model
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+
+    cfg = bn_family_cfg(opts, "TPU.COMPUTE_DTYPE", "float32",
+                        "MODEL.DROPOUT_RATE", "0.0",
+                        "MODEL.DROPCONNECT_RATE", "0.0",
+                        "RESNET.ZERO_INIT_FINAL_BN", "False")
+    full = first_batch(construct_loader(cfg, "train"))
+    batch = {k: full[k][:2].cpu() for k in ("frames", "labels")}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cpu", "cuda"):
+            model, _ = build_model(cfg, device)
+            dev = {k: v.to(device) for k, v in batch.items()}
+            with torch.no_grad():
+                preds = model(dev["frames"], train=False).cpu()
+            step = make_train_step(model, construct_optimizer(model, cfg),
+                                   cfg, None, lambda s: 0.1)
+            m = {k: float(v) for k, v in step(dev).items()}
+            out[device] = (preds, m, {
+                n: p.grad.float().cpu() for n, p in model.named_parameters()
+                if p.requires_grad}, {k: v.cpu() for k, v in
+                                      model.bn_state().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    (pc, mc, gc, sc), (pg, mg, gg, sg) = out["cpu"], out["cuda"]
+    d_pred = (pg - pc).abs().max().item()
+    d_stats = max(((sg[k] - v).abs().max() / v.abs().max().clamp_min(1e-12)
+                   ).item() for k, v in sc.items())
+    print(f"{label} fp32 (TF32 off), card vs CPU: eval predictions max |d| "
+          f"{d_pred:.3e} (tol {FP32_PRED_ATOL}), running statistics after "
+          f"the step max |d| / max |x| {d_stats:.3e}")
+    if d_pred > FP32_PRED_ATOL:
+        fail(f"{label}: the card's fp32 predictions disagree with the CPU's")
+    held_to_step(f"{label} fp32 step, card vs CPU", mg, gg, mc, gc)
+
+
+def phase_bn_family(torch, k1, k2, k5, k8, _build, smi: str) -> None:
+    """Slice 20, the BatchNorm video family on the dummy Kinetics split:
+    SlowFast 8x8 R50 at its published widths (``SLOWFAST_8X8``) through
+    ``train_net.train`` (``BN_TRAIN_VIDEOS`` videos: an epoch of 2 steps of
+    8 clips, precise BN over 2 batches, a checkpoint, a val epoch), a
+    resume from its ``OUTPUT_DIR`` whose running statistics equal the
+    trained model's bit for bit, and ``test_net.test`` of the file on one
+    video's 10 x 3 views at 256^2 in 2 batches; Slow 8x8 R50 and X3D-M one
+    step each through ``train_net.train``, then a timed and a profiled
+    step; no port kernel on these paths; each model's forward and step
+    in fp32 on the card against the CPU.  Clips/s, device busy and peak
+    memory beside the card."""
+    from procedurevrl_torch.datasets import kinetics
+    from procedurevrl_torch.datasets.loader import construct_loader
+    from procedurevrl_torch.engine.steps import make_train_step
+    from procedurevrl_torch.solver.optimizer import construct_optimizer
+    from procedurevrl_torch.tools.test_net import test
+    from procedurevrl_torch.tools.train_net import train
+
+    none = dict.fromkeys(k1k2_kernels(k1, k2) + mvit_kernel_names(k5, k8), 0)
+    out = tempfile.mkdtemp(prefix="chip_smoke_bn_")
+    saved_videos = kinetics.NUM_DUMMY
+    try:
+        kinetics.NUM_DUMMY = BN_TRAIN_VIDEOS
+        cfg = bn_family_cfg(SLOWFAST_8X8, "OUTPUT_DIR", out)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with quiet():
+            stats = train(cfg, "cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(dict(_build.LAUNCHES), none, "SlowFast training")
+        losses = [h["loss"] for h in stats["history"]]
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            fail(f"SlowFast steps {losses}")
+        model = stats["model"]
+        trained = {k: v.clone() for k, v in model.bn_state().items()}
+        print(f"SlowFast 8x8 R50 through train_net.train: losses {losses}, "
+              f"{stats['clips_per_step']} clips/step, val {stats['val']}, "
+              f"peak memory {peak / 2 ** 30:.3f} GiB, checkpoints "
+              f"{len(stats['checkpoints'])} ({smi})")
+        with quiet():
+            again = train(bn_family_cfg(SLOWFAST_8X8, "OUTPUT_DIR", out),
+                          "cuda")
+        if again["steps"] != 0 or again["start_epoch"] != 1:
+            fail("the SlowFast resume did not restore the finished run")
+        for k, v in again["model"].bn_state().items():
+            if not same_bits(torch, v, trained[k]):
+                fail(f"the resumed {k} differs from the trained one")
+        print(f"SlowFast resume: {len(trained)} running statistics equal "
+              "the trained model's bit for bit")
+        del again
+        step = make_train_step(model, construct_optimizer(model, cfg), cfg,
+                               None, lambda s: 0.1)
+        batch = first_batch(construct_loader(cfg, "train"))
+        batch.pop("index")
+        rate = steps_per_sec(torch, step, batch) * 8
+        busy = profile_step(torch, "one SlowFast 8x8 R50 step (8 clips)",
+                            lambda: float(step(batch)["loss"]), top=6)
+        print(f"SlowFast step: {rate:.2f} clips/s over a step fed a ready "
+              f"batch, device busy {busy:.3f} ms ({smi})")
+        bn_busy(torch, model, batch, "SlowFast 8x8 R50", busy)
+        del model, step, stats
+        kinetics.NUM_DUMMY = 1
+        _build.reset_launches()
+        with quiet():
+            res = test(bn_family_cfg(SLOWFAST_8X8, "OUTPUT_DIR", out),
+                       "cuda")
+        check_launches(dict(_build.LAUNCHES), none, "the SlowFast test")
+        print(f"SlowFast multi-view test (1 video x 30 views, 2 batches): "
+              f"{res}")
+        kinetics.NUM_DUMMY = BN_TRAIN_VIDEOS
+        for label, opts in (("Slow 8x8 R50", SLOW_8X8), ("X3D-M", X3D_M)):
+            cfg = bn_family_cfg(opts, "TRAIN.EVAL_PERIOD", "100")
+            run, launches, peak = run_train(torch, _build, cfg, 1)
+            check_launches(launches, none, f"a {label} step")
+            loss = run["history"][0]["loss"]
+            if not math.isfinite(loss):
+                fail(f"the {label} step is not finite")
+            model = run["model"]
+            step = make_train_step(model, construct_optimizer(model, cfg),
+                                   cfg, None, lambda s: 0.1)
+            batch = first_batch(construct_loader(cfg, "train"))
+            batch.pop("index")
+            rate = steps_per_sec(torch, step, batch) * 8
+            busy = profile_step(torch, f"one {label} step (8 clips)",
+                                lambda: float(step(batch)["loss"]), top=4)
+            print(f"{label}: one step through train_net.train, loss "
+                  f"{loss:.6f}, peak memory {peak / 2 ** 30:.3f} GiB; "
+                  f"{rate:.2f} clips/s over a step fed a ready batch, "
+                  f"device busy {busy:.3f} ms ({smi})")
+            bn_busy(torch, model, batch, label, busy)
+            del model, step, batch, run
+            torch.cuda.empty_cache()
+        for label, opts in (("SlowFast 8x8 R50", SLOWFAST_8X8),
+                            ("Slow 8x8 R50", SLOW_8X8), ("X3D-M", X3D_M)):
+            bn_cpu_vs_card(torch, opts, label)
+            torch.cuda.empty_cache()
+    finally:
+        kinetics.NUM_DUMMY = saved_videos
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def main() -> int:
@@ -4921,10 +5433,20 @@ def main() -> int:
           torch, k1, k2, k5, k8, _build)
     timed("37 slice 19 data parallel", phase_ddp, torch, k1, k2, k5, k8,
           _build)
+    hl0_kernels = timed("38 K6 under MVIT_HL=0", phase_hl0_kernels, torch,
+                        F, k5)
+    launches = timed("38 slice 20 MViT leftovers", phase_mvit_leftovers,
+                     torch, k1, k2, k5, k8, _build, smi_line)
+    for rec in hl0_kernels:
+        rec["launches"] = launches.get(rec["name"].split(":")[0], 0)
+        if not rec["launches"]:
+            fail(f"{rec['name']} was not launched on the MVIT_HL=0 path")
+    timed("39 slice 20 BatchNorm family", phase_bn_family, torch, k1, k2, k5,
+          k8, _build, smi_line)
     kernels = (eval_kernels + train_kernels + mvit_kernels + knob_kernels
                + ts_knob_kernels + route_kernels + flash_kernels
                + long_kernels + head_dim_kernels + shift_kernels
-               + ek_kernel_recs)
+               + ek_kernel_recs + hl0_kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

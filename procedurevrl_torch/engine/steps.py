@@ -25,7 +25,8 @@ micro-batches, sums their gradients and divides by their number before the
 one update (the mean of micro-batch gradients, JAX ``steps.py:225-252``).
 
 Random streams: one ``torch.Generator`` each for "diffusion", "subset",
-"droppath" and "mixup", on the model's device, re-seeded for every
+"droppath", "mixup" and "dropout" (the BatchNorm family's heads), on the
+model's device, re-seeded for every
 micro-batch from ``RNG_SEED``, the optimizer step, the micro-batch index
 and the stream's index in :data:`STREAMS`, alike on every rank of a
 group of processes: there each draw over the batch axis is made at the
@@ -35,6 +36,12 @@ draws for the global batch, as JAX draws once under its global view.
 Metrics stay on the device as tensors (``lr`` is a float): the caller
 reads them at log boundaries, so steps queue on the card without a host
 round trip.
+
+A model with BatchNorm statistics (``has_batch_stats``: SlowFast,
+ResNet, X3D) updates them in each train-mode forward, once per micro-batch,
+as JAX's ``apply_train`` carries ``new_ms`` (``steps.py:122-133``), and
+evaluates with them; :func:`make_bn_stats_step` is the forward that only
+updates them (precise BN).
 
 Data parallel (``parallel/ddp.py``): ``model`` may be the
 ``DistributedDataParallel`` wrapper; every micro-batch but the last runs
@@ -62,7 +69,7 @@ from procedurevrl_torch.utils.metrics import (
 )
 
 # a new stream goes last: each stream's seed follows its index
-STREAMS = ("diffusion", "subset", "droppath", "mixup")
+STREAMS = ("diffusion", "subset", "droppath", "mixup", "dropout")
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -231,6 +238,32 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         return all_reduce_mean_dict(out)
 
     return train_step
+
+
+def make_bn_stats_step(model: torch.nn.Module, cfg
+                       ) -> Callable[[Dict[str, torch.Tensor], Batch],
+                                     Dict[str, torch.Tensor]]:
+    """``stats_step(model_state, batch)``: the model's BN statistics set to
+    ``model_state``, one train-mode forward of ``batch`` without autograd
+    (weights untouched), and the updated statistics, copied (JAX
+    ``make_bn_stats_step``, ``steps.py:255-267``: its draws those of step
+    0); the model keeps the updated ones until the caller sets others."""
+    device = next(model.parameters()).device
+    gens = {name: torch.Generator(device=device) for name in STREAMS}
+
+    def stats_step(model_state: Dict[str, torch.Tensor],
+                   batch: Batch) -> Dict[str, torch.Tensor]:
+        own = model.bn_state()
+        with torch.no_grad():
+            for k, v in model_state.items():
+                own[k].copy_(v)
+            seed_generators(gens, cfg.RNG_SEED, 0)
+            model.train()
+            model(normalize_frames(batch["frames"], cfg), train=True,
+                  generators=gens)
+        return {k: v.clone() for k, v in own.items()}
+
+    return stats_step
 
 
 def make_eval_step(model: torch.nn.Module, cfg,

@@ -1,4 +1,5 @@
-"""Model builder (TimeSformer-B and MViT-v2) and step-bank loading
+"""Model builder (TimeSformer-B, MViT-v2 and the BatchNorm video family)
+and step-bank loading
 (counterpart of ``procedurevrl_tpu/models/build.py``; reference
 ``lib/models/build.py``).
 
@@ -112,15 +113,34 @@ def _build_mvit(cfg) -> torch.nn.Module:
                             **_head_kwargs(cfg))
 
 
-# MODEL.MODEL_NAME -> builder; the ResNet family is not ported yet
+def _build_resnet_family(name: str):
+    """SlowFast, ResNet (C2D / I3D / Slow) or X3D (JAX
+    ``build.py:112-130``; reference ``video_model_builder.py:152,424,623``)
+    from the ``RESNET``, ``SLOWFAST``, ``X3D``, ``NONLOCAL`` and ``BN``
+    groups."""
+
+    def build(cfg) -> torch.nn.Module:
+        from procedurevrl_torch.models import resnet_video as rv
+
+        return rv.MODELS[name](rv.ResNetFamilyConfig.from_cfg(cfg),
+                               compute_dtype(cfg))
+
+    return build
+
+
+# MODEL.MODEL_NAME -> builder
 MODELS = {"vit_base_patch16_224_develop": _build_timesformer,
-          "MViT": _build_mvit}
+          "MViT": _build_mvit,
+          "SlowFast": _build_resnet_family("SlowFast"),
+          "ResNet": _build_resnet_family("ResNet"),
+          "X3D": _build_resnet_family("X3D")}
 
 
 def build_model(cfg, device: Union[str, torch.device, None] = None
                 ) -> Tuple[torch.nn.Module, Optional[torch.Tensor]]:
-    """The ProcedureVRL model of ``cfg.MODEL.MODEL_NAME`` (TimeSformer-B or
-    MViT-v2).  ``device`` defaults to the card."""
+    """The model of ``cfg.MODEL.MODEL_NAME``: ProcedureVRL on TimeSformer-B
+    or MViT-v2, or a model of the BatchNorm video family (SlowFast, ResNet,
+    X3D).  ``device`` defaults to the card."""
     device = resolve_device(device)
     if cfg.MODEL.MODEL_NAME not in MODELS:
         raise NotImplementedError(

@@ -38,12 +38,30 @@ and every block carries the same :class:`MViTRoute`:
   it takes precedence over ``MVIT_DELTA`` there, and K5 has no such form
   (:517-528, :616-645).
 
+- ``MVIT_HL`` (default on; exactly ``0`` turns it off, as JAX compares
+  the string): off sends every fused block to K6, the head-split kernel,
+  even the blocks K5 takes and, under ``MVIT_KT``, K7 (JAX
+  ``mvit.py:657``, :663).
+
 ``MVIT_SHIFT`` (``max|clamp|none``, read at build; anything else raises
 ``ValueError``): the softmax shift of K5 and K6, the only kernels JAX reads
 it in (``clamp`` exp(min(s, 80)), ``max`` the row max, ``none`` exp(s));
 K7 always takes the row max and the plain path the row-max softmax, as in
-JAX.  The other TPU layout knobs (``MVIT_MAXPOOL``, ``MVIT_RELV2``,
-``MVIT_SAVE_REL``, ``MVIT_HL``) are not copied.
+JAX.
+
+Three TPU layout knobs are refused: setting ``MVIT_RELV2`` (other than
+empty or ``0``), ``MVIT_SAVE_REL`` or ``MVIT_MAXPOOL=taps`` raises
+``ValueError`` at build.  In JAX each builds the same function another way
+(the bias operand from one stacked GEMM, ``mvit.py:408-480``; that operand
+kept across remat, :644-652; the max pools as a chain of ``maximum`` over
+taps, :221, which also splits a tie's gradient) and each stays off there as
+a measured loss on the TPU; no config sets one.  Refusing tells a user who
+sets one that the port runs the default program.
+
+``MVIT_MXU_DSUM`` (JAX ``pallas_mvit_attention.py:143``) is not copied: it
+only changes how the TPU kernel forms its fp32 row sum, on the MXU or the
+VPU, and selects no kernel and no route, as ``SPATIAL_MXU_DSUM`` does (not
+copied either).
 """
 
 from __future__ import annotations
@@ -75,7 +93,7 @@ Thw = Tuple[int, int, int]
 POOL_ROUTES = ("conv", "kernel", "taps")
 # what a block keeps across its recomputation (JAX models/mvit.py:958-962,
 # ops/remat.py); JAX's fifth name, "mvit_rel", exists only under
-# MVIT_SAVE_REL, which the port does not read yet
+# MVIT_SAVE_REL, which the port refuses
 REMAT_NAMES = ("flash_attn_out", "flash_attn_lse", "flash_attn_probs",
                "gelu_grad")
 
@@ -97,16 +115,25 @@ class MViTRoute:
     delta: bool = False         # MVIT_DELTA
     save_probs: bool = False    # MVIT_SAVE_PROBS
     shift: str = "clamp"        # MVIT_SHIFT
+    hl: bool = True             # MVIT_HL
 
     @classmethod
     def from_env(cls, use_pallas: bool = True) -> "MViTRoute":
         """The route the environment selects (``use_pallas`` from the
-        config); a malformed knob raises ``ValueError``."""
+        config); a malformed or refused knob raises ``ValueError``."""
+        refused = [name for name, on in (
+            ("MVIT_RELV2", os.environ.get("MVIT_RELV2", "0") not in ("", "0")),
+            ("MVIT_SAVE_REL", env_flag("MVIT_SAVE_REL", False)),
+            ("MVIT_MAXPOOL", os.environ.get("MVIT_MAXPOOL") == "taps")) if on]
+        if refused:
+            raise ValueError(f"{', '.join(refused)}: TPU layout knob(s) the "
+                             "port does not build; unset them")
         return cls(pool=pool_route_from_env(), kt=env_flag("MVIT_KT", False),
                    use_pallas=bool(use_pallas),
                    delta=env_flag("MVIT_DELTA", False),
                    save_probs=env_flag("MVIT_SAVE_PROBS", False),
-                   shift=read_shift("MVIT_SHIFT"))
+                   shift=read_shift("MVIT_SHIFT"),
+                   hl=os.environ.get("MVIT_HL", "1") != "0")
 
 
 DEFAULT_ROUTE = MViTRoute()
@@ -552,8 +579,9 @@ class MultiScaleAttention(nn.Module):
     def _fused_attention(self, q, k, v, q_shape: Thw, k_shape: Thw,
                          scale: float) -> torch.Tensor:
         """Body queries through K5 (head-last), or where the reference's
-        ``hl_supported`` fails through K7 (with ``route.kt`` and
-        ``kt_supported``) or K6 (head-split), each entry on the backward
+        ``hl_supported`` fails, or ``route.hl`` is off, through K7 (with
+        ``route.kt``, ``route.hl`` and ``kt_supported``) or K6 (head-split),
+        each entry on the backward
         ``route.delta`` / ``route.save_probs`` select; the CLS query row in
         plain PyTorch; returns [B, 1 + qN, C]."""
         B, _, C = q.shape
@@ -574,10 +602,10 @@ class MultiScaleAttention(nn.Module):
         rel = torch.cat(terms, dim=-1).reshape(B, qn, -1)
         body = [t.contiguous() for t in (qb, kb, vb, kc, vc, rel)]
         route = self.route
-        if mattn.hl_supported(kb.shape[1], C, H):
+        if route.hl and mattn.hl_supported(kb.shape[1], C, H):
             out_body = mattn.mvit_attention_hl(*body, k_shape, H, scale,
                                                route.delta, route.shift)
-        elif route.kt and mattn.kt_supported(C, H):
+        elif route.kt and route.hl and mattn.kt_supported(C, H):
             out_body = mattn.mvit_attention_kt(*body, k_shape, H, scale)
         else:
             fold = lambda t: t.reshape(B, t.shape[1], H, -1).transpose(

@@ -17,11 +17,17 @@ transformer's draws, the recognition subset) follow JAX's global view:
 :func:`draw_rows` draws at the global batch's shape from a stream every
 rank seeds alike and keeps this rank's rows, so N ranks draw what one
 process draws for the global batch.
+
+BatchNorm statistics follow it too (:func:`batch_norm_stats`): JAX's
+``VideoBatchNorm`` reduces over the global batch under its global-view
+jit, or over contiguous groups of it, so the ranks all-reduce per-channel
+sums, then sums of squares about the mean, and the backward all-reduces
+the gradients of those sums.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -202,3 +208,66 @@ def draw_rows(draw: Callable[[int], torch.Tensor], rows: int,
     if world == 1:
         return draw(rows)
     return draw(rows * world).narrow(dim, get_rank() * rows, rows)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks; its backward is the sum of the ranks'
+    cotangents (each rank's loss reaches every rank's sums)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = _staged(x.contiguous().clone())
+        dist.all_reduce(y)
+        return y.to(x.device)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        h = _staged(g.contiguous().clone())
+        dist.all_reduce(h)
+        return h.to(g.device)
+
+
+def batch_norm_stats(x: torch.Tensor, splits: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int,
+                                Optional[torch.Tensor]]:
+    """BatchNorm statistics of ``x [B, C, ...]`` (float32, B this rank's
+    rows) over ``splits`` contiguous groups of the global batch (JAX
+    ``VideoBatchNorm``, ``models/resnet_video.py:160-180``): the per-group
+    mean and biased variance ``[splits, C]``, the count of values a group
+    reduces, and the group of each local row ``[B]`` (None for one
+    group).  Rank ``r`` holds
+    rows ``r x B`` onward of the global batch, as the loader deals them; a
+    group may span ranks and a rank may hold several groups.  One process
+    computes each group's mean and variance directly (two passes, as JAX);
+    a group of ranks makes the same two passes, all-reducing the sums, then
+    the sums of squares about the mean, differentiably.  A global batch
+    that does not split raises."""
+    world, rank, b = get_world_size(), get_rank(), x.shape[0]
+    rows = b * world
+    if rows % splits:
+        raise ValueError(f"a global batch of {rows} does not split into "
+                         f"{splits} BN groups")
+    per = rows // splits
+    count = per * int(x[0, 0].numel())
+    first = rank * b
+    groups = (torch.arange(first, first + b, device=x.device) // per
+              if splits > 1 else None)
+    dims = [0] + list(range(2, x.dim()))
+    if world == 1:
+        xs = x.reshape((splits, per) + x.shape[1:])
+        var, mean = torch.var_mean(xs, dim=[d + 1 for d in dims],
+                                   unbiased=False)
+        return mean, var, count, groups
+    parts = []
+    for g in range(splits):
+        lo, hi = max(g * per, first) - first, min((g + 1) * per, first + b) - first
+        parts.append(x[lo:hi] if hi > lo else x[:0])
+    # the mean first, then the sum of squares about it: E[x^2] - mean^2
+    # would lose the variance to fp32 rounding where |mean| >> std
+    mean = _AllReduceSum.apply(torch.stack(
+        [p.sum(dim=dims) for p in parts])) / count
+    centre = (1, -1) + (1,) * (x.dim() - 2)
+    var = _AllReduceSum.apply(torch.stack(
+        [(p - m.reshape(centre)).square().sum(dim=dims)
+         for p, m in zip(parts, mean)])) / count
+    return mean, var, count, groups

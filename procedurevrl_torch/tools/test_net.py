@@ -13,7 +13,9 @@ bank as the classifier, the finetuning heads with none.  The weights come
 from the first of ``TEST.CHECKPOINT_FILE_PATH``, ``OUTPUT_DIR``'s last
 checkpoint and ``TRAIN.CHECKPOINT_FILE_PATH``
 (``utils/checkpoint.py:load_test_checkpoint``), over the pretrained encoder
-of ``TIMESFORMER.PRETRAINED_MODEL``.  ``TEST.SAVE_RESULTS_PATH`` and
+of ``TIMESFORMER.PRETRAINED_MODEL``; a BatchNorm family model (SlowFast,
+ResNet, X3D on Kinetics) evaluates with the running statistics the file
+holds.  ``TEST.SAVE_RESULTS_PATH`` and
 ``TEST.SAVE_PREDICT_PATH`` dump the per-video predictions and labels into
 ``OUTPUT_DIR``.  Batches come from ``construct_loader(cfg, "test")``
 through ``prefetch_to_device``, the last one padded; the meter takes each

@@ -1,7 +1,8 @@
 """Training loop (counterpart of ``tools/train_net.py``; reference
 ``tools/train_net.py:56-530``): order pretraining, the COIN finetunes
-(step classification, task classification and step forecasting heads)
-and the EPIC-Kitchens-100 verb + noun full finetune.
+(step classification, task classification and step forecasting heads),
+the EPIC-Kitchens-100 verb + noun full finetune, and the BatchNorm video
+family on Kinetics.
 
 Each optimizer step takes ``accum = GLOBAL_BATCH_SIZE // (TRAIN.BATCH_SIZE
 x hosts)`` micro-batches of ``TRAIN.BATCH_SIZE`` samples a host, runs the
@@ -34,6 +35,14 @@ trains on, as in JAX).  Data comes from ``datasets/loader.py:construct_loader``
 dataset, files or its dummy split), reshuffled each epoch and copied to
 the card one batch ahead (``prefetch_to_device``).
 
+The BatchNorm video family (SlowFast, ResNet, X3D; since slice 20, on
+Kinetics) trains in train mode, each micro-batch updating the model's
+running statistics; under ``BN.USE_PRECISE_STATS`` they are re-estimated
+(:func:`precise_bn`) before every checkpoint and val epoch, so the file
+and the val epoch see the precise ones; ``BN.FROZEN`` (read by the model)
+keeps them fixed.  A checkpoint holds them (the model's buffers), and
+``TRAIN.AUTO_RESUME`` restores them bit for bit.
+
 In a group of processes (``utils/misc.py:launch_job``, ``parallel/ddp.py``)
 each rank takes its rows of every global batch, the model trains inside
 ``DistributedDataParallel`` (and ``TPU.SHARD_OPT_STATE`` shards the
@@ -52,7 +61,9 @@ import torch
 from procedurevrl_torch.datasets.loader import (
     Loader, construct_loader, prefetch_to_device, shuffle_dataset,
 )
-from procedurevrl_torch.engine.steps import make_eval_step, make_train_step
+from procedurevrl_torch.engine.steps import (
+    make_bn_stats_step, make_eval_step, make_train_step,
+)
 from procedurevrl_torch.models.build import build_model
 from procedurevrl_torch.parallel import ddp
 from procedurevrl_torch.parallel.collectives import (
@@ -61,6 +72,7 @@ from procedurevrl_torch.parallel.collectives import (
 from procedurevrl_torch.solver.lr_policy import lr_schedule
 from procedurevrl_torch.utils import checkpoint as cu
 from procedurevrl_torch.utils import misc, weights
+from procedurevrl_torch.utils.bn import compute_precise_bn_stats
 from procedurevrl_torch.utils.device import resolve_device
 from procedurevrl_torch.utils.logging import get_logger, setup_logging
 from procedurevrl_torch.utils.meters import (
@@ -123,6 +135,24 @@ def eval_epoch(val_loader: Loader, eval_step,
     stats = val_meter.log_epoch_stats(cur_epoch)
     val_meter.reset()
     return stats
+
+
+def precise_bn(model: torch.nn.Module, stats_step, loader: Loader,
+               device, cfg) -> None:
+    """Precise BN before a checkpoint or a val epoch (JAX
+    ``tools/train_net.py:404-423``): the model's running statistics
+    re-estimated over ``BN.NUM_BATCHES_PRECISE`` batches of the train split
+    (``utils/bn.py``) with its weights frozen; the prefetch iterator is
+    closed after the last batch it takes, so the loader's producer stops."""
+    batches = device_batches(loader, device, cfg)
+    with contextlib.closing(batches):
+        precise = compute_precise_bn_stats(
+            stats_step, {k: v.clone() for k, v in model.bn_state().items()},
+            (b for b, _n, _e, _h in batches),
+            min(cfg.BN.NUM_BATCHES_PRECISE, len(loader)))
+    with torch.no_grad():
+        for k, v in model.bn_state().items():
+            v.copy_(precise[k])
 
 
 def _check_multigrid(cfg) -> None:
@@ -197,6 +227,8 @@ def train(cfg, device: Union[str, torch.device, None] = None,
     clips_per_step = accum * batch_size * train_loader.dataset.clips
     meter = TrainMeter(steps_per_epoch, cfg)
     ckpt = cu.AsyncCheckpointer() if cfg.TPU.ASYNC_CHECKPOINT else None
+    stats_step = (make_bn_stats_step(model, cfg) if cfg.BN.USE_PRECISE_STATS
+                  and getattr(model, "has_batch_stats", False) else None)
     logger.info("Start epoch: %d (optimizer step %d); %d optimizer steps of "
                 "%d micro-batches x %d samples (%d clips)", start_epoch + 1,
                 start_step, total, accum, batch_size, clips_per_step)
@@ -254,12 +286,17 @@ def train(cfg, device: Union[str, torch.device, None] = None,
         epoch_end = cur_iter + 1 == steps_per_epoch
         meter.log_epoch_stats(epoch)
         meter.reset()
-        if epoch_end and cu.is_checkpoint_epoch(cfg, epoch):
+        is_checkp = epoch_end and cu.is_checkpoint_epoch(cfg, epoch)
+        is_eval = val is not None and (
+            (epoch_end and misc.is_eval_epoch(cfg, epoch))
+            or (cut and done == total))
+        if (is_checkp or is_eval) and stats_step is not None:
+            precise_bn(model, stats_step, train_loader, device, cfg)
+        if is_checkp:
             save = ckpt.save if ckpt is not None else cu.save_checkpoint
             saved.append(save(cfg.OUTPUT_DIR, model, optimizer, cfg, epoch,
                               start_step + done))
-        if val is not None and ((epoch_end and misc.is_eval_epoch(cfg, epoch))
-                                or (cut and done == total)):
+        if is_eval:
             if device.type == "cuda":  # queued train steps stay timed
                 torch.cuda.synchronize(device)
             t_eval = time.perf_counter()

@@ -11,8 +11,14 @@ takes the newest.  A file is the reference's own ``.pyth``, a
 names), plus the key :data:`FORMAT_KEY`, which marks the files the port
 wrote.  So a reference checkpoint loads into the port by its parameters,
 and a port checkpoint loads into the JAX package through its reference path
-(``load_reference_params`` -> ``convert_procedurevrl``).  A checkpoint of
-the JAX package (flax msgpack bytes) is refused by name.
+(``load_reference_params`` -> ``convert_procedurevrl``).  The model state
+holds the model's buffers too: the BatchNorm family's running statistics
+are in the file, and a resume restores them bit for bit.  A checkpoint of
+the JAX package (flax msgpack bytes) loads its parameters, and a
+BatchNorm model's ``batch_stats``, by the JAX rule where a file is named
+(``TRAIN.CHECKPOINT_FILE_PATH``, ``TEST.CHECKPOINT_FILE_PATH``;
+``weights.read_jax_native``); ``TRAIN.AUTO_RESUME`` takes only the port's
+own files.
 
 Writes go to ``path + ".tmp"`` and are renamed into place, so a crash
 mid-save leaves no half file for AUTO_RESUME to pick.
@@ -274,7 +280,7 @@ def load_train_checkpoint(cfg, model: torch.nn.Module,
         return 0, 0
     logger.info("Load from given checkpoint file %s.", path)
     _check_type(cfg.TRAIN.CHECKPOINT_TYPE)
-    blob = weights.read_file(path)
+    blob = weights.read_checkpoint(path)
     if _is_port_file(blob) and _matches(blob, model, optimizer):
         epoch, step = _restore(blob, path, model, optimizer)
     else:
@@ -303,7 +309,7 @@ def load_test_checkpoint(cfg, model: torch.nn.Module) -> Optional[str]:
         logger.info("Unknown way of loading checkpoint. Using with random "
                     "initialization, only for debugging.")
         return None
-    blob = weights.read_file(path)
+    blob = weights.read_checkpoint(path)
     if _is_port_file(blob) and set(blob["model_state"]) == set(
             model.state_dict()):
         weights.load_into(model, blob["model_state"])

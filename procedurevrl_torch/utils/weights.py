@@ -5,7 +5,11 @@ The port's state dict uses the reference ``.pyth`` names and layouts, so a
 reference checkpoint loads as it is, and the JAX package's
 ``convert_procedurevrl`` maps ``port.state_dict()`` onto the JAX parameter
 tree.  ``params_from_jax`` is the inverse of that converter, for moving
-JAX-initialised parameters (nested dicts of numpy arrays) into the port.
+JAX-initialised parameters (nested dicts of numpy arrays) into the port;
+``resnet_state_from_jax`` that of ``convert_resnet_video`` for the
+BatchNorm video family, ``batch_stats`` included.  A checkpoint the JAX
+package wrote (flax msgpack in a pickle) is read by :func:`read_jax_native`
+with ``msgpack`` and without flax.
 
 Loading follows JAX ``utils/checkpoint.py``: :func:`load_reference_params`
 (a full model's file, shape-filtered, ``time_embed`` resized) and
@@ -200,6 +204,55 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the 1x1x1 convolutions JAX writes as Dense layers (``[in, out]``
+# kernels), as ``convert_resnet_video`` lists them
+_RESNET_DENSE = ("conv_theta", "conv_phi", "conv_g", "conv_out", "se/fc1",
+                 "se/fc2")
+
+
+def _flat(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def resnet_state_from_jax(params: Mapping, batch_stats: Optional[Mapping]
+                          = None) -> Dict[str, torch.Tensor]:
+    """JAX ``(params, batch_stats)`` of SlowFast / ResNet / X3D (nested
+    dicts of numpy arrays) -> the port's state dict, running statistics
+    included: the inverse of ``convert_resnet_video`` (JAX
+    ``utils/converter.py:331``).  Conv kernels ``[kt, kh, kw, in, out]`` ->
+    ``[out, in, kt, kh, kw]``; the Dense 1x1x1 convolutions ``[in, out]`` ->
+    ``[out, in, 1, 1, 1]``; the projection ``[in, out]`` -> ``[out, in]``;
+    BN ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+    ``running_var`` (``[C]``, or ``[splits, C]``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in _flat(params).items():
+        mod, leaf = path.rsplit("/", 1)
+        key = mod.replace("/", ".")
+        if leaf == "scale":
+            out[key + ".weight"] = _t(v)
+        elif leaf == "bias":
+            out[key + ".bias"] = _t(v)
+        elif leaf == "kernel" and v.ndim == 5:
+            out[key + ".weight"] = _conv(v)
+        elif leaf == "kernel" and any(m in mod for m in _RESNET_DENSE):
+            out[key + ".weight"] = _t(v.T.reshape(*v.T.shape, 1, 1, 1))
+        elif leaf == "kernel":
+            out[key + ".weight"] = _t(v.T)
+        else:
+            raise KeyError(f"no port name for the JAX parameter {path}")
+    names = {"mean": "running_mean", "var": "running_var"}
+    for path, v in _flat(batch_stats or {}).items():
+        mod, leaf = path.rsplit("/", 1)
+        out[mod.replace("/", ".") + "." + names[leaf]] = _t(v)
+    return out
+
+
 def strip_prefixes(state: Mapping, prefixes: Iterable[str] = ("module.",
                                                               "model.")
                    ) -> Dict:
@@ -240,15 +293,83 @@ def is_jax_native(path: str) -> bool:
                                                  bytes)
 
 
+def _flax_ext(code: int, data: bytes):
+    """flax's msgpack extensions (``serialization._msgpack_ext_unpack``):
+    code 1 an ndarray, 3 a numpy scalar, each the msgpack of ``(shape,
+    dtype name, buffer)``; bfloat16 is read through torch, as numpy has no
+    such dtype."""
+    import msgpack
+
+    if code not in (1, 3):
+        raise ValueError(f"msgpack extension {code} is not read here")
+    shape, name, buf = msgpack.unpackb(data, raw=False)
+    if name == "bfloat16":
+        arr = torch.frombuffer(bytearray(buf), dtype=torch.bfloat16
+                               ).float().numpy()
+    else:
+        arr = np.frombuffer(buf, dtype=np.dtype(name)).copy()
+    arr = arr.reshape(shape)
+    return arr[()] if code == 3 else arr
+
+
+def flax_tree(data: bytes) -> dict:
+    """The tree of flax's ``serialization.to_bytes`` (numpy leaves), read
+    with ``msgpack``, flax's own dependency, without flax; a tree whose
+    arrays flax chunked (over 2**30 bytes) raises."""
+    import msgpack
+
+    tree = msgpack.unpackb(data, ext_hook=_flax_ext, raw=False)
+    if _chunked(tree):
+        raise ValueError("chunked flax arrays are not read here")
+    return tree
+
+
+def _chunked(tree) -> bool:
+    return isinstance(tree, dict) and (
+        "__msgpack_chunked_array__" in tree
+        or any(_chunked(v) for v in tree.values()))
+
+
+def read_jax_native(path: str) -> dict:
+    """A checkpoint of the JAX package as a file of the reference's form:
+    ``{"model_state": <the port's state dict>, "epoch", "step"}``.  A
+    BatchNorm family model (its tree has ``s1``) converts with its
+    ``batch_stats`` (:func:`resnet_state_from_jax`), any other through
+    :func:`params_from_jax`; the optimizer state is not read.  A tree that
+    does not convert raises ``ValueError`` naming the file."""
+    with open(path, "rb") as f:
+        blob = _PlainUnpickler(f).load()
+    try:
+        params = flax_tree(blob["model_state"])
+        if "s1" in params:
+            stats = (flax_tree(blob["batch_stats"])
+                     if blob.get("batch_stats") is not None else None)
+            state = resnet_state_from_jax(params, stats)
+        else:
+            state = params_from_jax(params)
+    except (KeyError, ValueError, TypeError) as e:
+        raise ValueError(f"checkpoint {path!r} of the JAX package does not "
+                         f"convert to the port's model: {e!r}") from e
+    return {"model_state": state, "epoch": blob.get("epoch"),
+            "step": blob.get("step", 0)}
+
+
+def read_checkpoint(path: str):
+    """A file to load parameters from: a checkpoint of the JAX package
+    through :func:`read_jax_native`, any other through :func:`read_file`."""
+    return read_jax_native(path) if is_jax_native(path) else read_file(path)
+
+
 def read_file(path: str):
     """``torch.load`` of a checkpoint file onto the CPU; a file of the JAX
-    package is refused with a ``ValueError`` naming it, since its flax
-    msgpack trees cannot be decoded without flax."""
+    package is refused with a ``ValueError`` naming it (its parameters load
+    through :func:`read_checkpoint`, its optimizer state nowhere)."""
     if is_jax_native(path):
         raise ValueError(
             f"{path} is a checkpoint of the JAX package (flax msgpack bytes "
-            "in a pickle), which the port cannot read: load the reference "
-            ".pyth file, or a checkpoint the port wrote")
+            "in a pickle), whose optimizer state the port cannot read: "
+            "load its parameters as a checkpoint file, or resume from a "
+            "checkpoint the port wrote")
     return torch.load(path, map_location="cpu", weights_only=False)
 
 

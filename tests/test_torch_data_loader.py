@@ -316,8 +316,8 @@ def test_loader_refusals():
     with pytest.raises(NotImplementedError, match="MULTIGRID.SHORT_CYCLE"):
         construct_loader(cfg, "train")
     cfg.MULTIGRID.SHORT_CYCLE = False
-    cfg.TRAIN.DATASET = "kinetics"
-    with pytest.raises(KeyError, match="Kinetics"):
+    cfg.TRAIN.DATASET = "ssv2"  # not ported (Kinetics is, since slice 20)
+    with pytest.raises(KeyError, match="Ssv2"):
         construct_loader(cfg, "train")
     with pytest.raises(ValueError, match="split"):
         construct_loader(cfg, "dev")

@@ -63,6 +63,8 @@ from test_torch_train import (
 TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=5e-5, rtol=5e-5)
 GROUP_SECONDS = 600  # the whole group, spawn to join
+BN = ("batchnorm", "sub_batchnorm", "sync_batchnorm")
+BN_SPLITS = (1, 3)
 
 
 def _launch(programs, out_dir, join_timeout=GROUP_SECONDS):
@@ -121,6 +123,8 @@ def group(tmp_path_factory, fixed_inputs):
                                        out_dir=str(out / "test_epic"))),
         ("resume", "resume", dict(out_dir=str(out / "resume"),
                                   opts=("TPU.SHARD_OPT_STATE", "True"))),
+        *((f"bn_{norm}", "batchnorm", dict(norm_type=norm)) for norm in BN),
+        *((f"bn_stats_{n}", "bn_stats", dict(splits=n)) for n in BN_SPLITS),
     ]
     _launch(programs, out)
     return out
@@ -163,6 +167,42 @@ def test_two_ranks_equal_one_process(name, group):
                            want[branch]["metrics"]["lr"])
         else:
             _same_step(got, want, want["metrics"]["lr"])
+
+
+@pytest.mark.parametrize("norm", BN)
+def test_two_ranks_give_one_process_s_batch_norm(norm, group):
+    """BatchNorm over ranks (JAX ``test_bn_stats_sharded_equals_single_
+    device`` for the port): both ranks hold one process's train-mode
+    outputs of their rows, gradients, running statistics and eval outputs,
+    for the global batch's statistics, splits that span the ranks and
+    per-rank groups."""
+    want = ranks.batchnorm(norm)
+    for rank in (0, 1):
+        got = _result(group, f"bn_{norm}", rank)
+        rows = slice(rank * 6, (rank + 1) * 6)
+        for key in ("out", "preds"):
+            np.testing.assert_allclose(got[key].numpy(),
+                                       want[key][rows].numpy(), **TOL,
+                                       err_msg=key)
+        for key, tol in (("grads", GRAD_TOL), ("bn", TOL)):
+            assert set(got[key]) == set(want[key])
+            for k, v in want[key].items():
+                np.testing.assert_allclose(got[key][k].numpy(), v.numpy(),
+                                           **tol, err_msg=k)
+
+
+@pytest.mark.parametrize("splits", BN_SPLITS)
+def test_two_ranks_give_one_process_s_statistics_about_a_large_mean(
+        splits, group):
+    """Clips about a mean of 1000 with a standard deviation of 1: the ranks'
+    per-group variances equal one process's two-pass ones, which the
+    one-pass E[x^2] - mean^2 would miss by percents in fp32."""
+    want = ranks.bn_stats(splits)
+    for rank in (0, 1):
+        got = _result(group, f"bn_stats_{splits}", rank)
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(got[key].numpy(), want[key].numpy(),
+                                       **TOL, err_msg=key)
 
 
 def test_the_draws_are_the_global_batchs():

@@ -158,8 +158,9 @@ def test_mixup_matches_jax(branch):
 
 def test_the_mixup_stream_comes_last():
     """``mixup`` joined the streams at the end, so the others keep their
-    index, and so their seeds."""
-    assert steps.STREAMS == ("diffusion", "subset", "droppath", "mixup")
+    index, and so their seeds; a later stream (``dropout``) comes after
+    it."""
+    assert steps.STREAMS[:4] == ("diffusion", "subset", "droppath", "mixup")
 
 
 def _ek_cfg(cfg):

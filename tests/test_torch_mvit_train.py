@@ -245,7 +245,8 @@ def test_builder_makes_the_mvit_model():
     assert all(k.startswith(("video_encoder.", "head.", "order_tfm.",
                              "text_model.")) for k in model.state_dict())
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(_tiny_cfg("MODEL.MODEL_NAME", "SlowFast"), device="cpu")
+        build_model(_tiny_cfg("MODEL.MODEL_NAME", "NoSuchModel"),
+                    device="cpu")
 
 
 def test_full_size_batch_shape():

@@ -19,11 +19,12 @@ import torch.distributed as dist
 from procedurevrl_torch.config import get_cfg, load_config
 from procedurevrl_torch.datasets import howto100m
 from procedurevrl_torch.engine.steps import make_train_step
+from procedurevrl_torch.models import resnet_video as rv
 from procedurevrl_torch.models.build import build_model
 from procedurevrl_torch.models.procedurevrl import ProcedureVRL
 from procedurevrl_torch.parallel import ddp
 from procedurevrl_torch.parallel.collectives import (
-    get_rank, get_world_size, sync_global_barrier,
+    batch_norm_stats, get_rank, get_world_size, sync_global_barrier,
 )
 from procedurevrl_torch.solver.lr_policy import lr_schedule
 from procedurevrl_torch.tools import dryrun
@@ -123,6 +124,64 @@ def mixup(n: int = 4):
         cfg.MIXUP.SWITCH_PROB = 0.0 if branch == "mixup" else 1.0
         out[branch] = train_step(cfg, [batch])
     return out
+
+
+class _BNNet(torch.nn.Module):
+    """A stem, a bottleneck block and a linear head of the BatchNorm
+    family (``models/resnet_video.py``), each BN of ``norm``."""
+
+    def __init__(self, norm):
+        super().__init__()
+        self.stem = rv.ResNetBasicStem(3, 8, (1, 5, 5), (1, 2, 2), (0, 2, 2),
+                                       norm)
+        self.block = rv.ResBlock(8, 16, 3, 2, rv.BottleneckTransform, 4,
+                                 norm=norm)
+        self.head = torch.nn.Linear(16, 5)
+
+    def forward(self, x, train: bool):
+        x = self.block(self.stem(x.permute(0, 4, 1, 2, 3), train), train)
+        return self.head(x.mean(dim=(2, 3, 4)))
+
+
+def batchnorm(norm_type: str, n: int = 12):
+    """One forward and backward of :class:`_BNNet` (seeded weights) under
+    ``norm_type`` in train mode over a global batch of ``n`` (``DDP`` in a
+    group), and its eval forward after: ``batchnorm`` the global batch,
+    ``sub_batchnorm`` 3 splits of 4 rows (the middle one spans the two
+    ranks' 6), ``sync_batchnorm`` one group a rank (``NUM_SYNC_DEVICES`` 1
+    of ``NUM_GPUS`` 2).  This process's rows of the outputs, the averaged
+    gradients and the running statistics."""
+    norm = rv.get_norm_builder(norm_type, 3, 2)
+    torch.manual_seed(5)
+    model = _BNNet(norm)
+    gen = torch.Generator().manual_seed(6)
+    for m in model.modules():
+        if isinstance(m, rv.Conv3d):
+            m.reset_parameters(gen)
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(_rows(rng.randn(n, 4, 16, 16, 3).astype(np.float32)))
+    labels = torch.from_numpy(_rows(rng.randint(0, 5, n)))
+    net = ddp.wrap_model(model)
+    out = net(x, True)
+    torch.nn.functional.cross_entropy(out, labels).backward()
+    with torch.no_grad():
+        preds = model(x, False)
+    return {"out": out.detach(), "preds": preds,
+            "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+            "bn": {k: v.clone() for k, v in model.named_buffers()}}
+
+
+def bn_stats(splits: int, n: int = 12, mean: float = 1000.0):
+    """:func:`batch_norm_stats` of clips ``[n, 3, 4, 4, 4]``
+    about ``mean`` with a standard deviation of 1, in ``splits`` groups of
+    the global batch (3 of 4 rows: the middle one spans two ranks' 6):
+    the groups' means and variances.  Where |mean| >> std, E[x^2] - mean^2
+    loses the variance to fp32 rounding."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(_rows((mean + rng.randn(n, 3, 4, 4, 4)).astype(
+        np.float32)))
+    m, v, _, _ = batch_norm_stats(x, splits)
+    return {"mean": m, "var": v}
 
 
 def fixed(path: str, method: str = "adamw"):
